@@ -1,0 +1,6 @@
+"""Blocks of the port's host runtime."""
+
+from .stream import Head
+from .vector import NullSink, NullSource, VectorSink, VectorSource
+
+__all__ = ["Head", "NullSink", "NullSource", "VectorSink", "VectorSource"]

@@ -1,0 +1,51 @@
+"""Carry conversion from the JAX package.
+
+A stage carry in the port has the same leaves, shapes and dtypes as the JAX
+stage's carry on the CPU. :func:`carry_from_numpy` rebuilds the port's carry
+from the JAX carry's leaves, flattened in tree order to numpy arrays by the
+caller (``[np.asarray(l) for l in jax.tree_util.tree_leaves(carry)]``), so a
+stream can move from one package to the other mid-run.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .ops.stages import Pipeline
+
+__all__ = ["carry_from_numpy"]
+
+
+def _flatten(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in _flatten(sub)]
+    return [tree]
+
+
+def _unflatten(template, leaves):
+    if isinstance(template, (tuple, list)):
+        return tuple(_unflatten(sub, leaves) for sub in template)
+    return next(leaves)
+
+
+def carry_from_numpy(pipeline: Pipeline, leaves: Sequence[np.ndarray], device) -> tuple:
+    """The port's carry for ``pipeline`` on ``device`` from the JAX carry's
+    numpy leaves; raises ``ValueError`` on a leaf count, shape or dtype that
+    does not match the port's carry."""
+    device = torch.device(device)
+    template = pipeline.init_carry("cpu")
+    t_leaves = _flatten(template)
+    if len(leaves) != len(t_leaves):
+        raise ValueError(f"carry has {len(t_leaves)} leaves, got {len(leaves)}")
+    out = []
+    for i, (leaf, t) in enumerate(zip(leaves, t_leaves)):
+        a = np.asarray(leaf)
+        want = t.numpy().dtype
+        if a.shape != tuple(t.shape) or a.dtype != want:
+            raise ValueError(f"carry leaf {i}: expected {tuple(t.shape)} {want}, "
+                             f"got {a.shape} {a.dtype}")
+        out.append(torch.from_numpy(np.array(a)).to(device))
+    return _unflatten(template, iter(out))

@@ -1,0 +1,416 @@
+"""Streaming stages on PyTorch tensors: the port's unit of composition.
+
+The counterpart of ``futuresdr_tpu/ops/stages.py``. A :class:`Stage` is a
+function ``(carry, frame) -> (carry, out)`` on tensors; streaming state
+(filter history, carried taps) is the explicit carry, a tuple of tensors on
+the stage's device, so frame t+1 chains on frame t's carry with no host sync.
+A :class:`Pipeline` runs a chain of stages per frame. PyTorch runs eagerly,
+so there is no compile step: :meth:`Pipeline.fn` is the per-frame function.
+
+Carry trees have the same leaves, shapes and dtypes as the JAX stages on the
+CPU, so a carry converts across (``convert.carry_from_numpy``).
+
+This slice ports the north-star spectrum chain: :func:`fir_stage`
+(overlap-save and ``impl="pallas"``, the hand-written ``fir`` kernel),
+:func:`fft_stage`, :func:`mag2_stage` and :func:`fir_fft_stage` (the fused
+``fir_fft`` kernel). Routes outside it raise :class:`NotImplementedError`
+naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_kernels
+from .xfer import torch_dtype
+
+__all__ = ["Stage", "Pipeline", "fir_stage", "fft_stage", "mag2_stage",
+           "fir_fft_stage"]
+
+_POLY_ITEM = "ROADMAP Queue 1 item 4 (FM front end: polyphase decimation)"
+_PRECISION_ITEM = "ROADMAP Queue 1 item 7 (precision and tuning)"
+
+
+@dataclass
+class Stage:
+    """One streaming stage.
+
+    ``fn(carry, x) -> (carry, y)``: for an input frame of n items it returns
+    ``n * ratio`` items. ``init_carry(dtype, device)`` builds the carry for a
+    stream of numpy ``dtype`` on ``device``.
+    """
+
+    fn: Callable[[Any, torch.Tensor], Tuple[Any, torch.Tensor]]
+    init_carry: Callable[[np.dtype, torch.device], Any]
+    ratio: Fraction = Fraction(1, 1)
+    out_dtype: Optional[np.dtype] = None          # None = same as input
+    frame_multiple: int = 1                       # input frame must divide this
+    name: str = "stage"
+    lti: Optional[Tuple[np.ndarray, int, int, str]] = None  # (taps, decim, fft_len, impl)
+    update: Optional[Callable[..., Any]] = None   # host-side ``(carry, **params) -> carry``
+    lower: Optional[Callable[[str], Optional["Stage"]]] = None  # interior precision
+    route: Optional[Tuple[Optional[str], Optional[str], Optional[str]]] = None
+    #   (impl, fft_impl, precision) pins; LTI merging keeps them only when both agree
+
+    def __repr__(self):
+        return f"Stage({self.name}, ratio={self.ratio})"
+
+
+def _no_lowering(p: str):
+    raise NotImplementedError(f"interior-precision lowering to {p!r}: {_PRECISION_ITEM}")
+
+
+def _stateless(dtype, device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+class Pipeline:
+    """A fused chain of stages run frame by frame on one device."""
+
+    def __init__(self, stages: Sequence[Stage], in_dtype, optimize: bool = True):
+        self.in_dtype = np.dtype(in_dtype)
+        self.stages = (_merge_lti(list(stages), self.in_dtype)
+                       if optimize else list(stages))
+        dtype = self.in_dtype
+        fm = 1                      # required input-frame multiple
+        r = Fraction(1, 1)          # cumulative rate in front of each stage
+        for s in self.stages:
+            need = Fraction(s.frame_multiple, 1) / r
+            fm = int(np.lcm(fm, need.numerator))
+            r *= s.ratio
+            fm = int(np.lcm(fm, r.denominator))   # integral intermediate frame sizes
+            if s.out_dtype is not None:
+                dtype = np.dtype(s.out_dtype)
+        self.frame_multiple = fm
+        self.ratio = r
+        self.out_dtype = dtype
+        self._fn = None
+
+    def init_carry(self, device) -> tuple:
+        """The initial carries of every stage, on ``device``."""
+        device = torch.device(device)
+        dtype = self.in_dtype
+        carries = []
+        for s in self.stages:
+            carries.append(s.init_carry(dtype, device))
+            if s.out_dtype is not None:
+                dtype = np.dtype(s.out_dtype)
+        return tuple(carries)
+
+    def fn(self):
+        """The per-frame function ``(carries, x) -> (carries, y)``."""
+        if self._fn is None:
+            stages = self.stages
+
+            def run(carries, x):
+                new_c = []
+                for s, c in zip(stages, carries):
+                    c, x = s.fn(c, x)
+                    new_c.append(c)
+                return tuple(new_c), x
+
+            self._fn = run
+        return self._fn
+
+    def out_items(self, in_items: int) -> int:
+        q = Fraction(in_items) * self.ratio
+        if q.denominator != 1:
+            raise ValueError(f"{in_items} input items give a fractional output")
+        return int(q)
+
+    def update_stage(self, carries, stage, **params):
+        """Apply a stage's ``update`` hook to its slot in ``carries`` (by
+        post-merge index or stage ``name``); returns the new carries tuple.
+        Frames already computed keep the old parameters, later frames see
+        the new ones."""
+        if isinstance(stage, str):
+            hits = [i for i, s in enumerate(self.stages) if s.name == stage]
+            if not hits:
+                raise KeyError(
+                    f"no stage named {stage!r} in {[s.name for s in self.stages]}")
+            if len(hits) > 1:
+                raise KeyError(f"stage name {stage!r} is ambiguous (indices {hits})")
+            idx = hits[0]
+        else:
+            idx = int(stage)
+            if not 0 <= idx < len(self.stages):
+                raise KeyError(f"stage index {idx} out of range "
+                               f"({len(self.stages)} stages)")
+        s = self.stages[idx]
+        if s.update is None:
+            raise ValueError(f"stage {s.name!r} has no runtime-update hook")
+        carries = list(carries)
+        carries[idx] = s.update(carries[idx], **params)
+        return tuple(carries)
+
+
+def _merge_lti(stages: Sequence[Stage], in_dtype) -> list:
+    """Collapse runs of adjacent LTI FIR stages into one FIR with the
+    convolved taps (zero-stuffed by the first decimation, the noble
+    identity). On a real stream each FIR takes ``.real`` at its boundary, so
+    complex-tap runs merge only where the stream is complex."""
+    out: list = []
+    dtype = np.dtype(in_dtype)
+    out_dtypes: list = []               # stream dtype ENTERING each stage in `out`
+    for s in stages:
+        if s.lti is not None and out and out[-1].lti is not None:
+            t1, d1, fl1, im1 = out[-1].lti
+            t2, d2, fl2, im2 = s.lti
+            p1 = (out[-1].route or (None, None, None))[1:]
+            p2 = (s.route or (None, None, None))[1:]
+            complex_stream = bool(np.issubdtype(out_dtypes[-1], np.complexfloating))
+            if p1 != p2 or (not complex_stream
+                            and not (np.isrealobj(t1) and np.isrealobj(t2))):
+                out.append(s)
+                out_dtypes.append(dtype)
+                if s.out_dtype is not None:
+                    dtype = np.dtype(s.out_dtype)
+                continue
+            if d1 == 1:
+                taps = np.convolve(t1, t2)
+            else:
+                up = np.zeros((len(t2) - 1) * d1 + 1, dtype=np.result_type(t1, t2))
+                up[::d1] = t2
+                taps = np.convolve(t1, up)
+            impl = "os" if "os" in (im1, im2) else \
+                ("pallas" if im1 == im2 == "pallas" else
+                 ("poly" if im1 == im2 == "poly" else "auto"))
+            out[-1] = fir_stage(taps, decim=d1 * d2, fft_len=max(fl1, fl2),
+                                name=f"{out[-1].name}*{s.name}", impl=impl,
+                                fft_impl=p1[0], precision=p1[1])
+        else:
+            out.append(s)
+            out_dtypes.append(dtype)
+            if s.out_dtype is not None:
+                dtype = np.dtype(s.out_dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stage factories
+# ---------------------------------------------------------------------------
+
+_FFT_IMPLS = (None, "auto", "mxu", "xla")
+_FFT_PRECISIONS = (None, "f32", "bf16")
+
+
+def _check_fft_pins(impl, precision) -> None:
+    """The JAX package's FFT route pins (``impl``: its matmul DFT or XLA's
+    FFT; ``precision``: its matmul precision) are accepted and all map onto
+    ``torch.fft`` in float32, the route the JAX package takes off the TPU."""
+    if impl not in _FFT_IMPLS:
+        raise ValueError(f"fft impl must be one of {_FFT_IMPLS}, got {impl!r}")
+    if precision not in _FFT_PRECISIONS:
+        raise ValueError(f"fft precision must be one of {_FFT_PRECISIONS}, "
+                         f"got {precision!r}")
+
+
+def _on(carry_leaf: torch.Tensor, arr: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor on the device of ``carry_leaf``."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(carry_leaf.device)
+
+
+def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
+              impl: str = "auto", fft_impl: Optional[str] = None,
+              precision: Optional[str] = None) -> Stage:
+    """FIR (+ decimation by slicing) as a streaming stage.
+
+    ``impl="os"`` (and ``"auto"``) filters by FFT overlap-save: the frame is
+    cut into ``2L``-sample blocks with hop ``L`` (``fft_len/2``, doubled
+    until it is ≥ ``2·n_taps``) and filtered in the frequency domain
+    with ``torch.fft``. ``impl="pallas"`` runs the hand-written direct-form
+    ``fir`` kernel (:func:`cuda_kernels.fir_continue`) with the taps read
+    from the carry, so a retune reaches it. ``"auto"`` picks overlap-save on
+    every device in this slice, as the JAX package does off the TPU.
+
+    Carry: ``(H, taps_f32, tail[L])``; ``H`` is the half spectrum on a real
+    stream with real taps and no ``fft_impl="mxu"`` pin, else the full one.
+    ``update(taps=…)`` swaps the filter (same tap count) with frames in
+    flight. ``precision="bf16"`` runs the ``fir`` kernel's bf16 mode; on the
+    overlap-save route the FFTs stay float32 (``torch.fft`` has no bf16
+    complex transform; the JAX package's FFTs off the TPU ignore the pin too).
+    """
+    if impl not in ("auto", "os", "pallas", "poly"):
+        raise ValueError(f"impl must be auto, os, pallas or poly, got {impl!r}")
+    taps = np.asarray(taps)
+    nt = len(taps)
+    if impl == "poly" or (impl == "pallas" and decim > 1) \
+            or (impl == "auto" and decim > 1 and nt <= 32 * decim):
+        raise NotImplementedError(f"fir_stage polyphase decimation route "
+                                  f"(impl={impl!r}, decim={decim}): {_POLY_ITEM}")
+    if precision == "int8":
+        raise NotImplementedError(f"fir_stage precision='int8': {_PRECISION_ITEM}")
+    _check_fft_pins(fft_impl, precision)
+    built_real = np.isrealobj(taps)
+    if impl == "pallas" and not (built_real and nt >= 2):
+        raise ValueError("impl='pallas' requires >= 2 real taps "
+                         "(complex taps: use the overlap-save route)")
+    L = fft_len // 2
+    while L < 2 * nt:                   # hop must comfortably exceed the tap overlap
+        L *= 2
+    fft_len = 2 * L
+
+    def _spectra(t):
+        full = np.fft.fft(np.concatenate([t, np.zeros(fft_len - nt)])
+                          ).astype(np.complex64)
+        half = np.fft.rfft(np.concatenate([np.real(t), np.zeros(fft_len - nt)])
+                           ).astype(np.complex64)
+        return full, half
+
+    H, Hr = _spectra(taps)
+
+    def fn(carry, x):
+        Hc, tt, tail = carry
+        ext = torch.cat([tail, x])                   # [(S+1)·L], S = n // L
+        if impl == "pallas":
+            y = cuda_kernels.fir_continue(ext[L - (nt - 1):L], x, tt,
+                                          precision=precision)
+        else:
+            rows = ext.reshape(-1, L)
+            blocks = torch.cat([rows[:-1], rows[1:]], dim=1)    # [S, 2L]
+            if x.is_complex():
+                spec = torch.fft.fft(blocks, dim=1) * Hc[None, :]
+                seg = torch.fft.ifft(spec, dim=1)[:, L:]
+            elif Hc.shape[0] == fft_len:
+                spec = torch.fft.fft(blocks.to(torch.complex64), dim=1) * Hc[None, :]
+                seg = torch.fft.ifft(spec, dim=1)[:, L:].real
+            else:
+                spec = torch.fft.rfft(blocks, dim=1) * Hc[None, :]
+                seg = torch.fft.irfft(spec, n=fft_len, dim=1)[:, L:]
+            y = seg.reshape(-1).to(x.dtype)
+        if decim > 1:
+            y = y[::decim]
+        return (Hc, tt, ext[ext.shape[0] - L:]), y
+
+    def init_carry(dtype, device):
+        dt = np.dtype(dtype)
+        use_full = np.issubdtype(dt, np.complexfloating) or fft_impl == "mxu"
+        dev = torch.device(device)
+        return (torch.from_numpy(H if use_full else Hr).to(dev),
+                torch.from_numpy(np.real(taps).astype(np.float32)).to(dev),
+                torch.zeros(L, dtype=torch_dtype(dt), device=dev))
+
+    def update(carry, taps=None):
+        """Swap the filter with frames in flight: same tap count, new
+        response; the spectrum keeps the carry's layout (full or half), the
+        history is kept."""
+        if taps is None:
+            return carry
+        new = np.asarray(taps)
+        if len(new) != nt:
+            raise ValueError(
+                f"tap swap must keep the tap count ({nt}); got {len(new)} — "
+                f"rebuild the stage for a different filter length")
+        if np.iscomplexobj(new) and built_real:
+            raise ValueError(
+                "stage was built with real taps; swapping to complex taps "
+                "requires rebuilding the stage")
+        Hc_old, _tt, tail = carry
+        full, half = _spectra(new)
+        Hn = full if Hc_old.shape[0] == fft_len else half
+        return (_on(tail, Hn), _on(tail, np.real(new).astype(np.float32)), tail)
+
+    return Stage(fn, init_carry, Fraction(1, decim), None, int(np.lcm(L, decim)),
+                 name, lti=(taps, decim, fft_len, impl), update=update,
+                 lower=_no_lowering, route=(impl, fft_impl, precision))
+
+
+def fft_stage(n: int, direction: str = "forward", shift: bool = False,
+              normalize: bool = False, window=None,
+              impl: Optional[str] = None,
+              precision: Optional[str] = None) -> Stage:
+    """Batched frame FFT: the frame reshaped ``[-1, n]``, transformed along
+    rows with ``torch.fft``. ``window``: a name or array applied per row
+    before a forward FFT. ``impl``/``precision`` are the JAX package's route
+    pins; they map onto ``torch.fft`` (see :func:`_check_fft_pins`)."""
+    _check_fft_pins(impl, precision)
+    if direction not in ("forward", "inverse"):
+        raise ValueError(f"direction must be forward or inverse, got {direction!r}")
+    if window is not None:
+        from ..dsp.windows import get_window
+        window = np.asarray(window, dtype=np.float32) if not isinstance(window, str) \
+            else get_window(window, n).astype(np.float32)
+    windows = {}                     # device -> window tensor
+
+    def fn(carry, x):
+        f = x.reshape(-1, n)
+        if direction == "forward":
+            if window is not None:
+                w = windows.get(f.device)
+                if w is None:
+                    w = windows[f.device] = torch.from_numpy(window).to(f.device)
+                f = f * w[None, :]
+            y = torch.fft.fft(f.to(torch.complex64), dim=1)
+        else:
+            y = torch.fft.ifft(f.to(torch.complex64), dim=1) * n
+        if normalize:
+            y = y / float(np.sqrt(n))
+        if shift:
+            y = torch.fft.fftshift(y, dim=1)
+        return carry, y.reshape(-1).to(torch.complex64)
+
+    return Stage(fn, _stateless, Fraction(1, 1), np.complex64, n, f"fft{n}",
+                 lower=_no_lowering, route=(impl, None, precision))
+
+
+def fir_fft_stage(taps, n_fft: int, name: Optional[str] = None,
+                  precision: Optional[str] = None) -> Stage:
+    """Fused FIR → FFT stage on the hand-written ``fir_fft`` kernel
+    (:func:`cuda_kernels.fir_fft`): the same output as
+    ``Pipeline([fir_stage(taps), fft_stage(n_fft)])`` without the filtered
+    stream reaching device memory. Real taps, ``2 <= n_taps <= n_fft``.
+    Carry: ``(taps_f32, tail[n_taps − 1])``; ``update(taps=…)`` swaps the
+    taps with no rebuild."""
+    if precision == "int8":
+        raise NotImplementedError(f"fir_fft_stage precision='int8': {_PRECISION_ITEM}")
+    if precision not in (None, "f32", "bf16"):
+        raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
+    taps = np.asarray(taps)
+    nt = len(taps)
+    n_fft = int(n_fft)
+    if not (np.isrealobj(taps) and 2 <= nt <= n_fft):
+        raise ValueError("fir_fft_stage requires real taps with 2 <= n_taps <= n_fft")
+    name = name or f"fir_fft{n_fft}"
+
+    def fn(carry, x):
+        tt, tail = carry
+        y = cuda_kernels.fir_fft(tail, x, tt, n_fft, precision=precision)
+        # frames are >= n_fft >= nt samples: the new history is the frame's
+        # own last nt-1 samples
+        return (tt, x[x.shape[0] - (nt - 1):]), y
+
+    def init_carry(dtype, device):
+        dev = torch.device(device)
+        return (torch.from_numpy(np.real(taps).astype(np.float32)).to(dev),
+                torch.zeros(nt - 1, dtype=torch_dtype(dtype), device=dev))
+
+    def update(carry, taps=None):
+        """Runtime tap swap (same count; real — the kernel takes real taps)."""
+        if taps is None:
+            return carry
+        new = np.asarray(taps)
+        if len(new) != nt:
+            raise ValueError(
+                f"tap swap must keep the tap count ({nt}); got {len(new)} — "
+                f"rebuild the stage for a different filter length")
+        if np.iscomplexobj(new):
+            raise ValueError("fir_fft_stage taps must stay real")
+        _tt, tail = carry
+        return (_on(tail, new.astype(np.float32)), tail)
+
+    return Stage(fn, init_carry, Fraction(1, 1), np.complex64, n_fft, name,
+                 update=update, lower=_no_lowering, route=("pallas", None, precision))
+
+
+def mag2_stage() -> Stage:
+    def fn(carry, x):
+        if x.is_complex():
+            return carry, (x.real * x.real + x.imag * x.imag).to(torch.float32)
+        return carry, (x * x).to(torch.float32)
+
+    return Stage(fn, _stateless, Fraction(1, 1), np.float32, 1, "mag2")

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the streamed spectrum chain's time goes on one CUDA card.
+
+Runs the port's streamed path, ``NullSource -> Head -> TpuKernel -> NullSink``
+with the north-star chain (64-tap FIR, 2048-point FFT, |x|^2; frame 2^18,
+4 frames in flight), once per route, under ``torch.profiler`` with CUDA
+activity only. For each route it prints the wall time, the device-busy time
+(the union of every kernel and copy interval on the card's timeline, so
+overlapping streams count once), the idle share (1 - busy / wall) and the
+device time by kernel or copy, with the card's name and power limit. The
+first profiled run in a process also pays the profiler's start-up, so its
+wall time and idle share read high.
+
+Run from the repository root on a machine with one CUDA card and ``nvcc``:
+``python3 port_profile.py``. Exits nonzero without CUDA.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+
+N_TAPS = 64
+N_FFT = 2048
+FRAME = 1 << 18
+FRAMES = 64
+IN_FLIGHT = 4
+TOP = 8
+
+
+def _stages(route: str, taps):
+    from futuresdr_tpu_torch.ops.stages import (fft_stage, fir_fft_stage, fir_stage,
+                                                mag2_stage)
+    if route == "fused":
+        return [fir_fft_stage(taps, N_FFT), mag2_stage()]
+    return [fir_stage(taps, impl=route), fft_stage(N_FFT), mag2_stage()]
+
+
+def _union_us(intervals) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_route(route: str, taps, dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    fg = Flowgraph()
+    snk = NullSink(np.float32)
+    fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * FRAME),
+               TpuKernel(_stages(route, taps), np.complex64, frame_size=FRAME,
+                         inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT), snk)
+    rt = Runtime()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.run(fg)
+        wall_s = time.perf_counter() - t0
+    rt.shutdown()
+    if snk.n_received != FRAMES * FRAME:
+        raise RuntimeError(f"{route}: NullSink got {snk.n_received} items")
+    intervals, by_name = [], defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] += e.time_range.end - e.time_range.start
+    if not intervals:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy_us = _union_us(intervals)
+    return {"wall_us": wall_s * 1e6, "busy_us": busy_us,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("port_profile: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    from futuresdr_tpu_torch.dsp import firdes
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda:0")
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    for route in ("os", "pallas", "fused"):
+        r = profile_route(route, taps, dev)
+        per_frame = 1.0 / (FRAMES + 1)          # + the kernel's warm-up frame
+        print(f"profile {route}: wall {r['wall_us'] / 1e3:.1f} ms, device busy "
+              f"{r['busy_us'] / 1e3:.2f} ms, idle share {1 - r['busy_us'] / r['wall_us']:.3f}; "
+              f"per frame: wall {r['wall_us'] * per_frame:.1f} us, busy "
+              f"{r['busy_us'] * per_frame:.1f} us [{card}]")
+        for name, us in r["top"]:
+            print(f"  {us * per_frame:9.2f} us/frame  {name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+"""The port stands alone: it loads neither JAX nor the JAX package, never
+picks the CPU by itself, and never counts a kernel launch for a CPU tensor."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import futuresdr_tpu_torch
+from futuresdr_tpu_torch.ops import cuda_kernels as ck
+from futuresdr_tpu_torch.ops import stages as T
+from futuresdr_tpu_torch.tpu import TpuInstance
+
+PKG_DIR = Path(futuresdr_tpu_torch.__file__).resolve().parent
+REPO = PKG_DIR.parent
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG_DIR)],
+                                                        "futuresdr_tpu_torch."))
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    mods = _submodules()
+    assert "futuresdr_tpu_torch.ops.cuda_kernels" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or "
+            "m == 'futuresdr_tpu' or m.startswith('futuresdr_tpu.')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    offenders = []
+    for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                 REPO / "port_profile.py"]:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "flax", "futuresdr_tpu"):
+                    offenders.append(f"{path.name}: {name}")
+    assert offenders == []
+
+
+def test_instance_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TpuInstance()
+    assert TpuInstance("cpu").device == torch.device("cpu")
+
+
+def test_cpu_tensors_never_count_a_launch():
+    ck.reset_launches()
+    rng = np.random.default_rng(0)
+    taps = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal(1024) + 1j * rng.standard_normal(1024))
+                         .astype(np.complex64))
+    hist = torch.zeros(15, dtype=torch.complex64)
+    ck.fir(x, taps)
+    ck.fir_continue(hist, x, taps, precision="bf16")
+    ck.fir_fft(hist, x, taps, 256)
+    pipe = T.Pipeline([T.fir_fft_stage(taps.numpy(), 256), T.mag2_stage()], np.complex64)
+    pipe.fn()(pipe.init_carry("cpu"), x)
+    assert ck.launches == {"fir": 0, "fir_fft": 0}
+
+
+def test_non_cuda_device_tensors_raise_instead_of_falling_back():
+    """Only a CPU tensor takes the plain version; any other device must
+    launch the kernel or raise."""
+    x = torch.empty(1024, dtype=torch.complex64, device="meta")
+    taps = torch.empty(16, device="meta")
+    hist = torch.empty(15, dtype=torch.complex64, device="meta")
+    before = dict(ck.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.fir(x, taps)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.fir_fft(hist, x, taps, 256)
+    assert ck.launches == before
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
