@@ -18,10 +18,29 @@ user calls, at full width:
    with 4 frames in flight, and ``VectorSource -> TpuKernel -> VectorSink``
    against the resident chain;
 6. a tap retune mid-stream through ``TpuKernel.apply_retune``;
-7. one JSON line with each kernel's launches on the main path (phases 4-6),
-   its error against the plain version, and its time beside the plain
-   version's, a PyTorch library call's and its bound;
+7. one JSON line with each kernel's launches on its path (the spectrum chain
+   in phases 4-6, the FM front end in phases 10-11), its error against the
+   plain version, and its time beside the plain version's, a PyTorch library
+   call's and its bound;
 8. the resident and streamed rate of each route beside the card.
+
+The FM front end (``futuresdr_tpu_torch/apps/fm_receiver.py``: complex64 at
+1 Msps, 100 kHz offset, 128-tap channel filter decimating by 4, FM gain
+250e3/(2π·75e3), 24/125 audio resampler with its 4533 default taps), in two
+chains: the app's (``front_end_stages``: xlating FIR, demod, resampler) and
+the kernel chain (``rotator_stage``, ``fir_stage(decim=4)``,
+``quad_demod_stage``, ``resample_stage``, each pinned to ``impl="pallas"``):
+
+9. the ``rotator``, ``poly_fir`` and ``quad_demod`` kernels against their
+   plain versions at the FM shapes, ragged ones, large phases and bf16;
+10. both chains resident at frames 512,000 and 4,096,000, carry chained over
+    8 frames: the kernel chain matches the same chain on plain PyTorch ops,
+    chained frames match one long frame, and the app chain matches the
+    kernel chain after the filters' transient;
+11. streamed: ``NullSource -> Head -> TpuKernel -> NullSink`` with 4 frames in
+    flight per chain, ``build_flowgraph(VectorSource(fm), use_tpu=True,
+    audio_path=…)`` with the WAV's tone at 1 kHz, and a mid-stream
+    ``apply_retune("tuner", phase_inc=…)`` on both chains.
 
 Every phase passes or the script exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the CUDA toolkit
@@ -56,17 +75,49 @@ PEAK_FP32 = 67e12
 
 # Kernel vs plain: max |kernel - plain| <= TOL * max |plain|. Both sum the
 # taps in the same order; they differ by the kernel's fused multiply-adds
-# (fir) and by FFT against DFT-matmul rounding (fir_fft).
-TOL = {"fir": 1e-5, "fir_fft": 1e-4}
+# (fir, poly_fir), by FFT against DFT-matmul rounding (fir_fft) and by the
+# rotator's 2π reduction in double before its sincosf (~2e-7 of peak). quad_demod: max |kernel - plain| <= TOL in
+# radians·gain, absolute, after wrapping atan2's ±π branch.
+TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
+       "quad_demod": 1e-5}
 # Route agreement (fir kernel / fused kernel vs overlap-save via cuFFT) and
 # chained-vs-long-frame, relative to the peak of the reference output.
 ROUTE_TOL = 1e-4
 CHAIN_TOL = 1e-5
 
+# FM front end (futuresdr_tpu_torch/apps/fm_receiver.py at its published width)
+FM_RATE = 1e6
+FM_OFFSET = 100e3
+FM_FRAMES = (512_000, 4_096_000)
+FM_CHAIN = 8                 # carry-chained frames per resident check
+FM_STREAM_FRAMES = 64        # frames through the streamed flowgraph
+FM_WAV_SAMPLES = 1_500_000   # input of the app's WAV run (the default frame)
+FM_TRANSIENT = 200           # audio samples skipped before chain comparisons
+# Tolerances, in audio units (the test tone's amplitude is 1):
+# - kernel chain vs the same chain on plain PyTorch ops: the kernels repeat
+#   the plain versions' arithmetic; only summation order and 1-ulp sincos /
+#   atan2 differences remain;
+# - chained frames vs one long frame at offset 0 (every carry chained, the
+#   phase ramps exactly zero);
+# - at the 100 kHz offset, chained vs long and app vs kernel chain differ by
+#   the float32 phase ramp ph0 + inc·t, whose ulp grows with t: 0.03 rad at
+#   t = 5e5 and 0.25 rad at t = 4e6. The reference's folded-vs-unfolded atol
+#   5e-3 (tests/test_retune.py:322) holds at the 512,000 frame; the longer
+#   frames get FM_PHASE_TOL.
+FM_PLAIN_TOL = 1e-4
+FM_CHAIN_TOL = 1e-4
+FM_APP_TOL = 5e-3
+FM_PHASE_TOL = 5e-2
+FM_GAIN = 250e3 / (2 * np.pi * 75e3)
+
 REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
-            "fir_fft": "futuresdr_tpu/ops/pallas_kernels.py:408"}
-SOURCES = {"fir": "futuresdr_tpu_torch/csrc/fir.cu",
-           "fir_fft": "futuresdr_tpu_torch/csrc/fir_fft.cu"}
+            "fir_fft": "futuresdr_tpu/ops/pallas_kernels.py:408",
+            "rotator": "futuresdr_tpu/ops/pallas_kernels.py:535",
+            "poly_fir": "futuresdr_tpu/ops/pallas_kernels.py:326",
+            "quad_demod": "futuresdr_tpu/ops/pallas_kernels.py:597"}
+SOURCES = {k: f"futuresdr_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+SPECTRUM_KERNELS = ("fir", "fir_fft")
+FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
 
 
 class SmokeError(RuntimeError):
@@ -198,22 +249,40 @@ def kernel_cases(dev):
     return cases
 
 
-def phase_kernels(dev) -> dict:
+def demod_err(got, ref) -> float:
+    """max |got - ref| after wrapping the difference into (−π·gain, π·gain]:
+    at Im z ≈ ±0 with Re z < 0, atan2 flips between +π and −π on a last-bit
+    difference of its arguments."""
+    period = 2 * np.pi * FM_GAIN
+    d = got.detach().cpu().double() - ref.detach().cpu().double()
+    d = d - period * (d / period).round()
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
+def phase_kernels(dev, cases) -> dict:
     """Every case within its tolerance; returns the worst error per kernel."""
     import torch
-    worst = {"fir": 0.0, "fir_fft": 0.0}
-    for name, label, kern, plain in kernel_cases(dev):
+    worst = {}
+    for name, label, kern, plain in cases:
         got = kern()
         ref = plain()
+        if name == "quad_demod":
+            (got, last), (ref, ref_last) = got, ref
+            check(last.item() == ref_last.item(), f"{label}: carry sample differs")
         check(got.shape == ref.shape and got.dtype == ref.dtype,
               f"{label}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
               f"{tuple(ref.shape)} {ref.dtype}")
         check(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                   else got).all()), f"{label}: non-finite output")
-        err, rel = rel_err(got, ref)
-        print(f"kernel {label}: max_abs_err {err:.3e} ({rel:.3e} of peak, tol {TOL[name]:g})")
-        check(rel <= TOL[name], f"{label}: error {rel:.3e} of peak over {TOL[name]:g}")
-        worst[name] = max(worst[name], err)
+        if name == "quad_demod":
+            err = rel = demod_err(got, ref)
+            print(f"kernel {label}: max_abs_err {err:.3e} (wrapped, tol {TOL[name]:g})")
+        else:
+            err, rel = rel_err(got, ref)
+            print(f"kernel {label}: max_abs_err {err:.3e} ({rel:.3e} of peak, "
+                  f"tol {TOL[name]:g})")
+        check(rel <= TOL[name], f"{label}: error {rel:.3e} over {TOL[name]:g}")
+        worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
 
@@ -460,6 +529,360 @@ def kernel_timings(dev, n: int, taps_np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the FM front end
+# ---------------------------------------------------------------------------
+
+FM_THETA = -2 * np.pi * FM_OFFSET / FM_RATE
+
+
+def fm_kernel_cases(dev):
+    """(kernel, label, kernel call, plain call) for the three FM kernels at
+    the FM chain's shapes (frame F in, F/4 after the channel filter), at
+    ragged ones, at large phases and in bf16."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def real(*shape):
+        return torch.randn(*shape, dtype=torch.float32, generator=gen, device=dev)
+
+    cases = []
+    ph0 = torch.tensor(1.25, dtype=torch.float32, device=dev)
+    inc = torch.tensor(FM_THETA, dtype=torch.float32, device=dev)
+    for n in FM_FRAMES + (FM_FRAMES[0] + 333,):
+        x = randc(n, gen, dev)          # |ph| reaches 0.63·n rad
+        cases.append(("rotator", f"rotator c64 n={n} |ph|<={abs(FM_THETA) * n:.3g}",
+                      lambda x=x: ck.rotator(x, ph0, inc),
+                      lambda x=x: ck.rotator_plain(x, ph0, inc)))
+    prev = randc(1, gen, dev).reshape(())
+    for n in (FM_FRAMES[0] // 4, FM_FRAMES[1] // 4, FM_FRAMES[0] // 4 + 77):
+        x = randc(n, gen, dev)
+        cases.append(("quad_demod", f"quad_demod c64 n={n}",
+                      lambda x=x: ck.quad_demod(prev, x, FM_GAIN),
+                      lambda x=x: ck.quad_demod_plain(prev, x, FM_GAIN)))
+    # channel filter: D = 4, m = 32, complex; resampler: D = 125, I = 24, m = 2
+    w2, w3 = real(33, 4), real(3, 125, 24)
+    for label, w, nq, cplx in (("2-D D=4 m=32 c64", w2, FM_FRAMES[0] // 4, True),
+                               ("2-D D=4 m=32 c64", w2, FM_FRAMES[1] // 4, True),
+                               ("2-D D=4 m=32 c64 ragged", w2, FM_FRAMES[0] // 4 - 223, True),
+                               ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[0] // 500, False),
+                               ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[1] // 500, False),
+                               ("3-D D=125 I=24 m=2 c64 ragged", w3, 1021, True)):
+        m, D = w.shape[0] - 1, w.shape[1]
+        hist = randc(m * D, gen, dev) if cplx else real(m * D)
+        x = randc(nq * D, gen, dev) if cplx else real(nq * D)
+        for prec in (None, "bf16"):
+            ww = w.to(torch.bfloat16) if prec else w     # the stage carries bf16 W
+            cases.append(("poly_fir", f"poly_fir {label} nq={nq} {prec or 'f32'}",
+                          lambda h=hist, x=x, w=ww, p=prec: ck.poly_fir(h, x, w, p),
+                          lambda h=hist, x=x, w=ww, p=prec: ck.poly_fir_plain(h, x, w, p)))
+    return cases
+
+
+def fm_iq(n: int, dev, offset: float = FM_OFFSET):
+    """A 1 kHz tone, FM-modulated at 75 kHz deviation, at ``offset`` from the
+    tuned frequency: complex64 on ``dev``, built in float64 on the device."""
+    import torch
+    t = torch.arange(n, dtype=torch.float64, device=dev) / FM_RATE
+    msg = torch.sin(2 * np.pi * 1000.0 * t)
+    ph = 2 * np.pi * 75e3 * torch.cumsum(msg, 0) / FM_RATE + 2 * np.pi * offset * t
+    return torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+
+
+def fm_stages(chain: str, offset: float = FM_OFFSET):
+    """``app``: the shipped front end; ``kernel``: the unfolded chain pinned
+    to the hand kernels; ``plain``: the same chain on plain PyTorch ops."""
+    from futuresdr_tpu_torch.apps.fm_receiver import front_end_stages
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import (fir_stage, quad_demod_stage,
+                                                resample_stage, rotator_stage)
+    if chain == "app":
+        return front_end_stages(FM_RATE, offset)
+    k = chain == "kernel"
+    return [rotator_stage(-2 * np.pi * offset / FM_RATE, name="tuner",
+                          impl="pallas" if k else "xla"),
+            fir_stage(firdes.lowpass(0.5 / 4 * 0.8, 128), decim=4,
+                      impl="pallas" if k else "poly", name="chan"),
+            quad_demod_stage(FM_GAIN, impl="pallas" if k else "xla"),
+            resample_stage(24, 125, impl="pallas" if k else "poly")]
+
+
+FM_CHAINS = ("app", "kernel", "plain")
+
+
+def run_fm(chain, frames, dev, offset: float = FM_OFFSET):
+    import torch
+
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    pipe = Pipeline(fm_stages(chain, offset), np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for x in frames:
+        carry, y = fn(carry, x)
+        outs.append(y)
+    return torch.cat(outs)
+
+
+def max_abs(a, b, skip: int = 0) -> float:
+    return float((a[skip:].double() - b[skip:].double()).abs().max())
+
+
+def phase_fm_resident(dev) -> dict:
+    """Both chains at each FM frame, 8 frames chained; returns Msps per
+    (chain, frame)."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    rates = {}
+    for f in FM_FRAMES:
+        x = fm_iq(FM_CHAIN * f, dev)
+        xs = list(x.split(f))
+        before = dict(ck.launches)
+        out = {c: run_fm(c, xs, dev) for c in FM_CHAINS}
+        for k in FM_KERNELS:
+            check(ck.launches[k] > before[k], f"fm resident frame={f}: {k} not launched")
+        n_out = FM_CHAIN * f * 24 // 500
+        for c, y in out.items():
+            check(y.shape == (n_out,) and y.dtype == torch.float32,
+                  f"fm resident {c}: output {tuple(y.shape)} {y.dtype}")
+            check(bool(torch.isfinite(y).all()), f"fm resident {c}: non-finite")
+        err = max_abs(out["kernel"], out["plain"])
+        print(f"fm resident frame={f}: kernel chain vs plain-op chain {err:.3e} "
+              f"(tol {FM_PLAIN_TOL:g})")
+        check(err <= FM_PLAIN_TOL, f"fm frame={f}: kernel chain differs from the "
+                                   f"plain-op chain by {err:.3e}")
+        err = max_abs(out["app"], out["kernel"], FM_TRANSIENT)
+        tol = FM_APP_TOL if f == FM_FRAMES[0] else FM_PHASE_TOL
+        print(f"fm resident frame={f}: app chain vs kernel chain {err:.3e} after "
+              f"{FM_TRANSIENT} samples (tol {tol:g})")
+        check(err <= tol, f"fm frame={f}: app chain differs from the kernel chain "
+                          f"by {err:.3e}")
+        # chained vs one long frame: at offset 0 every carry is chained and
+        # the phase ramps are exactly zero; at the real offset the long
+        # frame's float32 ramp is coarser (FM_PHASE_TOL)
+        x0 = fm_iq(FM_CHAIN * f, dev, offset=0.0)
+        for c in ("app", "kernel"):
+            err = max_abs(run_fm(c, list(x0.split(f)), dev, 0.0),
+                          run_fm(c, [x0], dev, 0.0))
+            print(f"fm resident {c} frame={f} offset 0: {FM_CHAIN} chained vs one "
+                  f"long frame {err:.3e} (tol {FM_CHAIN_TOL:g})")
+            check(err <= FM_CHAIN_TOL, f"fm {c} frame={f}: chained frames differ "
+                                       f"from one long frame by {err:.3e}")
+            if f == FM_FRAMES[0]:
+                err = max_abs(out[c], run_fm(c, [x], dev))
+                print(f"fm resident {c} frame={f} offset {FM_OFFSET:g}: chained vs "
+                      f"one long frame {err:.3e} (tol {FM_PHASE_TOL:g})")
+                check(err <= FM_PHASE_TOL, f"fm {c} frame={f}: chained frames differ "
+                                           f"from one long frame by {err:.3e}")
+        del x0
+        for c in FM_CHAINS:
+            pipe = Pipeline(fm_stages(c), np.complex64)
+            fn, state = pipe.fn(), [pipe.init_carry(dev)]
+
+            def step(fn=fn, state=state, xs=xs):
+                cc = state[0]
+                for xx in xs:
+                    cc, _ = fn(cc, xx)
+                state[0] = cc
+
+            ms = cuda_ms(step)
+            rates[(c, f)] = FM_CHAIN * f / (ms * 1e-3) / 1e6
+        del x, xs, out
+    return rates
+
+
+def _fm_kernel_block(chain, frame, dev, depth=IN_FLIGHT):
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    return TpuKernel(fm_stages(chain), np.complex64, frame_size=frame,
+                     inst=TpuInstance(dev), frames_in_flight=depth)
+
+
+def phase_fm_streamed(dev) -> dict:
+    """NullSource -> Head(64 frames) -> TpuKernel -> NullSink per chain;
+    returns streamed Msps per chain."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    rates, frame = {}, FM_FRAMES[0]
+    n_items = FM_STREAM_FRAMES * frame
+    for chain in ("app", "kernel"):
+        runs = []
+        for _ in range(STREAM_RUNS):
+            before = dict(ck.launches)
+            fg = Flowgraph()
+            snk = NullSink(np.float32)
+            fg.connect(NullSource(np.complex64), Head(np.complex64, n_items),
+                       _fm_kernel_block(chain, frame, dev), snk)
+            rt = Runtime()
+            t0 = time.perf_counter()
+            rt.run(fg)
+            runs.append(time.perf_counter() - t0)
+            rt.shutdown()
+            want = n_items * 24 // 500
+            check(snk.n_received == want,
+                  f"fm streamed {chain}: NullSink got {snk.n_received} items, want {want}")
+            if chain == "kernel":
+                for k in FM_KERNELS:
+                    check(ck.launches[k] > before[k], f"fm streamed: {k} not launched")
+        rates[chain] = n_items / statistics.median(runs) / 1e6
+        print(f"fm streamed {chain}: {n_items} items through NullSource -> Head -> "
+              f"TpuKernel -> NullSink in {', '.join(f'{t:.3f}' for t in runs)} s")
+    return rates
+
+
+def phase_fm_retune(dev) -> None:
+    """apply_retune("tuner", phase_inc=…) while frames stream, on both chains:
+    the audio equals the resident chain with the retune at the frame the
+    kernel reports."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    frame, n_frames = FM_FRAMES[0], 16
+    host = fm_iq(n_frames * frame, dev).cpu().numpy()
+    theta2 = -2 * np.pi * 150e3 / FM_RATE
+    for chain in ("app", "kernel"):
+        kern = _fm_kernel_block(chain, frame, dev)
+        fg = Flowgraph()
+        vsnk = VectorSink(np.float32)
+        fg.connect(VectorSource(host), kern, vsnk)
+        rt = Runtime()
+        running = rt.start(fg)
+        deadline = time.monotonic() + 60
+        while kern.frames_dispatched < 4:
+            check(time.monotonic() < deadline, f"fm retune {chain}: stream did not start")
+            time.sleep(0.0005)
+        at = kern.apply_retune("tuner", phase_inc=theta2)
+        running.wait_sync()
+        rt.shutdown()
+        check(0 < at < n_frames, f"fm retune {chain}: landed at frame {at} of "
+                                 f"{n_frames}, not mid-stream")
+        pipe = Pipeline(fm_stages(chain), np.complex64)
+        fn, carry = pipe.fn(), pipe.init_carry(dev)
+        outs = []
+        for i in range(n_frames):
+            if i == at:
+                carry = pipe.update_stage(carry, "tuner", phase_inc=theta2)
+            carry, y = fn(carry, torch.from_numpy(host[i * frame:(i + 1) * frame]).to(dev))
+            outs.append(y)
+        got = torch.from_numpy(vsnk.items())
+        ref = torch.cat(outs).cpu()
+        check(got.shape == ref.shape, f"fm retune {chain}: {tuple(got.shape)} items, "
+                                      f"want {tuple(ref.shape)}")
+        err = max_abs(got, ref)
+        print(f"fm retune {chain}: tuner retuned at frame {at} of {n_frames}; vs "
+              f"resident chain with the same retune {err:.3e} (tol {CHAIN_TOL:g})")
+        check(err <= CHAIN_TOL, f"fm retune {chain}: differs by {err:.3e}")
+
+
+def phase_fm_wav(dev, wav_path) -> float:
+    """The app as a user builds it: ``build_flowgraph(VectorSource(iq),
+    use_tpu=True, audio_path=…)``; returns the WAV's spectral peak in Hz."""
+    import wave
+
+    from futuresdr_tpu_torch import Runtime
+    from futuresdr_tpu_torch.apps.fm_receiver import AUDIO_RATE, build_flowgraph
+    from futuresdr_tpu_torch.blocks import VectorSource
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    n = FM_WAV_SAMPLES
+    iq = fm_iq(n, dev).cpu().numpy()
+    fg, _, sink = build_flowgraph(VectorSource(iq), input_rate=FM_RATE,
+                                  offset=FM_OFFSET, audio_path=str(wav_path),
+                                  use_tpu=True, inst=TpuInstance(dev))
+    Runtime().run(fg)
+    want = (n - n % 500) * 24 // 500
+    check(sink.n_written == want, f"fm wav: {sink.n_written} samples, want {want}")
+    w = wave.open(str(wav_path), "rb")
+    pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.float64)
+    w.close()
+    pcm = pcm[len(pcm) // 4:]                    # skip the transient
+    spec = np.abs(np.fft.rfft(pcm * np.hanning(len(pcm))))
+    peak = float(np.fft.rfftfreq(len(pcm), 1.0 / AUDIO_RATE)[np.argmax(spec[5:]) + 5])
+    print(f"fm wav: {sink.n_written} samples at {AUDIO_RATE} Hz, spectral peak "
+          f"{peak:.1f} Hz (want 1000 +- 20)")
+    check(abs(peak - 1000.0) < 20.0, f"fm wav: tone at {peak:.1f} Hz, not 1 kHz")
+    return peak
+
+
+def fm_kernel_timings(dev, f: int) -> dict:
+    """Kernel, plain and library device time and the bound of each FM kernel
+    on the kernel chain's calls at input frame ``f``: the rotator on ``f``
+    samples, the channel ``poly_fir`` on ``f`` (D = 4, m = 32, complex64),
+    the demod on ``f/4``, the resampler ``poly_fir`` on ``f/4`` (D = 125,
+    I = 24, m = 2, float32). ``poly_fir``'s entry is its two calls per frame
+    summed; ``calls`` keeps each."""
+    import torch
+    import torch.nn.functional as F
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n4 = f // 4
+    ph0 = torch.tensor(1.25, dtype=torch.float32, device=dev)
+    inc = torch.tensor(FM_THETA, dtype=torch.float32, device=dev)
+    # the weights' values do not change the kernels' work: random, at the
+    # shapes of the chain's W (channel [33, 4], resampler [3, 125, 24])
+    w2 = torch.randn(33, 4, generator=gen, device=dev)
+    w3 = torch.randn(3, 125, 24, generator=gen, device=dev)
+    reps = REPS
+    rot_args = [(randc(f, gen, dev),) for _ in range(reps)]
+    chan_args = [(randc(128, gen, dev), randc(f, gen, dev)) for _ in range(reps)]
+    dem_args = [(randc(1, gen, dev).reshape(()), randc(n4, gen, dev)) for _ in range(reps)]
+    res_args = [(torch.randn(250, generator=gen, device=dev),
+                 torch.randn(n4, generator=gen, device=dev)) for _ in range(reps)]
+    # library yardsticks, timed here only and never called by the port:
+    # conv1d over the row layout (in-channels D, kernel m+1, out-channels I)
+    cw2 = w2.flip(0).t().unsqueeze(0).contiguous()            # [1, 4, 33]
+    cw3 = w3.flip(0).permute(2, 1, 0).contiguous()            # [24, 125, 3]
+    chan_lib = [(torch.view_as_real(torch.cat([h, x])).reshape(-1, 4, 2)
+                 .permute(2, 1, 0).contiguous(),) for h, x in chan_args]
+    res_lib = [(torch.cat([h, x]).reshape(-1, 125).t().unsqueeze(0).contiguous(),)
+               for h, x in res_args]
+    plan = {
+        "rotator": (lambda x: ck.rotator(x, ph0, inc),
+                    lambda x: ck.rotator_plain(x, ph0, inc), None, rot_args, None,
+                    16 * f + 8, 8 * f),
+        "quad_demod": (lambda p, x: ck.quad_demod(p, x, FM_GAIN),
+                       lambda p, x: ck.quad_demod_plain(p, x, FM_GAIN), None,
+                       dem_args, None, 12 * n4 + 16, 7 * n4),
+        "poly_fir/channel": (lambda h, x: ck.poly_fir(h, x, w2),
+                             lambda h, x: ck.poly_fir_plain(h, x, w2),
+                             lambda p: F.conv1d(p, cw2), chan_args, chan_lib,
+                             8 * (f + 128) + 4 * w2.numel() + 8 * n4,
+                             4 * w2.numel() * n4),
+        "poly_fir/resampler": (lambda h, x: ck.poly_fir(h, x, w3),
+                               lambda h, x: ck.poly_fir_plain(h, x, w3),
+                               lambda p: F.conv1d(p, cw3), res_args, res_lib,
+                               4 * (n4 + 250) + 4 * w3.numel() + 4 * (n4 // 125) * 24,
+                               2 * w3.numel() * (n4 // 125)),
+    }
+    out = {}
+    for name, (kern, plain, lib, args, lib_args, nbytes, flops) in plan.items():
+        got, ref = kern(*args[0]), plain(*args[0])
+        if name == "quad_demod":
+            err = demod_err(got[0], ref[0])
+        else:
+            err, _ = rel_err(got, ref)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+        out[name] = {
+            "ms": device_ms(kern, args), "plain_ms": device_ms(plain, args),
+            "library_ms": device_ms(lib, lib_args) if lib else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err}
+    ch, rs = out.pop("poly_fir/channel"), out.pop("poly_fir/resampler")
+    out["poly_fir"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "library_ms",
+                                                   "bound_ms")}
+    out["poly_fir"].update(
+        max_abs_err=max(ch["max_abs_err"], rs["max_abs_err"]),
+        bound_by=max(ch, rs, key=lambda c: c["bound_ms"])["bound_by"],
+        calls={"channel": ch, "resampler": rs})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -481,42 +904,60 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(p.name for p in paths)} for sm_90a")
 
-    # 3. kernels against their plain versions
-    worst = phase_kernels(dev)
+    # 3, 9. kernels against their plain versions
+    worst = phase_kernels(dev, kernel_cases(dev) + fm_kernel_cases(dev))
 
-    # 4-6. the main path, launch counts read over exactly these phases
+    # 4-6. the spectrum chain, launch counts read over exactly these phases
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
     taps2 = firdes.lowpass(0.05, N_TAPS).astype(np.float32)
-    ck.reset_launches()
+    launches = {}
     by_phase = {}
-    resident = phase_resident(dev, taps)
-    by_phase["resident"] = dict(ck.launches)
-    streamed = phase_streamed(dev, taps)
-    by_phase["streamed"] = {k: v - by_phase["resident"][k] for k, v in ck.launches.items()}
-    phase_retune(dev, taps, taps2)
-    torch.cuda.synchronize()
-    main_launches = dict(ck.launches)
-    by_phase["retune"] = {k: v - by_phase["resident"][k] - by_phase["streamed"][k]
-                          for k, v in main_launches.items()}
-    for k in main_launches:
-        for phase, counts in by_phase.items():
-            check(counts[k] > 0, f"kernel {k} was launched no time in the {phase} phase "
-                                 f"of the main path")
 
-    # 7. kernel timings at the streamed default frame, and at 2^20 for the record
+    def path_phase(name, kernels, fn, *args):
+        ck.reset_launches()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        by_phase[name] = {k: ck.launches[k] for k in kernels}
+        for k in kernels:
+            check(ck.launches[k] > 0, f"kernel {k} was launched no time in the {name} "
+                                      f"phase of its path")
+            launches[k] = launches.get(k, 0) + ck.launches[k]
+        return result
+
+    resident = path_phase("resident", SPECTRUM_KERNELS, phase_resident, dev, taps)
+    streamed = path_phase("streamed", SPECTRUM_KERNELS, phase_streamed, dev, taps)
+    path_phase("retune", SPECTRUM_KERNELS, phase_retune, dev, taps, taps2)
+
+    # 10-11. the FM front end, its counts read over exactly its phases
+    fm_resident = path_phase("fm_resident", FM_KERNELS, phase_fm_resident, dev)
+    fm_streamed = path_phase("fm_streamed", FM_KERNELS, phase_fm_streamed, dev)
+    path_phase("fm_retune", FM_KERNELS, phase_fm_retune, dev)
+    # the app as shipped reaches none of the kernels (xlating FIR on
+    # matmuls, demod and resampler on their default routes)
+    wav = _build.BUILD_DIR.parent / "fm_smoke.wav"
+    phase_fm_wav(dev, wav)
+    wav.unlink()
+
+    # 7. kernel timings at the streamed default frames, and the larger
+    #    frames for the record
     timings = {f: kernel_timings(dev, f, taps) for f in FRAMES}
-    for f, t in timings.items():
-        for k, v in t.items():
-            print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms,"
-                  f" library {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-                  f"({v['bound_by']}) [{card_line}]")
+    fm_timings = {f: fm_kernel_timings(dev, f) for f in FM_FRAMES}
+    rows = [(f, k, v) for f, t in timings.items() for k, v in t.items()]
+    rows += [(f, k, v) for f, t in fm_timings.items() for k, v in t.items()]
+    rows += [(f, f"poly_fir/{c}", v) for f, t in fm_timings.items()
+             for c, v in t["poly_fir"]["calls"].items()]
+    for f, k, v in rows:
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+        print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms,"
+              f" library {lib}, bound {v['bound_ms']:.4f} ms ({v['bound_by']}) "
+              f"[{card_line}]")
     line = {"kernels": []}
-    for k in ("fir", "fir_fft"):
-        t = timings[FRAMES[0]][k]
+    for k in SPECTRUM_KERNELS + FM_KERNELS:
+        t = timings[FRAMES[0]][k] if k in SPECTRUM_KERNELS else fm_timings[FM_FRAMES[0]][k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-            "launches": main_launches[k],
-            "launches_by_phase": {p: c[k] for p, c in by_phase.items()},
+            "launches": launches[k],
+            "launches_by_phase": {p: c[k] for p, c in by_phase.items() if k in c},
             "max_abs_err": max(worst[k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -529,6 +970,14 @@ def main() -> int:
                   f"[{card_line}]")
         print(f"rate {route} streamed frame={FRAMES[0]} in-flight={IN_FLIGHT} "
               f"(median of {STREAM_RUNS}): {streamed[route]:.1f} Msamples/s [{card_line}]")
+    for chain in FM_CHAINS:
+        for f in FM_FRAMES:
+            print(f"rate fm {chain} resident frame={f}: {fm_resident[(chain, f)]:.1f} "
+                  f"input Msamples/s [{card_line}]")
+        if chain in fm_streamed:
+            print(f"rate fm {chain} streamed frame={FM_FRAMES[0]} in-flight={IN_FLIGHT} "
+                  f"(median of {STREAM_RUNS}): {fm_streamed[chain]:.1f} input "
+                  f"Msamples/s [{card_line}]")
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ A stage carry in the port has the same leaves, shapes and dtypes as the JAX
 stage's carry on the CPU. :func:`carry_from_numpy` rebuilds the port's carry
 from the JAX carry's leaves, flattened in tree order to numpy arrays by the
 caller (``[np.asarray(l) for l in jax.tree_util.tree_leaves(carry)]``), so a
-stream can move from one package to the other mid-run.
+stream can move from one package to the other mid-run. A bfloat16 leaf (the
+``ml_dtypes`` type numpy holds JAX's bf16 in) converts bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +32,14 @@ def _unflatten(template, leaves):
     return next(leaves)
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A host tensor of its own holding ``a``; ``torch.from_numpy`` rejects
+    ``ml_dtypes.bfloat16``, so such a leaf goes through its 16 bits."""
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def carry_from_numpy(pipeline: Pipeline, leaves: Sequence[np.ndarray], device) -> tuple:
     """The port's carry for ``pipeline`` on ``device`` from the JAX carry's
     numpy leaves; raises ``ValueError`` on a leaf count, shape or dtype that
@@ -43,9 +52,9 @@ def carry_from_numpy(pipeline: Pipeline, leaves: Sequence[np.ndarray], device) -
     out = []
     for i, (leaf, t) in enumerate(zip(leaves, t_leaves)):
         a = np.asarray(leaf)
-        want = t.numpy().dtype
-        if a.shape != tuple(t.shape) or a.dtype != want:
-            raise ValueError(f"carry leaf {i}: expected {tuple(t.shape)} {want}, "
+        got = _tensor(a)
+        if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
+            raise ValueError(f"carry leaf {i}: expected {tuple(t.shape)} {t.dtype}, "
                              f"got {a.shape} {a.dtype}")
-        out.append(torch.from_numpy(np.array(a)).to(device))
+        out.append(got.to(device))
     return _unflatten(template, iter(out))

@@ -1,6 +1,6 @@
-"""FIR filter design: the windowed-sinc lowpass of
-``futuresdr_tpu/dsp/firdes.py``. Cutoffs are normalized to the sample rate
-(cycles/sample, 0.5 = Nyquist)."""
+"""FIR filter design: the windowed-sinc lowpass and the Kaiser auto-order
+lowpass of ``futuresdr_tpu/dsp/firdes.py``. Cutoffs are normalized to the
+sample rate (cycles/sample, 0.5 = Nyquist)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import numpy as np
 
 from . import windows as _win
 
-__all__ = ["lowpass"]
+__all__ = ["lowpass", "kaiser_order", "kaiser_lowpass"]
 
 
 def lowpass(cutoff: float, n_taps: int, window="hamming") -> np.ndarray:
@@ -18,3 +18,26 @@ def lowpass(cutoff: float, n_taps: int, window="hamming") -> np.ndarray:
     w = _win.get_window(window, n_taps) if not isinstance(window, np.ndarray) else window
     h = h * w
     return h / h.sum()
+
+
+def kaiser_order(atten_db: float, transition_width: float) -> tuple:
+    """Kaiser order and beta from the stopband attenuation and the normalized
+    transition width."""
+    a = float(atten_db)
+    if a > 50.0:
+        beta = 0.1102 * (a - 8.7)
+    elif a >= 21.0:
+        beta = 0.5842 * (a - 21.0) ** 0.4 + 0.07886 * (a - 21.0)
+    else:
+        beta = 0.0
+    n = int(np.ceil((a - 7.95) / (2.285 * 2 * np.pi * transition_width))) + 1
+    return n, beta
+
+
+def kaiser_lowpass(cutoff: float, transition_width: float,
+                   atten_db: float = 60.0) -> np.ndarray:
+    """Lowpass from its spec through a Kaiser window of odd length."""
+    n, beta = kaiser_order(atten_db, transition_width)
+    if n % 2 == 0:
+        n += 1
+    return lowpass(cutoff, n, _win.kaiser(n, beta))

@@ -18,6 +18,13 @@ Kernels (sources under ``csrc/``, built by :mod:`._build`):
   ``fir_continue`` from the previous ``n_taps - 1`` samples.
 * ``fir_fft`` (``csrc/fir_fft.cu``) replaces ``_fir_fft_kernel``: the FIR
   fused with the forward FFT of each ``n_fft``-sample row.
+* ``rotator`` (``csrc/rotator.cu``) replaces ``_rotator_kernel``: the phase
+  ramp ``x[t]·exp(i·(ph0 + inc·t))``, ``ph0``/``inc`` read on the device.
+* ``poly_fir`` (``csrc/poly_fir.cu``) replaces ``_poly_fir_kernel``: the
+  decimating FIR at the decimated rate over the stride-D row matrix, and with
+  a 3-D weight tensor the rational resampler's phase outputs.
+* ``quad_demod`` (``csrc/quad_demod.cu``) replaces ``_quad_demod_kernel``:
+  ``gain·angle(x[t]·conj(x[t−1]))`` with the previous sample from the carry.
 
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
@@ -38,11 +45,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["fir", "fir_continue", "fir_fft", "fir_plain", "fir_continue_plain",
-           "fir_fft_plain", "launches", "reset_launches"]
+__all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
+           "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
+           "poly_fir_plain", "quad_demod_plain", "launches", "reset_launches"]
 
 #: launches per kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"fir": 0, "fir_fft": 0}
+launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
+                            "quad_demod": 0}
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -207,6 +216,99 @@ def fir_fft_plain(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     return (rows @ _dft_matrix(n_fft, x.device)).reshape(-1)
 
 
+def _check_rotator(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> None:
+    if x.dtype != torch.complex64 or x.dim() != 1:
+        raise TypeError(f"x must be a 1-D complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    for name, t in (("ph0", ph0), ("inc", inc)):
+        if t.dtype != torch.float32 or t.numel() != 1:
+            raise TypeError(f"{name} must be one float32 value, got {t.dtype} of "
+                            f"shape {tuple(t.shape)}")
+    if any(t.device != x.device for t in (ph0, inc)):
+        raise ValueError("x, ph0 and inc must lie on one device")
+
+
+def rotator_plain(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`rotator`: the float32 phase ``ph0 + inc·t``
+    (product and sum rounded separately), then the complex multiply as four
+    real products."""
+    _check_rotator(x, ph0, inc)
+    t = torch.arange(x.shape[0], dtype=torch.float32, device=x.device)
+    ph = ph0.reshape(()) + inc.reshape(()) * t
+    c, s = torch.cos(ph), torch.sin(ph)
+    xr, xi = x.real, x.imag
+    return torch.complex(xr * c - xi * s, xr * s + xi * c)
+
+
+def _check_quad_demod(prev: torch.Tensor, x: torch.Tensor) -> None:
+    if x.dtype != torch.complex64 or x.dim() != 1:
+        raise TypeError(f"x must be a 1-D complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    if prev.dtype != torch.complex64 or prev.numel() != 1:
+        raise TypeError(f"prev must be one complex64 sample, got {prev.dtype} of "
+                        f"shape {tuple(prev.shape)}")
+    if prev.device != x.device:
+        raise ValueError("x and prev must lie on one device")
+
+
+def quad_demod_plain(prev: torch.Tensor, x: torch.Tensor,
+                     gain: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`quad_demod`: ``z = x[t]·conj(x[t−1])`` formed
+    as the kernel forms it, then ``gain·atan2(Im z, Re z)``."""
+    _check_quad_demod(prev, x)
+    ext = torch.cat([prev.reshape(1), x])
+    pr, pi = ext[:-1].real, ext[:-1].imag
+    xr, xi = x.real, x.imag
+    zr = xr * pr + xi * pi
+    zi = xi * pr - xr * pi
+    y = float(np.float32(gain)) * torch.atan2(zi, zr)
+    return y, ext[-1].clone()
+
+
+def _check_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor) -> tuple:
+    """Validate a polyphase call; returns ``(m, D, I, nq)`` (``I`` is 1 for a
+    2-D ``W``)."""
+    if x.dtype not in _STREAM_DTYPES or x.dim() != 1:
+        raise TypeError(f"x must be a 1-D float32 or complex64 tensor, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    if W.dtype not in (torch.float32, torch.bfloat16) or W.dim() not in (2, 3):
+        raise TypeError(f"W must be a real 2-D [m+1, D] or 3-D [m+1, D, I] float32 "
+                        f"or bfloat16 tensor, got {W.dtype} of shape {tuple(W.shape)}")
+    m, D = int(W.shape[0]) - 1, int(W.shape[1])
+    I = int(W.shape[2]) if W.dim() == 3 else 1
+    if m < 1 or D < 1 or I < 1:
+        raise ValueError(f"W needs m >= 1, D >= 1 and I >= 1, got {tuple(W.shape)}")
+    if x.shape[0] % D:
+        raise ValueError(f"frame ({x.shape[0]}) must be a multiple of D ({D})")
+    if hist.dtype != x.dtype or tuple(hist.shape) != (m * D,):
+        raise ValueError(f"hist must be {m * D} samples of {x.dtype}, got "
+                         f"{hist.dtype} of shape {tuple(hist.shape)}")
+    if any(t.device != x.device for t in (hist, W)):
+        raise ValueError("hist, x and W must lie on one device")
+    return m, D, I, x.shape[0] // D
+
+
+def poly_fir_plain(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
+                   precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`poly_fir`: the shifted-row matmul sum
+    ``Σ_a rows[m−a : m−a+nq] @ W[a]`` over float planes, in float32."""
+    bf16 = _check_precision(precision)
+    m, D, I, nq = _check_poly_fir(hist, x, W)
+    planes = _planes(torch.cat([hist, x]))                 # [(m + nq)·D, 1 or 2]
+    w = W.to(torch.float32).reshape(m + 1, D, I)
+    if bf16:
+        planes, w = _bf16(planes), _bf16(w)
+    out = []
+    for p in range(planes.shape[1]):
+        rows = planes[:, p].reshape(-1, D)
+        acc = rows[m:m + nq] @ w[0]
+        for a in range(1, m + 1):
+            acc = acc + rows[m - a:m - a + nq] @ w[a]
+        out.append(acc)                                    # [nq, I]
+    y = torch.complex(out[0], out[1]) if x.is_complex() else out[0]
+    return y if W.dim() == 3 else y[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -221,9 +323,20 @@ def _lib(name: str):
             lib.fsdr_fir.restype = i
             lib.fsdr_fir_tile.argtypes = []
             lib.fsdr_fir_tile.restype = i
-        else:
+        elif name == "fir_fft":
             lib.fsdr_fir_fft.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, vp]
             lib.fsdr_fir_fft.restype = i
+        elif name == "rotator":
+            lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, ll, vp]
+            lib.fsdr_rotator.restype = i
+        elif name == "poly_fir":
+            lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]
+            lib.fsdr_poly_fir.restype = i
+            lib.fsdr_poly_fir_smem.argtypes = [i, i, i, i]
+            lib.fsdr_poly_fir_smem.restype = ll
+        else:
+            lib.fsdr_quad_demod.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, vp]
+            lib.fsdr_quad_demod.restype = i
         lib._fsdr_typed = True
     return lib
 
@@ -308,4 +421,82 @@ def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
                                stream)
     _raise_on(err, "fir_fft")
     launches["fir_fft"] += 1
+    return y
+
+
+def rotator(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+    """Phase-ramp rotator ``y[t] = x[t]·exp(i·(ph0 + inc·t))`` of a 1-D
+    complex64 frame; ``ph0`` and ``inc`` are one-element float32 tensors on
+    the frame's device (the stage carry), read by the kernel on the device."""
+    if x.device.type == "cpu":
+        return rotator_plain(x, ph0, inc)
+    _check_rotator(x, ph0, inc)
+    _check_cuda(x, ph0, inc)
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y                            # nothing to launch
+    lib = _lib("rotator")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(),
+                               y.data_ptr(), x.shape[0], stream)
+    _raise_on(err, "rotator")
+    launches["rotator"] += 1
+    return y
+
+
+def quad_demod(prev: torch.Tensor, x: torch.Tensor,
+               gain: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quadrature demod ``y[t] = gain·angle(x[t]·conj(x[t−1]))`` of a 1-D
+    complex64 frame, ``x[−1]`` being ``prev`` (one complex64 sample, the
+    stage carry). Returns ``(y float32, x[n−1])``; the second is a tensor of
+    its own (``prev`` again for an empty frame), the stage's next carry."""
+    if x.device.type == "cpu":
+        return quad_demod_plain(prev, x, gain)
+    _check_quad_demod(prev, x)
+    _check_cuda(prev, x)
+    y = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if x.shape[0] == 0:
+        return y, prev.reshape(()).clone()  # nothing to launch
+    last = torch.empty((), dtype=torch.complex64, device=x.device)
+    lib = _lib("quad_demod")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fsdr_quad_demod(x.data_ptr(), prev.data_ptr(), y.data_ptr(),
+                                  last.data_ptr(), x.shape[0], float(gain), stream)
+    _raise_on(err, "quad_demod")
+    launches["quad_demod"] += 1
+    return y, last
+
+
+def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
+             precision: Optional[str] = None) -> torch.Tensor:
+    """Polyphase decimating FIR at the decimated rate: with
+    ``rows = cat([hist, x]).reshape(-1, D)``, ``y[q] = Σ_a rows[q+m−a]·W[a]``.
+    ``W``: real ``[m+1, D]`` (returns ``[nq]``) or ``[m+1, D, I]`` (the
+    resampler's phase taps; returns ``[nq, I]``), float32 or bfloat16;
+    ``hist``: the previous ``m·D`` samples; ``x``: ``nq·D`` float32 or
+    complex64 samples, a complex stream filtered in one pass. The output has
+    the stream's dtype."""
+    if x.device.type == "cpu":
+        return poly_fir_plain(hist, x, W, precision)
+    bf16 = _check_precision(precision)
+    m, D, I, nq = _check_poly_fir(hist, x, W)
+    _check_cuda(hist, x, W)
+    shape = (nq, I) if W.dim() == 3 else (nq,)
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if nq == 0:
+        return y                            # nothing to launch
+    lib = _lib("poly_fir")
+    smem = lib.fsdr_poly_fir_smem(m, D, I, int(x.is_complex()))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"poly_fir: W {tuple(W.shape)} needs {smem} B of shared "
+                         f"memory per block, over the card's {_MAX_SMEM} B")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fsdr_poly_fir(hist.data_ptr(), x.data_ptr(), W.data_ptr(),
+                                y.data_ptr(), nq, m, D, I, int(x.is_complex()),
+                                int(bf16), int(W.dtype == torch.bfloat16), stream)
+    _raise_on(err, "poly_fir")
+    launches["poly_fir"] += 1
     return y

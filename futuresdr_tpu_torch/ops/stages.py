@@ -10,11 +10,15 @@ so there is no compile step: :meth:`Pipeline.fn` is the per-frame function.
 Carry trees have the same leaves, shapes and dtypes as the JAX stages on the
 CPU, so a carry converts across (``convert.carry_from_numpy``).
 
-This slice ports the north-star spectrum chain: :func:`fir_stage`
+Ported so far: the north-star spectrum chain, :func:`fir_stage`
 (overlap-save and ``impl="pallas"``, the hand-written ``fir`` kernel),
 :func:`fft_stage`, :func:`mag2_stage` and :func:`fir_fft_stage` (the fused
-``fir_fft`` kernel). Routes outside it raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them.
+``fir_fft`` kernel); and the FM front end, the polyphase decimating
+:func:`fir_stage` routes (``impl="pallas"`` on the ``poly_fir`` kernel),
+:func:`resample_stage`, :func:`rotator_stage` (``rotator`` kernel),
+:func:`quad_demod_stage` (``quad_demod`` kernel), :func:`xlating_fir_stage`
+and :func:`decimate_stage`. Routes outside them raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,9 +34,9 @@ from . import cuda_kernels
 from .xfer import torch_dtype
 
 __all__ = ["Stage", "Pipeline", "fir_stage", "fft_stage", "mag2_stage",
-           "fir_fft_stage"]
+           "fir_fft_stage", "resample_stage", "rotator_stage", "quad_demod_stage",
+           "xlating_fir_stage", "decimate_stage"]
 
-_POLY_ITEM = "ROADMAP Queue 1 item 4 (FM front end: polyphase decimation)"
 _PRECISION_ITEM = "ROADMAP Queue 1 item 7 (precision and tuning)"
 
 
@@ -228,6 +232,10 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
     from the carry, so a retune reaches it. ``"auto"`` picks overlap-save on
     every device in this slice, as the JAX package does off the TPU.
 
+    A decimating filter with ``impl="poly"``, ``impl="pallas"``, or
+    ``impl="auto"`` and ``n_taps <= 32·decim`` takes the polyphase route
+    (:func:`_poly_decim_fir_stage`), which computes at the decimated rate.
+
     Carry: ``(H, taps_f32, tail[L])``; ``H`` is the half spectrum on a real
     stream with real taps and no ``fft_impl="mxu"`` pin, else the full one.
     ``update(taps=…)`` swaps the filter (same tap count) with frames in
@@ -241,8 +249,8 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
     nt = len(taps)
     if impl == "poly" or (impl == "pallas" and decim > 1) \
             or (impl == "auto" and decim > 1 and nt <= 32 * decim):
-        raise NotImplementedError(f"fir_stage polyphase decimation route "
-                                  f"(impl={impl!r}, decim={decim}): {_POLY_ITEM}")
+        return _poly_decim_fir_stage(taps, decim, fft_len, name, impl,
+                                     precision=precision)
     if precision == "int8":
         raise NotImplementedError(f"fir_stage precision='int8': {_PRECISION_ITEM}")
     _check_fft_pins(fft_impl, precision)
@@ -414,3 +422,361 @@ def mag2_stage() -> Stage:
         return carry, (x * x).to(torch.float32)
 
     return Stage(fn, _stateless, Fraction(1, 1), np.float32, 1, "mag2")
+
+
+# ---------------------------------------------------------------------------
+# the FM front end: polyphase decimation, resampling, rotator, demod
+# ---------------------------------------------------------------------------
+
+def _as_dtype(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``y`` cast to the stream's dtype; a real stream keeps the real part."""
+    if y.is_complex() and not dtype.is_complex:
+        y = y.real
+    return y.to(dtype)
+
+
+def _tail(hist: torch.Tensor, x: torch.Tensor, H: int) -> torch.Tensor:
+    """The last ``H`` samples of ``hist ++ x`` as a tensor of its own, never a
+    view of the frame (a later frame may reuse the frame's buffer)."""
+    n = x.shape[0]
+    if n >= H:
+        return x[n - H:].clone()
+    return torch.cat([hist, x])[n:]
+
+
+def _phasor(ph: torch.Tensor) -> torch.Tensor:
+    """``exp(i·ph)`` of a float32 phase, complex64."""
+    return torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+def _shifted_matvec(ext: torch.Tensor, W: torch.Tensor, m: int, nq: int,
+                    precision: Optional[str] = None) -> torch.Tensor:
+    """``y = Σ_{r=0..m} rows[m−r : m−r+nq] @ W[r]`` with
+    ``rows = ext.reshape(-1, D)`` (a view): the shifted-row polyphase
+    accumulation as m+1 matmuls, nothing materialized. Float32 runs at full
+    precision (TF32 is off); ``precision="bf16"`` rounds real operands to
+    bfloat16 and accumulates their exact products in float32 (complex
+    operands stay float32, as in the JAX package off the TPU)."""
+    if precision == "int8":
+        raise NotImplementedError(f"int8 shifted matvec: {_PRECISION_ITEM}")
+    D = W.shape[1]
+    rows = ext.reshape(-1, D)
+    if precision == "bf16" and not (rows.is_complex() or W.is_complex()):
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+        W = W.to(torch.bfloat16).to(torch.float32)
+    else:
+        dt = torch.promote_types(rows.dtype, W.dtype)
+        rows, W = rows.to(dt), W.to(dt)
+    y = rows[m:m + nq] @ W[0]
+    for r in range(1, m + 1):
+        y = y + rows[m - r:m - r + nq] @ W[r]
+    return y
+
+
+def _poly_decim_weights(taps: np.ndarray, D: int, m: int) -> np.ndarray:
+    """``taps`` as the shifted-row weight matrix ``W[r, s] = taps[r·D − s]``
+    (zero out of range), so ``y[q] = Σ_r rows[q+m−r] · W[r]``."""
+    nt = len(taps)
+    W = np.zeros((m + 1, D), taps.dtype)
+    for r in range(m + 1):
+        for s in range(D):
+            t = r * D - s
+            if 0 <= t < nt:
+                W[r, s] = taps[t]
+    return W
+
+
+def _poly_decim_fir_stage(taps: np.ndarray, decim: int, fft_len: int, name: str,
+                          impl: str, precision: Optional[str] = None) -> Stage:
+    """Decimating FIR as m+1 shifted matvecs over the stride-D row matrix:
+    ``y[q] = Σ_t taps[t]·x[q·D − t] = Σ_{r=0..m} rows[q+m−r] · W[r]`` with
+    ``rows[j, s] = ext[j·D + s]`` and ``W[r, s] = taps[r·D − s]``: n_taps/D
+    MACs per input, at the decimated rate.
+
+    ``impl="pallas"`` runs real weights on the hand-written ``poly_fir``
+    kernel (a complex stream in one pass); complex weights, and every other
+    impl, take :func:`_shifted_matvec`. Carry ``(W, hist[m·D])``; ``W`` is
+    bfloat16 under ``precision="bf16"`` (real taps). ``update(taps=…)`` swaps
+    the filter (same tap count, no real→complex swap)."""
+    if precision == "int8":
+        raise NotImplementedError(f"fir_stage precision='int8': {_PRECISION_ITEM}")
+    if precision not in (None, "f32", "bf16"):
+        raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
+    D = int(decim)
+    nt = len(taps)
+    built_real = np.isrealobj(taps)
+    m = max(1, -(-(nt - 1) // D))       # history rows so windows never underflow
+    H = m * D
+
+    def fn(carry, x):
+        W, hist = carry
+        if impl == "pallas" and not W.is_complex():
+            y = cuda_kernels.poly_fir(hist, x.contiguous(), W, precision=precision)
+        else:
+            y = _shifted_matvec(torch.cat([hist, x]), W, m, x.shape[0] // D,
+                                precision=precision)
+        return (W, _tail(hist, x, H)), _as_dtype(y, x.dtype)
+
+    def _weights(t, complex_stream: bool, device) -> torch.Tensor:
+        # a real stream takes .real at the stage boundary: bake that in
+        teff = t if complex_stream else np.real(t)
+        teff = teff.astype(np.complex64 if np.iscomplexobj(teff) else np.float32)
+        W = torch.from_numpy(_poly_decim_weights(teff, D, m))
+        if precision == "bf16" and not W.is_complex():
+            W = W.to(torch.bfloat16)            # carried weights: half the bytes
+        return W.to(device)
+
+    def init_carry(dtype, device):
+        dt = np.dtype(dtype)
+        dev = torch.device(device)
+        return (_weights(taps, np.issubdtype(dt, np.complexfloating), dev),
+                torch.zeros(H, dtype=torch_dtype(dt), device=dev))
+
+    def update(carry, taps=None):
+        """Swap the filter with frames in flight: same tap count; the weights
+        are rebuilt with the real/complex treatment of the stream."""
+        if taps is None:
+            return carry
+        new = np.asarray(taps)
+        if len(new) != nt:
+            raise ValueError(
+                f"tap swap must keep the tap count ({nt}); got {len(new)} — "
+                f"rebuild the stage for a different filter length")
+        if np.iscomplexobj(new) and built_real:
+            raise ValueError(
+                "stage was built with real taps; swapping to complex taps "
+                "requires rebuilding the stage")
+        _w_old, hist = carry
+        return (_weights(new, hist.is_complex(), hist.device), hist)
+
+    return Stage(fn, init_carry, Fraction(1, D), None, D, name,
+                 lti=(taps, D, fft_len, impl), update=update, lower=_no_lowering,
+                 route=(impl, None, precision))
+
+
+def resample_stage(interp: int, decim: int, taps=None, fft_len: int = 8192,
+                   name: str = "resample", impl: str = "poly") -> Stage:
+    """Rational I/D resampler.
+
+    ``impl="poly"`` (default): the polyphase form, outputs grouped by phase
+    and contracted against the phase-tap tensor ``W[m+1, D, I]`` with
+    :func:`_shifted_matvec` (m+1 ``[nq, D]·[D, I]`` matmuls).
+    ``impl="pallas"``: the same factorization in the hand-written
+    ``poly_fir`` kernel with the 3-D ``W``. ``impl="stuff"``: zero-stuff ×I,
+    overlap-save lowpass, ↓D; complex taps force it. Default taps:
+    ``kaiser_lowpass(0.5/r·0.8, 0.1/r)·I``, ``r = max(I, D)``."""
+    from math import gcd
+
+    if impl not in ("poly", "stuff", "pallas"):
+        raise ValueError(f"impl must be poly, stuff or pallas, got {impl!r}")
+    g = gcd(int(interp), int(decim))
+    I, D = int(interp) // g, int(decim) // g
+    if taps is None:
+        from ..dsp import firdes
+        r = max(I, D)
+        taps = firdes.kaiser_lowpass(0.5 / r * 0.8, 0.1 / r) * I
+    taps = np.asarray(taps)
+    if np.iscomplexobj(taps):
+        impl = "stuff"
+
+    if impl == "stuff":
+        inner = fir_stage(taps, decim=1, fft_len=fft_len, name=f"{name}_fir")
+        L = inner.frame_multiple                   # hop of the overlap-save core
+
+        def stuff_fn(carry, x):
+            up = torch.zeros(x.shape[0] * I, dtype=x.dtype, device=x.device)
+            up[::I] = x
+            carry, y = inner.fn(carry, up)
+            if D > 1:
+                y = y[::D].contiguous()
+            return carry, y
+
+        # frame n must satisfy: n·I divisible by the overlap-save hop L and by D
+        mult = int(np.lcm(L // np.gcd(I, L), D // np.gcd(I, D)))
+        return Stage(stuff_fn, inner.init_carry, Fraction(I, D), None, mult, name)
+
+    # output j = Σ_t taps[p_j + I·t]·x[s_j − t], p_j = (j·D) mod I, s_j = ⌊j·D/I⌋;
+    # outputs of residue r = j mod I share phase p_r and land on stride-D
+    # offsets q·D + c_r, so W[a, s, r] = phase_r[a·D + c_r − s] and
+    # y[:, r] = Σ_a rows[m−a : m−a+nq] @ W[a, :, r]
+    T = len(taps)
+    Kmax = -(-T // I)                   # taps per phase
+    ftaps = taps.astype(np.float32)
+    c_off = [(r_ * D) // I for r_ in range(I)]
+    m = max(1, -(-(Kmax - 1) // D))     # history rows so windows never underflow
+    H = m * D
+    W_np = np.zeros((m + 1, D, I), np.float32)    # [row shift, col, phase]
+    for r_ in range(I):
+        phase = ftaps[(r_ * D) % I::I]
+        for a in range(m + 1):
+            for s in range(D):
+                k = a * D + c_off[r_] - s
+                if 0 <= k < len(phase):
+                    W_np[a, s, r_] = phase[k]
+    weights = {}                        # device -> W on that device
+
+    def fn(carry, x):
+        hist = carry
+        W = weights.get(x.device)
+        if W is None:
+            W = weights[x.device] = torch.from_numpy(W_np).to(x.device)
+        if impl == "pallas":
+            y = cuda_kernels.poly_fir(hist, x.contiguous(), W)       # [nq, I]
+        else:
+            y = _shifted_matvec(torch.cat([hist, x]), W, m, x.shape[0] // D)
+        return _tail(hist, x, H), _as_dtype(y.reshape(-1), x.dtype)
+
+    def init_carry(dtype, device):
+        return torch.zeros(H, dtype=torch_dtype(dtype), device=torch.device(device))
+
+    return Stage(fn, init_carry, Fraction(I, D), None, D, name,
+                 route=(("pallas", None, None) if impl == "pallas" else None))
+
+
+def decimate_stage(decim: int) -> Stage:
+    """Keep every ``decim``-th sample."""
+    def fn(carry, x):
+        return carry, x[::decim].contiguous()
+
+    return Stage(fn, _stateless, Fraction(1, decim), None, decim, f"decim{decim}")
+
+
+def rotator_stage(phase_inc: float, name: str = "rotator", impl: str = "xla") -> Stage:
+    """Complex rotator ``y[t] = x[t]·exp(i·(ph0 + inc·t))`` with the phase
+    carried from frame to frame (reduced mod 2π).
+
+    Carry ``(ph0, inc)``, float32 scalars; the increment rides the carry, so
+    ``update(phase_inc=…)`` retunes the next frame with phase continuity.
+    ``impl="pallas"`` runs the hand-written ``rotator`` kernel, which reads
+    both scalars on the device; ``"xla"`` (default) the same ramp in PyTorch
+    ops. A real stream keeps the real part of the product, as in the JAX
+    package."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"impl must be xla or pallas, got {impl!r}")
+
+    def fn(carry, x):
+        ph0, inc = carry
+        n = x.shape[0]
+        if impl == "pallas":
+            y = cuda_kernels.rotator(x.to(torch.complex64).contiguous(), ph0, inc)
+        else:
+            ph = ph0 + inc * torch.arange(n, dtype=torch.float32, device=x.device)
+            y = x * _phasor(ph)
+        new = torch.remainder(ph0 + inc * n, 2 * np.pi)
+        return (new, inc), _as_dtype(y, x.dtype)
+
+    def init_carry(dtype, device):
+        dev = torch.device(device)
+        return (torch.zeros((), dtype=torch.float32, device=dev),
+                torch.tensor(float(phase_inc), dtype=torch.float32, device=dev))
+
+    def update(carry, phase_inc=None):
+        if phase_inc is None:
+            return carry
+        ph0, _inc = carry
+        return (ph0, torch.tensor(float(phase_inc), dtype=torch.float32,
+                                  device=ph0.device))
+
+    return Stage(fn, init_carry, Fraction(1, 1), None, 1, name, update=update,
+                 route=(("pallas", None, None) if impl == "pallas" else None))
+
+
+def quad_demod_stage(gain: float = 1.0, impl: str = "xla") -> Stage:
+    """FM discriminator ``gain·angle(x[t]·conj(x[t−1]))`` with a one-sample
+    carry (starting at 1+0j). ``impl="pallas"`` runs the hand-written
+    ``quad_demod`` kernel (complex64 streams), which also writes the next
+    carry; on either route the carry is a tensor of its own, never a view
+    of the frame."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"impl must be xla or pallas, got {impl!r}")
+
+    def fn(carry, x):
+        if impl == "pallas":
+            y, last = cuda_kernels.quad_demod(carry, x.contiguous(), gain)
+            return last, y
+        prev = torch.cat([carry.reshape(1), x[:-1]])
+        y = gain * torch.angle(x * torch.conj(prev))
+        return x[-1].clone(), y.to(torch.float32)
+
+    def init_carry(dtype, device):
+        return torch.ones((), dtype=torch_dtype(dtype), device=torch.device(device))
+
+    return Stage(fn, init_carry, Fraction(1, 1), np.float32, 1, "quad_demod",
+                 route=(("pallas", None, None) if impl == "pallas" else None))
+
+
+def xlating_fir_stage(taps, phase_inc: float, decim: int,
+                      name: str = "xlating") -> Stage:
+    """Frequency-translating decimating FIR as one stage, the rotator folded
+    into the filter:
+
+        y[q] = Σ_t h[t]·e^{jθ(qD−t)}·x[qD−t] = e^{jθDq} · Σ_t (h[t]e^{−jθt})·x[qD−t]
+
+    so the filter runs with complex taps ``h[t]e^{−jθt}`` on
+    :func:`_shifted_matvec` (plain matmuls, as in the JAX package) and only a
+    residual rotator at the decimated rate remains.
+
+    Carry ``(W c64, base f32, ph0, inc_d, th_hi, th_lo, hist)``: the exact θ
+    rides as a float32 hi/lo pair, so ``update(taps=…)`` rebuilds the
+    weights at the exact θ; ``update(phase_inc=…)`` swaps the weights and the
+    residual increment at once, the phase staying continuous."""
+    D = int(decim)
+    base0 = np.real(np.asarray(taps)).astype(np.float32)
+    nt = len(base0)
+    m = max(1, -(-(nt - 1) // D))
+    H = m * D
+
+    def _weights(base: np.ndarray, theta: float) -> np.ndarray:
+        ct = (base * np.exp(-1j * theta * np.arange(nt))).astype(np.complex64)
+        return _poly_decim_weights(ct, D, m)
+
+    def _theta_split(theta: float):
+        hi = np.float32(theta)
+        return hi, np.float32(theta - float(hi))
+
+    def _f32(v, device) -> torch.Tensor:
+        return torch.tensor(float(np.float32(v)), dtype=torch.float32, device=device)
+
+    def fn(carry, x):
+        W, base, ph0, inc_d, th_hi, th_lo, hist = carry
+        nq = x.shape[0] // D
+        y = _shifted_matvec(torch.cat([hist, x]), W, m, nq)
+        ph = ph0 + inc_d * torch.arange(nq, dtype=torch.float32, device=x.device)
+        y = y * _phasor(ph)
+        ph_new = torch.remainder(ph0 + inc_d * nq, 2 * np.pi)
+        return (W, base, ph_new, inc_d, th_hi, th_lo, _tail(hist, x, H)), \
+            _as_dtype(y, x.dtype)
+
+    def init_carry(dtype, device):
+        dev = torch.device(device)
+        hi, lo = _theta_split(float(phase_inc))
+        return (torch.from_numpy(_weights(base0, float(phase_inc))).to(dev),
+                torch.from_numpy(base0.copy()).to(dev),
+                torch.zeros((), dtype=torch.float32, device=dev),
+                _f32(float(phase_inc) * D, dev), _f32(hi, dev), _f32(lo, dev),
+                torch.zeros(H, dtype=torch_dtype(dtype), device=dev))
+
+    def update(carry, phase_inc=None, taps=None):
+        W, base, ph0, inc_d, th_hi, th_lo, hist = carry
+        dev = hist.device
+        nbase = base.cpu().numpy().astype(np.float32)
+        if taps is not None:
+            new = np.asarray(taps)
+            if len(new) != nt:
+                raise ValueError(f"tap swap must keep the tap count ({nt}); "
+                                 f"got {len(new)}")
+            if np.iscomplexobj(new):
+                raise ValueError("xlating stage taps are the REAL base lowpass; "
+                                 "the translation rides phase_inc")
+            nbase = new.astype(np.float32)
+            base = torch.from_numpy(nbase.copy()).to(dev)
+        if phase_inc is not None:
+            theta = float(phase_inc)
+            hi, lo = _theta_split(theta)
+            inc_d, th_hi, th_lo = _f32(theta * D, dev), _f32(hi, dev), _f32(lo, dev)
+        else:
+            theta = float(th_hi) + float(th_lo)
+        W = torch.from_numpy(_weights(nbase, theta)).to(dev)
+        return (W, base, ph0, inc_d, th_hi, th_lo, hist)
+
+    return Stage(fn, init_carry, Fraction(1, D), None, D, name, update=update)

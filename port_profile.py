@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the streamed spectrum chain's time goes on one CUDA card.
+"""Where the streamed chains' time goes on one CUDA card.
 
-Runs the port's streamed path, ``NullSource -> Head -> TpuKernel -> NullSink``
-with the north-star chain (64-tap FIR, 2048-point FFT, |x|^2; frame 2^18,
-4 frames in flight), once per route, under ``torch.profiler`` with CUDA
-activity only. For each route it prints the wall time, the device-busy time
+Runs the port's streamed path, ``NullSource -> Head -> TpuKernel -> NullSink``,
+under ``torch.profiler`` with CUDA activity only: the north-star chain
+(64-tap FIR, 2048-point FFT, |x|^2; frame 2^18) once per route, and the FM
+front end (frame 512,000) once per chain, the app's (``front_end_stages``)
+and the kernel chain (rotator, decimating FIR, demod, resampler on the hand
+kernels); 64 frames, 4 in flight. For each it prints the wall time, the device-busy time
 (the union of every kernel and copy interval on the card's timeline, so
 overlapping streams count once), the idle share (1 - busy / wall) and the
 device time by kernel or copy, with the card's name and power limit. The
@@ -27,6 +29,7 @@ import numpy as np
 N_TAPS = 64
 N_FFT = 2048
 FRAME = 1 << 18
+FM_FRAME = 512_000
 FRAMES = 64
 IN_FLIGHT = 4
 TOP = 8
@@ -38,6 +41,19 @@ def _stages(route: str, taps):
     if route == "fused":
         return [fir_fft_stage(taps, N_FFT), mag2_stage()]
     return [fir_stage(taps, impl=route), fft_stage(N_FFT), mag2_stage()]
+
+
+def _fm_stages(chain: str):
+    from futuresdr_tpu_torch.apps.fm_receiver import front_end_stages
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import (fir_stage, quad_demod_stage,
+                                                resample_stage, rotator_stage)
+    if chain == "app":
+        return front_end_stages(offset=100e3)
+    return [rotator_stage(-2 * np.pi * 100e3 / 1e6, name="tuner", impl="pallas"),
+            fir_stage(firdes.lowpass(0.5 / 4 * 0.8, 128), decim=4, impl="pallas"),
+            quad_demod_stage(250e3 / (2 * np.pi * 75e3), impl="pallas"),
+            resample_stage(24, 125, impl="pallas")]
 
 
 def _union_us(intervals) -> float:
@@ -55,7 +71,7 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_route(route: str, taps, dev) -> dict:
+def profile_route(stages, frame: int, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
 
@@ -64,17 +80,17 @@ def profile_route(route: str, taps, dev) -> dict:
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     fg = Flowgraph()
     snk = NullSink(np.float32)
-    fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * FRAME),
-               TpuKernel(_stages(route, taps), np.complex64, frame_size=FRAME,
-                         inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT), snk)
+    kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
+                     frames_in_flight=IN_FLIGHT)
+    fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
     rt = Runtime()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rt.run(fg)
         wall_s = time.perf_counter() - t0
     rt.shutdown()
-    if snk.n_received != FRAMES * FRAME:
-        raise RuntimeError(f"{route}: NullSink got {snk.n_received} items")
+    if snk.n_received != kern.pipeline.out_items(FRAMES * frame):
+        raise RuntimeError(f"NullSink got {snk.n_received} items")
     intervals, by_name = [], defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -99,10 +115,12 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
-    for route in ("os", "pallas", "fused"):
-        r = profile_route(route, taps, dev)
+    runs = [(route, _stages(route, taps), FRAME) for route in ("os", "pallas", "fused")]
+    runs += [(f"fm {chain}", _fm_stages(chain), FM_FRAME) for chain in ("app", "kernel")]
+    for label, stages, frame in runs:
+        r = profile_route(stages, frame, dev)
         per_frame = 1.0 / (FRAMES + 1)          # + the kernel's warm-up frame
-        print(f"profile {route}: wall {r['wall_us'] / 1e3:.1f} ms, device busy "
+        print(f"profile {label} frame={frame}: wall {r['wall_us'] / 1e3:.1f} ms, device busy "
               f"{r['busy_us'] / 1e3:.2f} ms, idle share {1 - r['busy_us'] / r['wall_us']:.3f}; "
               f"per frame: wall {r['wall_us'] * per_frame:.1f} us, busy "
               f"{r['busy_us'] * per_frame:.1f} us [{card}]")

@@ -79,3 +79,67 @@ def test_kernel_wrappers_reject_non_contiguous_tensors(cuda_device):
     taps = torch.ones(16, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ck.fir(x, taps)
+
+
+# ---------------------------------------------------------------------------
+# the FM front end's kernels at the FM shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512_000, 512_000 * 8 + 77])
+def test_rotator_kernel_matches_plain_on_card(cuda_device, n):
+    """|ph| reaches 0.628·n: the kernel must round ph0 + inc·t as the plain
+    version does (no FMA contraction, full-range sincosf)."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(_c64(rng, n)).to(cuda_device)
+    ph0 = torch.tensor(1.25, device=cuda_device)
+    inc = torch.tensor(-2 * np.pi * 0.1, dtype=torch.float32, device=cuda_device)
+    before = ck.launches["rotator"]
+    got = ck.rotator(x, ph0, inc)
+    torch.cuda.synchronize()
+    assert ck.launches["rotator"] == before + 1
+    assert _rel_err(got, ck.rotator_plain(x, ph0, inc)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128_000, 1_001])
+def test_quad_demod_kernel_matches_plain_on_card(cuda_device, n):
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(_c64(rng, n)).to(cuda_device)
+    prev = torch.tensor(0.7 - 0.2j, dtype=torch.complex64, device=cuda_device)
+    gain = 250e3 / (2 * np.pi * 75e3)
+    before = ck.launches["quad_demod"]
+    got, last = ck.quad_demod(prev, x, gain)
+    torch.cuda.synchronize()
+    assert ck.launches["quad_demod"] == before + 1
+    ref, ref_last = ck.quad_demod_plain(prev, x, gain)
+    period = 2 * np.pi * gain
+    d = got - ref
+    d = d - period * torch.round(d / period)       # atan2's ±π branch
+    assert d.abs().max().item() <= 1e-5
+    assert last.item() == ref_last.item() == x[-1].item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,m,I,nq,complex_stream,precision", [
+    (4, 32, None, 128_000, True, None), (4, 32, None, 128_000, True, "bf16"),
+    (125, 2, 24, 1_024, False, None), (125, 2, 24, 1_021, False, "bf16"),
+    (8, 7, None, 777, False, None)])
+def test_poly_fir_kernel_matches_plain_on_card(cuda_device, D, m, I, nq,
+                                               complex_stream, precision):
+    rng = np.random.default_rng(25)
+    shape = (m + 1, D) if I is None else (m + 1, D, I)
+    W = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    if precision == "bf16":
+        W = W.to(torch.bfloat16)
+    if complex_stream:
+        hist, x = _c64(rng, m * D), _c64(rng, nq * D)
+    else:
+        hist = rng.standard_normal(m * D).astype(np.float32)
+        x = rng.standard_normal(nq * D).astype(np.float32)
+    h, xx = torch.from_numpy(hist).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    before = ck.launches["poly_fir"]
+    got = ck.poly_fir(h, xx, W, precision)
+    torch.cuda.synchronize()
+    assert ck.launches["poly_fir"] == before + 1
+    assert _rel_err(got, ck.poly_fir_plain(h, xx, W, precision)) <= 1e-5

@@ -75,9 +75,20 @@ def test_cpu_tensors_never_count_a_launch():
     ck.fir(x, taps)
     ck.fir_continue(hist, x, taps, precision="bf16")
     ck.fir_fft(hist, x, taps, 256)
+    ck.rotator(x, torch.tensor(0.5), torch.tensor(-0.1))
+    ck.quad_demod(x[:1].reshape(()), x, 0.5)
+    ck.poly_fir(torch.zeros(12, dtype=torch.complex64), x, torch.ones(4, 4))
+    ck.poly_fir(torch.zeros(4), x.real.contiguous(), torch.ones(2, 4, 3),
+                precision="bf16")
     pipe = T.Pipeline([T.fir_fft_stage(taps.numpy(), 256), T.mag2_stage()], np.complex64)
     pipe.fn()(pipe.init_carry("cpu"), x)
-    assert ck.launches == {"fir": 0, "fir_fft": 0}
+    pipe = T.Pipeline([T.rotator_stage(0.1, impl="pallas"),
+                       T.fir_stage(taps.numpy(), decim=4, impl="pallas"),
+                       T.quad_demod_stage(impl="pallas"),
+                       T.resample_stage(3, 8, impl="pallas")], np.complex64)
+    pipe.fn()(pipe.init_carry("cpu"), x)
+    assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod"}
+    assert all(v == 0 for v in ck.launches.values()), ck.launches
 
 
 def test_non_cuda_device_tensors_raise_instead_of_falling_back():
@@ -91,6 +102,13 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
         ck.fir(x, taps)
     with pytest.raises(ValueError, match="CUDA"):
         ck.fir_fft(hist, x, taps, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.rotator(x, torch.empty((), device="meta"), torch.empty((), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.quad_demod(torch.empty((), dtype=torch.complex64, device="meta"), x, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.poly_fir(torch.empty(12, dtype=torch.complex64, device="meta"), x,
+                    torch.empty(4, 4, device="meta"))
     assert ck.launches == before
 
 

@@ -240,9 +240,9 @@ def test_carry_trees_match_jax_leaf_for_leaf():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: T.fir_stage(np.ones(8, np.float32), decim=2),
-    lambda: T.fir_stage(np.ones(8, np.float32), impl="poly"),
-    lambda: T.fir_stage(np.ones(8, np.float32), impl="pallas", decim=2),
+    lambda: T.fir_stage(np.ones(8, np.float32), decim=2, precision="int8"),
+    lambda: T.fir_stage(np.ones(8, np.float32), impl="poly", decim=2).lower("bf16"),
+    lambda: T._shifted_matvec(torch.zeros(8), torch.zeros(2, 4), 1, 1, precision="int8"),
     lambda: T.fir_stage(np.ones(8, np.float32), precision="int8"),
     lambda: T.fir_fft_stage(np.ones(8, np.float32), 64, precision="int8"),
     lambda: T.fft_stage(64).lower("bf16"),
