@@ -42,6 +42,29 @@ the kernel chain (``rotator_stage``, ``fir_stage(decim=4)``,
     audio_path=…)`` with the WAV's tone at 1 kHz, and a mid-stream
     ``apply_retune("tuner", phase_inc=…)`` on both chains.
 
+The PFB channelizer at PFB-64 (``channelizer_stage(64)`` with its default
+768-tap prototype, K = 12 taps a branch), and the spectrum app:
+
+12. the ``pfb`` kernel against its plain version at PFB-64 (t = 4096, f32 and
+    bf16), at ragged t (1 and 37), at N = 5, 24, 1024, 2048 and 4096 (the
+    last two with rows and taps read from device memory, the shared ``v``
+    tile alone) and at K = 1; in bf16 also the kernel run in float32 mode on
+    the same inputs, which must fall below the bf16 limit;
+13. the channelizer resident on both routes (``matmul``: windows einsum and
+    ``torch.fft.ifft``; ``pallas``: the ``pfb`` kernel) at frames 2^18 and
+    2^21, carry chained over 8 frames: the routes agree at >= 80 dB, chained
+    frames match one long frame, and a tone at channel 3's and channel 40's
+    centre lands in its own output; the stage's default ``impl="auto"``
+    launches the kernel and gives the ``pallas`` route's output, at PFB-64
+    and at PFB-2048 (against ``matmul`` there);
+14. streamed: ``NullSource -> Head -> TpuKernel -> NullSink`` with 4 frames in
+    flight, ``VectorSource -> TpuKernel -> StreamDeinterleaver(64) -> 64
+    VectorSinks`` against the resident chain and the host ``PfbChannelizer``
+    block, and a prototype swap mid-stream through ``apply_retune``;
+15. the spectrum app, ``apps/spectrum.py`` ``build_flowgraph(VectorSource(…),
+    use_tpu=True, collect=True)`` at FFT_SIZE 2048 over 32,768-sample frames:
+    the tone's bin, and the spectra against a float64 recomputation.
+
 Every phase passes or the script exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the CUDA toolkit
 (``nvcc``); run from the repository root: ``python3 chip_smoke.py``.
@@ -79,7 +102,7 @@ PEAK_FP32 = 67e12
 # rotator's 2π reduction in double before its sincosf (~2e-7 of peak). quad_demod: max |kernel - plain| <= TOL in
 # radians·gain, absolute, after wrapping atan2's ±π branch.
 TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
-       "quad_demod": 1e-5}
+       "quad_demod": 1e-5, "pfb": 1e-5}
 # Route agreement (fir kernel / fused kernel vs overlap-save via cuFFT) and
 # chained-vs-long-frame, relative to the peak of the reference output.
 ROUTE_TOL = 1e-4
@@ -110,14 +133,49 @@ FM_APP_TOL = 5e-3
 FM_PHASE_TOL = 5e-2
 FM_GAIN = 250e3 / (2 * np.pi * 75e3)
 
+# PFB channelizer (channelizer_stage(64) with pfb_default_taps(64): K = 12)
+PFB_N = 64
+PFB_FRAMES = (1 << 18, 1 << 21)
+PFB_CHAIN = 8                # carry-chained frames per resident check
+PFB_STREAM_FRAMES = 64       # frames through the streamed flowgraph
+PFB_VECTOR_FRAMES = 8        # frames through the deinterleaved flowgraph
+PFB_TONE_CHANNELS = (3, 40)
+PFB_WIDE_N = 2048            # auto at a width whose rows and taps are not staged
+# bf16 kernel vs plain: the plain version rounds its cos/sin matrix to bf16,
+# as the JAX kernel does, while the kernel keeps float32 twiddles, so the two
+# are held by SNR. The limit lies between the bf16 kernel's reading against
+# the plain version and the reading of the kernel in float32 mode (a bf16
+# mode that did nothing) on the same inputs; phase 12 checks both sides. On
+# an H100 80GB HBM3 the two read 57.6-59.3 dB and 51.4-51.8 dB (PFB-2048 and
+# PFB-64).
+PFB_BF16_SNR = 54.5
+PFB_ROUTE_SNR = 80.0         # pallas vs matmul route (tests/test_precision.py)
+PFB_TONE_RATIO = 100.0       # tone channel power over any other (test_dsp_blocks.py)
+# deinterleaved flowgraph vs the host block: |got - ref| <= atol·peak + rtol·|ref|
+# (tests/test_tpu_stages.py)
+PFB_BLOCK_RTOL, PFB_BLOCK_ATOL = 1e-3, 1e-4
+
+# the spectrum app (apps/spectrum.py at its FFT_SIZE 2048, frame 32,768)
+SPEC_FRAMES = 64             # app frames streamed
+SPEC_TONE = 0.3              # tone frequency, cycles/sample
+# app output vs the float64 recomputation: in dB once the EMA has averaged
+# 32 spectra (0.9^32 = 3% weight left on the first); before that a noise bin
+# can sit near zero power, where float32 FFT rounding is large in dB, so the
+# first 32 are held in power relative to each spectrum's peak.
+SPEC_SETTLE = 32
+SPEC_DB_TOL = 1e-3
+SPEC_POWER_TOL = 1e-5
+
 REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
             "fir_fft": "futuresdr_tpu/ops/pallas_kernels.py:408",
             "rotator": "futuresdr_tpu/ops/pallas_kernels.py:535",
             "poly_fir": "futuresdr_tpu/ops/pallas_kernels.py:326",
-            "quad_demod": "futuresdr_tpu/ops/pallas_kernels.py:597"}
+            "quad_demod": "futuresdr_tpu/ops/pallas_kernels.py:597",
+            "pfb": "futuresdr_tpu/ops/pallas_kernels.py:225"}
 SOURCES = {k: f"futuresdr_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SPECTRUM_KERNELS = ("fir", "fir_fft")
 FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
+PFB_KERNELS = ("pfb",)
 
 
 class SmokeError(RuntimeError):
@@ -136,6 +194,14 @@ def rel_err(got, ref) -> tuple:
     err = float(np.max(np.abs(g - r))) if r.size else 0.0
     peak = float(np.max(np.abs(r))) if r.size else 0.0
     return err, err / max(peak, 1e-30)
+
+
+def snr_db(got, ref) -> float:
+    """``10·log10(mean |ref|² / mean |got - ref|²)`` in float64 on the host."""
+    g = got.detach().cpu().numpy().astype(np.complex128)
+    r = ref.detach().cpu().numpy().astype(np.complex128)
+    err = float(np.mean(np.abs(g - r) ** 2))
+    return float(10 * np.log10(np.mean(np.abs(r) ** 2) / max(err, 1e-300)))
 
 
 def card() -> str:
@@ -277,6 +343,18 @@ def phase_kernels(dev, cases) -> dict:
         if name == "quad_demod":
             err = rel = demod_err(got, ref)
             print(f"kernel {label}: max_abs_err {err:.3e} (wrapped, tol {TOL[name]:g})")
+        elif name == "pfb" and label.endswith("bf16"):
+            err, _ = rel_err(got, ref)
+            snr = snr_db(got, ref)
+            off = snr_db(kern.f32_mode(), ref)
+            print(f"kernel {label}: max_abs_err {err:.3e}, {snr:.2f} dB against the "
+                  f"plain version (min {PFB_BF16_SNR:g} dB); the kernel in f32 mode "
+                  f"{off:.2f} dB (must fall below)")
+            check(snr >= PFB_BF16_SNR, f"{label}: {snr:.2f} dB under {PFB_BF16_SNR:g}")
+            check(off < PFB_BF16_SNR, f"{label}: the f32-mode kernel reads {off:.2f} dB, "
+                                      f"the limit {PFB_BF16_SNR:g} cannot tell bf16 apart")
+            worst[name] = max(worst.get(name, 0.0), err)
+            continue
         else:
             err, rel = rel_err(got, ref)
             print(f"kernel {label}: max_abs_err {err:.3e} ({rel:.3e} of peak, "
@@ -883,6 +961,367 @@ def fm_kernel_timings(dev, f: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: the PFB channelizer and the spectrum app
+# ---------------------------------------------------------------------------
+
+def pfb_branch(dev, precision=None, atten_db: float = 70.0, n: int = PFB_N):
+    """The channelizer stage's carried taps for PFB-``n``, ``[N, K]``."""
+    from futuresdr_tpu_torch.ops.stages import channelizer_stage
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    st = channelizer_stage(n, pfb_default_taps(n, atten_db=atten_db),
+                           precision=precision)
+    return st.init_carry(np.complex64, dev)[0]
+
+
+class _PfbCall:
+    """A ``pfb`` call on fixed inputs; ``f32_mode()`` runs the kernel on the
+    same inputs with its bf16 mode off."""
+
+    def __init__(self, fn, hist, x, taps, precision):
+        self.fn, self.args, self.precision = fn, (hist, x, taps), precision
+
+    def __call__(self):
+        return self.fn(*self.args, self.precision)
+
+    def f32_mode(self):
+        return self.fn(*self.args, None)
+
+
+def pfb_kernel_cases(dev):
+    """(kernel, label, kernel call, plain call) for ``pfb`` at PFB-64, ragged
+    t, other channel counts and one tap a branch; the taps go in as the
+    stage passes them, its ``[N, K]`` carry transposed."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cases = []
+    for n, t in ((PFB_N, PFB_FRAMES[0] // PFB_N), (PFB_WIDE_N, 64)):
+        for prec in (None, "bf16"):
+            hc = pfb_branch(dev, prec, n=n)
+            K = hc.shape[1]
+            hist, x = randc((K - 1) * n, gen, dev), randc(t * n, gen, dev)
+            cases.append(("pfb", f"pfb PFB-{n} t={t} K={K} {prec or 'f32'}",
+                          _PfbCall(ck.pfb, hist, x, hc.t(), prec),
+                          _PfbCall(ck.pfb_plain, hist, x, hc.t(), prec)))
+    for t, K, N in ((1, 12, 64), (37, 12, 64), (500, 12, 5), (300, 12, 24),
+                    (64, 12, 1024), (9, 12, 4096), (300, 1, 64)):
+        w = torch.randn(N, K, generator=gen, device=dev)
+        hist, x = randc((K - 1) * N, gen, dev), randc(t * N, gen, dev)
+        cases.append(("pfb", f"pfb t={t} K={K} N={N} f32",
+                      lambda h=hist, x=x, w=w: ck.pfb(h, x, w.t()),
+                      lambda h=hist, x=x, w=w: ck.pfb_plain(h, x, w.t())))
+    return cases
+
+
+def pfb_stages(impl: str, atten_db: float = 70.0, n: int = PFB_N):
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    from futuresdr_tpu_torch.ops.stages import channelizer_stage
+    return [channelizer_stage(n, pfb_default_taps(n, atten_db=atten_db), impl=impl)]
+
+
+PFB_IMPLS = ("matmul", "pallas")
+
+
+def run_pfb(impl, frames, dev, n: int = PFB_N):
+    import torch
+
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    pipe = Pipeline(pfb_stages(impl, n=n), np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for x in frames:
+        carry, y = fn(carry, x)
+        outs.append(y)
+    return torch.cat(outs)
+
+
+def tone_powers(y, n: int, skip: int = 16) -> np.ndarray:
+    """Mean power of each channel of the interleaved output after ``skip``
+    rows (past the prototype's K = 12 rows of transient)."""
+    return (y.reshape(-1, n)[skip:].abs() ** 2).mean(dim=0).double().cpu().numpy()
+
+
+def phase_pfb_resident(dev) -> dict:
+    """Both routes at each frame, 8 frames chained; returns Msps per (route,
+    frame)."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rates = {}
+    # the stage's default route on a carry on the card: the kernel
+    for n, ref_impl in ((PFB_N, "pallas"), (PFB_WIDE_N, "matmul")):
+        xs = [randc(PFB_FRAMES[0], gen, dev) for _ in range(2)]
+        before = ck.launches["pfb"]
+        got = run_pfb("auto", xs, dev, n)
+        torch.cuda.synchronize()
+        launched = ck.launches["pfb"] - before
+        ref = run_pfb(ref_impl, xs, dev, n)
+        check(launched == len(xs), f"pfb auto N={n}: {launched} kernel launches for "
+                                   f"{len(xs)} frames")
+        if ref_impl == "pallas":
+            check(torch.equal(got, ref), f"pfb auto N={n}: differs from the pallas route")
+            print(f"pfb auto N={n}: {launched} launches, equal to the pallas route")
+        else:
+            snr = snr_db(got, ref)
+            print(f"pfb auto N={n}: {launched} launches, {snr:.1f} dB against the "
+                  f"matmul route (min {PFB_ROUTE_SNR:g})")
+            check(snr >= PFB_ROUTE_SNR, f"pfb auto N={n}: {snr:.1f} dB against matmul")
+        del xs, got, ref
+    for f in PFB_FRAMES:
+        xs = [randc(f, gen, dev) for _ in range(PFB_CHAIN)]
+        out = {}
+        for impl in PFB_IMPLS:
+            chained = run_pfb(impl, xs, dev)
+            long_ = run_pfb(impl, [torch.cat(xs)], dev)
+            check(chained.shape == (PFB_CHAIN * f,) and chained.dtype == torch.complex64,
+                  f"pfb resident {impl}: output {tuple(chained.shape)} {chained.dtype}")
+            check(bool(torch.isfinite(torch.view_as_real(chained)).all()),
+                  f"pfb resident {impl}: non-finite")
+            _, rel = rel_err(chained, long_)
+            print(f"pfb resident {impl} frame={f}: {PFB_CHAIN} chained vs one long "
+                  f"frame {rel:.3e} of peak (tol {CHAIN_TOL:g})")
+            check(rel <= CHAIN_TOL, f"pfb resident {impl} frame={f}: chained frames "
+                                    f"differ from one long frame by {rel:.3e}")
+            out[impl] = chained
+            del long_
+        snr = snr_db(out["pallas"], out["matmul"])
+        print(f"pfb resident frame={f}: pallas vs matmul route {snr:.1f} dB "
+              f"(min {PFB_ROUTE_SNR:g})")
+        check(snr >= PFB_ROUTE_SNR, f"pfb frame={f}: routes agree to {snr:.1f} dB only")
+        del out
+        for impl in PFB_IMPLS:
+            pipe = Pipeline(pfb_stages(impl), np.complex64)
+            fn, state = pipe.fn(), [pipe.init_carry(dev)]
+
+            def step(fn=fn, state=state, xs=xs):
+                c = state[0]
+                for x in xs:
+                    c, _ = fn(c, x)
+                state[0] = c
+
+            ms = cuda_ms(step)
+            rates[(impl, f)] = PFB_CHAIN * f / (ms * 1e-3) / 1e6
+        del xs
+    # a tone at channel c's centre lands in output c
+    n = torch.arange(PFB_FRAMES[0], dtype=torch.float64, device=dev)
+    for c in PFB_TONE_CHANNELS:
+        x = torch.polar(torch.ones_like(n), 2 * np.pi * (c / PFB_N) * n).to(torch.complex64)
+        p = tone_powers(run_pfb("pallas", [x], dev), PFB_N)
+        ratio = p[c] / np.delete(p, c).max()
+        print(f"pfb tone at channel {c}: strongest output {int(np.argmax(p))}, "
+              f"{ratio:.3g}x the next (min {PFB_TONE_RATIO:g})")
+        check(int(np.argmax(p)) == c and ratio >= PFB_TONE_RATIO,
+              f"pfb tone at channel {c}: output {int(np.argmax(p))}, ratio {ratio:.3g}")
+    return rates
+
+
+def _pfb_kernel_block(frame, dev, impl="pallas"):
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    return TpuKernel(pfb_stages(impl), np.complex64, frame_size=frame,
+                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT)
+
+
+def phase_pfb_streamed(dev) -> float:
+    """NullSource -> Head -> TpuKernel -> NullSink (rate), then VectorSource ->
+    TpuKernel -> StreamDeinterleaver(64) -> 64 VectorSinks against the
+    resident chain and the host PfbChannelizer block; returns streamed Msps."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import (Head, NullSink, NullSource, PfbChannelizer,
+                                            StreamDeinterleaver, VectorSink,
+                                            VectorSource, pfb_default_taps)
+    frame = PFB_FRAMES[0]
+    n_items = PFB_STREAM_FRAMES * frame
+    runs = []
+    for _ in range(STREAM_RUNS):
+        fg = Flowgraph()
+        snk = NullSink(np.complex64)
+        fg.connect(NullSource(np.complex64), Head(np.complex64, n_items),
+                   _pfb_kernel_block(frame, dev), snk)
+        rt = Runtime()
+        t0 = time.perf_counter()
+        rt.run(fg)
+        runs.append(time.perf_counter() - t0)
+        rt.shutdown()
+        check(snk.n_received == n_items,
+              f"pfb streamed: NullSink got {snk.n_received} items, want {n_items}")
+    rate = n_items / statistics.median(runs) / 1e6
+    print(f"pfb streamed: {n_items} items through NullSource -> Head -> TpuKernel -> "
+          f"NullSink in {', '.join(f'{t:.3f}' for t in runs)} s")
+
+    # deinterleaved, ending in a partial frame
+    rng = np.random.default_rng(SEED + 22)
+    n_host = PFB_VECTOR_FRAMES * frame + 3 * PFB_N + 5
+    host = (rng.standard_normal(n_host) + 1j * rng.standard_normal(n_host)).astype(np.complex64)
+    fg = Flowgraph()
+    dein = StreamDeinterleaver(np.complex64, PFB_N)
+    sinks = [VectorSink(np.complex64) for _ in range(PFB_N)]
+    fg.connect(VectorSource(host), _pfb_kernel_block(frame, dev), dein)
+    for i, s in enumerate(sinks):
+        fg.connect_stream(dein, f"out{i}", s, "in")
+    Runtime().run(fg)
+    got = np.stack([s.items() for s in sinks], axis=1)          # [t, N]
+    t_out = n_host // PFB_N
+    check(got.shape == (t_out, PFB_N), f"pfb vector: {got.shape}, want {(t_out, PFB_N)}")
+    padded = np.zeros((PFB_VECTOR_FRAMES + 1) * frame, np.complex64)
+    padded[:n_host] = host
+    xs = [torch.from_numpy(padded[i * frame:(i + 1) * frame]).to(dev)
+          for i in range(PFB_VECTOR_FRAMES + 1)]
+    res = run_pfb("pallas", xs, dev)[:t_out * PFB_N].reshape(t_out, PFB_N)
+    _, rel = rel_err(torch.from_numpy(got), res)
+    print(f"pfb vector: {PFB_N} channels of {t_out} samples, vs resident chain "
+          f"{rel:.3e} of peak (tol {CHAIN_TOL:g})")
+    check(rel <= CHAIN_TOL, f"pfb vector: differs from the resident chain by {rel:.3e}")
+
+    host_fg = Flowgraph()
+    chan = PfbChannelizer(PFB_N, pfb_default_taps(PFB_N))
+    hsinks = [VectorSink(np.complex64) for _ in range(PFB_N)]
+    host_fg.connect(VectorSource(host), chan)
+    for i, s in enumerate(hsinks):
+        host_fg.connect_stream(chan, f"out{i}", s, "in")
+    Runtime().run(host_fg)
+    ref = np.stack([s.items() for s in hsinks], axis=1)
+    check(ref.shape == got.shape, f"pfb host block: {ref.shape}, want {got.shape}")
+    bound = PFB_BLOCK_ATOL * np.abs(ref).max() + PFB_BLOCK_RTOL * np.abs(ref)
+    excess = float(np.max(np.abs(got.astype(np.complex128) - ref) - bound))
+    err = float(np.max(np.abs(got.astype(np.complex128) - ref)))
+    print(f"pfb vector vs host PfbChannelizer block: max_abs_err {err:.3e} "
+          f"(rtol {PFB_BLOCK_RTOL:g}, atol {PFB_BLOCK_ATOL:g} of peak)")
+    check(excess <= 0, f"pfb vector: differs from the host block beyond tolerance")
+    return rate
+
+
+def phase_pfb_retune(dev) -> None:
+    """Swap the prototype (70 dB → 50 dB Kaiser, same K) while frames stream;
+    the output must equal the resident chain with the swap at the frame the
+    kernel reports."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource, pfb_default_taps
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    frame, n_frames = PFB_FRAMES[0], 16
+    taps2 = pfb_default_taps(PFB_N, atten_db=50.0)
+    rng = np.random.default_rng(SEED + 23)
+    host = (rng.standard_normal(n_frames * frame)
+            + 1j * rng.standard_normal(n_frames * frame)).astype(np.complex64)
+    kern = _pfb_kernel_block(frame, dev)
+    fg = Flowgraph()
+    vsnk = VectorSink(np.complex64)
+    fg.connect(VectorSource(host), kern, vsnk)
+    rt = Runtime()
+    running = rt.start(fg)
+    deadline = time.monotonic() + 60
+    while kern.frames_dispatched < 4:
+        check(time.monotonic() < deadline, "pfb retune: stream did not start")
+        time.sleep(0.0005)
+    at = kern.apply_retune(0, taps=taps2)
+    running.wait_sync()
+    rt.shutdown()
+    check(0 < at < n_frames, f"pfb retune: landed at frame {at} of {n_frames}")
+    pipe = Pipeline(pfb_stages("pallas"), np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for i in range(n_frames):
+        if i == at:
+            carry = pipe.update_stage(carry, 0, taps=taps2)
+        carry, y = fn(carry, torch.from_numpy(host[i * frame:(i + 1) * frame]).to(dev))
+        outs.append(y)
+    _, rel = rel_err(torch.from_numpy(vsnk.items()), torch.cat(outs))
+    print(f"pfb retune: prototype swapped at frame {at} of {n_frames}; vs resident "
+          f"chain with the same swap {rel:.3e} of peak")
+    check(rel <= CHAIN_TOL, f"pfb retune: differs by {rel:.3e}")
+
+
+def phase_spectrum_app(dev) -> float:
+    """``build_flowgraph(VectorSource(tone), use_tpu=True, collect=True)``: the
+    last spectrum's peak in the tone's bin, every spectrum against a float64
+    recomputation (FFT, |x|², EMA, 10·log10); returns the streamed input
+    Msamples/s."""
+    import torch
+
+    from futuresdr_tpu_torch import Runtime
+    from futuresdr_tpu_torch.apps.spectrum import FFT_SIZE, build_flowgraph
+    from futuresdr_tpu_torch.blocks import VectorSource
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    fft = FFT_SIZE
+    frame = max(16 * fft, 1 << 15)
+    n = SPEC_FRAMES * frame
+    rng = np.random.default_rng(SEED + 24)
+    tone = (np.exp(2j * np.pi * SPEC_TONE * np.arange(n))
+            + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+    fg, sink = build_flowgraph(VectorSource(tone), use_tpu=True, collect=True,
+                               inst=TpuInstance(dev))
+    t0 = time.perf_counter()
+    Runtime().run(fg)
+    wall = time.perf_counter() - t0
+    got = sink.items()
+    check(got.shape == (n,) and got.dtype == np.float32,
+          f"spectrum app: {got.shape} {got.dtype}, want ({n},) float32")
+    check(bool(np.isfinite(got).all()), "spectrum app: non-finite output")
+    peak = int(np.argmax(got[-fft:]))
+    print(f"spectrum app: {n} samples, last spectrum peaks in bin {peak} "
+          f"(want {round(SPEC_TONE * fft)})")
+    check(peak == round(SPEC_TONE * fft), f"spectrum app: peak in bin {peak}")
+    rows = torch.from_numpy(tone).to(dev).to(torch.complex128).reshape(-1, fft)
+    p = torch.fft.fft(rows, dim=1).abs() ** 2
+    c = torch.zeros(fft, dtype=torch.float64, device=dev)
+    ema = []
+    for r in p:
+        c = c * (1.0 - 0.1) + r * 0.1
+        ema.append(c)
+    ema = torch.stack(ema)
+    ref = 10 * torch.log10(torch.clamp_min(ema, 1e-20))
+    got_db = torch.from_numpy(got).to(dev).double().reshape(-1, fft)
+    err = float((got_db[SPEC_SETTLE:] - ref[SPEC_SETTLE:]).abs().max())
+    head = (10 ** (got_db[:SPEC_SETTLE] / 10) - ema[:SPEC_SETTLE]).abs().amax(dim=1)
+    rel = float((head / ema[:SPEC_SETTLE].amax(dim=1)).max())
+    print(f"spectrum app vs float64 recomputation: max {err:.3e} dB after "
+          f"{SPEC_SETTLE} spectra (tol {SPEC_DB_TOL:g}), {rel:.3e} of the peak power "
+          f"before (tol {SPEC_POWER_TOL:g})")
+    check(err <= SPEC_DB_TOL, f"spectrum app: differs by {err:.3e} dB")
+    check(rel <= SPEC_POWER_TOL, f"spectrum app: first spectra differ by {rel:.3e}")
+    return n / wall / 1e6
+
+
+def pfb_timings(dev, n: int, n_ch: int = PFB_N) -> dict:
+    """Kernel, plain and matmul-route device time and the bound of ``pfb`` at
+    PFB-``n_ch`` on a frame of ``n`` samples."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import _pfb_matmul
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    hc = pfb_branch(dev, n=n_ch)
+    K = hc.shape[1]
+    # REPS distinct frames per graph: 20 x 16 B x 2^18 = 84 MB > L2
+    args = [(randc((K - 1) * n_ch, gen, dev), randc(n, gen, dev)) for _ in range(REPS)]
+    nbytes = 8 * (K - 1) * n_ch + 16 * n + 4 * K * n_ch + 8 * n_ch
+    flops = n * (4 * K + 5 * int(np.log2(n_ch)))
+
+    def kern(h, x):
+        return ck.pfb(h, x, hc.t())
+
+    def plain(h, x):
+        return ck.pfb_plain(h, x, hc.t())
+
+    def lib(h, x):                  # the matmul route, timed here only
+        return _pfb_matmul(h, x, hc)
+
+    err, _ = rel_err(kern(*args[0]), plain(*args[0]))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args),
+            "library_ms": device_ms(lib, args), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -904,8 +1343,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(p.name for p in paths)} for sm_90a")
 
-    # 3, 9. kernels against their plain versions
-    worst = phase_kernels(dev, kernel_cases(dev) + fm_kernel_cases(dev))
+    # 3, 9, 12. kernels against their plain versions
+    worst = phase_kernels(dev, kernel_cases(dev) + fm_kernel_cases(dev)
+                          + pfb_kernel_cases(dev))
 
     # 4-6. the spectrum chain, launch counts read over exactly these phases
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
@@ -938,12 +1378,24 @@ def main() -> int:
     phase_fm_wav(dev, wav)
     wav.unlink()
 
+    # 13-14. the PFB channelizer, its counts read over exactly its phases
+    pfb_resident = path_phase("pfb_resident", PFB_KERNELS, phase_pfb_resident, dev)
+    pfb_streamed = path_phase("pfb_streamed", PFB_KERNELS, phase_pfb_streamed, dev)
+    path_phase("pfb_retune", PFB_KERNELS, phase_pfb_retune, dev)
+    # 15. the spectrum app (no hand kernel on its chain, as in the reference)
+    spectrum_rate = phase_spectrum_app(dev)
+
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
     timings = {f: kernel_timings(dev, f, taps) for f in FRAMES}
     fm_timings = {f: fm_kernel_timings(dev, f) for f in FM_FRAMES}
+    pfb_t = {f: {"pfb": pfb_timings(dev, f)} for f in PFB_FRAMES}
+    pfb_wide = {PFB_FRAMES[0]: {f"pfb/N={PFB_WIDE_N}": pfb_timings(dev, PFB_FRAMES[0],
+                                                                 PFB_WIDE_N)}}
     rows = [(f, k, v) for f, t in timings.items() for k, v in t.items()]
     rows += [(f, k, v) for f, t in fm_timings.items() for k, v in t.items()]
+    rows += [(f, k, v) for f, t in pfb_t.items() for k, v in t.items()]
+    rows += [(f, k, v) for f, t in pfb_wide.items() for k, v in t.items()]
     rows += [(f, f"poly_fir/{c}", v) for f, t in fm_timings.items()
              for c, v in t["poly_fir"]["calls"].items()]
     for f, k, v in rows:
@@ -952,8 +1404,9 @@ def main() -> int:
               f" library {lib}, bound {v['bound_ms']:.4f} ms ({v['bound_by']}) "
               f"[{card_line}]")
     line = {"kernels": []}
-    for k in SPECTRUM_KERNELS + FM_KERNELS:
-        t = timings[FRAMES[0]][k] if k in SPECTRUM_KERNELS else fm_timings[FM_FRAMES[0]][k]
+    first = {**timings[FRAMES[0]], **fm_timings[FM_FRAMES[0]], **pfb_t[PFB_FRAMES[0]]}
+    for k in SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS:
+        t = first[k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": launches[k],
@@ -978,6 +1431,14 @@ def main() -> int:
             print(f"rate fm {chain} streamed frame={FM_FRAMES[0]} in-flight={IN_FLIGHT} "
                   f"(median of {STREAM_RUNS}): {fm_streamed[chain]:.1f} input "
                   f"Msamples/s [{card_line}]")
+    for impl in PFB_IMPLS:
+        for f in PFB_FRAMES:
+            print(f"rate pfb {impl} resident frame={f}: {pfb_resident[(impl, f)]:.1f} "
+                  f"input Msamples/s [{card_line}]")
+    print(f"rate pfb pallas streamed frame={PFB_FRAMES[0]} in-flight={IN_FLIGHT} "
+          f"(median of {STREAM_RUNS}): {pfb_streamed:.1f} input Msamples/s [{card_line}]")
+    print(f"rate spectrum app streamed (FFT_SIZE 2048, frame 32768): "
+          f"{spectrum_rate:.1f} input Msamples/s [{card_line}]")
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

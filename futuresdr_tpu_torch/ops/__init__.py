@@ -1,9 +1,13 @@
 """The compute plane: stages, transfers and the hand-written CUDA kernels."""
 
-from .stages import (Pipeline, Stage, decimate_stage, fft_stage, fir_fft_stage,
-                     fir_stage, mag2_stage, quad_demod_stage, resample_stage,
+from .stages import (Pipeline, Stage, agc_stage, apply_stage, channelizer_stage,
+                     decimate_stage, fft_stage, fftshift_stage, fir_fft_stage,
+                     fir_stage, log10_stage, lora_demod_stage, mag2_stage,
+                     moving_avg_stage, quad_demod_stage, resample_stage,
                      rotator_stage, xlating_fir_stage)
 
 __all__ = ["Pipeline", "Stage", "fir_stage", "fft_stage", "fir_fft_stage",
            "mag2_stage", "resample_stage", "rotator_stage", "quad_demod_stage",
-           "xlating_fir_stage", "decimate_stage"]
+           "xlating_fir_stage", "decimate_stage", "fftshift_stage", "log10_stage",
+           "apply_stage", "channelizer_stage", "moving_avg_stage", "agc_stage",
+           "lora_demod_stage"]

@@ -25,6 +25,9 @@ Kernels (sources under ``csrc/``, built by :mod:`._build`):
   a 3-D weight tensor the rational resampler's phase outputs.
 * ``quad_demod`` (``csrc/quad_demod.cu``) replaces ``_quad_demod_kernel``:
   ``gain·angle(x[t]·conj(x[t−1]))`` with the previous sample from the carry.
+* ``pfb`` (``csrc/pfb.cu``) replaces ``_pfb_kernel``: the critically sampled
+  polyphase analysis bank, the branch MAC over the commutated rows and the
+  IDFT across branches in one kernel.
 
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
@@ -32,7 +35,9 @@ and in the plain version alike, as the JAX kernels' bf16 mode computes them.
 ``fir_fft`` also rounds the filtered row to bfloat16 before its transform,
 which runs in float32. (The JAX kernel's bf16 mode also rounds its DFT
 matrix; a radix-2 FFT has no such matrix, so the port keeps its twiddles in
-float32.) The TPU block-shape table (``DEFAULT_BLOCKS``) is TPU VMEM
+float32.) ``pfb`` in bf16 also rounds its branch bank ``v`` to bfloat16
+before the IDFT; its plain version, like the JAX kernel, then also rounds the
+cos/sin matrix, while the kernel keeps float32 twiddles. The TPU block-shape table (``DEFAULT_BLOCKS``) is TPU VMEM
 geometry and has no counterpart: each CUDA kernel picks its own tile.
 """
 
@@ -46,12 +51,13 @@ import numpy as np
 import torch
 
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
-           "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
-           "poly_fir_plain", "quad_demod_plain", "launches", "reset_launches"]
+           "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
+           "poly_fir_plain", "quad_demod_plain", "pfb_plain", "launches",
+           "reset_launches"]
 
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
-                            "quad_demod": 0}
+                            "quad_demod": 0, "pfb": 0}
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -309,6 +315,76 @@ def poly_fir_plain(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
     return y if W.dim() == 3 else y[:, 0]
 
 
+def _idft_matrix(n: int, device: torch.device, bf16: bool) -> torch.Tensor:
+    """``E[c, c'] = exp(+2πi·((c·c') mod N)/N)`` as complex64 on ``device``,
+    its cos and sin planes rounded to bfloat16 when ``bf16`` (the JAX kernel's
+    bf16 IDFT matrices)."""
+    key = (n, f"{device}/idft/{'bf16' if bf16 else 'f32'}")
+    with _dft_lock:
+        e = _dft_cache.get(key)
+    if e is None:
+        planes = torch.view_as_real(_dft_matrix(n, device).conj().resolve_conj())
+        e = torch.view_as_complex((_bf16(planes) if bf16 else planes).contiguous())
+        with _dft_lock:
+            _dft_cache[key] = e
+    return e
+
+
+def _check_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor) -> tuple:
+    """Validate a PFB call; returns ``(K, N, t)``."""
+    if x.dtype != torch.complex64 or x.dim() != 1:
+        raise TypeError(f"x must be a 1-D complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    if taps.dtype not in (torch.float32, torch.bfloat16) or taps.dim() != 2 \
+            or min(taps.shape) < 1:
+        raise TypeError(f"taps must be a real [K, N] float32 or bfloat16 tensor, got "
+                        f"{taps.dtype} of shape {tuple(taps.shape)}")
+    K, N = int(taps.shape[0]), int(taps.shape[1])
+    if x.shape[0] % N:
+        raise ValueError(f"frame ({x.shape[0]}) must be a multiple of N ({N})")
+    if hist.dtype != torch.complex64 or tuple(hist.shape) != ((K - 1) * N,):
+        raise ValueError(f"hist must be {(K - 1) * N} complex64 samples, got "
+                         f"{hist.dtype} of shape {tuple(hist.shape)}")
+    if any(t.device != x.device for t in (hist, taps)):
+        raise ValueError("hist, x and taps must lie on one device")
+    return K, N, x.shape[0] // N
+
+
+def pfb_plain(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+              precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`pfb`, the JAX kernel's arithmetic: the branch
+    MAC over the commutated rows in float32 (taps in ascending depth, the
+    kernel's order), then each row times the IDFT matrix. In bf16 the rows,
+    taps, ``v`` and the matrix's cos/sin planes are rounded to bfloat16."""
+    bf16 = _check_precision(precision)
+    K, N, t = _check_pfb(hist, x, taps)
+    rows = _planes(torch.cat([hist, x])).reshape(t + K - 1, N, 2).flip(1)
+    w = taps.to(torch.float32)
+    if bf16:
+        rows, w = _bf16(rows), _bf16(w)
+    acc = torch.zeros((t, N, 2), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        acc = acc + w[k, :, None] * rows[K - 1 - k:K - 1 - k + t]
+    if bf16:
+        acc = _bf16(acc)
+    return torch.view_as_complex(acc.contiguous()) @ _idft_matrix(N, x.device, bf16)
+
+
+_PFB_TILE_OUTPUTS = 1024     # outputs per block of the pfb kernel, 4 a thread
+
+
+def _pfb_tile(n: int, k: int) -> Tuple[int, int, bool]:
+    """``(rows per block, shared memory bytes, staged)`` of the ``pfb``
+    kernel: the commutated rows, the ``v`` tile and the taps in shared memory
+    where they fit (``staged``), else the ``v`` tile alone, the MAC reading
+    rows and taps from device memory."""
+    tr = max(1, _PFB_TILE_OUTPUTS // n)
+    staged = (2 * tr + k - 1) * n * 8 + k * n * 4
+    if staged <= _MAX_SMEM:
+        return tr, staged, True
+    return tr, tr * n * 8, False
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -334,6 +410,10 @@ def _lib(name: str):
             lib.fsdr_poly_fir.restype = i
             lib.fsdr_poly_fir_smem.argtypes = [i, i, i, i]
             lib.fsdr_poly_fir_smem.restype = ll
+        elif name == "pfb":
+            lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, i, vp, vp, ll, i, i, i, i, ll,
+                                     i, i, vp]
+            lib.fsdr_pfb.restype = i
         else:
             lib.fsdr_quad_demod.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, vp]
             lib.fsdr_quad_demod.restype = i
@@ -499,4 +579,42 @@ def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
                                 int(bf16), int(W.dtype == torch.bfloat16), stream)
     _raise_on(err, "poly_fir")
     launches["poly_fir"] += 1
+    return y
+
+
+def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+        precision: Optional[str] = None) -> torch.Tensor:
+    """Critically sampled PFB analysis bank: with ``ext = cat([hist, x])`` and
+    the commutated rows ``rows[s, c] = ext[s·N + N−1−c]``, the branch MAC
+    ``v[s, c] = Σ_k taps[k, c]·rows[s+K−1−k, c]`` and the IDFT across branches
+    without 1/N, ``y[s, c'] = Σ_c v[s, c]·exp(+2πi·c·c'/N)``. ``taps``: real
+    ``[K, N]`` float32 or bfloat16, any strides (the stage passes its
+    ``[N, K]`` carry transposed); ``hist``: the previous ``(K−1)·N`` samples;
+    ``x``: ``t·N`` complex64 samples. Returns ``[t, N]`` complex64."""
+    if x.device.type == "cpu":
+        return pfb_plain(hist, x, taps, precision)
+    bf16 = _check_precision(precision)
+    K, N, t = _check_pfb(hist, x, taps)
+    _check_cuda(hist, x)
+    if taps.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {taps.device}")
+    tr, smem, staged = _pfb_tile(N, K)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"pfb: N={N} needs {smem} B of shared memory per block for "
+                         f"its v tile, over the card's {_MAX_SMEM} B")
+    y = torch.empty((t, N), dtype=torch.complex64, device=x.device)
+    if t == 0:
+        return y                            # nothing to launch
+    log2n = N.bit_length() - 1 if N & (N - 1) == 0 else -1
+    tw = _twiddles(N, x.device)
+    lib = _lib("pfb")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fsdr_pfb(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
+                           taps.stride(0), taps.stride(1),
+                           int(taps.dtype == torch.bfloat16), tw.data_ptr(),
+                           y.data_ptr(), t, N, log2n, K, tr, smem, int(staged), int(bf16),
+                           stream)
+    _raise_on(err, "pfb")
+    launches["pfb"] += 1
     return y

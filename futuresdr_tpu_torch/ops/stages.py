@@ -17,7 +17,11 @@ Ported so far: the north-star spectrum chain, :func:`fir_stage`
 :func:`fir_stage` routes (``impl="pallas"`` on the ``poly_fir`` kernel),
 :func:`resample_stage`, :func:`rotator_stage` (``rotator`` kernel),
 :func:`quad_demod_stage` (``quad_demod`` kernel), :func:`xlating_fir_stage`
-and :func:`decimate_stage`. Routes outside them raise
+and :func:`decimate_stage`; and the PFB channelizer,
+:func:`channelizer_stage` (``impl="pallas"``, the hand-written ``pfb``
+kernel), with the other single-chain stages: :func:`fftshift_stage`,
+:func:`log10_stage`, :func:`apply_stage`, :func:`moving_avg_stage`,
+:func:`agc_stage` and :func:`lora_demod_stage`. Routes outside them raise
 :class:`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
@@ -35,7 +39,9 @@ from .xfer import torch_dtype
 
 __all__ = ["Stage", "Pipeline", "fir_stage", "fft_stage", "mag2_stage",
            "fir_fft_stage", "resample_stage", "rotator_stage", "quad_demod_stage",
-           "xlating_fir_stage", "decimate_stage"]
+           "xlating_fir_stage", "decimate_stage", "fftshift_stage", "log10_stage",
+           "apply_stage", "channelizer_stage", "lora_demod_stage", "agc_stage",
+           "moving_avg_stage"]
 
 _PRECISION_ITEM = "ROADMAP Queue 1 item 7 (precision and tuning)"
 
@@ -780,3 +786,183 @@ def xlating_fir_stage(taps, phase_inc: float, decim: int,
         return (W, base, ph0, inc_d, th_hi, th_lo, hist)
 
     return Stage(fn, init_carry, Fraction(1, D), None, D, name, update=update)
+
+
+# ---------------------------------------------------------------------------
+# the PFB channelizer and the other single-chain stages
+# ---------------------------------------------------------------------------
+
+def fftshift_stage(n: int) -> Stage:
+    def fn(carry, x):
+        return carry, torch.fft.fftshift(x.reshape(-1, n), dim=1).reshape(-1)
+
+    return Stage(fn, _stateless, Fraction(1, 1), None, n, "fftshift")
+
+
+def log10_stage(scale: float = 10.0, floor: float = 1e-20) -> Stage:
+    def fn(carry, x):
+        return carry, (scale * torch.log10(torch.clamp_min(x, floor))).to(torch.float32)
+
+    return Stage(fn, _stateless, Fraction(1, 1), np.float32, 1, "log10")
+
+
+def apply_stage(f: Callable[[torch.Tensor], torch.Tensor], out_dtype=None,
+                name: str = "apply") -> Stage:
+    """Arbitrary elementwise function of the frame tensor (1:1)."""
+
+    def fn(carry, x):
+        return carry, f(x)
+
+    return Stage(fn, _stateless, Fraction(1, 1), out_dtype, 1, name)
+
+
+def _pfb_matmul(hist: torch.Tensor, x: torch.Tensor, Hc: torch.Tensor) -> torch.Tensor:
+    """The channelizer's ``matmul`` route: the windows stack
+    ``windows[s, k, c] = rows[s + K−1−k, c]`` over the commutated rows, the
+    branch MAC as one einsum with the ``[N, K]`` taps, then ``ifft·N`` across
+    branches. Returns ``[t, N]`` complex64."""
+    N, K = Hc.shape
+    t = x.shape[0] // N
+    rows = torch.cat([hist, x]).to(torch.complex64).reshape(-1, N).flip(1)
+    windows = torch.stack([rows[K - 1 - k:K - 1 - k + t] for k in range(K)], dim=1)
+    v = torch.einsum("tkc,ck->tc", windows, Hc.to(torch.complex64))
+    return torch.fft.ifft(v, dim=1) * N
+
+
+def channelizer_stage(n_channels: int, taps=None, name: str = "channelizer",
+                      impl: str = "auto", precision: Optional[str] = None) -> Stage:
+    """Critically sampled PFB analysis bank: frames of t·N complex samples →
+    t·N outputs, channel-interleaved (``[t, N]`` flattened; feed a
+    ``StreamDeinterleaver(N)`` to split). Channel ``c`` carries the band
+    centred at ``c/N`` of the input rate.
+
+    ``impl="matmul"``: :func:`_pfb_matmul` (windows stack, einsum, then
+    ``torch.fft.ifft·N``). ``impl="pallas"``: the hand-written ``pfb`` kernel
+    (:func:`cuda_kernels.pfb`), branch MAC and IDFT in one kernel, so the
+    branch bank never reaches device memory. ``impl="auto"`` takes the kernel
+    when the carry lies on a CUDA device and the ``matmul`` route on the CPU —
+    the counterpart of the JAX package's "pallas on the TPU backend".
+    ``precision="bf16"`` carries the branch taps in bfloat16; the kernel then
+    runs its bf16 mode, the ``matmul`` route computes in float32 with the
+    bf16 taps (as the JAX package's matmul route does off the TPU).
+
+    Carry ``(branch [N, K], hist [(K−1)·N])``, leaf for leaf the JAX stage's;
+    ``update(taps=…)`` swaps the prototype (same K) with frames in flight.
+    """
+    if impl not in ("auto", "matmul", "pallas"):
+        raise ValueError(f"impl must be auto, matmul or pallas, got {impl!r}")
+    if precision == "int8":
+        raise NotImplementedError(f"channelizer_stage precision='int8': {_PRECISION_ITEM}")
+    if precision not in (None, "f32", "bf16"):
+        raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
+    N = int(n_channels)
+    if taps is None:
+        from ..blocks.pfb import pfb_default_taps
+        taps = pfb_default_taps(N)
+    taps = np.asarray(taps, dtype=np.float32)
+    K = -(-len(taps) // N)
+    H = (K - 1) * N
+    use_kernel = impl == "pallas"
+
+    def _branch(t: np.ndarray, device) -> torch.Tensor:
+        padded = np.zeros(K * N, dtype=np.float32)
+        padded[:len(t)] = t
+        b = torch.from_numpy(np.ascontiguousarray(padded.reshape(K, N).T))   # [N, K]
+        if precision == "bf16":
+            b = b.to(torch.bfloat16)            # carried taps: half the bytes
+        return b.to(device)
+
+    def fn(carry, x):
+        Hc, hist = carry
+        if use_kernel or (impl == "auto" and Hc.device.type == "cuda"):
+            y = cuda_kernels.pfb(hist.to(torch.complex64),
+                                 x.to(torch.complex64).contiguous(), Hc.t(),
+                                 precision=precision)
+        else:
+            y = _pfb_matmul(hist, x, Hc)
+        return (Hc, _tail(hist, x, H)), y.reshape(-1)
+
+    def init_carry(dtype, device):
+        dev = torch.device(device)
+        return (_branch(taps, dev), torch.zeros(H, dtype=torch_dtype(dtype), device=dev))
+
+    def update(carry, taps=None):
+        """Swap the prototype with frames in flight: the same taps a branch
+        (K), real; the history is kept."""
+        if taps is None:
+            return carry
+        new = np.asarray(taps)
+        if np.iscomplexobj(new) or -(-len(new) // N) != K:
+            raise ValueError(f"tap swap must keep {K} real taps a branch "
+                             f"({(K - 1) * N + 1}..{K * N} taps); got {len(new)} — "
+                             f"rebuild the stage for a different prototype")
+        Hc, hist = carry
+        return (_branch(new.astype(np.float32), Hc.device), hist)
+
+    def _lower(p: str) -> Optional[Stage]:
+        if p != "bf16":
+            return None
+        return channelizer_stage(N, taps, name, impl=impl, precision="bf16")
+
+    return Stage(fn, init_carry, Fraction(1, 1), np.complex64, N, name, update=update,
+                 lower=_lower, route=(impl, None, precision))
+
+
+def lora_demod_stage(sf: int, name: str = "lora_demod") -> Stage:
+    """LoRa dechirp + batched FFT + argmax: frames of k·2^sf complex chips →
+    k int32 symbol values."""
+    n = 1 << sf
+    k_idx = np.arange(n)
+    ph = 2 * np.pi * ((k_idx * k_idx) / (2 * n) + k_idx * (-0.5))
+    down = np.exp(-1j * ph).astype(np.complex64)    # conj(upchirp)
+    chirps = {}                                     # device -> downchirp tensor
+
+    def fn(carry, x):
+        d = chirps.get(x.device)
+        if d is None:
+            d = chirps[x.device] = torch.from_numpy(down).to(x.device)
+        spec = torch.fft.fft(x.reshape(-1, n) * d[None, :], dim=1).abs()
+        return carry, torch.argmax(spec, dim=1).to(torch.int32)
+
+    return Stage(fn, _stateless, Fraction(1, n), np.int32, n, name)
+
+
+def agc_stage(reference: float = 1.0, rate: float = 0.1, block: int = 256,
+              max_gain: float = 65536.0) -> Stage:
+    """Block-floating AGC: the mean magnitude of each ``block`` samples drives
+    the gain, ``g ← clip(g + rate·(reference − m·g), 0, max_gain)``, one step
+    a block (a loop over the frame's blocks, as the JAX stage's ``lax.scan``);
+    each block is scaled by its updated gain. Carry: the running gain."""
+
+    def fn(carry, x):
+        xb = x.reshape(-1, block)
+        mags = xb.abs().mean(dim=1)
+        g, gains = carry, []
+        for m in mags:
+            g = torch.clamp(g + rate * (reference - m * g), 0.0, max_gain)
+            gains.append(g)
+        gains = torch.stack(gains) if gains else mags
+        return g, (xb * gains[:, None]).reshape(-1).to(x.dtype)
+
+    def init_carry(dtype, device):
+        return torch.ones((), dtype=torch.float32, device=torch.device(device))
+
+    return Stage(fn, init_carry, Fraction(1, 1), None, block, "agc")
+
+
+def moving_avg_stage(frame_len: int, decay: float = 0.1) -> Stage:
+    """EMA across rows of ``frame_len`` items (spectrum smoothing), carried
+    across frames: ``c ← c·(1 − decay) + row·decay``, one step a row, each
+    row's output the updated ``c``. Carry: the EMA."""
+
+    def fn(carry, x):
+        c, outs = carry, []
+        for row in x.reshape(-1, frame_len):
+            c = c * (1.0 - decay) + row * decay
+            outs.append(c)
+        return c, (torch.stack(outs).reshape(-1) if outs else x[:0].to(torch.float32))
+
+    def init_carry(dtype, device):
+        return torch.zeros(frame_len, dtype=torch.float32, device=torch.device(device))
+
+    return Stage(fn, init_carry, Fraction(1, 1), np.float32, frame_len, "moving_avg")

@@ -101,7 +101,11 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
 
     # ---- main loop, then join + restore ---------------------------------------
     while active > 0:
-        record(await fg_inbox.recv())
+        msg = await fg_inbox.recv()
+        # after an init error the barrier may have counted a block's Done
+        # before another block's Initialized, which then arrives here
+        if not isinstance(msg, InitializedMsg):
+            record(msg)
     for h in handles:
         try:
             await h

@@ -3,10 +3,12 @@
 
 Runs the port's streamed path, ``NullSource -> Head -> TpuKernel -> NullSink``,
 under ``torch.profiler`` with CUDA activity only: the north-star chain
-(64-tap FIR, 2048-point FFT, |x|^2; frame 2^18) once per route, and the FM
+(64-tap FIR, 2048-point FFT, |x|^2; frame 2^18) once per route, the FM
 front end (frame 512,000) once per chain, the app's (``front_end_stages``)
 and the kernel chain (rotator, decimating FIR, demod, resampler on the hand
-kernels); 64 frames, 4 in flight. For each it prints the wall time, the device-busy time
+kernels), and the PFB-64 channelizer on the ``pfb`` kernel
+(``channelizer_stage(64, impl="pallas")``, frame 2^18); 64 frames, 4 in
+flight. For each it prints the wall time, the device-busy time
 (the union of every kernel and copy interval on the card's timeline, so
 overlapping streams count once), the idle share (1 - busy / wall) and the
 device time by kernel or copy, with the card's name and power limit. The
@@ -56,6 +58,11 @@ def _fm_stages(chain: str):
             resample_stage(24, 125, impl="pallas")]
 
 
+def _pfb_stages():
+    from futuresdr_tpu_torch.ops.stages import channelizer_stage
+    return [channelizer_stage(64, impl="pallas")]
+
+
 def _union_us(intervals) -> float:
     """Total length of the union of ``(start, end)`` intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -79,9 +86,9 @@ def profile_route(stages, frame: int, dev) -> dict:
     from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     fg = Flowgraph()
-    snk = NullSink(np.float32)
     kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
                      frames_in_flight=IN_FLIGHT)
+    snk = NullSink(kern.pipeline.out_dtype)
     fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
     rt = Runtime()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -117,6 +124,7 @@ def main() -> int:
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
     runs = [(route, _stages(route, taps), FRAME) for route in ("os", "pallas", "fused")]
     runs += [(f"fm {chain}", _fm_stages(chain), FM_FRAME) for chain in ("app", "kernel")]
+    runs.append(("pfb pallas", _pfb_stages(), FRAME))
     for label, stages, frame in runs:
         r = profile_route(stages, frame, dev)
         per_frame = 1.0 / (FRAMES + 1)          # + the kernel's warm-up frame

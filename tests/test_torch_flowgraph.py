@@ -138,3 +138,31 @@ def test_block_error_ends_the_flowgraph(phase):
     fg.connect(NullSource(np.complex64), Boom())
     with pytest.raises(FlowgraphError, match="boom"):
         Runtime().run(fg)
+
+
+def test_init_error_behind_a_slow_init_ends_the_flowgraph():
+    """A block that fails in init while another is still initializing: the
+    late Initialized report must not be booked as a block's end."""
+    class Boom(Kernel):
+        def __init__(self):
+            super().__init__()
+            self.input = self.add_stream_input("in", np.float32)
+
+        async def init(self, mio, meta):
+            raise ValueError("boom")
+
+    class SlowInit(Kernel):
+        BLOCKING = True                 # its own thread, as TpuKernel
+
+        def __init__(self):
+            super().__init__()
+            self.input = self.add_stream_input("in", np.complex64)
+            self.output = self.add_stream_output("out", np.float32)
+
+        async def init(self, mio, meta):
+            time.sleep(0.2)
+
+    fg = Flowgraph()
+    fg.connect(NullSource(np.complex64), SlowInit(), Boom())
+    with pytest.raises(FlowgraphError, match="boom"):
+        Runtime().run(fg)

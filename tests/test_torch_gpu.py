@@ -143,3 +143,68 @@ def test_poly_fir_kernel_matches_plain_on_card(cuda_device, D, m, I, nq,
     torch.cuda.synchronize()
     assert ck.launches["poly_fir"] == before + 1
     assert _rel_err(got, ck.poly_fir_plain(h, xx, W, precision)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the PFB channelizer's kernel
+# ---------------------------------------------------------------------------
+
+# bf16 kernel vs plain version: between the bf16 kernel's reading and that of
+# the kernel in float32 mode on the same inputs (chip_smoke.PFB_BF16_SNR)
+PFB_BF16_SNR = 54.5
+
+
+def _snr_db(got, ref):
+    return 10 * torch.log10(ref.abs().pow(2).mean() / (got - ref).abs().pow(2).mean()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,K,N,precision", [
+    (4096, 12, 64, None), (4096, 12, 64, "bf16"), (37, 12, 64, None), (1, 12, 64, None),
+    (500, 4, 24, None), (300, 1, 64, None), (64, 12, 1024, None), (16, 12, 2048, None),
+    (16, 12, 2048, "bf16"), (9, 12, 4096, None)])
+def test_pfb_kernel_matches_plain_on_card(cuda_device, t, K, N, precision):
+    """f32 within 1e-5 of the plain output's peak. bf16 by SNR against the
+    plain version, which also rounds its cos/sin matrix to bf16 (as the JAX
+    kernel does) while the kernel keeps float32 twiddles: the bf16 kernel
+    reads at least PFB_BF16_SNR, the kernel in float32 mode on the same
+    inputs less. N = 2048 and 4096 read rows and taps from device memory."""
+    rng = np.random.default_rng(26)
+    hc = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(cuda_device)
+    if precision == "bf16":
+        hc = hc.to(torch.bfloat16)                  # the stage carries bf16 taps
+    hist = torch.from_numpy(_c64(rng, (K - 1) * N)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, t * N)).to(cuda_device)
+    before = ck.launches["pfb"]
+    got = ck.pfb(hist, x, hc.t(), precision)        # the carry's transposed view
+    torch.cuda.synchronize()
+    assert ck.launches["pfb"] == before + 1
+    ref = ck.pfb_plain(hist, x, hc.t(), precision)
+    if precision == "bf16":
+        snr, off = _snr_db(got, ref), _snr_db(ck.pfb(hist, x, hc.t()), ref)
+        assert off < PFB_BF16_SNR <= snr, (snr, off)
+    else:
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_channels", [64, 2048])
+def test_channelizer_auto_takes_the_kernel_on_card(cuda_device, n_channels):
+    """The stage's default route on a carry on the card launches ``pfb`` once
+    a frame and gives the ``pallas`` route's output."""
+    from futuresdr_tpu_torch.ops.stages import Pipeline, channelizer_stage
+    rng = np.random.default_rng(27)
+    xs = [torch.from_numpy(_c64(rng, 8 * n_channels)).to(cuda_device) for _ in range(3)]
+    outs = {}
+    for impl in ("auto", "pallas"):
+        pipe = Pipeline([channelizer_stage(n_channels, impl=impl)], np.complex64)
+        fn, carry = pipe.fn(), pipe.init_carry(cuda_device)
+        before = ck.launches["pfb"]
+        ys = []
+        for x in xs:
+            carry, y = fn(carry, x)
+            ys.append(y)
+        torch.cuda.synchronize()
+        assert ck.launches["pfb"] == before + len(xs)
+        outs[impl] = torch.cat(ys)
+    assert torch.equal(outs["auto"], outs["pallas"])

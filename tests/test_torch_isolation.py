@@ -87,7 +87,13 @@ def test_cpu_tensors_never_count_a_launch():
                        T.quad_demod_stage(impl="pallas"),
                        T.resample_stage(3, 8, impl="pallas")], np.complex64)
     pipe.fn()(pipe.init_carry("cpu"), x)
-    assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod"}
+    ck.pfb(torch.zeros(48, dtype=torch.complex64), x, torch.ones(4, 16))
+    for impl in ("pallas", "auto"):
+        pipe = T.Pipeline([T.channelizer_stage(16, impl=impl, precision="bf16")],
+                          np.complex64)
+        pipe.fn()(pipe.init_carry("cpu"), x)
+    assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod",
+                                "pfb"}
     assert all(v == 0 for v in ck.launches.values()), ck.launches
 
 
@@ -109,6 +115,9 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         ck.poly_fir(torch.empty(12, dtype=torch.complex64, device="meta"), x,
                     torch.empty(4, 4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.pfb(torch.empty(48, dtype=torch.complex64, device="meta"), x,
+               torch.empty(4, 16, device="meta"))
     assert ck.launches == before
 
 
