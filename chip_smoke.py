@@ -8,7 +8,8 @@ user calls, at full width:
 1. the card's name and power limit (``nvidia-smi``);
 2. the kernels' build from ``futuresdr_tpu_torch/csrc`` with ``nvcc``;
 3. each kernel against its plain PyTorch version on the card, at the path's
-   shapes and at ragged ones, f32 and bf16;
+   shapes and at ragged ones, f32 and bf16, and at the edges of the
+   ``fir_fft`` and ``poly_fir`` tiling plans (``ops/cuda_kernels.py``);
 4. the device-resident chain in three routes (overlap-save FIR,
    ``fir_stage(impl="pallas")`` on the ``fir`` kernel, ``fir_fft_stage`` on
    the ``fir_fft`` kernel) at frames 2^18 and 2^20, carry chained over 8
@@ -21,7 +22,8 @@ user calls, at full width:
 7. one JSON line with each kernel's launches on its path (the spectrum chain
    in phases 4-6, the FM front end in phases 10-11), its error against the
    plain version, and its time beside the plain version's, a PyTorch library
-   call's and its bound;
+   call's and its bound; each timing line also shows the call's time in
+   PERF.md before the redesign of ``fir_fft`` and ``poly_fir``;
 8. the resident and streamed rate of each route beside the card.
 
 The FM front end (``futuresdr_tpu_torch/apps/fm_receiver.py``: complex64 at
@@ -72,6 +74,7 @@ Every phase passes or the script exits nonzero. The last line is
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import statistics
 import subprocess
@@ -83,6 +86,7 @@ import numpy as np
 N_TAPS = 64
 N_FFT = 2048
 FRAMES = (1 << 18, 1 << 20)
+FIR_FFT_EDGE_N = (2, 16, 4096, 8192)   # fir_fft plan edges checked in phase 3
 N_CHAIN = 8                  # carry-chained frames per resident check
 STREAM_FRAMES = 64           # frames through the streamed flowgraph
 STREAM_RUNS = 3              # streamed runs per route (median)
@@ -173,6 +177,19 @@ REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
             "quad_demod": "futuresdr_tpu/ops/pallas_kernels.py:597",
             "pfb": "futuresdr_tpu/ops/pallas_kernels.py:225"}
 SOURCES = {k: f"futuresdr_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+# Each timed call's time in PERF.md's kernel table before the redesign of
+# fir_fft and poly_fir (NVIDIA H100 80GB HBM3, 700.00 W), in ms, printed
+# beside the time measured now.
+EARLIER_MS = {
+    ("fir", 1 << 18): 0.0087, ("fir", 1 << 20): 0.0238,
+    ("fir_fft", 1 << 18): 0.0174, ("fir_fft", 1 << 20): 0.0517,
+    ("rotator", 512_000): 0.0058, ("rotator", 4_096_000): 0.0255,
+    ("poly_fir", 512_000): 0.0218, ("poly_fir", 4_096_000): 0.1066,
+    ("poly_fir/channel", 512_000): 0.0139, ("poly_fir/resampler", 512_000): 0.0080,
+    ("poly_fir/resampler", 4_096_000): 0.0298,
+    ("quad_demod", 512_000): 0.0020, ("quad_demod", 4_096_000): 0.0068,
+    ("pfb", 1 << 18): 0.0102, ("pfb", 1 << 21): 0.0390, ("pfb/N=2048", 1 << 18): 0.0473,
+}
 SPECTRUM_KERNELS = ("fir", "fir_fft")
 FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
 PFB_KERNELS = ("pfb",)
@@ -312,6 +329,18 @@ def kernel_cases(dev):
                           lambda x=x, h=hist, t=t, nf=nf, p=prec: ck.fir_fft(h, x, t, nf, p),
                           lambda x=x, h=hist, t=t, nf=nf, p=prec:
                           ck.fir_fft_plain(h, x, t, nf, p)))
+    # the plan's edges: one-pass and two-pass transforms, the largest rows
+    # (8192 with 8192 taps falls back to the unpadded layout with the
+    # twiddles read from device memory), the shortest and longest tap sets
+    for nf in FIR_FFT_EDGE_N:
+        for ntt in (2, nf):
+            x, hist, t = randc(nf, gen, dev), randc(ntt - 1, gen, dev), real(ntt)
+            for prec in (None, "bf16"):
+                cases.append(("fir_fft", f"fir_fft c64 n_fft={nf} nt={ntt} rows=1 "
+                                         f"{prec or 'f32'}",
+                              lambda x=x, h=hist, t=t, nf=nf, p=prec: ck.fir_fft(h, x, t, nf, p),
+                              lambda x=x, h=hist, t=t, nf=nf, p=prec:
+                              ck.fir_fft_plain(h, x, t, nf, p)))
     return cases
 
 
@@ -642,12 +671,24 @@ def fm_kernel_cases(dev):
                       lambda x=x: ck.quad_demod_plain(prev, x, FM_GAIN)))
     # channel filter: D = 4, m = 32, complex; resampler: D = 125, I = 24, m = 2
     w2, w3 = real(33, 4), real(3, 125, 24)
-    for label, w, nq, cplx in (("2-D D=4 m=32 c64", w2, FM_FRAMES[0] // 4, True),
-                               ("2-D D=4 m=32 c64", w2, FM_FRAMES[1] // 4, True),
-                               ("2-D D=4 m=32 c64 ragged", w2, FM_FRAMES[0] // 4 - 223, True),
-                               ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[0] // 500, False),
-                               ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[1] // 500, False),
-                               ("3-D D=125 I=24 m=2 c64 ragged", w3, 1021, True)):
+    shapes = [("2-D D=4 m=32 c64", w2, FM_FRAMES[0] // 4, True),
+              ("2-D D=4 m=32 c64", w2, FM_FRAMES[1] // 4, True),
+              ("2-D D=4 m=32 c64 ragged", w2, FM_FRAMES[0] // 4 - 223, True),
+              ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[0] // 500, False),
+              ("3-D D=125 I=24 m=2 f32", w3, FM_FRAMES[1] // 500, False),
+              ("3-D D=125 I=24 m=2 c64 ragged", w3, 1021, True)]
+    # the plans' tile edges: nq = 1 and one tile +- 1 of each tiling, D = 1,
+    # an odd D, m = 1 (the gemm tiling at I = 1), I = 24 on a complex stream
+    rows_tile = ck.poly_fir_plan(32, 4, 1, 1, True).rows
+    gemm_tile = ck.poly_fir_plan(2, 125, 24, 1, True).rows
+    shapes += [("2-D D=4 m=32 c64 edge", w2, nq, True)
+               for nq in (1, rows_tile - 1, rows_tile + 1)]
+    shapes += [("3-D D=125 I=24 m=2 c64 edge", w3, nq, True)
+               for nq in (1, gemm_tile - 1, gemm_tile + 1, FM_FRAMES[1] // 500)]
+    shapes += [("2-D D=1 m=63 f32", real(64, 1), 1001, False),
+               ("2-D D=5 m=8 c64", real(9, 5), 777, True),
+               ("2-D D=8 m=1 f32", real(2, 8), 1000, False)]
+    for label, w, nq, cplx in shapes:
         m, D = w.shape[0] - 1, w.shape[1]
         hist = randc(m * D, gen, dev) if cplx else real(m * D)
         x = randc(nq * D, gen, dev) if cplx else real(nq * D)
@@ -1322,7 +1363,13 @@ def pfb_timings(dev, n: int, n_ch: int = PFB_N) -> dict:
             "max_abs_err": err}
 
 
+# A phase that stalls past this many seconds dumps every thread's stack to
+# stderr and ends the run (exit 1), inside the 1200 s a run may take.
+WATCHDOG_S = 1100
+
+
 def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a "
@@ -1400,9 +1447,11 @@ def main() -> int:
              for c, v in t["poly_fir"]["calls"].items()]
     for f, k, v in rows:
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
-        print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms,"
-              f" library {lib}, bound {v['bound_ms']:.4f} ms ({v['bound_by']}) "
-              f"[{card_line}]")
+        before = EARLIER_MS.get((k, f))
+        before = "" if before is None else f" (PERF.md before: {before:.4f} ms)"
+        print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms{before}, plain "
+              f"{v['plain_ms']:.4f} ms, library {lib}, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}) [{card_line}]")
     line = {"kernels": []}
     first = {**timings[FRAMES[0]], **fm_timings[FM_FRAMES[0]], **pfb_t[PFB_FRAMES[0]]}
     for k in SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS:

@@ -8,20 +8,53 @@
 // Bound on an H100: memory. A complex64 stream moves 16 bytes per sample (8 in,
 // 8 out) against 4 * n_taps + 5 * log2(N) FLOP per sample (311 at 64 taps and
 // N = 2048): 4 MB and 82 MFLOP per 2^18-sample frame, about 1.25 us at
-// 3.35 TB/s against about 1.2 us at 67 TFLOP/s FP32.
+// 3.35 TB/s against about 1.2 us at 67 TFLOP/s FP32. One row per block puts a
+// floor under a 2^18 frame (128 rows on 132 SMs): 131,072 complex MACs per row
+// on one SM's 128 FP32 lanes are about 2,048 cycles before any load.
 //
-// Design: one thread block per N-sample row. The block stages the row and the
-// n_taps - 1 samples before it (from the row above, or from `hist` for row 0)
-// in shared memory, runs the FIR MAC in FP32 into a second shared buffer, and
-// transforms that buffer in place:
-//  * N a power of two: the MAC writes in bit-reversed order and an iterative
-//    radix-2 decimation-in-time FFT runs over log2(N) stages;
-//  * any other N: a direct DFT, each output a sum over the row.
-// Twiddles come from a table the host builds in float64: entry k holds
-// (cos, sin)(2 pi k / N), and the phase index (c * j) mod N is reduced in
-// integers before the lookup, the accuracy rule of the TPU kernel's twiddles.
-// The TPU kernel's dense DFT matmul (8 * N FLOP per sample, about 64 us per
-// 2^18 frame at FP32) is not carried over.
+// What the first design (one 256-thread block per row, one output a thread)
+// lost time to, and what this design does about each:
+//  * the MAC read one float2 from shared memory per FMA pair (64 taps x 8 B per
+//    output): each window now computes R = 8 consecutive outputs with a
+//    sliding register window over the staged span, so a step loads one new
+//    sample and one tap (broadcast) for R FMA pairs, whole chunks of R steps
+//    unguarded so that their loads issue ahead of the FMAs. The span is
+//    staged with one pad slot every R samples, so the windows, R samples
+//    apart, fall in different banks. A 2048-point row runs on 256 threads;
+//    512 threads of 4 outputs each are slower (PERF.md);
+//  * the MAC scattered its results bit-reversed, with bank conflicts: it now
+//    writes them in natural order into a buffer padded one slot every 16
+//    points, which the FFT reads as it is;
+//  * the radix-2 FFT made log2(N) passes over shared memory, 11 barriers at
+//    N = 2048, and gathered tw[pos << shift] from device memory at every
+//    butterfly: a Stockham (self-sorting) FFT now holds 16 points a thread in
+//    registers and runs a radix-16 butterfly there (3 passes at N = 2048,
+//    8 x 16 x 16, 2 barriers), exchanging points through the padded buffers
+//    only between passes. Each pass reads its own slice of a twiddle table
+//    laid out so that neighbouring threads read neighbouring entries (the
+//    first table, indexed by k * q * stride, put up to 16 threads on one
+//    bank), staged once per block in shared memory. The last pass writes the
+//    spectrum in natural order straight to device memory, neighbouring
+//    threads on neighbouring bins (8-byte stores, coalesced: a thread's
+//    points are N / radix apart, so 16-byte stores would need one more pass
+//    through shared memory);
+//  * staging waited on one device-memory load at a time per thread: the span,
+//    the table and the taps are now copied with cp.async, every copy of a
+//    thread in flight at once.
+//
+// Twiddles come from a table the host builds in float64 (cuda_kernels.
+// _fft_table): pass p's entry (q - 1) * Ns + k holds (cos, sin)(2 pi ((k q
+// stride) mod N) / N), the phase index reduced mod N in integers before the
+// lookup, the accuracy rule of the TPU kernel's twiddles. The constants
+// inside a radix-2/4/8/16 butterfly are float literals of cos(2 pi t / 16).
+// The plan (threads, R, the radices, the padding, whether the
+// table fits in shared memory) comes from the wrapper, cuda_kernels.
+// fir_fft_plan; where the padded layout does not fit, the table is read from
+// device memory, then the padding goes.
+//
+// Any other N (not a power of two) keeps a direct DFT, each output a sum over
+// the row: Y[c] = sum_j v[j] * exp(-2 pi i ((c * j) mod N) / N). The TPU
+// kernel's dense DFT matmul (8 * N FLOP per sample) is not carried over.
 //
 // bf16 mode: samples and taps are rounded to bf16 when they are staged (their
 // products are exact in FP32 and accumulate in FP32), and the filtered row is
@@ -32,7 +65,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxPasses = 16;
+
+__host__ __device__ inline int skew(int i, int sh) { return i + (i >> sh); }
+
+__host__ __device__ inline int buf_b(int n, int psh) { return skew(n - 1, psh) + 1; }
+
+__host__ __device__ inline int buf_a(int n, int nt, int ssh, int psh) {
+  const int a = skew(n + nt - 2, ssh) + 1;
+  const int b = buf_b(n, psh);
+  return a > b ? a : b;
+}
+
+// buffer A (the skewed span, later an FFT buffer), buffer B (the padded
+// filtered row), the staged twiddle table, the taps
+__host__ inline size_t smem_bytes(int n, int nt, int ssh, int psh, int tw_len) {
+  return 8 * (static_cast<size_t>(buf_a(n, nt, ssh, psh)) + buf_b(n, psh) + tw_len) +
+         4 * static_cast<size_t>(nt);
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -43,118 +94,342 @@ __device__ __forceinline__ float prep(float v) {
   return BF16 ? bf16_round(v) : v;
 }
 
-__device__ __forceinline__ float2 load(const float* p, long long i) {
-  return make_float2(p[i], 0.f);
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
-__device__ __forceinline__ float2 load(const float2* p, long long i) { return p[i]; }
 
-template <typename T, bool BF16>
-__global__ void __launch_bounds__(kThreads)
-fir_fft_kernel(const T* __restrict__ hist, const T* __restrict__ x,
-               const float* __restrict__ taps, const float2* __restrict__ tw,
-               float2* __restrict__ y, int n_fft, int log2n, int nt) {
-  extern __shared__ float2 smem[];
-  float2* s_in = smem;                           // n_fft + nt - 1 samples
-  float2* s_v = s_in + (n_fft + nt - 1);         // n_fft filtered samples
-  float* s_taps = reinterpret_cast<float*>(s_v + n_fft);
-  const long long row0 = static_cast<long long>(blockIdx.x) * n_fft;
-  const int span = n_fft + nt - 1;
+__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
 
-  for (int i = threadIdx.x; i < nt; i += kThreads) s_taps[i] = prep<BF16>(taps[i]);
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const long long g = row0 - (nt - 1) + i;     // stream index, >= -(nt - 1)
-    float2 v = g >= 0 ? load(x, g) : load(hist, nt - 1 + g);
-    s_in[i] = make_float2(prep<BF16>(v.x), prep<BF16>(v.y));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// one span sample into its float2 slot: a complex sample as it is, a real one
+// into .x with .y = 0
+__device__ __forceinline__ void stage_sample(float2* dst, const float2* src) {
+  cp_async(dst, src);
+}
+__device__ __forceinline__ void stage_sample(float2* dst, const float* src) {
+  cp_async(&dst->x, src);
+  dst->y = 0.f;
+}
+
+// cos(2 pi t / 16) for t in [0, 16), as float literals
+__device__ __forceinline__ float cos16(int t) {
+  switch (t & 15) {
+    case 0: return 1.f;
+    case 1: case 15: return 0.92387953251128674f;
+    case 2: case 14: return 0.70710678118654752f;
+    case 3: case 13: return 0.38268343236508977f;
+    case 4: case 12: return 0.f;
+    case 5: case 11: return -0.38268343236508977f;
+    case 6: case 10: return -0.70710678118654752f;
+    case 7: case 9: return -0.92387953251128674f;
+    default: return -1.f;
   }
-  __syncthreads();
+}
 
-  // FIR MAC: v[c] = sum_k taps[k] * s_in[c + nt - 1 - k]
-  for (int c = threadIdx.x; c < n_fft; c += kThreads) {
-    float ar = 0.f, ai = 0.f;
-    for (int k = 0; k < nt; ++k) {
-      const float t = s_taps[k];
-      const float2 v = s_in[c + nt - 1 - k];
-      ar = fmaf(t, v.x, ar);
-      ai = fmaf(t, v.y, ai);
-    }
-    const int dst = log2n >= 0 ? static_cast<int>(__brev(c) >> (32 - log2n)) : c;
-    s_v[dst] = make_float2(prep<BF16>(ar), prep<BF16>(ai));
-  }
-  __syncthreads();
+// b * exp(-2 pi i t / 16); t is a constant once the butterfly is unrolled
+__device__ __forceinline__ float2 rot16(float2 b, int t) {
+  if (t == 0) return b;
+  if (t == 4) return make_float2(b.y, -b.x);
+  const float c = cos16(t), s = cos16(t - 4);    // sin(x) = cos(x - pi / 2)
+  return make_float2(b.x * c + b.y * s, b.y * c - b.x * s);
+}
 
-  if (log2n >= 0) {
-    // radix-2 DIT over bit-reversed input; forward twiddle exp(-i theta)
-    const int half_n = n_fft >> 1;
-    for (int s = 1; s <= log2n; ++s) {
-      const int half = 1 << (s - 1);
-      const int shift = log2n - s;               // twiddle index = pos * N / len
-      for (int b = threadIdx.x; b < half_n; b += kThreads) {
-        const int pos = b & (half - 1);
-        const int i = ((b >> (s - 1)) << s) + pos;
-        const int j = i + half;
-        const float2 w = tw[pos << shift];
-        const float2 u = s_v[i];
-        const float2 v = s_v[j];
-        const float tr = v.x * w.x + v.y * w.y;
-        const float ti = v.y * w.x - v.x * w.y;
-        s_v[i] = make_float2(u.x + tr, u.y + ti);
-        s_v[j] = make_float2(u.x - tr, u.y - ti);
+__host__ __device__ constexpr int log2c(int r) { return r <= 1 ? 0 : 1 + log2c(r >> 1); }
+
+__host__ __device__ constexpr int brev(int i, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((i >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+// The in-register transform: radix-2 decimation in time over registers that
+// hold the points in bit-reversed order, level LEN combining pairs LEN / 2
+// apart with exp(-2 pi i kk / LEN). Written as templates so that every
+// register index is a constant.
+template <int RX, int LEN, bool DONE = (LEN > RX)>
+struct Dit {
+  static __device__ __forceinline__ void run(float2 (&u)[RX]) {
+#pragma unroll
+    for (int i = 0; i < RX; i += LEN) {
+#pragma unroll
+      for (int kk = 0; kk < LEN / 2; ++kk) {
+        const float2 a = u[i + kk];
+        const float2 b = rot16(u[i + kk + LEN / 2], kk * (16 / LEN));
+        u[i + kk] = make_float2(a.x + b.x, a.y + b.y);
+        u[i + kk + LEN / 2] = make_float2(a.x - b.x, a.y - b.y);
       }
-      __syncthreads();
     }
-    for (int c = threadIdx.x; c < n_fft; c += kThreads) y[row0 + c] = s_v[c];
+    Dit<RX, LEN * 2>::run(u);
+  }
+};
+template <int RX, int LEN>
+struct Dit<RX, LEN, true> {
+  static __device__ __forceinline__ void run(float2 (&)[RX]) {}
+};
+
+// One Stockham pass of radix RX over n points: butterfly j takes the points
+// j + q * n / RX of the shared buffer at in_off, twiddles them by
+// exp(-2 pi i k q / (Ns RX)) with k = j mod Ns (entry (q - 1) * Ns + k of the
+// pass's table, so neighbouring threads read neighbouring entries), transforms
+// them in registers (Dit: register i holds point q = brev(i), so the loads,
+// not the registers, are permuted; the outputs come out in natural order) and
+// stores them at (j - k) * RX + k + q * Ns: into the shared buffer at out_off,
+// or, in the LAST pass, straight to the row of y.
+template <int RX, bool LAST>
+__device__ __forceinline__ void stockham(float2* sm, int in_off, int out_off,
+                                         float2* __restrict__ yr, int psh,
+                                         const float2* tw, int n, int ns) {
+  constexpr int bits = log2c(RX);
+  const int nb = n / RX;
+  for (int j = threadIdx.x; j < nb; j += blockDim.x) {
+    const int k = j & (ns - 1);
+    float2 u[RX];
+#pragma unroll
+    for (int i = 0; i < RX; ++i) {
+      const int q = brev(i, bits);
+      float2 v = sm[in_off + skew(j + q * nb, psh)];
+      if (q > 0 && ns > 1) {
+        const float2 w = tw[(q - 1) * ns + k];
+        v = make_float2(v.x * w.x + v.y * w.y, v.y * w.x - v.x * w.y);
+      }
+      u[i] = v;
+    }
+    Dit<RX, 2>::run(u);
+    const int base = (j - k) * RX + k;
+#pragma unroll
+    for (int q = 0; q < RX; ++q) {
+      if (LAST) {
+        yr[base + q * ns] = u[q];
+      } else {
+        sm[out_off + skew(base + q * ns, psh)] = u[q];
+      }
+    }
+  }
+}
+
+// One MAC step k = k0 + kk of a window: load span[top - k] into slot kk and
+// add taps[k] times each of the R samples to the R sums.
+template <int R>
+__device__ __forceinline__ void mac_step(float2 (&win)[R], float2 (&acc)[R],
+                                         const float2* s_a, const float* s_taps, int top,
+                                         int k0, int kk, int ssh) {
+  const int k = k0 + kk;
+  win[kk] = s_a[skew(top - k, ssh)];
+  const float t = s_taps[k];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2 v = win[(kk - r + R) % R];
+    acc[r].x = fmaf(t, v.x, acc[r].x);
+    acc[r].y = fmaf(t, v.y, acc[r].y);
+  }
+}
+
+template <typename T, bool BF16, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+fir_fft_kernel(const T* __restrict__ hist, const T* __restrict__ x,
+               const float* __restrict__ taps, const float2* __restrict__ tw_g,
+               float2* __restrict__ y, int n, int nt, int n_pass, unsigned radix_codes,
+               int ssh, int psh, int tw_staged_len) {
+  extern __shared__ float2 smem[];
+  const int a_len = buf_a(n, nt, ssh, psh), b_len = buf_b(n, psh);
+  float2* s_a = smem;                              // skewed span, then an FFT buffer
+  float2* s_b = s_a + a_len;                       // the padded filtered row
+  float2* s_tw = s_b + b_len;
+  float* s_taps = reinterpret_cast<float*>(s_tw + tw_staged_len);
+  const long long row0 = static_cast<long long>(blockIdx.x) * n;
+  const int span = n + nt - 1;
+  const int nthr = blockDim.x;
+
+  // Stage with cp.async, every copy of a thread in flight at once: the span
+  // (the row and the nt - 1 samples before it, from hist for row 0), the
+  // twiddle table, the taps. bf16 mode then rounds what each thread copied.
+  const long long g0 = row0 - (nt - 1);
+  for (int i = threadIdx.x; i < span; i += nthr) {
+    const long long g = g0 + i;
+    stage_sample(s_a + skew(i, ssh), g >= 0 ? x + g : hist + (nt - 1 + g));
+  }
+  for (int i = threadIdx.x; i < tw_staged_len; i += nthr) cp_async(s_tw + i, tw_g + i);
+  for (int i = threadIdx.x; i < nt; i += nthr) cp_async(s_taps + i, taps + i);
+  cp_async_wait_all();
+  if (BF16) {
+    for (int i = threadIdx.x; i < span; i += nthr) {
+      float2* d = s_a + skew(i, ssh);
+      *d = make_float2(bf16_round(d->x), bf16_round(d->y));
+    }
+    for (int i = threadIdx.x; i < nt; i += nthr) s_taps[i] = bf16_round(s_taps[i]);
+  }
+  const float2* tw = tw_staged_len ? s_tw : tw_g;
+  __syncthreads();
+
+  // FIR MAC: v[c0 + r] = sum_k taps[k] * span[c0 + r + nt - 1 - k], k ascending.
+  // At step k the window holds span[c0 + nt - 1 - k + r] for r < R, element g
+  // in slot (nt - 1 - g) mod R relative to c0: each step loads the one new
+  // sample span[c0 + nt - 1 - k] into slot k mod R. Outputs past n (a ragged
+  // last window) are computed from clamped loads and not stored.
+  for (int c0 = threadIdx.x * R; c0 < n; c0 += nthr * R) {
+    float2 win[R], acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      win[(R - r) % R] = s_a[skew(min(c0 + nt - 1 + r, span - 1), ssh)];
+    }
+    // whole chunks of R steps without a guard, so that their loads can be
+    // issued ahead of the FMAs, then the last steps
+    const int top = c0 + nt - 1;
+    int k0 = 0;
+    for (; k0 + R <= nt; k0 += R) {
+#pragma unroll
+      for (int kk = 0; kk < R; ++kk) mac_step<R>(win, acc, s_a, s_taps, top, k0, kk, ssh);
+    }
+#pragma unroll
+    for (int kk = 0; kk < R; ++kk) {
+      if (k0 + kk < nt) mac_step<R>(win, acc, s_a, s_taps, top, k0, kk, ssh);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (c0 + r < n) {
+        s_b[skew(c0 + r, psh)] = make_float2(prep<BF16>(acc[r].x), prep<BF16>(acc[r].y));
+      }
+    }
+  }
+  __syncthreads();
+
+  if (n_pass > 0) {
+    // pass p has radix 2 << ((radix_codes >> 2p) & 3); Ns is the product of
+    // the radices before it; its table holds (radix - 1) * Ns entries
+    float2* yr = y + row0;
+    int in_off = a_len, out_off = 0, ns = 1, tw_off = 0;
+    for (int p = 0; p < n_pass; ++p) {
+      const int code = (radix_codes >> (2 * p)) & 3;
+      const float2* twp = tw + tw_off;
+      if (p == n_pass - 1) {
+        switch (code) {
+          case 0: stockham<2, true>(smem, in_off, 0, yr, psh, twp, n, ns); break;
+          case 1: stockham<4, true>(smem, in_off, 0, yr, psh, twp, n, ns); break;
+          case 2: stockham<8, true>(smem, in_off, 0, yr, psh, twp, n, ns); break;
+          default: stockham<16, true>(smem, in_off, 0, yr, psh, twp, n, ns); break;
+        }
+      } else {
+        switch (code) {
+          case 0: stockham<2, false>(smem, in_off, out_off, yr, psh, twp, n, ns); break;
+          case 1: stockham<4, false>(smem, in_off, out_off, yr, psh, twp, n, ns); break;
+          case 2: stockham<8, false>(smem, in_off, out_off, yr, psh, twp, n, ns); break;
+          default: stockham<16, false>(smem, in_off, out_off, yr, psh, twp, n, ns); break;
+        }
+        __syncthreads();
+        const int t = in_off;
+        in_off = out_off;
+        out_off = t;
+      }
+      const int r = 2 << code;
+      tw_off += (r - 1) * ns;
+      ns *= r;
+    }
   } else {
-    // direct DFT: Y[c] = sum_j v[j] * exp(-2 pi i ((c * j) mod N) / N)
-    for (int c = threadIdx.x; c < n_fft; c += kThreads) {
+    for (int c = threadIdx.x; c < n; c += nthr) {
       float ar = 0.f, ai = 0.f;
       int idx = 0;
-      for (int j = 0; j < n_fft; ++j) {
+      for (int j = 0; j < n; ++j) {
         const float2 w = tw[idx];
-        const float2 v = s_v[j];
+        const float2 v = s_b[skew(j, psh)];
         ar = fmaf(v.x, w.x, fmaf(v.y, w.y, ar));
         ai = fmaf(v.y, w.x, fmaf(-v.x, w.y, ai));
         idx += c;
-        if (idx >= n_fft) idx -= n_fft;
+        if (idx >= n) idx -= n;
       }
       y[row0 + c] = make_float2(ar, ai);
     }
   }
 }
 
-template <typename T, bool BF16>
-cudaError_t launch(const void* hist, const void* x, const void* taps,
-                   const void* tw, void* y, long long rows, int n_fft, int log2n,
-                   int nt, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(n_fft) + nt - 1) * sizeof(float2) +
-                      nt * sizeof(float);
-  auto kern = fir_fft_kernel<T, BF16>;
+template <typename T, bool BF16, int R>
+cudaError_t launch(const void* hist, const void* x, const void* taps, const void* tw,
+                   void* y, long long rows, int n, int nt, int threads, int n_pass,
+                   unsigned codes, int ssh, int psh, int tw_len, size_t smem,
+                   cudaStream_t stream) {
+  auto kern = fir_fft_kernel<T, BF16, R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<static_cast<unsigned>(rows), kThreads, smem, stream>>>(
+  kern<<<static_cast<unsigned>(rows), threads, smem, stream>>>(
       static_cast<const T*>(hist), static_cast<const T*>(x),
       static_cast<const float*>(taps), static_cast<const float2*>(tw),
-      static_cast<float2*>(y), n_fft, log2n, nt);
+      static_cast<float2*>(y), n, nt, n_pass, codes, ssh, psh, tw_len);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* hist, const void* x, const void* taps, const void* tw,
+                     void* y, long long rows, int n, int nt, int bf16, int threads,
+                     int outs, int n_pass, unsigned codes, int ssh, int psh, int tw_len,
+                     size_t smem, cudaStream_t s) {
+  if (outs == 8) {
+    return bf16 ? launch<T, true, 8>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
+                                     codes, ssh, psh, tw_len, smem, s)
+                : launch<T, false, 8>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
+                                      codes, ssh, psh, tw_len, smem, s);
+  }
+  return bf16 ? launch<T, true, 4>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
+                                   codes, ssh, psh, tw_len, smem, s)
+              : launch<T, false, 4>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
+                                    codes, ssh, psh, tw_len, smem, s);
 }
 
 }  // namespace
 
-// x: rows * n_fft samples; hist: the nt - 1 samples before x (never null);
-// tw: n_fft (cos, sin) pairs; y: rows * n_fft complex64. log2n is log2(n_fft)
-// for a power of two, else -1. Returns cudaGetLastError() after the launch.
+// x: rows * n samples; hist: the nt - 1 samples before x (never null); y:
+// rows * n complex64. tw: the twiddle table of the plan, tw_len entries of
+// (cos, sin) pairs: for a power-of-two n the passes' tables one after the
+// other, pass p's entry (q - 1) * Ns + k holding (cos, sin)(2 pi ((k q
+// stride) mod n) / n); else the n entries of (cos, sin)(2 pi k / n). The plan
+// (cuda_kernels.fir_fft_plan): threads per block, outs (R: 4 or 8), n_pass
+// Stockham passes with their radices in order (2, 4, 8 or 16; 0 passes: the
+// direct DFT), the span and FFT-buffer pad shifts, whether the table is staged
+// in shared memory, and its shared memory, which must equal this layout's.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// plan the kernel does not take.
 extern "C" int fsdr_fir_fft(const void* hist, const void* x, const void* taps,
-                            const void* tw, void* y, long long rows, int n_fft,
-                            int log2n, int nt, int is_complex, int bf16,
-                            void* stream) {
+                            const void* tw, int tw_len, void* y, long long rows, int n,
+                            int nt, int is_complex, int bf16, int threads, int outs,
+                            int n_pass, const int* radices, int ssh, int psh,
+                            int tw_staged, long long smem, void* stream) {
   if (rows <= 0) return 0;
+  if (n_pass < 0 || n_pass > kMaxPasses || threads < 1 || threads > kMaxThreads ||
+      (outs != 4 && outs != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned codes = 0;
+  int prod = 1, want_len = 0;
+  for (int p = 0; p < n_pass; ++p) {
+    const int r = radices[p];
+    const int code = r == 2 ? 0 : r == 4 ? 1 : r == 8 ? 2 : r == 16 ? 3 : -1;
+    if (code < 0) return static_cast<int>(cudaErrorInvalidValue);
+    codes |= static_cast<unsigned>(code) << (2 * p);
+    want_len += (r - 1) * prod;
+    prod *= r;
+  }
+  if (n_pass == 0) want_len = n;
+  if ((n_pass > 0 && prod != n) || tw_len != want_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int staged = tw_staged ? tw_len : 0;
+  const size_t want = smem_bytes(n, nt, ssh, psh, staged);
+  if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_complex) {
-    return bf16 ? launch<float2, true>(hist, x, taps, tw, y, rows, n_fft, log2n, nt, s)
-                : launch<float2, false>(hist, x, taps, tw, y, rows, n_fft, log2n, nt, s);
+    return dispatch<float2>(hist, x, taps, tw, y, rows, n, nt, bf16, threads, outs, n_pass,
+                            codes, ssh, psh, staged, want, s);
   }
-  return bf16 ? launch<float, true>(hist, x, taps, tw, y, rows, n_fft, log2n, nt, s)
-              : launch<float, false>(hist, x, taps, tw, y, rows, n_fft, log2n, nt, s);
+  return dispatch<float>(hist, x, taps, tw, y, rows, n, nt, bf16, threads, outs, n_pass,
+                         codes, ssh, psh, staged, want, s);
 }

@@ -34,7 +34,7 @@ their products are exact in float32 and accumulate in float32, in the kernel
 and in the plain version alike, as the JAX kernels' bf16 mode computes them.
 ``fir_fft`` also rounds the filtered row to bfloat16 before its transform,
 which runs in float32. (The JAX kernel's bf16 mode also rounds its DFT
-matrix; a radix-2 FFT has no such matrix, so the port keeps its twiddles in
+matrix; an FFT has no such matrix, so the port keeps its twiddles in
 float32.) ``pfb`` in bf16 also rounds its branch bank ``v`` to bfloat16
 before the IDFT; its plain version, like the JAX kernel, then also rounds the
 cos/sin matrix, while the kernel keeps float32 twiddles. The TPU block-shape table (``DEFAULT_BLOCKS``) is TPU VMEM
@@ -43,9 +43,11 @@ geometry and has no counterpart: each CUDA kernel picks its own tile.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -386,6 +388,211 @@ def _pfb_tile(n: int, k: int) -> Tuple[int, int, bool]:
 
 
 # ---------------------------------------------------------------------------
+# tiling plans of fir_fft and poly_fir (the kernels take them as arguments;
+# tests/test_torch_kernel_plans.py walks them on the CPU)
+# ---------------------------------------------------------------------------
+
+_NO_PAD = 31                 # a pad shift that pads nothing below 2^31
+
+
+def _skew(i: int, sh: int) -> int:
+    """Index ``i`` of a shared buffer with one slot of padding every
+    ``2^sh`` slots (the kernels' ``skew``)."""
+    return i + (i >> sh)
+
+
+class FirFftPlan(NamedTuple):
+    """How ``csrc/fir_fft.cu`` runs one ``n_fft``-sample row per block."""
+    threads: int                 # threads per block (per row)
+    outs: int                    # consecutive filtered samples a thread computes (R)
+    radices: Tuple[int, ...]     # Stockham passes; empty: direct DFT (N not 2^k)
+    spans: Tuple[int, ...]       # Ns of each pass: the product of the radices before it
+    strides: Tuple[int, ...]     # twiddle index stride of each pass, N / (Ns·radix)
+    tw_len: int                  # entries of the twiddle table (_fft_table)
+    span_shift: int              # staged span: one pad slot every 2^span_shift samples
+    pad_shift: int               # FFT buffers: one pad slot every 2^pad_shift points
+    tw_staged: bool              # twiddle table (_fft_table) in shared memory, else L2
+    smem: int                    # dynamic shared memory per block, bytes
+
+
+def _fir_fft_smem(n: int, nt: int, span_shift: int, pad_shift: int, tw_len: int) -> int:
+    """Bytes of the kernel's layout: buffer A (the skewed span, later an FFT
+    buffer), buffer B (the padded filtered row), ``tw_len`` staged twiddle
+    entries, the taps."""
+    b_len = _skew(n - 1, pad_shift) + 1
+    a_len = max(_skew(n + nt - 2, span_shift) + 1, b_len)
+    return 8 * (a_len + b_len + tw_len) + 4 * nt
+
+
+def _fft_table_index(n_fft: int, radices: Tuple[int, ...]) -> np.ndarray:
+    """Phase index (mod N) of each entry of the ``fir_fft`` kernel's twiddle
+    table: for Stockham passes, pass p's entries ``(q − 1)·Ns + k`` hold
+    ``(k·q·stride) mod N`` (q < radix, k < Ns), the passes one after the
+    other, so the threads of a pass read neighbouring entries; for the direct
+    DFT (no passes) entry k is k."""
+    if not radices:
+        return np.arange(n_fft, dtype=np.int64)
+    idx, ns = [], 1
+    for r in radices:
+        stride = n_fft // (ns * r)
+        q, k = np.arange(1, r, dtype=np.int64)[:, None], np.arange(ns, dtype=np.int64)
+        idx.append(((k[None, :] * q * stride) % n_fft).reshape(-1))
+        ns *= r
+    return np.concatenate(idx)
+
+
+_fft_tables: Dict[Tuple[int, Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
+def _fft_table(n_fft: int, radices: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The ``fir_fft`` kernel's twiddle table, ``[L, 2]`` float32
+    ``(cos, sin)`` of the float64 phases at :func:`_fft_table_index`."""
+    key = (n_fft, radices, device)
+    with _dft_lock:
+        tw = _fft_tables.get(key)
+        if tw is None:
+            ang = _phases(n_fft)[_fft_table_index(n_fft, radices)]
+            tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+            tw = torch.from_numpy(tab).to(device)
+            _fft_tables[key] = tw
+        return tw
+
+
+_FFT_RADIX = 16              # Stockham passes of radix 16, one smaller pass first
+
+
+@functools.lru_cache(maxsize=256)
+def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
+    """The ``fir_fft`` kernel's plan for one row of ``n_fft`` samples.
+
+    The MAC gives each thread ``outs`` consecutive filtered samples (a
+    sliding register window over the staged span; 256 threads of 8 at
+    N = 2048, 512 threads from N = 4096); a power-of-two ``n_fft`` then runs
+    Stockham passes of radix 16 with one smaller pass first for the rest of
+    log2(N) (8·16·16 at N = 2048). Where the padded layout with staged
+    twiddles does not fit in shared memory, the twiddles are read from device
+    memory instead, then the padding goes: the unpadded layout is the old
+    kernel's size, so every shape that ran before still runs."""
+    threads = min(512, max(32, n_fft // 8))
+    outs = 8 if n_fft >= 8 * threads else 4
+    radices: Tuple[int, ...] = ()
+    if n_fft & (n_fft - 1) == 0:
+        bits, step = n_fft.bit_length() - 1, _FFT_RADIX.bit_length() - 1
+        rest = bits % step
+        radices = ((1 << rest,) if rest else ()) + (_FFT_RADIX,) * (bits // step)
+    spans, strides, ns = [], [], 1
+    for r in radices:
+        spans.append(ns)
+        strides.append(n_fft // (ns * r))
+        ns *= r
+    # the passes' tables hold (r − 1)·Ns entries each, N − 1 in all
+    tw_len = n_fft - 1 if radices else n_fft
+    layouts = ((outs.bit_length() - 1, 4, True), (outs.bit_length() - 1, 4, False),
+               (_NO_PAD, _NO_PAD, False))
+    for span_shift, pad_shift, tw_staged in layouts:
+        smem = _fir_fft_smem(n_fft, n_taps, span_shift, pad_shift,
+                             tw_len if tw_staged else 0)
+        if smem <= _MAX_SMEM:
+            break
+    return FirFftPlan(threads, outs, radices, tuple(spans), tuple(strides), tw_len,
+                      span_shift, pad_shift, tw_staged, smem)
+
+
+class PolyFirPlan(NamedTuple):
+    """How ``csrc/poly_fir.cu`` tiles ``y[q, i] = Σ_j ext[q·D + j]·W'[j, i]``
+    (``J = (m+1)·D`` taps, ``W'[j, i] = W[m − j//D, j mod D, i]``)."""
+    tiling: str      # "rows": I = 1, sliding window; "gemm": register tile, K split
+    threads: int
+    rows: int        # output rows per block
+    tile_rows: int   # output rows per thread (R), or per register tile (RM)
+    tile_phases: int  # phases per register tile (RN; 1 for "rows")
+    ksplit: int      # "rows": lanes sharing R rows (columns split); "gemm": parts of J
+    pad: int         # "rows": pad slots after every R rows of the staged span
+    smem: int        # dynamic shared memory per block, bytes
+
+
+_ROWS_THREADS, _ROWS_R = 128, 8            # "rows": 128 / C groups of 8 rows a block
+_GEMM_THREADS, _GEMM_RM = 256, 4
+_GEMM_TM = (64, 32, 16, 8, 4)              # rows per block: the largest that gives 7/8 of
+                                           # a block per SM (1,024 rows: 8 a block)
+_GEMM_MIN_K = 16                           # taps per K part at least
+
+
+def _w_pitch(m: int) -> int:
+    """Floats per transposed W row of the "rows" tiling (the kernel's
+    ``w_pitch``): a multiple of 8 that is not one of 32."""
+    p = (m + 8) // 8 * 8
+    return p + 8 if p % 32 == 0 else p
+
+
+def _rows_slot(k, rd: int, pad: int):
+    return k + pad * (k // rd)
+
+
+def _rows_pad(D: int, C: int, elt: int) -> int:
+    """The fewest pad slots per R rows that put the window loads of one
+    warp's lanes (lane = group·C + column) on distinct banks: 32 lanes for a
+    real stream, each half-warp for a complex one (8-byte loads)."""
+    lanes, banks = (16, 16) if elt == 8 else (32, 32)
+    rd = _ROWS_R * D
+    for pad in range(32):
+        slots = {_rows_slot((ln // C * _ROWS_R + _ROWS_R - 1) * D + ln % C, rd, pad) % banks
+                 for ln in range(lanes)}
+        if len(slots) == lanes:
+            return pad
+    return 1
+
+
+def _poly_fir_smem(plan_tiling: str, m: int, D: int, I: int, rows: int, tile_rows: int,
+                   ksplit: int, pad: int, elt: int) -> int:
+    if plan_tiling == "rows":
+        span = (rows + m) * D
+        return 4 * D * _w_pitch(m) + elt * (_rows_slot(span - 1, tile_rows * D, pad) + 1)
+    red = ksplit * rows * I if ksplit > 1 else 0
+    return 4 * (((m + 1) * D * I + 1) & ~1) + elt * ((rows + m) * D + red)
+
+
+@functools.lru_cache(maxsize=1024)
+def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
+                  n_sm: int = 132) -> PolyFirPlan:
+    """The ``poly_fir`` kernel's plan for one call.
+
+    ``rows`` (I = 1 with at least 8 tap rows): a group of C lanes (C = 4 at
+    D ≥ 4) computes 8 consecutive outputs, each lane over its columns, sliding
+    a window of 8 stride-D rows along the tap rows. ``gemm`` (the resampler,
+    and any W the ``rows`` layout cannot hold): each thread a tile of RM rows
+    × RN phases over its part of J; a block takes the most rows that still
+    give 7/8 of ``n_sm`` blocks, and splits J over the threads left over. Where the
+    layout does not fit, the K split and then the rows shrink, down to one
+    row a block: then it is the old kernel's size or less, so every W that
+    ran before still runs."""
+    elt = 8 if is_complex else 4
+    if I == 1 and m + 1 >= _ROWS_R:
+        c = 4 if D >= 4 else 2 if D >= 2 else 1
+        rows = _ROWS_THREADS // c * _ROWS_R
+        pad = _rows_pad(D, c, elt)
+        smem = _poly_fir_smem("rows", m, D, I, rows, _ROWS_R, c, pad, elt)
+        if smem <= _MAX_SMEM:
+            return PolyFirPlan("rows", _ROWS_THREADS, rows, _ROWS_R, 1, c, pad, smem)
+    rn = 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
+    gn = -(-I // rn)
+    tm = next((t for t in _GEMM_TM if -(-nq // t) * 8 >= n_sm * 7), _GEMM_TM[-1])
+    J = (m + 1) * D
+    while True:
+        units = -(-tm // _GEMM_RM) * gn
+        ks = 1
+        while ks * 2 * units <= _GEMM_THREADS and J // (ks * 2) >= _GEMM_MIN_K:
+            ks *= 2
+        smem = _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, ks, 0, elt)
+        while smem > _MAX_SMEM and ks > 1:
+            ks //= 2
+            smem = _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, ks, 0, elt)
+        if smem <= _MAX_SMEM or tm == 1:
+            return PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, ks, 0, smem)
+        tm = max(1, tm // 2)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -400,16 +607,16 @@ def _lib(name: str):
             lib.fsdr_fir_tile.argtypes = []
             lib.fsdr_fir_tile.restype = i
         elif name == "fir_fft":
-            lib.fsdr_fir_fft.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, vp]
+            lib.fsdr_fir_fft.argtypes = [vp, vp, vp, vp, i, vp, ll, i, i, i, i, i, i, i,
+                                         ctypes.POINTER(i), i, i, i, ll, vp]
             lib.fsdr_fir_fft.restype = i
         elif name == "rotator":
             lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, ll, vp]
             lib.fsdr_rotator.restype = i
         elif name == "poly_fir":
-            lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]
+            lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
+                                          i, i, i, i, ll, vp]
             lib.fsdr_poly_fir.restype = i
-            lib.fsdr_poly_fir_smem.argtypes = [i, i, i, i]
-            lib.fsdr_poly_fir_smem.restype = ll
         elif name == "pfb":
             lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, i, vp, vp, ll, i, i, i, i, ll,
                                      i, i, vp]
@@ -421,9 +628,41 @@ def _lib(name: str):
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _c_ints(values: Tuple[int, ...]):
+    """``values`` as a C int array (one element at least), built once."""
+    return (ctypes.c_int * max(1, len(values)))(*values)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def _card(x: torch.Tensor):
+    """A context that makes ``x``'s card the current one for a launch (the
+    kernels launch on the current card); nothing to do where it is already."""
+    idx = x.device.index
+    return _CURRENT if idx == torch.cuda.current_device() else torch.cuda.device(idx)
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The raw current CUDA stream of ``x``'s card."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
@@ -438,11 +677,10 @@ def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tenso
         raise ValueError(f"fir: {nt} taps need {smem} B of shared memory per "
                          f"block, over the card's {_MAX_SMEM} B")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _card(x):
         err = lib.fsdr_fir(None if hist is None else hist.data_ptr(), x.data_ptr(),
                            taps.data_ptr(), y.data_ptr(), x.shape[0], nt,
-                           int(x.is_complex()), int(bf16), stream)
+                           int(x.is_complex()), int(bf16), _stream(x))
     _raise_on(err, "fir")
     launches["fir"] += 1
     return y
@@ -483,22 +721,29 @@ def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
     bf16 = _check_precision(precision)
     nt = _check_fir_fft(hist, x, taps, n_fft)
     _check_cuda(hist, x, taps)
-    smem = (2 * n_fft + nt - 1) * 8 + 4 * nt
-    if smem > _MAX_SMEM:
-        raise ValueError(f"fir_fft: n_fft={n_fft} with {nt} taps needs {smem} B "
+    plan = fir_fft_plan(n_fft, nt)
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"fir_fft: n_fft={n_fft} with {nt} taps needs {plan.smem} B "
                          f"of shared memory per block, over the card's {_MAX_SMEM} B")
     if x.shape[0] == 0:
         return torch.empty(0, dtype=torch.complex64, device=x.device)   # nothing to launch
-    log2n = n_fft.bit_length() - 1 if n_fft & (n_fft - 1) == 0 else -1
-    tw = _twiddles(n_fft, x.device)
+    return _launch_fir_fft(hist, x, taps, n_fft, bf16, plan)
+
+
+def _launch_fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
+                    bf16: bool, plan: FirFftPlan) -> torch.Tensor:
+    nt = int(taps.shape[0])
+    tw = _fft_table(n_fft, plan.radices, x.device)
     lib = _lib("fir_fft")
     y = torch.empty(x.shape[0], dtype=torch.complex64, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _card(x):
         err = lib.fsdr_fir_fft(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
-                               tw.data_ptr(), y.data_ptr(), x.shape[0] // n_fft,
-                               n_fft, log2n, nt, int(x.is_complex()), int(bf16),
-                               stream)
+                               tw.data_ptr(), tw.shape[0], y.data_ptr(),
+                               x.shape[0] // n_fft, n_fft, nt, int(x.is_complex()),
+                               int(bf16), plan.threads,
+                               plan.outs, len(plan.radices), _c_ints(plan.radices),
+                               plan.span_shift, plan.pad_shift, int(plan.tw_staged),
+                               plan.smem, _stream(x))
     _raise_on(err, "fir_fft")
     launches["fir_fft"] += 1
     return y
@@ -516,10 +761,9 @@ def rotator(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> torch.Tens
     if x.shape[0] == 0:
         return y                            # nothing to launch
     lib = _lib("rotator")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _card(x):
         err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(),
-                               y.data_ptr(), x.shape[0], stream)
+                               y.data_ptr(), x.shape[0], _stream(x))
     _raise_on(err, "rotator")
     launches["rotator"] += 1
     return y
@@ -540,10 +784,9 @@ def quad_demod(prev: torch.Tensor, x: torch.Tensor,
         return y, prev.reshape(()).clone()  # nothing to launch
     last = torch.empty((), dtype=torch.complex64, device=x.device)
     lib = _lib("quad_demod")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _card(x):
         err = lib.fsdr_quad_demod(x.data_ptr(), prev.data_ptr(), y.data_ptr(),
-                                  last.data_ptr(), x.shape[0], float(gain), stream)
+                                  last.data_ptr(), x.shape[0], float(gain), _stream(x))
     _raise_on(err, "quad_demod")
     launches["quad_demod"] += 1
     return y, last
@@ -567,16 +810,25 @@ def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
     y = torch.empty(shape, dtype=x.dtype, device=x.device)
     if nq == 0:
         return y                            # nothing to launch
-    lib = _lib("poly_fir")
-    smem = lib.fsdr_poly_fir_smem(m, D, I, int(x.is_complex()))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"poly_fir: W {tuple(W.shape)} needs {smem} B of shared "
+    plan = poly_fir_plan(m, D, I, nq, x.is_complex(), _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"poly_fir: W {tuple(W.shape)} needs {plan.smem} B of shared "
                          f"memory per block, over the card's {_MAX_SMEM} B")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _launch_poly_fir(hist, x, W, y, bf16, plan)
+
+
+def _launch_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
+                     bf16: bool, plan: PolyFirPlan) -> torch.Tensor:
+    m, D = int(W.shape[0]) - 1, int(W.shape[1])
+    I = int(W.shape[2]) if W.dim() == 3 else 1
+    lib = _lib("poly_fir")
+    with _card(x):
         err = lib.fsdr_poly_fir(hist.data_ptr(), x.data_ptr(), W.data_ptr(),
-                                y.data_ptr(), nq, m, D, I, int(x.is_complex()),
-                                int(bf16), int(W.dtype == torch.bfloat16), stream)
+                                y.data_ptr(), x.shape[0] // D, m, D, I,
+                                int(x.is_complex()), int(bf16),
+                                int(W.dtype == torch.bfloat16), int(plan.tiling == "gemm"),
+                                plan.threads, plan.rows, plan.tile_rows, plan.tile_phases,
+                                plan.ksplit, plan.pad, plan.smem, _stream(x))
     _raise_on(err, "poly_fir")
     launches["poly_fir"] += 1
     return y
@@ -608,13 +860,12 @@ def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     log2n = N.bit_length() - 1 if N & (N - 1) == 0 else -1
     tw = _twiddles(N, x.device)
     lib = _lib("pfb")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _card(x):
         err = lib.fsdr_pfb(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
                            taps.stride(0), taps.stride(1),
                            int(taps.dtype == torch.bfloat16), tw.data_ptr(),
                            y.data_ptr(), t, N, log2n, K, tr, smem, int(staged), int(bf16),
-                           stream)
+                           _stream(x))
     _raise_on(err, "pfb")
     launches["pfb"] += 1
     return y

@@ -63,6 +63,53 @@ def test_fir_fft_kernel_matches_plain_on_card(cuda_device, precision, n_fft, nt,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("n_fft,nt", [(2, 2), (16, 2), (16, 16), (4096, 2), (4096, 4096),
+                                      (8192, 2), (8192, 8192)])
+def test_fir_fft_kernel_plan_edges_on_card(cuda_device, precision, n_fft, nt):
+    """One- and two-pass transforms, the largest rows (8192 with 8192 taps
+    takes the unpadded layout with the twiddles read from device memory),
+    the shortest and longest tap sets; one row."""
+    rng = np.random.default_rng(28)
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32)).to(cuda_device)
+    h = torch.from_numpy(_c64(rng, nt - 1)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, n_fft)).to(cuda_device)
+    before = ck.launches["fir_fft"]
+    got = ck.fir_fft(h, x, taps, n_fft, precision)
+    torch.cuda.synchronize()
+    assert ck.launches["fir_fft"] == before + 1
+    assert _rel_err(got, ck.fir_fft_plain(h, x, taps, n_fft, precision)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["512 threads", "radix 8", "twiddles unstaged",
+                                     "unpadded"])
+def test_fir_fft_kernel_takes_every_plan_layout_on_card(cuda_device, variant):
+    """The main path's row (N = 2048, 64 taps) under the layouts the wrapper
+    takes at other shapes (512 threads of 4 outputs, the twiddles read from
+    device memory, no padding) and radix-8 passes; the kernel takes the
+    plan's shared memory only where it equals its layout's."""
+    n, nt = 2048, 64
+    rng = np.random.default_rng(29)
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32)).to(cuda_device)
+    h = torch.from_numpy(_c64(rng, nt - 1)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, n * 3)).to(cuda_device)
+    plan = ck.fir_fft_plan(n, nt)
+    plan = {"512 threads": plan._replace(threads=512, outs=4, span_shift=2),
+            "radix 8": plan._replace(radices=(4, 8, 8, 8)),
+            "twiddles unstaged": plan._replace(tw_staged=False),
+            "unpadded": plan._replace(span_shift=ck._NO_PAD, pad_shift=ck._NO_PAD,
+                                      tw_staged=False)}[variant]
+    plan = plan._replace(smem=ck._fir_fft_smem(n, nt, plan.span_shift, plan.pad_shift,
+                                               plan.tw_len if plan.tw_staged else 0))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck._launch_fir_fft(h, x, taps, n, False, plan._replace(smem=plan.smem + 8))
+    got = ck._launch_fir_fft(h, x, taps, n, False, plan)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ck.fir_fft_plain(h, x, taps, n)) <= 1e-4
+
+
+@pytest.mark.gpu
 def test_empty_frames_launch_nothing(cuda_device):
     taps = torch.ones(16, device=cuda_device)
     hist = torch.zeros(15, dtype=torch.complex64, device=cuda_device)
@@ -138,6 +185,43 @@ def test_poly_fir_kernel_matches_plain_on_card(cuda_device, D, m, I, nq,
         hist = rng.standard_normal(m * D).astype(np.float32)
         x = rng.standard_normal(nq * D).astype(np.float32)
     h, xx = torch.from_numpy(hist).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    before = ck.launches["poly_fir"]
+    got = ck.poly_fir(h, xx, W, precision)
+    torch.cuda.synchronize()
+    assert ck.launches["poly_fir"] == before + 1
+    assert _rel_err(got, ck.poly_fir_plain(h, xx, W, precision)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("D,m,I,nq,complex_stream", [
+    (4, 32, None, 1, True), (4, 32, None, 511, True), (4, 32, None, 513, True),
+    (125, 2, 24, 1, True), (125, 2, 24, 3, True), (125, 2, 24, 5, True),
+    (125, 2, 24, 8_192, True), (1, 63, None, 1_001, False), (5, 8, None, 777, True),
+    (8, 1, None, 1_000, False), (125, 2, None, 333, False)])
+def test_poly_fir_kernel_plan_edges_on_card(cuda_device, D, m, I, nq, complex_stream,
+                                            precision):
+    """nq = 1 and one tile +- 1 of each tiling (512 rows for "rows", 4 for
+    the resampler's "gemm" at small nq), D = 1, an odd D, m = 1 and a 2-D W
+    with few tap rows (the gemm tiling at I = 1), I = 24 on a complex
+    stream; bf16 W in bf16 mode. The kernel takes the plan's shared memory
+    only where it equals its layout's."""
+    rng = np.random.default_rng(30)
+    shape = (m + 1, D) if I is None else (m + 1, D, I)
+    W = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    if precision == "bf16":
+        W = W.to(torch.bfloat16)
+    if complex_stream:
+        hist, x = _c64(rng, m * D), _c64(rng, nq * D)
+    else:
+        hist = rng.standard_normal(m * D).astype(np.float32)
+        x = rng.standard_normal(nq * D).astype(np.float32)
+    h, xx = torch.from_numpy(hist).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    plan = ck.poly_fir_plan(m, D, I or 1, nq, complex_stream, ck._sm_count(xx.device))
+    y = torch.empty((nq, I) if I else (nq,), dtype=xx.dtype, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck._launch_poly_fir(h, xx, W, y, precision == "bf16",
+                            plan._replace(smem=plan.smem + 4))
     before = ck.launches["poly_fir"]
     got = ck.poly_fir(h, xx, W, precision)
     torch.cuda.synchronize()
