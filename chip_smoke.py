@@ -9,7 +9,8 @@ user calls, at full width:
 2. the kernels' build from ``futuresdr_tpu_torch/csrc`` with ``nvcc``;
 3. each kernel against its plain PyTorch version on the card, at the path's
    shapes and at ragged ones, f32 and bf16, and at the edges of the
-   ``fir_fft`` and ``poly_fir`` tiling plans (``ops/cuda_kernels.py``);
+   ``fir``, ``fir_fft``, ``poly_fir`` and ``pfb`` tiling plans
+   (``ops/cuda_kernels.py``);
 4. the device-resident chain in three routes (overlap-save FIR,
    ``fir_stage(impl="pallas")`` on the ``fir`` kernel, ``fir_fft_stage`` on
    the ``fir_fft`` kernel) at frames 2^18 and 2^20, carry chained over 8
@@ -23,7 +24,7 @@ user calls, at full width:
    in phases 4-6, the FM front end in phases 10-11), its error against the
    plain version, and its time beside the plain version's, a PyTorch library
    call's and its bound; each timing line also shows the call's time in
-   PERF.md before the redesign of ``fir_fft`` and ``poly_fir``;
+   PERF.md before the kernel's latest redesign;
 8. the resident and streamed rate of each route beside the card.
 
 The FM front end (``futuresdr_tpu_torch/apps/fm_receiver.py``: complex64 at
@@ -48,10 +49,11 @@ The PFB channelizer at PFB-64 (``channelizer_stage(64)`` with its default
 768-tap prototype, K = 12 taps a branch), and the spectrum app:
 
 12. the ``pfb`` kernel against its plain version at PFB-64 (t = 4096, f32 and
-    bf16), at ragged t (1 and 37), at N = 5, 24, 1024, 2048 and 4096 (the
-    last two with rows and taps read from device memory, the shared ``v``
-    tile alone) and at K = 1; in bf16 also the kernel run in float32 mode on
-    the same inputs, which must fall below the bf16 limit;
+    bf16), at ragged t (1 and 37), at N = 5, 24, 1000, 1024, 2048 and 4096
+    (from N = 1024 on, the channels staged 512 at a time), at K = 1, and in
+    the plan's "v" layout (rows too wide to stage) forced at N = 2048 and
+    1000; in bf16 also the kernel run in float32 mode on the same inputs,
+    which must fall below the bf16 limit;
 13. the channelizer resident on both routes (``matmul``: windows einsum and
     ``torch.fft.ifft``; ``pallas``: the ``pfb`` kernel) at frames 2^18 and
     2^21, carry chained over 8 frames: the routes agree at >= 80 dB, chained
@@ -67,6 +69,11 @@ The PFB channelizer at PFB-64 (``channelizer_stage(64)`` with its default
     use_tpu=True, collect=True)`` at FFT_SIZE 2048 over 32,768-sample frames:
     the tone's bin, and the spectra against a float64 recomputation.
 
+``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
+streamed phases 5 and 11 N times each, each run under a stall watchdog that
+prints every thread's stack, the pending asyncio tasks and the block inboxes
+and rings before it exits.
+
 Every phase passes or the script exits nonzero. The last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the CUDA toolkit
 (``nvcc``); run from the repository root: ``python3 chip_smoke.py``.
@@ -74,12 +81,14 @@ Every phase passes or the script exits nonzero. The last line is
 
 from __future__ import annotations
 
+import argparse
 import faulthandler
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -177,18 +186,19 @@ REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
             "quad_demod": "futuresdr_tpu/ops/pallas_kernels.py:597",
             "pfb": "futuresdr_tpu/ops/pallas_kernels.py:225"}
 SOURCES = {k: f"futuresdr_tpu_torch/csrc/{k}.cu" for k in REPLACES}
-# Each timed call's time in PERF.md's kernel table before the redesign of
-# fir_fft and poly_fir (NVIDIA H100 80GB HBM3, 700.00 W), in ms, printed
-# beside the time measured now.
+# Each timed call's time in PERF.md's kernel table before the kernel's latest
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W; fir_fft and poly_fir before PR 4,
+# fir and pfb before PR 5: PR 4 run 9), in ms, printed beside the time
+# measured now.
 EARLIER_MS = {
-    ("fir", 1 << 18): 0.0087, ("fir", 1 << 20): 0.0238,
+    ("fir", 1 << 18): 0.0087, ("fir", 1 << 20): 0.0241,
     ("fir_fft", 1 << 18): 0.0174, ("fir_fft", 1 << 20): 0.0517,
     ("rotator", 512_000): 0.0058, ("rotator", 4_096_000): 0.0255,
     ("poly_fir", 512_000): 0.0218, ("poly_fir", 4_096_000): 0.1066,
     ("poly_fir/channel", 512_000): 0.0139, ("poly_fir/resampler", 512_000): 0.0080,
     ("poly_fir/resampler", 4_096_000): 0.0298,
     ("quad_demod", 512_000): 0.0020, ("quad_demod", 4_096_000): 0.0068,
-    ("pfb", 1 << 18): 0.0102, ("pfb", 1 << 21): 0.0390, ("pfb/N=2048", 1 << 18): 0.0473,
+    ("pfb", 1 << 18): 0.0103, ("pfb", 1 << 21): 0.0391, ("pfb/N=2048", 1 << 18): 0.0474,
 }
 SPECTRUM_KERNELS = ("fir", "fir_fft")
 FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
@@ -317,6 +327,11 @@ def kernel_cases(dev):
         cases.append(("fir", f"fir f32 n={frames[0] + 1000} nt=17 {prec or 'f32'}",
                       lambda p=prec: ck.fir(xr, t17, p),
                       lambda p=prec: ck.fir_plain(xr, t17, p)))
+    # a tap set too long for padded spans: the plan takes one unpadded warp a block
+    xl, hl, tl = randc(20_000, gen, dev), randc(17_999, gen, dev), real(18_000)
+    cases.append(("fir", "fir_continue c64 n=20000 nt=18000 f32 (one unpadded warp)",
+                  lambda: ck.fir_continue(hl, xl, tl),
+                  lambda: ck.fir_continue_plain(hl, xl, tl)))
     for nf, ntt, rows, cplx in ((128, 17, 7, True), (1000, 33, 5, True),
                                 (2047, 64, 3, True), (256, 64, 9, False)):
         x = randc(nf * rows, gen, dev) if cplx else real(nf * rows)
@@ -1047,11 +1062,24 @@ def pfb_kernel_cases(dev):
                           _PfbCall(ck.pfb, hist, x, hc.t(), prec),
                           _PfbCall(ck.pfb_plain, hist, x, hc.t(), prec)))
     for t, K, N in ((1, 12, 64), (37, 12, 64), (500, 12, 5), (300, 12, 24),
-                    (64, 12, 1024), (9, 12, 4096), (300, 1, 64)):
+                    (64, 12, 1024), (9, 12, 4096), (7, 12, 1000), (300, 1, 64)):
         w = torch.randn(N, K, generator=gen, device=dev)
         hist, x = randc((K - 1) * N, gen, dev), randc(t * N, gen, dev)
         cases.append(("pfb", f"pfb t={t} K={K} N={N} f32",
                       lambda h=hist, x=x, w=w: ck.pfb(h, x, w.t()),
+                      lambda h=hist, x=x, w=w: ck.pfb_plain(h, x, w.t())))
+    # the "v" layout, which the plan keeps for rows too wide to stage, forced
+    # at N = 2048 (radix 2) and N = 1000 (direct DFT)
+    for N in (2048, 1000):
+        t, K = 5, 12
+        w = torch.randn(N, K, generator=gen, device=dev)
+        hist, x = randc((K - 1) * N, gen, dev), randc(t * N, gen, dev)
+        plan = ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False,
+                          8 * N)
+        cases.append(("pfb", f"pfb t={t} K={K} N={N} f32 (v layout)",
+                      lambda h=hist, x=x, w=w, p=plan, N=N, t=t: ck._launch_pfb(
+                          h, x, w.t(), torch.empty((t, N), dtype=torch.complex64,
+                                                   device=x.device), False, p),
                       lambda h=hist, x=x, w=w: ck.pfb_plain(h, x, w.t())))
     return cases
 
@@ -1368,7 +1396,82 @@ def pfb_timings(dev, n: int, n_ch: int = PFB_N) -> dict:
 WATCHDOG_S = 1100
 
 
-def main() -> int:
+# --stress N: each streamed phase's run that takes longer than this dumps
+# every thread's stack, then (if the interpreter is free) every pending
+# asyncio task's stack and the state of every block inbox and ring, and exits.
+STRESS_STALL_S = 60
+
+
+def _stall_report(what: str) -> None:
+    """Print the pending asyncio tasks, block inboxes and rings, then exit."""
+    import asyncio
+    import gc
+    import os
+
+    from futuresdr_tpu_torch.runtime.block import WrappedKernel
+    from futuresdr_tpu_torch.runtime.buffer.ring import RingWriter
+    from futuresdr_tpu_torch.tpu import TpuKernel
+    err = sys.stderr
+    print(f"chip_smoke: STALL in {what}; state of the live objects:", file=err)
+    warnings.simplefilter("ignore")     # lazy torch attributes warn on isinstance
+    gc.collect()
+    for o in gc.get_objects():
+        if isinstance(o, asyncio.Task) and not o.done():
+            print(f"task {o.get_name()}:", file=err)
+            o.print_stack(file=err)
+        elif isinstance(o, WrappedKernel):
+            ib, k = o.inbox, o.kernel
+            extra = ""
+            if isinstance(k, TpuKernel):
+                extra = (f" staged {len(k._staged)} inflight {len(k._inflight)} "
+                         f"pending_out {k._pending_out is not None} "
+                         f"dispatched {k.frames_dispatched}")
+            print(f"block {o.instance_name}: pending {ib._pending} queued "
+                  f"{list(ib._q)} waiter {ib._waiter is not None} closed "
+                  f"{ib.closed}{extra}", file=err)
+        elif isinstance(o, RingWriter):
+            print(f"ring {o.dtype} cap {o.capacity}: wpos {o._wpos} finished "
+                  f"{o._finished} readers "
+                  f"{[(r.pos, r.detached) for r in o._readers]}", file=err)
+    err.flush()
+    os._exit(4)
+
+
+def stress(dev, runs: int) -> None:
+    """The streamed phases of the spectrum chain and the FM front end, each
+    ``runs`` times after the resident phases (where a stall was once seen),
+    each run under a ``STRESS_STALL_S`` watchdog."""
+    import threading
+
+    from futuresdr_tpu_torch.dsp import firdes
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    phase_resident(dev, taps)
+    phase_fm_resident(dev)
+    phases = (("spectrum streamed", lambda: phase_streamed(dev, taps)),
+              ("fm streamed", lambda: phase_fm_streamed(dev)))
+    t0 = time.perf_counter()
+    for i in range(runs):
+        for name, fn in phases:
+            what = f"{name} run {i + 1}"
+            faulthandler.dump_traceback_later(STRESS_STALL_S, exit=False)
+            timer = threading.Timer(STRESS_STALL_S + 5, _stall_report, args=(what,))
+            timer.daemon = True
+            timer.start()
+            try:
+                fn()
+            finally:
+                timer.cancel()
+                faulthandler.cancel_dump_traceback_later()
+            print(f"stress: {what} passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"stress: {runs} runs of each streamed phase, no stall")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    parser.add_argument("--stress", type=int, default=0, metavar="N",
+                        help="only run the spectrum and FM streamed phases N "
+                             "times each, each run under a stall watchdog")
+    stress_runs = parser.parse_args(argv).stress
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
@@ -1389,6 +1492,9 @@ def main() -> int:
     paths = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(p.name for p in paths)} for sm_90a")
+    if stress_runs:
+        stress(dev, stress_runs)
+        return 0
 
     # 3, 9, 12. kernels against their plain versions
     worst = phase_kernels(dev, kernel_cases(dev) + fm_kernel_cases(dev)

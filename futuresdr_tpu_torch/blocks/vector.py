@@ -100,11 +100,16 @@ class NullSink(Kernel):
         self.n_received = 0
 
     async def work(self, io, mio, meta):
-        n = self.input.available()
-        if n:
+        # the ring's slices stop at its wrap: drain until nothing is left.
+        # EOS and the last items can arrive in one wake; consuming one slice
+        # then left the items past the wrap behind, and with the writer done
+        # no wake came again (the streamed runtime's stall).
+        finished = self.input.finished()
+        while True:
+            n = self.input.available()
+            if not n:
+                break
             self.input.consume(n)
             self.n_received += n
-        if self.count is not None and self.n_received >= self.count:
-            io.finished = True
-        elif self.input.finished() and self.input.available() == 0:
+        if finished or (self.count is not None and self.n_received >= self.count):
             io.finished = True

@@ -3,136 +3,234 @@
 // Replaces the TPU kernel futuresdr_tpu/ops/pallas_kernels.py::_fir_kernel
 // (wrappers pallas_fir / pallas_fir_continue).
 //
-// Bound on an H100: memory. A complex64 stream moves 16 bytes per sample (8 in,
-// 8 out) against 4 * n_taps FLOP per sample, i.e. 256 FLOP at 64 taps: 4 MB and
-// 67 MFLOP per 2^18-sample frame, about 1.25 us at 3.35 TB/s against about 1 us
-// at 67 TFLOP/s FP32.
+// Bound on an H100: memory, with the FP32 FMAs close behind. A complex64
+// stream moves 16 bytes per sample (8 in, 8 out) against 4 * n_taps FLOP per
+// sample, i.e. 256 FLOP at 64 taps: 4 MB and 67 MFLOP per 2^18-sample frame,
+// about 1.25 us at 3.35 TB/s against about 1 us at 67 TFLOP/s FP32.
 //
-// Design: one thread block per tile of kTile outputs. The block stages its tile
-// plus the n_taps - 1 samples before it in shared memory (read once from device
-// memory; the samples before the frame come from the separate `hist` pointer, so
-// a streaming continuation needs no concatenation in device memory) and the taps
-// in shared memory. Each thread accumulates kPerThread outputs in FP32
-// registers. A complex stream is read as float2 and filtered in ONE pass with
-// the real taps; the TPU kernel's two real passes were only its lane layout.
+// Design: the stream is cut into tiles of 256 outputs, one a warp at a time,
+// and each warp runs on its own: it stages its tile's span (plus the
+// n_taps - 1 samples before it, from the separate `hist` pointer or zero
+// before the frame, so a streaming continuation needs no concatenation in
+// device memory) into its own region of shared memory with cp.async, every
+// copy of a lane in flight at once, waits for its own copies only
+// (cp.async.wait_group, __syncwarp), and runs the MAC: each lane computes
+// R = 8 consecutive outputs on a sliding register window over the staged
+// span (fsdr::window_mac, the fir_fft MAC): a step loads one new sample and
+// one tap (a broadcast) for R FMAs (FMA pairs on a complex stream), where the
+// first design loaded one staged sample per FMA. Where a frame has more tiles
+// than 16 warps a SM (2^20 and up), each warp walks several tiles with two
+// span buffers, staging the next while the MAC runs on this one: with one
+// tile a block, every block of a frame loaded, computed and stored in lock
+// step. The block (up to 8 warps, cuda_kernels.fir_plan) shares the taps,
+// staged once behind one barrier. Each span has one pad slot every R
+// samples, so the windows of a warp, R samples apart, fall on distinct banks,
+// and starts at a shift that puts every window's top sample last in its group
+// of R, so the R loads of a chunk of MAC steps sit at constant offsets from
+// one address (no index arithmetic per step).
+// A complex stream is read as float2 and filtered in ONE pass with the real
+// taps; the TPU kernel's two real passes were only its lane layout. Each lane
+// stores its R outputs as 16-byte vectors. Where the padded spans do not fit
+// in shared memory, the plan takes fewer warps a block, one buffer, and at
+// last one unpadded warp, which needs less than the first design's
+// 1,024-output tile.
 //
 // bf16 mode (precision="bf16"): samples and taps are rounded to bf16 when they
 // are staged; products of two bf16 values are exact in FP32 and accumulate in
 // FP32, as the reference's bf16 mode computes them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;
+using fsdr::skew;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int kMaxThreads = 256;
+constexpr int kOuts = 8;                 // consecutive outputs a thread (R)
+
+constexpr int kWarpOuts = 32 * kOuts;    // outputs a warp
+
+// Span index i sits at slot skew(i + span_off(nt), ssh): the shift puts each
+// window's top sample on the last slot of a group of R (fsdr::window_mac's
+// ALIGNED), so a chunk of R MAC steps loads at constant offsets.
+__host__ __device__ inline int span_off(int nt) { return (kOuts - nt % kOuts) % kOuts; }
+
+// the taps (an even number of float slots), then `bufs` skewed spans of
+// kWarpOuts + nt - 1 samples a warp, elt bytes each
+__host__ __device__ inline int span_slots(int nt, int ssh) {
+  return skew(span_off(nt) + kWarpOuts + nt - 2, ssh) + 1;
+}
+__host__ inline size_t smem_bytes(int warps, int bufs, int nt, int ssh, size_t elt) {
+  return 4 * static_cast<size_t>((nt + 1) & ~1) +
+         elt * static_cast<size_t>(bufs) * warps * span_slots(nt, ssh);
 }
 
-template <bool BF16>
-__device__ __forceinline__ float prep(float v) {
-  return BF16 ? bf16_round(v) : v;
+__device__ __forceinline__ float round_if(float v, bool bf16) {
+  return bf16 ? fsdr::bf16_round(v) : v;
+}
+__device__ __forceinline__ float2 round_if(float2 v, bool bf16) {
+  return bf16 ? fsdr::bf16_round(v) : v;
 }
 
-template <bool BF16>
-__device__ __forceinline__ float2 prep(float2 v) {
-  return BF16 ? make_float2(bf16_round(v.x), bf16_round(v.y)) : v;
+// R consecutive outputs from o on: 16-byte stores (o is a multiple of R and y
+// is 16-byte aligned)
+__device__ __forceinline__ void store_run(float* y, const float (&acc)[kOuts]) {
+  float4* d = reinterpret_cast<float4*>(y);
+#pragma unroll
+  for (int i = 0; i < kOuts / 4; ++i) {
+    d[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+__device__ __forceinline__ void store_run(float2* y, const float2 (&acc)[kOuts]) {
+  float4* d = reinterpret_cast<float4*>(y);
+#pragma unroll
+  for (int i = 0; i < kOuts / 2; ++i) {
+    d[i] = make_float4(acc[2 * i].x, acc[2 * i].y, acc[2 * i + 1].x, acc[2 * i + 1].y);
+  }
 }
 
+// One warp's tile (warp tile index w, kWarpOuts outputs from w * kWarpOuts
+// on) into its span buffer `buf`: span index i holds stream sample
+// w * kWarpOuts - (nt - 1) + i, from hist or zero before the frame, zero
+// past it.
 template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ float2 zero<float2>() { return make_float2(0.f, 0.f); }
-
-__device__ __forceinline__ void mac(float& acc, float t, float v) { acc = fmaf(t, v, acc); }
-
-__device__ __forceinline__ void mac(float2& acc, float t, float2 v) {
-  acc.x = fmaf(t, v.x, acc.x);
-  acc.y = fmaf(t, v.y, acc.y);
+__device__ __forceinline__ void stage_tile(T* buf, const T* __restrict__ hist,
+                                           const T* __restrict__ x, long long n, int nt,
+                                           int ssh, long long w, int lane) {
+  const long long g0 = w * kWarpOuts - (nt - 1);
+  const int off = span_off(nt);
+  for (int i = lane; i < kWarpOuts + nt - 1; i += 32) {
+    const long long g = g0 + i;
+    T* d = buf + skew(i + off, ssh);
+    if (g >= 0 && g < n) {
+      fsdr::cp_async(d, x + g);
+    } else if (g < 0 && hist != nullptr) {
+      fsdr::cp_async(d, hist + (nt - 1 + g));          // g in [-(nt-1), -1]
+    } else {
+      *d = fsdr::zero<T>();
+    }
+  }
 }
 
 template <typename T, bool BF16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 fir_kernel(const T* __restrict__ hist, const T* __restrict__ x,
-           const float* __restrict__ taps, T* __restrict__ y,
-           long long n, int nt) {
+           const float* __restrict__ taps, T* __restrict__ y, long long n, int nt,
+           int ssh, int bufs) {
   extern __shared__ float2 smem[];
-  T* s_x = reinterpret_cast<T*>(smem);                 // kTile + nt - 1 samples
-  float* s_taps = reinterpret_cast<float*>(s_x + kTile + nt - 1);
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const int span = kTile + nt - 1;
+  const int lane = threadIdx.x & 31;
+  const int span = kWarpOuts + nt - 1;
+  const int slots = span_slots(nt, ssh);
+  float* s_taps = reinterpret_cast<float*>(smem);
+  T* s_x = reinterpret_cast<T*>(s_taps + ((nt + 1) & ~1)) +
+           bufs * (threadIdx.x >> 5) * slots;           // this warp's span buffers
+  // warp tiles w, w + stride, ... of kWarpOuts outputs each
+  const long long n_tiles = (n + kWarpOuts - 1) / kWarpOuts;
+  const long long stride = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  long long w = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
 
-  for (int i = threadIdx.x; i < nt; i += kThreads) s_taps[i] = prep<BF16>(taps[i]);
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const long long g = base - (nt - 1) + i;            // stream index
-    T v = zero<T>();
-    if (g >= 0) {
-      if (g < n) v = x[g];
-    } else if (hist != nullptr) {
-      v = hist[nt - 1 + g];                             // g in [-(nt-1), -1]
-    }
-    s_x[i] = prep<BF16>(v);
+  // the taps (group 0), then the warp's first tile (group 1)
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) fsdr::cp_async(s_taps + i, taps + i);
+  fsdr::cp_async_commit();
+  if (w < n_tiles) stage_tile(s_x, hist, x, n, nt, ssh, w, lane);
+  fsdr::cp_async_commit();
+  fsdr::cp_async_wait<1>();
+  if (BF16) {
+    for (int i = threadIdx.x; i < nt; i += blockDim.x) s_taps[i] = round_if(s_taps[i], true);
   }
-  __syncthreads();
+  __syncthreads();                                     // the taps, block-wide
 
-  T acc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = zero<T>();
-  // y[base + i] = sum_k taps[k] * s_x[i + nt - 1 - k]
-  for (int k = 0; k < nt; ++k) {
-    const float t = s_taps[k];
-    const int off = nt - 1 - k;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      mac(acc[j], t, s_x[threadIdx.x + j * kThreads + off]);
+  // Each warp on its own (no block-wide barrier): with two buffers the next
+  // tile's copies fly while the MAC runs on this one.
+  for (int it = 0; w < n_tiles; ++it, w += stride) {
+    T* buf = s_x + (bufs == 2 ? (it & 1) * slots : 0);
+    if (bufs == 2) {
+      if (w + stride < n_tiles) {
+        stage_tile(s_x + ((it + 1) & 1) * slots, hist, x, n, nt, ssh, w + stride, lane);
+      }
+      fsdr::cp_async_commit();
+      fsdr::cp_async_wait<1>();                        // this tile's copies
+    } else {
+      if (it > 0) {
+        stage_tile(buf, hist, x, n, nt, ssh, w, lane);
+        fsdr::cp_async_commit();
+      }
+      fsdr::cp_async_wait<0>();
     }
-  }
+    if (BF16) {                                        // what this lane staged
+      for (int i = lane; i < span; i += 32) {
+        T* d = buf + skew(i + span_off(nt), ssh);
+        *d = round_if(*d, true);
+      }
+    }
+    __syncwarp();
+    // y[base + c0 + r] = sum_k taps[k] * span[c0 + r + nt - 1 - k]
+    const int c0 = lane * kOuts;
+    const long long o = w * kWarpOuts + c0;
+    T acc[kOuts];
+    fsdr::window_mac<T, kOuts, true>(buf, s_taps, c0, nt, span, ssh, span_off(nt), acc);
+    if (o + kOuts <= n) {
+      store_run(y + o, acc);
+    } else {
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const long long o = base + threadIdx.x + j * kThreads;
-    if (o < n) y[o] = acc[j];
+      for (int r = 0; r < kOuts; ++r) {
+        if (o + r < n) y[o + r] = acc[r];
+      }
+    }
+    __syncwarp();                                      // before buf is staged again
   }
 }
 
 template <typename T, bool BF16>
 cudaError_t launch(const void* hist, const void* x, const void* taps, void* y,
-                   long long n, int nt, cudaStream_t stream) {
-  const size_t smem = (kTile + nt - 1) * sizeof(T) + nt * sizeof(float);
+                   long long n, int nt, int threads, int blocks, int ssh, int bufs,
+                   size_t smem, cudaStream_t stream) {
   auto kern = fir_kernel<T, BF16>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
-  kern<<<blocks, kThreads, smem, stream>>>(
+  kern<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const T*>(hist), static_cast<const T*>(x),
-      static_cast<const float*>(taps), static_cast<T*>(y), n, nt);
+      static_cast<const float*>(taps), static_cast<T*>(y), n, nt, ssh, bufs);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// hist: nt - 1 samples before x, or null for a zero initial state.
-// Returns cudaGetLastError() after the launch (0 on success).
+// hist: nt - 1 samples before x, or null for a zero initial state; y: n
+// outputs, 16-byte aligned; modes: 1 a complex stream, 2 bf16 mode. The plan
+// (cuda_kernels.fir_plan), four ints: threads per block (whole warps),
+// blocks (each warp walks the tiles of 256 outputs blocks x warps apart), the
+// spans' pad shift, span buffers a warp (2: the next tile staged during the
+// MAC); and its shared memory, which must equal this layout's. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int fsdr_fir(const void* hist, const void* x, const void* taps, void* y,
-                        long long n, int nt, int is_complex, int bf16,
+                        long long n, int nt, int modes, const int* plan, long long smem,
                         void* stream) {
   if (n <= 0) return 0;
+  const int threads = plan[0], blocks = plan[1], ssh = plan[2], bufs = plan[3];
+  const bool is_complex = modes & 1, bf16 = modes & 2;
+  if (nt < 1 || threads < 32 || threads > kMaxThreads || threads % 32 || blocks < 1 ||
+      ssh < 0 || ssh > 31 || (bufs != 1 && bufs != 2) ||
+      reinterpret_cast<uintptr_t>(y) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t want = smem_bytes(threads / 32, bufs, nt, ssh, is_complex ? 8 : 4);
+  if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_complex) {
-    return bf16 ? launch<float2, true>(hist, x, taps, y, n, nt, s)
-                : launch<float2, false>(hist, x, taps, y, n, nt, s);
+    return bf16 ? launch<float2, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                       want, s)
+                : launch<float2, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                        want, s);
   }
-  return bf16 ? launch<float, true>(hist, x, taps, y, n, nt, s)
-              : launch<float, false>(hist, x, taps, y, n, nt, s);
+  return bf16 ? launch<float, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                    want, s)
+              : launch<float, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                     want, s);
 }
-
-// Outputs per thread block; the wrapper sizes the shared-memory request from it.
-extern "C" int fsdr_fir_tile() { return kTile; }

@@ -60,15 +60,17 @@
 // products are exact in FP32 and accumulate in FP32), and the filtered row is
 // rounded to bf16 before the transform, which then runs in FP32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
+using fsdr::bf16_round;
+using fsdr::cp_async;
+using fsdr::cp_async_wait_all;
+using fsdr::skew;
+
 constexpr int kMaxThreads = 512;
 constexpr int kMaxPasses = 16;
-
-__host__ __device__ inline int skew(int i, int sh) { return i + (i >> sh); }
 
 __host__ __device__ inline int buf_b(int n, int psh) { return skew(n - 1, psh) + 1; }
 
@@ -85,27 +87,9 @@ __host__ inline size_t smem_bytes(int n, int nt, int ssh, int psh, int tw_len) {
          4 * static_cast<size_t>(nt);
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 template <bool BF16>
 __device__ __forceinline__ float prep(float v) {
   return BF16 ? bf16_round(v) : v;
-}
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // one span sample into its float2 slot: a complex sample as it is, a real one
@@ -118,116 +102,17 @@ __device__ __forceinline__ void stage_sample(float2* dst, const float* src) {
   dst->y = 0.f;
 }
 
-// cos(2 pi t / 16) for t in [0, 16), as float literals
-__device__ __forceinline__ float cos16(int t) {
-  switch (t & 15) {
-    case 0: return 1.f;
-    case 1: case 15: return 0.92387953251128674f;
-    case 2: case 14: return 0.70710678118654752f;
-    case 3: case 13: return 0.38268343236508977f;
-    case 4: case 12: return 0.f;
-    case 5: case 11: return -0.38268343236508977f;
-    case 6: case 10: return -0.70710678118654752f;
-    case 7: case 9: return -0.92387953251128674f;
-    default: return -1.f;
-  }
-}
-
-// b * exp(-2 pi i t / 16); t is a constant once the butterfly is unrolled
-__device__ __forceinline__ float2 rot16(float2 b, int t) {
-  if (t == 0) return b;
-  if (t == 4) return make_float2(b.y, -b.x);
-  const float c = cos16(t), s = cos16(t - 4);    // sin(x) = cos(x - pi / 2)
-  return make_float2(b.x * c + b.y * s, b.y * c - b.x * s);
-}
-
-__host__ __device__ constexpr int log2c(int r) { return r <= 1 ? 0 : 1 + log2c(r >> 1); }
-
-__host__ __device__ constexpr int brev(int i, int bits) {
-  int r = 0;
-  for (int b = 0; b < bits; ++b) r |= ((i >> b) & 1) << (bits - 1 - b);
-  return r;
-}
-
-// The in-register transform: radix-2 decimation in time over registers that
-// hold the points in bit-reversed order, level LEN combining pairs LEN / 2
-// apart with exp(-2 pi i kk / LEN). Written as templates so that every
-// register index is a constant.
-template <int RX, int LEN, bool DONE = (LEN > RX)>
-struct Dit {
-  static __device__ __forceinline__ void run(float2 (&u)[RX]) {
-#pragma unroll
-    for (int i = 0; i < RX; i += LEN) {
-#pragma unroll
-      for (int kk = 0; kk < LEN / 2; ++kk) {
-        const float2 a = u[i + kk];
-        const float2 b = rot16(u[i + kk + LEN / 2], kk * (16 / LEN));
-        u[i + kk] = make_float2(a.x + b.x, a.y + b.y);
-        u[i + kk + LEN / 2] = make_float2(a.x - b.x, a.y - b.y);
-      }
-    }
-    Dit<RX, LEN * 2>::run(u);
-  }
-};
-template <int RX, int LEN>
-struct Dit<RX, LEN, true> {
-  static __device__ __forceinline__ void run(float2 (&)[RX]) {}
-};
-
-// One Stockham pass of radix RX over n points: butterfly j takes the points
-// j + q * n / RX of the shared buffer at in_off, twiddles them by
-// exp(-2 pi i k q / (Ns RX)) with k = j mod Ns (entry (q - 1) * Ns + k of the
-// pass's table, so neighbouring threads read neighbouring entries), transforms
-// them in registers (Dit: register i holds point q = brev(i), so the loads,
-// not the registers, are permuted; the outputs come out in natural order) and
-// stores them at (j - k) * RX + k + q * Ns: into the shared buffer at out_off,
-// or, in the LAST pass, straight to the row of y.
+// One forward Stockham pass of radix RX over the row (fsdr::stockham_bfly):
+// from the shared buffer at in_off into the one at out_off, or, in the LAST
+// pass, straight to the row of y.
 template <int RX, bool LAST>
 __device__ __forceinline__ void stockham(float2* sm, int in_off, int out_off,
                                          float2* __restrict__ yr, int psh,
                                          const float2* tw, int n, int ns) {
-  constexpr int bits = log2c(RX);
   const int nb = n / RX;
   for (int j = threadIdx.x; j < nb; j += blockDim.x) {
-    const int k = j & (ns - 1);
-    float2 u[RX];
-#pragma unroll
-    for (int i = 0; i < RX; ++i) {
-      const int q = brev(i, bits);
-      float2 v = sm[in_off + skew(j + q * nb, psh)];
-      if (q > 0 && ns > 1) {
-        const float2 w = tw[(q - 1) * ns + k];
-        v = make_float2(v.x * w.x + v.y * w.y, v.y * w.x - v.x * w.y);
-      }
-      u[i] = v;
-    }
-    Dit<RX, 2>::run(u);
-    const int base = (j - k) * RX + k;
-#pragma unroll
-    for (int q = 0; q < RX; ++q) {
-      if (LAST) {
-        yr[base + q * ns] = u[q];
-      } else {
-        sm[out_off + skew(base + q * ns, psh)] = u[q];
-      }
-    }
-  }
-}
-
-// One MAC step k = k0 + kk of a window: load span[top - k] into slot kk and
-// add taps[k] times each of the R samples to the R sums.
-template <int R>
-__device__ __forceinline__ void mac_step(float2 (&win)[R], float2 (&acc)[R],
-                                         const float2* s_a, const float* s_taps, int top,
-                                         int k0, int kk, int ssh) {
-  const int k = k0 + kk;
-  win[kk] = s_a[skew(top - k, ssh)];
-  const float t = s_taps[k];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float2 v = win[(kk - r + R) % R];
-    acc[r].x = fmaf(t, v.x, acc[r].x);
-    acc[r].y = fmaf(t, v.y, acc[r].y);
+    fsdr::stockham_bfly<RX, false, !LAST>(sm + in_off, LAST ? yr : sm + out_off, psh, tw,
+                                          j, nb, ns);
   }
 }
 
@@ -268,31 +153,12 @@ fir_fft_kernel(const T* __restrict__ hist, const T* __restrict__ x,
   const float2* tw = tw_staged_len ? s_tw : tw_g;
   __syncthreads();
 
-  // FIR MAC: v[c0 + r] = sum_k taps[k] * span[c0 + r + nt - 1 - k], k ascending.
-  // At step k the window holds span[c0 + nt - 1 - k + r] for r < R, element g
-  // in slot (nt - 1 - g) mod R relative to c0: each step loads the one new
-  // sample span[c0 + nt - 1 - k] into slot k mod R. Outputs past n (a ragged
-  // last window) are computed from clamped loads and not stored.
+  // FIR MAC on sliding register windows (fsdr::window_mac):
+  // v[c0 + r] = sum_k taps[k] * span[c0 + r + nt - 1 - k]. Outputs past n (a
+  // ragged last window) are computed from clamped loads and not stored.
   for (int c0 = threadIdx.x * R; c0 < n; c0 += nthr * R) {
-    float2 win[R], acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int r = 1; r < R; ++r) {
-      win[(R - r) % R] = s_a[skew(min(c0 + nt - 1 + r, span - 1), ssh)];
-    }
-    // whole chunks of R steps without a guard, so that their loads can be
-    // issued ahead of the FMAs, then the last steps
-    const int top = c0 + nt - 1;
-    int k0 = 0;
-    for (; k0 + R <= nt; k0 += R) {
-#pragma unroll
-      for (int kk = 0; kk < R; ++kk) mac_step<R>(win, acc, s_a, s_taps, top, k0, kk, ssh);
-    }
-#pragma unroll
-    for (int kk = 0; kk < R; ++kk) {
-      if (k0 + kk < nt) mac_step<R>(win, acc, s_a, s_taps, top, k0, kk, ssh);
-    }
+    float2 acc[R];
+    fsdr::window_mac<float2, R, false>(s_a, s_taps, c0, nt, span, ssh, 0, acc);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (c0 + r < n) {

@@ -13,27 +13,44 @@
 // 4.2 MB and 20 MFLOP per 2^18-sample frame, about 1.25 us at 3.35 TB/s against
 // 0.3 us at 67 TFLOP/s FP32.
 //
-// Design: one thread block per tile of `tr` output rows (tr * N ~ 1024 outputs,
-// 4 a thread). The block stages the tile's tr + K - 1 commutated rows in shared
-// memory, reading the flat stream in order (coalesced) and storing each sample
-// at its reversed column, so no reversed or concatenated copy of the stream
-// ever reaches device memory; rows before the frame come from the separate
-// `hist` pointer. The [K, N] taps are staged too, read through two strides, so
-// the stage's [N, K] carry passes as its transposed view without a copy. Where
-// the rows and taps do not fit beside the `v` tile (N >= 2048 at K = 12; the
-// caller passes staged = 0), the MAC reads them from device memory instead,
-// through the same reversed index, and only `v` is staged. One
-// thread per (row, channel) runs the K-tap MAC in FP32 into a shared `v` tile,
-// so the branch bank never reaches device memory. Then the IDFT of each row in
-// shared memory:
-//  * N a power of two: the MAC writes v in bit-reversed order and an iterative
-//    radix-2 decimation-in-time transform runs over log2(N) stages, all rows of
-//    the tile at once;
+// Design ("window" layout; the plan, cuda_kernels.pfb_plan, picks every size):
+// one thread block per tile of `tr` output rows. The block walks the channels
+// in chunks of C (all N at once up to N = 256, 512 at a time above), and for
+// each chunk stages the chunk's columns of the tile's tr + K - 1 commutated
+// rows in shared memory with cp.async, double-buffered where there are
+// several chunks: the next chunk's copies fly while the MAC runs on this one. Each staged sample is read from
+// the flat stream in order and lands at its reversed column, so no reversed
+// or concatenated copy of the stream ever reaches device memory; rows before
+// the frame come from the separate `hist` pointer. The MAC is a sliding
+// register window down the rows: each thread owns one channel for R
+// consecutive output rows, so each staged row sample feeds up to R FMA pairs
+// (R + K - 1 loads for R outputs, where the first design loaded K per
+// output), and at K = 12 (a template constant, so the registers are indexed
+// by constants) the channel's K taps stay in registers; any other K reads them
+// from shared memory, staged with the chunk. The taps are read through two
+// strides, so the stage's [N, K] carry passes as its transposed view. The MAC
+// writes v in natural order into a padded shared buffer (one pad slot every
+// 16 points), so the branch bank never reaches device memory. Then the IDFT of
+// each row:
+//  * N a power of two: Stockham (self-sorting) passes of radix 16 with one
+//    smaller pass first (4 x 16 at N = 64, 8 x 16 x 16 at N = 2048), 16 points
+//    a thread in registers (fsdr::stockham_bfly, inverse), exchanging points
+//    through the padded buffers only between passes; each pass reads its own
+//    slice of a twiddle table staged in shared memory, and the last pass
+//    stores y in natural order, neighbouring threads on neighbouring bins;
 //  * any other N: a direct DFT, each output a sum over its row.
-// Twiddles come from a table the host builds in float64: entry k holds
+// Twiddles come from a table the host builds in float64 (cuda_kernels.
+// _fft_table): for Stockham pass p, entry (q - 1) * Ns + k holds (cos, sin)
+// (2 pi ((k q stride) mod N) / N); for the direct DFT entry k holds
 // (cos, sin)(2 pi k / N), and the phase index (c * c') mod N is reduced in
-// integers before the lookup, the accuracy rule of the TPU kernel's twiddles.
-// The TPU kernel's dense IDFT matmul (8 * N FLOP per sample) is not carried over.
+// integers: the accuracy rule of the TPU kernel's twiddles. The TPU kernel's
+// dense IDFT matmul (8 * N FLOP per sample) is not carried over.
+//
+// Where a row of v does not fit beside the staging buffers (N >= 16,384 as a
+// power of two, any N above about 16,000), the plan takes the first design's
+// "v" layout instead: one row a block, the MAC reading rows and taps from
+// device memory, v alone in shared memory (bit-reversed), an in-place radix-2
+// transform or the direct DFT. Every N up to 29,056 runs.
 //
 // bf16 mode (precision="bf16"): samples and taps are rounded to bf16 when they
 // are staged (their products are exact in FP32 and accumulate in FP32) and v is
@@ -41,95 +58,298 @@
 // kernel also rounds its cos/sin matrices to bf16). Taps may arrive as bf16
 // (the stage's carried taps): they are widened exactly.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using fsdr::skew;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+constexpr int kMaxThreads = 512;
+constexpr int kMaxPasses = 16;
+constexpr int kRegTaps = 12;             // K with its taps in registers
+
+__device__ __forceinline__ float tap_at(const void* taps, int taps_bf16, long long i) {
+  return taps_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(taps)[i])
+                   : static_cast<const float*>(taps)[i];
 }
 
-template <bool BF16>
-__device__ __forceinline__ float prep(float v) {
-  return BF16 ? bf16_round(v) : v;
+__device__ __forceinline__ float round_if(float v, int bf16) {
+  return bf16 ? fsdr::bf16_round(v) : v;
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float2 round_if(float2 v, int bf16) {
+  return bf16 ? fsdr::bf16_round(v) : v;
+}
 
-template <typename TapT, bool BF16, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-pfb_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
-           const TapT* __restrict__ taps, long long tap_sk, long long tap_sn,
-           const float2* __restrict__ tw, float2* __restrict__ y, long long t,
-           int n, int log2n, int k, int tr) {
-  extern __shared__ float2 smem[];
-  // STAGED: rows (tr + k - 1) x n, then v tr x n, then taps k x n (floats);
-  // otherwise v alone
-  float2* s_rows = smem;
-  float2* s_v = STAGED ? s_rows + static_cast<size_t>(tr + k - 1) * n : smem;
-  float* s_taps = reinterpret_cast<float*>(s_v + static_cast<size_t>(tr) * n);
-  const long long s0 = static_cast<long long>(blockIdx.x) * tr;
-  const int nr = static_cast<int>(min(static_cast<long long>(tr), t - s0));
-  const long long hist_len = static_cast<long long>(k - 1) * n;
-  const long long e0 = s0 * n;                             // first ext index of the tile
+// staging buffers: two (double-buffered) where the channels take several
+// chunks, else one
+__host__ inline int stage_bufs(int n, int chunk) { return n > chunk ? 2 : 1; }
 
-  if (STAGED) {
-    for (int i = threadIdx.x; i < k * n; i += kThreads) {
-      const int kk = i / n;
-      const int c = i - kk * n;
-      s_taps[i] = prep<BF16>(widen(taps[kk * tap_sk + c * tap_sn]));
+// float2 slots of the second buffer: the staging buffers of (tr + k - 1) x
+// chunk samples, and a Stockham buffer where the transform makes two passes
+// or more
+__host__ inline long long w_slots(int n, int k, int tr, int chunk, int pitch, int n_pass) {
+  const long long stage = static_cast<long long>(stage_bufs(n, chunk)) * (tr + k - 1) * chunk;
+  const long long fft = n_pass >= 2 ? static_cast<long long>(tr) * pitch : 0;
+  return stage > fft ? stage : fft;
+}
+
+// v rows (tr x pitch), the second buffer, the staged twiddle table, and with
+// the taps out of registers their staging buffers (k x chunk floats each)
+__host__ inline long long window_smem(int n, int k, int tr, int chunk, int pitch,
+                                      int n_pass, int tw_staged_len, int k_regs) {
+  return 8 * (static_cast<long long>(tr) * pitch +
+              w_slots(n, k, tr, chunk, pitch, n_pass) + tw_staged_len) +
+         (k_regs ? 0 : 4LL * stage_bufs(n, chunk) * k * chunk);
+}
+
+// One Stockham pass of radix RX (inverse) over the tile's rows: butterfly b
+// of the pass is butterfly j = b mod nb of row b / nb. The LAST pass stores
+// the rows of y that lie in the frame.
+template <int RX, bool LAST>
+__device__ __forceinline__ void idft_pass(const float2* src, float2* dst, float2* y,
+                                          long long s0, long long t, int tr, int n,
+                                          int pitch, int psh, const float2* tw, int ns) {
+  const int nb = n / RX;
+  const int nb_sh = __ffs(nb) - 1;
+  for (int b = threadIdx.x; b < tr * nb; b += blockDim.x) {
+    const int row = b >> nb_sh;
+    const int j = b & (nb - 1);
+    if (LAST) {
+      if (s0 + row < t) {
+        fsdr::stockham_bfly<RX, true, false>(src + row * pitch, y + (s0 + row) * n, psh,
+                                             tw, j, nb, ns);
+      }
+    } else {
+      fsdr::stockham_bfly<RX, true, true>(src + row * pitch, dst + row * pitch, psh, tw,
+                                          j, nb, ns);
     }
-    const int span = (nr + k - 1) * n;                     // staged samples
-    for (int i = threadIdx.x; i < span; i += kThreads) {
-      const long long e = e0 + i;
-      const float2 v = e < hist_len ? hist[e] : x[e - hist_len];
-      const int r = i / n;
-      const int j = i - r * n;                             // column n - 1 - j
-      s_rows[r * n + (n - 1 - j)] = make_float2(prep<BF16>(v.x), prep<BF16>(v.y));
+  }
+}
+
+template <bool LAST>
+__device__ __forceinline__ void idft_pass_radix(int code, const float2* src, float2* dst,
+                                                float2* y, long long s0, long long t,
+                                                int tr, int n, int pitch, int psh,
+                                                const float2* tw, int ns) {
+  switch (code) {
+    case 0: idft_pass<2, LAST>(src, dst, y, s0, t, tr, n, pitch, psh, tw, ns); break;
+    case 1: idft_pass<4, LAST>(src, dst, y, s0, t, tr, n, pitch, psh, tw, ns); break;
+    case 2: idft_pass<8, LAST>(src, dst, y, s0, t, tr, n, pitch, psh, tw, ns); break;
+    default: idft_pass<16, LAST>(src, dst, y, s0, t, tr, n, pitch, psh, tw, ns); break;
+  }
+}
+
+// The "window" layout. Thread (g, cc) = (tid / chunk, tid mod chunk), g <
+// groups: channel ch * chunk + cc of chunk ch, output rows g * R ... g * R +
+// R - 1 of the tile. KT = K with the taps in registers, 0 with them in shared
+// memory.
+template <int KT, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
+                  const void* __restrict__ taps, long long tap_sk, long long tap_sn,
+                  int taps_bf16, const float2* __restrict__ tw_g, float2* __restrict__ y,
+                  long long t, int n, int k, int chunk, int groups, int n_pass,
+                  unsigned radix_codes, int pitch, int psh, int w_len, int tw_staged_len,
+                  int bf16) {
+  extern __shared__ float2 smem[];
+  const int tr = groups * R;
+  const int span = tr + k - 1;                     // staged rows of a chunk
+  float2* s_v = smem;                              // tr rows of v, pitch apart
+  float2* s_w = s_v + tr * pitch;                  // staging buffers, then a Stockham buffer
+  float2* s_tw = s_w + w_len;
+  float* s_taps = reinterpret_cast<float*>(s_tw + tw_staged_len);   // KT == 0 only
+  const long long s0 = static_cast<long long>(blockIdx.x) * tr;
+  const long long hist_len = static_cast<long long>(k - 1) * n;
+  const long long ext_len = hist_len + t * n;
+  const int g = threadIdx.x / chunk;
+  const int cc = threadIdx.x - g * chunk;
+  const bool active = g < groups;
+  const int n_chunks = (n + chunk - 1) / chunk;
+
+  // Chunk ch into staging buffer ch & 1: rows r of the tile's span (thread
+  // (g, cc) takes r = g, g + groups, ...), the sample of channel c at
+  // ext[(s0 + r) * N + N - 1 - c], zero past the frame; with KT == 0 the
+  // chunk's taps too (plain loads). One cp.async group per chunk.
+  auto stage = [&](int ch) {
+    float2* buf = s_w + (ch & 1) * span * chunk;
+    const int c = ch * chunk + cc;
+    if (active) {
+      for (int r = g; r < span; r += groups) {
+        float2* d = buf + r * chunk + cc;
+        const long long e = (s0 + r) * n + (n - 1 - c);
+        if (c < n && e < ext_len) {
+          fsdr::cp_async(d, e < hist_len ? hist + e : x + (e - hist_len));
+        } else {
+          *d = make_float2(0.f, 0.f);
+        }
+      }
+      if (KT == 0) {
+        float* tb = s_taps + (ch & 1) * k * chunk;
+        for (int kk = g; kk < k; kk += groups) {
+          tb[kk * chunk + cc] =
+              c < n ? round_if(tap_at(taps, taps_bf16, kk * tap_sk + c * tap_sn), bf16) : 0.f;
+        }
+      }
+    }
+    fsdr::cp_async_commit();
+  };
+
+  for (int i = threadIdx.x; i < tw_staged_len; i += blockDim.x) {
+    fsdr::cp_async(s_tw + i, tw_g + i);
+  }
+  stage(0);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c = ch * chunk + cc;
+    // KT > 0: this chunk's taps of the thread's channel into registers, their
+    // loads in flight with the staging where R < 8 (at R = 8 the hoist takes
+    // 82 registers against 64, and four blocks no longer fit on a SM)
+    constexpr bool kHoist = KT > 0 && R < 8;
+    float tp[KT > 0 ? KT : 1];
+    if constexpr (kHoist) {
+      if (active && c < n) {
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          tp[kk] = round_if(tap_at(taps, taps_bf16, kk * tap_sk + c * tap_sn), bf16);
+        }
+      }
+    }
+    if (ch + 1 < n_chunks) {
+      stage(ch + 1);
+      fsdr::cp_async_wait<1>();
+    } else {
+      fsdr::cp_async_wait<0>();
+    }
+    const float2* buf = s_w + (ch & 1) * span * chunk;
+    if (bf16 && active) {                          // what this thread staged
+      for (int r = g; r < span; r += groups) {
+        float2* d = s_w + (ch & 1) * span * chunk + r * chunk + cc;
+        *d = fsdr::bf16_round(*d);
+      }
     }
     __syncthreads();
+    if (active && c < n) {
+      // v[g R + r, c] = sum_kk taps[kk, c] * rows[g R + r + K - 1 - kk, c]: row
+      // g R + jj of the window feeds output r through tap kk = r + K - 1 - jj;
+      // jj descends, so each output sums its taps in ascending kk (the plain
+      // version's order)
+      const float2* col = buf + (g * R) * chunk + cc;
+      float2 acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
+      if constexpr (KT > 0) {
+        if constexpr (!kHoist) {
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk) {
+            tp[kk] = round_if(tap_at(taps, taps_bf16, kk * tap_sk + c * tap_sn), bf16);
+          }
+        }
+#pragma unroll
+        for (int jj = R + KT - 2; jj >= 0; --jj) {
+          const float2 v = col[jj * chunk];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int kk = r + KT - 1 - jj;
+            if (kk >= 0 && kk < KT) fsdr::mac(acc[r], tp[kk], v);
+          }
+        }
+      } else {
+        const float* tb = s_taps + (ch & 1) * k * chunk + cc;
+        for (int jj = R + k - 2; jj >= 0; --jj) {
+          const float2 v = col[jj * chunk];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int kk = r + k - 1 - jj;
+            if (kk >= 0 && kk < k) fsdr::mac(acc[r], tb[kk * chunk], v);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) s_v[(g * R + r) * pitch + skew(c, psh)] = round_if(acc[r], bf16);
+    }
+    __syncthreads();                               // before buffer ch & 1 is staged again
   }
 
-  // branch MAC: v[s, c] = sum_k taps[k, c] * rows[s + k - 1 - kk, c]
-  for (int i = threadIdx.x; i < nr * n; i += kThreads) {
-    const int s = i / n;
-    const int c = i - s * n;
+  const float2* tw = tw_staged_len ? s_tw : tw_g;
+  if (n_pass > 0) {
+    // pass p has radix 2 << ((radix_codes >> 2p) & 3); Ns is the product of
+    // the radices before it; its table holds (radix - 1) * Ns entries
+    float2* src = s_v;
+    float2* dst = s_w;
+    int ns = 1, tw_off = 0;
+    for (int p = 0; p < n_pass; ++p) {
+      const int code = (radix_codes >> (2 * p)) & 3;
+      if (p == n_pass - 1) {
+        idft_pass_radix<true>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
+      } else {
+        idft_pass_radix<false>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
+        __syncthreads();
+        float2* tmp = src;
+        src = dst;
+        dst = tmp;
+      }
+      const int rx = 2 << code;
+      tw_off += (rx - 1) * ns;
+      ns *= rx;
+    }
+  } else {
+    // direct IDFT: y[c'] = sum_c v[c] * exp(+2 pi i ((c * c') mod N) / N)
+    for (int i = threadIdx.x; i < tr * n; i += blockDim.x) {
+      const int row = i / n;
+      const int c2 = i - row * n;
+      if (s0 + row >= t) break;
+      const float2* vr = s_v + row * pitch;
+      float ar = 0.f, ai = 0.f;
+      int idx = 0;
+      for (int c = 0; c < n; ++c) {
+        const float2 w = tw[idx];
+        const float2 v = vr[skew(c, psh)];
+        ar = fmaf(v.x, w.x, fmaf(-v.y, w.y, ar));
+        ai = fmaf(v.x, w.y, fmaf(v.y, w.x, ai));
+        idx += c2;
+        if (idx >= n) idx -= n;
+      }
+      y[(s0 + row) * n + c2] = make_float2(ar, ai);
+    }
+  }
+}
+
+// The "v" layout, for rows of v too wide to stage beside their rows: one row
+// a block, the MAC reading rows and taps from device memory through the
+// reversed index, v alone in shared memory, bit-reversed for an in-place
+// radix-2 transform (log2n >= 0) or in order for the direct DFT.
+__global__ void __launch_bounds__(256)
+pfb_v_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
+             const void* __restrict__ taps, long long tap_sk, long long tap_sn,
+             int taps_bf16, const float2* __restrict__ tw, float2* __restrict__ y, int n,
+             int log2n, int k, int bf16) {
+  extern __shared__ float2 s_v[];
+  const long long hist_len = static_cast<long long>(k - 1) * n;
+  const long long e0 = static_cast<long long>(blockIdx.x) * n;   // row s's first ext index
+
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
     float ar = 0.f, ai = 0.f;
     for (int kk = 0; kk < k; ++kk) {
-      float tp;
-      float2 v;
-      if (STAGED) {
-        tp = s_taps[kk * n + c];
-        v = s_rows[(s + k - 1 - kk) * n + c];
-      } else {
-        tp = prep<BF16>(widen(taps[kk * tap_sk + c * tap_sn]));
-        const long long e = e0 + static_cast<long long>(s + k - 1 - kk) * n + (n - 1 - c);
-        v = e < hist_len ? hist[e] : x[e - hist_len];
-        v = make_float2(prep<BF16>(v.x), prep<BF16>(v.y));
-      }
+      const float tp = round_if(tap_at(taps, taps_bf16, kk * tap_sk + c * tap_sn), bf16);
+      const long long e = e0 + static_cast<long long>(k - 1 - kk) * n + (n - 1 - c);
+      const float2 v = round_if(e < hist_len ? hist[e] : x[e - hist_len], bf16);
       ar = fmaf(tp, v.x, ar);
       ai = fmaf(tp, v.y, ai);
     }
     const int dst = log2n > 0 ? static_cast<int>(__brev(c) >> (32 - log2n)) : c;
-    s_v[s * n + dst] = make_float2(prep<BF16>(ar), prep<BF16>(ai));
+    s_v[dst] = round_if(make_float2(ar, ai), bf16);
   }
   __syncthreads();
 
   if (log2n >= 0) {
-    // radix-2 DIT over bit-reversed rows; inverse twiddle exp(+i theta)
+    // radix-2 DIT over the bit-reversed row; inverse twiddle exp(+i theta)
     const int half_n = n >> 1;
     for (int st = 1; st <= log2n; ++st) {
       const int half = 1 << (st - 1);
       const int shift = log2n - st;                        // twiddle index = pos * N / len
-      for (int b = threadIdx.x; b < nr * half_n; b += kThreads) {
-        const int row = b >> (log2n - 1);
-        const int bb = b & (half_n - 1);
-        const int pos = bb & (half - 1);
-        const int i = row * n + ((bb >> (st - 1)) << st) + pos;
+      for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
+        const int pos = b & (half - 1);
+        const int i = ((b >> (st - 1)) << st) + pos;
         const int j = i + half;
         const float2 w = tw[pos << shift];
         const float2 u = s_v[i];
@@ -141,71 +361,139 @@ pfb_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
       }
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < nr * n; i += kThreads) y[e0 + i] = s_v[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) y[e0 + i] = s_v[i];
   } else {
-    // direct IDFT: y[c'] = sum_c v[c] * exp(+2 pi i ((c * c') mod N) / N)
-    for (int i = threadIdx.x; i < nr * n; i += kThreads) {
-      const int s = i / n;
-      const int c2 = i - s * n;
-      const float2* row = s_v + s * n;
+    for (int c2 = threadIdx.x; c2 < n; c2 += blockDim.x) {
       float ar = 0.f, ai = 0.f;
       int idx = 0;
       for (int c = 0; c < n; ++c) {
         const float2 w = tw[idx];
-        const float2 v = row[c];
+        const float2 v = s_v[c];
         ar = fmaf(v.x, w.x, fmaf(-v.y, w.y, ar));
         ai = fmaf(v.x, w.y, fmaf(v.y, w.x, ai));
         idx += c2;
         if (idx >= n) idx -= n;
       }
-      y[e0 + i] = make_float2(ar, ai);
+      y[e0 + c2] = make_float2(ar, ai);
     }
   }
 }
 
-template <typename TapT, bool BF16>
-cudaError_t launch(const void* hist, const void* x, const void* taps,
-                   long long tap_sk, long long tap_sn, const void* tw, void* y,
-                   long long t, int n, int log2n, int k, int tr, long long smem,
-                   int staged, cudaStream_t stream) {
-  auto kern = staged ? pfb_kernel<TapT, BF16, true> : pfb_kernel<TapT, BF16, false>;
+template <int KT, int R>
+cudaError_t launch_window(const void* hist, const void* x, const void* taps, long long tap_sk,
+                          long long tap_sn, int taps_bf16, const void* tw, void* y,
+                          long long t, int n, int k, int threads, int chunk, int groups,
+                          int n_pass, unsigned codes, int pitch, int psh, int w_len,
+                          int tw_staged_len, int bf16, size_t smem, cudaStream_t stream) {
+  auto kern = pfb_window_kernel<KT, R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const long long blocks = (t + tr - 1) / tr;
-  kern<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const float2*>(hist), static_cast<const float2*>(x),
-      static_cast<const TapT*>(taps), tap_sk, tap_sn, static_cast<const float2*>(tw),
-      static_cast<float2*>(y), t, n, log2n, k, tr);
+  const long long tr = static_cast<long long>(groups) * R;
+  kern<<<static_cast<unsigned>((t + tr - 1) / tr), threads, smem, stream>>>(
+      static_cast<const float2*>(hist), static_cast<const float2*>(x), taps, tap_sk, tap_sn,
+      taps_bf16, static_cast<const float2*>(tw), static_cast<float2*>(y), t, n, k, chunk,
+      groups, n_pass, codes, pitch, psh, w_len, tw_staged_len, bf16);
   return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t dispatch_outs(int outs, const void* hist, const void* x, const void* taps,
+                          long long tap_sk, long long tap_sn, int taps_bf16, const void* tw,
+                          void* y, long long t, int n, int k, int threads, int chunk,
+                          int groups, int n_pass, unsigned codes, int pitch, int psh,
+                          int w_len, int tw_staged_len, int bf16, size_t smem,
+                          cudaStream_t s) {
+  switch (outs) {
+    case 8:
+      return launch_window<KT, 8>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
+                                  threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
+                                  tw_staged_len, bf16, smem, s);
+    case 4:
+      return launch_window<KT, 4>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
+                                  threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
+                                  tw_staged_len, bf16, smem, s);
+    default:
+      return launch_window<KT, 1>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
+                                  threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
+                                  tw_staged_len, bf16, smem, s);
+  }
 }
 
 }  // namespace
 
 // hist: the (k - 1) * n samples before x (unread when k == 1); x: t * n
-// complex64 samples; taps: [k, n] float32 (taps_bf16 == 0) or bfloat16, element
-// (kk, c) at taps + kk * tap_sk + c * tap_sn; tw: n (cos, sin) pairs; y: [t, n]
-// complex64. log2n is log2(n) for a power of two, else -1. tr output rows per
-// block, staged (rows and taps in shared memory, else read from device memory)
-// and smem bytes, (2 * tr + k - 1) * n * 8 + k * n * 4 staged and tr * n * 8
-// not, come from the caller. Returns cudaGetLastError() after the launch.
+// complex64 samples; taps: [k, n] float32 or bfloat16 (modes & 1), element
+// (kk, c) at taps + kk * tap_sk + c * tap_sn; bf16 mode: modes & 2; tw: the
+// plan's twiddle table of (cos, sin) pairs; y: [t, n] complex64. The plan
+// (cuda_kernels.pfb_plan) as ints: window (1) or the v layout (0); the
+// threads per block, the channels staged a step (chunk), the row groups, the
+// rows a thread (outs: 1, 4 or 8), the taps in registers (k_regs = k = 12) or
+// in shared memory (0), the float2 pitch of a v row and its pad shift,
+// whether the table is staged, the table's length, n_pass Stockham passes and
+// their radices (2, 4, 8 or 16; 0 passes: the direct DFT); and its shared
+// memory, which must equal the layout's. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int fsdr_pfb(const void* hist, const void* x, const void* taps,
-                        long long tap_sk, long long tap_sn, int taps_bf16,
-                        const void* tw, void* y, long long t, int n, int log2n,
-                        int k, int tr, long long smem, int staged, int bf16,
-                        void* stream) {
+                        long long tap_sk, long long tap_sn, const void* tw, void* y,
+                        long long t, int n, int k, int modes, const int* plan,
+                        long long smem, void* stream) {
   if (t <= 0) return 0;
+  const int window = plan[0], threads = plan[1], chunk = plan[2], groups = plan[3],
+            outs = plan[4], k_regs = plan[5], pitch = plan[6], psh = plan[7],
+            tw_staged = plan[8], tw_len = plan[9], n_pass = plan[10];
+  const int* radices = plan + 11;
+  const int taps_bf16 = modes & 1, bf16 = (modes >> 1) & 1;
+  if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (taps_bf16) {
-    return bf16 ? launch<__nv_bfloat16, true>(hist, x, taps, tap_sk, tap_sn, tw, y, t,
-                                              n, log2n, k, tr, smem, staged, s)
-                : launch<__nv_bfloat16, false>(hist, x, taps, tap_sk, tap_sn, tw, y, t,
-                                               n, log2n, k, tr, smem, staged, s);
+  const bool pow2 = (n & (n - 1)) == 0;
+  if (!window) {
+    if (tw_len != n || smem != 8LL * n) return static_cast<int>(cudaErrorInvalidValue);
+    const int log2n = pow2 ? fsdr::log2c(n) : -1;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          pfb_v_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    pfb_v_kernel<<<static_cast<unsigned>(t), 256, static_cast<size_t>(smem), s>>>(
+        static_cast<const float2*>(hist), static_cast<const float2*>(x), taps, tap_sk,
+        tap_sn, taps_bf16, static_cast<const float2*>(tw), static_cast<float2*>(y), n, log2n,
+        k, bf16);
+    return cudaGetLastError();
   }
-  return bf16 ? launch<float, true>(hist, x, taps, tap_sk, tap_sn, tw, y, t, n, log2n,
-                                    k, tr, smem, staged, s)
-              : launch<float, false>(hist, x, taps, tap_sk, tap_sn, tw, y, t, n, log2n,
-                                     k, tr, smem, staged, s);
+  if (threads < 1 || threads > kMaxThreads || chunk < 1 || groups < 1 ||
+      chunk * groups > threads || (outs != 1 && outs != 4 && outs != 8) ||
+      (k_regs != 0 && (k_regs != kRegTaps || k != kRegTaps)) || n_pass < 0 ||
+      n_pass > kMaxPasses || psh < 0 || psh > 31 || pitch < skew(n - 1, psh) + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned codes = 0;
+  int prod = 1, want_len = 0;
+  for (int p = 0; p < n_pass; ++p) {
+    const int r = radices[p];
+    const int code = r == 2 ? 0 : r == 4 ? 1 : r == 8 ? 2 : r == 16 ? 3 : -1;
+    if (code < 0) return static_cast<int>(cudaErrorInvalidValue);
+    codes |= static_cast<unsigned>(code) << (2 * p);
+    want_len += (r - 1) * prod;
+    prod *= r;
+  }
+  if (n_pass == 0) want_len = n;
+  if ((n_pass > 0 && prod != n) || tw_len != want_len) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tr = groups * outs;
+  const int staged = tw_staged ? tw_len : 0;
+  const long long want = window_smem(n, k, tr, chunk, pitch, n_pass, staged, k_regs);
+  if (smem != want) return static_cast<int>(cudaErrorInvalidValue);
+  const int w_len = static_cast<int>(w_slots(n, k, tr, chunk, pitch, n_pass));
+  if (k_regs) {
+    return dispatch_outs<kRegTaps>(outs, hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t,
+                                   n, k, threads, chunk, groups, n_pass, codes, pitch, psh,
+                                   w_len, staged, bf16, static_cast<size_t>(want), s);
+  }
+  return dispatch_outs<0>(outs, hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
+                          threads, chunk, groups, n_pass, codes, pitch, psh, w_len, staged,
+                          bf16, static_cast<size_t>(want), s);
 }

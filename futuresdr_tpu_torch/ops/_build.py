@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
 at the repository root, and loads through :mod:`ctypes`. The hash covers the
-source and the flags, so an edited source never loads a stale library. Nothing
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited source
+or header never loads a stale library. Nothing
 builds at import: :func:`load` builds on first use, and :func:`build_all`
 starts one ``nvcc`` per source at once.
 """
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -161,7 +161,6 @@ def fir_plain(x: torch.Tensor, taps: torch.Tensor,
 
 _dft_lock = threading.Lock()
 _dft_cache: Dict[Tuple[int, str], torch.Tensor] = {}
-_tw_cache: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
 def _phases(n_fft: int) -> np.ndarray:
@@ -181,19 +180,6 @@ def _dft_matrix(n_fft: int, device: torch.device) -> torch.Tensor:
             e = torch.from_numpy(np.exp(-1j * ang).astype(np.complex64)).to(device)
             _dft_cache[key] = e
         return e
-
-
-def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
-    """The kernel's twiddle table: ``[N, 2]`` float32 ``(cos, sin)(2π·k/N)``."""
-    key = (n_fft, str(device))
-    with _dft_lock:
-        tw = _tw_cache.get(key)
-        if tw is None:
-            ang = _phases(n_fft)
-            tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-            tw = torch.from_numpy(tab).to(device)
-            _tw_cache[key] = tw
-        return tw
 
 
 def _check_fir_fft(hist, x, taps, n_fft: int) -> int:
@@ -372,24 +358,9 @@ def pfb_plain(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     return torch.view_as_complex(acc.contiguous()) @ _idft_matrix(N, x.device, bf16)
 
 
-_PFB_TILE_OUTPUTS = 1024     # outputs per block of the pfb kernel, 4 a thread
-
-
-def _pfb_tile(n: int, k: int) -> Tuple[int, int, bool]:
-    """``(rows per block, shared memory bytes, staged)`` of the ``pfb``
-    kernel: the commutated rows, the ``v`` tile and the taps in shared memory
-    where they fit (``staged``), else the ``v`` tile alone, the MAC reading
-    rows and taps from device memory."""
-    tr = max(1, _PFB_TILE_OUTPUTS // n)
-    staged = (2 * tr + k - 1) * n * 8 + k * n * 4
-    if staged <= _MAX_SMEM:
-        return tr, staged, True
-    return tr, tr * n * 8, False
-
-
 # ---------------------------------------------------------------------------
-# tiling plans of fir_fft and poly_fir (the kernels take them as arguments;
-# tests/test_torch_kernel_plans.py walks them on the CPU)
+# tiling plans of fir, fir_fft, poly_fir and pfb (the kernels take them as
+# arguments; tests/test_torch_kernel_plans.py walks them on the CPU)
 # ---------------------------------------------------------------------------
 
 _NO_PAD = 31                 # a pad shift that pads nothing below 2^31
@@ -441,24 +412,39 @@ def _fft_table_index(n_fft: int, radices: Tuple[int, ...]) -> np.ndarray:
     return np.concatenate(idx)
 
 
-_fft_tables: Dict[Tuple[int, Tuple[int, ...], torch.device], torch.Tensor] = {}
-
-
+@functools.lru_cache(maxsize=64)
 def _fft_table(n_fft: int, radices: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The ``fir_fft`` kernel's twiddle table, ``[L, 2]`` float32
-    ``(cos, sin)`` of the float64 phases at :func:`_fft_table_index`."""
-    key = (n_fft, radices, device)
-    with _dft_lock:
-        tw = _fft_tables.get(key)
-        if tw is None:
-            ang = _phases(n_fft)[_fft_table_index(n_fft, radices)]
-            tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-            tw = torch.from_numpy(tab).to(device)
-            _fft_tables[key] = tw
-        return tw
+    """The twiddle table of the ``fir_fft`` and ``pfb`` kernels, ``[L, 2]``
+    float32 ``(cos, sin)`` of the float64 phases at :func:`_fft_table_index`
+    (no radices: the ``N`` entries of ``(cos, sin)(2π·k/N)``), built once per
+    card."""
+    ang = _phases(n_fft)[_fft_table_index(n_fft, radices)]
+    tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(tab).to(device)
 
 
 _FFT_RADIX = 16              # Stockham passes of radix 16, one smaller pass first
+
+
+def _stockham_passes(n: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...], int]:
+    """``(radices, spans, strides, tw_len)`` of an ``n``-point transform:
+    for a power of two, Stockham passes of radix 16 with one smaller pass
+    first for the rest of log2(N) (8·16·16 at N = 2048), each pass's Ns (the
+    product of the radices before it) and twiddle index stride N / (Ns·radix),
+    and the table's length (the passes' tables hold (radix − 1)·Ns entries
+    each, N − 1 in all); for any other ``n`` no passes (the direct DFT) and
+    its N-entry table."""
+    if n & (n - 1):
+        return (), (), (), n
+    bits, step = n.bit_length() - 1, _FFT_RADIX.bit_length() - 1
+    rest = bits % step
+    radices = ((1 << rest,) if rest else ()) + (_FFT_RADIX,) * (bits // step)
+    spans, strides, ns = [], [], 1
+    for r in radices:
+        spans.append(ns)
+        strides.append(n // (ns * r))
+        ns *= r
+    return radices, tuple(spans), tuple(strides), n - 1 if radices else n
 
 
 @functools.lru_cache(maxsize=256)
@@ -475,18 +461,7 @@ def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
     kernel's size, so every shape that ran before still runs."""
     threads = min(512, max(32, n_fft // 8))
     outs = 8 if n_fft >= 8 * threads else 4
-    radices: Tuple[int, ...] = ()
-    if n_fft & (n_fft - 1) == 0:
-        bits, step = n_fft.bit_length() - 1, _FFT_RADIX.bit_length() - 1
-        rest = bits % step
-        radices = ((1 << rest,) if rest else ()) + (_FFT_RADIX,) * (bits // step)
-    spans, strides, ns = [], [], 1
-    for r in radices:
-        spans.append(ns)
-        strides.append(n_fft // (ns * r))
-        ns *= r
-    # the passes' tables hold (r − 1)·Ns entries each, N − 1 in all
-    tw_len = n_fft - 1 if radices else n_fft
+    radices, spans, strides, tw_len = _stockham_passes(n_fft)
     layouts = ((outs.bit_length() - 1, 4, True), (outs.bit_length() - 1, 4, False),
                (_NO_PAD, _NO_PAD, False))
     for span_shift, pad_shift, tw_staged in layouts:
@@ -494,7 +469,7 @@ def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
                              tw_len if tw_staged else 0)
         if smem <= _MAX_SMEM:
             break
-    return FirFftPlan(threads, outs, radices, tuple(spans), tuple(strides), tw_len,
+    return FirFftPlan(threads, outs, radices, spans, strides, tw_len,
                       span_shift, pad_shift, tw_staged, smem)
 
 
@@ -592,6 +567,146 @@ def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
         tm = max(1, tm // 2)
 
 
+class FirPlan(NamedTuple):
+    """How ``csrc/fir.cu`` tiles a stream: tiles of 256 outputs, one a warp at
+    a time, each warp staging and filtering its tiles on its own (8 outputs a
+    lane on a sliding window)."""
+    threads: int         # threads per block, whole warps
+    blocks: int          # each warp walks the tiles blocks·warps apart
+    span_shift: int      # each span: one pad slot every 2^span_shift samples
+    bufs: int            # span buffers a warp: 2 stages the next tile during the MAC
+    smem: int            # dynamic shared memory per block, bytes
+
+
+_FIR_OUTS = 8                # consecutive outputs a lane (the kernel's kOuts)
+_FIR_WARP_OUTS = 32 * _FIR_OUTS
+_FIR_WARPS = (8, 4, 2, 1)    # warps a block, largest first
+_FIR_WARPS_PER_SM = 16       # above this many tiles a SM, warps walk several
+
+
+def _fir_span_off(nt: int) -> int:
+    """The slot shift of a ``fir`` span (the kernel's ``span_off``): every
+    window's top sample ``c0 + nt − 1`` lands last in its group of 8."""
+    return (_FIR_OUTS - nt % _FIR_OUTS) % _FIR_OUTS
+
+
+def _fir_smem(warps: int, bufs: int, nt: int, span_shift: int, elt: int) -> int:
+    """Bytes of the kernel's layout: the taps (an even number of floats), then
+    ``bufs`` skewed spans of ``256 + nt − 1`` samples of ``elt`` bytes a
+    warp, span index i at slot ``_skew(i + _fir_span_off(nt))``."""
+    return 4 * (nt + (nt & 1)) + elt * bufs * warps * (
+        _skew(_fir_span_off(nt) + _FIR_WARP_OUTS + nt - 2, span_shift) + 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def fir_plan(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
+    """The ``fir`` kernel's plan for an ``n``-sample call with ``nt`` taps.
+
+    Up to 16 warps a SM each filter one tile of 256 outputs; a longer frame
+    gives each warp several tiles (2 at 2^20) and two span buffers, so the
+    next tile is staged during the MAC. A block holds the most warps (8, 4,
+    2, 1) that still gives ``n_sm`` blocks (4 at 2^18: 256 blocks; 8 at
+    2^20). Where that does not fit in shared memory the warps halve, then a
+    warp keeps one buffer, and at one warp the padding goes: one unpadded
+    warp needs less than the first design's 1,024-output tile, so every tap
+    count that ran before still runs."""
+    elt = 8 if is_complex else 4
+    tiles = -(-n // _FIR_WARP_OUTS)
+    per_warp = -(-tiles // (n_sm * _FIR_WARPS_PER_SM))
+    warps = -(-tiles // per_warp)
+    first = next((i for i, w in enumerate(_FIR_WARPS) if -(-warps // w) >= n_sm),
+                 len(_FIR_WARPS) - 1)
+    pad = _FIR_OUTS.bit_length() - 1
+    layouts = [(w, 2 if per_warp > 1 else 1, pad) for w in _FIR_WARPS[first:]]
+    layouts += [(1, 1, pad), (1, 1, _NO_PAD)]
+    for w, bufs, span_shift in layouts:
+        smem = _fir_smem(w, bufs, nt, span_shift, elt)
+        if smem <= _MAX_SMEM:
+            break
+    return FirPlan(32 * w, -(-warps // w), span_shift, bufs, smem)
+
+
+class PfbPlan(NamedTuple):
+    """How ``csrc/pfb.cu`` runs a bank of ``N`` channels with ``K`` taps a
+    branch over ``t`` rows."""
+    window: bool         # the "window" layout; False: the "v" layout (v alone staged)
+    threads: int
+    chunk: int           # channels staged a step (C)
+    groups: int          # row groups a block (G = threads // C at most)
+    outs: int            # consecutive output rows a thread (R: 1, 4 or 8)
+    rows: int            # output rows a block (G·R)
+    k_regs: int          # K, with the taps in registers; 0: taps in shared memory
+    radices: Tuple[int, ...]     # Stockham passes; empty: direct DFT (N not 2^k)
+    spans: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    tw_len: int          # entries of the twiddle table (_fft_table)
+    pitch: int           # float2 slots between the v rows in shared memory
+    pad_shift: int       # v rows: one pad slot every 2^pad_shift points
+    tw_staged: bool      # twiddle table in shared memory, else read through L2
+    smem: int            # dynamic shared memory per block, bytes
+
+
+_PFB_K_REGS = 12             # the K whose taps the kernel keeps in registers
+_PFB_OUTS = (8, 4, 1)        # rows a thread, largest first
+_PFB_SMALL_N = 256           # up to here a block holds all N channels (256 threads)
+_PFB_CHUNK = 512             # above, 512 threads stage 512 channels a step
+
+
+def _pfb_pitch(n: int, pad_shift: int, radices: Tuple[int, ...]) -> int:
+    """Float2 slots a v row takes: the padded row, grown where the last
+    Stockham pass has nb < 16 butterflies a row until the rows a half-warp
+    spans start nb banks apart (≡ nb mod 16), so its loads are conflict-free."""
+    pitch = _skew(n - 1, pad_shift) + 1
+    nb = n // radices[-1] if radices else 16
+    if nb < 16:
+        pitch += (nb - pitch) % 16
+    return pitch
+
+
+def _pfb_smem(n: int, k: int, rows: int, chunk: int, n_pass: int, pitch: int,
+              tw_staged_len: int, k_regs: int) -> int:
+    """Bytes of the "window" layout: the v rows, a second buffer holding the
+    chunk staging buffers (two where the channels take several chunks, else
+    one) and then (with two passes or more) a Stockham buffer, the staged
+    twiddles, and without ``k_regs`` the taps' chunk buffers."""
+    bufs = 2 if n > chunk else 1
+    w = max(bufs * (rows + k - 1) * chunk, rows * pitch if n_pass >= 2 else 0)
+    return 8 * (rows * pitch + w + tw_staged_len) + (0 if k_regs else 4 * bufs * k * chunk)
+
+
+@functools.lru_cache(maxsize=1024)
+def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
+    """The ``pfb`` kernel's plan for ``t`` rows of ``n`` channels, ``k`` taps
+    a branch.
+
+    "window": up to N = 256 a block of 256 threads holds all channels in
+    256 // N row groups; above, 512 threads walk the channels 512 at a time,
+    one row group. Each thread computes R consecutive rows, R the largest of
+    8, 4, 1 that still gives ``n_sm`` blocks (PFB-64: R = 4 at 2^18, 16 rows
+    a block, 256 blocks; R = 8 at 2^21; PFB-2048 at 2^18: R = 1, 128 blocks).
+    Where the layout does not fit, R shrinks, then the twiddles are read
+    from device memory, then the padding goes; where it still does not fit,
+    the "v" layout (the first design's unstaged mode, v alone in shared
+    memory, N ≤ 29,056) takes the row."""
+    radices, spans, strides, tw_len = _stockham_passes(n)
+    threads = _PFB_SMALL_N if n <= _PFB_SMALL_N else _PFB_CHUNK
+    chunk = min(n, threads)
+    groups = threads // chunk
+    k_regs = k if k == _PFB_K_REGS else 0
+    first = next((i for i, r in enumerate(_PFB_OUTS) if -(-t // (groups * r)) >= n_sm),
+                 len(_PFB_OUTS) - 1)
+    for pad_shift, tw_staged in ((4, True), (4, False), (_NO_PAD, False)):
+        pitch = _pfb_pitch(n, pad_shift, radices)
+        for outs in _PFB_OUTS[first:]:
+            rows = groups * outs
+            smem = _pfb_smem(n, k, rows, chunk, len(radices), pitch,
+                             tw_len if tw_staged else 0, k_regs)
+            if smem <= _MAX_SMEM:
+                return PfbPlan(True, threads, chunk, groups, outs, rows, k_regs, radices,
+                               spans, strides, tw_len, pitch, pad_shift, tw_staged, smem)
+    return PfbPlan(False, 256, n, 1, 1, 1, 0, (), (), (), n, n, _NO_PAD, False, 8 * n)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -602,10 +717,8 @@ def _lib(name: str):
     if not getattr(lib, "_fsdr_typed", False):
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         if name == "fir":
-            lib.fsdr_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp]
+            lib.fsdr_fir.argtypes = [vp, vp, vp, vp, ll, i, i, ctypes.POINTER(i), ll, vp]
             lib.fsdr_fir.restype = i
-            lib.fsdr_fir_tile.argtypes = []
-            lib.fsdr_fir_tile.restype = i
         elif name == "fir_fft":
             lib.fsdr_fir_fft.argtypes = [vp, vp, vp, vp, i, vp, ll, i, i, i, i, i, i, i,
                                          ctypes.POINTER(i), i, i, i, ll, vp]
@@ -618,8 +731,8 @@ def _lib(name: str):
                                           i, i, i, i, ll, vp]
             lib.fsdr_poly_fir.restype = i
         elif name == "pfb":
-            lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, i, vp, vp, ll, i, i, i, i, ll,
-                                     i, i, vp]
+            lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, vp, vp, ll, i, i, i,
+                                     ctypes.POINTER(i), ll, vp]
             lib.fsdr_pfb.restype = i
         else:
             lib.fsdr_quad_demod.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, vp]
@@ -666,21 +779,23 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
-                bf16: bool) -> torch.Tensor:
+                bf16: bool, plan: Optional[FirPlan] = None) -> torch.Tensor:
     _check_cuda(*(t for t in (hist, x, taps) if t is not None))
     nt = int(taps.shape[0])
     if x.shape[0] == 0:
         return torch.empty_like(x)          # nothing to launch
-    lib = _lib("fir")
-    smem = (lib.fsdr_fir_tile() + nt - 1) * x.element_size() + 4 * nt
-    if smem > _MAX_SMEM:
-        raise ValueError(f"fir: {nt} taps need {smem} B of shared memory per "
+    if plan is None:
+        plan = fir_plan(x.shape[0], nt, x.is_complex(), _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"fir: {nt} taps need {plan.smem} B of shared memory per "
                          f"block, over the card's {_MAX_SMEM} B")
+    lib = _lib("fir")
     y = torch.empty_like(x)
     with _card(x):
         err = lib.fsdr_fir(None if hist is None else hist.data_ptr(), x.data_ptr(),
                            taps.data_ptr(), y.data_ptr(), x.shape[0], nt,
-                           int(x.is_complex()), int(bf16), _stream(x))
+                           x.is_complex() | bf16 << 1, _c_ints(plan[:4]), plan.smem,
+                           _stream(x))
     _raise_on(err, "fir")
     launches["fir"] += 1
     return y
@@ -850,22 +965,37 @@ def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     _check_cuda(hist, x)
     if taps.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {taps.device}")
-    tr, smem, staged = _pfb_tile(N, K)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"pfb: N={N} needs {smem} B of shared memory per block for "
-                         f"its v tile, over the card's {_MAX_SMEM} B")
+    plan = pfb_plan(N, K, t, _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"pfb: N={N} needs {plan.smem} B of shared memory per block "
+                         f"for its v row, over the card's {_MAX_SMEM} B")
     y = torch.empty((t, N), dtype=torch.complex64, device=x.device)
     if t == 0:
         return y                            # nothing to launch
-    log2n = N.bit_length() - 1 if N & (N - 1) == 0 else -1
-    tw = _twiddles(N, x.device)
+    return _launch_pfb(hist, x, taps, y, bf16, plan)
+
+
+@functools.lru_cache(maxsize=256)
+def _pfb_consts(plan: PfbPlan, n: int, device: torch.device) -> tuple:
+    """A plan's launch constants, built once: its twiddle table on ``device``
+    and the plan as the kernel's C int array."""
+    tw = _fft_table(n, plan.radices, device)
+    ints = (int(plan.window), plan.threads, plan.chunk, plan.groups, plan.outs, plan.k_regs,
+            plan.pitch, plan.pad_shift, int(plan.tw_staged), plan.tw_len, len(plan.radices),
+            *plan.radices)
+    return tw, _c_ints(ints)
+
+
+def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torch.Tensor,
+                bf16: bool, plan: PfbPlan) -> torch.Tensor:
+    K, N = int(taps.shape[0]), int(taps.shape[1])
+    tw, ints = _pfb_consts(plan, N, x.device)
     lib = _lib("pfb")
     with _card(x):
         err = lib.fsdr_pfb(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
-                           taps.stride(0), taps.stride(1),
-                           int(taps.dtype == torch.bfloat16), tw.data_ptr(),
-                           y.data_ptr(), t, N, log2n, K, tr, smem, int(staged), int(bf16),
-                           _stream(x))
+                           taps.stride(0), taps.stride(1), tw.data_ptr(), y.data_ptr(),
+                           y.shape[0], N, K, (taps.dtype == torch.bfloat16) | bf16 << 1,
+                           ints, plan.smem, _stream(x))
     _raise_on(err, "pfb")
     launches["pfb"] += 1
     return y

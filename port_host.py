@@ -9,8 +9,8 @@ the channel and resampler ``poly_fir`` calls and ``quad_demod`` in the FM
 chain at 512,000; ``pfb`` at PFB-64 on 2^18): 7 batches of 400 calls,
 the card waited for after each batch only, and prints the least and the
 median batch's time per call. Where the package has the
-``fir_fft`` and ``poly_fir`` plan functions, it also times building a plan
-anew, which the wrappers' cache saves.
+``fir_fft``, ``poly_fir``, ``fir`` and ``pfb`` plan functions, it also times
+building a plan anew, which the wrappers' cache saves.
 
     python3 port_host.py [--root DIR]
 
@@ -101,6 +101,8 @@ def main() -> int:
         "fir_fft_plan(2048, 64)": ("fir_fft_plan", (2048, 64)),
         "poly_fir_plan channel": ("poly_fir_plan", (32, 4, 1, 128_000, True, n_sm)),
         "poly_fir_plan resampler": ("poly_fir_plan", (2, 125, 24, 1024, False, n_sm)),
+        "fir_plan(2^18, 64)": ("fir_plan", (1 << 18, 64, True, n_sm)),
+        "pfb_plan(64, 12, 4096)": ("pfb_plan", (64, 12, 4096, n_sm)),
     }
     for label, (name, plan_args) in plans.items():
         fn = getattr(ck, name, None)

@@ -7,6 +7,7 @@ runtime also counts ``NullSource -> Head -> TpuKernel -> NullSink``, applies a
 retune mid-stream and turns a block error into a FlowgraphError.
 """
 
+import asyncio
 import time
 
 import numpy as np
@@ -166,3 +167,36 @@ def test_init_error_behind_a_slow_init_ends_the_flowgraph():
     fg.connect(NullSource(np.complex64), SlowInit(), Boom())
     with pytest.raises(FlowgraphError, match="boom"):
         Runtime().run(fg)
+
+
+@pytest.mark.parametrize("sink", ["null", "vector"])
+def test_sink_drains_past_the_ring_wrap_when_eos_comes_with_the_last_items(sink):
+    """The state of the streamed stall, forced: the writer's last items lie
+    before and past the ring's wrap and its EOS is already in the sink's
+    inbox when the sink wakes. One work call must drain both sides of the
+    wrap and finish: the writer is done and wakes the sink no more."""
+    from futuresdr_tpu_torch.runtime.buffer.ring import RingWriter
+    from futuresdr_tpu_torch.runtime.inbox import BlockInbox
+    from futuresdr_tpu_torch.runtime.work_io import WorkIo
+
+    snk = NullSink(np.float32) if sink == "null" else VectorSink(np.float32)
+    ring = RingWriter(np.float32, 8, BlockInbox())
+    snk.input.reader = ring.add_reader(BlockInbox(), 0)
+    ring.slice()[:6] = np.arange(6)
+    ring.produce(6)
+    snk.input.consume(6)                    # the reader sits 2 items before the wrap
+    for part in (np.arange(6, 8), np.arange(8, 11)):
+        out = ring.slice()                  # the writer's slices stop at the wrap too
+        out[:len(part)] = part
+        ring.produce(len(part))
+    ring.notify_finished()
+    snk.input.set_finished()                # StreamInputDone, taken in the same wake
+    assert len(snk.input.slice()) == 2      # one slice reaches the wrap only
+    io = WorkIo()
+    asyncio.run(snk.work(io, None, snk.meta))
+    assert io.finished
+    assert snk.input.available() == 0
+    if sink == "null":
+        assert snk.n_received == 5
+    else:
+        np.testing.assert_array_equal(snk.items(), np.arange(6, 11, dtype=np.float32))

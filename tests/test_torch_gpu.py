@@ -110,6 +110,63 @@ def test_fir_fft_kernel_takes_every_plan_layout_on_card(cuda_device, variant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["main", "real", "zero state", "bf16", "shrunk",
+                                     "one window", "n_sm 2", "two buffers",
+                                     "two buffers bf16", "one buffer, 3 blocks"])
+def test_fir_kernel_takes_every_plan_layout_on_card(cuda_device, variant):
+    """The wrapper's plan at the main path's call (2^18, 64 taps: 4 warps a
+    block, one tile a warp), a real stream, the zero state, bf16, the one
+    unpadded warp a block that long tap sets fall back to, a frame shorter
+    than one window, a plan for 2 SMs (8 warps a block), and warps walking
+    many tiles with two span buffers (f32, bf16) and with one; the kernel
+    takes the plan's shared memory only where it equals its layout's."""
+    rng = np.random.default_rng(31)
+    n, nt = {"one window": (5, 17)}.get(variant, ((1 << 18) + 3, 64))
+    cplx = variant != "real"
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32)).to(cuda_device)
+    if cplx:
+        hist, x = _c64(rng, nt - 1), _c64(rng, n)
+    else:
+        hist = rng.standard_normal(nt - 1).astype(np.float32)
+        x = rng.standard_normal(n).astype(np.float32)
+    h, xx = torch.from_numpy(hist).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    if variant == "zero state":
+        h = None
+    plan = ck.fir_plan(n, nt, cplx, 2 if variant == "n_sm 2" else 132)
+    if variant == "shrunk":
+        plan = ck.FirPlan(32, 500, ck._NO_PAD, 1, ck._fir_smem(1, 1, nt, ck._NO_PAD, 8))
+    if variant.startswith("two buffers"):
+        plan = ck.FirPlan(128, 50, 3, 2, ck._fir_smem(4, 2, nt, 3, 8))
+    if variant == "one buffer, 3 blocks":
+        plan = ck.FirPlan(128, 3, 3, 1, ck._fir_smem(4, 1, nt, 3, 8))
+    prec = "bf16" if variant.endswith("bf16") else None
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck._launch_fir(h, xx, taps, prec == "bf16", plan._replace(smem=plan.smem + 4))
+    before = ck.launches["fir"]
+    got = ck._launch_fir(h, xx, taps, prec == "bf16", plan)
+    torch.cuda.synchronize()
+    assert ck.launches["fir"] == before + 1
+    ref = ck.fir_plain(xx, taps, prec) if h is None else ck.fir_continue_plain(h, xx, taps,
+                                                                                prec)
+    assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_fir_kernel_long_taps_take_the_shrunk_tile_on_card(cuda_device):
+    """18,000 taps on a complex stream: the padded spans do not fit, the plan
+    falls back to one unpadded warp a block."""
+    rng = np.random.default_rng(32)
+    n, nt = 20_000, 18_000
+    assert ck.fir_plan(n, nt, True).span_shift == ck._NO_PAD
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32)).to(cuda_device)
+    h = torch.from_numpy(_c64(rng, nt - 1)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, n)).to(cuda_device)
+    got = ck.fir_continue(h, x, taps)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ck.fir_continue_plain(h, x, taps)) <= 1e-5
+
+
+@pytest.mark.gpu
 def test_empty_frames_launch_nothing(cuda_device):
     taps = torch.ones(16, device=cuda_device)
     hist = torch.zeros(15, dtype=torch.complex64, device=cuda_device)
@@ -292,3 +349,52 @@ def test_channelizer_auto_takes_the_kernel_on_card(cuda_device, n_channels):
         assert ck.launches["pfb"] == before + len(xs)
         outs[impl] = torch.cat(ys)
     assert torch.equal(outs["auto"], outs["pallas"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["outs 1", "outs 4", "outs 8", "taps in smem",
+                                     "unpadded", "twiddles unstaged", "v pow2", "v direct",
+                                     "PFB-2048 outs 4", "N=1000 chunks"])
+def test_pfb_kernel_takes_every_plan_layout_on_card(cuda_device, variant):
+    """PFB-64 (t = 37) under every rows-a-thread window, the taps read from
+    shared memory at K = 12, the unpadded layout with the twiddles read from
+    device memory, the "v" layout (radix-2 at N = 2048, the direct DFT at
+    N = 1000), PFB-2048 with 4 rows a thread and N = 1000 in two chunks, the
+    last ragged; bf16 taps in bf16 mode on the main shapes. The kernel takes
+    the plan's shared memory only where it equals its layout's."""
+    N, t = {"v pow2": (2048, 5), "PFB-2048 outs 4": (2048, 9), "v direct": (1000, 5),
+            "N=1000 chunks": (1000, 7)}.get(variant, (64, 37))
+    K = 12
+    rng = np.random.default_rng(33)
+    hc = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(cuda_device)
+    hist = torch.from_numpy(_c64(rng, (K - 1) * N)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, t * N)).to(cuda_device)
+    plan = ck.pfb_plan(N, K, 1 << 16)
+    if variant.startswith("v "):
+        plan = ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False,
+                          8 * N)
+    else:
+        outs = {"outs 1": 1, "outs 4": 4, "PFB-2048 outs 4": 4}.get(variant, plan.outs)
+        if variant == "outs 8":
+            outs = 8
+        plan = plan._replace(outs=outs, rows=plan.groups * outs)
+        if variant == "taps in smem":
+            plan = plan._replace(k_regs=0)
+        if variant == "unpadded":
+            plan = plan._replace(pad_shift=ck._NO_PAD, tw_staged=False,
+                                 pitch=ck._pfb_pitch(N, ck._NO_PAD, plan.radices))
+        if variant == "twiddles unstaged":
+            plan = plan._replace(tw_staged=False)
+        plan = plan._replace(smem=ck._pfb_smem(N, K, plan.rows, plan.chunk,
+                                               len(plan.radices), plan.pitch,
+                                               plan.tw_len if plan.tw_staged else 0,
+                                               plan.k_regs))
+    assert plan.smem <= ck._MAX_SMEM
+    y = torch.empty((t, N), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck._launch_pfb(hist, x, hc.t(), y, False, plan._replace(smem=plan.smem + 8))
+    before = ck.launches["pfb"]
+    got = ck._launch_pfb(hist, x, hc.t(), y, False, plan)
+    torch.cuda.synchronize()
+    assert ck.launches["pfb"] == before + 1
+    assert _rel_err(got, ck.pfb_plain(hist, x, hc.t())) <= 1e-5

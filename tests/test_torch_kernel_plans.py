@@ -52,6 +52,8 @@ def _rot16(b, t):
         return b
     if t == 4:
         return torch.complex(b.imag, -b.real)
+    if t == 12:
+        return torch.complex(-b.imag, b.real)
     c, s = float(_COS16[t % 16]), float(_COS16[(t - 4) % 16])
     return torch.complex(b.real * c + b.imag * s, b.imag * c - b.real * s)
 
@@ -60,8 +62,9 @@ def _brev(i, bits):
     return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
 
 
-def _dft_regs(u):
-    """The kernel's in-register DFT: radix-2 DIT over bit-reversed registers."""
+def _dft_regs(u, inverse=False):
+    """The kernel's in-register DFT: radix-2 DIT over bit-reversed registers
+    (``inverse``: the inverse's exp(+2πi·t/16) rotations)."""
     R = len(u)
     bits = R.bit_length() - 1
     v = [u[_brev(i, bits)] for i in range(R)]
@@ -69,7 +72,8 @@ def _dft_regs(u):
     while ln <= R:
         for i in range(0, R, ln):
             for k in range(ln // 2):
-                a, b = v[i + k], _rot16(v[i + k + ln // 2], k * (16 // ln))
+                t = k * (16 // ln)
+                a, b = v[i + k], _rot16(v[i + k + ln // 2], (16 - t) % 16 if inverse else t)
                 v[i + k], v[i + k + ln // 2] = a + b, a - b
         ln *= 2
     return v
@@ -152,7 +156,7 @@ def _fir_fft_twin(hist, x, taps, n, plan, bf16=False):
     filtered = s_b[:, _skew(torch.arange(n), psh)]
     if plan.radices:
         return _fft_twin(filtered, plan, n).reshape(-1)
-    tw = ck._twiddles(n, torch.device("cpu"))
+    tw = ck._fft_table(n, (), torch.device("cpu"))
     c = torch.arange(n)
     idx = (c[:, None] * c[None, :]) % n
     e = torch.complex(tw[idx, 0], -tw[idx, 1])
@@ -469,3 +473,399 @@ def test_poly_fir_plan_takes_every_shape_the_old_kernel_took(I):
                 if _old_poly_fir_smem(m, D, I, elt) <= ck._MAX_SMEM:
                     plan = ck.poly_fir_plan(m, D, I, 10_000, cplx)
                     assert plan.smem <= ck._MAX_SMEM, (m, D, I, cplx, plan)
+
+
+# ---------------------------------------------------------------------------
+# fir
+# ---------------------------------------------------------------------------
+
+def _fir_twin(hist, x, taps, plan, bf16=False):
+    """``csrc/fir.cu`` under ``plan``: per warp of 256 outputs its skewed span
+    (hist or zeros before the stream, zeros past it) in a region of the
+    kernel's size, then each lane's 8-output sliding window over it
+    (``window_mac``); ``hist`` None is the zero state."""
+    n, nt = x.shape[0], taps.shape[0]
+    R, W, ssh = ck._FIR_OUTS, ck._FIR_WARP_OUTS, plan.span_shift
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256 and plan.bufs in (1, 2)
+    elt = 8 if x.is_complex() else 4
+    assert ck._fir_smem(plan.threads // 32, plan.bufs, nt, ssh, elt) == plan.smem
+    # warp v walks the tiles v, v + stride, ...: every tile once
+    stride = plan.blocks * plan.threads // 32
+    tiles = -(-n // W)
+    walked = sorted(v + it * stride for v in range(stride)
+                    for it in range(-(-tiles // stride)) if v + it * stride < tiles)
+    assert walked == list(range(tiles))
+    warps, span = tiles, W + nt - 1
+    g = torch.arange(warps)[:, None] * W - (nt - 1) + torch.arange(span)
+    before = torch.zeros(nt - 1, dtype=x.dtype) if hist is None else hist
+    ext = torch.cat([before, x, torch.zeros(W, dtype=x.dtype)])
+    off = ck._fir_span_off(nt)
+    s_x = torch.zeros(warps, _skew(off + span - 1, ssh) + 1, dtype=x.dtype)
+    s_x[:, _skew(torch.arange(span) + off, ssh)] = _prep(ext[g + nt - 1], bf16)
+    taps = _prep(taps, bf16)
+    c0 = torch.arange(32) * R                   # lane·R
+    win = [None] * R
+    for r in range(1, R):
+        win[(R - r) % R] = s_x[:, _skew(torch.clamp(c0 + nt - 1 + r, max=span - 1) + off,
+                                         ssh)]
+    acc = [torch.zeros(warps, 32, dtype=x.dtype) for _ in range(R)]
+    top = c0 + nt - 1 + off
+    assert bool((top % R == R - 1).all())       # the kernel's ALIGNED window
+    for k in range(nt):
+        kk = k % R
+        # the chunk's loads at constant offsets below one slot
+        at = _skew(top - (k - kk), ssh) - kk
+        assert torch.equal(at, _skew(top - k, ssh))
+        win[kk] = s_x[:, at]
+        for r in range(R):
+            acc[r] = acc[r] + taps[k] * win[(kk - r) % R]
+    y = torch.stack(acc, dim=-1).reshape(-1)     # warp w, lane l, r: w·256 + l·R + r
+    return y[:n]
+
+
+def _fir_case(n, nt, complex_stream, seed, zero_state=False):
+    rng = np.random.default_rng(seed)
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32))
+    if complex_stream:
+        hist, x = torch.from_numpy(_c64(rng, nt - 1)), torch.from_numpy(_c64(rng, n))
+    else:
+        hist = torch.from_numpy(rng.standard_normal(nt - 1).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    return (None if zero_state else hist), x, taps
+
+
+def _fir_plain(hist, x, taps, precision=None):
+    if hist is None:
+        return ck.fir_plain(x, taps, precision)
+    return ck.fir_continue_plain(hist, x, taps, precision)
+
+
+@pytest.mark.parametrize("complex_stream", [True, False])
+@pytest.mark.parametrize("nt", [1, 17, 64])
+@pytest.mark.parametrize("n", [1, 13, 256, 4096 + 777, 40_000])
+def test_fir_plan_matches_plain(n, nt, complex_stream):
+    """One sample, a ragged tail shorter than a window, one whole tile and
+    several ragged ones, under the plan the wrapper takes with n_sm cut to 2
+    (4,873 samples: blocks of 8 warps; 40,000: 157 tiles on 96 warps, two
+    buffers) and with the zero state."""
+    for zero_state in (False, True):
+        hist, x, taps = _fir_case(n, nt, complex_stream, n + nt, zero_state)
+        plan = ck.fir_plan(n, nt, complex_stream, 2)
+        assert plan.bufs == (2 if n == 40_000 else 1)
+        got = _fir_twin(hist, x, taps, plan)
+        assert _rel(got, _fir_plain(hist, x, taps)) <= 1e-6, plan
+
+
+@pytest.mark.parametrize("variant", ["main", "bf16", "real", "shrunk", "shrunk bf16"])
+def test_fir_plan_main_path_and_shrunk_layout_match_plain(variant):
+    """The main path's plan (2^18, 64 taps: blocks of 4 warps, one tile a
+    warp) on a cut frame, bf16 mode, a real stream, and the one unpadded warp
+    a block that a tap set too long for the padded spans falls back to (2
+    blocks, so the warps walk several tiles with one buffer)."""
+    nt, complex_stream = 64, variant != "real"
+    plan = ck.fir_plan(1 << 18, nt, complex_stream)
+    assert (plan.threads, plan.blocks, plan.span_shift, plan.bufs) == (128, 256, 3, 1)
+    assert ck.fir_plan(1 << 20, nt, complex_stream)[:4] == (256, 256, 3, 2)
+    if variant.startswith("shrunk"):
+        plan = ck.FirPlan(32, 2, ck._NO_PAD, 1, ck._fir_smem(1, 1, nt, ck._NO_PAD, 8))
+    prec = "bf16" if variant.endswith("bf16") else None
+    hist, x, taps = _fir_case(3 * plan.threads * ck._FIR_OUTS + 77, nt, complex_stream, 11)
+    got = _fir_twin(hist, x, taps, plan, bf16=prec == "bf16")
+    assert _rel(got, ck.fir_continue_plain(hist, x, taps, prec)) <= 1e-6
+
+
+def test_fir_main_path_layout_is_conflict_free():
+    """At 2^18 with 64 taps the window loads of a warp's lanes, windows 8
+    samples apart in the warp's span, fall on distinct banks at every step
+    (the taps are a broadcast): 16 lanes of a
+    half-warp on 16 8-byte slots for a complex stream, 32 lanes on 32 4-byte
+    banks for a real one."""
+    for complex_stream, lanes in ((True, 16), (False, 32)):
+        plan = ck.fir_plan(1 << 18, 64, complex_stream)
+        R, ssh, off = ck._FIR_OUTS, plan.span_shift, ck._fir_span_off(64)
+        for group in range(0, 32, lanes):
+            c0 = np.arange(group, group + lanes) * R
+            for step in range(64 + R):
+                assert len({_skew(int(c) + step + off, ssh) % lanes for c in c0}) == lanes
+
+
+def _old_fir_smem(nt, elt):
+    return (1024 + nt - 1) * elt + 4 * nt
+
+
+@pytest.mark.parametrize("complex_stream", [True, False])
+def test_fir_plan_takes_every_shape_the_old_kernel_took(complex_stream):
+    elt = 8 if complex_stream else 4
+    for nt in (1, 2, 17, 64, 1000, 10_000, 19_000, 19_300, 28_000, 29_000, 40_000):
+        for n in (1, 1000, 1 << 18, 1 << 22):
+            plan = ck.fir_plan(n, nt, complex_stream)
+            if _old_fir_smem(nt, elt) <= ck._MAX_SMEM:
+                assert plan.smem <= ck._MAX_SMEM, (nt, n, plan)
+            assert plan.threads in (32, 64, 128, 256)
+
+
+# ---------------------------------------------------------------------------
+# pfb
+# ---------------------------------------------------------------------------
+
+def _stockham_rows(src, dst, tr, pitch, psh, tw, n, radix, ns, inverse, y_rows=None):
+    """One pass over the block's ``tr`` rows, ``pitch`` apart in the flat
+    buffers ``src``/``dst`` [blocks, L]: butterfly b is butterfly b mod nb of
+    row b // nb; the last pass (``y_rows`` [blocks, tr, n]) stores unpadded."""
+    nb = n // radix
+    b = torch.arange(tr * nb)
+    row, j = b // nb, b % nb
+    k = j & (ns - 1)
+    u = [src[:, row * pitch + _skew(j + q * nb, psh)] for q in range(radix)]
+    assert tw.shape[0] == (radix - 1) * ns
+    if ns > 1:
+        for q in range(1, radix):
+            idx = (q - 1) * ns + k
+            w = torch.complex(tw[idx, 0], tw[idx, 1] if inverse else -tw[idx, 1])
+            u[q] = u[q] * w
+    v = _dft_regs(u, inverse)
+    base = (j - k) * radix + k
+    for q in range(radix):
+        if y_rows is None:
+            dst[:, row * pitch + _skew(base + q * ns, psh)] = v[q]
+        else:
+            y_rows[:, row, base + q * ns] = v[q]
+
+
+def _pfb_idft_twin(s_v, w_len, plan, n):
+    """The IDFT of the block's v rows (flat [blocks, rows·pitch]), through
+    a second buffer of the kernel's size; returns [blocks, rows, n]."""
+    tr, pitch, psh = plan.rows, plan.pitch, plan.pad_shift
+    tw = ck._fft_table(n, plan.radices, torch.device("cpu"))
+    assert tw.shape[0] == plan.tw_len
+    y = torch.zeros(s_v.shape[0], tr, n, dtype=torch.complex64)
+    if not plan.radices:
+        c = torch.arange(n)
+        idx = (c[:, None] * c[None, :]) % n
+        e = torch.complex(tw[idx, 0], tw[idx, 1])
+        rows = torch.stack([s_v[:, r * pitch + _skew(c, psh)] for r in range(tr)], dim=1)
+        return rows @ e
+    src, other = s_v, torch.zeros(s_v.shape[0], w_len, dtype=torch.complex64)
+    off = 0
+    for p, (r, ns, st) in enumerate(zip(plan.radices, plan.spans, plan.strides)):
+        assert st == n // (ns * r)
+        last = p == len(plan.radices) - 1
+        _stockham_rows(src, other, tr, pitch, psh, tw[off:off + (r - 1) * ns], n, r, ns,
+                       True, y if last else None)
+        off += (r - 1) * ns
+        src, other = other, src
+    assert off == tw.shape[0]
+    return y
+
+
+def _pfb_twin(hist, x, taps, plan, bf16=False):
+    """``csrc/pfb.cu``'s "window" layout: per block and chunk of channels
+    the staged rows (reversed columns, zero past the frame) in a staging
+    buffer of the kernel's size, the register window down the rows (row
+    g·R + jj feeds output r through tap r + K − 1 − jj, jj descending), v
+    into the padded rows, then the inverse passes (or the direct DFT)."""
+    K, N = taps.shape
+    t = x.shape[0] // N
+    tr, C, G, R, pitch, psh = (plan.rows, plan.chunk, plan.groups, plan.outs, plan.pitch,
+                               plan.pad_shift)
+    assert plan.window and tr == G * R and C * G <= plan.threads <= 512
+    assert plan.k_regs in (0, K) and (plan.k_regs == 0 or K == ck._PFB_K_REGS)
+    assert pitch >= _skew(N - 1, psh) + 1
+    tw_staged = plan.tw_len if plan.tw_staged else 0
+    assert ck._pfb_smem(N, K, tr, C, len(plan.radices), pitch, tw_staged,
+                        plan.k_regs) == plan.smem
+    span = tr + K - 1
+    bufs = 2 if N > C else 1
+    w_len = max(bufs * span * C, tr * pitch if len(plan.radices) >= 2 else 0)
+    ext = torch.cat([hist, x])
+    nblk = -(-t // tr)
+    s0 = torch.arange(nblk) * tr
+    w = _prep(taps.to(torch.float32), bf16)
+    s_v = torch.zeros(nblk, tr * pitch, dtype=torch.complex64)
+    s_w = torch.zeros(nblk, w_len, dtype=torch.complex64)
+    for ch in range(-(-N // C)):
+        cc = torch.arange(C)
+        c = ch * C + cc
+        buf = (ch % bufs) * span * C
+        r = torch.arange(span)
+        e = (s0[:, None, None] + r[None, :, None]) * N + (N - 1 - c)[None, None, :]
+        ok = (c < N)[None, None, :] & (e < ext.shape[0])
+        staged = torch.where(ok, ext[torch.where(ok, e, 0)], torch.zeros((), dtype=ext.dtype))
+        s_w[:, buf + (r[:, None] * C + cc[None, :]).reshape(-1)] = \
+            _prep(staged.reshape(nblk, -1), bf16)
+        live = c < N
+        tap = w[:, torch.clamp(c, max=N - 1)]                          # [K, C]
+        for g in range(G):
+            acc = [torch.zeros(nblk, C, dtype=torch.complex64) for _ in range(R)]
+            for jj in range(R + K - 2, -1, -1):
+                v = s_w[:, buf + (g * R + jj) * C + cc]
+                for rr in range(R):
+                    kk = rr + K - 1 - jj
+                    if 0 <= kk < K:
+                        acc[rr] = acc[rr] + tap[kk] * v
+            for rr in range(R):
+                s_v[:, (g * R + rr) * pitch + _skew(c[live], psh)] = _prep(acc[rr][:, live],
+                                                                           bf16)
+    y = _pfb_idft_twin(s_v, w_len, plan, N).reshape(-1, N)
+    return y[:t]
+
+
+def _pfb_case(N, K, t, seed, taps_bf16=False):
+    rng = np.random.default_rng(seed)
+    hc = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32))
+    if taps_bf16:
+        hc = hc.to(torch.bfloat16)                  # the stage carries bf16 taps
+    hist = torch.from_numpy(_c64(rng, (K - 1) * N))
+    x = torch.from_numpy(_c64(rng, t * N))
+    return hist, x, hc.t()                          # the carry's transposed view
+
+
+def _pfb_variant(N, K, t_plan, outs):
+    """``pfb_plan`` at ``t_plan`` rows with R = ``outs`` rows a thread."""
+    plan = ck.pfb_plan(N, K, t_plan)
+    tw_staged = plan.tw_len if plan.tw_staged else 0
+    rows = plan.groups * outs
+    return plan._replace(outs=outs, rows=rows, smem=ck._pfb_smem(
+        N, K, rows, plan.chunk, len(plan.radices), plan.pitch, tw_staged, plan.k_regs))
+
+
+@pytest.mark.parametrize("outs", [1, 4, 8])
+@pytest.mark.parametrize("K", [1, 4, 12])
+@pytest.mark.parametrize("N", [16, 64, 2048])
+def test_pfb_plan_matches_plain(N, K, outs):
+    """Every rows-a-thread window at N = 16 and 64 (one chunk, several row
+    groups) and N = 2048 (four 512-channel chunks, one group), the taps in
+    registers (K = 12) and in shared memory; t ragged against the tile."""
+    t = {16: 37, 64: 37, 2048: 3}[N]
+    hist, x, taps = _pfb_case(N, K, t, N + K + outs)
+    plan = _pfb_variant(N, K, 1 << 16, outs)
+    got = _pfb_twin(hist, x, taps, plan)
+    assert _rel(got, ck.pfb_plain(hist, x, taps)) <= 1e-5, plan
+
+
+@pytest.mark.parametrize("case", ["PFB-64 bf16", "PFB-2048 bf16", "N=24 direct",
+                                  "N=1000 ragged chunk", "PFB-64 2^21", "unpadded"])
+def test_pfb_plan_edges_match_plain(case):
+    """bf16 mode with bf16 taps (held, like the kernel, by the rounding of
+    rows, taps and v against the plain version's; the plain version's bf16
+    IDFT matrix is not the kernel's, so bf16 compares with float32 twiddles),
+    the direct DFT at N = 24 with 10 row groups, a ragged last chunk, the
+    2^21 plan (R = 8) and the unpadded layout without staged twiddles."""
+    N, K, t, t_plan = {"PFB-64 bf16": (64, 12, 37, 4096), "PFB-2048 bf16": (2048, 12, 2, 128),
+                       "N=24 direct": (24, 4, 41, 500), "N=1000 ragged chunk": (1000, 12, 3, 64),
+                       "PFB-64 2^21": (64, 12, 70, 1 << 15),
+                       "unpadded": (64, 12, 37, 4096)}[case]
+    bf16 = case.endswith("bf16")
+    hist, x, taps = _pfb_case(N, K, t, len(case), taps_bf16=bf16)
+    plan = ck.pfb_plan(N, K, t_plan)
+    if case == "unpadded":
+        plan = plan._replace(pad_shift=ck._NO_PAD, pitch=ck._pfb_pitch(64, ck._NO_PAD,
+                                                                       plan.radices),
+                             tw_staged=False)
+        plan = plan._replace(smem=ck._pfb_smem(64, K, plan.rows, plan.chunk, 2, plan.pitch,
+                                               0, plan.k_regs))
+    got = _pfb_twin(hist, x, taps, plan, bf16)
+    if bf16:
+        # the plain version's arithmetic with the kernel's float32 twiddles
+        rows = ck._planes(torch.cat([hist, x])).reshape(t + K - 1, N, 2).flip(1)
+        rows, w = ck._bf16(rows), ck._bf16(taps.to(torch.float32))
+        acc = torch.zeros((t, N, 2))
+        for k in range(K):
+            acc = acc + w[k, :, None] * rows[K - 1 - k:K - 1 - k + t]
+        v = torch.view_as_complex(ck._bf16(acc).contiguous())
+        ref = torch.fft.ifft(v, dim=1) * N
+        assert _rel(got, ref) <= 1e-5
+    else:
+        assert _rel(got, ck.pfb_plain(hist, x, taps)) <= 1e-5, plan
+    assert plan.radices == ck._stockham_passes(N)[0]
+
+
+@pytest.mark.parametrize("n", _POW2)
+def test_inverse_stockham_passes_match_torch_ifft(n):
+    """The pfb kernel's inverse passes over several rows, pitch apart, against
+    ``torch.fft.ifft(·)·N``."""
+    rng = np.random.default_rng(n)
+    plan = _pfb_variant(n, 12, 1 << 12, 4)
+    rows = torch.from_numpy(_c64(rng, plan.rows * n)).reshape(plan.rows, n)
+    s_v = torch.zeros(1, plan.rows * plan.pitch, dtype=torch.complex64)
+    for r in range(plan.rows):
+        s_v[0, r * plan.pitch + _skew(torch.arange(n), plan.pad_shift)] = rows[r]
+    got = _pfb_idft_twin(s_v, plan.rows * plan.pitch, plan, n)[0]
+    assert _rel(got, torch.fft.ifft(rows, dim=1) * n) <= 1e-5
+
+
+def test_pfb_main_path_layouts_are_conflict_free():
+    """PFB-64 at 2^18 and 2^21 and PFB-2048 at 2^18: the staging stores and
+    MAC loads of each half-warp (thread (g, cc) on row slots r·C + cc), its v
+    stores, and every Stockham pass's loads and (but the last) stores put the
+    16 lanes of a half-warp on 16 distinct 8-byte bank slots."""
+    for N, t in ((64, 4096), (64, 32768), (2048, 128)):
+        plan = ck.pfb_plan(N, 12, t)
+        C, G, R, pitch, psh = plan.chunk, plan.groups, plan.outs, plan.pitch, plan.pad_shift
+        assert plan.window and plan.k_regs == 12 and plan.tw_staged
+        for half in range(0, G * C, 16):
+            tid = np.arange(half, half + 16)
+            g, cc = tid // C, tid % C
+            for jj in range(R + 11):
+                assert len({int(s) % 16 for s in (g * R + jj) * C + cc}) == 16
+            for r in range(R):
+                assert len({((gg * R + r) * pitch + _skew(int(c), psh)) % 16
+                            for gg, c in zip(g, cc)}) == 16
+        ns = 1
+        for p, radix in enumerate(plan.radices):
+            nb = N // radix
+            for half in range(0, plan.rows * nb, 16):
+                b = np.arange(half, min(half + 16, plan.rows * nb))
+                row, j = b // nb, b % nb
+                k = j & (ns - 1)
+                base = (j - k) * radix + k
+                for q in range(radix):
+                    loads = {(int(rw) * pitch + _skew(int(jj + q * nb), psh)) % 16
+                             for rw, jj in zip(row, j)}
+                    assert len(loads) == len(b), (N, p, q)
+                    if p < len(plan.radices) - 1:
+                        stores = {(int(rw) * pitch + _skew(int(bs + q * ns), psh)) % 16
+                                  for rw, bs in zip(row, base)}
+                        assert len(stores) == len(b), (N, p, q)
+            ns *= radix
+
+
+def test_pfb_main_path_plans():
+    """PFB-64: 16 rows a block at 2^18 (256 blocks), 32 at 2^21; PFB-2048: one
+    row a block (128 blocks), four 512-channel chunks."""
+    p = ck.pfb_plan(64, 12, 4096)
+    assert (p.threads, p.chunk, p.groups, p.outs, p.radices) == (256, 64, 4, 4, (4, 16))
+    assert ck.pfb_plan(64, 12, 32768).outs == 8
+    p = ck.pfb_plan(2048, 12, 128)
+    assert (p.threads, p.chunk, p.groups, p.outs, p.radices) == (512, 512, 1, 1, (8, 16, 16))
+    assert ck.pfb_plan(64, 12, 4096) is ck.pfb_plan(64, 12, 4096)
+    assert ck.fir_plan(1 << 18, 64, True) is ck.fir_plan(1 << 18, 64, True)
+
+
+def _old_pfb_smem(n, k):
+    tr = max(1, 1024 // n)
+    staged = (2 * tr + k - 1) * n * 8 + k * n * 4
+    return staged if staged <= ck._MAX_SMEM else tr * n * 8
+
+
+@pytest.mark.parametrize("K", [1, 4, 12, 64, 300])
+def test_pfb_plan_takes_every_shape_the_old_kernel_took(K):
+    for n in _POW2 + [1, 5, 24, 100, 1000, 3000, 12000, 16383, 20000, 29056, 29057]:
+        plan = ck.pfb_plan(n, K, 1000)
+        if _old_pfb_smem(n, K) <= ck._MAX_SMEM:
+            assert plan.smem <= ck._MAX_SMEM, (n, K, plan)
+        if not plan.window:
+            assert plan.smem == 8 * n and plan.tw_len == n
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A header edit names a new library, so a stale one is never loaded."""
+    from futuresdr_tpu_torch.ops import _build
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(tmp_path / "common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
