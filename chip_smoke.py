@@ -24,7 +24,9 @@ user calls, at full width:
    in phases 4-6, the FM front end in phases 10-11), its error against the
    plain version, and its time beside the plain version's, a PyTorch library
    call's and its bound; each timing line also shows the call's time in
-   PERF.md before the kernel's latest redesign;
+   PERF.md before the kernel's latest redesign, and for ``rotator`` and
+   ``quad_demod`` two yardsticks: a kernel with no body on the same grid and
+   a PyTorch copy of the same bytes;
 8. the resident and streamed rate of each route beside the card.
 
 The FM front end (``futuresdr_tpu_torch/apps/fm_receiver.py``: complex64 at
@@ -35,7 +37,10 @@ the kernel chain (``rotator_stage``, ``fir_stage(decim=4)``,
 ``quad_demod_stage``, ``resample_stage``, each pinned to ``impl="pallas"``):
 
 9. the ``rotator``, ``poly_fir`` and ``quad_demod`` kernels against their
-   plain versions at the FM shapes, ragged ones, large phases and bf16;
+   plain versions at the FM shapes, ragged ones, large phases and bf16; the
+   views ``x[1:]`` (a head sample before the first 16-byte word) and
+   ``x[:-1]``, 1-3 samples and one block's tile +- 1; the rotator's
+   next phase equal to ``torch.remainder`` bit for bit, also beside +-π;
 10. both chains resident at frames 512,000 and 4,096,000, carry chained over
     8 frames: the kernel chain matches the same chain on plain PyTorch ops,
     chained frames match one long frame, and the app chain matches the
@@ -43,7 +48,9 @@ the kernel chain (``rotator_stage``, ``fir_stage(decim=4)``,
 11. streamed: ``NullSource -> Head -> TpuKernel -> NullSink`` with 4 frames in
     flight per chain, ``build_flowgraph(VectorSource(fm), use_tpu=True,
     audio_path=…)`` with the WAV's tone at 1 kHz, and a mid-stream
-    ``apply_retune("tuner", phase_inc=…)`` on both chains.
+    ``apply_retune("tuner", phase_inc=…)`` on both chains; then the kernels
+    one resident frame of the kernel chain launches, by ``torch.profiler``,
+    and of its ``rotator_stage`` alone, which must be one.
 
 The PFB channelizer at PFB-64 (``channelizer_stage(64)`` with its default
 768-tap prototype, K = 12 taps a branch), and the spectrum app:
@@ -82,6 +89,7 @@ Every phase passes or the script exits nonzero. The last line is
 from __future__ import annotations
 
 import argparse
+import ctypes
 import faulthandler
 import json
 import statistics
@@ -187,13 +195,12 @@ REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
             "pfb": "futuresdr_tpu/ops/pallas_kernels.py:225"}
 SOURCES = {k: f"futuresdr_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 # Each timed call's time in PERF.md's kernel table before the kernel's latest
-# redesign (NVIDIA H100 80GB HBM3, 700.00 W; fir_fft and poly_fir before PR 4,
-# fir and pfb before PR 5: PR 4 run 9), in ms, printed beside the time
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W), in ms, printed beside the time
 # measured now.
 EARLIER_MS = {
     ("fir", 1 << 18): 0.0087, ("fir", 1 << 20): 0.0241,
     ("fir_fft", 1 << 18): 0.0174, ("fir_fft", 1 << 20): 0.0517,
-    ("rotator", 512_000): 0.0058, ("rotator", 4_096_000): 0.0255,
+    ("rotator", 512_000): 0.0058, ("rotator", 4_096_000): 0.0254,
     ("poly_fir", 512_000): 0.0218, ("poly_fir", 4_096_000): 0.1066,
     ("poly_fir/channel", 512_000): 0.0139, ("poly_fir/resampler", 512_000): 0.0080,
     ("poly_fir/resampler", 4_096_000): 0.0298,
@@ -203,6 +210,19 @@ EARLIER_MS = {
 SPECTRUM_KERNELS = ("fir", "fir_fft")
 FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
 PFB_KERNELS = ("pfb",)
+
+
+# A kernel with no body, launched on a given grid: the cost of a launch alone,
+# a yardstick for the FM kernels' timings. Built here beside the port's
+# kernels; no library of the port holds it.
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int fsdr_empty(unsigned blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+"""
 
 
 class SmokeError(RuntimeError):
@@ -379,6 +399,11 @@ def phase_kernels(dev, cases) -> dict:
         if name == "quad_demod":
             (got, last), (ref, ref_last) = got, ref
             check(last.item() == ref_last.item(), f"{label}: carry sample differs")
+        if name == "rotator":
+            (got, ph_next), (ref, ref_next) = got, ref
+            check(ph_next.shape == ref_next.shape and ph_next.item() == ref_next.item(),
+                  f"{label}: next phase {ph_next.item()!r}, torch.remainder gives "
+                  f"{ref_next.item()!r}")
         check(got.shape == ref.shape and got.dtype == ref.dtype,
               f"{label}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
               f"{tuple(ref.shape)} {ref.dtype}")
@@ -673,15 +698,38 @@ def fm_kernel_cases(dev):
     cases = []
     ph0 = torch.tensor(1.25, dtype=torch.float32, device=dev)
     inc = torch.tensor(FM_THETA, dtype=torch.float32, device=dev)
-    for n in FM_FRAMES + (FM_FRAMES[0] + 333,):
-        x = randc(n, gen, dev)          # |ph| reaches 0.63·n rad
-        cases.append(("rotator", f"rotator c64 n={n} |ph|<={abs(FM_THETA) * n:.3g}",
+    # the FM frames, a ragged one, the views x[1:] (a head sample before the
+    # first 16-byte word) and x[:-1], and the blocks' edges: 1-3 samples and
+    # one tile +- 1 after a head
+    rot_tile = ck.ROTATOR_TILE
+    rot_x = [(f"n={n}", randc(n, gen, dev)) for n in FM_FRAMES + (FM_FRAMES[0] + 333,)]
+    rot_x += [(f"n={n} x[1:]", randc(n + 1, gen, dev)[1:]) for n in FM_FRAMES]
+    rot_x += [(f"n={n} x[:-1]", randc(n + 1, gen, dev)[:-1]) for n in (FM_FRAMES[0],)]
+    rot_x += [(f"n={n} x[1:]", randc(n + 1, gen, dev)[1:])
+              for n in (1, 2, 3, rot_tile, rot_tile + 1, rot_tile + 2)]
+    rot_x += [(f"n={n}", randc(n, gen, dev)) for n in (1, 2, 3, rot_tile - 1, rot_tile + 1)]
+    for label, x in rot_x:              # |ph| reaches 0.63·n rad
+        n = x.shape[0]
+        cases.append(("rotator", f"rotator c64 {label} |ph|<={abs(FM_THETA) * n:.3g}",
                       lambda x=x: ck.rotator(x, ph0, inc),
                       lambda x=x: ck.rotator_plain(x, ph0, inc)))
+    # the carry beside +-pi, where the remainder's sign flips
+    for p0 in (np.float32(np.pi) - 1e-6, np.float32(-np.pi) + 1e-6):
+        p0t = torch.tensor(p0, dtype=torch.float32, device=dev)
+        for label, x in [rot_x[0], next(c for c in rot_x if c[0] == "n=1")]:
+            cases.append(("rotator", f"rotator c64 {label} ph0={p0:.7f}",
+                          lambda x=x, p=p0t: ck.rotator(x, p, inc),
+                          lambda x=x, p=p0t: ck.rotator_plain(x, p, inc)))
     prev = randc(1, gen, dev).reshape(())
-    for n in (FM_FRAMES[0] // 4, FM_FRAMES[1] // 4, FM_FRAMES[0] // 4 + 77):
-        x = randc(n, gen, dev)
-        cases.append(("quad_demod", f"quad_demod c64 n={n}",
+    n4 = FM_FRAMES[0] // 4
+    dem_tile = ck.QUAD_DEMOD_TILE
+    dem_x = [(f"n={n}", randc(n, gen, dev))
+             for n in (n4, FM_FRAMES[1] // 4, n4 + 77, 1, 2, 3, dem_tile - 1, dem_tile + 1)]
+    dem_x += [(f"n={n} x[1:]", randc(n + 1, gen, dev)[1:])
+              for n in (n4, FM_FRAMES[1] // 4, 1, 2, 3, dem_tile, dem_tile + 1, dem_tile + 2)]
+    dem_x += [(f"n={n4} x[:-1]", randc(n4 + 1, gen, dev)[:-1])]
+    for label, x in dem_x:
+        cases.append(("quad_demod", f"quad_demod c64 {label}",
                       lambda x=x: ck.quad_demod(prev, x, FM_GAIN),
                       lambda x=x: ck.quad_demod_plain(prev, x, FM_GAIN)))
     # channel filter: D = 4, m = 32, complex; resampler: D = 125, I = 24, m = 2
@@ -913,6 +961,47 @@ def phase_fm_retune(dev) -> None:
         check(err <= CHAIN_TOL, f"fm retune {chain}: differs by {err:.3e}")
 
 
+def kernels_a_frame(stages, frames, dev) -> list:
+    """The kernels one resident frame launches on the card, by
+    ``torch.profiler``: ``Pipeline(stages).fn`` over ``frames[:-1]`` to warm
+    up, then the last frame profiled (copies and memsets not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    pipe = Pipeline(stages, np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    for x in frames[:-1]:
+        carry, _ = fn(carry, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(carry, frames[-1])
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def phase_fm_kernel_count(dev) -> None:
+    """Kernels a frame of the FM kernel chain and of its rotator stage alone
+    (``torch.profiler`` over one 512,000-sample frame): the stage launches
+    one kernel a frame, which also writes the next phase."""
+    from futuresdr_tpu_torch.ops.stages import rotator_stage
+    frames = list(fm_iq(3 * FM_FRAMES[0], dev).split(FM_FRAMES[0]))
+    counts = {}
+    for label, stages in (("kernel chain", fm_stages("kernel")),
+                          ("rotator stage", [rotator_stage(FM_THETA, name="tuner",
+                                                           impl="pallas")])):
+        names = kernels_a_frame(stages, frames, dev)
+        counts[label] = len(names)
+        short = [n.replace("void ", "").replace("(anonymous namespace)::", "")
+                 .split("<")[0].split("(")[0] for n in names]
+        print(f"profile fm {label} frame={FM_FRAMES[0]}: {len(names)} kernels a frame "
+              f"({', '.join(short)})")
+    check(counts["rotator stage"] == 1, f"rotator_stage(impl='pallas') launches "
+                                        f"{counts['rotator stage']} kernels a frame, not 1")
+
+
 def phase_fm_wav(dev, wav_path) -> float:
     """The app as a user builds it: ``build_flowgraph(VectorSource(iq),
     use_tpu=True, audio_path=…)``; returns the WAV's spectral peak in Hz."""
@@ -942,7 +1031,29 @@ def phase_fm_wav(dev, wav_path) -> float:
     return peak
 
 
-def fm_kernel_timings(dev, f: int) -> dict:
+def start_empty_kernel(build_dir):
+    """Start ``nvcc`` on ``EMPTY_CU`` into ``build_dir``, with the port's
+    flags; returns a function that waits for it and gives the loaded
+    library."""
+    from futuresdr_tpu_torch.ops import _build
+    build_dir.mkdir(parents=True, exist_ok=True)
+    src = build_dir / "empty_launch.cu"
+    so = build_dir / "libempty_launch.so"
+    src.write_text(EMPTY_CU)
+    proc = subprocess.Popen([_build._nvcc(), *_build.FLAGS, "-o", str(so), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for the empty kernel:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.fsdr_empty.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        lib.fsdr_empty.restype = ctypes.c_int
+        return lib
+    return finish
+
+
+def fm_kernel_timings(dev, f: int, empty_lib) -> dict:
     """Kernel, plain and library device time and the bound of each FM kernel
     on the kernel chain's calls at input frame ``f``: the rotator on ``f``
     samples, the channel ``poly_fir`` on ``f`` (D = 4, m = 32, complex64),
@@ -975,6 +1086,22 @@ def fm_kernel_timings(dev, f: int) -> dict:
                  .permute(2, 1, 0).contiguous(),) for h, x in chan_args]
     res_lib = [(torch.cat([h, x]).reshape(-1, 125).t().unsqueeze(0).contiguous(),)
                for h, x in res_args]
+    # yardsticks, timed here only and never called by the port: a kernel with
+    # no body on the kernel's grid (256 threads a block, one block a tile),
+    # and a PyTorch copy of the kernel's bytes (the complex frame; the demod's
+    # real plane into float32)
+    def empty(tile, n):
+        def launch(*args):
+            ck._raise_on(empty_lib.fsdr_empty(-(-n // tile), 256, ck._stream(args[-1])),
+                         "empty")
+        return launch
+
+    yard = {
+        "rotator": (empty(ck.ROTATOR_TILE, f), lambda x, y: y.copy_(x),
+                    [(x, torch.empty_like(x)) for x, in rot_args]),
+        "quad_demod": (empty(ck.QUAD_DEMOD_TILE, n4), lambda x, y: y.copy_(x.real),
+                       [(x, torch.empty(n4, device=dev)) for _, x in dem_args]),
+    }
     plan = {
         "rotator": (lambda x: ck.rotator(x, ph0, inc),
                     lambda x: ck.rotator_plain(x, ph0, inc), None, rot_args, None,
@@ -998,6 +1125,8 @@ def fm_kernel_timings(dev, f: int) -> dict:
         got, ref = kern(*args[0]), plain(*args[0])
         if name == "quad_demod":
             err = demod_err(got[0], ref[0])
+        elif name == "rotator":
+            err, _ = rel_err(got[0], ref[0])
         else:
             err, _ = rel_err(got, ref)
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
@@ -1007,6 +1136,10 @@ def fm_kernel_timings(dev, f: int) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": err}
+        if name in yard:
+            empty, copy, copy_args = yard[name]
+            out[name].update(empty_ms=device_ms(empty, args),
+                             copy_ms=device_ms(copy, copy_args))
     ch, rs = out.pop("poly_fir/channel"), out.pop("poly_fir/resampler")
     out["poly_fir"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "library_ms",
                                                    "bound_ms")}
@@ -1489,7 +1622,9 @@ def main(argv=None) -> int:
 
     # 2. build every kernel from the checkout's sources, nvcc runs in parallel
     t0 = time.perf_counter()
+    empty_done = start_empty_kernel(_build.BUILD_DIR)
     paths = _build.build_all()
+    empty_lib = empty_done()
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(p.name for p in paths)} for sm_90a")
     if stress_runs:
@@ -1525,6 +1660,7 @@ def main(argv=None) -> int:
     fm_resident = path_phase("fm_resident", FM_KERNELS, phase_fm_resident, dev)
     fm_streamed = path_phase("fm_streamed", FM_KERNELS, phase_fm_streamed, dev)
     path_phase("fm_retune", FM_KERNELS, phase_fm_retune, dev)
+    phase_fm_kernel_count(dev)
     # the app as shipped reaches none of the kernels (xlating FIR on
     # matmuls, demod and resampler on their default routes)
     wav = _build.BUILD_DIR.parent / "fm_smoke.wav"
@@ -1541,7 +1677,7 @@ def main(argv=None) -> int:
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
     timings = {f: kernel_timings(dev, f, taps) for f in FRAMES}
-    fm_timings = {f: fm_kernel_timings(dev, f) for f in FM_FRAMES}
+    fm_timings = {f: fm_kernel_timings(dev, f, empty_lib) for f in FM_FRAMES}
     pfb_t = {f: {"pfb": pfb_timings(dev, f)} for f in PFB_FRAMES}
     pfb_wide = {PFB_FRAMES[0]: {f"pfb/N={PFB_WIDE_N}": pfb_timings(dev, PFB_FRAMES[0],
                                                                  PFB_WIDE_N)}}
@@ -1555,9 +1691,11 @@ def main(argv=None) -> int:
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         before = EARLIER_MS.get((k, f))
         before = "" if before is None else f" (PERF.md before: {before:.4f} ms)"
+        yard = "" if "copy_ms" not in v else (
+            f", empty launch {v['empty_ms']:.4f} ms, copy of its bytes {v['copy_ms']:.4f} ms")
         print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms{before}, plain "
               f"{v['plain_ms']:.4f} ms, library {lib}, bound {v['bound_ms']:.4f} ms "
-              f"({v['bound_by']}) [{card_line}]")
+              f"({v['bound_by']}){yard} [{card_line}]")
     line = {"kernels": []}
     first = {**timings[FRAMES[0]], **fm_timings[FM_FRAMES[0]], **pfb_t[PFB_FRAMES[0]]}
     for k in SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS:
@@ -1568,7 +1706,8 @@ def main(argv=None) -> int:
             "launches_by_phase": {p: c[k] for p, c in by_phase.items() if k in c},
             "max_abs_err": max(worst[k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{y: t[y] for y in ("empty_ms", "copy_ms") if y in t}})
     print(json.dumps(line))
 
     # 8. rates beside the card

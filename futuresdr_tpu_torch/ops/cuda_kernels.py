@@ -19,7 +19,9 @@ Kernels (sources under ``csrc/``, built by :mod:`._build`):
 * ``fir_fft`` (``csrc/fir_fft.cu``) replaces ``_fir_fft_kernel``: the FIR
   fused with the forward FFT of each ``n_fft``-sample row.
 * ``rotator`` (``csrc/rotator.cu``) replaces ``_rotator_kernel``: the phase
-  ramp ``x[t]·exp(i·(ph0 + inc·t))``, ``ph0``/``inc`` read on the device.
+  ramp ``x[t]·exp(i·(ph0 + inc·t))``, ``ph0``/``inc`` read on the device,
+  and the stage's next phase ``remainder(ph0 + inc·n, 2π)`` written by the
+  kernel.
 * ``poly_fir`` (``csrc/poly_fir.cu``) replaces ``_poly_fir_kernel``: the
   decimating FIR at the decimated rate over the stride-D row matrix, and with
   a 3-D weight tensor the rational resampler's phase outputs.
@@ -175,9 +177,11 @@ def _dft_matrix(n_fft: int, device: torch.device) -> torch.Tensor:
     with _dft_lock:
         e = _dft_cache.get(key)
         if e is None:
-            c = np.arange(n_fft, dtype=np.int64)
-            ang = _phases(n_fft)[np.outer(c, c) % n_fft]
-            e = torch.from_numpy(np.exp(-1j * ang).astype(np.complex64)).to(device)
+            # the N distinct entries, then gathered: the same values as
+            # exp(−i·phase) taken entry by entry, without N² float64 temporaries
+            w = torch.from_numpy(np.exp(-1j * _phases(n_fft)).astype(np.complex64))
+            c = torch.arange(n_fft, dtype=torch.int64)
+            e = w[torch.outer(c, c) % n_fft].to(device)
             _dft_cache[key] = e
         return e
 
@@ -222,16 +226,20 @@ def _check_rotator(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> Non
         raise ValueError("x, ph0 and inc must lie on one device")
 
 
-def rotator_plain(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+def rotator_plain(x: torch.Tensor, ph0: torch.Tensor,
+                  inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`rotator`: the float32 phase ``ph0 + inc·t``
     (product and sum rounded separately), then the complex multiply as four
-    real products."""
+    real products; the next phase as the stage computed it in PyTorch ops."""
     _check_rotator(x, ph0, inc)
-    t = torch.arange(x.shape[0], dtype=torch.float32, device=x.device)
-    ph = ph0.reshape(()) + inc.reshape(()) * t
+    n = x.shape[0]
+    ph0, inc = ph0.reshape(()), inc.reshape(())
+    t = torch.arange(n, dtype=torch.float32, device=x.device)
+    ph = ph0 + inc * t
     c, s = torch.cos(ph), torch.sin(ph)
     xr, xi = x.real, x.imag
-    return torch.complex(xr * c - xi * s, xr * s + xi * c)
+    return (torch.complex(xr * c - xi * s, xr * s + xi * c),
+            torch.remainder(ph0 + inc * n, 2 * np.pi))
 
 
 def _check_quad_demod(prev: torch.Tensor, x: torch.Tensor) -> None:
@@ -707,6 +715,19 @@ def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     return PfbPlan(False, 256, n, 1, 1, 1, 0, (), (), (), n, n, _NO_PAD, False, 8 * n)
 
 
+ROTATOR_TILE = 512   # samples a block of csrc/rotator.cu takes: 256 threads, one
+                     # 16-byte word (two samples) each
+QUAD_DEMOD_TILE = 256    # samples a block of csrc/quad_demod.cu takes, one a thread
+
+
+def _stream_head(x: torch.Tensor) -> int:
+    """Scalar samples of a complex64 frame before its first 16-byte boundary."""
+    ptr = x.data_ptr()
+    if ptr % 8:
+        raise ValueError("the CUDA kernels need complex64 tensors 8-byte aligned")
+    return (ptr >> 3) & 1 if x.shape[0] else 0
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -724,7 +745,7 @@ def _lib(name: str):
                                          ctypes.POINTER(i), i, i, i, ll, vp]
             lib.fsdr_fir_fft.restype = i
         elif name == "rotator":
-            lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, ll, vp]
+            lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
             lib.fsdr_rotator.restype = i
         elif name == "poly_fir":
             lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
@@ -864,24 +885,31 @@ def _launch_fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_f
     return y
 
 
-def rotator(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+def rotator(x: torch.Tensor, ph0: torch.Tensor,
+            inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase-ramp rotator ``y[t] = x[t]·exp(i·(ph0 + inc·t))`` of a 1-D
     complex64 frame; ``ph0`` and ``inc`` are one-element float32 tensors on
-    the frame's device (the stage carry), read by the kernel on the device."""
+    the frame's device (the stage carry), read by the kernel on the device.
+    Returns ``(y, ph_next)``, ``ph_next = remainder(ph0 + inc·n, 2π)`` in
+    float32, a tensor of its own written by the same launch (also for an
+    empty frame). ``y`` starts at the same offset from a 16-byte boundary as
+    ``x``: a view ``x[1:]`` gives a view of a buffer one sample longer."""
     if x.device.type == "cpu":
         return rotator_plain(x, ph0, inc)
     _check_rotator(x, ph0, inc)
     _check_cuda(x, ph0, inc)
-    y = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return y                            # nothing to launch
+    n = x.shape[0]
+    head = _stream_head(x)
+    y = torch.empty_like(x) if head == 0 else \
+        torch.empty(n + 1, dtype=torch.complex64, device=x.device)[1:]
+    ph_next = torch.empty((), dtype=torch.float32, device=x.device)
     lib = _lib("rotator")
     with _card(x):
-        err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(),
-                               y.data_ptr(), x.shape[0], _stream(x))
+        err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(), y.data_ptr(),
+                               ph_next.data_ptr(), n, head, _stream(x))
     _raise_on(err, "rotator")
     launches["rotator"] += 1
-    return y
+    return y, ph_next
 
 
 def quad_demod(prev: torch.Tensor, x: torch.Tensor,

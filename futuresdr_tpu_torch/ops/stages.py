@@ -654,9 +654,9 @@ def rotator_stage(phase_inc: float, name: str = "rotator", impl: str = "xla") ->
     Carry ``(ph0, inc)``, float32 scalars; the increment rides the carry, so
     ``update(phase_inc=…)`` retunes the next frame with phase continuity.
     ``impl="pallas"`` runs the hand-written ``rotator`` kernel, which reads
-    both scalars on the device; ``"xla"`` (default) the same ramp in PyTorch
-    ops. A real stream keeps the real part of the product, as in the JAX
-    package."""
+    both scalars on the device and writes the next phase, one launch a
+    frame; ``"xla"`` (default) the same ramp in PyTorch ops. A real stream
+    keeps the real part of the product, as in the JAX package."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"impl must be xla or pallas, got {impl!r}")
 
@@ -664,11 +664,11 @@ def rotator_stage(phase_inc: float, name: str = "rotator", impl: str = "xla") ->
         ph0, inc = carry
         n = x.shape[0]
         if impl == "pallas":
-            y = cuda_kernels.rotator(x.to(torch.complex64).contiguous(), ph0, inc)
+            y, new = cuda_kernels.rotator(x.to(torch.complex64).contiguous(), ph0, inc)
         else:
             ph = ph0 + inc * torch.arange(n, dtype=torch.float32, device=x.device)
             y = x * _phasor(ph)
-        new = torch.remainder(ph0 + inc * n, 2 * np.pi)
+            new = torch.remainder(ph0 + inc * n, 2 * np.pi)
         return (new, inc), _as_dtype(y, x.dtype)
 
     def init_carry(dtype, device):

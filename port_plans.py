@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the ``fir`` and ``pfb`` kernels under the layouts their plans
-can take, at the main paths' shapes, on one CUDA card.
+"""Device time of the ``fir`` and ``pfb`` kernels under the layouts their
+plans can take, and of ``rotator`` beside its first design, at the main
+paths' shapes, on one CUDA card.
 
 ``cuda_kernels.fir_plan`` and ``pfb_plan`` pick one layout per call; this
 times the same call under the others the kernels take, so that PERF.md can
@@ -9,23 +10,60 @@ and 2^20) warps a block, tiles a warp with one or two span buffers, and the
 unpadded fallback; for ``pfb`` (PFB-64 at 2^18 and 2^21, PFB-2048 at 2^18,
 K = 12) the rows a thread (R), the taps in shared memory instead of
 registers, the unpadded layout with the twiddles read from device memory,
-and the "v" layout (the first design's unstaged mode). Each time is the
-median device time of one call in a CUDA graph over 20 distinct inputs
-(``chip_smoke.device_ms``), with the error against the plain version.
+and the "v" layout (the first design's unstaged mode); ``rotator`` at
+512,000 and 4,096,000 takes one fixed layout.
+Each time is the device time of one call in a CUDA graph over 20 distinct
+inputs (``chip_smoke.device_ms``), with the error against the plain
+version; with ``--rounds N`` every layout is timed N times, each round in
+the reverse order of the last, and the median printed beside every round's
+time.
 
-    python3 port_plans.py
+    python3 port_plans.py [--first DIR] [--kernels fir,pfb,rotator] [--rounds N]
 
-Prints one line per layout with the card's name and power limit, then one
-JSON line. Exits nonzero without CUDA.
+``--first DIR`` also times the first design of ``rotator``, built from
+``DIR/futuresdr_tpu_torch/csrc/rotator.cu`` of a checkout before its
+redesign (four 8-byte samples a thread, 256 apart; the carry's phase left to
+the caller). Prints one line per layout with the card's name and power
+limit, then one JSON line. Exits nonzero without CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import statistics
+import subprocess
 import sys
+from pathlib import Path
+
+KERNELS = ("fir", "pfb", "rotator")
+
+
+def first_rotator(root: Path, out: Path):
+    """The first ``rotator`` kernel from ``root``, built with the port's
+    flags into its own library under ``out``."""
+    from futuresdr_tpu_torch.ops import _build
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "librotator-first.so"
+    if subprocess.call([_build._nvcc(), *_build.FLAGS, "-o", str(so),
+                        str(root / "futuresdr_tpu_torch" / "csrc" / "rotator.cu")]) != 0:
+        raise RuntimeError("nvcc failed for the first rotator")
+    lib = ctypes.CDLL(str(so))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, ll, vp]
+    return lib
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--first", type=Path, default=None, metavar="DIR")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to time, comma-separated (default: all)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times each layout this many times, in alternating order")
+    opts = ap.parse_args()
+    first_root, kernels, rounds = opts.first, opts.kernels.split(","), opts.rounds
     import torch
     if not torch.cuda.is_available():
         print("port_plans: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -40,16 +78,18 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 30)
     out = {}
 
+    cases = []                      # (label, fn, args), timed after every check
+
     def report(label, fn, plain, args):
-        err, rel = cs.rel_err(fn(*args[0]), plain(*args[0]))
-        ms = cs.device_ms(fn, args)
-        out[label] = {"ms": ms, "rel_err": rel}
-        print(f"layout {label}: {ms * 1e3:.2f} us, {rel:.2e} of peak against the plain "
-              f"version [{card}]", flush=True)
+        got, ref = fn(*args[0]), plain(*args[0])
+        rel = cs.rel_err(got[0] if isinstance(got, tuple) else got,
+                         ref[0] if isinstance(ref, tuple) else ref)[1]
+        out[label] = {"err": rel, "runs_us": []}
+        cases.append((label, fn, args))
 
     nt = cs.N_TAPS
     taps = torch.randn(nt, generator=gen, device=dev)
-    for n in cs.FRAMES:
+    for n in cs.FRAMES if "fir" in kernels else ():
         args = [(cs.randc(nt - 1, gen, dev), cs.randc(n, gen, dev))
                 for _ in range(cs.REPS)]
         plan = ck.fir_plan(n, nt, True, ck._sm_count(dev))
@@ -69,8 +109,9 @@ def main() -> int:
                    lambda h, x, p=p: ck._launch_fir(h, x, taps, False, p),
                    lambda h, x: ck.fir_continue_plain(h, x, taps), args)
 
-    for n_ch, n in ((cs.PFB_N, cs.PFB_FRAMES[0]), (cs.PFB_N, cs.PFB_FRAMES[1]),
-                    (cs.PFB_WIDE_N, cs.PFB_FRAMES[0])):
+    pfb_cases = ((cs.PFB_N, cs.PFB_FRAMES[0]), (cs.PFB_N, cs.PFB_FRAMES[1]),
+                 (cs.PFB_WIDE_N, cs.PFB_FRAMES[0]))
+    for n_ch, n in pfb_cases if "pfb" in kernels else ():
         hc = cs.pfb_branch(dev, n=n_ch)
         K, t = hc.shape[1], n // n_ch
         args = [(cs.randc((K - 1) * n_ch, gen, dev), cs.randc(n, gen, dev))
@@ -104,6 +145,35 @@ def main() -> int:
 
             report(f"pfb PFB-{n_ch} n={n} {name} (R={p.outs}, rows={p.rows})", kern,
                    lambda h, x: ck.pfb_plain(h, x, hc.t()), args)
+    first = first_rotator(first_root, _build.BUILD_DIR / "first") if first_root else None
+    ph0 = torch.tensor(1.25, device=dev)
+    inc = torch.tensor(cs.FM_THETA, dtype=torch.float32, device=dev)
+
+    def rotator_first(x):
+        y = torch.empty_like(x)
+        ck._raise_on(first.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(),
+                                        y.data_ptr(), x.shape[0], ck._stream(x)), "first")
+        return y
+
+    def rotator_plain(x):
+        return ck.rotator_plain(x, ph0, inc)
+
+    for n in cs.FM_FRAMES if "rotator" in kernels else ():
+        args = [(cs.randc(n, gen, dev),) for _ in range(cs.REPS)]
+        report(f"rotator n={n} kernel", lambda x: ck.rotator(x, ph0, inc),
+               rotator_plain, args)
+        if first:
+            report(f"rotator n={n} first design", rotator_first, rotator_plain, args)
+    # every layout once a round, the order reversed each round, so that a
+    # drift of the card over the run reaches every layout alike
+    for r in range(rounds):
+        for label, fn, args in cases if r % 2 == 0 else cases[::-1]:
+            out[label]["runs_us"].append(cs.device_ms(fn, args) * 1e3)
+    for label, v in out.items():
+        v["us"] = statistics.median(v["runs_us"])
+        runs = " ".join(f"{t:.3f}" for t in v["runs_us"])
+        print(f"layout {label}: {v['us']:.3f} us (median of {rounds}: {runs}), "
+              f"{v['err']:.2e} of peak against the plain version [{card}]")
     print(json.dumps({"device": card, "layouts": out}))
     return 0
 

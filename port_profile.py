@@ -17,14 +17,23 @@ wall time and idle share read high.
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``:
 ``python3 port_profile.py``. Exits nonzero without CUDA.
+
+``python3 port_profile.py --count [--root DIR]`` only counts the kernels one
+resident 512,000-sample frame of the FM kernel chain launches, and of its
+rotator stage alone (``chip_smoke.kernels_a_frame``), with
+``futuresdr_tpu_torch`` imported from DIR, another checkout (say the parent
+commit, unpacked with ``git archive``), so that two versions are compared.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 
@@ -110,7 +119,34 @@ def profile_route(stages, frame: int, dev) -> dict:
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]}
 
 
+def count(card: str, dev) -> None:
+    """Kernels a resident frame of the FM kernel chain and of its rotator
+    stage, counted by ``chip_smoke.kernels_a_frame`` (this checkout's), on
+    whichever ``futuresdr_tpu_torch`` is first on the path."""
+    import futuresdr_tpu_torch
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from futuresdr_tpu_torch.ops.stages import rotator_stage
+    frames = list(cs.fm_iq(3 * FM_FRAME, dev).split(FM_FRAME))
+    root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
+    for label, stages in (("kernel chain", _fm_stages("kernel")),
+                          ("rotator stage", [rotator_stage(-2 * np.pi * 100e3 / 1e6,
+                                                           impl="pallas")])):
+        names = cs.kernels_a_frame(stages, frames, dev)
+        print(f"count fm {label} frame={FM_FRAME} ({root}): {len(names)} kernels a "
+              f"frame [{card}]")
+        for name in names:
+            print(f"  {name[:100]}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--count", action="store_true")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("port_profile: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -121,6 +157,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
+    if args.count:
+        count(card, dev)
+        return 0
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
     runs = [(route, _stages(route, taps), FRAME) for route in ("os", "pallas", "fused")]
     runs += [(f"fm {chain}", _fm_stages(chain), FM_FRAME) for chain in ("app", "kernel")]

@@ -25,6 +25,10 @@ from futuresdr_tpu_torch.dsp import firdes
 from futuresdr_tpu_torch.ops import stages as T
 from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 TAPS = firdes.lowpass(0.2, 64).astype(np.float32)
 FRAME = 8192
 CPU = TpuInstance("cpu")

@@ -29,6 +29,10 @@ from futuresdr_tpu_torch.convert import carry_from_numpy
 from futuresdr_tpu_torch.ops import cuda_kernels as ck
 from futuresdr_tpu_torch.ops import stages as T
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def _c64(rng, n):
     return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
@@ -105,8 +109,11 @@ def test_rotator_plain_matches_pallas_rotator(n, block):
     x = _c64(rng, n)
     ph0, inc = 0.3, 0.011
     ref = np.asarray(pallas_rotator(jnp.asarray(x), ph0, inc, block=block))
-    got = ck.rotator(torch.from_numpy(x), torch.tensor(ph0), torch.tensor(inc)).numpy()
+    got, ph_next = ck.rotator(torch.from_numpy(x), torch.tensor(ph0), torch.tensor(inc))
+    got = got.numpy()
     assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert ph_next.shape == () and ph_next.item() == pytest.approx(
+        np.remainder(ph0 + inc * n, 2 * np.pi), abs=1e-5)
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
     exact = x * np.exp(1j * (ph0 + inc * np.arange(n))).astype(np.complex64)
     np.testing.assert_allclose(got, exact, rtol=1e-3, atol=1e-4)
@@ -438,6 +445,32 @@ def test_rotator_retune_matches_jax():
         _, yb2 = _run_port(tp, frames[2:], tb)
         for a, b in zip(ya + ya2, yb + yb2):
             np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-4)
+
+
+def test_rotator_kernel_carry_matches_jax_across_a_retune():
+    """The pallas route's carry comes from the ``rotator`` wrapper (the
+    kernel writes it on the card): over five chained frames of ragged
+    lengths, with a ``phase_inc`` retune after the second, each frame's
+    output and the carried phase match the JAX stage in interpret mode."""
+    rng = np.random.default_rng(27)
+    frames = [_c64(rng, n) for n in (1000, 1001, 999, 1, 1000)]
+    jp = J.Pipeline([J.rotator_stage(2.9, name="rot", impl="pallas")], np.complex64)
+    tp = T.Pipeline([T.rotator_stage(2.9, name="rot", impl="pallas")], np.complex64)
+    ja, tb = jp.init_carry(), tp.init_carry("cpu")
+    for i, x in enumerate(frames):
+        if i == 2:
+            ja = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a)),
+                                        jp.update_stage(ja, "rot", phase_inc=-0.7))
+            tb = tp.update_stage(tb, "rot", phase_inc=-0.7)
+        ja, (ya,) = _run_jax(jp, [x], ja)
+        tb, (yb,) = _run_port(tp, [x], tb)
+        np.testing.assert_allclose(yb, ya, rtol=1e-3, atol=1e-4)
+        (jph, jinc), = ja
+        (tph, tinc), = tb
+        assert tph.shape == () and tph.dtype == torch.float32
+        assert 0 <= float(tph) < 2 * np.pi
+        assert float(tph) == pytest.approx(float(jph), abs=1e-5)
+        assert float(tinc) == float(jinc)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ import torch
 
 from futuresdr_tpu_torch.ops import cuda_kernels as ck
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def _c64(rng, n):
     return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
@@ -199,10 +203,12 @@ def test_rotator_kernel_matches_plain_on_card(cuda_device, n):
     ph0 = torch.tensor(1.25, device=cuda_device)
     inc = torch.tensor(-2 * np.pi * 0.1, dtype=torch.float32, device=cuda_device)
     before = ck.launches["rotator"]
-    got = ck.rotator(x, ph0, inc)
+    got, ph_next = ck.rotator(x, ph0, inc)
     torch.cuda.synchronize()
     assert ck.launches["rotator"] == before + 1
-    assert _rel_err(got, ck.rotator_plain(x, ph0, inc)) <= 1e-5
+    ref, ref_next = ck.rotator_plain(x, ph0, inc)
+    assert _rel_err(got, ref) <= 1e-5
+    assert ph_next.item() == ref_next.item()
 
 
 @pytest.mark.gpu
@@ -222,6 +228,119 @@ def test_quad_demod_kernel_matches_plain_on_card(cuda_device, n):
     d = d - period * torch.round(d / period)       # atan2's ±π branch
     assert d.abs().max().item() <= 1e-5
     assert last.item() == ref_last.item() == x[-1].item()
+
+
+def _demod_err(got, ref, gain):
+    period = 2 * np.pi * gain
+    d = (got - ref).double()
+    return (d - period * torch.round(d / period)).abs().max().item()
+
+
+# (frame length, view): the views x[1:] (a head sample before the rotator's
+# first 16-byte word) and x[:-1]; 1-3 samples; one block's tile +- 1
+_VIEW_CASES = [(512_000, "x[1:]"), (512_000, "x[:-1]"), (128_000, "x[1:]"),
+               (128_000, "x[:-1]"), (1, "x"), (2, "x"), (3, "x"), (1, "x[1:]"),
+               (2, "x[1:]"), (3, "x[1:]"), ("tile", "x[1:]"), ("tile+1", "x[1:]"),
+               ("tile+2", "x[1:]"), ("tile-1", "x"), ("tile+1", "x")]
+
+
+def _view(rng, n, view, tile, device):
+    if isinstance(n, str):
+        n = tile + int(n[4:] or 0)
+    x = torch.from_numpy(_c64(rng, n + 1)).to(device)
+    return x[1:] if view == "x[1:]" else x[:-1] if view == "x[:-1]" else x[:n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,view", _VIEW_CASES)
+def test_rotator_kernel_takes_views_and_edge_sizes_on_card(cuda_device, n, view):
+    rng = np.random.default_rng(31)
+    x = _view(rng, n, view, ck.ROTATOR_TILE, cuda_device)
+    ph0 = torch.tensor(-3.0, device=cuda_device)
+    inc = torch.tensor(-2 * np.pi * 0.1, dtype=torch.float32, device=cuda_device)
+    got, ph_next = ck.rotator(x, ph0, inc)
+    torch.cuda.synchronize()
+    ref, ref_next = ck.rotator_plain(x, ph0, inc)
+    assert got.shape == ref.shape and got.is_contiguous()
+    assert _rel_err(got, ref) <= 1e-5
+    assert ph_next.item() == ref_next.item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,view", _VIEW_CASES)
+def test_quad_demod_kernel_takes_views_and_edge_sizes_on_card(cuda_device, n, view):
+    rng = np.random.default_rng(32)
+    x = _view(rng, n, view, ck.QUAD_DEMOD_TILE, cuda_device)
+    prev = torch.tensor(-0.3 + 0.9j, dtype=torch.complex64, device=cuda_device)
+    gain = 250e3 / (2 * np.pi * 75e3)
+    got, last = ck.quad_demod(prev, x, gain)
+    torch.cuda.synchronize()
+    ref, ref_last = ck.quad_demod_plain(prev, x, gain)
+    assert got.shape == ref.shape and got.is_contiguous()
+    assert _demod_err(got, ref, gain) <= 1e-5
+    assert last.item() == ref_last.item() == x[-1].item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 512_000, 4_096_000])
+@pytest.mark.parametrize("inc", [0.3, -2 * np.pi * 0.1])
+@pytest.mark.parametrize("ph0", [1.25, float(np.float32(np.pi)) - 2e-7,
+                                 -float(np.float32(np.pi)) + 2e-7, 0.0])
+def test_rotator_next_phase_is_torch_remainder_bit_for_bit(cuda_device, n, inc, ph0):
+    x = torch.ones(n, dtype=torch.complex64, device=cuda_device)
+    ph0 = torch.tensor(ph0, dtype=torch.float32, device=cuda_device)
+    inc = torch.tensor(inc, dtype=torch.float32, device=cuda_device)
+    before = ck.launches["rotator"]
+    _, ph_next = ck.rotator(x, ph0, inc)
+    want = torch.remainder(ph0 + inc * n, 2 * np.pi)
+    torch.cuda.synchronize()
+    assert ck.launches["rotator"] == before + 1          # an empty frame too: the carry
+    assert ph_next.shape == want.shape == ()
+    assert ph_next.view(torch.int32).item() == want.view(torch.int32).item()
+
+
+@pytest.mark.gpu
+def test_rotator_stage_launches_one_kernel_a_frame_on_card(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(33)
+    pipe = T.Pipeline([T.rotator_stage(-2 * np.pi * 0.1, impl="pallas")], np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(cuda_device)
+    frames = [torch.from_numpy(_c64(rng, 512_000)).to(cuda_device) for _ in range(3)]
+    carry, _ = fn(carry, frames[0])
+    before = ck.launches["rotator"]
+    carry, _ = fn(carry, frames[1])
+    assert ck.launches["rotator"] == before + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        carry, _ = fn(carry, frames[2])
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == 1 and "rotator" in kernels[0], kernels
+    # the carried phase after three frames is the stage's remainder, frame by frame
+    want = torch.zeros((), device=cuda_device)
+    inc = torch.tensor(-2 * np.pi * 0.1, dtype=torch.float32, device=cuda_device)
+    for _ in range(3):
+        want = torch.remainder(want + inc * 512_000, 2 * np.pi)
+    assert carry[0][0].item() == want.item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head,offset", [(0, 1), (1, 0)])
+def test_rotator_kernel_refuses_a_misaligned_body(cuda_device, head, offset):
+    """A head that leaves the 16-byte words off their boundary is refused,
+    never run."""
+    buf = torch.ones(1001, dtype=torch.complex64, device=cuda_device)
+    x, y = buf[offset:offset + 1000], torch.empty_like(buf)[offset:offset + 1000]
+    ph0 = torch.zeros((), device=cuda_device)
+    lib = ck._lib("rotator")
+    err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), ph0.data_ptr(), y.data_ptr(),
+                           ph0.data_ptr(), 1000, head, ck._stream(x))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        ck._raise_on(err, "rotator")
 
 
 @pytest.mark.gpu

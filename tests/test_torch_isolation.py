@@ -16,6 +16,10 @@ from futuresdr_tpu_torch.ops import cuda_kernels as ck
 from futuresdr_tpu_torch.ops import stages as T
 from futuresdr_tpu_torch.tpu import TpuInstance
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 PKG_DIR = Path(futuresdr_tpu_torch.__file__).resolve().parent
 REPO = PKG_DIR.parent
 

@@ -1,16 +1,18 @@
-"""The tiling plans of the ``fir_fft`` and ``poly_fir`` CUDA kernels, walked on
-the CPU.
+"""The tiling plans of the port's CUDA kernels, walked on the CPU.
 
-``csrc/fir_fft.cu`` and ``csrc/poly_fir.cu`` take their plans from
-``fir_fft_plan`` and ``poly_fir_plan`` in ``futuresdr_tpu_torch/ops/
-cuda_kernels.py``. The twins below repeat the kernels' index arithmetic with
-torch ops (the staged layouts with their pad slots, in buffers of the
-kernels' sizes, so an index past a buffer raises; the sliding register
-windows and their slots; the Stockham passes with their mod-N twiddle
-indices and in-register butterflies; the register tiles, K parts and their
-sum), and are held against ``torch.fft.fft`` and the plain versions. The
-kernels themselves run only on the card (``tests/test_torch_gpu.py``,
-``chip_smoke.py``).
+``csrc/fir.cu``, ``fir_fft.cu``, ``poly_fir.cu`` and ``pfb.cu`` take their
+plans from ``fir_plan``, ``fir_fft_plan``, ``poly_fir_plan`` and ``pfb_plan``
+in ``futuresdr_tpu_torch/ops/cuda_kernels.py``; ``rotator.cu`` and
+``quad_demod.cu`` walk a frame in one fixed layout. The twins below repeat the
+kernels' index arithmetic with torch ops (the staged layouts with their pad
+slots, in buffers of the kernels' sizes, so an index past a buffer raises;
+the sliding register windows and their slots; the Stockham passes with their
+mod-N twiddle indices and in-register butterflies; the register tiles, K
+parts and their sum; the rotator's 16-byte words with their head and tail
+samples, the demod's one sample a thread, each output written once), and
+are held against
+``torch.fft.fft`` and the plain versions. The kernels themselves run only on
+the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -18,6 +20,10 @@ import pytest
 import torch
 
 from futuresdr_tpu_torch.ops import cuda_kernels as ck
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
 
 # cos(2π·t/16) as the kernel's float literals
 _COS16 = [np.float32(np.cos(2 * np.pi * t / 16)) for t in range(16)]
@@ -869,3 +875,149 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
+# ---------------------------------------------------------------------------
+# rotator and quad_demod: their walks over a frame
+# ---------------------------------------------------------------------------
+
+_TWO_PI, _INV_TWO_PI = 6.283185307179586, 0.15915494309189535
+
+
+def _count(count, idx):
+    count.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.int64))
+
+
+def _rotate(v, t, ph0, inc):
+    """``rotate`` of ``csrc/rotator.cu``: the float32 phase rounded as product
+    then sum, reduced by 2π in float64, the complex multiply's four products."""
+    ph = ph0 + inc * t.to(torch.float32)
+    k = torch.round(ph.double() * _INV_TWO_PI)
+    r = (ph.double() - k * _TWO_PI).float()
+    s, c = torch.sin(r), torch.cos(r)
+    return torch.complex(v.real * c - v.imag * s, v.real * s + v.imag * c)
+
+
+def _rotator_twin(x, ph0, inc, head):
+    """``csrc/rotator.cu`` on a frame whose first ``head`` samples lie before
+    a 16-byte boundary: ``(n − head) // 2`` words, one a thread, in blocks of
+    ``ROTATOR_TILE // 2`` threads (one block for an empty body, which still
+    writes the carry), both samples of each word; then thread 0 of block 0's
+    head, tail and carry. Asserts every output sample is written once;
+    returns ``(y, ph_next)``."""
+    n = x.shape[0]
+    assert head in (0, 1) and head <= n
+    threads = ck.ROTATOR_TILE // 2
+    words = (n - head) // 2
+    blocks = max(1, -(-words // threads))
+    w = torch.arange(blocks * threads)
+    t = head + 2 * w[w < words]
+    y = torch.zeros(n, dtype=torch.complex64)
+    count = torch.zeros(n, dtype=torch.int64)
+    for ts in (t, t + 1):
+        y[ts] = _rotate(x[ts], ts, ph0, inc)
+        _count(count, ts)
+    edge = ([0] if head else []) + ([head + 2 * words] if head + 2 * words < n else [])
+    for e in edge:
+        te = torch.tensor([e])
+        y[te] = _rotate(x[te], te, ph0, inc)
+        _count(count, te)
+    assert bool((count == 1).all())
+    b = torch.tensor(_TWO_PI, dtype=torch.float32)
+    mod = torch.fmod(ph0 + inc * torch.tensor(float(n), dtype=torch.float32), b)
+    if mod != 0 and bool(b < 0) != bool(mod < 0):
+        mod = mod + b
+    return y, mod
+
+
+def _demod(v, p, gain):
+    zr = v.real * p.real + v.imag * p.imag
+    zi = v.imag * p.real - v.real * p.imag
+    return float(np.float32(gain)) * torch.atan2(zi, zr)
+
+
+def _quad_demod_twin(prev, x, gain):
+    """``csrc/quad_demod.cu``: blocks of ``QUAD_DEMOD_TILE`` threads, one
+    sample a thread, its left neighbour from device memory (``prev`` for
+    t = 0). Asserts every output is written once."""
+    n = x.shape[0]
+    blocks = -(-n // ck.QUAD_DEMOD_TILE)
+    t = torch.arange(blocks * ck.QUAD_DEMOD_TILE)
+    t = t[t < n]
+    ext = torch.cat([prev.reshape(1), x])                  # ext[t] = x[t − 1]
+    y = torch.zeros(n, dtype=torch.float32)
+    count = torch.zeros(n, dtype=torch.int64)
+    y[t] = _demod(x[t], ext[t], gain)
+    _count(count, t)
+    assert bool((count == 1).all())
+    return y, x[n - 1].clone()
+
+
+def _stream_case(n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(_c64(rng, n))
+
+
+# frame sizes: one to three samples, one tile (after the head) ± 1, the demod
+# frame and a ragged FM frame
+_STREAM_SIZES = {"1": (0, 1), "2": (0, 2), "3": (0, 3), "tile - 1": (1, -1),
+                 "tile": (1, 0), "tile + 1": (1, 1), "128000": (0, 128_000),
+                 "512333": (0, 512_333)}
+
+
+def _stream_size(spec, tile, head=0):
+    """``tiles`` tiles of ``tile`` samples after the head, plus ``extra``."""
+    tiles, extra = _STREAM_SIZES[spec]
+    return tiles * (head + tile) + extra
+
+
+def _wrapped_err(got, ref, gain):
+    period = 2 * np.pi * gain
+    d = (got - ref).double()
+    return float((d - period * torch.round(d / period)).abs().max())
+
+
+@pytest.mark.parametrize("head", [0, 1])
+@pytest.mark.parametrize("n", list(_STREAM_SIZES))
+def test_rotator_walk_matches_plain(n, head):
+    """The kernel's walk at one sample to three, one tile ± 1 (after the
+    head), the demod frame and a ragged FM frame, with head 0 and 1 (a view
+    ``x[1:]``): every sample written once, within 1e-5 of the plain
+    version's peak, the carry equal to the plain version's."""
+    n = _stream_size(n, ck.ROTATOR_TILE, head)
+    x = _stream_case(n, n + head)
+    ph0 = torch.tensor(np.float32(-3.1))
+    inc = torch.tensor(np.float32(-2 * np.pi * 0.1))
+    y, ph_next = _rotator_twin(x, ph0, inc, head)
+    ref, ref_next = ck.rotator_plain(x, ph0, inc)
+    assert _rel(y, ref) <= 1e-5, (n, head)
+    assert ph_next.item() == ref_next.item()
+
+
+@pytest.mark.parametrize("head", [0, 1])
+@pytest.mark.parametrize("ph0", [3.14, -3.14, 0.0])
+def test_rotator_walk_carry_matches_plain_on_an_empty_body(ph0, head):
+    """Frames of ``head`` samples and no word: one block still launches and
+    thread 0 writes the head sample and the carry."""
+    x = _stream_case(head, 9)
+    ph0, inc = torch.tensor(np.float32(ph0)), torch.tensor(np.float32(0.73))
+    y, ph_next = _rotator_twin(x, ph0, inc, head)
+    ref, ref_next = ck.rotator_plain(x, ph0, inc)
+    assert y.shape == ref.shape and ph_next.item() == ref_next.item()
+    if head:
+        assert _rel(y, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n", list(_STREAM_SIZES))
+def test_quad_demod_walk_matches_plain(n):
+    """As for the rotator: every sample written once, its neighbour read
+    across block edges, the first from the carry."""
+    n = _stream_size(n, ck.QUAD_DEMOD_TILE)
+    x = _stream_case(n, n + 7)
+    prev = torch.tensor(np.complex64(0.7 - 0.2j))
+    gain = 250e3 / (2 * np.pi * 75e3)
+    y, last = _quad_demod_twin(prev, x, gain)
+    ref, ref_last = ck.quad_demod_plain(prev, x, gain)
+    assert _wrapped_err(y, ref, gain) <= 1e-5, n
+    assert last.item() == ref_last.item() == x[-1].item()
+

@@ -31,6 +31,10 @@ from futuresdr_tpu_torch.ops import cuda_kernels as ck
 from futuresdr_tpu_torch.ops import stages as T
 from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def _c64(rng, n):
     return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)

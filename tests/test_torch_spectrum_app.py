@@ -23,6 +23,10 @@ from futuresdr_tpu_torch.blocks import VectorSource
 from futuresdr_tpu_torch.ops import stages as T
 from futuresdr_tpu_torch.tpu import TpuInstance
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 CPU = TpuInstance("cpu")
 
 

@@ -17,6 +17,10 @@ from futuresdr_tpu.ops import stages as J
 from futuresdr_tpu_torch.convert import carry_from_numpy
 from futuresdr_tpu_torch.ops import stages as T
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default of one thread a core in each would oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def _c64(rng, n):
     return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
