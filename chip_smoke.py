@@ -76,6 +76,25 @@ The PFB channelizer at PFB-64 (``channelizer_stage(64)`` with its default
     use_tpu=True, collect=True)`` at FFT_SIZE 2048 over 32,768-sample frames:
     the tone's bin, and the spectra against a float64 recomputation.
 
+The host side of the main path (``Pipeline.compile``: one CUDA graph a
+dispatch of K frames, the carry in static buffers; ``TpuKernel``'s
+megabatch K, pinned staging arena and credits), on every chain above
+(spectrum routes, spectrum app, FM app, kernel and plain chains, PFB-64 on
+both routes) at the frames of their resident phases:
+
+16. each chain compiled at K = 1 and 4 against the eager chain over three
+    chained dispatches (CHAIN_TOL), one capture each, each replay adding
+    its graph's launches to the counts; a retune through the compiled carry
+    (FIR taps, the FM tuner's phase_inc, the PFB prototype) with no new
+    capture, against the eager chain with the same retune; the resident
+    rate of eager and compiled beside the card's time a frame;
+17. streamed, ``VectorSource -> TpuKernel -> VectorSink`` at K = 4 against
+    K = 1 (the same items, a partial last group at EOS), the streamed rate
+    at each K, and the arena's takes from its pool against its allocations.
+
+Every streamed phase runs through the compiled program and the arena, and
+the ``kernels`` line counts the launches the replays made.
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -186,6 +205,16 @@ SPEC_TONE = 0.3              # tone frequency, cycles/sample
 SPEC_SETTLE = 32
 SPEC_DB_TOL = 1e-3
 SPEC_POWER_TOL = 1e-5
+
+# the host side of the main path (phases 16-17): frames a dispatch compiled
+# and streamed, chained dispatches per compiled check; compiled vs eager is
+# held at CHAIN_TOL (the same kernels on the same inputs), a retune through
+# the compiled carry too, and K = 4 streamed vs K = 1 streamed as well
+HOST_K = (1, 4)
+HOST_DISPATCHES = 3
+# device sleep before a timed run of calls (~60 ms): the host enqueues them
+# all before the card reaches the first, so the card's time is what is timed
+HOST_SLEEP_CYCLES = 100_000_000
 
 REPLACES = {"fir": "futuresdr_tpu/ops/pallas_kernels.py:115",
             "fir_fft": "futuresdr_tpu/ops/pallas_kernels.py:408",
@@ -1524,6 +1553,247 @@ def pfb_timings(dev, n: int, n_ch: int = PFB_N) -> dict:
             "max_abs_err": err}
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the host side of the main path (compiled replay, megabatch K,
+# the pinned staging arena)
+# ---------------------------------------------------------------------------
+
+def host_chains(taps) -> list:
+    """``(label, stages factory, frames, its hand kernels)`` of every chain
+    the host phases drive, at the frames the rate phases use."""
+    from futuresdr_tpu_torch.apps.spectrum import spectrum_stages
+    return [("spectrum os", lambda: chain_stages("os", taps), FRAMES, ()),
+            ("spectrum pallas", lambda: chain_stages("pallas", taps), FRAMES, ("fir",)),
+            ("spectrum fused", lambda: chain_stages("fused", taps), FRAMES, ("fir_fft",)),
+            ("spectrum app", lambda: spectrum_stages(N_FFT), (1 << 15,), ()),
+            ("fm app", lambda: fm_stages("app"), FM_FRAMES, ()),
+            ("fm kernel", lambda: fm_stages("kernel"), FM_FRAMES, FM_KERNELS),
+            ("fm plain", lambda: fm_stages("plain"), FM_FRAMES, ()),
+            ("pfb matmul", lambda: pfb_stages("matmul"), PFB_FRAMES, ()),
+            ("pfb pallas", lambda: pfb_stages("pallas"), PFB_FRAMES, PFB_KERNELS)]
+
+
+def host_input(label: str, n: int, gen, dev):
+    return fm_iq(n, dev) if label.startswith("fm ") else randc(n, gen, dev)
+
+
+def run_compiled(fn, carry, frames, k: int, pipe=None, retune=None):
+    """``fn`` (from ``Pipeline.compile(k=k)``) over ``frames``, ``k`` a
+    dispatch; ``retune = (frame, stage, params)`` goes through
+    ``pipe.update_stage`` on the compiled carry before that frame's
+    dispatch. Returns the outputs flattened."""
+    import torch
+    outs = []
+    for d in range(len(frames) // k):
+        if retune is not None and d * k == retune[0]:
+            carry = pipe.update_stage(carry, retune[1], **retune[2])
+        x = torch.stack(frames[d * k:(d + 1) * k]) if k > 1 else frames[d]
+        carry, y = fn(carry, x)
+        outs.append(y.reshape(-1))
+    return torch.cat(outs)
+
+
+def run_eager(pipe, frames, dev, retune=None):
+    """``pipe.fn`` over ``frames``, carry chained, the same ``retune``."""
+    import torch
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for i, x in enumerate(frames):
+        if retune is not None and i == retune[0]:
+            carry = pipe.update_stage(carry, retune[1], **retune[2])
+        carry, y = fn(carry, x)
+        outs.append(y.reshape(-1))
+    return torch.cat(outs)
+
+
+def card_ms(fn) -> float:
+    """The card's time for ``fn()`` (a run of calls): its work queued behind
+    a device sleep, so the host has enqueued all of it before the card
+    starts; median of 5, ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_compiled(dev, taps) -> dict:
+    """Every chain at each of its frames: ``Pipeline.compile`` at K = 1 and
+    4 against the eager chain over HOST_DISPATCHES chained dispatches
+    (CHAIN_TOL of the peak), one capture each, each replay adding the
+    launches its graph recorded; then the resident rate of the eager chain
+    and of each compiled K over the same 12 frames beside the card's time
+    for them. Returns ``{(label, frame): {mode: (Msps, card µs a frame)}}``."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    n_frames = HOST_DISPATCHES * max(HOST_K)
+    rates = {}
+    for label, make, frames, kernels in host_chains(taps):
+        for f in frames:
+            x_all = host_input(label, n_frames * f, gen, dev)
+            xs = list(x_all.split(f))
+            pipe = Pipeline(make(), np.complex64)
+            ref = run_eager(pipe, xs, dev)
+            eager, eager_state = pipe.fn(), [pipe.init_carry(dev)]
+
+            def eager_step(fn=eager, state=eager_state, xs=xs):
+                c = state[0]
+                for x in xs:
+                    c, _ = fn(c, x)
+                state[0] = c
+
+            modes = {"eager": eager_step}
+            for k in HOST_K:
+                fn, carry = pipe.compile(f, dev, k=k)
+                for kern in kernels:
+                    check(fn.launches.get(kern, 0) >= k, f"compiled {label} frame={f} "
+                          f"K={k}: the graph holds no {kern} launch a frame")
+                before = dict(ck.launches)
+                got = run_compiled(fn, carry, xs[:HOST_DISPATCHES * k], k)
+                torch.cuda.synchronize()
+                added = {n: ck.launches[n] - before[n] for n in ck.launches}
+                check(added == {n: HOST_DISPATCHES * fn.launches.get(n, 0) for n in added},
+                      f"compiled {label} K={k}: replays added {added}, the graph "
+                      f"holds {fn.launches}")
+                check(fn.captures == 1, f"compiled {label} K={k}: {fn.captures} captures")
+                check(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                          else got).all()), f"compiled {label}: non-finite")
+                _, rel = rel_err(got, ref[:got.shape[0]])
+                print(f"compiled {label} frame={f} K={k}: {HOST_DISPATCHES} replays vs "
+                      f"eager {rel:.3e} of peak (tol {CHAIN_TOL:g}), launches a replay "
+                      f"{fn.launches}")
+                check(rel <= CHAIN_TOL, f"compiled {label} frame={f} K={k}: differs from "
+                                        f"eager by {rel:.3e}")
+                state = [carry]
+                # the dispatches' inputs as views of the one input tensor
+                groups = list(x_all.view(-1, k, f)) if k > 1 else xs
+
+                def step(fn=fn, state=state, groups=groups):
+                    c = state[0]
+                    for x in groups:
+                        c, _ = fn(c, x)
+                    state[0] = c
+
+                modes[f"K={k}"] = step
+            rates[(label, f)] = {
+                m: (n_frames * f / (cuda_ms(run, 5) * 1e-3) / 1e6,
+                    card_ms(run) * 1e3 / n_frames) for m, run in modes.items()}
+            del x_all, xs, ref, modes
+    return rates
+
+
+def phase_compiled_retune(dev, taps) -> None:
+    """A retune between dispatches through the compiled carry (the FIR taps,
+    the FM tuner's phase_inc, the PFB prototype): no new capture, and the
+    output equals the eager chain retuned at the same frame."""
+    import torch
+
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    cases = [("spectrum pallas", 0, {"taps": firdes.lowpass(0.05, N_TAPS).astype(np.float32)}),
+             ("spectrum fused", 0, {"taps": firdes.lowpass(0.05, N_TAPS).astype(np.float32)}),
+             ("fm app", "tuner", {"phase_inc": -2 * np.pi * 150e3 / FM_RATE}),
+             ("fm kernel", "tuner", {"phase_inc": -2 * np.pi * 150e3 / FM_RATE}),
+             ("pfb pallas", 0, {"taps": pfb_default_taps(PFB_N, atten_db=50.0)})]
+    chains = {label: (make, frames) for label, make, frames, _ in host_chains(taps)}
+    for label, stage, params in cases:
+        make, frames = chains[label]
+        f = frames[0]
+        xs = list(host_input(label, 4 * f, gen, dev).split(f))
+        pipe = Pipeline(make(), np.complex64)
+        fn, carry = pipe.compile(f, dev, k=2)
+        got = run_compiled(fn, carry, xs, 2, pipe, retune=(2, stage, params))
+        check(fn.captures == 1, f"compiled retune {label}: {fn.captures} captures")
+        ref = run_eager(pipe, xs, dev, retune=(2, stage, params))
+        _, rel = rel_err(got, ref)
+        print(f"compiled retune {label} ({', '.join(params)}) at frame 2 of 4, K=2: "
+              f"{fn.captures} capture, vs eager with the same retune {rel:.3e} of peak "
+              f"(tol {CHAIN_TOL:g})")
+        check(rel <= CHAIN_TOL, f"compiled retune {label}: differs by {rel:.3e}")
+
+
+def _host_kernel_block(label, make, frame, dev, k):
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    return TpuKernel(make(), np.complex64, frame_size=frame, inst=TpuInstance(dev),
+                     frames_in_flight=IN_FLIGHT, frames_per_dispatch=k)
+
+
+def phase_megabatch_streamed(dev, taps) -> dict:
+    """The streamed chains at K = 4 against K = 1: ``VectorSource ->
+    TpuKernel -> VectorSink`` over 11 frames and a partial one (the last
+    group partial at EOS) gives the same items, equal at CHAIN_TOL; then
+    ``NullSource -> Head -> TpuKernel -> NullSink`` at each K (median of
+    STREAM_RUNS) and the arena's hits and misses. Returns streamed Msps per
+    (label, frame, K)."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import (Head, NullSink, NullSource, VectorSink,
+                                            VectorSource)
+    from futuresdr_tpu_torch.ops.arena import arena
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    rates = {}
+    for label, make, frames, _ in host_chains(taps):
+        if label in ("spectrum os", "spectrum app", "fm plain", "pfb matmul"):
+            continue
+        f = frames[0]
+        host = host_input(label, 11 * f + f // 3 + 7, gen, dev).cpu().numpy()
+        out = {}
+        for k in HOST_K:
+            kern = _host_kernel_block(label, make, f, dev, k)
+            fg = Flowgraph()
+            vsnk = VectorSink(kern.pipeline.out_dtype)
+            fg.connect(VectorSource(host), kern, vsnk)
+            rt = Runtime()
+            rt.run(fg)
+            rt.shutdown()
+            out[k] = torch.from_numpy(vsnk.items())
+            check(kern.frames_dispatched == 12, f"megabatch {label} K={k}: "
+                  f"{kern.frames_dispatched} frames dispatched, want 12")
+        check(out[4].shape == out[1].shape, f"megabatch {label}: K=4 gave "
+              f"{tuple(out[4].shape)} items, K=1 {tuple(out[1].shape)}")
+        _, rel = rel_err(out[4], out[1])
+        print(f"megabatch {label} frame={f}: K=4 vs K=1 streamed, {out[1].shape[0]} items "
+              f"each, {rel:.3e} of peak (tol {CHAIN_TOL:g})")
+        check(rel <= CHAIN_TOL, f"megabatch {label}: K=4 differs from K=1 by {rel:.3e}")
+        n_items = STREAM_FRAMES * f
+        for k in HOST_K:
+            runs = []
+            for _ in range(STREAM_RUNS):
+                kern = _host_kernel_block(label, make, f, dev, k)
+                fg = Flowgraph()
+                snk = NullSink(kern.pipeline.out_dtype)
+                fg.connect(NullSource(np.complex64), Head(np.complex64, n_items), kern, snk)
+                rt = Runtime()
+                t0 = time.perf_counter()
+                rt.run(fg)
+                runs.append(time.perf_counter() - t0)
+                rt.shutdown()
+                want = kern.pipeline.out_items(n_items)
+                check(snk.n_received == want, f"streamed {label} K={k}: NullSink got "
+                                              f"{snk.n_received} items, want {want}")
+            rates[(label, f, k)] = n_items / statistics.median(runs) / 1e6
+    st = arena().stats()
+    print(f"arena: {st['hits']} takes from the pool, {st['misses']} allocations, "
+          f"{st['pooled_bytes']} B pooled")
+    check(st["hits"] > st["misses"], "arena: fewer takes from the pool than allocations")
+    return rates
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -1674,6 +1944,13 @@ def main(argv=None) -> int:
     # 15. the spectrum app (no hand kernel on its chain, as in the reference)
     spectrum_rate = phase_spectrum_app(dev)
 
+    # 16-17. the host side: compiled replay against eager, retunes through
+    #        the compiled carry, K = 4 streamed against K = 1
+    all_kernels = SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS
+    compiled = path_phase("compiled", all_kernels, phase_compiled, dev, taps)
+    path_phase("compiled_retune", all_kernels, phase_compiled_retune, dev, taps)
+    megabatch = path_phase("megabatch", all_kernels, phase_megabatch_streamed, dev, taps)
+
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
     timings = {f: kernel_timings(dev, f, taps) for f in FRAMES}
@@ -1733,6 +2010,13 @@ def main(argv=None) -> int:
           f"(median of {STREAM_RUNS}): {pfb_streamed:.1f} input Msamples/s [{card_line}]")
     print(f"rate spectrum app streamed (FFT_SIZE 2048, frame 32768): "
           f"{spectrum_rate:.1f} input Msamples/s [{card_line}]")
+    for (label, f), modes in compiled.items():
+        print(f"rate {label} resident frame={f}: " + ", ".join(
+            f"{m} {msps:.1f} Msamples/s (card {us:.1f} us a frame)"
+            for m, (msps, us) in modes.items()) + f" [{card_line}]")
+    for (label, f, k), msps in megabatch.items():
+        print(f"rate {label} streamed frame={f} in-flight={IN_FLIGHT} K={k} (median of "
+              f"{STREAM_RUNS}): {msps:.1f} input Msamples/s [{card_line}]")
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,185 @@
+"""Host staging arena: a size-classed pool of recycled pinned host buffers.
+
+The port's own copy of ``futuresdr_tpu/ops/arena.py`` (``StagingArena``,
+``ArenaBuffer``). A streamed frame crosses the host twice: into a pinned
+buffer for its H2D, and out of a pinned buffer after its D2H. Allocating
+those buffers anew every frame costs the drain loop a pinned allocation per
+transfer; the arena hands back warm, already-pinned buffers after the first
+lap of the in-flight window.
+
+Ownership is explicit: every holder keeps a reference (:meth:`ArenaBuffer.retain`
+/ :meth:`ArenaBuffer.release`), and a buffer goes back to its size class's
+free list at refcount zero. A transfer that reads or writes the buffer
+records its CUDA event on it (:meth:`ArenaBuffer.record`); a pooled buffer
+is handed out again only once that event has completed, so a release right
+after an H2D is started never lets the next frame overwrite bytes the copy
+engine has not read yet.
+
+Size classes are powers of two (4 KiB at least), so a frame-size change does
+not fragment the pool; the pool is bounded (``host_arena_mb``): past the cap
+a released buffer is dropped to the allocator instead of pooled. The
+reference's Prometheus telemetry is not ported; :meth:`StagingArena.stats`
+keeps plain counters.
+
+Config: ``host_arena`` (default on; ``FUTURESDR_TPU_HOST_ARENA=0`` gives a
+fresh buffer per transfer), ``host_arena_mb`` (the byte cap).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import config
+
+__all__ = ["ArenaBuffer", "StagingArena", "arena"]
+
+_MIN_CLASS = 12                       # 4 KiB floor: below it pooling is noise
+
+
+def _class_of(nbytes: int) -> int:
+    """Size-class exponent: smallest power of two ≥ nbytes (≥ 4 KiB)."""
+    return max(_MIN_CLASS, int(nbytes - 1).bit_length()) if nbytes > 1 \
+        else _MIN_CLASS
+
+
+class ArenaBuffer:
+    """One pooled buffer: a flat uint8 host tensor (pinned when its arena
+    pins) with a numpy view, an explicit refcount and the CUDA event of the
+    last copy that touched it.
+
+    Created at refcount 1 (the taker owns that reference). Other holders
+    call :meth:`retain` and balance it with :meth:`release`; the buffer
+    returns to its arena's free list only when the count reaches zero.
+    ``release`` past zero is a no-op: a double release must never recycle a
+    buffer some other holder still uses."""
+
+    __slots__ = ("tensor", "base", "_arena", "_cls", "_rc", "_lock", "_event")
+
+    def __init__(self, arena: "StagingArena", cls: int):
+        self.tensor = torch.empty(1 << cls, dtype=torch.uint8, pin_memory=arena.pin)
+        self.base = self.tensor.numpy()
+        self._arena = arena
+        self._cls = cls
+        self._rc = 1
+        self._lock = threading.Lock()
+        self._event = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.base.nbytes
+
+    def array(self, shape, dtype) -> np.ndarray:
+        """A leading view of the buffer as ``shape``/``dtype`` (must fit)."""
+        dt = np.dtype(dtype)
+        n = int(np.prod(shape)) * dt.itemsize
+        if n > self.base.nbytes:
+            raise ValueError(f"{shape} {dt} ({n} B) does not fit a {self.base.nbytes} B buffer")
+        return self.base[:n].view(dt).reshape(shape)
+
+    def record(self, event) -> None:
+        """The CUDA event of the latest copy that reads or writes the buffer:
+        the buffer is not handed out again before it has completed."""
+        self._event = event
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def retain(self) -> "ArenaBuffer":
+        with self._lock:
+            if self._rc <= 0:
+                raise RuntimeError("retain() of an already-recycled buffer")
+            self._rc += 1
+        return self
+
+    def release(self) -> None:
+        with self._lock:
+            if self._rc <= 0:
+                return
+            self._rc -= 1
+            if self._rc:
+                return
+        self._arena._recycle(self)
+
+
+class StagingArena:
+    """The pool: per-size-class free lists, bounded by ``max_bytes``.
+    ``pin``: pinned host memory (needs CUDA); the CPU tests pass ``False``."""
+
+    def __init__(self, max_bytes: int = 256 << 20, pin: bool = True):
+        self.max_bytes = int(max_bytes)
+        self.pin = bool(pin)
+        self._free: Dict[int, List[ArenaBuffer]] = {}
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.pinned_bytes = 0         # checked out
+        self.pooled_bytes = 0         # idle in the pool
+
+    def take(self, nbytes: int) -> ArenaBuffer:
+        """Check out a buffer of capacity ≥ nbytes (refcount 1): a pooled one
+        whose last copy has completed, else a fresh one."""
+        cls = _class_of(int(nbytes))
+        buf = None
+        with self._lock:
+            lst = self._free.get(cls)
+            for i in range(len(lst) if lst else 0):
+                if lst[i].ready():
+                    buf = lst.pop(i)
+                    self.pooled_bytes -= buf.nbytes
+                    self.hits += 1
+                    break
+            else:
+                self.misses += 1
+        if buf is None:
+            buf = ArenaBuffer(self, cls)
+        else:
+            buf._rc = 1
+            buf._event = None
+        with self._lock:
+            self.pinned_bytes += buf.nbytes
+        return buf
+
+    def take_array(self, shape, dtype) -> Tuple[np.ndarray, ArenaBuffer]:
+        """``(array view, owning buffer)`` for a fresh-content buffer."""
+        dt = np.dtype(dtype)
+        buf = self.take(int(np.prod(shape)) * dt.itemsize)
+        return buf.array(shape, dt), buf
+
+    def copy_in(self, a: np.ndarray) -> Tuple[np.ndarray, ArenaBuffer]:
+        """Copy ``a`` into an arena buffer: ``(its view, the buffer)``."""
+        v, buf = self.take_array(a.shape, a.dtype)
+        np.copyto(v, a)
+        return v, buf
+
+    def _recycle(self, buf: ArenaBuffer) -> None:
+        with self._lock:
+            self.pinned_bytes -= buf.nbytes
+            if self.pooled_bytes + buf.nbytes <= self.max_bytes:
+                self._free.setdefault(buf._cls, []).append(buf)
+                self.pooled_bytes += buf.nbytes
+            # else: past the cap, dropped to the allocator
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "pinned_bytes": self.pinned_bytes,
+                    "pooled_bytes": self.pooled_bytes,
+                    "classes": {1 << c: len(l) for c, l in sorted(self._free.items()) if l}}
+
+
+_arena: Optional[StagingArena] = None
+_arena_lock = threading.Lock()
+
+
+def arena() -> Optional[StagingArena]:
+    """The process-global pinned arena, or None when ``host_arena`` is off
+    (callers then allocate a pinned buffer per transfer)."""
+    global _arena
+    with _arena_lock:
+        if _arena is None and config().host_arena:
+            _arena = StagingArena(int(config().host_arena_mb) << 20, pin=True)
+        return _arena

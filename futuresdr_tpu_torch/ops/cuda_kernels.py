@@ -6,7 +6,9 @@ The counterpart of ``futuresdr_tpu/ops/pallas_kernels.py``. Each kernel has:
   that lies on the CPU to the plain version, and otherwise launches the
   kernel on PyTorch's current stream (or raises; nothing falls back);
 * a launch counter in :data:`launches`, incremented where the kernel is
-  launched and nowhere else;
+  launched and nowhere else (a launch recorded into a CUDA graph capture
+  counts in the capture's tally instead, :func:`capturing`, and each replay
+  of the graph adds it);
 * ``*_plain``: the same function in plain PyTorch ops, which repeats the
   kernel's arithmetic (the CPU tests hold it against the JAX package; the
   chip check holds the kernel against it).
@@ -57,7 +59,7 @@ import torch
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
            "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
            "poly_fir_plain", "quad_demod_plain", "pfb_plain", "launches",
-           "reset_launches"]
+           "reset_launches", "capturing"]
 
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
@@ -73,6 +75,28 @@ _STREAM_DTYPES = (torch.float32, torch.complex64)
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the launches this thread's wrappers record into a CUDA graph
+    capture apart from :data:`launches`: a capture runs no kernel. Yields
+    the tally, ``{kernel: launches}``, which each replay of the graph adds
+    to :data:`launches` (``ops/stages.py`` ``CompiledPipeline``)."""
+    counts = dict.fromkeys(launches, 0)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
+
+
+def _count(name: str) -> None:
+    counts = getattr(_tally, "counts", None)
+    (launches if counts is None else counts)[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +842,7 @@ def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tenso
                            x.is_complex() | bf16 << 1, _c_ints(plan[:4]), plan.smem,
                            _stream(x))
     _raise_on(err, "fir")
-    launches["fir"] += 1
+    _count("fir")
     return y
 
 
@@ -881,7 +905,7 @@ def _launch_fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_f
                                plan.span_shift, plan.pad_shift, int(plan.tw_staged),
                                plan.smem, _stream(x))
     _raise_on(err, "fir_fft")
-    launches["fir_fft"] += 1
+    _count("fir_fft")
     return y
 
 
@@ -908,7 +932,7 @@ def rotator(x: torch.Tensor, ph0: torch.Tensor,
         err = lib.fsdr_rotator(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(), y.data_ptr(),
                                ph_next.data_ptr(), n, head, _stream(x))
     _raise_on(err, "rotator")
-    launches["rotator"] += 1
+    _count("rotator")
     return y, ph_next
 
 
@@ -931,7 +955,7 @@ def quad_demod(prev: torch.Tensor, x: torch.Tensor,
         err = lib.fsdr_quad_demod(x.data_ptr(), prev.data_ptr(), y.data_ptr(),
                                   last.data_ptr(), x.shape[0], float(gain), _stream(x))
     _raise_on(err, "quad_demod")
-    launches["quad_demod"] += 1
+    _count("quad_demod")
     return y, last
 
 
@@ -973,7 +997,7 @@ def _launch_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor, y: to
                                 plan.threads, plan.rows, plan.tile_rows, plan.tile_phases,
                                 plan.ksplit, plan.pad, plan.smem, _stream(x))
     _raise_on(err, "poly_fir")
-    launches["poly_fir"] += 1
+    _count("poly_fir")
     return y
 
 
@@ -1025,5 +1049,5 @@ def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torc
                            y.shape[0], N, K, (taps.dtype == torch.bfloat16) | bf16 << 1,
                            ints, plan.smem, _stream(x))
     _raise_on(err, "pfb")
-    launches["pfb"] += 1
+    _count("pfb")
     return y

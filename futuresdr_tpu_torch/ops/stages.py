@@ -4,8 +4,10 @@ The counterpart of ``futuresdr_tpu/ops/stages.py``. A :class:`Stage` is a
 function ``(carry, frame) -> (carry, out)`` on tensors; streaming state
 (filter history, carried taps) is the explicit carry, a tuple of tensors on
 the stage's device, so frame t+1 chains on frame t's carry with no host sync.
-A :class:`Pipeline` runs a chain of stages per frame. PyTorch runs eagerly,
-so there is no compile step: :meth:`Pipeline.fn` is the per-frame function.
+A :class:`Pipeline` runs a chain of stages per frame: :meth:`Pipeline.fn`
+is the eager per-frame function, :meth:`Pipeline.compile` the program a
+streamed dispatch replays (one CUDA graph for ``k`` chained frames on a card,
+:class:`CompiledPipeline`; the eager chain on the CPU).
 
 Carry trees have the same leaves, shapes and dtypes as the JAX stages on the
 CPU, so a carry converts across (``convert.carry_from_numpy``).
@@ -27,6 +29,7 @@ kernel), with the other single-chain stages: :func:`fftshift_stage`,
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Any, Callable, Optional, Sequence, Tuple
@@ -37,9 +40,9 @@ import torch
 from . import cuda_kernels
 from .xfer import torch_dtype
 
-__all__ = ["Stage", "Pipeline", "fir_stage", "fft_stage", "mag2_stage",
-           "fir_fft_stage", "resample_stage", "rotator_stage", "quad_demod_stage",
-           "xlating_fir_stage", "decimate_stage", "fftshift_stage", "log10_stage",
+__all__ = ["Stage", "Pipeline", "CompiledPipeline", "EagerProgram", "fir_stage",
+           "fft_stage", "mag2_stage", "fir_fft_stage", "resample_stage", "rotator_stage",
+           "quad_demod_stage", "xlating_fir_stage", "decimate_stage", "fftshift_stage", "log10_stage",
            "apply_stage", "channelizer_stage", "lora_demod_stage", "agc_stage",
            "moving_avg_stage"]
 
@@ -127,6 +130,33 @@ class Pipeline:
             self._fn = run
         return self._fn
 
+    def compile(self, frame_size: int, device, donate: bool = True, k: int = 1,
+                slots: int = 1):
+        """The per-dispatch program for ``frame_size``-sample frames on
+        ``device``, ``k`` frames a call: returns ``(fn, carry)`` with
+        ``fn(carry, x) -> (carry, y)``, ``x`` of shape ``[frame_size]`` (k =
+        1) or ``[k, frame_size]``, the k frames chained through the carry,
+        ``y`` of shape ``[out]`` or ``[k, out]``. The counterpart of the
+        reference's ``jax.jit`` in ``compile`` and its k-frame ``lax.scan``
+        in ``wired_fn(k)``.
+
+        On a CUDA device ``fn`` is a :class:`CompiledPipeline`: one
+        ``torch.cuda.CUDAGraph`` replay a call, its carry a set of static
+        device buffers the replay updates in place (the port's donation;
+        ``donate=False`` returns a copy instead), and ``slots`` input and
+        output buffers, one graph each, for a streamed caller's dispatch
+        groups in flight. A capture that fails raises: nothing runs eagerly
+        in its place. On the CPU ``fn`` is an :class:`EagerProgram`, the
+        eager chain looped over the k frames."""
+        if frame_size % self.frame_multiple:
+            raise ValueError(f"frame_size {frame_size} is not a multiple of "
+                             f"{self.frame_multiple}")
+        device = torch.device(device)
+        if device.type == "cuda":
+            fn = CompiledPipeline(self, frame_size, device, k, donate, slots)
+            return fn, fn.carry
+        return EagerProgram(self, frame_size, k, slots), self.init_carry(device)
+
     def out_items(self, in_items: int) -> int:
         q = Fraction(in_items) * self.ratio
         if q.denominator != 1:
@@ -157,6 +187,200 @@ class Pipeline:
         carries = list(carries)
         carries[idx] = s.update(carries[idx], **params)
         return tuple(carries)
+
+
+def _chain_k(run, k: int):
+    """``run`` over the ``k`` frames of ``x[k, n]``, the carry chained
+    frame to frame, the outputs stacked ``[k, out]``; ``run`` itself at
+    k = 1."""
+    if k == 1:
+        return run
+
+    def run_k(carries, x):
+        ys = []
+        for i in range(k):
+            carries, y = run(carries, x[i])
+            ys.append(y)
+        return carries, torch.stack(ys)
+
+    return run_k
+
+
+def _leaves(tree) -> list:
+    """The tensors of a carry tree (tuples and lists of tensors), in order."""
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from ``leaves``
+    (an iterator)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(sub, leaves) for sub in tree)
+    return next(leaves)
+
+
+def _clone(tree):
+    return _rebuild(tree, (t.clone() for t in _leaves(tree)))
+
+
+def _same_layout(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+
+
+# one capture at a time in the process: torch.cuda.graph synchronizes the
+# device and empties the allocator's cache as it begins
+_capture_lock = threading.Lock()
+
+
+class CompiledPipeline:
+    """:meth:`Pipeline.compile`'s program on a CUDA device.
+
+    One ``torch.cuda.CUDAGraph`` a slot runs the ``k`` frames of a dispatch
+    through every stage, carry chained, from the slot's input buffer
+    (:attr:`inputs`) into its output buffer (:attr:`outputs`), and writes
+    the new carry into the static buffers of :attr:`carry`, which every
+    slot shares (after the last stage, so no leaf is read after the buffer
+    it aliases has been overwritten; a leaf a stage passes through is the
+    buffer itself and is not copied). The slots' graphs share one memory
+    pool: they are replayed one at a time, on one stream.
+
+    A streamed caller keeps one slot a dispatch group in flight:
+    :meth:`dispatch` replays the slot's graph on what its H2D put in the
+    slot's input, and the slot's output is read by its D2H; the slot is
+    reused only once that D2H has landed. A call ``fn(carry, x)`` copies
+    ``x`` into slot 0's input, replays it and returns a copy of its output,
+    so the caller may hold it across calls.
+
+    A carry other than :attr:`carry` (the result of
+    :meth:`Pipeline.update_stage`, a fresh ``init_carry``) is written into
+    the static buffers with ``copy_`` on the current stream before the
+    replay, leaf by leaf where it differs: frames replayed before keep the
+    old values. A leaf whose shape, dtype or device changed makes the
+    program capture again; :attr:`captures` counts the captures.
+
+    Capture follows PyTorch's recipe: an eager warm-up on a side stream
+    with a copy of the carry first (it builds the kernels, the library plans
+    and every table a stage makes on first use, whose host copies a capture
+    forbids), then the slots' captures. :attr:`launches` holds the hand
+    kernels' launches a replay makes (``cuda_kernels.capturing``); each
+    replay adds them to ``cuda_kernels.launches``."""
+
+    def __init__(self, pipeline: Pipeline, frame_size: int, device: torch.device,
+                 k: int = 1, donate: bool = True, slots: int = 1):
+        self.pipeline = pipeline
+        self.frame_size = int(frame_size)
+        self.k = int(k)
+        self.device = device
+        self.donate = donate
+        self.captures = 0
+        self.launches: dict = {}
+        self.carry = pipeline.init_carry(device)
+        shape = (self.k, self.frame_size) if self.k > 1 else (self.frame_size,)
+        self.inputs = [torch.zeros(shape, dtype=torch_dtype(pipeline.in_dtype), device=device)
+                       for _ in range(int(slots))]
+        self._capture()
+
+    def _capture(self) -> None:
+        program = _chain_k(self.pipeline.fn(), self.k)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            program(_clone(self.carry), self.inputs[0])
+        cur.wait_stream(side)
+        graphs, outputs, pool = [], [], None
+        with _capture_lock, cuda_kernels.capturing() as counts:
+            for x in self.inputs:
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        new, y = program(self.carry, x)
+                        self._write_carry(new)
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        f"Pipeline.compile: the CUDA graph capture of "
+                        f"{[st.name for st in self.pipeline.stages]} failed (a stage "
+                        f"that syncs with the host, or copies host memory, inside "
+                        f"its fn cannot be captured): {e}") from e
+                pool = graph.pool()
+                graphs.append(graph)
+                outputs.append(y)
+        self._graphs, self.outputs = graphs, outputs
+        self.launches = {name: n // len(graphs) for name, n in counts.items() if n}
+        self.captures += 1
+
+    def _write_carry(self, new) -> None:
+        """Copy the new carry into the static buffers, inside the capture."""
+        static = _leaves(self.carry)
+        new = _leaves(new)
+        if len(new) != len(static):
+            raise ValueError("a stage changed the structure of its carry")
+        owned = {t.untyped_storage().data_ptr() for t in static}
+        # a new leaf that shares memory with a static buffer (other than
+        # being that buffer) is cloned first, so no copy below overwrites
+        # what a later copy still reads
+        new = [n if n is s or n.untyped_storage().data_ptr() not in owned else n.clone()
+               for n, s in zip(new, static)]
+        for n, s in zip(new, static):
+            if n is not s:
+                if not _same_layout(n, s):
+                    raise ValueError(f"a stage changed a carry leaf from "
+                                     f"{tuple(s.shape)} {s.dtype} to "
+                                     f"{tuple(n.shape)} {n.dtype} within a frame")
+                s.copy_(n)
+
+    def _load(self, carry) -> None:
+        """Make ``carry`` the program's state before the next replay."""
+        new, static = _leaves(carry), _leaves(self.carry)
+        if len(new) == len(static) and all(
+                n is s or _same_layout(n, s) for n, s in zip(new, static)):
+            for n, s in zip(new, static):
+                if n is not s:
+                    s.copy_(n)
+            return
+        # a leaf changed shape, dtype or device: new buffers, a new capture
+        ids = {id(t) for t in static}
+        self.carry = _rebuild(carry, (n if id(n) in ids else n.clone() for n in new))
+        self._capture()
+
+    def dispatch(self, slot: int, carry):
+        """Replay ``slot``'s graph on its input buffer: ``(carry, y)``, ``y``
+        the slot's output buffer, which its next replay overwrites."""
+        if carry is not self.carry:
+            self._load(carry)
+        self._graphs[slot].replay()
+        for name, n in self.launches.items():
+            cuda_kernels.launches[name] += n
+        return (self.carry if self.donate else _clone(self.carry)), self.outputs[slot]
+
+    def __call__(self, carry, x: torch.Tensor):
+        if x.shape != self.inputs[0].shape:
+            raise ValueError(f"compiled for input {tuple(self.inputs[0].shape)}, "
+                             f"got {tuple(x.shape)}")
+        self.inputs[0].copy_(x)
+        carry, y = self.dispatch(0, carry)
+        return carry, y.clone()
+
+
+class EagerProgram:
+    """:meth:`Pipeline.compile`'s program on the CPU: the eager chain looped
+    over the ``k`` frames of a call, with :class:`CompiledPipeline`'s slot
+    interface (``inputs``, :meth:`dispatch`) for a streamed caller."""
+
+    def __init__(self, pipeline: Pipeline, frame_size: int, k: int = 1, slots: int = 1):
+        self._run = _chain_k(pipeline.fn(), k)
+        shape = (k, frame_size) if k > 1 else (frame_size,)
+        self.inputs = [torch.zeros(shape, dtype=torch_dtype(pipeline.in_dtype))
+                       for _ in range(int(slots))]
+
+    def dispatch(self, slot: int, carry):
+        return self._run(carry, self.inputs[slot])
+
+    def __call__(self, carry, x: torch.Tensor):
+        return self._run(carry, x)
 
 
 def _merge_lti(stages: Sequence[Stage], in_dtype) -> list:

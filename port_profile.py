@@ -16,18 +16,39 @@ first profiled run in a process also pays the profiler's start-up, so its
 wall time and idle share read high.
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``:
-``python3 port_profile.py``. Exits nonzero without CUDA.
+``python3 port_profile.py [--k 1,4]``, ``--k`` the frames a dispatch
+(``TpuKernel(frames_per_dispatch=K)``) to run each chain at. Exits nonzero
+without CUDA.
 
-``python3 port_profile.py --count [--root DIR]`` only counts the kernels one
-resident 512,000-sample frame of the FM kernel chain launches, and of its
-rotator stage alone (``chip_smoke.kernels_a_frame``), with
-``futuresdr_tpu_torch`` imported from DIR, another checkout (say the parent
-commit, unpacked with ``git archive``), so that two versions are compared.
+``--root DIR`` imports ``futuresdr_tpu_torch`` from DIR, another checkout
+(say the parent commit, unpacked with ``git archive`` under ``build/``), so
+that two versions are compared on one card (parent, change, change, parent);
+a package whose ``TpuKernel`` has no ``frames_per_dispatch`` runs at K = 1
+only. The other modes:
+
+- ``--split [--runs N]``: the host time of a streamed 2^18 frame of the
+  spectrum chain (fused and pallas routes), split between its spans: the
+  ring read, the staging copy and pinned allocation, the H2D start, the
+  stages' host calls, the D2H start and wait, the emit into the output ring,
+  ``TpuKernel.work``'s own lines and the asyncio hand-off (the streaming
+  window less the time in ``work``); the median of N instrumented runs
+  beside an uninstrumented run's wall a frame, which shows what the
+  instrumentation costs. The functions are wrapped by name (``SPLIT_SPANS``),
+  so one script splits the parent and this checkout alike.
+- ``--resident``: resident rates, eager and (where the package has
+  ``Pipeline.compile``) compiled at each K, beside the card's time a frame.
+- ``--slots [--runs N]``: the compiled dispatch with a device copy in and
+  out against one graph per in-flight slot, on a bare transfer-and-replay
+  loop (this checkout only).
+- ``--count``: the kernels one resident 512,000-sample frame of the FM
+  kernel chain launches, and of its rotator stage alone
+  (``chip_smoke.kernels_a_frame``).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import subprocess
 import sys
@@ -87,7 +108,12 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_route(stages, frame: int, dev) -> dict:
+def profile_route(stages, frame: int, dev, k: int = 1, profiled: bool = True) -> dict:
+    """One streamed run of ``FRAMES`` frames at ``k`` frames a dispatch
+    (``k`` = 1 passes no ``frames_per_dispatch``, so a parent without it
+    runs too); with ``profiled``, under ``torch.profiler``."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
 
@@ -95,18 +121,22 @@ def profile_route(stages, frame: int, dev) -> dict:
     from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     fg = Flowgraph()
+    kw = {"frames_per_dispatch": k} if k > 1 else {}
     kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
-                     frames_in_flight=IN_FLIGHT)
+                     frames_in_flight=IN_FLIGHT, **kw)
     snk = NullSink(kern.pipeline.out_dtype)
     fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
     rt = Runtime()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else None
+    with prof if profiled else contextlib.nullcontext():
         t0 = time.perf_counter()
         rt.run(fg)
         wall_s = time.perf_counter() - t0
     rt.shutdown()
     if snk.n_received != kern.pipeline.out_items(FRAMES * frame):
         raise RuntimeError(f"NullSink got {snk.n_received} items")
+    if not profiled:
+        return {"wall_us": wall_s * 1e6}
     intervals, by_name = [], defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -119,15 +149,396 @@ def profile_route(stages, frame: int, dev) -> dict:
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]}
 
 
+# ---------------------------------------------------------------------------
+# --split: the streamed wall of one frame, split between its host spans
+# ---------------------------------------------------------------------------
+
+# (module, attribute, bucket): every function of the streamed path timed by
+# --split where the imported package has it (the names of the parent and of
+# this checkout both; a missing one is skipped). Each span counts its own
+# time without the spans it encloses, and only inside ``TpuKernel.work``.
+SPLIT_SPANS = (
+    ("futuresdr_tpu_torch.runtime.buffer", "StreamInput.slice", "ring read"),
+    ("futuresdr_tpu_torch.runtime.buffer", "StreamInput.tags", "ring read"),
+    ("futuresdr_tpu_torch.runtime.buffer", "StreamInput.consume", "ring read"),
+    ("futuresdr_tpu_torch.runtime.buffer", "StreamInput.finished", "ring read"),
+    ("futuresdr_tpu_torch.tpu.kernel_block", "TpuKernel._stage", "staging copy, pinned allocation"),
+    ("futuresdr_tpu_torch.tpu.kernel_block", "TpuKernel._flush_accum",
+     "staging copy, pinned allocation"),
+    ("futuresdr_tpu_torch.ops.xfer", "start_device_transfer", "staging copy, pinned allocation"),
+    ("futuresdr_tpu_torch.ops.xfer", "start_device_transfer_parts",
+     "staging copy, pinned allocation"),
+    ("futuresdr_tpu_torch.ops.xfer", "start_host_transfer", "D2H start, pinned allocation"),
+    ("futuresdr_tpu_torch.tpu.kernel_block", "emit_with_tags", "emit into the ring"),
+    ("futuresdr_tpu_torch.ops.stages", "CompiledPipeline.dispatch", "stages' host calls"),
+)
+# what the transfers' ``finish()`` closures cost, by the function that made them
+SPLIT_FINISH = {"start_device_transfer": "H2D start", "start_device_transfer_parts": "H2D start",
+                "start_host_transfer": "D2H wait"}
+
+
+class _Spans:
+    """Exclusive host time by bucket, on the thread running ``TpuKernel.work``."""
+
+    def __init__(self):
+        import threading
+        self.local = threading.local()
+        self.totals = defaultdict(float)
+        self.work_ns = 0
+        self.first_ns = None
+        self.last_ns = 0
+
+    def enter(self, bucket) -> bool:
+        stack = getattr(self.local, "stack", None)
+        if not stack and bucket != "work":
+            return False                        # outside TpuKernel.work
+        if stack is None:
+            stack = self.local.stack = []
+        now = time.perf_counter_ns()
+        if stack:
+            stack[-1][2] += now - stack[-1][1]  # the parent pauses
+        stack.append([bucket, now, 0])
+        return True
+
+    def leave(self) -> None:
+        stack = self.local.stack
+        bucket, t0, acc = stack.pop()
+        now = time.perf_counter_ns()
+        self.totals[bucket] += acc + now - t0
+        if stack:
+            stack[-1][1] = now                  # the parent resumes
+        else:
+            self.work_ns += now - self._work_t0
+            self.last_ns = now
+
+    def wrap(self, fn, bucket, finish_bucket=None):
+        spans = self
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            if not spans.enter(bucket):
+                return fn(*a, **kw)
+            try:
+                out = fn(*a, **kw)
+            finally:
+                spans.leave()
+            return spans.wrap(out, finish_bucket) if finish_bucket else out
+        return timed
+
+    def wrap_work(self, fn):
+        spans = self
+
+        async def work(*a, **kw):
+            now = time.perf_counter_ns()
+            if spans.first_ns is None:
+                spans.first_ns = now
+            spans._work_t0 = now
+            spans.enter("work")
+            try:
+                return await fn(*a, **kw)
+            finally:
+                spans.leave()
+        return work
+
+
+def _timed_streams(spans):
+    """``torch.cuda.stream(s)`` whose block counts as the H2D start, or as
+    the D2H start inside a host transfer."""
+    import torch
+    real = torch.cuda.stream
+
+    class Timed:
+        def __init__(self, s):
+            self.ctx = real(s)
+            stack = getattr(spans.local, "stack", None)
+            self.bucket = "D2H start, pinned allocation" if stack and \
+                stack[-1][0].startswith("D2H") else "H2D start"
+
+        def __enter__(self):
+            self.on = spans.enter(self.bucket)
+            return self.ctx.__enter__()
+
+        def __exit__(self, *exc):
+            r = self.ctx.__exit__(*exc)
+            if self.on:
+                spans.leave()
+            return r
+    return real, Timed
+
+
+def split_route(stages, frame: int, dev, k: int) -> dict:
+    """One streamed run of ``FRAMES`` frames with the host spans timed:
+    µs per frame by bucket; the asyncio hand-off is the streaming window
+    (first ``work`` call to last) less the time inside ``work``."""
+    import importlib
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    from futuresdr_tpu_torch.ops import stages as st
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel, kernel_block
+    spans, undo = _Spans(), []
+
+    def patch(owner, name, new):
+        undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, new)
+
+    for mod, attr, bucket in SPLIT_SPANS:
+        owner = importlib.import_module(mod)
+        *path, name = attr.split(".")
+        for p in path:
+            owner = getattr(owner, p, None)
+        if hasattr(owner, name):
+            patch(owner, name, spans.wrap(getattr(owner, name), bucket,
+                                          SPLIT_FINISH.get(name)))
+    patch(kernel_block.TpuKernel, "work", spans.wrap_work(kernel_block.TpuKernel.work))
+    real_stream, timed = _timed_streams(spans)
+    patch(torch.cuda, "stream", timed)
+    # the stages' host calls: the eager per-frame function (a package
+    # without Pipeline.compile; ``CompiledPipeline.dispatch`` above otherwise)
+    patch(st.Pipeline, "fn", lambda self, _f=st.Pipeline.fn:
+          spans.wrap(_f(self), "stages' host calls"))
+    try:
+        kw = {"frames_per_dispatch": k} if k > 1 else {}
+        kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
+                         frames_in_flight=IN_FLIGHT, **kw)
+        snk = NullSink(kern.pipeline.out_dtype)
+        fg = Flowgraph()
+        fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
+        rt = Runtime()
+        t0 = time.perf_counter_ns()
+        rt.run(fg)
+        wall_ns = time.perf_counter_ns() - t0
+        rt.shutdown()
+    finally:
+        for owner, name, old in reversed(undo):
+            setattr(owner, name, old)
+    if snk.n_received != kern.pipeline.out_items(FRAMES * frame):
+        raise RuntimeError(f"NullSink got {snk.n_received} items")
+    window = spans.last_ns - spans.first_ns
+    per = {b: ns / 1e3 / FRAMES for b, ns in spans.totals.items()}
+    per["TpuKernel.work, its own lines"] = per.pop("work", 0.0)
+    per["asyncio hand-off (window less work)"] = (window - spans.work_ns) / 1e3 / FRAMES
+    return {"run_us": wall_ns / 1e3 / FRAMES, "window_us": window / 1e3 / FRAMES,
+            "buckets": per}
+
+
+def split(card: str, dev, ks, runs: int) -> None:
+    """The split of a streamed frame of the spectrum chain (fused and pallas
+    routes, 2^18), median of ``runs`` runs per bucket, beside an
+    uninstrumented run's wall per frame."""
+    import statistics
+
+    import futuresdr_tpu_torch
+    from futuresdr_tpu_torch.dsp import firdes
+    root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    for route in ("fused", "pallas"):
+        for k in ks:
+            plain = []
+            for _ in range(runs):
+                r = profile_route(_stages(route, taps), FRAME, dev, k=k, profiled=False)
+                plain.append(r["wall_us"] / FRAMES)
+            got = [split_route(_stages(route, taps), FRAME, dev, k) for _ in range(runs)]
+            med = {b: statistics.median(g["buckets"].get(b, 0.0) for g in got)
+                   for b in sorted({b for g in got for b in g["buckets"]})}
+            label = f"split {route} frame={FRAME} K={k}"
+            print(f"{label} ({root}): run wall {statistics.median(plain):.1f} us/frame "
+                  f"uninstrumented, {statistics.median(g['run_us'] for g in got):.1f} "
+                  f"instrumented, streaming window "
+                  f"{statistics.median(g['window_us'] for g in got):.1f} (median of {runs}) "
+                  f"[{card}]")
+            for b, us in sorted(med.items(), key=lambda kv: -kv[1]):
+                print(f"  {us:9.1f} us/frame  {b}")
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its helpers drive
+    whichever ``futuresdr_tpu_torch`` is first on the path)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _takes_k() -> bool:
+    """Whether the imported ``TpuKernel`` takes ``frames_per_dispatch``."""
+    import inspect
+
+    from futuresdr_tpu_torch.tpu import TpuKernel
+    return "frames_per_dispatch" in inspect.signature(TpuKernel.__init__).parameters
+
+
+RESIDENT_CHAINS = ("spectrum pallas", "spectrum fused", "fm kernel", "fm app", "pfb pallas")
+
+
+def _kernels_us(run) -> float:
+    """The summed device time of every kernel and copy ``run()`` puts on the
+    card, from ``torch.profiler`` (one call, after the caller's warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+
+
+def resident(card: str, dev, ks) -> None:
+    """Resident input Msamples/s of each chain at each of chip_smoke.py's
+    frames, eager and, where the package has ``Pipeline.compile``, compiled
+    at each K, over the same 12 chained frames (``chip_smoke.cuda_ms``, the
+    median of 5), each beside the card's time a frame for the same calls in
+    the same run (``chip_smoke.card_ms``: the calls queued behind a device
+    sleep, so the host's time is hidden) and the frame's device time as the
+    sum of its kernels' and copies' times (``torch.profiler``)."""
+    import torch
+
+    import futuresdr_tpu_torch
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    cs = _chip_smoke()
+    root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 40)
+    n = cs.HOST_DISPATCHES * max(cs.HOST_K)
+    for label, make, frames, _ in cs.host_chains(taps):
+        if label not in RESIDENT_CHAINS:
+            continue
+        for f in frames:
+            x_all = cs.host_input(label, n * f, gen, dev)
+            xs = list(x_all.split(f))
+            pipe = Pipeline(make(), np.complex64)
+            runs = {}
+            fn, state = pipe.fn(), [pipe.init_carry(dev)]
+
+            def eager(fn=fn, state=state):
+                c = state[0]
+                for x in xs:
+                    c, _ = fn(c, x)
+                state[0] = c
+
+            runs["eager"] = eager
+            for k in ks if hasattr(pipe, "compile") else ():
+                cfn, cstate = pipe.compile(f, dev, k=k)
+                cstate = [cstate]
+
+                def compiled(fn=cfn, state=cstate,
+                             groups=list(x_all.view(-1, k, f)) if k > 1 else xs):
+                    c = state[0]
+                    for x in groups:
+                        c, _ = fn(c, x)
+                    state[0] = c
+
+                runs[f"compiled K={k}"] = compiled
+            row = {}
+            for mode, run in runs.items():
+                msps = n * f / (cs.cuda_ms(run, 5) * 1e-3) / 1e6
+                row[mode] = (msps, cs.card_ms(run) * 1e3 / n, _kernels_us(run) / n)
+            print(f"resident {label} frame={f} ({root.name}): " + ", ".join(
+                f"{m} {msps:.1f} Msamples/s (card {us:.1f}, kernels {kus:.1f} us a frame)"
+                for m, (msps, us, kus) in row.items()) + f" [{card}]")
+            del x_all, xs, runs
+
+
+SLOT_CHAINS = (("spectrum fused", 1 << 18), ("fm kernel", 512_000))
+
+
+def slots(card: str, dev, rounds: int) -> None:
+    """Two designs of the streamed dispatch, on a bare loop of ``FRAMES``
+    frames with ``IN_FLIGHT`` in flight (pinned host frames in and out, the
+    H2D and D2H on side streams, as ``ops/xfer.py`` runs them; no flowgraph):
+
+    - "copy": one graph, a device copy in and a clone out (a call
+      ``fn(carry, x)`` of ``Pipeline.compile``'s program);
+    - "slots": one graph per in-flight slot, sharing the carry buffers
+      (``compile(slots=IN_FLIGHT)``, as ``TpuKernel`` runs it): the H2D lands
+      in the slot's input, the D2H reads the slot's output, and a slot is
+      reused only after its D2H.
+
+    Prints the host wall a frame of each, alternating over ``rounds`` rounds,
+    and the largest difference between the two designs' last outputs."""
+    import torch
+
+    import futuresdr_tpu_torch
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    cs = _chip_smoke()
+    root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    chains = {c[0]: c[1] for c in cs.host_chains(taps)}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 41)
+    cur = torch.cuda.current_stream(dev)
+    h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for label, f in SLOT_CHAINS:
+        pipe = Pipeline(chains[label](), np.complex64)
+        one, _ = pipe.compile(f, dev)
+        slotted, _ = pipe.compile(f, dev, slots=IN_FLIGHT)
+        host_in = [cs.host_input(label, f, gen, dev).cpu().pin_memory()
+                   for _ in range(IN_FLIGHT)]
+        host_out = [torch.empty(tuple(one.outputs[0].shape), dtype=one.outputs[0].dtype,
+                                pin_memory=True) for _ in range(IN_FLIGHT)]
+
+        def loop(dispatch):
+            """``dispatch(i, carry) -> (carry, y)`` for each frame; the host
+            waits for slot i's last D2H before reusing it."""
+            done, c = [None] * IN_FLIGHT, pipe.init_carry(dev)
+            for t in range(FRAMES):
+                i = t % IN_FLIGHT
+                if done[i] is not None:
+                    done[i].synchronize()
+                c, y = dispatch(i, c)
+                d2h.wait_stream(cur)
+                with torch.cuda.stream(d2h):
+                    host_out[i].copy_(y, non_blocking=True)
+                    done[i] = torch.cuda.Event()
+                    done[i].record(d2h)
+                y.record_stream(d2h)
+            torch.cuda.synchronize()
+
+        def h2d_into(dst, i):
+            with torch.cuda.stream(h2d):
+                dst.copy_(host_in[i], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(h2d)
+            cur.wait_event(ev)
+
+        def copy_dispatch(i, c):
+            x = torch.empty(f, dtype=torch.complex64, device=dev)
+            h2d_into(x, i)
+            x.record_stream(cur)
+            return one(c, x)
+
+        def slot_dispatch(i, c):
+            h2d_into(slotted.inputs[i], i)
+            return slotted.dispatch(i, c)
+
+        times = defaultdict(list)
+        last = {}
+        for r in range(rounds):
+            order = (("copy", copy_dispatch), ("slots", slot_dispatch))
+            for name, dispatch in order if r % 2 == 0 else order[::-1]:
+                t0 = time.perf_counter()
+                loop(dispatch)
+                times[name].append((time.perf_counter() - t0) / FRAMES * 1e6)
+                last[name] = torch.cat([h.clone() for h in host_out])
+        diff = float((last["copy"] - last["slots"]).abs().max())
+        print(f"slots {label} frame={f} ({root.name}): host wall a frame, {rounds} rounds: "
+              + "; ".join(f"{n} {' / '.join(f'{t:.1f}' for t in ts)} us"
+                          for n, ts in times.items())
+              + f"; max |copy - slots| {diff:.3e} [{card}]")
+
+
 def count(card: str, dev) -> None:
     """Kernels a resident frame of the FM kernel chain and of its rotator
     stage, counted by ``chip_smoke.kernels_a_frame`` (this checkout's), on
     whichever ``futuresdr_tpu_torch`` is first on the path."""
     import futuresdr_tpu_torch
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     from futuresdr_tpu_torch.ops.stages import rotator_stage
     frames = list(cs.fm_iq(3 * FM_FRAME, dev).split(FM_FRAME))
     root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
@@ -144,8 +555,14 @@ def count(card: str, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--count", action="store_true")
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--resident", action="store_true")
+    ap.add_argument("--slots", action="store_true")
+    ap.add_argument("--k", default="1", help="frames a dispatch, a comma list")
+    ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     args = ap.parse_args()
+    ks = [int(k) for k in args.k.split(",")]
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -160,14 +577,27 @@ def main() -> int:
     if args.count:
         count(card, dev)
         return 0
+    if not _takes_k():
+        ks = [1]                # a package without megabatch K
+    if args.split:
+        split(card, dev, ks, args.runs)
+        return 0
+    if args.resident:
+        resident(card, dev, ks)
+        return 0
+    if args.slots:
+        slots(card, dev, args.runs)
+        return 0
+    import futuresdr_tpu_torch
+    root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1].name
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
     runs = [(route, _stages(route, taps), FRAME) for route in ("os", "pallas", "fused")]
     runs += [(f"fm {chain}", _fm_stages(chain), FM_FRAME) for chain in ("app", "kernel")]
     runs.append(("pfb pallas", _pfb_stages(), FRAME))
-    for label, stages, frame in runs:
-        r = profile_route(stages, frame, dev)
+    for (label, stages, frame), k in ((r, k) for r in runs for k in ks):
+        r = profile_route(stages, frame, dev, k=k)
         per_frame = 1.0 / (FRAMES + 1)          # + the kernel's warm-up frame
-        print(f"profile {label} frame={frame}: wall {r['wall_us'] / 1e3:.1f} ms, device busy "
+        print(f"profile {label} frame={frame} K={k} ({root}): wall {r['wall_us'] / 1e3:.1f} ms, device busy "
               f"{r['busy_us'] / 1e3:.2f} ms, idle share {1 - r['busy_us'] / r['wall_us']:.3f}; "
               f"per frame: wall {r['wall_us'] * per_frame:.1f} us, busy "
               f"{r['busy_us'] * per_frame:.1f} us [{card}]")

@@ -22,8 +22,7 @@ from scipy import signal as sps
 from futuresdr_tpu.apps.fm_receiver import front_end_stages as j_front_end
 from futuresdr_tpu.dsp import firdes
 from futuresdr_tpu.ops import stages as J
-from futuresdr_tpu.ops.pallas_kernels import (pallas_poly_fir, pallas_quad_demod,
-                                              pallas_rotator)
+from futuresdr_tpu.ops import pallas_kernels as pk
 from futuresdr_tpu_torch.apps.fm_receiver import front_end_stages as t_front_end
 from futuresdr_tpu_torch.convert import carry_from_numpy
 from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -32,6 +31,15 @@ from futuresdr_tpu_torch.ops import stages as T
 # One intra-op thread: the suite runs in several worker processes at once, and
 # torch's default of one thread a core in each would oversubscribe the cores.
 torch.set_num_threads(1)
+
+# The JAX kernels, still in interpret mode, each under one jit: one XLA
+# program per shape (the complex cases' two planes share it), where an eager
+# interpret-mode call compiles each of its operations apart.
+pallas_rotator = jax.jit(pk.pallas_rotator, static_argnames=("block", "interpret"))
+pallas_quad_demod = jax.jit(pk.pallas_quad_demod,
+                            static_argnames=("gain", "block", "interpret"))
+pallas_poly_fir = jax.jit(pk.pallas_poly_fir,
+                          static_argnames=("block", "interpret", "precision"))
 
 
 def _c64(rng, n):

@@ -517,3 +517,305 @@ def test_pfb_kernel_takes_every_plan_layout_on_card(cuda_device, variant):
     torch.cuda.synchronize()
     assert ck.launches["pfb"] == before + 1
     assert _rel_err(got, ck.pfb_plain(hist, x, hc.t())) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the compiled program (Pipeline.compile: one CUDA graph replay a dispatch)
+# and the streamed host path (megabatch K, the pinned arena)
+# ---------------------------------------------------------------------------
+
+def _fm_tone(n, offset):
+    """A 1 kHz tone FM-modulated at 75 kHz deviation, ``offset`` Hz off the
+    tuned frequency at 1 Msps (chip_smoke.py's ``fm_iq``), complex64."""
+    t = np.arange(n) / 1e6
+    ph = 2 * np.pi * 75e3 * np.cumsum(np.sin(2 * np.pi * 1000.0 * t)) / 1e6 \
+        + 2 * np.pi * offset * t
+    return np.exp(1j * ph).astype(np.complex64)
+
+
+def _chain(name, offset=100e3):
+    """``(stages, frame)`` of each chain chip_smoke.py drives, at a reduced
+    frame (FM at ``offset``)."""
+    from futuresdr_tpu_torch.apps.fm_receiver import front_end_stages
+    from futuresdr_tpu_torch.apps.spectrum import spectrum_stages
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import stages as T
+    taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    route = name.split()[-1]
+    if name.startswith("spectrum "):
+        if route == "app":
+            return spectrum_stages(2048), 1 << 15
+        if route == "fused":
+            return [T.fir_fft_stage(taps, 2048), T.mag2_stage()], 1 << 16
+        return [T.fir_stage(taps, impl=route), T.fft_stage(2048), T.mag2_stage()], 1 << 16
+    if name.startswith("pfb "):
+        return [T.channelizer_stage(64, impl=route)], 1 << 14
+    if route == "app":
+        return front_end_stages(1e6, offset), 32_000
+    k = route == "kernel"
+    return [T.rotator_stage(-2 * np.pi * offset / 1e6, name="tuner",
+                            impl="pallas" if k else "xla"),
+            T.fir_stage(firdes.lowpass(0.5 / 4 * 0.8, 128), decim=4,
+                        impl="pallas" if k else "poly", name="chan"),
+            T.quad_demod_stage(250e3 / (2 * np.pi * 75e3), impl="pallas" if k else "xla"),
+            T.resample_stage(24, 125, impl="pallas" if k else "poly")], 32_000
+
+
+_CHAINS = ["spectrum os", "spectrum pallas", "spectrum fused", "spectrum app",
+           "fm app", "fm kernel", "fm plain", "pfb matmul", "pfb pallas"]
+
+
+def _input(name, n, rng, offset=100e3):
+    return _fm_tone(n, offset) if name.startswith("fm ") else _c64(rng, n)
+
+
+def _eager(pipe, frames, dev, retune=None):
+    """``pipe.fn`` over ``frames``, carry chained; ``retune = (at, stage,
+    params)`` updates the carry before frame ``at``."""
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for i, x in enumerate(frames):
+        if retune is not None and i == retune[0]:
+            carry = pipe.update_stage(carry, retune[1], **retune[2])
+        carry, y = fn(carry, x)
+        outs.append(y.reshape(-1))
+    return torch.cat(outs)
+
+
+def _compiled(fn, carry, frames, k, pipe=None, retune=None):
+    """The compiled ``fn`` over ``frames``, ``k`` a dispatch."""
+    outs = []
+    for d in range(len(frames) // k):
+        if retune is not None and d * k == retune[0]:
+            carry = pipe.update_stage(carry, retune[1], **retune[2])
+        x = torch.stack(frames[d * k:(d + 1) * k]) if k > 1 else frames[d]
+        carry, y = fn(carry, x)
+        outs.append(y.reshape(-1))
+    return torch.cat(outs)
+
+
+def _abs_err(got, ref):
+    return float((got.to(torch.complex128) - ref.to(torch.complex128)).abs().max())
+
+
+def _max_err(got, ref):
+    return _abs_err(got, ref) / float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name", _CHAINS)
+def test_compiled_replay_equals_eager_on_card(cuda_device, name, k):
+    """Three chained dispatches of ``k`` frames replay one graph each: the
+    output equals the eager chain's at the kernels' limit (1e-5 of the
+    peak), the program captured once, and each replay added the launches
+    the graph recorded to the wrappers' counts."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(40)
+    stages, frame = _chain(name)
+    pipe = T.Pipeline(stages, np.complex64)
+    host = _input(name, 3 * k * frame, rng)
+    frames = list(torch.from_numpy(host).to(cuda_device).split(frame))
+    fn, carry = pipe.compile(frame, cuda_device, k=k)
+    before = dict(ck.launches)
+    got = _compiled(fn, carry, frames, k)
+    torch.cuda.synchronize()
+    assert {n: ck.launches[n] - before[n] for n in ck.launches} == \
+        {n: 3 * fn.launches.get(n, 0) for n in ck.launches}
+    kernel_of = {"spectrum pallas": "fir", "spectrum fused": "fir_fft",
+                 "fm kernel": "quad_demod", "pfb pallas": "pfb"}
+    if name in kernel_of:
+        assert fn.launches[kernel_of[name]] == k
+    assert fn.captures == 1
+    want = _eager(pipe, frames, cuda_device)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _max_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _CHAINS)
+def test_compiled_chained_frames_equal_one_long_frame_on_card(cuda_device, name):
+    """Twelve frames in three K = 4 replays against the eager chain over one
+    long frame (FM at offset 0, where every phase ramp is exact): 1e-5 of
+    the peak, FM 1e-4 (chip_smoke.py's FM_CHAIN_TOL, unit-amplitude audio)."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(41)
+    stages, frame = _chain(name, offset=0.0)
+    pipe = T.Pipeline(stages, np.complex64)
+    x = torch.from_numpy(_input(name, 12 * frame, rng, offset=0.0)).to(cuda_device)
+    fn, carry = pipe.compile(frame, cuda_device, k=4)
+    got = _compiled(fn, carry, list(x.split(frame)), 4)
+    want = _eager(pipe, [x], cuda_device)
+    if name.startswith("fm "):
+        assert _abs_err(got, want) <= 1e-4
+    else:
+        assert _max_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,stage,params", [
+    ("spectrum pallas", 0, "taps"), ("spectrum fused", 0, "taps"),
+    ("pfb pallas", 0, "prototype"), ("fm app", "tuner", "phase_inc"),
+    ("fm kernel", "tuner", "phase_inc"), ("fm app", "tuner", "taps")])
+def test_retune_through_the_compiled_carry_needs_no_capture_on_card(
+        cuda_device, name, stage, params):
+    """A retune between dispatches writes the new leaves into the program's
+    buffers: no capture, and the output equals the eager chain retuned at
+    the same frame."""
+    from futuresdr_tpu_torch.blocks.pfb import pfb_default_taps
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(42)
+    stages, frame = _chain(name)
+    kw = {"taps": {"taps": firdes.lowpass(0.05, 64 if name.startswith("spectrum")
+                                          else 128).astype(np.float32)},
+          "prototype": {"taps": 0.5 * pfb_default_taps(64)},
+          "phase_inc": {"phase_inc": -2 * np.pi * 150e3 / 1e6}}[params]
+    pipe = T.Pipeline(stages, np.complex64)
+    frames = list(torch.from_numpy(_input(name, 6 * frame, rng)).to(cuda_device)
+                  .split(frame))
+    fn, carry = pipe.compile(frame, cuda_device, k=2)
+    got = _compiled(fn, carry, frames, 2, pipe, retune=(2, stage, kw))
+    assert fn.captures == 1
+    want = _eager(pipe, frames, cuda_device, retune=(2, stage, kw))
+    if name.startswith("fm "):
+        assert _abs_err(got, want) <= 1e-4
+    else:
+        assert _max_err(got, want) <= 1e-5
+    unretuned = _eager(pipe, frames, cuda_device)
+    assert _max_err(got[-len(got) // 3:], unretuned[-len(got) // 3:]) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spectrum fused", "fm kernel"])
+def test_slots_share_the_carry_and_keep_their_outputs_on_card(cuda_device, name):
+    """Four slots, each its own graph over its own input and output buffers,
+    replayed in turn on the shared carry: every slot's output stays as its
+    replay left it while the others replay, and the four together equal the
+    eager chain over the same frames."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(46)
+    stages, frame = _chain(name)
+    pipe = T.Pipeline(stages, np.complex64)
+    frames = list(torch.from_numpy(_input(name, 8 * frame, rng)).to(cuda_device)
+                  .split(frame))
+    fn, carry = pipe.compile(frame, cuda_device, slots=4)
+    assert len(fn.inputs) == len(fn.outputs) == 4 and fn.captures == 1
+    got = []
+    for lap in range(2):
+        ys = []
+        for slot in range(4):
+            fn.inputs[slot].copy_(frames[4 * lap + slot])
+            carry, y = fn.dispatch(slot, carry)
+            assert y is fn.outputs[slot]
+            ys.append(y)
+        got += [y.clone() for y in ys]          # all four read after the lap
+    want = _eager(pipe, frames, cuda_device)
+    assert _max_err(torch.cat(got), want) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_a_program_that_does_not_donate_returns_carries_of_their_own_on_card(cuda_device):
+    """``donate=False``: each call returns a copy of the carry it left, so
+    an earlier carry keeps its values after later replays."""
+    from futuresdr_tpu_torch.ops import stages as T
+    pipe = T.Pipeline([T.rotator_stage(0.25, impl="pallas")], np.complex64)
+    fn, carry = pipe.compile(4096, cuda_device, donate=False)
+    x = torch.ones(4096, dtype=torch.complex64, device=cuda_device)
+    first, _ = fn(carry, x)
+    second, _ = fn(first, x)
+    assert first is not fn.carry and second is not fn.carry
+    ph = [float(c[0][0]) for c in (first, second)]
+    want = [float(np.float32(np.remainder(np.float32(0.25) * 4096 * n, 2 * np.pi)))
+            for n in (1, 2)]
+    assert ph == pytest.approx(want, abs=1e-3)
+
+
+@pytest.mark.gpu
+def test_a_changed_carry_shape_captures_again_on_card(cuda_device):
+    """A carry leaf of another shape (here the overlap-save FIR's unused tap
+    copy) makes new buffers and a new capture; the counter says so."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(43)
+    pipe = T.Pipeline([T.fir_stage(np.ones(16, np.float32) / 16, fft_len=1024)],
+                      np.complex64)
+    frame = 4 * pipe.frame_multiple
+    frames = list(torch.from_numpy(_c64(rng, 3 * frame)).to(cuda_device).split(frame))
+    fn, carry = pipe.compile(frame, cuda_device)
+    carry, y0 = fn(carry, frames[0])
+    (H, tt, tail), = carry
+    carry = ((H, torch.zeros(32, device=cuda_device), tail),)
+    carry, y1 = fn(carry, frames[1])
+    assert fn.captures == 2 and fn.carry[0][1].shape == (32,)
+    carry, y2 = fn(carry, frames[2])
+    assert fn.captures == 2
+    want = _eager(pipe, frames, cuda_device)
+    assert _max_err(torch.cat([y0, y1, y2]), want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["window", "resampler", "lora"])
+def test_a_cold_pipeline_captures_on_card(cuda_device, which):
+    """Stages that build a device table on first use (the FFT window, the
+    resampler's weights, the LoRa chirps) were never run: compile's warm-up
+    builds them before the capture, which forbids their host copies."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(44)
+    stages, dtype, frame = {
+        "window": ([T.fft_stage(256, window="hann"), T.mag2_stage()], np.complex64, 4096),
+        "resampler": ([T.resample_stage(24, 125)], np.float32, 4000),
+        "lora": ([T.lora_demod_stage(7)], np.complex64, 4096)}[which]
+    pipe = T.Pipeline(stages, dtype)
+    x = _c64(rng, 2 * frame)
+    if dtype == np.float32:
+        x = x.real.copy()
+    frames = list(torch.from_numpy(x).to(cuda_device).split(frame))
+    fn, carry = pipe.compile(frame, cuda_device)
+    got = _compiled(fn, carry, frames, 1)
+    want = _eager(pipe, frames, cuda_device)
+    assert torch.equal(got, want) if which == "lora" else _max_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_a_stage_that_syncs_makes_compile_raise_on_card(cuda_device):
+    """A host sync inside a stage's fn cannot be captured: compile raises,
+    nothing runs eagerly in its place, and the card works on."""
+    from futuresdr_tpu_torch.ops import stages as T
+    sync = T.apply_stage(lambda x: x * float(x.real.abs().max()), name="sync")
+    with pytest.raises(RuntimeError, match="capture"):
+        T.Pipeline([sync], np.complex64).compile(4096, cuda_device)
+    fn, carry = T.Pipeline([T.mag2_stage()], np.complex64).compile(4096, cuda_device)
+    x = torch.full((4096,), 2 + 0j, dtype=torch.complex64, device=cuda_device)
+    _, y = fn(carry, x)
+    assert float(y.sum()) == 4 * 4096
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spectrum fused", "fm kernel", "pfb pallas"])
+def test_megabatch_streams_equal_one_frame_dispatch_on_card(cuda_device, name):
+    """``VectorSource -> TpuKernel -> VectorSink`` at K = 4 and K = 1 over
+    eleven frames and a partial one (the last group partial at EOS): the
+    same items, equal at the kernels' limit; the arena served the
+    staging buffers from its pool after the first lap."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops.arena import arena
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    rng = np.random.default_rng(45)
+    stages, frame = _chain(name)
+    host = _input(name, 11 * frame + frame // 3 + 7, rng)
+    out = {}
+    for k in (1, 4):
+        hits = arena().hits
+        kern = TpuKernel(_chain(name)[0], np.complex64, frame_size=frame,
+                         inst=TpuInstance(cuda_device), frames_in_flight=3,
+                         frames_per_dispatch=k)
+        fg = Flowgraph()
+        snk = VectorSink(kern.pipeline.out_dtype)
+        fg.connect(VectorSource(host), kern, snk)
+        Runtime().run(fg)
+        out[k] = torch.from_numpy(snk.items())
+        assert kern.frames_dispatched == 12
+        assert arena().hits > hits
+    assert out[4].shape == out[1].shape
+    assert _max_err(out[4], out[1]) <= 1e-5

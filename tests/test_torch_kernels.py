@@ -7,19 +7,27 @@ seed. The CUDA kernels themselves are held against the plain versions on the
 card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy import signal as sps
 
-from futuresdr_tpu.ops.pallas_kernels import (pallas_fir, pallas_fir_continue,
-                                              pallas_fir_fft)
+from futuresdr_tpu.ops import pallas_kernels as pk
 from futuresdr_tpu_torch.ops import cuda_kernels as ck
 
 # One intra-op thread: the suite runs in several worker processes at once, and
 # torch's default of one thread a core in each would oversubscribe the cores.
 torch.set_num_threads(1)
+
+# The JAX kernels, still in interpret mode, each under one jit: one XLA
+# program per shape, where an eager interpret-mode call compiles each of its
+# operations apart (about twice the time).
+pallas_fir = jax.jit(pk.pallas_fir, static_argnames=("block", "interpret", "precision"))
+pallas_fir_continue = jax.jit(pk.pallas_fir_continue, static_argnames=("block", "precision"))
+pallas_fir_fft = jax.jit(pk.pallas_fir_fft,
+                         static_argnames=("n_fft", "block", "interpret", "precision"))
 
 
 def _c64(rng, n):
@@ -122,10 +130,12 @@ def test_fir_fft_plain_bf16_against_pallas_bf16():
     SNR >= 40 dB between them, each >= 40 dB from the f32 result."""
     rng = np.random.default_rng(12)
     taps = rng.standard_normal(33).astype(np.float32)
-    hist, x = _c64(rng, 32), _c64(rng, 256 * 6)
+    # the shapes of the (256, 33, 5, 2) case above, whose f32 program this
+    # reuses
+    hist, x = _c64(rng, 32), _c64(rng, 256 * 5)
     args = (jnp.asarray(hist), jnp.asarray(x), jnp.asarray(taps), 256)
-    ref_bf = np.asarray(pallas_fir_fft(*args, block=3, precision="bf16"))
-    ref_32 = np.asarray(pallas_fir_fft(*args, block=3))
+    ref_bf = np.asarray(pallas_fir_fft(*args, block=2, precision="bf16"))
+    ref_32 = np.asarray(pallas_fir_fft(*args, block=2))
     t = (torch.from_numpy(hist), torch.from_numpy(x), torch.from_numpy(taps), 256)
     got_bf = ck.fir_fft(*t, precision="bf16").numpy()
     assert _snr_db(got_bf, ref_bf) >= 40.0

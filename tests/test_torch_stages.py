@@ -7,6 +7,8 @@ JAX Pallas kernels run in interpret mode; the port's kernel wrappers run
 their plain versions on CPU tensors.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -57,10 +59,12 @@ def _run_port(pipe, frames, carry=None):
     return carry, outs
 
 
-def _pair(stages_of, in_dtype, frames, rtol, atol):
-    """Run the JAX and the port pipeline built by ``stages_of(module)`` over
-    ``frames`` and compare frame by frame; returns both pipelines."""
-    jp, tp = J.Pipeline(stages_of(J), in_dtype), T.Pipeline(stages_of(T), in_dtype)
+def _pair(stages_of, in_dtype, frames, rtol, atol, jp=None):
+    """Run the JAX and the port pipeline built by ``stages_of(module)`` (the
+    JAX one given as ``jp`` where a test shares it) over ``frames`` and
+    compare frame by frame; returns both pipelines."""
+    jp = J.Pipeline(stages_of(J), in_dtype) if jp is None else jp
+    tp = T.Pipeline(stages_of(T), in_dtype)
     assert tp.frame_multiple == jp.frame_multiple
     assert tp.out_dtype == jp.out_dtype
     _, ya = _run_jax(jp, frames)
@@ -146,12 +150,19 @@ def _chain(m, route, fft_len=8192):
             m.mag2_stage()]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_chain(route, fft_len):
+    """One JAX pipeline per chain, so the tests that run the same chain at
+    the same frame share its compiled program (``_run_jax``)."""
+    return J.Pipeline(_chain(J, route, fft_len=fft_len), np.complex64)
+
+
 @pytest.mark.parametrize("route", ["os", "pallas", "fused"])
 def test_spectrum_chain_matches_jax(route):
     """The north-star chain (64 taps, n_fft 256, 8192-sample frames)."""
     rng = np.random.default_rng(4)
     jp, tp = _pair(lambda m: _chain(m, route), np.complex64, _frames(rng, 3, 8192),
-                   rtol=1e-3, atol=1e-2)
+                   rtol=1e-3, atol=1e-2, jp=_jax_chain(route, 8192))
     for n in (8192, 3 * 8192):
         assert tp.out_items(n) == jp.out_items(n)
 
@@ -188,9 +199,9 @@ def test_merge_lti_cascade_matches_jax():
 def test_tap_swap_through_update_stage_matches_jax(route):
     rng = np.random.default_rng(6)
     new_taps = firdes.lowpass(0.05, 64).astype(np.float32)
-    frames = _frames(rng, 4, 1024)
-    jp = J.Pipeline(_chain(J, route, fft_len=1024), np.complex64)
-    tp = T.Pipeline(_chain(T, route, fft_len=1024), np.complex64)
+    frames = _frames(rng, 4, 8192)
+    jp = _jax_chain(route, 8192)
+    tp = T.Pipeline(_chain(T, route), np.complex64)
     ja, ya = _run_jax(jp, frames[:2])
     tb, yb = _run_port(tp, frames[:2])
     # host round trip: keeps the jitted JAX program's argument placement (an
@@ -211,9 +222,9 @@ def test_carry_converts_from_jax(route):
     """JAX runs 2 frames; its carry converts to the port's; both run on for
     2 more frames and agree."""
     rng = np.random.default_rng(7)
-    frames = _frames(rng, 4, 1024)
-    jp = J.Pipeline(_chain(J, route, fft_len=1024), np.complex64)
-    tp = T.Pipeline(_chain(T, route, fft_len=1024), np.complex64)
+    frames = _frames(rng, 4, 8192)
+    jp = _jax_chain(route, 8192)
+    tp = T.Pipeline(_chain(T, route), np.complex64)
     ja, _ = _run_jax(jp, frames[:2])
     leaves = _leaves(ja)
     port_leaves = [t.numpy() for t in jax.tree_util.tree_leaves(tp.init_carry("cpu"))]
