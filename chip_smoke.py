@@ -95,6 +95,31 @@ both routes) at the frames of their resident phases:
 Every streamed phase runs through the compiled program and the arena, and
 the ``kernels`` line counts the launches the replays made.
 
+The message plane, the REST control port, the apps' ``main()`` and the
+double-mapped circular buffer (``runtime/buffer/circular.py`` over
+``csrc/host/ringbuf.cpp``, built with ``g++``; the script fails if it does
+not build, so every streamed phase runs on it):
+
+18. ``MessageSource -> MessageCopy -> MessageSink``, then ``handle.call``,
+    ``post``, ``describe`` and ``metrics`` against a running streamed
+    ``TpuKernel`` (the fused spectrum chain), its taps retuned through its
+    ``ctrl`` port;
+19. the FM app's card flowgraph (its default) with the Seify dummy radio (its tone at
+    0.1·fs), the tuner at 75 kHz moved to 90 kHz by a POST of
+    ``{"stage": "tuner", "phase_inc": θ}`` to the REST control port: the
+    reply is ``Ok``, each audio frame's mean (the discriminator's DC level)
+    is the gain's level for 25 kHz before and 10 kHz after within 2%, a
+    malformed map is answered ``InvalidValue``; the round trip and the
+    frames from the POST to the first retuned frame are printed;
+20. both apps' ``main()`` as subprocesses: the FM receiver on the card (its
+    default) with ``--wav`` and ``25000`` then ``q`` on stdin (exit 0, a WAV with audio),
+    the spectrum app with ``--samples`` and ``--ws-port`` read by a
+    standard-library websocket client (a 2048-float spectrum peaking at the
+    dummy tone's bin);
+21. the streamed spectrum fused chain at 2^18 and FM kernel chain at 512,000
+    on the circular buffer and on the ring: bit-equal outputs, and the
+    streamed input rates at K = 1 and 4 on each.
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -1004,11 +1029,20 @@ def kernels_a_frame(stages, frames, dev) -> list:
     for x in frames[:-1]:
         carry, _ = fn(carry, x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(carry, frames[-1])
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    # torch.cuda._sleep's spin_kernel marks a profile that recorded the card
+    # at all: now and then CUPTI records nothing, which is not zero kernels
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn(carry, frames[-1])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if any("spin_kernel" in n for n in names):
+            return [n for n in names if "spin_kernel" not in n]
+        print(f"profile: the profiler recorded no kernel, not even its marker "
+              f"(attempt {attempt + 1} of 3)")
+    raise SmokeError("the profiler recorded no kernel in 3 attempts")
 
 
 def phase_fm_kernel_count(dev) -> None:
@@ -1794,6 +1828,357 @@ def phase_megabatch_streamed(dev, taps) -> dict:
     return rates
 
 
+# ---------------------------------------------------------------------------
+# phases 18-21: the message plane, the REST control port, the apps' main()
+# and the circular buffer
+# ---------------------------------------------------------------------------
+
+MSG_COUNT = 50               # messages through MessageSource -> Copy -> Sink
+REST_OFFSETS = (75e3, 90e3)  # the FM tuner before and after the REST retune
+REST_LEVEL_TOL = 0.02        # relative, on each frame's mean discriminator level
+REST_FRAMES_BEFORE = 8       # frames streamed before the retune is sent
+REST_FRAMES_AFTER = 12       # frames streamed after it
+MAIN_TIMEOUT_S = 300         # each app's main() as a subprocess
+SPECTRUM_MAIN_SAMPLES = 1 << 26
+FM_MAIN_WAV_FRAMES = 2       # audio frames in the WAV before "q" is sent
+CIRC_FRAMES = 6              # frames (and a partial one) of the bit-equality runs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rest(url: str, body=None) -> tuple:
+    """``(status, parsed JSON body, round-trip seconds)`` of one request."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="POST" if data else "GET",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            raw, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    return status, json.loads(raw), time.perf_counter() - t0
+
+
+def ws_first_frame(port: int, timeout: float) -> tuple:
+    """Connect to a websocket server on ``port`` (retrying until it listens),
+    do the RFC 6455 handshake and return the first frame's
+    ``(opcode, payload)``."""
+    import base64
+    import hashlib
+    import os
+    import socket
+    import struct
+
+    def exact(sock, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            check(bool(chunk), "websocket: server closed the connection")
+            buf += chunk
+        return buf
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+            break
+        except ConnectionRefusedError:
+            check(time.monotonic() < deadline, f"websocket: nothing listens on {port}")
+            time.sleep(0.05)
+    with sock:
+        key = base64.b64encode(os.urandom(16)).decode()
+        sock.sendall((f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                      f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                      "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while not head.endswith(b"\r\n\r\n"):
+            head += exact(sock, 1)
+        accept = base64.b64encode(hashlib.sha1(
+            key.encode() + b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11").digest()).decode()
+        check(head.startswith(b"HTTP/1.1 101") and accept.encode() in head,
+              f"websocket: bad handshake {head!r}")
+        b0, b1 = exact(sock, 2)
+        n = b1 & 0x7F
+        if n == 126:
+            n, = struct.unpack("!H", exact(sock, 2))
+        elif n == 127:
+            n, = struct.unpack("!Q", exact(sock, 8))
+        payload = exact(sock, n)
+        mask = os.urandom(4)
+        close = struct.pack("!H", 1000)
+        sock.sendall(struct.pack("!BB", 0x88, 0x82) + mask
+                     + bytes(c ^ mask[i % 4] for i, c in enumerate(close)))
+        return b0 & 0x0F, payload
+
+
+def phase_message_plane(dev, taps, taps2) -> dict:
+    """``MessageSource -> MessageCopy -> MessageSink``, then the handle's
+    ``call``, ``post``, ``describe`` and ``metrics`` against a running
+    streamed ``TpuKernel`` (the fused spectrum chain at 2^18) on the card;
+    returns the handle calls' round-trip seconds."""
+    from futuresdr_tpu_torch import Flowgraph, Pmt, Runtime
+    from futuresdr_tpu_torch.blocks import (Head, MessageCopy, MessageSink, MessageSource,
+                                            NullSink, NullSource)
+    fg = Flowgraph()
+    src, cp, snk = MessageSource(Pmt.usize(7), 0.001, count=MSG_COUNT), MessageCopy(), \
+        MessageSink()
+    fg.connect_message(src, "out", cp, "in")
+    fg.connect_message(cp, "out", snk, "in")
+    Runtime().run(fg)
+    check(snk.received == [Pmt.usize(7)] * MSG_COUNT,
+          f"message plane: {len(snk.received)} messages, want {MSG_COUNT}")
+
+    frame = FRAMES[0]
+    kern = _stream_kernel("fused", taps, frame, dev)
+    fg = Flowgraph()
+    nsnk = NullSink(np.float32)
+    fg.connect(NullSource(np.complex64), Head(np.complex64, 1 << 50), kern, nsnk)
+    rt = Runtime()
+    running = rt.start(fg)
+    h = running.handle
+    deadline = time.monotonic() + 60
+    while kern.frames_dispatched < 4:
+        check(time.monotonic() < deadline, "message plane: the stream did not start")
+        time.sleep(0.001)
+    t0 = time.perf_counter()
+    r = h.call_sync(kern, "ctrl", Pmt.map({"stage": 0, "taps": taps2}))
+    call_s = time.perf_counter() - t0
+    check(r == Pmt.ok(), f"message plane: ctrl call answered {r!r}")
+    h.post_sync(kern, "ctrl", Pmt.map({"stage": 0, "taps": taps}))
+    bad = h.call_sync(kern, "ctrl", Pmt.map({"stage": "nope", "taps": taps}))
+    check(bad == Pmt.invalid_value(), f"message plane: a bad stage answered {bad!r}")
+    desc = h.describe_sync()
+    names = [b.type_name for b in desc.blocks]
+    check(names == ["NullSource", "Head", "TpuKernel", "NullSink"],
+          f"message plane: describe gave {names}")
+    check(desc.blocks[2].message_inputs == ["ctrl"] and desc.blocks[2].blocking,
+          f"message plane: TpuKernel described as {desc.blocks[2]}")
+    t0 = time.perf_counter()
+    m = h.metrics_sync()
+    metrics_s = time.perf_counter() - t0
+    km = m["TpuKernel_2"]
+    check(km["messages_handled"] == 3 and km["work_calls"] > 0
+          and km["items_in"]["in"] >= 4 * frame,
+          f"message plane: TpuKernel metrics {km}")
+    running.stop_sync()
+    rt.shutdown()
+    check(nsnk.n_received > 0, "message plane: nothing reached the sink")
+    print(f"message plane: {MSG_COUNT} messages through MessageSource -> MessageCopy -> "
+          f"MessageSink; handle on a streamed TpuKernel: ctrl call {call_s * 1e3:.3f} ms, "
+          f"metrics {metrics_s * 1e3:.3f} ms, {kern.frames_dispatched} frames dispatched")
+    return {"call_ms": call_s * 1e3, "metrics_ms": metrics_s * 1e3}
+
+
+def phase_rest_retune(dev, wav_path) -> dict:
+    """The FM app's card flowgraph with the Seify dummy radio
+    (unthrottled, its tone at 0.1·fs), tuner at 75 kHz, retuned to 90 kHz by
+    a POST of ``{"stage": "tuner", "phase_inc": θ}`` to the REST control
+    port. Each audio frame's mean is the discriminator's DC level, which the
+    gain gives for the tone's offset from the tuner: 25 kHz before, 10 kHz
+    after. Returns the round trip and the frames from the POST to the first
+    frame at the new level."""
+    import wave
+
+    from futuresdr_tpu_torch import Pmt, Runtime
+    from futuresdr_tpu_torch.apps.fm_receiver import SAMPLE_RATE, build_flowgraph
+    from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    before, after = REST_OFFSETS
+    fg, tk, sink = build_flowgraph(None, input_rate=FM_RATE, offset=before,
+                                   audio_path=str(wav_path), use_tpu=True,
+                                   inst=TpuInstance(dev))
+    rt = Runtime()
+    cp = ControlPort(rt.handle, bind="127.0.0.1:0")
+    cp.start()
+    running = rt.start(fg)
+    try:
+        deadline = time.monotonic() + 120
+        while tk.frames_dispatched < REST_FRAMES_BEFORE:
+            check(time.monotonic() < deadline, "rest: the FM stream did not start")
+            time.sleep(0.001)
+        url = f"{cp.url}/api/fg/0/block/1/call/ctrl/"
+        f0 = tk.frames_dispatched
+        body = Pmt.map({"stage": "tuner", "phase_inc": -2 * np.pi * after / FM_RATE})
+        status, reply, rtt = rest(url, body.to_json())
+        check((status, reply) == (200, "Ok"), f"rest: retune answered {status} {reply!r}")
+        status, bad, _ = rest(url, {"MapStrPmt": {"stage": {"String": "tuner"},
+                                                  "phase_inc": {"String": "x"}}})
+        check((status, bad) == (200, "InvalidValue"),
+              f"rest: a malformed map answered {status} {bad!r}")
+        status, bad, _ = rest(url, {"F64": 1.0})
+        check(bad == "InvalidValue", f"rest: a non-map answered {bad!r}")
+        while tk.frames_dispatched < f0 + REST_FRAMES_AFTER:
+            check(time.monotonic() < deadline, "rest: the FM stream stopped")
+            time.sleep(0.001)
+        desc = rest(f"{cp.url}/api/fg/0/")[1]
+        check([b["type_name"] for b in desc["blocks"]] ==
+              ["SeifySource", "TpuKernel", "WavSink"], f"rest: fg described as {desc}")
+    finally:
+        running.stop_sync()
+        cp.stop()
+        rt.shutdown()
+    with wave.open(str(wav_path), "rb") as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16) / 32767.0
+    out_frame = tk.out_frame
+    levels = pcm[:len(pcm) // out_frame * out_frame].reshape(-1, out_frame).mean(axis=1)
+    gain = SAMPLE_RATE / (2 * np.pi * 75e3)
+    want = [gain * 2 * np.pi * (0.1 * FM_RATE - off) / SAMPLE_RATE for off in REST_OFFSETS]
+    near_new = [i for i, v in enumerate(levels)
+                if i >= f0 and abs(v - want[1]) < abs(v - want[0])]
+    check(bool(near_new), f"rest: no frame reached the new level {want[1]:.4f}: {levels}")
+    f1 = near_new[0]
+    old, new = levels[2:f0], levels[f1 + 2:]
+    print(f"rest: tuner {before / 1e3:.0f} -> {after / 1e3:.0f} kHz by POST, round trip "
+          f"{rtt * 1e3:.3f} ms; POST after frame {f0}, first frame at the new level "
+          f"{f1} ({f1 - f0} frames later); DC level {np.median(old):.5f} before (want "
+          f"{want[0]:.5f}), {np.median(new):.5f} after (want {want[1]:.5f}), "
+          f"{len(levels)} frames")
+    check(len(old) >= 4 and len(new) >= 4, f"rest: {len(old)} frames before the "
+          f"retune and {len(new)} after it")
+    for lv, w_ in ((old, want[0]), (new, want[1])):
+        err = np.abs(lv - w_).max() / abs(w_)
+        check(err <= REST_LEVEL_TOL, f"rest: DC level off by {err:.4f} of {w_:.5f} "
+                                     f"(tol {REST_LEVEL_TOL})")
+    return {"rtt_ms": rtt * 1e3, "frames": f1 - f0}
+
+
+def phase_app_mains(wav_path) -> None:
+    """Both apps' ``main()`` as a user starts them, each a subprocess under
+    a timeout: the FM receiver on the card (its default) with ``--wav`` and ``25000`` then ``q``
+    on its stdin (``q`` once the WAV holds audio), and the spectrum app with
+    ``--samples`` and ``--ws-port`` read by a websocket client."""
+    import os
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "futuresdr_tpu_torch.apps.fm_receiver",
+           "--wav", str(wav_path)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        proc.stdin.write("25000\n")
+        proc.stdin.flush()
+        deadline = time.monotonic() + MAIN_TIMEOUT_S
+        want_bytes = 44 + 2 * 12_576 * FM_MAIN_WAV_FRAMES
+        while not (wav_path.exists() and wav_path.stat().st_size >= want_bytes):
+            check(proc.poll() is None, f"fm main exited early ({proc.returncode})")
+            check(time.monotonic() < deadline, "fm main: no audio in the WAV")
+            time.sleep(0.05)
+        proc.stdin.write("q\n")
+        proc.stdin.flush()
+        out, _ = proc.communicate(timeout=MAIN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    size = wav_path.stat().st_size
+    print(f"fm main: {' '.join(cmd[1:])} exited {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s, WAV {size} bytes")
+    check(proc.returncode == 0 and size > 44, f"fm main: exit {proc.returncode}, WAV "
+                                              f"{size} bytes; output:\n{out[-4000:]}")
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "futuresdr_tpu_torch.apps.spectrum", "--samples",
+           str(SPECTRUM_MAIN_SAMPLES), "--ws-port", str(port)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env)
+    try:
+        opcode, payload = ws_first_frame(port, MAIN_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=MAIN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    spec = np.frombuffer(payload, np.float32)
+    peak = int(np.argmax(spec)) if len(spec) else -1
+    print(f"spectrum main: {' '.join(cmd[1:])} exited {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s; first websocket frame: opcode {opcode}, "
+          f"{len(spec)} floats, peak bin {peak} (want {round(0.1 * N_FFT)})")
+    check(proc.returncode == 0, f"spectrum main: exit {proc.returncode}:\n{out[-4000:]}")
+    check(opcode == 2 and len(spec) == N_FFT and peak == round(0.1 * N_FFT),
+          "spectrum main: the first spectrum is not the dummy tone's")
+
+
+def phase_circular(dev, taps) -> dict:
+    """The streamed chains on the circular buffer (the default) against the
+    pure-Python ring: ``VectorSource -> TpuKernel -> VectorSink`` gives the
+    same items bit for bit, then ``NullSource -> Head -> TpuKernel ->
+    NullSink`` at K = 1 and 4 on each buffer (median of STREAM_RUNS, the
+    buffers in turns). Returns input Msps per (chain, frame, K, buffer)."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import (Head, NullSink, NullSource, VectorSink,
+                                            VectorSource)
+    from futuresdr_tpu_torch.runtime import default_buffer
+    from futuresdr_tpu_torch.runtime.buffer.circular import CircularWriter
+    from futuresdr_tpu_torch.runtime.buffer.ring import RingWriter
+    check(default_buffer() is CircularWriter, "circular: not the default buffer")
+    buffers = {"ring": RingWriter, "circular": CircularWriter}
+    chains = [("spectrum fused", lambda: chain_stages("fused", taps), FRAMES[0]),
+              ("fm kernel", lambda: fm_stages("kernel"), FM_FRAMES[0])]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rates = {}
+
+    def connect(fg, blocks, cls):
+        for a, b in zip(blocks, blocks[1:]):
+            fg.connect_stream(a, a.stream_outputs[0].name, b, b.stream_inputs[0].name,
+                              buffer=cls)
+
+    for label, make, f in chains:
+        host = host_input(label, CIRC_FRAMES * f + f // 3 + 5, gen, dev).cpu().numpy()
+        outs = {}
+        for name, cls in buffers.items():
+            kern = _host_kernel_block(label, make, f, dev, 1)
+            vsnk = VectorSink(kern.pipeline.out_dtype)
+            fg = Flowgraph()
+            connect(fg, [VectorSource(host), kern, vsnk], cls)
+            rt = Runtime()
+            rt.run(fg)
+            rt.shutdown()
+            check(type(kern.input.reader._w if cls is CircularWriter
+                       else kern.input.reader._writer) is cls
+                  and type(kern.output.writer) is cls,
+                  f"circular: {label} did not run on the {name} buffer")
+            outs[name] = vsnk.items()
+        equal = outs["ring"].shape == outs["circular"].shape and \
+            np.array_equal(outs["ring"], outs["circular"])
+        print(f"circular {label} frame={f}: {len(outs['ring'])} items on the ring, "
+              f"{len(outs['circular'])} on the circular buffer, bit-equal {equal}")
+        check(equal, f"circular: {label} differs between the ring and the circular buffer")
+        n_items = STREAM_FRAMES * f
+        for k in HOST_K:
+            runs = {name: [] for name in buffers}
+            for i in range(STREAM_RUNS * 2):
+                name = ("ring", "circular", "circular", "ring")[i % 4]
+                if len(runs[name]) == STREAM_RUNS:
+                    name = "circular" if name == "ring" else "ring"
+                kern = _host_kernel_block(label, make, f, dev, k)
+                snk = NullSink(kern.pipeline.out_dtype)
+                fg = Flowgraph()
+                connect(fg, [NullSource(np.complex64), Head(np.complex64, n_items), kern,
+                             snk], buffers[name])
+                rt = Runtime()
+                t0 = time.perf_counter()
+                rt.run(fg)
+                runs[name].append(time.perf_counter() - t0)
+                rt.shutdown()
+                want = kern.pipeline.out_items(n_items)
+                check(snk.n_received == want, f"circular: {label} K={k} on the {name} "
+                                              f"buffer: {snk.n_received} items, want {want}")
+            for name, ts in runs.items():
+                rates[(label, f, k, name)] = n_items / statistics.median(ts) / 1e6
+    return rates
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -1812,6 +2197,7 @@ def _stall_report(what: str) -> None:
     import os
 
     from futuresdr_tpu_torch.runtime.block import WrappedKernel
+    from futuresdr_tpu_torch.runtime.buffer.circular import CircularWriter
     from futuresdr_tpu_torch.runtime.buffer.ring import RingWriter
     from futuresdr_tpu_torch.tpu import TpuKernel
     err = sys.stderr
@@ -1836,6 +2222,12 @@ def _stall_report(what: str) -> None:
             print(f"ring {o.dtype} cap {o.capacity}: wpos {o._wpos} finished "
                   f"{o._finished} readers "
                   f"{[(r.pos, r.detached) for r in o._readers]}", file=err)
+        elif isinstance(o, CircularWriter):
+            lib = o._lib
+            print(f"circular {o.dtype} cap {o.capacity}: wpos {lib.fsdr_ring_wpos(o._ring)} "
+                  f"finished {o._finished} readers "
+                  f"{[(lib.fsdr_ring_rpos(o._ring, r.idx), r.detached) for r in o._readers]}",
+                  file=err)
     err.flush()
     os._exit(4)
 
@@ -1897,6 +2289,13 @@ def main(argv=None) -> int:
     empty_lib = empty_done()
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(p.name for p in paths)} for sm_90a")
+    # every streamed phase runs on the double-mapped circular buffer: its
+    # library builds from csrc/host/ here, or the check fails (phase 21)
+    from futuresdr_tpu_torch.runtime import default_buffer
+    from futuresdr_tpu_torch.runtime.buffer import circular
+    check(circular.available() and default_buffer() is circular.CircularWriter,
+          "the circular buffer's library did not build: the streamed phases would run "
+          "on the pure-Python ring")
     if stress_runs:
         stress(dev, stress_runs)
         return 0
@@ -1950,6 +2349,19 @@ def main(argv=None) -> int:
     compiled = path_phase("compiled", all_kernels, phase_compiled, dev, taps)
     path_phase("compiled_retune", all_kernels, phase_compiled_retune, dev, taps)
     megabatch = path_phase("megabatch", all_kernels, phase_megabatch_streamed, dev, taps)
+
+    # 18. the message plane, and the handle on a streamed TpuKernel
+    message = path_phase("message", ("fir_fft",), phase_message_plane, dev, taps, taps2)
+    # 19. a ctrl retune over REST into the FM app's device chain (no hand
+    #     kernel on the app's chain); 20. both apps' main() as subprocesses
+    rest_wav = _build.BUILD_DIR.parent / "fm_rest.wav"
+    rest_retune = phase_rest_retune(dev, rest_wav)
+    rest_wav.unlink()
+    main_wav = _build.BUILD_DIR.parent / "fm_main.wav"
+    phase_app_mains(main_wav)
+    main_wav.unlink()
+    # 21. the circular buffer against the ring
+    circ = path_phase("circular", ("fir_fft",) + FM_KERNELS, phase_circular, dev, taps)
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -2017,6 +2429,13 @@ def main(argv=None) -> int:
     for (label, f, k), msps in megabatch.items():
         print(f"rate {label} streamed frame={f} in-flight={IN_FLIGHT} K={k} (median of "
               f"{STREAM_RUNS}): {msps:.1f} input Msamples/s [{card_line}]")
+    for (label, f, k, buf), msps in circ.items():
+        print(f"rate {label} streamed frame={f} in-flight={IN_FLIGHT} K={k} buffer={buf} "
+              f"(median of {STREAM_RUNS}): {msps:.1f} input Msamples/s [{card_line}]")
+    print(f"rest: ctrl retune round trip {rest_retune['rtt_ms']:.3f} ms, "
+          f"{rest_retune['frames']} frames from the POST to the first retuned frame; "
+          f"handle ctrl call {message['call_ms']:.3f} ms, metrics "
+          f"{message['metrics_ms']:.3f} ms [{card_line}]")
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

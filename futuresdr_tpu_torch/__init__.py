@@ -15,12 +15,15 @@ import torch
 
 from .config import config
 from .log import logger
-from .runtime import Flowgraph, FlowgraphError, Kernel, Runtime
+from .runtime import (Flowgraph, FlowgraphError, Kernel, Mocker, Runtime,
+                      message_handler)
+from .types import Pmt
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "logger", "Flowgraph", "FlowgraphError", "Kernel", "Runtime",
-           "blocks", "convert", "dsp", "ops", "runtime", "tpu"]
+__all__ = ["config", "logger", "Flowgraph", "FlowgraphError", "Kernel", "Mocker",
+           "Pmt", "Runtime", "message_handler", "blocks", "convert", "dsp", "hw", "ops",
+           "runtime", "tpu", "types"]

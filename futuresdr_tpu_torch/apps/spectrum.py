@@ -1,14 +1,16 @@
-"""Spectrum analyzer on the port's compute plane.
+"""Spectrum analyzer: the port's counterpart of ``futuresdr_tpu/apps/spectrum.py``.
 
-The counterpart of ``futuresdr_tpu/apps/spectrum.py``: a 2048-point FFT,
-|x|², an exponential moving average across spectra and 10·log10, run as one
-:class:`~futuresdr_tpu_torch.tpu.TpuKernel` on the card over frames of
-``max(16·fft_size, 2^15)`` samples.
+Reference: ``examples/spectrum`` (seify source → Fft(2048) → |x|² →
+MovingAvg → WebsocketSink). The compute chain runs either on CPU blocks
+(``Fft``, ``Apply``, ``MovingAvg``, ``Apply``) or as one
+:class:`~futuresdr_tpu_torch.tpu.TpuKernel` on the card (FFT, |x|², EMA with
+decay 0.1, 10·log10 over frames of ``max(16·fft_size, 2^15)`` samples),
+feeding a websocket for a GUI, a vector sink or a null sink. The default
+source is the Seify dummy radio (a tone at 0.1·fs in noise).
 
-Not ported yet (ROADMAP Queue 1 item 4, the apps' host surfaces): the Seify
-dummy radio behind ``source=None``, the CPU block path behind
-``use_tpu=False`` (``Fft``, ``Apply``, ``MovingAvg``), the websocket sink
-behind ``ws_port`` and ``main()``, which needs all three.
+Run: ``python -m futuresdr_tpu_torch.apps.spectrum --ws-port 9001`` (the
+card), ``--cpu`` for the CPU blocks. ``--bf16`` and ``--autotune`` are
+ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -17,15 +19,14 @@ from typing import Optional
 
 import numpy as np
 
-from ..blocks import Head, NullSink, VectorSink
-from ..runtime import Flowgraph
+from ..blocks import (Apply, Fft, Head, MovingAvg, NullSink, SeifyBuilder, VectorSink,
+                      WebsocketSink)
+from ..runtime import Flowgraph, Runtime
 from ..tpu import TpuInstance, TpuKernel
 
-__all__ = ["FFT_SIZE", "spectrum_stages", "build_flowgraph"]
+__all__ = ["FFT_SIZE", "spectrum_stages", "build_flowgraph", "main"]
 
 FFT_SIZE = 2048
-
-_ITEM = "ROADMAP Queue 1 item 4 (the apps' host surfaces)"
 
 
 def spectrum_stages(fft_size: int = FFT_SIZE):
@@ -38,23 +39,63 @@ def spectrum_stages(fft_size: int = FFT_SIZE):
 def build_flowgraph(source=None, *, use_tpu: bool = True, fft_size: int = FFT_SIZE,
                     ws_port: Optional[int] = None, n_samples: Optional[int] = None,
                     collect: bool = False, inst: Optional[TpuInstance] = None):
-    """``source → [Head] → TpuKernel(spectrum chain) → VectorSink (collect) or
-    NullSink``; returns ``(flowgraph, sink)``. ``inst`` is the device
-    (``None``: ``cuda:0``)."""
-    if source is None:
-        raise NotImplementedError(f"spectrum with the Seify dummy source: {_ITEM}")
-    if not use_tpu:
-        raise NotImplementedError(f"spectrum on the CPU block path: {_ITEM}")
-    if ws_port:
-        raise NotImplementedError(f"spectrum to a websocket sink: {_ITEM}")
+    """``source → [Head] → chain → sink``; returns ``(flowgraph, sink)``: the
+    ``WebsocketSink`` with ``ws_port`` (its ``bound_port`` is set once the
+    flowgraph runs; 0 takes a free port), else a ``VectorSink``
+    (``collect``) or a ``NullSink``. ``source=None`` is the Seify dummy
+    radio; ``inst`` is the device of ``use_tpu`` (``None``: ``cuda:0``)."""
     fg = Flowgraph()
+    if source is None:
+        source = SeifyBuilder().args("driver=dummy,throttle=false").build_source()
     last = source
     if n_samples:
         head = Head(np.complex64, n_samples)
         fg.connect(last, head)
         last = head
-    chain = TpuKernel(spectrum_stages(fft_size), np.complex64,
-                      frame_size=max(16 * fft_size, 1 << 15), inst=inst)
-    sink = VectorSink(np.float32) if collect else NullSink(np.float32)
-    fg.connect(last, chain, sink)
+    if use_tpu:
+        chain = TpuKernel(spectrum_stages(fft_size), np.complex64,
+                          frame_size=max(16 * fft_size, 1 << 15), inst=inst)
+        fg.connect(last, chain)
+        last = chain
+    else:
+        fft = Fft(fft_size)
+        mag = Apply(lambda x: (x.real ** 2 + x.imag ** 2), np.complex64, np.float32)
+        avg = MovingAvg(fft_size, width=3, decay=0.1)
+        log = Apply(lambda x: 10.0 * np.log10(np.maximum(x, 1e-20)), np.float32)
+        fg.connect(last, fft, mag, avg, log)
+        last = log
+    if ws_port is not None:
+        sink = WebsocketSink(ws_port, np.float32, chunk_items=fft_size)
+    elif collect:
+        sink = VectorSink(np.float32)
+    else:
+        sink = NullSink(np.float32)
+    fg.connect(last, sink)
     return fg, sink
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description="Spectrum analyzer (PyTorch/CUDA port)")
+    p.add_argument("--args", default="driver=dummy,throttle=false")
+    p.add_argument("--fft", type=int, default=FFT_SIZE)
+    p.add_argument("--cpu", action="store_true", help="use CPU blocks instead of the card")
+    p.add_argument("--ws-port", type=int, default=9001)
+    p.add_argument("--samples", type=int, default=None)
+    p.add_argument("--autotune", action="store_true",
+                   help="sweep device frame sizes before starting (not ported)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 FFT precision for display (not ported)")
+    a = p.parse_args(argv)
+    for flag in ("bf16", "autotune"):
+        if getattr(a, flag):
+            raise NotImplementedError(f"spectrum --{flag}: ROADMAP Queue 1 item 7 "
+                                      f"(precision and tuning)")
+    src = SeifyBuilder().args(a.args).build_source()
+    fg, _ = build_flowgraph(src, use_tpu=not a.cpu, fft_size=a.fft,
+                            ws_port=a.ws_port, n_samples=a.samples)
+    Runtime().run(fg)
+
+
+if __name__ == "__main__":
+    main()

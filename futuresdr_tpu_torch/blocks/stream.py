@@ -1,11 +1,13 @@
-"""Stream utility blocks: ``Head`` and ``StreamDeinterleaver`` (copies of
-``futuresdr_tpu/blocks/stream.py``)."""
+"""Stream utility blocks: ``Head``, ``MovingAvg`` and ``StreamDeinterleaver``
+(copies of ``futuresdr_tpu/blocks/stream.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..runtime.kernel import Kernel
 
-__all__ = ["Head", "StreamDeinterleaver"]
+__all__ = ["Head", "MovingAvg", "StreamDeinterleaver"]
 
 
 class Head(Kernel):
@@ -59,4 +61,43 @@ class StreamDeinterleaver(Kernel):
                 o.produce(k)
             self.input.consume(k * self.n)
         if self.input.finished() and self.input.available() < self.n:
+            io.finished = True
+
+
+class MovingAvg(Kernel):
+    """Width-N sliding sum/average over interleaved frames (`moving_avg.rs`).
+
+    Averages ``width`` consecutive frames of length ``frame_len`` (e.g. FFT rows) with
+    exponential decay, emitting one averaged frame every ``width`` inputs.
+    """
+
+    def __init__(self, frame_len: int, width: int = 3, decay: float = 0.1, dtype=np.float32):
+        super().__init__()
+        self.input = self.add_stream_input("in", dtype, min_items=frame_len)
+        self.output = self.add_stream_output("out", dtype, min_items=frame_len)
+        self.frame_len = frame_len
+        self.width = width
+        self.decay = decay
+        self._acc = np.zeros(frame_len, dtype=np.float64)
+        self._count = 0
+
+    async def work(self, io, mio, meta):
+        inp = self.input.slice()
+        out = self.output.slice()
+        progressed = True
+        while progressed:
+            progressed = False
+            if len(inp) >= self.frame_len:
+                frame = inp[:self.frame_len]
+                self._acc = self._acc * (1.0 - self.decay) + frame * self.decay
+                self._count += 1
+                self.input.consume(self.frame_len)
+                inp = self.input.slice()
+                if self._count >= self.width and len(out) >= self.frame_len:
+                    out[:self.frame_len] = self._acc
+                    self.output.produce(self.frame_len)
+                    out = self.output.slice()
+                    self._count = 0
+                progressed = True
+        if self.input.finished() and len(inp) < self.frame_len:
             io.finished = True

@@ -2,8 +2,10 @@
 
 A reduced copy of ``futuresdr_tpu/config.py``: defaults, then a
 ``FUTURESDR_TPU_<FIELD>`` environment variable per field (the reference's
-env layer; its TOML layers are not carried over), e.g.
-``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4`` or ``FUTURESDR_TPU_HOST_ARENA=0``.
+env layer; its TOML layers are not carried over), parsed by the field's
+type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
+``FUTURESDR_TPU_CTRLPORT_ENABLE=true`` or
+``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,29 @@ __all__ = ["Config", "config"]
 _ENV_PREFIX = "FUTURESDR_TPU_"
 
 
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def _parse(name: str, default, raw: str):
+    """``raw`` as the type of the field's default."""
+    if isinstance(default, bool):
+        v = raw.strip().lower()
+        if v not in _TRUE + _FALSE:
+            raise ValueError(f"{_ENV_PREFIX}{name.upper()}={raw!r} is not a boolean")
+        return v in _TRUE
+    if isinstance(default, int):
+        return int(raw)
+    return raw
+
+
 @dataclass
 class Config:
+    queue_size: int = 8192                 # message inbox capacity (try_send
+    #   drops past it, send_async waits for room)
     buffer_size: int = 262144              # stream buffer size in bytes
+    ctrlport_enable: bool = False          # Runtime() starts the REST control port
+    ctrlport_bind: str = "127.0.0.1:1337"  # its address; port 0 takes a free port
     tpu_frame_size: int = 1 << 18          # samples per device frame
     tpu_frames_in_flight: int = 4          # dispatch groups staged or computing at once
     tpu_frames_per_dispatch: int = 0       # megabatch K: frames run through one
@@ -41,7 +63,7 @@ class Config:
         for f in fields(cls):
             raw = os.environ.get(_ENV_PREFIX + f.name.upper())
             if raw is not None:
-                setattr(c, f.name, int(raw))
+                setattr(c, f.name, _parse(f.name, f.default, raw))
         return c
 
 

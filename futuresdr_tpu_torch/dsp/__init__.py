@@ -1,5 +1,5 @@
-"""DSP helpers: window functions and FIR design."""
+"""DSP helpers: window functions, FIR design and the streaming filter cores."""
 
-from . import firdes, windows
+from . import firdes, kernels, windows
 
-__all__ = ["firdes", "windows"]
+__all__ = ["firdes", "kernels", "windows"]

@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
@@ -7,6 +7,11 @@ source, the shared headers ``csrc/*.cuh`` and the flags, so an edited source
 or header never loads a stale library. Nothing
 builds at import: :func:`load` builds on first use, and :func:`build_all`
 starts one ``nvcc`` per source at once.
+
+The host flavour builds ``csrc/host/<name>.cpp`` (the double-mapped ring of
+``runtime/buffer/circular.py``) with ``g++`` into
+``build/host/lib<name>-<hash>.so`` and loads it with :class:`ctypes.PyDLL`,
+whose calls keep the interpreter lock: :func:`load_host`.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["SOURCES", "build_all", "load", "library_path"]
+__all__ = ["SOURCES", "build_all", "load", "load_host", "library_path",
+           "host_library_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -28,8 +34,13 @@ SOURCES = ("fir", "fir_fft", "rotator", "poly_fir", "quad_demod", "pfb")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
+HOST_CSRC = CSRC / "host"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.PyDLL] = {}
 
 
 def _nvcc() -> str:
@@ -55,26 +66,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source; returns ``(name, out, tmp, proc)``, with
-    ``proc`` None when the library is already built."""
-    out = library_path(name)
+def host_library_path(name: str) -> Path:
+    """The library of ``csrc/host/<name>.cpp``, named by a hash of the source
+    and the flags."""
+    h = hashlib.sha1((HOST_CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _spawn(src: Path, out: Path, compiler: List[str]):
+    """Start the compiler for one source; returns ``(src, out, tmp, proc)``,
+    with ``proc`` None when the library is already built."""
     if out.exists():
-        return name, out, None, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return src, out, None, None
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [*compiler, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return name, out, tmp, proc
+    return src, out, tmp, proc
 
 
-def _finish(name: str, out: Path, tmp, proc) -> Path:
+def _start(name: str):
+    return _spawn(CSRC / f"{name}.cu", library_path(name), [_nvcc(), *FLAGS])
+
+
+def _finish(src: Path, out: Path, tmp, proc) -> Path:
     if proc is None:
         return out
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"{proc.args[0]} failed for {src.relative_to(CSRC.parent)} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)            # atomic: a reader never sees half a library
     return out
@@ -95,6 +117,21 @@ def build_all() -> List[Path]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return paths
+
+
+def load_host(name: str) -> ctypes.PyDLL:
+    """The loaded host library for ``csrc/host/<name>.cpp``, built with
+    ``g++`` (``CXX``) on first use. Raises with the compiler's output if the
+    build fails."""
+    with _lock:
+        lib = _host_libs.get(name)
+        if lib is None:
+            cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+            path = _finish(*_spawn(HOST_CSRC / f"{name}.cpp", host_library_path(name),
+                                   [cxx, *HOST_FLAGS]))
+            lib = ctypes.PyDLL(str(path))
+            _host_libs[name] = lib
+        return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -29,6 +29,8 @@ kernel), with the other single-chain stages: :func:`fftshift_stage`,
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from dataclasses import dataclass
 from fractions import Fraction
@@ -234,6 +236,23 @@ def _same_layout(a, b) -> bool:
 _capture_lock = threading.Lock()
 
 
+@contextlib.contextmanager
+def _no_automatic_gc():
+    """Hold off the garbage collector's automatic passes (in every thread)
+    while graphs are captured: a pass that frees unreachable objects owning
+    CUDA resources (graphs, events, pinned memory) runs their finalizers
+    on whichever thread allocated last, and a freeing call that synchronizes
+    the device invalidates the capture. torch.cuda.graph collects once
+    itself before each capture begins."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class CompiledPipeline:
     """:meth:`Pipeline.compile`'s program on a CUDA device.
 
@@ -291,7 +310,7 @@ class CompiledPipeline:
             program(_clone(self.carry), self.inputs[0])
         cur.wait_stream(side)
         graphs, outputs, pool = [], [], None
-        with _capture_lock, cuda_kernels.capturing() as counts:
+        with _capture_lock, _no_automatic_gc(), cuda_kernels.capturing() as counts:
             for x in self.inputs:
                 graph = torch.cuda.CUDAGraph()
                 try:

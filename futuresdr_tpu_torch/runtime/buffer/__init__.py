@@ -1,10 +1,12 @@
 """Buffer layer — the stream data plane between blocks.
 
 A reduced copy of ``futuresdr_tpu/runtime/buffer/__init__.py``: writers and
-readers move items through a ring with broadcast (1 writer → N readers),
+readers move items through a buffer with broadcast (1 writer → N readers),
 capacity negotiated at connect time, tag transport with index rebasing, and
-EOS propagated through block inboxes. Only the pure-Python ring backend
-(:mod:`.ring`) is carried over.
+EOS propagated through block inboxes. Two backends: the double-mapped
+circular buffer (:mod:`.circular`, the default, as in the reference), whose
+windows never split at the wrap, and the pure-Python ring (:mod:`.ring`),
+whose slices stop at the wrap.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ class BufferReader(ABC):
 
     def items_available(self) -> int:
         return len(self.slice())
+
+    def capacity_items(self) -> Optional[int]:
+        """The buffer's capacity in items."""
+        return None
 
 
 class BufferWriter(ABC):
@@ -100,6 +106,8 @@ class StreamOutput:
         self.min_buffer_size = min_buffer_size
         self.writer: Optional[BufferWriter] = None
         self._pending_tags: List[ItemTag] = []
+        self.items_produced = 0       # metrics: items out
+        self.stalls = 0               # parks while this output's buffer was full
 
     def slice(self) -> np.ndarray:
         return self.writer.slice()
@@ -113,11 +121,16 @@ class StreamOutput:
 
     def produce(self, n: int) -> None:
         tags, self._pending_tags = self._pending_tags, []
+        self.items_produced += n
         self.writer.produce(n, tags)
 
     def notify_finished(self) -> None:
         if self.writer is not None:
             self.writer.notify_finished()
+
+    @property
+    def connected(self) -> bool:
+        return self.writer is not None
 
 
 class StreamInput:
@@ -129,6 +142,8 @@ class StreamInput:
         self.min_items = min_items
         self.reader: Optional[BufferReader] = None
         self._finished = False        # StreamInputDone received (upstream writer done)
+        self.items_consumed = 0       # metrics: items in
+        self.starved = 0              # parks while this input held < min_items
 
     def slice(self) -> np.ndarray:
         return self.reader.slice()
@@ -141,7 +156,17 @@ class StreamInput:
         return ts if n is None else [t for t in ts if t.index < n]
 
     def consume(self, n: int) -> None:
+        self.items_consumed += n
         self.reader.consume(n)
+
+    def fill(self) -> Optional[float]:
+        """Buffer occupancy in [0, 1], or None without a known capacity."""
+        if self.reader is None:
+            return None
+        cap = self.reader.capacity_items()
+        if not cap:
+            return None
+        return min(1.0, self.reader.items_available() / cap)
 
     def finished(self) -> bool:
         """Upstream signalled EOS; buffered data may remain."""
@@ -153,3 +178,7 @@ class StreamInput:
     def notify_finished(self) -> None:
         if self.reader is not None:
             self.reader.notify_finished()
+
+    @property
+    def connected(self) -> bool:
+        return self.reader is not None

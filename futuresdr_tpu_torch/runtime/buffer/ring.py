@@ -129,6 +129,9 @@ class RingReader(BufferReader):
     def slice(self) -> np.ndarray:
         return self._writer._reader_slice(self._state)
 
+    def capacity_items(self) -> int:
+        return self._writer.capacity
+
     def tags(self) -> List[ItemTag]:
         return self._writer._reader_tags(self._state)
 

@@ -1,10 +1,13 @@
-"""Flowgraph: the graph container with typed stream connect.
+"""Flowgraph: the graph container with typed stream and message connect.
 
-A reduced copy of ``futuresdr_tpu/runtime/flowgraph.py`` (stream edges only):
-``connect`` is idempotent on already-added blocks, stream connects are
-dtype-checked at connect time, and ring buffers are materialized at launch
-with connect-time size negotiation. ``fg.connect(a >> b >> c)`` chains
-default ports; ``fg.connect_stream(a, "out", b, "in")`` names them.
+A reduced copy of ``futuresdr_tpu/runtime/flowgraph.py`` (no in-place
+circuit edges): ``connect`` is idempotent on already-added blocks, stream
+connects are dtype-checked at connect time, and buffers are materialized at
+launch with connect-time size negotiation. ``fg.connect(a >> b >> c)``
+chains default ports; ``fg.connect_stream(a, "out", b, "in")`` names them,
+and ``fg.connect_message(a, "out", b, "in")`` wires a message output to a
+handler. Each stream edge gets :func:`default_buffer` unless
+``connect_stream(..., buffer=cls)`` overrides it.
 """
 
 from __future__ import annotations
@@ -14,12 +17,30 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from ..types import FlowgraphDescription
 from .block import WrappedKernel
 from .buffer import negotiate_capacity
 from .buffer.ring import RingWriter
 from .kernel import Kernel
 
-__all__ = ["Flowgraph", "Chain", "ConnectError"]
+__all__ = ["Flowgraph", "Chain", "ConnectError", "default_buffer"]
+
+
+#: process-default stream buffer; None: the double-mapped circular buffer,
+#: resolved at first use (its library builds then)
+_DEFAULT_BUFFER: list = [None]
+
+
+def default_buffer(cls=None):
+    """The process's default stream buffer writer class; ``cls`` sets it.
+    Unset, it is the double-mapped circular buffer, or the pure-Python ring
+    (with one warning) where the circular buffer's library cannot build."""
+    if cls is not None:
+        _DEFAULT_BUFFER[0] = cls
+    if _DEFAULT_BUFFER[0] is not None:
+        return _DEFAULT_BUFFER[0]
+    from .buffer import circular
+    return circular.CircularWriter if circular.available() else RingWriter
 
 
 class ConnectError(Exception):
@@ -46,6 +67,15 @@ class StreamEdge:
     src_port: str
     dst: Kernel
     dst_port: str
+    buffer: Optional[type] = None       # BufferWriter subclass override
+
+
+@dataclass
+class MessageEdge:
+    src: Kernel
+    src_port: str
+    dst: Kernel
+    dst_port: str
 
 
 class Flowgraph:
@@ -53,6 +83,7 @@ class Flowgraph:
         self._blocks: List[Optional[WrappedKernel]] = []
         self._kernel_ids: dict = {}           # id(kernel) -> block id
         self.stream_edges: List[StreamEdge] = []
+        self.message_edges: List[MessageEdge] = []
         self._launched = False
 
     def add(self, kernel: Kernel) -> Kernel:
@@ -92,8 +123,10 @@ class Flowgraph:
                 raise ConnectError(f"{b!r} has no stream inputs")
             self.connect_stream(a, a.stream_outputs[0].name, b, b.stream_inputs[0].name)
 
-    def connect_stream(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str) -> None:
-        """Typed stream connect."""
+    def connect_stream(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str,
+                       buffer: Optional[type] = None) -> None:
+        """Typed stream connect; ``buffer`` is the edge's writer class
+        (default: :func:`default_buffer`)."""
         self.add(src)
         self.add(dst)
         op = src.stream_output(src_port)   # raises on bad name
@@ -104,10 +137,22 @@ class Flowgraph:
         if ip.reader is not None or any(
                 e.dst is dst and e.dst_port == dst_port for e in self.stream_edges):
             raise ConnectError(f"input {dst!r}.{dst_port} already connected")
-        self.stream_edges.append(StreamEdge(src, src_port, dst, dst_port))
+        self.stream_edges.append(StreamEdge(src, src_port, dst, dst_port, buffer))
+
+    def connect_message(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str) -> None:
+        """Wire message output ``src_port`` of ``src`` to handler ``dst_port``
+        of ``dst``."""
+        self.add(src)
+        self.add(dst)
+        if src_port not in src.mio.names:
+            raise ConnectError(f"{src!r} has no message output {src_port!r}")
+        if dst_port not in dst.message_input_names():
+            raise ConnectError(f"{dst!r} has no message input {dst_port!r}")
+        self.message_edges.append(MessageEdge(src, src_port, dst, dst_port))
 
     def _materialize(self) -> None:
-        """Create one ring per source port (1 writer → N readers broadcast)."""
+        """Create one buffer per source port (1 writer → N readers broadcast)
+        and wire the message outputs."""
         groups: dict = {}
         for e in self.stream_edges:
             groups.setdefault((id(e.src), e.src_port), []).append(e)
@@ -120,12 +165,21 @@ class Flowgraph:
             cap = negotiate_capacity(dtype.itemsize,
                                      [op.min_items] + [p.min_items for p in dst_ports],
                                      [op.min_buffer_size])
-            writer = RingWriter(dtype, cap, self.wrapped(src).inbox,
+            overrides = {e.buffer for e in edges if e.buffer is not None}
+            if len(overrides) > 1:
+                raise ConnectError(f"conflicting buffer overrides on broadcast output "
+                                   f"{src!r}.{edges[0].src_port}: {overrides}")
+            buffer_cls = overrides.pop() if overrides else default_buffer()
+            writer = buffer_cls(dtype, cap, self.wrapped(src).inbox,
                                 src.stream_outputs.index(op))
             op.writer = writer
             for e, ip in zip(edges, dst_ports):
                 ip.reader = writer.add_reader(self.wrapped(e.dst).inbox,
                                               e.dst.stream_inputs.index(ip))
+        # message edges (the wrapped destination enables direct dispatch)
+        for e in self.message_edges:
+            dw = self.wrapped(e.dst)
+            e.src.mio.connect(e.src_port, dw.inbox, e.dst_port, wrapped=dw)
 
     def take_blocks(self) -> List[WrappedKernel]:
         """Materialize and hand the blocks to the runtime."""
@@ -141,3 +195,15 @@ class Flowgraph:
         """Put finished blocks back so final state is readable."""
         for b in blocks:
             self._blocks[b.id] = b
+
+    def describe(self, fg_id: int = 0) -> FlowgraphDescription:
+        return FlowgraphDescription(
+            id=fg_id,
+            blocks=[b.description() for b in self._blocks if b is not None],
+            stream_edges=[(self.block_id(e.src), e.src_port, self.block_id(e.dst),
+                           e.dst_port) for e in self.stream_edges],
+            message_edges=[(self.block_id(e.src), e.src_port, self.block_id(e.dst),
+                            e.dst_port) for e in self.message_edges])
+
+    def __len__(self):
+        return len(self._blocks)

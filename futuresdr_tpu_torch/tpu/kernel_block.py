@@ -25,7 +25,9 @@ frames' outputs are dropped. A partial last frame is zero-padded to the
 frame size and only the outputs of its whole ``frame_multiple`` prefix are
 emitted, so the block emits exactly as many items as the JAX ``TpuKernel``
 does for the same input. A retune goes through :meth:`apply_retune` →
-:meth:`Pipeline.update_stage` between dispatch groups; the program copies
+:meth:`Pipeline.update_stage` between dispatch groups, from another thread
+or through the ``ctrl`` message port (``{"stage": …, <param>: …}``, the
+reference's grammar, e.g. over the REST control port); the program copies
 the changed leaves into its carry buffers before its next replay.
 
 Not in this slice (ROADMAP): wire codecs, carry checkpoint/replay, the
@@ -44,11 +46,16 @@ import numpy as np
 from ..config import config
 from ..ops import xfer
 from ..ops.stages import Pipeline, Stage
-from ..runtime.kernel import Kernel
+from ..log import logger
+from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag, rebase_tags
+from ..types import Pmt
+from .frames import parse_ctrl
 from .instance import TpuInstance, instance
 
 __all__ = ["TpuKernel", "CreditController", "rebase_frame_tags", "emit_with_tags"]
+
+log = logger("tpu.kernel_block")
 
 
 def rebase_frame_tags(tags: Sequence[ItemTag], pipeline: Pipeline,
@@ -285,6 +292,26 @@ class TpuKernel(Kernel):
                 # into its buffers at the first dispatch
                 self._carry = self.pipeline.init_carry(self.inst.device)
             self.frames_dispatched = 0
+
+    @message_handler(name="ctrl")
+    async def ctrl_handler(self, io, mio, meta, p: Pmt) -> Pmt:
+        """Runtime stage control: ``{"stage": <name-or-index>, <param>:
+        <value>, …}`` lands in :meth:`apply_retune` and is answered
+        ``Pmt.ok()`` once the surgery is done; frames already dispatched
+        keep the old values. Malformed input, an unknown stage or parameter
+        and a message before ``init`` are answered ``Pmt.invalid_value()``
+        (the runtime's init barrier answers pre-init calls itself)."""
+        try:
+            stage, params = parse_ctrl(p)
+            if "interior_precision" in params:
+                log.warning("ctrl %r: interior-precision retunes wait for ROADMAP "
+                            "Queue 1 item 7 (precision and tuning)", p)
+                return Pmt.invalid_value()
+            self.apply_retune(stage, **params)
+        except Exception as e:                 # noqa: BLE001 — a bad request
+            log.warning("ctrl update rejected: %r", e)
+            return Pmt.invalid_value()
+        return Pmt.ok()
 
     def apply_retune(self, stage, **params) -> int:
         """Carry surgery between dispatch groups (the reference's retune

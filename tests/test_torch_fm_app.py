@@ -91,10 +91,21 @@ def test_fm_receiver_head_and_null_sink_count_items():
 
 
 @pytest.mark.parametrize("kw", [{}, {"use_tpu": False}])
-def test_fm_receiver_paths_outside_the_slice_raise(kw):
+def test_fm_receiver_paths_outside_the_slice_raise(kw, monkeypatch):
+    """The Seify dummy source and the CPU block path are ported (ROADMAP
+    Queue 1 item 4) and build; what stays outside this machine is the card:
+    the device path without one raises instead of falling back to the CPU."""
+    import importlib
     source = None if not kw else VectorSource(np.zeros(1000, np.complex64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_flowgraph(source, inst=CPU, **({"use_tpu": True} | kw))
+    fg, retune, _ = build_flowgraph(source, inst=CPU, **({"use_tpu": True} | kw))
+    assert type(retune).__name__ == ("XlatingFir" if kw else "TpuKernel")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(importlib.import_module("futuresdr_tpu_torch.tpu.instance"),
+                        "_instance", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_flowgraph(source, use_tpu=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_flowgraph(source)        # the card is the default
 
 
 def test_kernel_chain_flowgraph_matches_jax_tpu_kernel():

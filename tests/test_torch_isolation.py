@@ -1,5 +1,7 @@
-"""The port stands alone: it loads neither JAX nor the JAX package, never
-picks the CPU by itself, and never counts a kernel launch for a CPU tensor."""
+"""The port stands alone: it loads neither JAX nor the JAX package (nor the
+reference's aiohttp and websockets: its control port and websocket sink are
+standard library), never picks the CPU by itself, and never counts a kernel
+launch for a CPU tensor."""
 
 import ast
 import pkgutil
@@ -46,7 +48,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
 def test_sources_import_no_jax_and_no_jax_package():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                 REPO / "port_profile.py"]:
+                                                 REPO / "port_profile.py",
+                                                 REPO / "port_buffers.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -57,9 +60,39 @@ def test_sources_import_no_jax_and_no_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax", "futuresdr_tpu"):
+                if top in ("jax", "jaxlib", "flax", "futuresdr_tpu", "aiohttp", "websockets"):
                     offenders.append(f"{path.name}: {name}")
     assert offenders == []
+
+
+def test_control_port_and_websocket_sink_load_no_aiohttp_and_no_websockets():
+    """Importing every module, serving a control port and streaming through a
+    websocket sink to a client leaves the reference's server packages (and
+    JAX) out of ``sys.modules``."""
+    mods = _submodules()
+    code = ("import importlib, socket, sys, json, urllib.request\n"
+            "import numpy as np\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from futuresdr_tpu_torch import Flowgraph, Runtime\n"
+            "from futuresdr_tpu_torch.blocks import NullSource, WebsocketSink\n"
+            "from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort\n"
+            "rt = Runtime(); cp = ControlPort(rt.handle, bind='127.0.0.1:0'); cp.start()\n"
+            "fg = Flowgraph(); ws = WebsocketSink(0, np.float32, chunk_items=256)\n"
+            "fg.connect(NullSource(np.float32), ws)\n"
+            "running = rt.start(fg)\n"
+            "s = socket.create_connection(('127.0.0.1', ws.bound_port), timeout=10)\n"
+            "s.sendall(b'GET / HTTP/1.1\\r\\nUpgrade: websocket\\r\\n'\n"
+            "          b'Sec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ==\\r\\n\\r\\n')\n"
+            "assert s.recv(12) == b'HTTP/1.1 101'\n"
+            "ids = json.load(urllib.request.urlopen(cp.url + '/api/fg/'))\n"
+            "running.stop_sync(); cp.stop(); s.close()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'futuresdr_tpu', 'aiohttp', 'websockets')]\n"
+            "print(ids, bad)\n"
+            "sys.exit(1 if bad or ids != [0] else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_instance_without_cuda_raises(monkeypatch):

@@ -868,7 +868,8 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     """A header edit names a new library, so a stale one is never loaded."""
     from futuresdr_tpu_torch.ops import _build
     for f in _build.CSRC.iterdir():
-        (tmp_path / f.name).write_bytes(f.read_bytes())
+        if f.is_file():                    # csrc/host/ holds the host flavour
+            (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build.library_path(n) for n in _build.SOURCES}
     with open(tmp_path / "common.cuh", "a") as f:

@@ -85,9 +85,15 @@ def test_spectrum_chain_matches_jax_over_chained_frames():
 
 
 def test_spectrum_app_surfaces_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_flowgraph(None, inst=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_flowgraph(VectorSource(_tone(1024, 0.1)), use_tpu=False, inst=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_flowgraph(VectorSource(_tone(1024, 0.1)), ws_port=9001, inst=CPU)
+    """The Seify source, the CPU blocks and the websocket sink are ported
+    (ROADMAP Queue 1 item 4) and build; ``--bf16`` and ``--autotune`` wait
+    for item 7 and raise, naming it."""
+    from futuresdr_tpu_torch.apps.spectrum import main
+    for kw in ({"source": None}, {"use_tpu": False}, {"ws_port": 0}):
+        fg, sink = build_flowgraph(**({"source": VectorSource(_tone(1024, 0.1))} | kw),
+                                   inst=CPU)
+        assert len(fg) >= 3
+    assert type(sink).__name__ == "WebsocketSink"
+    for flag in ("--bf16", "--autotune"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            main(["--cpu", flag])
