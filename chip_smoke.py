@@ -120,6 +120,30 @@ not build, so every streamed phase runs on it):
     on the circular buffer and on the ring: bit-equal outputs, and the
     streamed input rates at K = 1 and 4 on each.
 
+The device-frame plane and device-graph fusion (``tpu/frames.py``,
+``runtime/devchain.py``): each region runs fused and per hop
+(``FSDR_NO_DEVCHAIN=1``) in this process at K = 1 and 4, ``VectorSource`` in
+and ``VectorSink`` out against each other (bit-equal at K = 1, CHAIN_TOL at
+K = 4, with the bit-equal cases printed), then streamed from ``NullSource ->
+Head`` (64 frames) into ``NullSink``s, median of 3, the modes in turns: the
+input rate, program dispatches a frame (the blocks' own counters through the
+fused run's metrics bridge) and H2D/D2H bytes a frame (``xfer.bytes_total``):
+
+22. linear, the spectrum chain at 2^18: ``TpuH2D -> TpuStage[fir_stage(impl=
+    "pallas")] -> TpuStage[fft_stage(2048)] -> TpuStage[mag2_stage()] ->
+    TpuD2H`` (3 dispatches a frame per hop, 1 fused) and ``TpuKernel[
+    fir_fft_stage] -> TpuKernel[mag2_stage]`` over a stream edge (2 → 1);
+23. fan-out, the FM front end at 512,000 a frame: a ``TpuKernel`` over the
+    kernel chain's rotator, decim-4 channel filter and demod, broadcast to
+    ``TpuKernel[resample_stage(24, 125, impl="pallas")]`` and
+    ``TpuKernel[mag2_stage()]`` (3 → 1; H2D 4,096,000 B a frame fused,
+    5,120,000 per hop);
+24. DAG at 512,000 a frame: ``TpuH2D`` broadcast into two decim-4 FIR stages
+    (``lowpass(0.1, 128)``, ``lowpass(0.05, 128)``, ``impl="pallas"``) joined
+    by ``TpuMergeStage(add_merge_stage(2), [mag2_stage()])`` into ``TpuD2H``,
+    and the stream-plane nested fan-out ``prod -> {a -> {c, d}, b}`` of
+    ``TpuKernel``s (1 dispatch a frame fused; D2H only the sinks' payloads).
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -2179,6 +2203,293 @@ def phase_circular(dev, taps) -> dict:
     return rates
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the device-frame plane and device-graph fusion, fused against
+# per hop
+# ---------------------------------------------------------------------------
+
+DC_K = (1, 4)
+DC_CHECK_FRAMES = 6          # frames of the fused-against-per-hop comparison
+SPEC_KERNELS_22 = ("fir", "fir_fft")
+DAG_KERNELS = ("fir", "poly_fir")
+
+
+class _dc_mode:
+    """Fused (the pass on) or per hop (``FSDR_NO_DEVCHAIN=1``) at K frames a
+    dispatch, with stream buffers of at least 4 frames (as the reference's
+    ``perf/devchain_ab.py`` sets them); restores both on exit."""
+
+    def __init__(self, fused: bool, k: int, frame: int):
+        self.fused, self.k, self.frame = fused, k, frame
+
+    def __enter__(self):
+        import os
+
+        from futuresdr_tpu_torch.config import config
+        self._old = (os.environ.pop("FSDR_NO_DEVCHAIN", None),
+                     config().tpu_frames_per_dispatch, config().buffer_size)
+        if not self.fused:
+            os.environ["FSDR_NO_DEVCHAIN"] = "1"
+        config().tpu_frames_per_dispatch = self.k
+        config().buffer_size = max(config().buffer_size, 4 * self.frame * 8)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        from futuresdr_tpu_torch.config import config
+        env, k, buf = self._old
+        os.environ.pop("FSDR_NO_DEVCHAIN", None)
+        if env is not None:
+            os.environ["FSDR_NO_DEVCHAIN"] = env
+        config().tpu_frames_per_dispatch = k
+        config().buffer_size = buf
+
+
+def _dispatches_a_frame(fg, members, fused: bool, frames: int) -> float:
+    """Program dispatches a frame, read from the blocks' metrics: fused, the
+    bridge's ``devchain_dispatches`` on a member (the fused kernel's
+    replays); per hop, the sum of every member's own ``dispatches``."""
+    if fused:
+        m = fg.wrapped(members[0]).metrics()
+        check(m.get("fused_devchain") is True, f"{members[0]!r}: the region did not fuse")
+        check(m["devchain_frames"] == frames,
+              f"fused region dispatched {m['devchain_frames']} frames, want {frames}")
+        return m["devchain_dispatches"] / frames
+    total = 0
+    for b in members:
+        m = fg.wrapped(b).metrics()
+        check(not m.get("fused_devchain"), f"{b!r} fused under FSDR_NO_DEVCHAIN")
+        total += m.get("dispatches", 0)
+    return total / frames
+
+
+def phase_devchain(dev, label: str, build, frame: int, n_members: int,
+                   want_bytes: dict) -> dict:
+    """One region fused against per hop. ``build(src, sink_cls)`` returns
+    ``(fg, sinks, device members)``; ``want_bytes[(fused, direction)]`` the
+    bytes a frame the link must carry where the phase fixes them. Returns
+    ``{(fused, k): (Msps, dispatches a frame, h2d B a frame, d2h B a frame)}``
+    and prints each line beside the card."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource, VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops import xfer
+    from futuresdr_tpu_torch.runtime.devchain import find_device_chains
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    host = host_input(label, DC_CHECK_FRAMES * frame, gen, dev).cpu().numpy()
+    for k in DC_K:
+        outs = {}
+        for fused in (False, True):
+            with _dc_mode(fused, k, frame):
+                fg, snks, members = build(VectorSource(host), VectorSink)
+                check(len(find_device_chains(fg)) == int(fused),
+                      f"{label} K={k}: the region {'did not fuse' if fused else 'fused'}")
+                Runtime().run(fg)
+                outs[fused] = [s.items() for s in snks]
+        equal = []
+        for j, (a, b) in enumerate(zip(outs[True], outs[False])):
+            check(a.shape == b.shape and len(a) > 0,
+                  f"{label} K={k} sink {j}: fused {a.shape}, per hop {b.shape}")
+            eq = bool(np.array_equal(a, b))
+            _, rel = rel_err(torch.from_numpy(a), torch.from_numpy(b))
+            equal.append(eq)
+            print(f"devchain {label} K={k} sink {j}: fused vs per hop over "
+                  f"{DC_CHECK_FRAMES} frames, {len(a)} items, bit-equal {eq}, "
+                  f"{rel:.3e} of peak")
+            if k == 1:
+                check(eq, f"{label} K=1 sink {j}: fused differs from per hop ({rel:.3e})")
+            check(rel <= CHAIN_TOL, f"{label} K={k} sink {j}: fused differs from per hop "
+                                    f"by {rel:.3e}")
+    n_items = STREAM_FRAMES * frame
+    res = {}
+    for k in DC_K:
+        runs = {False: [], True: []}
+        stats = {}
+        for fused in (False, True, True, False, False, True):
+            with _dc_mode(fused, k, frame):
+                fg, snks, members = build(
+                    [NullSource(np.complex64), Head(np.complex64, n_items)], NullSink)
+                xfer.reset_bytes()
+                rt = Runtime()
+                t0 = time.perf_counter()
+                rt.run(fg)
+                runs[fused].append(time.perf_counter() - t0)
+                rt.shutdown()
+                by = dict(xfer.bytes_total)
+                disp = _dispatches_a_frame(fg, members, fused, STREAM_FRAMES)
+                check(all(s.n_received > 0 for s in snks), f"{label}: a sink got nothing")
+                stats[fused] = (disp, by["h2d"] / STREAM_FRAMES, by["d2h"] / STREAM_FRAMES)
+        for fused in (False, True):
+            disp, h2d, d2h = stats[fused]
+            rate = n_items / statistics.median(runs[fused]) / 1e6
+            res[(fused, k)] = (rate, disp, h2d, d2h)
+            mode = "fused" if fused else "per hop"
+            print(f"devchain {label} frame={frame} K={k} {mode}: {n_items} items in "
+                  f"{', '.join(f'{t:.3f}' for t in runs[fused])} s, {disp:g} dispatches "
+                  f"a frame, H2D {h2d:.0f} B and D2H {d2h:.0f} B a frame")
+            want_disp = 1 / k if fused else (n_members if k == 1 else None)
+            if want_disp is not None:
+                check(abs(disp - want_disp) < 1e-9, f"{label} K={k} {mode}: {disp} "
+                                                    f"dispatches a frame, want {want_disp}")
+            for direction, got in (("h2d", h2d), ("d2h", d2h)):
+                want = want_bytes.get((fused, direction))
+                if want is not None:
+                    check(got == want, f"{label} K={k} {mode}: {direction} {got:.0f} B a "
+                                       f"frame, want {want}")
+    return res
+
+
+def _src_into(fg, src, first, port="in"):
+    """Connect a source (a block, or a ``[NullSource, Head]`` pair) into
+    ``first``."""
+    from futuresdr_tpu_torch.blocks import VectorSource
+    if isinstance(src, VectorSource):
+        fg.connect_stream(src, "out", first, port)
+    else:
+        fg.connect(*src)
+        fg.connect_stream(src[-1], "out", first, port)
+
+
+def phase_devchain_linear(dev, taps) -> dict:
+    """Phase 22: the spectrum chain on the frame plane (3 stage blocks) and
+    as two TpuKernels over a stream edge."""
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.ops.stages import (fft_stage, fir_fft_stage, fir_stage,
+                                                mag2_stage)
+    from futuresdr_tpu_torch.tpu import TpuD2H, TpuH2D, TpuInstance, TpuKernel, TpuStage
+    frame = FRAMES[0]
+    inst = TpuInstance(dev)
+
+    def frame_plane(src, sink_cls):
+        fg = Flowgraph()
+        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT)
+        sts = [TpuStage([s], np.complex64, inst=inst) for s in
+               (fir_stage(taps, impl="pallas"), fft_stage(N_FFT), mag2_stage())]
+        d2h, snk = TpuD2H(np.float32, inst=inst), sink_cls(np.float32)
+        _src_into(fg, src, h2d)
+        fg.connect(h2d, *sts, d2h, snk)
+        return fg, [snk], [h2d, *sts, d2h]
+
+    def kernels(src, sink_cls):
+        fg = Flowgraph()
+        k1 = TpuKernel([fir_fft_stage(taps, N_FFT)], np.complex64, frame_size=frame,
+                       inst=inst, frames_in_flight=IN_FLIGHT)
+        k2 = TpuKernel([mag2_stage()], np.complex64, frame_size=frame, inst=inst,
+                       frames_in_flight=IN_FLIGHT)
+        snk = sink_cls(np.float32)
+        _src_into(fg, src, k1)
+        fg.connect(k1, k2, snk)
+        return fg, [snk], [k1, k2]
+
+    f_in, f_out = frame * 8, frame * 4
+    return {
+        "spectrum frame plane": phase_devchain(
+            dev, "spectrum frame plane", frame_plane, frame, 3,
+            {(True, "h2d"): f_in, (True, "d2h"): f_out,
+             (False, "h2d"): f_in, (False, "d2h"): f_out}),
+        "spectrum kernels": phase_devchain(
+            dev, "spectrum kernels", kernels, frame, 2,
+            {(True, "h2d"): f_in, (True, "d2h"): f_out,
+             (False, "h2d"): f_in + frame * 8, (False, "d2h"): f_out + frame * 8})}
+
+
+def phase_devchain_fanout(dev) -> dict:
+    """Phase 23: the FM front end's producer broadcast to the audio
+    resampler and a |x|^2 level branch, TpuKernels over stream edges."""
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.ops.stages import mag2_stage, resample_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    frame = FM_FRAMES[0]
+    demod = frame // 4
+    inst = TpuInstance(dev)
+
+    def build(src, sink_cls):
+        fg = Flowgraph()
+        prod = TpuKernel(fm_stages("kernel")[:3], np.complex64, frame_size=frame,
+                         inst=inst, frames_in_flight=IN_FLIGHT)
+        audio = TpuKernel([resample_stage(24, 125, impl="pallas")], np.float32,
+                          frame_size=demod, inst=inst, frames_in_flight=IN_FLIGHT)
+        level = TpuKernel([mag2_stage()], np.float32, frame_size=demod, inst=inst,
+                          frames_in_flight=IN_FLIGHT)
+        s_audio, s_level = sink_cls(np.float32), sink_cls(np.float32)
+        _src_into(fg, src, prod)
+        fg.connect_stream(prod, "out", audio, "in")
+        fg.connect_stream(prod, "out", level, "in")
+        fg.connect(audio, s_audio)
+        fg.connect(level, s_level)
+        return fg, [s_audio, s_level], [prod, audio, level]
+
+    out_b = demod * 24 // 125 * 4 + demod * 4
+    return {"fm fan-out": phase_devchain(
+        dev, "fm fan-out", build, frame, 3,
+        {(True, "h2d"): frame * 8, (False, "h2d"): frame * 8 + 2 * demod * 4,
+         (True, "d2h"): out_b, (False, "d2h"): out_b + demod * 4})}
+
+
+def phase_devchain_dag(dev) -> dict:
+    """Phase 24: the diamond on the frame plane and the stream-plane nested
+    fan-out ``prod -> {a -> {c, d}, b}``."""
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import add_merge_stage, fir_stage, mag2_stage
+    from futuresdr_tpu_torch.tpu import (TpuD2H, TpuH2D, TpuInstance, TpuKernel,
+                                         TpuMergeStage, TpuStage)
+    frame = FM_FRAMES[0]
+    inst = TpuInstance(dev)
+    lp1, lp2 = firdes.lowpass(0.1, 128), firdes.lowpass(0.05, 128)
+
+    def diamond(src, sink_cls):
+        fg = Flowgraph()
+        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT)
+        b1 = TpuStage([fir_stage(lp1, decim=4, impl="pallas", name="b1")], np.complex64,
+                      inst=inst)
+        b2 = TpuStage([fir_stage(lp2, decim=4, impl="pallas", name="b2")], np.complex64,
+                      inst=inst)
+        mg = TpuMergeStage(add_merge_stage(2), [mag2_stage()], inst=inst)
+        d2h, snk = TpuD2H(np.float32, inst=inst), sink_cls(np.float32)
+        _src_into(fg, src, h2d)
+        fg.connect_inplace(h2d, "out", b1, "in")
+        fg.connect_inplace(h2d, "out", b2, "in")
+        fg.connect_inplace(b1, "out", mg, "in0")
+        fg.connect_inplace(b2, "out", mg, "in1")
+        fg.connect(mg, d2h, snk)
+        return fg, [snk], [mg, h2d, b1, b2, d2h]
+
+    t1 = firdes.lowpass(0.25, N_TAPS).astype(np.float32)
+    t2 = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+
+    def nested(src, sink_cls):
+        def tk(stages):
+            return TpuKernel(stages, np.complex64, frame_size=frame, inst=inst,
+                             frames_in_flight=IN_FLIGHT)
+
+        fg = Flowgraph()
+        prod, a = tk([fir_stage(t1, impl="pallas", name="p")]), \
+            tk([fir_stage(t2, impl="pallas", name="a")])
+        b, d = tk([mag2_stage()]), tk([mag2_stage()])
+        c = tk([fir_stage(t2, decim=4, impl="pallas", name="c")])
+        snks = [sink_cls(np.complex64), sink_cls(np.float32), sink_cls(np.float32)]
+        _src_into(fg, src, prod)
+        for x, y in ((prod, a), (prod, b), (a, c), (a, d)):
+            fg.connect_stream(x, "out", y, "in")
+        for x, snk in zip((c, d, b), snks):
+            fg.connect(x, snk)
+        return fg, snks, [prod, a, b, c, d]
+
+    sinks_nested = frame // 4 * 8 + frame * 4 + frame * 4
+    return {
+        "diamond": phase_devchain(
+            dev, "diamond", diamond, frame, 3,
+            {(True, "h2d"): frame * 8, (True, "d2h"): frame // 4 * 4,
+             (False, "h2d"): frame * 8, (False, "d2h"): frame // 4 * 4}),
+        "nested fan-out": phase_devchain(
+            dev, "nested fan-out", nested, frame, 5,
+            {(True, "h2d"): frame * 8, (True, "d2h"): sinks_nested,
+             (False, "h2d"): 5 * frame * 8, (False, "d2h"): sinks_nested + 2 * frame * 8})}
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -2362,6 +2673,12 @@ def main(argv=None) -> int:
     main_wav.unlink()
     # 21. the circular buffer against the ring
     circ = path_phase("circular", ("fir_fft",) + FM_KERNELS, phase_circular, dev, taps)
+    # 22-24. the device-frame plane and device-graph fusion, fused against
+    #        per hop
+    devchain = path_phase("devchain_linear", SPEC_KERNELS_22, phase_devchain_linear,
+                          dev, taps)
+    devchain.update(path_phase("devchain_fanout", FM_KERNELS, phase_devchain_fanout, dev))
+    devchain.update(path_phase("devchain_dag", DAG_KERNELS, phase_devchain_dag, dev))
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -2432,6 +2749,12 @@ def main(argv=None) -> int:
     for (label, f, k, buf), msps in circ.items():
         print(f"rate {label} streamed frame={f} in-flight={IN_FLIGHT} K={k} buffer={buf} "
               f"(median of {STREAM_RUNS}): {msps:.1f} input Msamples/s [{card_line}]")
+    for label, modes in devchain.items():
+        for (fused, k), (msps, disp, h2d, d2h) in sorted(modes.items()):
+            print(f"rate devchain {label} K={k} {'fused' if fused else 'per hop'} "
+                  f"(median of {STREAM_RUNS}): {msps:.1f} input Msamples/s, {disp:g} "
+                  f"dispatches a frame, H2D {h2d:.0f} B, D2H {d2h:.0f} B a frame "
+                  f"[{card_line}]")
     print(f"rest: ctrl retune round trip {rest_retune['rtt_ms']:.3f} ms, "
           f"{rest_retune['frames']} frames from the POST to the first retuned frame; "
           f"handle ctrl call {message['call_ms']:.3f} ms, metrics "

@@ -7,7 +7,12 @@ the stage's device, so frame t+1 chains on frame t's carry with no host sync.
 A :class:`Pipeline` runs a chain of stages per frame: :meth:`Pipeline.fn`
 is the eager per-frame function, :meth:`Pipeline.compile` the program a
 streamed dispatch replays (one CUDA graph for ``k`` chained frames on a card,
-:class:`CompiledPipeline`; the eager chain on the CPU).
+:class:`CompiledPipeline`; the eager chain on the CPU). The graph shapes,
+:class:`FanoutPipeline` (a producer chain broadcast into branch chains) and
+:class:`DagPipeline` (nodes in topological order, fan-in through a
+:class:`MergeStage`), present the same surface with one output a branch or
+sink and compile the same way, into one graph with one static output buffer
+a sink.
 
 Carry trees have the same leaves, shapes and dtypes as the JAX stages on the
 CPU, so a carry converts across (``convert.carry_from_numpy``).
@@ -42,7 +47,9 @@ import torch
 from . import cuda_kernels
 from .xfer import torch_dtype
 
-__all__ = ["Stage", "Pipeline", "CompiledPipeline", "EagerProgram", "fir_stage",
+__all__ = ["Stage", "Pipeline", "CompiledPipeline", "EagerProgram", "MergeStage",
+           "FanoutPipeline", "DagPipeline", "apply_merge_stage", "add_merge_stage",
+           "interleave_merge_stage", "concat_merge_stage", "fir_stage",
            "fft_stage", "mag2_stage", "fir_fft_stage", "resample_stage", "rotator_stage",
            "quad_demod_stage", "xlating_fir_stage", "decimate_stage", "fftshift_stage", "log10_stage",
            "apply_stage", "channelizer_stage", "lora_demod_stage", "agc_stage",
@@ -74,6 +81,78 @@ class Stage:
 
     def __repr__(self):
         return f"Stage({self.name}, ratio={self.ratio})"
+
+
+@dataclass
+class MergeStage:
+    """A fan-in stage: ``fn(carry, xs) -> (carry, y)`` joins a ``k``-tuple
+    of frames into one, the merge node of a :class:`DagPipeline` and of
+    ``tpu/frames.TpuMergeStage``. ``mode="equal"``: every input arrives at
+    the same path rate, and n items an input give ``n * ratio`` items;
+    ``mode="concat"``: the rates may differ, and the output is ``sum(n_i) *
+    ratio`` items. Stream tags crossing a merge ride input 0 (the primary
+    input). ``frame_multiple`` is each input's requirement."""
+
+    fn: Callable[[Any, Tuple[torch.Tensor, ...]], Tuple[Any, torch.Tensor]]
+    init_carry: Callable[[np.dtype, torch.device], Any]
+    k: int
+    mode: str = "equal"                           # "equal" | "concat"
+    ratio: Fraction = Fraction(1, 1)
+    out_dtype: Optional[np.dtype] = None          # None = same as input
+    frame_multiple: int = 1                       # per-input requirement
+    name: str = "merge"
+    update: Optional[Callable[..., Any]] = None
+
+    def __post_init__(self):
+        if self.mode not in ("equal", "concat"):
+            raise ValueError(f"merge mode must be equal or concat, got {self.mode!r}")
+        if self.k < 2:
+            raise ValueError("a merge needs >= 2 inputs")
+
+    def __repr__(self):
+        return f"MergeStage({self.name}, k={self.k}, mode={self.mode})"
+
+
+def apply_merge_stage(f: Callable[..., torch.Tensor], k: int, out_dtype=None,
+                      name: str = "merge") -> MergeStage:
+    """Elementwise k-way join ``y = f(x_0, …, x_{k-1})`` over equal-length
+    inputs (``mode="equal"``, ratio 1)."""
+
+    def fn(carry, xs):
+        return carry, f(*xs)
+
+    return MergeStage(fn, _stateless, k, "equal", Fraction(1, 1), out_dtype, 1, name)
+
+
+def add_merge_stage(k: int, name: str = "add_merge") -> MergeStage:
+    """Elementwise sum of k equal-rate inputs, added left to right."""
+
+    def fn(carry, xs):
+        y = xs[0]
+        for x in xs[1:]:
+            y = y + x
+        return carry, y
+
+    return MergeStage(fn, _stateless, k, "equal", Fraction(1, 1), None, 1, name)
+
+
+def interleave_merge_stage(k: int, name: str = "interleave") -> MergeStage:
+    """Item-interleave k equal-rate inputs: ``y[i·k + j] = x_j[i]``."""
+
+    def fn(carry, xs):
+        return carry, torch.stack(xs, dim=1).reshape(-1)
+
+    return MergeStage(fn, _stateless, k, "equal", Fraction(k, 1), None, 1, name)
+
+
+def concat_merge_stage(k: int, name: str = "concat_merge") -> MergeStage:
+    """Frame-concatenate k inputs, whose rates may differ: ``y = x_0 ++ … ++
+    x_{k-1}`` a frame."""
+
+    def fn(carry, xs):
+        return carry, torch.cat(xs)
+
+    return MergeStage(fn, _stateless, k, "concat", Fraction(1, 1), None, 1, name)
 
 
 def _no_lowering(p: str):
@@ -165,11 +244,14 @@ class Pipeline:
             raise ValueError(f"{in_items} input items give a fractional output")
         return int(q)
 
-    def update_stage(self, carries, stage, **params):
+    def update_stage(self, carries, stage, _validate_only: bool = False, **params):
         """Apply a stage's ``update`` hook to its slot in ``carries`` (by
         post-merge index or stage ``name``); returns the new carries tuple.
         Frames already computed keep the old parameters, later frames see
-        the new ones."""
+        the new ones. ``_validate_only`` resolves the stage and checks its
+        hook without touching ``carries`` (which may be None): a caller that
+        queues an update before its carry exists rejects a bad address at
+        once."""
         if isinstance(stage, str):
             hits = [i for i, s in enumerate(self.stages) if s.name == stage]
             if not hits:
@@ -186,15 +268,270 @@ class Pipeline:
         s = self.stages[idx]
         if s.update is None:
             raise ValueError(f"stage {s.name!r} has no runtime-update hook")
+        if _validate_only:
+            return carries
         carries = list(carries)
         carries[idx] = s.update(carries[idx], **params)
         return tuple(carries)
 
 
+class FanoutPipeline:
+    """``producer stages → N branch stage chains`` as one program with one
+    output a branch: the producer runs once a frame and every branch reads
+    its output inside the program.
+
+    Duck-types the :class:`Pipeline` surface the device blocks read
+    (``in_dtype``, ``stages``, ``frame_multiple``, ``init_carry``, ``fn``,
+    ``compile``, ``update_stage``), with the single-output fields given a
+    branch: ``out_dtypes[j]``, ``path_ratios[j]`` (producer·branch rate),
+    :meth:`branch_out_items`. ``stages`` is the flat concatenation (producer,
+    then the branches in order), which is also the carry layout, so
+    ``update_stage`` addresses it as a linear pipeline's. The reference's
+    wire forms and XLA donation mask have no counterpart here (wires are
+    ROADMAP Queue 1 item 6; a CUDA graph's static carry buffers are the
+    port's donation)."""
+
+    def __init__(self, producer_stages: Sequence[Stage],
+                 branch_stage_lists: Sequence[Sequence[Stage]], in_dtype,
+                 optimize: bool = True):
+        if not branch_stage_lists or len(branch_stage_lists) < 2:
+            raise ValueError("FanoutPipeline needs >= 2 branches "
+                             "(use Pipeline for linear chains)")
+        self.in_dtype = np.dtype(in_dtype)
+        self.producer = Pipeline(list(producer_stages), in_dtype, optimize=optimize)
+        self.branches = [Pipeline(list(bs), self.producer.out_dtype, optimize=optimize)
+                         for bs in branch_stage_lists]
+        self.stages = list(self.producer.stages)
+        for b in self.branches:
+            self.stages.extend(b.stages)
+        fm = self.producer.frame_multiple
+        for b in self.branches:
+            path = Pipeline(self.producer.stages + b.stages, in_dtype, optimize=False)
+            fm = int(np.lcm(fm, path.frame_multiple))
+        self.frame_multiple = fm
+        self.path_ratios = [self.producer.ratio * b.ratio for b in self.branches]
+        self.out_dtypes = [b.out_dtype for b in self.branches]
+        self.n_branches = len(self.branches)
+        # the linear surface: total items out an input item, branch 0's dtype
+        self.ratio = sum(self.path_ratios, Fraction(0, 1))
+        self.out_dtype = self.out_dtypes[0]
+        self._fn = None
+
+    def branch_out_items(self, branch: int, in_items: int) -> int:
+        q = Fraction(in_items) * self.path_ratios[branch]
+        if q.denominator != 1:
+            raise ValueError(f"{in_items} input items give a fractional output "
+                             f"on branch {branch}")
+        return int(q)
+
+    def out_items(self, in_items: int) -> int:
+        """Items out of every branch together for ``in_items`` inputs."""
+        q = Fraction(in_items) * self.ratio
+        if q.denominator != 1:
+            raise ValueError(f"{in_items} input items give a fractional output")
+        return int(q)
+
+    def init_carry(self, device) -> tuple:
+        """Flat carries, producer then each branch, matching ``stages``."""
+        out = list(self.producer.init_carry(device))
+        for b in self.branches:
+            out.extend(b.init_carry(device))
+        return tuple(out)
+
+    def fn(self):
+        """``run(carries, x) -> (carries, (y_0, …, y_{N-1}))``."""
+        if self._fn is None:
+            n_p = len(self.producer.stages)
+            pfn = self.producer.fn()
+            bfns = [b.fn() for b in self.branches]
+            sizes = [len(b.stages) for b in self.branches]
+
+            def run(carries, x):
+                pc, mid = pfn(tuple(carries[:n_p]), x)
+                new_c, outs, off = list(pc), [], n_p
+                for bf, sz in zip(bfns, sizes):
+                    bc, y = bf(tuple(carries[off:off + sz]), mid)
+                    new_c.extend(bc)
+                    outs.append(y)
+                    off += sz
+                return tuple(new_c), tuple(outs)
+
+            self._fn = run
+        return self._fn
+
+    # they read only the duck-typed surface above
+    compile = Pipeline.compile
+    update_stage = Pipeline.update_stage
+
+
+class DagPipeline:
+    """A stage DAG as one program whose outputs are its sinks.
+
+    ``nodes`` is a sequence of ``(stage_list, input_ids)`` in topological
+    order: node 0 is the root (``input_ids == []``) and reads the program
+    input; every other node lists the nodes feeding it (all of lower index).
+    A node with several inputs starts with a :class:`MergeStage` of as many
+    inputs; plain stages follow it. The sinks (nodes no node consumes, in
+    index order) are the outputs. A node read by several nodes is computed
+    once.
+
+    Each sink ``j`` has ``path_ratios[j]`` (output items an input item; a
+    ``concat`` merge sums its inputs') and ``tag_ratios[j]`` (the tag-index
+    map along the primary chain: a merge adds only its own ``ratio``, since
+    tags ride input 0). An ``equal`` merge whose inputs arrive at different
+    rates raises ``ValueError``. ``concat_sinks[j]`` says whether sink j's
+    path crosses a ``concat`` merge (a partial frame cannot be expressed as
+    a valid prefix there, so such sinks emit full frames only).
+
+    Duck-types :class:`FanoutPipeline`'s surface, ``stages`` being the flat
+    node-order concatenation and the carry layout."""
+
+    def __init__(self, nodes, in_dtype, optimize: bool = False):
+        if not nodes:
+            raise ValueError("DagPipeline needs at least one node")
+        self.in_dtype = np.dtype(in_dtype)
+        self.raw_nodes = [(list(sl), tuple(int(j) for j in inputs))
+                          for sl, inputs in nodes]
+        consumed: dict = {}
+        for i, (_sl, inputs) in enumerate(self.raw_nodes):
+            if i == 0:
+                if inputs:
+                    raise ValueError("node 0 is the root and takes the "
+                                     "program input (input_ids must be [])")
+            elif not inputs:
+                raise ValueError(f"node {i} has no inputs (one root only)")
+            for j in inputs:
+                if not 0 <= j < i:
+                    raise ValueError(f"node {i} input {j} violates topological order")
+                consumed[j] = consumed.get(j, 0) + 1
+        self.sinks = [i for i in range(len(self.raw_nodes)) if i not in consumed]
+        self._nodes: list = []           # (stages, inputs, carry offset)
+        self.stages: list = []
+        fm = 1
+        node_r: list = []                # per node: output rate an input item
+        node_dt: list = []               # per node: output dtype
+        node_tag_r: list = []            # per node: primary-chain tag map
+        for i, (sl, inputs) in enumerate(self.raw_nodes):
+            stages = list(sl)
+            if len(inputs) > 1:
+                if not stages or not isinstance(stages[0], MergeStage):
+                    raise ValueError(f"node {i} joins {len(inputs)} inputs but does "
+                                     f"not start with a MergeStage")
+                m = stages[0]
+                if m.k != len(inputs):
+                    raise ValueError(f"node {i}: MergeStage k={m.k} != "
+                                     f"{len(inputs)} inputs")
+                in_rs = [node_r[j] for j in inputs]
+                in_dts = {np.dtype(node_dt[j]) for j in inputs}
+                if len(in_dts) != 1:
+                    raise ValueError(f"node {i}: merge inputs disagree on dtype "
+                                     f"({sorted(str(d) for d in in_dts)})")
+                for r_i in in_rs:
+                    need = Fraction(m.frame_multiple, 1) / r_i
+                    fm = int(np.lcm(fm, need.numerator))
+                if m.mode == "equal":
+                    if len(set(in_rs)) != 1:
+                        raise ValueError(f"node {i}: equal-mode merge rate contract "
+                                         f"violated (input path rates {in_rs})")
+                    r = in_rs[0] * m.ratio
+                else:
+                    r = sum(in_rs, Fraction(0, 1)) * m.ratio
+                fm = int(np.lcm(fm, r.denominator))
+                dt = np.dtype(m.out_dtype) if m.out_dtype is not None else in_dts.pop()
+                tag_r = node_tag_r[inputs[0]] * m.ratio
+                rest = stages[1:]
+            else:
+                r = node_r[inputs[0]] if inputs else Fraction(1, 1)
+                dt = np.dtype(node_dt[inputs[0]]) if inputs else self.in_dtype
+                tag_r = node_tag_r[inputs[0]] if inputs else Fraction(1, 1)
+                m = None
+                rest = stages
+            if any(isinstance(s, MergeStage) for s in rest):
+                raise ValueError(f"node {i}: a MergeStage may only be a multi-input "
+                                 f"node's first stage")
+            if optimize and rest:
+                rest = _merge_lti(rest, dt)
+            for s in rest:
+                need = Fraction(s.frame_multiple, 1) / r
+                fm = int(np.lcm(fm, need.numerator))
+                r *= s.ratio
+                tag_r *= s.ratio
+                fm = int(np.lcm(fm, r.denominator))
+                if s.out_dtype is not None:
+                    dt = np.dtype(s.out_dtype)
+            node_r.append(r)
+            node_dt.append(dt)
+            node_tag_r.append(tag_r)
+            final = ([m] if m is not None else []) + list(rest)
+            self._nodes.append((final, tuple(inputs), len(self.stages)))
+            self.stages.extend(final)
+        self.frame_multiple = fm
+        self.node_ratios = list(node_r)
+        self.node_dtypes = list(node_dt)
+        self.n_branches = len(self.sinks)
+        self.path_ratios = [node_r[s] for s in self.sinks]
+        self.tag_ratios = [node_tag_r[s] for s in self.sinks]
+        self.out_dtypes = [node_dt[s] for s in self.sinks]
+        crossed = []
+        for i, (_sl, inputs) in enumerate(self.raw_nodes):
+            c = any(crossed[j] for j in inputs)
+            first = self._nodes[i][0][0] if self._nodes[i][0] else None
+            if isinstance(first, MergeStage) and first.mode == "concat":
+                c = True
+            crossed.append(c)
+        self.concat_sinks = [crossed[s] for s in self.sinks]
+        self.ratio = sum(self.path_ratios, Fraction(0, 1))
+        self.out_dtype = self.out_dtypes[0]
+        self._fn = None
+
+    def init_carry(self, device) -> tuple:
+        """Flat carries in node order, matching ``stages``."""
+        device = torch.device(device)
+        carries = []
+        for stages, inputs, _off in self._nodes:
+            dt = self.in_dtype if not inputs else np.dtype(self.node_dtypes[inputs[0]])
+            for s in stages:
+                carries.append(s.init_carry(dt, device))
+                if s.out_dtype is not None:
+                    dt = np.dtype(s.out_dtype)
+        return tuple(carries)
+
+    def fn(self):
+        """``run(carries, x) -> (carries, (y_sink0, …))``: a node read by
+        several nodes is computed once; a merge node reads its inputs as one
+        tuple."""
+        if self._fn is None:
+            nodes, sinks = self._nodes, self.sinks
+
+            def run(carries, x):
+                new_c = list(carries)
+                vals: list = [None] * len(nodes)
+                for i, (stages, inputs, off) in enumerate(nodes):
+                    if not inputs:
+                        v = x
+                    elif len(inputs) == 1:
+                        v = vals[inputs[0]]
+                    else:
+                        v = tuple(vals[j] for j in inputs)
+                    for si, s in enumerate(stages):
+                        c, v = s.fn(carries[off + si], v)
+                        new_c[off + si] = c
+                    vals[i] = v
+                return tuple(new_c), tuple(vals[s] for s in sinks)
+
+            self._fn = run
+        return self._fn
+
+    branch_out_items = FanoutPipeline.branch_out_items
+    out_items = FanoutPipeline.out_items
+    compile = Pipeline.compile
+    update_stage = Pipeline.update_stage
+
+
 def _chain_k(run, k: int):
     """``run`` over the ``k`` frames of ``x[k, n]``, the carry chained
-    frame to frame, the outputs stacked ``[k, out]``; ``run`` itself at
-    k = 1."""
+    frame to frame, the outputs stacked ``[k, out]`` (each output of a
+    multi-output program apart); ``run`` itself at k = 1."""
     if k == 1:
         return run
 
@@ -203,6 +540,8 @@ def _chain_k(run, k: int):
         for i in range(k):
             carries, y = run(carries, x[i])
             ys.append(y)
+        if isinstance(ys[0], tuple):
+            return carries, tuple(torch.stack(col) for col in zip(*ys))
         return carries, torch.stack(ys)
 
     return run_k
@@ -265,6 +604,10 @@ class CompiledPipeline:
     buffer itself and is not copied). The slots' graphs share one memory
     pool: they are replayed one at a time, on one stream.
 
+    A :class:`FanoutPipeline` or :class:`DagPipeline` compiles the same way:
+    its graph writes one static output buffer a branch or sink, and
+    :attr:`outputs` holds a tuple of them a slot.
+
     A streamed caller keeps one slot a dispatch group in flight:
     :meth:`dispatch` replays the slot's graph on what its H2D put in the
     slot's input, and the slot's output is read by its D2H; the slot is
@@ -279,8 +622,9 @@ class CompiledPipeline:
     old values. A leaf whose shape, dtype or device changed makes the
     program capture again; :attr:`captures` counts the captures.
 
-    Capture follows PyTorch's recipe: an eager warm-up on a side stream
-    with a copy of the carry first (it builds the kernels, the library plans
+    Capture follows PyTorch's recipe: an eager warm-up on a side stream (a
+    high-priority one, never a transfer's copy stream) with a copy of the
+    carry first (it builds the kernels, the library plans
     and every table a stage makes on first use, whose host copies a capture
     forbids), then the slots' captures. :attr:`launches` holds the hand
     kernels' launches a replay makes (``cuda_kernels.capturing``); each
@@ -304,7 +648,12 @@ class CompiledPipeline:
     def _capture(self) -> None:
         program = _chain_k(self.pipeline.fn(), self.k)
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        # torch.cuda.Stream hands out the streams of a pool, round robin: a
+        # copy stream of ops/xfer.py (the normal-priority pool) may be the
+        # very stream another thread is capturing on, and its copies and
+        # events would then land in that capture. Captures take theirs from
+        # the high-priority pool, which nothing else in the port uses.
+        side = torch.cuda.Stream(self.device, priority=-1)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             program(_clone(self.carry), self.inputs[0])
@@ -381,6 +730,8 @@ class CompiledPipeline:
                              f"got {tuple(x.shape)}")
         self.inputs[0].copy_(x)
         carry, y = self.dispatch(0, carry)
+        if isinstance(y, tuple):
+            return carry, tuple(t.clone() for t in y)
         return carry, y.clone()
 
 

@@ -12,6 +12,12 @@ natively (the reference's float-pair shim for its TPU link is not needed),
 so a dispatch group of K frames is one ``[K, frame]`` buffer and one copy
 each way: the reference's per-wire-part lists have one part here.
 
+:data:`bytes_total` tallies the bytes each direction carries (``"h2d"``,
+``"d2h"``), counted where a transfer starts, on every device: the port's
+counterpart of the reference's ``fsdr_xfer_bytes_total`` counter without its
+Prometheus layer, read as ``cuda_kernels.launches`` is
+(:func:`reset_bytes`, then run, then read).
+
 Staging rule (the reference's ``h2d_needs_staging``): a frame handed to a
 transfer may be a view of a ring slot the producer overwrites as soon as it
 is consumed, so it is first copied into a :class:`HostBuffer` of its own
@@ -30,12 +36,29 @@ import torch
 from .arena import ArenaBuffer, arena
 
 __all__ = ["HostBuffer", "host_buffer", "to_device", "to_host", "start_device_transfer",
-           "start_device_transfer_parts", "start_host_transfer", "torch_dtype"]
+           "start_device_transfer_parts", "start_host_transfer", "torch_dtype",
+           "bytes_total", "reset_bytes"]
 
 Device = Union[str, torch.device]
 
 _streams_lock = threading.Lock()
 _streams: Dict[Tuple[str, str], "torch.cuda.Stream"] = {}
+
+#: bytes each direction has carried since the last :func:`reset_bytes`
+bytes_total: Dict[str, int] = {"h2d": 0, "d2h": 0}
+_bytes_lock = threading.Lock()
+
+
+def _tally(direction: str, n: int) -> None:
+    with _bytes_lock:
+        bytes_total[direction] += int(n)
+
+
+def reset_bytes() -> None:
+    """Set both directions' byte counts to 0."""
+    with _bytes_lock:
+        for k in bytes_total:
+            bytes_total[k] = 0
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -97,6 +120,7 @@ def start_device_transfer_parts(buf: HostBuffer, device: Device,
     buffer is the transfer's from here on: it is released as soon as the
     copy is queued and recycled once the copy has completed."""
     device = torch.device(device)
+    _tally("h2d", buf.tensor.numel() * buf.tensor.element_size())
     if device.type == "cpu":
         if out is None:
             t = buf.tensor                  # a buffer of its own, never the ring
@@ -140,6 +164,7 @@ def start_host_transfer(t: torch.Tensor) -> Callable[[], np.ndarray]:
     np.ndarray``, which blocks until the copy lands. The array lives in a
     host buffer the caller hands back with ``finish.release()`` once it has
     copied the data out."""
+    _tally("d2h", t.numel() * t.element_size())
     if t.device.type == "cpu":
         host = t.detach().clone()
 

@@ -1,11 +1,12 @@
 """The host runtime: actor blocks over stream buffers and message ports, run
 by a scheduler.
 
-A reduced copy of ``futuresdr_tpu/runtime``: stream and message ports, the
-flowgraph handle, the REST control port, the double-mapped circular buffer
-(the default) beside the pure-Python ring, and the ``Mocker`` harness. The
-threaded schedulers, failure policies, telemetry, the circuit buffer and
-device-chain fusion are later slices (ROADMAP).
+A reduced copy of ``futuresdr_tpu/runtime``: stream, in-place (device
+frame) and message ports, the flowgraph handle, the REST control port, the
+double-mapped circular buffer (the default) beside the pure-Python ring,
+device-graph fusion (``devchain.py``) and the ``Mocker`` harness. The
+threaded schedulers, failure policies, telemetry, the host-frame circuit
+pool and the native fast chain are later slices (ROADMAP).
 """
 
 from .flowgraph import ConnectError, Flowgraph, default_buffer

@@ -64,9 +64,20 @@ class WrappedKernel:
 
     def metrics(self) -> dict:
         """The block's counters, in the reference's keys (``restarts`` is
-        always 0: the port has only the fail-fast policy)."""
+        always 0: the port has only the fail-fast policy), updated with the
+        kernel's ``extra_metrics()`` where it has one (a fused device chain's
+        members report through it, ``devchain.py``). In-place ports have no
+        ring, so no fill."""
         k = self.kernel
-        return {
+        # extra_metrics first: a hook may refresh the port counters read below
+        extra = getattr(k, "extra_metrics", None)
+        extra_out = {}
+        if callable(extra):
+            try:
+                extra_out = extra() or {}
+            except Exception as e:             # noqa: BLE001 — metrics never raise
+                log.debug("block %s extra_metrics raised: %r", self.instance_name, e)
+        m = {
             "work_calls": self.work_calls,
             "work_time_s": round(self.work_time_s, 6),
             "messages_handled": self.messages_handled,
@@ -74,10 +85,12 @@ class WrappedKernel:
             "items_in": {p.name: p.items_consumed for p in k.stream_inputs},
             "items_out": {p.name: p.items_produced for p in k.stream_outputs},
             "buffer_fill": {p.name: round(f, 4) for p in k.stream_inputs
-                            if (f := p.fill()) is not None},
+                            if (f := getattr(p, "fill", lambda: None)()) is not None},
             "stalls": {p.name: p.stalls for p in k.stream_outputs},
             "starved": {p.name: p.starved for p in k.stream_inputs},
         }
+        m.update(extra_out)
+        return m
 
     def description(self) -> BlockDescription:
         k = self.kernel
@@ -96,10 +109,13 @@ class WrappedKernel:
         (backpressure) or an input below ``min_items`` (starvation)."""
         k = self.kernel
         for p in k.stream_outputs:
-            if p.connected and p.space() < p.min_items:
+            space = getattr(p, "space", None)        # in-place ports have no ring
+            if space is not None and p.connected and space() < p.min_items:
                 p.stalls += 1
         for p in k.stream_inputs:
-            if p.connected and not p.finished() and p.available() < p.min_items:
+            avail = getattr(p, "available", None)
+            if avail is not None and p.connected and not p.finished() \
+                    and avail() < p.min_items:
                 p.starved += 1
 
     def _notify_ports_finished(self) -> None:

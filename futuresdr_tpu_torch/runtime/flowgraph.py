@@ -1,11 +1,12 @@
 """Flowgraph: the graph container with typed stream and message connect.
 
-A reduced copy of ``futuresdr_tpu/runtime/flowgraph.py`` (no in-place
-circuit edges): ``connect`` is idempotent on already-added blocks, stream
-connects are dtype-checked at connect time, and buffers are materialized at
-launch with connect-time size negotiation. ``fg.connect(a >> b >> c)``
-chains default ports; ``fg.connect_stream(a, "out", b, "in")`` names them,
-and ``fg.connect_message(a, "out", b, "in")`` wires a message output to a
+A reduced copy of ``futuresdr_tpu/runtime/flowgraph.py``: ``connect`` is
+idempotent on already-added blocks, stream connects are dtype-checked at
+connect time, and buffers are materialized at launch with connect-time size
+negotiation. ``fg.connect(a >> b >> c)`` chains default ports, an in-place
+edge where both ports are in-place (device-frame) ports;
+``fg.connect_stream(a, "out", b, "in")`` and ``fg.connect_inplace(a, "out",
+b, "in")`` name them, and ``fg.connect_message(a, "out", b, "in")`` wires a message output to a
 handler. Each stream edge gets :func:`default_buffer` unless
 ``connect_stream(..., buffer=cls)`` overrides it.
 """
@@ -71,6 +72,14 @@ class StreamEdge:
 
 
 @dataclass
+class InplaceEdge:
+    src: Kernel
+    src_port: str
+    dst: Kernel
+    dst_port: str
+
+
+@dataclass
 class MessageEdge:
     src: Kernel
     src_port: str
@@ -84,6 +93,7 @@ class Flowgraph:
         self._kernel_ids: dict = {}           # id(kernel) -> block id
         self.stream_edges: List[StreamEdge] = []
         self.message_edges: List[MessageEdge] = []
+        self.inplace_edges: List[InplaceEdge] = []
         self._launched = False
 
     def add(self, kernel: Kernel) -> Kernel:
@@ -116,12 +126,24 @@ class Flowgraph:
                 kernels.append(it)
             else:
                 raise ConnectError(f"cannot connect {it!r}")
+        from .buffer.circuit import InplaceInput, InplaceOutput
         for a, b in zip(kernels, kernels[1:]):
             if not a.stream_outputs:
                 raise ConnectError(f"{a!r} has no stream outputs")
             if not b.stream_inputs:
                 raise ConnectError(f"{b!r} has no stream inputs")
-            self.connect_stream(a, a.stream_outputs[0].name, b, b.stream_inputs[0].name)
+            out, inp = a.stream_outputs[0], b.stream_inputs[0]
+            # dispatch on the port kind: a stream edge over in-place ports
+            # would deadlock the graph
+            o_inpl, i_inpl = isinstance(out, InplaceOutput), isinstance(inp, InplaceInput)
+            if o_inpl and i_inpl:
+                self.connect_inplace(a, out.name, b, inp.name)
+            elif o_inpl or i_inpl:
+                raise ConnectError(
+                    f"port kind mismatch: {a!r}.{out.name} -> {b!r}.{inp.name} "
+                    f"connects an inplace port to a stream port")
+            else:
+                self.connect_stream(a, out.name, b, inp.name)
 
     def connect_stream(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str,
                        buffer: Optional[type] = None) -> None:
@@ -131,6 +153,12 @@ class Flowgraph:
         self.add(dst)
         op = src.stream_output(src_port)   # raises on bad name
         ip = dst.stream_input(dst_port)
+        from .buffer.circuit import InplaceInput, InplaceOutput
+        if isinstance(op, InplaceOutput) or isinstance(ip, InplaceInput):
+            raise ConnectError(
+                f"{src!r}.{src_port} -> {dst!r}.{dst_port} involves an inplace "
+                f"(frame-plane) port; use connect_inplace (or plain connect, "
+                f"which dispatches on port kind)")
         if op.dtype is not None and ip.dtype is not None and op.dtype != ip.dtype:
             raise ConnectError(
                 f"dtype mismatch: {src!r}.{src_port} is {op.dtype}, {dst!r}.{dst_port} is {ip.dtype}")
@@ -138,6 +166,18 @@ class Flowgraph:
                 e.dst is dst and e.dst_port == dst_port for e in self.stream_edges):
             raise ConnectError(f"input {dst!r}.{dst_port} already connected")
         self.stream_edges.append(StreamEdge(src, src_port, dst, dst_port, buffer))
+
+    def connect_inplace(self, src: Kernel, src_port: str, dst: Kernel,
+                        dst_port: str) -> None:
+        """Connect an in-place (device frame) output to an in-place input;
+        an output wired to several inputs broadcasts its frames."""
+        self.add(src)
+        self.add(dst)
+        op = src.stream_output(src_port)
+        ip = dst.stream_input(dst_port)
+        if op.dtype is not None and ip.dtype is not None and op.dtype != ip.dtype:
+            raise ConnectError(f"dtype mismatch on inplace edge {src_port}->{dst_port}")
+        self.inplace_edges.append(InplaceEdge(src, src_port, dst, dst_port))
 
     def connect_message(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str) -> None:
         """Wire message output ``src_port`` of ``src`` to handler ``dst_port``
@@ -176,6 +216,13 @@ class Flowgraph:
             for e, ip in zip(edges, dst_ports):
                 ip.reader = writer.add_reader(self.wrapped(e.dst).inbox,
                                               e.dst.stream_inputs.index(ip))
+        # in-place (device frame) edges: no buffer, the ports queue frames
+        for e in self.inplace_edges:
+            op = e.src.stream_output(e.src_port)
+            ip = e.dst.stream_input(e.dst_port)
+            op.connect(ip)
+            ip.bind(self.wrapped(e.dst).inbox, e.dst.stream_inputs.index(ip))
+            ip.bind_producer(self.wrapped(e.src).inbox)
         # message edges (the wrapped destination enables direct dispatch)
         for e in self.message_edges:
             dw = self.wrapped(e.dst)

@@ -1,8 +1,9 @@
 """The block base class: ``Kernel`` with async ``init``/``work``/``deinit``.
 
-A reduced copy of ``futuresdr_tpu/runtime/kernel.py`` (no in-place circuit
-ports). Ports are declared in ``__init__`` with ``add_stream_input``/
-``add_stream_output``; message handlers are registered with
+A reduced copy of ``futuresdr_tpu/runtime/kernel.py``. Ports are declared
+in ``__init__`` with ``add_stream_input``/``add_stream_output``, or
+``add_inplace_input``/``add_inplace_output`` for the device-frame plane
+(``buffer/circuit.py``); message handlers are registered with
 ``add_message_input`` or marked with the :func:`message_handler` decorator,
 and message outputs are declared with ``add_message_output`` and posted to
 through ``mio`` (:class:`MessageOutputs`), which ``init``/``work``/``deinit``
@@ -95,6 +96,20 @@ class Kernel:
     def add_stream_output(self, name: str, dtype, min_items: int = 1,
                           min_buffer_size: int = 0) -> StreamOutput:
         port = StreamOutput(name, dtype, min_items, min_buffer_size)
+        self._stream_outputs.append(port)
+        return port
+
+    def add_inplace_input(self, name: str, dtype=None):
+        """An in-place (device frame) input port (``buffer/circuit.py``)."""
+        from .buffer.circuit import InplaceInput
+        port = InplaceInput(name, dtype)
+        self._stream_inputs.append(port)
+        return port
+
+    def add_inplace_output(self, name: str, dtype=None):
+        """An in-place (device frame) output port (``buffer/circuit.py``)."""
+        from .buffer.circuit import InplaceOutput
+        port = InplaceOutput(name, dtype)
         self._stream_outputs.append(port)
         return port
 

@@ -8,8 +8,9 @@ to the blocks, turns a block error into a terminate cascade and a
 the flowgraph so their final state stays readable. ``Runtime().run(fg)``
 runs to completion; ``Runtime().start(fg)`` returns a
 :class:`RunningFlowgraph` (with its ``handle``) once every block has passed
-``init``. With config ``ctrlport_enable`` the runtime serves its flowgraphs
-over the REST control port (``ctrl_port.py``). Telemetry, failure policies
+``init``. Every launch runs the device-graph fusion pass
+(``devchain.py``). With config ``ctrlport_enable`` the runtime serves its
+flowgraphs over the REST control port (``ctrl_port.py``). Telemetry, failure policies
 other than fail-fast and the doctor's flight records are not ported.
 """
 
@@ -120,10 +121,29 @@ def _describe(fg: Flowgraph, blocks: List[WrappedKernel]) -> FlowgraphDescriptio
 async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
                                    fg_inbox: BlockInbox,
                                    initialized: ReplySlot) -> Flowgraph:
-    """The per-flowgraph supervisor."""
+    """The per-flowgraph supervisor. Device-graph fusion runs first, on
+    every launch (``devchain.py``): each fusable device region is driven by
+    one fused block whose task answers the protocol for every member; the
+    other blocks run as actors."""
+    from .devchain import find_device_chains, run_devchain_task, shed_devchain_bridge
+    dev_chains = find_device_chains(fg)
     blocks = fg.take_blocks()
     by_id = {b.id: b for b in blocks}
-    handles = scheduler.run_flowgraph_blocks(blocks, fg_inbox)
+    wk = {id(b.kernel): b for b in blocks}
+    fused: set = set()
+    dev_tasks = []
+    for ch in dev_chains:
+        members = [wk[id(k)] for k in ch]
+        fused.update(id(b) for b in members)
+        dev_tasks.append((members, ch))
+    actor_blocks = [b for b in blocks if id(b) not in fused]
+    for b in actor_blocks:
+        # a kernel fused in an earlier run reports its own metrics again
+        shed_devchain_bridge(b.kernel)
+    handles = scheduler.run_flowgraph_blocks(actor_blocks, fg_inbox)
+    for members, ch in dev_tasks:
+        handles.append(scheduler.spawn(run_devchain_task(members, ch, fg_inbox,
+                                                         scheduler)))
     errors: List[Exception] = []
     ended: List[WrappedKernel] = []     # finished or failed, restored at the end
     queued: list = []                   # handle traffic during the barrier

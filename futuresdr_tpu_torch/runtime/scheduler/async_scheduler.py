@@ -4,6 +4,12 @@ A reduced copy of ``futuresdr_tpu/runtime/scheduler/async_scheduler.py``: the
 asyncio loop multiplexes all non-blocking block tasks, and each blocking
 block (``BLOCKING = True``, such as the device kernel) gets a dedicated
 thread with its own event loop.
+
+Every thread the scheduler starts runs torch's CPU ops with the intra-op
+thread count of the thread that created the scheduler: OpenMP keeps that
+count per thread, and a new thread would otherwise take one a core, whatever
+the process set (and MKL's FFTs round differently at different counts, so a
+block's CPU output would depend on the thread it ran on).
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import threading
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Awaitable, List, Optional
+
+import torch
 
 __all__ = ["AsyncScheduler"]
 
@@ -37,8 +45,10 @@ class AsyncScheduler:
     def __init__(self, blocking_workers: int = 32):
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._loop_thread: Optional[threading.Thread] = None
+        self._torch_threads = torch.get_num_threads()
         self._blocking_pool = ThreadPoolExecutor(
-            max_workers=blocking_workers, thread_name_prefix="fsdr-blocking")
+            max_workers=blocking_workers, thread_name_prefix="fsdr-blocking",
+            initializer=torch.set_num_threads, initargs=(self._torch_threads,))
         self._started = threading.Event()
         self._lock = threading.Lock()
 
@@ -51,8 +61,10 @@ class AsyncScheduler:
                 # the thread must not hold ``self`` strongly, or the
                 # drop finalizer below could never fire
                 started, wself = self._started, weakref.ref(self)
+                n_threads = self._torch_threads
 
                 def run():
+                    torch.set_num_threads(n_threads)
                     loop = asyncio.new_event_loop()
                     asyncio.set_event_loop(loop)
                     s = wself()
@@ -103,6 +115,16 @@ class AsyncScheduler:
                 handles.append(loop.create_task(
                     blk.run(fg_inbox), name=f"block:{blk.instance_name}"))
         return handles
+
+    def spawn(self, coro) -> Awaitable:
+        """Run ``coro`` as a task on the running loop (a device chain's
+        supervisor-protocol task)."""
+        return asyncio.get_running_loop().create_task(coro)
+
+    async def spawn_blocking(self, fn):
+        """Run ``fn()`` on a pool thread and await its result (a fused device
+        chain's compile and drive loop, which block)."""
+        return await asyncio.get_running_loop().run_in_executor(self._blocking_pool, fn)
 
     def run_coro_sync(self, coro):
         """Run ``coro`` on the scheduler loop from sync code, blocking for the result."""

@@ -1,6 +1,9 @@
-"""The device plane: the broker and the flowgraph block running a pipeline."""
+"""The device plane: the broker, the kernel blocks running a pipeline, and
+the device-frame plane."""
 
+from .frames import TpuD2H, TpuH2D, TpuMergeStage, TpuStage
 from .instance import TpuInstance, instance
-from .kernel_block import TpuKernel
+from .kernel_block import TpuDagKernel, TpuFanoutKernel, TpuKernel
 
-__all__ = ["TpuInstance", "instance", "TpuKernel"]
+__all__ = ["TpuInstance", "instance", "TpuKernel", "TpuFanoutKernel", "TpuDagKernel",
+           "TpuH2D", "TpuStage", "TpuMergeStage", "TpuD2H"]

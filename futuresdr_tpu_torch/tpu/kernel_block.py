@@ -30,6 +30,15 @@ or through the ``ctrl`` message port (``{"stage": …, <param>: …}``, the
 reference's grammar, e.g. over the REST control port); the program copies
 the changed leaves into its carry buffers before its next replay.
 
+:class:`TpuFanoutKernel` and :class:`TpuDagKernel` run a
+:class:`~futuresdr_tpu_torch.ops.stages.FanoutPipeline` or
+:class:`~futuresdr_tpu_torch.ops.stages.DagPipeline` the same way, one output
+port a branch or sink: the staging, K, credits and slots are
+:class:`TpuKernel`'s, and only the result side (D2H, drain, emit, tag
+rebase) works a branch at a time. The device-chain pass
+(``runtime/devchain.py``) builds them, and fused linear chains as plain
+:class:`TpuKernel`s.
+
 Not in this slice (ROADMAP): wire codecs, carry checkpoint/replay, the
 autotuned K and credit seed, the codec worker pool and frame lineage.
 """
@@ -48,41 +57,15 @@ from ..ops import xfer
 from ..ops.stages import Pipeline, Stage
 from ..log import logger
 from ..runtime.kernel import Kernel, message_handler
-from ..runtime.tag import ItemTag, rebase_tags
+from ..runtime.tag import ItemTag
 from ..types import Pmt
-from .frames import parse_ctrl
+from .frames import emit_with_tags, parse_ctrl, rebase_frame_tags
 from .instance import TpuInstance, instance
 
-__all__ = ["TpuKernel", "CreditController", "rebase_frame_tags", "emit_with_tags"]
+__all__ = ["TpuKernel", "TpuFanoutKernel", "TpuDagKernel", "CreditController",
+           "rebase_frame_tags", "emit_with_tags"]
 
 log = logger("tpu.kernel_block")
-
-
-def rebase_frame_tags(tags: Sequence[ItemTag], pipeline: Pipeline,
-                      out_valid: int) -> List[ItemTag]:
-    """Remap frame-relative tag indices through the pipeline's rate change,
-    clamped into the valid output window."""
-    if out_valid <= 0:
-        return []
-    r = pipeline.ratio
-    return [ItemTag(min(t.index * r.numerator // r.denominator, out_valid - 1), t.tag)
-            for t in tags]
-
-
-def emit_with_tags(output, data: np.ndarray, tags: Sequence[ItemTag]) -> tuple:
-    """Write as much of ``data`` as the output accepts, with ``tags`` at their
-    positions; returns ``(pending_data, pending_tags)`` for the unwritten
-    tail (``(None, [])`` when everything fit)."""
-    out = output.slice()
-    k = min(len(out), len(data))
-    out[:k] = data[:k]
-    for t in tags:
-        if t.index < k:
-            output.add_tag(t.index, t.tag)
-    output.produce(k)
-    if k < len(data):
-        return data[k:].copy(), rebase_tags(tags, k)
-    return None, []
 
 
 class CreditController:
@@ -232,16 +215,19 @@ class TpuKernel(Kernel):
                  frame_size: Optional[int] = None,
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
-                 frames_per_dispatch: Optional[int] = None):
+                 frames_per_dispatch: Optional[int] = None, _pipeline=None):
         super().__init__()
         self.inst = inst or instance()
-        self.pipeline = Pipeline(stages, in_dtype)
+        # ``_pipeline``: a pipeline built already (the device-chain pass's
+        # composed chain, or a fan-out/DAG pipeline of the subclasses)
+        self.pipeline = _pipeline if _pipeline is not None else Pipeline(stages, in_dtype)
         fs = frame_size or self.inst.frame_size
         m = self.pipeline.frame_multiple
         self.frame_size = max(m, (fs // m) * m)
         self.out_frame = self.pipeline.out_items(self.frame_size)
         self.k_batch = max(1, int(frames_per_dispatch or config().tpu_frames_per_dispatch))
         self.depth = max(1, int(frames_in_flight or self.inst.frames_in_flight))
+        self._depth_explicit = frames_in_flight is not None
         adaptive = frames_in_flight is None
         if adaptive and config().tpu_inflight > 0:
             self.depth, adaptive = int(config().tpu_inflight), False
@@ -265,11 +251,31 @@ class TpuKernel(Kernel):
         self._pending_out: Optional[np.ndarray] = None
         self._pending_tags: List[ItemTag] = []
         self.frames_dispatched = 0
-        self.input = self.add_stream_input("in", in_dtype, min_items=self.frame_size)
+        self.dispatches = 0           # program replays (one a dispatch group)
+        self.input = self.add_stream_input("in", self.pipeline.in_dtype,
+                                           min_items=self.frame_size)
+        self._add_outputs()
+
+    def _add_outputs(self) -> None:
         self.output = self.add_stream_output(
             "out", self.pipeline.out_dtype, min_items=self.out_frame,
             min_buffer_size=(self.depth * self.k_batch + 1) * self.out_frame *
             np.dtype(self.pipeline.out_dtype).itemsize)
+
+    def _adopt_credit_mode(self, adaptive: bool) -> None:
+        """Re-arm the credit controller after construction: a fused device
+        chain passes its members' depth explicitly, but may adapt unless a
+        member pinned its own (a config ``tpu_inflight`` pin always wins)."""
+        if config().tpu_inflight > 0:
+            adaptive = False
+        self._credits = CreditController(self.depth, adaptive=adaptive)
+
+    def extra_metrics(self) -> dict:
+        return {"frame_size": self.frame_size,
+                "frames_per_dispatch": self.k_batch,
+                "frames_dispatched": self.frames_dispatched,
+                "dispatches": self.dispatches,
+                "inflight_credits": self._credits.credits}
 
     async def init(self, mio, meta):
         self._staged.clear()
@@ -292,6 +298,7 @@ class TpuKernel(Kernel):
                 # into its buffers at the first dispatch
                 self._carry = self.pipeline.init_carry(self.inst.device)
             self.frames_dispatched = 0
+            self.dispatches = 0
 
     @message_handler(name="ctrl")
     async def ctrl_handler(self, io, mio, meta, p: Pmt) -> Pmt:
@@ -386,15 +393,21 @@ class TpuKernel(Kernel):
             with self._carry_lock:
                 self._carry, y = self._fn.dispatch(slot, self._carry)
                 self.frames_dispatched += len(metas)
-            out_metas = []
-            for valid_in, tags in metas:
-                valid_out = min(self.pipeline.out_items(valid_in), self.out_frame)
-                out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline,
-                                                               valid_out)))
-            self._inflight.append((xfer.start_host_transfer(y), out_metas, slot))
+                self.dispatches += 1
+            self._inflight.append(self._start_result_d2h(y, metas) + (slot,))
             self._credits.note_dispatch(None, len(self._inflight))
         if self._staged and len(self._inflight) >= self._credits.credits:
             self._credits.note_limited()
+
+    def _start_result_d2h(self, y, metas) -> tuple:
+        """Start the D2H of a replay's output; returns ``(finish, one
+        (valid_out, rebased tags) a frame)``."""
+        out_metas = []
+        for valid_in, tags in metas:
+            valid_out = min(self.pipeline.out_items(valid_in), self.out_frame)
+            out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline,
+                                                           valid_out)))
+        return xfer.start_host_transfer(y), out_metas
 
     def _drain_one(self) -> None:
         """Emit the oldest group's frames. Every frame but a group's last
@@ -433,3 +446,157 @@ class TpuKernel(Kernel):
         if eos and not self._inflight and not self._staged and not self._accum and \
                 self._pending_out is None and len(inp) == 0:
             io.finished = True
+
+
+class _PathRatio:
+    """Rate shim for :func:`rebase_frame_tags` (it reads only ``.ratio``):
+    one branch's or sink's tag ratio."""
+
+    __slots__ = ("ratio",)
+
+    def __init__(self, ratio):
+        self.ratio = ratio
+
+
+class TpuFanoutKernel(TpuKernel):
+    """One dispatch driving N branch stream outputs: the block form of
+    :class:`~futuresdr_tpu_torch.ops.stages.FanoutPipeline`. The input frame
+    crosses the link once, the producer runs once, and branch ``j``'s result
+    streams out of ``outputs[j]`` (ports ``out0`` … ``out{N-1}``).
+
+    Staging, megabatch K, credits and program slots are :class:`TpuKernel`'s,
+    unchanged; the result side (one D2H a branch, the drain, the emit and the
+    tag rebase through the branch's own rate) works a branch at a time.
+    :meth:`retire_branch` drops a branch whose reader detached while the
+    others keep streaming; the device-chain drive loop calls it. Run as a
+    plain actor block, the block event loop cannot tell which output's
+    reader detached, so the first one to detach finishes the whole block,
+    as in the reference."""
+
+    def __init__(self, fanout, frame_size: Optional[int] = None,
+                 inst: Optional[TpuInstance] = None,
+                 frames_in_flight: Optional[int] = None,
+                 frames_per_dispatch: Optional[int] = None):
+        nb = fanout.n_branches
+        self._pendings: List[Optional[np.ndarray]] = [None] * nb
+        self._pending_tags_n: List[List[ItemTag]] = [[] for _ in range(nb)]
+        self._branch_done = [False] * nb
+        super().__init__((), fanout.in_dtype, frame_size=frame_size, inst=inst,
+                         frames_in_flight=frames_in_flight,
+                         frames_per_dispatch=frames_per_dispatch, _pipeline=fanout)
+
+    def _add_outputs(self) -> None:
+        fo = self.pipeline
+        self.out_frames = [fo.branch_out_items(j, self.frame_size)
+                           for j in range(fo.n_branches)]
+        self.outputs = [
+            self.add_stream_output(
+                f"out{j}", fo.out_dtypes[j], min_items=of,
+                min_buffer_size=(self.depth * self.k_batch + 1) * of *
+                np.dtype(fo.out_dtypes[j]).itemsize)
+            for j, of in enumerate(self.out_frames)]
+        self.output = self.outputs[0]
+
+    async def init(self, mio, meta):
+        nb = self.pipeline.n_branches
+        self._pendings = [None] * nb
+        self._pending_tags_n = [[] for _ in range(nb)]
+        self._branch_done = [False] * nb
+        await super().init(mio, meta)
+
+    def retire_branch(self, j: int) -> None:
+        """Stop emitting branch ``j`` (its reader detached): its frames are
+        dropped from now on and the other branches keep streaming. Once every
+        branch is retired, the next ``work`` finishes the block."""
+        self._branch_done[j] = True
+        self._pendings[j] = None
+        self._pending_tags_n[j] = []
+
+    def extra_metrics(self) -> dict:
+        m = super().extra_metrics()
+        m["branches"] = self.pipeline.n_branches
+        m["branches_live"] = sum(not d for d in self._branch_done)
+        return m
+
+    def _start_result_d2h(self, ys, metas) -> tuple:
+        """One D2H a branch; one ``(valid_out, rebased tags)`` a branch a
+        frame, each branch's tags rebased through its tag ratio (a DAG's
+        primary chain through a merge), a sink past a ``concat`` merge
+        emitting full frames only."""
+        fo = self.pipeline
+        tag_ratios = getattr(fo, "tag_ratios", None) or fo.path_ratios
+        concat = getattr(fo, "concat_sinks", None)
+        out_metas = []
+        for valid_in, tags in metas:
+            per_branch = []
+            for j in range(fo.n_branches):
+                valid_out = min(fo.branch_out_items(j, valid_in), self.out_frames[j])
+                if concat and concat[j] and valid_in < self.frame_size:
+                    valid_out = 0
+                per_branch.append((valid_out, rebase_frame_tags(
+                    tags, _PathRatio(tag_ratios[j]), valid_out)))
+            out_metas.append(per_branch)
+        finishes = tuple(None if self._branch_done[j] else xfer.start_host_transfer(y)
+                         for j, y in enumerate(ys))
+        return finishes, out_metas
+
+    def _drain_branches(self) -> None:
+        """Land the oldest group and emit it into every live branch. Every
+        frame but a group's last real one is whole, so a branch's valid
+        outputs are one prefix of its flattened ``[K, out_j]`` result."""
+        finishes, out_metas, slot = self._inflight.popleft()
+        for j, finish in enumerate(finishes):
+            if finish is None:
+                continue
+            if not self._branch_done[j]:
+                flat = finish().reshape(-1)
+                n = sum(pb[j][0] for pb in out_metas)
+                tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
+                        for i, pb in enumerate(out_metas) for t in pb[j][1]]
+                self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
+                    self.outputs[j], flat[:n], tags)
+            finish.release()
+        self._free_slots.append(slot)
+
+    async def work(self, io, mio, meta):
+        nb = self.pipeline.n_branches
+        # 1. output that did not fit last time; park while any live branch
+        #    is blocked downstream (its consume() wakes us)
+        blocked = False
+        for j in range(nb):
+            if not self._branch_done[j] and self._pendings[j] is not None:
+                self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
+                    self.outputs[j], self._pendings[j], self._pending_tags_n[j])
+                blocked = blocked or self._pendings[j] is not None
+        if blocked:
+            return
+        if all(self._branch_done):
+            io.finished = True               # every reader detached
+            return
+
+        # 2. stage, 3. replay and start the D2Hs (TpuKernel's)
+        inp, eos = self._stage_available_input()
+        self._launch_staged()
+
+        # 4. drain the oldest group into every live branch
+        if self._inflight and (len(self._inflight) >= self._credits.credits
+                               or len(inp) < self.frame_size or eos):
+            self._drain_branches()
+            io.call_again = True
+            return
+
+        if eos and not self._inflight and not self._staged and not self._accum \
+                and all(p is None for p in self._pendings) and len(inp) == 0:
+            io.finished = True
+
+
+class TpuDagKernel(TpuFanoutKernel):
+    """One dispatch driving a device DAG's sinks: the block form of
+    :class:`~futuresdr_tpu_torch.ops.stages.DagPipeline` (nested fan-out,
+    fan-in through a merge, the diamond). Sink ``j`` streams out of
+    ``outputs[j]`` in the DAG's node order; tags crossing a merge follow the
+    primary chain (the pipeline's ``tag_ratios``). Everything else is
+    :class:`TpuFanoutKernel`'s. The reference compiles its K > 1 DAG
+    programs without carry donation (an XLA aliasing choice changed a
+    sink's rounding there); a CUDA graph's static carry buffers are written
+    once a replay at every K, so there is nothing to turn off here."""

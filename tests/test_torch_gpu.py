@@ -819,3 +819,227 @@ def test_megabatch_streams_equal_one_frame_dispatch_on_card(cuda_device, name):
         assert arena().hits > hits
     assert out[4].shape == out[1].shape
     assert _max_err(out[4], out[1]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the device-frame plane and device-graph fusion
+# ---------------------------------------------------------------------------
+
+def _graph_shapes(T):
+    """A fan-out and a diamond on the hand kernels' routes."""
+    t1 = np.asarray(np.hanning(64) / np.hanning(64).sum(), np.float32)
+    t2 = np.asarray(np.hanning(33) / np.hanning(33).sum(), np.float32)
+    fo = T.FanoutPipeline(
+        [T.rotator_stage(-0.3, impl="pallas"), T.fir_stage(t1, impl="pallas")],
+        [[T.fir_stage(t2, decim=4, impl="pallas")],
+         [T.quad_demod_stage(0.5, impl="pallas")]], np.complex64, optimize=False)
+    dag = T.DagPipeline([
+        ([T.fir_stage(t1, impl="pallas")], []),
+        ([T.fir_stage(t2, decim=4, impl="pallas")], [0]),
+        ([T.fir_stage(t1, decim=4, impl="pallas")], [0]),
+        ([T.add_merge_stage(2), T.mag2_stage()], [1, 2]),
+    ], np.complex64)
+    return {"fanout": fo, "diamond": dag}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("shape", ["fanout", "diamond"])
+def test_multi_output_capture_equals_eager_on_card(cuda_device, shape, k):
+    """A fan-out or DAG pipeline compiles into one graph with one static
+    output a sink: three chained dispatches of ``k`` frames equal the eager
+    program bit for bit (the same kernels on the same shapes, a frame at a
+    time), one capture, and each replay adds the graph's launches."""
+    from futuresdr_tpu_torch.ops import stages as T
+    pipe = _graph_shapes(T)[shape]
+    frame = 4096
+    rng = np.random.default_rng(90)
+    frames = list(torch.from_numpy(_c64(rng, 3 * k * frame)).to(cuda_device).split(frame))
+    fn, carry = pipe.compile(frame, cuda_device, k=k)
+    assert fn.captures == 1 and isinstance(fn.outputs[0], tuple)
+    before = dict(ck.launches)
+    got = [[] for _ in range(pipe.n_branches)]
+    for d in range(3):
+        x = torch.stack(frames[d * k:(d + 1) * k]) if k > 1 else frames[d]
+        carry, ys = fn(carry, x)
+        for j, y in enumerate(ys):
+            got[j].append(y.reshape(-1))
+    torch.cuda.synchronize()
+    assert {n: ck.launches[n] - before[n] for n in ck.launches} == \
+        {n: 3 * fn.launches.get(n, 0) for n in ck.launches}
+    assert fn.launches["fir"] == k
+    run, ec = pipe.fn(), pipe.init_carry(cuda_device)
+    want = [[] for _ in range(pipe.n_branches)]
+    for x in frames:
+        ec, ys = run(ec, x)
+        for j, y in enumerate(ys):
+            want[j].append(y.reshape(-1))
+    for g, w in zip(got, want):
+        assert torch.equal(torch.cat(g), torch.cat(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wait", [True, False])
+def test_device_frame_crosses_threads_on_card(cuda_device, wait):
+    """A frame written on one thread's stream, held busy by a device sleep,
+    and read on another thread's stream: through the in-place ports the
+    reader waits on the producer's event and reads the written values; a
+    reader that takes the frame without the wait reads it before it is
+    written (the control, which shows the case can fail)."""
+    import threading
+
+    from futuresdr_tpu_torch.runtime.buffer.circuit import InplaceInput, InplaceOutput
+    out, inp = InplaceOutput("out"), InplaceInput("in")
+    out.connect(inp)
+    n = 1 << 20
+    src = torch.randn(n, device=cuda_device) + 7.0
+    torch.cuda.synchronize()
+    result = {}
+
+    def produce():
+        s = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(s):
+            frame = torch.empty(n, device=cuda_device)
+            torch.cuda._sleep(200_000_000)          # holds the stream ~0.1 s
+            frame.copy_(src)
+            if wait:
+                out.put_full(frame, n, ())
+            else:
+                inp.push(frame, None, n, ())        # no event: the control
+            del frame
+
+    def consume():
+        s = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(s):
+            frame, valid, _ = inp.get_full()
+            result["y"] = (frame * 2.0).cpu()       # synchronizes this stream only
+            result["valid"] = valid
+
+    t1 = threading.Thread(target=produce)
+    t1.start()
+    t1.join()
+    t2 = threading.Thread(target=consume)
+    t2.start()
+    t2.join()
+    torch.cuda.synchronize()
+    same = torch.equal(result["y"], (src * 2.0).cpu())
+    assert result["valid"] == n
+    assert same is wait
+
+
+@pytest.mark.gpu
+def test_two_stage_blocks_capture_concurrently_on_card(cuda_device):
+    """Two TpuStages compile on their own threads at once (the capture lock
+    serializes the captures); each program captured once and equals its
+    eager chain."""
+    import threading
+
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuStage
+    inst = TpuInstance(cuda_device)
+    t1 = np.asarray(np.hanning(64) / np.hanning(64).sum(), np.float32)
+    blocks = [TpuStage([T.fir_stage(t1, impl="pallas"), T.fft_stage(2048),
+                        T.mag2_stage()], np.complex64, inst=inst),
+              TpuStage([T.rotator_stage(0.2, impl="pallas"),
+                        T.quad_demod_stage(0.5, impl="pallas")], np.complex64, inst=inst)]
+    frame = 1 << 16
+    rng = np.random.default_rng(91)
+    x = torch.from_numpy(_c64(rng, frame)).to(cuda_device)
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def compile_one(b):
+        try:
+            barrier.wait()
+            b._compile(frame)
+        except Exception as e:          # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=compile_one, args=(b,)) for b in blocks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for b in blocks:
+        assert b._compiled.captures == 1
+        _, y = b._compiled(b._carry, x)
+        _, want = b.pipeline.fn()(b.pipeline.init_carry(cuda_device), x)
+        assert torch.equal(y, want)
+
+
+@pytest.mark.gpu
+def test_fused_frame_plane_equals_per_hop_on_card(cuda_device):
+    """``TpuH2D → TpuStage[fir] → TpuStage[fft] → TpuStage[|x|²] → TpuD2H``
+    on the card, fused and per hop: bit-equal at K = 1, one dispatch a frame
+    fused."""
+    import os
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.runtime.devchain import find_device_chains
+    from futuresdr_tpu_torch.tpu import TpuD2H, TpuH2D, TpuInstance, TpuStage
+    inst = TpuInstance(cuda_device)
+    t1 = np.asarray(np.hanning(64) / np.hanning(64).sum(), np.float32)
+    frame = 1 << 16
+    host = _c64(np.random.default_rng(92), 5 * frame)
+    out = {}
+    for fused in (False, True):
+        if fused:
+            os.environ.pop("FSDR_NO_DEVCHAIN", None)
+        else:
+            os.environ["FSDR_NO_DEVCHAIN"] = "1"
+        try:
+            fg = Flowgraph()
+            h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst)
+            sts = [TpuStage([s], np.complex64, inst=inst) for s in
+                   (T.fir_stage(t1, impl="pallas"), T.fft_stage(2048), T.mag2_stage())]
+            d2h, snk = TpuD2H(np.float32, inst=inst), VectorSink(np.float32)
+            fg.connect(VectorSource(host), h2d, *sts, d2h, snk)
+            assert len(find_device_chains(fg)) == int(fused)
+            Runtime().run(fg)
+            out[fused] = snk.items()
+            if fused:
+                m = h2d.extra_metrics()
+                assert m["devchain_dispatches"] == m["devchain_frames"] == 5
+        finally:
+            os.environ.pop("FSDR_NO_DEVCHAIN", None)
+    assert out[True].shape == out[False].shape == (5 * frame,)
+    np.testing.assert_array_equal(out[True], out[False])
+
+
+@pytest.mark.gpu
+def test_captures_never_take_a_transfer_stream_on_card(cuda_device):
+    """Forty captures on one thread while another thread's transfers run:
+    the pool hands its streams out round robin, so a capture on a stream of
+    the transfers' pool would, within 32 captures, capture a copy and its
+    event (an error at the capture or at the arena's next query)."""
+    import threading
+
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.ops import xfer
+    stop, errors = threading.Event(), []
+    host = np.ones(1 << 16, np.complex64)
+
+    def transfers():
+        try:
+            while not stop.is_set():
+                t = xfer.start_device_transfer(host, cuda_device)()
+                finish = xfer.start_host_transfer(t)
+                finish()
+                finish.release()
+        except Exception as e:          # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=transfers)
+    th.start()
+    try:
+        for _ in range(40):
+            fn, carry = T.Pipeline([T.mag2_stage()], np.complex64).compile(4096, cuda_device)
+            fn(carry, torch.ones(4096, dtype=torch.complex64, device=cuda_device))
+    finally:
+        stop.set()
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
