@@ -144,6 +144,29 @@ fused run's metrics bridge) and H2D/D2H bytes a frame (``xfer.bytes_total``):
     and the stream-plane nested fan-out ``prod -> {a -> {c, d}, b}`` of
     ``TpuKernel``s (1 dispatch a frame fused; D2H only the sinks' payloads).
 
+The wires (``ops/wire.py``; the phases above pin the f32 wire, ``LINK``,
+where their checks were set for a float32 link; on a card the default is
+sc16, which the apps' phases 19-20 keep):
+
+25. (a) each wire's device decode and encode against its host twin, bit for
+    bit, at 2^18 and 512,000 complex64 and a float32 frame, with non-finite
+    samples and an all-zero frame, and K = 4 frames of different peaks
+    through a captured wired program; (b) ``VectorSource -> TpuKernel(wire)
+    -> VectorSink`` for f32, bf16, sc16 and sc8 at K = 1 and 4 on the
+    spectrum fused chain at 2^18 and the FM kernel chain at 512,000 against
+    the resident float32 chain: f32 bit-equal, the others by SNR
+    (``WIRE_SNR``); (c) the link bytes a frame against the wire's by
+    construction (sc16 at 2^18: 1,048,640 B up, 524,292 down) and one H2D
+    start a packed group; (d) ``TpuH2D(sc16) -> TpuStage* -> TpuD2H(sc16)``
+    fused bit-equal to per hop, and no fusion where the end wires differ;
+    (e) ``apply_wire_retune`` f32 -> sc8 -> f32 mid-stream (every frame out,
+    each segment against the chained wired programs, back to the first
+    program with no capture) and ``tpu_adaptive_wire`` widening sc8 on a
+    burst; (f) zero-copy ingest from a registered, page-locked buffer; (g)
+    seeded transient H2D faults retried to the unfaulted output, an
+    exhausted budget failing with ``TransferError``; (h) each wire's streamed
+    rate at K = 1 and 4 with its measured codec SNR.
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -260,6 +283,12 @@ SPEC_POWER_TOL = 1e-5
 # held at CHAIN_TOL (the same kernels on the same inputs), a retune through
 # the compiled carry too, and K = 4 streamed vs K = 1 streamed as well
 HOST_K = (1, 4)
+# The streamed phases whose checks are bit-equality, or whose tolerance was
+# set for a float32 link (5, 11, 14-18, 21-24), pin the f32 wire, so they
+# keep measuring what they measured before the wire codecs; on a card the
+# default wire is sc16 (ops/wire.py resolve_wire), which the apps' phases
+# 19-20 keep and phase 25 holds against f32.
+LINK = "f32"
 HOST_DISPATCHES = 3
 # device sleep before a timed run of calls (~60 ms): the host enqueues them
 # all before the card reaches the first, so the card's time is what is timed
@@ -594,7 +623,7 @@ def phase_resident(dev, taps) -> dict:
 def _stream_kernel(route, taps, frame, dev):
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     return TpuKernel(chain_stages(route, taps), np.complex64, frame_size=frame,
-                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT)
+                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT, wire=LINK)
 
 
 def phase_streamed(dev, taps) -> dict:
@@ -957,7 +986,7 @@ def phase_fm_resident(dev) -> dict:
 def _fm_kernel_block(chain, frame, dev, depth=IN_FLIGHT):
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     return TpuKernel(fm_stages(chain), np.complex64, frame_size=frame,
-                     inst=TpuInstance(dev), frames_in_flight=depth)
+                     inst=TpuInstance(dev), frames_in_flight=depth, wire=LINK)
 
 
 def phase_fm_streamed(dev) -> dict:
@@ -1411,7 +1440,7 @@ def phase_pfb_resident(dev) -> dict:
 def _pfb_kernel_block(frame, dev, impl="pallas"):
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     return TpuKernel(pfb_stages(impl), np.complex64, frame_size=frame,
-                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT)
+                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT, wire=LINK)
 
 
 def phase_pfb_streamed(dev) -> float:
@@ -1545,8 +1574,15 @@ def phase_spectrum_app(dev) -> float:
     tone = (np.exp(2j * np.pi * SPEC_TONE * np.arange(n))
             + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
             ).astype(np.complex64)
-    fg, sink = build_flowgraph(VectorSource(tone), use_tpu=True, collect=True,
-                               inst=TpuInstance(dev))
+    from futuresdr_tpu_torch.config import config
+    # the app's kernel resolves the configured wire: f32 here (LINK), since
+    # the float64 comparison's tolerance was set for a float32 link
+    saved, config().tpu_wire_format = config().tpu_wire_format, LINK
+    try:
+        fg, sink = build_flowgraph(VectorSource(tone), use_tpu=True, collect=True,
+                                   inst=TpuInstance(dev))
+    finally:
+        config().tpu_wire_format = saved
     t0 = time.perf_counter()
     Runtime().run(fg)
     wall = time.perf_counter() - t0
@@ -1787,7 +1823,7 @@ def phase_compiled_retune(dev, taps) -> None:
 def _host_kernel_block(label, make, frame, dev, k):
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     return TpuKernel(make(), np.complex64, frame_size=frame, inst=TpuInstance(dev),
-                     frames_in_flight=IN_FLIGHT, frames_per_dispatch=k)
+                     frames_in_flight=IN_FLIGHT, frames_per_dispatch=k, wire=LINK)
 
 
 def phase_megabatch_streamed(dev, taps) -> dict:
@@ -2364,10 +2400,11 @@ def phase_devchain_linear(dev, taps) -> dict:
 
     def frame_plane(src, sink_cls):
         fg = Flowgraph()
-        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT)
+        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT,
+                     wire=LINK)
         sts = [TpuStage([s], np.complex64, inst=inst) for s in
                (fir_stage(taps, impl="pallas"), fft_stage(N_FFT), mag2_stage())]
-        d2h, snk = TpuD2H(np.float32, inst=inst), sink_cls(np.float32)
+        d2h, snk = TpuD2H(np.float32, inst=inst, wire=LINK), sink_cls(np.float32)
         _src_into(fg, src, h2d)
         fg.connect(h2d, *sts, d2h, snk)
         return fg, [snk], [h2d, *sts, d2h]
@@ -2375,9 +2412,9 @@ def phase_devchain_linear(dev, taps) -> dict:
     def kernels(src, sink_cls):
         fg = Flowgraph()
         k1 = TpuKernel([fir_fft_stage(taps, N_FFT)], np.complex64, frame_size=frame,
-                       inst=inst, frames_in_flight=IN_FLIGHT)
+                       inst=inst, frames_in_flight=IN_FLIGHT, wire=LINK)
         k2 = TpuKernel([mag2_stage()], np.complex64, frame_size=frame, inst=inst,
-                       frames_in_flight=IN_FLIGHT)
+                       frames_in_flight=IN_FLIGHT, wire=LINK)
         snk = sink_cls(np.float32)
         _src_into(fg, src, k1)
         fg.connect(k1, k2, snk)
@@ -2408,11 +2445,11 @@ def phase_devchain_fanout(dev) -> dict:
     def build(src, sink_cls):
         fg = Flowgraph()
         prod = TpuKernel(fm_stages("kernel")[:3], np.complex64, frame_size=frame,
-                         inst=inst, frames_in_flight=IN_FLIGHT)
+                         inst=inst, frames_in_flight=IN_FLIGHT, wire=LINK)
         audio = TpuKernel([resample_stage(24, 125, impl="pallas")], np.float32,
-                          frame_size=demod, inst=inst, frames_in_flight=IN_FLIGHT)
+                          frame_size=demod, inst=inst, frames_in_flight=IN_FLIGHT, wire=LINK)
         level = TpuKernel([mag2_stage()], np.float32, frame_size=demod, inst=inst,
-                          frames_in_flight=IN_FLIGHT)
+                          frames_in_flight=IN_FLIGHT, wire=LINK)
         s_audio, s_level = sink_cls(np.float32), sink_cls(np.float32)
         _src_into(fg, src, prod)
         fg.connect_stream(prod, "out", audio, "in")
@@ -2442,13 +2479,14 @@ def phase_devchain_dag(dev) -> dict:
 
     def diamond(src, sink_cls):
         fg = Flowgraph()
-        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT)
+        h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, max_inflight=IN_FLIGHT,
+                     wire=LINK)
         b1 = TpuStage([fir_stage(lp1, decim=4, impl="pallas", name="b1")], np.complex64,
                       inst=inst)
         b2 = TpuStage([fir_stage(lp2, decim=4, impl="pallas", name="b2")], np.complex64,
                       inst=inst)
         mg = TpuMergeStage(add_merge_stage(2), [mag2_stage()], inst=inst)
-        d2h, snk = TpuD2H(np.float32, inst=inst), sink_cls(np.float32)
+        d2h, snk = TpuD2H(np.float32, inst=inst, wire=LINK), sink_cls(np.float32)
         _src_into(fg, src, h2d)
         fg.connect_inplace(h2d, "out", b1, "in")
         fg.connect_inplace(h2d, "out", b2, "in")
@@ -2463,7 +2501,7 @@ def phase_devchain_dag(dev) -> dict:
     def nested(src, sink_cls):
         def tk(stages):
             return TpuKernel(stages, np.complex64, frame_size=frame, inst=inst,
-                             frames_in_flight=IN_FLIGHT)
+                             frames_in_flight=IN_FLIGHT, wire=LINK)
 
         fg = Flowgraph()
         prod, a = tk([fir_stage(t1, impl="pallas", name="p")]), \
@@ -2488,6 +2526,519 @@ def phase_devchain_dag(dev) -> dict:
             dev, "nested fan-out", nested, frame, 5,
             {(True, "h2d"): frame * 8, (True, "d2h"): sinks_nested,
              (False, "h2d"): 5 * frame * 8, (False, "d2h"): sinks_nested + 2 * frame * 8})}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the wires
+# ---------------------------------------------------------------------------
+
+WIRE_NAMES = ("f32", "bf16", "sc16", "sc8")
+WIRE_FRAMES = 8              # frames of each streamed check of the wires
+# Streamed output against the resident float32 chain, by SNR: the reference's
+# measured one-crossing floors (tests/test_wire.py:56: bf16 35, sc16 80, sc8
+# 38 dB) less 12 dB, for the two crossings (in and out) and the square in
+# |x|^2 of the spectrum chain; f32 is held bit for bit.
+WIRE_SNR = {"bf16": 23.0, "sc16": 68.0, "sc8": 26.0}
+WIRE_SEG = 6                 # frames of each segment of the wire-switch run
+ADAPT_FRAME = 1 << 14        # the adaptive wire run's frame
+ADAPT_TONE, ADAPT_BURST = 64, 96   # its frames of tone, then of bursts
+FAULT_RATE = 0.2             # injected transient H2D faults a transfer
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a)).reshape(-1).view(np.uint8)
+
+
+def _to_dev(parts, dev):
+    import torch
+    return tuple(torch.from_numpy(np.array(p)).to(dev) for p in parts)
+
+
+def _codec_inputs(dev):
+    """The codec checks' frames, on the card: 2^18 and 512,000 complex64, a
+    float32 2^18 frame, non-finite samples, an all-zero frame."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 250)
+    bad = randc(1 << 16, gen, dev)
+    bad[5] = complex(float("nan"), 1.0)
+    bad[77] = complex(float("inf"), 0.0)
+    bad[900] = complex(0.0, float("-inf"))
+    return {"c64 2^18": randc(1 << 18, gen, dev) * 3,
+            "c64 512000": randc(512_000, gen, dev),
+            "f32 2^18": torch.randn(1 << 18, generator=gen, device=dev),
+            "non-finite": bad,
+            "zero": torch.zeros(4096, dtype=torch.complex64, device=dev)}
+
+
+def phase_wire_codecs(dev) -> None:
+    """(a) Each wire's device decode and encode against its host twin on the
+    card, bit for bit (bf16: every finite value; a NaN's bits are the
+    device's), then K = 4 frames a dispatch through a captured wired program
+    (the identity chain), each frame with its own peak: the program's output
+    parts equal the host's re-encode of each frame, per part and packed."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.ops import xfer
+    from futuresdr_tpu_torch.ops.wire import get_wire
+    inputs = _codec_inputs(dev)
+    for name in WIRE_NAMES:
+        w = get_wire(name)
+        for label, x in inputs.items():
+            xh = x.cpu().numpy()
+            parts = w.encode_host(xh)
+            got = w.decode_torch(_to_dev(parts, dev), xh.dtype).cpu().numpy()
+            want = w.decode_host(parts, xh.dtype)
+            check(np.array_equal(_bits(got), _bits(want)),
+                  f"wire {name} {label}: the device decode differs from the host's")
+            enc = [p.cpu().numpy() for p in w.encode_torch(x)]
+            flat = xh.view(np.float32) if np.iscomplexobj(xh) else xh
+            for e, h in zip(enc, parts):
+                h = np.asarray(h)
+                if name == "bf16":
+                    keep = np.isfinite(flat).reshape(h.shape)
+                    ok = np.array_equal(e[keep], h[keep])
+                else:
+                    ok = np.array_equal(_bits(e), _bits(h))
+                check(ok, f"wire {name} {label}: the device encode differs from the host's")
+        n, k = 1 << 16, 4
+        gen = torch.Generator(device=dev).manual_seed(SEED + 251)
+        xs = [(randc(n, gen, dev) * 10.0 ** (-2 * i)).cpu().numpy() for i in range(k)]
+        enc = [w.encode_host(x) for x in xs]
+        stacked = [np.stack([np.asarray(e[j]) for e in enc]) for j in range(len(enc[0]))]
+        pipe = T.Pipeline([T.apply_stage(lambda v: v.clone())], np.complex64)
+        lay = xfer.PackedLayout.probe(w, n, np.complex64, k=k)
+        fn, carry = pipe.compile(n, dev, k=k, wire=w)
+        _, y = fn(carry, _to_dev(stacked, dev))
+        outs = [[p.cpu().numpy() for p in y]]
+        if lay is not None:
+            pfn, pcarry = pipe.compile(n, dev, k=k, wire=w, packed=lay)
+            buf = lay.pack(stacked, np.empty(lay.nbytes, np.uint8))
+            _, py = pfn(pcarry, _to_dev((buf,), dev))
+            outs.append([p.cpu().numpy() for p in py])
+        for out in outs:
+            for i, e in enumerate(enc):
+                again = w.encode_host(w.decode_host(e, np.complex64))
+                for j, h in enumerate(again):
+                    check(np.array_equal(_bits(out[j][i]), _bits(h)),
+                          f"wire {name} K={k}: frame {i}'s part {j} differs from its "
+                          f"host re-encode")
+        if len(enc[0]) > 1:
+            scales = outs[0][1]
+            check(len(set(scales.tolist())) == k, f"wire {name}: one scale for K frames "
+                                                  f"({scales})")
+        print(f"wire {name}: device decode and encode equal the host twin on "
+              f"{', '.join(inputs)}; K={k} captured program (per part"
+              f"{' and packed' if lay is not None else ''}) equals each frame's host "
+              f"re-encode")
+
+
+def _wire_kernel(stages, frame, dev, k, wire):
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    return TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
+                     frames_in_flight=IN_FLIGHT, frames_per_dispatch=k, wire=wire)
+
+
+def _run_vector(kern, host):
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    fg = Flowgraph()
+    snk = VectorSink(kern.pipeline.out_dtype)
+    fg.connect(VectorSource(host), kern, snk)
+    rt = Runtime()
+    rt.run(fg)
+    rt.shutdown()
+    return snk.items()
+
+
+def _wire_bytes(kern, k: int) -> tuple:
+    """H2D and D2H bytes a frame of ``kern``'s wire by construction: the
+    packed layout's (or the parts') bytes over K, and the output's parts."""
+    w = kern.wire
+    if kern._packed is not None:
+        up = kern._packed.nbytes / k
+    else:
+        up = sum(int(np.prod(sh)) * dt.itemsize for sh, dt in kern._part_specs)
+    down = sum(np.asarray(p).nbytes for p in
+               w.encode_host(np.zeros(kern.out_frame, kern.pipeline.out_dtype)))
+    return up, down
+
+
+def phase_wires_streamed(dev, taps) -> dict:
+    """(b) ``VectorSource -> TpuKernel(wire=w) -> VectorSink`` per wire at K
+    = 1 and 4 against the resident float32 chain (the plain compiled
+    program, the one the streamed path replayed before the wires) on the
+    same frames: f32 bit for bit, the others by SNR (WIRE_SNR); (c) the link
+    bytes a frame (``xfer.bytes_total``) against the wire's by construction,
+    and one H2D start a dispatch group where the parts are packed. Returns
+    ``{(chain, k, wire): (snr dB, h2d B, d2h B)}``."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import xfer
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    gen = torch.Generator(device=dev).manual_seed(SEED + 252)
+    chains = [("spectrum fused", lambda: chain_stages("fused", taps), FRAMES[0]),
+              ("fm kernel", lambda: fm_stages("kernel"), FM_FRAMES[0])]
+    found = {}
+    for label, make, f in chains:
+        host_t = host_input(label, WIRE_FRAMES * f, gen, dev)
+        host = host_t.cpu().numpy()
+        frames = list(host_t.reshape(WIRE_FRAMES, f))
+        for k in HOST_K:
+            fn, carry = Pipeline(make(), np.complex64).compile(f, dev, k=k)
+            ref = run_compiled(fn, carry, frames, k).cpu()
+            del fn, carry
+            for name in WIRE_NAMES:
+                kern = _wire_kernel(make(), f, dev, k, name)
+                xfer.reset_bytes()
+                got = torch.from_numpy(_run_vector(kern, host))
+                h2d = xfer.bytes_total["h2d"] / WIRE_FRAMES
+                d2h = xfer.bytes_total["d2h"] / WIRE_FRAMES
+                starts = xfer.starts_total["h2d"]
+                check(got.shape == ref.shape, f"wires {label} K={k} {name}: "
+                      f"{tuple(got.shape)} items, want {tuple(ref.shape)}")
+                if name == "f32":
+                    check(torch.equal(got, ref), f"wires {label} K={k}: the f32 wire "
+                          f"differs from the resident float32 chain")
+                    snr = float("inf")
+                else:
+                    snr = snr_db(got, ref)
+                    check(snr >= WIRE_SNR[name], f"wires {label} K={k} {name}: output "
+                          f"SNR {snr:.2f} dB against float32, limit {WIRE_SNR[name]}")
+                up, down = _wire_bytes(kern, k)
+                check(h2d == up and d2h == down, f"wires {label} K={k} {name}: "
+                      f"{h2d:g} B up, {d2h:g} B down a frame, want {up:g} and {down:g}")
+                groups = WIRE_FRAMES // k
+                want_starts = groups * (1 if kern._packed is not None
+                                        else len(kern._part_specs))
+                check(starts == want_starts, f"wires {label} K={k} {name}: {starts} H2D "
+                      f"starts, want {want_starts}")
+                found[(label, k, name)] = (snr, h2d, d2h)
+                print(f"wires {label} frame={f} K={k} {name}: "
+                      f"{'bit-equal to' if name == 'f32' else f'SNR {snr:.2f} dB against'}"
+                      f" the resident float32 chain; H2D {h2d:.0f} B, D2H {d2h:.0f} B a "
+                      f"frame, {starts} H2D starts for {groups} groups")
+    # at 2^18: sc16 1,048,640 B up (the payload, and the scale in a 64-byte
+    # slot) and 524,292 down, against f32's 2,097,152 and 1,048,576
+    f = FRAMES[0]
+    spec = {n: found[("spectrum fused", 1, n)][1:] for n in ("f32", "sc16")}
+    check(spec["sc16"] == (4 * f + 64, 2 * f + 4) and spec["f32"] == (8 * f, 4 * f),
+          f"wires: spectrum K=1 bytes a frame {spec}")
+    return found
+
+
+def phase_wire_frames(dev, taps) -> None:
+    """(d) ``TpuH2D(wire="sc16") -> TpuStage[fir_fft] -> TpuStage[|x|^2] ->
+    TpuD2H(wire="sc16")`` fused and per hop, bit for bit; the same region
+    with an f32 ``TpuD2H`` does not fuse."""
+    import os
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops.stages import fir_fft_stage, mag2_stage
+    from futuresdr_tpu_torch.runtime.devchain import find_device_chains
+    from futuresdr_tpu_torch.tpu import TpuD2H, TpuH2D, TpuInstance, TpuStage
+    f = FRAMES[0]
+    inst = TpuInstance(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 253)
+    host = randc(WIRE_FRAMES * f, gen, dev).cpu().numpy()
+
+    def build(d2h_wire):
+        fg = Flowgraph()
+        h2d = TpuH2D(np.complex64, frame_size=f, inst=inst, max_inflight=IN_FLIGHT,
+                     wire="sc16")
+        sts = [TpuStage([s], np.complex64, inst=inst)
+               for s in (fir_fft_stage(taps, N_FFT), mag2_stage())]
+        d2h, snk = TpuD2H(np.float32, inst=inst, wire=d2h_wire), VectorSink(np.float32)
+        fg.connect(VectorSource(host), h2d, *sts, d2h, snk)
+        return fg, snk
+
+    from futuresdr_tpu_torch import Runtime
+    out = {}
+    for fused in (False, True):
+        old = os.environ.pop("FSDR_NO_DEVCHAIN", None)
+        if not fused:
+            os.environ["FSDR_NO_DEVCHAIN"] = "1"
+        try:
+            fg, snk = build("sc16")
+            check(len(find_device_chains(fg)) == int(fused),
+                  f"wire frames: {'no' if fused else 'a'} fused region")
+            Runtime().run(fg)
+            out[fused] = snk.items()
+            if fused:
+                fg2, _ = build("f32")
+                check(find_device_chains(fg2) == [], "wire frames: a region whose end "
+                                                     "wires differ fused")
+        finally:
+            os.environ.pop("FSDR_NO_DEVCHAIN", None)
+            if old is not None:
+                os.environ["FSDR_NO_DEVCHAIN"] = old
+    check(out[True].shape == out[False].shape == (WIRE_FRAMES * f,) and
+          np.array_equal(out[True], out[False]),
+          "wire frames: the fused sc16 region differs from per hop")
+    print(f"wire frames: TpuH2D(sc16) -> 2 stages -> TpuD2H(sc16) at 2^18, fused "
+          f"bit-equal to per hop over {WIRE_FRAMES} frames; an f32 D2H does not fuse")
+
+
+def _gated_source(items, gates):
+    """A source that emits ``items`` up to each gate's item index, then waits
+    for its event (``gates``: ``[(index, threading.Event)]``)."""
+    import asyncio
+
+    from futuresdr_tpu_torch import Kernel
+
+    class Gated(Kernel):
+        def __init__(self):
+            super().__init__()
+            self.pos = 0
+            self.output = self.add_stream_output("out", items.dtype)
+
+        async def work(self, io, mio, meta):
+            end = len(items)
+            for at, ev in gates:
+                if not ev.is_set():
+                    end = at
+                    break
+            if self.pos >= end:
+                await asyncio.sleep(0.001)
+                io.call_again = True
+                return
+            out = self.output.slice()
+            n = min(len(out), end - self.pos)
+            out[:n] = items[self.pos:self.pos + n]
+            self.output.produce(n)
+            self.pos += n
+            if self.pos == len(items):
+                io.finished = True
+            elif n:
+                io.call_again = True
+
+    return Gated()
+
+
+def phase_wire_switch(dev, taps) -> dict:
+    """(e) The spectrum chain streamed at 2^18 on f32, switched to sc8 by
+    ``apply_wire_retune`` once WIRE_SEG frames went out (the source held),
+    then back to f32: every frame comes out; each segment equals the
+    chained wired programs on the card (the same carry through f32, sc8, f32
+    programs) at CHAIN_TOL, and the sc8 segment the resident float32 chain
+    at sc8's SNR limit; going back to f32 takes its first program, with no
+    new capture. Then ``tpu_adaptive_wire``: a tone stepping down to a quiet
+    floor with full-scale bursts widens an sc8 kernel to sc16. Returns the
+    switches' frames."""
+    import threading
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    from futuresdr_tpu_torch.ops.wire import get_wire
+    f = FRAMES[0]
+    n = 3 * WIRE_SEG
+    gen = torch.Generator(device=dev).manual_seed(SEED + 254)
+    host = randc(n * f, gen, dev).cpu().numpy()
+    gates = [(WIRE_SEG * f, threading.Event()), (2 * WIRE_SEG * f, threading.Event())]
+    kern = _wire_kernel(chain_stages("fused", taps), f, dev, 1, "f32")
+    fg = Flowgraph()
+    snk = VectorSink(np.float32)
+    fg.connect(_gated_source(host, gates), kern, snk)
+    rt = Runtime()
+    running = rt.start(fg)
+    first = None
+    try:
+        for (at, ev), nxt in zip(gates, ("sc8", "f32")):
+            deadline = time.monotonic() + 120
+            while kern.frames_dispatched < at // f:
+                check(time.monotonic() < deadline, "wire switch: the stream stalled")
+                time.sleep(0.001)
+            first = first or kern._fn
+            kern.apply_wire_retune(nxt)
+            ev.set()
+        running.wait_sync()
+    finally:
+        rt.shutdown()
+    got = torch.from_numpy(snk.items())
+    check(got.shape == (n * f,), f"wire switch: {tuple(got.shape)} items, want {n * f}")
+    hist = kern.wire_history
+    check(hist == [(0, "f32"), (WIRE_SEG, "sc8"), (2 * WIRE_SEG, "f32")],
+          f"wire switch: history {hist}")
+    check(kern._fn is first and len(kern._programs) == 2 and first.captures == 1,
+          f"wire switch: back to f32 took {len(kern._programs)} programs, "
+          f"{first.captures} captures of the first")
+    pipe = Pipeline(chain_stages("fused", taps), np.complex64)
+    progs, carry = {}, None
+    outs = []
+    for i in range(n):
+        name = "sc8" if WIRE_SEG <= i < 2 * WIRE_SEG else "f32"
+        w = get_wire(name)
+        if name not in progs:
+            share = next(iter(progs.values())).carry if progs else None
+            progs[name], c0 = pipe.compile(f, dev, wire=w, carry=share)
+            carry = c0 if carry is None else carry
+        carry, y = progs[name](carry, _to_dev(w.encode_host(host[i * f:(i + 1) * f]), dev))
+        outs.append(torch.from_numpy(w.decode_host(tuple(p.cpu().numpy() for p in y),
+                                                   np.float32)))
+    chained = torch.cat(outs)
+    fn, c = pipe.compile(f, dev)
+    plain = run_compiled(fn, c, list(torch.from_numpy(host).to(dev).reshape(n, f)), 1).cpu()
+    seg = WIRE_SEG * f
+    for s in range(3):
+        _, rel = rel_err(got[s * seg:(s + 1) * seg], chained[s * seg:(s + 1) * seg])
+        check(rel <= CHAIN_TOL, f"wire switch: segment {s} differs from the chained "
+                                f"programs by {rel:.3e}")
+    snr = snr_db(got[seg:2 * seg], plain[seg:2 * seg])
+    check(snr >= WIRE_SNR["sc8"], f"wire switch: the sc8 segment reads {snr:.2f} dB")
+    bit = bool(torch.equal(got, chained))
+    print(f"wire switch: f32 -> sc8 at frame {WIRE_SEG} -> f32 at frame {2 * WIRE_SEG}, "
+          f"{n} frames out ({'bit-equal to' if bit else f'within {CHAIN_TOL:g} of'} the "
+          f"chained wired programs), the sc8 segment {snr:.2f} dB against float32; back "
+          f"to f32 on its first program ({first.captures} capture)")
+
+    saved = config().tpu_adaptive_wire
+    config().tpu_adaptive_wire = True
+    try:
+        m = ADAPT_FRAME
+        t = np.arange(ADAPT_TONE * m)
+        tone = np.exp(2j * np.pi * 0.05 * t).astype(np.complex64)
+        burst = np.full(ADAPT_BURST * m, 1e-3, np.complex64)
+        burst[::m // 16] = 1.0
+        from futuresdr_tpu_torch.ops.stages import mag2_stage
+        adapt = _wire_kernel([mag2_stage()], m, dev, 1, "sc8")
+        check(adapt.extra_metrics()["adaptive_wire"] == 1, "adaptive wire: not armed")
+        got = _run_vector(adapt, np.concatenate([tone, burst]))
+    finally:
+        config().tpu_adaptive_wire = saved
+    names = [w for _, w in adapt.wire_history]
+    check(len(got) == (ADAPT_TONE + ADAPT_BURST) * m, "adaptive wire: items lost")
+    check(names[:2] == ["sc8", "sc16"] and adapt.wire_history[1][0] >= ADAPT_TONE,
+          f"adaptive wire: history {adapt.wire_history}")
+    print(f"adaptive wire: sc8 widened to sc16 at frame {adapt.wire_history[1][0]} (the "
+          f"step to bursts at frame {ADAPT_TONE}); history {adapt.wire_history}")
+    return {"switch_frames": [a for a, _ in hist[1:]], "adaptive": adapt.wire_history}
+
+
+def phase_wire_ingest(dev) -> None:
+    """(f) A registered read-only buffer (page-locked by ``register``)
+    streamed through ``TpuKernel(wire="f32")`` counts every frame zero-copy
+    and equals the copying run bit for bit; ``unregister`` unlocks it."""
+    import torch
+
+    from futuresdr_tpu_torch import Mocker
+    from futuresdr_tpu_torch.ops import ingest
+    from futuresdr_tpu_torch.ops.stages import fir_fft_stage, mag2_stage
+    f = FRAMES[0]
+    taps = np.hanning(N_TAPS).astype(np.float32) / np.float32(np.hanning(N_TAPS).sum())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 255)
+    data = randc(WIRE_FRAMES * f, gen, dev).cpu().numpy()
+
+    def drive():
+        kern = _wire_kernel([fir_fft_stage(taps, N_FFT), mag2_stage()], f, dev, 1, "f32")
+        m = Mocker(kern)
+        m.input("in", data)
+        m.init_output("out", len(data))
+        m.init()
+        m.run()
+        return m.output("out").copy(), kern.extra_metrics()
+
+    want, em0 = drive()
+    h = ingest.register(data, name="capture")
+    check(h.page_locked, "ingest: register did not page-lock the buffer on the card")
+    got, em = drive()
+    check(em0["ingest_zero_copy_frac"] == 0.0 and em["ingest_zero_copy_frac"] == 1.0,
+          f"ingest: zero-copy share {em['ingest_zero_copy_frac']}")
+    check(not h.pinned, "ingest: frames still hold the buffer after the run")
+    check(len(got) == len(data) and np.array_equal(got, want),
+          "ingest: the zero-copy run differs from the copying run")
+    ingest.unregister(h)
+    check(h.refcount == 0 and not h.page_locked, "ingest: unregister left the pages locked")
+    print(f"ingest: {WIRE_FRAMES} frames of a registered page-locked buffer staged "
+          f"zero-copy, bit-equal to the copying run")
+
+
+def phase_wire_faults(dev, taps) -> dict:
+    """(g) Transient H2D faults at FAULT_RATE a transfer (``runtime/faults``,
+    seeded) on the sc16 wire: the output equals the unfaulted run bit for
+    bit, with the retries counted; every transfer faulting exhausts the
+    retry budget and fails the flowgraph with ``TransferError``."""
+    import torch
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops import xfer
+    from futuresdr_tpu_torch.runtime import faults
+    from futuresdr_tpu_torch.runtime.runtime import FlowgraphError
+    f = FRAMES[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 256)
+    host = randc(WIRE_FRAMES * f, gen, dev).cpu().numpy()
+    want = _run_vector(_wire_kernel(chain_stages("fused", taps), f, dev, 1, "sc16"), host)
+    saved = config().xfer_backoff
+    config().xfer_backoff = 0.0005
+    try:
+        faults.arm("h2d", rate=FAULT_RATE, seed=SEED)
+        xfer.reset_bytes()
+        got = _run_vector(_wire_kernel(chain_stages("fused", taps), f, dev, 1, "sc16"), host)
+        retries = xfer.retries_total["h2d"]
+        faults.reset()
+        check(retries > 0, "faults: no H2D fault fired")
+        check(np.array_equal(got, want), "faults: the faulted run differs")
+        faults.arm("h2d", rate=1.0, seed=SEED)
+        causes = []
+        try:
+            _run_vector(_wire_kernel(chain_stages("fused", taps), f, dev, 1, "sc16"), host)
+        except FlowgraphError as e:
+            while e is not None:
+                causes.append(type(e).__name__)
+                e = e.__cause__
+        check("TransferError" in causes, f"faults: an exhausted budget raised {causes}")
+    finally:
+        faults.reset()
+        config().xfer_backoff = saved
+    print(f"faults: h2d at {FAULT_RATE} a transfer, {retries} retries, output bit-equal "
+          f"to the unfaulted run; an exhausted budget fails with TransferError")
+    return {"retries": retries}
+
+
+def phase_wire_rates(dev, taps) -> dict:
+    """(h) ``NullSource -> Head -> TpuKernel(wire) -> NullSink`` on the
+    spectrum fused chain at 2^18 per wire at K = 1 and 4, median of
+    STREAM_RUNS (the wires in turns), with the wire's measured codec SNR.
+    Returns ``{(wire, k): Msps}``."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    f = FRAMES[0]
+    n_items = STREAM_FRAMES * f
+    runs = {(w, k): [] for w in WIRE_NAMES for k in HOST_K}
+    for _ in range(STREAM_RUNS):
+        for (name, k), times in runs.items():
+            kern = _wire_kernel(chain_stages("fused", taps), f, dev, k, name)
+            fg = Flowgraph()
+            snk = NullSink(np.float32)
+            fg.connect(NullSource(np.complex64), Head(np.complex64, n_items), kern, snk)
+            rt = Runtime()
+            t0 = time.perf_counter()
+            rt.run(fg)
+            times.append(time.perf_counter() - t0)
+            rt.shutdown()
+            check(snk.n_received == n_items, f"wire rates {name} K={k}: "
+                                             f"{snk.n_received} items, want {n_items}")
+    return {key: n_items / statistics.median(t) / 1e6 for key, t in runs.items()}
+
+
+def phase_wires(dev, taps) -> dict:
+    """Phase 25, the wires: (a) codecs, (b)-(c) streamed against resident with
+    the link bytes, (d) the frame plane and fusion, (e) switches and the
+    adaptive wire, (f) zero-copy ingest, (g) transfer faults, (h) rates."""
+    phase_wire_codecs(dev)
+    streamed = phase_wires_streamed(dev, taps)
+    phase_wire_frames(dev, taps)
+    switch = phase_wire_switch(dev, taps)
+    phase_wire_ingest(dev)
+    flt = phase_wire_faults(dev, taps)
+    rates = phase_wire_rates(dev, taps)
+    return {"streamed": streamed, "switch": switch, "faults": flt, "rates": rates}
 
 
 # A phase that stalls past this many seconds dumps every thread's stack to
@@ -2679,6 +3230,10 @@ def main(argv=None) -> int:
                           dev, taps)
     devchain.update(path_phase("devchain_fanout", FM_KERNELS, phase_devchain_fanout, dev))
     devchain.update(path_phase("devchain_dag", DAG_KERNELS, phase_devchain_dag, dev))
+    # 25. the wires: codecs against their host twins, each wire streamed
+    #     against the resident float32 chain with its link bytes, the frame
+    #     plane, switches, zero-copy ingest, transfer faults, rates
+    wires = path_phase("wires", ("fir_fft",) + FM_KERNELS, phase_wires, dev, taps)
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -2755,6 +3310,11 @@ def main(argv=None) -> int:
                   f"(median of {STREAM_RUNS}): {msps:.1f} input Msamples/s, {disp:g} "
                   f"dispatches a frame, H2D {h2d:.0f} B, D2H {d2h:.0f} B a frame "
                   f"[{card_line}]")
+    from futuresdr_tpu_torch.ops.wire import measure_snr_db
+    for (name, k), msps in wires["rates"].items():
+        print(f"rate wire {name} spectrum fused streamed frame={FRAMES[0]} "
+              f"in-flight={IN_FLIGHT} K={k} (median of {STREAM_RUNS}): {msps:.1f} input "
+              f"Msamples/s, codec SNR {measure_snr_db(name):.1f} dB [{card_line}]")
     print(f"rest: ctrl retune round trip {rest_retune['rtt_ms']:.3f} ms, "
           f"{rest_retune['frames']} frames from the POST to the first retuned frame; "
           f"handle ctrl call {message['call_ms']:.3f} ms, metrics "

@@ -4,8 +4,11 @@ A reduced copy of ``futuresdr_tpu/config.py``: defaults, then a
 ``FUTURESDR_TPU_<FIELD>`` environment variable per field (the reference's
 env layer; its TOML layers are not carried over), parsed by the field's
 type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
+``FUTURESDR_TPU_TPU_WIRE_FORMAT=sc8``, ``FUTURESDR_TPU_XFER_BACKOFF=0.001``,
 ``FUTURESDR_TPU_CTRLPORT_ENABLE=true`` or
-``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``.
+``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``. A ``tpu_`` field also reads the
+reference's short form without the field's ``tpu_`` head, e.g.
+``FUTURESDR_TPU_WIRE_FORMAT=sc16`` (the full name wins where both are set).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import threading
 from dataclasses import dataclass, fields
 from typing import Optional
 
-__all__ = ["Config", "config"]
+__all__ = ["Config", "config", "reload_config"]
 
 _ENV_PREFIX = "FUTURESDR_TPU_"
 
@@ -33,6 +36,8 @@ def _parse(name: str, default, raw: str):
         return v in _TRUE
     if isinstance(default, int):
         return int(raw)
+    if isinstance(default, float):
+        return float(raw)
     return raw
 
 
@@ -56,12 +61,41 @@ class Config:
     #   (ops/arena.py); 0 = a fresh pinned buffer per transfer
     host_arena_mb: int = 256               # arena pool byte cap: past it a
     #   released buffer is dropped to the allocator instead of pooled
+    host_codec_workers: int = 2            # codec threads a lane (encode,
+    #   decode; ops/codec_pool.py); 0 = the codec runs inline on the block
+    # the uplink plane (ops/wire.py, ops/xfer.py, ops/ingest.py)
+    tpu_wire_format: str = "auto"          # host <-> device wire codec:
+    #   "auto" | "f32" | "bf16" | "sc16" | "sc8"; auto is f32 on the CPU and
+    #   sc16 on a card (ops/wire.py resolve_wire)
+    tpu_coalesce: bool = True              # pack a dispatch group's wire parts
+    #   (payload + scale, K-stacked) into one buffer and one H2D, unpacked
+    #   inside the program's graph (ops/xfer.py PackedLayout); false = one
+    #   H2D a part
+    tpu_zero_copy_ingest: bool = True      # frames of a registered read-only
+    #   buffer (ops/ingest.py) skip the ring-exit copy on aliasing wires
+    tpu_deferred_consume: bool = True      # quantizing wires at K = 1 with the
+    #   codec pool: a worker encodes the ring slot in place and consume()
+    #   waits for that read; false = encode inline before consume()
+    tpu_adaptive_wire: bool = False        # mid-stream wire switching by the
+    #   WireController (tpu/kernel_block.py); off: the wire is part of the
+    #   numerics contract
+    tpu_wire_snr_budget_db: float = 40.0   # the adaptive wire's SNR floor: the
+    #   active format widens below it, a narrower one needs it plus a margin
+    xfer_retries: int = 3                  # transient H2D/D2H retries a transfer
+    xfer_backoff: float = 0.005            # retry backoff base, seconds (jittered
+    #   exponential; the jitter never changes the retry count)
+    xfer_deadline: float = 30.0            # a transfer's deadline, seconds (0 =
+    #   none): retries stop once the next backoff would cross it
 
     @classmethod
     def from_env(cls) -> "Config":
         c = cls()
         for f in fields(cls):
             raw = os.environ.get(_ENV_PREFIX + f.name.upper())
+            if raw is None and f.name.startswith("tpu_"):
+                # the reference's short form: FUTURESDR_TPU_WIRE_FORMAT for
+                # tpu_wire_format (the prefix already spells the plane)
+                raw = os.environ.get(_ENV_PREFIX + f.name[4:].upper())
             if raw is not None:
                 setattr(c, f.name, _parse(f.name, f.default, raw))
         return c
@@ -77,4 +111,12 @@ def config() -> Config:
     with _lock:
         if _config is None:
             _config = Config.from_env()
+        return _config
+
+
+def reload_config() -> Config:
+    """Read the environment again (tests)."""
+    global _config
+    with _lock:
+        _config = Config.from_env()
         return _config

@@ -21,12 +21,18 @@ a released buffer is dropped to the allocator instead of pooled. The
 reference's Prometheus telemetry is not ported; :meth:`StagingArena.stats`
 keeps plain counters.
 
+:class:`GroupAlloc` and :class:`PackedAlloc` hand a wire encode its output
+buffers out of the arena (``Wire.encode_into``), the latter as views into one
+packed transfer buffer (the coalesced uplink, ``ops/xfer.PackedLayout``).
+
 Config: ``host_arena`` (default on; ``FUTURESDR_TPU_HOST_ARENA=0`` gives a
-fresh buffer per transfer), ``host_arena_mb`` (the byte cap).
+fresh buffer per transfer), ``host_arena_mb`` (the byte cap). There is one
+pinned arena for the card and one plain one for the CPU (:func:`arena`).
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -35,9 +41,14 @@ import torch
 
 from ..config import config
 
-__all__ = ["ArenaBuffer", "StagingArena", "arena"]
+__all__ = ["ArenaBuffer", "StagingArena", "arena", "reset_arena", "arena_stats",
+           "GroupAlloc", "PackedAlloc"]
 
 _MIN_CLASS = 12                       # 4 KiB floor: below it pooling is noise
+
+
+def _shape(shape) -> tuple:
+    return (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(shape)
 
 
 def _class_of(nbytes: int) -> int:
@@ -75,7 +86,8 @@ class ArenaBuffer:
     def array(self, shape, dtype) -> np.ndarray:
         """A leading view of the buffer as ``shape``/``dtype`` (must fit)."""
         dt = np.dtype(dtype)
-        n = int(np.prod(shape)) * dt.itemsize
+        shape = _shape(shape)
+        n = math.prod(shape) * dt.itemsize
         if n > self.base.nbytes:
             raise ValueError(f"{shape} {dt} ({n} B) does not fit a {self.base.nbytes} B buffer")
         return self.base[:n].view(dt).reshape(shape)
@@ -146,7 +158,8 @@ class StagingArena:
     def take_array(self, shape, dtype) -> Tuple[np.ndarray, ArenaBuffer]:
         """``(array view, owning buffer)`` for a fresh-content buffer."""
         dt = np.dtype(dtype)
-        buf = self.take(int(np.prod(shape)) * dt.itemsize)
+        shape = _shape(shape)
+        buf = self.take(math.prod(shape) * dt.itemsize)
         return buf.array(shape, dt), buf
 
     def copy_in(self, a: np.ndarray) -> Tuple[np.ndarray, ArenaBuffer]:
@@ -171,15 +184,127 @@ class StagingArena:
                     "classes": {1 << c: len(l) for c, l in sorted(self._free.items()) if l}}
 
 
-_arena: Optional[StagingArena] = None
+_arenas: Dict[bool, StagingArena] = {}
 _arena_lock = threading.Lock()
 
 
-def arena() -> Optional[StagingArena]:
-    """The process-global pinned arena, or None when ``host_arena`` is off
-    (callers then allocate a pinned buffer per transfer)."""
-    global _arena
+def arena(pin: bool = True) -> Optional[StagingArena]:
+    """The process-global arena, pinned (for a card) or plain (``pin=False``,
+    for the CPU), or None when ``host_arena`` is off (callers then allocate
+    a buffer per transfer)."""
     with _arena_lock:
-        if _arena is None and config().host_arena:
-            _arena = StagingArena(int(config().host_arena_mb) << 20, pin=True)
-        return _arena
+        got = _arenas.get(bool(pin))
+        if got is None and config().host_arena:
+            got = _arenas[bool(pin)] = StagingArena(int(config().host_arena_mb) << 20,
+                                                    pin=pin)
+        return got
+
+
+def reset_arena() -> None:
+    """Drop the process arenas (tests, config re-reads); the next
+    :func:`arena` call reads the config again."""
+    with _arena_lock:
+        _arenas.clear()
+
+
+def arena_stats() -> Optional[dict]:
+    """The pinned arena's :meth:`StagingArena.stats` (None when it was never
+    used)."""
+    a = _arenas.get(True)
+    return a.stats() if a is not None else None
+
+
+class GroupAlloc:
+    """A dispatch group's allocator for ``Wire.encode_into``: records every
+    buffer it hands out (:attr:`handles`, which the caller owns and
+    releases), and ``temp()`` buffers, scratch the encode drops with
+    :meth:`drop_temps` before it returns."""
+
+    __slots__ = ("arena", "handles", "_temps")
+
+    def __init__(self, arena: StagingArena):
+        self.arena = arena
+        self.handles: List[ArenaBuffer] = []
+        self._temps: List[ArenaBuffer] = []
+
+    def __call__(self, shape, dtype) -> np.ndarray:
+        v, buf = self.arena.take_array(shape, dtype)
+        self.handles.append(buf)
+        return v
+
+    def temp(self, shape, dtype) -> np.ndarray:
+        v, buf = self.arena.take_array(shape, dtype)
+        self._temps.append(buf)
+        return v
+
+    def drop_temps(self) -> None:
+        for b in self._temps:
+            b.release()
+        self._temps.clear()
+
+    def temps_only(self) -> "_TempsOnly":
+        """An allocator whose every buffer is a temp of this one: for
+        intermediates (a frame's encode before it is stacked) that must not
+        outlive the group's encode."""
+        return _TempsOnly(self)
+
+    def release(self) -> None:
+        """Release every buffer handed out (and any temp left)."""
+        self.drop_temps()
+        for b in self.handles:
+            b.release()
+        self.handles.clear()
+
+
+class _TempsOnly:
+    """See :meth:`GroupAlloc.temps_only`: everything is scratch, owned and
+    dropped by the parent."""
+
+    __slots__ = ("_parent",)
+
+    def __init__(self, parent: GroupAlloc):
+        self._parent = parent
+
+    def __call__(self, shape, dtype) -> np.ndarray:
+        return self._parent.temp(shape, dtype)
+
+    def temp(self, shape, dtype) -> np.ndarray:
+        return self._parent.temp(shape, dtype)
+
+    def drop_temps(self) -> None:
+        pass                                # the parent owns the temps
+
+
+class PackedAlloc(GroupAlloc):
+    """A :class:`GroupAlloc` whose payloads are views into one packed
+    transfer buffer (``ops/xfer.PackedLayout``): ``__call__`` hands out the
+    next unfilled layout slot of the requested shape and dtype, so a
+    quantizing encode writes its payload at its packed offset and coalescing
+    costs no payload copy. A request no slot matches falls back to a plain
+    take; :meth:`finish` (``PackedLayout.pack``) copies such parts, and bare
+    ones like the scale, into their slots. ``handles[0]`` holds the packed
+    buffer."""
+
+    __slots__ = ("layout", "packed", "_filled")
+
+    def __init__(self, arena: StagingArena, layout):
+        super().__init__(arena)
+        self.layout = layout
+        self.packed, buf = arena.take_array((layout.nbytes,), np.uint8)
+        self.handles.append(buf)
+        self._filled = [False] * len(layout.slots)
+
+    def __call__(self, shape, dtype) -> np.ndarray:
+        sh = _shape(shape)
+        dt = np.dtype(dtype)
+        for i, (ssh, sdt, off, nb) in enumerate(self.layout.slots):
+            if not self._filled[i] and ssh == sh and sdt == dt:
+                self._filled[i] = True
+                return self.packed[off:off + nb].view(dt).reshape(sh)
+        return super().__call__(shape, dtype)
+
+    def finish(self, parts) -> np.ndarray:
+        """Settle the packed buffer for shipping: copy in every part not
+        written through a slot view, zero the alignment gaps, and return the
+        packed uint8 array (backed by ``handles[0]``)."""
+        return self.layout.pack(parts, self.packed)

@@ -184,6 +184,7 @@ class Pipeline:
         self.ratio = r
         self.out_dtype = dtype
         self._fn = None
+        self._wired_fns: dict = {}
 
     def init_carry(self, device) -> tuple:
         """The initial carries of every stage, on ``device``."""
@@ -211,8 +212,54 @@ class Pipeline:
             self._fn = run
         return self._fn
 
+    def wired_fn(self, wire, k: int = 1, packed=None):
+        """The chain with the wire's device decode in front and its encode
+        behind: ``run(carries, *in_parts) -> (carries, out_parts)`` (a
+        multi-output pipeline encodes each output and concatenates their
+        parts, :meth:`FanoutPipeline.part_counts` gives the split). ``k >
+        1``: every part has a leading ``[k]`` axis and the k frames run one
+        after another, carry chained, each decoded and encoded with its own
+        scale (the reference's ``lax.scan``). ``packed`` (an
+        ``ops/xfer.PackedLayout``): ``run(carries, buf)`` on one uint8 buffer
+        that :meth:`PackedLayout.unpack_torch` slices into the parts first.
+        Cached per ``(wire, k, layout)``, the reference's ``wired_fn`` and
+        ``packed_wired_fn``."""
+        from .wire import get_wire
+        wire = get_wire(wire)
+        key = (wire.name, int(k), None if packed is None else packed.key)
+        cache = self._wired_fns
+        if key in cache:
+            return cache[key]
+        inner, in_dt, w = self.fn(), self.in_dtype, wire
+
+        def run(carries, *parts):
+            carries, y = inner(carries, w.decode_torch(parts, in_dt))
+            if isinstance(y, tuple):
+                return carries, tuple(q for yb in y for q in w.encode_torch(yb))
+            return carries, w.encode_torch(y)
+
+        if k > 1:
+            one = run
+
+            def run(carries, *parts):
+                cols = None
+                for i in range(k):
+                    carries, ys = one(carries, *(p[i] for p in parts))
+                    cols = [[y] for y in ys] if cols is None else \
+                        [c + [y] for c, y in zip(cols, ys)]
+                return carries, tuple(torch.stack(c) for c in cols)
+
+        if packed is not None:
+            parts_fn, lay = run, packed
+
+            def run(carries, buf):
+                return parts_fn(carries, *lay.unpack_torch(buf))
+
+        cache[key] = run
+        return run
+
     def compile(self, frame_size: int, device, donate: bool = True, k: int = 1,
-                slots: int = 1):
+                slots: int = 1, wire=None, packed=None, carry=None):
         """The per-dispatch program for ``frame_size``-sample frames on
         ``device``, ``k`` frames a call: returns ``(fn, carry)`` with
         ``fn(carry, x) -> (carry, y)``, ``x`` of shape ``[frame_size]`` (k =
@@ -220,6 +267,17 @@ class Pipeline:
         ``y`` of shape ``[out]`` or ``[k, out]``. The counterpart of the
         reference's ``jax.jit`` in ``compile`` and its k-frame ``lax.scan``
         in ``wired_fn(k)``.
+
+        ``wire`` (an ``ops/wire.py`` format) compiles the wired form, the
+        reference's ``compile_wired``: ``x`` is the tuple of the wire's
+        parts and ``y`` the tuple of the output's encoded parts, decode and
+        encode inside the program (:meth:`wired_fn`); ``packed`` (an
+        ``ops/xfer.PackedLayout``) makes ``x`` one uint8 buffer of
+        ``packed.nbytes``, unpacked inside the program. ``wire=None`` is the
+        plain program on the stream's own dtype. ``carry``: static carry
+        buffers to share with another program of this pipeline at the same
+        frame and ``k`` (a program for another wire), so a switch between
+        them copies no state.
 
         On a CUDA device ``fn`` is a :class:`CompiledPipeline`: one
         ``torch.cuda.CUDAGraph`` replay a call, its carry a set of static
@@ -234,9 +292,11 @@ class Pipeline:
                              f"{self.frame_multiple}")
         device = torch.device(device)
         if device.type == "cuda":
-            fn = CompiledPipeline(self, frame_size, device, k, donate, slots)
+            fn = CompiledPipeline(self, frame_size, device, k, donate, slots,
+                                  wire=wire, packed=packed, carry=carry)
             return fn, fn.carry
-        return EagerProgram(self, frame_size, k, slots), self.init_carry(device)
+        return EagerProgram(self, frame_size, k, slots, wire=wire, packed=packed), \
+            (self.init_carry(device) if carry is None else carry)
 
     def out_items(self, in_items: int) -> int:
         q = Fraction(in_items) * self.ratio
@@ -286,10 +346,11 @@ class FanoutPipeline:
     branch: ``out_dtypes[j]``, ``path_ratios[j]`` (producer·branch rate),
     :meth:`branch_out_items`. ``stages`` is the flat concatenation (producer,
     then the branches in order), which is also the carry layout, so
-    ``update_stage`` addresses it as a linear pipeline's. The reference's
-    wire forms and XLA donation mask have no counterpart here (wires are
-    ROADMAP Queue 1 item 6; a CUDA graph's static carry buffers are the
-    port's donation)."""
+    ``update_stage`` addresses it as a linear pipeline's. The wired form
+    (:meth:`Pipeline.wired_fn`) decodes the input once and encodes each
+    branch's output; :meth:`part_counts` splits its flat part tuple. The
+    reference's XLA donation mask has no counterpart (a CUDA graph's static
+    carry buffers are the port's donation)."""
 
     def __init__(self, producer_stages: Sequence[Stage],
                  branch_stage_lists: Sequence[Sequence[Stage]], in_dtype,
@@ -316,6 +377,7 @@ class FanoutPipeline:
         self.ratio = sum(self.path_ratios, Fraction(0, 1))
         self.out_dtype = self.out_dtypes[0]
         self._fn = None
+        self._wired_fns: dict = {}
 
     def branch_out_items(self, branch: int, in_items: int) -> int:
         q = Fraction(in_items) * self.path_ratios[branch]
@@ -359,8 +421,20 @@ class FanoutPipeline:
             self._fn = run
         return self._fn
 
+    def part_counts(self, wire) -> tuple:
+        """Wire parts a branch in the wired form's flat output (a quantizing
+        wire ships payload and scale, f32 and bf16 one part)."""
+        from .wire import get_wire
+        wire = get_wire(wire)
+        return tuple(wire.part_count(dt) for dt in self.out_dtypes)
+
+    def in_part_count(self, wire) -> int:
+        from .wire import get_wire
+        return get_wire(wire).part_count(self.in_dtype)
+
     # they read only the duck-typed surface above
     compile = Pipeline.compile
+    wired_fn = Pipeline.wired_fn
     update_stage = Pipeline.update_stage
 
 
@@ -483,6 +557,7 @@ class DagPipeline:
         self.ratio = sum(self.path_ratios, Fraction(0, 1))
         self.out_dtype = self.out_dtypes[0]
         self._fn = None
+        self._wired_fns: dict = {}
 
     def init_carry(self, device) -> tuple:
         """Flat carries in node order, matching ``stages``."""
@@ -524,7 +599,10 @@ class DagPipeline:
 
     branch_out_items = FanoutPipeline.branch_out_items
     out_items = FanoutPipeline.out_items
+    part_counts = FanoutPipeline.part_counts
+    in_part_count = FanoutPipeline.in_part_count
     compile = Pipeline.compile
+    wired_fn = Pipeline.wired_fn
     update_stage = Pipeline.update_stage
 
 
@@ -631,22 +709,24 @@ class CompiledPipeline:
     replay adds them to ``cuda_kernels.launches``."""
 
     def __init__(self, pipeline: Pipeline, frame_size: int, device: torch.device,
-                 k: int = 1, donate: bool = True, slots: int = 1):
+                 k: int = 1, donate: bool = True, slots: int = 1, wire=None,
+                 packed=None, carry=None):
         self.pipeline = pipeline
         self.frame_size = int(frame_size)
         self.k = int(k)
         self.device = device
         self.donate = donate
+        self.wire, self.packed = wire, packed
         self.captures = 0
         self.launches: dict = {}
-        self.carry = pipeline.init_carry(device)
-        shape = (self.k, self.frame_size) if self.k > 1 else (self.frame_size,)
-        self.inputs = [torch.zeros(shape, dtype=torch_dtype(pipeline.in_dtype), device=device)
+        self.carry = pipeline.init_carry(device) if carry is None else carry
+        self._program = _program(pipeline, self.k, wire, packed)
+        self.inputs = [_slot_input(pipeline, self.frame_size, self.k, wire, packed, device)
                        for _ in range(int(slots))]
         self._capture()
 
     def _capture(self) -> None:
-        program = _chain_k(self.pipeline.fn(), self.k)
+        program = self._program
         cur = torch.cuda.current_stream(self.device)
         # torch.cuda.Stream hands out the streams of a pool, round robin: a
         # copy stream of ops/xfer.py (the normal-priority pool) may be the
@@ -724,32 +804,60 @@ class CompiledPipeline:
             cuda_kernels.launches[name] += n
         return (self.carry if self.donate else _clone(self.carry)), self.outputs[slot]
 
-    def __call__(self, carry, x: torch.Tensor):
-        if x.shape != self.inputs[0].shape:
-            raise ValueError(f"compiled for input {tuple(self.inputs[0].shape)}, "
-                             f"got {tuple(x.shape)}")
-        self.inputs[0].copy_(x)
+    def __call__(self, carry, x):
+        dst = self.inputs[0]
+        for d, t in (zip(dst, x) if isinstance(dst, tuple) else ((dst, x),)):
+            if t.shape != d.shape:
+                raise ValueError(f"compiled for input {tuple(d.shape)}, "
+                                 f"got {tuple(t.shape)}")
+            d.copy_(t)
         carry, y = self.dispatch(0, carry)
         if isinstance(y, tuple):
             return carry, tuple(t.clone() for t in y)
         return carry, y.clone()
 
 
+def _program(pipeline, k: int, wire, packed):
+    """``run(carry, inp)``: the chain over one slot input, a tensor (plain)
+    or a tuple of part tensors (wired, :meth:`Pipeline.wired_fn`)."""
+    if wire is None:
+        return _chain_k(pipeline.fn(), k)
+    wired = pipeline.wired_fn(wire, k, packed)
+    return lambda carry, inp: wired(carry, *inp)
+
+
+def _slot_input(pipeline, frame_size: int, k: int, wire, packed, device):
+    """One slot's static input: a ``[frame]`` (``[k, frame]``) tensor of the
+    stream's dtype, or, wired, a tuple of the wire's parts for it (their
+    shapes probed from an encode of zeros, with the ``[k]`` axis), or one
+    uint8 tensor of ``packed.nbytes``."""
+    lead = (k,) if k > 1 else ()
+    if wire is None:
+        return torch.zeros(lead + (frame_size,), dtype=torch_dtype(pipeline.in_dtype),
+                           device=device)
+    if packed is not None:
+        return (torch.zeros(packed.nbytes, dtype=torch.uint8, device=device),)
+    parts = wire.encode_host(np.zeros(frame_size, dtype=pipeline.in_dtype))
+    return tuple(torch.zeros(lead + np.shape(p), dtype=torch_dtype(np.asarray(p).dtype),
+                             device=device) for p in parts)
+
+
 class EagerProgram:
     """:meth:`Pipeline.compile`'s program on the CPU: the eager chain looped
     over the ``k`` frames of a call, with :class:`CompiledPipeline`'s slot
-    interface (``inputs``, :meth:`dispatch`) for a streamed caller."""
+    interface (``inputs``, :meth:`dispatch`) for a streamed caller; wired,
+    the same decode, chain and encode as the compiled program."""
 
-    def __init__(self, pipeline: Pipeline, frame_size: int, k: int = 1, slots: int = 1):
-        self._run = _chain_k(pipeline.fn(), k)
-        shape = (k, frame_size) if k > 1 else (frame_size,)
-        self.inputs = [torch.zeros(shape, dtype=torch_dtype(pipeline.in_dtype))
+    def __init__(self, pipeline: Pipeline, frame_size: int, k: int = 1, slots: int = 1,
+                 wire=None, packed=None):
+        self._run = _program(pipeline, k, wire, packed)
+        self.inputs = [_slot_input(pipeline, frame_size, k, wire, packed, "cpu")
                        for _ in range(int(slots))]
 
     def dispatch(self, slot: int, carry):
         return self._run(carry, self.inputs[slot])
 
-    def __call__(self, carry, x: torch.Tensor):
+    def __call__(self, carry, x):
         return self._run(carry, x)
 
 

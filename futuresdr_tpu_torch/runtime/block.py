@@ -20,6 +20,7 @@ from typing import Optional
 
 from ..log import logger
 from ..types import BlockDescription, Pmt
+from . import faults as _faults
 from .inbox import (BlockInbox, Call, Callback, Initialize, StreamInputDone,
                     StreamOutputDone, Terminate)
 from .kernel import Kernel
@@ -175,6 +176,9 @@ class WrappedKernel:
         error = None
         self.loop = asyncio.get_running_loop()
         self.live = True                    # direct dispatch may target us now
+        # the work:<block> fault site (runtime/faults.py), resolved once
+        fplan = _faults.plan()
+        work_fault = fplan.resolve("work", self.instance_name) if fplan.armed() else None
         try:
             while True:
                 io.call_again |= self.inbox.take_pending()
@@ -217,6 +221,8 @@ class WrappedKernel:
                         await self.inbox.wait()
                     continue
                 io.reset()
+                if work_fault is not None:
+                    work_fault.check()      # before work() touches a port
                 t0 = time.perf_counter()
                 await kernel.work(io, kernel.mio, meta)
                 self.work_time_s += time.perf_counter() - t0

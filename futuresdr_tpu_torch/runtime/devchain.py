@@ -51,11 +51,15 @@ Refusals (the region stays on the per-hop path, logged at debug level):
 * a per-kernel ``devchain = False``, or ``FSDR_NO_DEVCHAIN=1`` (everything
   declines; a script can compare both modes in one process).
 
+* ends whose wire formats differ: a frame-plane region's ``TpuH2D`` and
+  each of its ``TpuD2H`` sinks, or any two ``TpuKernel`` members, must agree
+  (the fused kernel runs the region on the first member's wire, and only its
+  ends cross the link).
+
 The reference's other refusals wait for their parts of the port: a
 non-fail-fast failure policy and an armed fault plan (ROADMAP Queue 1 item
-4b; the port has fail-fast only), and mismatched wire formats (item 6; every
-port block moves frames as float32 or complex64). Its native CPU
-``fastchain`` pass is item 5's remainder.
+4b; the port has fail-fast only). Its native CPU ``fastchain`` pass is item
+5's remainder.
 
 A ``ctrl`` retune addressed to a fused member (``handle.call(member,
 "ctrl", …)``) becomes carry surgery on the fused pipeline between
@@ -185,8 +189,18 @@ def find_device_chains(fg) -> List[DevChain]:
     def in_dtype_of(first, kind):
         return first.dtype if kind == "frames" else first.pipeline.in_dtype
 
+    def _wires_agree(members, ends, what) -> bool:
+        """The region's link ends share one wire format."""
+        if len({m.wire.name for m in ends}) != 1:
+            log.debug("devchain refuses %s%s: wire mismatch (%s)", what, members,
+                      [m.wire.name for m in ends])
+            return False
+        return True
+
     def _close(members, kind) -> None:
         first, last = members[0], members[-1]
+        if not _wires_agree(members, [first, last] if kind == "frames" else members, ""):
+            return
         if len({id(m.inst) for m in members}) != 1:
             log.debug("devchain refuses %s: mismatched TpuInstances", members)
             return
@@ -206,6 +220,9 @@ def find_device_chains(fg) -> List[DevChain]:
     def _close_fanout(producer, branches, kind) -> None:
         members = list(producer) + [m for br in branches for m in br]
         first = producer[0]
+        ends = [first] + [br[-1] for br in branches] if kind == "frames" else members
+        if not _wires_agree(members, ends, "fan-out "):
+            return
         if len({id(m.inst) for m in members}) != 1:
             log.debug("devchain refuses fan-out %s: mismatched TpuInstances", members)
             return
@@ -279,6 +296,9 @@ def find_device_chains(fg) -> List[DevChain]:
                               in_dtype_of(first, kind), optimize=False)
         except ValueError as e:
             log.debug("devchain refuses DAG %s: %s", members, e)
+            return
+        ends = [first] + [members[i] for i in dag.sinks] if kind == "frames" else members
+        if not _wires_agree(members, ends, "DAG "):
             return
         if first.frame_size % dag.frame_multiple:
             log.debug("devchain refuses DAG %s: frame %d not a multiple of the "
@@ -454,7 +474,7 @@ def find_device_chains(fg) -> List[DevChain]:
 
     def _follows(a, b) -> bool:
         return (_kernel_ok(b) and len(s_in.get(id(b), [])) == 1
-                and id(b.inst) == id(a.inst))
+                and id(b.inst) == id(a.inst) and b.wire.name == a.wire.name)
 
     def _will_extend(src, k) -> bool:
         outs = s_out.get(id(src), [])
@@ -583,7 +603,7 @@ def _build_fused(chain: DevChain):
     composed = Pipeline(stages, in_dtype, optimize=False)
     fused = TpuKernel((), in_dtype, frame_size=first.frame_size, inst=first.inst,
                       frames_in_flight=depth, frames_per_dispatch=k_batch,
-                      _pipeline=composed)
+                      wire=first.wire, _pipeline=composed)
     if fused.frame_size != first.frame_size:
         raise ValueError(f"devchain: fused frame {fused.frame_size} != "
                          f"{first.frame_size}")
@@ -637,7 +657,8 @@ def _build_fused_fanout(chain: DevChain):
     fanout = FanoutPipeline(p_stages, branch_lists, in_dtype, optimize=False)
     depth, k_batch = _depth_and_k(chain, first)
     fused = TpuFanoutKernel(fanout, frame_size=first.frame_size, inst=first.inst,
-                            frames_in_flight=depth, frames_per_dispatch=k_batch)
+                            frames_in_flight=depth, frames_per_dispatch=k_batch,
+                            wire=first.wire)
     if fused.frame_size != first.frame_size:
         raise ValueError(f"devchain: fused frame {fused.frame_size} != "
                          f"{first.frame_size}")
@@ -674,7 +695,8 @@ def _build_fused_dag(chain: DevChain):
     dag = DagPipeline(nodes, in_dtype, optimize=False)
     depth, k_batch = _depth_and_k(chain, first)
     fused = TpuDagKernel(dag, frame_size=first.frame_size, inst=first.inst,
-                         frames_in_flight=depth, frames_per_dispatch=k_batch)
+                         frames_in_flight=depth, frames_per_dispatch=k_batch,
+                         wire=first.wire)
     if fused.frame_size != first.frame_size:
         raise ValueError(f"devchain: fused frame {fused.frame_size} != "
                          f"{first.frame_size}")

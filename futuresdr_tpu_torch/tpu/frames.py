@@ -21,8 +21,12 @@ Tags ride the plane: ``TpuH2D`` takes each frame's stream tags
 rebases them through its rate (:func:`rebase_frame_tags`) and ``TpuD2H``
 emits them at the rebased positions (:func:`emit_with_tags`).
 
-Wire formats other than float32 are ROADMAP Queue 1 item 6: ``wire`` raises
-``NotImplementedError`` for any other.
+Frames cross the link in a wire format (``wire``, ``ops/wire.py``; None
+reads config ``tpu_wire_format``, whose ``auto`` is f32 on the CPU and sc16
+on a card): ``TpuH2D`` encodes on the host into the staging arena, ships the
+parts and decodes on the device; ``TpuD2H`` encodes on the device, ships the
+parts and decodes on the host. The device-chain pass fuses a region only
+when its ends agree on the wire.
 """
 
 from __future__ import annotations
@@ -36,26 +40,18 @@ import torch
 
 from ..log import logger
 from ..ops import xfer
+from ..ops.arena import GroupAlloc, StagingArena, arena
 from ..ops.stages import MergeStage, Pipeline, Stage
+from ..ops.wire import resolve_wire
 from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag, rebase_tags
 from ..types import Pmt
 from .instance import TpuInstance, instance
 
 __all__ = ["TpuH2D", "TpuStage", "TpuMergeStage", "TpuD2H", "rebase_frame_tags",
-           "emit_with_tags", "parse_ctrl", "check_wire"]
+           "emit_with_tags", "parse_ctrl"]
 
 log = logger("tpu.frames")
-
-_WIRE_ITEM = "ROADMAP Queue 1 item 6 (host data path: wire codecs)"
-
-
-def check_wire(wire) -> None:
-    """Frames cross the link as they are (float32 and complex64 natively);
-    any other wire format waits for the port's wire codecs."""
-    if wire not in (None, "f32"):
-        raise NotImplementedError(f"wire={wire!r}: {_WIRE_ITEM}")
-
 
 def parse_ctrl(p: Pmt):
     """``{"stage": <name-or-index>, <param>: <value>, …}`` → ``(stage, params)``.
@@ -112,12 +108,14 @@ def _numpy_dtype(t: torch.Tensor) -> np.dtype:
 
 
 class TpuH2D(Kernel):
-    """Sample stream → device frames. Each full frame is copied out of the
-    ring into a pinned arena buffer and its H2D started at once; frames the
-    queue bound (``max_inflight``, default 8) does not admit yet wait with
-    their copies started (one frame of read-ahead beyond the bound), so a
-    frame's upload rides under the downstream stages' work. A partial frame
-    at EOS is zero-padded, with its valid count."""
+    """Sample stream → device frames. Each full frame is encoded out of the
+    ring into pinned arena buffers (for the f32 wire the encode is the copy)
+    and its H2D started at once; frames the queue bound (``max_inflight``,
+    default 8) does not admit yet wait with their copies started (one frame
+    of read-ahead beyond the bound), so a frame's upload rides under the
+    downstream stages' work. A landed frame is decoded on the device as it
+    is handed downstream. A partial frame at EOS is zero-padded before its
+    encode, with its valid count."""
 
     BLOCKING = True
 
@@ -125,8 +123,10 @@ class TpuH2D(Kernel):
                  inst: Optional[TpuInstance] = None,
                  max_inflight: Optional[int] = None, wire=None):
         super().__init__()
-        check_wire(wire)
         self.inst = inst or instance()
+        self.wire = resolve_wire(wire, self.inst.device.type)
+        cuda = self.inst.device.type == "cuda"
+        self._arena = arena(pin=cuda) or StagingArena(0, pin=cuda)
         self.frame_size = frame_size or self.inst.frame_size
         self.max_inflight = 8 if max_inflight is None else max_inflight
         # an explicit bound pins a fused chain's credits (devchain.py)
@@ -138,12 +138,25 @@ class TpuH2D(Kernel):
         self.output = self.add_inplace_output("out")
 
     def _stage(self, frame: np.ndarray, valid: int, tags) -> None:
-        buf = xfer.host_buffer((self.frame_size,), self.dtype, self.inst.device)
-        n = len(frame)
-        buf.array[:n] = frame
-        buf.array[n:] = 0
-        self._staged.append((xfer.start_device_transfer_parts(buf, self.inst.device),
-                             valid, tuple(tags)))
+        if len(frame) < self.frame_size:
+            padded = np.zeros(self.frame_size, dtype=self.dtype)
+            padded[:len(frame)] = frame
+            frame = padded
+        alloc = GroupAlloc(self._arena)
+        if self.wire.encode_may_alias(self.dtype):
+            parts = self.wire.encode_host(frame)      # views of the ring slot
+        else:
+            parts = self.wire.encode_into(frame, alloc)
+        staged = []
+        for p in parts:
+            p = np.asarray(p)
+            if not any(np.shares_memory(p, h.base) for h in alloc.handles):
+                d = alloc(p.shape, p.dtype)            # into pinned memory
+                d[...] = p
+                p = d
+            staged.append(p)
+        self._staged.append((xfer.start_device_transfer_parts(
+            staged, self.inst.device, handles=alloc.handles), valid, tuple(tags)))
 
     async def work(self, io, mio, meta):
         inp = self.input.slice()
@@ -167,7 +180,7 @@ class TpuH2D(Kernel):
         # launch: hand landed uploads to the frame plane, oldest first
         while self._staged and self.output.queue_depth() < self.max_inflight:
             finish, valid, tags = self._staged.popleft()
-            self.output.put_full(finish(), valid, tags)
+            self.output.put_full(self.wire.decode_torch(finish(), self.dtype), valid, tags)
             sent += 1
         if eos and len(inp) == 0 and not self._staged:
             io.finished = True
@@ -385,7 +398,9 @@ class TpuMergeStage(Kernel):
 
 
 class TpuD2H(Kernel):
-    """Device frames → sample stream, the frame plane's one sync point.
+    """Device frames → sample stream, the frame plane's one sync point. A
+    frame is encoded on the device in the wire format, its parts shipped and
+    decoded on the host.
     Read-ahead drain: the D2H of every frame waiting in the queue, up to
     ``read_ahead`` (default the instance's frames in flight), is started
     before the oldest is waited on; ``read_ahead=0`` drains serially (take
@@ -397,8 +412,8 @@ class TpuD2H(Kernel):
     def __init__(self, dtype, inst: Optional[TpuInstance] = None,
                  read_ahead: Optional[int] = None, wire=None):
         super().__init__()
-        check_wire(wire)
         self.inst = inst or instance()
+        self.wire = resolve_wire(wire, self.inst.device.type)
         self.read_ahead = max(1, read_ahead if read_ahead is not None
                               else self.inst.frames_in_flight)
         self.dtype = np.dtype(dtype)
@@ -419,12 +434,11 @@ class TpuD2H(Kernel):
             if item is None:
                 break
             frame, valid, tags = item
-            self._inflight.append((xfer.start_host_transfer(frame), valid, tags))
+            self._inflight.append((xfer.start_host_transfer_parts(
+                self.wire.encode_torch(frame.reshape(-1))), valid, tags))
         if self._inflight:
             finish, valid, tags = self._inflight.popleft()
-            host = finish().reshape(-1)[:valid]
-            if host.dtype != self.dtype:
-                host = host.astype(self.dtype)
+            host = self.wire.decode_host(finish(), self.dtype).reshape(-1)[:valid]
             self._pending, self._pending_tags = emit_with_tags(self.output, host, tags)
             finish.release()
             io.call_again = True

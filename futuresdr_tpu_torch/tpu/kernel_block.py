@@ -1,46 +1,76 @@
 """TpuKernel: a stage pipeline as one flowgraph block.
 
-The counterpart of ``futuresdr_tpu/tpu/kernel_block.py:TpuKernel``, cut to
-its core. Frames go to the device in dispatch groups of K frames
-(``frames_per_dispatch``, megabatch K). Each ``work`` call:
+The counterpart of ``futuresdr_tpu/tpu/kernel_block.py:TpuKernel``. Frames go
+to the device in dispatch groups of K frames (``frames_per_dispatch``,
+megabatch K), encoded in a wire format (``wire``, ``ops/wire.py``: f32,
+bf16, sc16 or sc8; ``None`` reads config ``tpu_wire_format``, whose ``auto``
+is f32 on the CPU and sc16 on a card). Each ``work`` call:
 
 1. emits output that did not fit downstream last time;
-2. copies full frames out of the input ring into the next rows of the
-   current group's pinned staging buffer (``ops/xfer.py``, recycled by the
-   arena of ``ops/arena.py``), so each ring slot can be consumed at once; a
-   full group starts its H2D on the copy stream, one copy for K frames;
-3. replays the compiled program (:meth:`Pipeline.compile`, one CUDA graph
-   for the K frames, carry chained) for each staged group and starts the
-   result's D2H. The H2D lands in, and the D2H reads, the program's slot
-   the group holds, one slot for each group the credits allow in flight,
-   so nothing is copied on the card around the replay;
-4. drains the oldest group in flight and emits its frames, in order.
+2. encodes full frames out of the input ring into the rows of the current
+   group's parts in the staging arena (``ops/arena.py``, pinned on a card;
+   for the f32 wire the encode is the ring-exit copy itself), so each ring
+   slot can be consumed at once; a full group starts its H2D on the copy
+   stream (``ops/xfer.py``): one copy a part, or one for the whole group
+   when the parts are packed (``tpu_coalesce``, :class:`~futuresdr_tpu_torch.ops.xfer.PackedLayout`);
+3. replays the compiled wired program (:meth:`Pipeline.compile` with the
+   wire: one CUDA graph for the K frames, carry chained, the wire's decode
+   in front and its encode behind, a packed group unpacked inside it) for
+   each staged group and starts the D2H of the output's parts. The H2D
+   lands in, and the D2H reads, the program's slot the group holds, one
+   slot for each group the credits and ``stage_ahead`` allow, so nothing is
+   copied on the card around the replay;
+4. lands the oldest group in flight, decodes it on the host and emits its
+   frames, in order.
 
-At most ``credits`` groups are staged or computing at once: the budget of a
+The host codec can ride a worker pool (``ops/codec_pool.py``,
+``host_codec_workers``): a wire whose encode aliases the frame (f32) starts
+its H2D on an encode worker after the ring-exit copy; a quantizing wire at K
+= 1 encodes on a worker straight out of the ring slot, ``consume()``
+deferred until the worker has read it (``tpu_deferred_consume``); every
+group's landing and host decode runs on a decode worker. A frame of a
+registered read-only buffer (``ops/ingest.py``) skips the ring-exit copy on
+an aliasing wire at K = 1 (``tpu_zero_copy_ingest``).
+
+At most ``credits`` groups are in flight (computing or landing), and
+``stage_ahead`` more may be staged: the budget of a
 :class:`CreditController`, pinned by an explicit ``frames_in_flight`` or by
 config ``tpu_inflight`` > 0, else adaptive around the seed
-``tpu_frames_in_flight``. A partial group is zero-padded only at EOS (padding
-mid-stream would run the pad through every later frame's carry); the pad
-frames' outputs are dropped. A partial last frame is zero-padded to the
-frame size and only the outputs of its whole ``frame_multiple`` prefix are
-emitted, so the block emits exactly as many items as the JAX ``TpuKernel``
-does for the same input. A retune goes through :meth:`apply_retune` →
-:meth:`Pipeline.update_stage` between dispatch groups, from another thread
-or through the ``ctrl`` message port (``{"stage": …, <param>: …}``, the
-reference's grammar, e.g. over the REST control port); the program copies
-the changed leaves into its carry buffers before its next replay.
+``tpu_frames_in_flight``. A partial group is zero-padded only at EOS
+(padding mid-stream would run the pad through every later frame's carry);
+the pad frames' outputs are dropped. A partial last frame is zero-padded to
+the frame size before its encode and only the outputs of its whole
+``frame_multiple`` prefix are emitted, so the block emits exactly as many
+items as the JAX ``TpuKernel`` does for the same input. A retune goes
+through :meth:`apply_retune` → :meth:`Pipeline.update_stage` between
+dispatch groups, from another thread or through the ``ctrl`` message port
+(``{"stage": …, <param>: …}``, the reference's grammar, e.g. over the REST
+control port); the program copies the changed leaves into its carry buffers
+before its next replay.
+
+A wire switch (:meth:`apply_wire_retune`, or the :class:`WireController`
+under ``tpu_adaptive_wire``) lands at the next quiescent group boundary:
+staging pauses until nothing is staged or in flight, then the kernel takes
+the new wire's program, one a (wire, layout), cached, all sharing one set of
+static carry buffers, so the state carries over with no copy and switching
+back to a wire used before captures nothing.
+
+Faults: the ``dispatch`` site of ``runtime/faults.py`` is checked before
+each replay, the transfer sites inside the transfers' retries. The port is
+fail-fast: a fault that is not retried fails the flowgraph.
 
 :class:`TpuFanoutKernel` and :class:`TpuDagKernel` run a
 :class:`~futuresdr_tpu_torch.ops.stages.FanoutPipeline` or
 :class:`~futuresdr_tpu_torch.ops.stages.DagPipeline` the same way, one output
-port a branch or sink: the staging, K, credits and slots are
-:class:`TpuKernel`'s, and only the result side (D2H, drain, emit, tag
-rebase) works a branch at a time. The device-chain pass
-(``runtime/devchain.py``) builds them, and fused linear chains as plain
-:class:`TpuKernel`s.
+port a branch or sink: the staging, K, credits, slots and wire are
+:class:`TpuKernel`'s, and only the result side (a D2H of a branch's parts,
+the landing, the emit and the tag rebase) works a branch at a time. The
+device-chain pass (``runtime/devchain.py``) builds them, and fused linear
+chains as plain :class:`TpuKernel`s.
 
-Not in this slice (ROADMAP): wire codecs, carry checkpoint/replay, the
-autotuned K and credit seed, the codec worker pool and frame lineage.
+Not in this slice (ROADMAP): the carry checkpoint and replay with the
+``restart`` policy, the autotuned K, credit seed and starting wire, and
+frame lineage.
 """
 
 from __future__ import annotations
@@ -53,9 +83,14 @@ from typing import Deque, List, Optional, Sequence
 import numpy as np
 
 from ..config import config
+from ..ops import codec_pool as _codec_mod
+from ..ops import ingest as _ingest_mod
 from ..ops import xfer
+from ..ops.arena import GroupAlloc, PackedAlloc, StagingArena, arena
 from ..ops.stages import Pipeline, Stage
+from ..ops.wire import WIRE_FORMATS, get_wire, resolve_wire
 from ..log import logger
+from ..runtime import faults as _faults
 from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag
 from ..types import Pmt
@@ -63,7 +98,7 @@ from .frames import emit_with_tags, parse_ctrl, rebase_frame_tags
 from .instance import TpuInstance, instance
 
 __all__ = ["TpuKernel", "TpuFanoutKernel", "TpuDagKernel", "CreditController",
-           "rebase_frame_tags", "emit_with_tags"]
+           "WireController", "rebase_frame_tags", "emit_with_tags"]
 
 log = logger("tpu.kernel_block")
 
@@ -204,10 +239,212 @@ class CreditController:
         self._t0 = time.perf_counter()
 
 
+class WireController:
+    """Mid-stream adaptive wire-format policy (opt-in: ``tpu_adaptive_wire``).
+
+    Sits next to :class:`CreditController` in the drain loop and watches two
+    live signals, both O(1) amortized per dispatch group:
+
+    * **signal quality** — a strided sample of each staged frame's float
+      components (peak + mean power). From it the controller PREDICTS the
+      quantization SNR each ladder format would give the current signal:
+      a uniform quantizer with step ``Δ = peak/qmax`` contributes
+      ``Δ²/12`` noise power, so ``snr = p_mean / (Δ²/12)`` — the same
+      model ``ops/wire.measure_snr_db`` verifies empirically.
+    * **link occupancy** — the modeled wire windows the transfer plane
+      attaches to each H2D finish (``_wire = (start, deadline)``, populated
+      under a fake/measured link): the busy fraction of the inter-dispatch
+      span. No wire signal (a real backend with no link model) reads as
+      idle, so the controller can only ever WIDEN there — it will not
+      chase throughput it cannot observe.
+
+    Decisions are HYSTERETIC, mirroring the credit controller: windowed
+    (``window`` dispatch groups per evaluation), two consecutive windows
+    must agree before a switch is proposed, and a holdoff follows every
+    switch so the ladder cannot oscillate. The policy:
+
+    * WIDEN (toward f32) when the ACTIVE format's predicted SNR falls
+      below the budget — the signal's dynamic range outgrew the wire.
+    * NARROW (toward sc8) only when the link is BUSY (occupancy above
+      ``occupancy_bar``) and the narrower format's predicted SNR clears
+      the budget plus a safety margin — bytes are the bottleneck and the
+      signal has headroom to spare.
+
+    The controller only PROPOSES; the kernel applies the switch at a
+    quiescent dispatch-group boundary (``_maybe_switch_wire``) so no
+    in-flight frame ever spans two programs.
+
+    The port's copy of the reference's controller, word for word; the port
+    has no link model, so without a fake link the occupancy reads idle and
+    the controller only widens."""
+
+    LADDER = ("f32", "sc16", "sc8")      # widest → narrowest
+    QMAX = {"sc16": 32767.0, "sc8": 127.0}
+
+    __slots__ = ("budget_db", "margin_db", "window", "holdoff",
+                 "occupancy_bar", "_peak", "_power", "_nstat", "_busy_s",
+                 "_count", "_vote", "_votes", "_hold", "_t0",
+                 "last_snr_db")
+
+    def __init__(self, budget_db: float, window: int = 16,
+                 holdoff: int = 4, margin_db: float = 6.0,
+                 occupancy_bar: float = 0.92):
+        self.budget_db = float(budget_db)
+        self.margin_db = float(margin_db)
+        self.window = int(window)
+        self.holdoff = int(holdoff)           # windows muted after a switch
+        self.occupancy_bar = float(occupancy_bar)
+        self.reset()
+
+    def reset(self) -> None:
+        self._peak = 0.0
+        self._power = 0.0
+        self._nstat = 0
+        self._busy_s = 0.0
+        self._count = 0
+        self._vote = None            # format the current streak argues for
+        self._votes = 0              # consecutive windows agreeing on it
+        self._hold = 0
+        self._t0 = time.perf_counter()
+        self.last_snr_db = float("inf")   # the deciding window's active SNR
+
+    # -- signal feeds --------------------------------------------------------
+    def observe_frame(self, frame: np.ndarray) -> None:
+        """Fold a strided sample of one staged frame's float components
+        (≤512 points — the stats cost must vanish next to the encode)."""
+        x = np.asarray(frame)
+        if x.dtype.kind == "c":
+            x = x.view(np.float64 if x.dtype == np.complex128
+                       else np.float32)
+        elif x.dtype.kind != "f":
+            return                   # int passthrough: no quantization story
+        x = x.reshape(-1)
+        if not x.size:
+            return
+        s = np.abs(x[::max(1, x.size // 512)].astype(np.float32))
+        peak = float(s.max())
+        if peak > self._peak:
+            self._peak = peak
+        self._power += float(np.mean(np.square(s)))
+        self._nstat += 1
+
+    def note_dispatch(self, wire: Optional[tuple]) -> None:
+        """Fold one dispatch group's H2D wire window (same tuple the credit
+        controller reads)."""
+        if wire:
+            start, deadline = wire
+            if deadline and deadline > start:
+                self._busy_s += deadline - start
+        self._count += 1
+
+    # -- prediction ----------------------------------------------------------
+    def predicted_snr_db(self, fmt: str) -> float:
+        """The windowed signal's predicted SNR under ``fmt`` (inf for exact
+        formats or when no stats accumulated)."""
+        qmax = self.QMAX.get(fmt)
+        if qmax is None or self._nstat == 0 or self._peak <= 0.0:
+            return float("inf")
+        p_mean = self._power / self._nstat
+        if p_mean <= 0.0:
+            return float("inf")
+        delta = self._peak / qmax
+        return 10.0 * float(np.log10(p_mean / (delta * delta / 12.0)))
+
+    # -- decision ------------------------------------------------------------
+    def propose(self, current: str) -> Optional[str]:
+        """Evaluate at window boundaries; the target format after two
+        agreeing windows, else None. Callers apply the switch themselves
+        (at a quiescent boundary) — a returned proposal arms the holdoff."""
+        if self._count < self.window or current not in self.LADDER:
+            return None
+        span = max(time.perf_counter() - self._t0, 1e-9)
+        occupancy = min(1.0, self._busy_s / span)
+        want = None
+        pos = self.LADDER.index(current)
+        self.last_snr_db = self.predicted_snr_db(current)
+        if self.last_snr_db < self.budget_db and pos > 0:
+            want = self.LADDER[pos - 1]                  # widen
+        elif occupancy >= self.occupancy_bar and pos + 1 < len(self.LADDER) \
+                and self.predicted_snr_db(self.LADDER[pos + 1]) \
+                >= self.budget_db + self.margin_db:
+            want = self.LADDER[pos + 1]                  # narrow
+        # window bookkeeping (stats are per-window, votes persist across)
+        self._peak = 0.0
+        self._power = 0.0
+        self._nstat = 0
+        self._busy_s = 0.0
+        self._count = 0
+        self._t0 = time.perf_counter()
+        if self._hold > 0:
+            self._hold -= 1
+            self._vote, self._votes = None, 0
+            return None
+        if want is None or want != self._vote:
+            self._vote, self._votes = want, (1 if want else 0)
+            return None
+        self._votes += 1
+        if self._votes < 2:
+            return None
+        self._vote, self._votes = None, 0
+        self._hold = self.holdoff
+        return want
+
+
+class _Group:
+    """One dispatch group being filled: the arena allocation (``alloc``) of
+    its parts, ``dests`` (one array a part, ``[K, …]`` at K > 1, the rows
+    the frames' encodes write), or ``parts`` already final (a zero-copy
+    frame's views of its registered buffer), one ``(valid_in, tags)`` a real
+    frame, the ingest handles it holds until it drains, and the frames whose
+    encode waits for a codec worker (``(row, frame, event)``)."""
+
+    __slots__ = ("alloc", "dests", "parts", "metas", "held", "deferred")
+
+    def __init__(self, alloc, dests, parts=None):
+        self.alloc = alloc
+        self.dests = dests
+        self.parts = parts
+        self.metas: List[tuple] = []
+        self.held: List = []
+        self.deferred: List[tuple] = []
+
+
+class _RowAlloc:
+    """``Wire.encode_into``'s allocator for row ``i`` of a group: a payload
+    request lands in that row of the part whose frame shape and dtype it
+    asks for, so the encode writes the group's buffer directly; temps come
+    from the group's allocation."""
+
+    __slots__ = ("_group", "_row", "_k", "_taken")
+
+    def __init__(self, group: _Group, row: int, k: int):
+        self._group, self._row, self._k = group, row, k
+        self._taken = set()
+
+    def __call__(self, shape, dtype) -> np.ndarray:
+        sh = (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(shape)
+        dt = np.dtype(dtype)
+        for j, d in enumerate(self._group.dests):
+            if j in self._taken:
+                continue
+            row = d[self._row, ...] if self._k > 1 else d
+            if row.shape == sh and row.dtype == dt:
+                self._taken.add(j)
+                return row
+        return self._group.alloc.temp(sh, dt)
+
+    def temp(self, shape, dtype) -> np.ndarray:
+        return self._group.alloc.temp(shape, dtype)
+
+    def drop_temps(self) -> None:
+        self._group.alloc.drop_temps()
+
+
 class TpuKernel(Kernel):
     """Runs ``Pipeline(stages, in_dtype)`` over the stream on
     ``inst.device``, ``frames_per_dispatch`` frames a dispatch (default
-    config ``tpu_frames_per_dispatch``; 0 means 1)."""
+    config ``tpu_frames_per_dispatch``; 0 means 1), across the link in
+    ``wire``'s format."""
 
     BLOCKING = True
 
@@ -215,7 +452,7 @@ class TpuKernel(Kernel):
                  frame_size: Optional[int] = None,
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
-                 frames_per_dispatch: Optional[int] = None, _pipeline=None):
+                 frames_per_dispatch: Optional[int] = None, wire=None, _pipeline=None):
         super().__init__()
         self.inst = inst or instance()
         # ``_pipeline``: a pipeline built already (the device-chain pass's
@@ -228,25 +465,22 @@ class TpuKernel(Kernel):
         self.k_batch = max(1, int(frames_per_dispatch or config().tpu_frames_per_dispatch))
         self.depth = max(1, int(frames_in_flight or self.inst.frames_in_flight))
         self._depth_explicit = frames_in_flight is not None
-        adaptive = frames_in_flight is None
-        if adaptive and config().tpu_inflight > 0:
-            self.depth, adaptive = int(config().tpu_inflight), False
-        self._credits = CreditController(self.depth, adaptive=adaptive)
-        self._fn = None               # the compiled program, built in init
+        # the codec on both link crossings: decode and encode run inside the
+        # compiled program, the host halves in _stage and _decode_group
+        self.wire = resolve_wire(wire, self.inst.device.type)
+        self._init_hostpath()
+        self._fn = None               # the current wire's program, built in init
+        self._programs: dict = {}     # (wire, layout) -> program, sharing one carry
         self._carry = None
         # serializes the carry between this block's thread and apply_retune
         self._carry_lock = threading.Lock()
-        # the group being filled: its [K, frame] host buffer and one
-        # (valid_in, frame tags) per real frame in it
-        self._group: Optional[xfer.HostBuffer] = None
-        self._accum: List[tuple] = []
+        self._group: Optional[_Group] = None   # the group being filled
         # the program's slots no group holds: a group takes one at its H2D
         # and frees it once its D2H has landed and been emitted
         self._free_slots: Deque[int] = deque()
-        # H2D started: (finish, metas, slot)
+        # H2D started: (transfer finish getter, metas, slot, held handles)
         self._staged: Deque[tuple] = deque()
-        # replayed, D2H riding: (finish, one (valid_out, rebased tags) a
-        # frame, slot)
+        # replayed, D2H riding: (landing, out metas, slot, held handles)
         self._inflight: Deque[tuple] = deque()
         self._pending_out: Optional[np.ndarray] = None
         self._pending_tags: List[ItemTag] = []
@@ -262,6 +496,75 @@ class TpuKernel(Kernel):
             min_buffer_size=(self.depth * self.k_batch + 1) * self.out_frame *
             np.dtype(self.pipeline.out_dtype).itemsize)
 
+    # -- the host data path ---------------------------------------------------
+    def _init_hostpath(self) -> None:
+        """The host data path's state (the reference's ``_init_hostpath``):
+        the staging arena, the codec pool, the credit controller (an explicit
+        depth or config ``tpu_inflight`` > 0 pins it), ``stage_ahead``, and
+        everything that follows from the wire (:meth:`_derive_wire_paths`)
+        and the adaptive wire controller."""
+        cuda = self.inst.device.type == "cuda"
+        # with the arena off, a zero-capacity arena: a fresh buffer a group
+        self._arena = arena(pin=cuda) or StagingArena(0, pin=cuda)
+        self._codec_pool = _codec_mod.pool()
+        adaptive = not self._depth_explicit
+        if adaptive and config().tpu_inflight > 0:
+            self.depth, adaptive = int(config().tpu_inflight), False
+        self._credits = CreditController(self.depth, adaptive=adaptive)
+        # one group staged beyond the in-flight budget, so its H2D rides
+        # under the previous group's compute (depth 1 stays strictly serial)
+        self.stage_ahead = 1 if self.depth > 1 else 0
+        self._ingest_frames = 0
+        self._staged_frames = 0
+        self._pending_consume = None   # (event, items) of a deferred consume()
+        self._derive_wire_paths()
+        self._init_wirectl()
+
+    def _derive_wire_paths(self) -> None:
+        """Everything that follows from the wire: the packed layout, the
+        encode offload (a pool, and an encode that aliases the frame, whose
+        ring-exit copy is paid anyway), zero-copy ingest (aliasing wires) and
+        deferred consume (a pool, a quantizing wire, K = 1)."""
+        c = config()
+        alias = self.wire.encode_may_alias(self.pipeline.in_dtype)
+        self._resolve_packed()
+        self._encode_offload = self._codec_pool is not None and alias
+        self._ingest_enabled = bool(c.tpu_zero_copy_ingest) and alias
+        self._deferred_consume = (self._codec_pool is not None and not alias
+                                  and self.k_batch == 1 and bool(c.tpu_deferred_consume))
+        parts = self.wire.encode_host(np.zeros(self.frame_size, self.pipeline.in_dtype))
+        self._part_specs = [(np.shape(p), np.asarray(p).dtype) for p in parts]
+        if hasattr(self.pipeline, "part_counts"):
+            self._part_counts = self.pipeline.part_counts(self.wire)
+
+    def _resolve_packed(self) -> None:
+        """The coalesced uplink's layout for the current wire, frame and K
+        (None for a one-part wire, and with ``tpu_coalesce`` off)."""
+        self._packed = None
+        if config().tpu_coalesce:
+            self._packed = xfer.PackedLayout.probe(self.wire, self.frame_size,
+                                                   self.pipeline.in_dtype, k=self.k_batch)
+
+    def _init_wirectl(self) -> None:
+        """Arm the adaptive wire controller (``tpu_adaptive_wire``, off by
+        default). It stays off when the wire is off its f32/sc16/sc8 ladder
+        or the input is not float or complex. The reference's start from the
+        autotune cache waits for ROADMAP Queue 1 item 7."""
+        self._wire_switch_target = None
+        self._wire_switches = 0
+        #: (first frame dispatched under it, wire name), one a wire in use
+        self.wire_history = [(0, self.wire.name)]
+        self._wirectl = None
+        if not config().tpu_adaptive_wire:
+            return
+        if self.wire.name not in WireController.LADDER or \
+                np.dtype(self.pipeline.in_dtype).kind not in "fc":
+            log.info("%s: adaptive wire off (wire %s, in dtype %s off the f32/sc16/sc8 "
+                     "ladder)", type(self).__name__, self.wire.name,
+                     np.dtype(self.pipeline.in_dtype))
+            return
+        self._wirectl = WireController(float(config().tpu_wire_snr_budget_db))
+
     def _adopt_credit_mode(self, adaptive: bool) -> None:
         """Re-arm the credit controller after construction: a fused device
         chain passes its members' depth explicitly, but may adapt unless a
@@ -272,27 +575,71 @@ class TpuKernel(Kernel):
 
     def extra_metrics(self) -> dict:
         return {"frame_size": self.frame_size,
+                "wire": self.wire.name,
                 "frames_per_dispatch": self.k_batch,
                 "frames_dispatched": self.frames_dispatched,
                 "dispatches": self.dispatches,
-                "inflight_credits": self._credits.credits}
+                "inflight_credits": self._credits.credits,
+                # the uplink plane: H2D starts a dispatch group (1 when
+                # packed), the zero-copy share of the staged frames, the
+                # deferred consume and the adaptive wire
+                "uplink_coalesced": int(self._packed is not None),
+                "h2d_starts_per_frame": (1 if self._packed is not None
+                                         else len(self._part_specs)),
+                "ingest_zero_copy_frac": (self._ingest_frames / self._staged_frames
+                                          if self._staged_frames else 0.0),
+                "deferred_consume": int(self._deferred_consume),
+                "adaptive_wire": int(self._wirectl is not None),
+                "wire_switches": self._wire_switches}
+
+    def _n_slots(self) -> int:
+        return self._credits.hi + self.stage_ahead
+
+    def _program_for(self, wire, packed):
+        """The wired program of ``(wire, packed)``, built once: every program
+        of this kernel shares the first one's static carry buffers."""
+        key = (wire.name, None if packed is None else packed.key)
+        fn = self._programs.get(key)
+        if fn is None:
+            share = getattr(self._fn, "carry", None)
+            fn, carry = self.pipeline.compile(
+                self.frame_size, self.inst.device, k=self.k_batch, slots=self._n_slots(),
+                wire=wire, packed=packed, carry=share)
+            if self._carry is None:
+                self._carry = carry
+            self._programs[key] = fn
+        return fn
+
+    def _settle_pool_tasks(self) -> None:
+        """Wait out the codec workers' tasks of this kernel (their errors
+        already surfaced, or a re-run supersedes them), so none still
+        writes a slot or reads a ring slot after a re-init."""
+        for get_fin, *_ in self._staged:
+            try:
+                get_fin()
+            except Exception:              # noqa: BLE001
+                pass
+        for (land, _release), *_ in self._inflight:
+            try:
+                land()
+            except Exception:              # noqa: BLE001
+                pass
 
     async def init(self, mio, meta):
+        self._settle_pool_tasks()
+        self._settle_deferred_consume()
         self._staged.clear()
         self._inflight.clear()
-        if self._group is not None:
-            self._group.release()
-        self._group, self._accum = None, []
-        self._free_slots = deque(range(self._credits.hi))
+        if self._group is not None and self._group.alloc is not None:
+            self._group.alloc.release()
+        self._group = None
+        self._free_slots = deque(range(self._n_slots()))
         self._pending_out, self._pending_tags = None, []
         with self._carry_lock:
             if self._fn is None:
                 # the warm-up (kernel builds, library plans, lazy tables) and
-                # the capture happen here, off the hot path; one input and
-                # output slot for each group the credits may keep in flight
-                self._fn, self._carry = self.pipeline.compile(
-                    self.frame_size, self.inst.device, k=self.k_batch,
-                    slots=self._credits.hi)
+                # the capture happen here, off the hot path
+                self._fn = self._program_for(self.wire, self._packed)
             else:
                 # a re-run starts from a fresh carry, which the program copies
                 # into its buffers at the first dispatch
@@ -333,94 +680,344 @@ class TpuKernel(Kernel):
             self._carry = self.pipeline.update_stage(self._carry, stage, **params)
             return self.frames_dispatched
 
-    def _stage(self, frame: np.ndarray, valid_in: int, tags) -> None:
-        """Copy one frame (a full one, or the zero-padded EOS tail) out of the
-        ring into the next row of the group's staging buffer, so the caller
-        may consume it at once; a full group ships."""
-        if self._group is None:
-            self._group = xfer.host_buffer((self.k_batch, self.frame_size),
-                                           self.pipeline.in_dtype, self.inst.device)
-        row = self._group.array[len(self._accum)]
-        n = len(frame)
-        row[:n] = frame
-        row[n:] = 0
-        self._accum.append((valid_in, tuple(tags)))
-        if len(self._accum) == self.k_batch:
+    # -- wire switches --------------------------------------------------------
+    def apply_wire_retune(self, fmt: str) -> None:
+        """Ask for a mid-stream wire switch (the adaptive controller takes
+        the same path). It lands at the next quiescent dispatch-group
+        boundary (:meth:`_maybe_switch_wire`): no frame in flight spans two
+        wire programs. Safe to call from another thread."""
+        fmt = str(fmt)
+        if fmt not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire format {fmt!r} "
+                             f"(expected one of {sorted(WIRE_FORMATS)})")
+        self._wire_switch_target = None if fmt == self.wire.name else fmt
+
+    def _apply_wire_program(self, fmt: str) -> None:
+        """Swap the wire and everything derived from it, and take its
+        program (cached, or captured now sharing the carry buffers). Runs at
+        a group boundary with nothing staged or in flight; the carry does
+        not depend on the wire, so it carries over as it is."""
+        if fmt == self.wire.name:
+            return
+        old = self.wire.name
+        self.wire = get_wire(fmt)
+        self._derive_wire_paths()
+        with self._carry_lock:
+            self._fn = self._program_for(self.wire, self._packed)
+        self._wire_switches += 1
+        self.wire_history.append((self.frames_dispatched, fmt))
+        log.info("%s: wire switched %s -> %s at frame %d",
+                 self.meta.instance_name or type(self).__name__, old, fmt,
+                 self.frames_dispatched)
+
+    def _maybe_switch_wire(self) -> None:
+        """Collect the controller's proposal, then apply a pending switch
+        once nothing is staged, in flight, being filled or waiting for a
+        deferred consume. While a switch waits, staging pauses and ``work``
+        drains toward the boundary."""
+        if self._wire_switch_target is None:
+            if self._wirectl is None:
+                return
+            tgt = self._wirectl.propose(self.wire.name)
+            if tgt is None:
+                return
+            self._wire_switch_target = tgt
+            log.info("%s: adaptive wire proposes %s -> %s (snr %.1f dB, budget %.1f dB)",
+                     self.meta.instance_name or type(self).__name__, self.wire.name, tgt,
+                     self._wirectl.last_snr_db, self._wirectl.budget_db)
+        if self._staged or self._inflight or self._group is not None or \
+                self._pending_consume is not None:
+            return
+        tgt, self._wire_switch_target = self._wire_switch_target, None
+        if tgt is not None:
+            self._apply_wire_program(tgt)
+
+    # -- staging --------------------------------------------------------------
+    def _new_group(self) -> _Group:
+        """An empty group with its part buffers taken from the arena: views
+        into one packed buffer when the uplink coalesces."""
+        k = self.k_batch
+        if self._packed is not None:
+            alloc = PackedAlloc(self._arena, self._packed)
+        else:
+            alloc = GroupAlloc(self._arena)
+        lead = (k,) if k > 1 else ()
+        dests = [alloc(lead + tuple(sh), dt) for sh, dt in self._part_specs]
+        return _Group(alloc, dests)
+
+    def _encode_row(self, g: _Group, i: int, frame: np.ndarray) -> None:
+        """Encode one frame into row ``i`` of the group's parts. An aliasing
+        wire's encode is a view of the frame, so this is the ring-exit copy;
+        a quantizing wire writes its payload in place (``encode_into``) and
+        its scale is copied in."""
+        k = self.k_batch
+        if self.wire.encode_may_alias(frame.dtype):
+            parts = self.wire.encode_host(frame)
+        else:
+            parts = self.wire.encode_into(frame, _RowAlloc(g, i, k))
+        for d, p in zip(g.dests, parts):
+            row = d[i, ...] if k > 1 else d
+            p = np.asarray(p)
+            if not np.shares_memory(row, p):
+                row[...] = p
+
+    def _stage(self, frame: np.ndarray, valid_in: int, tags, deferred=None) -> None:
+        """Queue one frame (a full one, or the zero-padded EOS tail) into the
+        group being filled and encode it now, so the caller may consume its
+        ring slot at once, or, with ``deferred`` (an event), on the codec
+        worker that ships the group, which sets the event once it has read
+        the slot. A full group ships."""
+        self._staged_frames += 1
+        if self._wirectl is not None:
+            self._wirectl.observe_frame(frame)
+        g = self._group
+        if g is None:
+            zc = self._zero_copy(frame)
+            if zc is not None:
+                # the registered buffer is the staging copy: the group ships
+                # the wire's views of it and holds it until it drains
+                g = _Group(None, None, parts=self.wire.encode_host(frame))
+                g.held.append(zc)
+            else:
+                g = self._new_group()
+            self._group = g
+        i = len(g.metas)
+        if g.parts is None:
+            if deferred is not None:
+                g.deferred.append((i, frame, deferred))
+            else:
+                self._encode_row(g, i, frame)
+        g.metas.append((valid_in, tuple(tags)))
+        if len(g.metas) == self.k_batch:
             self._flush_accum()
+
+    def _zero_copy(self, frame: np.ndarray):
+        """The retained ingest handle when ``frame`` may ship from its
+        registered buffer without a copy (K = 1, an aliasing wire, a
+        registered read-only buffer, page-locked on a card), else None."""
+        if not self._ingest_enabled or self.k_batch != 1:
+            return None
+        h = _ingest_mod.lookup(frame)
+        if h is None or (self.inst.device.type == "cuda" and not h.page_locked):
+            return None
+        self._ingest_frames += 1
+        _ingest_mod.note_zero_copy()
+        return h.retain()
+
+    def _ship(self, g: _Group, out) -> object:
+        """Encode what waits for this thread, settle the group's parts (a
+        partial group's pad rows zeroed, the packed buffer's gaps) and start
+        their H2D into the slot's input ``out``; returns the transfer's
+        ``finish``."""
+        try:
+            for i, frame, _ev in g.deferred:
+                self._encode_row(g, i, frame)
+        finally:
+            for _i, _frame, ev in g.deferred:
+                ev.set()       # the ring slot has been read: consume() may run
+        if g.parts is not None:
+            return xfer.start_device_transfer_parts(g.parts, self.inst.device, out=out)
+        n = len(g.metas)
+        if n < self.k_batch:
+            for d in g.dests:
+                d[n:] = 0
+        alloc = g.alloc
+        parts = (alloc.finish(g.dests),) if isinstance(alloc, PackedAlloc) else g.dests
+        alloc.drop_temps()
+        handles, alloc.handles = list(alloc.handles), []
+        return xfer.start_device_transfer_parts(parts, self.inst.device, out=out,
+                                                handles=handles)
 
     def _flush_accum(self) -> None:
-        """Start the group's H2D into a free slot of the program, one copy
-        for its K frames. The rows of a partial group (EOS only) past its
-        last frame are zeroed; their outputs are dropped at drain."""
-        group, metas = self._group, tuple(self._accum)
-        self._group, self._accum = None, []
-        group.array[len(metas):] = 0
+        """Ship the group being filled into a free slot of the program: its
+        H2D starts here, or on an encode worker when the pool takes the
+        encode (an aliasing wire's offload, a deferred consume's in-place
+        encode). The rows of a partial group (EOS only) past its last frame
+        are zeroed; their outputs are dropped at drain."""
+        g, self._group = self._group, None
         slot = self._free_slots.popleft()
-        self._staged.append((xfer.start_device_transfer_parts(
-            group, self.inst.device, out=self._fn.inputs[slot]), metas, slot))
+        out = self._fn.inputs[slot]
+        pool = self._codec_pool
+        if pool is not None and (self._encode_offload or g.deferred):
+            try:
+                fut = pool.submit_encode(self._ship, g, out)
+            except BaseException:
+                for _i, _f, ev in g.deferred:
+                    ev.set()
+                raise
+            get_fin = fut.result
+        else:
+            fin = self._ship(g, out)
+            get_fin = lambda: fin          # noqa: E731
+        self._staged.append((get_fin, tuple(g.metas), slot, g.held))
+
+    def _stage_deferred(self, frame: np.ndarray, tags) -> None:
+        """Stage a quantizing K = 1 frame with no ring-exit copy: the codec
+        worker encodes the live ring slot in place, and ``consume()`` waits
+        (:meth:`_settle_deferred_consume`) until it has read it, so the
+        writer never overwrites a frame in flight."""
+        ev = threading.Event()
+        self._pending_consume = (ev, self.frame_size)
+        self._stage(frame, self.frame_size, tags, deferred=ev)
+
+    def _settle_deferred_consume(self) -> None:
+        """Land a deferred consume: wait for the worker's read of the slot,
+        then advance the reader (at most one consume is ever deferred)."""
+        if self._pending_consume is None:
+            return
+        ev, n = self._pending_consume
+        ev.wait()
+        self._pending_consume = None
+        self.input.consume(n)
+
+    def _room(self, budget: int) -> bool:
+        return len(self._staged) + len(self._inflight) < budget
 
     def _stage_available_input(self):
-        """Stage every full frame the credits allow, and the zero-padded tail
-        frame and the partial group at EOS; returns ``(remaining input
-        slice, eos)``."""
-        budget = self._credits.credits
+        """Stage every full frame the credits and ``stage_ahead`` allow, and
+        the zero-padded tail frame and the partial group at EOS; returns
+        ``(remaining input slice, eos)``."""
+        self._settle_deferred_consume()
+        if self._wirectl is not None or self._wire_switch_target is not None:
+            self._maybe_switch_wire()
+        budget = self._credits.credits + self.stage_ahead
         inp = self.input.slice()
-        while len(self._staged) + len(self._inflight) < budget and \
-                len(inp) >= self.frame_size:
-            self._stage(inp[:self.frame_size], self.frame_size,
-                        self.input.tags(self.frame_size))
-            self.input.consume(self.frame_size)
+        # a pending wire switch pauses staging, but a part-filled group keeps
+        # filling to its flush (padding mid-stream would corrupt the carry)
+        while self._room(budget) and (self._wire_switch_target is None
+                                      or self._group is not None):
+            # the last deferred consume of a cycle stays pending into the next
+            # work call, so the worker's encode overlaps the dispatch below
+            self._settle_deferred_consume()
+            inp = self.input.slice()
+            if len(inp) < self.frame_size:
+                break
+            tags = self.input.tags(self.frame_size)
+            frame = inp[:self.frame_size]
+            if self._deferred_consume:
+                self._stage_deferred(frame, tags)
+            else:
+                self._stage(frame, self.frame_size, tags)
+                self.input.consume(self.frame_size)
             inp = self.input.slice()
         eos = self.input.finished()
-        if eos and 0 < len(inp) < self.frame_size and \
-                len(self._staged) + len(self._inflight) < budget:
+        if eos and 0 < len(inp) < self.frame_size and self._pending_consume is None \
+                and self._room(budget):
             n = len(inp)
+            frame = np.zeros(self.frame_size, dtype=self.pipeline.in_dtype)
+            frame[:n] = inp
             # items past the last frame_multiple boundary cannot give whole
             # outputs and are dropped at EOS (the streaming frame contract)
-            self._stage(inp, n - n % self.pipeline.frame_multiple, self.input.tags(n))
+            self._stage(frame, n - n % self.pipeline.frame_multiple, self.input.tags(n))
             self.input.consume(n)
             inp = self.input.slice()
-        if eos and self._accum and len(inp) == 0:
+        if eos and self._group is not None and len(inp) == 0:
             self._flush_accum()
+        if self._pending_consume is not None:
+            # the deferred frame is staged but still in the slice
+            inp = inp[self._pending_consume[1]:]
         return inp, eos
 
+    # -- dispatch and drain ---------------------------------------------------
     def _launch_staged(self) -> None:
         """Replay the program for each staged group (oldest first) and start
         its D2H, within the credit budget."""
+        fplan = _faults.plan()
         while self._staged and len(self._inflight) < self._credits.credits:
-            finish, metas, slot = self._staged.popleft()
-            finish()                    # the replay waits for the H2D
+            if fplan.armed():
+                fplan.maybe("dispatch", self.meta.instance_name)
+            get_fin, metas, slot, held = self._staged[0]
+            fin = get_fin()                 # the encode worker's start, joined
+            fin()                           # the replay waits for the H2D
+            self._staged.popleft()
+            wire = self.wire
             with self._carry_lock:
                 self._carry, y = self._fn.dispatch(slot, self._carry)
                 self.frames_dispatched += len(metas)
                 self.dispatches += 1
-            self._inflight.append(self._start_result_d2h(y, metas) + (slot,))
-            self._credits.note_dispatch(None, len(self._inflight))
+            land, out_metas = self._start_result_d2h(y, metas, wire)
+            self._inflight.append((land, out_metas, slot, held))
+            self._credits.note_dispatch(getattr(fin, "_wire", None), len(self._inflight))
+            if self._wirectl is not None:
+                self._wirectl.note_dispatch(getattr(fin, "_wire", None))
         if self._staged and len(self._inflight) >= self._credits.credits:
             self._credits.note_limited()
 
-    def _start_result_d2h(self, y, metas) -> tuple:
-        """Start the D2H of a replay's output; returns ``(finish, one
-        (valid_out, rebased tags) a frame)``."""
+    def _out_metas(self, metas) -> list:
         out_metas = []
         for valid_in, tags in metas:
             valid_out = min(self.pipeline.out_items(valid_in), self.out_frame)
-            out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline,
-                                                           valid_out)))
-        return xfer.start_host_transfer(y), out_metas
+            out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline, valid_out)))
+        return out_metas
+
+    def _start_result_d2h(self, y, metas, wire) -> tuple:
+        """Start the D2H of a replay's output parts; returns ``(landing, one
+        (valid_out, rebased tags) a frame)``."""
+        out_metas = self._out_metas(metas)
+        return self._landing([xfer.start_host_transfer_parts(y)], out_metas, wire), out_metas
+
+    def _landing(self, fins, out_metas, wire):
+        """A group's landing: ``land()`` waits for its D2H(s) and decodes
+        (:meth:`_decode_group`), on a decode worker from now on when the
+        pool is on; ``land.release`` hands the host buffers back once the
+        payload has been emitted."""
+        def land():
+            return self._decode_group([None if f is None else f() for f in fins],
+                                      out_metas, wire)
+
+        pool = self._codec_pool
+        if pool is not None:
+            fut = pool.submit_decode(land)
+            joined = fut.result
+        else:
+            joined = land
+
+        def release():
+            for f in fins:
+                if f is not None:
+                    f.release()
+
+        return joined, release
+
+    def _decode_rows(self, raw, n_valid, out_dtype, wire) -> np.ndarray:
+        """Decode one landed output (a tuple of parts, ``[K, …]`` at K > 1)
+        into the flat valid prefix of its frames: every frame but a group's
+        last real one is whole, so the frames' valid outputs are one prefix
+        of the flattened rows. A one-part wire decodes the stack at once (a
+        view for f32); a scaled wire decodes frame by frame, each with its
+        own scale."""
+        if self.k_batch == 1:
+            return wire.decode_host(raw, out_dtype).reshape(-1)[:n_valid[0]]
+        total = sum(n_valid)
+        if len(raw) == 1:
+            return wire.decode_host(raw, out_dtype).reshape(-1)[:total]
+        rows = [wire.decode_host(tuple(p[i] for p in raw), out_dtype)[:v]
+                for i, v in enumerate(n_valid)]
+        return np.concatenate(rows) if rows else np.empty(0, out_dtype)
+
+    def _decode_group(self, raws, out_metas, wire) -> np.ndarray:
+        (raw,) = raws
+        return self._decode_rows(raw, [v for v, _ in out_metas],
+                                 self.pipeline.out_dtype, wire)
+
+    def _release_group(self, slot, held) -> None:
+        self._free_slots.append(slot)
+        for h in held:
+            h.release()
 
     def _drain_one(self) -> None:
-        """Emit the oldest group's frames. Every frame but a group's last
-        real one is whole, so their valid outputs are one prefix of the
-        group's flattened ``[K, out]`` result."""
-        finish, out_metas, slot = self._inflight.popleft()
-        flat = finish().reshape(-1)
+        """Emit the oldest group's frames, decoded on the host."""
+        (land, release), out_metas, slot, held = self._inflight.popleft()
+        flat = land()
         tags = [ItemTag(t.index + i * self.out_frame, t.tag)
                 for i, (_, ts) in enumerate(out_metas) for t in ts]
-        self._pending_out, self._pending_tags = emit_with_tags(
-            self.output, flat[:sum(v for v, _ in out_metas)], tags)
-        finish.release()
-        self._free_slots.append(slot)
+        self._pending_out, self._pending_tags = emit_with_tags(self.output, flat, tags)
+        release()
+        self._release_group(slot, held)
+
+    def _idle(self, inp) -> bool:
+        return (not self._inflight and not self._staged and self._group is None
+                and self._pending_consume is None and len(inp) == 0)
 
     async def work(self, io, mio, meta):
         # 1. flush output that did not fit last time
@@ -436,15 +1033,16 @@ class TpuKernel(Kernel):
         self._launch_staged()
 
         # 4. drain the oldest group: when the credits are used up, when no
-        #    full frame waits (flush for latency), or at EOS
+        #    full frame waits (flush for latency), at EOS, or toward a
+        #    pending wire switch
         if self._inflight and (len(self._inflight) >= self._credits.credits
-                               or len(inp) < self.frame_size or eos):
+                               or len(inp) < self.frame_size or eos
+                               or self._wire_switch_target is not None):
             self._drain_one()
             io.call_again = True
             return
 
-        if eos and not self._inflight and not self._staged and not self._accum and \
-                self._pending_out is None and len(inp) == 0:
+        if eos and self._idle(inp) and self._pending_out is None:
             io.finished = True
 
 
@@ -464,9 +1062,11 @@ class TpuFanoutKernel(TpuKernel):
     crosses the link once, the producer runs once, and branch ``j``'s result
     streams out of ``outputs[j]`` (ports ``out0`` … ``out{N-1}``).
 
-    Staging, megabatch K, credits and program slots are :class:`TpuKernel`'s,
-    unchanged; the result side (one D2H a branch, the drain, the emit and the
-    tag rebase through the branch's own rate) works a branch at a time.
+    Staging, megabatch K, credits, program slots and the wire are
+    :class:`TpuKernel`'s, unchanged: the input crosses the link once, and
+    each branch encodes its own output; the result side (one D2H of a
+    branch's parts, the landing, the emit and the tag rebase through the
+    branch's own rate) works a branch at a time.
     :meth:`retire_branch` drops a branch whose reader detached while the
     others keep streaming; the device-chain drive loop calls it. Run as a
     plain actor block, the block event loop cannot tell which output's
@@ -476,14 +1076,15 @@ class TpuFanoutKernel(TpuKernel):
     def __init__(self, fanout, frame_size: Optional[int] = None,
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
-                 frames_per_dispatch: Optional[int] = None):
+                 frames_per_dispatch: Optional[int] = None, wire=None):
         nb = fanout.n_branches
         self._pendings: List[Optional[np.ndarray]] = [None] * nb
         self._pending_tags_n: List[List[ItemTag]] = [[] for _ in range(nb)]
         self._branch_done = [False] * nb
         super().__init__((), fanout.in_dtype, frame_size=frame_size, inst=inst,
                          frames_in_flight=frames_in_flight,
-                         frames_per_dispatch=frames_per_dispatch, _pipeline=fanout)
+                         frames_per_dispatch=frames_per_dispatch, wire=wire,
+                         _pipeline=fanout)
 
     def _add_outputs(self) -> None:
         fo = self.pipeline
@@ -518,11 +1119,12 @@ class TpuFanoutKernel(TpuKernel):
         m["branches_live"] = sum(not d for d in self._branch_done)
         return m
 
-    def _start_result_d2h(self, ys, metas) -> tuple:
-        """One D2H a branch; one ``(valid_out, rebased tags)`` a branch a
-        frame, each branch's tags rebased through its tag ratio (a DAG's
-        primary chain through a merge), a sink past a ``concat`` merge
-        emitting full frames only."""
+    def _start_result_d2h(self, ys, metas, wire) -> tuple:
+        """One D2H a live branch, of its slice of the flat output parts
+        (:meth:`FanoutPipeline.part_counts`); one ``(valid_out, rebased
+        tags)`` a branch a frame, each branch's tags rebased through its tag
+        ratio (a DAG's primary chain through a merge), a sink past a
+        ``concat`` merge emitting full frames only."""
         fo = self.pipeline
         tag_ratios = getattr(fo, "tag_ratios", None) or fo.path_ratios
         concat = getattr(fo, "concat_sinks", None)
@@ -536,27 +1138,32 @@ class TpuFanoutKernel(TpuKernel):
                 per_branch.append((valid_out, rebase_frame_tags(
                     tags, _PathRatio(tag_ratios[j]), valid_out)))
             out_metas.append(per_branch)
-        finishes = tuple(None if self._branch_done[j] else xfer.start_host_transfer(y)
-                         for j, y in enumerate(ys))
-        return finishes, out_metas
+        fins, off = [], 0
+        for j, n in enumerate(self._part_counts):
+            fins.append(None if self._branch_done[j]
+                        else xfer.start_host_transfer_parts(ys[off:off + n]))
+            off += n
+        return self._landing(fins, out_metas, wire), out_metas
+
+    def _decode_group(self, raws, out_metas, wire) -> list:
+        """Each live branch's flat valid outputs (None for a retired one)."""
+        return [None if raw is None else
+                self._decode_rows(raw, [pb[j][0] for pb in out_metas],
+                                  self.pipeline.out_dtypes[j], wire)
+                for j, raw in enumerate(raws)]
 
     def _drain_branches(self) -> None:
-        """Land the oldest group and emit it into every live branch. Every
-        frame but a group's last real one is whole, so a branch's valid
-        outputs are one prefix of its flattened ``[K, out_j]`` result."""
-        finishes, out_metas, slot = self._inflight.popleft()
-        for j, finish in enumerate(finishes):
-            if finish is None:
+        """Land the oldest group and emit it into every live branch."""
+        (land, release), out_metas, slot, held = self._inflight.popleft()
+        for j, flat in enumerate(land()):
+            if flat is None or self._branch_done[j]:
                 continue
-            if not self._branch_done[j]:
-                flat = finish().reshape(-1)
-                n = sum(pb[j][0] for pb in out_metas)
-                tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
-                        for i, pb in enumerate(out_metas) for t in pb[j][1]]
-                self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
-                    self.outputs[j], flat[:n], tags)
-            finish.release()
-        self._free_slots.append(slot)
+            tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
+                    for i, pb in enumerate(out_metas) for t in pb[j][1]]
+            self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
+                self.outputs[j], flat, tags)
+        release()
+        self._release_group(slot, held)
 
     async def work(self, io, mio, meta):
         nb = self.pipeline.n_branches
@@ -580,13 +1187,13 @@ class TpuFanoutKernel(TpuKernel):
 
         # 4. drain the oldest group into every live branch
         if self._inflight and (len(self._inflight) >= self._credits.credits
-                               or len(inp) < self.frame_size or eos):
+                               or len(inp) < self.frame_size or eos
+                               or self._wire_switch_target is not None):
             self._drain_branches()
             io.call_again = True
             return
 
-        if eos and not self._inflight and not self._staged and not self._accum \
-                and all(p is None for p in self._pendings) and len(inp) == 0:
+        if eos and self._idle(inp) and all(p is None for p in self._pendings):
             io.finished = True
 
 

@@ -133,9 +133,14 @@ def streamed_msps(cls, device, k: int = 1) -> float:
     from futuresdr_tpu_torch.ops.stages import fir_fft_stage, mag2_stage
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    import inspect
+    # the f32 wire: the float32 link this comparison measured before the
+    # wire codecs (the card's default wire is sc16); an older package
+    # without wires has only that link
+    kw = {"wire": "f32"} if "wire" in inspect.signature(TpuKernel.__init__).parameters else {}
     kern = TpuKernel([fir_fft_stage(taps, 2048), mag2_stage()], np.complex64,
                      frame_size=FRAME, inst=TpuInstance(device), frames_in_flight=4,
-                     frames_per_dispatch=k)
+                     frames_per_dispatch=k, **kw)
     n = STREAM_FRAMES * FRAME
     fg = Flowgraph()
     snk = NullSink(np.float32)

@@ -17,8 +17,10 @@ wall time and idle share read high.
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``:
 ``python3 port_profile.py [--k 1,4]``, ``--k`` the frames a dispatch
-(``TpuKernel(frames_per_dispatch=K)``) to run each chain at. Exits nonzero
-without CUDA.
+(``TpuKernel(frames_per_dispatch=K)``) to run each chain at; every mode
+streams on the f32 wire (the float32 link these profiles measured before
+the wire codecs; the card's default wire is sc16). Exits nonzero without
+CUDA.
 
 ``--root DIR`` imports ``futuresdr_tpu_torch`` from DIR, another checkout
 (say the parent commit, unpacked with ``git archive`` under ``build/``), so
@@ -33,7 +35,11 @@ only. The other modes:
   ``TpuKernel.work``'s own lines and the asyncio hand-off (the streaming
   window less the time in ``work``); the median of N instrumented runs
   beside an uninstrumented run's wall a frame, which shows what the
-  instrumentation costs. The functions are wrapped by name (``SPLIT_SPANS``),
+  instrumentation costs. ``--wires f32,sc16`` splits each wire (default
+  f32; a package without wires runs its float32 link), with the host
+  encode and decode as spans of their own, and the spans the codec pool's
+  workers run apart (``worker: …``, in parallel with the block's thread);
+  ``--routes fused`` takes one route. The functions are wrapped by name (``SPLIT_SPANS``),
   so one script splits the parent and this checkout alike.
 - ``--resident``: resident rates, eager and (where the package has
   ``Pipeline.compile``) compiled at each K, beside the card's time a frame.
@@ -52,6 +58,7 @@ import functools
 import importlib.util
 import subprocess
 import sys
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -108,7 +115,22 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_route(stages, frame: int, dev, k: int = 1, profiled: bool = True) -> dict:
+def _kernel_kw(k: int, wire) -> dict:
+    """``TpuKernel``'s K and wire arguments, each only where the imported
+    package takes it (a parent without ``frames_per_dispatch`` runs K = 1, a
+    parent without ``wire`` its float32 link)."""
+    import inspect
+
+    from futuresdr_tpu_torch.tpu import TpuKernel
+    params = inspect.signature(TpuKernel.__init__).parameters
+    kw = {"frames_per_dispatch": k} if k > 1 else {}
+    if wire is not None and "wire" in params:
+        kw["wire"] = wire
+    return kw
+
+
+def profile_route(stages, frame: int, dev, k: int = 1, profiled: bool = True,
+                  wire="f32") -> dict:
     """One streamed run of ``FRAMES`` frames at ``k`` frames a dispatch
     (``k`` = 1 passes no ``frames_per_dispatch``, so a parent without it
     runs too); with ``profiled``, under ``torch.profiler``."""
@@ -121,9 +143,8 @@ def profile_route(stages, frame: int, dev, k: int = 1, profiled: bool = True) ->
     from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
     fg = Flowgraph()
-    kw = {"frames_per_dispatch": k} if k > 1 else {}
     kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
-                     frames_in_flight=IN_FLIGHT, **kw)
+                     frames_in_flight=IN_FLIGHT, **_kernel_kw(k, wire))
     snk = NullSink(kern.pipeline.out_dtype)
     fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
     rt = Runtime()
@@ -169,34 +190,52 @@ SPLIT_SPANS = (
     ("futuresdr_tpu_torch.ops.xfer", "start_device_transfer_parts",
      "staging copy, pinned allocation"),
     ("futuresdr_tpu_torch.ops.xfer", "start_host_transfer", "D2H start, pinned allocation"),
+    ("futuresdr_tpu_torch.ops.xfer", "start_host_transfer_parts",
+     "D2H start, pinned allocation"),
     ("futuresdr_tpu_torch.tpu.kernel_block", "emit_with_tags", "emit into the ring"),
     ("futuresdr_tpu_torch.ops.stages", "CompiledPipeline.dispatch", "stages' host calls"),
+    # the wire's host codec: the encode of a frame into its group's parts (for
+    # the f32 wire the ring-exit copy itself) and the decode of a landed group
+    ("futuresdr_tpu_torch.tpu.kernel_block", "TpuKernel._encode_row", "encode"),
+    ("futuresdr_tpu_torch.tpu.kernel_block", "TpuKernel._decode_group", "decode"),
+    ("futuresdr_tpu_torch.tpu.kernel_block", "TpuFanoutKernel._decode_group", "decode"),
+    # the block's thread joining a codec worker's encode or landing
+    ("concurrent.futures", "Future.result", "wait for a codec worker"),
 )
 # what the transfers' ``finish()`` closures cost, by the function that made them
 SPLIT_FINISH = {"start_device_transfer": "H2D start", "start_device_transfer_parts": "H2D start",
-                "start_host_transfer": "D2H wait"}
+                "start_host_transfer": "D2H wait", "start_host_transfer_parts": "D2H wait"}
+# spans that run on the codec pool's workers as well (ops/codec_pool.py):
+# there they count apart, under "worker: <bucket>", outside the block's thread
+WORKER_BUCKETS = ("encode", "decode", "H2D start", "D2H wait",
+                  "staging copy, pinned allocation", "D2H start, pinned allocation")
 
 
 class _Spans:
     """Exclusive host time by bucket, on the thread running ``TpuKernel.work``."""
 
     def __init__(self):
-        import threading
         self.local = threading.local()
         self.totals = defaultdict(float)
         self.work_ns = 0
         self.first_ns = None
         self.last_ns = 0
+        self.workers = False        # count spans on the codec workers too
 
     def enter(self, bucket) -> bool:
         stack = getattr(self.local, "stack", None)
         if not stack and bucket != "work":
-            return False                        # outside TpuKernel.work
+            if bucket not in WORKER_BUCKETS or not self.workers or \
+                    not threading.current_thread().name.startswith("fsdr-codec"):
+                return False                    # outside TpuKernel.work
+            bucket = "worker: " + bucket        # a codec worker's lane
         if stack is None:
             stack = self.local.stack = []
         now = time.perf_counter_ns()
         if stack:
             stack[-1][2] += now - stack[-1][1]  # the parent pauses
+            if stack[0][0].startswith("worker: "):
+                bucket = "worker: " + bucket
         stack.append([bucket, now, 0])
         return True
 
@@ -207,7 +246,7 @@ class _Spans:
         self.totals[bucket] += acc + now - t0
         if stack:
             stack[-1][1] = now                  # the parent resumes
-        else:
+        elif not bucket.startswith("worker: "):
             self.work_ns += now - self._work_t0
             self.last_ns = now
 
@@ -252,7 +291,7 @@ def _timed_streams(spans):
             self.ctx = real(s)
             stack = getattr(spans.local, "stack", None)
             self.bucket = "D2H start, pinned allocation" if stack and \
-                stack[-1][0].startswith("D2H") else "H2D start"
+                stack[-1][0].removeprefix("worker: ").startswith("D2H") else "H2D start"
 
         def __enter__(self):
             self.on = spans.enter(self.bucket)
@@ -266,10 +305,12 @@ def _timed_streams(spans):
     return real, Timed
 
 
-def split_route(stages, frame: int, dev, k: int) -> dict:
+def split_route(stages, frame: int, dev, k: int, wire="f32") -> dict:
     """One streamed run of ``FRAMES`` frames with the host spans timed:
     µs per frame by bucket; the asyncio hand-off is the streaming window
-    (first ``work`` call to last) less the time inside ``work``."""
+    (first ``work`` call to last) less the time inside ``work``. Spans the
+    codec pool's workers run count apart (``worker: …``): they overlap the
+    block's thread."""
     import importlib
 
     import torch
@@ -279,6 +320,7 @@ def split_route(stages, frame: int, dev, k: int) -> dict:
     from futuresdr_tpu_torch.ops import stages as st
     from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel, kernel_block
     spans, undo = _Spans(), []
+    spans.workers = True
 
     def patch(owner, name, new):
         undo.append((owner, name, getattr(owner, name)))
@@ -300,9 +342,8 @@ def split_route(stages, frame: int, dev, k: int) -> dict:
     patch(st.Pipeline, "fn", lambda self, _f=st.Pipeline.fn:
           spans.wrap(_f(self), "stages' host calls"))
     try:
-        kw = {"frames_per_dispatch": k} if k > 1 else {}
         kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
-                         frames_in_flight=IN_FLIGHT, **kw)
+                         frames_in_flight=IN_FLIGHT, **_kernel_kw(k, wire))
         snk = NullSink(kern.pipeline.out_dtype)
         fg = Flowgraph()
         fg.connect(NullSource(np.complex64), Head(np.complex64, FRAMES * frame), kern, snk)
@@ -324,33 +365,40 @@ def split_route(stages, frame: int, dev, k: int) -> dict:
             "buckets": per}
 
 
-def split(card: str, dev, ks, runs: int) -> None:
-    """The split of a streamed frame of the spectrum chain (fused and pallas
-    routes, 2^18), median of ``runs`` runs per bucket, beside an
-    uninstrumented run's wall per frame."""
+def split(card: str, dev, ks, runs: int, wires=("f32",), routes=("fused", "pallas")) -> None:
+    """The split of a streamed frame of the spectrum chain (the fused and
+    pallas routes, 2^18) on each wire, median of ``runs`` runs per bucket,
+    beside an uninstrumented run's wall per frame."""
     import statistics
 
     import futuresdr_tpu_torch
     from futuresdr_tpu_torch.dsp import firdes
     root = Path(futuresdr_tpu_torch.__file__).resolve().parents[1]
     taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
-    for route in ("fused", "pallas"):
-        for k in ks:
-            plain = []
-            for _ in range(runs):
-                r = profile_route(_stages(route, taps), FRAME, dev, k=k, profiled=False)
-                plain.append(r["wall_us"] / FRAMES)
-            got = [split_route(_stages(route, taps), FRAME, dev, k) for _ in range(runs)]
-            med = {b: statistics.median(g["buckets"].get(b, 0.0) for g in got)
-                   for b in sorted({b for g in got for b in g["buckets"]})}
-            label = f"split {route} frame={FRAME} K={k}"
-            print(f"{label} ({root}): run wall {statistics.median(plain):.1f} us/frame "
-                  f"uninstrumented, {statistics.median(g['run_us'] for g in got):.1f} "
-                  f"instrumented, streaming window "
-                  f"{statistics.median(g['window_us'] for g in got):.1f} (median of {runs}) "
-                  f"[{card}]")
-            for b, us in sorted(med.items(), key=lambda kv: -kv[1]):
-                print(f"  {us:9.1f} us/frame  {b}")
+    for route in routes:
+        for wire in wires:
+            for k in ks:
+                _split_one(card, dev, root, route, wire, k, runs, taps)
+
+
+def _split_one(card, dev, root, route, wire, k, runs, taps) -> None:
+    """One route, wire and K of :func:`split`."""
+    import statistics
+    plain = []
+    for _ in range(runs):
+        r = profile_route(_stages(route, taps), FRAME, dev, k=k, profiled=False, wire=wire)
+        plain.append(r["wall_us"] / FRAMES)
+    got = [split_route(_stages(route, taps), FRAME, dev, k, wire) for _ in range(runs)]
+    med = {b: statistics.median(g["buckets"].get(b, 0.0) for g in got)
+           for b in sorted({b for g in got for b in g["buckets"]})}
+    label = f"split {route} frame={FRAME} K={k} wire={wire}"
+    print(f"{label} ({root}): run wall {statistics.median(plain):.1f} us/frame "
+          f"uninstrumented, {statistics.median(g['run_us'] for g in got):.1f} "
+          f"instrumented, streaming window "
+          f"{statistics.median(g['window_us'] for g in got):.1f} (median of {runs}) "
+          f"[{card}]")
+    for b, us in sorted(med.items(), key=lambda kv: -kv[1]):
+        print(f"  {us:9.1f} us/frame  {b}")
 
 
 def _chip_smoke():
@@ -561,6 +609,8 @@ def main() -> int:
     ap.add_argument("--k", default="1", help="frames a dispatch, a comma list")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--wires", default="f32", help="--split: wire formats, a comma list")
+    ap.add_argument("--routes", default="fused,pallas", help="--split: routes, a comma list")
     args = ap.parse_args()
     ks = [int(k) for k in args.k.split(",")]
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -580,7 +630,7 @@ def main() -> int:
     if not _takes_k():
         ks = [1]                # a package without megabatch K
     if args.split:
-        split(card, dev, ks, args.runs)
+        split(card, dev, ks, args.runs, args.wires.split(","), args.routes.split(","))
         return 0
     if args.resident:
         resident(card, dev, ks)

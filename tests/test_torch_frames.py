@@ -326,11 +326,15 @@ def test_concat_merge_emits_full_frames_only():
 
 
 def test_wire_formats_wait_for_the_host_data_path():
-    for make in (lambda: TpuH2D(np.float32, 1024, inst=CPU, wire="sc16"),
-                 lambda: TpuD2H(np.float32, inst=CPU, wire="bf16")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            make()
-    TpuH2D(np.float32, 1024, inst=CPU, wire="f32")
+    """The host data path is in: both blocks take every wire format (None
+    and ``auto`` resolve to f32 on the CPU), and an unknown one raises."""
+    for name in ("f32", "bf16", "sc16", "sc8"):
+        assert TpuH2D(np.float32, 1024, inst=CPU, wire=name).wire.name == name
+        assert TpuD2H(np.float32, inst=CPU, wire=name).wire.name == name
+    assert TpuH2D(np.float32, 1024, inst=CPU).wire.name == "f32"
+    assert TpuD2H(np.float32, inst=CPU, wire="auto").wire.name == "f32"
+    with pytest.raises(KeyError, match="unknown wire format"):
+        TpuH2D(np.float32, 1024, inst=CPU, wire="sc12")
 
 
 def test_xfer_byte_tally_counts_each_direction():

@@ -807,9 +807,11 @@ def test_megabatch_streams_equal_one_frame_dispatch_on_card(cuda_device, name):
     out = {}
     for k in (1, 4):
         hits = arena().hits
+        # the f32 wire: K = 4 against K = 1 at the kernels' limit (the card's
+        # default wire, sc16, rounds each output to its frame's scale)
         kern = TpuKernel(_chain(name)[0], np.complex64, frame_size=frame,
                          inst=TpuInstance(cuda_device), frames_in_flight=3,
-                         frames_per_dispatch=k)
+                         frames_per_dispatch=k, wire="f32")
         fg = Flowgraph()
         snk = VectorSink(kern.pipeline.out_dtype)
         fg.connect(VectorSource(host), kern, snk)
@@ -992,10 +994,10 @@ def test_fused_frame_plane_equals_per_hop_on_card(cuda_device):
             os.environ["FSDR_NO_DEVCHAIN"] = "1"
         try:
             fg = Flowgraph()
-            h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst)
+            h2d = TpuH2D(np.complex64, frame_size=frame, inst=inst, wire="f32")
             sts = [TpuStage([s], np.complex64, inst=inst) for s in
                    (T.fir_stage(t1, impl="pallas"), T.fft_stage(2048), T.mag2_stage())]
-            d2h, snk = TpuD2H(np.float32, inst=inst), VectorSink(np.float32)
+            d2h, snk = TpuD2H(np.float32, inst=inst, wire="f32"), VectorSink(np.float32)
             fg.connect(VectorSource(host), h2d, *sts, d2h, snk)
             assert len(find_device_chains(fg)) == int(fused)
             Runtime().run(fg)
@@ -1043,3 +1045,142 @@ def test_captures_never_take_a_transfer_stream_on_card(cuda_device):
         th.join()
     torch.cuda.synchronize()
     assert not errors, errors
+
+
+# ---------------------------------------------------------------------------
+# the wires and the uplink plane
+# ---------------------------------------------------------------------------
+
+WIRES = ["f32", "bf16", "sc16", "sc8"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WIRES)
+def test_wire_codecs_equal_their_host_twin_on_card(cuda_device, name):
+    """The device decode and encode, eager and inside a captured K = 4
+    program (each frame its own peak), against the host codec bit for bit
+    (bf16: every finite value; a NaN's bits are the device's)."""
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.ops.wire import get_wire
+    w = get_wire(name)
+    rng = np.random.default_rng(120)
+    x = _c64(rng, 1 << 16)
+    x[[3, 70]] = [np.nan, np.inf]
+    parts = w.encode_host(x)
+    dev_parts = tuple(torch.from_numpy(np.array(p)).to(cuda_device)
+                      for p in parts)
+    got = w.decode_torch(dev_parts, np.complex64).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  w.decode_host(parts, np.complex64).view(np.uint32))
+    enc = w.encode_torch(torch.from_numpy(x).to(cuda_device))
+    keep = np.isfinite(x.view(np.float32)).reshape(-1, 2)
+    for e, h in zip(enc, parts):
+        e, h = e.cpu().numpy(), np.asarray(h)
+        if name == "bf16":
+            np.testing.assert_array_equal(e[keep], h[keep])
+        else:
+            np.testing.assert_array_equal(e.reshape(-1).view(np.uint8),
+                                          np.ascontiguousarray(h).reshape(-1).view(np.uint8))
+    xs = [_c64(rng, 4096) * np.float32(10.0 ** -i) for i in range(4)]
+    enc = [w.encode_host(v) for v in xs]
+    stacked = tuple(torch.from_numpy(np.stack([np.asarray(e[j]) for e in enc])).to(cuda_device)
+                    for j in range(len(enc[0])))
+    fn, carry = T.Pipeline([T.apply_stage(lambda v: v.clone())], np.complex64).compile(
+        4096, cuda_device, k=4, wire=w)
+    _, y = fn(carry, stacked)
+    for i, e in enumerate(enc):
+        again = w.encode_host(w.decode_host(e, np.complex64))
+        for a, h in zip(y, again):
+            np.testing.assert_array_equal(a[i].cpu().numpy(), np.asarray(h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_packed_uplink_one_start_and_bit_equal_on_card(cuda_device, k):
+    """sc16 streamed with coalescing on and off: the same output bit for bit,
+    one H2D start a group packed, two per part."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.ops import xfer
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    host = _c64(np.random.default_rng(121), 8 * 4096)
+    out, starts = {}, {}
+    saved = config().tpu_coalesce
+    try:
+        for coalesce in (True, False):
+            config().tpu_coalesce = coalesce
+            kern = TpuKernel([T.fir_stage(np.hanning(33).astype(np.float32), impl="pallas"),
+                              T.mag2_stage()], np.complex64, frame_size=4096,
+                             inst=TpuInstance(cuda_device), frames_in_flight=2,
+                             frames_per_dispatch=k, wire="sc16")
+            fg = Flowgraph()
+            snk = VectorSink(np.float32)
+            fg.connect(VectorSource(host), kern, snk)
+            xfer.reset_bytes()
+            Runtime().run(fg)
+            out[coalesce], starts[coalesce] = snk.items(), xfer.starts_total["h2d"]
+    finally:
+        config().tpu_coalesce = saved
+    np.testing.assert_array_equal(out[True], out[False])
+    assert starts == {True: 8 // k, False: 2 * 8 // k}
+
+
+@pytest.mark.gpu
+def test_zero_copy_ingest_page_locks_on_card(cuda_device):
+    """A registered buffer is page-locked on a card and its frames ship
+    without the ring-exit copy, bit-equal to the copying path; unregister
+    unlocks it."""
+    from futuresdr_tpu_torch import Mocker
+    from futuresdr_tpu_torch.ops import ingest
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    data = _c64(np.random.default_rng(122), 6 * 4096)
+
+    def drive():
+        kern = TpuKernel([T.mag2_stage()], np.complex64, frame_size=4096,
+                         inst=TpuInstance(cuda_device), frames_in_flight=2, wire="f32")
+        m = Mocker(kern)
+        m.input("in", data)
+        m.init_output("out", len(data))
+        m.init()
+        m.run()
+        return m.output("out").copy(), kern.extra_metrics()["ingest_zero_copy_frac"]
+
+    want, frac0 = drive()
+    h = ingest.register(data)
+    try:
+        assert h.page_locked
+        got, frac = drive()
+    finally:
+        ingest.unregister(h)
+    assert (frac0, frac) == (0.0, 1.0)
+    assert not h.page_locked and h.refcount == 0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_wire_switch_back_captures_nothing_on_card(cuda_device):
+    """f32 -> sc8 -> f32 between runs of one kernel: two programs, sharing
+    the carry buffers; the way back takes the first with no capture."""
+    from futuresdr_tpu_torch import Mocker
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    data = _c64(np.random.default_rng(123), 4 * 4096)
+    kern = TpuKernel([T.fir_stage(np.hanning(33).astype(np.float32), impl="pallas")],
+                     np.complex64, frame_size=4096, inst=TpuInstance(cuda_device),
+                     frames_in_flight=2, wire="f32")
+    m = Mocker(kern)
+    m.init_output("out", 3 * len(data))
+    m.init()
+    first = kern._fn
+    for nxt in ("sc8", "f32", None):
+        m.input("in", data)
+        m.run()
+        if nxt:
+            kern.apply_wire_retune(nxt)
+    assert [w for _, w in kern.wire_history] == ["f32", "sc8", "f32"]
+    assert kern._fn is first and first.captures == 1 and len(kern._programs) == 2
+    (sc8,) = [fn for key, fn in kern._programs.items() if key[0] == "sc8"]
+    assert sc8.carry is first.carry

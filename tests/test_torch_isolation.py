@@ -161,3 +161,34 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_uplink_modules_load_alone():
+    """The uplink plane's modules are the port's own: importing them and
+    streaming sc16 through a kernel loads neither JAX, nor the JAX package,
+    nor ``ml_dtypes`` (the card's machine has none; the port's bfloat16
+    payload is its own bits)."""
+    mods = _submodules()
+    for m in ("ops.wire", "ops.codec_pool", "ops.ingest", "runtime.faults"):
+        assert f"futuresdr_tpu_torch.{m}" in mods
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "from futuresdr_tpu_torch.ops import wire, codec_pool, ingest, xfer, arena\n"
+            "from futuresdr_tpu_torch.runtime import faults\n"
+            "from futuresdr_tpu_torch import Flowgraph, Runtime\n"
+            "from futuresdr_tpu_torch.blocks import VectorSink, VectorSource\n"
+            "from futuresdr_tpu_torch.ops import mag2_stage\n"
+            "from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel\n"
+            "x = np.ones(4096, np.complex64)\n"
+            "fg = Flowgraph(); snk = VectorSink(np.float32)\n"
+            "fg.connect(VectorSource(x), TpuKernel([mag2_stage()], np.complex64, 1024,\n"
+            "           inst=TpuInstance('cpu'), wire='bf16'), snk)\n"
+            "Runtime().run(fg)\n"
+            "assert len(snk.items()) == 4096\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'futuresdr_tpu', 'ml_dtypes')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
