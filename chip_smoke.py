@@ -167,6 +167,30 @@ sc16, which the apps' phases 19-20 keep):
     exhausted budget failing with ``TransferError``; (h) each wire's streamed
     rate at K = 1 and 4 with its measured codec SNR.
 
+Recovery on the streamed path (``runtime/block.py`` ``BlockPolicy``,
+``tpu/kernel_block.py``'s carry checkpoint and replay, ``runtime/devchain.py``
+fused restarts):
+
+26. (a) the spectrum chain streamed at 2^18 on the ``fused`` (``fir_fft``)
+    and ``pallas`` (``fir``) routes and the FM kernel chain at 512,000, each
+    at K = 1 and 4 under ``restart`` with ``checkpoint_every`` 1 and 8, with
+    a non-transient ``dispatch`` fault, an ``h2d`` fault, and a ``carry``
+    fault corrupting the newest checkpoint followed by a ``dispatch`` fault
+    (the source held between segments so the two land in that order), each
+    mid-stream: the output equals the fault-free run bit for bit, with a
+    restart, frames replayed, the corrupted candidate rejected and no new
+    capture; (b) phase 22's three-``TpuStage`` region and phase 23's
+    fan-out, each with a ``restart`` member, fused, a bare ``dispatch``
+    fault: bit-equal to the fault-free fused run; (c) cadence 0 under
+    ``restart``: the window is forfeited, counted, and the run completes;
+    (d) ``checkpoint_dir`` across two processes of this script
+    (``--ckpt-part 1|2``): the second restores from the first's file, the
+    outputs together bit-equal to one run, and a corrupted file rejected;
+    (e) ``isolate``: a failing FM branch retires and the independent
+    spectrum branch equals its solo run; (f) the streamed rate at K = 1 and
+    4 with cadence 0, 1 and 8 and no fault, the arena's peak pinned bytes,
+    and the time from ``recover()`` to the first replayed output.
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -3041,6 +3065,466 @@ def phase_wires(dev, taps) -> dict:
     return {"streamed": streamed, "switch": switch, "faults": flt, "rates": rates}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: recovery on the streamed path
+# ---------------------------------------------------------------------------
+
+REC_CHAINS = ("spectrum fused", "spectrum pallas", "fm kernel")
+REC_K = (1, 4)
+REC_CADENCE = (1, 8)
+REC_GROUPS = 2 * max(REC_CADENCE) + 1   # dispatch groups a run, and a partial frame
+REC_FAULTS = ("dispatch", "h2d", "carry")
+REC_RATE_FRAMES = 64        # frames of each rate run (NullSource -> Head)
+REC_DISK_FRAMES = 10        # frames across the two processes of (d)
+REC_DISK_CUT = 6            # of which the first process streams these
+
+
+def _rec_stages(chain, taps):
+    """``(stages, frame, kernels)`` of a chain of phase 26."""
+    if chain.startswith("spectrum "):
+        route = chain.split()[1]
+        return chain_stages(route, taps), FRAMES[0], (ROUTE_KERNEL[route],)
+    return fm_stages("kernel"), FM_FRAMES[0], FM_KERNELS
+
+
+def _rec_input(chain, n, dev):
+    """The chain's input (FM IQ, or complex noise), made on the card."""
+    import torch
+    if chain.startswith("fm "):
+        return fm_iq(n, dev).cpu().numpy()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 260)
+    return randc(n, gen, dev).cpu().numpy()
+
+
+def _seed_firing_at(site: str, rate: float, n: int) -> int:
+    """A seed whose injector at ``site`` (``runtime/faults.py``: its own
+    ``random.Random(f"{seed}:{site}")``) fires first at draw ``n``."""
+    import random
+    for seed in range(100_000):
+        rng = random.Random(f"{seed}:{site}")
+        first = next(i for i in range(1, 10_000) if rng.random() < rate)
+        if first == n:
+            return seed
+    raise SmokeError(f"no seed fires {site} first at draw {n}")
+
+
+def _rec_kernel(chain, taps, dev, k, ck, restart=True):
+    from futuresdr_tpu_torch import BlockPolicy
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    stages, frame, _ = _rec_stages(chain, taps)
+    kern = TpuKernel(stages, np.complex64, frame_size=frame, inst=TpuInstance(dev),
+                     frames_in_flight=IN_FLIGHT, frames_per_dispatch=k, wire=LINK,
+                     checkpoint_every=ck)
+    if restart:
+        kern.policy = BlockPolicy(on_error="restart", max_restarts=4, backoff=0.0)
+    return kern
+
+
+def _wait_for(cond, what: str, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"recovery: {what} never came")
+        time.sleep(0.001)
+
+
+def _rec_run(chain, taps, dev, host, k, ck, fault):
+    """``host`` through ``gated source -> TpuKernel(restart, cadence ck) ->
+    VectorSink`` with ``fault`` armed mid-stream (non-transient): dispatch
+    and h2d fire at the dispatch group ck + 2; carry corrupts the commit of
+    group 2·ck - 1 (the source holds after ck and 2·ck groups), then a
+    dispatch fault hits group 2·ck, so that the restore must reject the
+    corrupted newest checkpoint and take the one before. Returns (output,
+    kernel, restarts, seconds from the fault's recovery to the first
+    replayed output)."""
+    import threading
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink
+    from futuresdr_tpu_torch.runtime import faults
+    kern = _rec_kernel(chain, taps, dev, k, ck)
+    group = k * kern.frame_size
+    gates = [(ck * group, threading.Event()), (2 * ck * group, threading.Event())] \
+        if fault == "carry" else []
+    fg = Flowgraph()
+    snk = VectorSink(kern.pipeline.out_dtype)
+    fg.connect(_gated_source(host, gates), kern, snk)
+    name = fg.wrapped(kern).instance_name
+    t = {}
+    recover = kern.recover
+
+    async def timed_recover(err):
+        t["fault"] = time.perf_counter()
+        return await recover(err)
+
+    kern.recover = timed_recover
+    drain = kern._drain_one
+
+    def timed_drain():
+        d = kern._inflight[0]
+        drain()
+        if "fault" in t and "first" not in t and not d.drop:
+            t["first"] = time.perf_counter()
+
+    kern._drain_one = timed_drain
+    plan = faults.reset()
+    if fault in ("dispatch", "h2d"):
+        site = f"dispatch:{name}" if fault == "dispatch" else "h2d"
+        plan.arm(site, rate=0.3, seed=_seed_firing_at(site, 0.3, ck + 3), max_faults=1,
+                 transient=False)
+    rt = Runtime()
+    try:
+        running = rt.start(fg)
+        if fault == "carry":
+            # arm once the first segment's checkpoint committed: the next
+            # commit (group 2·ck - 1) is the one corrupted
+            _wait_for(lambda: kern._ckpts and kern._ckpts[-1][0] == ck - 1,
+                      "the first segment's checkpoint")
+            carry = plan.arm("carry", rate=1.0, max_faults=1)
+            gates[0][1].set()
+            _wait_for(lambda: kern._ckpts[-1][0] == 2 * ck - 1,
+                      "the second segment's checkpoint")
+            check(carry.fired == 1,
+                  f"recovery {chain}: the carry fault did not corrupt the newest commit")
+            plan.arm(f"dispatch:{name}", rate=1.0, max_faults=1, transient=False)
+            gates[1][1].set()
+        running.wait_sync(timeout=300)
+    finally:
+        faults.reset()
+        rt.shutdown()
+    return snk.items(), kern, fg.wrapped(kern).restarts, \
+        t.get("first", float("nan")) - t.get("fault", float("nan"))
+
+
+def phase_recovery_restart(dev, taps) -> dict:
+    """(a) Each chain at K = 1 and 4 under ``restart`` at cadence 1 and 8,
+    each fault of REC_FAULTS mid-stream: the output equals the fault-free
+    run bit for bit, with a restart, frames replayed and the program
+    captured once; the carry case rejected its corrupted candidate. Returns
+    the time from the recovery to the first replayed output per case."""
+    import torch
+    to_first = {}
+    for chain in REC_CHAINS:
+        for k in REC_K:
+            _, frame, _ = _rec_stages(chain, taps)
+            host = _rec_input(chain, REC_GROUPS * k * frame + frame // 3, dev)
+            ref_kern = _rec_kernel(chain, taps, dev, k, None, restart=False)
+            want = _run_vector(ref_kern, host)
+            check(ref_kern.extra_metrics()["checkpoint_every"] == 0,
+                  "recovery: a fail-fast kernel took checkpoints")
+            check(bool(np.isfinite(want).all()) and len(want) > 0,
+                  f"recovery {chain}: the fault-free output is empty or not finite")
+            for ck in REC_CADENCE:
+                for fault in REC_FAULTS:
+                    got, kern, restarts, dt = _rec_run(chain, taps, dev, host, k, ck, fault)
+                    label = f"recovery {chain} K={k} cadence {ck} {fault}"
+                    check(restarts >= 1, f"{label}: no restart")
+                    check(kern.frames_replayed > 0, f"{label}: nothing replayed")
+                    check(kern._fn.captures == 1 and len(kern._programs) == 1,
+                          f"{label}: the recovery captured again "
+                          f"({kern._fn.captures} captures)")
+                    if fault == "carry":
+                        check(kern.checkpoints_rejected >= 1,
+                              f"{label}: the corrupted checkpoint was not rejected")
+                    check(len(got) == len(want) and np.array_equal(got, want),
+                          f"{label}: the recovered output differs from the fault-free run")
+                    to_first[(chain, k, ck, fault)] = dt
+                    print(f"{label}: bit-equal to the fault-free run, {restarts} restart(s), "
+                          f"{kern.frames_replayed} frames replayed, "
+                          f"{kern.checkpoints_rejected} checkpoint(s) rejected, 1 capture; "
+                          f"recovery to first replayed output {dt * 1e3:.3f} ms")
+            del host, want
+            torch.cuda.empty_cache()
+    return to_first
+
+
+def phase_recovery_devchain(dev, taps) -> None:
+    """(b) Phase 22's frame-plane region (three TpuStages) and phase 23's
+    fan-out, each with a ``restart`` member, fused, a bare dispatch fault
+    mid-stream: bit-equal to the fault-free fused run."""
+    from futuresdr_tpu_torch import BlockPolicy, Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops.stages import (fft_stage, fir_stage, mag2_stage,
+                                                resample_stage)
+    from futuresdr_tpu_torch.runtime import faults
+    from futuresdr_tpu_torch.tpu import TpuD2H, TpuH2D, TpuInstance, TpuKernel, TpuStage
+    inst = TpuInstance(dev)
+    policy = BlockPolicy(on_error="restart", max_restarts=4, backoff=0.0)
+
+    def linear(host):
+        fg = Flowgraph()
+        h2d = TpuH2D(np.complex64, frame_size=FRAMES[0], inst=inst, max_inflight=IN_FLIGHT,
+                     wire=LINK)
+        sts = [TpuStage([s], np.complex64, inst=inst) for s in
+               (fir_stage(taps, impl="pallas"), fft_stage(N_FFT), mag2_stage())]
+        sts[1].policy = policy
+        snk = VectorSink(np.float32)
+        fg.connect(VectorSource(host), h2d, *sts, TpuD2H(np.float32, inst=inst, wire=LINK),
+                   snk)
+        return fg, sts[1], [snk]
+
+    def fanout(host):
+        fg = Flowgraph()
+        frame = FM_FRAMES[0]
+        prod = TpuKernel(fm_stages("kernel")[:3], np.complex64, frame_size=frame,
+                         inst=inst, frames_in_flight=IN_FLIGHT, wire=LINK)
+        prod.policy = policy
+        audio = TpuKernel([resample_stage(24, 125, impl="pallas")], np.float32,
+                          frame_size=frame // 4, inst=inst, frames_in_flight=IN_FLIGHT,
+                          wire=LINK)
+        level = TpuKernel([mag2_stage()], np.float32, frame_size=frame // 4, inst=inst,
+                          frames_in_flight=IN_FLIGHT, wire=LINK)
+        sinks = [VectorSink(np.float32), VectorSink(np.float32)]
+        fg.connect(VectorSource(host), prod)
+        fg.connect_stream(prod, "out", audio, "in")
+        fg.connect_stream(prod, "out", level, "in")
+        fg.connect(audio, sinks[0])
+        fg.connect(level, sinks[1])
+        return fg, prod, sinks
+
+    for label, build, chain in (("spectrum frame plane", linear, "spectrum pallas"),
+                                ("fm fan-out", fanout, "fm kernel")):
+        _, frame, _ = _rec_stages(chain, taps)
+        host = _rec_input(chain, 12 * frame + frame // 3, dev)
+        outs = {}
+        for fault in (False, True):
+            fg, member, sinks = build(host)
+            plan = faults.reset()
+            if fault:
+                plan.arm("dispatch", rate=0.3, seed=_seed_firing_at("dispatch", 0.3, 6),
+                         max_faults=1, transient=False)
+            rt = Runtime()
+            try:
+                rt.run(fg, timeout=300)
+            finally:
+                faults.reset()
+                rt.shutdown()
+            wk = fg.wrapped(member)
+            check(wk.metrics().get("fused_devchain") is True,
+                  f"recovery {label}: the region with a restart member did not fuse")
+            check(wk.restarts == (1 if fault else 0),
+                  f"recovery {label}: {wk.restarts} restarts")
+            outs[fault] = [s.items() for s in sinks]
+        for got, want in zip(outs[True], outs[False]):
+            check(len(got) == len(want) and np.array_equal(got, want),
+                  f"recovery {label}: the fused recovery differs from the fault-free run")
+        print(f"recovery {label}: fused with a restart member, a dispatch fault at group 5 "
+              f"recovered bit-equal to the fault-free run on every sink")
+
+
+def phase_recovery_forfeit(dev, taps) -> None:
+    """(c) Cadence 0 under ``restart``: the recovery declines, the fresh init
+    forfeits the in-flight window (counted) and the run completes."""
+    chain, k = "spectrum fused", 1
+    _, frame, _ = _rec_stages(chain, taps)
+    host = _rec_input(chain, REC_GROUPS * frame, dev)
+    want = _run_vector(_rec_kernel(chain, taps, dev, k, None, restart=False), host)
+    got, kern, restarts, _ = _rec_run(chain, taps, dev, host, k, 0, "dispatch")
+    check(restarts == 1 and kern.frames_replayed == 0 and kern.frames_forfeited > 0,
+          f"checkpoint off: {restarts} restarts, {kern.frames_replayed} replayed, "
+          f"{kern.frames_forfeited} forfeited")
+    check(kern.extra_metrics()["fsdr_frames_forfeited_total"] == kern.frames_forfeited,
+          "checkpoint off: the forfeited frames are not in the metrics")
+    check(0 < len(got) < len(want), f"checkpoint off: {len(got)} items of {len(want)}")
+    print(f"recovery checkpoint off: the restart forfeited {kern.frames_forfeited} frames "
+          f"(counted), {len(got)} of {len(want)} items out, the run completed")
+
+
+def _disk_kernel(taps, dev):
+    kern = _rec_kernel("spectrum fused", taps, dev, 1, 1, restart=False)
+    kern.meta.instance_name = "rx_chain"
+    return kern
+
+
+def _disk_input(dev):
+    f = FRAMES[0]
+    return _rec_input("spectrum fused", REC_DISK_FRAMES * f, dev), f
+
+
+def _mock(kern, parts):
+    """``parts`` (arrays, or None for a recover()) through a Mocker."""
+    import asyncio
+
+    from futuresdr_tpu_torch import Mocker
+    m = Mocker(kern)
+    m.init_output("out", REC_DISK_FRAMES * kern.frame_size)
+    m.init()
+    for p in parts:
+        if p is None:
+            check(asyncio.run(kern.recover(RuntimeError("process restart"))),
+                  "checkpoint_dir: recover() declined")
+        else:
+            m.input("in", p)
+            m.run()
+    return m.output("out").copy()
+
+
+def ckpt_process(part: int, ckpt_dir: str) -> int:
+    """One process of (d): part 1 streams the first REC_DISK_CUT frames with
+    ``checkpoint_dir`` set and waits for the write; part 2, a new kernel with
+    nothing of its own, restores from the file and streams the rest. Each
+    saves its output beside the checkpoint."""
+    import os
+
+    import torch
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.utils import snapshot
+    dev = torch.device(DEVICE)
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    config().checkpoint_dir = ckpt_dir
+    host, f = _disk_input(dev)
+    kern = _disk_kernel(taps, dev)
+    cut = REC_DISK_CUT * f
+    parts = [host[:cut]] if part == 1 else [None, host[cut:]]
+    out = _mock(kern, parts)
+    snapshot.persist_executor().submit(lambda: None).result()
+    np.save(os.path.join(ckpt_dir, f"out{part}.npy"), out)
+    return 0
+
+
+def phase_recovery_disk(dev, taps) -> None:
+    """(d) ``checkpoint_dir`` across two processes: the second restores from
+    the first's file and the two outputs make the uninterrupted run, bit for
+    bit; a corrupted file is rejected (the restore falls back to the fresh
+    carry)."""
+    import asyncio
+    import os
+    import tempfile
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops.stages import _leaves
+    host, f = _disk_input(dev)
+    want = _mock(_disk_kernel(taps, dev), [host])
+    with tempfile.TemporaryDirectory(dir=str(_build_dir().parent)) as d:
+        for part in (1, 2):
+            res = subprocess.run([sys.executable, __file__, "--ckpt-part", str(part),
+                                  "--ckpt-dir", d], capture_output=True, text=True,
+                                 timeout=300)
+            check(res.returncode == 0, f"checkpoint_dir: process {part} failed: "
+                                       f"{res.stderr[-2000:]}")
+        got = np.concatenate([np.load(os.path.join(d, "out1.npy")),
+                              np.load(os.path.join(d, "out2.npy"))])
+        check(len(got) == len(want) and np.array_equal(got, want),
+              "checkpoint_dir: the two processes' output differs from the uninterrupted run")
+        old = config().checkpoint_dir
+        config().checkpoint_dir = d
+        try:
+            kern = _disk_kernel(taps, dev)
+            path = kern._ckpt_file()
+            raw = bytearray(open(path, "rb").read())
+            raw[len(raw) // 2] ^= 0xFF
+            open(path, "wb").write(bytes(raw))
+            asyncio.run(kern.init(kern.mio, kern.meta))
+            check(kern._load_disk_ckpt() is None, "checkpoint_dir: a corrupted file loaded")
+            check(asyncio.run(kern.recover(RuntimeError("restart"))),
+                  "checkpoint_dir: recover() declined after a corrupted file")
+            fresh = kern.pipeline.init_carry(dev)
+            check(all(bool((a == b).all()) for a, b in
+                       zip(_leaves(kern._carry), _leaves(fresh))),
+                  "checkpoint_dir: the corrupted file's carry was restored")
+        finally:
+            config().checkpoint_dir = old
+    print(f"recovery checkpoint_dir: a second process restored the first's checkpoint "
+          f"after {REC_DISK_CUT} frames, the outputs together bit-equal to one run of "
+          f"{REC_DISK_FRAMES} frames; a corrupted file was rejected")
+
+
+def _build_dir():
+    from futuresdr_tpu_torch.ops import _build
+    return _build.BUILD_DIR
+
+
+def phase_recovery_isolate(dev, taps) -> None:
+    """(e) Two independent branches, the FM one ``isolate`` with a work fault:
+    it retires, the run raises with the isolate decision, and the spectrum
+    branch's output equals its solo run bit for bit."""
+    from futuresdr_tpu_torch import BlockPolicy, Flowgraph, FlowgraphError, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.runtime import faults
+    n_frames = 8
+    spec = _rec_input("spectrum fused", n_frames * FRAMES[0], dev)
+    fm = _rec_input("fm kernel", n_frames * FM_FRAMES[0], dev)
+    solo = _run_vector(_rec_kernel("spectrum fused", taps, dev, 1, None, restart=False),
+                       spec)
+    fg = Flowgraph()
+    snk_a = VectorSink(np.float32)
+    fg.connect(VectorSource(spec), _rec_kernel("spectrum fused", taps, dev, 1, None,
+                                               restart=False), snk_a)
+    bad = _rec_kernel("fm kernel", taps, dev, 1, None, restart=False)
+    bad.policy = BlockPolicy(on_error="isolate")
+    fg.connect(VectorSource(fm), bad, VectorSink(np.float32))
+    name = fg.wrapped(bad).instance_name
+    faults.reset().arm(f"work:{name}", rate=0.3,
+                       seed=_seed_firing_at(f"work:{name}", 0.3, 5), max_faults=1)
+    rt = Runtime()
+    err = None
+    try:
+        rt.run(fg, timeout=300)
+    except FlowgraphError as e:
+        err = e
+    finally:
+        faults.reset()
+        rt.shutdown()
+    check(err is not None and err.blocks == [name] and
+          [d["action"] for d in err.policy_decisions] == ["isolate"],
+          f"isolate: {err!r} {getattr(err, 'policy_decisions', None)}")
+    got = snk_a.items()
+    check(len(got) == len(solo) and np.array_equal(got, solo),
+          "isolate: the independent branch differs from its solo run")
+    print(f"recovery isolate: the FM branch retired on a work fault (decision "
+          f"{err.policy_decisions[0]['action']}), the spectrum branch bit-equal to its "
+          f"solo run ({len(got)} items)")
+
+
+def phase_recovery_rates(dev, taps) -> dict:
+    """(f) The spectrum fused chain streamed at 2^18, NullSource -> Head ->
+    TpuKernel -> NullSink, at K = 1 and 4 with cadence 0 (the default path),
+    1 and 8 (restart policy), no fault, the cadences in turns: median input
+    Msamples/s and the arena's peak pinned bytes."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    from futuresdr_tpu_torch.ops.arena import arena
+    frame = FRAMES[0]
+    n_items = REC_RATE_FRAMES * frame
+    runs, peaks = {}, {}
+    for _ in range(STREAM_RUNS):
+        for k in REC_K:
+            for ck in (0,) + REC_CADENCE:
+                kern = _rec_kernel("spectrum fused", taps, dev, k, ck or None,
+                                   restart=bool(ck))
+                fg = Flowgraph()
+                snk = NullSink(np.float32)
+                fg.connect(NullSource(np.complex64), Head(np.complex64, n_items), kern, snk)
+                ar = arena()
+                ar.peak_pinned_bytes = ar.pinned_bytes
+                rt = Runtime()
+                t0 = time.perf_counter()
+                rt.run(fg)
+                dt = time.perf_counter() - t0
+                rt.shutdown()
+                check(snk.n_received == n_items, f"recovery rate K={k} cadence {ck}: "
+                                                 f"{snk.n_received} items")
+                check(kern.extra_metrics()["checkpoint_every"] == ck,
+                      f"recovery rate: cadence {kern.extra_metrics()['checkpoint_every']}")
+                runs.setdefault((k, ck), []).append(dt)
+                peaks[(k, ck)] = max(peaks.get((k, ck), 0), ar.peak_pinned_bytes)
+    return {key: (n_items / statistics.median(v) / 1e6, peaks[key])
+            for key, v in runs.items()}
+
+
+def phase_recovery(dev, taps) -> dict:
+    """Phase 26, recovery: (a) restart replays, (b) fused regions, (c)
+    checkpoints off, (d) checkpoint_dir across processes, (e) isolate, (f)
+    rates and the arena's peak."""
+    to_first = phase_recovery_restart(dev, taps)
+    phase_recovery_devchain(dev, taps)
+    phase_recovery_forfeit(dev, taps)
+    phase_recovery_disk(dev, taps)
+    phase_recovery_isolate(dev, taps)
+    return {"to_first": to_first, "rates": phase_recovery_rates(dev, taps)}
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -3128,13 +3612,19 @@ def main(argv=None) -> int:
     parser.add_argument("--stress", type=int, default=0, metavar="N",
                         help="only run the spectrum and FM streamed phases N "
                              "times each, each run under a stall watchdog")
-    stress_runs = parser.parse_args(argv).stress
+    parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
+                        help=argparse.SUPPRESS)   # one process of phase 26 (d)
+    parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    stress_runs = args.stress
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a "
               "CUDA card", file=sys.stderr)
         return 2
+    if args.ckpt_part:
+        return ckpt_process(args.ckpt_part, args.ckpt_dir)
     from futuresdr_tpu_torch.dsp import firdes
     from futuresdr_tpu_torch.ops import _build
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -3234,6 +3724,10 @@ def main(argv=None) -> int:
     #     against the resident float32 chain with its link bytes, the frame
     #     plane, switches, zero-copy ingest, transfer faults, rates
     wires = path_phase("wires", ("fir_fft",) + FM_KERNELS, phase_wires, dev, taps)
+    # 26. recovery: restart replays bit for bit on every chain, K and cadence,
+    #     fused regions, checkpoints off, checkpoint_dir, isolate, rates
+    recovery = path_phase("recovery", SPECTRUM_KERNELS + FM_KERNELS, phase_recovery,
+                          dev, taps)
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -3315,6 +3809,13 @@ def main(argv=None) -> int:
         print(f"rate wire {name} spectrum fused streamed frame={FRAMES[0]} "
               f"in-flight={IN_FLIGHT} K={k} (median of {STREAM_RUNS}): {msps:.1f} input "
               f"Msamples/s, codec SNR {measure_snr_db(name):.1f} dB [{card_line}]")
+    for (k, ck), (msps, peak) in sorted(recovery["rates"].items()):
+        print(f"rate recovery spectrum fused streamed frame={FRAMES[0]} in-flight="
+              f"{IN_FLIGHT} K={k} checkpoint cadence {ck} (median of {STREAM_RUNS}): "
+              f"{msps:.1f} input Msamples/s, arena peak pinned {peak} B [{card_line}]")
+    for (chain, k, ck, fault), dt in recovery["to_first"].items():
+        print(f"recovery time {chain} K={k} cadence {ck} {fault}: {dt * 1e3:.3f} ms from "
+              f"recover() to the first replayed output [{card_line}]")
     print(f"rest: ctrl retune round trip {rest_retune['rtt_ms']:.3f} ms, "
           f"{rest_retune['frames']} frames from the POST to the first retuned frame; "
           f"handle ctrl call {message['call_ms']:.3f} ms, metrics "

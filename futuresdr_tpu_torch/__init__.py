@@ -15,8 +15,8 @@ import torch
 
 from .config import config
 from .log import logger
-from .runtime import (Flowgraph, FlowgraphError, Kernel, Mocker, Runtime,
-                      message_handler)
+from .runtime import (BlockPolicy, Flowgraph, FlowgraphCancelled, FlowgraphError,
+                      Kernel, Mocker, Runtime, message_handler)
 from .types import Pmt
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -24,6 +24,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "logger", "Flowgraph", "FlowgraphError", "Kernel", "Mocker",
+__all__ = ["config", "logger", "BlockPolicy", "Flowgraph", "FlowgraphCancelled",
+           "FlowgraphError", "Kernel", "Mocker",
            "Pmt", "Runtime", "message_handler", "blocks", "convert", "dsp", "hw", "ops",
            "runtime", "tpu", "types"]

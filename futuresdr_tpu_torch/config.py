@@ -5,8 +5,9 @@ A reduced copy of ``futuresdr_tpu/config.py``: defaults, then a
 env layer; its TOML layers are not carried over), parsed by the field's
 type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
 ``FUTURESDR_TPU_TPU_WIRE_FORMAT=sc8``, ``FUTURESDR_TPU_XFER_BACKOFF=0.001``,
-``FUTURESDR_TPU_CTRLPORT_ENABLE=true`` or
-``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``. A ``tpu_`` field also reads the
+``FUTURESDR_TPU_CTRLPORT_ENABLE=true``,
+``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0`` or
+``FUTURESDR_TPU_BLOCK_POLICY=restart``. A ``tpu_`` field also reads the
 reference's short form without the field's ``tpu_`` head, e.g.
 ``FUTURESDR_TPU_WIRE_FORMAT=sc16`` (the full name wins where both are set).
 """
@@ -86,6 +87,26 @@ class Config:
     #   exponential; the jitter never changes the retry count)
     xfer_deadline: float = 30.0            # a transfer's deadline, seconds (0 =
     #   none): retries stop once the next backoff would cross it
+    # failure handling (runtime/block.py BlockPolicy: a kernel's own
+    # ``policy`` attribute wins over these process defaults)
+    block_policy: str = "fail_fast"        # default on_error policy:
+    #   "fail_fast" | "restart" | "isolate"
+    block_max_restarts: int = 3            # restart budget a block
+    block_backoff: float = 0.05            # restart backoff base, seconds
+    #   (doubling a attempt, capped at BlockPolicy.backoff_cap)
+    block_isolate_groups: str = ""         # "block_name=group;other=group2":
+    #   a member's failure retires the whole named subgraph (blocks with no
+    #   policy of their own)
+    run_timeout: float = 0.0               # Runtime.run deadline, seconds (0 =
+    #   none): past it the run is cancelled and raises FlowgraphError
+    run_timeout_grace: float = 5.0         # seconds the cancelled run has to
+    #   wind down before the deadline path raises anyway
+    tpu_checkpoint_every: int = 1          # carry-checkpoint cadence of the
+    #   device kernels' recovery: a snapshot every Nth dispatch group, taken
+    #   only where a restart can read it (tpu/kernel_block.py); 0 = off
+    checkpoint_dir: str = ""               # persist each committed checkpoint
+    #   under this directory (utils/snapshot.py), so a new process's kernel
+    #   resumes from it; "" = off
 
     @classmethod
     def from_env(cls) -> "Config":

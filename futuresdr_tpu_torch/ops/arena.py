@@ -129,6 +129,7 @@ class StagingArena:
         self.hits = 0
         self.misses = 0
         self.pinned_bytes = 0         # checked out
+        self.peak_pinned_bytes = 0    # the most ever checked out at once
         self.pooled_bytes = 0         # idle in the pool
 
     def take(self, nbytes: int) -> ArenaBuffer:
@@ -153,6 +154,7 @@ class StagingArena:
             buf._event = None
         with self._lock:
             self.pinned_bytes += buf.nbytes
+            self.peak_pinned_bytes = max(self.peak_pinned_bytes, self.pinned_bytes)
         return buf
 
     def take_array(self, shape, dtype) -> Tuple[np.ndarray, ArenaBuffer]:
@@ -180,6 +182,7 @@ class StagingArena:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
                     "pinned_bytes": self.pinned_bytes,
+                    "peak_pinned_bytes": self.peak_pinned_bytes,
                     "pooled_bytes": self.pooled_bytes,
                     "classes": {1 << c: len(l) for c, l in sorted(self._free.items()) if l}}
 

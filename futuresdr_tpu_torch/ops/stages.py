@@ -304,6 +304,74 @@ class Pipeline:
             raise ValueError(f"{in_items} input items give a fractional output")
         return int(q)
 
+    # -- carry checkpoints (the device kernels' recovery) ----------------------
+    # The program is a function of (carry, frame) alone, so a snapshot of the
+    # carry after group N and a replay of groups N+1… from their host staging
+    # copies give the unfailed run's output bit for bit.
+
+    def snapshot_carry(self, carry):
+        """Start a host copy of ``carry``: ``(fetches, spec)``, one zero-arg
+        function a leaf giving its host array, and the carry's structure with
+        each leaf's shape and dtype. A card leaf is copied into pinned memory
+        on the current stream, now: after the work queued so far (the replay
+        that wrote it) and before any queued later, so the copy is the carry
+        of this point of the stream even though a later replay overwrites
+        the static buffer it was read from (``CompiledPipeline``); a fetch
+        waits for its copy's event. bfloat16 leaves travel as their int16
+        bits (numpy has no bfloat16)."""
+        fetches = []
+        for t in _leaves(carry):
+            t = t.detach()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            if t.device.type == "cuda":
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+
+                def fetch(host=host, done=done):
+                    done.synchronize()
+                    return host.numpy().copy()
+            else:
+                def fetch(v=t.clone().numpy()):
+                    return v
+            fetches.append(fetch)
+        return fetches, _carry_spec(carry)
+
+    def carry_spec(self, carry):
+        """``carry``'s structure with each leaf's shape and dtype (what
+        :meth:`snapshot_carry` returns beside the fetches)."""
+        return _carry_spec(carry)
+
+    def carry_matches(self, leaves, spec, template) -> bool:
+        """Does a snapshot (host ``leaves`` and the ``spec`` taken with them)
+        fit the live carry ``template``: the same structure, and each leaf's
+        shape and dtype? The restore's integrity check, which rejects a
+        corrupted candidate (the ``carry`` fault site)."""
+        if spec != _carry_spec(template):
+            return False
+        want = _leaves(template)
+        if len(leaves) != len(want):
+            return False
+        for a, t in zip(leaves, want):
+            a = np.asarray(a)
+            if a.shape != tuple(t.shape) or a.dtype != _host_dtype(t.dtype):
+                return False
+        return True
+
+    def restore_carry(self, leaves, spec, device):
+        """The carry of a snapshot as tensors on ``device`` (new tensors: a
+        compiled program copies them into its static buffers before its next
+        replay, ``CompiledPipeline._load``, with no new capture)."""
+        out = []
+        for a, (_shape, dt) in zip(leaves, _spec_leaves(spec)):
+            t = torch.from_numpy(np.array(a, copy=True))
+            if dt == str(torch.bfloat16):
+                t = t.view(torch.bfloat16)
+            out.append(t.to(device))
+        return _from_spec(spec, iter(out))
+
     def update_stage(self, carries, stage, _validate_only: bool = False, **params):
         """Apply a stage's ``update`` hook to its slot in ``carries`` (by
         post-merge index or stage ``name``); returns the new carries tuple.
@@ -436,6 +504,11 @@ class FanoutPipeline:
     compile = Pipeline.compile
     wired_fn = Pipeline.wired_fn
     update_stage = Pipeline.update_stage
+    # the flat carry (producer, then branches or nodes) checkpoints as one
+    snapshot_carry = Pipeline.snapshot_carry
+    carry_spec = Pipeline.carry_spec
+    carry_matches = Pipeline.carry_matches
+    restore_carry = Pipeline.restore_carry
 
 
 class DagPipeline:
@@ -604,6 +677,11 @@ class DagPipeline:
     compile = Pipeline.compile
     wired_fn = Pipeline.wired_fn
     update_stage = Pipeline.update_stage
+    # the flat carry (producer, then branches or nodes) checkpoints as one
+    snapshot_carry = Pipeline.snapshot_carry
+    carry_spec = Pipeline.carry_spec
+    carry_matches = Pipeline.carry_matches
+    restore_carry = Pipeline.restore_carry
 
 
 def _chain_k(run, k: int):
@@ -638,6 +716,39 @@ def _rebuild(tree, leaves):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_rebuild(sub, leaves) for sub in tree)
     return next(leaves)
+
+
+def _carry_spec(tree):
+    """``tree``'s structure with each leaf as ``(shape, dtype name)``."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(_carry_spec(sub) for sub in tree)
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def _is_spec_leaf(spec) -> bool:
+    return len(spec) == 2 and isinstance(spec[1], str)
+
+
+def _spec_leaves(spec) -> list:
+    """The ``(shape, dtype name)`` leaves of a :func:`_carry_spec`."""
+    if _is_spec_leaf(spec):
+        return [spec]
+    return [leaf for sub in spec for leaf in _spec_leaves(sub)]
+
+
+def _from_spec(spec, leaves):
+    """A carry of ``spec``'s structure, its leaves taken in order from
+    ``leaves`` (an iterator)."""
+    if _is_spec_leaf(spec):
+        return next(leaves)
+    return tuple(_from_spec(sub, leaves) for sub in spec)
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a snapshot holds a leaf of ``dtype`` in."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 def _clone(tree):

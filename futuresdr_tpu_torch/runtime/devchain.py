@@ -49,17 +49,26 @@ Refusals (the region stays on the per-hop path, logged at debug level):
   multiple, or a ``TpuD2H`` whose dtype is not the composed output's;
 * a stage block holding mid-stream state from an earlier run;
 * a per-kernel ``devchain = False``, or ``FSDR_NO_DEVCHAIN=1`` (everything
-  declines; a script can compare both modes in one process).
+  declines; a script can compare both modes in one process);
+* a member with an ``isolate`` policy, its own or a config
+  ``block_isolate_groups`` group (one member of a fused program cannot
+  retire alone); ``restart`` members fuse;
+* everything, while the process default ``block_policy`` is ``isolate``, or
+  a ``work`` fault site, or a block-addressed ``dispatch:<name>`` or
+  ``carry:<name>`` site is armed (the fused kernel polls the bare sites
+  under its own name, so such a campaign would go quiet).
 
 * ends whose wire formats differ: a frame-plane region's ``TpuH2D`` and
   each of its ``TpuD2H`` sinks, or any two ``TpuKernel`` members, must agree
   (the fused kernel runs the region on the first member's wire, and only its
   ends cross the link).
 
-The reference's other refusals wait for their parts of the port: a
-non-fail-fast failure policy and an armed fault plan (ROADMAP Queue 1 item
-4b; the port has fail-fast only). Its native CPU ``fastchain`` pass is item
-5's remainder.
+A fused region with a ``restart`` member restarts in place: the fused
+kernel checkpoints its composed carry (``_dc_restartable``), and on a work
+error the drive loop recovers it from the checkpoint and replays its groups
+bit for bit, or, where no checkpoint serves, re-inits it, out of that
+member's restart budget; each attempt is reported under the member's name.
+The reference's native CPU ``fastchain`` pass is ROADMAP item 5's remainder.
 
 A ``ctrl`` retune addressed to a fused member (``handle.call(member,
 "ctrl", …)``) becomes carry surgery on the fused pipeline between
@@ -82,6 +91,8 @@ from typing import List, Sequence
 import numpy as np
 
 from ..log import logger
+from . import faults as _faults
+from .block import fusion_degraded, policy_allows_fusion
 from .inbox import (Call, Callback, Initialize, StreamInputDone, StreamOutputDone,
                     Terminate)
 from .work_io import WorkIo
@@ -95,8 +106,16 @@ log = logger("runtime.devchain")
 def devchain_enabled() -> bool:
     """The pass's switch, read at every launch so a script can compare the
     fused and per-hop paths in one process: ``FSDR_NO_DEVCHAIN`` set to
-    anything turns it off."""
-    return not os.environ.get("FSDR_NO_DEVCHAIN")
+    anything turns it off, and so do an ``isolate`` process default and the
+    fault campaigns fused mode would quietly disarm (module docstring)."""
+    if os.environ.get("FSDR_NO_DEVCHAIN"):
+        return False
+    plan = _faults.plan()
+    if fusion_degraded(("work",), allow_restart=True) or \
+            plan.has_named_site("dispatch") or plan.has_named_site("carry"):
+        log.info("devchain: a failure policy or fault campaign declines fusion")
+        return False
+    return True
 
 
 class DevChain(list):
@@ -181,7 +200,12 @@ def find_device_chains(fg) -> List[DevChain]:
             return False
         # a wired ctrl means retunes synchronized to another block's stream;
         # the fused chain batches frames in flight, so it declines
-        return id(k) not in msg_touched or getattr(k, "devchain_static", False)
+        if id(k) in msg_touched and not getattr(k, "devchain_static", False):
+            return False
+        if not policy_allows_fusion(k, restartable=True):
+            log.debug("devchain refuses %s: isolate failure policy", k)
+            return False
+        return True
 
     claimed: set = set()
     chains: List[DevChain] = []
@@ -899,8 +923,9 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
     fused program compiles inside it, on a pool thread), the drive loop on
     a thread of its own against the region's boundary ports, then one
     ``BlockDone`` a member with the counters bridged. A fused kernel that
-    fails to build, compile or run ends the flowgraph with its error
-    (fail-fast)."""
+    fails to build or compile ends the flowgraph with its error; one that
+    fails to run restarts in place where a member has a ``restart`` policy
+    (out of that member's budget), else ends it too."""
     from ..types import Pmt
     from .runtime import BlockDoneMsg, BlockErrorMsg, InitializedMsg
 
@@ -925,8 +950,13 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
             if isinstance(msg, Callback):
                 msg.reply.set(Pmt.invalid_value())
     member_kernels = [b.kernel for b in members]
+    # the first member with a restart policy lends the fused kernel its
+    # budget, its backoff and its name in the restart decisions
+    pol_member = next((b for b in members if b.policy.on_error == "restart"), None)
     try:
         fused = _build_fused(chain)
+        # checkpoint the composed carry when the region can restart
+        fused._dc_restartable = pol_member is not None
         # compile off the supervisor's loop, as a blocking block's init runs
         await scheduler.spawn_blocking(
             lambda: asyncio.run(fused.init(fused.mio, fused.meta)))
@@ -985,6 +1015,26 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
         io = WorkIo()
         kernel = fused
 
+        async def _restart_fused(err):
+            """Recover the fused kernel after a work error, retrying out of
+            the policy member's budget: the checkpoint replay, else a
+            forfeiting init. None on success, else the exception that ended
+            the region."""
+            while pol_member is not None and \
+                    pol_member.restarts < pol_member.policy.max_restarts:
+                await pol_member._note_restart(err, fg_inbox, phase="work")
+                try:
+                    if await kernel.recover(err):
+                        log.info("devchain %s recovered in place from its composed "
+                                 "carry's checkpoint", kernel.meta.instance_name)
+                    else:
+                        await kernel.init(kernel.mio, kernel.meta)
+                    return None
+                except Exception as e2:                # noqa: BLE001 — another attempt
+                    log.warning("devchain restart attempt failed (%r)", e2)
+                    err = e2
+            return err
+
         def ctrl(idx, msg):
             res = _apply_ctrl(kernel, member_kernels, idx, msg.port, msg.data)
             if isinstance(msg, Callback):
@@ -1025,7 +1075,14 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
                         w.cancel()
                 continue
             io.reset()
-            await kernel.work(io, kernel.mio, kernel.meta)
+            try:
+                await kernel.work(io, kernel.mio, kernel.meta)
+            except Exception as e:                     # noqa: BLE001 — the policy's
+                terminal = await _restart_fused(e)
+                if terminal is not None:
+                    raise terminal
+                io.reset()
+                io.call_again = True                   # look at the ports again
 
     def _eos_ports():
         for o in (getattr(fused, "outputs", None) or [fused.output]):

@@ -15,14 +15,24 @@ site               checked by
                    what gets exercised
 ``link``           both transfer directions (one knob faults the whole
                    link); the fake link's ``fault_rate`` is the other way
+``carry``          ``TpuKernel._note_drained`` at a checkpoint's commit: a
+                   fire corrupts the candidate instead of raising, so the
+                   restore's integrity check must reject it and fall back
+                   to the previous checkpoint
 =================  ==========================================================
 
-``work``/``dispatch``/``h2d``/``d2h`` also accept a bare site (no
+``work``/``dispatch``/``h2d``/``d2h``/``carry`` also accept a bare site (no
 ``:<name>``) matching every block; an exact ``site:name`` entry wins over the
-bare one. The reference's ``carry`` site and the ``restart``/``isolate``
-policies that recover from a fault belong to the port's recovery slice
-(ROADMAP); until then the port is fail-fast: a fault that is not retried
-fails the flowgraph.
+bare one. What a fault that is not retried does is the failing block's
+``BlockPolicy`` (``runtime/block.py``): fail the flowgraph, restart the
+block (a ``TpuKernel`` from its carry checkpoint, replaying its in-flight
+groups bit for bit) or retire it.
+
+Device-graph fusion (``runtime/devchain.py``) declines while a ``work`` site
+or a block-addressed ``dispatch:<name>``/``carry:<name>`` site is armed
+(:meth:`FaultPlan.has_site`, :meth:`FaultPlan.has_named_site`): the fused
+kernel polls those sites under its own name, which would quietly disarm the
+campaign. A bare ``dispatch`` or ``carry`` site keeps fusion on.
 
 Arming: programmatic (:func:`arm` / :func:`disarm`) or the environment,
 
@@ -57,7 +67,7 @@ ENV_VAR = "FUTURESDR_TPU_FAULTS"
 
 #: documented injection sites (arbitrary site strings are allowed — these are
 #: the ones the runtime polls)
-SITES = ("work", "dispatch", "h2d", "d2h", "link")
+SITES = ("work", "dispatch", "h2d", "d2h", "link", "carry")
 
 #: sites whose faults default to TRANSIENT (retryable by ops/xfer.py)
 TRANSIENT_SITES = ("h2d", "d2h", "link")
@@ -179,6 +189,22 @@ class FaultPlan:
     # -- querying -------------------------------------------------------------
     def armed(self) -> bool:
         return self._armed
+
+    def has_site(self, plane: str) -> bool:
+        """Is an injector armed on ``plane``, bare or ``plane:<name>``?"""
+        if not self._armed:
+            return False
+        prefix = plane + ":"
+        return any(s == plane or s.startswith(prefix) for s in self._sites)
+
+    def has_named_site(self, plane: str) -> bool:
+        """Is a block-addressed injector (``plane:<name>``) armed? A fused
+        kernel polls the bare site under its own name, so only these make
+        fusion decline."""
+        if not self._armed:
+            return False
+        prefix = plane + ":"
+        return any(s.startswith(prefix) for s in self._sites)
 
     def resolve(self, site: str, name: Optional[str] = None
                 ) -> Optional[SiteInjector]:

@@ -250,7 +250,9 @@ class Flowgraph:
             stream_edges=[(self.block_id(e.src), e.src_port, self.block_id(e.dst),
                            e.dst_port) for e in self.stream_edges],
             message_edges=[(self.block_id(e.src), e.src_port, self.block_id(e.dst),
-                            e.dst_port) for e in self.message_edges])
+                            e.dst_port) for e in self.message_edges],
+            # the last run's policy decisions (runtime.py), recovered or not
+            policy_decisions=list(getattr(self, "_policy_decisions", ())))
 
     def __len__(self):
         return len(self._blocks)

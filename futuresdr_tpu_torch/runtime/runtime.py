@@ -10,14 +10,27 @@ runs to completion; ``Runtime().start(fg)`` returns a
 :class:`RunningFlowgraph` (with its ``handle``) once every block has passed
 ``init``. Every launch runs the device-graph fusion pass
 (``devchain.py``). With config ``ctrlport_enable`` the runtime serves its
-flowgraphs over the REST control port (``ctrl_port.py``). Telemetry, failure policies
-other than fail-fast and the doctor's flight records are not ported.
+flowgraphs over the REST control port (``ctrl_port.py``).
+
+The supervisor applies each block's failure policy (``block.py``
+:class:`~.block.BlockPolicy`): a ``fail_fast`` error (or a ``restart`` whose
+budget ran out) terminates every block; an ``isolate`` error retires that
+block alone, and an ``isolate_group`` error every block of its group, their
+ports ended in topological order, while the other branches finish. Each
+decision (restart attempts, isolations, the fail-fast verdict, a cancel) is
+recorded, carried by the final :class:`FlowgraphError` and served by
+``describe()``. ``Runtime.run(fg, timeout=…)`` (or config ``run_timeout``)
+is a deadline over the launch and the run: past it the run is cancelled and
+raises a :class:`FlowgraphError`, after ``run_timeout_grace`` seconds even if
+a block never winds down. Telemetry and the doctor's flight records are not
+ported.
 """
 
 from __future__ import annotations
 
 import asyncio
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
 
@@ -32,7 +45,7 @@ from .scheduler import AsyncScheduler
 
 __all__ = ["Runtime", "RuntimeHandle", "FlowgraphHandle", "RunningFlowgraph",
            "FlowgraphError", "FlowgraphCancelled", "InitializedMsg", "BlockDoneMsg",
-           "BlockErrorMsg", "BlockCallMsg", "BlockCallbackMsg", "DescribeMsg",
+           "BlockErrorMsg", "BlockRestartMsg", "BlockCallMsg", "BlockCallbackMsg", "DescribeMsg",
            "MetricsMsg", "TerminateMsg", "CancelMsg"]
 
 log = logger("runtime")
@@ -54,6 +67,16 @@ class BlockDoneMsg:
 class BlockErrorMsg:
     block_id: int
     error: Exception
+
+
+@dataclass(frozen=True)
+class BlockRestartMsg:
+    """A block restarted itself under its ``restart`` policy (the supervisor
+    records the decision; the block does the re-init)."""
+    block_id: int
+    attempt: int
+    error: Exception
+    phase: str                       # "init" | "work"
 
 
 @dataclass(frozen=True)
@@ -94,28 +117,67 @@ class CancelMsg:
 
 
 class FlowgraphError(RuntimeError):
-    """A block errored (or the run was cancelled) and the flowgraph ended;
-    ``errors`` holds every collected exception."""
+    """A block errored (or the run was cancelled) and the flowgraph ended:
+    ``errors`` holds every collected exception, ``blocks`` the failed
+    block's instance name for each (None for a cancel), and
+    ``policy_decisions`` the supervisor's policy actions (restart attempts,
+    isolations, the fail-fast verdict, cancels)."""
 
-    def __init__(self, message: str, errors=()):
+    def __init__(self, message: str, errors=(), blocks=(), policy_decisions=()):
         super().__init__(message)
         self.errors: List[Exception] = list(errors)
+        self.blocks: List[Optional[str]] = list(blocks)
+        self.policy_decisions: List[dict] = list(policy_decisions)
 
 
 class FlowgraphCancelled(RuntimeError):
     """The error recorded when a run is cancelled."""
 
 
-def _make_error(errors: List[Exception]) -> FlowgraphError:
-    msg = str(errors[0]) if len(errors) == 1 else \
-        f"{len(errors)} blocks failed: " + "; ".join(repr(e) for e in errors)
-    return FlowgraphError(msg, errors)
+def _make_error(errors: List[Exception], blocks=(), decisions=()) -> FlowgraphError:
+    """One error for all: a single error keeps its own message, several
+    give the count and each block."""
+    if len(errors) == 1:
+        msg = str(errors[0])
+    else:
+        msg = f"{len(errors)} blocks failed: " + "; ".join(
+            f"{b or '<runtime>'}: {e!r}" for b, e in zip(blocks, errors))
+    return FlowgraphError(msg, errors, blocks, decisions)
 
 
-def _describe(fg: Flowgraph, blocks: List[WrappedKernel]) -> FlowgraphDescription:
+def _describe(fg: Flowgraph, blocks: List[WrappedKernel], decisions=()) -> FlowgraphDescription:
     desc = fg.describe()
     desc.blocks = [b.description() for b in sorted(blocks, key=lambda b: b.id)]
+    desc.policy_decisions = list(decisions)
     return desc
+
+
+def _topo_ranks(fg: Flowgraph, wk: Dict[int, WrappedKernel]) -> Dict[int, int]:
+    """Each WrappedKernel's topological rank over the stream and in-place
+    edges, sources first (ties in block order, a cycle's blocks last): an
+    isolate group's members end their ports in this order, so no member
+    waits on one downstream of it."""
+    edges = []
+    for e in list(fg.stream_edges) + list(getattr(fg, "inplace_edges", [])):
+        if id(e.src) in wk and id(e.dst) in wk:
+            edges.append((id(wk[id(e.src)]), id(wk[id(e.dst)])))
+    indeg: Dict[int, int] = {id(b): 0 for b in wk.values()}
+    out: Dict[int, list] = {}
+    for src, dst in edges:
+        indeg[dst] += 1
+        out.setdefault(src, []).append(dst)
+    order = [k for k, v in indeg.items() if v == 0]
+    i = 0
+    while i < len(order):
+        for d in out.get(order[i], ()):
+            indeg[d] -= 1
+            if indeg[d] == 0:
+                order.append(d)
+        i += 1
+    ranks = {k: r for r, k in enumerate(order)}
+    for k in indeg:
+        ranks.setdefault(k, len(ranks))
+    return ranks
 
 
 async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
@@ -145,10 +207,23 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
         handles.append(scheduler.spawn(run_devchain_task(members, ch, fg_inbox,
                                                          scheduler)))
     errors: List[Exception] = []
+    err_blocks: List[Optional[str]] = []    # the failed block's name per error
+    decisions: List[dict] = []              # the policy actions taken
     ended: List[WrappedKernel] = []     # finished or failed, restored at the end
     queued: list = []                   # handle traffic during the barrier
     active = len(blocks)
     terminated = False
+    fatal_init = None
+    # isolate groups, each in topological order
+    groups: Dict[str, List[WrappedKernel]] = {}
+    for b in blocks:
+        if b.policy.isolate_group:
+            groups.setdefault(b.policy.isolate_group, []).append(b)
+    if groups:
+        ranks = _topo_ranks(fg, wk)
+        for members in groups.values():
+            members.sort(key=lambda b: ranks.get(id(b), 0))
+    retired_groups: set = set()
 
     def terminate_all() -> None:
         nonlocal terminated
@@ -157,20 +232,84 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
                 b.inbox.send(Terminate())
             terminated = True
 
-    def record(msg) -> None:
-        """Book a BlockDone/BlockError; the first error terminates every block."""
-        nonlocal active
+    def retire_group(group: str, origin: str, err) -> None:
+        """Retire every member of ``group`` after ``origin`` failed: one
+        decision naming them all, then each survivor's ports ended at once
+        in topological order and the member terminated."""
+        if group in retired_groups:
+            return
+        retired_groups.add(group)
+        members = groups.get(group, [])
+        decisions.append({"block": origin, "action": "isolate_group", "group": group,
+                          "members": [m.instance_name for m in members],
+                          "error": repr(err)})
+        log.error("block %s failed (%r): isolate group %r retires %s; the flowgraph "
+                  "continues", origin, err, group, [m.instance_name for m in members])
+        for m in members:
+            if m.instance_name == origin:
+                continue                 # its own error path ended its ports
+            m.inbox.send(Terminate())
+            try:
+                m._notify_ports_finished()   # idempotent: its shutdown repeats it
+            except Exception as e2:          # noqa: BLE001
+                log.debug("group EOS of %s raised: %r", m.instance_name, e2)
+
+    def record(msg, in_init: bool = False) -> None:
+        """Book a BlockDone/BlockError and apply the failed block's policy."""
+        nonlocal active, fatal_init
         active -= 1
         if isinstance(msg, BlockDoneMsg):
             ended.append(msg.block)
             return
+        blk = by_id.get(msg.block_id)
+        name = blk.instance_name if blk is not None else str(msg.block_id)
         errors.append(msg.error)
-        if msg.block_id in by_id:
-            ended.append(by_id[msg.block_id])
-        if not terminated:
-            log.error("block %d errored (%r): terminating flowgraph",
-                      msg.block_id, msg.error)
+        err_blocks.append(name)
+        if blk is not None:
+            ended.append(blk)
+        action = blk.policy.on_error if blk is not None else "fail_fast"
+        if terminated:
+            return
+        if action == "isolate":
+            # the block ended its ports before reporting: downstream drains,
+            # upstream detaches, the other branches run on
+            if blk.policy.isolate_group:
+                retire_group(blk.policy.isolate_group, name, msg.error)
+            else:
+                d = {"block": name, "action": "isolate", "error": repr(msg.error)}
+                if in_init:
+                    d["phase"] = "init"
+                decisions.append(d)
+                log.error("block %s errored (%r): isolated by policy, the flowgraph "
+                          "continues", name, msg.error)
+            return
+        if in_init:
+            # an init failure ends the launch itself (no policy decision, as
+            # in the reference)
+            fatal_init = fatal_init or msg.error
+        else:
+            decisions.append({"block": name,
+                              "action": "restarts_exhausted" if action == "restart"
+                              else "fail_fast",
+                              "error": repr(msg.error)})
+        log.error("block %s errored (%r): terminating flowgraph", name, msg.error)
         terminate_all()
+
+    def cancel(reason: str) -> None:
+        nonlocal fatal_init
+        errors.append(FlowgraphCancelled(reason))
+        err_blocks.append(None)
+        decisions.append({"block": None, "action": "cancel", "reason": reason})
+        if not terminated:
+            log.error("flowgraph cancelled: %s", reason)
+        fatal_init = fatal_init or errors[-1]
+        terminate_all()
+
+    def record_restart(msg: BlockRestartMsg) -> None:
+        blk = by_id.get(msg.block_id)
+        decisions.append({"block": blk.instance_name if blk else str(msg.block_id),
+                          "action": "restart", "attempt": msg.attempt,
+                          "phase": msg.phase, "error": repr(msg.error)})
 
     def handle(msg) -> None:
         if isinstance(msg, BlockCallMsg):
@@ -182,16 +321,15 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
             if blk is None or not blk.inbox.send(Callback(msg.port, msg.data, msg.reply)):
                 msg.reply.set(Pmt.invalid_value())
         elif isinstance(msg, DescribeMsg):
-            msg.reply.set(_describe(fg, blocks))
+            msg.reply.set(_describe(fg, blocks, decisions))
         elif isinstance(msg, MetricsMsg):
             msg.reply.set({b.instance_name: b.metrics() for b in blocks})
         elif isinstance(msg, TerminateMsg):
             terminate_all()
         elif isinstance(msg, CancelMsg):
-            errors.append(FlowgraphCancelled(msg.reason))
-            if not terminated:
-                log.error("flowgraph cancelled: %s", msg.reason)
-            terminate_all()
+            cancel(msg.reason)
+        elif isinstance(msg, BlockRestartMsg):
+            record_restart(msg)
         elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
             record(msg)
 
@@ -199,33 +337,42 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
     for b in blocks:
         b.inbox.send(Initialize())
     waiting = len(blocks)
+    abandoned = False      # cancelled while a block sits inside init()
     while waiting > 0:
         msg = await fg_inbox.recv()
         if isinstance(msg, InitializedMsg):
             waiting -= 1
         elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
             waiting -= 1
-            record(msg)
+            record(msg, in_init=True)
+        elif isinstance(msg, BlockRestartMsg):
+            record_restart(msg)
+        elif isinstance(msg, CancelMsg):
+            # a block wedged in init never reports: give up the barrier
+            cancel(msg.reason)
+            abandoned = True
+            break
         else:
             queued.append(msg)          # replayed after the barrier
     for b in blocks:                    # start signal
         b.inbox.notify()
-    initialized.set(errors[0] if errors else None)
+    initialized.set(fatal_init)
 
     # ---- main loop, then join + restore ---------------------------------------
     for msg in queued:
         handle(msg)
-    while active > 0:
+    while active > 0 and not abandoned:
         msg = await fg_inbox.recv()
         # after an init error the barrier may have counted a block's Done
         # before another block's Initialized, which then arrives here
         if not isinstance(msg, InitializedMsg):
             handle(msg)
-    for h in handles:
-        try:
-            await h
-        except Exception as e:
-            log.error("block task raised: %r", e)
+    if not abandoned:
+        for h in handles:
+            try:
+                await h
+            except Exception as e:
+                log.error("block task raised: %r", e)
     # refuse new sends, then answer what is still queued: a call into a
     # finished flowgraph gets InvalidValue instead of hanging its caller
     fg_inbox.close()
@@ -233,12 +380,14 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
         if isinstance(msg, BlockCallbackMsg):
             msg.reply.set(Pmt.invalid_value())
         elif isinstance(msg, DescribeMsg):
-            msg.reply.set(_describe(fg, blocks))
+            msg.reply.set(_describe(fg, blocks, decisions))
         elif isinstance(msg, MetricsMsg):
             msg.reply.set({b.instance_name: b.metrics() for b in blocks})
+    # the decisions stay readable after the run (describe), recovered or not
+    fg._policy_decisions = list(decisions)
     fg.restore_blocks(ended)
     if errors:
-        raise _make_error(errors) from errors[0]
+        raise _make_error(errors, err_blocks, decisions) from errors[0]
     return fg
 
 
@@ -316,19 +465,25 @@ class FlowgraphHandle:
 class RunningFlowgraph:
     """A launched flowgraph: its ``handle`` and its completion."""
 
-    #: seconds a run cancelled by ``wait(timeout)`` has to wind down
-    CANCEL_GRACE_S = 5.0
-
     def __init__(self, handle: FlowgraphHandle, task, scheduler: AsyncScheduler):
         self.handle = handle
         self._task = task
         self._scheduler = scheduler
 
+    @staticmethod
+    def _resolve_timeout(timeout: Optional[float]) -> Optional[float]:
+        """An explicit ``timeout`` wins, else config ``run_timeout``; 0 is
+        no deadline."""
+        if timeout is not None:
+            return float(timeout) or None
+        return float(config().run_timeout) or None
+
     async def wait(self, timeout: Optional[float] = None) -> Flowgraph:
         """Await completion; returns the flowgraph with final block state.
-        Past ``timeout`` seconds the run is cancelled and raises a
-        :class:`FlowgraphError` (also when it does not wind down within
-        ``CANCEL_GRACE_S``)."""
+        Past ``timeout`` seconds (or config ``run_timeout``) the run is
+        cancelled and raises a :class:`FlowgraphError`, also when it does not
+        wind down within config ``run_timeout_grace`` seconds."""
+        timeout = self._resolve_timeout(timeout)
         if asyncio.get_running_loop() is not self._scheduler.loop:
             fut = asyncio.run_coroutine_threadsafe(self._wait(timeout),
                                                    self._scheduler.loop)
@@ -336,7 +491,7 @@ class RunningFlowgraph:
         return await self._wait(timeout)
 
     def wait_sync(self, timeout: Optional[float] = None) -> Flowgraph:
-        return self._scheduler.run_coro_sync(self._wait(timeout))
+        return self._scheduler.run_coro_sync(self._wait(self._resolve_timeout(timeout)))
 
     async def _wait(self, timeout: Optional[float]) -> Flowgraph:
         if timeout is None:
@@ -345,16 +500,22 @@ class RunningFlowgraph:
             return await asyncio.wait_for(asyncio.shield(self._task), timeout)
         except asyncio.TimeoutError:
             pass
-        log.error("flowgraph exceeded its %.3f s deadline: cancelling", timeout)
+        log.error("flowgraph exceeded its %.3f s run deadline: cancelling", timeout)
         await self.handle.cancel(f"run deadline exceeded ({timeout} s)")
+        grace = max(0.0, float(config().run_timeout_grace))
         try:
-            return await asyncio.wait_for(asyncio.shield(self._task),
-                                          self.CANCEL_GRACE_S)
+            if grace > 0:
+                return await asyncio.wait_for(asyncio.shield(self._task), grace)
+            raise asyncio.TimeoutError
         except asyncio.TimeoutError:
+            # a block stuck inside work() cannot see Terminate: the caller
+            # gets its thread back, the block is abandoned
             raise FlowgraphError(
-                f"flowgraph did not end within {self.CANCEL_GRACE_S} s of its "
-                f"cancel (deadline {timeout} s): a block is stuck inside work()",
-                [FlowgraphCancelled("run deadline exceeded")]) from None
+                f"flowgraph did not end within {grace} s of its cancel (run deadline "
+                f"{timeout} s): a block is stuck inside work()",
+                [FlowgraphCancelled("run deadline exceeded")], [None],
+                [{"block": None, "action": "cancel",
+                  "reason": "run deadline exceeded"}]) from None
 
     async def stop(self) -> Flowgraph:
         await self.handle.terminate()
@@ -424,10 +585,18 @@ class Runtime:
         fg_id = self.handle.register(handle)
         join = loop.create_task(_unregister_on_done(task, self.handle, fg_id))
         running = RunningFlowgraph(handle, join, self.scheduler)
-        err = await initialized.get()
+        try:
+            err = await initialized.get()
+        except asyncio.CancelledError:
+            # the launch was abandoned (a run deadline inside init): the
+            # barrier gives up at this cancel, and the supervisor's expected
+            # FlowgraphError is collected here
+            fg_inbox.send(CancelMsg("launch abandoned: run deadline exceeded in init"))
+            join.add_done_callback(lambda t: t.cancelled() or t.exception())
+            raise
         if err is not None:
             # propagate the init failure after the blocks drained
-            await running.wait()
+            await running.wait(timeout=0)
         return running
 
     async def start_async(self, fg: Flowgraph) -> RunningFlowgraph:
@@ -439,13 +608,35 @@ class Runtime:
             return await asyncio.wrap_future(fut)
         return await self._start_on_scheduler(fg)
 
-    async def run_async(self, fg: Flowgraph) -> Flowgraph:
-        running = await self.start_async(fg)
-        return await running.wait()
+    async def run_async(self, fg: Flowgraph,
+                        timeout: Optional[float] = None) -> Flowgraph:
+        """Run to completion. ``timeout`` (or config ``run_timeout``) bounds
+        the launch and the run together: a block wedged in ``init`` raises a
+        :class:`FlowgraphError` at the deadline as one wedged in ``work``
+        does."""
+        timeout = RunningFlowgraph._resolve_timeout(timeout)
+        if timeout is None:
+            running = await self.start_async(fg)
+            return await running.wait(timeout=0)
+        t0 = time.monotonic()
+        try:
+            running = await asyncio.wait_for(self.start_async(fg), timeout)
+        except asyncio.TimeoutError:
+            log.error("flowgraph launch exceeded the %.3f s run deadline inside the "
+                      "init barrier", timeout)
+            raise FlowgraphError(
+                f"flowgraph did not pass the init barrier within the {timeout} s run "
+                f"deadline: a block is stuck inside init()",
+                [FlowgraphCancelled("run deadline exceeded in init")], [None],
+                [{"block": None, "action": "cancel",
+                  "reason": "run deadline exceeded in init"}]) from None
+        return await running.wait(timeout=max(0.05, timeout - (time.monotonic() - t0)))
 
-    def run(self, fg: Flowgraph) -> Flowgraph:
-        """Run to completion; raises :class:`FlowgraphError` if a block failed."""
-        return self.scheduler.run_coro_sync(self.run_async(fg))
+    def run(self, fg: Flowgraph, timeout: Optional[float] = None) -> Flowgraph:
+        """Run to completion; raises :class:`FlowgraphError` if a block failed,
+        or past ``timeout`` seconds (or config ``run_timeout``) instead of
+        hanging."""
+        return self.scheduler.run_coro_sync(self.run_async(fg, timeout=timeout))
 
     def start(self, fg: Flowgraph) -> RunningFlowgraph:
         return self.scheduler.run_coro_sync(self._start_on_scheduler(fg))

@@ -56,8 +56,39 @@ static carry buffers, so the state carries over with no copy and switching
 back to a wire used before captures nothing.
 
 Faults: the ``dispatch`` site of ``runtime/faults.py`` is checked before
-each replay, the transfer sites inside the transfers' retries. The port is
-fail-fast: a fault that is not retried fails the flowgraph.
+each replay, the transfer sites inside the transfers' retries, the ``carry``
+site at a checkpoint's commit. What a fault that is not retried does is the
+block's failure policy (``runtime/block.py``).
+
+Recovery (the ``restart`` policy): the program is a function of (carry,
+frames) alone, so a restart need not lose the groups in flight. Every
+``checkpoint_every`` groups (config ``tpu_checkpoint_every``, 1) the kernel
+copies its carry to the host right behind the replay that wrote it, on the
+compute stream (:meth:`Pipeline.snapshot_carry`: a later replay overwrites
+the static carry buffers, so the copy must be in stream order), and commits
+it once that group's outputs have drained; the two newest commits are kept.
+Every shipped group's host parts (the arena rows, a packed buffer, a
+registered ingest buffer's views; a deferred encode's payload, never the
+ring slot) stay in a replay log, their buffers retained, until a committed
+checkpoint covers them. :meth:`recover` restores the newest valid
+checkpoint (its structure, shapes and dtypes; a corrupted one falls back to
+the older) through the program's ``_load`` into the very static buffers the
+kernels read and write (no new capture), then re-ships the logged groups
+after it through the same programs, under the normal in-flight budget: the
+output is the unfailed run's bit for bit. Groups whose outputs had already
+been emitted replay for their carry only. Retunes and wire switches are
+logged against the group they first reached and applied again there; a
+retune that lands inside a replay window waits for its end
+(:meth:`warn_retune_in_replay`). With ``checkpoint_dir`` set each commit is
+also written to disk (``utils/snapshot.py``) and a new process's kernel
+resumes from it. Checkpointing runs only where a restart can use it (an
+explicit ``checkpoint_every=``, a ``restart`` policy on the kernel or in the
+config, a restartable fused chain): a default run pays one falsy check a
+dispatch. Recovery covers injected faults and errors that leave the CUDA
+context usable; CUDA's sticky errors stay fatal (:meth:`recover` declines
+them), and a fresh ``init`` then forfeits the window, counted
+(``fsdr_frames_forfeited_total`` in :meth:`extra_metrics`, beside
+``fsdr_frames_replayed_total``).
 
 :class:`TpuFanoutKernel` and :class:`TpuDagKernel` run a
 :class:`~futuresdr_tpu_torch.ops.stages.FanoutPipeline` or
@@ -66,15 +97,17 @@ port a branch or sink: the staging, K, credits, slots and wire are
 :class:`TpuKernel`'s, and only the result side (a D2H of a branch's parts,
 the landing, the emit and the tag rebase) works a branch at a time. The
 device-chain pass (``runtime/devchain.py``) builds them, and fused linear
-chains as plain :class:`TpuKernel`s.
+chains as plain :class:`TpuKernel`s; their recovery is :class:`TpuKernel`'s
+over the flat composed carry.
 
-Not in this slice (ROADMAP): the carry checkpoint and replay with the
-``restart`` policy, the autotuned K, credit seed and starting wire, and
-frame lineage.
+Not in this slice (ROADMAP): the autotuned K, credit seed and starting
+wire, and frame lineage.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import threading
 import time
 from collections import deque
@@ -86,7 +119,7 @@ from ..config import config
 from ..ops import codec_pool as _codec_mod
 from ..ops import ingest as _ingest_mod
 from ..ops import xfer
-from ..ops.arena import GroupAlloc, PackedAlloc, StagingArena, arena
+from ..ops.arena import ArenaBuffer, GroupAlloc, PackedAlloc, StagingArena, arena
 from ..ops.stages import Pipeline, Stage
 from ..ops.wire import WIRE_FORMATS, get_wire, resolve_wire
 from ..log import logger
@@ -94,6 +127,7 @@ from ..runtime import faults as _faults
 from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag
 from ..types import Pmt
+from ..utils import snapshot as _snapshot
 from .frames import emit_with_tags, parse_ctrl, rebase_frame_tags
 from .instance import TpuInstance, instance
 
@@ -440,11 +474,42 @@ class _RowAlloc:
         self._group.alloc.drop_temps()
 
 
+class _Dispatch:
+    """One shipped dispatch group from its H2D to its drain: the H2D's
+    ``get_fin``, one ``(valid_in, tags)`` a real frame, the program slot it
+    holds and the program (``fn``) and ``wire`` it was shipped under, the
+    ingest handles it holds, its sequence number, ``drop`` for a replayed
+    group whose outputs were emitted before the fault (it replays for the
+    carry only), and once replayed its ``land`` and ``out_metas``."""
+
+    __slots__ = ("get_fin", "metas", "slot", "held", "seq", "drop", "fn", "wire",
+                 "land", "out_metas")
+
+    def __init__(self, get_fin, metas, slot, held, seq, drop, fn, wire):
+        self.get_fin = get_fin
+        self.metas = metas
+        self.slot = slot
+        self.held = held
+        self.seq = seq
+        self.drop = drop
+        self.fn = fn
+        self.wire = wire
+        self.land = None
+        self.out_metas = None
+
+
+#: CUDA's sticky errors (``ops/xfer.py``): the context is lost and nothing
+#: in the process can recover on it
+_STICKY = xfer._FATAL_MARKERS
+
+
 class TpuKernel(Kernel):
     """Runs ``Pipeline(stages, in_dtype)`` over the stream on
     ``inst.device``, ``frames_per_dispatch`` frames a dispatch (default
     config ``tpu_frames_per_dispatch``; 0 means 1), across the link in
-    ``wire``'s format."""
+    ``wire``'s format, with a carry checkpoint every ``checkpoint_every``
+    dispatch groups (default config ``tpu_checkpoint_every``, taken only
+    where a restart can use it; an explicit value always is)."""
 
     BLOCKING = True
 
@@ -452,7 +517,8 @@ class TpuKernel(Kernel):
                  frame_size: Optional[int] = None,
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
-                 frames_per_dispatch: Optional[int] = None, wire=None, _pipeline=None):
+                 frames_per_dispatch: Optional[int] = None, wire=None,
+                 checkpoint_every: Optional[int] = None, _pipeline=None):
         super().__init__()
         self.inst = inst or instance()
         # ``_pipeline``: a pipeline built already (the device-chain pass's
@@ -478,14 +544,15 @@ class TpuKernel(Kernel):
         # the program's slots no group holds: a group takes one at its H2D
         # and frees it once its D2H has landed and been emitted
         self._free_slots: Deque[int] = deque()
-        # H2D started: (transfer finish getter, metas, slot, held handles)
-        self._staged: Deque[tuple] = deque()
-        # replayed, D2H riding: (landing, out metas, slot, held handles)
-        self._inflight: Deque[tuple] = deque()
+        # H2D started, then (popped under the carry lock) replayed with its
+        # D2H riding: one _Dispatch each
+        self._staged: Deque[_Dispatch] = deque()
+        self._inflight: Deque[_Dispatch] = deque()
         self._pending_out: Optional[np.ndarray] = None
         self._pending_tags: List[ItemTag] = []
         self.frames_dispatched = 0
         self.dispatches = 0           # program replays (one a dispatch group)
+        self._init_recovery_state(checkpoint_every)
         self.input = self.add_stream_input("in", self.pipeline.in_dtype,
                                            min_items=self.frame_size)
         self._add_outputs()
@@ -554,6 +621,13 @@ class TpuKernel(Kernel):
         self._wire_switches = 0
         #: (first frame dispatched under it, wire name), one a wire in use
         self.wire_history = [(0, self.wire.name)]
+        # (first group shipped under it, wire) a switch, pruned at the
+        # committed-checkpoint floor like the replay log; the wire in effect
+        # at that floor; and the switches a recovery applies again at their
+        # groups
+        self._wire_log: Deque[tuple] = deque()
+        self._wire_floor_fmt = self.wire.name
+        self._replay_wire_switches: Deque[tuple] = deque()
         self._wirectl = None
         if not config().tpu_adaptive_wire:
             return
@@ -574,6 +648,9 @@ class TpuKernel(Kernel):
         self._credits = CreditController(self.depth, adaptive=adaptive)
 
     def extra_metrics(self) -> dict:
+        # codec workers insert into the replay log: read it under its lock
+        with self._rlog_lock:
+            replay_frames = sum(len(e[2]) for e in self._rlog)
         return {"frame_size": self.frame_size,
                 "wire": self.wire.name,
                 "frames_per_dispatch": self.k_batch,
@@ -590,7 +667,16 @@ class TpuKernel(Kernel):
                                           if self._staged_frames else 0.0),
                 "deferred_consume": int(self._deferred_consume),
                 "adaptive_wire": int(self._wirectl is not None),
-                "wire_switches": self._wire_switches}
+                "wire_switches": self._wire_switches,
+                # recovery: the active cadence (0 = off), the newest
+                # committed checkpoint, the frames the replay log holds,
+                # and the frames replayed and forfeited by restarts
+                "checkpoint_every": self._ckpt_every,
+                "checkpoint_seq": self._ckpts[-1][0] if self._ckpts else -1,
+                "replay_log_frames": replay_frames,
+                "fsdr_frames_replayed_total": self.frames_replayed,
+                "fsdr_frames_forfeited_total": self.frames_forfeited,
+                "checkpoints_rejected": self.checkpoints_rejected}
 
     def _n_slots(self) -> int:
         return self._credits.hi + self.stage_ahead
@@ -610,31 +696,64 @@ class TpuKernel(Kernel):
             self._programs[key] = fn
         return fn
 
-    def _settle_pool_tasks(self) -> None:
-        """Wait out the codec workers' tasks of this kernel (their errors
-        already surfaced, or a re-run supersedes them), so none still
-        writes a slot or reads a ring slot after a re-init."""
-        for get_fin, *_ in self._staged:
+    def _quiesce(self) -> None:
+        """Wait out this kernel's codec-worker tasks and pending transfers
+        (their errors already surfaced, or a restart supersedes them), so
+        none still writes a slot, reads a ring slot or inserts into the
+        replay log after a re-init or a recovery; a deferred consume lands
+        (its frame was staged and logged)."""
+        try:
+            self._settle_deferred_consume()
+        except Exception:                  # noqa: BLE001
+            pass
+        for d in self._staged:
+            if d.get_fin is not None:
+                try:
+                    d.get_fin()
+                except Exception:          # noqa: BLE001
+                    pass
+        for d in self._inflight:
             try:
-                get_fin()
-            except Exception:              # noqa: BLE001
-                pass
-        for (land, _release), *_ in self._inflight:
-            try:
-                land()
+                d.land[0]()
             except Exception:              # noqa: BLE001
                 pass
 
-    async def init(self, mio, meta):
-        self._settle_pool_tasks()
-        self._settle_deferred_consume()
+    def _drop_window(self) -> None:
+        """Forget every staged and in-flight group (after :meth:`_quiesce`):
+        their landings' host buffers and ingest handles go back."""
+        for d in self._inflight:
+            d.land[1]()
+        for d in itertools.chain(self._staged, self._inflight):
+            for h in d.held:
+                h.release()
         self._staged.clear()
         self._inflight.clear()
-        if self._group is not None and self._group.alloc is not None:
-            self._group.alloc.release()
-        self._group = None
         self._free_slots = deque(range(self._n_slots()))
+
+    async def init(self, mio, meta):
+        # a fresh incarnation drops the previous one's groups; their input
+        # was consumed, so they are forfeited and counted (a restart goes
+        # through recover() instead where a checkpoint allows)
+        self._quiesce()
+        forfeit = sum(len(d.metas) for d in itertools.chain(self._staged, self._inflight)
+                      if not d.drop)
+        forfeit += sum(len(e[2]) for e in self._replay_queue if not e[4])
+        if self._group is not None:
+            forfeit += len(self._group.metas)
+        if forfeit:
+            self.frames_forfeited += forfeit
+            log.warning("%s: a fresh init forfeits %d frame(s) in flight",
+                        self.meta.instance_name or type(self).__name__, forfeit)
+        self._drop_window()
+        if self._group is not None:
+            if self._group.alloc is not None:
+                self._group.alloc.release()
+            for h in self._group.held:
+                h.release()
+        self._group = None
         self._pending_out, self._pending_tags = None, []
+        self._recovery_reset()
+        self._ckpt_every = self._resolve_ckpt_every()
         with self._carry_lock:
             if self._fn is None:
                 # the warm-up (kernel builds, library plans, lazy tables) and
@@ -646,6 +765,10 @@ class TpuKernel(Kernel):
                 self._carry = self.pipeline.init_carry(self.inst.device)
             self.frames_dispatched = 0
             self.dispatches = 0
+        if self._ckpt_every:
+            # the fresh-init sentinel: a fault before the first commit
+            # restores the initial carry and replays from group 0
+            self._ckpts.append((-1, None, None))
 
     @message_handler(name="ctrl")
     async def ctrl_handler(self, io, mio, meta, p: Pmt) -> Pmt:
@@ -673,12 +796,72 @@ class TpuKernel(Kernel):
         already dispatched keep the old parameters, every later frame sees
         the new ones. Safe to call from another thread while the flowgraph
         runs. Returns the number of frames dispatched before the surgery,
-        i.e. the first frame that sees it."""
+        i.e. the first frame that sees it.
+
+        With checkpoints on, the surgery is logged against the first group
+        it reaches, so a recovery whose restore point lies before it applies
+        it again at that group. Inside a replay window it waits for the
+        window's end (the replayed groups dispatch with the parameters they
+        first had, and the surgery lands where it lands "now" in the
+        recovered stream), after it was checked on a copy of the carry."""
         with self._carry_lock:
             if self._carry is None:
                 raise RuntimeError("retune before init")
+            if self._replay_pending():
+                self.pipeline.update_stage(self._carry, stage, **params)   # validate
+                self.warn_retune_in_replay()
+                entry = (self._replay_high + 1, stage, dict(params))
+                self._replay_retunes.append(entry)
+                if self._ckpt_every:
+                    self._retune_log.append(entry)
+                return self.frames_dispatched
             self._carry = self.pipeline.update_stage(self._carry, stage, **params)
+            if self._ckpt_every:
+                # groups dispatch in order under this lock: the next one is
+                # the first to see the new parameters
+                self._retune_log.append((self._next_seq, stage, dict(params)))
             return self.frames_dispatched
+
+    def _apply_replay_retunes(self, seq: int) -> None:
+        """Apply the logged surgery due at group ``seq`` (under the carry
+        lock, before its dispatch)."""
+        while self._replay_retunes and self._replay_retunes[0][0] <= seq:
+            _, stage, params = self._replay_retunes.popleft()
+            try:
+                self._carry = self.pipeline.update_stage(self._carry, stage, **params)
+            except Exception as e:         # noqa: BLE001 — it was checked when accepted
+                log.warning("%s: replayed retune @%d failed (%r): the recovered output "
+                            "may differ from that group on", self.meta.instance_name,
+                            seq, e)
+
+    def _replay_pending(self) -> int:
+        """Frames of the active replay window not yet drained (0 = no window;
+        a drained window is disarmed)."""
+        if self._replay_high < 0:
+            return 0
+        # list() copies each deque in one step: a retune from another thread
+        # reads them while this kernel's thread moves groups along
+        pending = sum(len(e[2]) for e in list(self._replay_queue))
+        pending += sum(len(d.metas) for d in list(self._staged) + list(self._inflight)
+                       if d.seq <= self._replay_high)
+        if pending == 0:
+            self._replay_high = -1
+        return pending
+
+    def warn_retune_in_replay(self) -> int:
+        """Log a retune that landed inside an active replay window (it is
+        deferred to the window's end, so the recovered output stays the
+        unfailed run's); returns the replayed frames still pending (0 = no
+        window)."""
+        pending = self._replay_pending()
+        if pending:
+            log.warning("%s: ctrl retune landed inside an active replay window: "
+                        "deferred to the post-replay boundary (group %d), so the %d "
+                        "replayed frame(s) still in flight dispatch with their original "
+                        "parameters and the recovered output stays bit-identical",
+                        self.meta.instance_name or type(self).__name__,
+                        self._replay_high + 1, pending)
+        return pending
 
     # -- wire switches --------------------------------------------------------
     def apply_wire_retune(self, fmt: str) -> None:
@@ -692,11 +875,14 @@ class TpuKernel(Kernel):
                              f"(expected one of {sorted(WIRE_FORMATS)})")
         self._wire_switch_target = None if fmt == self.wire.name else fmt
 
-    def _apply_wire_program(self, fmt: str) -> None:
+    def _apply_wire_program(self, fmt: str, replay: bool = False) -> None:
         """Swap the wire and everything derived from it, and take its
         program (cached, or captured now sharing the carry buffers). Runs at
-        a group boundary with nothing staged or in flight; the carry does
-        not depend on the wire, so it carries over as it is."""
+        a group boundary: a live switch with nothing staged or in flight, a
+        recovery's (``replay``) before it re-ships the first group logged
+        under ``fmt`` (each group dispatches on the program it was shipped
+        to). The carry does not depend on the wire, so it carries over as it
+        is."""
         if fmt == self.wire.name:
             return
         old = self.wire.name
@@ -704,6 +890,8 @@ class TpuKernel(Kernel):
         self._derive_wire_paths()
         with self._carry_lock:
             self._fn = self._program_for(self.wire, self._packed)
+        if replay:
+            return
         self._wire_switches += 1
         self.wire_history.append((self.frames_dispatched, fmt))
         log.info("%s: wire switched %s -> %s at frame %d",
@@ -716,8 +904,8 @@ class TpuKernel(Kernel):
         deferred consume. While a switch waits, staging pauses and ``work``
         drains toward the boundary."""
         if self._wire_switch_target is None:
-            if self._wirectl is None:
-                return
+            if self._wirectl is None or self._replay_pending():
+                return                  # the controller waits out a replay
             tgt = self._wirectl.propose(self.wire.name)
             if tgt is None:
                 return
@@ -726,10 +914,15 @@ class TpuKernel(Kernel):
                      self.meta.instance_name or type(self).__name__, self.wire.name, tgt,
                      self._wirectl.last_snr_db, self._wirectl.budget_db)
         if self._staged or self._inflight or self._group is not None or \
-                self._pending_consume is not None:
+                self._pending_consume is not None or self._replay_queue or \
+                self._replay_wire_switches:
             return
         tgt, self._wire_switch_target = self._wire_switch_target, None
-        if tgt is not None:
+        if tgt is not None and tgt != self.wire.name:
+            if self._ckpt_every:
+                # nothing is staged: the next group shipped is the first
+                # under the new wire
+                self._wire_log.append((self._seq, tgt))
             self._apply_wire_program(tgt)
 
     # -- staging --------------------------------------------------------------
@@ -804,11 +997,12 @@ class TpuKernel(Kernel):
         _ingest_mod.note_zero_copy()
         return h.retain()
 
-    def _ship(self, g: _Group, out) -> object:
+    def _ship(self, g: _Group, out, seq: int, metas: tuple) -> object:
         """Encode what waits for this thread, settle the group's parts (a
-        partial group's pad rows zeroed, the packed buffer's gaps) and start
-        their H2D into the slot's input ``out``; returns the transfer's
-        ``finish``."""
+        partial group's pad rows zeroed, the packed buffer's gaps), log them
+        for replay when checkpoints are on (before the H2D, which may fail),
+        and start their H2D into the slot's input ``out``; returns the
+        transfer's ``finish``."""
         try:
             for i, frame, _ev in g.deferred:
                 self._encode_row(g, i, frame)
@@ -816,6 +1010,8 @@ class TpuKernel(Kernel):
             for _i, _frame, ev in g.deferred:
                 ev.set()       # the ring slot has been read: consume() may run
         if g.parts is not None:
+            if self._ckpt_every:
+                self._rlog_insert(seq, tuple(g.parts), metas, g.held)
             return xfer.start_device_transfer_parts(g.parts, self.inst.device, out=out)
         n = len(g.metas)
         if n < self.k_batch:
@@ -825,31 +1021,37 @@ class TpuKernel(Kernel):
         parts = (alloc.finish(g.dests),) if isinstance(alloc, PackedAlloc) else g.dests
         alloc.drop_temps()
         handles, alloc.handles = list(alloc.handles), []
+        if self._ckpt_every:
+            self._rlog_insert(seq, tuple(parts), metas, handles)
         return xfer.start_device_transfer_parts(parts, self.inst.device, out=out,
                                                 handles=handles)
 
     def _flush_accum(self) -> None:
-        """Ship the group being filled into a free slot of the program: its
-        H2D starts here, or on an encode worker when the pool takes the
-        encode (an aliasing wire's offload, a deferred consume's in-place
-        encode). The rows of a partial group (EOS only) past its last frame
-        are zeroed; their outputs are dropped at drain."""
+        """Ship the group being filled into a free slot of the program as
+        the next group in sequence: its H2D starts here, or on an encode
+        worker when the pool takes the encode (an aliasing wire's offload, a
+        deferred consume's in-place encode). The rows of a partial group
+        (EOS only) past its last frame are zeroed; their outputs are dropped
+        at drain."""
         g, self._group = self._group, None
         slot = self._free_slots.popleft()
+        seq, self._seq = self._seq, self._seq + 1
+        metas = tuple(g.metas)
+        d = _Dispatch(None, metas, slot, g.held, seq, False, self._fn, self.wire)
+        self._staged.append(d)
         out = self._fn.inputs[slot]
         pool = self._codec_pool
         if pool is not None and (self._encode_offload or g.deferred):
             try:
-                fut = pool.submit_encode(self._ship, g, out)
+                fut = pool.submit_encode(self._ship, g, out, seq, metas)
             except BaseException:
                 for _i, _f, ev in g.deferred:
                     ev.set()
                 raise
-            get_fin = fut.result
+            d.get_fin = fut.result
         else:
-            fin = self._ship(g, out)
-            get_fin = lambda: fin          # noqa: E731
-        self._staged.append((get_fin, tuple(g.metas), slot, g.held))
+            fin = self._ship(g, out, seq, metas)
+            d.get_fin = lambda: fin        # noqa: E731
 
     def _stage_deferred(self, frame: np.ndarray, tags) -> None:
         """Stage a quantizing K = 1 frame with no ring-exit copy: the codec
@@ -873,14 +1075,40 @@ class TpuKernel(Kernel):
     def _room(self, budget: int) -> bool:
         return len(self._staged) + len(self._inflight) < budget
 
+    def _restage(self, seq: int, parts, metas, handles, drop: bool) -> None:
+        """Ship one logged group again into a free slot, on the program of
+        the wire it was first shipped under (the logged switches up to it
+        are applied first)."""
+        while self._replay_wire_switches and self._replay_wire_switches[0][0] <= seq:
+            self._apply_wire_program(self._replay_wire_switches.popleft()[1], replay=True)
+        slot = self._free_slots.popleft()
+        # the log keeps its own count; the transfer takes and releases one
+        arena_hs = [h.retain() for h in handles if isinstance(h, ArenaBuffer)]
+        d = _Dispatch(None, metas, slot, (), seq, drop, self._fn, self.wire)
+        self._staged.append(d)
+        fin = xfer.start_device_transfer_parts(parts, self.inst.device,
+                                               out=self._fn.inputs[slot], handles=arena_hs)
+        d.get_fin = lambda: fin            # noqa: E731
+
     def _stage_available_input(self):
-        """Stage every full frame the credits and ``stage_ahead`` allow, and
-        the zero-padded tail frame and the partial group at EOS; returns
+        """Stage, within the credits and ``stage_ahead``, the groups a
+        recovery queued for replay first, then every full frame, and the
+        zero-padded tail frame and the partial group at EOS; returns
         ``(remaining input slice, eos)``."""
         self._settle_deferred_consume()
+        budget = self._credits.credits + self.stage_ahead
+        if self._replay_queue or self._replay_wire_switches:
+            while self._replay_queue and self._room(budget):
+                self._restage(*self._replay_queue.popleft())
+            if self._replay_queue:
+                # new input follows the replayed groups in sequence
+                return self.input.slice(), self.input.finished()
+            # the switches after the last replayed group (the live wire)
+            while self._replay_wire_switches:
+                self._apply_wire_program(self._replay_wire_switches.popleft()[1],
+                                         replay=True)
         if self._wirectl is not None or self._wire_switch_target is not None:
             self._maybe_switch_wire()
-        budget = self._credits.credits + self.stage_ahead
         inp = self.input.slice()
         # a pending wire switch pauses staging, but a part-filled group keeps
         # filling to its flush (padding mid-stream would corrupt the carry)
@@ -921,22 +1149,27 @@ class TpuKernel(Kernel):
     # -- dispatch and drain ---------------------------------------------------
     def _launch_staged(self) -> None:
         """Replay the program for each staged group (oldest first) and start
-        its D2H, within the credit budget."""
+        its D2H, within the credit budget; the carry checkpoint, where one is
+        due, is copied right behind the replay."""
         fplan = _faults.plan()
         while self._staged and len(self._inflight) < self._credits.credits:
             if fplan.armed():
                 fplan.maybe("dispatch", self.meta.instance_name)
-            get_fin, metas, slot, held = self._staged[0]
-            fin = get_fin()                 # the encode worker's start, joined
+            d = self._staged[0]
+            fin = d.get_fin()               # the encode worker's start, joined
             fin()                           # the replay waits for the H2D
-            self._staged.popleft()
-            wire = self.wire
             with self._carry_lock:
-                self._carry, y = self._fn.dispatch(slot, self._carry)
-                self.frames_dispatched += len(metas)
+                self._staged.popleft()
+                if self._replay_retunes:
+                    self._apply_replay_retunes(d.seq)
+                self._carry, y = d.fn.dispatch(d.slot, self._carry)
+                self._next_seq = d.seq + 1
+                if self._ckpt_every and (d.seq + 1) % self._ckpt_every == 0:
+                    self._start_ckpt(d.seq)
+                self.frames_dispatched += len(d.metas)
                 self.dispatches += 1
-            land, out_metas = self._start_result_d2h(y, metas, wire)
-            self._inflight.append((land, out_metas, slot, held))
+            d.land, d.out_metas = self._start_result_d2h(y, d.metas, d.wire)
+            self._inflight.append(d)
             self._credits.note_dispatch(getattr(fin, "_wire", None), len(self._inflight))
             if self._wirectl is not None:
                 self._wirectl.note_dispatch(getattr(fin, "_wire", None))
@@ -1006,18 +1239,24 @@ class TpuKernel(Kernel):
             h.release()
 
     def _drain_one(self) -> None:
-        """Emit the oldest group's frames, decoded on the host."""
-        (land, release), out_metas, slot, held = self._inflight.popleft()
+        """Emit the oldest group's frames, decoded on the host (a replayed
+        group emitted before the fault emits nothing), then mark it
+        drained."""
+        d = self._inflight.popleft()
+        land, release = d.land
         flat = land()
-        tags = [ItemTag(t.index + i * self.out_frame, t.tag)
-                for i, (_, ts) in enumerate(out_metas) for t in ts]
-        self._pending_out, self._pending_tags = emit_with_tags(self.output, flat, tags)
+        if not d.drop:
+            tags = [ItemTag(t.index + i * self.out_frame, t.tag)
+                    for i, (_, ts) in enumerate(d.out_metas) for t in ts]
+            self._pending_out, self._pending_tags = emit_with_tags(self.output, flat, tags)
         release()
-        self._release_group(slot, held)
+        self._release_group(d.slot, d.held)
+        self._note_drained(d.seq)
 
     def _idle(self, inp) -> bool:
         return (not self._inflight and not self._staged and self._group is None
-                and self._pending_consume is None and len(inp) == 0)
+                and self._pending_consume is None and not self._replay_queue
+                and len(inp) == 0)
 
     async def work(self, io, mio, meta):
         # 1. flush output that did not fit last time
@@ -1044,6 +1283,358 @@ class TpuKernel(Kernel):
 
         if eos and self._idle(inp) and self._pending_out is None:
             io.finished = True
+            # the stream ended cleanly: a later run starts fresh, and the
+            # persisted checkpoint, complete state now, goes
+            self._recovery_reset(purge_disk=True)
+
+    # -- carry checkpoints and replay -----------------------------------------
+    def _init_recovery_state(self, checkpoint_every) -> None:
+        """The recovery state (the module docstring), shared by every kernel
+        class: the configured cadence, the replay log, the 2-deep ring of
+        committed checkpoints, the pending snapshots and the replay queue."""
+        c = config()
+        self._ckpt_cadence = max(0, int(checkpoint_every if checkpoint_every is not None
+                                        else c.tpu_checkpoint_every))
+        self._ckpt_explicit = checkpoint_every is not None
+        # the active cadence, resolved again at every init
+        self._ckpt_every = self._ckpt_cadence if self._ckpt_explicit else 0
+        self._seq = 0                    # the next group's sequence number
+        self._next_seq = 0               # the next group to dispatch
+        self._drained_seq = -1           # the newest group drained
+        # (seq, host parts, metas, retained handles) a group not yet covered
+        # by a committed checkpoint; codec workers insert out of band
+        self._rlog: Deque[tuple] = deque()
+        self._rlog_lock = threading.Lock()
+        self._rlog_dropped = 0
+        d = str(c.checkpoint_dir or "")
+        self._ckpt_dir = os.path.expanduser(d) if d else ""
+        # the newest commit not yet on disk: at most one write queued
+        self._persist_lock = threading.Lock()
+        self._persist_box = None
+        self._persist_queued = False
+        # committed (seq, host leaves, spec), newest last; (-1, None, None)
+        # is the fresh-init sentinel
+        self._ckpts: Deque[tuple] = deque(maxlen=2)
+        # (seq, fetches, spec) snapshots started, not yet committed
+        self._pending_ckpts: Deque[tuple] = deque()
+        # (seq, parts, metas, handles, drop) groups a recovery re-ships
+        self._replay_queue: Deque[tuple] = deque()
+        self._replay_high = -1           # the newest replayed group (-1: none)
+        # (seq, stage, params) a retune; the ones a recovery applies again
+        self._retune_log: Deque[tuple] = deque()
+        self._replay_retunes: Deque[tuple] = deque()
+        self.frames_replayed = 0
+        self.frames_forfeited = 0
+        self.checkpoints_rejected = 0    # candidates a restore found invalid
+
+    def _resolve_ckpt_every(self) -> int:
+        """The cadence of this incarnation: the configured one where a
+        restart can read a checkpoint (an explicit ``checkpoint_every``, a
+        restartable fused chain, a ``restart`` policy on the kernel or in
+        the config), else 0."""
+        if not self._ckpt_cadence:
+            return 0
+        if self._ckpt_explicit or getattr(self, "_dc_restartable", False):
+            return self._ckpt_cadence
+        if getattr(getattr(self, "policy", None), "on_error", None) == "restart":
+            return self._ckpt_cadence
+        if str(config().block_policy) == "restart":
+            return self._ckpt_cadence
+        return 0
+
+    def _start_ckpt(self, seq: int) -> None:
+        """Start the host copy of the carry after group ``seq`` (under the
+        carry lock, right behind its replay); committed once ``seq`` has
+        drained. A failed snapshot only narrows the restore window."""
+        try:
+            fetches, spec = self.pipeline.snapshot_carry(self._carry)
+        except Exception as e:             # noqa: BLE001
+            log.warning("%s: carry snapshot @%d failed (%r): skipped",
+                        self.meta.instance_name, seq, e)
+            return
+        self._pending_ckpts.append((seq, fetches, spec))
+
+    def _rlog_insert(self, seq: int, parts: tuple, metas: tuple, handles) -> None:
+        """Log one shipped group in sequence order (codec workers finish out
+        of order), retaining its buffers while it is logged. Past the cap
+        (``64 + 4·(depth + stage_ahead + checkpoint_every)`` groups: commits
+        that stopped) the oldest are dropped, and a recovery then declines a
+        checkpoint the log no longer reaches."""
+        for h in handles:
+            h.retain()
+        dropped = False
+        with self._rlog_lock:
+            entry = (seq, parts, metas, tuple(handles))
+            if not self._rlog or self._rlog[-1][0] < seq:
+                self._rlog.append(entry)
+            else:
+                i = next((i for i, e in enumerate(self._rlog) if e[0] > seq), len(self._rlog))
+                self._rlog.insert(i, entry)
+            cap = 64 + 4 * (self.depth + self.stage_ahead + self._ckpt_every)
+            while len(self._rlog) > cap:
+                for h in self._rlog.popleft()[3]:
+                    h.release()
+                self._rlog_dropped += 1
+                dropped = self._rlog_dropped == 1
+        if dropped:
+            log.warning("%s: the replay log exceeded its cap (checkpoints not "
+                        "committing?): dropping the oldest; a restart may now forfeit",
+                        self.meta.instance_name)
+
+    def _materialize(self, seq: int, fetches) -> Optional[list]:
+        try:
+            return [f() for f in fetches]
+        except Exception as e:             # noqa: BLE001 — narrows the window only
+            log.warning("%s: carry snapshot @%d dropped (%r)", self.meta.instance_name,
+                        seq, e)
+            return None
+
+    def _note_drained(self, seq: int) -> None:
+        """Group ``seq``'s outputs are on the host: commit every snapshot it
+        covers (the ``carry`` fault site may corrupt a candidate) and prune
+        the replay log, the retune log and the wire log back to the older of
+        the two kept checkpoints, so a corrupted newest one can still fall
+        back."""
+        if seq > self._drained_seq:
+            self._drained_seq = seq
+        if not self._ckpt_every:
+            return
+        fplan = _faults.plan()
+        while self._pending_ckpts and self._pending_ckpts[0][0] <= seq:
+            s, fetches, spec = self._pending_ckpts.popleft()
+            leaves = self._materialize(s, fetches)
+            if leaves is None:
+                continue
+            if fplan.armed():
+                try:
+                    fplan.maybe("carry", self.meta.instance_name)
+                except _faults.InjectedFault as e:
+                    log.warning("%s: checkpoint @%d corrupted by an injected fault "
+                                "(%r)", self.meta.instance_name, s, e)
+                    leaves = [np.zeros(int(np.size(x)) + 1, np.uint8) for x in leaves] \
+                        or [np.zeros(1, np.uint8)]
+            if self._ckpts and self._ckpts[-1][0] >= s:
+                continue                     # a replay's commit of a covered group
+            self._ckpts.append((s, leaves, spec))
+            self._persist_ckpt(s, leaves)
+            if len(self._ckpts) >= 2:
+                floor = self._ckpts[0][0]
+                with self._rlog_lock:
+                    while self._rlog and self._rlog[0][0] <= floor:
+                        for h in self._rlog.popleft()[3]:
+                            h.release()
+                while self._retune_log and self._retune_log[0][0] <= floor:
+                    self._retune_log.popleft()
+                # the wire is not in the carry: keep the one in effect at
+                # the floor
+                while self._wire_log and self._wire_log[0][0] <= floor:
+                    self._wire_floor_fmt = self._wire_log.popleft()[1]
+
+    def _recovery_reset(self, purge_disk: bool = False) -> None:
+        """Drop every checkpoint and replay record (a fresh incarnation, or
+        a stream that ended cleanly), releasing what the log retained;
+        ``purge_disk`` (a clean end only) also removes the persisted
+        checkpoint, which a re-init must keep (a new process resumes from
+        it)."""
+        self._seq = 0
+        self._next_seq = 0
+        self._drained_seq = -1
+        with self._rlog_lock:
+            for e in self._rlog:
+                for h in e[3]:
+                    h.release()
+            self._rlog.clear()
+        self._ckpts.clear()
+        self._pending_ckpts.clear()
+        self._replay_queue.clear()
+        self._replay_high = -1
+        self._retune_log.clear()
+        self._replay_retunes.clear()
+        self._wire_log.clear()
+        self._replay_wire_switches.clear()
+        self._wire_floor_fmt = self.wire.name
+        self._wire_switch_target = None
+        if self._wirectl is not None:
+            self._wirectl.reset()
+        if purge_disk and self._ckpt_dir:
+            path = self._ckpt_file()
+
+            def purge():
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+
+            # behind any write still queued on the one persistence worker
+            self._persist_submit(purge)
+
+    # -- checkpoints on disk (config checkpoint_dir) ----------------------------
+    def _ckpt_file(self) -> Optional[str]:
+        """This kernel's snapshot file: its instance name and a hash of its
+        pipeline's signature (``utils/snapshot.py``), so a new process with
+        the same flowgraph finds it and another pipeline under the same name
+        does not."""
+        if not self._ckpt_dir:
+            return None
+        name = self.meta.instance_name or type(self).__name__
+        h = _snapshot.snapshot_signature(self.pipeline, name)
+        return os.path.join(self._ckpt_dir,
+                            f"{_snapshot.sanitize_name(name)}-{h}.ckpt.npz")
+
+    def _persist_submit(self, fn) -> None:
+        """Run a write or purge on the one persistence worker (inline with
+        the codec pool off)."""
+        if self._codec_pool is None:
+            fn()
+        else:
+            _snapshot.persist_executor().submit(fn)
+
+    def _persist_ckpt(self, seq: int, leaves) -> None:
+        """Write one committed checkpoint under ``checkpoint_dir``, best
+        effort, off this thread; a slow disk skips to the newest commit."""
+        path = self._ckpt_file()
+        if not path:
+            return
+        name = self.meta.instance_name
+        with self._persist_lock:
+            self._persist_box = (seq, leaves)
+            if self._persist_queued:
+                return                       # the queued write takes the newest
+            self._persist_queued = True
+
+        def write():
+            with self._persist_lock:
+                item, self._persist_box = self._persist_box, None
+                self._persist_queued = False
+            if item is not None and not _snapshot.write_snapshot(path, *item):
+                log.warning("%s: checkpoint persist @%d failed", name, item[0])
+
+        self._persist_submit(write)
+
+    def _load_disk_ckpt(self) -> Optional[tuple]:
+        """``(seq, leaves)`` of the persisted checkpoint; None when absent,
+        unreadable or failing its crc32."""
+        got = _snapshot.read_snapshot(self._ckpt_file() or "")
+        return None if got is None else got[:2]
+
+    def _device_lost(self, err) -> bool:
+        """Is the CUDA context gone (a sticky error)? Nothing in this
+        process can recover on it."""
+        if any(m in str(err).lower() for m in _STICKY):
+            return True
+        if self.inst.device.type == "cuda":
+            try:
+                import torch
+                torch.cuda.synchronize(self.inst.device)
+            except Exception as e:         # noqa: BLE001 — the context is lost
+                log.error("%s: the device is unusable (%r)", self.meta.instance_name, e)
+                return True
+        return False
+
+    async def recover(self, err) -> bool:
+        """Recover from ``err`` without losing the groups in flight: restore
+        the newest valid committed checkpoint and queue every logged group
+        after it for replay (those already emitted replay for their carry
+        only); the output is the unfailed run's bit for bit. False (the
+        caller then re-inits, forfeiting) with checkpoints off, with no
+        valid checkpoint the log reaches, or on a lost CUDA context. A
+        kernel that has dispatched nothing takes a persisted checkpoint
+        (``checkpoint_dir``) first. Host state (the group being filled,
+        output not yet emitted) was never lost and stays."""
+        if not self._ckpt_every or not self._ckpts:
+            return False
+        if self._device_lost(err):
+            log.error("%s: not recovering from a sticky CUDA error (%r)",
+                      self.meta.instance_name, err)
+            return False
+        self._quiesce()
+        fresh = self.pipeline.init_carry(self.inst.device)
+        spec = self.pipeline.carry_spec(fresh)
+        if self._seq == 0 and not self._rlog and self._ckpt_dir:
+            disk = self._load_disk_ckpt()
+            if disk is not None:
+                seq_d, leaves_d = disk
+                if self.pipeline.carry_matches(leaves_d, spec, fresh):
+                    self._drop_window()
+                    with self._carry_lock:
+                        self._carry = self.pipeline.restore_carry(leaves_d, spec,
+                                                                  self.inst.device)
+                    self._pending_ckpts.clear()
+                    self._replay_queue.clear()
+                    self._replay_retunes.clear()
+                    self._replay_wire_switches.clear()
+                    self._wire_switch_target = None
+                    # the disk carry is this incarnation's pre-stream restore
+                    # point from now on
+                    self._ckpts.clear()
+                    self._ckpts.append((-1, [np.asarray(x) for x in leaves_d], spec))
+                    log.info("%s: restored the carry persisted at group %d (%s) "
+                             "after %r", self.meta.instance_name, seq_d,
+                             self._ckpt_file(), err)
+                    return True
+                log.warning("%s: the persisted checkpoint does not fit the carry "
+                            "(pipeline changed?): ignored", self.meta.instance_name)
+        chosen, invalid = None, set()
+        for seq, leaves, lspec in reversed(list(self._ckpts)):
+            if leaves is None:               # the fresh-init sentinel
+                if not self._rlog or self._rlog[0][0] == 0:
+                    chosen = (seq, None, None)
+                    break
+                invalid.add(seq)
+                continue
+            if not self.pipeline.carry_matches(leaves, lspec, fresh):
+                log.warning("%s: checkpoint @%d failed its integrity check: falling "
+                            "back to the previous one", self.meta.instance_name, seq)
+                invalid.add(seq)
+                continue
+            if self._rlog and self._rlog[0][0] > seq + 1:
+                log.warning("%s: checkpoint @%d is not contiguous with the replay log "
+                            "(from %d)", self.meta.instance_name, seq, self._rlog[0][0])
+                invalid.add(seq)
+                continue
+            chosen = (seq, leaves, lspec)
+            break
+        if invalid:
+            self.checkpoints_rejected += len(invalid)
+            # a rejected candidate never becomes a later recovery's fallback
+            self._ckpts = deque((c for c in self._ckpts if c[0] not in invalid), maxlen=2)
+        if chosen is None:
+            return False
+        seq, leaves, lspec = chosen
+        self._drop_window()
+        with self._carry_lock:
+            # new tensors: the program copies them into its static carry
+            # buffers before its next replay (no new capture)
+            self._carry = fresh if leaves is None else \
+                self.pipeline.restore_carry(leaves, lspec, self.inst.device)
+            self._next_seq = seq + 1
+            # the surgery after the restore point, again at its groups
+            self._replay_retunes = deque(e for e in self._retune_log if e[0] > seq)
+        # the wire of the first replayed group, and the switches after it
+        self._wire_switch_target = None
+        fmt = self._wire_floor_fmt
+        for s, f in self._wire_log:
+            if s <= seq + 1:
+                fmt = f
+        self._replay_wire_switches = deque((s, f) for s, f in self._wire_log if s > seq + 1)
+        self._apply_wire_program(fmt, replay=True)
+        if self._wirectl is not None:
+            self._wirectl.reset()
+        self._pending_ckpts.clear()
+        self._replay_queue.clear()
+        replayed = 0
+        with self._rlog_lock:
+            entries = list(self._rlog)
+        for s, parts, metas, handles in entries:
+            if s <= seq:
+                continue
+            self._replay_queue.append((s, parts, metas, handles, s <= self._drained_seq))
+            self._replay_high = max(self._replay_high, s)
+            replayed += len(metas)
+        self.frames_replayed += replayed
+        log.info("%s: restored the carry checkpoint @%d, replaying %d frame(s) after %r",
+                 self.meta.instance_name, seq, replayed, err)
+        return True
 
 
 class _PathRatio:
@@ -1076,7 +1667,8 @@ class TpuFanoutKernel(TpuKernel):
     def __init__(self, fanout, frame_size: Optional[int] = None,
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
-                 frames_per_dispatch: Optional[int] = None, wire=None):
+                 frames_per_dispatch: Optional[int] = None, wire=None,
+                 checkpoint_every: Optional[int] = None):
         nb = fanout.n_branches
         self._pendings: List[Optional[np.ndarray]] = [None] * nb
         self._pending_tags_n: List[List[ItemTag]] = [[] for _ in range(nb)]
@@ -1084,7 +1676,7 @@ class TpuFanoutKernel(TpuKernel):
         super().__init__((), fanout.in_dtype, frame_size=frame_size, inst=inst,
                          frames_in_flight=frames_in_flight,
                          frames_per_dispatch=frames_per_dispatch, wire=wire,
-                         _pipeline=fanout)
+                         checkpoint_every=checkpoint_every, _pipeline=fanout)
 
     def _add_outputs(self) -> None:
         fo = self.pipeline
@@ -1153,17 +1745,23 @@ class TpuFanoutKernel(TpuKernel):
                 for j, raw in enumerate(raws)]
 
     def _drain_branches(self) -> None:
-        """Land the oldest group and emit it into every live branch."""
-        (land, release), out_metas, slot, held = self._inflight.popleft()
-        for j, flat in enumerate(land()):
-            if flat is None or self._branch_done[j]:
-                continue
-            tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
-                    for i, pb in enumerate(out_metas) for t in pb[j][1]]
-            self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
-                self.outputs[j], flat, tags)
+        """Land the oldest group and emit it into every live branch (a
+        replayed group emitted before the fault emits nothing), then mark it
+        drained."""
+        d = self._inflight.popleft()
+        land, release = d.land
+        flats = land()
+        if not d.drop:
+            for j, flat in enumerate(flats):
+                if flat is None or self._branch_done[j]:
+                    continue
+                tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
+                        for i, pb in enumerate(d.out_metas) for t in pb[j][1]]
+                self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
+                    self.outputs[j], flat, tags)
         release()
-        self._release_group(slot, held)
+        self._release_group(d.slot, d.held)
+        self._note_drained(d.seq)
 
     async def work(self, io, mio, meta):
         nb = self.pipeline.n_branches
@@ -1195,6 +1793,7 @@ class TpuFanoutKernel(TpuKernel):
 
         if eos and self._idle(inp) and all(p is None for p in self._pendings):
             io.finished = True
+            self._recovery_reset(purge_disk=True)
 
 
 class TpuDagKernel(TpuFanoutKernel):

@@ -1184,3 +1184,112 @@ def test_wire_switch_back_captures_nothing_on_card(cuda_device):
     assert kern._fn is first and first.captures == 1 and len(kern._programs) == 2
     (sc8,) = [fn for key, fn in kern._programs.items() if key[0] == "sc8"]
     assert sc8.carry is first.carry
+
+
+# ---------------------------------------------------------------------------
+# recovery: the carry checkpoint through the compiled program's static carry
+# ---------------------------------------------------------------------------
+
+def _leaves_of(carry):
+    from futuresdr_tpu_torch.ops import stages as T
+    return T._leaves(carry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spectrum fused", "fm kernel"])
+def test_snapshot_in_stream_order_equals_the_carry_after_its_group_on_card(cuda_device,
+                                                                           name):
+    """A snapshot started right behind group 1's replay and read only after
+    group 2's replay overwrote the static carry is still the carry after
+    group 1 (a clone taken there in another program), and not group 2's."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(71)
+    stages, frame = _chain(name)
+    # noise: the FM tone repeats every 32 ms, one reduced frame
+    frames = list(torch.from_numpy(_c64(rng, 2 * frame)).to(cuda_device).split(frame))
+    carries = []
+    for snapshot in (False, True):
+        pipe = T.Pipeline(_chain(name)[0], np.complex64)
+        fn, carry = pipe.compile(frame, cuda_device)
+        carry, _ = fn(carry, frames[0])
+        if snapshot:
+            fetches, spec = pipe.snapshot_carry(carry)
+        else:
+            after1 = [t.clone() for t in _leaves_of(carry)]
+        carry, _ = fn(carry, frames[1])
+        after2 = [t.clone() for t in _leaves_of(carry)]
+        carries.append((after1 if not snapshot else None, after2))
+    torch.cuda.synchronize()
+    got = [f() for f in fetches]
+    assert pipe.carry_matches(got, spec, carry)
+    want1, want2 = carries[0]
+    changed = False
+    for g, a, b in zip(got, want1, want2):
+        np.testing.assert_array_equal(g, a.cpu().numpy())
+        changed |= not np.array_equal(g, b.cpu().numpy())
+    assert changed, "group 2 left the carry as group 1 did: the check sees nothing"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spectrum fused", "fm kernel"])
+def test_restore_writes_the_static_carry_in_place_with_no_capture_on_card(cuda_device,
+                                                                          name):
+    """A restored carry goes through the program's load into the very static
+    buffers its kernels read and write (the rotator's phase, fir_fft's
+    history): same tensors, no new capture, and the frame after the restore
+    point comes out as it did the first time, bit for bit."""
+    from futuresdr_tpu_torch.ops import stages as T
+    rng = np.random.default_rng(72)
+    stages, frame = _chain(name)
+    pipe = T.Pipeline(stages, np.complex64)
+    fn, carry = pipe.compile(frame, cuda_device)
+    static = [t.data_ptr() for t in _leaves_of(fn.carry)]
+    frames = list(torch.from_numpy(_c64(rng, 4 * frame)).to(cuda_device).split(frame))
+    carry, _ = fn(carry, frames[0])
+    fetches, spec = pipe.snapshot_carry(carry)
+    carry, y1 = fn(carry, frames[1])
+    carry, _ = fn(carry, frames[2])
+    leaves = [f() for f in fetches]
+    carry = pipe.restore_carry(leaves, spec, cuda_device)
+    carry, y1_again = fn(carry, frames[1])
+    assert fn.captures == 1
+    assert [t.data_ptr() for t in _leaves_of(fn.carry)] == static
+    assert carry is fn.carry
+    assert torch.equal(y1_again, y1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spectrum fused", "fm kernel"])
+def test_chains_recover_bit_exact_at_k4_on_card(cuda_device, name):
+    """``VectorSource -> TpuKernel(restart) -> VectorSink`` at K = 4 with a
+    dispatch fault mid-stream: the output is the fault-free run's bit for
+    bit, frames were replayed, and the program captured once."""
+    from futuresdr_tpu_torch import BlockPolicy, Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.runtime import faults
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    rng = np.random.default_rng(73)
+    stages, frame = _chain(name)
+    host = _input(name, 13 * frame + frame // 3, rng)
+    out = {}
+    for fault in (False, True):
+        kern = TpuKernel(_chain(name)[0], np.complex64, frame_size=frame,
+                         inst=TpuInstance(cuda_device), frames_in_flight=3,
+                         frames_per_dispatch=4, wire="f32")
+        kern.policy = BlockPolicy(on_error="restart", max_restarts=3, backoff=0.0)
+        fg = Flowgraph()
+        snk = VectorSink(kern.pipeline.out_dtype)
+        fg.connect(VectorSource(host), kern, snk)
+        plan = faults.reset()
+        if fault:
+            plan.arm(f"dispatch:{fg.wrapped(kern).instance_name}", rate=0.5, seed=2,
+                     max_faults=1, transient=False)
+        try:
+            Runtime().run(fg, timeout=120)
+        finally:
+            faults.reset()
+        out[fault] = snk.items()
+        if fault:
+            assert fg.wrapped(kern).restarts == 1 and kern.frames_replayed > 0
+            assert kern._fn.captures == 1 and len(kern._programs) == 1
+    np.testing.assert_array_equal(out[True], out[False])

@@ -192,3 +192,38 @@ def test_uplink_modules_load_alone():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_utils_and_recovery_load_alone(tmp_path):
+    """The ``utils`` package (the carry snapshots on disk) and the recovery
+    path are the port's own: importing ``utils.snapshot`` and recovering a
+    kernel from a persisted checkpoint load neither JAX nor the JAX
+    package."""
+    mods = _submodules()
+    assert "futuresdr_tpu_torch.utils" in mods
+    assert "futuresdr_tpu_torch.utils.snapshot" in mods
+    code = ("import asyncio, sys\n"
+            "import numpy as np\n"
+            "from futuresdr_tpu_torch.utils import snapshot\n"
+            "from futuresdr_tpu_torch.config import config\n"
+            "from futuresdr_tpu_torch import BlockPolicy, Mocker\n"
+            "from futuresdr_tpu_torch.ops import rotator_stage\n"
+            "from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel\n"
+            f"config().checkpoint_dir = {str(tmp_path)!r}\n"
+            "def kern():\n"
+            "    k = TpuKernel([rotator_stage(0.1)], np.complex64, 1024,\n"
+            "                  inst=TpuInstance('cpu'), checkpoint_every=1)\n"
+            "    k.meta.instance_name = 'k'\n"
+            "    k.policy = BlockPolicy(on_error='restart')\n"
+            "    return k\n"
+            "m = Mocker(kern()); m.input('in', np.ones(4096, np.complex64))\n"
+            "m.init_output('out', 4096); m.init(); m.run()\n"
+            "snapshot.persist_executor().submit(lambda: None).result()\n"
+            "k2 = kern(); asyncio.run(k2.init(k2.mio, k2.meta))\n"
+            "assert asyncio.run(k2.recover(RuntimeError('restart')))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'futuresdr_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
