@@ -191,6 +191,26 @@ fused restarts):
     4 with cadence 0, 1 and 8 and no fault, the arena's peak pinned bytes,
     and the time from ``recover()`` to the first replayed output.
 
+27. precision and tuning: (a) the A/B matrix of the JAX package's
+    ``perf/precision_ab.py`` (the spectrum chain, on the ``fir`` kernel, fused
+    as ``fir_fft``; PFB-64 matmul and pallas; the decimating FIR,
+    ``lowpass(0.04, 128)``, D = 16, poly and pallas) at 2^18 in f32, auto
+    (40 dB), bf16 and int8 where the row has the rung, resident through
+    ``utils/measure.run_marginal``: rates, card µs a frame, each plan's
+    SNRs, the lowered program against f32 on fresh frames at the floor
+    ``budget - 10·log10(n_lowered)``, ``off`` the same object and bits;
+    (b) the int8 rungs on the card bit-equal to the CPU; (c) the plan sweep
+    (``tpu/kernel_tune.py``) over all six kernels, every candidate matching
+    its plain version, the winners cached, installed by a fresh
+    ``TpuKernel`` and taken by the next launch; (d) the credit seed, the
+    adaptive wire's start and a fused region's K from the cache; (e) the
+    spectrum chain streamed with ``interior_precision="auto"`` at K = 1 and
+    4 against f32, and ``ctrl`` retunes off and back mid-stream, one capture
+    a program; (f) after phase 7, each kernel's analytic bound
+    (``utils/roofline.py``) against PERF.md's within 2% and its share of
+    the bound at most 1.05; (g) the spectrum app with ``--bf16`` and
+    ``--autotune``.
+
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -3525,6 +3545,446 @@ def phase_recovery(dev, taps) -> dict:
     return {"to_first": to_first, "rates": phase_recovery_rates(dev, taps)}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: precision and tuning
+# ---------------------------------------------------------------------------
+
+AB_BUDGET = 40.0             # interior_snr_budget_db of the auto rows
+AB_K = (16, 64)              # utils/measure.run_marginal's two run lengths
+AB_SNR_FRAMES = 4            # fresh chained frames of each row's SNR against f32
+AB_MODES = ("f32", "auto", "bf16", "int8")
+PREC_STREAM_FRAMES = 24      # frames of the streamed precision runs (phase 27e)
+APP_PREC_SAMPLES = 1 << 22   # the spectrum app's samples with --bf16 / --autotune
+# PERF.md §6's Bound column (µs), three significant digits, at each timed call
+PERF_BOUND_US = {("fir", 1 << 18): 1.25, ("fir", 1 << 20): 5.01,
+                 ("fir_fft", 1 << 18): 1.26, ("fir_fft", 1 << 20): 5.01,
+                 ("rotator", 512_000): 2.45, ("rotator", 4_096_000): 19.6,
+                 ("poly_fir", 512_000): 1.80, ("poly_fir", 4_096_000): 14.4,
+                 ("poly_fir/channel", 512_000): 1.53, ("poly_fir/resampler", 512_000): 0.275,
+                 ("poly_fir/resampler", 4_096_000): 2.20,
+                 ("quad_demod", 512_000): 0.459, ("quad_demod", 4_096_000): 3.67,
+                 ("pfb", 1 << 18): 1.25, ("pfb", 1 << 21): 10.0,
+                 ("pfb/N=2048", 1 << 18): 1.34}
+PREC_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb")
+
+
+def ab_chains():
+    """The A/B matrix of the JAX package's ``perf/precision_ab.py``, and the
+    spectrum chain on the ``fir`` kernel: ``label -> (pipeline factory, has
+    an int8 rung)``."""
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import (Pipeline, channelizer_stage, fft_stage,
+                                                fir_fft_stage, fir_stage, mag2_stage)
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    dtaps = firdes.lowpass(0.04, 128).astype(np.float32)
+    c64 = np.complex64
+    return {
+        "spectrum": (lambda: Pipeline([fir_stage(taps), fft_stage(N_FFT), mag2_stage()],
+                                      c64), True),
+        "spectrum pallas": (lambda: Pipeline([fir_stage(taps, impl="pallas"),
+                                              fft_stage(N_FFT), mag2_stage()], c64), True),
+        "spectrum fused": (lambda: Pipeline([fir_fft_stage(taps, N_FFT), mag2_stage()],
+                                            c64, optimize=False), False),
+        "pfb-64 matmul": (lambda: Pipeline([channelizer_stage(64, impl="matmul")], c64),
+                          False),
+        "pfb-64 pallas": (lambda: Pipeline([channelizer_stage(64, impl="pallas")], c64),
+                          False),
+        "decimator poly": (lambda: Pipeline([fir_stage(dtaps, decim=16, impl="poly")], c64),
+                           True),
+        "decimator pallas": (lambda: Pipeline([fir_stage(dtaps, decim=16, impl="pallas")],
+                                              c64), True),
+    }
+
+
+def _run_frames(pipe, frames, dev):
+    """``pipe`` eagerly over ``frames`` (host arrays), the carry chained;
+    the outputs concatenated on the host."""
+    import torch
+    c, outs, fn = pipe.init_carry(dev), [], pipe.fn()
+    with torch.no_grad():
+        for f in frames:
+            c, y = fn(c, torch.from_numpy(f).to(dev))
+            outs.append(y.cpu())
+    return torch.cat(outs)
+
+
+def phase_precision_ab(dev) -> dict:
+    """27 (a): every row of the A/B matrix at 2^18 in f32, auto (40 dB), bf16
+    and int8 (where the row has the rung), resident, through
+    ``utils/measure.run_marginal`` (K = 16 and 64 chained frames, one CUDA
+    graph each): Msamples/s and card µs a frame; each plan's lowered count,
+    minimum SNR and end-to-end SNR, and the lowered program against f32 on
+    fresh frames, which must clear ``budget - 10·log10(n_lowered)``; ``off``
+    returns the pipeline itself, and its output bits are the f32 run's."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import precision as P
+    from futuresdr_tpu_torch.utils.measure import run_marginal_retry
+    frame = FRAMES[0]
+    rng = np.random.default_rng(SEED + 27)
+    x = torch.from_numpy(((rng.standard_normal(frame) + 1j * rng.standard_normal(frame))
+                          / np.sqrt(2)).astype(np.complex64)).to(dev)
+    fresh = [((rng.standard_normal(frame) + 1j * rng.standard_normal(frame))
+              / np.sqrt(2)).astype(np.complex64) for _ in range(AB_SNR_FRAMES)]
+    out = {}
+    for label, (make, has_int8) in ab_chains().items():
+        base = make()
+        off, _plan = P.plan_interior_precision(base, mode="off")
+        check(off is base, f"{label}: interior_precision off built a new pipeline")
+        ref = _run_frames(base, fresh, dev)
+        again = _run_frames(off, fresh, dev)
+        check(torch.equal(torch.view_as_real(ref) if ref.is_complex() else ref,
+                          torch.view_as_real(again) if again.is_complex() else again),
+              f"{label}: the off program's bits differ from the f32 run's")
+        for mode in AB_MODES:
+            if mode == "int8" and not has_int8:
+                continue
+            if mode == "f32":
+                pipe, plan = base, None
+            else:
+                pipe, plan = P.plan_interior_precision(base, mode=mode, budget_db=AB_BUDGET,
+                                                       device=dev)
+            rate = run_marginal_retry(pipe.fn(), pipe.init_carry(dev), x, k_pair=AB_K)
+            got = _run_frames(pipe, fresh, dev)
+            check(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                      else got).all()), f"{label} {mode}: non-finite output")
+            snr = float("inf") if pipe is base else snr_db(got, ref)
+            row = {"msps": rate / 1e6, "us": frame / rate * 1e6, "snr": snr}
+            if plan is not None:
+                row.update(lowered=plan.lowered, min_snr=plan.min_snr_db,
+                           e2e=plan.e2e_snr_db, declined_e2e=plan.declined_e2e,
+                           plan=[(e.stage, e.accum, e.edge) for e in plan.edges])
+                if mode == "auto" and plan.lowered:
+                    floor = AB_BUDGET - 10 * np.log10(plan.lowered)
+                    check(plan.e2e_snr_db >= floor and snr >= floor,
+                          f"{label} auto: end-to-end {plan.e2e_snr_db:.2f} dB, fresh "
+                          f"{snr:.2f} dB under the floor {floor:.2f} dB")
+            out[(label, mode)] = row
+            print(f"precision {label} {mode}: {row['msps']:.1f} Msamples/s, card "
+                  f"{row['us']:.2f} us a frame, against f32 {snr:.2f} dB"
+                  + ("" if plan is None else
+                     f", lowered {plan.lowered}, min {plan.min_snr_db} dB, e2e "
+                     f"{plan.e2e_snr_db} dB, plan {row['plan']}"))
+    return out
+
+
+def phase_precision_int8(dev) -> None:
+    """27 (b): the int8 rungs on the card equal their CPU computation bit
+    for bit (each quantized value one correctly rounded division, an exact
+    integer accumulator, the same dequantizing products): the spectrum
+    chain's banded int8 FIR (``torch._int_mm``) and the decimator's int8
+    shifted matvec, two chained 2^18 frames."""
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import Pipeline, fir_stage
+    rng = np.random.default_rng(SEED + 28)
+    frames = [((rng.standard_normal(FRAMES[0]) + 1j * rng.standard_normal(FRAMES[0]))
+               / np.sqrt(2)).astype(np.complex64) for _ in range(2)]
+    for label, stage in (
+            ("fir banded int8", lambda: fir_stage(firdes.lowpass(0.2, N_TAPS),
+                                                  precision="int8")),
+            ("decimator int8", lambda: fir_stage(firdes.lowpass(0.04, 128), decim=16,
+                                                 impl="pallas", precision="int8"))):
+        pipe = Pipeline([stage()], np.complex64)
+        card = _run_frames(pipe, frames, dev).numpy()
+        cpu = _run_frames(pipe, frames, "cpu").numpy()
+        same = np.array_equal(card.view(np.uint32), cpu.view(np.uint32))
+        print(f"precision int8 {label}: card against CPU bit-equal {same} "
+              f"(max |diff| {float(np.max(np.abs(card - cpu))):.3e})")
+        check(same, f"{label}: the card's int8 rung differs from the CPU's")
+
+
+def phase_plan_sweep(dev) -> dict:
+    """27 (c): the kernel-plan sweep over all six kernels at the main paths'
+    shapes (``tpu/kernel_tune.SHAPES``): every candidate held against its
+    plain version at phase 7's limits (a failure or a skip fails the
+    phase), the winners recorded in a cache under a temporary
+    ``autotune_cache_dir``, installed by a fresh ``TpuKernel``'s init, and
+    each kernel's next launch taking the recorded plan."""
+    import tempfile
+
+    import torch
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel, kernel_tune
+    at = sys.modules["futuresdr_tpu_torch.tpu.autotune"]
+    inst = TpuInstance(dev)
+    stages = ab_chains()["spectrum pallas"][0]().stages
+    old_dir = config().autotune_cache_dir
+    tmp = tempfile.mkdtemp(dir=str(_build_dir()))
+    config().autotune_cache_dir = tmp
+    try:
+        t0 = time.perf_counter()
+        winners = at.autotune_pallas_blocks(stages, np.complex64, inst=inst, reps=REPS,
+                                            force=True)
+        res = at.autotune_pallas_blocks.last_sweep
+        took = time.perf_counter() - t0
+        check(res["failures"] == [], f"plan sweep failures: {res['failures']}")
+        n_cand = 0
+        for kernel, by_shape in res["matrix"].items():
+            for shape, times in by_shape.items():
+                cands = ck.plan_candidates(kernel, *shape)
+                n_cand += len(cands)
+                check(set(times) == set(cands),
+                      f"plan sweep {kernel} {shape}: {len(cands) - len(times)} "
+                      f"candidate(s) not timed")
+                rule, best = cands[0], res["winners"][kernel][shape]
+                errs = res["errors"][kernel][shape]
+                print(f"plan sweep {kernel} [{res['labels'][(kernel, shape)]}]: "
+                      f"{len(cands)} layouts, max error {max(errs.values()):.2e} (tol "
+                      f"{kernel_tune.TOL[kernel]:g}); rule {tuple(rule)[:6]} "
+                      f"{times[rule] * 1e6:.2f} us, winner {tuple(best)[:6]} "
+                      f"{times[best] * 1e6:.2f} us, fastest "
+                      f"{min(times.values()) * 1e6:.2f} us")
+        print(f"plan sweep: {n_cand} layouts of {len(res['matrix'])} kernels in "
+              f"{took:.1f} s, device key {res['device']!r}")
+        check(set(res["winners"]) == set(ck.PLAN_KERNELS), "the sweep missed a kernel")
+        # a cache hit skips the sweep; a fresh kernel's init installs the plans
+        calls = {"n": 0}
+        real = kernel_tune.sweep_plans
+
+        def counting(*a, **k):
+            calls["n"] += 1
+            return real(*a, **k)
+
+        kernel_tune.sweep_plans = counting
+        try:
+            hit = at.autotune_pallas_blocks(stages, np.complex64, inst=inst)
+        finally:
+            kernel_tune.sweep_plans = real
+        check(calls["n"] == 0 and hit == winners, "the plan cache's hit ran a sweep")
+        ck.set_tuned_plans(None)
+        TpuKernel(stages, np.complex64, frame_size=FRAMES[0], inst=inst)
+        tuned = ck.tuned_plans()
+        check(tuned == ck.normalize_plans(winners), "a fresh TpuKernel did not install "
+                                                    "the recorded plans")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+        for kernel, label, spec in kernel_tune.SHAPES:
+            shape, args, call, _plain = kernel_tune._workload(kernel, spec, dev, 1, gen)
+            call(None, *args[0])
+            want = tuned[kernel][shape]
+            check(ck.last_plans.get(kernel) == want, f"{kernel} [{label}]: the next launch "
+                                                 f"took {ck.last_plans.get(kernel)}, the "
+                                                 f"recorded plan is {want}")
+        torch.cuda.synchronize()
+        print(f"plan sweep: a fresh TpuKernel installed the recorded plans; each "
+              f"kernel's next launch took its recorded plan")
+        return {"winners": res["winners"], "matrix": res["matrix"]}
+    finally:
+        ck.set_tuned_plans(None)
+        config().autotune_cache_dir = old_dir
+        at._streamed_cache.clear()
+        at._disk_memo.clear()
+
+
+def phase_cache_runtime(dev, taps) -> None:
+    """27 (d): the cache reaches the runtime: a ``TpuKernel`` seeds its
+    credits and its adaptive wire's start from the cached pick, and phase
+    22's linear region (two ``TpuKernel``s) launches fused with its cached
+    K."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import Head, NullSink, NullSource
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops.stages import fir_fft_stage, mag2_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    at = sys.modules["futuresdr_tpu_torch.tpu.autotune"]
+    inst = TpuInstance(dev)
+    plat = at.platform_of(inst)
+    frame = FRAMES[0]
+    c = config()
+    old = (c.tpu_adaptive_wire, c.tpu_frames_per_dispatch, c.tpu_inflight)
+    try:
+        c.tpu_adaptive_wire, c.tpu_frames_per_dispatch, c.tpu_inflight = True, 0, 0
+        stages = [fir_fft_stage(taps, N_FFT), mag2_stage()]
+        at.record_streamed_pick(stages, np.complex64, plat, 1, inflight=3)
+        at.record_wire_start(stages, np.complex64, plat, "sc8")
+        tk = TpuKernel(stages, np.complex64, frame_size=frame, inst=inst, wire="sc16")
+        check(tk.depth == 3 and tk._credits.credits == 3 and tk._credits.adaptive,
+              f"credit seed {tk.depth}, want the cached 3")
+        check(tk.wire.name == "sc8", f"adaptive wire starts at {tk.wire.name}, want sc8")
+        c.tpu_adaptive_wire = False
+        k = 4
+        region = [fir_fft_stage(taps, N_FFT), mag2_stage()]
+        at.record_streamed_pick(region, np.complex64, plat, k)
+        fg = Flowgraph()
+        k1 = TpuKernel(region[:1], np.complex64, frame_size=frame, inst=inst,
+                       frames_in_flight=IN_FLIGHT, wire=LINK)
+        k2 = TpuKernel(region[1:], np.complex64, frame_size=frame, inst=inst,
+                       frames_in_flight=IN_FLIGHT, wire=LINK)
+        fg.connect(NullSource(np.complex64), Head(np.complex64, 3 * k * frame), k1, k2,
+                   NullSink(np.float32))
+        Runtime().run(fg)
+        m = fg.wrapped(k1).metrics()
+        check(m.get("fused_devchain") is True and m["frames_per_dispatch"] == k and
+              m["devchain_frames"] == 3 * k and m["devchain_dispatches"] == 3,
+              f"the fused region did not launch with the cached K={k}: {m}")
+        print(f"cache: a TpuKernel seeded 3 credits and started its adaptive wire at sc8 "
+              f"from the cached pick; the fused spectrum region launched at the cached "
+              f"K={k} ({m['devchain_dispatches']} dispatches for {m['devchain_frames']} "
+              f"frames)")
+    finally:
+        c.tpu_adaptive_wire, c.tpu_frames_per_dispatch, c.tpu_inflight = old
+        at._streamed_cache.clear()
+
+
+def phase_precision_streamed(dev, taps) -> dict:
+    """27 (e): the spectrum chain streamed through ``TpuKernel`` with
+    ``interior_precision="auto"`` at K = 1 and 4, held against the f32
+    stream by SNR at the plan's floor; then mid-stream ``ctrl`` retunes of
+    the FIR to ``off`` and back to ``auto``, each landing at a quiescent
+    boundary with one capture of the new program, every frame emitted once."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops.stages import fft_stage, fir_stage, mag2_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    from futuresdr_tpu_torch.types import Pmt
+    inst = TpuInstance(dev)
+    frame = FRAMES[0]
+    n = PREC_STREAM_FRAMES * frame
+    rng = np.random.default_rng(SEED + 30)
+    data = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) / np.sqrt(2)
+            ).astype(np.complex64)
+
+    def stages():
+        return [fir_stage(taps, name="fir"), fft_stage(N_FFT), mag2_stage()]
+
+    def run(k, mode):
+        fg = Flowgraph()
+        tk = TpuKernel(stages(), np.complex64, frame_size=frame, inst=inst,
+                       frames_in_flight=IN_FLIGHT, frames_per_dispatch=k, wire=LINK,
+                       interior_precision=mode)
+        snk = VectorSink(np.float32)
+        fg.connect(VectorSource(data), tk, snk)
+        t0 = time.perf_counter()
+        Runtime().run(fg)
+        return snk.items(), tk, n / (time.perf_counter() - t0) / 1e6
+
+    out = {}
+    ref, _tk, _ = run(1, "off")
+    for k in (1, 4):
+        got, tk, msps = run(k, "auto")
+        plan = tk._precision_plan
+        check(plan is not None and plan.lowered >= 1, "the auto kernel lowered nothing")
+        floor = AB_BUDGET - 10 * np.log10(plan.lowered)
+        snr = snr_db(torch.from_numpy(got), torch.from_numpy(ref))
+        check(len(got) == len(ref) and snr >= floor,
+              f"auto K={k}: {len(got)} items, {snr:.2f} dB against f32 (floor {floor:.2f})")
+        check(tk._fn.captures == 1, f"auto K={k}: {tk._fn.captures} captures")
+        out[k] = (msps, snr)
+        print(f"precision streamed auto K={k}: {msps:.1f} input Msamples/s, {snr:.2f} dB "
+              f"against the f32 stream (floor {floor:.2f} dB, lowered {plan.lowered})")
+    # the mid-stream retunes: the source waits at each third of the stream
+    # for its gate, a retune lands, one more frame passes the switch
+    import threading
+    third = PREC_STREAM_FRAMES // 3 * frame
+    gates = [(third, threading.Event()), (third + frame, threading.Event()),
+             (2 * third, threading.Event()), (2 * third + frame, threading.Event())]
+    src = _gated_source(data, gates)
+    tk = TpuKernel(stages(), np.complex64, frame_size=frame, inst=inst,
+                   frames_in_flight=IN_FLIGHT, wire=LINK, interior_precision="auto")
+    snk = VectorSink(np.float32)
+    fg = Flowgraph()
+    fg.connect(src, tk, snk)
+    running = Runtime().start(fg)
+    ok = False
+    try:
+        for i, (mode, switches) in enumerate((("off", 1), ("auto", 2))):
+            _wait_for(lambda: len(snk.items()) == (i + 1) * third, "retune segment")
+            r = running.handle.call_sync(tk, "ctrl", Pmt.map({
+                "stage": "fir", "interior_precision": mode}))
+            check(r == Pmt.ok(), f"ctrl interior_precision={mode}: {r}")
+            gates[2 * i][1].set()
+            _wait_for(lambda: tk.precision_switches == switches, "precision switch")
+            check(tk._fn.captures == 1, f"the {mode} program captured {tk._fn.captures}x")
+            gates[2 * i + 1][1].set()
+        running.wait_sync()
+        ok = True
+    finally:
+        if not ok:
+            running.stop_sync()
+    got = snk.items()
+    check(len(got) == len(ref), f"retuned stream: {len(got)} items, want {len(ref)}")
+    snr = snr_db(torch.from_numpy(got), torch.from_numpy(ref))
+    check(snr >= AB_BUDGET - 10 * np.log10(2), f"retuned stream {snr:.2f} dB against f32")
+    print(f"precision streamed retunes: fir auto -> off -> auto mid-stream, "
+          f"{tk.precision_switches} switches at quiescent boundaries, one capture a "
+          f"program, {snr:.2f} dB against the f32 stream")
+    return out
+
+
+def phase_precision_apps() -> None:
+    """27 (g): the spectrum app's ``main()`` with ``--bf16`` and with
+    ``--autotune``, each a subprocess on the card, exits 0."""
+    import os
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    for flag in ("--bf16", "--autotune"):
+        cmd = [sys.executable, "-m", "futuresdr_tpu_torch.apps.spectrum", flag,
+               "--samples", str(APP_PREC_SAMPLES), "--ws-port", str(free_port())]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=MAIN_TIMEOUT_S,
+                             env=env)
+        tail = (res.stdout + res.stderr).strip().splitlines()[-1:] or [""]
+        print(f"spectrum main {flag}: exit {res.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s ({tail[0][:160]})")
+        check(res.returncode == 0, f"spectrum main {flag}: exit {res.returncode}:\n"
+                                   f"{(res.stdout + res.stderr)[-4000:]}")
+
+
+def phase_precision(dev, taps) -> dict:
+    """Phase 27, precision and tuning: (a) the A/B matrix, (b) the int8
+    rungs card against CPU, (c) the plan sweep, (d) the cache in the
+    runtime, (e) streamed with retunes, (g) the app's flags; (f), the
+    roofline, runs after phase 7's timings."""
+    ab = phase_precision_ab(dev)
+    phase_precision_int8(dev)
+    sweep = phase_plan_sweep(dev)
+    phase_cache_runtime(dev, taps)
+    streamed = phase_precision_streamed(dev, taps)
+    phase_precision_apps()
+    return {"ab": ab, "sweep": sweep, "streamed": streamed}
+
+
+def phase_roofline(rows) -> None:
+    """27 (f): each kernel row's analytic bound (``utils/roofline``) equals
+    PERF.md §6's Bound within 2%, and its measured share of the bound (bound
+    over the card's time) is at most 1.05."""
+    from futuresdr_tpu_torch.utils import roofline as R
+    shapes = {"fir": lambda f: R.kernel_cost("fir", n=f, nt=N_TAPS),
+              "fir_fft": lambda f: R.kernel_cost("fir_fft", n=f, nt=N_TAPS, n_fft=N_FFT),
+              "rotator": lambda f: R.kernel_cost("rotator", n=f),
+              "quad_demod": lambda f: R.kernel_cost("quad_demod", n=f // 4),
+              "poly_fir/channel": lambda f: R.kernel_cost("poly_fir", n=f, m=32, D=4),
+              "poly_fir/resampler": lambda f: R.kernel_cost(
+                  "poly_fir", n=f // 4, m=2, D=125, I=24, complex=False),
+              "pfb": lambda f: R.kernel_cost("pfb", n=f, N=PFB_N, K=12),
+              "pfb/N=2048": lambda f: R.kernel_cost("pfb", n=f, N=PFB_WIDE_N, K=12)}
+    peaks = R.CHIP_PEAKS["h100"]
+
+    def bound_us(kernel, f):
+        if kernel == "poly_fir":
+            return bound_us("poly_fir/channel", f) + bound_us("poly_fir/resampler", f)
+        b, fl = shapes[kernel](f)
+        return max(b / peaks["hbm_bytes"], fl / peaks["f32_flops"]) * 1e6
+
+    for f, k, v in rows:
+        key = (k, f)
+        if key not in PERF_BOUND_US:
+            continue
+        mine = bound_us(k, f)
+        share = mine / (v["ms"] * 1e3)
+        print(f"roofline {k} n={f}: analytic bound {mine:.4f} us, PERF.md {PERF_BOUND_US[key]} "
+              f"us, the script's {v['bound_ms'] * 1e3:.4f} us; kernel {v['ms'] * 1e3:.4f} us, "
+              f"share of the bound {share:.3f}")
+        check(abs(mine - PERF_BOUND_US[key]) <= 0.02 * PERF_BOUND_US[key] and
+              abs(mine - v["bound_ms"] * 1e3) <= 0.02 * mine,
+              f"roofline {k} n={f}: {mine:.4f} us against PERF.md's {PERF_BOUND_US[key]} "
+              f"and the timing's {v['bound_ms'] * 1e3:.4f}")
+        check(share <= 1.05, f"roofline {k} n={f}: {share:.3f} of the bound: the count is "
+                             f"wrong")
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -3728,6 +4188,13 @@ def main(argv=None) -> int:
     #     fused regions, checkpoints off, checkpoint_dir, isolate, rates
     recovery = path_phase("recovery", SPECTRUM_KERNELS + FM_KERNELS, phase_recovery,
                           dev, taps)
+    # 27. precision and tuning: the A/B matrix, the int8 rungs, the plan
+    #     sweep (all six kernels), the cache in the runtime, streamed retunes,
+    #     the app's flags
+    t27 = time.perf_counter()
+    precision = path_phase("precision", SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS,
+                           phase_precision, dev, taps)
+    print(f"phase 27: {time.perf_counter() - t27:.1f} s")
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -3751,6 +4218,8 @@ def main(argv=None) -> int:
         print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms{before}, plain "
               f"{v['plain_ms']:.4f} ms, library {lib}, bound {v['bound_ms']:.4f} ms "
               f"({v['bound_by']}){yard} [{card_line}]")
+    # 27 (f). the roofline: the analytic bounds against PERF.md, the shares
+    phase_roofline(rows)
     line = {"kernels": []}
     first = {**timings[FRAMES[0]], **fm_timings[FM_FRAMES[0]], **pfb_t[PFB_FRAMES[0]]}
     for k in SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS:
@@ -3816,6 +4285,13 @@ def main(argv=None) -> int:
     for (chain, k, ck, fault), dt in recovery["to_first"].items():
         print(f"recovery time {chain} K={k} cadence {ck} {fault}: {dt * 1e3:.3f} ms from "
               f"recover() to the first replayed output [{card_line}]")
+    for (label, mode), row in precision["ab"].items():
+        print(f"rate precision {label} {mode} resident frame={FRAMES[0]}: "
+              f"{row['msps']:.1f} Msamples/s (card {row['us']:.2f} us a frame), "
+              f"{row['snr']:.2f} dB against f32 [{card_line}]")
+    for k, (msps, snr) in precision["streamed"].items():
+        print(f"rate precision spectrum auto streamed frame={FRAMES[0]} K={k}: "
+              f"{msps:.1f} input Msamples/s, {snr:.2f} dB against f32 [{card_line}]")
     print(f"rest: ctrl retune round trip {rest_retune['rtt_ms']:.3f} ms, "
           f"{rest_retune['frames']} frames from the POST to the first retuned frame; "
           f"handle ctrl call {message['call_ms']:.3f} ms, metrics "

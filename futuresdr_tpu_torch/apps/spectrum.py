@@ -9,12 +9,16 @@ feeding a websocket for a GUI, a vector sink or a null sink. The default
 source is the Seify dummy radio (a tone at 0.1·fs in noise).
 
 Run: ``python -m futuresdr_tpu_torch.apps.spectrum --ws-port 9001`` (the
-card), ``--cpu`` for the CPU blocks. ``--bf16`` and ``--autotune`` are
-ROADMAP Queue 1 item 7.
+card), ``--cpu`` for the CPU blocks. ``--bf16`` lowers the device chain's
+interior precision to bf16 (``ops/precision.py``: the FFT's rung is a
+float32 transform on the card, its output edge is rounded through bf16; the
+CPU blocks are not lowered); ``--autotune`` sweeps frame size and in-flight
+depth on the card first (``tpu/autotune.autotune``) and runs at the pick.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
@@ -38,12 +42,14 @@ def spectrum_stages(fft_size: int = FFT_SIZE):
 
 def build_flowgraph(source=None, *, use_tpu: bool = True, fft_size: int = FFT_SIZE,
                     ws_port: Optional[int] = None, n_samples: Optional[int] = None,
-                    collect: bool = False, inst: Optional[TpuInstance] = None):
+                    collect: bool = False, inst: Optional[TpuInstance] = None,
+                    interior_precision: Optional[str] = None):
     """``source → [Head] → chain → sink``; returns ``(flowgraph, sink)``: the
     ``WebsocketSink`` with ``ws_port`` (its ``bound_port`` is set once the
     flowgraph runs; 0 takes a free port), else a ``VectorSink``
     (``collect``) or a ``NullSink``. ``source=None`` is the Seify dummy
-    radio; ``inst`` is the device of ``use_tpu`` (``None``: ``cuda:0``)."""
+    radio; ``inst`` is the device of ``use_tpu`` (``None``: ``cuda:0``);
+    ``interior_precision`` the device chain's (``None``: config)."""
     fg = Flowgraph()
     if source is None:
         source = SeifyBuilder().args("driver=dummy,throttle=false").build_source()
@@ -54,7 +60,8 @@ def build_flowgraph(source=None, *, use_tpu: bool = True, fft_size: int = FFT_SI
         last = head
     if use_tpu:
         chain = TpuKernel(spectrum_stages(fft_size), np.complex64,
-                          frame_size=max(16 * fft_size, 1 << 15), inst=inst)
+                          frame_size=max(16 * fft_size, 1 << 15), inst=inst,
+                          interior_precision=interior_precision)
         fg.connect(last, chain)
         last = chain
     else:
@@ -83,17 +90,25 @@ def main(argv=None):
     p.add_argument("--ws-port", type=int, default=9001)
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--autotune", action="store_true",
-                   help="sweep device frame sizes before starting (not ported)")
+                   help="sweep device frame sizes and in-flight depths before starting")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 FFT precision for display (not ported)")
+                   help="display-grade bf16 interior precision of the device chain "
+                        "(fine for a waterfall, not for decoding)")
     a = p.parse_args(argv)
-    for flag in ("bf16", "autotune"):
-        if getattr(a, flag):
-            raise NotImplementedError(f"spectrum --{flag}: ROADMAP Queue 1 item 7 "
-                                      f"(precision and tuning)")
+    inst = None
+    if a.bf16 and a.cpu:
+        print("note: --bf16 lowers only the device chain; this run uses the CPU "
+              "blocks at full precision", file=sys.stderr)
+    if a.autotune and not a.cpu:
+        from ..tpu import autotune, instance
+        inst = instance()
+        frame, depth, grid = autotune(spectrum_stages(a.fft), np.complex64, inst=inst)
+        inst.frame_size, inst.frames_in_flight = frame, depth
+        print(f"autotuned: frame={frame} depth={depth} ({grid})")
     src = SeifyBuilder().args(a.args).build_source()
     fg, _ = build_flowgraph(src, use_tpu=not a.cpu, fft_size=a.fft,
-                            ws_port=a.ws_port, n_samples=a.samples)
+                            ws_port=a.ws_port, n_samples=a.samples, inst=inst,
+                            interior_precision="bf16" if a.bf16 else None)
     Runtime().run(fg)
 
 

@@ -6,8 +6,9 @@ env layer; its TOML layers are not carried over), parsed by the field's
 type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
 ``FUTURESDR_TPU_TPU_WIRE_FORMAT=sc8``, ``FUTURESDR_TPU_XFER_BACKOFF=0.001``,
 ``FUTURESDR_TPU_CTRLPORT_ENABLE=true``,
-``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0`` or
-``FUTURESDR_TPU_BLOCK_POLICY=restart``. A ``tpu_`` field also reads the
+``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``,
+``FUTURESDR_TPU_BLOCK_POLICY=restart``, ``FUTURESDR_TPU_INTERIOR_PRECISION=auto``
+or ``FUTURESDR_TPU_AUTOTUNE_CACHE_DIR=/path``. A ``tpu_`` field also reads the
 reference's short form without the field's ``tpu_`` head, e.g.
 ``FUTURESDR_TPU_WIRE_FORMAT=sc16`` (the full name wins where both are set).
 """
@@ -53,7 +54,8 @@ class Config:
     tpu_frames_in_flight: int = 4          # dispatch groups staged or computing at once
     tpu_frames_per_dispatch: int = 0       # megabatch K: frames run through one
     #   compiled replay per dispatch (per-dispatch host cost paid once per K
-    #   frames); 0 = 1 here (the autotuned pick is not ported)
+    #   frames); 0 = 1, or a fused region's cached autotune_streamed pick
+    #   (runtime/devchain.py)
     tpu_inflight: int = 0                  # in-flight credit budget: 0 = an
     #   adaptive credit controller (tpu/kernel_block.py CreditController)
     #   seeded from tpu_frames_in_flight; N > 0 pins the budget (as does an
@@ -107,6 +109,16 @@ class Config:
     checkpoint_dir: str = ""               # persist each committed checkpoint
     #   under this directory (utils/snapshot.py), so a new process's kernel
     #   resumes from it; "" = off
+    # precision and tuning (ops/precision.py, tpu/autotune.py)
+    interior_precision: str = "off"        # "off" | "auto" | "bf16" | "int8":
+    #   the SNR-budgeted lowering of a device kernel's interior; off returns
+    #   the pipeline unchanged
+    interior_snr_budget_db: float = 40.0   # per-edge SNR floor of "auto"
+    interior_precision_overrides: str = ""  # per-stage pins,
+    #   "fir=off;fft2048=bf16"
+    autotune_cache_dir: str = ""           # the streamed-pick cache's JSON
+    #   store (tpu/autotune.py); "" = in memory only (the reference's default,
+    #   ~/.cache/futuresdr_tpu, lies outside the checkout: set it to persist)
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -41,8 +41,14 @@ which runs in float32. (The JAX kernel's bf16 mode also rounds its DFT
 matrix; an FFT has no such matrix, so the port keeps its twiddles in
 float32.) ``pfb`` in bf16 also rounds its branch bank ``v`` to bfloat16
 before the IDFT; its plain version, like the JAX kernel, then also rounds the
-cos/sin matrix, while the kernel keeps float32 twiddles. The TPU block-shape table (``DEFAULT_BLOCKS``) is TPU VMEM
-geometry and has no counterpart: each CUDA kernel picks its own tile.
+cos/sin matrix, while the kernel keeps float32 twiddles.
+
+The TPU block-shape table (``DEFAULT_BLOCKS``, ``set_tuned_blocks``) becomes
+a table of plans: each kernel's plan function (:func:`fir_plan`,
+:func:`fir_fft_plan`, :func:`poly_fir_plan`, :func:`pfb_plan`) returns the
+plan a sweep measured best at that shape (:func:`set_tuned_plans`,
+``tpu/kernel_tune.py``), else its rule's pick; a plan passed to a wrapper
+(``plan=``) beats both. ``rotator`` and ``quad_demod`` have one layout each.
 """
 
 from __future__ import annotations
@@ -59,7 +65,9 @@ import torch
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
            "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
            "poly_fir_plain", "quad_demod_plain", "pfb_plain", "launches",
-           "reset_launches", "capturing"]
+           "reset_launches", "capturing", "PLAN_KERNELS", "plan_candidates",
+           "set_tuned_plans", "tuned_plans", "normalize_plans", "fir_plan",
+           "fir_fft_plan", "poly_fir_plan", "pfb_plan"]
 
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
@@ -480,7 +488,7 @@ def _stockham_passes(n: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[in
 
 
 @functools.lru_cache(maxsize=256)
-def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
+def _fir_fft_rule(n_fft: int, n_taps: int) -> FirFftPlan:
     """The ``fir_fft`` kernel's plan for one row of ``n_fft`` samples.
 
     The MAC gives each thread ``outs`` consecutive filtered samples (a
@@ -560,8 +568,8 @@ def _poly_fir_smem(plan_tiling: str, m: int, D: int, I: int, rows: int, tile_row
 
 
 @functools.lru_cache(maxsize=1024)
-def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
-                  n_sm: int = 132) -> PolyFirPlan:
+def _poly_fir_rule(m: int, D: int, I: int, nq: int, is_complex: bool,
+                   n_sm: int = 132) -> PolyFirPlan:
     """The ``poly_fir`` kernel's plan for one call.
 
     ``rows`` (I = 1 with at least 8 tap rows): a group of C lanes (C = 4 at
@@ -631,7 +639,7 @@ def _fir_smem(warps: int, bufs: int, nt: int, span_shift: int, elt: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def fir_plan(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
+def _fir_rule(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
     """The ``fir`` kernel's plan for an ``n``-sample call with ``nt`` taps.
 
     Up to 16 warps a SM each filter one tile of 256 outputs; a longer frame
@@ -707,7 +715,7 @@ def _pfb_smem(n: int, k: int, rows: int, chunk: int, n_pass: int, pitch: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
+def _pfb_rule(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     """The ``pfb`` kernel's plan for ``t`` rows of ``n`` channels, ``k`` taps
     a branch.
 
@@ -742,6 +750,201 @@ def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
 ROTATOR_TILE = 512   # samples a block of csrc/rotator.cu takes: 256 threads, one
                      # 16-byte word (two samples) each
 QUAD_DEMOD_TILE = 256    # samples a block of csrc/quad_demod.cu takes, one a thread
+
+
+class FixedPlan(NamedTuple):
+    """The one layout of ``rotator`` and ``quad_demod`` (a sweep records it)."""
+    threads: int
+    tile: int                    # samples a block
+
+
+_ROTATOR_PLAN = FixedPlan(256, ROTATOR_TILE)
+_QUAD_DEMOD_PLAN = FixedPlan(256, QUAD_DEMOD_TILE)
+
+
+# ---------------------------------------------------------------------------
+# the tuned-plan table: a sweep's measured winners (tpu/kernel_tune.py), the
+# counterpart of the JAX package's DEFAULT_BLOCKS / set_tuned_blocks
+# ---------------------------------------------------------------------------
+
+#: the kernels whose plans a sweep measures
+PLAN_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb", "rotator", "quad_demod")
+_PLAN_TYPES = {"fir": FirPlan, "fir_fft": FirFftPlan, "poly_fir": PolyFirPlan,
+               "pfb": PfbPlan, "rotator": FixedPlan, "quad_demod": FixedPlan}
+#: each kernel's shape: the arguments of its plan function
+PLAN_SHAPES = {"fir": ("n", "nt", "is_complex", "n_sm"), "fir_fft": ("n_fft", "n_taps"),
+               "poly_fir": ("m", "D", "I", "nq", "is_complex", "n_sm"),
+               "pfb": ("n", "k", "t", "n_sm"), "rotator": ("n",), "quad_demod": ("n",)}
+_tuned_lock = threading.Lock()
+_tuned: Dict[str, Dict[tuple, tuple]] = {}     # kernel -> {shape: plan}
+#: the plan of each kernel's latest launch (a recorded plan reaches the kernel)
+last_plans: Dict[str, tuple] = {}
+
+
+def _as_tuple(v):
+    return tuple(_as_tuple(e) for e in v) if isinstance(v, (list, tuple)) else v
+
+
+def plan_candidates(kernel: str, *shape) -> list:
+    """Every layout ``kernel`` takes at ``shape`` (its plan function's
+    arguments), the rule's own pick first: the layouts the plan function
+    chooses between, each within the card's shared memory."""
+    shape = tuple(int(v) for v in shape)
+    if kernel == "fir":
+        n, nt, cplx, n_sm = shape
+        out = [_fir_rule(n, nt, bool(cplx), n_sm)]
+        elt, tiles = (8 if cplx else 4), -(-n // _FIR_WARP_OUTS)
+        pad = _FIR_OUTS.bit_length() - 1
+        for w in _FIR_WARPS:
+            for per_warp, bufs in ((1, 1), (2, 1), (2, 2)):
+                out.append(FirPlan(32 * w, -(-tiles // (w * per_warp)), pad, bufs,
+                                   _fir_smem(w, bufs, nt, pad, elt)))
+        out.append(FirPlan(32, tiles, _NO_PAD, 1, _fir_smem(1, 1, nt, _NO_PAD, elt)))
+    elif kernel == "fir_fft":
+        n_fft, nt = shape
+        rule = _fir_fft_rule(n_fft, nt)
+        out = [rule]
+        for span_shift, pad_shift, staged in (
+                (rule.outs.bit_length() - 1, 4, True), (rule.outs.bit_length() - 1, 4, False),
+                (_NO_PAD, _NO_PAD, False)):
+            out.append(rule._replace(
+                span_shift=span_shift, pad_shift=pad_shift, tw_staged=staged,
+                smem=_fir_fft_smem(n_fft, nt, span_shift, pad_shift,
+                                   rule.tw_len if staged else 0)))
+    elif kernel == "poly_fir":
+        m, D, I, nq, cplx, n_sm = shape
+        elt = 8 if cplx else 4
+        out = [_poly_fir_rule(m, D, I, nq, bool(cplx), n_sm)]
+        if I == 1 and m + 1 >= _ROWS_R:
+            c = 4 if D >= 4 else 2 if D >= 2 else 1
+            rows, pad = _ROWS_THREADS // c * _ROWS_R, _rows_pad(D, c, elt)
+            out.append(PolyFirPlan("rows", _ROWS_THREADS, rows, _ROWS_R, 1, c, pad,
+                                   _poly_fir_smem("rows", m, D, I, rows, _ROWS_R, c, pad,
+                                                  elt)))
+        rn = 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
+        J = (m + 1) * D
+        for tm in _GEMM_TM:
+            units = -(-tm // _GEMM_RM) * -(-I // rn)
+            ks = 1
+            while ks * 2 * units <= _GEMM_THREADS and J // (ks * 2) >= _GEMM_MIN_K:
+                ks *= 2
+            for k in sorted({ks, 1}):
+                out.append(PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, k, 0,
+                                       _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, k,
+                                                      0, elt)))
+    elif kernel == "pfb":
+        n, k, t, n_sm = shape
+        rule = _pfb_rule(n, k, t, n_sm)
+        out = [rule]
+        if rule.window:
+            for pad_shift, staged in ((4, True), (4, False), (_NO_PAD, False)):
+                pitch = _pfb_pitch(n, pad_shift, rule.radices)
+                for outs in _PFB_OUTS:
+                    for k_regs in sorted({rule.k_regs, 0}):
+                        rows = rule.groups * outs
+                        out.append(rule._replace(
+                            outs=outs, rows=rows, k_regs=k_regs, pitch=pitch,
+                            pad_shift=pad_shift, tw_staged=staged,
+                            smem=_pfb_smem(n, k, rows, rule.chunk, len(rule.radices),
+                                           pitch, rule.tw_len if staged else 0, k_regs)))
+        out.append(PfbPlan(False, 256, n, 1, 1, 1, 0, (), (), (), n, n, _NO_PAD, False,
+                           8 * n))
+    elif kernel == "rotator":
+        out = [_ROTATOR_PLAN]
+    elif kernel == "quad_demod":
+        out = [_QUAD_DEMOD_PLAN]
+    else:
+        raise ValueError(f"unknown kernel {kernel!r} (expected one of {PLAN_KERNELS})")
+    seen, uniq = set(), []
+    for p in out:
+        if getattr(p, "smem", 0) <= _MAX_SMEM and p not in seen:
+            seen.add(p)
+            uniq.append(p)
+    return uniq
+
+
+def normalize_plans(table) -> Dict[str, Dict[tuple, tuple]]:
+    """The valid part of a plan table ``{kernel: {shape: plan}}`` (shapes as
+    tuples or comma-joined strings, plans as tuples or JSON lists): an
+    unknown kernel, a shape of the wrong arity or a plan that is not one of
+    :func:`plan_candidates` at its shape is dropped. Raises nothing."""
+    out: Dict[str, Dict[tuple, tuple]] = {}
+    try:
+        items = dict(table or {}).items()
+    except (TypeError, ValueError):
+        return out
+    for kn, shapes in items:
+        if kn not in _PLAN_TYPES:
+            continue
+        try:
+            shape_items = dict(shapes).items()
+        except (TypeError, ValueError):
+            continue
+        for shape, plan in shape_items:
+            try:
+                if isinstance(shape, str):
+                    shape = tuple(int(v) for v in shape.split(","))
+                shape = tuple(int(v) for v in shape)
+                if len(shape) != len(PLAN_SHAPES[kn]):
+                    continue
+                plan = _PLAN_TYPES[kn](*_as_tuple(plan))
+                if plan in plan_candidates(kn, *shape):
+                    out.setdefault(kn, {})[shape] = plan
+            except (TypeError, ValueError):
+                continue
+    return out
+
+
+def plans_to_json(table) -> Dict[str, Dict[str, list]]:
+    """A plan table in its cache form: shapes comma-joined, plans as lists."""
+    def lst(v):
+        return [lst(e) for e in v] if isinstance(v, tuple) else v
+    return {kn: {",".join(str(int(v)) for v in shape): lst(tuple(plan))
+                 for shape, plan in shapes.items()}
+            for kn, shapes in normalize_plans(table).items()}
+
+
+def set_tuned_plans(table) -> None:
+    """Install measured plans process-wide (``None``/``{}`` clears); the part
+    :func:`normalize_plans` drops is ignored, never raised."""
+    good = normalize_plans(table)
+    with _tuned_lock:
+        _tuned.clear()
+        _tuned.update(good)
+
+
+def tuned_plans() -> Dict[str, Dict[tuple, tuple]]:
+    """The installed table (the rules fill every shape it does not hold)."""
+    with _tuned_lock:
+        return {k: dict(v) for k, v in _tuned.items()}
+
+
+def _tuned_plan(kernel: str, shape: tuple):
+    hit = _tuned.get(kernel)
+    return None if hit is None else hit.get(shape)
+
+
+def fir_plan(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
+    """The ``fir`` plan of a call: the tuned table's, else :func:`_fir_rule`."""
+    return _tuned_plan("fir", (n, nt, int(is_complex), n_sm)) or \
+        _fir_rule(n, nt, is_complex, n_sm)
+
+
+def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
+    """The ``fir_fft`` plan: the tuned table's, else :func:`_fir_fft_rule`."""
+    return _tuned_plan("fir_fft", (n_fft, n_taps)) or _fir_fft_rule(n_fft, n_taps)
+
+
+def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
+                  n_sm: int = 132) -> PolyFirPlan:
+    """The ``poly_fir`` plan: the tuned table's, else :func:`_poly_fir_rule`."""
+    return _tuned_plan("poly_fir", (m, D, I, nq, int(is_complex), n_sm)) or \
+        _poly_fir_rule(m, D, I, nq, is_complex, n_sm)
+
+
+def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
+    """The ``pfb`` plan: the tuned table's, else :func:`_pfb_rule`."""
+    return _tuned_plan("pfb", (n, k, t, n_sm)) or _pfb_rule(n, k, t, n_sm)
 
 
 def _stream_head(x: torch.Tensor) -> int:
@@ -831,6 +1034,7 @@ def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tenso
         return torch.empty_like(x)          # nothing to launch
     if plan is None:
         plan = fir_plan(x.shape[0], nt, x.is_complex(), _sm_count(x.device))
+    last_plans["fir"] = plan
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"fir: {nt} taps need {plan.smem} B of shared memory per "
                          f"block, over the card's {_MAX_SMEM} B")
@@ -847,18 +1051,20 @@ def _launch_fir(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tenso
 
 
 def fir(x: torch.Tensor, taps: torch.Tensor,
-        precision: Optional[str] = None) -> torch.Tensor:
+        precision: Optional[str] = None, plan: Optional[FirPlan] = None) -> torch.Tensor:
     """Causal FIR of a 1-D float32 or complex64 stream from a zero initial
-    state; real float32 taps. Any frame length."""
+    state; real float32 taps. Any frame length. ``plan`` (one of
+    :func:`plan_candidates`) beats the tuned table and the rule."""
     if x.device.type == "cpu":
         return fir_plain(x, taps, precision)
     bf16 = _check_precision(precision)
     _check_args(None, x, taps)
-    return _launch_fir(None, x, taps, bf16)
+    return _launch_fir(None, x, taps, bf16, plan)
 
 
 def fir_continue(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
-                 precision: Optional[str] = None) -> torch.Tensor:
+                 precision: Optional[str] = None,
+                 plan: Optional[FirPlan] = None) -> torch.Tensor:
     """Streaming continuation: filter ``x`` given the previous ``n_taps − 1``
     input samples in ``hist``; returns ``len(x)`` outputs. The taps may come
     from a stage carry, so a retune reaches the kernel."""
@@ -866,11 +1072,12 @@ def fir_continue(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
         return fir_continue_plain(hist, x, taps, precision)
     bf16 = _check_precision(precision)
     _check_args(hist, x, taps)
-    return _launch_fir(hist, x, taps, bf16)
+    return _launch_fir(hist, x, taps, bf16, plan)
 
 
 def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
-            precision: Optional[str] = None) -> torch.Tensor:
+            precision: Optional[str] = None,
+            plan: Optional[FirFftPlan] = None) -> torch.Tensor:
     """Fused FIR → forward FFT: ``fft(filtered.reshape(-1, n_fft))`` flattened,
     with ``filtered`` the causal FIR of ``x`` after ``hist`` (the previous
     ``n_taps − 1`` samples). Real taps, ``2 ≤ n_taps ≤ n_fft``, ``len(x)`` a
@@ -881,7 +1088,7 @@ def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
     bf16 = _check_precision(precision)
     nt = _check_fir_fft(hist, x, taps, n_fft)
     _check_cuda(hist, x, taps)
-    plan = fir_fft_plan(n_fft, nt)
+    plan = plan or fir_fft_plan(n_fft, nt)
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"fir_fft: n_fft={n_fft} with {nt} taps needs {plan.smem} B "
                          f"of shared memory per block, over the card's {_MAX_SMEM} B")
@@ -893,6 +1100,7 @@ def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
 def _launch_fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
                     bf16: bool, plan: FirFftPlan) -> torch.Tensor:
     nt = int(taps.shape[0])
+    last_plans["fir_fft"] = plan
     tw = _fft_table(n_fft, plan.radices, x.device)
     lib = _lib("fir_fft")
     y = torch.empty(x.shape[0], dtype=torch.complex64, device=x.device)
@@ -933,6 +1141,7 @@ def rotator(x: torch.Tensor, ph0: torch.Tensor,
                                ph_next.data_ptr(), n, head, _stream(x))
     _raise_on(err, "rotator")
     _count("rotator")
+    last_plans["rotator"] = _ROTATOR_PLAN
     return y, ph_next
 
 
@@ -956,11 +1165,13 @@ def quad_demod(prev: torch.Tensor, x: torch.Tensor,
                                   last.data_ptr(), x.shape[0], float(gain), _stream(x))
     _raise_on(err, "quad_demod")
     _count("quad_demod")
+    last_plans["quad_demod"] = _QUAD_DEMOD_PLAN
     return y, last
 
 
 def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
-             precision: Optional[str] = None) -> torch.Tensor:
+             precision: Optional[str] = None,
+             plan: Optional[PolyFirPlan] = None) -> torch.Tensor:
     """Polyphase decimating FIR at the decimated rate: with
     ``rows = cat([hist, x]).reshape(-1, D)``, ``y[q] = Σ_a rows[q+m−a]·W[a]``.
     ``W``: real ``[m+1, D]`` (returns ``[nq]``) or ``[m+1, D, I]`` (the
@@ -977,7 +1188,7 @@ def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
     y = torch.empty(shape, dtype=x.dtype, device=x.device)
     if nq == 0:
         return y                            # nothing to launch
-    plan = poly_fir_plan(m, D, I, nq, x.is_complex(), _sm_count(x.device))
+    plan = plan or poly_fir_plan(m, D, I, nq, x.is_complex(), _sm_count(x.device))
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"poly_fir: W {tuple(W.shape)} needs {plan.smem} B of shared "
                          f"memory per block, over the card's {_MAX_SMEM} B")
@@ -988,6 +1199,7 @@ def _launch_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor, y: to
                      bf16: bool, plan: PolyFirPlan) -> torch.Tensor:
     m, D = int(W.shape[0]) - 1, int(W.shape[1])
     I = int(W.shape[2]) if W.dim() == 3 else 1
+    last_plans["poly_fir"] = plan
     lib = _lib("poly_fir")
     with _card(x):
         err = lib.fsdr_poly_fir(hist.data_ptr(), x.data_ptr(), W.data_ptr(),
@@ -1002,7 +1214,7 @@ def _launch_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor, y: to
 
 
 def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
-        precision: Optional[str] = None) -> torch.Tensor:
+        precision: Optional[str] = None, plan: Optional[PfbPlan] = None) -> torch.Tensor:
     """Critically sampled PFB analysis bank: with ``ext = cat([hist, x])`` and
     the commutated rows ``rows[s, c] = ext[s·N + N−1−c]``, the branch MAC
     ``v[s, c] = Σ_k taps[k, c]·rows[s+K−1−k, c]`` and the IDFT across branches
@@ -1017,7 +1229,7 @@ def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     _check_cuda(hist, x)
     if taps.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {taps.device}")
-    plan = pfb_plan(N, K, t, _sm_count(x.device))
+    plan = plan or pfb_plan(N, K, t, _sm_count(x.device))
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"pfb: N={N} needs {plan.smem} B of shared memory per block "
                          f"for its v row, over the card's {_MAX_SMEM} B")
@@ -1041,6 +1253,7 @@ def _pfb_consts(plan: PfbPlan, n: int, device: torch.device) -> tuple:
 def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torch.Tensor,
                 bf16: bool, plan: PfbPlan) -> torch.Tensor:
     K, N = int(taps.shape[0]), int(taps.shape[1])
+    last_plans["pfb"] = plan
     tw, ints = _pfb_consts(plan, N, x.device)
     lib = _lib("pfb")
     with _card(x):

@@ -17,6 +17,11 @@ a sink.
 Carry trees have the same leaves, shapes and dtypes as the JAX stages on the
 CPU, so a carry converts across (``convert.carry_from_numpy``).
 
+Each kernel-backed stage offers the interior-precision hook ``lower`` (the
+planner in ``ops/precision.py``): ``bf16`` everywhere, and the ``int8`` rung
+of the FIR family (:func:`fir_stage`'s banded int8 matmul, the polyphase
+decimator's int8 shifted matvec), real taps only.
+
 Ported so far: the north-star spectrum chain, :func:`fir_stage`
 (overlap-save and ``impl="pallas"``, the hand-written ``fir`` kernel),
 :func:`fft_stage`, :func:`mag2_stage` and :func:`fir_fft_stage` (the fused
@@ -28,8 +33,7 @@ and :func:`decimate_stage`; and the PFB channelizer,
 :func:`channelizer_stage` (``impl="pallas"``, the hand-written ``pfb``
 kernel), with the other single-chain stages: :func:`fftshift_stage`,
 :func:`log10_stage`, :func:`apply_stage`, :func:`moving_avg_stage`,
-:func:`agc_stage` and :func:`lora_demod_stage`. Routes outside them raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+:func:`agc_stage` and :func:`lora_demod_stage`.
 """
 
 from __future__ import annotations
@@ -55,9 +59,6 @@ __all__ = ["Stage", "Pipeline", "CompiledPipeline", "EagerProgram", "MergeStage"
            "apply_stage", "channelizer_stage", "lora_demod_stage", "agc_stage",
            "moving_avg_stage"]
 
-_PRECISION_ITEM = "ROADMAP Queue 1 item 7 (precision and tuning)"
-
-
 @dataclass
 class Stage:
     """One streaming stage.
@@ -75,7 +76,14 @@ class Stage:
     name: str = "stage"
     lti: Optional[Tuple[np.ndarray, int, int, str]] = None  # (taps, decim, fft_len, impl)
     update: Optional[Callable[..., Any]] = None   # host-side ``(carry, **params) -> carry``
-    lower: Optional[Callable[[str], Optional["Stage"]]] = None  # interior precision
+    lower: Optional[Callable[[str], Optional["Stage"]]] = None
+    #   interior-precision hook (ops/precision.py): this stage rebuilt at the
+    #   given precision ("bf16"; "int8" where the stage declares it), or None
+    compute_dtype: str = "f32"                    # "f32" | "bf16" | "int8": the
+    #   dominant accumulation type (utils/roofline.py keys the peak on it)
+    cost: Optional[Callable[[int, np.dtype], Tuple[float, float]]] = None
+    #   (n input items, input dtype) -> (bytes, operations): the least the
+    #   stage must move and compute (utils/roofline.py); None = in + out bytes
     route: Optional[Tuple[Optional[str], Optional[str], Optional[str]]] = None
     #   (impl, fft_impl, precision) pins; LTI merging keeps them only when both agree
 
@@ -153,10 +161,6 @@ def concat_merge_stage(k: int, name: str = "concat_merge") -> MergeStage:
         return carry, torch.cat(xs)
 
     return MergeStage(fn, _stateless, k, "concat", Fraction(1, 1), None, 1, name)
-
-
-def _no_lowering(p: str):
-    raise NotImplementedError(f"interior-precision lowering to {p!r}: {_PRECISION_ITEM}")
 
 
 def _stateless(dtype, device) -> torch.Tensor:
@@ -427,6 +431,9 @@ class FanoutPipeline:
             raise ValueError("FanoutPipeline needs >= 2 branches "
                              "(use Pipeline for linear chains)")
         self.in_dtype = np.dtype(in_dtype)
+        # the caller's lists before any merge (a tuned pick is also recorded
+        # under them, tpu/autotune.py)
+        self.raw_stage_lists = (list(producer_stages), [list(b) for b in branch_stage_lists])
         self.producer = Pipeline(list(producer_stages), in_dtype, optimize=optimize)
         self.branches = [Pipeline(list(bs), self.producer.out_dtype, optimize=optimize)
                          for bs in branch_stage_lists]
@@ -1061,6 +1068,10 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
     flight. ``precision="bf16"`` runs the ``fir`` kernel's bf16 mode; on the
     overlap-save route the FFTs stay float32 (``torch.fft`` has no bf16
     complex transform; the JAX package's FFTs off the TPU ignore the pin too).
+    ``precision="int8"`` (real taps) runs the convolution as a banded matmul
+    over ``Bq``-sample tiles, each with its left neighbour (:func:`_int8_banded_fir`),
+    both operands absmax-quantized to int8 on the device; the carry is the
+    float32 stage's, leaf for leaf. ``lower(p)`` rebuilds the stage at ``p``.
     """
     if impl not in ("auto", "os", "pallas", "poly"):
         raise ValueError(f"impl must be auto, os, pallas or poly, got {impl!r}")
@@ -1070,10 +1081,13 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
             or (impl == "auto" and decim > 1 and nt <= 32 * decim):
         return _poly_decim_fir_stage(taps, decim, fft_len, name, impl,
                                      precision=precision)
-    if precision == "int8":
-        raise NotImplementedError(f"fir_stage precision='int8': {_PRECISION_ITEM}")
-    _check_fft_pins(fft_impl, precision)
     built_real = np.isrealobj(taps)
+    if precision == "int8":
+        if not built_real:
+            raise ValueError("precision='int8' requires real taps")
+        _check_fft_pins(fft_impl, None)
+    else:
+        _check_fft_pins(fft_impl, precision)
     if impl == "pallas" and not (built_real and nt >= 2):
         raise ValueError("impl='pallas' requires >= 2 real taps "
                          "(complex taps: use the overlap-save route)")
@@ -1081,6 +1095,11 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
     while L < 2 * nt:                   # hop must comfortably exceed the tap overlap
         L *= 2
     fft_len = 2 * L
+    # the int8 tile: a power of two dividing L that covers the tap overlap
+    # in one left-neighbour tile (Bq >= nt - 1)
+    Bq = min(L, 128)
+    while Bq < nt - 1:
+        Bq *= 2
 
     def _spectra(t):
         full = np.fft.fft(np.concatenate([t, np.zeros(fft_len - nt)])
@@ -1093,6 +1112,18 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
 
     def fn(carry, x):
         Hc, tt, tail = carry
+        if precision == "int8":
+            ext8 = torch.cat([tail[L - Bq:], x])
+            if x.is_complex():
+                y = torch.complex(_int8_banded_fir(ext8.real, tt, nt, Bq),
+                                  _int8_banded_fir(ext8.imag, tt, nt, Bq))
+            else:
+                y = _int8_banded_fir(ext8, tt, nt, Bq)
+            y = y.to(x.dtype)
+            if decim > 1:
+                y = y[::decim]
+            # frames are L-multiples: the new tail is the frame's last L samples
+            return (Hc, tt, x[x.shape[0] - L:].clone()), y
         ext = torch.cat([tail, x])                   # [(S+1)·L], S = n // L
         if impl == "pallas":
             y = cuda_kernels.fir_continue(ext[L - (nt - 1):L], x, tt,
@@ -1142,9 +1173,78 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
         Hn = full if Hc_old.shape[0] == fft_len else half
         return (_on(tail, Hn), _on(tail, np.real(new).astype(np.float32)), tail)
 
+    def _lower(p: str) -> Optional[Stage]:
+        if p == "bf16" or (p == "int8" and built_real):
+            return fir_stage(taps, decim=decim, fft_len=fft_len, name=name, impl=impl,
+                             fft_impl=fft_impl, precision=p)
+        return None
+
+    def cost(n, dt):
+        e = dt.itemsize
+        if impl == "pallas" and precision != "int8":
+            return _roofline().kernel_cost("fir", n=n, nt=nt, complex=e == 8)
+        b = n * e + (n // decim) * e + 4 * nt
+        if precision == "int8":              # the banded int8 product a plane
+            return b, 2 * (e // 4) * 2 * Bq * n
+        return b, (e // 4) * n * (10 * np.log2(2 * L) + 6)   # FFT, product, IFFT
+
     return Stage(fn, init_carry, Fraction(1, decim), None, int(np.lcm(L, decim)),
                  name, lti=(taps, decim, fft_len, impl), update=update,
-                 lower=_no_lowering, route=(impl, fft_impl, precision))
+                 lower=_lower, compute_dtype=_compute_dtype(precision),
+                 cost=cost, route=(impl, fft_impl, precision))
+
+
+def _roofline():
+    from ..utils import roofline
+    return roofline
+
+
+def _compute_dtype(precision: Optional[str]) -> str:
+    return precision if precision in ("bf16", "int8") else "f32"
+
+
+def _quantize(v: torch.Tensor):
+    """Symmetric int8 quantization on the device: ``(round(v / s), s)`` with
+    ``s = max(absmax(v), 1e-30) / 127`` a float32 scalar tensor (no host
+    read, so a CUDA graph can capture it); ``torch.round`` rounds half to
+    even, as the JAX package's ``jnp.round``."""
+    s = torch.clamp_min(v.abs().max(), 1e-30) / 127.0
+    return torch.round(v / s).to(torch.int8), s
+
+
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of int8 matrices with an exact int32 accumulator:
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM on a card). On a card it needs
+    more than 16 rows, so a shorter ``a`` is padded with zero rows (exact),
+    and K and N multiples of 8, else it raises."""
+    if a.device.type == "cuda":
+        if a.shape[1] % 8 or b.shape[1] % 8:
+            raise ValueError(f"int8 matmul {tuple(a.shape)} @ {tuple(b.shape)}: "
+                             f"cuBLASLt needs K and N multiples of 8")
+        m = a.shape[0]
+        if m <= 16:
+            a = torch.cat([a, a.new_zeros((17 - m, a.shape[1]))])
+            return torch._int_mm(a.contiguous(), b)[:m]
+    return torch._int_mm(a.contiguous(), b)
+
+
+def _int8_banded_fir(ext8: torch.Tensor, tt: torch.Tensor, nt: int, Bq: int) -> torch.Tensor:
+    """The int8 rung of :func:`fir_stage` on one real plane: ``ext8`` is
+    ``Bq`` history samples and the frame. With ``T[j, i] = taps[Bq + i − j]``
+    (zero out of range), tile s's output is ``y[s·Bq + i] = Σ_j
+    ext8[s·Bq + j]·T[j, i]``: one ``[S, 2Bq] @ [2Bq, Bq]`` int8 product with
+    int32 accumulation, dequantized by the two scales."""
+    jj = torch.arange(2 * Bq, device=tt.device)[:, None]
+    ii = torch.arange(Bq, device=tt.device)[None, :]
+    kk = Bq + ii - jj
+    T = torch.where((kk >= 0) & (kk < nt), tt[torch.clamp(kk, 0, nt - 1)],
+                    torch.zeros((), dtype=tt.dtype, device=tt.device))
+    Tq, sw = _quantize(T)
+    q, sx = _quantize(ext8)
+    rq = q.reshape(-1, Bq)                               # [S+1, Bq]
+    blk = torch.cat([rq[:-1], rq[1:]], dim=1)            # [S, 2Bq]
+    acc = _int8_mm(blk, Tq)
+    return acc.reshape(-1).to(torch.float32) * (sx * sw)
 
 
 def fft_stage(n: int, direction: str = "forward", shift: bool = False,
@@ -1181,8 +1281,18 @@ def fft_stage(n: int, direction: str = "forward", shift: bool = False,
             y = torch.fft.fftshift(y, dim=1)
         return carry, y.reshape(-1).to(torch.complex64)
 
+    def _lower(p: str) -> Optional[Stage]:
+        if p != "bf16":
+            return None
+        return fft_stage(n, direction, shift, normalize, window, impl=impl,
+                         precision="bf16")
+
+    def cost(k, dt):
+        return k * dt.itemsize + 8 * k, 5 * k * np.log2(n)
+
     return Stage(fn, _stateless, Fraction(1, 1), np.complex64, n, f"fft{n}",
-                 lower=_no_lowering, route=(impl, None, precision))
+                 lower=_lower, compute_dtype=_compute_dtype(precision), cost=cost,
+                 route=(impl, None, precision))
 
 
 def fir_fft_stage(taps, n_fft: int, name: Optional[str] = None,
@@ -1192,9 +1302,11 @@ def fir_fft_stage(taps, n_fft: int, name: Optional[str] = None,
     ``Pipeline([fir_stage(taps), fft_stage(n_fft)])`` without the filtered
     stream reaching device memory. Real taps, ``2 <= n_taps <= n_fft``.
     Carry: ``(taps_f32, tail[n_taps − 1])``; ``update(taps=…)`` swaps the
-    taps with no rebuild."""
+    taps with no rebuild. ``precision="bf16"`` runs the kernel's bf16 mode;
+    there is no int8 form (the JAX package's has none either)."""
     if precision == "int8":
-        raise NotImplementedError(f"fir_fft_stage precision='int8': {_PRECISION_ITEM}")
+        raise ValueError("fir_fft_stage has no int8 form (its lower hook declines "
+                         "the rung): use precision='bf16' or None")
     if precision not in (None, "f32", "bf16"):
         raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
     taps = np.asarray(taps)
@@ -1230,8 +1342,18 @@ def fir_fft_stage(taps, n_fft: int, name: Optional[str] = None,
         _tt, tail = carry
         return (_on(tail, new.astype(np.float32)), tail)
 
+    def _lower(p: str) -> Optional[Stage]:
+        if p != "bf16":
+            return None
+        return fir_fft_stage(taps, n_fft, name=name, precision="bf16")
+
+    def cost(k, dt):
+        return _roofline().kernel_cost("fir_fft", n=k, nt=nt, n_fft=n_fft,
+                                       complex=dt.itemsize == 8)
+
     return Stage(fn, init_carry, Fraction(1, 1), np.complex64, n_fft, name,
-                 update=update, lower=_no_lowering, route=("pallas", None, precision))
+                 update=update, lower=_lower, compute_dtype=_compute_dtype(precision),
+                 cost=cost, route=("pallas", None, precision))
 
 
 def mag2_stage() -> Stage:
@@ -1240,7 +1362,10 @@ def mag2_stage() -> Stage:
             return carry, (x.real * x.real + x.imag * x.imag).to(torch.float32)
         return carry, (x * x).to(torch.float32)
 
-    return Stage(fn, _stateless, Fraction(1, 1), np.float32, 1, "mag2")
+    def cost(n, dt):
+        return n * dt.itemsize + 4 * n, (3 if dt.itemsize == 8 else 1) * n
+
+    return Stage(fn, _stateless, Fraction(1, 1), np.float32, 1, "mag2", cost=cost)
 
 
 # ---------------------------------------------------------------------------
@@ -1275,11 +1400,16 @@ def _shifted_matvec(ext: torch.Tensor, W: torch.Tensor, m: int, nq: int,
     accumulation as m+1 matmuls, nothing materialized. Float32 runs at full
     precision (TF32 is off); ``precision="bf16"`` rounds real operands to
     bfloat16 and accumulates their exact products in float32 (complex
-    operands stay float32, as in the JAX package off the TPU)."""
-    if precision == "int8":
-        raise NotImplementedError(f"int8 shifted matvec: {_PRECISION_ITEM}")
+    operands stay float32, as in the JAX package off the TPU);
+    ``precision="int8"`` (real weights) takes :func:`_int8_shifted_matvec`,
+    a complex stream a plane at a time."""
     D = W.shape[1]
     rows = ext.reshape(-1, D)
+    if precision == "int8" and not W.is_complex():
+        if rows.is_complex():
+            return torch.complex(_int8_shifted_matvec(rows.real, W, m, nq),
+                                 _int8_shifted_matvec(rows.imag, W, m, nq))
+        return _int8_shifted_matvec(rows, W, m, nq)
     if precision == "bf16" and not (rows.is_complex() or W.is_complex()):
         rows = rows.to(torch.bfloat16).to(torch.float32)
         W = W.to(torch.bfloat16).to(torch.float32)
@@ -1290,6 +1420,28 @@ def _shifted_matvec(ext: torch.Tensor, W: torch.Tensor, m: int, nq: int,
     for r in range(1, m + 1):
         y = y + rows[m - r:m - r + nq] @ W[r]
     return y
+
+
+def _int8_shifted_matvec(rows: torch.Tensor, W: torch.Tensor, m: int,
+                         nq: int) -> torch.Tensor:
+    """The int8 rung of :func:`_shifted_matvec` on one real plane: both
+    operands absmax-quantized to int8 on the device (the float32 ``W`` of
+    the carry quantized here, so the carry is the float32 stage's), every
+    shifted MAC an int8 × int8 product, dequantized once. The products are
+    taken in float32 on the integer values: each is below 2^14 and every
+    partial sum of at most ``(m+1)·D ≤ 1,040`` of them below 2^24, so float32
+    (TF32 off) holds the int32 accumulator exactly, in any order. A
+    matrix-vector product (N = 1, K = D) has no cuBLASLt int8 form."""
+    if (m + 1) * W.shape[1] > 1040:
+        raise ValueError(f"int8 shifted matvec: {(m + 1) * W.shape[1]} terms a sum "
+                         f"exceed float32's exact integer range (1,040)")
+    Wq, sw = _quantize(W)
+    rq, sx = _quantize(rows)
+    Wf, rf = Wq.to(torch.float32), rq.to(torch.float32)
+    acc = rf[m:m + nq] @ Wf[0]
+    for r in range(1, m + 1):
+        acc = acc + rf[m - r:m - r + nq] @ Wf[r]
+    return acc * (sx * sw)
 
 
 def _poly_decim_weights(taps: np.ndarray, D: int, m: int) -> np.ndarray:
@@ -1316,20 +1468,23 @@ def _poly_decim_fir_stage(taps: np.ndarray, decim: int, fft_len: int, name: str,
     kernel (a complex stream in one pass); complex weights, and every other
     impl, take :func:`_shifted_matvec`. Carry ``(W, hist[m·D])``; ``W`` is
     bfloat16 under ``precision="bf16"`` (real taps). ``update(taps=…)`` swaps
-    the filter (same tap count, no real→complex swap)."""
-    if precision == "int8":
-        raise NotImplementedError(f"fir_stage precision='int8': {_PRECISION_ITEM}")
-    if precision not in (None, "f32", "bf16"):
-        raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
+    the filter (same tap count, no real→complex swap). ``precision="int8"``
+    (real taps) runs :func:`_int8_shifted_matvec` on either impl (the kernel
+    has no int8 mode), the carried ``W`` staying float32."""
+    if precision not in (None, "f32", "bf16", "int8"):
+        raise ValueError(f"precision must be None, 'f32', 'bf16' or 'int8', "
+                         f"got {precision!r}")
     D = int(decim)
     nt = len(taps)
     built_real = np.isrealobj(taps)
+    if precision == "int8" and not built_real:
+        raise ValueError("precision='int8' requires real taps")
     m = max(1, -(-(nt - 1) // D))       # history rows so windows never underflow
     H = m * D
 
     def fn(carry, x):
         W, hist = carry
-        if impl == "pallas" and not W.is_complex():
+        if impl == "pallas" and not W.is_complex() and precision != "int8":
             y = cuda_kernels.poly_fir(hist, x.contiguous(), W, precision=precision)
         else:
             y = _shifted_matvec(torch.cat([hist, x]), W, m, x.shape[0] // D,
@@ -1368,8 +1523,18 @@ def _poly_decim_fir_stage(taps: np.ndarray, decim: int, fft_len: int, name: str,
         _w_old, hist = carry
         return (_weights(new, hist.is_complex(), hist.device), hist)
 
+    def _lower(p: str) -> Optional[Stage]:
+        if p not in ("bf16", "int8") or not built_real:
+            return None
+        return _poly_decim_fir_stage(taps, D, fft_len, name, impl, precision=p)
+
+    def cost(n, dt):
+        return _roofline().kernel_cost("poly_fir", n=n, m=m, D=D, complex=dt.itemsize == 8,
+                                       w_bytes=2 if precision == "bf16" else 4)
+
     return Stage(fn, init_carry, Fraction(1, D), None, D, name,
-                 lti=(taps, D, fft_len, impl), update=update, lower=_no_lowering,
+                 lti=(taps, D, fft_len, impl), update=update, lower=_lower,
+                 compute_dtype=_compute_dtype(precision), cost=cost,
                  route=(impl, None, precision))
 
 
@@ -1448,7 +1613,11 @@ def resample_stage(interp: int, decim: int, taps=None, fft_len: int = 8192,
     def init_carry(dtype, device):
         return torch.zeros(H, dtype=torch_dtype(dtype), device=torch.device(device))
 
-    return Stage(fn, init_carry, Fraction(I, D), None, D, name,
+    def cost(n, dt):
+        return _roofline().kernel_cost("poly_fir", n=n, m=m, D=D, I=I,
+                                       complex=dt.itemsize == 8)
+
+    return Stage(fn, init_carry, Fraction(I, D), None, D, name, cost=cost,
                  route=(("pallas", None, None) if impl == "pallas" else None))
 
 
@@ -1496,7 +1665,10 @@ def rotator_stage(phase_inc: float, name: str = "rotator", impl: str = "xla") ->
         return (ph0, torch.tensor(float(phase_inc), dtype=torch.float32,
                                   device=ph0.device))
 
-    return Stage(fn, init_carry, Fraction(1, 1), None, 1, name, update=update,
+    def cost(n, dt):
+        return _roofline().kernel_cost("rotator", n=n)
+
+    return Stage(fn, init_carry, Fraction(1, 1), None, 1, name, update=update, cost=cost,
                  route=(("pallas", None, None) if impl == "pallas" else None))
 
 
@@ -1520,7 +1692,10 @@ def quad_demod_stage(gain: float = 1.0, impl: str = "xla") -> Stage:
     def init_carry(dtype, device):
         return torch.ones((), dtype=torch_dtype(dtype), device=torch.device(device))
 
-    return Stage(fn, init_carry, Fraction(1, 1), np.float32, 1, "quad_demod",
+    def cost(n, dt):
+        return _roofline().kernel_cost("quad_demod", n=n)
+
+    return Stage(fn, init_carry, Fraction(1, 1), np.float32, 1, "quad_demod", cost=cost,
                  route=(("pallas", None, None) if impl == "pallas" else None))
 
 
@@ -1665,7 +1840,9 @@ def channelizer_stage(n_channels: int, taps=None, name: str = "channelizer",
     if impl not in ("auto", "matmul", "pallas"):
         raise ValueError(f"impl must be auto, matmul or pallas, got {impl!r}")
     if precision == "int8":
-        raise NotImplementedError(f"channelizer_stage precision='int8': {_PRECISION_ITEM}")
+        raise ValueError("channelizer_stage has no int8 form (its lower hook declines "
+                         "the rung; the JAX stage computes float32 under it): use "
+                         "precision='bf16' or None")
     if precision not in (None, "f32", "bf16"):
         raise ValueError(f"precision must be None, 'f32' or 'bf16', got {precision!r}")
     N = int(n_channels)
@@ -1717,8 +1894,13 @@ def channelizer_stage(n_channels: int, taps=None, name: str = "channelizer",
             return None
         return channelizer_stage(N, taps, name, impl=impl, precision="bf16")
 
+    def cost(n, dt):
+        return _roofline().kernel_cost("pfb", n=n, N=N, K=K,
+                                       tap_bytes=2 if precision == "bf16" else 4)
+
     return Stage(fn, init_carry, Fraction(1, 1), np.complex64, N, name, update=update,
-                 lower=_lower, route=(impl, None, precision))
+                 lower=_lower, compute_dtype=_compute_dtype(precision), cost=cost,
+                 route=(impl, None, precision))
 
 
 def lora_demod_stage(sf: int, name: str = "lora_demod") -> Stage:

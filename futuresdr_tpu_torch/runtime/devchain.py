@@ -570,12 +570,26 @@ def _members_pinned_depth(members) -> bool:
     return any(getattr(m, "_depth_explicit", False) for m in members)
 
 
-def _depth_and_k(chain: "DevChain", first):
+def _depth_and_k(chain: "DevChain", first, sig, in_dtype):
     """The fused kernel's depth and K: the first member's (a frame-plane
-    region takes the H2D's queue bound and the config K)."""
+    region takes the H2D's queue bound and the config K). With K left to
+    the config and config ``tpu_frames_per_dispatch`` at 0 (auto), a region
+    that ``autotune_streamed`` tuned launches with its cached K (the
+    reference's ``_resolve_k_batch``; ``sig`` is the region's stage list or
+    fan-out/DAG pipeline, the fences ignored by the cache's keys)."""
+    from ..config import config
     if chain.kind == "frames":
-        return first.max_inflight, None
-    return first.depth, first.k_batch
+        depth, k_batch = first.max_inflight, None
+    else:
+        depth, k_batch = first.depth, first.k_batch
+    if (k_batch is None or (k_batch == 1 and not getattr(first, "_k_explicit", False))) and \
+            int(config().tpu_frames_per_dispatch) == 0:
+        from ..tpu.autotune import cached_frames_per_dispatch, platform_of
+        k = cached_frames_per_dispatch(sig, in_dtype, platform_of(first.inst))
+        if k and k > 1:
+            log.info("devchain: frames_per_dispatch=%d from the cached autotune pick", k)
+            k_batch = k
+    return depth, k_batch
 
 
 def _steal_ports(fused, first, tails) -> None:
@@ -623,7 +637,7 @@ def _build_fused(chain: DevChain):
         seen += 1
     if fence_edges and has_pipes:
         stages.append(_boundary_stage())
-    depth, k_batch = _depth_and_k(chain, first)
+    depth, k_batch = _depth_and_k(chain, first, stages, in_dtype)
     composed = Pipeline(stages, in_dtype, optimize=False)
     fused = TpuKernel((), in_dtype, frame_size=first.frame_size, inst=first.inst,
                       frames_in_flight=depth, frames_per_dispatch=k_batch,
@@ -679,7 +693,7 @@ def _build_fused_fanout(chain: DevChain):
         branch_lists.append(b_stages)
         base += len(b_stages)
     fanout = FanoutPipeline(p_stages, branch_lists, in_dtype, optimize=False)
-    depth, k_batch = _depth_and_k(chain, first)
+    depth, k_batch = _depth_and_k(chain, first, fanout, in_dtype)
     fused = TpuFanoutKernel(fanout, frame_size=first.frame_size, inst=first.inst,
                             frames_in_flight=depth, frames_per_dispatch=k_batch,
                             wire=first.wire)
@@ -717,7 +731,7 @@ def _build_fused_dag(chain: DevChain):
         off += len(stages)
         nodes.append((stages, chain.nodes[i]))
     dag = DagPipeline(nodes, in_dtype, optimize=False)
-    depth, k_batch = _depth_and_k(chain, first)
+    depth, k_batch = _depth_and_k(chain, first, dag, in_dtype)
     fused = TpuDagKernel(dag, frame_size=first.frame_size, inst=first.inst,
                          frames_in_flight=depth, frames_per_dispatch=k_batch,
                          wire=first.wire)

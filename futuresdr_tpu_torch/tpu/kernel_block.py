@@ -100,8 +100,17 @@ device-chain pass (``runtime/devchain.py``) builds them, and fused linear
 chains as plain :class:`TpuKernel`s; their recovery is :class:`TpuKernel`'s
 over the flat composed carry.
 
-Not in this slice (ROADMAP): the autotuned K, credit seed and starting
-wire, and frame lineage.
+Precision and tuning (``ops/precision.py``, ``tpu/autotune.py``): with
+``interior_precision`` (default config ``interior_precision``, ``off``) the
+pipeline is replaced by its SNR-budgeted lowering at construction, and the
+``ctrl`` message ``{"stage": …, "interior_precision": mode}`` re-plans one
+stage (:meth:`apply_precision_retune`), landing at the next quiescent
+group boundary like a wire switch. The streamed-pick cache seeds the credit
+budget (its ``inflight``), the adaptive wire's start (``wire``), and the
+hand kernels' plans (``pallas_blocks``, installed at construction); each
+init records the applied precision mode there.
+
+Not in this slice (ROADMAP): frame lineage.
 """
 
 from __future__ import annotations
@@ -518,17 +527,22 @@ class TpuKernel(Kernel):
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
                  frames_per_dispatch: Optional[int] = None, wire=None,
-                 checkpoint_every: Optional[int] = None, _pipeline=None):
+                 checkpoint_every: Optional[int] = None,
+                 interior_precision: Optional[str] = None, _pipeline=None):
         super().__init__()
         self.inst = inst or instance()
         # ``_pipeline``: a pipeline built already (the device-chain pass's
         # composed chain, or a fan-out/DAG pipeline of the subclasses)
         self.pipeline = _pipeline if _pipeline is not None else Pipeline(stages, in_dtype)
+        self._apply_interior_precision(interior_precision)
+        self._apply_pallas_blocks()
         fs = frame_size or self.inst.frame_size
         m = self.pipeline.frame_multiple
         self.frame_size = max(m, (fs // m) * m)
         self.out_frame = self.pipeline.out_items(self.frame_size)
         self.k_batch = max(1, int(frames_per_dispatch or config().tpu_frames_per_dispatch))
+        # an explicit K (even 1) is not replaced by a fused region's cached pick
+        self._k_explicit = frames_per_dispatch is not None
         self.depth = max(1, int(frames_in_flight or self.inst.frames_in_flight))
         self._depth_explicit = frames_in_flight is not None
         # the codec on both link crossings: decode and encode run inside the
@@ -557,6 +571,189 @@ class TpuKernel(Kernel):
                                            min_items=self.frame_size)
         self._add_outputs()
 
+    # -- precision and tuning --------------------------------------------------
+    def _sig(self, pipeline=None):
+        """The streamed-pick cache's key object of this kernel's chain."""
+        p = pipeline if pipeline is not None else self.pipeline
+        return p if getattr(p, "n_branches", 0) else p.stages
+
+    def _apply_interior_precision(self, interior_precision=None) -> None:
+        """Replace the pipeline by its interior-precision lowering
+        (``ops/precision.py``), calibrated on this kernel's device before
+        anything derives from the pipeline; ``off`` (the default) keeps the
+        pipeline object. A calibration that fails leaves the float32
+        pipeline, with a warning."""
+        from ..ops import precision as _precision
+        self._base_pipeline = self.pipeline
+        self._precision_mode = str(interior_precision if interior_precision is not None
+                                   else config().interior_precision or "off")
+        self._precision_overrides: dict = {}
+        self._precision_plan = None
+        self._precision_switch = None          # (pipeline, plan, mode) pending
+        self.precision_switches = 0
+        if self._precision_mode in ("", "off"):
+            self._precision_mode = "off"
+            return
+        self._precision_overrides = _precision.parse_overrides(
+            config().interior_precision_overrides)
+        try:
+            self.pipeline, self._precision_plan = _precision.plan_interior_precision(
+                self.pipeline, mode=self._precision_mode,
+                overrides=self._precision_overrides, device=self.inst.device)
+        except (RuntimeError, ValueError) as e:
+            log.warning("%s: interior-precision lowering failed (%r): staying float32",
+                        type(self).__name__, e)
+            self.pipeline, self._precision_plan = self._base_pipeline, None
+
+    def _apply_pallas_blocks(self) -> None:
+        """Install the kernel plans a sweep recorded for this chain on this
+        card (the cache's ``pallas_blocks`` axis), before anything compiles;
+        with none recorded the plans stay the rules' (or what is installed)."""
+        from ..ops.cuda_kernels import set_tuned_plans
+        from .autotune import cached_pallas_blocks, platform_of
+        from .kernel_tune import device_key
+        plans = cached_pallas_blocks(self._sig(), self.pipeline.in_dtype,
+                                     platform_of(self.inst), device_key(self.inst.device))
+        if plans:
+            set_tuned_plans(plans)
+            log.info("%s: kernel plans from the cached sweep: %s", type(self).__name__,
+                     sorted(plans))
+
+    def _note_precision(self) -> None:
+        """Publish the applied plan under this kernel's name and record the
+        applied mode in the cache (an off kernel only corrects an existing
+        stamp, it creates no entry)."""
+        from ..ops import precision as _precision
+        from .autotune import cached_interior_precision, platform_of, \
+            record_interior_precision
+        name = self.meta.instance_name or type(self).__name__
+        if self._precision_plan is not None:
+            _precision.note_plan(name, self._precision_plan)
+        sig, plat = self._sig(self._base_pipeline), platform_of(self.inst)
+        mode = self._precision_mode
+        if mode != "off" or cached_interior_precision(
+                sig, self.pipeline.in_dtype, plat) is not None:
+            record_interior_precision(sig, self.pipeline.in_dtype, plat, mode)
+
+    def apply_precision_retune(self, stage, precision) -> None:
+        """Re-plan one stage's interior precision (the ``ctrl`` verb
+        ``{"stage": <name or index>, "interior_precision": off|auto|bf16|int8}``)
+        from the pristine pipeline with the stage pinned; on an ``off``
+        kernel every other stage is pinned ``off``, so only the named one
+        changes. A program change: before ``init`` it replaces the pipeline;
+        after, it lands at the next quiescent group boundary
+        (:meth:`_apply_precision_program`). A retune that changes nothing
+        keeps the program. Raises on an unknown mode, stage or an ambiguous
+        name (overrides are keyed by name)."""
+        from ..ops import precision as _precision
+        prec = str(precision)
+        if prec not in _precision.MODES:
+            raise ValueError(f"interior_precision retune {prec!r}: expected "
+                             f"off|auto|bf16|int8")
+        base = self._base_pipeline
+        names = [s.name for s in base.stages]
+        if isinstance(stage, str):
+            if stage not in names:
+                raise KeyError(f"no stage named {stage!r} in {names}")
+            name = stage
+        else:
+            idx = int(stage)
+            if not 0 <= idx < len(names):
+                raise KeyError(f"stage index {idx} out of range ({len(names)} stages)")
+            name = names[idx]
+        if names.count(name) > 1:
+            raise KeyError(f"stage name {name!r} is ambiguous (appears "
+                           f"{names.count(name)}x): overrides are keyed by name")
+        with self._carry_lock:
+            overrides = dict(self._precision_overrides)
+            if self._precision_mode == "off":
+                for n in names:
+                    overrides.setdefault(n, "off")
+            overrides[name] = prec
+            mode = self._precision_mode if self._precision_mode != "off" else "auto"
+            new_pipe, plan = _precision.plan_interior_precision(
+                base, mode=mode, overrides=overrides, device=self.inst.device)
+            self._precision_overrides = overrides
+            if new_pipe.frame_multiple != self.pipeline.frame_multiple:
+                raise ValueError("a lowering must keep the pipeline's frame multiple")
+            if new_pipe is self.pipeline:
+                log.info("%s: interior precision %s=%s changes nothing",
+                         self.meta.instance_name or type(self).__name__, name, prec)
+                self._precision_switch = None
+                return
+            if self._fn is None:
+                self.pipeline, self._precision_plan = new_pipe, plan
+                self._precision_mode = mode
+                return
+            self._precision_switch = (new_pipe, plan, mode)
+
+    def _apply_precision_program(self) -> None:
+        """Take a pending precision retune at a quiescent boundary: capture
+        the new pipeline's program (its own static carry buffers; a new
+        incarnation's program cache), carry the live state over leaf by
+        leaf (a narrowing leaf cast from the old value, a widening one taken
+        from the pristine parameters, so a float32 program never carries
+        frozen bf16 values), and, with checkpoints on, commit the converted
+        carry as the only restore point: a checkpoint holds a lowered
+        carry's dtypes, and one of the old program would not fit."""
+        pipe, plan, mode = self._precision_switch
+        self._precision_switch = None
+        from ..ops.stages import _leaves, _rebuild
+        template = pipe.init_carry(self.inst.device)
+        old, tmpl = _leaves(self._carry), _leaves(template)
+        widened = 0
+        if len(old) == len(tmpl) and all(a.shape == b.shape for a, b in zip(old, tmpl)):
+            conv = []
+            for a, b in zip(old, tmpl):
+                if a.dtype == b.dtype:
+                    conv.append(a)
+                elif b.element_size() > a.element_size():
+                    conv.append(b)
+                    widened += 1
+                else:
+                    conv.append(a.to(b.dtype))
+            new = _rebuild(template, iter(conv))
+        else:
+            log.warning("%s: the precision retune changed the carry's structure: "
+                        "streaming state reset", self.meta.instance_name)
+            new = template
+        with self._carry_lock:
+            self.pipeline, self._precision_plan, self._precision_mode = pipe, plan, mode
+            self._programs, self._fn, self._carry = {}, None, None
+            self._fn = self._program_for(self.wire, self._packed)
+            self._carry = new
+        self.precision_switches += 1
+        if widened:
+            log.info("%s: the precision retune took %d widened parameter leaf(s) from "
+                     "the build-time values: send runtime parameter retunes again",
+                     self.meta.instance_name, widened)
+        if self._ckpt_every:
+            fetches, spec = self.pipeline.snapshot_carry(self._carry)
+            floor = self._seq - 1
+            self._pending_ckpts.clear()
+            self._ckpts.clear()
+            self._ckpts.append((floor, [f() for f in fetches], spec))
+            with self._rlog_lock:
+                while self._rlog and self._rlog[0][0] <= floor:
+                    for h in self._rlog.popleft()[3]:
+                        h.release()
+            self._retune_log.clear()
+            self._wire_log.clear()
+            self._wire_floor_fmt = self.wire.name
+        self._note_precision()
+
+    def _maybe_switch_precision(self) -> None:
+        """Apply a pending precision retune once nothing is staged, in
+        flight, being filled, waiting for a deferred consume or replaying."""
+        if self._staged or self._inflight or self._group is not None or \
+                self._pending_consume is not None or self._replay_queue or \
+                self._replay_pending():
+            return
+        self._apply_precision_program()
+
+    def _switch_pending(self) -> bool:
+        return self._wire_switch_target is not None or self._precision_switch is not None
+
     def _add_outputs(self) -> None:
         self.output = self.add_stream_output(
             "out", self.pipeline.out_dtype, min_items=self.out_frame,
@@ -577,6 +774,15 @@ class TpuKernel(Kernel):
         adaptive = not self._depth_explicit
         if adaptive and config().tpu_inflight > 0:
             self.depth, adaptive = int(config().tpu_inflight), False
+        elif adaptive:
+            # the seed: the cached autotune_streamed pick's depth
+            from .autotune import cached_streamed_pick, platform_of
+            pick = cached_streamed_pick(self._sig(), self.pipeline.in_dtype,
+                                        platform_of(self.inst))
+            if pick and pick.get("inflight"):
+                self.depth = int(pick["inflight"])
+                log.info("%s: in-flight credit seed %d from the cached autotune pick",
+                         type(self).__name__, self.depth)
         self._credits = CreditController(self.depth, adaptive=adaptive)
         # one group staged beyond the in-flight budget, so its H2D rides
         # under the previous group's compute (depth 1 stays strictly serial)
@@ -615,8 +821,9 @@ class TpuKernel(Kernel):
     def _init_wirectl(self) -> None:
         """Arm the adaptive wire controller (``tpu_adaptive_wire``, off by
         default). It stays off when the wire is off its f32/sc16/sc8 ladder
-        or the input is not float or complex. The reference's start from the
-        autotune cache waits for ROADMAP Queue 1 item 7."""
+        or the input is not float or complex; armed, it starts at the wire
+        the cached ``autotune_streamed`` pick measured fastest (the cache's
+        ``wire`` axis), where one is on the ladder."""
         self._wire_switch_target = None
         self._wire_switches = 0
         #: (first frame dispatched under it, wire name), one a wire in use
@@ -638,6 +845,15 @@ class TpuKernel(Kernel):
                      np.dtype(self.pipeline.in_dtype))
             return
         self._wirectl = WireController(float(config().tpu_wire_snr_budget_db))
+        from .autotune import cached_wire_start, platform_of
+        fmt = cached_wire_start(self._sig(), self.pipeline.in_dtype, platform_of(self.inst))
+        if fmt and fmt != self.wire.name and fmt in WireController.LADDER:
+            log.info("%s: the adaptive wire starts at %s (cached autotune pick; built %s)",
+                     type(self).__name__, fmt, self.wire.name)
+            self.wire = get_wire(fmt)
+            self._derive_wire_paths()
+            self.wire_history = [(0, fmt)]
+            self._wire_floor_fmt = fmt
 
     def _adopt_credit_mode(self, adaptive: bool) -> None:
         """Re-arm the credit controller after construction: a fused device
@@ -668,6 +884,10 @@ class TpuKernel(Kernel):
                 "deferred_consume": int(self._deferred_consume),
                 "adaptive_wire": int(self._wirectl is not None),
                 "wire_switches": self._wire_switches,
+                "interior_precision": self._precision_mode,
+                "interior_lowered": (self._precision_plan.lowered
+                                     if self._precision_plan is not None else 0),
+                "precision_switches": self.precision_switches,
                 # recovery: the active cadence (0 = off), the newest
                 # committed checkpoint, the frames the replay log holds,
                 # and the frames replayed and forfeited by restarts
@@ -769,21 +989,23 @@ class TpuKernel(Kernel):
             # the fresh-init sentinel: a fault before the first commit
             # restores the initial carry and replays from group 0
             self._ckpts.append((-1, None, None))
+        self._note_precision()
 
     @message_handler(name="ctrl")
     async def ctrl_handler(self, io, mio, meta, p: Pmt) -> Pmt:
         """Runtime stage control: ``{"stage": <name-or-index>, <param>:
         <value>, …}`` lands in :meth:`apply_retune` and is answered
         ``Pmt.ok()`` once the surgery is done; frames already dispatched
-        keep the old values. Malformed input, an unknown stage or parameter
-        and a message before ``init`` are answered ``Pmt.invalid_value()``
-        (the runtime's init barrier answers pre-init calls itself)."""
+        keep the old values. ``{"stage": …, "interior_precision": mode}``
+        alone is a precision retune (:meth:`apply_precision_retune`).
+        Malformed input, an unknown stage, parameter or mode and a message
+        before ``init`` are answered ``Pmt.invalid_value()`` (the runtime's
+        init barrier answers pre-init calls itself)."""
         try:
             stage, params = parse_ctrl(p)
-            if "interior_precision" in params:
-                log.warning("ctrl %r: interior-precision retunes wait for ROADMAP "
-                            "Queue 1 item 7 (precision and tuning)", p)
-                return Pmt.invalid_value()
+            if set(params) == {"interior_precision"}:
+                self.apply_precision_retune(stage, params["interior_precision"])
+                return Pmt.ok()
             self.apply_retune(stage, **params)
         except Exception as e:                 # noqa: BLE001 — a bad request
             log.warning("ctrl update rejected: %r", e)
@@ -1109,10 +1331,12 @@ class TpuKernel(Kernel):
                                          replay=True)
         if self._wirectl is not None or self._wire_switch_target is not None:
             self._maybe_switch_wire()
+        if self._precision_switch is not None:
+            self._maybe_switch_precision()
         inp = self.input.slice()
-        # a pending wire switch pauses staging, but a part-filled group keeps
+        # a pending switch pauses staging, but a part-filled group keeps
         # filling to its flush (padding mid-stream would corrupt the carry)
-        while self._room(budget) and (self._wire_switch_target is None
+        while self._room(budget) and (not self._switch_pending()
                                       or self._group is not None):
             # the last deferred consume of a cycle stays pending into the next
             # work call, so the worker's encode overlaps the dispatch below
@@ -1276,7 +1500,7 @@ class TpuKernel(Kernel):
         #    pending wire switch
         if self._inflight and (len(self._inflight) >= self._credits.credits
                                or len(inp) < self.frame_size or eos
-                               or self._wire_switch_target is not None):
+                               or self._switch_pending()):
             self._drain_one()
             io.call_again = True
             return
@@ -1668,7 +1892,8 @@ class TpuFanoutKernel(TpuKernel):
                  inst: Optional[TpuInstance] = None,
                  frames_in_flight: Optional[int] = None,
                  frames_per_dispatch: Optional[int] = None, wire=None,
-                 checkpoint_every: Optional[int] = None):
+                 checkpoint_every: Optional[int] = None,
+                 interior_precision: Optional[str] = None):
         nb = fanout.n_branches
         self._pendings: List[Optional[np.ndarray]] = [None] * nb
         self._pending_tags_n: List[List[ItemTag]] = [[] for _ in range(nb)]
@@ -1676,7 +1901,8 @@ class TpuFanoutKernel(TpuKernel):
         super().__init__((), fanout.in_dtype, frame_size=frame_size, inst=inst,
                          frames_in_flight=frames_in_flight,
                          frames_per_dispatch=frames_per_dispatch, wire=wire,
-                         checkpoint_every=checkpoint_every, _pipeline=fanout)
+                         checkpoint_every=checkpoint_every,
+                         interior_precision=interior_precision, _pipeline=fanout)
 
     def _add_outputs(self) -> None:
         fo = self.pipeline
@@ -1786,7 +2012,7 @@ class TpuFanoutKernel(TpuKernel):
         # 4. drain the oldest group into every live branch
         if self._inflight and (len(self._inflight) >= self._credits.credits
                                or len(inp) < self.frame_size or eos
-                               or self._wire_switch_target is not None):
+                               or self._switch_pending()):
             self._drain_branches()
             io.call_again = True
             return

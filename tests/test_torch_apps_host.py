@@ -207,9 +207,18 @@ def test_spectrum_main_streams_spectra_to_a_websocket_client():
 
 
 @pytest.mark.parametrize("flag", ["--bf16", "--autotune"])
-def test_spectrum_main_flags_of_item_7_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spectrum.main(["--cpu", flag])
+def test_spectrum_main_flags_of_item_7_raise(flag, capsys):
+    """``--bf16`` and ``--autotune`` (ported with the precision and tuning
+    slice) run on the CPU blocks as the JAX app does: ``--bf16`` lowers only
+    the device chain and says so, ``--autotune`` tunes only the card's; the
+    app streams its samples and returns."""
+    t = threading.Thread(target=spectrum.main, daemon=True, args=(
+        ["--cpu", flag, "--samples", "65536", "--ws-port", str(_free_port())],))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    err = capsys.readouterr().err
+    assert ("lowers only the device chain" in err) == (flag == "--bf16")
 
 
 def test_fm_main_retunes_from_stdin_and_writes_the_wav(tmp_path):

@@ -304,7 +304,7 @@ def test_ctrl_rejects_garbage_and_waits_for_init():
     {"stage": 7, "phase_inc": 0.1},
     {"stage": "r", "no_such_param": 0.1},
     {"phase_inc": 0.1},
-    {"stage": "r", "interior_precision": "bf16"},
+    {"stage": "r", "interior_precision": "fp8"},
 ])
 def test_malformed_or_unported_retunes_answer_invalid_value(msg):
     fg = Flowgraph()

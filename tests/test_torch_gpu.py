@@ -1293,3 +1293,101 @@ def test_chains_recover_bit_exact_at_k4_on_card(cuda_device, name):
             assert fg.wrapped(kern).restarts == 1 and kern.frames_replayed > 0
             assert kern._fn.captures == 1 and len(kern._programs) == 1
     np.testing.assert_array_equal(out[True], out[False])
+
+
+# ---------------------------------------------------------------------------
+# precision and tuning: the int8 rungs, the plan sweep's layouts, the tuned
+# plans and an interior-precision kernel, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decim", [1, 16])
+def test_int8_rungs_equal_the_cpu_on_card(cuda_device, decim):
+    """The banded int8 FIR (``torch._int_mm``) and the int8 shifted matvec
+    give the CPU's bits: correctly rounded quotients, exact accumulators."""
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import Pipeline, fir_stage
+    taps = firdes.lowpass(0.2, 64) if decim == 1 else firdes.lowpass(0.04, 128)
+    pipe = Pipeline([fir_stage(taps, decim=decim, precision="int8")], np.complex64)
+    rng = np.random.default_rng(decim)
+    frames = [_c64(rng, 1 << 16) for _ in range(2)]
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        c, fn, ys = pipe.init_carry(dev), pipe.fn(), []
+        for f in frames:
+            c, y = fn(c, torch.from_numpy(f).to(dev))
+            ys.append(y.cpu())
+        outs[dev.type] = torch.cat(ys)
+    assert torch.equal(torch.view_as_real(outs["cuda"]), torch.view_as_real(outs["cpu"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fir", "fir_fft", "poly_fir", "pfb", "rotator",
+                                    "quad_demod"])
+def test_sweep_candidates_launch_and_match_plain_on_card(cuda_device, kernel):
+    """Every layout the plan sweep may pick launches at the main paths'
+    shapes and matches the plain version at phase 7's limits."""
+    from futuresdr_tpu_torch.tpu import kernel_tune
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for k, _label, spec in kernel_tune.SHAPES:
+        if k != kernel:
+            continue
+        shape, args, call, plain = kernel_tune._workload(k, spec, cuda_device, 1, gen)
+        ref = plain(*args[0])
+        for plan in ck.plan_candidates(k, *shape):
+            got = call(plan, *args[0])
+            torch.cuda.synchronize()
+            assert kernel_tune._err(k, got, ref) <= kernel_tune.TOL[k], (shape, plan)
+
+
+@pytest.mark.gpu
+def test_tuned_plan_reaches_the_launch_on_card(cuda_device):
+    """A plan in the tuned table is the one the next plan-less launch takes;
+    a plan passed by the caller beats the table."""
+    rng = np.random.default_rng(3)
+    n, nt = 1 << 18, 64
+    taps = torch.from_numpy(rng.standard_normal(nt).astype(np.float32)).to(cuda_device)
+    h = torch.from_numpy(_c64(rng, nt - 1)).to(cuda_device)
+    x = torch.from_numpy(_c64(rng, n)).to(cuda_device)
+    shape = (n, nt, 1, ck._sm_count(cuda_device))
+    cands = ck.plan_candidates("fir", *shape)
+    try:
+        ck.set_tuned_plans({"fir": {shape: cands[-1]}})
+        y = ck.fir_continue(h, x, taps)
+        assert ck.last_plans["fir"] == cands[-1]
+        y2 = ck.fir_continue(h, x, taps, plan=cands[1])
+        assert ck.last_plans["fir"] == cands[1]
+        ref = ck.fir_continue_plain(h, x, taps)
+        assert _rel_err(y, ref) <= 1e-5 and _rel_err(y2, ref) <= 1e-5
+    finally:
+        ck.set_tuned_plans(None)
+
+
+@pytest.mark.gpu
+def test_interior_precision_kernel_streams_on_card(cuda_device):
+    """The spectrum chain through ``TpuKernel`` with ``interior_precision=
+    "auto"``, calibrated on the card: within the plan's floor of the f32
+    stream (budget 40 dB less 10·log10 of the lowered stages)."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import fft_stage, fir_stage, mag2_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    inst = TpuInstance(cuda_device)
+    data = _c64(np.random.default_rng(4), 6 << 16)
+    outs = {}
+    for mode in ("off", "auto"):
+        fg = Flowgraph()
+        tk = TpuKernel([fir_stage(firdes.lowpass(0.2, 64)), fft_stage(2048), mag2_stage()],
+                       np.complex64, frame_size=1 << 16, inst=inst, wire="f32",
+                       interior_precision=mode)
+        snk = VectorSink(np.float32)
+        fg.connect(VectorSource(data), tk, snk)
+        Runtime().run(fg)
+        outs[mode] = (snk.items(), tk)
+    ref, (got, tk) = outs["off"][0], outs["auto"]
+    n_low = tk._precision_plan.lowered
+    assert n_low >= 1 and len(got) == len(ref)
+    snr = 10 * np.log10(np.mean(ref.astype(np.float64) ** 2)
+                        / np.mean((got.astype(np.float64) - ref) ** 2))
+    assert snr >= 40.0 - 10 * np.log10(n_low)

@@ -45,6 +45,15 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_the_precision_and_tuning_modules_are_walked():
+    """The modules of the precision and tuning slice are among those the
+    isolation checks import (the planner, the cache, the plan sweep, the
+    roofline and the marginal rate)."""
+    assert {"futuresdr_tpu_torch.ops.precision", "futuresdr_tpu_torch.tpu.autotune",
+            "futuresdr_tpu_torch.tpu.kernel_tune", "futuresdr_tpu_torch.utils.roofline",
+            "futuresdr_tpu_torch.utils.measure"} <= set(_submodules())
+
+
 def test_sources_import_no_jax_and_no_jax_package():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",

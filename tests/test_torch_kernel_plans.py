@@ -1022,3 +1022,86 @@ def test_quad_demod_walk_matches_plain(n):
     assert _wrapped_err(y, ref, gain) <= 1e-5, n
     assert last.item() == ref_last.item() == x[-1].item()
 
+
+
+def _pfb_v_twin(hist, x, taps, plan):
+    """``csrc/pfb.cu``'s "v" layout: one row a block, the MAC read through the
+    reversed channel index from device memory, v alone in shared memory
+    (bit-reversed for the in-place radix-2 transform of a power of two, in
+    order for the direct DFT), the inverse twiddles ``tw[pos << shift]``."""
+    K, N = taps.shape
+    t = x.shape[0] // N
+    assert not plan.window and plan.tw_len == N and plan.smem == 8 * N
+    ext = torch.cat([hist, x])
+    c = torch.arange(N)
+    v = torch.zeros(t, N, dtype=torch.complex64)
+    for kk in range(K):
+        e = (torch.arange(t)[:, None] + K - 1 - kk) * N + (N - 1 - c)[None, :]
+        v = v + taps[kk].to(torch.float32)[None, :] * ext[e]
+    tab = ck._fft_table(N, (), torch.device("cpu"))
+    tw = torch.complex(tab[:, 0], tab[:, 1])
+    if N & (N - 1):
+        idx = (c[:, None] * c[None, :]) % N                # [c, c']
+        return (v[:, :, None] * tw[idx][None]).sum(dim=1)
+    log2n = N.bit_length() - 1
+    brev = torch.tensor([int(f"{i:0{log2n}b}"[::-1], 2) if log2n else 0 for i in range(N)])
+    s_v = torch.zeros_like(v)
+    s_v[:, brev] = v
+    b = torch.arange(N // 2)
+    for st in range(1, log2n + 1):
+        half, shift = 1 << (st - 1), log2n - st
+        pos = b & (half - 1)
+        i = ((b >> (st - 1)) << st) + pos
+        j = i + half
+        w = tw[pos << shift]
+        u, p = s_v[:, i], s_v[:, j] * w
+        s_v[:, i], s_v[:, j] = u + p, u - p
+    return s_v
+
+
+SWEEP_PFB = {(64, 12, 4096), (2048, 12, 128)}
+
+
+def _sweep_cases():
+    """Every candidate of the plan sweep (``tpu/kernel_tune.py``) at the main
+    paths' shapes: ``(kernel, shape, candidate index)``."""
+    from futuresdr_tpu_torch.tpu import kernel_tune
+    cases = []
+    for kernel, _label, spec in kernel_tune.SHAPES:
+        if kernel in ("rotator", "quad_demod"):
+            continue
+        shape = kernel_tune._workload(kernel, spec, torch.device("cpu"), 1,
+                                      torch.Generator().manual_seed(0))[0]
+        for i in range(len(ck.plan_candidates(kernel, *shape))):
+            cases.append((kernel, shape, i))
+    return cases
+
+
+@pytest.mark.parametrize("kernel,shape,i", _sweep_cases())
+def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
+    """Each layout the sweep may pick, walked by its kernel's twin at the
+    main path's shape (the poly_fir rows cut to 2,048 outputs where the
+    layout does not depend on them), against the plain version: the
+    tolerances of the twins' own tests (rel. 1e-6 ``fir``, ``poly_fir``;
+    1e-5 ``fir_fft``, ``pfb``; the sums' orders differ)."""
+    plan = ck.plan_candidates(kernel, *shape)[i]
+    seed = (sum(shape) + 31 * i) % 10_000
+    if kernel == "fir":
+        n, nt, cplx, _n_sm = shape
+        hist, x, taps = _fir_case(n, nt, bool(cplx), seed)
+        assert _rel(_fir_twin(hist, x, taps, plan), _fir_plain(hist, x, taps)) <= 1e-6
+    elif kernel == "fir_fft":
+        n_fft, nt = shape
+        hist, x, taps = _fir_case(1 << 18, nt, True, seed)
+        got = _fir_fft_twin(hist, x, taps, n_fft, plan)
+        assert _rel(got, ck.fir_fft_plain(hist, x, taps, n_fft)) <= 1e-5
+    elif kernel == "poly_fir":
+        m, D, I, nq, cplx, _n_sm = shape
+        hist, x, W = _poly_case(D, m, I, min(nq, 2048), bool(cplx), seed)
+        tol = 1e-6 * max(1.0, D * (m + 1) / 1000)
+        assert _rel(_poly_twin(hist, x, W, plan), ck.poly_fir_plain(hist, x, W)) <= tol
+    else:
+        N, K, t, _n_sm = shape
+        hist, x, taps = _pfb_case(N, K, t, seed)
+        twin = _pfb_twin if plan.window else _pfb_v_twin
+        assert _rel(twin(hist, x, taps, plan), ck.pfb_plain(hist, x, taps)) <= 1e-5

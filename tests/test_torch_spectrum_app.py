@@ -86,8 +86,11 @@ def test_spectrum_chain_matches_jax_over_chained_frames():
 
 def test_spectrum_app_surfaces_not_ported_raise():
     """The Seify source, the CPU blocks and the websocket sink are ported
-    (ROADMAP Queue 1 item 4) and build; ``--bf16`` and ``--autotune`` wait
-    for item 7 and raise, naming it."""
+    (ROADMAP Queue 1 item 4) and build; ``--bf16`` and ``--autotune``
+    (item 7) are ported too: with ``--cpu`` the app streams its samples and
+    returns, as the JAX app does (both flags act on the card's chain)."""
+    import threading
+
     from futuresdr_tpu_torch.apps.spectrum import main
     for kw in ({"source": None}, {"use_tpu": False}, {"ws_port": 0}):
         fg, sink = build_flowgraph(**({"source": VectorSource(_tone(1024, 0.1))} | kw),
@@ -95,5 +98,8 @@ def test_spectrum_app_surfaces_not_ported_raise():
         assert len(fg) >= 3
     assert type(sink).__name__ == "WebsocketSink"
     for flag in ("--bf16", "--autotune"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            main(["--cpu", flag])
+        t = threading.Thread(target=main, daemon=True,
+                             args=(["--cpu", flag, "--samples", "65536", "--ws-port", "0"],))
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
