@@ -211,6 +211,29 @@ fused restarts):
     the bound at most 1.05; (g) the spectrum app with ``--bf16`` and
     ``--autotune``.
 
+The serving plane (``serve/engine.py`` ``ServeEngine``: the paged,
+lane-batched slot program, one CUDA graph a bucket):
+
+28. (a) the lane forms ``fir_lanes``, ``fir_fft_lanes`` and ``rotator_lanes``
+    at L = 1, 4 and 64 with distinct taps, histories and phases: each lane
+    bit-equal to the one-stream launch, and within the kernel's tolerance
+    of the lane plain version; (b) the main chain (``fir_fft_stage(64 taps,
+    2048)`` + ``mag2_stage``) served at 2^18 to 16 sessions in buckets (1, 4,
+    16), four of them retuned to their own taps: each session bit-equal to
+    the bare compiled ``Pipeline`` on its frames, and N = 1 in the
+    capacity-4 bucket too; (c) serve_ab's chain (``rotator_stage(0.013,
+    impl="pallas")`` + ``fir_stage(hanning(17), fft_len=128,
+    impl="pallas")``) at 512 to 64 sessions with 100 join/leave events: no
+    build after the first dispatch, one dispatch a busy frame time, every
+    stream, an evict/readmit round trip and a session persisted at
+    in-flight depth 3 and resumed by a new engine bit-equal to the bare
+    ``Pipeline``; (d) printed, beside the card: ``autotune_serve``'s ladder
+    and rates, one dispatch's card time, submit→result p99 under churn, and
+    the served sessions against as many independent compiled loops
+    (``perf/serve_ab.py``'s A/B); the lane kernels' timings join the
+    ``kernels`` line.
+
+``python3 chip_smoke.py --serving`` runs only phase 28 after the build.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -3985,6 +4008,488 @@ def phase_roofline(rows) -> None:
                              f"wrong")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 28: the serving plane
+# ---------------------------------------------------------------------------
+
+SERVE_FRAME = 1 << 18          # the main chain served at its full frame
+SERVE_BUCKETS = (1, 4, 16)
+SERVE_SESSIONS = 16
+SERVE_FRAMES_EACH = 3          # frames a session of (b)
+SERVE_RETUNED = 4              # sessions given their own taps by lane retune
+AB_FRAME = 512                 # serve_ab's chain and frame (perf/serve_ab.py)
+AB_SESSIONS = 64
+AB_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+AB_STEPS = 150                 # frame times of the churned run
+AB_CHURN_EVENTS = 100          # joins and leaves (a close and an admit each)
+AB_AB_STEPS = 40               # frame times of each A/B run
+LANES = (1, 4, 64)
+LANE_REPS = 8                  # distinct inputs a lane timing's graph
+LANE_KERNELS = ("fir_lanes", "fir_fft_lanes", "rotator_lanes")
+LANE_OF = {"fir_lanes": "fir", "fir_fft_lanes": "fir_fft", "rotator_lanes": "rotator"}
+# the shapes of the kernels line: the main chain's (16 lanes of 2^18) for
+# fir_fft_lanes, serve_ab's (64 lanes of 512) for fir_lanes and rotator_lanes
+LANE_LINE_SHAPE = {"fir_fft_lanes": (SERVE_SESSIONS, SERVE_FRAME),
+                   "fir_lanes": (AB_SESSIONS, AB_FRAME),
+                   "rotator_lanes": (AB_SESSIONS, AB_FRAME)}
+
+
+def serve_main_pipe(taps):
+    from futuresdr_tpu_torch.ops.stages import Pipeline, fir_fft_stage, mag2_stage
+    return Pipeline([fir_fft_stage(taps, N_FFT), mag2_stage()], np.complex64)
+
+
+def serve_ab_pipe():
+    from futuresdr_tpu_torch.ops.stages import Pipeline, fir_stage, rotator_stage
+    return Pipeline([rotator_stage(0.013, impl="pallas"),
+                     fir_stage(np.hanning(17).astype(np.float32), fft_len=128,
+                               impl="pallas")], np.complex64)
+
+
+def phase_serve_lanes(dev) -> dict:
+    """28 (a): the lane forms of ``fir``, ``fir_fft`` and ``rotator`` at L = 1,
+    4 and 64 with distinct taps, histories and phases a lane: each lane equal
+    to the one-stream launch on its row bit for bit, and the lane plain
+    version (on the card) within the kernel's tolerance. Returns the worst
+    relative error a lane kernel."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    worst = dict.fromkeys(LANE_KERNELS, 0.0)
+
+    def rc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, generator=gen, device=dev)
+
+    for L in LANES:
+        for n, nt in ((AB_FRAME, 17), (SERVE_FRAME, N_TAPS)):
+            x, hist = rc(L, n), rc(L, nt - 1)
+            taps = torch.randn(L, nt, generator=gen, device=dev)
+            y = ck.fir_lanes(hist, x, taps)
+            per = torch.stack([ck.fir_continue(hist[i], x[i], taps[i]) for i in range(L)])
+            check(torch.equal(y, per), f"fir_lanes L={L} n={n}: a lane differs from the "
+                                       f"one-stream launch")
+            _, rel = rel_err(y, ck.fir_lanes_plain(hist, x, taps))
+            check(rel <= TOL["fir"], f"fir_lanes L={L} n={n}: {rel:.2e} from its plain version")
+            worst["fir_lanes"] = max(worst["fir_lanes"], rel)
+        n = SERVE_FRAME
+        x, hist = rc(L, n), rc(L, N_TAPS - 1)
+        taps = torch.randn(L, N_TAPS, generator=gen, device=dev)
+        y = ck.fir_fft_lanes(hist, x, taps, N_FFT)
+        per = torch.stack([ck.fir_fft(hist[i], x[i], taps[i], N_FFT) for i in range(L)])
+        check(torch.equal(y, per), f"fir_fft_lanes L={L}: a lane differs from the "
+                                   f"one-stream launch")
+        _, rel = rel_err(y, ck.fir_fft_lanes_plain(hist, x, taps, N_FFT))
+        check(rel <= TOL["fir_fft"], f"fir_fft_lanes L={L}: {rel:.2e} from its plain version")
+        worst["fir_fft_lanes"] = max(worst["fir_fft_lanes"], rel)
+        del x, hist, y, per
+        for n in (AB_FRAME, AB_FRAME + 1):          # an odd row: the heads alternate
+            x = rc(L, n)
+            ph0 = torch.rand(L, generator=gen, device=dev) * 6.0
+            inc = (torch.rand(L, generator=gen, device=dev) - 0.5) * 0.4
+            y, nxt = ck.rotator_lanes(x, ph0, inc)
+            per = [ck.rotator(x[i], ph0[i], inc[i]) for i in range(L)]
+            check(torch.equal(y, torch.stack([p[0] for p in per])) and
+                  torch.equal(nxt, torch.stack([p[1] for p in per])),
+                  f"rotator_lanes L={L} n={n}: a lane differs from the one-stream launch")
+            py, pn = ck.rotator_lanes_plain(x, ph0, inc)
+            _, rel = rel_err(y, py)
+            check(rel <= TOL["rotator"] and torch.equal(nxt, pn),
+                  f"rotator_lanes L={L} n={n}: {rel:.2e} from its plain version")
+            worst["rotator_lanes"] = max(worst["rotator_lanes"], rel)
+    torch.cuda.synchronize()
+    print(f"phase 28 (a): lane forms at L = {LANES} bit-equal to the one-stream launches; "
+          f"worst against plain " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def _bare_outputs(pipe, frame, streams, dev, retunes=None):
+    """Each stream through one compiled bare ``Pipeline`` from its own fresh
+    carry (``retunes[i] = (at, stage, params)`` updates stream i's carry
+    before frame ``at``): the served outputs' bit-equality reference."""
+    import torch
+    fn, _ = pipe.compile(frame, dev, donate=False)
+    out = []
+    for i, frames in enumerate(streams):
+        carry = pipe.init_carry(dev)
+        got = []
+        for j, f in enumerate(frames):
+            if retunes and i in retunes and retunes[i][0] == j:
+                carry = pipe.update_stage(carry, retunes[i][1], **retunes[i][2])
+            carry, y = fn(carry, torch.from_numpy(f).to(dev))
+            got.append(y.cpu().numpy())
+        out.append(got)
+    torch.cuda.synchronize()
+    return out
+
+
+def _equal_streams(got, want, what: str) -> None:
+    check(len(got) == len(want), f"{what}: {len(got)} outputs for {len(want)} frames")
+    for j, (a, b) in enumerate(zip(got, want)):
+        check(np.array_equal(a, b), f"{what}: frame {j} differs from the bare Pipeline "
+                                    f"(max |diff| {float(np.max(np.abs(a - b))):.3e})")
+
+
+def _stream_frames(rng, n_streams, n_frames, frame):
+    return [[(rng.standard_normal(frame) + 1j * rng.standard_normal(frame))
+             .astype(np.complex64) for _ in range(n_frames)] for _ in range(n_streams)]
+
+
+def phase_serve_paths(dev, taps) -> dict:
+    """28 (b) and (c): the engine's served paths. Their kernel launches are
+    counted from 0 over the engines' runs alone; the bare references run
+    before. Returns ``{"launches", "lat", "dispatch", "engines"}``."""
+    import tempfile
+
+    import torch
+
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.serve import ServeEngine
+    rng = np.random.default_rng(SEED + 280)
+    # (b) the main chain at full width: 16 sessions of 2^18, four retuned
+    main_data = _stream_frames(rng, SERVE_SESSIONS, SERVE_FRAMES_EACH, SERVE_FRAME)
+    retaps = {i: firdes.lowpass(0.05 + 0.03 * i, N_TAPS).astype(np.float32)
+              for i in range(SERVE_RETUNED)}
+    stage = serve_main_pipe(taps).stages[0].name
+    retunes = {i: (1, stage, {"taps": t}) for i, t in retaps.items()}
+    main_ref = _bare_outputs(serve_main_pipe(taps), SERVE_FRAME, main_data, dev, retunes)
+    # (c) serve_ab's chain: 64 sessions, 100 joins and leaves, an evict and
+    # readmit round trip, and the persisted resume at in-flight depth 3
+    n_joiners = AB_CHURN_EVENTS // 2
+    ab_data = _stream_frames(rng, AB_SESSIONS + n_joiners, 12, AB_FRAME)
+    per_data = _stream_frames(rng, 4, 6, AB_FRAME)
+    per_ref = _bare_outputs(serve_ab_pipe(), AB_FRAME, per_data, dev)
+
+    ck.reset_launches()
+    eng = ServeEngine(serve_main_pipe(taps), frame_size=SERVE_FRAME, app="serve_main",
+                      buckets=SERVE_BUCKETS, queue_frames=4, device=dev)
+    sess = [eng.admit(tenant=f"t{i % 4}") for i in range(SERVE_SESSIONS)]
+    check(eng.capacity == SERVE_BUCKETS[-1], f"the pool did not grow to "
+                                             f"{SERVE_BUCKETS[-1]}: {eng.capacity}")
+    for j in range(SERVE_FRAMES_EACH):
+        if j == 1:
+            for i, t in retaps.items():
+                eng.retune(sess[i].sid, stage, taps=t)
+        for s, d in zip(sess, main_data):
+            check(eng.submit(s.sid, d[j]), "a main-chain submit was refused")
+        check(eng.step() == SERVE_SESSIONS, "a main-chain step did not dispatch every lane")
+    main_out = [eng.results(s.sid) for s in sess]
+    check(eng.compiles == 1 and eng.dispatches == SERVE_FRAMES_EACH,
+          f"main chain: {eng.compiles} builds, {eng.dispatches} dispatches")
+    one = ServeEngine(serve_main_pipe(taps), frame_size=SERVE_FRAME, app="serve_n1",
+                      buckets=(4,), queue_frames=4, device=dev)
+    s1 = one.admit(tenant="solo")
+    for f in main_data[SERVE_RETUNED]:
+        check(one.submit(s1.sid, f), "an N = 1 submit was refused")
+    while one.step():
+        pass
+    n1_out = one.results(s1.sid)
+
+    ab = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="serve_ab",
+                     buckets=AB_BUCKETS, queue_frames=4, device=dev)
+    owner = {}                       # sid -> stream index
+    outs = {}                        # stream index -> outputs
+    cursor = {}
+    live = []
+    for i in range(AB_SESSIONS):
+        s = ab.admit(tenant=f"t{i % 4}")
+        owner[s.sid], cursor[i], outs[i] = i, 0, []
+        live.append(s)
+    next_stream, events, busy, lat = AB_SESSIONS, 0, 0, []
+    compiles_after_first = None
+    evicted_round_trip = None
+    for step in range(AB_STEPS):
+        if step and events < AB_CHURN_EVENTS and step % 2 == 0:
+            old = live.pop(step % len(live))
+            outs[owner[old.sid]] += ab.results(old.sid)
+            ab.close(old.sid)
+            s = ab.admit(tenant=f"t{next_stream % 4}")
+            owner[s.sid], cursor[next_stream], outs[next_stream] = next_stream, 0, []
+            next_stream += 1
+            live.append(s)
+            events += 2
+        if step == AB_STEPS // 2:    # evict and readmit one live session mid-stream
+            victim = live[3]
+            ab.evict(victim.sid)
+            ab.readmit(victim.sid)
+            evicted_round_trip = owner[victim.sid]
+        for s in live:
+            i = owner[s.sid]
+            if cursor[i] < len(ab_data[i]):
+                check(ab.submit(s.sid, ab_data[i][cursor[i]]), "a serve_ab submit was refused")
+                cursor[i] += 1
+        before = {s.sid: s.frames_out for s in live}
+        n = ab.step()
+        busy += bool(n)
+        for s in live:
+            if s.frames_out > before[s.sid] and s.last_latency_s is not None:
+                lat.append(s.last_latency_s)
+            outs[owner[s.sid]] += ab.results(s.sid)
+        if compiles_after_first is None:
+            compiles_after_first = ab.compiles
+    while ab.step():
+        busy += 1
+    for s in live:
+        outs[owner[s.sid]] += ab.results(s.sid)
+    check(events >= AB_CHURN_EVENTS, f"only {events} join/leave events")
+    check(ab.compiles == compiles_after_first == 1,
+          f"churn built programs: {compiles_after_first} after the first step, "
+          f"{ab.compiles} at the end")
+    check(ab.dispatches == busy, f"{ab.dispatches} dispatches for {busy} busy frame times")
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
+        pa = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="serve_persist",
+                         buckets=(4,), queue_frames=8, device=dev, inflight=3,
+                         persist_dir=tmp, persist_every=1)
+        ps = [pa.admit(tenant="p", sid=f"p{i}") for i in range(4)]
+        for j in range(3):
+            for s, d in zip(ps, per_data):
+                pa.submit(s.sid, d[j])
+            pa.step()
+        while pa.step():
+            pass
+        per_head = [pa.results(s.sid) for s in ps]
+        pa.flush_persist()
+        pb = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="serve_persist",
+                         buckets=(4,), queue_frames=8, device=dev, inflight=3,
+                         persist_dir=tmp, persist_every=1)
+        check(pb.restored_sessions == 4, f"{pb.restored_sessions} sessions restored")
+        for j in range(3, 6):
+            for i in range(4):
+                pb.submit(f"p{i}", per_data[i][j])
+            pb.step()
+        while pb.step():
+            pass
+        per_tail = [pb.results(f"p{i}") for i in range(4)]
+        pb.flush_persist()
+    torch.cuda.synchronize()
+    launches = {k: ck.launches[k] for k in ck.launches}
+
+    # the comparisons, after the count
+    for i in range(SERVE_SESSIONS):
+        _equal_streams(main_out[i], main_ref[i], f"main chain session {i}"
+                       + (" (retuned)" if i in retaps else ""))
+    _equal_streams(n1_out, main_ref[SERVE_RETUNED], "main chain N = 1 in the capacity-4 "
+                                                    "bucket")
+    ab_ref = _bare_outputs(serve_ab_pipe(), AB_FRAME,
+                           [ab_data[i][:len(outs[i])] for i in sorted(outs)], dev)
+    for i in sorted(outs):
+        _equal_streams(outs[i], ab_ref[i], f"serve_ab session {i}" +
+                       (" (evicted and readmitted)" if i == evicted_round_trip else ""))
+    for i in range(4):
+        _equal_streams(per_head[i] + per_tail[i], per_ref[i],
+                       f"persisted session p{i} at depth 3")
+    print(f"phase 28 (b): {SERVE_SESSIONS} sessions of the main chain at {SERVE_FRAME} "
+          f"({SERVE_RETUNED} retuned) and N = 1 in the capacity-4 bucket bit-equal to the "
+          f"bare Pipeline; 1 build, {SERVE_FRAMES_EACH} dispatches")
+    print(f"phase 28 (c): serve_ab chain, {AB_SESSIONS} sessions, {events} join/leave "
+          f"events, {ab.dispatches} dispatches in {busy} busy frame times, builds "
+          f"{ab.compiles} (resident bucket: 0 after the first); every stream, the "
+          f"evict/readmit and the depth-3 persisted resume bit-equal")
+    return {"launches": launches, "lat": lat, "engines": (eng, ab)}
+
+
+def _graph_card_ms(prog) -> float:
+    """One replay of a slot program's CUDA graph, card time (queued behind a
+    device sleep), median of REPS."""
+    import torch
+    times = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        prog._graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _run_independent(pipe, data, frame, dev, steps: int) -> float:
+    """serve_ab's independent baseline: one compiled program, a carry a
+    session, each frame time every session its own H2D, call and D2H;
+    session-frames/s (median frame time)."""
+    from futuresdr_tpu_torch.ops import xfer
+    fn, _ = pipe.compile(frame, dev, donate=False)
+    carries = [pipe.init_carry(dev) for _ in data]
+    durs = []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        for i, d in enumerate(data):
+            x = xfer.to_device(d[step % len(d)], dev)
+            carries[i], y = fn(carries[i], x)
+            xfer.to_host(y)
+        durs.append(time.perf_counter() - t0)
+    return len(data) / float(np.median(durs))
+
+
+def _run_served(pipe, data, frame, dev, steps: int, app: str, k: int = 1,
+                inflight: int = 1) -> tuple:
+    """serve_ab's served side: every session rides one dispatch a frame
+    time (``k`` frames a session a dispatch, ``inflight`` groups in flight);
+    session-frames/s (median frame time) and the dispatches a frame time."""
+    from futuresdr_tpu_torch.serve import ServeEngine
+    eng = ServeEngine(pipe, frame_size=frame, app=app, buckets=(len(data),),
+                      queue_frames=max(4, 2 * k), frames_per_dispatch=k, device=dev,
+                      inflight=inflight)
+    sess = [eng.admit(tenant=f"t{i % 4}") for i in range(len(data))]
+    for s, d in zip(sess, data):
+        for j in range(k):
+            eng.submit(s.sid, d[j % len(d)])
+    eng.step()
+    while eng.step():
+        pass
+    durs, d0 = [], eng.dispatches
+    for step in range(1, steps + 1):
+        t0 = time.perf_counter()
+        for s, d in zip(sess, data):
+            for j in range(k):
+                eng.submit(s.sid, d[(step * k + j) % len(d)])
+        eng.step()
+        for s in sess:
+            eng.results(s.sid)
+        durs.append(time.perf_counter() - t0)
+    while eng.step():
+        pass
+    return len(data) * k / float(np.median(durs)), (eng.dispatches - d0) / steps
+
+
+def phase_serve_measure(dev, taps, paths, card_line) -> dict:
+    """28 (d), printed figures, no claim: autotune_serve's ladder and rates,
+    one dispatch's card time, submit→result p99 under churn, and the served
+    sessions against as many independent compiled loops."""
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    from futuresdr_tpu_torch.tpu.autotune import autotune_serve
+    inst = TpuInstance(dev)
+    for label, pipe, frame, caps in (
+            ("main chain", serve_main_pipe(taps), SERVE_FRAME, (1, 2, 4, 8, 16)),
+            ("serve_ab chain", serve_ab_pipe(), AB_FRAME, AB_BUCKETS)):
+        ladder, rates = autotune_serve(pipe, frame_size=frame, inst=inst, capacities=caps,
+                                       reps=10, record=False)
+        print(f"serve autotune {label} frame={frame}: ladder {ladder}; " + ", ".join(
+            f"capacity {c}: {r:.1f} session-frames/s" for c, r in sorted(rates.items()))
+            + f" [{card_line}]")
+    eng_main, eng_ab = paths["engines"]
+    out = {}
+    for label, eng in (("main chain", eng_main), ("serve_ab chain", eng_ab)):
+        (cap, k, _tag), prog = next(iter(eng._programs.items()))
+        ms = _graph_card_ms(prog)
+        out[label] = ms
+        print(f"serve dispatch {label} capacity {cap} frame={eng.frame_size}: card "
+              f"{ms:.4f} ms a dispatch ({ms * 1e3 / cap:.2f} us a session-frame), "
+              f"{prog.launches} [{card_line}]")
+    lat = np.asarray(paths["lat"]) * 1e3
+    print(f"serve p99 submit->result serve_ab chain under churn ({AB_SESSIONS} sessions, "
+          f"{AB_CHURN_EVENTS} join/leave events): {np.percentile(lat, 99):.3f} ms "
+          f"(p50 {np.percentile(lat, 50):.3f} ms, {lat.size} frames) [{card_line}]")
+    rng = np.random.default_rng(SEED + 281)
+    for label, mk, frame, n in (("serve_ab chain", serve_ab_pipe, AB_FRAME, AB_SESSIONS),
+                                ("main chain", lambda: serve_main_pipe(taps), SERVE_FRAME,
+                                 SERVE_SESSIONS)):
+        data = _stream_frames(rng, n, 4, frame)
+        indep = _run_independent(mk(), data, frame, dev, AB_AB_STEPS)
+        served, disp = _run_served(mk(), data, frame, dev, AB_AB_STEPS, f"ab_{frame}")
+        out[f"ab {label}"] = (served, indep)
+        print(f"serve A/B {label} frame={frame} sessions={n}: served {served:.1f}, "
+              f"independent {indep:.1f} session-frames/s, ratio {served / indep:.2f}, "
+              f"{disp:g} dispatches a frame time [{card_line}]")
+        for k, depth in ((4, 1), (1, 3)):
+            got, disp = _run_served(mk(), data, frame, dev, AB_AB_STEPS // k,
+                                    f"ab_{frame}_{k}_{depth}", k=k, inflight=depth)
+            out[f"served {label} K={k} depth={depth}"] = got
+            print(f"serve {label} frame={frame} sessions={n} K={k} in-flight={depth}: "
+                  f"{got:.1f} session-frames/s, {got / served:.2f} x K=1 depth 1, "
+                  f"{disp:g} dispatches a frame time [{card_line}]")
+    return out
+
+
+def lane_timings(dev, name: str, L: int, n: int) -> dict:
+    """Kernel, plain and library device time and the bound of a lane form on
+    ``L`` lanes of ``n`` complex64 samples (``fir``: 64 taps at 2^18, 17 at
+    512; ``fir_fft``: 64 taps, N = 2048)."""
+    import torch
+    import torch.nn.functional as F
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    nt = 17 if n == AB_FRAME else N_TAPS
+
+    def rc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, generator=gen, device=dev)
+
+    if name == "rotator_lanes":
+        args = [(rc(L, n), torch.rand(L, generator=gen, device=dev) * 6,
+                 torch.rand(L, generator=gen, device=dev) * 0.1) for _ in range(LANE_REPS)]
+        kern, plain, lib = ck.rotator_lanes, ck.rotator_lanes_plain, None
+        nbytes, ops = kernel_cost("rotator", n=n)
+        nbytes, ops = L * nbytes, L * ops
+    else:
+        args = [(rc(L, nt - 1), rc(L, n), torch.randn(L, nt, generator=gen, device=dev))
+                for _ in range(LANE_REPS)]
+        w = [a[2].flip(1).repeat_interleave(2, 0).unsqueeze(1).contiguous() for a in args]
+        planes = [(torch.view_as_real(torch.cat([h, x], dim=1)).permute(0, 2, 1)
+                   .reshape(1, 2 * L, -1).contiguous(), wi) for (h, x, _), wi in zip(args, w)]
+        if name == "fir_lanes":
+            kern, plain = ck.fir_lanes, ck.fir_lanes_plain
+
+            def lib(p, wi):
+                return F.conv1d(p, wi, groups=2 * L)
+            nbytes, ops = kernel_cost("fir", n=n, nt=nt)
+            nbytes, ops = L * nbytes, L * ops
+        else:
+            def kern(h, x, t):
+                return ck.fir_fft_lanes(h, x, t, N_FFT)
+
+            def plain(h, x, t):
+                return ck.fir_fft_lanes_plain(h, x, t, N_FFT)
+
+            def lib(p, wi):
+                y = F.conv1d(p, wi, groups=2 * L).view(L, 2, -1)
+                return torch.fft.fft(torch.complex(y[:, 0], y[:, 1]).view(L, -1, N_FFT), dim=2)
+            nbytes, ops = kernel_cost("fir_fft", n=n, nt=nt, n_fft=N_FFT)
+            nbytes, ops = L * nbytes - (L - 1) * N_FFT * 8, L * ops
+    got = kern(*args[0])
+    ref = plain(*args[0])
+    err, _ = rel_err(got[0] if isinstance(got, tuple) else got,
+                     ref[0] if isinstance(ref, tuple) else ref)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    out = {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args[:2]),
+           "library_ms": None if lib is None else device_ms(lib, planes),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err}
+    if lib is None:
+        out["copy_ms"] = device_ms(lambda x, *_: x.clone(), args)
+    return out
+
+
+def phase_serving(dev, taps, card_line) -> dict:
+    """Phase 28, the serving plane: (a) the lane kernels, (b) the main chain
+    served at full width, (c) serve_ab's chain under churn, evict/readmit and
+    the persisted resume, (d) printed figures; lane timings for the kernels
+    line."""
+    t0 = time.perf_counter()
+    worst = phase_serve_lanes(dev)
+    paths = phase_serve_paths(dev, taps)
+    measured = phase_serve_measure(dev, taps, paths, card_line)
+    timings = {}
+    for name in LANE_KERNELS:
+        shapes = {LANE_LINE_SHAPE[name], (SERVE_SESSIONS, SERVE_FRAME)}
+        for L, n in sorted(shapes):
+            t = lane_timings(dev, name, L, n)
+            timings[(name, L, n)] = t
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            yard = f", copy of its bytes {t['copy_ms']:.4f} ms" if "copy_ms" in t else ""
+            print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}){yard} [{card_line}]")
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "launches": paths["launches"], "timings": timings,
+            "measured": measured}
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -4072,6 +4577,8 @@ def main(argv=None) -> int:
     parser.add_argument("--stress", type=int, default=0, metavar="N",
                         help="only run the spectrum and FM streamed phases N "
                              "times each, each run under a stall watchdog")
+    parser.add_argument("--serving", action="store_true",
+                        help="only run phase 28, the serving plane, after the build")
     parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
                         help=argparse.SUPPRESS)   # one process of phase 26 (d)
     parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
@@ -4110,6 +4617,9 @@ def main(argv=None) -> int:
           "on the pure-Python ring")
     if stress_runs:
         stress(dev, stress_runs)
+        return 0
+    if args.serving:
+        phase_serving(dev, firdes.lowpass(0.2, N_TAPS).astype(np.float32), card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -4195,6 +4705,15 @@ def main(argv=None) -> int:
     precision = path_phase("precision", SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS,
                            phase_precision, dev, taps)
     print(f"phase 27: {time.perf_counter() - t27:.1f} s")
+    # 28. the serving plane: the lane kernels, the main chain served at full
+    #     width, serve_ab's chain under churn, the printed figures; the lane
+    #     kernels' launches counted over the engines' runs alone
+    serving = phase_serving(dev, taps, card_line)
+    by_phase["serving"] = {k: serving["launches"][k] for k in LANE_KERNELS}
+    for k in LANE_KERNELS:
+        check(serving["launches"][k] > 0, f"lane kernel {k} was launched no time on the "
+                                          f"served paths")
+        launches[k] = serving["launches"][k]
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -4232,6 +4751,17 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{y: t[y] for y in ("empty_ms", "copy_ms") if y in t}})
+    for k in LANE_KERNELS:
+        t = serving["timings"][(k, *LANE_LINE_SHAPE[k])]
+        line["kernels"].append({
+            "name": k, "route": "cuda", "source": SOURCES[LANE_OF[k]],
+            "replaces": REPLACES[LANE_OF[k]], "launches": launches[k],
+            "launches_by_phase": {p: c[k] for p, c in by_phase.items() if k in c},
+            "lanes": LANE_LINE_SHAPE[k][0], "n": LANE_LINE_SHAPE[k][1],
+            "max_abs_err": max(serving["worst"][k], t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{y: t[y] for y in ("copy_ms",) if y in t}})
     print(json.dumps(line))
 
     # 8. rates beside the card

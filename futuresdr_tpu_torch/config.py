@@ -7,7 +7,8 @@ type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
 ``FUTURESDR_TPU_TPU_WIRE_FORMAT=sc8``, ``FUTURESDR_TPU_XFER_BACKOFF=0.001``,
 ``FUTURESDR_TPU_CTRLPORT_ENABLE=true``,
 ``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``,
-``FUTURESDR_TPU_BLOCK_POLICY=restart``, ``FUTURESDR_TPU_INTERIOR_PRECISION=auto``
+``FUTURESDR_TPU_BLOCK_POLICY=restart``, ``FUTURESDR_TPU_INTERIOR_PRECISION=auto``,
+``FUTURESDR_TPU_SERVE_BUCKETS=1,4,16``
 or ``FUTURESDR_TPU_AUTOTUNE_CACHE_DIR=/path``. A ``tpu_`` field also reads the
 reference's short form without the field's ``tpu_`` head, e.g.
 ``FUTURESDR_TPU_WIRE_FORMAT=sc16`` (the full name wins where both are set).
@@ -119,6 +120,33 @@ class Config:
     autotune_cache_dir: str = ""           # the streamed-pick cache's JSON
     #   store (tpu/autotune.py); "" = in memory only (the reference's default,
     #   ~/.cache/futuresdr_tpu, lies outside the checkout: set it to persist)
+    # the serving plane (serve/engine.py ServeEngine)
+    serve_buckets: str = ""                # slot-bucket ladder, e.g. "1,4,16,64";
+    #   "" = the cached autotune_serve ladder, else powers of two to 64
+    serve_queue_frames: int = 2            # shared admission budget: this many
+    #   queued, undispatched frames a slot, divided fairly between tenants
+    serve_retired_keep: int = 64           # retired-session views kept
+    serve_persist_dir: str = ""            # per-session carry snapshots here,
+    #   restored by a new engine of the same app; "" = off
+    serve_persist_every: int = 0           # persist every lane every Nth step
+    #   (0 = off; evictions and drains persist regardless)
+    serve_slo_ms: float = 0.0              # submit→result latency SLO of the
+    #   shedding ladder; 0 = queue pressure only
+    serve_shed_hi: float = 0.85            # queue-pressure high watermark
+    serve_shed_lo: float = 0.50            # low watermark (the ladder unwinds
+    #   one rung at a time below it)
+    serve_shed_trip: int = 3               # unhealthy steps a rung up
+    serve_shed_clear: int = 8              # healthy steps a rung down
+    serve_brownout: str = "off"            # the ladder's third rung: "off" |
+    #   "k" (megabatch K to 1) | "precision" (the interior lowered)
+    serve_brownout_precision: str = "bf16"  # the "precision" rung's mode:
+    #   "bf16" or "int8"
+    serve_drain_on_sigterm: bool = False   # register_app installs a SIGTERM
+    #   hook that drains every registered serving app
+    serve_inflight: int = 1                # dispatch groups in flight (1 =
+    #   launch, then commit, each step)
+    serve_shard_devices: int = 0           # slot-axis sharding over cards:
+    #   0 or 1 only (more is ROADMAP item 10)
 
     @classmethod
     def from_env(cls) -> "Config":

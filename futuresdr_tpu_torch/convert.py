@@ -6,6 +6,12 @@ from the JAX carry's leaves, flattened in tree order to numpy arrays by the
 caller (``[np.asarray(l) for l in jax.tree_util.tree_leaves(carry)]``), so a
 stream can move from one package to the other mid-run. A bfloat16 leaf (the
 ``ml_dtypes`` type numpy holds JAX's bf16 in) converts bit for bit.
+
+:func:`session_from_jax` does the same for a serving session: the host
+leaves a JAX ``ServeEngine.evict`` left on the session (its page of the pool,
+in tree order) become the leaves and carry spec the port's engine restores
+(``ServeEngine.adopt`` then ``readmit``), checked by ``carry_matches``
+against the port's template.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 
 from .ops.stages import Pipeline
 
-__all__ = ["carry_from_numpy"]
+__all__ = ["carry_from_numpy", "session_from_jax"]
 
 
 def _flatten(tree) -> list:
@@ -58,3 +64,18 @@ def carry_from_numpy(pipeline: Pipeline, leaves: Sequence[np.ndarray], device) -
                              f"got {a.shape} {a.dtype}")
         out.append(got.to(device))
     return _unflatten(template, iter(out))
+
+
+def session_from_jax(pipeline, leaves: Sequence[np.ndarray]) -> tuple:
+    """``(host leaves, carry spec)`` of an evicted JAX serving session, for
+    the port's ``ServeEngine.adopt``: the leaves of the JAX engine's
+    ``evict`` (``Session.carry_leaves``) converted leaf for leaf, in the
+    port's snapshot leaf contract (a bfloat16 leaf as its int16 bits).
+    Raises ``ValueError`` when they do not fit the port's carry."""
+    carry = carry_from_numpy(pipeline, leaves, "cpu")
+    host = [(t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().copy()
+            for t in _flatten(carry)]
+    spec = pipeline.carry_spec(carry)
+    if not pipeline.carry_matches(host, spec, pipeline.init_carry("cpu")):
+        raise ValueError("the converted session carry fails the pipeline's carry contract")
+    return host, spec

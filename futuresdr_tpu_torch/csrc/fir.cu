@@ -38,6 +38,12 @@
 // bf16 mode (precision="bf16"): samples and taps are rounded to bf16 when they
 // are staged; products of two bf16 values are exact in FP32 and accumulate in
 // FP32, as the reference's bf16 mode computes them.
+//
+// Lanes (fsdr_fir_lanes, the serving plane's [L, n] batch): the lane is the
+// grid's y dimension, and each lane offsets x, hist, taps and y by its own
+// strides before anything else, so a lane runs exactly the one-stream
+// kernel's arithmetic on its row (its output equals a one-stream launch on
+// that row bit for bit). Each lane's y row must start 16-byte aligned.
 
 #include <cstdint>
 
@@ -118,8 +124,14 @@ template <typename T, bool BF16>
 __global__ void __launch_bounds__(kMaxThreads)
 fir_kernel(const T* __restrict__ hist, const T* __restrict__ x,
            const float* __restrict__ taps, T* __restrict__ y, long long n, int nt,
-           int ssh, int bufs) {
+           int ssh, int bufs, long long hs, long long xs, long long ts, long long ys) {
   extern __shared__ float2 smem[];
+  // this block's lane: its rows of hist, x, taps and y
+  const long long lane_id = blockIdx.y;
+  if (hist != nullptr) hist += lane_id * hs;
+  x += lane_id * xs;
+  taps += lane_id * ts;
+  y += lane_id * ys;
   const int lane = threadIdx.x & 31;
   const int span = kWarpOuts + nt - 1;
   const int slots = span_slots(nt, ssh);
@@ -183,20 +195,55 @@ fir_kernel(const T* __restrict__ hist, const T* __restrict__ x,
   }
 }
 
+// lanes: the grid's y dimension; strides (hs, xs, ts, ys) in elements a lane
+struct Lanes {
+  int lanes;
+  long long hs, xs, ts, ys;
+};
+
 template <typename T, bool BF16>
 cudaError_t launch(const void* hist, const void* x, const void* taps, void* y,
                    long long n, int nt, int threads, int blocks, int ssh, int bufs,
-                   size_t smem, cudaStream_t stream) {
+                   size_t smem, const Lanes& ln, cudaStream_t stream) {
   auto kern = fir_kernel<T, BF16>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(ln.lanes));
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(hist), static_cast<const T*>(x),
-      static_cast<const float*>(taps), static_cast<T*>(y), n, nt, ssh, bufs);
+      static_cast<const float*>(taps), static_cast<T*>(y), n, nt, ssh, bufs, ln.hs, ln.xs,
+      ln.ts, ln.ys);
   return cudaGetLastError();
+}
+
+int run(const void* hist, const void* x, const void* taps, void* y, long long n, int nt,
+        int modes, const int* plan, long long smem, const Lanes& ln, void* stream) {
+  if (n <= 0 || ln.lanes == 0) return 0;
+  const int threads = plan[0], blocks = plan[1], ssh = plan[2], bufs = plan[3];
+  const bool is_complex = modes & 1, bf16 = modes & 2;
+  const size_t elt = is_complex ? 8 : 4;
+  if (nt < 1 || threads < 32 || threads > kMaxThreads || threads % 32 || blocks < 1 ||
+      ssh < 0 || ssh > 31 || (bufs != 1 && bufs != 2) || ln.lanes < 0 ||
+      ln.lanes > 65535 || reinterpret_cast<uintptr_t>(y) % 16 ||
+      (ln.lanes > 1 && (ln.ys * elt) % 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t want = smem_bytes(threads / 32, bufs, nt, ssh, elt);
+  if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_complex) {
+    return bf16 ? launch<float2, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                       want, ln, s)
+                : launch<float2, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                        want, ln, s);
+  }
+  return bf16 ? launch<float, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                    want, ln, s)
+              : launch<float, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
+                                     want, ln, s);
 }
 
 }  // namespace
@@ -212,25 +259,17 @@ cudaError_t launch(const void* hist, const void* x, const void* taps, void* y,
 extern "C" int fsdr_fir(const void* hist, const void* x, const void* taps, void* y,
                         long long n, int nt, int modes, const int* plan, long long smem,
                         void* stream) {
-  if (n <= 0) return 0;
-  const int threads = plan[0], blocks = plan[1], ssh = plan[2], bufs = plan[3];
-  const bool is_complex = modes & 1, bf16 = modes & 2;
-  if (nt < 1 || threads < 32 || threads > kMaxThreads || threads % 32 || blocks < 1 ||
-      ssh < 0 || ssh > 31 || (bufs != 1 && bufs != 2) ||
-      reinterpret_cast<uintptr_t>(y) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t want = smem_bytes(threads / 32, bufs, nt, ssh, is_complex ? 8 : 4);
-  if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_complex) {
-    return bf16 ? launch<float2, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
-                                       want, s)
-                : launch<float2, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
-                                        want, s);
-  }
-  return bf16 ? launch<float, true>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
-                                    want, s)
-              : launch<float, false>(hist, x, taps, y, n, nt, threads, blocks, ssh, bufs,
-                                     want, s);
+  return run(hist, x, taps, y, n, nt, modes, plan, smem, Lanes{1, 0, 0, 0, 0}, stream);
+}
+
+// The lane form: `lanes` streams of n samples, lane l at hist + l * hs (null:
+// zero initial states), x + l * xs, taps + l * ts (ts = 0: shared taps) and
+// y + l * ys, strides in elements; every y row 16-byte aligned. The plan is
+// the one-stream plan for n, run once a lane.
+extern "C" int fsdr_fir_lanes(const void* hist, const void* x, const void* taps, void* y,
+                              long long n, int nt, int modes, const int* plan,
+                              long long smem, int lanes, long long hs, long long xs,
+                              long long ts, long long ys, void* stream) {
+  return run(hist, x, taps, y, n, nt, modes, plan, smem, Lanes{lanes, hs, xs, ts, ys},
+             stream);
 }

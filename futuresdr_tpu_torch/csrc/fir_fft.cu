@@ -59,6 +59,11 @@
 // bf16 mode: samples and taps are rounded to bf16 when they are staged (their
 // products are exact in FP32 and accumulate in FP32), and the filtered row is
 // rounded to bf16 before the transform, which then runs in FP32.
+//
+// Lanes (fsdr_fir_fft_lanes, the serving plane's [L, rows * N] batch): the lane
+// is the grid's y dimension, and each block offsets hist, x, taps and y by its
+// lane's strides first, so a lane runs exactly the one-stream kernel on its
+// row (bit for bit the one-stream launch's output).
 
 #include "common.cuh"
 
@@ -121,8 +126,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 fir_fft_kernel(const T* __restrict__ hist, const T* __restrict__ x,
                const float* __restrict__ taps, const float2* __restrict__ tw_g,
                float2* __restrict__ y, int n, int nt, int n_pass, unsigned radix_codes,
-               int ssh, int psh, int tw_staged_len) {
+               int ssh, int psh, int tw_staged_len, long long hs, long long xs,
+               long long ts, long long ys) {
   extern __shared__ float2 smem[];
+  // this block's lane: its rows of hist, x, taps and y
+  const long long lane_id = blockIdx.y;
+  hist += lane_id * hs;
+  x += lane_id * xs;
+  taps += lane_id * ts;
+  y += lane_id * ys;
   const int a_len = buf_a(n, nt, ssh, psh), b_len = buf_b(n, psh);
   float2* s_a = smem;                              // skewed span, then an FFT buffer
   float2* s_b = s_a + a_len;                       // the padded filtered row
@@ -216,21 +228,29 @@ fir_fft_kernel(const T* __restrict__ hist, const T* __restrict__ x,
   }
 }
 
+// lanes: the grid's y dimension; strides (hs, xs, ts, ys) in elements a lane
+struct Lanes {
+  int lanes;
+  long long hs, xs, ts, ys;
+};
+
 template <typename T, bool BF16, int R>
 cudaError_t launch(const void* hist, const void* x, const void* taps, const void* tw,
                    void* y, long long rows, int n, int nt, int threads, int n_pass,
                    unsigned codes, int ssh, int psh, int tw_len, size_t smem,
-                   cudaStream_t stream) {
+                   const Lanes& ln, cudaStream_t stream) {
   auto kern = fir_fft_kernel<T, BF16, R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<static_cast<unsigned>(rows), threads, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(ln.lanes));
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(hist), static_cast<const T*>(x),
       static_cast<const float*>(taps), static_cast<const float2*>(tw),
-      static_cast<float2*>(y), n, nt, n_pass, codes, ssh, psh, tw_len);
+      static_cast<float2*>(y), n, nt, n_pass, codes, ssh, psh, tw_len, ln.hs, ln.xs, ln.ts,
+      ln.ys);
   return cudaGetLastError();
 }
 
@@ -238,40 +258,26 @@ template <typename T>
 cudaError_t dispatch(const void* hist, const void* x, const void* taps, const void* tw,
                      void* y, long long rows, int n, int nt, int bf16, int threads,
                      int outs, int n_pass, unsigned codes, int ssh, int psh, int tw_len,
-                     size_t smem, cudaStream_t s) {
+                     size_t smem, const Lanes& ln, cudaStream_t s) {
   if (outs == 8) {
     return bf16 ? launch<T, true, 8>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
-                                     codes, ssh, psh, tw_len, smem, s)
+                                     codes, ssh, psh, tw_len, smem, ln, s)
                 : launch<T, false, 8>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
-                                      codes, ssh, psh, tw_len, smem, s);
+                                      codes, ssh, psh, tw_len, smem, ln, s);
   }
   return bf16 ? launch<T, true, 4>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
-                                   codes, ssh, psh, tw_len, smem, s)
+                                   codes, ssh, psh, tw_len, smem, ln, s)
               : launch<T, false, 4>(hist, x, taps, tw, y, rows, n, nt, threads, n_pass,
-                                    codes, ssh, psh, tw_len, smem, s);
+                                    codes, ssh, psh, tw_len, smem, ln, s);
 }
 
-}  // namespace
-
-// x: rows * n samples; hist: the nt - 1 samples before x (never null); y:
-// rows * n complex64. tw: the twiddle table of the plan, tw_len entries of
-// (cos, sin) pairs: for a power-of-two n the passes' tables one after the
-// other, pass p's entry (q - 1) * Ns + k holding (cos, sin)(2 pi ((k q
-// stride) mod n) / n); else the n entries of (cos, sin)(2 pi k / n). The plan
-// (cuda_kernels.fir_fft_plan): threads per block, outs (R: 4 or 8), n_pass
-// Stockham passes with their radices in order (2, 4, 8 or 16; 0 passes: the
-// direct DFT), the span and FFT-buffer pad shifts, whether the table is staged
-// in shared memory, and its shared memory, which must equal this layout's.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// plan the kernel does not take.
-extern "C" int fsdr_fir_fft(const void* hist, const void* x, const void* taps,
-                            const void* tw, int tw_len, void* y, long long rows, int n,
-                            int nt, int is_complex, int bf16, int threads, int outs,
-                            int n_pass, const int* radices, int ssh, int psh,
-                            int tw_staged, long long smem, void* stream) {
-  if (rows <= 0) return 0;
+int run(const void* hist, const void* x, const void* taps, const void* tw, int tw_len,
+        void* y, long long rows, int n, int nt, int is_complex, int bf16, int threads,
+        int outs, int n_pass, const int* radices, int ssh, int psh, int tw_staged,
+        long long smem, const Lanes& ln, void* stream) {
+  if (rows <= 0 || ln.lanes == 0) return 0;
   if (n_pass < 0 || n_pass > kMaxPasses || threads < 1 || threads > kMaxThreads ||
-      (outs != 4 && outs != 8)) {
+      (outs != 4 && outs != 8) || ln.lanes < 0 || ln.lanes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   unsigned codes = 0;
@@ -294,8 +300,45 @@ extern "C" int fsdr_fir_fft(const void* hist, const void* x, const void* taps,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_complex) {
     return dispatch<float2>(hist, x, taps, tw, y, rows, n, nt, bf16, threads, outs, n_pass,
-                            codes, ssh, psh, staged, want, s);
+                            codes, ssh, psh, staged, want, ln, s);
   }
   return dispatch<float>(hist, x, taps, tw, y, rows, n, nt, bf16, threads, outs, n_pass,
-                         codes, ssh, psh, staged, want, s);
+                         codes, ssh, psh, staged, want, ln, s);
+}
+
+}  // namespace
+
+// x: rows * n samples; hist: the nt - 1 samples before x (never null); y:
+// rows * n complex64. tw: the twiddle table of the plan, tw_len entries of
+// (cos, sin) pairs: for a power-of-two n the passes' tables one after the
+// other, pass p's entry (q - 1) * Ns + k holding (cos, sin)(2 pi ((k q
+// stride) mod n) / n); else the n entries of (cos, sin)(2 pi k / n). The plan
+// (cuda_kernels.fir_fft_plan): threads per block, outs (R: 4 or 8), n_pass
+// Stockham passes with their radices in order (2, 4, 8 or 16; 0 passes: the
+// direct DFT), the span and FFT-buffer pad shifts, whether the table is staged
+// in shared memory, and its shared memory, which must equal this layout's.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// plan the kernel does not take.
+extern "C" int fsdr_fir_fft(const void* hist, const void* x, const void* taps,
+                            const void* tw, int tw_len, void* y, long long rows, int n,
+                            int nt, int is_complex, int bf16, int threads, int outs,
+                            int n_pass, const int* radices, int ssh, int psh,
+                            int tw_staged, long long smem, void* stream) {
+  return run(hist, x, taps, tw, tw_len, y, rows, n, nt, is_complex, bf16, threads, outs,
+             n_pass, radices, ssh, psh, tw_staged, smem, Lanes{1, 0, 0, 0, 0}, stream);
+}
+
+// The lane form: `lanes` streams of rows * n samples, lane l at hist + l * hs,
+// x + l * xs, taps + l * ts (ts = 0: shared taps) and y + l * ys, strides in
+// elements; the plan and table are the one-stream call's.
+extern "C" int fsdr_fir_fft_lanes(const void* hist, const void* x, const void* taps,
+                                  const void* tw, int tw_len, void* y, long long rows,
+                                  int n, int nt, int is_complex, int bf16, int threads,
+                                  int outs, int n_pass, const int* radices, int ssh,
+                                  int psh, int tw_staged, long long smem, int lanes,
+                                  long long hs, long long xs, long long ts, long long ys,
+                                  void* stream) {
+  return run(hist, x, taps, tw, tw_len, y, rows, n, nt, is_complex, bf16, threads, outs,
+             n_pass, radices, ssh, psh, tw_staged, smem, Lanes{lanes, hs, xs, ts, ys},
+             stream);
 }

@@ -37,6 +37,12 @@
 // repeats PyTorch's float32 torch.remainder(ph0 + inc * n, 2*pi) on CUDA:
 // the rounded product and sum, fmodf by float32(2*pi), and the divisor added
 // where the remainder's sign differs from it.
+//
+// Lanes (fsdr_rotator_lanes, the serving plane's [L, n] batch): the lane is the
+// grid's y dimension. Lane l reads and writes its row of x and y (rows `stride`
+// samples apart, the same in both) and its own ph0[l], inc[l] and ph_next[l];
+// its head is (head + l * stride) & 1, so an odd row length is taken as it
+// comes. A lane runs exactly the one-stream kernel's arithmetic on its row.
 
 #include <cuda_runtime.h>
 
@@ -61,9 +67,15 @@ __device__ __forceinline__ float2 rotate(float2 v, float ph0, float inc, long lo
 __global__ void __launch_bounds__(kThreads)
 rotator_kernel(const float2* __restrict__ x, const float* __restrict__ ph0p,
                const float* __restrict__ incp, float2* __restrict__ y,
-               float* __restrict__ ph_next, long long n, int head) {
-  const float ph0 = *ph0p;
-  const float inc = *incp;
+               float* __restrict__ ph_next, long long n, int head, long long stride) {
+  // this block's lane: its rows of x and y, its phase and increment
+  const long long lane_id = blockIdx.y;
+  x += lane_id * stride;
+  y += lane_id * stride;
+  ph_next += lane_id;
+  if (n > 0) head = static_cast<int>((head + lane_id * stride) & 1);
+  const float ph0 = ph0p[lane_id];
+  const float inc = incp[lane_id];
   const long long words = (n - head) >> 1;
   const long long tail = head + 2 * words;
   const long long w = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -91,6 +103,26 @@ rotator_kernel(const float2* __restrict__ x, const float* __restrict__ ph0p,
   }
 }
 
+int run(const void* x, const void* ph0, const void* inc, void* y, void* ph_next,
+        long long n, int head, int lanes, long long stride, void* stream) {
+  const auto* xs = static_cast<const float2*>(x);
+  auto* ys = static_cast<float2*>(y);
+  if (lanes == 0) return 0;
+  if (n < 0 || (head != 0 && head != 1) || head > n || lanes < 0 || lanes > 65535 ||
+      (lanes > 1 && stride < n) || reinterpret_cast<uintptr_t>(xs + head) % 16 ||
+      reinterpret_cast<uintptr_t>(ys + head) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long words = n / 2;               // the most any lane's head leaves
+  const unsigned blocks =
+      words ? static_cast<unsigned>((words + kThreads - 1) / kThreads) : 1u;
+  const dim3 grid(blocks, static_cast<unsigned>(lanes));
+  rotator_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xs, static_cast<const float*>(ph0), static_cast<const float*>(inc), ys,
+      static_cast<float*>(ph_next), n, head, stride);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: n complex64 samples, x + head and y + head 16-byte aligned; ph0, inc:
@@ -101,18 +133,13 @@ rotator_kernel(const float2* __restrict__ x, const float* __restrict__ ph0p,
 // an alignment the kernel does not take.
 extern "C" int fsdr_rotator(const void* x, const void* ph0, const void* inc, void* y,
                             void* ph_next, long long n, int head, void* stream) {
-  const auto* xs = static_cast<const float2*>(x);
-  auto* ys = static_cast<float2*>(y);
-  if (n < 0 || (head != 0 && head != 1) || head > n ||
-      reinterpret_cast<uintptr_t>(xs + head) % 16 ||
-      reinterpret_cast<uintptr_t>(ys + head) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long words = (n - head) / 2;
-  const unsigned blocks =
-      words ? static_cast<unsigned>((words + kThreads - 1) / kThreads) : 1u;
-  rotator_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xs, static_cast<const float*>(ph0), static_cast<const float*>(inc), ys,
-      static_cast<float*>(ph_next), n, head);
-  return cudaGetLastError();
+  return run(x, ph0, inc, y, ph_next, n, head, 1, 0, stream);
+}
+
+// The lane form: `lanes` rows of n samples `stride` samples apart in x and in y
+// (head: lane 0's), ph0, inc and ph_next `lanes` float32 each.
+extern "C" int fsdr_rotator_lanes(const void* x, const void* ph0, const void* inc,
+                                  void* y, void* ph_next, long long n, int head,
+                                  int lanes, long long stride, void* stream) {
+  return run(x, ph0, inc, y, ph_next, n, head, lanes, stride, stream);
 }

@@ -33,6 +33,16 @@ Kernels (sources under ``csrc/``, built by :mod:`._build`):
   polyphase analysis bank, the branch MAC over the commutated rows and the
   IDFT across branches in one kernel.
 
+Under ``torch.func.vmap`` (the serving plane's slot program, ``serve/engine.py``)
+each wrapper hands its batched call to a ``torch.library.custom_op`` of its
+own (``fsdr::fir`` …), whose CPU and CUDA implementations are the wrapper's
+plain version and launch, and whose ``register_vmap`` rule runs the batch:
+``fir``, ``fir_fft`` and ``rotator`` as one launch of their **lane forms**
+(:func:`fir_lanes`, :func:`fir_fft_lanes`, :func:`rotator_lanes`: the lane a
+grid dimension, each lane the one-stream kernel's arithmetic on its own row,
+its own taps, history and phase; ``*_lanes_plain`` their plain versions),
+``poly_fir``, ``quad_demod`` and ``pfb`` as one one-stream launch a lane.
+
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
 and in the plain version alike, as the JAX kernels' bf16 mode computes them.
@@ -64,14 +74,18 @@ import torch
 
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
            "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
-           "poly_fir_plain", "quad_demod_plain", "pfb_plain", "launches",
+           "poly_fir_plain", "quad_demod_plain", "pfb_plain", "fir_lanes", "fir_fft_lanes",
+           "rotator_lanes", "fir_lanes_plain", "fir_fft_lanes_plain",
+           "rotator_lanes_plain", "LANE_KERNELS", "launches",
            "reset_launches", "capturing", "PLAN_KERNELS", "plan_candidates",
            "set_tuned_plans", "tuned_plans", "normalize_plans", "fir_plan",
            "fir_fft_plan", "poly_fir_plan", "pfb_plan"]
 
-#: launches per kernel since the last :func:`reset_launches`
+#: launches per kernel since the last :func:`reset_launches`: the six kernels,
+#: then the lane forms of three (:data:`LANE_KERNELS`)
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
-                            "quad_demod": 0, "pfb": 0}
+                            "quad_demod": 0, "pfb": 0, "fir_lanes": 0,
+                            "fir_fft_lanes": 0, "rotator_lanes": 0}
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -967,13 +981,22 @@ def _lib(name: str):
         if name == "fir":
             lib.fsdr_fir.argtypes = [vp, vp, vp, vp, ll, i, i, ctypes.POINTER(i), ll, vp]
             lib.fsdr_fir.restype = i
+            lib.fsdr_fir_lanes.argtypes = [vp, vp, vp, vp, ll, i, i, ctypes.POINTER(i), ll,
+                                           i, ll, ll, ll, ll, vp]
+            lib.fsdr_fir_lanes.restype = i
         elif name == "fir_fft":
             lib.fsdr_fir_fft.argtypes = [vp, vp, vp, vp, i, vp, ll, i, i, i, i, i, i, i,
                                          ctypes.POINTER(i), i, i, i, ll, vp]
             lib.fsdr_fir_fft.restype = i
+            lib.fsdr_fir_fft_lanes.argtypes = [vp, vp, vp, vp, i, vp, ll, i, i, i, i, i, i,
+                                               i, ctypes.POINTER(i), i, i, i, ll, i, ll, ll,
+                                               ll, ll, vp]
+            lib.fsdr_fir_fft_lanes.restype = i
         elif name == "rotator":
             lib.fsdr_rotator.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
             lib.fsdr_rotator.restype = i
+            lib.fsdr_rotator_lanes.argtypes = [vp, vp, vp, vp, vp, ll, i, i, ll, vp]
+            lib.fsdr_rotator_lanes.restype = i
         elif name == "poly_fir":
             lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
                                           i, i, i, i, ll, vp]
@@ -1055,6 +1078,8 @@ def fir(x: torch.Tensor, taps: torch.Tensor,
     """Causal FIR of a 1-D float32 or complex64 stream from a zero initial
     state; real float32 taps. Any frame length. ``plan`` (one of
     :func:`plan_candidates`) beats the tuned table and the rule."""
+    if _batched(x, taps):
+        return torch.ops.fsdr.fir(x, taps, precision)
     if x.device.type == "cpu":
         return fir_plain(x, taps, precision)
     bf16 = _check_precision(precision)
@@ -1068,6 +1093,8 @@ def fir_continue(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     """Streaming continuation: filter ``x`` given the previous ``n_taps − 1``
     input samples in ``hist``; returns ``len(x)`` outputs. The taps may come
     from a stage carry, so a retune reaches the kernel."""
+    if _batched(hist, x, taps):
+        return torch.ops.fsdr.fir_continue(hist, x, taps, precision)
     if x.device.type == "cpu":
         return fir_continue_plain(hist, x, taps, precision)
     bf16 = _check_precision(precision)
@@ -1083,6 +1110,8 @@ def fir_fft(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
     ``n_taps − 1`` samples). Real taps, ``2 ≤ n_taps ≤ n_fft``, ``len(x)`` a
     multiple of ``n_fft``; any ``n_fft`` (a power of two takes the FFT, any
     other size a direct DFT). Returns complex64."""
+    if _batched(hist, x, taps):
+        return torch.ops.fsdr.fir_fft(hist, x, taps, int(n_fft), precision)
     if x.device.type == "cpu":
         return fir_fft_plain(hist, x, taps, n_fft, precision)
     bf16 = _check_precision(precision)
@@ -1126,6 +1155,8 @@ def rotator(x: torch.Tensor, ph0: torch.Tensor,
     float32, a tensor of its own written by the same launch (also for an
     empty frame). ``y`` starts at the same offset from a 16-byte boundary as
     ``x``: a view ``x[1:]`` gives a view of a buffer one sample longer."""
+    if _batched(x, ph0, inc):
+        return torch.ops.fsdr.rotator(x, ph0, inc)
     if x.device.type == "cpu":
         return rotator_plain(x, ph0, inc)
     _check_rotator(x, ph0, inc)
@@ -1151,6 +1182,8 @@ def quad_demod(prev: torch.Tensor, x: torch.Tensor,
     complex64 frame, ``x[−1]`` being ``prev`` (one complex64 sample, the
     stage carry). Returns ``(y float32, x[n−1])``; the second is a tensor of
     its own (``prev`` again for an empty frame), the stage's next carry."""
+    if _batched(prev, x):
+        return torch.ops.fsdr.quad_demod(prev, x, float(gain))
     if x.device.type == "cpu":
         return quad_demod_plain(prev, x, gain)
     _check_quad_demod(prev, x)
@@ -1179,6 +1212,8 @@ def poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
     ``hist``: the previous ``m·D`` samples; ``x``: ``nq·D`` float32 or
     complex64 samples, a complex stream filtered in one pass. The output has
     the stream's dtype."""
+    if _batched(hist, x, W):
+        return torch.ops.fsdr.poly_fir(hist, x, W, precision)
     if x.device.type == "cpu":
         return poly_fir_plain(hist, x, W, precision)
     bf16 = _check_precision(precision)
@@ -1222,6 +1257,8 @@ def pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     ``[K, N]`` float32 or bfloat16, any strides (the stage passes its
     ``[N, K]`` carry transposed); ``hist``: the previous ``(K−1)·N`` samples;
     ``x``: ``t·N`` complex64 samples. Returns ``[t, N]`` complex64."""
+    if _batched(hist, x, taps):
+        return torch.ops.fsdr.pfb(hist, x, taps, precision)
     if x.device.type == "cpu":
         return pfb_plain(hist, x, taps, precision)
     bf16 = _check_precision(precision)
@@ -1264,3 +1301,331 @@ def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torc
     _raise_on(err, "pfb")
     _count("pfb")
     return y
+
+
+# ---------------------------------------------------------------------------
+# lane forms: [L, n] batches, one launch, each lane its own stream
+# ---------------------------------------------------------------------------
+
+#: the kernels with a lane form, and its launch counter's name
+LANE_KERNELS = {"fir": "fir_lanes", "fir_fft": "fir_fft_lanes", "rotator": "rotator_lanes"}
+
+
+def _batched(*tensors) -> bool:
+    """Is any argument a ``torch.func.vmap`` batched tensor (the call comes
+    from inside a vmapped function and goes to the kernel's custom op)?"""
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
+def _check_lanes(hist: Optional[torch.Tensor], x: torch.Tensor,
+                 taps: torch.Tensor) -> Tuple[int, int]:
+    """Validate a lane FIR call (``x [L, n]``, ``taps [L, nt]``, ``hist [L,
+    nt − 1]``); returns ``(L, nt)``."""
+    if x.dtype not in _STREAM_DTYPES or x.dim() != 2:
+        raise TypeError(f"x must be a [L, n] float32 or complex64 tensor, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    L = int(x.shape[0])
+    if taps.dtype != torch.float32 or taps.dim() != 2 or taps.shape[0] != L \
+            or taps.shape[1] < 1:
+        raise TypeError(f"taps must be a [{L}, nt] float32 tensor, got {taps.dtype} "
+                        f"of shape {tuple(taps.shape)}")
+    nt = int(taps.shape[1])
+    tensors = [x, taps]
+    if hist is not None:
+        if hist.dtype != x.dtype or tuple(hist.shape) != (L, nt - 1):
+            raise ValueError(f"hist must be [{L}, {nt - 1}] of {x.dtype}, got "
+                             f"{hist.dtype} of shape {tuple(hist.shape)}")
+        tensors.append(hist)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, taps and hist must lie on one device")
+    return L, nt
+
+
+def fir_lanes_plain(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
+                    precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`fir_lanes`: each lane's FIR in the summation
+    order of :func:`fir_continue_plain` (its outputs equal that function's on
+    each lane's row bit for bit)."""
+    bf16 = _check_precision(precision)
+    L, nt = _check_lanes(hist, x, taps)
+    n = int(x.shape[1])
+    if hist is None:
+        hist = torch.zeros((L, nt - 1), dtype=x.dtype, device=x.device)
+    ext = torch.cat([hist, x], dim=1)
+    ext = torch.view_as_real(ext) if ext.is_complex() else ext.unsqueeze(-1)
+    if bf16:
+        ext, taps = _bf16(ext), _bf16(taps)
+    acc = torch.zeros((L, n, ext.shape[2]), dtype=torch.float32, device=x.device)
+    for k in range(nt):
+        off = nt - 1 - k
+        acc = acc + taps[:, k, None, None] * ext[:, off:off + n]
+    return torch.view_as_complex(acc.contiguous()) if x.is_complex() else acc[..., 0]
+
+
+def fir_fft_lanes_plain(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                        n_fft: int, precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`fir_fft_lanes`: :func:`fir_lanes_plain`, then
+    each lane's rows times the DFT matrix, one matrix product a lane."""
+    bf16 = _check_precision(precision)
+    L, nt = _check_lanes(hist, x, taps)
+    if hist is None:
+        raise ValueError("fir_fft needs hist (the previous n_taps - 1 samples)")
+    if not 2 <= nt <= n_fft or x.shape[1] % n_fft:
+        raise ValueError(f"fir_fft needs 2 <= n_taps <= n_fft and rows of n_fft; got "
+                         f"{nt} taps, n_fft={n_fft}, rows of {x.shape[1]}")
+    v = fir_lanes_plain(hist, x, taps, precision)
+    if bf16:
+        v = torch.view_as_complex(_bf16(torch.view_as_real(v)).contiguous()) \
+            if v.is_complex() else _bf16(v)
+    if not v.is_complex():
+        v = torch.complex(v, torch.zeros_like(v))
+    rows = v.reshape(L, -1, n_fft)
+    e = _dft_matrix(n_fft, x.device)
+    return torch.stack([rows[i] @ e for i in range(L)]).reshape(L, -1) if L else \
+        torch.empty((0, x.shape[1]), dtype=torch.complex64, device=x.device)
+
+
+def _check_rotator_lanes(x: torch.Tensor, ph0: torch.Tensor, inc: torch.Tensor) -> int:
+    if x.dtype != torch.complex64 or x.dim() != 2:
+        raise TypeError(f"x must be a [L, n] complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    L = int(x.shape[0])
+    for name, t in (("ph0", ph0), ("inc", inc)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (L,):
+            raise TypeError(f"{name} must be [{L}] float32, got {t.dtype} of shape "
+                            f"{tuple(t.shape)}")
+    if any(t.device != x.device for t in (ph0, inc)):
+        raise ValueError("x, ph0 and inc must lie on one device")
+    return L
+
+
+def rotator_lanes_plain(x: torch.Tensor, ph0: torch.Tensor,
+                        inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`rotator_lanes`: :func:`rotator_plain`'s ramp
+    and multiply on each lane's row with its own phase and increment."""
+    _check_rotator_lanes(x, ph0, inc)
+    n = x.shape[1]
+    t = torch.arange(n, dtype=torch.float32, device=x.device)
+    ph = ph0[:, None] + inc[:, None] * t[None, :]
+    c, s = torch.cos(ph), torch.sin(ph)
+    xr, xi = x.real, x.imag
+    return (torch.complex(xr * c - xi * s, xr * s + xi * c),
+            torch.remainder(ph0 + inc * n, 2 * np.pi))
+
+
+def fir_lanes(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
+              precision: Optional[str] = None) -> torch.Tensor:
+    """The ``fir`` kernel over ``L`` streams in one launch: ``x [L, n]``,
+    ``taps [L, nt]``, ``hist [L, nt − 1]`` (None: zero states), each lane
+    exactly :func:`fir_continue` on its row. Each lane's output row must
+    start 16-byte aligned (``n`` even on a complex stream, a multiple of 4
+    on a real one). Raises where the kernel does not build or launch."""
+    if x.device.type == "cpu":
+        return fir_lanes_plain(hist, x, taps, precision)
+    bf16 = _check_precision(precision)
+    L, nt = _check_lanes(hist, x, taps)
+    _check_cuda(*(t for t in (hist, x, taps) if t is not None))
+    n = int(x.shape[1])
+    elt = 8 if x.is_complex() else 4
+    if (n * elt) % 16:
+        raise ValueError(f"fir_lanes: rows of {n} samples do not keep each lane's output "
+                         f"16-byte aligned")
+    y = torch.empty_like(x)
+    if n == 0 or L == 0:
+        return y
+    plan = fir_plan(n, nt, x.is_complex(), _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"fir: {nt} taps need {plan.smem} B of shared memory per block")
+    lib = _lib("fir")
+    with _card(x):
+        err = lib.fsdr_fir_lanes(None if hist is None else hist.data_ptr(), x.data_ptr(),
+                                 taps.data_ptr(), y.data_ptr(), n, nt,
+                                 x.is_complex() | bf16 << 1, _c_ints(plan[:4]), plan.smem,
+                                 L, 0 if hist is None else hist.stride(0), x.stride(0),
+                                 taps.stride(0), y.stride(0), _stream(x))
+    _raise_on(err, "fir_lanes")
+    _count("fir_lanes")
+    return y
+
+
+def fir_fft_lanes(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
+                  precision: Optional[str] = None) -> torch.Tensor:
+    """The ``fir_fft`` kernel over ``L`` streams in one launch: ``x [L, n]``
+    (``n`` a multiple of ``n_fft``), ``taps [L, nt]``, ``hist [L, nt − 1]``;
+    each lane exactly :func:`fir_fft` on its row. Returns ``[L, n]``
+    complex64; raises where the kernel does not build or launch."""
+    if x.device.type == "cpu":
+        return fir_fft_lanes_plain(hist, x, taps, n_fft, precision)
+    bf16 = _check_precision(precision)
+    L, nt = _check_lanes(hist, x, taps)
+    if hist is None or not 2 <= nt <= n_fft or x.shape[1] % n_fft:
+        raise ValueError(f"fir_fft_lanes needs hist, 2 <= n_taps <= n_fft and rows of "
+                         f"n_fft; got {nt} taps, n_fft={n_fft}, rows of {x.shape[1]}")
+    _check_cuda(hist, x, taps)
+    plan = fir_fft_plan(n_fft, nt)
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"fir_fft: n_fft={n_fft} with {nt} taps needs {plan.smem} B of "
+                         f"shared memory per block")
+    y = torch.empty((L, x.shape[1]), dtype=torch.complex64, device=x.device)
+    if x.shape[1] == 0 or L == 0:
+        return y
+    tw = _fft_table(n_fft, plan.radices, x.device)
+    lib = _lib("fir_fft")
+    with _card(x):
+        err = lib.fsdr_fir_fft_lanes(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
+                                     tw.data_ptr(), tw.shape[0], y.data_ptr(),
+                                     x.shape[1] // n_fft, n_fft, nt, int(x.is_complex()),
+                                     int(bf16), plan.threads, plan.outs,
+                                     len(plan.radices), _c_ints(plan.radices),
+                                     plan.span_shift, plan.pad_shift,
+                                     int(plan.tw_staged), plan.smem, L, hist.stride(0),
+                                     x.stride(0), taps.stride(0), y.stride(0), _stream(x))
+    _raise_on(err, "fir_fft_lanes")
+    _count("fir_fft_lanes")
+    return y
+
+
+def rotator_lanes(x: torch.Tensor, ph0: torch.Tensor,
+                  inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``rotator`` kernel over ``L`` streams in one launch: ``x [L, n]``
+    complex64 (rows contiguous), ``ph0``/``inc [L]`` float32 on the device;
+    each lane exactly :func:`rotator` on its row with its own phase. Returns
+    ``(y [L, n], ph_next [L])``, each lane's 16-byte head as its input row's
+    (an odd ``n`` is taken as it comes). Raises where the kernel does not
+    build or launch."""
+    if x.device.type == "cpu":
+        return rotator_lanes_plain(x, ph0, inc)
+    L = _check_rotator_lanes(x, ph0, inc)
+    _check_cuda(x, ph0, inc)
+    n = int(x.shape[1])
+    head = _stream_head(x[0]) if L else 0
+    # y's rows start at x's offsets from a 16-byte boundary, lane by lane
+    y = torch.empty((L, n), dtype=torch.complex64, device=x.device) if head == 0 else \
+        torch.empty(L * n + 1, dtype=torch.complex64, device=x.device)[1:].view(L, n)
+    ph_next = torch.empty(L, dtype=torch.float32, device=x.device)
+    if L == 0:
+        return y, ph_next
+    lib = _lib("rotator")
+    with _card(x):
+        err = lib.fsdr_rotator_lanes(x.data_ptr(), ph0.data_ptr(), inc.data_ptr(),
+                                     y.data_ptr(), ph_next.data_ptr(), n, head, L,
+                                     x.stride(0), _stream(x))
+    _raise_on(err, "rotator_lanes")
+    _count("rotator_lanes")
+    return y, ph_next
+
+
+# ---------------------------------------------------------------------------
+# the custom ops and their vmap rules
+# ---------------------------------------------------------------------------
+
+Tensor = torch.Tensor
+
+
+def _lanes_of(t: Optional[torch.Tensor], d: Optional[int], L: int,
+              scalar: bool = False) -> Optional[torch.Tensor]:
+    """A vmap argument as a contiguous ``[L, …]`` tensor: its batch dim moved
+    to the front, or an unbatched argument repeated a lane; ``scalar``
+    flattens a lane's one value (``[L]``)."""
+    if t is None:
+        return None
+    t = t.movedim(d, 0) if d is not None else t.unsqueeze(0).expand(L, *t.shape)
+    if scalar:
+        t = t.reshape(L)
+    return t.contiguous()
+
+
+@torch.library.custom_op("fsdr::fir", mutates_args=())
+def _fir_op(x: Tensor, taps: Tensor, precision: Optional[str]) -> Tensor:
+    return fir(x, taps, precision)
+
+
+@torch.library.custom_op("fsdr::fir_continue", mutates_args=())
+def _fir_continue_op(hist: Tensor, x: Tensor, taps: Tensor,
+                     precision: Optional[str]) -> Tensor:
+    return fir_continue(hist, x, taps, precision)
+
+
+@torch.library.custom_op("fsdr::fir_fft", mutates_args=())
+def _fir_fft_op(hist: Tensor, x: Tensor, taps: Tensor, n_fft: int,
+                precision: Optional[str]) -> Tensor:
+    return fir_fft(hist, x, taps, n_fft, precision)
+
+
+@torch.library.custom_op("fsdr::rotator", mutates_args=())
+def _rotator_op(x: Tensor, ph0: Tensor, inc: Tensor) -> Tuple[Tensor, Tensor]:
+    y, nxt = rotator(x, ph0, inc)
+    return y.clone() if y.storage_offset() else y, nxt
+
+
+@torch.library.custom_op("fsdr::quad_demod", mutates_args=())
+def _quad_demod_op(prev: Tensor, x: Tensor, gain: float) -> Tuple[Tensor, Tensor]:
+    return quad_demod(prev, x, gain)
+
+
+@torch.library.custom_op("fsdr::poly_fir", mutates_args=())
+def _poly_fir_op(hist: Tensor, x: Tensor, W: Tensor, precision: Optional[str]) -> Tensor:
+    return poly_fir(hist, x, W, precision)
+
+
+@torch.library.custom_op("fsdr::pfb", mutates_args=())
+def _pfb_op(hist: Tensor, x: Tensor, taps: Tensor, precision: Optional[str]) -> Tensor:
+    return pfb(hist, x, taps, precision)
+
+
+@torch.library.register_vmap("fsdr::fir")
+def _fir_vmap(info, in_dims, x, taps, precision):
+    L = info.batch_size
+    return fir_lanes(None, _lanes_of(x, in_dims[0], L), _lanes_of(taps, in_dims[1], L),
+                     precision), 0
+
+
+@torch.library.register_vmap("fsdr::fir_continue")
+def _fir_continue_vmap(info, in_dims, hist, x, taps, precision):
+    L = info.batch_size
+    return fir_lanes(_lanes_of(hist, in_dims[0], L), _lanes_of(x, in_dims[1], L),
+                     _lanes_of(taps, in_dims[2], L), precision), 0
+
+
+@torch.library.register_vmap("fsdr::fir_fft")
+def _fir_fft_vmap(info, in_dims, hist, x, taps, n_fft, precision):
+    L = info.batch_size
+    return fir_fft_lanes(_lanes_of(hist, in_dims[0], L), _lanes_of(x, in_dims[1], L),
+                         _lanes_of(taps, in_dims[2], L), n_fft, precision), 0
+
+
+@torch.library.register_vmap("fsdr::rotator")
+def _rotator_vmap(info, in_dims, x, ph0, inc):
+    L = info.batch_size
+    y, nxt = rotator_lanes(_lanes_of(x, in_dims[0], L),
+                           _lanes_of(ph0, in_dims[1], L, scalar=True),
+                           _lanes_of(inc, in_dims[2], L, scalar=True))
+    return (y, nxt), (0, 0)
+
+
+def _per_lane(fn, info, in_dims, args, n_tensors: int):
+    """A vmap rule without a lane form: the one-stream wrapper once a lane
+    (each a launch of its own on a card), outputs stacked."""
+    L = info.batch_size
+    cols = [_lanes_of(a, d, L) if i < n_tensors else a
+            for i, (a, d) in enumerate(zip(args, in_dims))]
+    outs = [fn(*[c[lane] if i < n_tensors else c for i, c in enumerate(cols)])
+            for lane in range(L)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs)), tuple(0 for _ in outs[0])
+    return torch.stack(outs), 0
+
+
+@torch.library.register_vmap("fsdr::quad_demod")
+def _quad_demod_vmap(info, in_dims, prev, x, gain):
+    return _per_lane(quad_demod, info, in_dims, (prev, x, gain), 2)
+
+
+@torch.library.register_vmap("fsdr::poly_fir")
+def _poly_fir_vmap(info, in_dims, hist, x, W, precision):
+    return _per_lane(poly_fir, info, in_dims, (hist, x, W, precision), 3)
+
+
+@torch.library.register_vmap("fsdr::pfb")
+def _pfb_vmap(info, in_dims, hist, x, taps, precision):
+    return _per_lane(pfb, info, in_dims, (hist, x, taps, precision), 3)

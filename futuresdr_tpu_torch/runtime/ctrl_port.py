@@ -20,8 +20,13 @@ an unknown path or method. Every response carries
 keep-alive). Pmt values use the reference's externally tagged JSON. Bind
 port 0 to take a free port; :attr:`ControlPort.port` holds the bound one.
 
-Not ported (ROADMAP Queue 1 item 4b): ``/metrics``, trace, doctor, profile,
-lineage, events, host, fleet, serving and the GUI page.
+Also mounted: the serving plane's session routes, ``/healthz`` and
+``/readyz`` (``serve/api.py``), and ``GET /metrics``, the Prometheus
+registry's text (``telemetry/prom.py``; the reference's per-block families
+are not rendered yet).
+
+Not ported (ROADMAP Queue 1 item 4b): trace, doctor, profile, lineage,
+events, host, fleet and the GUI page.
 """
 
 from __future__ import annotations
@@ -52,13 +57,17 @@ _ROUTES = (
     (("GET",), re.compile(_FG + r"block/(?P<blk>[^/]+)/$"), "_describe_block"),
     (("GET", "POST"),
      re.compile(_FG + r"block/(?P<blk>[^/]+)/call/(?P<handler>[^/]+)/$"), "_call"),
+    (("GET",), re.compile(r"^/metrics/?$"), "_prom_metrics"),
 )
 
 
-def _response(status: int, body: bytes, content_type: str) -> bytes:
+def _response(status: int, body: bytes, content_type: str,
+              headers: Optional[dict] = None) -> bytes:
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     head = (f"HTTP/1.1 {status} {HTTPStatus(status).phrase}\r\n"
             f"Content-Type: {content_type}\r\n"
             f"Content-Length: {len(body)}\r\n"
+            f"{extra}"
             "Access-Control-Allow-Origin: *\r\n"
             "Connection: close\r\n\r\n")
     return head.encode("latin-1") + body
@@ -160,12 +169,11 @@ class ControlPort:
                 return
             body = await reader.readexactly(length) if length else b""
             try:
-                status, payload, ctype = await self._route(method,
-                                                           target.split("?")[0], body)
+                got = await self._route(method, target.split("?")[0], body)
             except Exception as e:                 # noqa: BLE001 — a route's bug
                 log.error("control port %s %s failed: %r", method, target, e)
-                status, payload, ctype = _text(500)
-            writer.write(_response(status, payload, ctype))
+                got = _text(500)
+            writer.write(_response(*got))
             await writer.drain()
         except (ConnectionError, asyncio.IncompleteReadError, ValueError):
             pass
@@ -173,16 +181,23 @@ class ControlPort:
             writer.close()
 
     async def _route(self, method: str, path: str, body: bytes):
+        from ..serve import api as serve_api
         allowed = False
-        for methods, pattern, name in _ROUTES:
+        table = [(ms, pat, getattr(self, name)) for ms, pat, name in _ROUTES]
+        table += serve_api.routes()
+        for methods, pattern, handler in table:
             m = pattern.match(path)
             if m is None:
                 continue
             if method not in methods:
                 allowed = True
                 continue
-            return await getattr(self, name)(method, body, **m.groupdict())
+            return await handler(method, body, **m.groupdict())
         return _text(405 if allowed else 404)
+
+    async def _prom_metrics(self, method, body):
+        from ..telemetry import prom
+        return 200, prom.render_all().encode(), prom.CONTENT_TYPE
 
     def _fg(self, fg: str):
         try:

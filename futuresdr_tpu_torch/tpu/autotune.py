@@ -13,8 +13,10 @@ sweep (``tpu/kernel_tune.py``) and installs its winners.
 The streamed-pick cache maps a chain's signature (the card's name, the
 input dtype, the stage names without the device-chain fences, fan-out and
 DAG shapes marked) to ``{"k", "inflight"}`` and the optional axes
-``serve_buckets``, ``serve_pages``, ``n_devices`` (round-tripped only: the
-serving and sharding planes are later slices), ``interior_precision``,
+``serve_buckets`` and ``serve_pages`` (:func:`autotune_serve`'s slot-bucket
+ladder and page-pool pick, which ``serve/engine.ServeEngine`` reads),
+``n_devices`` (round-tripped only: the sharding plane is a later slice),
+``interior_precision``,
 ``pallas_blocks`` (``{device: {kernel: {shape: plan}}}``, the port's plan
 tuples) and ``wire``. Every axis is parsed in its own guard, so a malformed
 value loses that axis only. The memory layer is authoritative within a
@@ -44,7 +46,9 @@ __all__ = ["autotune", "autotune_streamed", "default_frames", "measure_link",
            "cached_frames_per_dispatch", "cached_streamed_pick",
            "record_interior_precision", "cached_interior_precision",
            "record_wire_start", "cached_wire_start", "record_pallas_blocks",
-           "cached_pallas_blocks", "autotune_pallas_blocks", "platform_of"]
+           "cached_pallas_blocks", "autotune_pallas_blocks", "platform_of",
+           "autotune_serve", "record_serve_buckets", "cached_serve_buckets",
+           "record_serve_pages", "cached_serve_pages"]
 
 log = logger("tpu.autotune")
 
@@ -635,3 +639,87 @@ def autotune_pallas_blocks(stages, in_dtype, inst: Optional[TpuInstance] = None,
 
 
 autotune_pallas_blocks.last_sweep = None
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's axis: slot buckets and the page-pool pick
+# ---------------------------------------------------------------------------
+
+def record_serve_buckets(pipeline, in_dtype, platform: str, buckets: Sequence[int]) -> None:
+    """Stamp a measured slot-bucket ladder on the chain's entry (beside its
+    streamed picks: one signature, orthogonal planes)."""
+    _record_axis(_streamed_sig(_sig_of(pipeline), in_dtype, platform), "serve_buckets",
+                 sorted({int(b) for b in buckets if int(b) > 0}))
+
+
+def cached_serve_buckets(pipeline, in_dtype, platform: str) -> Optional[list]:
+    """The chain's cached slot-bucket ladder; None when never tuned."""
+    entry = cached_streamed_pick(pipeline, in_dtype, platform)
+    return None if entry is None else entry.get("serve_buckets")
+
+
+def record_serve_pages(pipeline, in_dtype, platform: str, pages: int) -> None:
+    """Stamp the page-pool capacity pick (the largest bucket the ladder
+    kept): the engine starts its pool there, one build instead of a climb."""
+    if int(pages) >= 1:
+        _record_axis(_streamed_sig(_sig_of(pipeline), in_dtype, platform), "serve_pages",
+                     int(pages))
+
+
+def cached_serve_pages(pipeline, in_dtype, platform: str) -> Optional[int]:
+    entry = cached_streamed_pick(pipeline, in_dtype, platform)
+    return None if entry is None else entry.get("serve_pages")
+
+
+def autotune_serve(pipeline, frame_size: Optional[int] = None,
+                   inst: Optional[TpuInstance] = None,
+                   capacities: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
+                   reps: int = 4, min_gain: float = 1.2,
+                   record: bool = True) -> Tuple[list, Dict[int, float]]:
+    """Measure the serving program a slot-bucket capacity and pick the
+    ladder. Each capacity's real program (``serve/engine.build_slot_program``:
+    the paged step the engine dispatches, one CUDA graph on a card) runs fully
+    occupied, ``reps`` calls after a warm one; the rate is session-frames a
+    second. The ladder keeps doubling while the rate still grows by
+    ``min_gain`` a rung; past that a bigger bucket only adds latency and pad
+    lanes. Returns ``(ladder, {capacity: session-frames/s})`` and records the
+    ladder and its largest rung (the page-pool pick) under the chain's
+    signature (``record=False``: measure only)."""
+    from ..ops import xfer
+    from ..ops.stages import _leaves
+    from ..serve.engine import build_slot_program
+    inst = inst or instance()
+    dev = inst.device
+    m = pipeline.frame_multiple
+    fs = frame_size or inst.frame_size
+    fs = max(m, (fs // m) * m)
+    fresh = _leaves(pipeline.init_carry(dev))
+    results: Dict[int, float] = {}
+    ladder: list = []
+    prev_rate = None
+    for cap in sorted({int(c) for c in capacities if int(c) > 0}):
+        prog = build_slot_program(pipeline, cap, 1, fs, dev)
+        pages = [t.unsqueeze(0).repeat((cap,) + (1,) * t.dim()) for t in fresh]
+        pmap = xfer.to_device(np.arange(cap, dtype=np.int64), dev)
+        no_fresh = xfer.to_device(np.zeros(cap, dtype=bool), dev)
+        x = xfer.to_device(np.zeros((cap, fs), dtype=pipeline.in_dtype), dev)
+        act = xfer.to_device(np.ones(cap, dtype=bool), dev)
+        pages, _outs = prog(pages, pmap, no_fresh, x, act)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pages, _outs = prog(pages, pmap, no_fresh, x, act)
+        _sync(dev)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        rate = cap * reps / dt
+        results[cap] = rate
+        log.info("autotune_serve: capacity %d -> %.1f session-frames/s", cap, rate)
+        if prev_rate is not None and rate < prev_rate * min_gain:
+            break
+        ladder.append(cap)
+        prev_rate = rate
+    if record and ladder:
+        plat = platform_of(inst)
+        record_serve_buckets(pipeline, pipeline.in_dtype, plat, ladder)
+        record_serve_pages(pipeline, pipeline.in_dtype, plat, ladder[-1])
+    return ladder, results

@@ -1391,3 +1391,164 @@ def test_interior_precision_kernel_streams_on_card(cuda_device):
     snr = 10 * np.log10(np.mean(ref.astype(np.float64) ** 2)
                         / np.mean((got.astype(np.float64) - ref) ** 2))
     assert snr >= 40.0 - 10 * np.log10(n_low)
+
+
+# ---------------------------------------------------------------------------
+# the serving plane: the lane kernels and the served slot program
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 4, 64])
+@pytest.mark.parametrize("kernel", ["fir", "fir_fft", "rotator"])
+def test_lane_kernel_equals_one_stream_launches_on_card(cuda_device, kernel, L):
+    """Each lane of a lane launch equals the one-stream launch on its row bit
+    for bit (distinct taps, histories and phases a lane), one launch in all."""
+    g = torch.Generator(device=cuda_device).manual_seed(L)
+    n = 1 << 14 if kernel == "fir_fft" else 513 if kernel == "rotator" else 512
+    nt = 64 if kernel == "fir_fft" else 17
+    x = torch.randn(L, n, dtype=torch.complex64, generator=g, device=cuda_device)
+    hist = torch.randn(L, nt - 1, dtype=torch.complex64, generator=g, device=cuda_device)
+    taps = torch.randn(L, nt, generator=g, device=cuda_device)
+    ph0 = torch.rand(L, generator=g, device=cuda_device) * 6
+    inc = torch.rand(L, generator=g, device=cuda_device) * 0.2 - 0.1
+    name = ck.LANE_KERNELS[kernel]
+    before = ck.launches[name]
+    if kernel == "fir":
+        got = ck.fir_lanes(hist, x, taps)
+        per = [ck.fir_continue(hist[i], x[i], taps[i]) for i in range(L)]
+        plain = ck.fir_lanes_plain(hist, x, taps)
+    elif kernel == "fir_fft":
+        got = ck.fir_fft_lanes(hist, x, taps, 2048)
+        per = [ck.fir_fft(hist[i], x[i], taps[i], 2048) for i in range(L)]
+        plain = ck.fir_fft_lanes_plain(hist, x, taps, 2048)
+    else:
+        got, nxt = ck.rotator_lanes(x, ph0, inc)
+        pairs = [ck.rotator(x[i], ph0[i], inc[i]) for i in range(L)]
+        per = [p[0] for p in pairs]
+        assert torch.equal(nxt, torch.stack([p[1] for p in pairs]))
+        plain = ck.rotator_lanes_plain(x, ph0, inc)[0]
+    torch.cuda.synchronize()
+    assert ck.launches[name] == before + 1
+    assert torch.equal(got, torch.stack(per))
+    assert _rel_err(got, plain) <= (1e-4 if kernel == "fir_fft" else 1e-5)
+
+
+@pytest.mark.gpu
+def test_lane_fir_refuses_unaligned_rows_on_card(cuda_device):
+    x = torch.zeros(2, 511, dtype=torch.complex64, device=cuda_device)
+    taps = torch.ones(2, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.fir_lanes(None, x, taps)
+
+
+def _serve_chain(name):
+    from futuresdr_tpu_torch.ops import stages as T
+    if name == "main":
+        return T.Pipeline([T.fir_fft_stage(np.hanning(64).astype(np.float32), 2048),
+                           T.mag2_stage()], np.complex64)
+    return T.Pipeline([T.rotator_stage(0.013, impl="pallas"),
+                       T.fir_stage(np.hanning(17).astype(np.float32), fft_len=128,
+                                   impl="pallas")], np.complex64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("chain,frame", [("main", 1 << 14), ("ab", 512)])
+def test_served_chain_bit_equals_bare_pipeline_on_card(cuda_device, chain, frame, depth):
+    """Sessions served in one bucket, one joining late and one stalled for a
+    frame, each equal the bare compiled Pipeline on its frames bit for bit;
+    one capture, the lane kernels counted a replay."""
+    from futuresdr_tpu_torch.serve import ServeEngine
+    rng = np.random.default_rng(7)
+    data = [[_c64(rng, frame) for _ in range(4)] for _ in range(3)]
+    pipe = _serve_chain(chain)
+    fn, _ = pipe.compile(frame, cuda_device, donate=False)
+    refs = []
+    for d in data:
+        carry, out = pipe.init_carry(cuda_device), []
+        for f in d:
+            carry, y = fn(carry, torch.from_numpy(f).to(cuda_device))
+            out.append(y.cpu().numpy())
+        refs.append(out)
+    eng = ServeEngine(_serve_chain(chain), frame_size=frame, app=f"gpu_{chain}{depth}",
+                      buckets=(4,), queue_frames=8, device=cuda_device, inflight=depth)
+    a, b = eng.admit(tenant="a"), eng.admit(tenant="b")
+    eng.submit(a.sid, data[0][0])
+    eng.submit(b.sid, data[1][0])
+    eng.step()
+    c = eng.admit(tenant="c")                 # joins after the first dispatch
+    cursor = {a.sid: 1, b.sid: 1, c.sid: 0}
+    for j in range(1, 6):
+        for s, d in zip((a, b, c), data):
+            if cursor[s.sid] < 4 and not (s is b and j == 2):   # b stalls a frame time
+                eng.submit(s.sid, d[cursor[s.sid]])
+                cursor[s.sid] += 1
+        eng.step()
+    while eng.step():
+        pass
+    for s, ref in zip((a, b, c), refs):
+        got = eng.results(s.sid)
+        assert len(got) == 4
+        for x, y in zip(got, ref):
+            np.testing.assert_array_equal(x, y)
+    assert eng.compiles == 1
+    prog = next(iter(eng._programs.values()))
+    assert prog.captured and prog.launches
+
+
+@pytest.mark.gpu
+def test_served_evict_readmit_and_retune_capture_nothing_on_card(cuda_device):
+    from futuresdr_tpu_torch.serve import ServeEngine
+    rng = np.random.default_rng(8)
+    eng = ServeEngine(_serve_chain("ab"), frame_size=512, app="gpu_surgery", buckets=(2,),
+                      queue_frames=8, device=cuda_device)
+    s = eng.admit(tenant="t")
+    for _ in range(2):
+        eng.submit(s.sid, _c64(rng, 512))
+        eng.step()
+    eng.evict(s.sid)
+    eng.readmit(s.sid)
+    eng.retune(s.sid, "rotator", phase_inc=0.05)
+    for _ in range(2):
+        eng.submit(s.sid, _c64(rng, 512))
+        eng.step()
+    assert eng.compiles == 1 and len(eng.results(s.sid)) == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_precision_brownout_serves_the_lowered_program_on_card(cuda_device, mode):
+    """The brownout's precision rung builds its lowered program (one more
+    capture) and serves within the rung's SNR of the base chain."""
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.serve import ServeEngine
+
+    def mk():
+        return T.Pipeline([T.fir_stage(np.hanning(31).astype(np.float32), fft_len=256),
+                           T.rotator_stage(0.03)], np.complex64)
+
+    rng = np.random.default_rng(9)
+    data = [_c64(rng, 1024) for _ in range(3)]
+    eng = ServeEngine(mk(), frame_size=1024, app=f"gpu_bp_{mode}", buckets=(2,),
+                      queue_frames=8, device=cuda_device)
+    eng._brownout, eng._brownout_prec = "precision", mode
+    s = eng.admit(tenant="t")
+    eng.submit(s.sid, data[0])
+    eng.step()
+    eng._set_brownout(True)
+    assert eng._pipe_tag == mode
+    eng.submit(s.sid, data[1])
+    eng.step()
+    out = eng.results(s.sid)
+    pipe = mk()
+    fn, _ = pipe.compile(1024, cuda_device, donate=False)
+    carry = pipe.init_carry(cuda_device)
+    ref = []
+    for f in data[:2]:
+        carry, y = fn(carry, torch.from_numpy(f).to(cuda_device))
+        ref.append(y.cpu().numpy())
+    np.testing.assert_array_equal(out[0], ref[0])
+    err = np.mean(np.abs(out[1] - ref[1]) ** 2)
+    snr = 10 * np.log10(np.mean(np.abs(ref[1]) ** 2) / max(err, 1e-30))
+    assert snr >= (20.0 if mode == "int8" else 40.0), snr
+    assert eng.compiles == 2

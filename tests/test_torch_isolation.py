@@ -104,6 +104,43 @@ def test_control_port_and_websocket_sink_load_no_aiohttp_and_no_websockets():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_serving_plane_and_telemetry_load_neither_jax_nor_the_jax_package():
+    """Importing every module of ``serve`` and ``telemetry``, serving a session
+    on the CPU and answering the session routes and ``/metrics`` on the
+    control port leave JAX, the JAX package and aiohttp out of
+    ``sys.modules``."""
+    mods = [m for m in _submodules()
+            if m.startswith(("futuresdr_tpu_torch.serve", "futuresdr_tpu_torch.telemetry"))]
+    assert {"futuresdr_tpu_torch.serve.engine", "futuresdr_tpu_torch.serve.api",
+            "futuresdr_tpu_torch.serve.router", "futuresdr_tpu_torch.serve.persist",
+            "futuresdr_tpu_torch.telemetry.prom", "futuresdr_tpu_torch.telemetry.journal",
+            "futuresdr_tpu_torch.telemetry.hist"} <= set(mods)
+    code = ("import importlib, sys, json, urllib.request\n"
+            "import numpy as np\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from futuresdr_tpu_torch import Runtime\n"
+            "from futuresdr_tpu_torch.ops import stages as T\n"
+            "from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort\n"
+            "from futuresdr_tpu_torch.serve import ServeEngine, register_app\n"
+            "eng = ServeEngine(T.Pipeline([T.rotator_stage(0.1)], np.complex64), "
+            "frame_size=256, app='iso', buckets=(2,), device='cpu')\n"
+            "register_app(eng)\n"
+            "rt = Runtime(); cp = ControlPort(rt.handle, bind='127.0.0.1:0'); cp.start()\n"
+            "s = eng.admit(tenant='t'); eng.submit(s.sid, np.ones(256, np.complex64))\n"
+            "eng.step()\n"
+            "view = json.load(urllib.request.urlopen(cp.url + '/api/serve/iso/'))\n"
+            "text = urllib.request.urlopen(cp.url + '/metrics').read().decode()\n"
+            "cp.stop()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'futuresdr_tpu', 'aiohttp')]\n"
+            "print(view['frames'], bad)\n"
+            "sys.exit(1 if bad or view['frames'] != 1 or 'fsdr_serve_frames_total' not in text "
+            "else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_instance_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -138,8 +175,12 @@ def test_cpu_tensors_never_count_a_launch():
         pipe = T.Pipeline([T.channelizer_stage(16, impl=impl, precision="bf16")],
                           np.complex64)
         pipe.fn()(pipe.init_carry("cpu"), x)
+    ck.fir_lanes(None, torch.stack([x, x]), torch.stack([taps, taps]))
+    ck.fir_fft_lanes(torch.stack([hist, hist]), torch.stack([x, x]),
+                     torch.stack([taps, taps]), 256)
+    ck.rotator_lanes(torch.stack([x, x]), torch.zeros(2), torch.ones(2))
     assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod",
-                                "pfb"}
+                                "pfb", "fir_lanes", "fir_fft_lanes", "rotator_lanes"}
     assert all(v == 0 for v in ck.launches.values()), ck.launches
 
 
@@ -164,6 +205,13 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         ck.pfb(torch.empty(48, dtype=torch.complex64, device="meta"), x,
                torch.empty(4, 16, device="meta"))
+    x2, t2, h2 = x.expand(2, -1), taps.expand(2, -1), hist.expand(2, -1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.fir_lanes(h2, x2, t2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.fir_fft_lanes(h2, x2, t2, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.rotator_lanes(x2, torch.empty(2, device="meta"), torch.empty(2, device="meta"))
     assert ck.launches == before
 
 
