@@ -233,7 +233,29 @@ lane-batched slot program, one CUDA graph a bucket):
     (``perf/serve_ab.py``'s A/B); the lane kernels' timings join the
     ``kernels`` line.
 
-``python3 chip_smoke.py --serving`` runs only phase 28 after the build.
+The models' device plane (``models/wlan``, ``ops/viterbi.py``,
+``models/{mcldnn,modrec}.py``):
+
+29. (a) the Viterbi ACS kernel (``csrc/viterbi.cu``) against its plain version
+    at B 1, 8, 256 and buckets 8, 512, 4096, on noisy codewords and on
+    all-zero LLRs (every compare a tie, every pick 0): picks equal bit for
+    bit; its time at B 256 × 4096 beside the plain eager loop, its bound
+    (``utils/roofline``), one frame alone, and its sequential floor measured
+    as the step chain alone (``EMPTY_CU``'s ``acs_chain_kernel``); (b) the
+    OFDM head and body demod on the card against the CPU for BPSK, QPSK,
+    16-QAM and 64-QAM; the body at a 1,024-symbol bucket, its card time
+    (graph replay) and the host time of a ``demod_body_torch`` call; (c) ``perf/wlan.py``'s stream
+    (200 QPSK-1/2 frames of 256 bytes, 25 dB) through ``decode_stream_batch``
+    on the card: every frame decoded with a good FCS and equal to what was
+    sent, frames/s and the picks' D2H; (d) ``apps/wlan_loopback.main()`` on
+    the card, 10 of 10 frames; (e) the pretrained MCLDNN on the card against
+    the CPU (TF32 off, the package's setting), its accuracy above 0.9, ``ModClassifier`` in a
+    flowgraph, a 256-window forward's time. The kernel's launches are counted
+    over (c)'s timed run and (d) and join the ``kernels`` line. The
+    decimating ``poly_fir`` at D = 16, m = 8, 2^18 joins phase 7's timings.
+
+``python3 chip_smoke.py --serving`` runs only phase 28 after the build, and
+``python3 chip_smoke.py --models`` only phase 29.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -386,14 +408,75 @@ FM_KERNELS = ("rotator", "poly_fir", "quad_demod")
 PFB_KERNELS = ("pfb",)
 
 
-# A kernel with no body, launched on a given grid: the cost of a launch alone,
-# a yardstick for the FM kernels' timings. Built here beside the port's
-# kernels; no library of the port holds it.
+# Yardsticks built here beside the port's kernels; no library of the port
+# holds them. A kernel with no body, launched on a given grid: the cost of a
+# launch alone, for the FM kernels' timings. And the Viterbi kernel's step
+# chain alone: csrc/viterbi.cu's loop for one frame, one warp, with the same
+# shuffles, products, sums, compares and selects a step but no load or store
+# inside the loop (the LLRs come from registers, only the last metrics are
+# written): the sequential floor of that design's arithmetic, measured.
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
 extern "C" int fsdr_empty(unsigned blocks, int threads, void* stream) {
   empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(32)
+acs_chain_kernel(const int* __restrict__ prev_s, const float* __restrict__ bm0,
+                 const float* __restrict__ bm1, float* __restrict__ out,
+                 long long n_steps) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int src[2][2];
+  bool high[2][2];
+  float w0[2][2], w1[2][2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = (lane + 32 * k) * 2 + j;
+      const int p = prev_s[e];
+      src[k][j] = p & 31;
+      high[k][j] = p >= 32;
+      w0[k][j] = bm0[e];
+      w1[k][j] = bm1[e];
+    }
+  }
+  float m_lo = lane == 0 ? 0.0f : -1e18f;
+  float m_hi = -1e18f;
+  float2 cur = make_float2(0.25f * lane - 4.0f, 3.0f - 0.125f * lane);
+  for (long long t0 = 0; t0 < n_steps; t0 += 32) {
+    const int n = n_steps - t0 < 32 ? static_cast<int>(n_steps - t0) : 32;
+    for (int i = 0; i < n; ++i) {
+      const float l0 = __shfl_sync(full, cur.x, i);
+      const float l1 = __shfl_sync(full, cur.y, i);
+      float c[2][2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float lo = __shfl_sync(full, m_lo, src[k][j]);
+          const float hi = __shfl_sync(full, m_hi, src[k][j]);
+          const float m = high[k][j] ? hi : lo;
+          c[k][j] = __fadd_rn(__fadd_rn(m, __fmul_rn(w0[k][j], l0)),
+                              __fmul_rn(w1[k][j], l1));
+        }
+      }
+      m_lo = c[0][1] > c[0][0] ? c[0][1] : c[0][0];
+      m_hi = c[1][1] > c[1][0] ? c[1][1] : c[1][0];
+    }
+    cur = make_float2(cur.y, cur.x);
+  }
+  out[lane] = m_lo;
+  out[lane + 32] = m_hi;
+}
+extern "C" int fsdr_acs_chain(const void* prev_s, const void* bm0, const void* bm1,
+                              void* out, long long n_steps, void* stream) {
+  acs_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(prev_s), static_cast<const float*>(bm0),
+      static_cast<const float*>(bm1), static_cast<float*>(out), n_steps);
   return cudaGetLastError();
 }
 """
@@ -1215,9 +1298,9 @@ def phase_fm_wav(dev, wav_path) -> float:
 
 
 def start_empty_kernel(build_dir):
-    """Start ``nvcc`` on ``EMPTY_CU`` into ``build_dir``, with the port's
-    flags; returns a function that waits for it and gives the loaded
-    library."""
+    """Start ``nvcc`` on ``EMPTY_CU`` (the empty kernel and the ACS step
+    chain) into ``build_dir``, with the port's flags; returns a function that
+    waits for it and gives the loaded library."""
     from futuresdr_tpu_torch.ops import _build
     build_dir.mkdir(parents=True, exist_ok=True)
     src = build_dir / "empty_launch.cu"
@@ -1232,6 +1315,9 @@ def start_empty_kernel(build_dir):
         lib = ctypes.CDLL(str(so))
         lib.fsdr_empty.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
         lib.fsdr_empty.restype = ctypes.c_int
+        vp = ctypes.c_void_p
+        lib.fsdr_acs_chain.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp]
+        lib.fsdr_acs_chain.restype = ctypes.c_int
         return lib
     return finish
 
@@ -3587,7 +3673,7 @@ PERF_BOUND_US = {("fir", 1 << 18): 1.25, ("fir", 1 << 20): 5.01,
                  ("poly_fir/resampler", 4_096_000): 2.20,
                  ("quad_demod", 512_000): 0.459, ("quad_demod", 4_096_000): 3.67,
                  ("pfb", 1 << 18): 1.25, ("pfb", 1 << 21): 10.0,
-                 ("pfb/N=2048", 1 << 18): 1.34}
+                 ("pfb/N=2048", 1 << 18): 1.34, ("poly_fir/decimator", 1 << 18): 0.666}
 PREC_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb")
 
 
@@ -3982,7 +4068,8 @@ def phase_roofline(rows) -> None:
               "poly_fir/resampler": lambda f: R.kernel_cost(
                   "poly_fir", n=f // 4, m=2, D=125, I=24, complex=False),
               "pfb": lambda f: R.kernel_cost("pfb", n=f, N=PFB_N, K=12),
-              "pfb/N=2048": lambda f: R.kernel_cost("pfb", n=f, N=PFB_WIDE_N, K=12)}
+              "pfb/N=2048": lambda f: R.kernel_cost("pfb", n=f, N=PFB_WIDE_N, K=12),
+              "poly_fir/decimator": lambda f: R.kernel_cost("poly_fir", n=f, m=8, D=16)}
     peaks = R.CHIP_PEAKS["h100"]
 
     def bound_us(kernel, f):
@@ -4490,6 +4577,332 @@ def phase_serving(dev, taps, card_line) -> dict:
             "measured": measured}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the models' device plane
+# ---------------------------------------------------------------------------
+
+VIT_BATCHES = (1, 8, 256)
+VIT_BUCKETS = (8, 512, 4096)
+VIT_LINE = (256, 4096)           # the kernels line's shape: perf/wlan.py's batch
+VIT_REPS = 4                     # distinct inputs a timing's graph (67 MB of picks each)
+WLAN_FRAMES = 200                # perf/wlan.py's stream
+WLAN_PAYLOAD = 256
+WLAN_GAP = 300
+WLAN_SNR_DB = 25.0
+WLAN_CFO = 0.002                 # rad/sample, the demod checks' carrier offset
+DEMOD_BUCKET = 1024              # perf/wlan.py --device-resident's symbols a frame
+DEMOD_MODS = ("bpsk", "qpsk", "qam16", "qam64")
+DEMOD_MCS = {"bpsk": "bpsk_1_2", "qpsk": "qpsk_1_2", "qam16": "qam16_1_2",
+             "qam64": "qam64_3_4"}
+# the card against the CPU: cuFFT, the card's sincos/atan2 and sums in
+# another order move the float32 results in their last bits
+HEAD_H_TOL = 2e-4                # tests/test_wlan.py's bar for the head
+HEAD_LLR_TOL = 2e-3
+BODY_LLR_TOL = 2e-4              # LLRs reach about 8: 2e-4 is ~200 ulps there
+LOOPBACK_FRAMES = 10
+MCLDNN_TOL = 1e-4                # logits reach about 12, float32 with TF32 off
+MCLDNN_WINDOWS = 256
+MCLDNN_ACC = 0.9                 # tests/test_pretrained.py's bar
+CLF_SNR_DB = 15.0
+CLF_SHARE = 0.7                  # tests/test_pretrained.py's bar
+REPLACES_VITERBI = "futuresdr_tpu/ops/viterbi.py:31 (lax.scan, no pallas_call)"
+SOURCE_VITERBI = "futuresdr_tpu_torch/csrc/viterbi.cu"
+
+
+def _trellis(dev):
+    import torch
+
+    from futuresdr_tpu_torch.models.wlan import coding
+    return (torch.from_numpy(coding._PREV_S.astype(np.int32)).to(dev),
+            torch.from_numpy(coding._BM0.astype(np.float32)).to(dev),
+            torch.from_numpy(coding._BM1.astype(np.float32)).to(dev))
+
+
+def _codeword_lams(gen, batch: int, steps: int, dev):
+    """Noisy soft bits of random codewords, ``[batch, steps, 2]`` on ``dev``."""
+    import torch
+
+    from futuresdr_tpu_torch.models.wlan import coding
+    rng = np.random.default_rng(int(torch.randint(1 << 30, (1,), generator=gen)))
+    bits = rng.integers(0, 2, (batch, steps)).astype(np.uint8)
+    bits[:, -6:] = 0
+    coded = np.stack([coding.conv_encode(b) for b in bits]).astype(np.float32) * 2 - 1
+    coded += 0.9 * rng.standard_normal(coded.shape).astype(np.float32)
+    return torch.from_numpy(coded.reshape(batch, steps, 2)).to(dev)
+
+
+def phase_viterbi_kernel(dev, card_line, empty_lib) -> dict:
+    """29 (a): the ACS kernel's picks equal its plain version's bit for bit
+    at every (B, bucket), on noisy codewords and on all-zero LLRs (every
+    compare a tie); its time at B 256 × 4096 beside the plain version, its
+    bound, one frame alone, and its sequential floor: the step chain alone
+    (``EMPTY_CU``'s ``acs_chain_kernel``) over as many steps."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops import viterbi as V
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    gen = torch.Generator().manual_seed(SEED + 290)
+    tables = _trellis(dev)
+    err = 0
+    for B in VIT_BATCHES:
+        for T in VIT_BUCKETS:
+            for label, lams in (("noisy", _codeword_lams(gen, B, T, dev)),
+                                ("zero", torch.zeros(B, T, 2, device=dev))):
+                got = V.acs(lams, *tables)
+                torch.cuda.synchronize()
+                want = V.acs_plain(lams, *tables)
+                err = max(err, int((got.int() - want.int()).abs().max()))
+                diff = int((got != want).sum())
+                check(diff == 0, f"viterbi B={B} T={T} {label}: {diff} picks differ "
+                                 f"from the plain version")
+                check(label != "zero" or not got.any(),
+                      f"viterbi B={B} T={T}: a tie did not pick candidate 0")
+    print(f"viterbi: picks equal the plain version at B {VIT_BATCHES} x buckets "
+          f"{VIT_BUCKETS}, noisy and all-zero LLRs")
+    B, T = VIT_LINE
+    args = [(_codeword_lams(gen, B, T, dev),) for _ in range(VIT_REPS)]
+    ms = device_ms(lambda x: V.acs(x, *tables), args)
+    one_warp = device_ms(lambda x: V.acs(x[:1], *tables), args)
+    plain_ms = cuda_ms(lambda: V.acs_plain(args[0][0], *tables), reps=3)
+    chain_out = torch.empty(64, dtype=torch.float32, device=dev)
+
+    def chain():
+        ck._raise_on(empty_lib.fsdr_acs_chain(*(t.data_ptr() for t in tables),
+                                              chain_out.data_ptr(), T, ck._stream(chain_out)),
+                     "acs_chain")
+    floor_ms = device_ms(chain, [()] * VIT_REPS)
+    nbytes, ops = kernel_cost("viterbi", B=B, T=T)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    t = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "max_abs_err": float(err), "seq_floor_ms": floor_ms, "one_frame_ms": one_warp}
+    print(f"timing viterbi B={B} T={T}: kernel {ms:.4f} ms, plain (eager loop) "
+          f"{plain_ms:.4f} ms, library none, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), one frame alone {one_warp:.4f} ms "
+          f"({one_warp * 1e6 / T:.1f} ns a step), sequential floor (the step chain "
+          f"alone, one warp) {floor_ms:.4f} ms ({floor_ms * 1e6 / T:.1f} ns a step) "
+          f"[{card_line}]")
+    return t
+
+
+def _wlan_frame(mcs: str, n_sym: int, seed: int):
+    """One noisy ``mcs`` burst of ``n_sym`` data symbols with carrier offset
+    ``WLAN_CFO``; returns ``(samples, lts_start, cfo)``."""
+    from futuresdr_tpu_torch.models import wlan as W
+    from futuresdr_tpu_torch.models.wlan import ofdm
+    m = W.MCS_TABLE[mcs]
+    rng = np.random.default_rng(seed)
+    nbytes = (n_sym * m.n_dbps - 22) // 8
+    sig = W.encode_frame(rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes(), mcs)
+    sig = np.concatenate([np.zeros(100, np.complex64), sig, np.zeros(100, np.complex64)])
+    sig = sig * np.exp(1j * WLAN_CFO * np.arange(len(sig)))
+    sig = (sig + 0.02 * (rng.standard_normal(len(sig))
+                         + 1j * rng.standard_normal(len(sig)))).astype(np.complex64)
+    _, lts, cfo = ofdm.sync_long(sig, ofdm.detect_packets(sig)[0])
+    return sig, lts, cfo
+
+
+def phase_wlan_demod(dev, card_line) -> dict:
+    """29 (b): the head and body demod on the card against the CPU for each
+    modulation; the body at a 1,024-symbol bucket (81,920 samples): its card
+    time (``demod_body_tensors`` replayed in a CUDA graph on inputs already on
+    the card) and the host time of a ``demod_body_torch`` call as the receiver
+    makes it (numpy in, the pad and the H2D, eager ops, the LLRs' D2H)."""
+    import torch
+
+    from futuresdr_tpu_torch.models.wlan import torch_demod as TD
+    worst = {"H": 0.0, "head": 0.0, "body": 0.0}
+    for i, mod in enumerate(DEMOD_MODS):
+        for n_sym in (8, 37):
+            sig, lts, cfo = _wlan_frame(DEMOD_MCS[mod], n_sym, 29 + i)
+            head = sig[lts:lts + 208]
+            Hg, lg = TD.demod_head_torch(head, cfo, dev)
+            Hc, lc = TD.demod_head_torch(head, cfo, "cpu")
+            worst["H"] = max(worst["H"], float(np.abs(Hg - Hc).max()))
+            worst["head"] = max(worst["head"], float(np.abs(lg - lc).max()))
+            off = lts + 208
+            args = (sig[off:off + n_sym * 80], Hc, n_sym, 1, cfo, off - lts, mod)
+            bg, bc = TD.demod_body_torch(*args, dev), TD.demod_body_torch(*args, "cpu")
+            check(bg.shape == bc.shape == (n_sym * 48 * {"bpsk": 1, "qpsk": 2, "qam16": 4,
+                                                         "qam64": 6}[mod],),
+                  f"demod body {mod}: shape {bg.shape}")
+            worst["body"] = max(worst["body"], float(np.abs(bg - bc).max()))
+    print(f"demod card vs CPU: H {worst['H']:.3g} (limit {HEAD_H_TOL}), head LLRs "
+          f"{worst['head']:.3g} (limit {HEAD_LLR_TOL}), body LLRs {worst['body']:.3g} "
+          f"(limit {BODY_LLR_TOL})")
+    check(worst["H"] <= HEAD_H_TOL and worst["head"] <= HEAD_LLR_TOL
+          and worst["body"] <= BODY_LLR_TOL, f"demod on the card against the CPU: {worst}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 291)
+    n = DEMOD_BUCKET * 80
+    H = torch.from_numpy(np.ones(64, np.complex64)).to(dev)
+    H = H + 0.3 * torch.randn(64, dtype=torch.complex64, generator=gen, device=dev)
+    pol, mask = TD.body_inputs(DEMOD_BUCKET, 1, dev)
+    args = [(randc(n, gen, dev),) for _ in range(REPS)]
+    body_np, H_np = args[0][0].cpu().numpy(), H.cpu().numpy()
+    rates = {}
+    for mod in DEMOD_MODS:
+        ms = device_ms(lambda x: TD.demod_body_tensors(x, H, pol, mask, 1e-4, 0.0, mod),
+                       args)
+        TD.demod_body_torch(body_np, H_np, DEMOD_BUCKET, 1, 1e-4, 0.0, mod, dev)
+        host = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            TD.demod_body_torch(body_np, H_np, DEMOD_BUCKET, 1, 1e-4, 0.0, mod, dev)
+            host.append((time.perf_counter() - t0) * 1e3)
+        eager_ms = statistics.median(host)
+        rates[mod] = (ms, n / (ms * 1e3), eager_ms, n / (eager_ms * 1e3))
+        print(f"timing demod body {mod} bucket={DEMOD_BUCKET} ({n} samples): card "
+              f"{ms:.4f} ms ({n / (ms * 1e3):.1f} input Msamples/s, graph replay); "
+              f"demod_body_torch eager {eager_ms:.4f} ms host time a call "
+              f"({n / (eager_ms * 1e3):.1f} input Msamples/s) [{card_line}]")
+    return {"worst": worst, "rates": rates}
+
+
+def wlan_stream():
+    """``perf/wlan.py``'s stream: seed 0, ``WLAN_FRAMES`` QPSK-1/2 MPDUs of
+    ``WLAN_PAYLOAD`` random bytes, ``WLAN_GAP``-sample gaps, ``WLAN_SNR_DB``."""
+    from futuresdr_tpu_torch.models import wlan as W
+    rng = np.random.default_rng(0)
+    mac = W.Mac()
+    parts, sent = [], []
+    for _ in range(WLAN_FRAMES):
+        psdu = mac.frame(bytes(rng.integers(0, 256, WLAN_PAYLOAD, dtype=np.uint8)))
+        sent.append(psdu)
+        parts += [W.encode_frame(psdu, "qpsk_1_2"), np.zeros(WLAN_GAP, np.complex64)]
+    sig = np.concatenate(parts)
+    sigma = np.sqrt(np.mean(np.abs(sig) ** 2) * 10 ** (-WLAN_SNR_DB / 10) / 2)
+    sig = (sig + sigma * (rng.standard_normal(len(sig))
+                          + 1j * rng.standard_normal(len(sig)))).astype(np.complex64)
+    return sig, sent
+
+
+def phase_wlan_stream(dev, card_line) -> dict:
+    """29 (c): the stream through ``decode_stream_batch`` on the card (one
+    warm-up, then the timed run): every frame decoded, its FCS good, equal to
+    what was sent. (d): the loopback app's ``main()`` on the card. The ACS
+    kernel's launches are counted over (c)'s timed run and (d)."""
+    import torch
+
+    from futuresdr_tpu_torch.apps import wlan_loopback
+    from futuresdr_tpu_torch.models import wlan as W
+    from futuresdr_tpu_torch.ops import viterbi as V
+    sig, sent = wlan_stream()
+    W.decode_stream_batch(sig, device=dev)
+    torch.cuda.synchronize()
+    stats = {}
+    V.reset_launches()
+    t0 = time.perf_counter()
+    frames = W.decode_stream_batch(sig, device=dev, stats=stats)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = V.launches["viterbi"]
+    good = [f for f in frames if W.payload_from_mpdu(f.psdu) is not None]
+    check(len(good) == WLAN_FRAMES and [f.psdu for f in frames] == sent,
+          f"wlan stream: {len(good)} of {WLAN_FRAMES} frames decoded with a good FCS")
+    print(f"rate wlan stream decode_stream_batch ({WLAN_FRAMES} QPSK-1/2 frames, "
+          f"{WLAN_PAYLOAD} B, {WLAN_SNR_DB:g} dB, {len(sig)} samples): {len(good)}/"
+          f"{WLAN_FRAMES} frames, {dt:.3f} s, {len(good) / dt:.1f} frames/s, "
+          f"{len(sig) / dt / 1e6:.3f} Msamples/s; ACS {stats['acs_s'] * 1e3:.2f} ms, picks "
+          f"D2H {stats['picks_bytes']} B in {stats['d2h_s'] * 1e3:.2f} ms [{card_line}]")
+    V.reset_launches()
+    rc = wlan_loopback.main(["--frames", str(LOOPBACK_FRAMES), "--device", str(dev)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"wlan loopback on the card: exit {rc}, not {LOOPBACK_FRAMES} of "
+                   f"{LOOPBACK_FRAMES} frames")
+    launches += V.launches["viterbi"]
+    check(launches > 0, "the viterbi kernel was launched no time on the WLAN path")
+    return {"launches": launches, "frames_s": len(good) / dt, "msps": len(sig) / dt / 1e6,
+            "stats": stats}
+
+
+def phase_mcldnn(dev, card_line) -> dict:
+    """29 (e): the pretrained MCLDNN on the card against the CPU port (TF32
+    off), its accuracy, ``ModClassifier`` in a flowgraph on the card, and a
+    256-window forward's time."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSource
+    from futuresdr_tpu_torch.models import modrec
+    from futuresdr_tpu_torch.models.mcldnn import loss_fn
+    X, y = modrec.synth_batch(np.random.default_rng(42), MCLDNN_WINDOWS, 128, (10.0, 20.0))
+    card_model = modrec.load_pretrained(device=dev)
+    cpu_model = modrec.load_pretrained(device="cpu")
+    xd = torch.from_numpy(X).to(dev)
+    with torch.inference_mode():
+        got = card_model(xd).cpu().numpy()
+        want = cpu_model(torch.from_numpy(X)).numpy()
+        _, acc = loss_fn(card_model, xd, torch.from_numpy(y).to(dev))
+    err = float(np.abs(got - want).max())
+    check(err <= MCLDNN_TOL, f"mcldnn logits on the card: {err:.3g} from the CPU's "
+                             f"(limit {MCLDNN_TOL})")
+    check(float(acc) > MCLDNN_ACC, f"mcldnn accuracy on the card {float(acc):.4f}")
+    rng = np.random.default_rng(1)
+    x = modrec._psk_qam(rng, 64 * 128, "qpsk")
+    x = x / np.sqrt(np.mean(np.abs(x) ** 2))
+    sigma = np.sqrt(10 ** (-CLF_SNR_DB / 10) / 2)
+    x = (x + sigma * (rng.standard_normal(len(x))
+                      + 1j * rng.standard_normal(len(x)))).astype(np.complex64)
+    fg = Flowgraph()
+    clf = modrec.ModClassifier(card_model, n=128, batch=8, device=dev)
+    fg.connect_stream(VectorSource(x), "out", clf, "in")
+    Runtime().run(fg)
+    labels = [c for c, _ in clf.predictions]
+    share = labels.count("qpsk") / max(len(labels), 1)
+    check(len(labels) == 64 and share >= CLF_SHARE,
+          f"ModClassifier on the card: {labels.count('qpsk')} of {len(labels)} qpsk")
+
+    def forward():
+        with torch.inference_mode():
+            return card_model(xd)
+    ms = cuda_ms(forward)
+    print(f"mcldnn: logits {err:.3g} from the CPU (limit {MCLDNN_TOL}), accuracy "
+          f"{float(acc):.4f}, ModClassifier {labels.count('qpsk')}/{len(labels)} qpsk; "
+          f"{MCLDNN_WINDOWS}-window forward {ms:.4f} ms, "
+          f"{MCLDNN_WINDOWS / ms * 1e3:.0f} windows/s [{card_line}]")
+    return {"err": err, "acc": float(acc), "ms": ms, "share": share}
+
+
+def phase_models(dev, card_line, empty_lib) -> dict:
+    """Phase 29, the models' device plane: (a) the Viterbi kernel, (b) the
+    demod, (c) perf/wlan.py's stream, (d) the loopback app, (e) MCLDNN."""
+    t0 = time.perf_counter()
+    viterbi = phase_viterbi_kernel(dev, card_line, empty_lib)
+    demod = phase_wlan_demod(dev, card_line)
+    stream = phase_wlan_stream(dev, card_line)
+    mcldnn = phase_mcldnn(dev, card_line)
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s")
+    return {"viterbi": viterbi, "demod": demod, "stream": stream, "mcldnn": mcldnn}
+
+
+def decimator_timings(dev) -> dict:
+    """Kernel, plain and library (``conv1d``) device time and the bound of the
+    decimating ``poly_fir`` of the precision matrix's decimator (D = 16,
+    m = 8, complex64) at 2^18."""
+    import torch
+    import torch.nn.functional as F
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    n, D, m = 1 << 18, 16, 8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 292)
+    W = torch.randn(m + 1, D, generator=gen, device=dev)
+    args = [(randc(m * D, gen, dev), randc(n, gen, dev)) for _ in range(REPS)]
+    cw = W.flip(0).t().unsqueeze(0).contiguous()             # [1, D, m + 1]
+    lib_args = [(torch.view_as_real(torch.cat([h, x])).reshape(-1, D, 2)
+                 .permute(2, 1, 0).contiguous(),) for h, x in args]
+    err, _ = rel_err(ck.poly_fir(*args[0], W), ck.poly_fir_plain(*args[0], W))
+    nbytes, ops = kernel_cost("poly_fir", n=n, m=m, D=D)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return {"ms": device_ms(lambda h, x: ck.poly_fir(h, x, W), args),
+            "plain_ms": device_ms(lambda h, x: ck.poly_fir_plain(h, x, W), args),
+            "library_ms": device_ms(lambda p: F.conv1d(p, cw), lib_args),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err}
+
+
 # A phase that stalls past this many seconds dumps every thread's stack to
 # stderr and ends the run (exit 1), inside the 1200 s a run may take.
 WATCHDOG_S = 1100
@@ -4579,6 +4992,8 @@ def main(argv=None) -> int:
                              "times each, each run under a stall watchdog")
     parser.add_argument("--serving", action="store_true",
                         help="only run phase 28, the serving plane, after the build")
+    parser.add_argument("--models", action="store_true",
+                        help="only run phase 29, the models' device plane, after the build")
     parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
                         help=argparse.SUPPRESS)   # one process of phase 26 (d)
     parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
@@ -4620,6 +5035,9 @@ def main(argv=None) -> int:
         return 0
     if args.serving:
         phase_serving(dev, firdes.lowpass(0.2, N_TAPS).astype(np.float32), card_line)
+        return 0
+    if args.models:
+        phase_models(dev, card_line, empty_lib)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -4714,6 +5132,11 @@ def main(argv=None) -> int:
         check(serving["launches"][k] > 0, f"lane kernel {k} was launched no time on the "
                                           f"served paths")
         launches[k] = serving["launches"][k]
+    # 29. the models' device plane: the Viterbi kernel against its plain
+    #     version, the demod, perf/wlan.py's stream and the loopback app on
+    #     the card (the kernel's launches counted over those two), MCLDNN
+    models = phase_models(dev, card_line, empty_lib)
+    by_phase["models"] = {"viterbi": models["stream"]["launches"]}
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -4728,6 +5151,7 @@ def main(argv=None) -> int:
     rows += [(f, k, v) for f, t in pfb_wide.items() for k, v in t.items()]
     rows += [(f, f"poly_fir/{c}", v) for f, t in fm_timings.items()
              for c, v in t["poly_fir"]["calls"].items()]
+    rows += [(1 << 18, "poly_fir/decimator", decimator_timings(dev))]
     for f, k, v in rows:
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         before = EARLIER_MS.get((k, f))
@@ -4762,6 +5186,14 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{y: t[y] for y in ("copy_ms",) if y in t}})
+    t = models["viterbi"]
+    line["kernels"].append({
+        "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,
+        "replaces": REPLACES_VITERBI, "launches": models["stream"]["launches"],
+        "launches_by_phase": {"models": models["stream"]["launches"]},
+        "batch": VIT_LINE[0], "steps": VIT_LINE[1],
+        **{y: t[y] for y in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "seq_floor_ms", "one_frame_ms")}})
     print(json.dumps(line))
 
     # 8. rates beside the card

@@ -12,6 +12,9 @@ leaves a JAX ``ServeEngine.evict`` left on the session (its page of the pool,
 in tree order) become the leaves and carry spec the port's engine restores
 (``ServeEngine.adopt`` then ``readmit``), checked by ``carry_matches``
 against the port's template.
+
+:func:`mcldnn_from_flax` maps the JAX package's MCLDNN parameter tree (its
+leaves as numpy arrays) onto the port's ``models/mcldnn.MCLDNN`` state dict.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from .ops.stages import Pipeline
 
-__all__ = ["carry_from_numpy", "session_from_jax"]
+__all__ = ["carry_from_numpy", "session_from_jax", "mcldnn_from_flax"]
 
 
 def _flatten(tree) -> list:
@@ -79,3 +82,41 @@ def session_from_jax(pipeline, leaves: Sequence[np.ndarray]) -> tuple:
     if not pipeline.carry_matches(host, spec, pipeline.init_carry("cpu")):
         raise ValueError("the converted session carry fails the pipeline's carry contract")
     return host, spec
+
+
+_LSTM_CELLS = {"lstm1": "OptimizedLSTMCell_0", "lstm2": "OptimizedLSTMCell_1"}
+_GATES = ("i", "f", "g", "o")           # flax's gate order is PyTorch's
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def mcldnn_from_flax(params) -> dict:
+    """The port's ``MCLDNN`` state dict from a flax MCLDNN tree (``{"params":
+    {...}}`` or its inner dict) with numpy leaves: convolution kernels HWIO →
+    OIHW (a 1-D one WIO → OIW), dense kernels ``(in, out)`` → ``(out, in)``;
+    each LSTM's ``weight_ih`` is ``cat(ii, if, ig, io)ᵀ`` and ``weight_hh``
+    ``cat(hi, hf, hg, ho)ᵀ``, ``bias_hh`` the hidden kernels' biases and
+    ``bias_ih`` zero (flax's input kernels have none)."""
+    p = params.get("params", params)
+    out = {}
+    for name in ("conv_iq", "conv_merge"):
+        out[f"{name}.weight"] = _t(np.transpose(p[name]["kernel"], (3, 2, 0, 1)))
+        out[f"{name}.bias"] = _t(p[name]["bias"])
+    for name in ("conv_i", "conv_q"):
+        out[f"{name}.weight"] = _t(np.transpose(p[name]["kernel"], (2, 1, 0)))
+        out[f"{name}.bias"] = _t(p[name]["bias"])
+    for name, cell in _LSTM_CELLS.items():
+        c = p[cell]
+        w_ih = np.concatenate([c[f"i{g}"]["kernel"] for g in _GATES], axis=1).T
+        w_hh = np.concatenate([c[f"h{g}"]["kernel"] for g in _GATES], axis=1).T
+        b_hh = np.concatenate([c[f"h{g}"]["bias"] for g in _GATES])
+        out[f"{name}.weight_ih_l0"] = _t(w_ih)
+        out[f"{name}.weight_hh_l0"] = _t(w_hh)
+        out[f"{name}.bias_ih_l0"] = torch.zeros(b_hh.shape[0], dtype=torch.float32)
+        out[f"{name}.bias_hh_l0"] = _t(b_hh)
+    for name in ("fc1", "fc2", "head"):
+        out[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"]).T)
+        out[f"{name}.bias"] = _t(p[name]["bias"])
+    return out

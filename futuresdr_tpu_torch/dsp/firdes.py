@@ -1,6 +1,6 @@
-"""FIR filter design: the windowed-sinc lowpass and the Kaiser auto-order
-lowpass of ``futuresdr_tpu/dsp/firdes.py``. Cutoffs are normalized to the
-sample rate (cycles/sample, 0.5 = Nyquist)."""
+"""FIR filter design: the windowed-sinc lowpass, the Kaiser auto-order
+lowpass and the root-raised-cosine pulse of ``futuresdr_tpu/dsp/firdes.py``.
+Cutoffs are normalized to the sample rate (cycles/sample, 0.5 = Nyquist)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import numpy as np
 
 from . import windows as _win
 
-__all__ = ["lowpass", "kaiser_order", "kaiser_lowpass"]
+__all__ = ["lowpass", "kaiser_order", "kaiser_lowpass", "root_raised_cosine"]
 
 
 def lowpass(cutoff: float, n_taps: int, window="hamming") -> np.ndarray:
@@ -41,3 +41,22 @@ def kaiser_lowpass(cutoff: float, transition_width: float,
     if n % 2 == 0:
         n += 1
     return lowpass(cutoff, n, _win.kaiser(n, beta))
+
+
+def root_raised_cosine(span_symbols: int, sps: int, rolloff: float) -> np.ndarray:
+    """RRC pulse (`firdes/basic.rs` root_raised_cosine); unit energy."""
+    n = span_symbols * sps + 1
+    t = (np.arange(n) - (n - 1) / 2.0) / sps
+    b = rolloff
+    h = np.empty(n)
+    for i, ti in enumerate(t):
+        if abs(ti) < 1e-9:
+            h[i] = 1.0 + b * (4.0 / np.pi - 1.0)
+        elif b > 0 and abs(abs(ti) - 1.0 / (4.0 * b)) < 1e-9:
+            h[i] = (b / np.sqrt(2.0)) * ((1 + 2 / np.pi) * np.sin(np.pi / (4 * b))
+                                         + (1 - 2 / np.pi) * np.cos(np.pi / (4 * b)))
+        else:
+            num = np.sin(np.pi * ti * (1 - b)) + 4 * b * ti * np.cos(np.pi * ti * (1 + b))
+            den = np.pi * ti * (1 - (4 * b * ti) ** 2)
+            h[i] = num / den
+    return h / np.sqrt(np.sum(h ** 2))

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build_all", "load", "load_host", "library_path",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fir", "fir_fft", "rotator", "poly_fir", "quad_demod", "pfb")
+SOURCES = ("fir", "fir_fft", "rotator", "poly_fir", "quad_demod", "pfb", "viterbi")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

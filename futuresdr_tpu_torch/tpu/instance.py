@@ -17,7 +17,7 @@ import torch
 from ..config import config
 from ..log import logger
 
-__all__ = ["TpuInstance", "instance"]
+__all__ = ["TpuInstance", "instance", "resolve_device"]
 
 log = logger("tpu.instance")
 
@@ -50,3 +50,9 @@ def instance() -> TpuInstance:
         if _instance is None:
             _instance = TpuInstance()
         return _instance
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """``device`` as a :class:`torch.device`; None means the broker's card
+    (:func:`instance`, which raises without CUDA)."""
+    return instance().device if device is None else torch.device(device)

@@ -111,7 +111,12 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
     * ``poly_fir(n, m, D, I=1, complex=True, w_bytes=4)``: the input with its
       ``m·D`` history, ``W``, ``n/D·I`` outputs, a MAC a weight an output;
     * ``pfb(n, N, K, tap_bytes=4)``: history, frame in and out, taps,
-      twiddles; ``4K + 5·log2 N`` a sample.
+      twiddles; ``4K + 5·log2 N`` a sample;
+    * ``viterbi(B, T, S=64)``: the LLRs (8 bytes a frame a step) in, the
+      trellis tables in, the picks (one byte a state a step a frame) out; a
+      state's two candidates (two products and two sums each) and their
+      compare, 9 operations a state a step a frame. The steps run one after
+      another, so the card's floor is set by their latency, not by these.
     """
     if kernel == "fir":
         n, nt, e = s["n"], s["nt"], 8 if s.get("complex", True) else 4
@@ -138,6 +143,9 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
         n, N, K = s["n"], s["N"], s["K"]
         return (float(8 * (K - 1) * N + 16 * n + s.get("tap_bytes", 4) * K * N + 8 * N),
                 float(n * (4 * K + 5 * int(_log2(N)))))
+    if kernel == "viterbi":
+        B, T, S = s["B"], s["T"], s.get("S", 64)
+        return float(8 * B * T + 12 * 2 * S + B * T * S), float(9 * S * B * T)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

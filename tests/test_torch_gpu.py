@@ -1552,3 +1552,91 @@ def test_precision_brownout_serves_the_lowered_program_on_card(cuda_device, mode
     snr = 10 * np.log10(np.mean(np.abs(ref[1]) ** 2) / max(err, 1e-30))
     assert snr >= (20.0 if mode == "int8" else 40.0), snr
     assert eng.compiles == 2
+
+
+# ---------------------------------------------------------------------------
+# the models' device plane: the Viterbi ACS kernel, the WLAN receiver, MCLDNN
+# ---------------------------------------------------------------------------
+
+def _trellis(device):
+    from futuresdr_tpu_torch.models.wlan import coding
+    return (torch.from_numpy(coding._PREV_S.astype(np.int32)).to(device),
+            torch.from_numpy(coding._BM0.astype(np.float32)).to(device),
+            torch.from_numpy(coding._BM1.astype(np.float32)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,steps", [(1, 8), (8, 512), (3, 100), (256, 4096)])
+def test_viterbi_kernel_picks_equal_plain_on_card(cuda_device, batch, steps):
+    """The ACS kernel's picks equal its plain version's bit for bit (noisy
+    LLRs; the all-zero input, where every compare is a tie, picks 0)."""
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(batch * steps)
+    tables = _trellis(cuda_device)
+    for lams in (rng.standard_normal((batch, steps, 2)).astype(np.float32) * 2,
+                 np.zeros((batch, steps, 2), np.float32)):
+        x = torch.from_numpy(lams).to(cuda_device)
+        before = V.launches["viterbi"]
+        got = V.acs(x, *tables)
+        torch.cuda.synchronize()
+        assert V.launches["viterbi"] == before + 1
+        assert torch.equal(got, V.acs_plain(x, *tables))
+    assert not got.any()
+
+
+@pytest.mark.gpu
+def test_wlan_decode_on_card(cuda_device):
+    """``perf/wlan.py``'s stream (20 frames) through ``decode_stream_batch``
+    on the card: the CPU tensors' frames, one ACS launch; the demod head and
+    body on the card within 2e-4 of the CPU (cuFFT and the card's sincos
+    against the CPU's)."""
+    from futuresdr_tpu_torch.models import wlan as W
+    from futuresdr_tpu_torch.models.wlan.torch_demod import demod_body_torch, demod_head_torch
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(0)
+    mac, parts, sent = W.Mac(), [], []
+    for _ in range(20):
+        psdu = mac.frame(bytes(rng.integers(0, 256, 256, dtype=np.uint8)))
+        sent.append(psdu)
+        parts += [W.encode_frame(psdu, "qpsk_1_2"), np.zeros(300, np.complex64)]
+    sig = np.concatenate(parts)
+    sigma = np.sqrt(np.mean(np.abs(sig) ** 2) * 10 ** (-25 / 10) / 2)
+    sig = (sig + sigma * (rng.standard_normal(len(sig))
+                          + 1j * rng.standard_normal(len(sig)))).astype(np.complex64)
+    before = V.launches["viterbi"]
+    got = W.decode_stream_batch(sig, device=cuda_device)
+    assert V.launches["viterbi"] == before + 1
+    assert [f.psdu for f in got] == sent
+    lts = got[3].start
+    Hg, lg = demod_head_torch(sig[lts:lts + 208], 0.001, cuda_device)
+    Hc, lc = demod_head_torch(sig[lts:lts + 208], 0.001, "cpu")
+    np.testing.assert_allclose(Hg, Hc, atol=2e-4)
+    np.testing.assert_allclose(lg, lc, atol=2e-3)
+    off = lts + 208
+    for mod in ("bpsk", "qpsk", "qam16", "qam64"):
+        args = (sig[off:off + 37 * 80], Hc, 37, 1, 0.001, 208, mod)
+        np.testing.assert_allclose(demod_body_torch(*args, cuda_device),
+                                   demod_body_torch(*args, "cpu"), atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_mcldnn_on_card_matches_cpu(cuda_device):
+    """The pretrained MCLDNN's logits on the card within 1e-4 of the CPU's
+    (TF32 off for its convolutions and LSTMs), its accuracy above 0.9, and
+    the classifier block on the card."""
+    from futuresdr_tpu_torch.models import modrec
+    from futuresdr_tpu_torch.models.mcldnn import loss_fn
+    X, y = modrec.synth_batch(np.random.default_rng(42), 256, 128, (10.0, 20.0))
+    card = modrec.load_pretrained(device=cuda_device)
+    cpu = modrec.load_pretrained(device="cpu")
+    with torch.no_grad():
+        got = card(torch.from_numpy(X).to(cuda_device)).cpu().numpy()
+        want = cpu(torch.from_numpy(X)).numpy()
+        _, acc = loss_fn(card, torch.from_numpy(X).to(cuda_device),
+                         torch.from_numpy(y).to(cuda_device))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert float(acc) > 0.9
+    assert torch.backends.cudnn.allow_tf32 is False
+    clf = modrec.ModClassifier(card, n=128, batch=8, device=cuda_device)
+    probs = clf.classify(X[:8])
+    assert probs.shape == (8, 5) and np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)

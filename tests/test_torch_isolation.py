@@ -54,6 +54,33 @@ def test_the_precision_and_tuning_modules_are_walked():
             "futuresdr_tpu_torch.utils.measure"} <= set(_submodules())
 
 
+def test_the_models_load_alone():
+    """The models' modules (the WLAN receiver, the Viterbi ACS, MCLDNN) are
+    walked, and decoding a WLAN frame and classifying a window on the CPU
+    load neither JAX nor the JAX package (nor flax or orbax: the weights are
+    the port's own ``.npz``)."""
+    assert {"futuresdr_tpu_torch.models.wlan.phy", "futuresdr_tpu_torch.models.wlan.torch_demod",
+            "futuresdr_tpu_torch.ops.viterbi", "futuresdr_tpu_torch.models.mcldnn",
+            "futuresdr_tpu_torch.models.modrec"} <= set(_submodules())
+    code = ("import sys\n"
+            "import numpy as np, torch\n"
+            "from futuresdr_tpu_torch.models import wlan, modrec\n"
+            "psdu = wlan.Mac().frame(b'alone' * 40)\n"
+            "x = np.concatenate([np.zeros(100, np.complex64), wlan.encode_frame(psdu),\n"
+            "                    np.zeros(100, np.complex64)])\n"
+            "assert [f.psdu for f in wlan.decode_stream_batch(x, device='cpu')] == [psdu]\n"
+            "X, _ = modrec.synth_batch(np.random.default_rng(0), 4, 128)\n"
+            "with torch.no_grad():\n"
+            "    assert modrec.load_pretrained(device='cpu')(torch.from_numpy(X)).shape == (4, 5)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'futuresdr_tpu', 'flax', 'orbax')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_sources_import_no_jax_and_no_jax_package():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",
