@@ -254,8 +254,34 @@ The models' device plane (``models/wlan``, ``ops/viterbi.py``,
     over (c)'s timed run and (d) and join the ``kernels`` line. The
     decimating ``poly_fir`` at D = 16, m = 8, 2^18 joins phase 7's timings.
 
-``python3 chip_smoke.py --serving`` runs only phase 28 after the build, and
-``python3 chip_smoke.py --models`` only phase 29.
+The device axis (``models/mcldnn.py`` training, ``parallel/``, ``shard/``,
+``tpu/{sp,pp}_block.py``, the engine's slot axis, ``utils/checkpoint.py``), on
+a mesh of 4 devices: the cards where there are 4, else 4 logical devices on
+card 0 (config ``virtual_devices``; printed as ``mesh: …``), so its D = 4
+rates measure the sharding's overhead, not its scaling:
+
+30. (a) ``mcldnn_v1``'s widths (conv 24, LSTM 64, 5 classes, 128 samples)
+    trained 30 steps at batch 128: the loss finite and falling, the first
+    step's gradients within 1e-3 of a leaf's largest |g| on the CPU, ms a
+    step; (b) ``sp_fir_fft_mag2_stream`` (64 taps, FFT 2048) and
+    ``sp_fir_stream`` over 3 chained 2^20 frames, ``sp_channelizer`` (PFB-64)
+    at 2^18 and ``make_pp_pipeline`` (4 stages), each against its one-device
+    chain and its kernels' plain versions, with the mesh's transfer counts
+    and rates at D = 1 and 4; (c) ``ShardedProgram`` over the fused spectrum
+    chain (2^18, K = 1 and 4) and the FM kernel chain (512,000): every row
+    bit-equal to the D = 1 program, no cross-shard transfer, and a
+    ``ShardRunner`` dispatch fault recovered bit-equal, rates at D = 1 and
+    4; (d) ``ServeEngine(shard_devices=4)`` on the main served chain, 16 ×
+    2^18, an evict and readmit included: every session bit-equal to the
+    unsharded engine's, both served rates; (e) ``SpKernel`` and ``PpKernel``
+    over a (2, 2) mesh in one flowgraph, its state saved midway and restored
+    into fresh blocks: resumed equals whole; (f) ``autotune_shard`` over
+    widths 1, 2 and 4. The kernels' launches are counted over the sharded
+    drives alone (not the comparisons) and join the ``kernels`` line.
+
+``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
+``python3 chip_smoke.py --models`` only phase 29, and ``python3
+chip_smoke.py --sharded`` only phase 30.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -4985,6 +5011,463 @@ def stress(dev, runs: int) -> None:
     print(f"stress: {runs} runs of each streamed phase, no stall")
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the device axis (training, the mesh, the sharded programs, the
+# sharded engine, pipeline parallelism, checkpoints)
+# ---------------------------------------------------------------------------
+
+SH_SHARDS = 4                    # the mesh's width: logical shards on one card
+SH_TRAIN_STEPS = 30
+SH_TRAIN_BATCH = 128
+SH_GRAD_TOL = 1e-3               # card against CPU, of each leaf's largest |g|
+SH_SP_FRAME = 1 << 20            # sp_fir_fft_mag2_stream / sp_fir_stream frame
+SH_SP_FRAMES = 3                 # chained frames of each stream check
+SH_PFB_FRAME = 1 << 18
+SH_DATA_FRAME = 1 << 18          # the fused spectrum chain's frame a shard
+SH_FM_FRAME = 512_000            # the FM kernel chain's frame a shard
+SH_DATA_K = (1, 4)
+SH_GROUPS = 4                    # ShardRunner groups of the fault run
+SH_SERVE_SESSIONS = 16
+SH_SERVE_FRAMES = 3
+SH_PP = (4, 8, 64, 256)          # stages, microbatches, rows, width of the pp check
+SH_RATE_REPS = 5
+SH_TOL = 1e-4                    # sharded stream against the one-device chain
+SH_KERNELS = ("fir", "fir_fft", "rotator", "poly_fir", "quad_demod", "pfb")
+
+
+class _Drive:
+    """The hand kernels' launches of the sharded main path: each drive adds
+    its own delta of ``cuda_kernels.launches``, so comparison launches made
+    between drives count for nothing."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def __call__(self, fn, *args, **kw):
+        import torch
+
+        from futuresdr_tpu_torch.ops import cuda_kernels as ck
+        before = dict(ck.launches)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for k, v in ck.launches.items():
+            self.counts[k] = self.counts.get(k, 0) + v - before[k]
+        return out
+
+
+def _shard_devices():
+    """The mesh's devices: the cards when there are enough, else
+    ``SH_SHARDS`` logical devices on card 0 (config ``virtual_devices``)."""
+    import torch
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.parallel import visible_devices
+    if torch.cuda.device_count() < SH_SHARDS:
+        config().virtual_devices = SH_SHARDS
+    return visible_devices()[:SH_SHARDS]
+
+
+def phase_train(dev, card_line) -> dict:
+    """30 (a): ``mcldnn_v1``'s widths trained for 30 steps at batch 128 on the
+    card: finite loss that falls, the first step's gradients against the
+    CPU's, ms a step."""
+    import json as _json
+
+    import torch
+
+    from futuresdr_tpu_torch.models import modrec
+    from futuresdr_tpu_torch.models.mcldnn import (MCLDNN, init_params, make_train_step,
+                                                   trainable_parameters)
+    with open(f"{modrec.WEIGHTS_DIR}/mcldnn_v1.json") as f:
+        cfg = _json.load(f)
+    widths = dict(n_classes=cfg["n_classes"], conv_features=cfg["conv_features"],
+                  lstm_features=cfg["lstm_features"])
+    n = cfg["n"]
+    rng = np.random.default_rng(SEED + 300)
+    batches = [modrec.synth_batch(rng, SH_TRAIN_BATCH, n) for _ in range(SH_TRAIN_STEPS)]
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        m = init_params(MCLDNN(**widths).to(where), torch.Generator().manual_seed(SEED))
+        step = make_train_step(m, torch.optim.SGD(trainable_parameters(m), lr=0.0))
+        X, y = batches[0]
+        step(torch.from_numpy(X).to(where), torch.from_numpy(y).to(where))
+        grads.append({k: p.grad.detach().cpu() for k, p in m.named_parameters()
+                      if p.grad is not None})
+    worst = max(float((grads[0][k] - g).abs().max() / g.abs().max())
+                for k, g in grads[1].items())
+    check(worst <= SH_GRAD_TOL, f"train: the card's first-step gradients are {worst:.3g} "
+                                f"of a leaf's largest |g| from the CPU's (limit "
+                                f"{SH_GRAD_TOL})")
+    m = init_params(MCLDNN(**widths).to(dev), torch.Generator().manual_seed(SEED))
+    step = make_train_step(m, torch.optim.Adam(trainable_parameters(m), lr=1e-3))
+    data = [(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)) for X, y in batches]
+    losses, times = [], []
+    for X, y in data:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, _acc = step(X, y)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    ms = statistics.median(times[5:])
+    print(f"phase 30 (a) train mcldnn_v1 (conv {widths['conv_features']}, LSTM "
+          f"{widths['lstm_features']}, {widths['n_classes']} classes, n {n}) batch "
+          f"{SH_TRAIN_BATCH}: {ms:.3f} ms a step (median of steps 6-{SH_TRAIN_STEPS}), loss "
+          f"{first:.4f} -> {last:.4f}, first-step gradients {worst:.3g} of a leaf's largest "
+          f"|g| from the CPU's [{card_line}]")
+    return {"ms": ms, "grad_err": worst, "loss": (first, last)}
+
+
+def _mesh_note(devs) -> str:
+    """What a rate's shards ran on; logical shards on one card measure the
+    sharding's overhead, not its scaling."""
+    from futuresdr_tpu_torch.parallel import describe_devices
+    note = describe_devices(devs)
+    return note + ("; overhead, not scaling" if "logical" in note else "")
+
+
+def _timed(fn, reps: int = SH_RATE_REPS) -> float:
+    """Median host seconds of ``fn()`` to the card's idle, after a warm call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_sp_streams(dev, devs, card_line, drive) -> dict:
+    """30 (b): over the 4-shard mesh ``sp_fir_fft_mag2_stream`` at 2^20,
+    ``sp_fir_stream``, ``sp_channelizer`` (PFB-64) at 2^18 and
+    ``make_pp_pipeline``, each against its one-device chain and its kernels'
+    plain versions; rates at D = 1 and D = 4."""
+    import torch
+
+    from futuresdr_tpu_torch.blocks.pfb import pfb_default_taps
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.parallel import (make_mesh, make_pp_pipeline, place,
+                                              sp_channelizer, sp_fir_fft_mag2_stream,
+                                              sp_fir_stream, to_host)
+    from futuresdr_tpu_torch.parallel.stream_sp import _pfb_taps
+    gen = torch.Generator(device=dev).manual_seed(SEED + 301)
+    taps = np.hanning(N_TAPS).astype(np.float32)
+    tt = torch.from_numpy(taps).to(dev)
+    mesh = make_mesh(("sp",), shape=(SH_SHARDS,), devices=devs)
+    mesh1 = make_mesh(("sp",), shape=(1,), devices=devs[:1])
+    out, rates = {}, {}
+    for name, make, one, plain in (
+            ("sp_fir_fft_mag2_stream",
+             lambda m: sp_fir_fft_mag2_stream(taps, N_FFT, m),
+             lambda h, x: _mag2(ck.fir_fft(h, x, tt, N_FFT)),
+             lambda h, x: _mag2(ck.fir_fft_plain(h, x, tt, N_FFT))),
+            ("sp_fir_stream", lambda m: sp_fir_stream(taps, m),
+             lambda h, x: ck.fir_continue(h, x, tt),
+             lambda h, x: ck.fir_continue_plain(h, x, tt))):
+        fn, init = make(mesh)
+        carry = init(np.complex64)
+        hist = torch.zeros(N_TAPS - 1, dtype=torch.complex64, device=dev)
+        worst = worst_plain = 0.0
+        mesh.reset_counts()
+        for _ in range(SH_SP_FRAMES):
+            x = randc(SH_SP_FRAME, gen, dev)
+            carry, y = drive(fn, carry, x)
+            got = torch.from_numpy(to_host(y))
+            want, want_plain = one(hist, x).cpu(), plain(hist, x).cpu()
+            hist = x[-(N_TAPS - 1):].clone()
+            worst = max(worst, rel_err(got, want)[1])
+            worst_plain = max(worst_plain, rel_err(got, want_plain)[1])
+        check(worst <= SH_TOL and worst_plain <= SH_TOL,
+              f"{name}: {worst:.3g} from the one-device chain, {worst_plain:.3g} from the "
+              f"plain versions (limit {SH_TOL})")
+        check(mesh.transfers["ppermute"] == SH_SP_FRAMES * SH_SHARDS,
+              f"{name}: {dict(mesh.transfers)} transfers over {SH_SP_FRAMES} frames")
+        for m, label in ((mesh1, 1), (mesh, SH_SHARDS)):
+            f, ini = make(m)
+            xs = place(randc(SH_SP_FRAME, gen, dev), m)
+            st = {"c": ini(np.complex64)}
+
+            def run(f=f, xs=xs, st=st):
+                st["c"], _y = f(st["c"], xs)
+            rates[(name, label)] = SH_SP_FRAME / _timed(run) / 1e6
+        out[name] = {"err": worst, "err_plain": worst_plain}
+    # the PFB-64 channelizer: the one-device pfb over the whole frame
+    ptaps = pfb_default_taps(PFB_N)
+    N, K, w = _pfb_taps(PFB_N, ptaps)
+    wd = w.to(dev)
+    x = randc(SH_PFB_FRAME, gen, dev)
+    hist = torch.zeros((K - 1) * N, dtype=torch.complex64, device=dev)
+    got = torch.from_numpy(to_host(drive(sp_channelizer(PFB_N, ptaps, mesh), x)))
+    want = ck.pfb(hist, x, wd).t().cpu()
+    want_plain = ck.pfb_plain(hist, x, wd).t().cpu()
+    e1, e2 = rel_err(got, want)[1], rel_err(got, want_plain)[1]
+    check(e1 <= SH_TOL and e2 <= SH_TOL, f"sp_channelizer: {e1:.3g} from one device, "
+                                         f"{e2:.3g} from plain (limit {SH_TOL})")
+    out["sp_channelizer"] = {"err": e1, "err_plain": e2}
+    for m, label in ((mesh1, 1), (mesh, SH_SHARDS)):
+        f = sp_channelizer(PFB_N, ptaps, m)
+        xs = place(x, m)
+        rates[("sp_channelizer", label)] = SH_PFB_FRAME / _timed(lambda: f(xs)) / 1e6
+    # GPipe over the mesh as a pp axis, against the stages one after another
+    S, M, rows, d = SH_PP
+    pmesh = make_mesh(("pp",), shape=(S,), devices=devs)
+    W = torch.randn(S, d, d, generator=gen, device=dev) / d ** 0.5
+    xm = torch.randn(M, rows, d, generator=gen, device=dev)
+    pfn = make_pp_pipeline(lambda a, b: torch.tanh(b @ a), S, M, pmesh)
+    got = drive(pfn, W, xm)
+    ref = xm
+    for s in range(S):
+        ref = torch.tanh(ref @ W[s])
+    e = rel_err(got, ref)[1]
+    check(e <= 1e-5, f"make_pp_pipeline: {e:.3g} from the sequential stages")
+    out["make_pp_pipeline"] = {"err": e}
+    rates[("make_pp_pipeline", S)] = M * rows / _timed(lambda: pfn(W, xm)) / 1e6
+    for (name, label), r in sorted(rates.items()):
+        unit = "Mrows/s" if name == "make_pp_pipeline" else "input Msamples/s"
+        print(f"rate sharded {name} D={label} ({_mesh_note(devs[:label])}): {r:.4f} {unit} "
+              f"[{card_line}]")
+    print(f"phase 30 (b) errors: " + ", ".join(
+        f"{k} {v['err']:.3g}" for k, v in out.items()))
+    return {"errors": out, "rates": rates}
+
+
+def _mag2(s):
+    return s.real * s.real + s.imag * s.imag
+
+
+def phase_data_shard(dev, devs, card_line, drive) -> dict:
+    """30 (c): ``ShardedProgram`` over the fused spectrum chain (2^18, K = 1
+    and 4) and the FM kernel chain (512,000): every row bit-equal to the
+    D = 1 program, zero cross-shard transfers; a ``ShardRunner`` dispatch
+    fault recovered bit-equal; rates at D = 1 and 4."""
+    import torch
+
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    from futuresdr_tpu_torch.runtime import faults as _faults
+    from futuresdr_tpu_torch.shard import (ShardRunner, ShardedProgram, collective_ops,
+                                           plan_shard, rows_to_host)
+    taps = firdes_lowpass()
+    rng = np.random.default_rng(SEED + 302)
+    chains = {"spectrum fused": (serve_main_pipe(taps), SH_DATA_FRAME, SH_DATA_K),
+              "fm kernel": (Pipeline(fm_stages("kernel"), np.complex64), SH_FM_FRAME, (1,))}
+    rates = {}
+    for label, (pipe, frame, ks) in chains.items():
+        prog = ShardedProgram(pipe, plan_shard(pipe, mode="data", n_devices=SH_SHARDS,
+                                               device=dev), name=f"p30 {label}")
+        for k in ks:
+            shape = (SH_SHARDS, frame) if k == 1 else (SH_SHARDS, k, frame)
+            x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+                 ).astype(np.complex64) * 0.5
+            fn, carries = prog.compile(frame, k)
+            carries, ys = drive(fn, carries, x)
+            got = rows_to_host(ys)
+            f1, _c = pipe.compile(frame, dev, k=k)
+            for d in range(SH_SHARDS):
+                _c1, y1 = f1(pipe.init_carry(dev), torch.from_numpy(x[d]).to(dev))
+                check(np.array_equal(y1.cpu().numpy(), got[d]),
+                      f"data shard {label} K={k}: row {d} differs from the D = 1 program")
+            check(collective_ops(prog) == [], f"data shard {label}: cross-shard transfers "
+                                              f"{dict(prog.mesh.transfers)}")
+            # both rates host rows in and host rows out, as ShardRunner runs
+            st = {"c": pipe.init_carry(dev), "cs": carries}
+
+            def one(st=st, f1=f1, x0=x[0]):
+                st["c"], y = f1(st["c"], torch.from_numpy(x0).to(dev))
+                y.cpu()
+
+            def many(st=st, fn=fn, x=x):
+                st["cs"], ys = fn(st["cs"], x)
+                rows_to_host(ys)
+            rates[(label, k, 1)] = frame * k / _timed(one) / 1e6
+            rates[(label, k, SH_SHARDS)] = SH_SHARDS * frame * k / _timed(many) / 1e6
+    # ShardRunner: a dispatch fault, recover(), bit-equal to an unfailed run
+    pipe = serve_main_pipe(taps)
+    groups = [(rng.standard_normal((SH_SHARDS, 4, SH_DATA_FRAME)) + 0j).astype(np.complex64)
+              for _ in range(SH_GROUPS)]
+
+    def runner(name, every):
+        p = ShardedProgram(pipe, plan_shard(pipe, mode="data", n_devices=SH_SHARDS,
+                                            device=dev), name=name)
+        return ShardRunner(p, SH_DATA_FRAME, k=4, checkpoint_every=every, name=name)
+    ref_r = runner("p30ref", 1)
+    ref = [drive(ref_r.run_group, g) for g in groups]
+    hit = runner("p30hit", 2)
+    out = [drive(hit.run_group, g) for g in groups[:3]]
+    _faults.arm("dispatch:p30hit", rate=1.0, seed=SEED, max_faults=1)
+    try:
+        try:
+            hit.run_group(groups[3])
+            check(False, "ShardRunner: the armed dispatch fault did not fire")
+        except _faults.InjectedFault:
+            replayed = drive(hit.recover)
+    finally:
+        _faults.disarm()
+    out.append(drive(hit.run_group, groups[3]))
+    check(replayed == 1 and all(np.array_equal(a, b) for a, b in zip(ref, out)),
+          f"ShardRunner: recovered run differs from the unfailed one (replayed {replayed})")
+    for (label, k, D), r in sorted(rates.items()):
+        print(f"rate sharded data {label} frame={chains[label][1]} K={k} D={D} "
+              f"({_mesh_note(devs[:D])}): {r:.1f} input Msamples/s [{card_line}]")
+    return {"rates": rates, "replayed": replayed}
+
+
+def firdes_lowpass():
+    from futuresdr_tpu_torch.dsp import firdes
+    return firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+
+
+def phase_sharded_serving(dev, devs, card_line, drive) -> dict:
+    """30 (d): ``ServeEngine(shard_devices=4)`` on the main served chain, 16
+    sessions × 2^18: every session's stream bit-equal to the unsharded
+    engine's (an evict and readmit included); the served rates."""
+    import torch
+
+    from futuresdr_tpu_torch.serve import ServeEngine
+    pipe = serve_main_pipe(firdes_lowpass())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 303)
+    data = [[randc(SERVE_FRAME, gen, dev).cpu().numpy() for _ in range(SH_SERVE_FRAMES)]
+            for _ in range(SH_SERVE_SESSIONS)]
+    outs, rates = {}, {}
+    for shard in (SH_SHARDS, 0):
+        eng = ServeEngine(pipe, frame_size=SERVE_FRAME, app=f"p30serve{shard}",
+                          buckets=(SH_SERVE_SESSIONS,), shard_devices=shard, device=dev)
+        sids = [eng.admit(tenant=f"t{i % 4}").sid for i in range(SH_SERVE_SESSIONS)]
+        got = {s: [] for s in sids}
+
+        def serve_all(step_frames):
+            for j in step_frames:
+                for s, d in zip(sids, data):
+                    eng.submit(s, d[j])
+                eng.step()
+            while eng.step():
+                pass
+        d_fn = drive if shard else (lambda f, *a: f(*a))
+        d_fn(serve_all, [0])
+        eng.evict(sids[3])
+        eng.readmit(sids[3])
+        d_fn(serve_all, range(1, SH_SERVE_FRAMES))
+        for s in sids:
+            got[s] = eng.results(s)
+        outs[shard] = list(got.values())
+        dt = _timed(lambda: serve_all([0]), reps=3)
+        rates[shard] = SH_SERVE_SESSIONS * SERVE_FRAME / dt / 1e6
+        if shard:
+            desc = eng.describe()["shard"]
+            check(desc == {"devices": SH_SHARDS, "sharded": True,
+                           "lanes_per_device": SH_SERVE_SESSIONS // SH_SHARDS},
+                  f"sharded engine: {desc}")
+    for a, b in zip(outs[SH_SHARDS], outs[0]):
+        check(len(a) == len(b) == SH_SERVE_FRAMES and all(np.array_equal(u, v)
+                                                          for u, v in zip(a, b)),
+              "sharded engine: a session's stream differs from the unsharded engine's")
+    for shard, r in rates.items():
+        print(f"rate served main chain {SH_SERVE_SESSIONS} x {SERVE_FRAME} shard_devices="
+              f"{shard} ({_mesh_note(devs[:max(shard, 1)])}): {r:.1f} input Msamples/s "
+              f"[{card_line}]")
+    return {"rates": rates}
+
+
+def phase_composed(dev, devs, drive) -> None:
+    """30 (e): SpKernel along sp and PpKernel along pp in one flowgraph over a
+    (2, 2) mesh, interrupted, its state saved and restored into fresh blocks:
+    the resumed run equals the whole one."""
+    import tempfile
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.parallel import make_mesh, sp_fir_stream
+    from futuresdr_tpu_torch.tpu import PpKernel, SpKernel
+    from futuresdr_tpu_torch.utils.checkpoint import (load_flowgraph_state,
+                                                      save_flowgraph_state)
+    mesh = make_mesh(("pp", "sp"), shape=(2, 2), devices=devs)
+    d, mb, F = 64, 16, 1 << 16
+    rng = np.random.default_rng(SEED + 304)
+    W = (rng.standard_normal((2, d, d)) / 8).astype(np.float32)
+    data = rng.standard_normal(4 * F).astype(np.float32)
+    taps = np.hanning(32).astype(np.float32)
+
+    def build(n, off=0):
+        fn, init = sp_fir_stream(taps, mesh)
+        fg, snk = Flowgraph(), VectorSink(np.float32)
+        fg.connect(VectorSource(data[off:off + n * F]),
+                   SpKernel(fn, mesh, np.float32, np.float32, F, init_carry=init),
+                   PpKernel(lambda w, a: torch.tanh(a @ w), W, mesh, np.float32, np.float32,
+                            micro_shape=(mb, d), n_micro=F // (mb * d), wire="f32",
+                            frames_in_flight=1), snk)
+        return fg, snk
+    fg, snk = build(4)
+    drive(Runtime().run, fg)
+    full = np.asarray(snk.items())
+    fg_b, snk_b = build(2)
+    drive(Runtime().run, fg_b)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_flowgraph_state(fg_b, f"{tmp}/state")
+        fg_c, snk_c = build(2, 2 * F)
+        check(load_flowgraph_state(fg_c, f"{tmp}/state") == 1, "composed: no state loaded")
+    drive(Runtime().run, fg_c)
+    resumed = np.concatenate([np.asarray(snk_b.items()), np.asarray(snk_c.items())])
+    check(full.shape == (4 * F,) and np.array_equal(resumed, full),
+          "composed (pp, sp): the resumed run differs from the whole one")
+    print(f"phase 30 (e) composed (pp, sp) over {len(devs)} shard(s): {4 * F} samples, "
+          f"resumed equals full")
+
+
+def phase_autotune_shard(dev, card_line) -> dict:
+    """30 (f): ``autotune_shard`` over the widths there are."""
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    from futuresdr_tpu_torch.tpu.autotune import autotune_shard, cached_shard_devices
+    pipe = serve_main_pipe(firdes_lowpass())
+    inst = TpuInstance(dev)
+    best, rates = autotune_shard(pipe, pipe.in_dtype, frame=SH_DATA_FRAME,
+                                 devices=(1, 2, SH_SHARDS), min_seconds=0.2, inst=inst)
+    from futuresdr_tpu_torch.tpu.autotune import platform_of
+    check(cached_shard_devices(pipe.stages, pipe.in_dtype, platform_of(inst)) == best,
+          "autotune_shard: the pick was not recorded")
+    check(set(rates) == {1, 2, SH_SHARDS}, f"autotune_shard measured {sorted(rates)}")
+    print(f"phase 30 (f) autotune_shard: best D={best}, " + ", ".join(
+        f"D={k} {v:.1f} Msamples/s" for k, v in sorted(rates.items())) + f" [{card_line}]")
+    return {"best": best, "rates": rates}
+
+
+def phase_sharded(dev, card_line) -> dict:
+    """Phase 30, the device axis: (a) training, (b) the sequence-parallel
+    streams and GPipe, (c) the data-sharded programs and ``ShardRunner``, (d)
+    the sharded engine, (e) the composed (pp, sp) flowgraph with a
+    checkpoint, (f) ``autotune_shard``. The kernels' launches are counted
+    over the sharded drives alone."""
+    import torch
+
+    from futuresdr_tpu_torch.parallel import describe_devices
+    t0 = time.perf_counter()
+    devs = _shard_devices()
+    print(f"mesh: {describe_devices(devs)}")
+    drive = _Drive()
+    train = phase_train(dev, card_line)
+    sp = phase_sp_streams(dev, devs, card_line, drive)
+    data = phase_data_shard(dev, devs, card_line, drive)
+    serving = phase_sharded_serving(dev, devs, card_line, drive)
+    phase_composed(dev, devs, drive)
+    tune = phase_autotune_shard(dev, card_line)
+    for k in SH_KERNELS:
+        check(drive.counts.get(k, 0) > 0, f"kernel {k} was launched no time on the sharded "
+                                          f"paths of phase 30")
+    torch.cuda.synchronize()
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s, launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(drive.counts.items()) if v))
+    return {"launches": drive.counts, "train": train, "sp": sp, "data": data,
+            "serving": serving, "tune": tune}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -4994,6 +5477,8 @@ def main(argv=None) -> int:
                         help="only run phase 28, the serving plane, after the build")
     parser.add_argument("--models", action="store_true",
                         help="only run phase 29, the models' device plane, after the build")
+    parser.add_argument("--sharded", action="store_true",
+                        help="only run phase 30, the device axis, after the build")
     parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
                         help=argparse.SUPPRESS)   # one process of phase 26 (d)
     parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
@@ -5038,6 +5523,9 @@ def main(argv=None) -> int:
         return 0
     if args.models:
         phase_models(dev, card_line, empty_lib)
+        return 0
+    if args.sharded:
+        phase_sharded(dev, card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -5137,6 +5625,13 @@ def main(argv=None) -> int:
     #     the card (the kernel's launches counted over those two), MCLDNN
     models = phase_models(dev, card_line, empty_lib)
     by_phase["models"] = {"viterbi": models["stream"]["launches"]}
+    # 30. the device axis: training, the sharded streams, programs and engine,
+    #     GPipe, checkpoints; the kernels' launches counted over its drives
+    sharded = phase_sharded(dev, card_line)
+    by_phase["sharded"] = {k: v for k, v in sharded["launches"].items() if v}
+    for k, v in by_phase["sharded"].items():
+        if k in launches:
+            launches[k] += v
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record

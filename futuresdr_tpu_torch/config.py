@@ -145,8 +145,17 @@ class Config:
     #   hook that drains every registered serving app
     serve_inflight: int = 1                # dispatch groups in flight (1 =
     #   launch, then commit, each step)
-    serve_shard_devices: int = 0           # slot-axis sharding over cards:
-    #   0 or 1 only (more is ROADMAP item 10)
+    serve_shard_devices: int = 0           # slot-axis sharding of the
+    #   serving engine over this many devices (0 or 1 = off); a bucket whose
+    #   capacity does not divide by it stays unsharded
+    shard: str = "off"                     # the shard plan's mode: "off" |
+    #   "auto" | "data" | "model" (shard/plan.py)
+    shard_devices: int = 0                 # mesh width of a shard plan (0 =
+    #   every device there is)
+    virtual_devices: int = 0               # > 0: the device list is that many
+    #   logical devices on the first physical one (the CPU, or card 0), the
+    #   counterpart of the reference's --xla_force_host_platform_device_count;
+    #   0 (off) lists the cards there are
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -8,7 +8,8 @@ probabilities out on the message plane. :func:`synth_batch` makes the reference'
 RadioML-style set (numpy, the same samples from the same generator).
 :func:`load_pretrained` reads the packaged weights, ``weights/<name>.npz`` (the
 reference's orbax checkpoint converted by the repository's ``port_weights.py``) with
-``weights/<name>.json`` recording the architecture. Training is not ported here.
+``weights/<name>.json`` recording the architecture. :func:`train` trains MCLDNN on
+the synthetic set with autograd and Adam (``models/mcldnn.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ from ..dsp import firdes
 from ..runtime.kernel import Kernel
 from ..tpu.instance import resolve_device
 from ..types import Pmt
-from .mcldnn import MCLDNN
+from .mcldnn import MCLDNN, init_params, make_train_step, trainable_parameters
 
-__all__ = ["CLASSES", "synth_batch", "ModClassifier", "load_pretrained", "WEIGHTS_DIR"]
+__all__ = ["CLASSES", "synth_batch", "train", "ModClassifier", "load_pretrained",
+           "WEIGHTS_DIR"]
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
 
@@ -100,6 +102,30 @@ def synth_batch(rng: np.random.Generator, batch: int, n: int = 128,
         X[i, 0] = x.real
         X[i, 1] = x.imag
     return X, y
+
+
+def train(n_steps: int = 200, batch: int = 64, n: int = 128, seed: int = 0,
+          model: Optional[MCLDNN] = None, lr: float = 1e-3, log_every: int = 0,
+          device=None):
+    """Train MCLDNN on the synthetic set on ``device`` (None: the card):
+    ``init_params`` from a ``torch.Generator`` seeded with ``seed``, Adam at
+    ``lr``, batches from ``numpy.random.default_rng(seed)`` (the reference's
+    stream of batches). Returns ``(model, history)``, ``history`` a list of
+    ``(loss, acc)`` a step; the model's parameters are its trained state."""
+    dev = resolve_device(device)
+    model = model or MCLDNN(n_classes=len(CLASSES))
+    model = init_params(model.to(dev), torch.Generator().manual_seed(seed))
+    opt = torch.optim.Adam(trainable_parameters(model), lr=lr)
+    step = make_train_step(model, opt)
+    rng = np.random.default_rng(seed)
+    history: List[Tuple[float, float]] = []
+    for i in range(n_steps):
+        X, y = synth_batch(rng, batch, n)
+        loss, acc = step(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev))
+        history.append((float(loss), float(acc)))
+        if log_every and (i + 1) % log_every == 0:
+            print(f"step {i + 1}: loss {history[-1][0]:.3f} acc {history[-1][1]:.3f}")
+    return model, history
 
 
 class ModClassifier(Kernel):

@@ -86,6 +86,11 @@ class Stage:
     #   stage must move and compute (utils/roofline.py); None = in + out bytes
     route: Optional[Tuple[Optional[str], Optional[str], Optional[str]]] = None
     #   (impl, fft_impl, precision) pins; LTI merging keeps them only when both agree
+    history: int = 0
+    #   > 0: the carry's last leaf is the stream's last ``history`` input
+    #   samples and its other leaves are parameters a frame leaves alone (an
+    #   input-history window: the FIR, fir_fft, the PFB); shard/model.py
+    #   gives such a stage the previous span's tail as its carry
 
     def __repr__(self):
         return f"Stage({self.name}, ratio={self.ratio})"
@@ -332,7 +337,7 @@ class Pipeline:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 host.copy_(t, non_blocking=True)
                 done = torch.cuda.Event()
-                done.record()
+                done.record(torch.cuda.current_stream(t.device))   # the leaf's card
 
                 def fetch(host=host, done=done):
                     done.synchronize()
@@ -1191,7 +1196,7 @@ def fir_stage(taps, decim: int = 1, fft_len: int = 8192, name: str = "fir",
     return Stage(fn, init_carry, Fraction(1, decim), None, int(np.lcm(L, decim)),
                  name, lti=(taps, decim, fft_len, impl), update=update,
                  lower=_lower, compute_dtype=_compute_dtype(precision),
-                 cost=cost, route=(impl, fft_impl, precision))
+                 cost=cost, route=(impl, fft_impl, precision), history=L)
 
 
 def _roofline():
@@ -1353,7 +1358,7 @@ def fir_fft_stage(taps, n_fft: int, name: Optional[str] = None,
 
     return Stage(fn, init_carry, Fraction(1, 1), np.complex64, n_fft, name,
                  update=update, lower=_lower, compute_dtype=_compute_dtype(precision),
-                 cost=cost, route=("pallas", None, precision))
+                 cost=cost, route=("pallas", None, precision), history=nt - 1)
 
 
 def mag2_stage() -> Stage:
@@ -1900,7 +1905,7 @@ def channelizer_stage(n_channels: int, taps=None, name: str = "channelizer",
 
     return Stage(fn, init_carry, Fraction(1, 1), np.complex64, N, name, update=update,
                  lower=_lower, compute_dtype=_compute_dtype(precision), cost=cost,
-                 route=(impl, None, precision))
+                 route=(impl, None, precision), history=H)
 
 
 def lora_demod_stage(sf: int, name: str = "lora_demod") -> Stage:

@@ -57,7 +57,22 @@ here: :attr:`ServeEngine.e2e_hist` (a log2 histogram of per-frame
 submit→result latency), :attr:`ServeEngine.compile_seconds` (each build's
 capture time) and :attr:`ServeEngine.spans` (``None``, or the host intervals
 of each group's H2D, compute and D2H, read by :func:`overlap_report`).
-``shard_devices > 1`` (the slot axis over several cards) is ROADMAP item 10.
+
+**The slot axis over devices** (``shard_devices=D > 1``, config
+``serve_shard_devices``): a bucket whose capacity divides by D splits its lanes
+into D contiguous blocks, device ``slot // (capacity // D)`` serving lane
+``slot % (capacity // D)`` of its block (:meth:`ServeEngine.slot_device`). Each
+device holds its slice of the page pool (:class:`ShardedPool`) and its own slot
+program (one CUDA graph a device, :class:`ShardedSlotProgram`); a group's batch,
+masks and page map are split a device on the host and placed synchronously,
+and each device's outputs come back by their own D2H, so no lane's data crosses
+a device. The :class:`~.slots.SlotTable` binds page p to lane p (both the
+lowest free), so every lane's page lives on its own device; the launch checks
+it. A bucket that does not divide by D stays unsharded on the first device, and
+growth across that boundary lays the pool out again. Evict, readmit, retunes and
+persistence address pages as before. Every session's stream is bit-equal to the
+unsharded engine's. More devices than exist are refused (``make_mesh``), unless
+config ``virtual_devices`` lists logical devices.
 """
 
 from __future__ import annotations
@@ -75,6 +90,7 @@ import torch
 from ..log import logger
 from ..ops import xfer
 from ..ops.stages import _capture_lock, _from_spec, _leaves, _no_automatic_gc, _rebuild
+from ..parallel.mesh import on_device
 from ..runtime import faults as _faults
 from ..telemetry import journal as _journal
 from ..telemetry import prom as _prom
@@ -86,8 +102,8 @@ from .persist import SessionStore
 from .slots import ServeDraining, ServeFull, ServeOverload, Session, SlotTable
 
 __all__ = ["ServeEngine", "ServeFull", "ServeDraining", "ServeOverload",
-           "SlotProgram", "build_slot_program", "default_buckets", "overlap_report",
-           "drain_all_apps", "install_sigterm_drain"]
+           "SlotProgram", "ShardedSlotProgram", "ShardedPool", "build_slot_program",
+           "default_buckets", "overlap_report", "drain_all_apps", "install_sigterm_drain"]
 
 log = logger("serve.engine")
 
@@ -275,6 +291,90 @@ class SlotProgram:
         return new, outs
 
 
+class ShardedPool:
+    """A page pool split over devices: ``parts[d]`` holds the flat leaves of
+    pages ``[d·per, (d+1)·per)`` on device d."""
+
+    __slots__ = ("parts", "per")
+
+    def __init__(self, parts: list, per: int):
+        self.parts, self.per = parts, int(per)
+
+    def rows(self, page: int) -> list:
+        d, i = divmod(int(page), self.per)
+        return [P[i] for P in self.parts[d]]
+
+    def with_page(self, page: int, leaves: list) -> "ShardedPool":
+        d, i = divmod(int(page), self.per)
+        new = []
+        for P, v in zip(self.parts[d], leaves):
+            P = P.clone()
+            P[i] = v.to(P.device)
+            new.append(P)
+        return ShardedPool(self.parts[:d] + [new] + self.parts[d + 1:], self.per)
+
+
+class _GatherFinish:
+    """The D2H finishes of one sink's D shards as one: the host rows
+    concatenated in device order."""
+
+    _wire = None
+
+    def __init__(self, fins: list):
+        self._fins = fins
+
+    def __call__(self) -> np.ndarray:
+        return np.concatenate([np.asarray(f()) for f in self._fins])
+
+    def release(self) -> None:
+        for f in self._fins:
+            f.release()
+
+
+class ShardedSlotProgram:
+    """The slot program of a bucket sharded over ``devices``: one
+    :class:`SlotProgram` of ``capacity // D`` lanes a device (on a card each
+    its own CUDA graph, built and replayed under its card).
+    ``prog(pool, page_map, fresh, x, active) -> (pool', outs)`` takes the
+    group's host arrays (``x`` ``[C, frame]`` or ``[C, k, frame]``), splits
+    them a device and places them synchronously; ``pool`` is a
+    :class:`ShardedPool`, and ``outs`` a tuple, a sink, of the D devices'
+    outputs."""
+
+    def __init__(self, pipeline, capacity: int, k: int, frame_size: int, devices):
+        self.capacity, self.k = int(capacity), int(k)
+        self.devices = [torch.device(d) for d in devices]
+        self.per = self.capacity // len(self.devices)
+        self.programs = []
+        for d in self.devices:
+            with on_device(d):
+                self.programs.append(SlotProgram(pipeline, self.per, k, frame_size, d))
+        self.captured = self.programs[0].captured
+        self.launches = {}
+        for p in self.programs:
+            for name, n in p.launches.items():
+                self.launches[name] = self.launches.get(name, 0) + n
+
+    def __call__(self, pool: ShardedPool, page_map, fresh, x, active,
+                 clone_outputs: bool = False):
+        page_map, fresh, x, active = (np.asarray(a) for a in (page_map, fresh, x, active))
+        parts, outs = [], []
+        for i, (prog, d) in enumerate(zip(self.programs, self.devices)):
+            lo, hi = i * self.per, (i + 1) * self.per
+            local = page_map[lo:hi] - lo
+            if local.size and (local.min() < 0 or local.max() >= self.per):
+                raise RuntimeError("ShardedSlotProgram: a lane's carry page lives on "
+                                   "another device (the slot table binds page p to "
+                                   "lane p)")
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in
+                    (local.astype(np.int64), fresh[lo:hi], x[lo:hi], active[lo:hi])]
+            with on_device(d):
+                new, o = prog(pool.parts[i], *args, clone_outputs=clone_outputs)
+            parts.append(new)
+            outs.append(o)
+        return ShardedPool(parts, self.per), tuple(list(col) for col in zip(*outs))
+
+
 def build_slot_program(pipeline, capacity: int, k: int, frame_size: int,
                        device) -> SlotProgram:
     """Build the paged, lane-batched serving step of ``pipeline`` for one
@@ -364,10 +464,6 @@ class ServeEngine:
         from ..tpu.instance import TpuInstance, instance
         c = config()
         sd = int(shard_devices if shard_devices is not None else c.serve_shard_devices or 0)
-        if sd > 1:
-            raise NotImplementedError(
-                "ServeEngine: shard_devices > 1 (the slot axis over several cards) is "
-                "ROADMAP Queue 1 item 10, multi-device, not ported yet")
         self.pipeline = pipeline
         self._base_pipeline = pipeline     # the pre-brownout program's pipeline
         self.app = str(app)
@@ -375,6 +471,15 @@ class ServeEngine:
             inst = TpuInstance(device) if device is not None else instance()
         self.inst = inst
         self.device = torch.device(inst.device)
+        # the slot axis over devices (module docstring): refused loudly when
+        # more devices are asked for than exist
+        self._shard_d = max(1, sd)
+        self._shard_mesh = None
+        self._shard_devs: list = []
+        if self._shard_d > 1:
+            from ..shard.data import shard_mesh
+            self._shard_mesh = shard_mesh(self._shard_d, device=self.device)
+            self._shard_devs = self._shard_mesh.line(self._shard_mesh.axis_names[0])
         self.k_batch = max(1, int(frames_per_dispatch))
         m = pipeline.frame_multiple
         fs = frame_size or c.tpu_frame_size
@@ -471,20 +576,58 @@ class ServeEngine:
         self._fresh_carry()
         return _from_spec(self._spec, iter(self._fresh))
 
-    def _stacked_fresh(self, capacity: int) -> list:
-        return [t.unsqueeze(0).repeat((capacity,) + (1,) * t.dim())
-                for t in self._fresh_carry()]
+    def _stacked_fresh(self, capacity: int):
+        """A pool of ``capacity`` fresh pages, laid out for that capacity."""
+        return self._layout([t.unsqueeze(0).repeat((capacity,) + (1,) * t.dim())
+                             for t in self._fresh_carry()], capacity)
+
+    def _shard_ok(self, capacity: int) -> bool:
+        """Does a bucket of this capacity split over the slot-axis devices?"""
+        return self._shard_d > 1 and capacity % self._shard_d == 0
+
+    def slot_device(self, slot: int) -> tuple:
+        """The ``(device index, lane)`` a slot addresses under the slot-axis
+        sharding (``(0, slot)`` unsharded)."""
+        if not self._shard_ok(self.table.capacity):
+            return (0, int(slot))
+        per = self.table.capacity // self._shard_d
+        return (int(slot) // per, int(slot) % per)
+
+    def _layout(self, leaves: list, capacity: int):
+        """Global pool leaves ``[capacity, …]`` laid out for ``capacity``: a
+        :class:`ShardedPool` over the devices when the bucket shards (each
+        block copied to its device), else the leaves on the engine's device."""
+        if not self._shard_ok(capacity):
+            return [P.to(self.device) for P in leaves]
+        per = capacity // self._shard_d
+        return ShardedPool([[P[i * per:(i + 1) * per].to(d, copy=True) for P in leaves]
+                            for i, d in enumerate(self._shard_devs)], per)
+
+    def _global(self, pool) -> list:
+        """A pool's leaves ``[capacity, …]`` on the engine's device."""
+        if not isinstance(pool, ShardedPool):
+            return pool
+        return [torch.cat([part[j].to(self.device) for part in pool.parts])
+                for j in range(len(pool.parts[0]))]
+
+    def _rows(self, pool, page: int) -> list:
+        if isinstance(pool, ShardedPool):
+            return pool.rows(page)
+        return [P[page] for P in pool]
 
     def _set_page(self, page: int, leaves: list) -> None:
         """Write one page of the committed pool (readmit, restore, retune) at
         a quiescent boundary; the head re-syncs to the committed pool."""
         assert not self._inflight, "page write with groups in flight"
-        new = []
-        for P, v in zip(self._pages, leaves):
-            P = P.clone()
-            P[page] = v.to(P.device)
-            new.append(P)
-        self._pages = new
+        if isinstance(self._pages, ShardedPool):
+            self._pages = self._pages.with_page(page, leaves)
+        else:
+            new = []
+            for P, v in zip(self._pages, leaves):
+                P = P.clone()
+                P[page] = v.to(P.device)
+                new.append(P)
+            self._pages = new
         self._head_pages = self._pages
 
     def _page_leaves(self, page: int) -> tuple:
@@ -492,7 +635,7 @@ class ServeEngine:
         ``snapshot_carry`` leaf contract, which ``carry_matches`` and
         ``restore_carry`` read)."""
         self._fresh_carry()
-        return [_host_leaf(P[page]) for P in self._pages], self._spec
+        return [_host_leaf(t) for t in self._rows(self._pages, page)], self._spec
 
     def _fresh_host_leaves(self) -> tuple:
         """The fresh template as host leaves: what a still-fresh lane's page
@@ -517,8 +660,12 @@ class ServeEngine:
         prog = self._programs.get(key)
         if prog is None:
             t0 = time.perf_counter()
-            prog = build_slot_program(self.pipeline, capacity, k, self.frame_size,
-                                      self.device)
+            if self._shard_ok(capacity):
+                prog = ShardedSlotProgram(self.pipeline, capacity, k, self.frame_size,
+                                          self._shard_devs)
+            else:
+                prog = build_slot_program(self.pipeline, capacity, k, self.frame_size,
+                                          self.device)
             self.compile_seconds[key] = time.perf_counter() - t0
             self._programs[key] = prog
             self.compiles += 1
@@ -566,8 +713,12 @@ class ServeEngine:
             raise ServeFull(f"{self.app}: at the largest slot bucket ({cur}); "
                             f"admission refused")
         cap = bigger[0]
-        extra = self._stacked_fresh(cap - cur)
-        self._pages = [torch.cat([P, e]) for P, e in zip(self._pages, extra)]
+        fresh = [t.unsqueeze(0).repeat((cap - cur,) + (1,) * t.dim())
+                 for t in self._fresh_carry()]
+        # a new capacity may split over the devices in another way (or not
+        # at all): the grown pool is laid out again
+        self._pages = self._layout([torch.cat([P, e]) for P, e in
+                                    zip(self._global(self._pages), fresh)], cap)
         self._head_pages = self._pages
         self.table.grow(cap)
         self.credits.set_total(self._queue_frames * cap)
@@ -868,6 +1019,9 @@ class ServeEngine:
         except BaseException:
             g.batch.release()
             raise
+        if isinstance(prog, ShardedSlotProgram):
+            self._launch_sharded(g, prog)
+            return
         # at depth 1 the previous group's D2H has landed before this H2D
         # starts, so the transfers write the graph's static inputs directly
         dst = prog.inputs if (getattr(prog, "captured", False) and self._depth == 1) \
@@ -891,6 +1045,25 @@ class ServeEngine:
             svc, dl = g.wire or (0.0, 0.0)
             self.spans.append(("H2D", svc, dl) if dl else ("H2D", t_h2d, t0))
             self.spans.append(("compute", t0, t1))
+        g.new_pages = new_pages
+        self._head_pages = new_pages
+
+    def _launch_sharded(self, g: _DispatchGroup, prog: ShardedSlotProgram) -> None:
+        """Launch a group on a sharded bucket: the host arrays split a device
+        and placed synchronously (the batch's pinned buffer goes back once
+        its rows are on the devices), a D2H a device and sink."""
+        t_h2d = time.perf_counter()
+        try:
+            batch = g.batch.array
+            new_pages, outs = prog(self._head_pages, g.page_map, g.fresh, batch, g.active,
+                                   clone_outputs=self._depth > 1)
+        finally:
+            g.batch.release()
+        t1 = time.perf_counter()
+        self._warmed.add((g.capacity, g.k, self._pipe_tag))
+        g.fins = [_GatherFinish([xfer.start_host_transfer(o) for o in col]) for col in outs]
+        if self.spans is not None:
+            self.spans.append(("compute", t_h2d, t1))
         g.new_pages = new_pages
         self._head_pages = new_pages
 
@@ -1008,7 +1181,7 @@ class ServeEngine:
                     lane = self._fresh_tree()       # never dispatched: the template
                 else:
                     self._fresh_carry()
-                    lane = _from_spec(self._spec, (P[page] for P in self._pages))
+                    lane = _from_spec(self._spec, iter(self._rows(self._pages, page)))
                 try:
                     new = self.pipeline.update_stage(lane, stage, **params)
                 except KeyError as e:
@@ -1126,11 +1299,15 @@ class ServeEngine:
             return
         prog = self._program(C, K)
         shape = (C, self.frame_size) if K == 1 else (C, K, self.frame_size)
-        args = [xfer.to_device(a, self.device) for a in (
-            np.asarray(self.table.page_of_lane, dtype=np.int64), np.zeros(C, dtype=bool),
-            np.zeros(shape, dtype=self.pipeline.in_dtype),
-            np.zeros((C,) if K == 1 else (C, K), dtype=bool))]
-        _pages, outs = prog(self._pages, *args)
+        host = (np.asarray(self.table.page_of_lane, dtype=np.int64), np.zeros(C, dtype=bool),
+                np.zeros(shape, dtype=self.pipeline.in_dtype),
+                np.zeros((C,) if K == 1 else (C, K), dtype=bool))
+        if isinstance(prog, ShardedSlotProgram):
+            _pages, outs = prog(self._pages, *host)
+            outs = [o for col in outs for o in col]
+        else:
+            _pages, outs = prog(self._pages, *[xfer.to_device(a, self.device)
+                                               for a in host])
         for o in outs:
             xfer.to_host(o)
         self._warmed.add(key)
@@ -1304,16 +1481,17 @@ class ServeEngine:
         self.pipeline = target
         self._fresh = None
         new_fresh = self._fresh_carry()
-        if len(new_fresh) != len(self._pages) or any(
-                tuple(a.shape[1:]) != tuple(b.shape) for a, b in zip(self._pages, new_fresh)):
+        pages = self._global(self._pages)
+        if len(new_fresh) != len(pages) or any(
+                tuple(a.shape[1:]) != tuple(b.shape) for a, b in zip(pages, new_fresh)):
             log.warning("%s: precision brownout carry trees mismatch — lever disabled",
                         self.app)
             self.pipeline = prev_pipe
             self._fresh = None
             self._fresh_carry()
             return False
-        self._pages = [P if P.dtype == t.dtype else P.to(t.dtype)
-                       for P, t in zip(self._pages, new_fresh)]
+        self._pages = self._layout([P if P.dtype == t.dtype else P.to(t.dtype)
+                                    for P, t in zip(pages, new_fresh)], self.table.capacity)
         self._head_pages = self._pages
         lane_dts = [np.dtype(_host_leaf(t).dtype) for t in new_fresh]
         for s in self.table.sessions.values():
@@ -1359,6 +1537,14 @@ class ServeEngine:
                 "credit_fair_share": self.credits.fair_share(),
                 "draining": self._draining, "drained": self._drained,
                 "device": str(self.device),
+                # the slot axis over devices: its width and whether the
+                # current bucket's lanes split over it
+                "shard": ({"devices": self._shard_d,
+                           "sharded": self._shard_ok(self.table.capacity),
+                           "lanes_per_device": (self.table.capacity // self._shard_d
+                                                if self._shard_ok(self.table.capacity)
+                                                else self.table.capacity)}
+                          if self._shard_d > 1 else None),
                 "shed": {**self._ladder.view(), "slo_ms": self._slo_ms or None,
                          "brownout": self._brownout,
                          "brownout_active": self._brownout_active,
@@ -1376,6 +1562,8 @@ class ServeEngine:
     def session_view(self, sid: str) -> dict:
         with self._lock:
             v = self._session(sid).view()
+            if self._shard_d > 1 and v.get("slot") is not None:
+                v["device"], v["device_lane"] = self.slot_device(v["slot"])
         t = v["tenant"]
         v["tenant_p50_ms"] = self.tenant_latency_ms(t, 0.5)
         v["tenant_p99_ms"] = self.tenant_latency_ms(t, 0.99)

@@ -15,7 +15,7 @@ input dtype, the stage names without the device-chain fences, fan-out and
 DAG shapes marked) to ``{"k", "inflight"}`` and the optional axes
 ``serve_buckets`` and ``serve_pages`` (:func:`autotune_serve`'s slot-bucket
 ladder and page-pool pick, which ``serve/engine.ServeEngine`` reads),
-``n_devices`` (round-tripped only: the sharding plane is a later slice),
+``n_devices`` (:func:`autotune_shard`'s data-shard width),
 ``interior_precision``,
 ``pallas_blocks`` (``{device: {kernel: {shape: plan}}}``, the port's plan
 tuples) and ``wire``. Every axis is parsed in its own guard, so a malformed
@@ -48,6 +48,7 @@ __all__ = ["autotune", "autotune_streamed", "default_frames", "measure_link",
            "record_wire_start", "cached_wire_start", "record_pallas_blocks",
            "cached_pallas_blocks", "autotune_pallas_blocks", "platform_of",
            "autotune_serve", "record_serve_buckets", "cached_serve_buckets",
+           "autotune_shard", "record_shard_devices", "cached_shard_devices",
            "record_serve_pages", "cached_serve_pages"]
 
 log = logger("tpu.autotune")
@@ -723,3 +724,91 @@ def autotune_serve(pipeline, frame_size: Optional[int] = None,
         record_serve_buckets(pipeline, pipeline.in_dtype, plat, ladder)
         record_serve_pages(pipeline, pipeline.in_dtype, plat, ladder[-1])
     return ladder, results
+
+
+def record_shard_devices(stages, in_dtype, platform: str, n) -> None:
+    """Stamp the measured best data-shard width on the chain's entry (the
+    ``n_devices`` axis, beside its other picks); a width that is not a
+    positive integer is dropped, not stored."""
+    try:
+        n = int(n)
+    except (TypeError, ValueError):
+        return
+    if n >= 1:
+        _record_axis(_streamed_sig(_sig_of(stages), in_dtype, platform), "n_devices", n)
+
+
+def cached_shard_devices(stages, in_dtype, platform: str) -> Optional[int]:
+    """The shard width the chain's last :func:`autotune_shard` picked; None
+    when never stamped."""
+    entry = cached_streamed_pick(stages, in_dtype, platform)
+    return None if entry is None else entry.get("n_devices")
+
+
+def autotune_shard(stages, in_dtype, frame: Optional[int] = None, k: int = 1,
+                   devices: Sequence[int] = (1, 2, 4, 8), min_seconds: float = 0.3,
+                   inst: Optional[TpuInstance] = None,
+                   record: bool = True) -> Tuple[int, Dict[int, float]]:
+    """Measure the data-sharded dispatch loop a width and pick the best.
+
+    For each width D up to the devices there are (``parallel/mesh.
+    visible_devices`` of the broker's device, config ``virtual_devices``
+    included), one ``[D, k, frame]`` host group a call runs through what
+    ``shard/data.ShardRunner`` dispatches (D = 1: the unsharded program at
+    the same K), outputs gathered to the host, and the aggregate sample rate
+    is measured. Returns ``(best_D, {D: Msamples/s})`` and records the pick
+    under the chain's ``n_devices`` axis. A wider width is picked only when
+    it measured strictly faster."""
+    from ..parallel.mesh import visible_devices
+    from ..shard.data import ShardedProgram, rows_to_host
+    from ..shard.plan import plan_shard
+    inst = inst or instance()
+    dev = inst.device
+    pipe = stages if isinstance(stages, Pipeline) else Pipeline(list(stages), in_dtype)
+    m = pipe.frame_multiple
+    f = frame or inst.frame_size
+    f = max(m, (f // m) * m)
+    avail = len(visible_devices(dev))
+    results: Dict[int, float] = {}
+    best, best_rate = 1, -1.0
+    for D in sorted({int(d) for d in devices if 0 < int(d) <= avail}):
+        try:
+            host = np.zeros((D, k, f), dtype=pipe.in_dtype)
+            if D == 1:
+                fn1, carry = pipe.compile(f, dev, k=k)
+                x1 = torch.from_numpy(host[0, 0] if k == 1 else host[0])
+
+                def group(c, _fn=fn1, _x=x1):
+                    c, y = _fn(c, _x.to(dev))
+                    y.cpu()
+                    return c
+            else:
+                prog = ShardedProgram(pipe, plan_shard(pipe, mode="data", n_devices=D,
+                                                       device=dev), name=f"autotune_d{D}",
+                                      device=dev)
+                fnD, carry = prog.compile(f, k)
+                xD = host[:, 0] if k == 1 else host
+
+                def group(c, _fn=fnD, _x=xD):
+                    c, ys = _fn(c, _x)
+                    rows_to_host(ys)
+                    return c
+            carry = group(carry)                 # warm
+            n = 0
+            t0 = time.perf_counter()
+            while True:
+                carry = group(carry)
+                n += D * k
+                if time.perf_counter() - t0 > min_seconds or n > 10000:
+                    break
+            rate = n * f / (time.perf_counter() - t0) / 1e6
+        except Exception as e:                 # noqa: BLE001 — OOM, short mesh, …
+            log.warning("autotune_shard D=%d failed: %r", D, e)
+            continue
+        results[D] = rate
+        if rate > best_rate:
+            best_rate, best = rate, D
+    log.info("autotune_shard best: D=%d (%.1f Msamples/s) over %s", best, best_rate, results)
+    if record and results:
+        record_shard_devices(pipe.stages, pipe.in_dtype, platform_of(inst), best)
+    return best, results

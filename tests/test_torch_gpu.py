@@ -1640,3 +1640,130 @@ def test_mcldnn_on_card_matches_cpu(cuda_device):
     clf = modrec.ModClassifier(card, n=128, batch=8, device=cuda_device)
     probs = clf.classify(X[:8])
     assert probs.shape == (8, 5) and np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the device axis: training, sharded streams and programs, the sharded engine
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def logical_cards(cuda_device):
+    """Four logical devices on card 0 (config ``virtual_devices``)."""
+    from futuresdr_tpu_torch.config import config
+    cfg = config()
+    prev = cfg.virtual_devices
+    cfg.virtual_devices = 4
+    yield cuda_device
+    cfg.virtual_devices = prev
+
+
+@pytest.mark.gpu
+def test_mcldnn_train_step_on_card_matches_cpu(cuda_device):
+    """One train step's gradients on the card within 1e-3 of each leaf's
+    largest |g| on the CPU (cuDNN's LSTM backward sums in another order),
+    and the loss falls over ten steps."""
+    from futuresdr_tpu_torch.models import modrec
+    from futuresdr_tpu_torch.models.mcldnn import (MCLDNN, init_params, make_train_step,
+                                                   trainable_parameters)
+    X, y = modrec.synth_batch(np.random.default_rng(3), 128, 128)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        m = init_params(MCLDNN(5, 24, 64).to(dev), torch.Generator().manual_seed(0))
+        step = make_train_step(m, torch.optim.SGD(trainable_parameters(m), lr=0.0))
+        step(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev))
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None})
+    for n, g in grads[1].items():
+        assert (grads[0][n] - g).abs().max() <= 1e-3 * g.abs().max(), n
+    m, hist = modrec.train(n_steps=10, batch=128, n=128,
+                           model=MCLDNN(5, 24, 64), device=cuda_device)
+    assert all(np.isfinite(h[0]) for h in hist) and hist[-1][0] < hist[0][0]
+
+
+@pytest.mark.gpu
+def test_sp_fir_fft_mag2_stream_on_logical_shards_matches_one_card(logical_cards):
+    from futuresdr_tpu_torch.parallel import make_mesh, sp_fir_fft_mag2_stream, to_host
+    dev = logical_cards
+    rng = np.random.default_rng(30)
+    taps = rng.standard_normal(64).astype(np.float32)
+    n = 1 << 16
+    mesh = make_mesh(("sp",), shape=(4,))
+    fn, init = sp_fir_fft_mag2_stream(taps, 2048, mesh)
+    carry = init(np.complex64)
+    hist = torch.zeros(63, dtype=torch.complex64, device=dev)
+    tt = torch.from_numpy(taps).to(dev)
+    before = ck.launches["fir_fft"]
+    for _ in range(3):
+        x = torch.from_numpy(_c64(rng, n)).to(dev)
+        carry, y = fn(carry, x)
+        spec = ck.fir_fft(hist, x, tt, 2048)
+        hist = x[-63:].clone()
+        want = (spec.real ** 2 + spec.imag ** 2).cpu().numpy()
+        got = to_host(y)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert ck.launches["fir_fft"] == before + 3 * 5
+    assert mesh.transfers["ppermute"] == 3 * 4
+
+
+@pytest.mark.gpu
+def test_data_sharded_rows_bit_equal_one_card_program(logical_cards):
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.shard import collective_ops, rows_to_host, shard_pipeline
+    dev = logical_cards
+    taps = np.hanning(64).astype(np.float32)
+    pipe = T.Pipeline([T.fir_fft_stage(taps, 2048), T.mag2_stage()], np.complex64)
+    prog = shard_pipeline(pipe, mode="data", n_devices=4)
+    rng = np.random.default_rng(31)
+    for k in (1, 4):
+        fn, carries = prog.compile(1 << 14, k)
+        f1, c1 = pipe.compile(1 << 14, dev, k=k)
+        x = _c64(rng, 4 * k * (1 << 14)).reshape((4, k, 1 << 14) if k > 1 else (4, 1 << 14))
+        carries, ys = fn(carries, x)
+        got = rows_to_host(ys)
+        for d in range(4):
+            c1 = pipe.init_carry(dev)
+            _c, y1 = f1(c1, torch.from_numpy(x[d]).to(dev))
+            np.testing.assert_array_equal(y1.cpu().numpy(), got[d])
+    assert collective_ops(prog) == []
+
+
+@pytest.mark.gpu
+def test_sharded_engine_bit_equals_unsharded_on_card(logical_cards):
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.serve import ServeEngine
+    taps = np.hanning(64).astype(np.float32)
+    pipe = T.Pipeline([T.fir_fft_stage(taps, 2048), T.mag2_stage()], np.complex64)
+    rng = np.random.default_rng(32)
+    data = [[_c64(rng, 1 << 14) for _ in range(3)] for _ in range(6)]
+    outs = []
+    for shard in (4, 0):
+        eng = ServeEngine(pipe, frame_size=1 << 14, app=f"gpu_sh{shard}", buckets=(8,),
+                          shard_devices=shard, device=logical_cards)
+        sids = [eng.admit(tenant="t").sid for _ in range(6)]
+        got = {s: [] for s in sids}
+        for j in range(3):
+            for s, d in zip(sids, data):
+                eng.submit(s, d[j])
+            eng.step()
+            if j == 1:
+                eng.evict(sids[1])
+                eng.readmit(sids[1])
+        while eng.step():
+            pass
+        for s in sids:
+            got[s] = eng.results(s)
+        outs.append(list(got.values()))
+    for a, b in zip(*outs):
+        assert len(a) == len(b) == 3
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.gpu
+def test_broker_copy_streams_live_on_its_card(cuda_device):
+    from futuresdr_tpu_torch.tpu import TpuInstance
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    b = TpuInstance(last)
+    for direction in ("h2d", "d2h"):
+        assert b.copy_stream(direction).device == last
+    with b.card():
+        assert torch.cuda.current_device() == last.index

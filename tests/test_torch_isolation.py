@@ -311,3 +311,62 @@ def test_utils_and_recovery_load_alone(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_device_axis_loads_alone():
+    """The multi-device plane (``parallel``, ``shard``, ``tpu.sp_block``,
+    ``tpu.pp_block``, ``utils.checkpoint``) is walked, and importing it,
+    running a sharded FIR and a data-sharded program on logical CPU devices
+    and training one MCLDNN step load neither JAX nor the JAX package."""
+    new = {"futuresdr_tpu_torch.parallel", "futuresdr_tpu_torch.parallel.mesh",
+           "futuresdr_tpu_torch.parallel.stream_sp", "futuresdr_tpu_torch.parallel.pipeline_pp",
+           "futuresdr_tpu_torch.shard", "futuresdr_tpu_torch.shard.plan",
+           "futuresdr_tpu_torch.shard.data", "futuresdr_tpu_torch.shard.model",
+           "futuresdr_tpu_torch.tpu.sp_block", "futuresdr_tpu_torch.tpu.pp_block",
+           "futuresdr_tpu_torch.utils.checkpoint", "futuresdr_tpu_torch.apps.sharded_spectrum"}
+    assert new <= set(_submodules())
+    code = ("import sys\n"
+            "import numpy as np, torch\n"
+            "import futuresdr_tpu_torch.parallel, futuresdr_tpu_torch.shard\n"
+            "import futuresdr_tpu_torch.tpu.sp_block, futuresdr_tpu_torch.tpu.pp_block\n"
+            "import futuresdr_tpu_torch.utils.checkpoint\n"
+            "from futuresdr_tpu_torch.config import config\n"
+            "from futuresdr_tpu_torch.parallel import make_mesh, sp_fir, to_host\n"
+            "from futuresdr_tpu_torch.ops import stages as T\n"
+            "from futuresdr_tpu_torch.shard import shard_pipeline, rows_to_host\n"
+            "from futuresdr_tpu_torch.models import mcldnn\n"
+            "config().virtual_devices = 4\n"
+            "m = make_mesh(('sp',), shape=(4,), device='cpu')\n"
+            "y = to_host(sp_fir(np.ones(5, np.float32), m)(np.ones(64, np.float32)))\n"
+            "p = shard_pipeline(T.Pipeline([T.rotator_stage(0.1)], np.complex64), 'data', 4,\n"
+            "                   device='cpu')\n"
+            "fn, c = p.compile(256)\n"
+            "_, ys = fn(c, np.ones((4, 256), np.complex64))\n"
+            "net = mcldnn.init_params(mcldnn.MCLDNN(5, 4, 8), torch.Generator().manual_seed(0))\n"
+            "opt = torch.optim.Adam(mcldnn.trainable_parameters(net), 1e-3)\n"
+            "loss, _ = mcldnn.make_train_step(net, opt)(torch.zeros(2, 2, 32),\n"
+            "                                           torch.zeros(2, dtype=torch.long))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'futuresdr_tpu', 'flax', 'optax', 'orbax')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or y[-1] != 5 or rows_to_host(ys).shape != (4, 256) else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_a_short_mesh_never_falls_back(monkeypatch):
+    """Without a card the mesh raises (no silent CPU), and more devices than
+    exist are refused unless ``virtual_devices`` was set."""
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.parallel import make_mesh, visible_devices
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(config(), "virtual_devices", 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        visible_devices()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(("sp",))
+    with pytest.raises(ValueError, match="refusing"):
+        make_mesh(("sp",), shape=(2,), device="cpu")
+    monkeypatch.setattr(config(), "virtual_devices", 2)
+    assert make_mesh(("sp",), shape=(2,), device="cpu").size == 2

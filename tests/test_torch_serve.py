@@ -553,7 +553,10 @@ def test_engine_defaults_to_the_card():
 
 
 def test_shard_devices_raise_naming_the_multi_device_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """The slot axis over devices (item 10) is ported: asking for more
+    devices than exist raises the mesh's refusal (one CPU device here, no
+    ``virtual_devices``), never a silent single-device engine."""
+    with pytest.raises(ValueError, match="refusing to build a short mesh"):
         _engine("sharded", buckets=(2,), shard_devices=2)
 
 
