@@ -233,22 +233,27 @@ lane-batched slot program, one CUDA graph a bucket):
     (``perf/serve_ab.py``'s A/B); the lane kernels' timings join the
     ``kernels`` line.
 
-The models' device plane (``models/wlan``, ``ops/viterbi.py``,
+The models' device plane (``models/wlan``, ``models/m17``, ``ops/viterbi.py``,
 ``models/{mcldnn,modrec}.py``):
 
-29. (a) the Viterbi ACS kernel (``csrc/viterbi.cu``) against its plain version
-    at B 1, 8, 256 and buckets 8, 512, 4096, on noisy codewords and on
-    all-zero LLRs (every compare a tie, every pick 0): picks equal bit for
-    bit; its time at B 256 × 4096 beside the plain eager loop, its bound
-    (``utils/roofline``), one frame alone, and its sequential floor measured
-    as the step chain alone (``EMPTY_CU``'s ``acs_chain_kernel``); (b) the
+29. (a) the Viterbi decoder kernel (``csrc/viterbi.cu``: the recursion, packed
+    survivors, the traceback) against its plain versions for 802.11's 64
+    states, M17's 16 (the butterfly route) and a relabelled 64-state trellis
+    (the generic route), at B 1, 8, 256 and buckets 8, 512, 4096, ragged
+    frame lengths, on noisy codewords and on all-zero LLRs (every compare a
+    tie, every pick 0): survivors equal ``acs_plain``'s picks and decoded
+    bits the plain traceback's, bit for bit; its time at B 256 × 4096 (with
+    and without the traceback, one frame alone, 16 states, the generic
+    route) beside the plain versions, its bound (``utils/roofline``), and its
+    sequential floor measured as the step chain alone (``EMPTY_CU``'s
+    ``acs_chain_kernel``), with the first design's figures beside it; (b) the
     OFDM head and body demod on the card against the CPU for BPSK, QPSK,
     16-QAM and 64-QAM; the body at a 1,024-symbol bucket, its card time
     (graph replay) and the host time of a ``demod_body_torch`` call; (c) ``perf/wlan.py``'s stream
     (200 QPSK-1/2 frames of 256 bytes, 25 dB) through ``decode_stream_batch``
     on the card: every frame decoded with a good FCS and equal to what was
-    sent, frames/s and the picks' D2H; (d) ``apps/wlan_loopback.main()`` on
-    the card, 10 of 10 frames; (e) the pretrained MCLDNN on the card against
+    sent, frames/s, the decoder's time and the decoded bits' D2H; (d)
+    ``apps/wlan_loopback.main()`` on the card, 10 of 10 frames; (e) the pretrained MCLDNN on the card against
     the CPU (TF32 off, the package's setting), its accuracy above 0.9, ``ModClassifier`` in a
     flowgraph, a 256-window forward's time. The kernel's launches are counted
     over (c)'s timed run and (d) and join the ``kernels`` line. The
@@ -437,10 +442,11 @@ PFB_KERNELS = ("pfb",)
 # Yardsticks built here beside the port's kernels; no library of the port
 # holds them. A kernel with no body, launched on a given grid: the cost of a
 # launch alone, for the FM kernels' timings. And the Viterbi kernel's step
-# chain alone: csrc/viterbi.cu's loop for one frame, one warp, with the same
-# shuffles, products, sums, compares and selects a step but no load or store
-# inside the loop (the LLRs come from registers, only the last metrics are
-# written): the sequential floor of that design's arithmetic, measured.
+# chain alone: csrc/viterbi.cu's butterfly step for one 64-state frame, one
+# warp, with the same two shuffles, products, sums, maxima, pick compares,
+# ballots and keeps a step but no load or store inside the loop (each step's
+# LLRs are made in registers, only the last metrics and ballots are written):
+# the sequential floor of that design's recursion, measured.
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -449,60 +455,67 @@ extern "C" int fsdr_empty(unsigned blocks, int threads, void* stream) {
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(32)
-acs_chain_kernel(const int* __restrict__ prev_s, const float* __restrict__ bm0,
-                 const float* __restrict__ bm1, float* __restrict__ out,
-                 long long n_steps) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  int src[2][2];
-  bool high[2][2];
-  float w0[2][2], w1[2][2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int e = (lane + 32 * k) * 2 + j;
-      const int p = prev_s[e];
-      src[k][j] = p & 31;
-      high[k][j] = p >= 32;
-      w0[k][j] = bm0[e];
-      w1[k][j] = bm1[e];
-    }
-  }
-  float m_lo = lane == 0 ? 0.0f : -1e18f;
-  float m_hi = -1e18f;
-  float2 cur = make_float2(0.25f * lane - 4.0f, 3.0f - 0.125f * lane);
-  for (long long t0 = 0; t0 < n_steps; t0 += 32) {
-    const int n = n_steps - t0 < 32 ? static_cast<int>(n_steps - t0) : 32;
-    for (int i = 0; i < n; ++i) {
-      const float l0 = __shfl_sync(full, cur.x, i);
-      const float l1 = __shfl_sync(full, cur.y, i);
-      float c[2][2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float lo = __shfl_sync(full, m_lo, src[k][j]);
-          const float hi = __shfl_sync(full, m_hi, src[k][j]);
-          const float m = high[k][j] ? hi : lo;
-          c[k][j] = __fadd_rn(__fadd_rn(m, __fmul_rn(w0[k][j], l0)),
-                              __fmul_rn(w1[k][j], l1));
-        }
-      }
-      m_lo = c[0][1] > c[0][0] ? c[0][1] : c[0][0];
-      m_hi = c[1][1] > c[1][0] ? c[1][1] : c[1][0];
-    }
-    cur = make_float2(cur.y, cur.x);
-  }
-  out[lane] = m_lo;
-  out[lane + 32] = m_hi;
+__device__ __forceinline__ float cand(float m, float w0, float l0, float w1, float l1) {
+  return __fadd_rn(__fadd_rn(m, __fmul_rn(w0, l0)), __fmul_rn(w1, l1));
 }
-extern "C" int fsdr_acs_chain(const void* prev_s, const void* bm0, const void* bm1,
-                              void* out, long long n_steps, void* stream) {
+
+__global__ void __launch_bounds__(32)
+acs_chain_kernel(const float2* __restrict__ bm0, const float2* __restrict__ bm1,
+                 float* __restrict__ out, long long n_steps) {
+  const unsigned full = 0xffffffffu;
+  const int j = threadIdx.x & 31;
+  const bool upper = j >= 16, odd = j & 1;
+  const int src1 = upper ? 2 * j - 31 : 2 * j;
+  const int src2 = upper ? 2 * j - 32 : 2 * j + 1;
+  const int n[2] = {odd ? j + 32 : j, odd ? j : j + 32};
+  float a0[2], a1[2], b0[2], b1[2];
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const float2 u = bm0[n[o]], v = bm1[n[o]];
+    a0[o] = upper ? u.y : u.x;
+    a1[o] = upper ? v.y : v.x;
+    b0[o] = upper ? u.x : u.y;
+    b1[o] = upper ? v.x : v.y;
+  }
+  float x = j == 0 ? 0.0f : -1e18f, y = -1e18f;
+  unsigned keep = 0;
+  const int base0 = __float_as_int(0.75f), base1 = __float_as_int(-1.25f);
+  for (long long t0 = 0; t0 < n_steps; t0 += 32) {
+    unsigned r_lo = 0, r_hi = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float l0 = __int_as_float(base0 ^ ((static_cast<int>(t0) + i) << 8));
+      const float l1 = __int_as_float(base1 ^ (i << 9));
+      const float ra = __shfl_sync(full, x, src1);
+      const float rb = __shfl_sync(full, y, src2);
+      float ca[2], cb[2];
+      bool p[2];
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        ca[o] = cand(ra, a0[o], l0, a1[o], l1);
+        cb[o] = cand(rb, b0[o], l0, b1[o], l1);
+        p[o] = upper ? ca[o] > cb[o] : cb[o] > ca[o];
+      }
+      x = fmaxf(ca[0], cb[0]);
+      y = fmaxf(ca[1], cb[1]);
+      const unsigned lo = __ballot_sync(full, odd ? p[1] : p[0]);
+      const unsigned hi = __ballot_sync(full, odd ? p[0] : p[1]);
+      if (j == i) {
+        r_lo = lo;
+        r_hi = hi;
+      }
+    }
+    keep ^= r_lo ^ (r_hi << 1);
+  }
+  out[j] = x;
+  out[j + 32] = y;
+  out[j + 64] = __uint_as_float(keep);
+}
+extern "C" int fsdr_acs_chain(const void* bm0, const void* bm1, void* out, long long n_steps,
+                              void* stream) {
   acs_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(prev_s), static_cast<const float*>(bm0),
-      static_cast<const float*>(bm1), static_cast<float*>(out), n_steps);
+      static_cast<const float2*>(bm0), static_cast<const float2*>(bm1),
+      static_cast<float*>(out), n_steps);
   return cudaGetLastError();
 }
 """
@@ -1342,7 +1355,7 @@ def start_empty_kernel(build_dir):
         lib.fsdr_empty.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
         lib.fsdr_empty.restype = ctypes.c_int
         vp = ctypes.c_void_p
-        lib.fsdr_acs_chain.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp]
+        lib.fsdr_acs_chain.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
         lib.fsdr_acs_chain.restype = ctypes.c_int
         return lib
     return finish
@@ -4631,85 +4644,155 @@ MCLDNN_WINDOWS = 256
 MCLDNN_ACC = 0.9                 # tests/test_pretrained.py's bar
 CLF_SNR_DB = 15.0
 CLF_SHARE = 0.7                  # tests/test_pretrained.py's bar
-REPLACES_VITERBI = "futuresdr_tpu/ops/viterbi.py:31 (lax.scan, no pallas_call)"
+REPLACES_VITERBI = ("futuresdr_tpu/ops/viterbi.py:31 (lax.scan, no pallas_call) and its "
+                    "host traceback :105")
 SOURCE_VITERBI = "futuresdr_tpu_torch/csrc/viterbi.cu"
+# 802.11's 64 states and M17's 16 (the butterfly route), 802.11's relabelled
+# by a seeded state permutation that keeps state 0 (the generic route)
+VIT_TRELLISES = ("wlan", "m17", "relabelled")
+# the first design's figures at VIT_LINE (PERF.md §6), printed beside today's,
+# not measured here
+VIT_FIRST_DESIGN = "kernel 332.5-335.1 us, one frame 327.1-329.5 us, step chain 186.0-187.3 us"
 
 
-def _trellis(dev):
+def _trellis(dev, name: str = "wlan"):
+    """``(prev_s, prev_b, bm0, bm1)`` of ``name`` (``VIT_TRELLISES``) on
+    ``dev`` (int32, int32, float32, float32)."""
     import torch
 
+    from futuresdr_tpu_torch.models.m17 import codec
     from futuresdr_tpu_torch.models.wlan import coding
-    return (torch.from_numpy(coding._PREV_S.astype(np.int32)).to(dev),
-            torch.from_numpy(coding._BM0.astype(np.float32)).to(dev),
-            torch.from_numpy(coding._BM1.astype(np.float32)).to(dev))
+    tables = (coding._PREV_S, coding._PREV_B, coding._BM0, coding._BM1)
+    if name == "m17":
+        tables = codec._M17_PREV
+    elif name == "relabelled":
+        sigma = np.concatenate([[0], 1 + np.random.default_rng(16).permutation(63)])
+        out = [np.empty_like(t) for t in tables]
+        out[0][sigma] = sigma[tables[0]]
+        for o, t in zip(out[1:], tables[1:]):
+            o[sigma] = t
+        tables = out
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, dt)).to(dev)
+                 for t, dt in zip(tables, (np.int32, np.int32, np.float32, np.float32)))
 
 
-def _codeword_lams(gen, batch: int, steps: int, dev):
-    """Noisy soft bits of random codewords, ``[batch, steps, 2]`` on ``dev``."""
+def _codeword_lams(gen, batch: int, steps: int, dev, name: str = "wlan"):
+    """Noisy soft bits of random terminated codewords of the butterfly
+    trellis ``name``, ``[batch, steps, 2]`` on ``dev``: from state s, input b
+    leads to state b·S/2 + s // 2, whose candidate s % 2 carries the branch's
+    ±1 output pair."""
     import torch
 
-    from futuresdr_tpu_torch.models.wlan import coding
+    prev_s, _, bm0, bm1 = (t.cpu().numpy() for t in _trellis("cpu", name))
+    half = prev_s.shape[0] // 2
     rng = np.random.default_rng(int(torch.randint(1 << 30, (1,), generator=gen)))
-    bits = rng.integers(0, 2, (batch, steps)).astype(np.uint8)
-    bits[:, -6:] = 0
-    coded = np.stack([coding.conv_encode(b) for b in bits]).astype(np.float32) * 2 - 1
+    bits = rng.integers(0, 2, (batch, steps))
+    bits[:, -7:] = 0
+    coded = np.empty((batch, steps, 2), np.float32)
+    s = np.zeros(batch, np.int64)
+    for t in range(steps):
+        nxt = bits[:, t] * half + s // 2
+        coded[:, t, 0], coded[:, t, 1] = bm0[nxt, s % 2], bm1[nxt, s % 2]
+        s = nxt
     coded += 0.9 * rng.standard_normal(coded.shape).astype(np.float32)
-    return torch.from_numpy(coded.reshape(batch, steps, 2)).to(dev)
+    return torch.from_numpy(coded).to(dev)
 
 
 def phase_viterbi_kernel(dev, card_line, empty_lib) -> dict:
-    """29 (a): the ACS kernel's picks equal its plain version's bit for bit
-    at every (B, bucket), on noisy codewords and on all-zero LLRs (every
-    compare a tie); its time at B 256 × 4096 beside the plain version, its
-    bound, one frame alone, and its sequential floor: the step chain alone
-    (``EMPTY_CU``'s ``acs_chain_kernel``) over as many steps."""
+    """29 (a): the decoder kernel against its plain versions at every
+    trellis of ``VIT_TRELLISES``, (B, bucket) and on noisy codewords and
+    all-zero LLRs (every compare a tie), on ragged frames (each its own
+    length, the first the whole bucket): its survivors, unpacked, equal
+    ``acs_plain``'s picks bit for bit for t < steps[b], its decoded bits the
+    plain traceback's. Then its time at B 256 × 4096 (the recursion and the
+    traceback; the recursion alone; one frame alone; 16 states; the generic
+    route) beside the plain versions, its bound and its sequential floor:
+    the step chain alone (``EMPTY_CU``'s ``acs_chain_kernel``)."""
     import torch
 
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
     from futuresdr_tpu_torch.ops import viterbi as V
     from futuresdr_tpu_torch.utils.roofline import kernel_cost
     gen = torch.Generator().manual_seed(SEED + 290)
-    tables = _trellis(dev)
+    rng = np.random.default_rng(SEED + 290)
     err = 0
-    for B in VIT_BATCHES:
-        for T in VIT_BUCKETS:
-            for label, lams in (("noisy", _codeword_lams(gen, B, T, dev)),
-                                ("zero", torch.zeros(B, T, 2, device=dev))):
-                got = V.acs(lams, *tables)
-                torch.cuda.synchronize()
-                want = V.acs_plain(lams, *tables)
-                err = max(err, int((got.int() - want.int()).abs().max()))
-                diff = int((got != want).sum())
-                check(diff == 0, f"viterbi B={B} T={T} {label}: {diff} picks differ "
-                                 f"from the plain version")
-                check(label != "zero" or not got.any(),
-                      f"viterbi B={B} T={T}: a tie did not pick candidate 0")
-    print(f"viterbi: picks equal the plain version at B {VIT_BATCHES} x buckets "
-          f"{VIT_BUCKETS}, noisy and all-zero LLRs")
+    for name in VIT_TRELLISES:
+        ps, pb, b0, b1 = _trellis(dev, name)
+        S = int(ps.shape[0])
+        for B in VIT_BATCHES:
+            for T in VIT_BUCKETS:
+                steps_np = rng.integers(T // 2, T + 1, B).astype(np.int32)
+                steps_np[0] = T
+                steps = torch.from_numpy(steps_np).to(dev)
+                live = (torch.arange(T, device=dev)[:, None] < steps[None, :])[..., None]
+                code = "m17" if name == "m17" else "wlan"
+                for label, lams in (("noisy", _codeword_lams(gen, B, T, dev, code)),
+                                    ("zero", torch.zeros(B, T, 2, device=dev))):
+                    picks = V.unpack_survivors(V.survivors(lams, steps, ps, b0, b1), S)
+                    bits = V.decode(lams, steps, ps, pb, b0, b1)
+                    torch.cuda.synchronize()
+                    want = V.acs_plain(lams, ps, b0, b1) * live
+                    want_bits = V.traceback_plain(V.pack_survivors(want), steps, ps, pb)
+                    err = max(err, int((picks.int() - want.int()).abs().max()),
+                              int((bits.int() - want_bits.int()).abs().max()))
+                    diff = int((picks != want).sum())
+                    check(diff == 0, f"viterbi {name} B={B} T={T} {label}: {diff} picks "
+                                     f"differ from the plain version")
+                    diff = int((bits != want_bits).sum())
+                    check(diff == 0, f"viterbi {name} B={B} T={T} {label}: {diff} decoded "
+                                     f"bits differ from the plain traceback")
+                    check(label != "zero" or not (picks.any() or bits.any()),
+                          f"viterbi {name} B={B} T={T}: a tie did not pick candidate 0")
+        print(f"viterbi {name} ({S} states): survivors equal acs_plain and decoded bits "
+              f"the plain traceback at B {VIT_BATCHES} x buckets {VIT_BUCKETS}, ragged "
+              f"lengths, noisy and all-zero LLRs")
     B, T = VIT_LINE
+    tables = _trellis(dev)
+    ps, pb, b0, b1 = tables
+    full = torch.full((B,), T, dtype=torch.int32, device=dev)
     args = [(_codeword_lams(gen, B, T, dev),) for _ in range(VIT_REPS)]
-    ms = device_ms(lambda x: V.acs(x, *tables), args)
-    one_warp = device_ms(lambda x: V.acs(x[:1], *tables), args)
-    plain_ms = cuda_ms(lambda: V.acs_plain(args[0][0], *tables), reps=3)
-    chain_out = torch.empty(64, dtype=torch.float32, device=dev)
+    ms = device_ms(lambda x: V.decode(x, full, *tables), args)
+    surv = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
+    acs_ms = device_ms(lambda x: V._launch(x, full, ps, b0, b1, None, surv, None), args)
+    one_frame = device_ms(lambda x: V.decode(x[:1], full[:1], *tables), args)
+    generic = _trellis(dev, "relabelled")
+    generic_ms = device_ms(lambda x: V.decode(x, full, *generic), args)
+    m17 = _trellis(dev, "m17")
+    args16 = [(_codeword_lams(gen, B, T, dev, "m17"),) for _ in range(VIT_REPS)]
+    ms16 = device_ms(lambda x: V.decode(x, full, *m17), args16)
+
+    def plain(x, tb):
+        words = V.pack_survivors(V.acs_plain(x, tb[0], tb[2], tb[3]))
+        return V.traceback_plain(words, full, tb[0], tb[1])
+    plain_ms = cuda_ms(lambda: plain(args[0][0], tables), reps=3)
+    plain16_ms = cuda_ms(lambda: plain(args16[0][0], m17), reps=1)
+    chain_out = torch.empty(96, dtype=torch.float32, device=dev)
 
     def chain():
-        ck._raise_on(empty_lib.fsdr_acs_chain(*(t.data_ptr() for t in tables),
+        ck._raise_on(empty_lib.fsdr_acs_chain(b0.data_ptr(), b1.data_ptr(),
                                               chain_out.data_ptr(), T, ck._stream(chain_out)),
                      "acs_chain")
     floor_ms = device_ms(chain, [()] * VIT_REPS)
     nbytes, ops = kernel_cost("viterbi", B=B, T=T)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    nbytes16, ops16 = kernel_cost("viterbi", B=B, T=T, S=16)
     t = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
          "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "max_abs_err": float(err), "seq_floor_ms": floor_ms, "one_frame_ms": one_warp}
-    print(f"timing viterbi B={B} T={T}: kernel {ms:.4f} ms, plain (eager loop) "
-          f"{plain_ms:.4f} ms, library none, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}), one frame alone {one_warp:.4f} ms "
-          f"({one_warp * 1e6 / T:.1f} ns a step), sequential floor (the step chain "
-          f"alone, one warp) {floor_ms:.4f} ms ({floor_ms * 1e6 / T:.1f} ns a step) "
-          f"[{card_line}]")
+         "max_abs_err": float(err), "seq_floor_ms": floor_ms, "one_frame_ms": one_frame,
+         "acs_ms": acs_ms, "generic_ms": generic_ms, "states16_ms": ms16,
+         "states16_plain_ms": plain16_ms,
+         "bound16_ms": max(nbytes16 / PEAK_BYTES, ops16 / PEAK_FP32) * 1e3}
+    print(f"timing viterbi B={B} T={T} 64 states: kernel (recursion and traceback) "
+          f"{ms:.4f} ms, recursion alone {acs_ms:.4f} ms, plain (acs_plain, pack, "
+          f"traceback_plain) {plain_ms:.4f} ms, library none, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), one frame alone {one_frame:.4f} ms "
+          f"({one_frame * 1e6 / T:.1f} ns a step), generic route (relabelled tables) "
+          f"{generic_ms:.4f} ms, sequential floor (the step chain alone, one warp) "
+          f"{floor_ms:.4f} ms ({floor_ms * 1e6 / T:.1f} ns a step); the first design "
+          f"(PERF.md, not measured here): {VIT_FIRST_DESIGN} [{card_line}]")
+    print(f"timing viterbi B={B} T={T} 16 states (M17): kernel {ms16:.4f} ms, plain "
+          f"{plain16_ms:.4f} ms, bound {t['bound16_ms']:.4f} ms [{card_line}]")
     return t
 
 
@@ -4830,8 +4913,11 @@ def phase_wlan_stream(dev, card_line) -> dict:
     print(f"rate wlan stream decode_stream_batch ({WLAN_FRAMES} QPSK-1/2 frames, "
           f"{WLAN_PAYLOAD} B, {WLAN_SNR_DB:g} dB, {len(sig)} samples): {len(good)}/"
           f"{WLAN_FRAMES} frames, {dt:.3f} s, {len(good) / dt:.1f} frames/s, "
-          f"{len(sig) / dt / 1e6:.3f} Msamples/s; ACS {stats['acs_s'] * 1e3:.2f} ms, picks "
-          f"D2H {stats['picks_bytes']} B in {stats['d2h_s'] * 1e3:.2f} ms [{card_line}]")
+          f"{len(sig) / dt / 1e6:.3f} Msamples/s; decoder ({stats['frames']} frames x "
+          f"{stats['bucket']} steps) H2D, recursion and traceback "
+          f"{stats['acs_s'] * 1e3:.2f} ms, decoded bits D2H {stats['d2h_bytes']} B in "
+          f"{stats['d2h_s'] * 1e3:.2f} ms (the first design sent the picks: 134217728 B "
+          f"in 58.2-65.7 ms, PERF.md) [{card_line}]")
     V.reset_launches()
     rc = wlan_loopback.main(["--frames", str(LOOPBACK_FRAMES), "--device", str(dev)])
     torch.cuda.synchronize()
@@ -5686,9 +5772,10 @@ def main(argv=None) -> int:
         "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,
         "replaces": REPLACES_VITERBI, "launches": models["stream"]["launches"],
         "launches_by_phase": {"models": models["stream"]["launches"]},
-        "batch": VIT_LINE[0], "steps": VIT_LINE[1],
+        "batch": VIT_LINE[0], "steps": VIT_LINE[1], "states": 64,
         **{y: t[y] for y in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "seq_floor_ms", "one_frame_ms")}})
+                             "library_ms", "seq_floor_ms", "one_frame_ms", "acs_ms",
+                             "generic_ms", "states16_ms")}})
     print(json.dumps(line))
 
     # 8. rates beside the card

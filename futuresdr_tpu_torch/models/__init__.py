@@ -1,14 +1,15 @@
 """Models: the counterpart of ``futuresdr_tpu/models``.
 
-The WLAN 802.11a/g transceiver (:mod:`.wlan`) and the MCLDNN modulation
-classifier (:mod:`.mcldnn`, :mod:`.modrec`). Names resolve lazily, so that
-importing one model does not import the others.
+The WLAN 802.11a/g transceiver (:mod:`.wlan`), the MCLDNN modulation
+classifier (:mod:`.mcldnn`, :mod:`.modrec`) and M17's trellis
+(:mod:`.m17`). Names resolve lazily, so that importing one model does not
+import the others.
 """
 
-__all__ = ["MCLDNN", "loss_fn", "wlan", "mcldnn", "modrec"]
+__all__ = ["MCLDNN", "loss_fn", "wlan", "mcldnn", "modrec", "m17"]
 
 _ML_NAMES = {"MCLDNN", "loss_fn"}
-_SUBMODULES = {"wlan", "mcldnn", "modrec"}
+_SUBMODULES = {"wlan", "mcldnn", "modrec", "m17"}
 
 
 def __getattr__(name):

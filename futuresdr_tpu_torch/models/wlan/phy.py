@@ -14,7 +14,8 @@ the head of every frame (``torch_demod.demod_head_torch``) and a longer body
 (``demod_body_torch``) run on ``device``. :func:`decode_frame` and
 :func:`decode_stream` decode each frame's data with the host Viterbi
 (``coding.viterbi_decode``); :func:`decode_stream_batch` decodes all of a
-window's frames with one ACS launch on ``device`` (``ops/viterbi.py``).
+window's frames with one decoder launch on ``device`` (``ops/viterbi.py``:
+the recursion and the traceback; only the decoded bits come back).
 """
 
 from __future__ import annotations
@@ -255,7 +256,7 @@ def _finish_frame(decoded_bits: np.ndarray, mcs, length, lts_start, cfo,
 def decode_stream_batch(samples: np.ndarray, device=None,
                         stats: Optional[dict] = None) -> List[DecodedFrame]:
     """Burst-batched RX: every detected frame's demod on ``device`` (None: the
-    card) and all of their Viterbi recursions as ONE batched ACS launch there
+    card) and all of their Viterbi decodes as ONE batched launch there
     (``ops/viterbi.scan_viterbi_batch``; ``stats`` receives its figures)."""
     dev = resolve_device(device)
     preps = []

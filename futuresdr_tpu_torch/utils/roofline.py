@@ -112,11 +112,13 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
       ``m·D`` history, ``W``, ``n/D·I`` outputs, a MAC a weight an output;
     * ``pfb(n, N, K, tap_bytes=4)``: history, frame in and out, taps,
       twiddles; ``4K + 5·log2 N`` a sample;
-    * ``viterbi(B, T, S=64)``: the LLRs (8 bytes a frame a step) in, the
-      trellis tables in, the picks (one byte a state a step a frame) out; a
-      state's two candidates (two products and two sums each) and their
-      compare, 9 operations a state a step a frame. The steps run one after
-      another, so the card's floor is set by their latency, not by these.
+    * ``viterbi(B, T, S=64, steps=B·T)``: the LLRs of the ``steps`` real
+      steps (8 bytes a frame a step) and the frame lengths in, the four
+      trellis tables in, the decoded bits (one byte a step of the ``[B, T]``
+      output) out; a state's two candidates (two products and two sums each)
+      and their compare, 9 operations a state a real step. The steps of a
+      frame, and of its traceback, run one after another, so the card's
+      floor is set by their latency, not by these.
     """
     if kernel == "fir":
         n, nt, e = s["n"], s["nt"], 8 if s.get("complex", True) else 4
@@ -145,7 +147,8 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
                 float(n * (4 * K + 5 * int(_log2(N)))))
     if kernel == "viterbi":
         B, T, S = s["B"], s["T"], s.get("S", 64)
-        return float(8 * B * T + 12 * 2 * S + B * T * S), float(9 * S * B * T)
+        n = s.get("steps", B * T)
+        return float(8 * n + 4 * B + 16 * 2 * S + B * T), float(9 * S * n)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

@@ -1584,6 +1584,109 @@ def test_viterbi_kernel_picks_equal_plain_on_card(cuda_device, batch, steps):
     assert not got.any()
 
 
+def _trellis_np(name: str):
+    """``(prev_s, prev_b, bm0, bm1)`` numpy tables: 802.11's 64 states and
+    M17's 16 (the butterfly route); 802.11's with its states relabelled by a
+    seeded permutation that keeps state 0, and a random 12-state trellis (the
+    generic route)."""
+    from futuresdr_tpu_torch.models.m17 import codec
+    from futuresdr_tpu_torch.models.wlan import coding
+    if name == "m17":
+        return codec._M17_PREV
+    wlan = (coding._PREV_S, coding._PREV_B, coding._BM0, coding._BM1)
+    rng = np.random.default_rng(16)
+    if name == "wlan":
+        return wlan
+    if name == "relabelled":
+        sigma = np.concatenate([[0], 1 + rng.permutation(63)])
+        out = [np.empty_like(t) for t in wlan]
+        out[0][sigma] = sigma[wlan[0]]
+        for o, t in zip(out[1:], wlan[1:]):
+            o[sigma] = t
+        return tuple(out)
+    return (rng.integers(0, 12, (12, 2)), rng.integers(0, 2, (12, 2)),
+            rng.choice([-1.0, 1.0], (12, 2)), rng.choice([-1.0, 1.0], (12, 2)))
+
+
+def _trellis_t(name: str, device):
+    prev_s, prev_b, bm0, bm1 = _trellis_np(name)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, dt)).to(device)
+                 for t, dt in ((prev_s, np.int32), (prev_b, np.int32), (bm0, np.float32),
+                               (bm1, np.float32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trellis", ["wlan", "m17", "relabelled", "random12"])
+@pytest.mark.parametrize("batch", [1, 8, 256])
+def test_viterbi_survivors_and_bits_equal_plain_on_card(cuda_device, trellis, batch):
+    """Ragged frames (each its own length, one the whole bucket): the
+    kernel's survivors, unpacked, equal ``acs_plain``'s picks for t <
+    steps[b] bit for bit (0 past them), and its decoded bits the plain
+    traceback's, on noisy LLRs and on all-zero ones (every compare a tie);
+    one launch each. Both routes: the butterfly (802.11, M17) and the generic
+    one (a relabelled 802.11 trellis, a random 12-state one)."""
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(batch)
+    ps, pb, b0, b1 = _trellis_t(trellis, cuda_device)
+    S, T = int(ps.shape[0]), 512
+    steps_np = rng.integers(1, T + 1, batch).astype(np.int32)
+    steps_np[0] = T
+    steps = torch.from_numpy(steps_np).to(cuda_device)
+    live = (torch.arange(T, device=cuda_device)[:, None] < steps[None, :])[..., None]
+    for lams in (rng.standard_normal((batch, T, 2)).astype(np.float32) * 2,
+                 np.zeros((batch, T, 2), np.float32)):
+        x = torch.from_numpy(lams).to(cuda_device)
+        before = V.launches["viterbi"]
+        words = V.survivors(x, steps, ps, b0, b1)
+        bits = V.decode(x, steps, ps, pb, b0, b1)
+        torch.cuda.synchronize()
+        assert V.launches["viterbi"] == before + 2
+        picks = V.unpack_survivors(words, S)
+        want = V.acs_plain(x, ps, b0, b1) * live
+        assert torch.equal(picks, want)
+        assert torch.equal(bits, V.traceback_plain(V.pack_survivors(want), steps, ps, pb))
+    if trellis != "random12":                 # there a tie can still meet a -1e18
+        assert not picks.any() and not bits.any()
+
+
+@pytest.mark.gpu
+def test_viterbi_routes_agree_on_card(cuda_device):
+    """A trellis and its relabelling decode the same bits: the butterfly
+    route against the generic one on the same noisy codewords."""
+    from futuresdr_tpu_torch.models.wlan import coding
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(64)
+    bits = rng.integers(0, 2, (8, 700)).astype(np.uint8)
+    bits[:, -6:] = 0
+    coded = np.stack([coding.conv_encode(b) for b in bits]).astype(np.float32) * 2 - 1
+    coded += 0.5 * rng.standard_normal(coded.shape).astype(np.float32)   # Eb/N0 6 dB
+    x = torch.from_numpy(coded.reshape(8, 700, 2)).to(cuda_device)
+    steps = torch.full((8,), 700, dtype=torch.int32, device=cuda_device)
+    fly = V.decode(x, steps, *_trellis_t("wlan", cuda_device))
+    generic = V.decode(x, steps, *_trellis_t("relabelled", cuda_device))
+    assert torch.equal(fly, generic)
+    assert (fly.cpu().numpy() != bits).mean() < 0.01
+
+
+@pytest.mark.gpu
+def test_sixteen_state_trellis_decodes_on_card(cuda_device):
+    """M17's 16-state trellis through ``scan_viterbi`` on the card launches
+    the kernel once and equals the CPU decode (a 64-state-only kernel raised
+    here); a trellis above 64 states raises before any launch."""
+    from futuresdr_tpu_torch.models.m17 import codec
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(17)
+    llrs = (rng.standard_normal(1200) * 2).astype(np.float32)
+    before = V.launches["viterbi"]
+    got = V.scan_viterbi(llrs, 600, *codec._M17_PREV, device=cuda_device)
+    assert V.launches["viterbi"] == before + 1
+    assert np.array_equal(got, V.scan_viterbi(llrs, 600, *codec._M17_PREV, device="cpu"))
+    big = np.zeros((128, 2), np.int64)
+    with pytest.raises(ValueError, match="2 to 64 states"):
+        V.scan_viterbi(llrs, 600, big, big, big * 1.0, big * 1.0, device=cuda_device)
+    assert V.launches["viterbi"] == before + 1
+
+
 @pytest.mark.gpu
 def test_wlan_decode_on_card(cuda_device):
     """``perf/wlan.py``'s stream (20 frames) through ``decode_stream_batch``

@@ -55,13 +55,14 @@ def test_the_precision_and_tuning_modules_are_walked():
 
 
 def test_the_models_load_alone():
-    """The models' modules (the WLAN receiver, the Viterbi ACS, MCLDNN) are
-    walked, and decoding a WLAN frame and classifying a window on the CPU
-    load neither JAX nor the JAX package (nor flax or orbax: the weights are
-    the port's own ``.npz``)."""
+    """The models' modules (the WLAN receiver, the Viterbi decoder, MCLDNN,
+    M17's trellis) are walked, and decoding a WLAN frame and an M17 one and
+    classifying a window on the CPU load neither JAX nor the JAX package (nor
+    flax or orbax: the weights are the port's own ``.npz``)."""
     assert {"futuresdr_tpu_torch.models.wlan.phy", "futuresdr_tpu_torch.models.wlan.torch_demod",
             "futuresdr_tpu_torch.ops.viterbi", "futuresdr_tpu_torch.models.mcldnn",
-            "futuresdr_tpu_torch.models.modrec"} <= set(_submodules())
+            "futuresdr_tpu_torch.models.modrec",
+            "futuresdr_tpu_torch.models.m17.codec"} <= set(_submodules())
     code = ("import sys\n"
             "import numpy as np, torch\n"
             "from futuresdr_tpu_torch.models import wlan, modrec\n"
@@ -69,6 +70,10 @@ def test_the_models_load_alone():
             "x = np.concatenate([np.zeros(100, np.complex64), wlan.encode_frame(psdu),\n"
             "                    np.zeros(100, np.complex64)])\n"
             "assert [f.psdu for f in wlan.decode_stream_batch(x, device='cpu')] == [psdu]\n"
+            "from futuresdr_tpu_torch.models.m17 import codec\n"
+            "from futuresdr_tpu_torch.ops import viterbi\n"
+            "assert viterbi.scan_viterbi(np.zeros(1024), 512, *codec._M17_PREV,\n"
+            "                            device='cpu').shape == (512,)\n"
             "X, _ = modrec.synth_batch(np.random.default_rng(0), 4, 128)\n"
             "with torch.no_grad():\n"
             "    assert modrec.load_pretrained(device='cpu')(torch.from_numpy(X)).shape == (4, 5)\n"
@@ -85,7 +90,8 @@ def test_sources_import_no_jax_and_no_jax_package():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",
                                                  REPO / "port_profile.py",
-                                                 REPO / "port_buffers.py"]:
+                                                 REPO / "port_buffers.py",
+                                                 REPO / "port_viterbi.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

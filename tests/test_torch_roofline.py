@@ -151,7 +151,7 @@ ROWS = [
     ("pfb", dict(n=1 << 18, N=64, K=12), 1.25), ("pfb", dict(n=1 << 21, N=64, K=12), 10.0),
     ("pfb", dict(n=1 << 18, N=2048, K=12), 1.34),
     ("poly_fir", dict(n=1 << 18, m=8, D=16), 0.666),
-    ("viterbi", dict(B=256, T=4096), 22.5),
+    ("viterbi", dict(B=256, T=4096), 9.01), ("viterbi", dict(B=256, T=4096, S=16), 2.82),
 ]
 
 

@@ -230,9 +230,9 @@ def test_every_mcs_loops_back(mcs):
 
 def test_decode_stream_batch_equals_decode_stream_on_the_perf_stream():
     """A 20-frame cut of ``perf/wlan.py``'s stream (seed 0, QPSK-1/2, 256-byte
-    payloads, 300-sample gaps, 25 dB): the batched decoder (one ACS call of 32
-    frames × 4096 steps) finds what the per-frame decoder and the reference
-    find, every MAC FCS passes."""
+    payloads, 300-sample gaps, 25 dB): the batched decoder (one decoder call
+    over every detection, a 4096-step bucket) finds what the per-frame
+    decoder and the reference find, every MAC FCS passes."""
     sig, sent = _perf_stream(20)
     stats = {}
     batched = W.decode_stream_batch(sig, device=CPU, stats=stats)
@@ -240,7 +240,9 @@ def test_decode_stream_batch_equals_decode_stream_on_the_perf_stream():
     assert [f.psdu for f in batched] == [f.psdu for f in per_frame] == sent
     assert [f.start for f in batched] == [f.start for f in J.decode_stream(sig)]
     assert all(W.payload_from_mpdu(f.psdu) is not None for f in batched)
-    assert stats["picks_bytes"] == 4096 * 32 * 64
+    # the real frames' decoded bits come back, one byte a step of the bucket
+    assert stats["bucket"] == 4096 and 20 <= stats["frames"] <= 32
+    assert stats["d2h_bytes"] == 4096 * stats["frames"]
 
 
 def test_viterbi_terminates_at_tail_not_pad():
