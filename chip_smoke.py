@@ -284,9 +284,32 @@ rates measure the sharding's overhead, not its scaling:
     widths 1, 2 and 4. The kernels' launches are counted over the sharded
     drives alone (not the comparisons) and join the ``kernels`` line.
 
+The telemetry plane (``telemetry/``: spans, the profile plane, the doctor,
+lineage, the journal, the fleet; the control port's routes):
+
+31. (a) the fused spectrum chain (``fir_fft``) streamed at 2^18, K = 1 and
+    4, with tracing on: the output bit-equal to tracing off, every dispatch
+    group carrying its encode (one a frame), H2D, compute, D2H and decode
+    spans, the Chrome trace exported under ``build/`` and parsed, each
+    span's median host µs a frame printed; (b) ``fsdr_mfu`` and
+    ``fsdr_hbm_util`` in (0, 1.05] for the streamed program and a resident
+    ``Pipeline.compile`` (``rotator`` and ``fir``), each capture counted under
+    its reason (``warmup``), and a changed carry shape billed as a
+    ``reinit`` recapture; (c) serve_ab's chain (``rotator`` and ``fir``
+    lanes at 64 × 512): traced bit-equal to untraced, a ``serve_step`` span a
+    dispatch, ``E2E_LATENCY`` p50 and p99, ``ServeEngine.step``'s host profile
+    by span, its gauges; (d) during a live run held by a gated source, every
+    new route of the control port (trace, doctor, profile, lineage, events,
+    host, fleet, fleet metrics, a routed admission) answers 200 (201) with
+    JSON (the fleet's metrics as text); (e) the doctor's watchdog trips
+    ``starved`` on that stall, its flight record names the source, and a
+    capture in progress reads ``compiling``; (f) the disabled hooks' cost on
+    the streamed K = 1 run by the analytic gate, at most 3%.
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
-``python3 chip_smoke.py --models`` only phase 29, and ``python3
-chip_smoke.py --sharded`` only phase 30.
+``python3 chip_smoke.py --models`` only phase 29, ``python3
+chip_smoke.py --sharded`` only phase 30, and ``python3 chip_smoke.py
+--telemetry`` only phase 31.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -5554,6 +5577,511 @@ def phase_sharded(dev, card_line) -> dict:
             "serving": serving, "tune": tune}
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the telemetry plane on the card
+# ---------------------------------------------------------------------------
+
+TELE_FRAME = 1 << 18           # the fused spectrum chain's streamed frame
+TELE_FRAMES = 32               # frames of each streamed run (K = 1 and 4 divide it)
+TELE_K = (1, 4)
+TELE_RESIDENT_CALLS = 200      # calls of the resident program inside its gauge window
+TELE_AB_STEPS = 60             # frame times of the served runs
+TELE_GATE = 0.03               # the disabled hooks' share of the streamed run, at most
+TELE_LANES = ("encode", "H2D", "compute", "D2H", "decode")
+TELE_GAUGE_MAX = 1.05
+#: the hand kernels phase 31 drives: the fused chain's, the resident
+#: program's and serve_ab's lane forms
+TELE_KERNELS = ("fir_fft", "fir", "rotator", "fir_lanes", "rotator_lanes")
+
+
+def _tele_reasons(program: str) -> dict:
+    from futuresdr_tpu_torch.telemetry import profile
+    return {lab["reason"]: int(v) for lab, v in profile.COMPILES.samples()
+            if lab["program"] == program}
+
+
+def _tele_gauges(program: str) -> tuple:
+    from futuresdr_tpu_torch.telemetry import profile
+    return (profile.MFU.get(program=program), profile.HBM_UTIL.get(program=program))
+
+
+def _tele_check_gauges(program: str, card_line: str) -> tuple:
+    mfu, hbm = _tele_gauges(program)
+    print(f"phase 31 (b): {program}: fsdr_mfu {mfu:.6g}, fsdr_hbm_util {hbm:.6g} "
+          f"[{card_line}]")
+    check(0 < mfu <= TELE_GAUGE_MAX and 0 < hbm <= TELE_GAUGE_MAX,
+          f"{program}: fsdr_mfu {mfu} or fsdr_hbm_util {hbm} outside (0, {TELE_GAUGE_MAX}]")
+    return mfu, hbm
+
+
+def _tele_stream(dev, taps, k: int, data, name: str, window: bool = False):
+    """``VectorSource -> TpuKernel(fused spectrum chain, K) -> VectorSink``;
+    with ``window``, the profile plane's gauge window is seeded right after
+    the init barrier and read at the end. Returns ``(output, kernel,
+    elapsed s, work calls)``."""
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.telemetry import profile
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    kern = TpuKernel(chain_stages("fused", taps), np.complex64, frame_size=TELE_FRAME,
+                     inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT,
+                     frames_per_dispatch=k, wire=LINK)
+    kern.meta.instance_name = name
+    fg = Flowgraph()
+    snk = VectorSink(kern.pipeline.out_dtype)
+    fg.connect(VectorSource(data), kern, snk)
+    rt = Runtime()
+    t0 = time.perf_counter()
+    running = rt.start(fg)
+    if window:
+        plane = profile.plane()
+        plane.program(name).ensure_cost()
+        plane.update_live_gauges(min_interval=0.0)     # the window's left edge
+    done = running.wait_sync()
+    elapsed = time.perf_counter() - t0
+    rt.shutdown()
+    if window:
+        torch.cuda.synchronize()
+        profile.plane().update_live_gauges(min_interval=0.0)
+    calls = sum(b.work_calls for b in done._blocks if b is not None)
+    return np.asarray(snk.items()), kern, elapsed, calls
+
+
+def _tele_hook_costs(n: int = 100_000) -> dict:
+    """Per-call host cost (ns) of each disabled hook class on this host,
+    micro-measured as ``tests/test_torch_telemetry.py`` does: the block
+    loop's work call and park, the checkpoint and fleet guards, and the
+    streamed kernel's per-frame and per-group hooks."""
+    from futuresdr_tpu_torch.telemetry import doctor, fleet, lineage, profile, spans
+    from futuresdr_tpu_torch.tpu.kernel_block import _stamp_metas
+    rec = spans.recorder()
+    check(not rec.enabled and fleet._tick_state is None,
+          "the disabled gate needs tracing and the fleet off")
+    hist = doctor.WORK_DURATION.labels(block="tele-gate-probe")
+    e2e = doctor.E2E_LATENCY.labels(source="tele-gate-probe")
+    entry = profile.register("tele-gate-probe")
+    entry.dispatch()
+    ltr = lineage.reset_tracer()
+    sample = ltr.sample
+    metas = ((TELE_FRAME, (), 0, 0),)
+    ckpt_every = 0
+
+    def best(loop):
+        out = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter_ns()
+            loop()
+            out = min(out, (time.perf_counter_ns() - t0) / n)
+        return out
+
+    def work():
+        tick = 0
+        for _ in range(n):
+            end = time.perf_counter_ns()
+            tick += 1
+            if not tick & 7:
+                hist.observe(1.5e-6)
+            if rec.enabled:
+                rec.complete("block", "x", end)
+
+    def park_ckpt_fleet():
+        for i in range(n):
+            if rec.enabled:
+                rec.complete("park", "x", 0)
+            if ckpt_every and (i + 1) % ckpt_every == 0:
+                pass
+            if fleet._tick_state is not None:
+                fleet.tick()
+
+    def frame():
+        for _ in range(n):
+            t_in = time.perf_counter_ns()
+            tid = sample()
+            if tid:
+                ltr.finish(tid)
+            if rec.enabled:
+                rec.complete("tpu", "encode", 0)
+            for lane in ("encode", "H2D", "dispatch", "D2H", "decode"):
+                _stamp_metas(metas, lane)
+            e2e.observe((time.perf_counter_ns() - t_in) * 1e-9)
+
+    def group():
+        for _ in range(n):
+            for _s in range(3):
+                if rec.enabled:
+                    rec.complete("tpu", "compute", 0)
+            entry.dispatch(t=time.monotonic())
+
+    out = {"call": best(work) + best(park_ckpt_fleet), "frame": best(frame),
+           "group": best(group)}
+    ltr.clear()
+    return out
+
+
+def _tele_serve(dev, data, app: str, seed_window: bool):
+    """serve_ab's chain at ``AB_SESSIONS`` lanes of ``AB_FRAME``: one frame a
+    session every frame time for ``TELE_AB_STEPS`` steps, then drained.
+    Returns ``(outputs a session, engine, step() wall times)``."""
+    import torch
+
+    from futuresdr_tpu_torch.serve import ServeEngine
+    from futuresdr_tpu_torch.telemetry import profile
+    eng = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app=app,
+                      buckets=(AB_SESSIONS,), queue_frames=4, device=dev)
+    sess = [eng.admit(tenant=f"t{i % 4}", sid=f"{app}{i}") for i in range(AB_SESSIONS)]
+    outs = [[] for _ in sess]
+    walls = []
+    for j in range(TELE_AB_STEPS):
+        for i, s in enumerate(sess):
+            check(eng.submit(s.sid, data[i][j]), f"{app}: a submit was refused")
+        t0 = time.perf_counter()
+        eng.step()
+        walls.append(time.perf_counter() - t0)
+        if j == 0 and seed_window:
+            torch.cuda.synchronize()
+            plane = profile.plane()
+            plane.program(f"serve:{app}").ensure_cost()
+            plane.update_live_gauges(min_interval=0.0)
+        for i, s in enumerate(sess):
+            outs[i] += eng.results(s.sid)
+    while eng.step():
+        pass
+    for i, s in enumerate(sess):
+        outs[i] += eng.results(s.sid)
+    torch.cuda.synchronize()
+    if seed_window:
+        profile.plane().update_live_gauges(min_interval=0.0)
+    return outs, eng, walls
+
+
+def _tele_get(url: str, timeout: float = 30.0):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read()
+
+
+def _tele_post(url: str, body: dict):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read()
+
+
+def _tele_gated_source(items, gate):
+    """A source that emits ``items[:gate_at]``, then parks on an awaitable
+    (no work call, so no progress) until ``gate[1]`` is set, then emits the
+    rest. ``gate = (index, threading.Event)``."""
+    import asyncio
+
+    from futuresdr_tpu_torch import Kernel
+    at, ev = gate
+
+    class GatedSource(Kernel):
+        def __init__(self):
+            super().__init__()
+            self.pos = 0
+            self.output = self.add_stream_output("out", items.dtype)
+
+        async def _wait_gate(self):
+            while not ev.is_set():
+                await asyncio.sleep(0.01)
+
+        async def work(self, io, mio, meta):
+            end = len(items) if ev.is_set() else at
+            if self.pos >= end:
+                io.block_on(self._wait_gate())
+                return
+            out = self.output.slice()
+            n = min(len(out), end - self.pos)
+            out[:n] = items[self.pos:self.pos + n]
+            self.output.produce(n)
+            self.pos += n
+            if self.pos == len(items):
+                io.finished = True
+            elif n:
+                io.call_again = True
+
+    return GatedSource()
+
+
+def _tele_live(dev, taps, card_line) -> dict:
+    """(d) and (e): a streamed run held live by a gated source while every
+    new route of the control port answers, the doctor's watchdog trips on
+    the stall and names the source, and a capture in progress reads
+    ``compiling``."""
+    import socket
+    import threading
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import NullSink
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.ops.stages import Pipeline, Stage
+    from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort
+    from futuresdr_tpu_torch.serve import ServeEngine, register_app, unregister_app
+    from futuresdr_tpu_torch.telemetry import doctor, fleet, profile
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = config()
+    saved = (cfg.fleet_peers, cfg.fleet_poll_interval)
+    cfg.fleet_peers, cfg.fleet_poll_interval = f"127.0.0.1:{port}", 0.2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+    items = randc(8 * TELE_FRAME, gen, dev).cpu().numpy()
+    gate = (4 * TELE_FRAME, threading.Event())
+    d = doctor.doctor()
+    d.enable(interval=0.05, window=3)
+    route_eng = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="tele_route",
+                            buckets=(1,), device=dev)
+    register_app(route_eng)
+    rt = Runtime()
+    cp = ControlPort(rt.handle, bind=f"127.0.0.1:{port}")
+    answered = {}
+    try:
+        cp.start()
+        src = _tele_gated_source(items, gate)
+        src.meta.instance_name = "tele_gated_src"
+        kern = TpuKernel(chain_stages("fused", taps), np.complex64, frame_size=TELE_FRAME,
+                         inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT, wire=LINK)
+        kern.meta.instance_name = "tele_live"
+        fg = Flowgraph()
+        snk = NullSink(kern.pipeline.out_dtype)
+        fg.connect(src, kern, snk)
+        running = rt.start(fg)
+        fg_id = rt.handle.flowgraph_ids()[-1]
+        # (e) the watchdog trips on the stalled source and names it
+        t0 = time.monotonic()
+        while (d.last_trip or {}).get("state") != "starved" and time.monotonic() - t0 < 30:
+            time.sleep(0.05)
+        trip = d.last_trip or {}
+        check(trip.get("state") == "starved" and trip.get("suspect_block") == "tele_gated_src",
+              f"phase 31 (e): the watchdog read {trip.get('state')} naming "
+              f"{trip.get('suspect_block')}, want starved naming tele_gated_src")
+        rec = d.last_report or {}
+        named = [fgr for fgr in (rec.get("flowgraphs") or {}).values()
+                 if (fgr.get("diagnosis") or {}).get("suspect_block") == "tele_gated_src"]
+        check(named and "tele_gated_src" in named[0]["blocks"],
+              "phase 31 (e): the flight record does not name the stalled block")
+        print(f"phase 31 (e): the watchdog tripped {trip['state']} after "
+              f"{trip['no_progress_for_s']} s of no progress, suspect {trip['suspect_block']}; "
+              f"the flight record carries {len(rec['threads'])} thread stacks")
+        # a capture in progress reads "compiling", not a deadlock: a stage
+        # whose fn holds the host 0.5 s runs in the warm-up and the capture
+        att = next(a for a in d._fgs.values()
+                   if any(b.instance_name == "tele_gated_src" for b in a.blocks))
+
+        def slow(c, x):
+            time.sleep(0.5)
+            return c, x.clone()
+
+        slow_pipe = Pipeline([Stage(fn=slow, init_carry=lambda dt, dv: torch.zeros(1, device=dv),
+                                    name="slow")], np.complex64)
+        cap = threading.Thread(target=slow_pipe.compile, args=(4096, dev),
+                               kwargs={"program": "tele_capture"})
+        cap.start()
+        t0 = time.monotonic()
+        while not profile.plane().active_compiles() and time.monotonic() - t0 < 10:
+            time.sleep(0.01)
+        diag = d.diagnose(att)
+        cap.join()
+        check(diag["state"] == "compiling" and diag["suspect_block"] == "tele_capture"
+              and "in progress" in diag["detail"],
+              f"phase 31 (e): a capture in progress read {diag['state']} "
+              f"({diag.get('detail')})")
+        check(_tele_reasons("tele_capture") == {"warmup": 1},
+              f"tele_capture compiles {_tele_reasons('tele_capture')}")
+        print(f"phase 31 (e): during a capture the watchdog reads {diag['state']}: "
+              f"{diag['detail']}")
+        # (d) every new route answers during the live run
+        base = cp.url
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 20:
+            st, _ct, body = _tele_get(f"{base}/api/fleet/")
+            if json.loads(body).get("hosts_ready"):
+                break
+            time.sleep(0.1)
+        for path in (f"/api/fg/{fg_id}/trace/?keep=1", f"/api/fg/{fg_id}/doctor/",
+                     f"/api/fg/{fg_id}/profile/", f"/api/fg/{fg_id}/lineage/?n=4",
+                     "/api/events/?since=0", "/api/host/", "/api/fleet/"):
+            st, ct, body = _tele_get(base + path)
+            check(st == 200 and ct.startswith("application/json"),
+                  f"phase 31 (d): {path} answered {st} {ct}")
+            json.loads(body)
+            answered[path] = len(body)
+        st, ct, body = _tele_get(f"{base}/api/fleet/metrics")
+        check(st == 200 and b"host=" in body, f"phase 31 (d): /api/fleet/metrics {st}")
+        answered["/api/fleet/metrics"] = len(body)
+        st, ct, body = _tele_post(f"{base}/api/fleet/serve/tele_route/session/",
+                                  {"tenant": "t"})
+        check(st == 201 and json.loads(body)["host"] == f"127.0.0.1:{port}",
+              f"phase 31 (d): the routed admission answered {st}")
+        answered["POST /api/fleet/serve/tele_route/session/"] = len(body)
+        st, ct, body = _tele_get(f"{base}/metrics")
+        check(b"fsdr_block_work_calls_total{block=\"tele_live\"" in body,
+              "phase 31 (d): /metrics lacks the per-block families")
+        print("phase 31 (d): every new route answered 200/201 during the live run: " +
+              ", ".join(f"{p} ({n} B)" for p, n in answered.items()))
+        gate[1].set()
+        running.wait_sync()
+    finally:
+        gate[1].set()
+        d.disable()
+        d.last_trip = None
+        cp.stop()
+        fleet.shutdown()
+        cfg.fleet_peers, cfg.fleet_poll_interval = saved
+        unregister_app("tele_route")
+        route_eng.shutdown()
+        rt.shutdown()
+    return answered
+
+
+def phase_telemetry(dev, taps, card_line) -> dict:
+    """Phase 31, the telemetry plane on the card (see the module docstring).
+    Returns the printed figures."""
+    import statistics as st
+
+    import torch
+
+    from futuresdr_tpu_torch.ops.stages import (Pipeline, fft_stage, fir_stage, mag2_stage,
+                                                rotator_stage)
+    from futuresdr_tpu_torch.telemetry import lineage, profile, spans
+    check(not spans.enabled(), "phase 31 needs tracing off at its start")
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    data = randc(TELE_FRAMES * TELE_FRAME, gen, dev).cpu().numpy()
+    rec = spans.recorder()
+    # (a) the streamed path, tracing off then on, K = 1 and 4
+    for k in TELE_K:
+        off, kern_off, el_off, calls_off = _tele_stream(dev, taps, k, data, f"tele_off_k{k}",
+                                                        window=True)
+        rec.drain()
+        spans.enable(True)
+        try:
+            on, kern, _el, _calls = _tele_stream(dev, taps, k, data, f"tele_fused_k{k}")
+        finally:
+            spans.enable(False)
+        evs = rec.drain()
+        check(np.array_equal(on, off), f"phase 31 (a): K={k} traced output differs from "
+                                       f"untraced")
+        groups = kern.dispatches
+        check(groups == TELE_FRAMES // k, f"phase 31 (a): {groups} groups at K={k}")
+        lanes = {n: [e for e in evs if e.cat == "tpu" and e.name == n] for n in TELE_LANES}
+        want = {"encode": TELE_FRAMES, "H2D": groups, "compute": groups, "D2H": groups,
+                "decode": groups}
+        got = {n: len(v) for n, v in lanes.items()}
+        check(got == want, f"phase 31 (a): K={k} spans {got}, want {want}")
+        trace = spans.chrome_trace(evs)
+        path = _build_dir().parent / f"telemetry_trace_k{k}.json"
+        path.write_text(json.dumps(trace))
+        parsed = json.loads(path.read_text())
+        check(len([e for e in parsed["traceEvents"] if e["ph"] == "X"]) >= sum(got.values()),
+              "phase 31 (a): the exported trace lost spans")
+        per_frame = {n: st.median(e.dur_ns for e in v) / 1e3 / (1 if n == "encode" else k)
+                     for n, v in lanes.items()}
+        ov = spans.overlap_report(evs, names=TELE_LANES)
+        out[("split", k)] = per_frame
+        print(f"phase 31 (a): fused 2^18 K={k}: traced output bit-equal to untraced; "
+              f"{groups} groups each with encode, H2D, compute, D2H and decode spans; "
+              f"trace {path.name} ({len(parsed['traceEvents'])} events) parsed; median "
+              f"host us a frame: " + ", ".join(f"{n} {v:.1f}" for n, v in per_frame.items())
+              + f"; lanes' union/sum {ov['ratio']:.3f} [{card_line}]")
+        # (b) the streamed program on the profile plane
+        entry = profile.plane().program(f"tele_off_k{k}")
+        check(entry.units == kern_off.dispatches, f"phase 31 (b): {entry.units} units for "
+                                                  f"{kern_off.dispatches} dispatches")
+        check(_tele_reasons(f"tele_off_k{k}") == {"warmup": 1},
+              f"phase 31 (b): compiles {_tele_reasons(f'tele_off_k{k}')}")
+        out[("stream_gauges", k)] = _tele_check_gauges(f"tele_off_k{k}", card_line)
+        out[("stream_run", k)] = (el_off, calls_off, kern_off.frames_dispatched,
+                                  kern_off.dispatches)
+    # (b) a resident Pipeline.compile, and a recapture for a changed carry
+    pipe = Pipeline([rotator_stage(0.013, impl="pallas"), fir_stage(taps, impl="pallas"),
+                     fft_stage(N_FFT), mag2_stage()], np.complex64)
+    fn, carry = pipe.compile(TELE_FRAME, dev, program="tele_resident")
+    check(_tele_reasons("tele_resident") == {"warmup": 1},
+          f"phase 31 (b): resident compiles {_tele_reasons('tele_resident')}")
+    x = randc(TELE_FRAME, gen, dev)
+    carry, _y = fn(carry, x)
+    torch.cuda.synchronize()
+    plane = profile.plane()
+    plane.program("tele_resident").ensure_cost()
+    plane.update_live_gauges(min_interval=0.0)
+    for _ in range(TELE_RESIDENT_CALLS):
+        carry, _y = fn(carry, x)
+    torch.cuda.synchronize()
+    plane.update_live_gauges(min_interval=0.0)
+    out["resident_gauges"] = _tele_check_gauges("tele_resident", card_line)
+    os_pipe = Pipeline([fir_stage(np.ones(16, np.float32) / 16, fft_len=1024)], np.complex64)
+    ofn, oc = os_pipe.compile(4 * os_pipe.frame_multiple, dev, program="tele_recapture")
+    frame = randc(4 * os_pipe.frame_multiple, gen, dev)
+    oc, _ = ofn(oc, frame)
+    (H, _tt, tail), = oc
+    oc, _ = ofn(((H, torch.zeros(32, device=dev), tail),), frame)
+    reasons = _tele_reasons("tele_recapture")
+    sigs = [r[3] for r in plane._recent if r[1] == "tele_recapture"]
+    check(reasons == {"warmup": 1, "reinit": 1} and ofn.captures == 2
+          and sigs[-1].startswith("carry:"),
+          f"phase 31 (b): a changed carry shape billed {reasons} ({sigs})")
+    print(f"phase 31 (b): compiles by reason: tele_off_k1 {_tele_reasons('tele_off_k1')}, "
+          f"tele_resident {_tele_reasons('tele_resident')}, tele_recapture {reasons} "
+          f"({sigs[-1]}); compiles_total {plane.compiles_total}")
+    # (c) serving: serve_ab's chain, tracing off then on
+    rng = np.random.default_rng(SEED + 32)
+    sdata = [[(rng.standard_normal(AB_FRAME) + 1j * rng.standard_normal(AB_FRAME))
+              .astype(np.complex64) for _ in range(TELE_AB_STEPS)] for _ in range(AB_SESSIONS)]
+    s_off, e_off, walls_off = _tele_serve(dev, sdata, "tele_ab_off", True)
+    rec.drain()
+    spans.enable(True)
+    try:
+        s_on, e_on, walls_on = _tele_serve(dev, sdata, "tele_ab", False)
+    finally:
+        spans.enable(False)
+    sevs = rec.drain()
+    for i in range(AB_SESSIONS):
+        check(len(s_on[i]) == len(s_off[i]) == TELE_AB_STEPS and all(
+            np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(s_on[i], s_off[i])),
+            f"phase 31 (c): session {i} traced differs from untraced")
+    steps = [e for e in sevs if e.cat == "serve" and e.name == "serve_step"]
+    check(len(steps) == e_on.dispatches == TELE_AB_STEPS,
+          f"phase 31 (c): {len(steps)} serve_step spans, {e_on.dispatches} dispatches")
+    p50, p99 = (e_on.e2e_hist.quantile(q) for q in (0.5, 0.99))
+    prof_us = {n: st.median(e.dur_ns for e in sevs if e.cat == "tpu" and e.name == n) / 1e3
+               for n in TELE_LANES}
+    prof_us["serve_step"] = st.median(e.dur_ns for e in steps) / 1e3
+    prof_us["step() wall"] = st.median(walls_off[1:]) * 1e6
+    out["serve"] = {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "profile_us": prof_us}
+    out["serve_gauges"] = _tele_check_gauges("serve:tele_ab_off", card_line)
+    print(f"phase 31 (c): serve_ab {AB_SESSIONS} x {AB_FRAME}, {TELE_AB_STEPS} steps: "
+          f"traced bit-equal to untraced, {len(steps)} serve_step spans; E2E_LATENCY "
+          f"p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms; ServeEngine.step host profile, "
+          f"median us: " + ", ".join(f"{n} {v:.1f}" for n, v in prof_us.items())
+          + f" [{card_line}]")
+    e_on.shutdown()
+    e_off.shutdown()
+    # (d), (e) the control port and the doctor during a live run
+    out["routes"] = _tele_live(dev, taps, card_line)
+    # (f) the disabled hooks' cost on the streamed path, by the analytic gate
+    costs = _tele_hook_costs()
+    el, calls, frames, groups = out[("stream_run", 1)]
+    share = (calls * costs["call"] + frames * costs["frame"] + groups * costs["group"]) \
+        * 1e-9 / el
+    out["disabled"] = (share, costs, el, calls, frames, groups)
+    print(f"phase 31 (f): disabled hooks {share * 100:.3f}% of the streamed fused 2^18 K=1 "
+          f"run ({calls} work calls x {costs['call']:.0f} ns, {frames} frames x "
+          f"{costs['frame']:.0f} ns, {groups} groups x {costs['group']:.0f} ns over "
+          f"{el * 1e3:.1f} ms) [{card_line}]")
+    check(share <= TELE_GATE, f"phase 31 (f): the disabled hooks cost {share * 100:.2f}%, "
+                              f"over {TELE_GATE * 100:.0f}%")
+    lineage.reset_tracer()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -5565,6 +6093,8 @@ def main(argv=None) -> int:
                         help="only run phase 29, the models' device plane, after the build")
     parser.add_argument("--sharded", action="store_true",
                         help="only run phase 30, the device axis, after the build")
+    parser.add_argument("--telemetry", action="store_true",
+                        help="only run phase 31, the telemetry plane, after the build")
     parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
                         help=argparse.SUPPRESS)   # one process of phase 26 (d)
     parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
@@ -5612,6 +6142,14 @@ def main(argv=None) -> int:
         return 0
     if args.sharded:
         phase_sharded(dev, card_line)
+        return 0
+    if args.telemetry:
+        ck.reset_launches()
+        phase_telemetry(dev, firdes.lowpass(0.2, N_TAPS).astype(np.float32), card_line)
+        torch.cuda.synchronize()
+        for k in TELE_KERNELS:
+            check(ck.launches[k] > 0, f"kernel {k} was launched no time in phase 31")
+        print("phase 31 launches: " + ", ".join(f"{k} {ck.launches[k]}" for k in TELE_KERNELS))
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -5718,6 +6256,12 @@ def main(argv=None) -> int:
     for k, v in by_phase["sharded"].items():
         if k in launches:
             launches[k] += v
+    # 31. the telemetry plane: the streamed, resident and served paths traced
+    #     and profiled, the control port's routes and the doctor during a
+    #     live run, the disabled hooks' cost; its kernels counted over it
+    t31 = time.perf_counter()
+    path_phase("telemetry", TELE_KERNELS, phase_telemetry, dev, taps, card_line)
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record

@@ -152,10 +152,52 @@ class Config:
     #   "auto" | "data" | "model" (shard/plan.py)
     shard_devices: int = 0                 # mesh width of a shard plan (0 =
     #   every device there is)
+    # the telemetry plane (telemetry/): spans are off by default, the
+    # metrics registry always on
+    trace: bool = False                    # FUTURESDR_TPU_TRACE=1 records spans
+    #   (telemetry/spans.py; drained as a Chrome trace)
+    trace_ring: int = 1 << 16              # a thread's span ring capacity
+    doctor: bool = False                   # FUTURESDR_TPU_DOCTOR=1 starts the
+    #   stall watchdog (telemetry/doctor.py) with the first Runtime
+    doctor_interval: float = 1.0           # watchdog sampling period, seconds
+    doctor_window: int = 5                 # no-progress samples before a trip
+    doctor_dir: str = ""                   # write flight records here ("" =
+    #   memory only, served on GET /api/fg/{fg}/doctor/)
+    doctor_action: str = "record"          # "record" | "cancel": a trip also
+    #   cancels the wedged flowgraph, whose run then raises FlowgraphError
+    lineage_stride: int = 64               # sample 1 frame in N for lineage
+    #   records (telemetry/lineage.py); 0 = off, 1 = every frame
+    lineage_ring: int = 512                # completed lineage records kept
+    journal_ring: int = 1024               # lifecycle events kept (GET
+    #   /api/events/, telemetry/journal.py)
+    journal_dir: str = ""                  # spool every event as a JSONL line
+    #   under this directory ("" = the ring only)
+    journal_spool_mb: int = 64             # rotate the spool past this size
+    #   (0 = never)
+    journal_spool_keep: int = 4            # rotated spool files kept
+    fleet_peers: str = ""                  # control-port addresses of the
+    #   fleet ("host:port,host:port"; telemetry/fleet.py); "" = off
+    fleet_poll_interval: float = 1.0       # peer poll cadence, seconds
+    fleet_stale_s: float = 0.0             # a summary older than this reads
+    #   stale; 0 = 3 poll intervals
+    fleet_down_errors: int = 2             # failed polls before a host is down
+    fleet_skew: float = 0.5                # the pressure-skew verdict's limit
+    fleet_hysteresis: float = 0.1          # the admission router's switch band
+    fleet_host_id: str = ""                # this host's fleet id ("" =
+    #   <hostname>:<pid>)
+    peak_flops: float = 0.0                # the live gauges' peaks
+    peak_hbm_gbps: float = 0.0             #   (telemetry/profile.py): both set
+    #   pin them (FLOP/s, GB/s); 0 = the card's published figures
+    #   (utils/roofline.detect_peaks), none on the CPU
     virtual_devices: int = 0               # > 0: the device list is that many
     #   logical devices on the first physical one (the CPU, or card 0), the
     #   counterpart of the reference's --xla_force_host_platform_device_count;
     #   0 (off) lists the cards there are
+
+    def get(self, key: str, default=None):
+        """A field by name, ``default`` for a name that is not a field (the
+        reference's free-form lookup)."""
+        return getattr(self, key, default)
 
     @classmethod
     def from_env(cls) -> "Config":

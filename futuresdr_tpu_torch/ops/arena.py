@@ -17,9 +17,10 @@ engine has not read yet.
 
 Size classes are powers of two (4 KiB at least), so a frame-size change does
 not fragment the pool; the pool is bounded (``host_arena_mb``): past the cap
-a released buffer is dropped to the allocator instead of pooled. The
-reference's Prometheus telemetry is not ported; :meth:`StagingArena.stats`
-keeps plain counters.
+a released buffer is dropped to the allocator instead of pooled.
+:meth:`StagingArena.stats` keeps plain counters, and the always-on
+Prometheus families ``fsdr_arena_hits_total``, ``fsdr_arena_misses_total``,
+``fsdr_arena_pinned_bytes`` and ``fsdr_arena_pooled_bytes`` mirror them.
 
 :class:`GroupAlloc` and :class:`PackedAlloc` hand a wire encode its output
 buffers out of the arena (``Wire.encode_into``), the latter as views into one
@@ -39,6 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import prom as _prom
+
 from ..config import config
 
 __all__ = ["ArenaBuffer", "StagingArena", "arena", "reset_arena", "arena_stats",
@@ -56,6 +59,17 @@ def _class_of(nbytes: int) -> int:
     return max(_MIN_CLASS, int(nbytes - 1).bit_length()) if nbytes > 1 \
         else _MIN_CLASS
 
+
+
+# the arena's families (always on: a take, not a sample)
+_HITS = _prom.counter(
+    "fsdr_arena_hits_total", "arena takes served from a recycled buffer")
+_MISSES = _prom.counter(
+    "fsdr_arena_misses_total", "arena takes that allocated a fresh buffer")
+_PINNED = _prom.gauge(
+    "fsdr_arena_pinned_bytes", "bytes of arena buffers currently checked out")
+_POOLED = _prom.gauge(
+    "fsdr_arena_pooled_bytes", "bytes of arena buffers idle in the pool")
 
 class ArenaBuffer:
     """One pooled buffer: a flat uint8 host tensor (pinned when its arena
@@ -137,6 +151,7 @@ class StagingArena:
         whose last copy has completed, else a fresh one."""
         cls = _class_of(int(nbytes))
         buf = None
+        hit = False
         with self._lock:
             lst = self._free.get(cls)
             for i in range(len(lst) if lst else 0):
@@ -144,6 +159,7 @@ class StagingArena:
                     buf = lst.pop(i)
                     self.pooled_bytes -= buf.nbytes
                     self.hits += 1
+                    hit = True
                     break
             else:
                 self.misses += 1
@@ -155,6 +171,10 @@ class StagingArena:
         with self._lock:
             self.pinned_bytes += buf.nbytes
             self.peak_pinned_bytes = max(self.peak_pinned_bytes, self.pinned_bytes)
+            pinned, pooled = self.pinned_bytes, self.pooled_bytes
+        (_HITS if hit else _MISSES).inc()
+        _PINNED.set(pinned)
+        _POOLED.set(pooled)
         return buf
 
     def take_array(self, shape, dtype) -> Tuple[np.ndarray, ArenaBuffer]:
@@ -177,6 +197,9 @@ class StagingArena:
                 self._free.setdefault(buf._cls, []).append(buf)
                 self.pooled_bytes += buf.nbytes
             # else: past the cap, dropped to the allocator
+            pinned, pooled = self.pinned_bytes, self.pooled_bytes
+        _PINNED.set(pinned)
+        _POOLED.set(pooled)
 
     def stats(self) -> dict:
         with self._lock:

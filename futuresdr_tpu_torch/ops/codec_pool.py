@@ -11,6 +11,11 @@ Two separate lanes: a decode task waits for its D2H to land, so one shared
 executor would let waiting decodes starve the encodes. Order is the
 caller's: the kernel joins its futures oldest first.
 
+The spans a task records (``encode``, ``decode``, the D2H it lands;
+``telemetry/spans.py``) land in the worker's own ring, so the doctor's lane
+unions attribute the host codec to the thread that paid it, and the
+recorder prunes a retired worker's ring once it has been drained.
+
 Each worker thread takes its creator's ``torch.get_num_threads()`` (OpenMP
 keeps the count a thread, and a worker that runs a torch operation must
 round as the creating thread does; the scheduler's threads do the same).

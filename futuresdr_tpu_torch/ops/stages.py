@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import time
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Any, Callable, Optional, Sequence, Tuple
@@ -48,6 +49,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import profile as _profile
 from . import cuda_kernels
 from .xfer import torch_dtype
 
@@ -268,7 +270,9 @@ class Pipeline:
         return run
 
     def compile(self, frame_size: int, device, donate: bool = True, k: int = 1,
-                slots: int = 1, wire=None, packed=None, carry=None):
+                slots: int = 1, wire=None, packed=None, carry=None,
+                program: Optional[str] = None, reason: Optional[str] = "warmup",
+                profile_device: Optional[str] = None):
         """The per-dispatch program for ``frame_size``-sample frames on
         ``device``, ``k`` frames a call: returns ``(fn, carry)`` with
         ``fn(carry, x) -> (carry, y)``, ``x`` of shape ``[frame_size]`` (k =
@@ -295,17 +299,36 @@ class Pipeline:
         output buffers, one graph each, for a streamed caller's dispatch
         groups in flight. A capture that fails raises: nothing runs eagerly
         in its place. On the CPU ``fn`` is an :class:`EagerProgram`, the
-        eager chain looped over the k frames."""
+        eager chain looped over the k frames.
+
+        The profile plane (``telemetry/profile.py``) bills the capture under
+        ``program`` (default the pipeline's class name) and ``reason`` (the
+        plane's vocabulary: ``warmup``, ``reinit``, ``recover``, …; on the
+        CPU the eager program's construction stands in for the capture;
+        ``reason=None`` leaves the first capture to a window the caller
+        holds, as the streamed kernels do; ``profile_device`` registers a
+        sharded program's per-device entry, ``program@dev<label>``), a
+        recapture for a changed carry as ``reinit``, and registers the
+        program's analytic cost (``utils/roofline.program_cost``, one unit a
+        dispatch of ``k`` frames); a call ``fn(carry, x)`` bills one unit. A
+        streamed caller that replays slots (``fn.dispatch``) bills its own
+        dispatch groups."""
         if frame_size % self.frame_multiple:
             raise ValueError(f"frame_size {frame_size} is not a multiple of "
                              f"{self.frame_multiple}")
         device = torch.device(device)
+        name = str(program or type(self).__name__)
         if device.type == "cuda":
             fn = CompiledPipeline(self, frame_size, device, k, donate, slots,
-                                  wire=wire, packed=packed, carry=carry)
+                                  wire=wire, packed=packed, carry=carry,
+                                  program=name, reason=reason,
+                                  profile_device=profile_device)
             return fn, fn.carry
-        return EagerProgram(self, frame_size, k, slots, wire=wire, packed=packed), \
-            (self.init_carry(device) if carry is None else carry)
+        with _profile.compiling(name, reason, _program_sig(frame_size, wire, k)) \
+                if reason is not None else contextlib.nullcontext():
+            fn = EagerProgram(self, frame_size, k, slots, wire=wire, packed=packed,
+                              program=name, profile_device=profile_device)
+        return fn, (self.init_carry(device) if carry is None else carry)
 
     def out_items(self, in_items: int) -> int:
         q = Fraction(in_items) * self.ratio
@@ -829,12 +852,19 @@ class CompiledPipeline:
     and every table a stage makes on first use, whose host copies a capture
     forbids), then the slots' captures. :attr:`launches` holds the hand
     kernels' launches a replay makes (``cuda_kernels.capturing``); each
-    replay adds them to ``cuda_kernels.launches``."""
+    replay adds them to ``cuda_kernels.launches``.
+
+    Each capture is billed to the profile plane under :attr:`program` (the
+    first with the caller's reason, a recapture as ``reinit``), with its
+    warm-up; nothing inside the captured region records telemetry (it would
+    run once, at capture)."""
 
     def __init__(self, pipeline: Pipeline, frame_size: int, device: torch.device,
                  k: int = 1, donate: bool = True, slots: int = 1, wire=None,
-                 packed=None, carry=None):
+                 packed=None, carry=None, program: str = "Pipeline",
+                 reason: Optional[str] = "warmup", profile_device: Optional[str] = None):
         self.pipeline = pipeline
+        self.program = str(program)
         self.frame_size = int(frame_size)
         self.k = int(k)
         self.device = device
@@ -846,9 +876,18 @@ class CompiledPipeline:
         self._program = _program(pipeline, self.k, wire, packed)
         self.inputs = [_slot_input(pipeline, self.frame_size, self.k, wire, packed, device)
                        for _ in range(int(slots))]
-        self._capture()
+        self.prof = _register_cost(self.program, pipeline, self.frame_size, wire, self.k,
+                                   profile_device)
+        self._capture(reason, _program_sig(self.frame_size, wire, self.k))
 
-    def _capture(self) -> None:
+    def _capture(self, reason: Optional[str], signature: str) -> None:
+        if reason is None:              # the caller's compile window covers it
+            self._capture_graphs()
+            return
+        with _profile.compiling(self.program, reason, signature):
+            self._capture_graphs()
+
+    def _capture_graphs(self) -> None:
         program = self._program
         cur = torch.cuda.current_stream(self.device)
         # torch.cuda.Stream hands out the streams of a pool, round robin: a
@@ -915,7 +954,8 @@ class CompiledPipeline:
         # a leaf changed shape, dtype or device: new buffers, a new capture
         ids = {id(t) for t in static}
         self.carry = _rebuild(carry, (n if id(n) in ids else n.clone() for n in new))
-        self._capture()
+        self._capture("reinit", "carry:" + ",".join(
+            f"{tuple(t.shape)}{str(t.dtype).replace('torch.', '')}" for t in _leaves(self.carry)))
 
     def dispatch(self, slot: int, carry):
         """Replay ``slot``'s graph on its input buffer: ``(carry, y)``, ``y``
@@ -935,9 +975,31 @@ class CompiledPipeline:
                                  f"got {tuple(t.shape)}")
             d.copy_(t)
         carry, y = self.dispatch(0, carry)
+        self.prof.dispatch(t=time.monotonic())
         if isinstance(y, tuple):
             return carry, tuple(t.clone() for t in y)
         return carry, y.clone()
+
+
+def _program_sig(frame_size: int, wire, k: int) -> str:
+    """A program's shape signature, as the profile plane's compile records
+    name it."""
+    return f"frame={int(frame_size)},wire={getattr(wire, 'name', 'none')},k={int(k)}"
+
+
+def _register_cost(name: str, pipeline, frame_size: int, wire, k: int,
+                   profile_device: Optional[str] = None):
+    """Register ``name``'s analytic cost with the profile plane, lazily
+    (counted when the plane is read): one unit is one dispatch of ``k``
+    frames; ``profile_device`` makes it a sharded program's per-device
+    entry."""
+    def cost():
+        from ..utils.roofline import program_cost
+        return program_cost(pipeline, frame_size, wire=wire, k=k)
+
+    from ..utils.roofline import dominant_dtype
+    return _profile.register(name, cost_thunk=cost, dtype=dominant_dtype(pipeline.stages),
+                             device=profile_device)
 
 
 def _program(pipeline, k: int, wire, packed):
@@ -972,16 +1034,21 @@ class EagerProgram:
     the same decode, chain and encode as the compiled program."""
 
     def __init__(self, pipeline: Pipeline, frame_size: int, k: int = 1, slots: int = 1,
-                 wire=None, packed=None):
+                 wire=None, packed=None, program: str = "Pipeline",
+                 profile_device: Optional[str] = None):
+        self.program = str(program)
         self._run = _program(pipeline, k, wire, packed)
         self.inputs = [_slot_input(pipeline, frame_size, k, wire, packed, "cpu")
                        for _ in range(int(slots))]
+        self.prof = _register_cost(self.program, pipeline, frame_size, wire, k, profile_device)
 
     def dispatch(self, slot: int, carry):
         return self._run(carry, self.inputs[slot])
 
     def __call__(self, carry, x):
-        return self._run(carry, x)
+        out = self._run(carry, x)
+        self.prof.dispatch(t=time.monotonic())
+        return out
 
 
 def _merge_lti(stages: Sequence[Stage], in_dtype) -> list:

@@ -18,11 +18,17 @@ uplink: one start a group), unpacked on the device by
 
 :data:`bytes_total`, :data:`starts_total` and :data:`retries_total` count each
 direction's (``"h2d"``, ``"d2h"``) bytes, copies started and retried
-attempts, counted where a transfer starts, on every device: the port's
-counterpart of the reference's ``fsdr_xfer_bytes_total``,
-``fsdr_xfer_starts_total`` and ``fsdr_retries_total`` without the Prometheus
-layer, read as ``cuda_kernels.launches`` is (:func:`reset_bytes`, then run,
-then read).
+attempts, counted where a transfer starts, on every device, read as
+``cuda_kernels.launches`` is (:func:`reset_bytes`, then run, then read). The
+same counts also feed the always-on Prometheus families
+``fsdr_xfer_bytes_total``, ``fsdr_xfer_transfers_total`` (one a transfer),
+``fsdr_xfer_starts_total`` and ``fsdr_retries_total`` by direction, and each
+transfer's dwell, from its start to its landing as the caller sees it, the
+``fsdr_xfer_seconds`` histogram; with tracing on it is also an ``H2D`` or
+``D2H`` span (``cat="tpu"``). The dwell is host time: the H2D's ends where
+the caller orders its stream after the copy (no wait on the card), the
+D2H's where the caller has waited on the copy's event, which it does in any
+case before it reads the data.
 
 Retries: a transfer's start runs inside :func:`_with_retry`. An error
 :func:`classify_transfer_error` calls transient (an injected link fault, a
@@ -54,6 +60,8 @@ import torch
 
 from ..config import config
 from ..log import logger
+from ..telemetry import prom as _prom
+from ..telemetry.spans import recorder as _trace_recorder
 from .arena import ArenaBuffer, arena
 
 __all__ = ["HostBuffer", "host_buffer", "to_device", "to_host", "start_device_transfer",
@@ -63,6 +71,28 @@ __all__ = ["HostBuffer", "host_buffer", "to_device", "to_host", "start_device_tr
            "fake_link", "PackedLayout"]
 
 log = logger("ops.xfer")
+_trace = _trace_recorder()
+
+# the link plane's families (always on: updates a transfer, not a sample)
+_XFER_BYTES = _prom.counter(
+    "fsdr_xfer_bytes_total", "bytes started on the host-device link", ("direction",))
+_XFER_TRANSFERS = _prom.counter(
+    "fsdr_xfer_transfers_total", "transfers started on the host-device link",
+    ("direction",))
+_XFER_STARTS = _prom.counter(
+    "fsdr_xfer_starts_total",
+    "physical per-buffer copy starts on the host-device link", ("direction",))
+_XFER_HIST = _prom.histogram(
+    "fsdr_xfer_seconds",
+    "host-device transfer duration, start to landing as the caller sees it "
+    "(fake link: the modeled wire window)", ("direction",))
+_RETRIES = _prom.counter(
+    "fsdr_retries_total", "transient host-device transfer retries", ("direction",))
+_BYTES = {d: _XFER_BYTES.labels(direction=d) for d in ("h2d", "d2h")}
+_TRANSFERS = {d: _XFER_TRANSFERS.labels(direction=d) for d in ("h2d", "d2h")}
+_STARTS = {d: _XFER_STARTS.labels(direction=d) for d in ("h2d", "d2h")}
+_HIST = {d: _XFER_HIST.labels(direction=d) for d in ("h2d", "d2h")}
+_RETRY = {d: _RETRIES.labels(direction=d) for d in ("h2d", "d2h")}
 
 Device = Union[str, torch.device]
 
@@ -82,6 +112,38 @@ def _tally(direction: str, n: int, starts: int) -> None:
     with _bytes_lock:
         bytes_total[direction] += int(n)
         starts_total[direction] += int(starts)
+    _BYTES[direction].inc(int(n))
+    _TRANSFERS[direction].inc()
+    _STARTS[direction].inc(int(starts))
+
+
+def _span_bounds_ns(t0_ns: int, service: float, deadline: float) -> tuple:
+    """``(start_ns, end_ns)`` of a transfer span, clamped to the fake link's
+    modeled wire occupancy when one exists: the span starts when the wire
+    begins servicing these bytes and ends at the landing deadline (a
+    ``finish()`` called late must not stretch the lane's busy interval)."""
+    end = time.perf_counter_ns()
+    if deadline:
+        dl = int(deadline * 1e9)       # perf_counter and perf_counter_ns share
+        if t0_ns < dl < end:           # one epoch
+            end = dl
+    start = t0_ns
+    if service:
+        sv = int(service * 1e9)
+        if t0_ns < sv:
+            start = min(sv, end)
+    return start, end
+
+
+def _note_landed(direction: str, t0_ns: int, service: float, deadline: float,
+                 nbytes: int) -> None:
+    """Bill one transfer's dwell: the histogram always, the span with
+    tracing on."""
+    s, e = _span_bounds_ns(t0_ns, service, deadline)
+    _HIST[direction].observe((e - s) * 1e-9)
+    if _trace.enabled:
+        _trace.complete("tpu", "H2D" if direction == "h2d" else "D2H", s, end_ns=e,
+                        args={"bytes": nbytes})
 
 
 def reset_bytes() -> None:
@@ -186,6 +248,7 @@ def _with_retry(direction: str, attempt_fn):
                 f"exhausted): {err!r}") from err
         with _bytes_lock:
             retries_total[direction] += 1
+        _RETRY[direction].inc()
         log.warning("%s transfer attempt %d failed transiently (%r): "
                     "retrying in %.1f ms", direction, attempt, err, pause * 1e3)
         time.sleep(pause)
@@ -414,6 +477,7 @@ def start_device_transfer_parts(parts: Sequence, device: Device,
             h.release()
         raise
     service, deadline = _reserve("h2d", nbytes)
+    t0 = time.perf_counter_ns()
 
     if device.type == "cpu":
         for h in handles:                   # the copies are done
@@ -421,6 +485,7 @@ def start_device_transfer_parts(parts: Sequence, device: Device,
 
         def finish_cpu():
             _wait_deadline(deadline)
+            _note_landed("h2d", t0, service, deadline, nbytes)
             return got
 
         finish_cpu._wire = (service, deadline)
@@ -434,6 +499,7 @@ def start_device_transfer_parts(parts: Sequence, device: Device,
         _wait_deadline(deadline)
         cur = torch.cuda.current_stream(device)
         cur.wait_event(done)
+        _note_landed("h2d", t0, service, deadline, nbytes)
         if out is None:
             for d in dsts:
                 d.record_stream(cur)
@@ -502,11 +568,13 @@ def start_host_transfer_parts(parts: Sequence[torch.Tensor]
 
     hosts, done, bufs = _with_retry("d2h", attempt)
     service, deadline = _reserve("d2h", nbytes)
+    t0 = time.perf_counter_ns()
 
     def finish() -> Tuple[np.ndarray, ...]:
         if done is not None:
             done.synchronize()
         _wait_deadline(deadline)
+        _note_landed("d2h", t0, service, deadline, nbytes)
         return tuple(h.numpy() for h in hosts)
 
     def release() -> None:

@@ -21,7 +21,11 @@ init'ed again; each attempt is reported to the supervisor
 block retires while independent branches finish.
 Each block counts its work calls and time, its handled messages, its
 restarts and, on its ports, the items in and out and the parks
-(``metrics``).
+(``metrics``). Telemetry: each work call is observed (1 in 8) by the
+``fsdr_block_work_duration_seconds{block}`` histogram, and, with tracing on
+(``FUTURESDR_TPU_TRACE``), recorded as a ``block`` span, each park as a
+``park`` span naming the stalled and starved ports, each restart as a
+``block_restart`` instant and a tick of ``fsdr_block_restarts_total``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ from typing import Optional
 
 from ..config import config
 from ..log import logger
+from ..telemetry import prom as _prom
+from ..telemetry.doctor import WORK_DURATION as _WORK_DURATION
+from ..telemetry.spans import recorder as _trace_recorder
 from ..types import BlockDescription, Pmt
 from . import faults as _faults
 from .inbox import (BlockInbox, Call, Callback, Initialize, StreamInputDone,
@@ -44,6 +51,11 @@ __all__ = ["WrappedKernel", "BlockPolicy", "policy_allows_fusion", "fusion_degra
            "isolate_groups_from_config"]
 
 log = logger("runtime.block")
+_trace = _trace_recorder()
+
+_RESTARTS = _prom.counter(
+    "fsdr_block_restarts_total",
+    "block restarts under the restart failure policy", ("block",))
 
 _POLICIES = ("fail_fast", "restart", "isolate")
 
@@ -161,6 +173,11 @@ class WrappedKernel:
         # first use (the config may change until the launch)
         self.restarts = 0
         self._policy: Optional[BlockPolicy] = None
+        self._restart_ctr = None
+        # the work-duration child, bound once (labels() takes the family's
+        # lock); the event loop observes 1 call in 8 (a local countdown),
+        # billed by the telemetry overhead gate
+        self._work_hist = _WORK_DURATION.labels(block=kernel.meta.instance_name)
         # direct message dispatch (message_output.py): the event loop
         # publishes its WorkIo, its loop and its liveness, so a sender on the
         # same loop can call a sync handler in its own frame
@@ -242,19 +259,24 @@ class WrappedKernel:
             restarts=self.restarts,
             isolate_group=self.policy.isolate_group)
 
-    def _note_park(self) -> None:
+    def _note_park(self) -> tuple:
         """Count a park against the ports that cause it: a full output
-        (backpressure) or an input below ``min_items`` (starvation)."""
+        (backpressure) or an input below ``min_items`` (starvation); returns
+        the (stalled, starved) port names for the park span."""
         k = self.kernel
+        stalled, starved = [], []
         for p in k.stream_outputs:
             space = getattr(p, "space", None)        # in-place ports have no ring
             if space is not None and p.connected and space() < p.min_items:
                 p.stalls += 1
+                stalled.append(p.name)
         for p in k.stream_inputs:
             avail = getattr(p, "available", None)
             if avail is not None and p.connected and not p.finished() \
                     and avail() < p.min_items:
                 p.starved += 1
+                starved.append(p.name)
+        return stalled, starved
 
     # -- the restart policy ----------------------------------------------------
     async def _note_restart(self, err: Exception, fg_inbox, phase: str) -> None:
@@ -263,8 +285,14 @@ class WrappedKernel:
         from .runtime import BlockRestartMsg
         pol = self.policy
         self.restarts += 1
+        if self._restart_ctr is None:
+            self._restart_ctr = _RESTARTS.labels(block=self.instance_name)
+        self._restart_ctr.inc()
         log.warning("block %s failed in %s (%r): restart %d/%d", self.instance_name,
                     phase, err, self.restarts, pol.max_restarts)
+        _trace.instant("runtime", "block_restart",
+                       args={"block": self.instance_name, "phase": phase,
+                             "attempt": self.restarts})
         fg_inbox.send(BlockRestartMsg(self.id, self.restarts, err, phase))
         delay = min(pol.backoff * (2 ** (self.restarts - 1)), pol.backoff_cap)
         if delay > 0:
@@ -399,6 +427,9 @@ class WrappedKernel:
         # the work:<block> fault site (runtime/faults.py), resolved once
         fplan = _faults.plan()
         work_fault = fplan.resolve("work", self.instance_name) if fplan.armed() else None
+        # the work-duration histogram's systematic 1-in-8 sample: a local
+        # countdown keeps the per-call cost to an add and a test
+        work_hist, tick = self._work_hist, 0
         try:
             # a work error under a restart policy re-initializes the kernel in
             # place and enters the event loop again
@@ -441,16 +472,27 @@ class WrappedKernel:
                                 if inbox_t not in done:
                                     inbox_t.cancel()
                             else:
-                                self._note_park()
+                                stalled, starved = self._note_park()
+                                t_park = time.perf_counter_ns()
                                 await self.inbox.wait()
+                                if _trace.enabled:
+                                    _trace.complete("park", self.instance_name, t_park,
+                                                    args={"stalled": stalled,
+                                                          "starved": starved})
                             continue
                         io.reset()
                         if work_fault is not None:
                             work_fault.check()      # before work() touches a port
-                        t0 = time.perf_counter()
+                        t0 = time.perf_counter_ns()
                         await kernel.work(io, kernel.mio, meta)
-                        self.work_time_s += time.perf_counter() - t0
+                        end = time.perf_counter_ns()
+                        self.work_time_s += (end - t0) * 1e-9
                         self.work_calls += 1
+                        tick += 1
+                        if not tick & 7:
+                            work_hist.observe((end - t0) * 1e-9)
+                        if _trace.enabled:
+                            _trace.complete("block", self.instance_name, t0, end_ns=end)
                 except Exception as e:
                     pol = self.policy
                     if pol.on_error == "restart" and self.restarts < pol.max_restarts:

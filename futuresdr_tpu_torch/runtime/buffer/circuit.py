@@ -7,7 +7,8 @@ queue of every connected input, and the inbox wake-ups both ways (a pushed
 frame wakes the consumer, a taken frame wakes the producer, whose in-flight
 gate reads :meth:`InplaceOutput.queue_depth`). The reference's host-frame
 ``Circuit`` pool (mutating CPU blocks that return frames to their source) is
-ROADMAP Queue 1 item 4b.
+ROADMAP Queue 1 item 4b part 2, the rest of the host plane (part 1, the
+telemetry plane, is ported).
 
 A device frame crosses threads here: every frame-plane block is blocking and
 runs on a thread of its own, each thread issuing work on its current CUDA

@@ -11,6 +11,20 @@ thread and event loop answers:
   GET  /api/fg/{fg}/block/{blk}/                  → BlockDescription
   GET  /api/fg/{fg}/block/{blk}/call/{handler}/   → call with Pmt::Null
   POST /api/fg/{fg}/block/{blk}/call/{handler}/   → call with a JSON-Pmt body
+  GET  /api/fg/{fg}/trace/                        → drain the span rings as a
+                                                    Chrome trace (?keep=1: peek)
+  GET  /api/fg/{fg}/doctor/                       → flight record + report
+                                                    (?md=1: markdown)
+  GET  /api/fg/{fg}/profile/                      → the profile plane
+                                                    (?costs=1: count the costs)
+  GET  /api/fg/{fg}/lineage/                      → tail report + records (?n=)
+  GET  /api/events/                               → the journal (?since=, ?cat=,
+                                                    ?limit=)
+  GET  /api/host/                                 → this host's fleet export
+  GET  /api/fleet/                                → the fleet view (404 with no
+                                                    fleet_peers)
+  GET  /api/fleet/metrics                         → the fleet's merged /metrics
+  POST /api/fleet/serve/{app}/session/            → a pressure-routed admission
 
 with the reference's JSON bodies (``json.dumps`` of the same objects) and
 status codes: 404 ``{"error": "flowgraph not found"}`` or ``{"error":
@@ -22,11 +36,14 @@ port 0 to take a free port; :attr:`ControlPort.port` holds the bound one.
 
 Also mounted: the serving plane's session routes, ``/healthz`` and
 ``/readyz`` (``serve/api.py``), and ``GET /metrics``, the Prometheus
-registry's text (``telemetry/prom.py``; the reference's per-block families
-are not rendered yet).
+registry's text with every live flowgraph's per-block families
+(``telemetry/prom.py``; ``?openmetrics=1`` adds the lineage exemplars). The
+telemetry routes read process-global planes (``telemetry/``), so any live
+flowgraph id answers them (an unknown one is a 404, as in the reference);
+the fleet view starts with the first control port when config
+``fleet_peers`` is set.
 
-Not ported (ROADMAP Queue 1 item 4b): trace, doctor, profile, lineage,
-events, host, fleet and the GUI page.
+Not ported: the reference's GUI page.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import re
 import threading
 from http import HTTPStatus
 from typing import Optional, Tuple
+from urllib.parse import parse_qsl
 
 from ..config import config
 from ..log import logger
@@ -47,6 +65,11 @@ __all__ = ["ControlPort"]
 log = logger("ctrl_port")
 
 _MAX_HEAD = 64 * 1024
+
+
+def parse_qs(qs: str) -> dict:
+    """A query string's parameters, the last value of each."""
+    return dict(parse_qsl(qs, keep_blank_values=True))
 _MAX_BODY = 16 * 1024 * 1024
 
 _FG = r"^/api/fg/(?P<fg>[^/]+)/"
@@ -54,6 +77,15 @@ _ROUTES = (
     (("GET",), re.compile(r"^/api/fg/$"), "_list_fgs"),
     (("GET",), re.compile(_FG + r"$"), "_describe_fg"),
     (("GET",), re.compile(_FG + r"metrics/$"), "_metrics"),
+    (("GET",), re.compile(_FG + r"trace/$"), "_trace"),
+    (("GET",), re.compile(_FG + r"doctor/$"), "_doctor"),
+    (("GET",), re.compile(_FG + r"profile/$"), "_profile"),
+    (("GET",), re.compile(_FG + r"lineage/$"), "_lineage"),
+    (("GET",), re.compile(r"^/api/events/$"), "_events"),
+    (("GET",), re.compile(r"^/api/host/$"), "_host_summary"),
+    (("GET",), re.compile(r"^/api/fleet/$"), "_fleet"),
+    (("GET",), re.compile(r"^/api/fleet/metrics$"), "_fleet_metrics"),
+    (("POST",), re.compile(r"^/api/fleet/serve/(?P<app>[^/]+)/session/$"), "_fleet_admit"),
     (("GET",), re.compile(_FG + r"block/(?P<blk>[^/]+)/$"), "_describe_block"),
     (("GET", "POST"),
      re.compile(_FG + r"block/(?P<blk>[^/]+)/call/(?P<handler>[^/]+)/$"), "_call"),
@@ -73,8 +105,10 @@ def _response(status: int, body: bytes, content_type: str,
     return head.encode("latin-1") + body
 
 
-def _json(obj, status: int = 200) -> Tuple[int, bytes, str]:
-    return status, json.dumps(obj).encode(), "application/json; charset=utf-8"
+def _json(obj, status: int = 200, headers: Optional[dict] = None):
+    # default=str: span args and extra_metrics may carry numpy scalars
+    out = (status, json.dumps(obj, default=str).encode(), "application/json; charset=utf-8")
+    return out + (headers,) if headers else out
 
 
 def _text(status: int) -> Tuple[int, bytes, str]:
@@ -96,6 +130,7 @@ class ControlPort:
         self._server: Optional[asyncio.AbstractServer] = None
         self._started = threading.Event()
         self._error: Optional[BaseException] = None
+        self._fleet_router = None          # built at the first routed admission
 
     # -- lifecycle (own thread and loop) -----------------------------------------
     def start(self) -> None:
@@ -133,6 +168,11 @@ class ControlPort:
             self._thread = None
             raise self._error
         log.info("control port listening on %s:%d", self.host, self.port)
+        try:
+            from ..telemetry import fleet as _fleet
+            _fleet.ensure_started()        # None (and nothing runs) with no peers
+        except Exception as e:             # noqa: BLE001 — an optional plane
+            log.warning("fleet plane unavailable: %r", e)
 
     def stop(self) -> None:
         if self._loop is not None and self._thread is not None:
@@ -168,8 +208,9 @@ class ControlPort:
                 writer.write(_response(*_text(413)))
                 return
             body = await reader.readexactly(length) if length else b""
+            path, _, qs = target.partition("?")
             try:
-                got = await self._route(method, target.split("?")[0], body)
+                got = await self._route(method, path, body, parse_qs(qs))
             except Exception as e:                 # noqa: BLE001 — a route's bug
                 log.error("control port %s %s failed: %r", method, target, e)
                 got = _text(500)
@@ -180,24 +221,171 @@ class ControlPort:
         finally:
             writer.close()
 
-    async def _route(self, method: str, path: str, body: bytes):
+    async def _route(self, method: str, path: str, body: bytes, query: dict):
         from ..serve import api as serve_api
         allowed = False
-        table = [(ms, pat, getattr(self, name)) for ms, pat, name in _ROUTES]
-        table += serve_api.routes()
-        for methods, pattern, handler in table:
+        table = [(ms, pat, getattr(self, name), True) for ms, pat, name in _ROUTES]
+        table += [(ms, pat, h, False) for ms, pat, h in serve_api.routes()]
+        for methods, pattern, handler, own in table:
             m = pattern.match(path)
             if m is None:
                 continue
             if method not in methods:
                 allowed = True
                 continue
+            if own:                        # this port's routes read the query
+                return await handler(method, body, query, **m.groupdict())
             return await handler(method, body, **m.groupdict())
         return _text(405 if allowed else 404)
 
-    async def _prom_metrics(self, method, body):
+    async def _fg_metrics(self) -> dict:
+        """Every live flowgraph's per-block metrics, by id."""
+        out = {}
+        for fg_id in self.handle.flowgraph_ids():
+            h = self.handle.get_flowgraph(fg_id)
+            if h is None:
+                continue
+            try:
+                out[fg_id] = await h.metrics()
+            except Exception as e:         # noqa: BLE001 — a scrape never fails
+                log.warning("metrics scrape of fg %d failed: %r", fg_id, e)
+        return out
+
+    async def _prom_metrics(self, method, body, query):
+        """The registry with every live flowgraph's per-block families; the
+        live gauges refresh first (their own minimum interval keeps a scrape
+        storm from shrinking the window into noise)."""
+        from ..telemetry import profile, prom
+        try:
+            profile.plane().update_live_gauges()
+        except Exception as e:             # noqa: BLE001 — a scrape never fails
+            log.warning("profile gauge refresh failed: %r", e)
+        fg_metrics = await self._fg_metrics()
+        if query.get("openmetrics"):
+            text = prom.registry().render_openmetrics()
+            if fg_metrics:
+                text = text[:-len("# EOF\n")] + prom.render_block_metrics(fg_metrics) \
+                    + "# EOF\n"
+            return 200, text.encode(), prom.CONTENT_TYPE_OPENMETRICS
+        return 200, prom.render_all(fg_metrics).encode(), prom.CONTENT_TYPE
+
+    async def _trace(self, method, body, query, fg):
+        """Drain every thread's span ring as a Chrome trace (``?keep=1``
+        reads without draining, so another consumer keeps its events)."""
+        from ..telemetry import spans
+        if self._fg(fg) is None:
+            return _json({"error": "flowgraph not found"}, 404)
+        rec = spans.recorder()
+        events = rec.snapshot() if query.get("keep") else rec.drain()
+        return _json(rec.chrome_trace(events))
+
+    async def _doctor(self, method, body, query, fg):
+        """A flight record and the bottleneck report over a snapshot of the
+        spans (``?md=1``: the record as markdown)."""
+        from ..telemetry import doctor as doc
+        from ..telemetry import spans
+        if self._fg(fg) is None:
+            return _json({"error": "flowgraph not found"}, 404)
+        d = doc.doctor()
+        loop = asyncio.get_running_loop()
+        record = await loop.run_in_executor(None, d.flight_record, "endpoint")
+        if query.get("md"):
+            return 200, doc.render_markdown(record).encode(), "text/markdown; charset=utf-8"
+        report = await loop.run_in_executor(
+            None, lambda: d.report(events=spans.recorder().snapshot()))
+        return _json({"report": report, "flight_record": record})
+
+    async def _profile(self, method, body, query, fg):
+        """The profile plane: compiles by program and reason, active
+        compiles, storms, the live roofline (``?costs=1`` counts the lazily
+        registered costs first, off the event loop)."""
+        from ..telemetry import profile
+        if self._fg(fg) is None:
+            return _json({"error": "flowgraph not found"}, 404)
+        if query.get("costs"):
+            snap = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: profile.plane().snapshot(ensure_costs=True))
+        else:
+            profile.plane().update_live_gauges()
+            snap = profile.plane().snapshot()
+        return _json(snap)
+
+    async def _lineage(self, method, body, query, fg):
+        """The sampled lineage: the tail report and the newest completed
+        records (``?n=``, default 32)."""
+        from ..telemetry import lineage
+        if self._fg(fg) is None:
+            return _json({"error": "flowgraph not found"}, 404)
+        try:
+            n = max(0, int(query.get("n", 32)))
+        except ValueError:
+            return _json({"error": "bad n"}, 400)
+        tr = lineage.tracer()
+        return _json({"stride": tr.stride, "dropped": tr.dropped,
+                      "tail": lineage.tail_report(), "records": tr.records_dicts(n or None)})
+
+    async def _events(self, method, body, query):
+        """The journal's cursor read: ``?since=<seq>``, ``?cat=``,
+        ``?limit=``; ``next`` is the following cursor, ``gap`` marks events
+        the ring dropped."""
+        from ..telemetry import journal
+        try:
+            since = int(query.get("since", 0))
+            limit = int(query["limit"]) if "limit" in query else None
+        except ValueError:
+            return _json({"error": "bad since/limit"}, 400)
+        return _json(journal.journal().events(since=since, cat=query.get("cat") or None,
+                                              limit=limit))
+
+    async def _host_summary(self, method, body, query):
+        """This host's fleet export (lock-free reads only)."""
+        from ..telemetry import fleet
+        return _json(fleet.host_summary())
+
+    def _fleet_view(self):
+        from ..telemetry import fleet
+        return fleet.ensure_started()
+
+    async def _fleet(self, method, body, query):
+        view = self._fleet_view()
+        if view is None:
+            return _json({"error": "fleet plane disabled (set fleet_peers)"}, 404)
+        return _json(view.snapshot())
+
+    async def _fleet_metrics(self, method, body, query):
+        """Every peer's /metrics merged with a ``host=`` label (the scrapes
+        are blocking HTTP: off the event loop)."""
         from ..telemetry import prom
-        return 200, prom.render_all().encode(), prom.CONTENT_TYPE
+        view = self._fleet_view()
+        if view is None:
+            return _json({"error": "fleet plane disabled (set fleet_peers)"}, 404)
+        text = await asyncio.get_running_loop().run_in_executor(None, view.merged_metrics)
+        return 200, text.encode(), prom.CONTENT_TYPE
+
+    async def _fleet_admit(self, method, body, query, app):
+        """A pressure-routed admission (``serve/router.py``): the least
+        pressured ready host, failing over on a 503."""
+        from ..serve.router import AdmissionRouter, NoReadyHost
+        view = self._fleet_view()
+        if view is None:
+            return _json({"error": "fleet plane disabled (set fleet_peers)"}, 404)
+        if self._fleet_router is None:
+            self._fleet_router = AdmissionRouter(view)
+        try:
+            req = json.loads(body) if body else {}
+            if not isinstance(req, dict):
+                raise ValueError("not an object")
+        except ValueError:
+            return _json({"error": "bad json body", "app": app}, 400)
+        try:
+            out = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self._fleet_router.admit(
+                    app, tenant=str(req.get("tenant", "default")), sid=req.get("sid"),
+                    body=req))
+        except NoReadyHost as e:
+            return _json({"error": str(e), "app": app}, 503,
+                         {"Retry-After": str(e.retry_after)})
+        return _json(out, 201)
 
     def _fg(self, fg: str):
         try:
@@ -205,22 +393,22 @@ class ControlPort:
         except ValueError:
             return None
 
-    async def _list_fgs(self, method, body):
+    async def _list_fgs(self, method, body, query):
         return _json(self.handle.flowgraph_ids())
 
-    async def _describe_fg(self, method, body, fg):
+    async def _describe_fg(self, method, body, query, fg):
         h = self._fg(fg)
         if h is None:
             return _json({"error": "flowgraph not found"}, 404)
         return _json((await h.describe()).to_json())
 
-    async def _metrics(self, method, body, fg):
+    async def _metrics(self, method, body, query, fg):
         h = self._fg(fg)
         if h is None:
             return _json({"error": "flowgraph not found"}, 404)
         return _json(await h.metrics())
 
-    async def _describe_block(self, method, body, fg, blk):
+    async def _describe_block(self, method, body, query, fg, blk):
         h = self._fg(fg)
         if h is None:
             return _json({"error": "flowgraph not found"}, 404)
@@ -230,7 +418,7 @@ class ControlPort:
                 return _json(b.to_json())
         return _json({"error": "block not found"}, 404)
 
-    async def _call(self, method, body, fg, blk, handler):
+    async def _call(self, method, body, query, fg, blk, handler):
         h = self._fg(fg)
         if h is None:
             return _json({"error": "flowgraph not found"}, 404)

@@ -68,13 +68,20 @@ kernel checkpoints its composed carry (``_dc_restartable``), and on a work
 error the drive loop recovers it from the checkpoint and replays its groups
 bit for bit, or, where no checkpoint serves, re-inits it, out of that
 member's restart budget; each attempt is reported under the member's name.
-The reference's native CPU ``fastchain`` pass is ROADMAP item 5's remainder.
+The reference's native CPU ``fastchain`` pass is ROADMAP Queue 1 item 4b part
+2.
 
 A ``ctrl`` retune addressed to a fused member (``handle.call(member,
 "ctrl", …)``) becomes carry surgery on the fused pipeline between
 dispatches, at the member's stage range; a ``TpuStage``'s queued pre-launch
 ``ctrl`` is applied to the fused carry at compile. Other ports answer
 ``Pmt.invalid_value()``.
+
+Telemetry: a fused run records one ``devchain`` span (its members, frames,
+dispatches and K; a fan-out's branches and a DAG's sinks with the items
+each carried) for the doctor's report, and each restart attempt journals a
+``devchain``/``restart`` event; the fused kernel's own spans are
+:class:`~futuresdr_tpu_torch.tpu.TpuKernel`'s.
 
 Known divergence from the per-hop path, as in the reference: at EOS the
 composed frame contract applies once, so a final partial frame may yield up
@@ -91,6 +98,8 @@ from typing import List, Sequence
 import numpy as np
 
 from ..log import logger
+from ..telemetry import journal as _tel_journal
+from ..telemetry.spans import recorder as _trace_recorder
 from . import faults as _faults
 from .block import fusion_degraded, policy_allows_fusion
 from .inbox import (Call, Callback, Initialize, StreamInputDone, StreamOutputDone,
@@ -101,6 +110,7 @@ __all__ = ["DevChain", "find_device_chains", "run_devchain_task",
            "shed_devchain_bridge", "devchain_enabled"]
 
 log = logger("runtime.devchain")
+_trace = _trace_recorder()
 
 
 def devchain_enabled() -> bool:
@@ -1037,6 +1047,8 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
             while pol_member is not None and \
                     pol_member.restarts < pol_member.policy.max_restarts:
                 await pol_member._note_restart(err, fg_inbox, phase="work")
+                _tel_journal.emit("devchain", "restart", region=kernel.meta.instance_name,
+                                  attempt=pol_member.restarts, error=repr(err))
                 try:
                     if await kernel.recover(err):
                         log.info("devchain %s recovered in place from its composed "
@@ -1104,6 +1116,7 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
         fused.input.notify_finished()
 
     error = None
+    t_chain = _trace.now()
     try:
         await scheduler.spawn_blocking(lambda: asyncio.run(_drive()))
     except Exception as e:                             # noqa: BLE001 — reported
@@ -1118,4 +1131,25 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
     if error is not None:
         _error_out(error)
         return
+    if _trace.enabled:
+        # one span for the whole fused run; a fan-out names each branch and a
+        # DAG each sink, so the doctor's report says which carried the output
+        span_args = {"members": len(members),
+                     "frames": fused.frames_dispatched,
+                     "dispatches": fused.dispatches,
+                     "frames_per_dispatch": fused.k_batch,
+                     "per_member": {b.instance_name: fused.frames_dispatched
+                                    for b in members}}
+        if chain.fanout or chain.dag:
+            span_args["branches" if chain.fanout else "sinks"] = [
+                {("branch" if chain.fanout else "sink"): j,
+                 "tail": members[i].instance_name,
+                 **({"members": len(chain.branches[j])} if chain.fanout else {}),
+                 "items_out": fused.frames_dispatched * fused.out_frames[j],
+                 "retired": bool(fused._branch_done[j])}
+                for j, i in enumerate(tail_idx)]
+            if chain.dag:
+                span_args["merges"] = sum(1 for ins in chain.nodes if len(ins) > 1)
+        _trace.complete("devchain", f"devchain[{members[0].instance_name}…x{len(members)}]",
+                        t_chain, args=span_args)
     _finish_all()

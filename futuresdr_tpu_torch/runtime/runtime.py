@@ -22,8 +22,16 @@ recorded, carried by the final :class:`FlowgraphError` and served by
 ``describe()``. ``Runtime.run(fg, timeout=…)`` (or config ``run_timeout``)
 is a deadline over the launch and the run: past it the run is cancelled and
 raises a :class:`FlowgraphError`, after ``run_timeout_grace`` seconds even if
-a block never winds down. Telemetry and the doctor's flight records are not
-ported.
+a block never winds down.
+
+Telemetry (``telemetry/``): the supervisor records its ``flowgraph`` and
+``init_barrier`` spans and the ``terminate_cascade``, ``block_isolated`` and
+``group_isolated`` instants, attaches the launched blocks and their stream
+edges to the doctor's watchdog for the run (config ``doctor`` starts it
+with the first :class:`Runtime`; ``doctor_action="cancel"`` lets a trip
+cancel the run), and flight-records a run that ends in an error or
+overruns its deadline: the dump's path rides the
+:class:`FlowgraphError` (``flight_record``) where ``doctor_dir`` is set.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Any, Dict, List, Optional, Union
 
 from ..config import config
 from ..log import logger
+from ..telemetry.spans import recorder as _trace_recorder
 from ..types import FlowgraphDescription, Pmt
 from .block import WrappedKernel
 from .flowgraph import Flowgraph
@@ -49,6 +58,7 @@ __all__ = ["Runtime", "RuntimeHandle", "FlowgraphHandle", "RunningFlowgraph",
            "MetricsMsg", "TerminateMsg", "CancelMsg"]
 
 log = logger("runtime")
+_trace = _trace_recorder()
 
 
 # ---- messages to the supervisor ------------------------------------------------
@@ -112,8 +122,11 @@ class TerminateMsg:
 @dataclass(frozen=True)
 class CancelMsg:
     """Stop the flowgraph with an error: a terminate cascade, and the run
-    raises a :class:`FlowgraphError` carrying a :class:`FlowgraphCancelled`."""
+    raises a :class:`FlowgraphError` carrying a :class:`FlowgraphCancelled`.
+    ``flight_record`` is the doctor's dump path when one was written (the
+    run deadline, the watchdog's ``cancel`` escalation)."""
     reason: str
+    flight_record: Optional[str] = None
 
 
 class FlowgraphError(RuntimeError):
@@ -121,20 +134,25 @@ class FlowgraphError(RuntimeError):
     ``errors`` holds every collected exception, ``blocks`` the failed
     block's instance name for each (None for a cancel), and
     ``policy_decisions`` the supervisor's policy actions (restart attempts,
-    isolations, the fail-fast verdict, cancels)."""
+    isolations, the fail-fast verdict, cancels). ``flight_record`` is the
+    path of the doctor's flight record of the failure, where one was
+    written (``doctor_dir``)."""
 
-    def __init__(self, message: str, errors=(), blocks=(), policy_decisions=()):
+    def __init__(self, message: str, errors=(), blocks=(), policy_decisions=(),
+                 flight_record: Optional[str] = None):
         super().__init__(message)
         self.errors: List[Exception] = list(errors)
         self.blocks: List[Optional[str]] = list(blocks)
         self.policy_decisions: List[dict] = list(policy_decisions)
+        self.flight_record = flight_record
 
 
 class FlowgraphCancelled(RuntimeError):
     """The error recorded when a run is cancelled."""
 
 
-def _make_error(errors: List[Exception], blocks=(), decisions=()) -> FlowgraphError:
+def _make_error(errors: List[Exception], blocks=(), decisions=(),
+                flight_record: Optional[str] = None) -> FlowgraphError:
     """One error for all: a single error keeps its own message, several
     give the count and each block."""
     if len(errors) == 1:
@@ -142,7 +160,7 @@ def _make_error(errors: List[Exception], blocks=(), decisions=()) -> FlowgraphEr
     else:
         msg = f"{len(errors)} blocks failed: " + "; ".join(
             f"{b or '<runtime>'}: {e!r}" for b, e in zip(blocks, errors))
-    return FlowgraphError(msg, errors, blocks, decisions)
+    return FlowgraphError(msg, errors, blocks, decisions, flight_record)
 
 
 def _describe(fg: Flowgraph, blocks: List[WrappedKernel], decisions=()) -> FlowgraphDescription:
@@ -187,7 +205,9 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
     every launch (``devchain.py``): each fusable device region is driven by
     one fused block whose task answers the protocol for every member; the
     other blocks run as actors."""
+    from ..telemetry.doctor import doctor as _doctor
     from .devchain import find_device_chains, run_devchain_task, shed_devchain_bridge
+    t_sup = _trace.now()
     dev_chains = find_device_chains(fg)
     blocks = fg.take_blocks()
     by_id = {b.id: b for b in blocks}
@@ -206,189 +226,230 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
     for members, ch in dev_tasks:
         handles.append(scheduler.spawn(run_devchain_task(members, ch, fg_inbox,
                                                          scheduler)))
+    # the doctor's watchdog samples these blocks' progress and classifies a
+    # wedge over the stream edges; detached in the finally below
+    doc = _doctor()
+
+    def doctor_cancel(diag: dict, path: Optional[str]) -> None:
+        # the doctor_action=cancel escalation, from the watchdog thread
+        # after the flight record landed (the send is thread-safe)
+        fg_inbox.send(CancelMsg(f"doctor watchdog: {diag.get('state')} — "
+                                f"{diag.get('detail')}", path))
+
+    doc_token = doc.attach(blocks, [
+        (wk[id(e.src)], e.src_port, wk[id(e.dst)], e.dst_port)
+        for e in fg.stream_edges if id(e.src) in wk and id(e.dst) in wk],
+        cancel=doctor_cancel)
     errors: List[Exception] = []
     err_blocks: List[Optional[str]] = []    # the failed block's name per error
     decisions: List[dict] = []              # the policy actions taken
-    ended: List[WrappedKernel] = []     # finished or failed, restored at the end
-    queued: list = []                   # handle traffic during the barrier
-    active = len(blocks)
-    terminated = False
-    fatal_init = None
-    # isolate groups, each in topological order
-    groups: Dict[str, List[WrappedKernel]] = {}
-    for b in blocks:
-        if b.policy.isolate_group:
-            groups.setdefault(b.policy.isolate_group, []).append(b)
-    if groups:
-        ranks = _topo_ranks(fg, wk)
-        for members in groups.values():
-            members.sort(key=lambda b: ranks.get(id(b), 0))
-    retired_groups: set = set()
+    flight_paths: List[str] = []            # dumps a CancelMsg carried
+    try:
+        ended: List[WrappedKernel] = []     # finished or failed, restored at the end
+        queued: list = []                   # handle traffic during the barrier
+        active = len(blocks)
+        terminated = False
+        fatal_init = None
+        # isolate groups, each in topological order
+        groups: Dict[str, List[WrappedKernel]] = {}
+        for b in blocks:
+            if b.policy.isolate_group:
+                groups.setdefault(b.policy.isolate_group, []).append(b)
+        if groups:
+            ranks = _topo_ranks(fg, wk)
+            for members in groups.values():
+                members.sort(key=lambda b: ranks.get(id(b), 0))
+        retired_groups: set = set()
 
-    def terminate_all() -> None:
-        nonlocal terminated
-        if not terminated:
-            for b in blocks:
-                b.inbox.send(Terminate())
-            terminated = True
+        def terminate_all(reason: str, **args) -> None:
+            nonlocal terminated
+            if not terminated:
+                _trace.instant("runtime", "terminate_cascade", args={"reason": reason, **args})
+                for b in blocks:
+                    b.inbox.send(Terminate())
+                terminated = True
 
-    def retire_group(group: str, origin: str, err) -> None:
-        """Retire every member of ``group`` after ``origin`` failed: one
-        decision naming them all, then each survivor's ports ended at once
-        in topological order and the member terminated."""
-        if group in retired_groups:
-            return
-        retired_groups.add(group)
-        members = groups.get(group, [])
-        decisions.append({"block": origin, "action": "isolate_group", "group": group,
-                          "members": [m.instance_name for m in members],
-                          "error": repr(err)})
-        log.error("block %s failed (%r): isolate group %r retires %s; the flowgraph "
-                  "continues", origin, err, group, [m.instance_name for m in members])
-        for m in members:
-            if m.instance_name == origin:
-                continue                 # its own error path ended its ports
-            m.inbox.send(Terminate())
-            try:
-                m._notify_ports_finished()   # idempotent: its shutdown repeats it
-            except Exception as e2:          # noqa: BLE001
-                log.debug("group EOS of %s raised: %r", m.instance_name, e2)
+        def retire_group(group: str, origin: str, err) -> None:
+            """Retire every member of ``group`` after ``origin`` failed: one
+            decision naming them all, then each survivor's ports ended at once
+            in topological order and the member terminated."""
+            if group in retired_groups:
+                return
+            retired_groups.add(group)
+            members = groups.get(group, [])
+            decisions.append({"block": origin, "action": "isolate_group", "group": group,
+                              "members": [m.instance_name for m in members],
+                              "error": repr(err)})
+            log.error("block %s failed (%r): isolate group %r retires %s; the flowgraph "
+                      "continues", origin, err, group, [m.instance_name for m in members])
+            _trace.instant("runtime", "group_isolated",
+                           args={"group": group, "origin": origin,
+                                 "members": [m.instance_name for m in members]})
+            for m in members:
+                if m.instance_name == origin:
+                    continue                 # its own error path ended its ports
+                m.inbox.send(Terminate())
+                try:
+                    m._notify_ports_finished()   # idempotent: its shutdown repeats it
+                except Exception as e2:          # noqa: BLE001
+                    log.debug("group EOS of %s raised: %r", m.instance_name, e2)
 
-    def record(msg, in_init: bool = False) -> None:
-        """Book a BlockDone/BlockError and apply the failed block's policy."""
-        nonlocal active, fatal_init
-        active -= 1
-        if isinstance(msg, BlockDoneMsg):
-            ended.append(msg.block)
-            return
-        blk = by_id.get(msg.block_id)
-        name = blk.instance_name if blk is not None else str(msg.block_id)
-        errors.append(msg.error)
-        err_blocks.append(name)
-        if blk is not None:
-            ended.append(blk)
-        action = blk.policy.on_error if blk is not None else "fail_fast"
-        if terminated:
-            return
-        if action == "isolate":
-            # the block ended its ports before reporting: downstream drains,
-            # upstream detaches, the other branches run on
-            if blk.policy.isolate_group:
-                retire_group(blk.policy.isolate_group, name, msg.error)
-            else:
-                d = {"block": name, "action": "isolate", "error": repr(msg.error)}
-                if in_init:
-                    d["phase"] = "init"
-                decisions.append(d)
-                log.error("block %s errored (%r): isolated by policy, the flowgraph "
-                          "continues", name, msg.error)
-            return
-        if in_init:
-            # an init failure ends the launch itself (no policy decision, as
-            # in the reference)
-            fatal_init = fatal_init or msg.error
-        else:
-            decisions.append({"block": name,
-                              "action": "restarts_exhausted" if action == "restart"
-                              else "fail_fast",
-                              "error": repr(msg.error)})
-        log.error("block %s errored (%r): terminating flowgraph", name, msg.error)
-        terminate_all()
-
-    def cancel(reason: str) -> None:
-        nonlocal fatal_init
-        errors.append(FlowgraphCancelled(reason))
-        err_blocks.append(None)
-        decisions.append({"block": None, "action": "cancel", "reason": reason})
-        if not terminated:
-            log.error("flowgraph cancelled: %s", reason)
-        fatal_init = fatal_init or errors[-1]
-        terminate_all()
-
-    def record_restart(msg: BlockRestartMsg) -> None:
-        blk = by_id.get(msg.block_id)
-        decisions.append({"block": blk.instance_name if blk else str(msg.block_id),
-                          "action": "restart", "attempt": msg.attempt,
-                          "phase": msg.phase, "error": repr(msg.error)})
-
-    def handle(msg) -> None:
-        if isinstance(msg, BlockCallMsg):
+        def record(msg, in_init: bool = False) -> None:
+            """Book a BlockDone/BlockError and apply the failed block's policy."""
+            nonlocal active, fatal_init
+            active -= 1
+            if isinstance(msg, BlockDoneMsg):
+                ended.append(msg.block)
+                return
             blk = by_id.get(msg.block_id)
+            name = blk.instance_name if blk is not None else str(msg.block_id)
+            errors.append(msg.error)
+            err_blocks.append(name)
             if blk is not None:
-                blk.inbox.send(Call(msg.port, msg.data))
-        elif isinstance(msg, BlockCallbackMsg):
+                ended.append(blk)
+            action = blk.policy.on_error if blk is not None else "fail_fast"
+            if terminated:
+                return
+            if action == "isolate":
+                # the block ended its ports before reporting: downstream drains,
+                # upstream detaches, the other branches run on
+                if blk.policy.isolate_group:
+                    retire_group(blk.policy.isolate_group, name, msg.error)
+                else:
+                    d = {"block": name, "action": "isolate", "error": repr(msg.error)}
+                    if in_init:
+                        d["phase"] = "init"
+                    decisions.append(d)
+                    log.error("block %s errored (%r): isolated by policy, the flowgraph "
+                              "continues", name, msg.error)
+                    _trace.instant("runtime", "block_isolated", args={"block": msg.block_id})
+                return
+            if in_init:
+                # an init failure ends the launch itself (no policy decision, as
+                # in the reference)
+                fatal_init = fatal_init or msg.error
+            else:
+                decisions.append({"block": name,
+                                  "action": "restarts_exhausted" if action == "restart"
+                                  else "fail_fast",
+                                  "error": repr(msg.error)})
+            log.error("block %s errored (%r): terminating flowgraph", name, msg.error)
+            terminate_all("block_error", block=msg.block_id)
+
+        def cancel(msg: CancelMsg) -> None:
+            nonlocal fatal_init
+            errors.append(FlowgraphCancelled(msg.reason))
+            err_blocks.append(None)
+            decisions.append({"block": None, "action": "cancel", "reason": msg.reason})
+            if msg.flight_record:
+                flight_paths.append(msg.flight_record)
+            if not terminated:
+                log.error("flowgraph cancelled: %s", msg.reason)
+            fatal_init = fatal_init or errors[-1]
+            terminate_all("cancel")
+
+        def record_restart(msg: BlockRestartMsg) -> None:
             blk = by_id.get(msg.block_id)
-            if blk is None or not blk.inbox.send(Callback(msg.port, msg.data, msg.reply)):
-                msg.reply.set(Pmt.invalid_value())
-        elif isinstance(msg, DescribeMsg):
-            msg.reply.set(_describe(fg, blocks, decisions))
-        elif isinstance(msg, MetricsMsg):
-            msg.reply.set({b.instance_name: b.metrics() for b in blocks})
-        elif isinstance(msg, TerminateMsg):
-            terminate_all()
-        elif isinstance(msg, CancelMsg):
-            cancel(msg.reason)
-        elif isinstance(msg, BlockRestartMsg):
-            record_restart(msg)
-        elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
-            record(msg)
+            decisions.append({"block": blk.instance_name if blk else str(msg.block_id),
+                              "action": "restart", "attempt": msg.attempt,
+                              "phase": msg.phase, "error": repr(msg.error)})
 
-    # ---- init barrier: every block reports Initialized, Done or Error --------
-    for b in blocks:
-        b.inbox.send(Initialize())
-    waiting = len(blocks)
-    abandoned = False      # cancelled while a block sits inside init()
-    while waiting > 0:
-        msg = await fg_inbox.recv()
-        if isinstance(msg, InitializedMsg):
-            waiting -= 1
-        elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
-            waiting -= 1
-            record(msg, in_init=True)
-        elif isinstance(msg, BlockRestartMsg):
-            record_restart(msg)
-        elif isinstance(msg, CancelMsg):
-            # a block wedged in init never reports: give up the barrier
-            cancel(msg.reason)
-            abandoned = True
-            break
-        else:
-            queued.append(msg)          # replayed after the barrier
-    for b in blocks:                    # start signal
-        b.inbox.notify()
-    initialized.set(fatal_init)
+        def handle(msg) -> None:
+            if isinstance(msg, BlockCallMsg):
+                blk = by_id.get(msg.block_id)
+                if blk is not None:
+                    blk.inbox.send(Call(msg.port, msg.data))
+            elif isinstance(msg, BlockCallbackMsg):
+                blk = by_id.get(msg.block_id)
+                if blk is None or not blk.inbox.send(Callback(msg.port, msg.data, msg.reply)):
+                    msg.reply.set(Pmt.invalid_value())
+            elif isinstance(msg, DescribeMsg):
+                msg.reply.set(_describe(fg, blocks, decisions))
+            elif isinstance(msg, MetricsMsg):
+                msg.reply.set({b.instance_name: b.metrics() for b in blocks})
+            elif isinstance(msg, TerminateMsg):
+                terminate_all("requested")
+            elif isinstance(msg, CancelMsg):
+                cancel(msg)
+            elif isinstance(msg, BlockRestartMsg):
+                record_restart(msg)
+            elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
+                record(msg)
 
-    # ---- main loop, then join + restore ---------------------------------------
-    for msg in queued:
-        handle(msg)
-    while active > 0 and not abandoned:
-        msg = await fg_inbox.recv()
-        # after an init error the barrier may have counted a block's Done
-        # before another block's Initialized, which then arrives here
-        if not isinstance(msg, InitializedMsg):
+        # ---- init barrier: every block reports Initialized, Done or Error --------
+        t_barrier = _trace.now()
+        for b in blocks:
+            b.inbox.send(Initialize())
+        waiting = len(blocks)
+        abandoned = False      # cancelled while a block sits inside init()
+        while waiting > 0:
+            msg = await fg_inbox.recv()
+            if isinstance(msg, InitializedMsg):
+                waiting -= 1
+            elif isinstance(msg, (BlockDoneMsg, BlockErrorMsg)):
+                waiting -= 1
+                record(msg, in_init=True)
+            elif isinstance(msg, BlockRestartMsg):
+                record_restart(msg)
+            elif isinstance(msg, CancelMsg):
+                # a block wedged in init never reports: give up the barrier
+                cancel(msg)
+                abandoned = True
+                break
+            else:
+                queued.append(msg)          # replayed after the barrier
+        _trace.complete("runtime", "init_barrier", t_barrier,
+                        args={"blocks": len(blocks), "errors": len(errors)})
+        for b in blocks:                    # start signal
+            b.inbox.notify()
+        initialized.set(fatal_init)
+
+        # ---- main loop, then join + restore ---------------------------------------
+        for msg in queued:
             handle(msg)
-    if not abandoned:
-        for h in handles:
-            try:
-                await h
-            except Exception as e:
-                log.error("block task raised: %r", e)
-    # refuse new sends, then answer what is still queued: a call into a
-    # finished flowgraph gets InvalidValue instead of hanging its caller
-    fg_inbox.close()
-    while (msg := fg_inbox.try_recv()) is not None:
-        if isinstance(msg, BlockCallbackMsg):
-            msg.reply.set(Pmt.invalid_value())
-        elif isinstance(msg, DescribeMsg):
-            msg.reply.set(_describe(fg, blocks, decisions))
-        elif isinstance(msg, MetricsMsg):
-            msg.reply.set({b.instance_name: b.metrics() for b in blocks})
-    # the decisions stay readable after the run (describe), recovered or not
-    fg._policy_decisions = list(decisions)
-    fg.restore_blocks(ended)
-    if errors:
-        raise _make_error(errors, err_blocks, decisions) from errors[0]
-    return fg
+        while active > 0 and not abandoned:
+            msg = await fg_inbox.recv()
+            # after an init error the barrier may have counted a block's Done
+            # before another block's Initialized, which then arrives here
+            if not isinstance(msg, InitializedMsg):
+                handle(msg)
+        if not abandoned:
+            for h in handles:
+                try:
+                    await h
+                except Exception as e:
+                    log.error("block task raised: %r", e)
+        # refuse new sends, then answer what is still queued: a call into a
+        # finished flowgraph gets InvalidValue instead of hanging its caller
+        fg_inbox.close()
+        while (msg := fg_inbox.try_recv()) is not None:
+            if isinstance(msg, BlockCallbackMsg):
+                msg.reply.set(Pmt.invalid_value())
+            elif isinstance(msg, DescribeMsg):
+                msg.reply.set(_describe(fg, blocks, decisions))
+            elif isinstance(msg, MetricsMsg):
+                msg.reply.set({b.instance_name: b.metrics() for b in blocks})
+        # the decisions stay readable after the run (describe), recovered or not
+        fg._policy_decisions = list(decisions)
+        fg.restore_blocks(ended)
+        _trace.complete("runtime", "flowgraph", t_sup,
+                        args={"blocks": len(blocks), "errors": len(errors)})
+        if errors:
+            raise _make_error(errors, err_blocks, decisions,
+                              flight_paths[0] if flight_paths else None) from errors[0]
+        return fg
+    except BaseException as e:
+        # flight-record the terminal state before detaching (a no-op unless
+        # the watchdog runs); the record's supervisor section carries every
+        # error and decision
+        paths = doc.on_supervisor_error(
+            e, extra={"block_errors": len(errors), "blocks": [b for b in err_blocks if b],
+                      "policy_decisions": list(decisions)})
+        if isinstance(e, FlowgraphError) and e.flight_record is None and paths:
+            e.flight_record = paths[0]
+        raise
+    finally:
+        doc.detach(doc_token)
 
 
 class FlowgraphHandle:
@@ -438,9 +499,11 @@ class FlowgraphHandle:
     async def terminate(self) -> None:
         self._inbox.send(TerminateMsg())
 
-    async def cancel(self, reason: str = "requested") -> None:
-        """Terminate with an error: the run raises a FlowgraphError."""
-        self._inbox.send(CancelMsg(reason))
+    async def cancel(self, reason: str = "requested",
+                     flight_record: Optional[str] = None) -> None:
+        """Terminate with an error: the run raises a FlowgraphError (carrying
+        ``flight_record``, a dump's path, where given)."""
+        self._inbox.send(CancelMsg(reason, flight_record))
 
     # -- sync bridges ----------------------------------------------------------
     def post_sync(self, block, port, data=None) -> None:
@@ -458,8 +521,9 @@ class FlowgraphHandle:
     def terminate_sync(self) -> None:
         self._inbox.send(TerminateMsg())
 
-    def cancel_sync(self, reason: str = "requested") -> None:
-        self._inbox.send(CancelMsg(reason))
+    def cancel_sync(self, reason: str = "requested",
+                    flight_record: Optional[str] = None) -> None:
+        self._inbox.send(CancelMsg(reason, flight_record))
 
 
 class RunningFlowgraph:
@@ -500,8 +564,15 @@ class RunningFlowgraph:
             return await asyncio.wait_for(asyncio.shield(self._task), timeout)
         except asyncio.TimeoutError:
             pass
-        log.error("flowgraph exceeded its %.3f s run deadline: cancelling", timeout)
-        await self.handle.cancel(f"run deadline exceeded ({timeout} s)")
+        # the black box first (the live state), then the cancel, which
+        # carries the record's path into the run's FlowgraphError
+        from ..telemetry.doctor import doctor as _doctor
+        d = _doctor()
+        paths = d.dump(d.flight_record(f"run_timeout:{timeout}s"))
+        path = paths[0] if paths else None
+        log.error("flowgraph exceeded its %.3f s run deadline: cancelling (flight record: "
+                  "%s)", timeout, path or "in memory")
+        await self.handle.cancel(f"run deadline exceeded ({timeout} s)", path)
         grace = max(0.0, float(config().run_timeout_grace))
         try:
             if grace > 0:
@@ -515,7 +586,7 @@ class RunningFlowgraph:
                 f"{timeout} s): a block is stuck inside work()",
                 [FlowgraphCancelled("run deadline exceeded")], [None],
                 [{"block": None, "action": "cancel",
-                  "reason": "run deadline exceeded"}]) from None
+                  "reason": "run deadline exceeded"}], path) from None
 
     async def stop(self) -> Flowgraph:
         await self.handle.terminate()
@@ -569,6 +640,11 @@ class Runtime:
     def __init__(self, scheduler: Optional[AsyncScheduler] = None):
         self.scheduler = scheduler or AsyncScheduler()
         self.handle = RuntimeHandle(self.scheduler)
+        if config().doctor:
+            # FUTURESDR_TPU_DOCTOR=1: the stall watchdog runs for the life of
+            # the process (enable() is idempotent)
+            from ..telemetry.doctor import enable as _doctor_enable
+            _doctor_enable()
         self.ctrl_port = None
         if config().ctrlport_enable:
             from .ctrl_port import ControlPort
@@ -622,14 +698,18 @@ class Runtime:
         try:
             running = await asyncio.wait_for(self.start_async(fg), timeout)
         except asyncio.TimeoutError:
+            from ..telemetry.doctor import doctor as _doctor
+            d = _doctor()
+            paths = d.dump(d.flight_record(f"run_timeout:init:{timeout}s"))
+            path = paths[0] if paths else None
             log.error("flowgraph launch exceeded the %.3f s run deadline inside the "
-                      "init barrier", timeout)
+                      "init barrier (flight record: %s)", timeout, path or "in memory")
             raise FlowgraphError(
                 f"flowgraph did not pass the init barrier within the {timeout} s run "
                 f"deadline: a block is stuck inside init()",
                 [FlowgraphCancelled("run deadline exceeded in init")], [None],
                 [{"block": None, "action": "cancel",
-                  "reason": "run deadline exceeded in init"}]) from None
+                  "reason": "run deadline exceeded in init"}], path) from None
         return await running.wait(timeout=max(0.05, timeout - (time.monotonic() - t0)))
 
     def run(self, fg: Flowgraph, timeout: Optional[float] = None) -> Flowgraph:

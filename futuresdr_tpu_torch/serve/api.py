@@ -21,8 +21,12 @@ library HTTP with a fixed route table, and mounts these routes (plus
 
 Errors are JSON (``{"error": ..., "app": ...}``); every 503 (``ServeFull``,
 draining, overload) carries ``Retry-After`` from the engine's step rate.
-``/readyz`` has no compile-storm gate yet: the reference reads it from the
-profile plane, which is ROADMAP item 4b.
+``/readyz`` also fails on a live compile storm (the profile plane's
+``storm_report``) of a registered app's serving program (``serve:<app>``).
+The reference gates on every ``serve:`` program of the process; the port
+scopes the gate to the apps this pod serves, so neither another kernel's
+recompiles nor an engine that was never registered (a test's or a tool's
+incarnations under one name) take the pod out of rotation.
 
 A handler is ``async fn(method, body, **path groups) -> (status, payload,
 content type, headers)``; engine calls run off the event loop (surgery waits
@@ -242,8 +246,9 @@ async def _drain_app(method, body, app):
 
 def readiness() -> Tuple[bool, dict]:
     """Process readiness for ``GET /readyz``: every registered serving app
-    ready (its current bucket compiled, not draining); the detail names the
-    unready app and why."""
+    ready (its current bucket compiled, not draining) and no live compile
+    storm of a registered app's serving program on the profile plane; the
+    detail names the unready app and why."""
     detail: Dict[str, dict] = {}
     ready = True
     for name, eng in sorted(apps().items()):
@@ -253,7 +258,20 @@ def readiness() -> Tuple[bool, dict]:
             h = {"ready": False, "error": repr(e)}     # answer is not ready
         detail[name] = h
         ready = ready and bool(h.get("ready"))
-    return ready, {"apps": detail, "compile_storms": None}
+    storms = None
+    try:
+        from ..telemetry import profile
+        # the registered apps' serving programs only ("serve:<app>"): the
+        # plane is process-global, and an unrelated program's recompiles
+        # must not pull this pod out
+        served = {f"serve:{name}" for name in detail}
+        storms = [s for s in profile.plane().storm_report()
+                  if str(s.get("program", "")) in served] or None
+    except Exception:                      # noqa: BLE001 — readiness never fails
+        pass                               # on the profile plane
+    if storms:
+        ready = False
+    return ready, {"apps": detail, "compile_storms": storms}
 
 
 def readyz_retry_after() -> int:

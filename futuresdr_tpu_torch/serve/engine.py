@@ -50,13 +50,22 @@ program computes. The batch is assembled straight into the transfer's pinned
 host buffer (``ops/xfer.host_buffer``, the arena's), so a frame time copies
 each frame once on the host before the H2D.
 
-The reference's telemetry hooks that wait for ROADMAP item 4b (the doctor's
-watchdog and ``E2E_LATENCY`` family, the profile plane's compile billing and
-readiness storm gate, the fleet tick, lineage, spans) are plain attributes
-here: :attr:`ServeEngine.e2e_hist` (a log2 histogram of per-frame
-submit→result latency), :attr:`ServeEngine.compile_seconds` (each build's
-capture time) and :attr:`ServeEngine.spans` (``None``, or the host intervals
-of each group's H2D, compute and D2H, read by :func:`overlap_report`).
+Telemetry (``telemetry/``): each frame's submit→result latency feeds
+``fsdr_e2e_latency_seconds{source="serve:<app>"}`` (:attr:`ServeEngine.e2e_hist`
+is that child); each bucket's build is a compile of ``serve:<app>`` with
+reason ``serve_bucket`` on the profile plane (:attr:`ServeEngine.compile_seconds`
+keeps each build's seconds from the same window), which also bills every
+session-frame as one unit of the one-lane program's analytic cost; the
+engine attaches to the doctor's serve watchdog (:meth:`ServeEngine.watch_sample`,
+detached by :meth:`ServeEngine.shutdown`); each step calls the fleet's tick
+(one falsy check with no peers); 1 frame in ``lineage_stride`` carries a
+lineage trace id. With tracing on a step records its batch assembly as
+``encode``, the program call as ``compute`` and the fan-back as ``decode``
+(``cat="tpu"``; the transfers record their own ``H2D``/``D2H``), and the
+whole group as one ``serve_step`` span (``cat="serve"``), launch to commit.
+:attr:`ServeEngine.spans` (``None``, or a list the caller sets) also keeps
+the host intervals of each group's H2D, compute and D2H as ``(lane, t0, t1)``
+tuples, read by :func:`overlap_report`.
 
 **The slot axis over devices** (``shard_devices=D > 1``, config
 ``serve_shard_devices``): a bucket whose capacity divides by D splits its lanes
@@ -92,9 +101,13 @@ from ..ops import xfer
 from ..ops.stages import _capture_lock, _from_spec, _leaves, _no_automatic_gc, _rebuild
 from ..parallel.mesh import on_device
 from ..runtime import faults as _faults
+from ..telemetry import fleet as _fleet
 from ..telemetry import journal as _journal
+from ..telemetry import lineage as _lineage
+from ..telemetry import profile as _profile
 from ..telemetry import prom as _prom
-from ..telemetry.hist import Log2Hist
+from ..telemetry.doctor import E2E_LATENCY as _E2E_LATENCY
+from ..telemetry.spans import recorder as _trace_recorder
 from .credits import TenantCreditController
 from .overload import LATENCY_RUNG as _LATENCY_RUNG
 from .overload import ShedLadder
@@ -106,6 +119,7 @@ __all__ = ["ServeEngine", "ServeFull", "ServeDraining", "ServeOverload",
            "default_buckets", "overlap_report", "drain_all_apps", "install_sigterm_drain"]
 
 log = logger("serve.engine")
+_trace = _trace_recorder()
 
 # per-tenant Prometheus families: every family carries {app, tenant}
 _SESSIONS = _prom.gauge(
@@ -426,14 +440,17 @@ class _DispatchGroup:
     back (each younger group derived its pages from this one's)."""
 
     __slots__ = ("capacity", "k", "lanes", "n_frames", "batch", "active", "fresh",
-                 "page_map", "fresh_lanes", "new_pages", "fins", "wire")
+                 "page_map", "fresh_lanes", "new_pages", "fins", "wire", "step_tids",
+                 "t_step")
 
     def __init__(self, capacity: int, k: int, lanes: list, batch, active, fresh,
-                 page_map, fresh_lanes: frozenset):
+                 page_map, fresh_lanes: frozenset, step_tids=(), t_step: int = 0):
         self.capacity = capacity
         self.k = k
-        self.lanes = lanes            # (session, lane, popped) tuples
-        self.n_frames = sum(len(p) for _s, _l, p in lanes)
+        self.lanes = lanes            # (session, lane, popped, trace ids) tuples
+        self.step_tids = step_tids    # the lineage-sampled frames of the group
+        self.t_step = t_step          # the serve_step span's start (0: tracing off)
+        self.n_frames = sum(len(ln[2]) for ln in lanes)
         self.batch = batch
         self.active = active
         self.fresh = fresh
@@ -493,7 +510,8 @@ class ServeEngine:
         #: programs keyed (capacity, k, pipeline tag): churn never adds one
         self._programs: Dict[tuple, SlotProgram] = {}
         self.compiles = 0                 # program builds (captures on a card)
-        #: seconds each build took (its capture on a card), keyed as _programs
+        #: seconds each build took (its capture on a card), keyed as
+        #: _programs: the profile plane's compile window of the build
         self.compile_seconds: Dict[tuple, float] = {}
         start_cap = self.buckets[0]
         if tuned:
@@ -533,9 +551,20 @@ class ServeEngine:
         self.frames = 0                   # session-frames dispatched
         self._gauge_cache: Dict[tuple, object] = {}
         self._warmed: set = set()
-        #: per-frame submit→result latency of every lane (the reference's
-        #: fsdr_e2e_latency_seconds child of this app)
-        self.e2e_hist = Log2Hist()
+        # per-frame submit→result latency of every lane, on the streamed
+        # kernels' family
+        self._e2e_hist = _E2E_LATENCY.labels(source=f"serve:{self.app}")
+        # the live roofline's unit is one session-frame: the one-lane
+        # program's analytic cost, counted when the plane is read
+        pipe, fs = pipeline, self.frame_size
+
+        def lane_cost():
+            from ..utils.roofline import program_cost
+            return program_cost(pipe, fs)
+
+        from ..utils.roofline import dominant_dtype
+        self._prof = _profile.register(f"serve:{self.app}", cost_thunk=lane_cost,
+                                       dtype=dominant_dtype(pipe.stages))
         #: None, or a deque of (lane, t0, t1) host intervals of each group's
         #: H2D, compute and D2H (:func:`overlap_report`); set it to record
         self.spans: Optional[Deque] = None
@@ -560,6 +589,14 @@ class ServeEngine:
         self._step_stamps: Deque[float] = deque(maxlen=32)   # busy-step times
         self.restored_sessions = 0
         self.shed_evictions = 0
+        # the doctor's serve watchdog holds the engine by weakref, so an
+        # engine that is dropped detaches itself
+        self._doctor_token = None
+        try:
+            from ..telemetry import doctor as _doctor
+            self._doctor_token = _doctor.doctor().attach_serve(self)
+        except Exception as e:             # noqa: BLE001 — observability only
+            log.warning("%s: doctor attach failed: %r", self.app, e)
         if self._store is not None:
             self._restore_persisted()
 
@@ -654,19 +691,30 @@ class ServeEngine:
             return 1
         return self.k_batch
 
+    @property
+    def e2e_hist(self):
+        """The per-frame submit→result latency of this app's lanes: the
+        ``fsdr_e2e_latency_seconds{source="serve:<app>"}`` child (a log2
+        histogram)."""
+        return self._e2e_hist
+
     def _program(self, capacity: int, k: Optional[int] = None) -> SlotProgram:
         k = self.k_batch if k is None else int(k)
         key = (capacity, k, self._pipe_tag)
         prog = self._programs.get(key)
         if prog is None:
-            t0 = time.perf_counter()
-            if self._shard_ok(capacity):
-                prog = ShardedSlotProgram(self.pipeline, capacity, k, self.frame_size,
-                                          self._shard_devs)
-            else:
-                prog = build_slot_program(self.pipeline, capacity, k, self.frame_size,
-                                          self.device)
-            self.compile_seconds[key] = time.perf_counter() - t0
+            # the build (its capture on a card) is a compile window: the
+            # doctor reads a slow one as "compiling", never as a wedge
+            with _profile.compiling(f"serve:{self.app}", "serve_bucket",
+                                    f"cap={capacity},k={k},frame={self.frame_size},"
+                                    f"pipe={self._pipe_tag}") as win:
+                if self._shard_ok(capacity):
+                    prog = ShardedSlotProgram(self.pipeline, capacity, k, self.frame_size,
+                                              self._shard_devs)
+                else:
+                    prog = build_slot_program(self.pipeline, capacity, k, self.frame_size,
+                                              self.device)
+            self.compile_seconds[key] = win.seconds
             self._programs[key] = prog
             self.compiles += 1
             log.info("%s: built serving program for slot bucket %d (k=%d, %s; resident "
@@ -927,6 +975,10 @@ class ServeEngine:
         commits when its D2H lands; with ``serve_inflight > 1`` up to that
         many groups ride at once. Returns the session-frames launched; an
         idle step first commits everything in flight, then returns 0."""
+        # the fleet's hook: one falsy check with no peers configured, else a
+        # refresh of this host's fleet gauges at poll cadence
+        if _fleet._tick_state is not None:
+            _fleet.tick()
         with self._step_lock:
             g = self._assemble()
             if g is None:
@@ -963,6 +1015,9 @@ class ServeEngine:
             fplan = _faults.plan()
             lanes: List[tuple] = []
             batch = active = None
+            # the batch assembly is the serving path's encode lane
+            t_step = _trace.now() if _trace.enabled else 0
+            step_tids: List[int] = []      # the lineage-sampled frames
             for s in self.table.occupants():
                 if not s.pending:
                     s.stall_steps += 1
@@ -980,6 +1035,7 @@ class ServeEngine:
                         self._retire(s, e)
                         continue
                 popped = []
+                tids = []
                 for j in range(min(K, len(s.pending))):
                     entry = s.pending.popleft()
                     self.credits.release(s.tenant)
@@ -990,21 +1046,31 @@ class ServeEngine:
                         batch[s.slot, j] = entry[0]
                         active[s.slot, j] = True
                     popped.append(entry)
+                    tid = _lineage.tracer().sample()
+                    if tid:
+                        _lineage.tracer().stamp(tid, "ingest", entry[1])
+                        step_tids.append(tid)
+                    tids.append(tid)
                 s.stall_steps = 0
-                lanes.append((s, s.slot, popped))
+                lanes.append((s, s.slot, popped, tids))
             self.steps += 1
             if not lanes:
                 if batch is not None:             # every busy lane retired
                     batch_buf.release()
                 return None
             batch[~active] = 0                    # idle lanes ride zero rows
+            if t_step:
+                _trace.complete("tpu", "encode", t_step,
+                                args={"sessions": len(lanes), "capacity": C})
+            for tid in step_tids:
+                _lineage.tracer().stamp(tid, "encode")
             fresh = np.zeros((C,), dtype=bool)
             for lane in self._fresh_lanes:
                 if lane < C:
                     fresh[lane] = True
             g = _DispatchGroup(C, K, lanes, batch_buf, active, fresh,
                                np.asarray(self.table.page_of_lane, dtype=np.int64),
-                               frozenset(self._fresh_lanes))
+                               frozenset(self._fresh_lanes), step_tids, t_step)
             self._fresh_lanes.clear()
             return g
 
@@ -1035,10 +1101,20 @@ class ServeEngine:
                                                         dst[1:])]
         x, act, pmap, fresh = fins[0]()[0], *(f() for f in fins[1:])
         g.wire = getattr(fins[0], "_wire", None)
+        for tid in g.step_tids:
+            _lineage.tracer().stamp(tid, "H2D")
+        t_c = _trace.now() if _trace.enabled else 0
         t0 = time.perf_counter()
         new_pages, outs = prog(self._head_pages, pmap, fresh, x, act,
                                clone_outputs=self._depth > 1)
         t1 = time.perf_counter()
+        if t_c:
+            # the replay's launch as this thread sees it (asynchronous on a
+            # card: nothing here waits for it)
+            _trace.complete("tpu", "compute", t_c,
+                            args={"capacity": C, "active_lanes": len(g.lanes)})
+        for tid in g.step_tids:
+            _lineage.tracer().stamp(tid, "dispatch")
         self._warmed.add((C, K, self._pipe_tag))
         g.fins = [xfer.start_host_transfer(o) for o in outs]
         if self.spans is not None:
@@ -1053,6 +1129,7 @@ class ServeEngine:
         and placed synchronously (the batch's pinned buffer goes back once
         its rows are on the devices), a D2H a device and sink."""
         t_h2d = time.perf_counter()
+        t_c = _trace.now() if _trace.enabled else 0
         try:
             batch = g.batch.array
             new_pages, outs = prog(self._head_pages, g.page_map, g.fresh, batch, g.active,
@@ -1060,6 +1137,12 @@ class ServeEngine:
         finally:
             g.batch.release()
         t1 = time.perf_counter()
+        if t_c:
+            _trace.complete("tpu", "compute", t_c,
+                            args={"capacity": g.capacity, "active_lanes": len(g.lanes),
+                                  "devices": self._shard_d})
+        for tid in g.step_tids:
+            _lineage.tracer().stamp(tid, "dispatch")
         self._warmed.add((g.capacity, g.k, self._pipe_tag))
         g.fins = [_GatherFinish([xfer.start_host_transfer(o) for o in col]) for col in outs]
         if self.spans is not None:
@@ -1100,6 +1183,8 @@ class ServeEngine:
                 for f in g.fins:
                     host.append(np.array(f(), copy=True))
                     f.release()
+                for tid in g.step_tids:
+                    _lineage.tracer().stamp(tid, "D2H")
                 if self.spans is not None:
                     svc, dl = getattr(g.fins[0], "_wire", None) or (0.0, 0.0)
                     self.spans.append(("D2H", svc, dl) if dl
@@ -1121,7 +1206,7 @@ class ServeEngine:
             for g in reversed(groups):
                 for f in g.fins or ():            # their pinned buffers go back
                     f.release()
-                for s, _lane, popped in g.lanes:
+                for s, _lane, popped, _tids in g.lanes:
                     if s.state not in ("active", "evicted"):
                         continue
                     s.pending.extendleft(reversed(popped))
@@ -1135,12 +1220,13 @@ class ServeEngine:
         pages, results fan back a session, latency, persistence and the
         ladder run. A session that left while its group flew is skipped."""
         end = time.perf_counter_ns()
+        t_dec = _trace.now() if _trace.enabled else 0
         K = g.k
         with self._lock:
             self._pages = g.new_pages
             self.dispatches += 1
             dispatched = 0
-            for s, lane, popped in g.lanes:
+            for s, lane, popped, tids in g.lanes:
                 if not (s.state == "active" and s.slot == lane):
                     continue
                 for j, (_, t_sub) in enumerate(popped):
@@ -1151,7 +1237,15 @@ class ServeEngine:
                     s.last_latency_s = lat
                     self._lat_recent.append(lat)
                     _LATENCY.observe(lat, app=self.app, tenant=s.tenant)
-                    self.e2e_hist.observe(lat)
+                    self._e2e_hist.observe(lat)
+                    tid = tids[j]
+                    if tid:
+                        lin = _lineage.tracer()
+                        lin.stamp(tid, "decode", end)
+                        lin.stamp(tid, "emit", end)
+                        lin.finish(tid, source=f"serve:{self.app}", session=s.sid,
+                                   tenant=s.tenant)
+                        self._e2e_hist.exemplar(lat, tid)
                     _FRAMES.inc(app=self.app, tenant=s.tenant)
                     dispatched += 1
             self.frames += dispatched
@@ -1163,6 +1257,14 @@ class ServeEngine:
                     self._steps_since_persist = 0
                     self._persist_all()
             self._overload_tick()
+            # the live roofline's unit: one session-frame
+            self._prof.dispatch(dispatched, t=time.monotonic())
+        if t_dec:
+            _trace.complete("tpu", "decode", t_dec, args={"frames": dispatched})
+        if g.t_step:
+            _trace.complete("serve", "serve_step", g.t_step,
+                            args={"sessions": len(g.lanes), "frames": dispatched,
+                                  "capacity": g.capacity})
 
     # -- lane-addressed retunes ------------------------------------------------
     def retune(self, sid: str, stage, **params) -> Session:
@@ -1516,6 +1618,34 @@ class ServeEngine:
     def tenant_latency_ms(self, tenant: str, q: float = 0.99) -> Optional[float]:
         v = _LATENCY.labels(app=self.app, tenant=tenant).quantile(q)
         return None if v is None else v * 1e3
+
+    def watch_sample(self) -> Optional[dict]:
+        """The doctor's serve-watchdog probe: monotonic ``frames`` and the
+        queued ``pending`` frames, or None while the state lock is busy (a
+        step or a bucket build in flight is progress)."""
+        if not self._lock.acquire(timeout=0.05):
+            return None
+        try:
+            stuck = sorted((s for s in self.table.occupants() if s.pending),
+                           key=lambda s: -len(s.pending))
+            return {"app": self.app, "frames": self.frames,
+                    "pending": sum(len(s.pending) for s in self.table.occupants()),
+                    "draining": self._draining, "capacity": self.table.capacity,
+                    "active": self.table.active, "shed_level": self._ladder.level,
+                    "stuck_sessions": [s.sid for s in stuck[:4]]}
+        finally:
+            self._lock.release()
+
+    def shutdown(self) -> None:
+        """Detach from the doctor's watchdog. Does not drain: call
+        :meth:`drain` first for a graceful handoff."""
+        if self._doctor_token is not None:
+            try:
+                from ..telemetry import doctor as _doctor
+                _doctor.doctor().detach_serve(self._doctor_token)
+            except Exception:              # noqa: BLE001 — observability only
+                pass
+            self._doctor_token = None
 
     def describe(self) -> dict:
         """The app view served by ``GET /api/serve/{app}/``."""

@@ -7,13 +7,16 @@ lexicographic, worst signal first::
 
     (shed-ladder level, credit pressure, e2e p99 seconds)
 
-and switching is hysteretic (``hysteresis``, default 0.1): the previous pick
-keeps the traffic unless a candidate beats it outside the band (a shed-rung
-difference always switches). Each decision is journaled under ``fleet``.
-The view is injected: any object with ``ready_hosts() -> {peer: {"summary":
-{...}}}``; the reference's ``telemetry/fleet.FleetView``, which polls the
-hosts, waits for ROADMAP item 4b. ``post=`` injects the HTTP call, so the
-scoring and failover test without sockets.
+and switching is hysteretic (``hysteresis``, default config
+``fleet_hysteresis``): the previous pick keeps the traffic unless a
+candidate beats it outside the band (a shed-rung difference always
+switches). Each decision is journaled under ``fleet``. The view is
+injected: a ``telemetry/fleet.FleetView`` (which polls the hosts'
+``/api/host/`` exports; the control port builds one from config
+``fleet_peers`` and routes ``POST /api/fleet/serve/{app}/session/`` here),
+or any object with ``ready_hosts() -> {peer: {"summary": {...}}}``.
+``post=`` injects the HTTP call, so the scoring and failover test without
+sockets.
 """
 
 from __future__ import annotations
@@ -106,14 +109,16 @@ class AdmissionRouter:
     """Route admissions over a fleet view's ready hosts.
 
     ``post`` is injectable (``post(url, body, timeout) -> (status,
-    headers, body_bytes)``); ``hysteresis`` defaults to 0.1.
+    headers, body_bytes)``); ``hysteresis`` defaults to the
+    ``fleet_hysteresis`` config knob.
     """
 
     def __init__(self, view, hysteresis: Optional[float] = None,
                  timeout: float = 5.0,
                  post: Optional[Callable] = None):
         if hysteresis is None:
-            hysteresis = 0.1
+            from ..config import config
+            hysteresis = float(config().get("fleet_hysteresis", 0.1))
         self.view = view
         self.hysteresis = float(hysteresis)
         self.timeout = float(timeout)

@@ -13,13 +13,22 @@ to the D = 1 program fed row d at the same K.
 whole-mesh carry snapshot through the pipeline's own ``snapshot_carry`` /
 ``carry_matches`` / ``restore_carry`` (one carry a device), and a bounded
 replay log a shard of the exact host rows, so a recovered run is bit-equal to
-an unfailed one. The reference's telemetry hooks (lineage, profile, spans) are
-plain counts on the runner here.
+an unfailed one.
+
+Telemetry: the runner's programs are one compile window (``warmup``) on the
+profile plane; it registers one entry under its name (a unit is one
+lane-frame, D·K a group) and each device's program its per-device entry
+(``<name>@dev<d>``, ``fsdr_mfu_device``; a unit is one call of K frames).
+With tracing on a group records a ``compute`` span and one ``shard:d<d>``
+span a device (``cat="shard"``, the doctor's shard lanes); 1 group in
+``lineage_stride`` carries a lineage trace id; the journal records
+``checkpoint-commit``, ``recover`` and ``replay``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -30,12 +39,16 @@ from ..log import logger
 from ..parallel.mesh import on_device
 from ..runtime import faults as _faults
 from ..telemetry import journal as _journal
+from ..telemetry import lineage as _lineage
+from ..telemetry import profile as _profile
+from ..telemetry.spans import recorder as _trace_recorder
 from .plan import AXIS, ShardPlan, note_plan, plan_shard
 
 __all__ = ["ShardedProgram", "ShardRunner", "shard_pipeline", "collective_ops",
            "shard_mesh"]
 
 log = logger("shard.data")
+_trace = _trace_recorder()
 
 
 def shard_mesh(n_devices: int, axis: str = AXIS, device=None):
@@ -90,14 +103,18 @@ class ShardedProgram:
         """D fresh carries, carry d on device d."""
         return [self.pipeline.init_carry(d) for d in self.devices]
 
-    def compile(self, frame_size: int, k: int = 1, wire=None):
+    def compile(self, frame_size: int, k: int = 1, wire=None,
+                program: Optional[str] = None):
         """One compiled program a device for ``frame_size``-sample frames, k
         a dispatch (``Pipeline.compile`` on each device: a CUDA graph a
         device on a card, captured under that card). Returns ``(fn,
         carries)``: ``fn(carries, x) -> (carries, ys)``, ``x`` host rows
         ``[D, frame]`` (``[D, K, frame]``) or D tensors, or wired a tuple of
         the wire's parts with the device axis leading; ``ys`` D outputs, one
-        on each device. Programs are built once a (frame, k, wire)."""
+        on each device. Programs are built once a (frame, k, wire). Each
+        device's program is the profile plane's ``<program>@dev<d>`` entry
+        (default the sharded program's name); with ``program`` given the
+        caller holds the compile window."""
         if frame_size % self.frame_multiple:
             raise ValueError(f"frame_size {frame_size} is not a multiple of "
                              f"{self.frame_multiple}")
@@ -107,9 +124,11 @@ class ShardedProgram:
         built = self._programs.get(key)
         if built is None:
             built = []
-            for d in self.devices:
+            for i, d in enumerate(self.devices):
                 with on_device(d):
-                    built.append(self.pipeline.compile(frame_size, d, k=k, wire=w))
+                    built.append(self.pipeline.compile(
+                        frame_size, d, k=k, wire=w, program=program or self.name,
+                        reason=None if program else "warmup", profile_device=str(i)))
             self._programs[key] = built
         fns = [fn for fn, _c in built]
         wired = w is not None
@@ -223,7 +242,19 @@ class ShardRunner:
         self.k = max(1, int(k))
         self.checkpoint_every = max(0, int(checkpoint_every))
         self.name = str(name if name is not None else prog.name)
-        self._fn, self._carries = prog.compile(self.frame_size, self.k)
+        pipe, fs = prog.pipeline, self.frame_size
+
+        def lane_cost():
+            from ..utils.roofline import program_cost
+            return program_cost(pipe, fs)
+
+        from ..utils.roofline import dominant_dtype
+        # the aggregate entry: a unit is one lane-frame (D·K a group)
+        self._prof = _profile.register(self.name, cost_thunk=lane_cost,
+                                       dtype=dominant_dtype(pipe.stages))
+        with _profile.compiling(self.name, "warmup",
+                                f"D={prog.n_devices},frame={self.frame_size},k={self.k}"):
+            self._fn, self._carries = prog.compile(self.frame_size, self.k, program=self.name)
         self._template = prog.init_carry()   # shape and dtype contract of a match
         self.seq = 0
         self.dispatches = 0
@@ -251,11 +282,26 @@ class ShardRunner:
             raise ValueError(f"rows {rows.shape} != {(D, K, self.frame_size)}")
         return np.ascontiguousarray(rows, dtype=self.prog.in_dtype)
 
-    def _dispatch(self, rows: np.ndarray) -> np.ndarray:
+    def _dispatch(self, rows: np.ndarray, seq: int, replay: bool, tid: int = 0) -> np.ndarray:
+        t0 = _trace.now() if _trace.enabled else 0
         x = rows[:, 0, :] if self.k == 1 else rows
+        if tid:
+            _lineage.tracer().stamp(tid, "H2D")
         self._carries, ys = self._fn(self._carries, x)
+        if tid:
+            _lineage.tracer().stamp(tid, "dispatch")
         out = rows_to_host(ys)
+        if tid:
+            _lineage.tracer().stamp(tid, "D2H")
         self.dispatches += 1
+        self._prof.dispatch(self.prog.n_devices * self.k, t=time.monotonic())
+        if t0:
+            _trace.complete("tpu", "compute", t0,
+                            args={"devices": self.prog.n_devices, "seq": seq,
+                                  "replay": replay})
+            for d in range(self.prog.n_devices):
+                _trace.complete("shard", f"shard:d{d}", t0,
+                                args={"seq": seq, "frames": self.k, "runner": self.name})
         return out if self.k > 1 else out[:, None]
 
     def _checkpoint(self) -> None:
@@ -278,14 +324,23 @@ class ShardRunner:
         with self._lock:
             rows = self._norm_rows(rows)
             _faults.maybe("dispatch", self.name)
+            # one sampled lineage trace a group (the runner's unit of
+            # dispatch); replayed groups dispatch with none
+            tid = _lineage.tracer().sample()
+            if tid:
+                _lineage.tracer().stamp(tid, "ingest")
             seq = self.seq + 1
             if self.checkpoint_every:
                 for d in range(self.prog.n_devices):
                     self._rlog[d].append((seq, rows[d].copy()))
-            out = self._dispatch(rows)
+            out = self._dispatch(rows, seq, replay=False, tid=tid)
             self.seq = seq
             if self.checkpoint_every and seq % self.checkpoint_every == 0:
                 self._checkpoint()
+            if tid:
+                lin = _lineage.tracer()
+                lin.stamp(tid, "emit")
+                lin.finish(tid, source=f"shard:{self.name}")
             self._note()
             return out
 
@@ -312,12 +367,15 @@ class ShardRunner:
             for seq in seqs:
                 rows = np.stack([next(r for s, r in self._rlog[d] if s == seq)
                                  for d in range(self.prog.n_devices)])
-                self._dispatch(rows)
+                self._dispatch(rows, seq, replay=True)
             self.replayed += len(seqs)
             self.seq = max(self.seq, restore_seq + len(seqs))
             _journal.emit("shard", "recover", runner=self.name,
                           checkpoint_seq=int(restore_seq), replayed=len(seqs),
                           fresh_init=restored is None)
+            if seqs:
+                _journal.emit("shard", "replay", runner=self.name, groups=len(seqs),
+                              high_seq=int(self.seq))
             log.info("%s: recovered at seq=%d, replayed %d group(s)", self.name,
                      restore_seq, len(seqs))
             self._note()

@@ -24,6 +24,11 @@ process; with config ``autotune_cache_dir`` set the picks also persist as
 JSON (``streamed_picks.json``), written with an atomic rename. Readers: the
 device-chain pass (a fused region's cached K), ``TpuKernel`` (its credit
 seed, its adaptive wire's start, its plans and the recorded precision).
+
+Every program a sweep builds is billed to the profile plane as a compile of
+``autotune`` with reason ``autotune`` (a sweep compiles by design, so these
+never count toward a storm); the streamed kernels a sweep runs bill their
+own inits.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 
 from ..log import logger
 from ..ops.stages import Pipeline, Stage
+from ..telemetry import profile as _profile
 from .instance import TpuInstance, instance
 from .kernel_tune import device_key
 
@@ -77,7 +83,8 @@ def _measure(pipe: Pipeline, frame: int, depth: int, inst: TpuInstance,
     """Msamples/s through the compiled program with its H2D and D2H, at most
     ``depth`` frames in flight."""
     dev = inst.device
-    fn, carry = pipe.compile(frame, dev)
+    # a sweep compiles by design: billed as "autotune", never a storm
+    fn, carry = pipe.compile(frame, dev, program="autotune", reason="autotune")
     host = torch.zeros(frame, dtype=_torch_dtype(pipe.in_dtype))
     if dev.type == "cuda":
         host = host.pin_memory()
@@ -699,7 +706,8 @@ def autotune_serve(pipeline, frame_size: Optional[int] = None,
     ladder: list = []
     prev_rate = None
     for cap in sorted({int(c) for c in capacities if int(c) > 0}):
-        prog = build_slot_program(pipeline, cap, 1, fs, dev)
+        with _profile.compiling("autotune", "autotune", f"serve:cap={cap},frame={fs}"):
+            prog = build_slot_program(pipeline, cap, 1, fs, dev)
         pages = [t.unsqueeze(0).repeat((cap,) + (1,) * t.dim()) for t in fresh]
         pmap = xfer.to_device(np.arange(cap, dtype=np.int64), dev)
         no_fresh = xfer.to_device(np.zeros(cap, dtype=bool), dev)
@@ -775,7 +783,8 @@ def autotune_shard(stages, in_dtype, frame: Optional[int] = None, k: int = 1,
         try:
             host = np.zeros((D, k, f), dtype=pipe.in_dtype)
             if D == 1:
-                fn1, carry = pipe.compile(f, dev, k=k)
+                fn1, carry = pipe.compile(f, dev, k=k, program="autotune",
+                                          reason="autotune")
                 x1 = torch.from_numpy(host[0, 0] if k == 1 else host[0])
 
                 def group(c, _fn=fn1, _x=x1):
@@ -786,7 +795,8 @@ def autotune_shard(stages, in_dtype, frame: Optional[int] = None, k: int = 1,
                 prog = ShardedProgram(pipe, plan_shard(pipe, mode="data", n_devices=D,
                                                        device=dev), name=f"autotune_d{D}",
                                       device=dev)
-                fnD, carry = prog.compile(f, k)
+                with _profile.compiling("autotune", "autotune", f"D={D},frame={f},k={k}"):
+                    fnD, carry = prog.compile(f, k, program="autotune")
                 xD = host[:, 0] if k == 1 else host
 
                 def group(c, _fn=fnD, _x=xD):

@@ -27,6 +27,13 @@ on a card): ``TpuH2D`` encodes on the host into the staging arena, ships the
 parts and decodes on the device; ``TpuD2H`` encodes on the device, ships the
 parts and decodes on the host. The device-chain pass fuses a region only
 when its ends agree on the wire.
+
+Telemetry: with tracing on, ``TpuH2D`` records each frame's host ``encode``
+span, each stage block a ``compute`` span around its call (the launch as the
+block's thread sees it; nothing waits on the card) and ``TpuD2H`` each
+frame's host ``decode`` span, all ``cat="tpu"``; the transfers record their
+own ``H2D``/``D2H`` spans (``ops/xfer.py``). A ``TpuStage``'s program is
+billed to the profile plane under the block's name.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..ops.stages import MergeStage, Pipeline, Stage
 from ..ops.wire import resolve_wire
 from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag, rebase_tags
+from ..telemetry.spans import recorder as _trace_recorder
 from ..types import Pmt
 from .instance import TpuInstance, instance
 
@@ -52,6 +60,7 @@ __all__ = ["TpuH2D", "TpuStage", "TpuMergeStage", "TpuD2H", "rebase_frame_tags",
            "emit_with_tags", "parse_ctrl"]
 
 log = logger("tpu.frames")
+_trace = _trace_recorder()
 
 def parse_ctrl(p: Pmt):
     """``{"stage": <name-or-index>, <param>: <value>, …}`` → ``(stage, params)``.
@@ -142,6 +151,7 @@ class TpuH2D(Kernel):
             padded = np.zeros(self.frame_size, dtype=self.dtype)
             padded[:len(frame)] = frame
             frame = padded
+        t0 = _trace.now() if _trace.enabled else 0
         alloc = GroupAlloc(self._arena)
         if self.wire.encode_may_alias(self.dtype):
             parts = self.wire.encode_host(frame)      # views of the ring slot
@@ -155,6 +165,8 @@ class TpuH2D(Kernel):
                 d[...] = p
                 p = d
             staged.append(p)
+        if t0:
+            _trace.complete("tpu", "encode", t0, args={"wire": self.wire.name})
         self._staged.append((xfer.start_device_transfer_parts(
             staged, self.inst.device, handles=alloc.handles), valid, tuple(tags)))
 
@@ -239,7 +251,8 @@ class TpuStage(Kernel):
         if n % self.pipeline.frame_multiple:
             raise ValueError(f"frame {n} is not a multiple of "
                              f"{self.pipeline.frame_multiple}")
-        self._compiled, self._carry = self.pipeline.compile(n, self.inst.device)
+        self._compiled, self._carry = self.pipeline.compile(
+            n, self.inst.device, program=self.meta.instance_name or type(self).__name__)
         for stage, params in self._pending_ctrl:
             try:
                 self._carry = self.pipeline.update_stage(self._carry, stage, **params)
@@ -255,7 +268,11 @@ class TpuStage(Kernel):
             frame, valid, tags = item
             if self._compiled is None:
                 self._compile(frame.shape[0])
+            t0 = _trace.now() if _trace.enabled else 0
             self._carry, y = self._compiled(self._carry, frame)
+            if t0:
+                _trace.complete("tpu", "compute", t0,
+                                args={"block": self.meta.instance_name, "frame": frame.shape[0]})
             self._dispatches += 1
             fm = self.pipeline.frame_multiple
             out_valid = self.pipeline.out_items(valid - valid % fm)
@@ -388,7 +405,11 @@ class TpuMergeStage(Kernel):
             valids = [it[1] for it in items]
             if self._fn is None:
                 self._compile(frames)
+            t0 = _trace.now() if _trace.enabled else 0
             self._carry, y = self._fn(self._carry, frames)
+            if t0:
+                _trace.complete("tpu", "compute", t0, args={"block": self.meta.instance_name,
+                                                            "inputs": len(frames)})
             self._dispatches += 1
             out_valid = self._out_valid(valids, frames)
             tags = rebase_frame_tags(items[0][2], self._tag_ratio, out_valid)
@@ -438,7 +459,12 @@ class TpuD2H(Kernel):
                 self.wire.encode_torch(frame.reshape(-1))), valid, tags))
         if self._inflight:
             finish, valid, tags = self._inflight.popleft()
-            host = self.wire.decode_host(finish(), self.dtype).reshape(-1)[:valid]
+            raw = finish()
+            t0 = _trace.now() if _trace.enabled else 0
+            host = self.wire.decode_host(raw, self.dtype).reshape(-1)[:valid]
+            if t0:
+                _trace.complete("tpu", "decode", t0,
+                                args={"wire": self.wire.name, "items": len(host)})
             self._pending, self._pending_tags = emit_with_tags(self.output, host, tags)
             finish.release()
             io.call_again = True

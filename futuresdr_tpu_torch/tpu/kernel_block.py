@@ -110,7 +110,23 @@ budget (its ``inflight``), the adaptive wire's start (``wire``), and the
 hand kernels' plans (``pallas_blocks``, installed at construction); each
 init records the applied precision mode there.
 
-Not in this slice (ROADMAP): frame lineage.
+Telemetry (``telemetry/``): with tracing on (``FUTURESDR_TPU_TRACE``) each
+frame's encode records an ``encode`` span (``cat="tpu"``), each transfer its
+``H2D`` or ``D2H`` span (``ops/xfer.py``), each replay a ``compute`` span (the
+launch as this thread sees it: the replay is asynchronous on a card, and no
+hook waits on the card) and each group's host decode a ``decode`` span; the
+spans sit around the replay, never inside the captured graph. Every frame
+carries its ring-exit stamp and a lineage trace id (``telemetry/lineage.py``,
+1 frame in ``lineage_stride``; 0 when unsampled) through its metas: the
+sampled frames are stamped ``ingest``, ``encode``, ``H2D``, ``dispatch``,
+``D2H``, ``decode`` and ``emit``, and each drained frame observes its
+ring-exit → decoded latency in ``fsdr_e2e_latency_seconds{source=<block>}``
+(a sampled one also as the bucket's exemplar). The profile plane bills each
+init as a compile (``warmup``, a restart's ``reinit``), a wire or precision
+switch as ``reinit``, a recovery as ``recover``, and each dispatch group as
+one unit of the program's registered cost (``utils/roofline.program_cost``
+of the wired megabatch program). The journal records ``init``, ``retune``,
+``wire-switch``, ``checkpoint-commit``, ``recover`` and ``replay``.
 """
 
 from __future__ import annotations
@@ -135,6 +151,12 @@ from ..log import logger
 from ..runtime import faults as _faults
 from ..runtime.kernel import Kernel, message_handler
 from ..runtime.tag import ItemTag
+from ..telemetry import journal as _journal
+from ..telemetry import prom as _prom
+from ..telemetry import lineage as _lineage
+from ..telemetry import profile as _profile
+from ..telemetry.doctor import E2E_LATENCY as _E2E_LATENCY
+from ..telemetry.spans import recorder as _trace_recorder
 from ..types import Pmt
 from ..utils import snapshot as _snapshot
 from .frames import emit_with_tags, parse_ctrl, rebase_frame_tags
@@ -144,6 +166,20 @@ __all__ = ["TpuKernel", "TpuFanoutKernel", "TpuDagKernel", "CreditController",
            "WireController", "rebase_frame_tags", "emit_with_tags"]
 
 log = logger("tpu.kernel_block")
+
+
+_trace = _trace_recorder()
+
+
+def _stamp_metas(metas, lane: str, t_ns=None) -> None:
+    """Stamp ``lane`` on every sampled frame of a group. A metas tuple
+    carries the trace id last (``m[-1]``, 0 when unsampled): the input form
+    ``(valid_in, tags, t_in, tid)``, the result form ``(valid_out, tags,
+    t_in, tid)`` and the fan-out result form ``(per_branch, t_in, tid)``.
+    Unsampled, it is one falsy check a frame."""
+    for m in metas:
+        if m[-1]:
+            _lineage.tracer().stamp(m[-1], lane, t_ns)
 
 
 class CreditController:
@@ -511,6 +547,15 @@ class _Dispatch:
 #: in the process can recover on it
 _STICKY = xfer._FATAL_MARKERS
 
+# the recovery plane's families: frames a restart replayed from the carry
+# checkpoint, and frames a fresh init forfeited
+_FORFEITED = _prom.counter(
+    "fsdr_frames_forfeited_total",
+    "in-flight frames lost to a fresh re-init (no usable checkpoint)", ("block",))
+_REPLAYED = _prom.counter(
+    "fsdr_frames_replayed_total",
+    "frames replayed from the carry checkpoint after a restart", ("block",))
+
 
 class TpuKernel(Kernel):
     """Runs ``Pipeline(stages, in_dtype)`` over the stream on
@@ -566,6 +611,8 @@ class TpuKernel(Kernel):
         self._pending_tags: List[ItemTag] = []
         self.frames_dispatched = 0
         self.dispatches = 0           # program replays (one a dispatch group)
+        self._e2e_hist = None         # bound at init (the instance name is final)
+        self._prof = None             # the profile plane's entry, bound at init
         self._init_recovery_state(checkpoint_every)
         self.input = self.add_stream_input("in", self.pipeline.in_dtype,
                                            min_items=self.frame_size)
@@ -717,11 +764,13 @@ class TpuKernel(Kernel):
             log.warning("%s: the precision retune changed the carry's structure: "
                         "streaming state reset", self.meta.instance_name)
             new = template
-        with self._carry_lock:
+        with self._carry_lock, _profile.compiling(self._prog_name(), "reinit",
+                                                  f"precision:{mode}"):
             self.pipeline, self._precision_plan, self._precision_mode = pipe, plan, mode
             self._programs, self._fn, self._carry = {}, None, None
             self._fn = self._program_for(self.wire, self._packed)
             self._carry = new
+        self._register_program()
         self.precision_switches += 1
         if widened:
             log.info("%s: the precision retune took %d widened parameter leaf(s) from "
@@ -901,16 +950,39 @@ class TpuKernel(Kernel):
     def _n_slots(self) -> int:
         return self._credits.hi + self.stage_ahead
 
+    def _prog_name(self) -> str:
+        return self.meta.instance_name or type(self).__name__
+
+    def _prog_sig(self) -> str:
+        return f"frame={self.frame_size},wire={self.wire.name},k={self.k_batch}"
+
+    def _register_program(self) -> None:
+        """Register the dispatched program's cost with the profile plane:
+        the wired megabatch program, one unit a dispatch group, counted
+        lazily (when the plane is read). A re-registration (a re-init, a
+        wire or precision switch) replaces the cost."""
+        pipe, fs, wn, kb = self.pipeline, self.frame_size, self.wire.name, self.k_batch
+
+        def cost():
+            from ..utils.roofline import program_cost
+            return program_cost(pipe, fs, wire=wn, k=kb)
+
+        from ..utils.roofline import dominant_dtype
+        self._prof = _profile.register(self._prog_name(), cost_thunk=cost,
+                                       dtype=dominant_dtype(pipe.stages))
+
     def _program_for(self, wire, packed):
         """The wired program of ``(wire, packed)``, built once: every program
-        of this kernel shares the first one's static carry buffers."""
+        of this kernel shares the first one's static carry buffers. The
+        caller holds the profile plane's compile window (its reason)."""
         key = (wire.name, None if packed is None else packed.key)
         fn = self._programs.get(key)
         if fn is None:
             share = getattr(self._fn, "carry", None)
             fn, carry = self.pipeline.compile(
                 self.frame_size, self.inst.device, k=self.k_batch, slots=self._n_slots(),
-                wire=wire, packed=packed, carry=share)
+                wire=wire, packed=packed, carry=share, program=self._prog_name(),
+                reason=None)
             if self._carry is None:
                 self._carry = carry
             self._programs[key] = fn
@@ -962,6 +1034,7 @@ class TpuKernel(Kernel):
             forfeit += len(self._group.metas)
         if forfeit:
             self.frames_forfeited += forfeit
+            _FORFEITED.labels(block=self._prog_name()).inc(forfeit)
             log.warning("%s: a fresh init forfeits %d frame(s) in flight",
                         self.meta.instance_name or type(self).__name__, forfeit)
         self._drop_window()
@@ -974,7 +1047,14 @@ class TpuKernel(Kernel):
         self._pending_out, self._pending_tags = None, []
         self._recovery_reset()
         self._ckpt_every = self._resolve_ckpt_every()
-        with self._carry_lock:
+        prog_name = self._prog_name()
+        self._e2e_hist = _E2E_LATENCY.labels(source=self.meta.instance_name or "TpuKernel")
+        # the compile window (the doctor reads it as "compiling", never as a
+        # deadlock): the first init captures, a restart's re-init only resets
+        # the carry, billed as a reinit all the same
+        reason = "warmup" if self._fn is None else "reinit"
+        _journal.emit("kernel", "init", block=prog_name, reason=reason, forfeited=forfeit)
+        with self._carry_lock, _profile.compiling(prog_name, reason, self._prog_sig()):
             if self._fn is None:
                 # the warm-up (kernel builds, library plans, lazy tables) and
                 # the capture happen here, off the hot path
@@ -985,6 +1065,7 @@ class TpuKernel(Kernel):
                 self._carry = self.pipeline.init_carry(self.inst.device)
             self.frames_dispatched = 0
             self.dispatches = 0
+        self._register_program()
         if self._ckpt_every:
             # the fresh-init sentinel: a fault before the first commit
             # restores the initial carry and replays from group 0
@@ -1036,8 +1117,12 @@ class TpuKernel(Kernel):
                 self._replay_retunes.append(entry)
                 if self._ckpt_every:
                     self._retune_log.append(entry)
+                _journal.emit("kernel", "retune", block=self.meta.instance_name,
+                              stage=str(stage), params=sorted(params), deferred=True)
                 return self.frames_dispatched
             self._carry = self.pipeline.update_stage(self._carry, stage, **params)
+            _journal.emit("kernel", "retune", block=self.meta.instance_name,
+                          stage=str(stage), params=sorted(params), deferred=False)
             if self._ckpt_every:
                 # groups dispatch in order under this lock: the next one is
                 # the first to see the new parameters
@@ -1110,12 +1195,21 @@ class TpuKernel(Kernel):
         old = self.wire.name
         self.wire = get_wire(fmt)
         self._derive_wire_paths()
-        with self._carry_lock:
-            self._fn = self._program_for(self.wire, self._packed)
         if replay:
+            # inside a recovery's compile window already
+            with self._carry_lock:
+                self._fn = self._program_for(self.wire, self._packed)
+            self._register_program()
             return
+        with self._carry_lock, _profile.compiling(self._prog_name(), "reinit",
+                                                  f"wire:{fmt}"):
+            self._fn = self._program_for(self.wire, self._packed)
+        # the registered cost must describe the new wire's program
+        self._register_program()
         self._wire_switches += 1
         self.wire_history.append((self.frames_dispatched, fmt))
+        _journal.emit("kernel", "wire-switch", block=self._prog_name(), old=old, new=fmt,
+                      seq=int(self._seq))
         log.info("%s: wire switched %s -> %s at frame %d",
                  self.meta.instance_name or type(self).__name__, old, fmt,
                  self.frames_dispatched)
@@ -1166,6 +1260,7 @@ class TpuKernel(Kernel):
         a quantizing wire writes its payload in place (``encode_into``) and
         its scale is copied in."""
         k = self.k_batch
+        t0 = _trace.now() if _trace.enabled else 0
         if self.wire.encode_may_alias(frame.dtype):
             parts = self.wire.encode_host(frame)
         else:
@@ -1175,6 +1270,9 @@ class TpuKernel(Kernel):
             p = np.asarray(p)
             if not np.shares_memory(row, p):
                 row[...] = p
+        if t0:
+            _trace.complete("tpu", "encode", t0,
+                            args={"wire": self.wire.name, "items": len(frame)})
 
     def _stage(self, frame: np.ndarray, valid_in: int, tags, deferred=None) -> None:
         """Queue one frame (a full one, or the zero-padded EOS tail) into the
@@ -1182,16 +1280,26 @@ class TpuKernel(Kernel):
         ring slot at once, or, with ``deferred`` (an event), on the codec
         worker that ships the group, which sets the event once it has read
         the slot. A full group ships."""
+        t_in = time.perf_counter_ns()
         self._staged_frames += 1
         if self._wirectl is not None:
             self._wirectl.observe_frame(frame)
+        # lineage sampling: 1 frame in N gets a trace id that rides its
+        # metas; unsampled (0) every later stamp site is one falsy check
+        tid = _lineage.tracer().sample()
+        if tid:
+            _lineage.tracer().stamp(tid, "ingest", t_in)
         g = self._group
         if g is None:
             zc = self._zero_copy(frame)
             if zc is not None:
                 # the registered buffer is the staging copy: the group ships
                 # the wire's views of it and holds it until it drains
+                t0 = _trace.now() if _trace.enabled else 0
                 g = _Group(None, None, parts=self.wire.encode_host(frame))
+                if t0:
+                    _trace.complete("tpu", "encode", t0,
+                                    args={"wire": self.wire.name, "items": len(frame)})
                 g.held.append(zc)
             else:
                 g = self._new_group()
@@ -1202,7 +1310,7 @@ class TpuKernel(Kernel):
                 g.deferred.append((i, frame, deferred))
             else:
                 self._encode_row(g, i, frame)
-        g.metas.append((valid_in, tuple(tags)))
+        g.metas.append((valid_in, tuple(tags), t_in, tid))
         if len(g.metas) == self.k_batch:
             self._flush_accum()
 
@@ -1231,6 +1339,7 @@ class TpuKernel(Kernel):
         finally:
             for _i, _frame, ev in g.deferred:
                 ev.set()       # the ring slot has been read: consume() may run
+        _stamp_metas(metas, "encode")
         if g.parts is not None:
             if self._ckpt_every:
                 self._rlog_insert(seq, tuple(g.parts), metas, g.held)
@@ -1382,16 +1491,28 @@ class TpuKernel(Kernel):
             d = self._staged[0]
             fin = d.get_fin()               # the encode worker's start, joined
             fin()                           # the replay waits for the H2D
+            _stamp_metas(d.metas, "H2D")
             with self._carry_lock:
                 self._staged.popleft()
                 if self._replay_retunes:
                     self._apply_replay_retunes(d.seq)
+                t0 = _trace.now() if _trace.enabled else 0
                 self._carry, y = d.fn.dispatch(d.slot, self._carry)
+                if t0:
+                    # the replay's launch as this thread sees it (the graph
+                    # runs on the card asynchronously; nothing here waits)
+                    _trace.complete("tpu", "compute", t0,
+                                    args={"frame": self.frame_size, "frames": len(d.metas)})
                 self._next_seq = d.seq + 1
                 if self._ckpt_every and (d.seq + 1) % self._ckpt_every == 0:
                     self._start_ckpt(d.seq)
                 self.frames_dispatched += len(d.metas)
                 self.dispatches += 1
+            if self._prof is not None:
+                # one unit a dispatch group: the registered cost covers the
+                # wired megabatch program
+                self._prof.dispatch(t=time.monotonic())
+            _stamp_metas(d.metas, "dispatch")
             d.land, d.out_metas = self._start_result_d2h(y, d.metas, d.wire)
             self._inflight.append(d)
             self._credits.note_dispatch(getattr(fin, "_wire", None), len(self._inflight))
@@ -1402,9 +1523,10 @@ class TpuKernel(Kernel):
 
     def _out_metas(self, metas) -> list:
         out_metas = []
-        for valid_in, tags in metas:
+        for valid_in, tags, t_in, tid in metas:
             valid_out = min(self.pipeline.out_items(valid_in), self.out_frame)
-            out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline, valid_out)))
+            out_metas.append((valid_out, rebase_frame_tags(tags, self.pipeline, valid_out),
+                              t_in, tid))
         return out_metas
 
     def _start_result_d2h(self, y, metas, wire) -> tuple:
@@ -1419,8 +1541,14 @@ class TpuKernel(Kernel):
         pool is on; ``land.release`` hands the host buffers back once the
         payload has been emitted."""
         def land():
-            return self._decode_group([None if f is None else f() for f in fins],
-                                      out_metas, wire)
+            raws = [None if f is None else f() for f in fins]
+            _stamp_metas(out_metas, "D2H")
+            t0 = _trace.now() if _trace.enabled else 0
+            out = self._decode_group(raws, out_metas, wire)
+            if t0:
+                _trace.complete("tpu", "decode", t0, args={"wire": wire.name})
+            _stamp_metas(out_metas, "decode")
+            return out
 
         pool = self._codec_pool
         if pool is not None:
@@ -1454,7 +1582,7 @@ class TpuKernel(Kernel):
 
     def _decode_group(self, raws, out_metas, wire) -> np.ndarray:
         (raw,) = raws
-        return self._decode_rows(raw, [v for v, _ in out_metas],
+        return self._decode_rows(raw, [m[0] for m in out_metas],
                                  self.pipeline.out_dtype, wire)
 
     def _release_group(self, slot, held) -> None:
@@ -1470,12 +1598,32 @@ class TpuKernel(Kernel):
         land, release = d.land
         flat = land()
         if not d.drop:
+            self._note_e2e(d.out_metas)
             tags = [ItemTag(t.index + i * self.out_frame, t.tag)
-                    for i, (_, ts) in enumerate(d.out_metas) for t in ts]
+                    for i, m in enumerate(d.out_metas) for t in m[1]]
             self._pending_out, self._pending_tags = emit_with_tags(self.output, flat, tags)
         release()
         self._release_group(d.slot, d.held)
         self._note_drained(d.seq)
+
+    def _note_e2e(self, out_metas) -> None:
+        """Each drained frame's ring-exit → decoded latency, into
+        ``fsdr_e2e_latency_seconds{source}`` (the frames of a megabatch
+        group land together; each keeps its own ring-exit stamp); a sampled
+        frame's lineage record is stamped ``emit`` and finished, its latency
+        the bucket's exemplar."""
+        end = time.perf_counter_ns()
+        hist = self._e2e_hist
+        if hist is None:
+            return
+        for m in out_metas:
+            hist.observe((end - m[-2]) * 1e-9)
+            tid = m[-1]
+            if tid:
+                lin = _lineage.tracer()
+                lin.stamp(tid, "emit", end)
+                lin.finish(tid, source=self._prog_name())
+                hist.exemplar((end - m[-2]) * 1e-9, tid)
 
     def _idle(self, inp) -> bool:
         return (not self._inflight and not self._staged and self._group is None
@@ -1640,6 +1788,8 @@ class TpuKernel(Kernel):
             if self._ckpts and self._ckpts[-1][0] >= s:
                 continue                     # a replay's commit of a covered group
             self._ckpts.append((s, leaves, spec))
+            _journal.emit("kernel", "checkpoint-commit", block=self.meta.instance_name,
+                          seq=int(s))
             self._persist_ckpt(s, leaves)
             if len(self._ckpts) >= 2:
                 floor = self._ckpts[0][0]
@@ -1772,6 +1922,12 @@ class TpuKernel(Kernel):
                       self.meta.instance_name, err)
             return False
         self._quiesce()
+        # billed as a compile with reason "recover": the storm detector and
+        # the doctor's "compiling" verdict both see a recovery's window
+        with _profile.compiling(self._prog_name(), "recover", self._prog_sig()):
+            return self._recover(err)
+
+    def _recover(self, err) -> bool:
         fresh = self.pipeline.init_carry(self.inst.device)
         spec = self.pipeline.carry_spec(fresh)
         if self._seq == 0 and not self._rlog and self._ckpt_dir:
@@ -1795,6 +1951,12 @@ class TpuKernel(Kernel):
                     log.info("%s: restored the carry persisted at group %d (%s) "
                              "after %r", self.meta.instance_name, seq_d,
                              self._ckpt_file(), err)
+                    _trace.instant("tpu", "checkpoint_restore_disk",
+                                   args={"block": self.meta.instance_name,
+                                         "checkpoint_seq": seq_d})
+                    _journal.emit("kernel", "recover", block=self.meta.instance_name,
+                                  checkpoint_seq=int(seq_d), replayed=0, from_disk=True,
+                                  error=repr(err))
                     return True
                 log.warning("%s: the persisted checkpoint does not fit the carry "
                             "(pipeline changed?): ignored", self.meta.instance_name)
@@ -1856,8 +2018,19 @@ class TpuKernel(Kernel):
             self._replay_high = max(self._replay_high, s)
             replayed += len(metas)
         self.frames_replayed += replayed
+        if replayed:
+            _REPLAYED.labels(block=self._prog_name()).inc(replayed)
         log.info("%s: restored the carry checkpoint @%d, replaying %d frame(s) after %r",
                  self.meta.instance_name, seq, replayed, err)
+        _trace.instant("tpu", "checkpoint_restore",
+                       args={"block": self.meta.instance_name, "checkpoint_seq": seq,
+                             "replayed": replayed})
+        _journal.emit("kernel", "recover", block=self.meta.instance_name,
+                      checkpoint_seq=int(seq), replayed=int(replayed), from_disk=False,
+                      error=repr(err))
+        if replayed:
+            _journal.emit("kernel", "replay", block=self.meta.instance_name,
+                          frames=int(replayed), high_seq=int(self._replay_high))
         return True
 
 
@@ -1947,7 +2120,7 @@ class TpuFanoutKernel(TpuKernel):
         tag_ratios = getattr(fo, "tag_ratios", None) or fo.path_ratios
         concat = getattr(fo, "concat_sinks", None)
         out_metas = []
-        for valid_in, tags in metas:
+        for valid_in, tags, t_in, tid in metas:
             per_branch = []
             for j in range(fo.n_branches):
                 valid_out = min(fo.branch_out_items(j, valid_in), self.out_frames[j])
@@ -1955,7 +2128,7 @@ class TpuFanoutKernel(TpuKernel):
                     valid_out = 0
                 per_branch.append((valid_out, rebase_frame_tags(
                     tags, _PathRatio(tag_ratios[j]), valid_out)))
-            out_metas.append(per_branch)
+            out_metas.append((per_branch, t_in, tid))
         fins, off = [], 0
         for j, n in enumerate(self._part_counts):
             fins.append(None if self._branch_done[j]
@@ -1966,7 +2139,7 @@ class TpuFanoutKernel(TpuKernel):
     def _decode_group(self, raws, out_metas, wire) -> list:
         """Each live branch's flat valid outputs (None for a retired one)."""
         return [None if raw is None else
-                self._decode_rows(raw, [pb[j][0] for pb in out_metas],
+                self._decode_rows(raw, [m[0][j][0] for m in out_metas],
                                   self.pipeline.out_dtypes[j], wire)
                 for j, raw in enumerate(raws)]
 
@@ -1978,11 +2151,12 @@ class TpuFanoutKernel(TpuKernel):
         land, release = d.land
         flats = land()
         if not d.drop:
+            self._note_e2e(d.out_metas)
             for j, flat in enumerate(flats):
                 if flat is None or self._branch_done[j]:
                     continue
                 tags = [ItemTag(t.index + i * self.out_frames[j], t.tag)
-                        for i, pb in enumerate(d.out_metas) for t in pb[j][1]]
+                        for i, m in enumerate(d.out_metas) for t in m[0][j][1]]
                 self._pendings[j], self._pending_tags_n[j] = emit_with_tags(
                     self.outputs[j], flat, tags)
         release()

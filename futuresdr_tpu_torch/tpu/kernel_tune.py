@@ -25,7 +25,9 @@ The contract is the reference's:
 
 Each candidate's time is one call's device time in a CUDA graph of
 ``reps`` calls over ``reps`` distinct inputs (``chip_smoke.py``'s phase 7
-method); on the CPU the host time of the same calls.
+method); on the CPU the host time of the same calls. A candidate's first
+call, which builds its kernel, is billed to the profile plane as a compile
+of ``autotune`` with reason ``autotune``, which never counts toward a storm.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from ..log import logger
 from ..ops import cuda_kernels as ck
+from ..telemetry import profile as _profile
 
 __all__ = ["TIE_MARGIN", "TOL", "SHAPES", "device_key", "sweep_plans"]
 
@@ -211,7 +214,11 @@ def sweep_plans(kernels: Optional[Sequence[str]] = None, device=None, reps: int 
         times, errs = {}, {}
         for p in cands:
             try:
-                err = _err(kernel, call(p, *args_list[0]), refs[0])
+                # a candidate's first call builds its kernel: a compile by
+                # design, billed as "autotune" (never a storm)
+                with _profile.compiling("autotune", "autotune", f"{kernel}:{label}:{p}"):
+                    got = call(p, *args_list[0])
+                err = _err(kernel, got, refs[0])
                 errs[p] = err
                 if not err <= TOL[kernel]:
                     raise ValueError(f"error {err:.3e} over {TOL[kernel]:g}")

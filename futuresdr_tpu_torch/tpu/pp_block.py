@@ -20,6 +20,9 @@ import torch
 from ..ops.wire import resolve_wire
 from ..parallel.pipeline_pp import make_pp_pipeline, stage_slice, tree_map
 from ..runtime.kernel import Kernel
+from ..telemetry.spans import recorder as _trace_recorder
+
+_trace = _trace_recorder()
 
 __all__ = ["PpKernel"]
 
@@ -87,13 +90,23 @@ class PpKernel(Kernel):
         self._W = [stage_slice(stage_params, s, d) for s, d in enumerate(self._devs)]
 
     def _dispatch(self, frame: np.ndarray, valid: int) -> None:
+        # spans (tracing on): the host encode, the pipeline's launch as this
+        # thread sees it, and (in work) the host decode, all cat="tpu"
         dev = self._devs[0]
+        t0 = _trace.now() if _trace.enabled else 0
+        host = self.wire.encode_host(frame)
+        if t0:
+            _trace.complete("tpu", "encode", t0, args={"wire": self.wire.name})
         parts = tuple(torch.from_numpy(np.ascontiguousarray(p)).to(dev, non_blocking=True)
-                      for p in self.wire.encode_host(frame))
+                      for p in host)
+        t0 = _trace.now() if _trace.enabled else 0
         x = self.wire.decode_torch(parts, self._in_dt).reshape((self.n_micro,)
                                                                + self.micro_shape)
         y = self._fn(self._W, x).reshape(-1)
         self._inflight.append((self.wire.encode_torch(y), valid))
+        if t0:
+            _trace.complete("tpu", "compute", t0,
+                            args={"stages": self.n_stages, "micro": self.n_micro})
 
     async def work(self, io, mio, meta):
         if self._pending is not None:
@@ -120,7 +133,11 @@ class PpKernel(Kernel):
                                or len(inp) < self.frame_size):
             parts, valid = self._inflight.popleft()
             raw = tuple(p.cpu().numpy() for p in parts)
+            t0 = _trace.now() if _trace.enabled else 0
             result = self.wire.decode_host(raw, self._out_dt).reshape(-1)[:valid]
+            if t0:
+                _trace.complete("tpu", "decode", t0,
+                                args={"wire": self.wire.name, "items": len(result)})
             out = self.output.slice()
             k = min(len(out), len(result))
             out[:k] = result[:k]

@@ -19,6 +19,9 @@ import torch
 
 from ..parallel.stream_sp import place, to_host
 from ..runtime.kernel import Kernel
+from ..telemetry.spans import recorder as _trace_recorder
+
+_trace = _trace_recorder()
 
 __all__ = ["SpKernel"]
 
@@ -73,12 +76,16 @@ class SpKernel(Kernel):
             self._carry = torch.as_tensor(d["carry"]).to(self._carry.device)
 
     def _dispatch(self, frame: np.ndarray) -> None:
+        # the sharded operator's launch as this thread sees it (tracing on)
+        t0 = _trace.now() if _trace.enabled else 0
         x = place(torch.from_numpy(frame), self.mesh, self.axis)
         if self._stateful:
             self._carry, y = self._fn(self._carry, x)
         else:
             y = self._fn(x)
         self._inflight.append(y)
+        if t0:
+            _trace.complete("tpu", "compute", t0, args={"frame": len(frame)})
 
     async def work(self, io, mio, meta):
         if self._pending is not None:

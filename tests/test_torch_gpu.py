@@ -1870,3 +1870,121 @@ def test_broker_copy_streams_live_on_its_card(cuda_device):
         assert b.copy_stream(direction).device == last
     with b.card():
         assert torch.cuda.current_device() == last.index
+
+
+# ---------------------------------------------------------------------------
+# the telemetry plane on the card
+# ---------------------------------------------------------------------------
+
+def _tele_stream(dev, data, k, name):
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    kern = TpuKernel([T.fir_fft_stage(np.hanning(64).astype(np.float32), 2048),
+                      T.mag2_stage()], np.complex64, frame_size=1 << 16,
+                     inst=TpuInstance(dev), frames_per_dispatch=k, wire="f32")
+    kern.meta.instance_name = name
+    fg = Flowgraph()
+    snk = VectorSink(np.float32)
+    fg.connect(VectorSource(data), kern, snk)
+    Runtime().run(fg)
+    return np.asarray(snk.items()), kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_traced_stream_bit_equal_and_every_group_carries_its_spans_on_card(cuda_device, k):
+    from futuresdr_tpu_torch.telemetry import spans
+    rng = np.random.default_rng(71)
+    data = _c64(rng, 8 << 16)
+    off, _ = _tele_stream(cuda_device, data, k, f"gpu_tele_off_{k}")
+    rec = spans.recorder()
+    rec.drain()
+    spans.enable(True)
+    try:
+        on, kern = _tele_stream(cuda_device, data, k, f"gpu_tele_on_{k}")
+    finally:
+        spans.enable(False)
+    evs = rec.drain()
+    np.testing.assert_array_equal(on, off)
+    count = {n: sum(e.cat == "tpu" and e.name == n for e in evs)
+             for n in ("encode", "H2D", "compute", "D2H", "decode")}
+    g = kern.dispatches
+    assert count == {"encode": 8, "H2D": g, "compute": g, "D2H": g, "decode": g}
+
+
+@pytest.mark.gpu
+def test_captures_bill_their_reasons_on_card(cuda_device):
+    """A capture is a compile: the first one ``warmup``, one for a changed
+    carry shape ``reinit`` with the carry's signature."""
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.telemetry import profile
+    pipe = T.Pipeline([T.fir_stage(np.ones(16, np.float32) / 16, fft_len=1024)],
+                      np.complex64)
+    frame = 4 * pipe.frame_multiple
+    fn, carry = pipe.compile(frame, cuda_device, program="gpu_tele_recapture")
+    x = torch.from_numpy(_c64(np.random.default_rng(72), frame)).to(cuda_device)
+    carry, _ = fn(carry, x)
+    (H, _tt, tail), = carry
+    carry, _ = fn(((H, torch.zeros(32, device=cuda_device), tail),), x)
+    reasons = {lab["reason"]: int(v) for lab, v in profile.COMPILES.samples()
+               if lab["program"] == "gpu_tele_recapture"}
+    assert fn.captures == 2 and reasons == {"warmup": 1, "reinit": 1}
+    assert profile.plane().program("gpu_tele_recapture").units == 2
+
+
+@pytest.mark.gpu
+def test_a_capture_in_progress_reads_compiling_on_card(cuda_device):
+    import threading
+    import time
+
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.telemetry import profile
+
+    def slow(c, x):
+        time.sleep(0.3)
+        return c, x.clone()
+
+    pipe = T.Pipeline([T.Stage(fn=slow, init_carry=lambda dt, dv: torch.zeros(1, device=dv),
+                               name="slow")], np.complex64)
+    t = threading.Thread(target=pipe.compile, args=(1024, cuda_device),
+                         kwargs={"program": "gpu_tele_slow"})
+    t.start()
+    t0 = time.monotonic()
+    while not profile.plane().active_compiles() and time.monotonic() - t0 < 10:
+        time.sleep(0.01)
+    comp = profile.plane().compiling_or_recent(1.0)
+    t.join()
+    assert comp["in_progress"] and comp["program"] == "gpu_tele_slow"
+
+
+@pytest.mark.gpu
+def test_served_steps_record_spans_and_gauges_on_card(cuda_device, monkeypatch):
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.serve import ServeEngine
+    from futuresdr_tpu_torch.telemetry import profile, spans
+    pipe = T.Pipeline([T.rotator_stage(0.013, impl="pallas")], np.complex64)
+    eng = ServeEngine(pipe, frame_size=512, app="gpu_tele_serve", buckets=(4,),
+                      device=cuda_device)
+    try:
+        sess = [eng.admit(tenant="t") for _ in range(4)]
+        rng = np.random.default_rng(73)
+        spans.recorder().drain()
+        spans.enable(True)
+        try:
+            for _ in range(5):
+                for s in sess:
+                    eng.submit(s.sid, _c64(rng, 512))
+                eng.step()
+            while eng.step():
+                pass
+        finally:
+            spans.enable(False)
+        evs = spans.recorder().drain()
+        steps = [e for e in evs if e.cat == "serve" and e.name == "serve_step"]
+        assert len(steps) == eng.dispatches == 5
+        assert profile.plane().program("serve:gpu_tele_serve").units == 20
+        assert eng.e2e_hist.count == 20
+    finally:
+        eng.shutdown()

@@ -86,6 +86,37 @@ def test_the_models_load_alone():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_the_telemetry_plane_is_walked_and_loads_alone():
+    """The telemetry plane's modules (spans, lineage, profile, doctor, fleet,
+    the extended prom, hist and journal, the latency probes) are walked, and
+    driving each of them (a Chrome trace, a flight record and a report, the
+    profile view, this host's fleet export, the tail report, the OpenMetrics
+    text) loads neither JAX nor the JAX package nor aiohttp."""
+    mods = {"futuresdr_tpu_torch.telemetry." + m for m in
+            ("spans", "lineage", "profile", "doctor", "fleet", "prom", "hist", "journal")}
+    assert mods | {"futuresdr_tpu_torch.utils.trace"} <= set(_submodules())
+    code = ("import json, sys\n"
+            "from futuresdr_tpu_torch import telemetry as t\n"
+            "from futuresdr_tpu_torch.utils import trace\n"
+            "t.enable(True)\n"
+            "t.recorder().complete('tpu', 'compute', t.recorder().now())\n"
+            "json.dumps(t.chrome_trace())\n"
+            "d = t.doctor.doctor()\n"
+            "json.dumps(d.flight_record('probe'), default=str)\n"
+            "json.dumps(d.report([]), default=str)\n"
+            "json.dumps(t.profile.plane().snapshot(), default=str)\n"
+            "json.dumps(t.fleet.host_summary(), default=str)\n"
+            "t.lineage.tail_report()\n"
+            "t.registry().render_openmetrics()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'futuresdr_tpu', 'aiohttp', 'websockets')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_sources_import_no_jax_and_no_jax_package():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py",
