@@ -306,10 +306,31 @@ lineage, the journal, the fleet; the control port's routes):
     capture in progress reads ``compiling``; (f) the disabled hooks' cost on
     the streamed K = 1 run by the analytic gate, at most 3%.
 
+32. The mesh across processes: (a) two rank processes (this script with
+    ``--rank``) join a ``torch.distributed`` group, gloo where they share the
+    one card (each halo between them staged through pinned host memory, the
+    stand-in for a network link) and NCCL where each has a card, each owning
+    two logical devices of a global mesh of four; ``sp_fir`` (``fir``, 64
+    taps) over a 2^21-sample complex64 frame and ``sp_fir_stream`` over 4
+    frames, the carry chained, are bit-equal to this process's one-process
+    run on four logical devices and within 1e-5 of peak of the ``fir``
+    kernel's plain version, with µs a frame at 2 ranks beside one process,
+    the cross-rank halos and their bytes, the ``fir`` launches a rank; (b)
+    ``mcldnn_v1``'s widths trained data-parallel over the 2 ranks (batch 128,
+    10 steps): the same loss on both ranks every step, the first step's
+    weights within ``tests/test_torch_train.py``'s ``STEP_TOL`` of the
+    one-device step's, ms a step beside it; (c) ``entry()`` on the card
+    within 1e-5 of peak of the CPU's logits, and ``dryrun_multichip(4)`` on
+    four logical devices on the card; (d) the LoRa loopback app at SF 7 and
+    SF 12, every payload decoded, and ``sp_dechirp_scan`` at SF 12 over 16
+    modulated frames at 25 dB on four logical devices: the bins the host
+    scan's, the concentrations within 1e-5, Msamples/s scanned.
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
 ``python3 chip_smoke.py --models`` only phase 29, ``python3
-chip_smoke.py --sharded`` only phase 30, and ``python3 chip_smoke.py
---telemetry`` only phase 31.
+chip_smoke.py --sharded`` only phase 30, ``python3 chip_smoke.py
+--telemetry`` only phase 31, and ``python3 chip_smoke.py --multihost`` only
+phase 32.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -6082,6 +6103,438 @@ def phase_telemetry(dev, taps, card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the mesh across processes, the sharded train step, the entry
+# points and LoRa
+# ---------------------------------------------------------------------------
+
+MH_RANKS = 2
+MH_LOGICAL = 2                 # logical devices a rank in (a): a global mesh of 4
+MH_FRAME = 1 << 21             # (a)'s complex64 frame, the main chain's width
+MH_STREAM_FRAMES = 4
+MH_REPS = 20                   # timed frames of (a)
+MH_TOL = 1e-5                  # (a) against the fir kernel's plain version, of peak
+MH_TRAIN_BATCH = 128
+MH_TRAIN_STEPS = 10
+MH_STEP_TOL = 2e-6             # tests/test_torch_train.py's STEP_TOL
+MH_TINY_G = 1e-6               # ... and the |g| below which a step's sign is noise
+MH_ENTRY_TOL = 1e-5            # entry()'s logits on the card against the CPU, of peak
+MH_DRYRUN_DEVICES = 4
+MH_RANK_TIMEOUT_S = 400
+MH_KERNELS = ("fir", "fir_fft", "pfb")
+LORA_LOOPBACK_FRAMES = {7: 16, 12: 8}
+LORA_SCAN_SF = 12
+LORA_SCAN_FRAMES = 16
+LORA_SCAN_SNR_DB = 25.0
+LORA_SCAN_TOL = 1e-5
+LORA_SCAN_REPS = 5
+
+
+def _mh_frames():
+    """(a)'s inputs, the same on every rank: ``MH_STREAM_FRAMES`` seeded
+    complex64 frames (the first is the frame of the one-shot ``sp_fir``)."""
+    rng = np.random.default_rng(SEED + 320)
+    return [(rng.standard_normal(MH_FRAME) + 1j * rng.standard_normal(MH_FRAME))
+            .astype(np.complex64) for _ in range(MH_STREAM_FRAMES)]
+
+
+def _mh_batches(n: int):
+    from futuresdr_tpu_torch.models import modrec
+    rng = np.random.default_rng(SEED + 321)
+    return [modrec.synth_batch(rng, MH_TRAIN_BATCH, n) for _ in range(MH_TRAIN_STEPS)]
+
+
+def _mcldnn_v1():
+    import json as _json
+
+    from futuresdr_tpu_torch.models import modrec
+    with open(f"{modrec.WEIGHTS_DIR}/mcldnn_v1.json") as f:
+        cfg = _json.load(f)
+    return {k: cfg[k] for k in ("n_classes", "conv_features", "lstm_features")}, cfg["n"]
+
+
+def _peak_err(got, want) -> tuple:
+    """``(max |got - want|, max |want|)`` of two host arrays, in float64."""
+    g = np.asarray(got).astype(np.complex128)
+    w = np.asarray(want).astype(np.complex128)
+    return float(np.abs(g - w).max()), float(np.abs(w).max())
+
+
+def _sha(a: np.ndarray) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def rank_process(rank: int, coordinator: str, out_dir: str) -> int:
+    """One rank of phase 32: joins the group (gloo where the ranks share the
+    card, NCCL where each has its own), then (a) ``sp_fir`` and
+    ``sp_fir_stream`` over the global mesh of ``MH_RANKS`` × ``MH_LOGICAL``
+    devices, timed, and (b) ``MH_TRAIN_STEPS`` data-parallel train steps over
+    a global ("dp",) mesh; writes ``rank<r>.json`` and, on rank 0, the
+    outputs to compare under ``out_dir``."""
+    import json as _json
+    import os
+
+    import torch
+    torch.set_num_threads(1)
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.models.mcldnn import MCLDNN, init_params, loss_fn
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.parallel import (ShardedTrainStep, multihost, place,
+                                              sp_fir, sp_fir_stream, to_host)
+    multihost.initialize(coordinator, MH_RANKS, rank, device=DEVICE)
+    report = {"rank": rank, "backend": multihost.backend(),
+              "card": torch.cuda.get_device_name(torch.cuda.current_device()),
+              "cards": torch.cuda.device_count()}
+    # (a) the sequence-parallel FIR, its halos across the ranks
+    config().virtual_devices = MH_LOGICAL
+    mesh = multihost.global_mesh(("sp",))
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    frames = _mh_frames()
+    fn = sp_fir(taps, mesh)
+    xs = place(torch.from_numpy(frames[0]), mesh)
+    ck.reset_launches()
+    y = fn(xs)                              # warm: the kernel's first launches
+    torch.cuda.synchronize()
+    multihost.barrier()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(MH_REPS):
+        y = fn(xs)
+    torch.cuda.synchronize()
+    multihost.barrier()
+    report["us_a_frame"] = (time.perf_counter() - t0) / MH_REPS * 1e6
+    report["halos_a_frame"] = mesh.rank_transfers["ppermute"] / MH_REPS
+    report["halo_bytes_a_frame"] = mesh.rank_transfer_bytes / MH_REPS
+    report["local_copies_a_frame"] = (mesh.transfers["ppermute"]
+                                      - mesh.rank_transfers["ppermute"]) / MH_REPS
+    report["shards"] = [i for i, s in enumerate(y.shards) if s is not None]
+    whole = to_host(y)
+    sfn, init_carry = sp_fir_stream(taps, mesh)
+    carry = init_carry(np.complex64)
+    outs = []
+    for f in frames:
+        carry, ys = sfn(carry, place(torch.from_numpy(f), mesh))
+        outs.append(to_host(ys))
+    torch.cuda.synchronize()
+    stream = np.concatenate(outs)
+    report["fir_launches"] = ck.launches["fir"]
+    report["frames_driven"] = 1 + MH_REPS + MH_STREAM_FRAMES
+    report["sha_sp_fir"], report["sha_stream"] = _sha(whole), _sha(stream)
+    if rank == 0:
+        np.save(os.path.join(out_dir, "sp_fir.npy"), whole)
+        np.save(os.path.join(out_dir, "stream.npy"), stream)
+    # (b) the data-parallel train step, its all-reduce across the ranks
+    config().virtual_devices = 1
+    mesh_dp = multihost.global_mesh(("dp",))
+    widths, n = _mcldnn_v1()
+    model = init_params(MCLDNN(**widths), torch.Generator().manual_seed(SEED))
+    step = ShardedTrainStep(model, mesh_dp, loss_fn, "dp", None)
+    losses, times = [], []
+    for i, (X, lab) in enumerate(_mh_batches(n)):
+        X, lab = torch.from_numpy(X), torch.from_numpy(lab)
+        multihost.barrier()
+        t0 = time.perf_counter()
+        loss, _acc = step(X, lab)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        every = multihost.process_allgather(loss.reshape(1)).cpu().numpy().reshape(-1)
+        if not (every == every[0]).all():
+            raise SystemExit(f"rank {rank}: step {i} losses differ across ranks: {every}")
+        losses.append(float(every[0]))
+        if i == 0 and rank == 0:
+            np.savez(os.path.join(out_dir, "step1.npz"),
+                     **{k: v.numpy() for k, v in step.state_dict().items()})
+    report["losses"] = losses
+    report["train_ms"] = statistics.median(times[1:])
+    report["dp_psum_a_step"] = mesh_dp.transfers["psum"] / MH_TRAIN_STEPS
+    multihost.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        _json.dump(report, f)
+    print(f"rank {rank} OK", flush=True)
+    return 0
+
+
+def _one_process_sp(dev, taps, frames) -> dict:
+    """(a)'s one-process runs: the same mesh of 4 logical devices on the card
+    in this process, timed as the ranks time theirs."""
+    import torch
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.parallel import (make_mesh, place, sp_fir, sp_fir_stream,
+                                              to_host)
+    cfg = config()
+    prev = cfg.virtual_devices
+    cfg.virtual_devices = MH_RANKS * MH_LOGICAL
+    try:
+        mesh = make_mesh(("sp",), shape=(MH_RANKS * MH_LOGICAL,), device=dev)
+        fn = sp_fir(taps, mesh)
+        xs = place(torch.from_numpy(frames[0]), mesh)
+        y = fn(xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MH_REPS):
+            y = fn(xs)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / MH_REPS * 1e6
+        whole = to_host(y)
+        sfn, init_carry = sp_fir_stream(taps, mesh)
+        carry = init_carry(np.complex64)
+        outs = []
+        for f in frames:
+            carry, ys = sfn(carry, f)
+            outs.append(to_host(ys))
+    finally:
+        cfg.virtual_devices = prev
+    return {"us": us, "sp_fir": whole, "stream": np.concatenate(outs)}
+
+
+def _one_process_train(dev) -> dict:
+    """(b)'s one-device step on the whole batch: its first step's weights and
+    gradients, and ms a step over the same batches."""
+    import torch
+
+    from futuresdr_tpu_torch.models.mcldnn import (MCLDNN, init_params, make_train_step,
+                                                   trainable_parameters)
+    widths, n = _mcldnn_v1()
+    m = init_params(MCLDNN(**widths).to(dev), torch.Generator().manual_seed(SEED))
+    step = make_train_step(m, torch.optim.Adam(trainable_parameters(m), lr=1e-3))
+    times, losses, first = [], [], None
+    for i, (X, lab) in enumerate(_mh_batches(n)):
+        X, lab = torch.from_numpy(X), torch.from_numpy(lab)
+        t0 = time.perf_counter()
+        loss, _acc = step(X.to(dev), lab.to(dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            first = ({k: v.detach().cpu().numpy().copy() for k, v in m.state_dict().items()},
+                     {k: None if p.grad is None else p.grad.detach().cpu().numpy().copy()
+                      for k, p in m.named_parameters()})
+    return {"ms": statistics.median(times[1:]), "losses": losses, "first": first}
+
+
+def phase_mh_ranks(dev, card_line) -> dict:
+    """32 (a), (b): two rank processes on the card (module docstring), held
+    against this process's one-process runs and the kernel's plain version."""
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.parallel import multihost
+    out_dir = _build_dir().parent / "phase32"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    results = multihost.launch(
+        lambda r, c: [sys.executable, script, "--rank", str(r), "--coordinator", c,
+                      "--rank-dir", str(out_dir)],
+        MH_RANKS, MH_RANK_TIMEOUT_S, cwd=os.path.dirname(script))
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(results):
+        check(rc == 0 and f"rank {r} OK" in out,
+              f"multihost: rank {r} failed (rc {rc}):\n{out[-4000:]}")
+    reports = [_json.load(open(out_dir / f"rank{r}.json")) for r in range(MH_RANKS)]
+    be = reports[0]["backend"]
+    check(all(rep["backend"] == be for rep in reports), "multihost: the ranks' backends differ")
+    cards = reports[0]["cards"]
+    why = (f"{cards} card(s) for {MH_RANKS} ranks: they share card 0, and NCCL takes a "
+           f"card a rank; the halos are staged through pinned host memory, the stand-in "
+           f"for a network link" if be == "gloo" else f"{cards} cards: one a rank")
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    frames = _mh_frames()
+    one = _one_process_sp(dev, taps, frames)
+    whole = np.load(out_dir / "sp_fir.npy")
+    stream = np.load(out_dir / "stream.npy")
+    check(all(rep["sha_sp_fir"] == _sha(whole) and rep["sha_stream"] == _sha(stream)
+              for rep in reports), "multihost: the ranks gathered different outputs")
+    check(np.array_equal(whole, one["sp_fir"]),
+          "multihost (a): sp_fir at 2 ranks differs from the one-process 4-device run")
+    check(np.array_equal(stream, one["stream"]),
+          "multihost (a): sp_fir_stream at 2 ranks differs from the one-process stream")
+    tt = torch.from_numpy(taps).to(dev)
+    plain = ck.fir_plain(torch.from_numpy(np.concatenate(frames)).to(dev), tt).cpu().numpy()
+    err_a, peak_a = _peak_err(whole, plain[:MH_FRAME])
+    err_s, peak_s = _peak_err(stream, plain)
+    check(err_a <= MH_TOL * peak_a and err_s <= MH_TOL * peak_s,
+          f"multihost (a): {err_a:.3g} / {err_s:.3g} from the fir kernel's plain version "
+          f"(peaks {peak_a:.3g} / {peak_s:.3g}, limit {MH_TOL} of peak)")
+    for rep in reports:
+        check(rep["fir_launches"] >= rep["frames_driven"] * MH_LOGICAL,
+              f"multihost (a): rank {rep['rank']} launched fir {rep['fir_launches']} times "
+              f"for {rep['frames_driven']} frames of {MH_LOGICAL} shards")
+    check(reports[1]["halos_a_frame"] == 1 and reports[0]["halos_a_frame"] == 0,
+          f"multihost (a): cross-rank halos a frame {[r['halos_a_frame'] for r in reports]}, "
+          f"want [0, 1]")
+    # (b)
+    ref = _one_process_train(dev)
+    losses = [rep["losses"] for rep in reports]
+    check(losses[0] == losses[1], "multihost (b): the ranks saw different losses")
+    check(all(np.isfinite(losses[0])), f"multihost (b): a loss is not finite: {losses[0]}")
+    want, grads = ref["first"]
+    got = np.load(out_dir / "step1.npz")
+    worst = 0.0
+    for name, w in want.items():
+        g = grads.get(name)
+        if g is None:
+            check(np.array_equal(got[name], w), f"multihost (b): frozen {name} moved")
+            continue
+        keep = np.abs(g) > MH_TINY_G
+        worst = max(worst, float(np.abs(got[name][keep] - w[keep]).max(initial=0.0)))
+    check(worst <= MH_STEP_TOL, f"multihost (b): the first step's weights are {worst:.3g} "
+                                f"from the one-process step's (limit {MH_STEP_TOL})")
+    rank_us = statistics.median(rep["us_a_frame"] for rep in reports)
+    each_us = ", ".join(f"{rep['us_a_frame']:.1f}" for rep in reports)
+    each_ms = ", ".join(f"{rep['train_ms']:.3f}" for rep in reports)
+    print(f"phase 32 (a) sp_fir c64 frame {MH_FRAME}, {N_TAPS} taps, {MH_RANKS} ranks x "
+          f"{MH_LOGICAL} logical devices over {be} ({why}): {rank_us:.1f} us a frame "
+          f"(ranks {each_us}), one process x "
+          f"{MH_RANKS * MH_LOGICAL} logical devices {one['us']:.1f} us a frame; cross-rank "
+          f"halos a frame {sum(r['halos_a_frame'] for r in reports):g} "
+          f"({sum(r['halo_bytes_a_frame'] for r in reports):g} B), in-rank copies "
+          f"{sum(r['local_copies_a_frame'] for r in reports):g}; fir launches a rank "
+          f"{[r['fir_launches'] for r in reports]} over {reports[0]['frames_driven']} frames; "
+          f"bit-equal to one process, {err_a / peak_a:.3g} of peak from plain [{card_line}]")
+    print(f"phase 32 (a) sp_fir_stream {MH_STREAM_FRAMES} frames, carry chained across the "
+          f"ranks: bit-equal to one process, {err_s / peak_s:.3g} of peak from plain")
+    print(f"phase 32 (b) train mcldnn_v1 batch {MH_TRAIN_BATCH} over {MH_RANKS} ranks "
+          f"({be}), {MH_TRAIN_STEPS} steps: {statistics.median(r['train_ms'] for r in reports):.3f} "
+          f"ms a step (median of steps 2-{MH_TRAIN_STEPS}; ranks {each_ms}), one process "
+          f"{ref['ms']:.3f} ms a step; the same loss on both ranks every step "
+          f"({losses[0][0]:.4f} -> {losses[0][-1]:.4f}; one process "
+          f"{ref['losses'][0]:.4f} -> {ref['losses'][-1]:.4f}); first step's weights "
+          f"{worst:.3g} from the one-process step's [{card_line}]")
+    print(f"phase 32 ranks: {ranks_s:.1f} s for both ({MH_RANKS} processes to the card and "
+          f"back)")
+    return {"launches": {"fir": sum(r["fir_launches"] for r in reports)},
+            "backend": be, "rank_us": rank_us, "one_us": one["us"],
+            "train_ms": [r["train_ms"] for r in reports], "one_train_ms": ref["ms"]}
+
+
+def phase_mh_entry(dev, card_line) -> dict:
+    """32 (c): ``entry()`` on the card against the CPU, and
+    ``dryrun_multichip(4)`` on 4 logical devices on the card; the kernels'
+    launches over the dryrun."""
+    import torch
+
+    from futuresdr_tpu_torch.entry import dryrun_multichip, entry
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    fn, (model, batch) = entry(device=dev)
+    got = fn(model, batch).cpu().numpy()
+    cfn, (cmodel, cbatch) = entry(device="cpu")
+    want = cfn(cmodel, cbatch).numpy()
+    err, peak = _peak_err(got, want)
+    check(got.shape == (8, 11) and err <= MH_ENTRY_TOL * peak,
+          f"entry(): logits {err:.3g} from the CPU's (peak {peak:.3g}, limit {MH_ENTRY_TOL} "
+          f"of peak)")
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(MH_DRYRUN_DEVICES, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: ck.launches[k] for k in MH_KERNELS}
+    for k in MH_KERNELS:
+        check(counts[k] > 0, f"dryrun_multichip: kernel {k} was launched no time")
+    print(f"phase 32 (c) entry(): logits [8, 11] {err / peak:.3g} of peak from the CPU; "
+          f"dryrun_multichip({MH_DRYRUN_DEVICES}) on {MH_DRYRUN_DEVICES} logical devices on "
+          f"the card: {dt:.1f} s, launches " + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f" [{card_line}]")
+    return counts
+
+
+def _lora_capture():
+    """``LORA_SCAN_FRAMES`` frames of the port's ``modulate_frame`` at SF
+    ``LORA_SCAN_SF`` with gaps, white noise at ``LORA_SCAN_SNR_DB`` dB, the
+    length a multiple of the 4 shards' hop."""
+    from futuresdr_tpu_torch.models.lora import LoraParams, modulate_frame
+    p = LoraParams(sf=LORA_SCAN_SF)
+    rng = np.random.default_rng(SEED + 322)
+    parts = []
+    for i in range(LORA_SCAN_FRAMES):
+        parts += [np.zeros(p.n + 97 * i, np.complex64),
+                  modulate_frame(f"scan {i}".encode(), p)]
+    x = np.concatenate(parts)
+    quantum = MH_DRYRUN_DEVICES * p.n
+    x = np.concatenate([x, np.zeros(-len(x) % quantum, np.complex64)])
+    sigma = 10 ** (-LORA_SCAN_SNR_DB / 20) / np.sqrt(2)
+    return (x + sigma * (rng.standard_normal(len(x))
+                         + 1j * rng.standard_normal(len(x)))).astype(np.complex64)
+
+
+def phase_mh_lora(dev, card_line) -> dict:
+    """32 (d): the LoRa loopback app at SF 7 and SF 12, and ``sp_dechirp_scan``
+    at SF 12 over a modulated capture on 4 logical devices on the card
+    against the host scan."""
+    import torch
+
+    from futuresdr_tpu_torch.apps.lora_loopback import run
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.parallel import make_mesh, place, sp_dechirp_scan, to_host
+    rates = {}
+    for sf, n_frames in LORA_LOOPBACK_FRAMES.items():
+        sent, got, crc, seconds = run(frames=n_frames, sf=sf)
+        check(got == sent and all(crc),
+              f"lora loopback SF{sf}: decoded {got} of {sent}, CRC {crc}")
+        rates[sf] = n_frames / seconds
+    x = _lora_capture()
+    cfg = config()
+    prev = cfg.virtual_devices
+    cfg.virtual_devices = MH_DRYRUN_DEVICES
+    try:
+        mesh = make_mesh(("sp",), shape=(MH_DRYRUN_DEVICES,), device=dev)
+        fn = sp_dechirp_scan(LORA_SCAN_SF, mesh)
+        xs = place(torch.from_numpy(x), mesh)
+        bins, conc = fn(xs)
+        bins, conc = to_host(bins), to_host(conc)
+        times = []
+        for _ in range(LORA_SCAN_REPS):
+            t0 = time.perf_counter()
+            fn(xs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        cfg.virtual_devices = prev
+    host = make_mesh(("sp",), shape=(1,), device="cpu")
+    hb, hc = sp_dechirp_scan(LORA_SCAN_SF, host)(x)
+    hb, hc = to_host(hb), to_host(hc)
+    check(np.array_equal(bins, hb), f"lora scan: {int((bins != hb).sum())} of {len(hb)} "
+                                    f"windows' bins differ from the host scan's")
+    err = float(np.abs(conc - hc).max())
+    check(err <= LORA_SCAN_TOL, f"lora scan: concentrations {err:.3g} from the host scan's "
+                                f"(limit {LORA_SCAN_TOL})")
+    found = int((hc > 0.5).sum())
+    check(found > 0, "lora scan: no preamble window found")
+    msps = len(x) / statistics.median(times) / 1e6
+    print(f"phase 32 (d) lora loopback app: SF7 {LORA_LOOPBACK_FRAMES[7]} frames "
+          f"{rates[7]:.1f} frames/s, SF12 {LORA_LOOPBACK_FRAMES[12]} frames {rates[12]:.1f} "
+          f"frames/s, every payload decoded, CRC ok (host) [{card_line}]")
+    print(f"phase 32 (d) sp_dechirp_scan SF{LORA_SCAN_SF} over {LORA_SCAN_FRAMES} frames at "
+          f"{LORA_SCAN_SNR_DB:g} dB ({len(x)} samples, {len(hb)} windows, {found} above 0.5) "
+          f"on {MH_DRYRUN_DEVICES} logical devices: bins equal to the host scan's, "
+          f"concentrations {err:.3g} from them; {msps:.1f} Msamples/s scanned [{card_line}]")
+    return {"loopback_fps": rates, "scan_msps": msps}
+
+
+def phase_multihost(dev, card_line) -> dict:
+    """Phase 32: (a), (b) two rank processes, (c) the entry points, (d) LoRa.
+    The kernels' launches: the ranks' ``fir`` over their drives and this
+    process's over the dryrun."""
+    t0 = time.perf_counter()
+    ranks = phase_mh_ranks(dev, card_line)
+    entry_counts = phase_mh_entry(dev, card_line)
+    lora = phase_mh_lora(dev, card_line)
+    launches = {k: entry_counts.get(k, 0) + ranks["launches"].get(k, 0) for k in MH_KERNELS}
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s, launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return {"launches": launches, "ranks": ranks, "lora": lora}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -6095,6 +6548,13 @@ def main(argv=None) -> int:
                         help="only run phase 30, the device axis, after the build")
     parser.add_argument("--telemetry", action="store_true",
                         help="only run phase 31, the telemetry plane, after the build")
+    parser.add_argument("--multihost", action="store_true",
+                        help="only run phase 32, the mesh across processes, the entry "
+                             "points and LoRa, after the build")
+    parser.add_argument("--rank", type=int, default=None,
+                        help=argparse.SUPPRESS)   # one rank process of phase 32
+    parser.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--rank-dir", default="", help=argparse.SUPPRESS)
     parser.add_argument("--ckpt-part", type=int, default=0, choices=(0, 1, 2),
                         help=argparse.SUPPRESS)   # one process of phase 26 (d)
     parser.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
@@ -6108,6 +6568,8 @@ def main(argv=None) -> int:
         return 2
     if args.ckpt_part:
         return ckpt_process(args.ckpt_part, args.ckpt_dir)
+    if args.rank is not None:
+        return rank_process(args.rank, args.coordinator, args.rank_dir)
     from futuresdr_tpu_torch.dsp import firdes
     from futuresdr_tpu_torch.ops import _build
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -6150,6 +6612,9 @@ def main(argv=None) -> int:
         for k in TELE_KERNELS:
             check(ck.launches[k] > 0, f"kernel {k} was launched no time in phase 31")
         print("phase 31 launches: " + ", ".join(f"{k} {ck.launches[k]}" for k in TELE_KERNELS))
+        return 0
+    if args.multihost:
+        phase_multihost(dev, card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -6262,6 +6727,13 @@ def main(argv=None) -> int:
     t31 = time.perf_counter()
     path_phase("telemetry", TELE_KERNELS, phase_telemetry, dev, taps, card_line)
     print(f"phase 31: {time.perf_counter() - t31:.1f} s")
+    # 32. the mesh across processes (two rank processes on the card), the
+    #     sharded train step, the entry points and LoRa; the fir launches of
+    #     the ranks' drives and the dryrun's fir, fir_fft and pfb
+    multihost = phase_multihost(dev, card_line)
+    by_phase["multihost"] = dict(multihost["launches"])
+    for k, v in multihost["launches"].items():
+        launches[k] += v
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record

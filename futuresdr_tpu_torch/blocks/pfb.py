@@ -1,8 +1,7 @@
 """The PFB channelizer as a host block, and its default prototype.
 
 A copy of ``futuresdr_tpu/blocks/pfb.py`` (``pfb_default_taps``,
-``PfbChannelizer``; the synthesizer and the arbitrary resampler are not
-ported). The channelizer is the critically sampled polyphase analysis bank:
+``PfbChannelizer``, ``PfbArbResampler``; the synthesizer is not ported). The channelizer is the critically sampled polyphase analysis bank:
 commutated branch filters (``scipy.signal.lfilter``, batched over branches),
 then the IFFT across branches. Channel ``c`` carries the band centred at
 ``c/N`` of the input rate, each output at ``fs/N``. The device form is
@@ -11,6 +10,8 @@ then the IFFT across branches. Channel ``c`` carries the band centred at
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 from scipy.signal import lfilter
 
@@ -18,7 +19,7 @@ from ..dsp import firdes
 from ..dsp.windows import kaiser
 from ..runtime.kernel import Kernel
 
-__all__ = ["PfbChannelizer", "pfb_default_taps"]
+__all__ = ["PfbChannelizer", "PfbArbResampler", "pfb_default_taps"]
 
 
 def pfb_default_taps(n_channels: int, taps_per_branch: int = 12,
@@ -78,3 +79,79 @@ class PfbChannelizer(Kernel):
             self.input.consume(t * self.n)
         if self.input.finished() and self.input.available() < self.n:
             io.finished = True
+
+
+class PfbArbResampler(Kernel):
+    """Arbitrary-rate polyphase resampler (`pfb/arb_resampler.rs`): an M-branch bank
+    stepped fractionally, with linear interpolation between adjacent branches
+    (the reference's ``PfbArbResampler``, its arithmetic unchanged)."""
+
+    def __init__(self, rate: float, taps=None, n_filters: int = 32, dtype=np.complex64):
+        super().__init__()
+        if not rate > 0:
+            raise ValueError(f"PfbArbResampler needs a rate > 0, got {rate}")
+        self.rate = float(rate)
+        self.M = int(n_filters)
+        taps = np.asarray(taps if taps is not None else
+                          firdes.lowpass(min(0.5, 0.5 * min(1.0, rate)) / self.M * 0.8,
+                                         8 * self.M) * self.M,
+                          dtype=np.float64)
+        k = -(-len(taps) // self.M)
+        padded = np.zeros(k * self.M, dtype=taps.dtype)
+        padded[:len(taps)] = taps
+        self.poly = padded.reshape(k, self.M).T       # [M, K]
+        self.K = k
+        self._hist: Optional[np.ndarray] = None
+        self._m = 0                                    # absolute output index
+        self._consumed = 0
+        self.input = self.add_stream_input("in", dtype, min_items=self.K)
+        self.output = self.add_stream_output("out", dtype)
+
+    async def work(self, io, mio, meta):
+        inp = self.input.slice()
+        out = self.output.slice()
+        # bound inputs so outputs fit: n_out ≈ n_in * rate
+        n_in = min(len(inp), max(0, int(len(out) / self.rate) - 2))
+        if n_in > 0:
+            y = self._process(inp[:n_in])
+            assert len(y) <= len(out)
+            out[:len(y)] = y
+            self.input.consume(n_in)
+            self.output.produce(len(y))
+        if self.input.finished() and n_in == len(inp):
+            io.finished = True
+        elif n_in > 0 and n_in < len(inp):
+            io.call_again = True
+
+    def _process(self, x: np.ndarray) -> np.ndarray:
+        if self._hist is None:
+            self._hist = np.zeros(self.K - 1, dtype=x.dtype)
+            self._consumed = -(self.K - 1)
+        buf = np.concatenate([self._hist, x])
+        total = self._consumed + len(buf)
+        # outputs m with floor(m/rate) <= total - 2 (need n_m+ for interp)
+        m_hi = int(np.floor((total - 1) * self.rate))
+        ms = np.arange(self._m, max(self._m, m_hi))
+        if len(ms):
+            pos = ms / self.rate
+            n_m = np.floor(pos).astype(np.int64)
+            frac = (pos - n_m) * self.M
+            p_m = np.floor(frac).astype(np.int64)
+            alpha = (frac - p_m)[:, None]
+            idx = (n_m - self._consumed)[:, None] - np.arange(self.K)[None, :]
+            windows = np.where(idx >= 0, buf[np.clip(idx, 0, None)], 0)
+            y0 = np.einsum("mk,mk->m", windows, self.poly[p_m])
+            p1 = (p_m + 1) % self.M
+            shift = (p_m + 1) // self.M                # branch wrap advances one sample
+            idx1 = (n_m + shift - self._consumed)[:, None] - np.arange(self.K)[None, :]
+            in_range = (idx1 >= 0) & (idx1 < len(buf))
+            w1 = np.where(in_range, buf[np.clip(idx1, 0, len(buf) - 1)], 0)
+            y1 = np.einsum("mk,mk->m", w1, self.poly[p1])
+            y = ((1 - alpha[:, 0]) * y0 + alpha[:, 0] * y1).astype(x.dtype, copy=False)
+            self._m = ms[-1] + 1
+        else:
+            y = np.zeros(0, dtype=x.dtype)
+        keep = min(self.K - 1 + 1, len(buf))
+        self._hist = buf[len(buf) - keep:]
+        self._consumed = total - keep
+        return y

@@ -1,15 +1,15 @@
 """Models: the counterpart of ``futuresdr_tpu/models``.
 
 The WLAN 802.11a/g transceiver (:mod:`.wlan`), the MCLDNN modulation
-classifier (:mod:`.mcldnn`, :mod:`.modrec`) and M17's trellis
-(:mod:`.m17`). Names resolve lazily, so that importing one model does not
+classifier (:mod:`.mcldnn`, :mod:`.modrec`), M17's trellis
+(:mod:`.m17`) and the LoRa transceiver (:mod:`.lora`). Names resolve lazily, so that importing one model does not
 import the others.
 """
 
-__all__ = ["MCLDNN", "loss_fn", "wlan", "mcldnn", "modrec", "m17"]
+__all__ = ["MCLDNN", "loss_fn", "wlan", "mcldnn", "modrec", "m17", "lora"]
 
 _ML_NAMES = {"MCLDNN", "loss_fn"}
-_SUBMODULES = {"wlan", "mcldnn", "modrec", "m17"}
+_SUBMODULES = {"wlan", "mcldnn", "modrec", "m17", "lora"}
 
 
 def __getattr__(name):

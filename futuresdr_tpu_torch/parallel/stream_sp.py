@@ -18,6 +18,13 @@ computes on its own device. Each shard's work is a hand-kernel launch:
 On the CPU the kernels' plain versions run, as everywhere in the port. Every
 function takes a :class:`~.mesh.Sharded` value or a whole frame (which it
 places), and returns :class:`~.mesh.Sharded` values.
+
+On a mesh across processes (:mod:`.multihost`) every rank calls the same
+function on the same global frame: :func:`place` keeps the rank's own
+shards, each rank runs the kernels on them, and every halo or block whose
+two shards belong to two ranks crosses by :meth:`~.mesh.Mesh.move`, a send
+and its receive, walked in the same order on every rank. The per-shard
+arithmetic is the one-process run's, so the output is the same bits.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..models.lora.phy import _downchirp
 from ..ops import cuda_kernels as ck
 from ..ops.xfer import torch_dtype
 from .mesh import Mesh, Sharded
@@ -37,48 +45,77 @@ __all__ = ["sp_fir", "sp_fir_fft_mag2", "sp_fir_stream", "sp_fir_fft_mag2_stream
 
 def place(x, mesh: Mesh, axis: str = "sp", dim: int = 0) -> Sharded:
     """Split a whole frame (numpy or tensor) into contiguous shards along
-    ``dim``, one a device of ``axis``. A :class:`Sharded` passes through."""
+    ``dim``, one a device of ``axis``; on a mesh across processes only the
+    calling rank's shards are made (every rank holds the same global frame,
+    made from the same seed: the counterpart of
+    ``jax.make_array_from_callback``). A :class:`Sharded` passes through."""
     if isinstance(x, Sharded):
         return x
     devs = mesh.line(axis)
+    mine = mesh.mine(axis)
     t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
     if t.shape[dim] % len(devs):
         raise ValueError(f"frame length {t.shape[dim]} does not divide by the "
                          f"{len(devs)} shards of axis {axis!r}")
-    return Sharded([c.to(d) for c, d in zip(t.chunk(len(devs), dim), devs)], axis, dim)
+    return Sharded([c.to(d) if m else None
+                    for c, d, m in zip(t.chunk(len(devs), dim), devs, mine)], axis, dim,
+                   mesh if mesh.distributed else None)
 
 
 def to_host(s: Sharded) -> np.ndarray:
-    """The whole value on the host (a device-to-host copy a shard, no
-    cross-shard transfer)."""
+    """The whole value on the host: a device-to-host copy a shard, no
+    cross-shard transfer; on a mesh across processes an all-gather, which
+    every rank calls (:meth:`~.mesh.Mesh.gather`)."""
+    if s.mesh is not None:
+        return s.mesh.gather(s.shards, torch.device("cpu"), s.dim).numpy()
     return torch.cat([t.cpu() for t in s.shards], dim=s.dim).numpy()
 
 
-def _halos_from_left(shards: List[torch.Tensor], halo: int, mesh: Mesh,
-                     first: Optional[torch.Tensor]) -> List[torch.Tensor]:
+def _out(shards: List[Optional[torch.Tensor]], axis: str, mesh: Mesh, dim: int = 0):
+    return Sharded(shards, axis, dim, mesh if mesh.distributed else None)
+
+
+def _any(shards) -> Optional[torch.Tensor]:
+    return next((s for s in shards if s is not None), None)
+
+
+def _halos_from_left(shards: List[Optional[torch.Tensor]], halo: int, mesh: Mesh,
+                     first: Optional[torch.Tensor], axis: str) -> List[Optional[torch.Tensor]]:
     """Each shard's left context: the previous shard's last ``halo`` samples
-    by a counted peer copy; shard 0 gets ``first`` (the previous frame's
-    global tail), or zeros."""
+    by a counted move (a send and a receive where two ranks hold the two
+    shards); shard 0 gets ``first`` (the previous frame's global tail), or
+    zeros. None where this rank holds no shard."""
+    ref = _any(shards)
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
     s0 = shards[0]
-    if first is None:
-        first = torch.zeros(halo, dtype=s0.dtype, device=s0.device)
-    out = [first.to(s0.dtype)]
+    if s0 is not None:
+        if first is None:
+            first = torch.zeros((halo,) + tuple(s0.shape[1:]), dtype=s0.dtype,
+                                device=s0.device)
+        out[0] = first.to(s0.dtype)
     for i in range(1, len(shards)):
         prev = shards[i - 1]
-        out.append(mesh.copy(prev[prev.shape[0] - halo:], shards[i].device))
+        tail = None if prev is None else prev[prev.shape[0] - halo:]
+        out[i] = mesh.move(tail, i - 1, i, axis, like=ref,
+                           shape=(halo,) + tuple(ref.shape[1:]) if ref is not None else None)
     return out
 
 
-def _check_local(shards: List[torch.Tensor], halo: int) -> None:
-    n = shards[0].shape[0]
-    if n < halo:
-        raise ValueError(f"per-shard length {n} < halo {halo}: grow the frame or "
+def _check_local(shards: List[Optional[torch.Tensor]], halo: int) -> None:
+    s = _any(shards)
+    if s is not None and s.shape[0] < halo:
+        raise ValueError(f"per-shard length {s.shape[0]} < halo {halo}: grow the frame or "
                          f"reduce taps/devices")
 
 
-def _taps_on(taps: np.ndarray, devs) -> list:
+def _taps_on(taps: np.ndarray, devs, mine) -> list:
     t = torch.from_numpy(np.ascontiguousarray(np.real(taps), dtype=np.float32))
-    return [t.to(d) for d in devs]
+    return [t.to(d) if m else None for d, m in zip(devs, mine)]
+
+
+def _each(fn: Callable, *cols) -> list:
+    """``fn`` over the shards this rank holds (None elsewhere)."""
+    return [None if row[0] is None else fn(*row) for row in zip(*cols)]
 
 
 def _fir_local(x, halo, tt):
@@ -94,13 +131,13 @@ def _fir_fft_mag2_local(fft_size):
 
 def _sharded(local: Callable, taps: np.ndarray, mesh: Mesh, axis: str):
     nt = len(taps)
-    tts = _taps_on(taps, mesh.line(axis))
+    tts = _taps_on(taps, mesh.line(axis), mesh.mine(axis))
 
     def fn(x) -> Sharded:
         xs = place(x, mesh, axis)
         _check_local(xs.shards, nt - 1)
-        halos = _halos_from_left(xs.shards, nt - 1, mesh, None)
-        return Sharded([local(s, h, t) for s, h, t in zip(xs.shards, halos, tts)], axis)
+        halos = _halos_from_left(xs.shards, nt - 1, mesh, None, axis)
+        return _out(_each(local, xs.shards, halos, tts), axis, mesh)
 
     return fn
 
@@ -128,23 +165,32 @@ def _make_stream(local: Callable, taps: np.ndarray, mesh: Mesh, axis: str):
     counted copy from the last shard."""
     nt = len(taps)
     devs = mesh.line(axis)
+    mine = mesh.mine(axis)
     n_dev = len(devs)
-    tts = _taps_on(taps, devs)
+    tts = _taps_on(taps, devs, mine)
 
     def fn(carry, x):
-        n = x.shape[0] if not isinstance(x, Sharded) else sum(s.shape[0] for s in x.shards)
-        if n // n_dev < nt - 1:
-            raise ValueError(f"per-shard length {n // n_dev} < halo {nt - 1}: "
+        if isinstance(x, Sharded):
+            s = _any(x.shards)
+            per = None if s is None else s.shape[0]
+        else:
+            per = x.shape[0] // n_dev
+        if per is not None and per < nt - 1:
+            raise ValueError(f"per-shard length {per} < halo {nt - 1}: "
                              f"grow the frame or reduce taps/devices")
         xs = place(x, mesh, axis)
-        halos = _halos_from_left(xs.shards, nt - 1, mesh, carry)
-        y = Sharded([local(s, h, t) for s, h, t in zip(xs.shards, halos, tts)], axis)
+        halos = _halos_from_left(xs.shards, nt - 1, mesh, carry, axis)
+        y = _out(_each(local, xs.shards, halos, tts), axis, mesh)
         last = xs.shards[-1]
-        tail = last[last.shape[0] - (nt - 1):]
-        new = mesh.copy(tail, devs[0]) if n_dev > 1 else tail.clone()
-        return new, y
+        tail = None if last is None else last[last.shape[0] - (nt - 1):]
+        if n_dev == 1:
+            return (None if tail is None else tail.clone()), y
+        return mesh.move(tail, n_dev - 1, 0, axis, like=_any(xs.shards),
+                         shape=(nt - 1,)), y
 
     def init_carry(dtype):
+        if not mine[0]:
+            return None
         return torch.zeros(nt - 1, dtype=torch_dtype(np.dtype(dtype)), device=devs[0])
 
     return fn, init_carry
@@ -179,18 +225,19 @@ def _pfb_taps(n_channels: int, taps: np.ndarray):
 def _channelize_local(n_channels: int, taps: np.ndarray, mesh: Mesh, axis: str):
     N, K, w = _pfb_taps(n_channels, taps)
     devs = mesh.line(axis)
-    ws = [w.to(d) for d in devs]
+    ws = [w.to(d) if m else None for d, m in zip(devs, mesh.mine(axis))]
 
-    def local(x) -> List[torch.Tensor]:
+    def local(x) -> List[Optional[torch.Tensor]]:
         xs = place(x, mesh, axis)
-        if xs.shards[0].shape[0] % N:
-            raise ValueError(f"per-shard length {xs.shards[0].shape[0]} is not a multiple "
+        s0 = _any(xs.shards)
+        if s0 is not None and s0.shape[0] % N:
+            raise ValueError(f"per-shard length {s0.shape[0]} is not a multiple "
                              f"of n_channels {N}")
         _check_local(xs.shards, (K - 1) * N)
-        shards = [s.to(torch.complex64) for s in xs.shards]
-        halos = _halos_from_left(shards, (K - 1) * N, mesh, None)
+        shards = [None if s is None else s.to(torch.complex64) for s in xs.shards]
+        halos = _halos_from_left(shards, (K - 1) * N, mesh, None, axis)
         # [t, N] a shard; the output's channel axis leads, as in the reference
-        return [ck.pfb(h, s.contiguous(), t).t() for s, h, t in zip(shards, halos, ws)]
+        return _each(lambda s, h, t: ck.pfb(h, s.contiguous(), t).t(), shards, halos, ws)
 
     return N, local
 
@@ -205,7 +252,7 @@ def sp_channelizer(n_channels: int, taps: np.ndarray, mesh: Mesh,
     _N, local = _channelize_local(n_channels, taps, mesh, axis)
 
     def fn(x) -> Sharded:
-        return Sharded(local(x), axis, 1)
+        return _out(local(x), axis, mesh, 1)
 
     return fn
 
@@ -226,22 +273,19 @@ def sp_channelizer_a2a(n_channels: int, taps: np.ndarray, mesh: Mesh,
 
     def fn(x) -> Sharded:
         ys = local(x)                                   # [N, t_local] on device i
+        ref = _any(ys)
         out = []
-        for j, dj in enumerate(devs):
-            blocks = [y[j * per:(j + 1) * per] if i == j
-                      else mesh.copy(y[j * per:(j + 1) * per], dj, "all_to_all")
-                      for i, y in enumerate(ys)]
-            out.append(torch.cat(blocks, dim=1))
-        return Sharded(out, axis, 0)
+        for j in range(n_dev):
+            blocks = []
+            for i, y in enumerate(ys):
+                block = None if y is None else y[j * per:(j + 1) * per]
+                blocks.append(block if i == j else
+                              mesh.move(block, i, j, axis, "all_to_all", like=ref,
+                                        shape=None if ref is None else (per, ref.shape[1])))
+            out.append(None if blocks[j] is None else torch.cat(blocks, dim=1))
+        return _out(out, axis, mesh, 0)
 
     return fn
-
-
-def _downchirp(n: int) -> np.ndarray:
-    """The LoRa down-chirp of ``n`` samples (the reference's
-    ``models/lora/phy._downchirp``, copied: the port has no LoRa model yet)."""
-    k = np.arange(n)
-    return np.conj(np.exp(1j * 2 * np.pi * ((k * k) / (2 * n) - 0.5 * k)))
 
 
 def sp_dechirp_scan(sf: int, mesh: Mesh, hop: Optional[int] = None, axis: str = "sp"):
@@ -257,23 +301,32 @@ def sp_dechirp_scan(sf: int, mesh: Mesh, hop: Optional[int] = None, axis: str = 
         raise ValueError(f"window length {n} must be a multiple of hop {hop}")
     devs = mesh.line(axis)
     down = torch.from_numpy(_downchirp(n).astype(np.complex64))
-    downs = [down.to(d) for d in devs]
+    downs = [down.to(d) if mi else None for d, mi in zip(devs, mesh.mine(axis))]
 
     def fn(x):
         xs = place(x, mesh, axis)
-        m = xs.shards[0].shape[0]
-        if m < n:
+        shards = [None if s is None else s.to(torch.complex64) for s in xs.shards]
+        ref = _any(shards)
+        m = None if ref is None else ref.shape[0]
+        if m is not None and m < n:
             raise ValueError(f"per-shard length {m} < window {n}: grow the capture or "
                              f"reduce sf/devices")
-        if m % hop:
+        if m is not None and m % hop:
             raise ValueError(f"per-shard length {m} must be a multiple of hop {hop}")
-        bins, concs = [], []
-        for i, s in enumerate(xs.shards):
-            s = s.to(torch.complex64)
-            if i + 1 < len(xs.shards):
-                right = mesh.copy(xs.shards[i + 1][:n].to(torch.complex64), s.device)
-            else:
-                right = torch.zeros(n, dtype=torch.complex64, device=s.device)
+        # each shard's right halo: the next shard's head (zeros after the last)
+        rights = [mesh.move(None if shards[i + 1] is None else shards[i + 1][:n], i + 1, i,
+                            axis, like=ref, shape=(n,))
+                  for i in range(len(shards) - 1)]
+        rights.append(None if ref is None or shards[-1] is None
+                      else torch.zeros(n, dtype=torch.complex64, device=shards[-1].device))
+        bins: List[Optional[torch.Tensor]] = []
+        concs: List[Optional[torch.Tensor]] = []
+        for i, s in enumerate(shards):
+            if s is None:
+                bins.append(None)
+                concs.append(None)
+                continue
+            right = rights[i]
             ext = torch.cat([s, right])
             idx = (torch.arange(m // hop, device=s.device)[:, None] * hop
                    + torch.arange(n, device=s.device)[None, :])
@@ -284,6 +337,6 @@ def sp_dechirp_scan(sf: int, mesh: Mesh, hop: Optional[int] = None, axis: str = 
             conc = p2 / torch.clamp(pw.sum(dim=1), min=1e-12)
             bins.append(peak.to(torch.int32))
             concs.append(conc.to(torch.float32))
-        return Sharded(bins, axis), Sharded(concs, axis)
+        return _out(bins, axis, mesh), _out(concs, axis, mesh)
 
     return fn

@@ -407,3 +407,50 @@ def test_a_short_mesh_never_falls_back(monkeypatch):
         make_mesh(("sp",), shape=(2,), device="cpu")
     monkeypatch.setattr(config(), "virtual_devices", 2)
     assert make_mesh(("sp",), shape=(2,), device="cpu").size == 2
+
+
+def test_the_mesh_across_processes_the_entry_and_lora_load_alone(tmp_path):
+    """``parallel.multihost``, ``parallel.sharded_train``, ``entry``, the LoRa
+    model and its loopback app are walked; two rank processes that join a
+    gloo group on localhost, build the global mesh, run a sharded FIR across
+    it, load LoRa and the entry module, have neither JAX nor the JAX package
+    (nor flax, optax, orbax) in ``sys.modules``."""
+    import os
+    import torch.distributed as dist
+    new = {"futuresdr_tpu_torch.parallel.multihost",
+           "futuresdr_tpu_torch.parallel.sharded_train", "futuresdr_tpu_torch.entry",
+           "futuresdr_tpu_torch.models.lora", "futuresdr_tpu_torch.models.lora.phy",
+           "futuresdr_tpu_torch.models.lora.coding", "futuresdr_tpu_torch.models.lora.blocks",
+           "futuresdr_tpu_torch.models.lora.meshtastic",
+           "futuresdr_tpu_torch.models.lora.forwarder",
+           "futuresdr_tpu_torch.models.lora.multichannel",
+           "futuresdr_tpu_torch.apps.lora_loopback"}
+    assert new <= set(_submodules())
+    if not dist.is_gloo_available():
+        pytest.skip("this torch has no gloo backend")
+    from futuresdr_tpu_torch.parallel import multihost
+    script = tmp_path / "rank.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from futuresdr_tpu_torch.config import config\n"
+        "from futuresdr_tpu_torch.parallel import multihost, sp_fir, to_host\n"
+        "import futuresdr_tpu_torch.entry, futuresdr_tpu_torch.apps.lora_loopback\n"
+        "from futuresdr_tpu_torch.models.lora import LoraParams, modulate_frame\n"
+        "rank = int(sys.argv[1])\n"
+        "config().virtual_devices = 2\n"
+        "multihost.initialize(sys.argv[2], 2, rank, device='cpu', timeout_s=60)\n"
+        "m = multihost.global_mesh(('sp',))\n"
+        "y = to_host(sp_fir(np.ones(5, np.float32), m)(np.ones(64, np.float32)))\n"
+        "assert y[-1] == 5 and len(modulate_frame(b'x', LoraParams(sf=7))) > 0\n"
+        "multihost.shutdown()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'futuresdr_tpu', 'flax', 'optax', 'orbax')]\n"
+        "print('bad', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    results = multihost.launch(lambda r, c: [sys.executable, str(script), str(r), c], 2,
+                               120, env=env, cwd=str(REPO))
+    for rc, out in results:
+        assert rc == 0 and "bad []" in out, out[-3000:]

@@ -450,3 +450,145 @@ def test_sharded_spectrum_app_runs_on_logical_cpu_devices(capsys):
     out = capsys.readouterr().out
     assert "mesh: 4 logical shards on the CPU" in out and "64 x 256 bins" in out
     assert config().virtual_devices == 0
+
+
+# ---- the sharded train step and the 3D composed mesh ----
+
+STEP_TOL = 2e-6        # tests/test_torch_train.py: parameters after one Adam step
+TINY_G = 1e-6          # entries whose |g| is below it step by rounding noise's sign
+
+
+N_CLASSES, N_WIN = 11, 64     # the dryrun's MCLDNN: 11 classes, windows of 64
+
+
+@pytest.fixture(scope="module")
+def flax_mcldnn():
+    """One flax MCLDNN init (``init_params``' seed 0, jitted: the same
+    values, one compile) and its weights as the port's state dict, shared by
+    the train cases."""
+    from futuresdr_tpu.models.mcldnn import MCLDNN as FlaxMCLDNN
+    from futuresdr_tpu_torch.convert import mcldnn_from_flax
+    fm = FlaxMCLDNN(n_classes=N_CLASSES, conv_features=8, lstm_features=16)
+    params = jax.jit(fm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 2, N_WIN), jnp.float32))
+    return fm, params, mcldnn_from_flax(jax.tree_util.tree_map(np.asarray, params))
+
+
+def _port_model(sd):
+    from futuresdr_tpu_torch.models.mcldnn import MCLDNN, freeze_input_biases
+    m = MCLDNN(n_classes=N_CLASSES, conv_features=8, lstm_features=16)
+    m.load_state_dict(sd, strict=True)
+    return freeze_input_biases(m)
+
+
+def _jax_sharded_step(fm, params, mesh, axis, iq, labels, dp_axis="dp"):
+    import optax
+    from futuresdr_tpu.models.mcldnn import make_train_step as flax_step
+    sharded, _ = jpar.shard_params(params, mesh, axis=axis)
+    opt = optax.adam(1e-3)
+    step = jax.jit(flax_step(fm, opt))
+    put = lambda a: jax.device_put(a, NamedSharding(mesh, P(dp_axis)))  # noqa: E731
+    stepped, _, loss, acc = step(sharded, opt.init(sharded), put(iq), put(labels))
+    return stepped, float(loss), float(acc)
+
+
+def _hold_step(st, sd0, jax_stepped, iq, labels):
+    """The port's stepped weights against the JAX step's, where the one-device
+    gradient's magnitude is above ``TINY_G``."""
+    from futuresdr_tpu_torch.convert import mcldnn_from_flax
+    from futuresdr_tpu_torch.models.mcldnn import loss_fn
+    m = _port_model(sd0)
+    loss, _ = loss_fn(m, torch.from_numpy(iq), torch.from_numpy(labels).long())
+    loss.backward()
+    grads = {k: p.grad for k, p in m.named_parameters()}
+    want = mcldnn_from_flax(jax.tree_util.tree_map(np.asarray, jax_stepped))
+    got = st.state_dict()
+    for name, w in want.items():
+        g = grads[name]
+        if g is None:                           # a frozen input bias: never stepped
+            assert float(got[name].abs().max()) == 0.0, name
+            continue
+        keep = g.abs().numpy() > TINY_G
+        np.testing.assert_allclose(got[name].numpy()[keep], w.numpy()[keep], atol=STEP_TOL,
+                                   err_msg=name)
+
+
+def test_sharded_train_step_keeps_mp_shards_and_matches_jax(flax_mcldnn):
+    """``tests/test_parallel.py``'s ``test_sharded_train_step_spmd`` on the
+    port (at the dryrun's 11 classes): a (dp, mp) = (4, 2) mesh, the batch
+    split over dp, the leaves that ``shard_params`` marks mp stored split
+    over mp before and after the step; its loss, accuracy and stepped
+    weights those of the JAX package's jitted step over the same shardings,
+    from the same flax init."""
+    from futuresdr_tpu_torch.models.mcldnn import loss_fn
+    from futuresdr_tpu_torch.parallel.sharded_train import ShardedTrainStep
+    fm, params, sd = flax_mcldnn
+    iq = np.random.default_rng(0).standard_normal((8, 2, N_WIN)).astype(np.float32)
+    labels = np.zeros(8, np.int32)
+    jm = jpar.make_mesh(("dp", "mp"))
+    stepped, jloss, jacc = _jax_sharded_step(fm, params, jm, "mp", iq, labels)
+    mesh = make_mesh(("dp", "mp"), device="cpu")
+    assert mesh.shape == {"dp": 4, "mp": 2}
+    st = ShardedTrainStep(_port_model(sd), mesh, loss_fn)
+    mp = st.mp_leaves()
+    assert "fc1.weight" in mp and "head.weight" in mp
+    loss, acc = st(torch.from_numpy(iq), torch.from_numpy(labels).long())
+    assert abs(float(loss) - jloss) <= 1e-5 and float(acc) == jacc
+    for d in range(4):                                 # every dp row, after the step
+        for name in mp:
+            leaf = st.params[d][name]
+            assert len(leaf.shards) == 2 and leaf.axis == "mp"
+            assert leaf.shards[0].shape[leaf.dim] * 2 == sd[name].shape[leaf.dim]
+    _hold_step(st, sd, stepped, iq, labels)
+    # the forward's gathers, the dp sum and its return, the gradient slices
+    assert {"all_gather", "psum", "reduce_scatter"} <= set(mesh.transfers)
+
+
+def test_composed_3d_mesh_stream_feeds_training_like_jax(flax_mcldnn):
+    """``tests/test_parallel.py``'s 3D case on the port: SpKernel along sp and
+    PpKernel along pp of a (dp, pp, sp) = (2, 2, 2) mesh in one flowgraph,
+    its output the JAX package's same flowgraph's (rtol/atol 1e-4); that
+    output trains MCLDNN on the same mesh, the batch over dp and the weights
+    sharded along pp, with the JAX step's loss and weights."""
+    from futuresdr_tpu import Flowgraph as JFlowgraph, Runtime as JRuntime
+    from futuresdr_tpu.blocks import VectorSink as JSink, VectorSource as JSource
+    from futuresdr_tpu.tpu import PpKernel as JPpKernel, SpKernel as JSpKernel
+    from futuresdr_tpu_torch.models.mcldnn import loss_fn
+    from futuresdr_tpu_torch.parallel.sharded_train import ShardedTrainStep
+    d, mb, F = 16, 2, 256
+    taps = np.hanning(32).astype(np.float32)
+    W = np.random.default_rng(10).standard_normal((2, d, d)).astype(np.float32) / 4.0
+    data = np.random.default_rng(11).standard_normal(2 * F).astype(np.float32)
+    mesh3 = make_mesh(("dp", "pp", "sp"), shape=(2, 2, 2), device="cpu")
+    fn, initc = sp_fir_stream(taps, mesh3)
+    snk = VectorSink(np.float32)
+    _run_fg(VectorSource(data), SpKernel(fn, mesh3, np.float32, np.float32, F,
+                                         init_carry=initc),
+            PpKernel(lambda w, a: torch.tanh(a @ w), W, mesh3, np.float32, np.float32,
+                     micro_shape=(mb, d), n_micro=F // (mb * d), axis="pp",
+                     frames_in_flight=1, wire="f32"), snk)
+    got = np.asarray(snk.items())
+    jm3 = jpar.make_mesh(("dp", "pp", "sp"), shape=(2, 2, 2), devices=jax.devices()[:8])
+    jfn, jinit = jpar.sp_fir_stream(taps, jm3)
+    jfg, jsnk = JFlowgraph(), JSink(np.float32)
+    jfg.connect(JSource(data), JSpKernel(jfn, jm3, np.float32, np.float32, F,
+                                         init_carry=jinit),
+                JPpKernel(lambda w, a: jnp.tanh(a @ w), W, jm3, np.float32, np.float32,
+                          micro_shape=(mb, d), n_micro=F // (mb * d), axis="pp",
+                          frames_in_flight=1), jsnk)
+    JRuntime().run(jfg)
+    want = np.asarray(jsnk.items())
+    assert got.shape == want.shape == (2 * F,)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    # the stream's output trains on the same mesh
+    b = 4
+    L = got.size // (b * 2)
+    assert L == N_WIN
+    fm, params, sd = flax_mcldnn
+    iq = got[:b * 2 * L].reshape(b, 2, L).astype(np.float32)
+    labels = np.zeros(b, np.int32)
+    stepped, jloss, _ = _jax_sharded_step(fm, params, jm3, "pp", iq, labels)
+    st = ShardedTrainStep(_port_model(sd), mesh3, loss_fn, "dp", "pp")
+    loss, _ = st(torch.from_numpy(iq), torch.from_numpy(labels).long())
+    assert np.isfinite(float(loss)) and abs(float(loss) - jloss) <= 1e-5
+    assert all(len(st.params[dd][k].shards) == 2 for dd in (0, 1) for k in st.mp_leaves())
+    _hold_step(st, sd, stepped, iq, labels)
