@@ -326,11 +326,30 @@ lineage, the journal, the fleet; the control port's routes):
     modulated frames at 25 dB on four logical devices: the bins the host
     scan's, the concentrations within 1e-5, Msamples/s scanned.
 
+The remaining models (``models/{m17,zigbee,adsb,rattlegram,misc}``, host
+numpy as in the reference, and their apps):
+
+33. (a) ``viterbi_decode_m17`` through the port's M17 codec on the card, on
+    frames of 512, 1,024 and 4,096 trellis steps at M17's P2 puncturing and
+    noise 0.5 on ±1: the bits equal to the float64 numpy trellis and to
+    ``ops/viterbi``'s plain version, bit for bit, one ``viterbi`` launch a
+    frame (counted over those calls and joining the ``kernels`` line), µs a
+    call host to host and the kernel's card time beside its bound; (b) the
+    M17 loopback app, its three LSF beacons and a 4-frame stream
+    transmission, every one decoded, then ``M17Receiver`` in a flowgraph on a
+    stream of 208 frames, every one decoded, frames/s on the host over three
+    runs with the flowgraph's start and stop taken out; (c) the ZigBee
+    loopback app, every frame with a good FCS, in order; (d) ``adsb_rx`` on its
+    synthesized stream, every checkable message with a good CRC24, the
+    tracked position within ``tests/test_adsb.py``'s tolerances; (e) the
+    Rattlegram loopback app and ``modem_ota`` without and with the callsign
+    metadata; (f) the CW beacon's text recovered from its WAV file.
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
 ``python3 chip_smoke.py --models`` only phase 29, ``python3
 chip_smoke.py --sharded`` only phase 30, ``python3 chip_smoke.py
---telemetry`` only phase 31, and ``python3 chip_smoke.py --multihost`` only
-phase 32.
+--telemetry`` only phase 31, ``python3 chip_smoke.py --multihost`` only
+phase 32, and ``python3 chip_smoke.py --protocols`` only phase 33.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -6535,6 +6554,235 @@ def phase_multihost(dev, card_line) -> dict:
     return {"launches": launches, "ranks": ranks, "lora": lora}
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the remaining models (M17, ZigBee, ADS-B, Rattlegram, misc)
+# ---------------------------------------------------------------------------
+
+PROTO_M17_STEPS = (512, 1024, 4096)   # (a)'s frames, trellis steps
+PROTO_M17_SIGMA = 0.5         # noise on (a)'s ±1 soft bits: Es/N0 6 dB
+PROTO_M17_REPS = 20           # timed calls a frame length (median)
+PROTO_M17_BEACONS = 3         # the loopback app's default beacons
+PROTO_M17_PAYLOAD = bytes(range(64))   # 4 stream frames of 16 bytes
+# (b)'s timed stream: transmissions of an LSF and this many stream frames
+# each (208 frames), noise 0.05, through the receiver alone, runs timed
+PROTO_M17_STREAM = (16, 12)
+PROTO_M17_STREAM_RUNS = 3
+# ADS-B (d): the odd frame's local CPR solution at the app's site
+# (tests/test_adsb.py test_cpr_local_decode_with_reference, within 1e-6) and
+# the published position (test_tracker_integration, within 0.01 in latitude)
+PROTO_ADSB_ODD = (52.2657801, 3.9389125)
+PROTO_ADSB_PUBLISHED_LAT = 52.2572
+PROTO_CW_TEXT = "CQ CQ DE FUTURESDR TPU K"
+
+
+def _m17_frame(rng, n_steps):
+    """Soft bits of a random terminated M17 frame of ``n_steps`` trellis steps
+    at its P2 puncturing (``PROTO_M17_SIGMA`` on ±1, zeros where punctured)
+    and its bits."""
+    from futuresdr_tpu_torch.models.m17 import codec
+    bits = np.concatenate([rng.integers(0, 2, n_steps - 4), np.zeros(4)]).astype(np.uint8)
+    coded = codec.conv_encode_m17(bits)
+    sent = codec.puncture_p2(coded).astype(np.float64) * 2 - 1
+    sent += PROTO_M17_SIGMA * rng.standard_normal(len(sent))
+    return codec.depuncture_p2(sent, len(coded)), bits
+
+
+def phase_m17_viterbi(dev, card_line) -> dict:
+    """33 (a): ``viterbi_decode_m17`` on the card through the port's M17 codec
+    at ``PROTO_M17_STEPS``: one call a frame drives the path (its launches
+    counted over those calls alone), the bits equal to the float64 numpy
+    trellis and to ``ops/viterbi``'s plain version on the CPU, bit for bit;
+    then µs a call (host to host) and the kernel's card time for the frame's
+    bucket beside its bound and the plain version's time on the card."""
+    import torch
+
+    from futuresdr_tpu_torch.models.m17 import codec, viterbi_decode_m17
+    from futuresdr_tpu_torch.ops import viterbi as V
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    rng = np.random.default_rng(SEED + 330)
+    frames = {n: _m17_frame(rng, n) for n in PROTO_M17_STEPS}
+    V.reset_launches()
+    got = {n: viterbi_decode_m17(llrs, n, device=dev) for n, (llrs, _) in frames.items()}
+    torch.cuda.synchronize()
+    launches = V.launches["viterbi"]
+    check(launches == len(PROTO_M17_STEPS),
+          f"m17 viterbi: {launches} launches for {len(PROTO_M17_STEPS)} frames")
+    out = {"launches": launches, "frames": {}}
+    for n, (llrs, bits) in frames.items():
+        t0 = time.perf_counter()
+        want = codec._viterbi_numpy(llrs, n)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        plain = V.scan_viterbi(np.asarray(llrs, np.float32), n, *codec._M17_PREV,
+                               device="cpu")
+        diff = int((got[n] != want).sum())
+        check(diff == 0, f"m17 viterbi {n} steps: {diff} bits differ from the numpy trellis")
+        diff = int((got[n] != plain).sum())
+        check(diff == 0, f"m17 viterbi {n} steps: {diff} bits differ from the plain version")
+        ber = float((got[n] != bits).mean())
+        times = []
+        for _ in range(PROTO_M17_REPS):
+            t0 = time.perf_counter()
+            viterbi_decode_m17(llrs, n, device=dev)
+            times.append(time.perf_counter() - t0)
+        call_us = statistics.median(times) * 1e6
+        T = V.bucket_steps(n)
+        lams = np.zeros((1, T, 2), np.float32)
+        lams[0, :n] = np.asarray(llrs[:2 * n], np.float32).reshape(n, 2)
+        tables = V._tables(*codec._M17_PREV, dev)
+        steps = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = [(torch.from_numpy(lams).to(dev),)] * 4
+        kernel_ms = device_ms(lambda x: V.decode(x, steps, *tables), args)
+        ps, pb, b0, b1 = tables
+        plain_ms = cuda_ms(lambda: V.traceback_plain(
+            V._survivors_plain(args[0][0], steps, ps, b0, b1), steps, ps, pb), reps=1)
+        nbytes, ops = kernel_cost("viterbi", B=1, T=T, S=16, steps=n)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        row = {"call_us": call_us, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "numpy_ms": numpy_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "ber": ber}
+        out["frames"][n] = row
+        print(f"phase 33 (a) m17 viterbi_decode_m17 {n} steps (bucket {T}, P2 puncturing, "
+              f"noise {PROTO_M17_SIGMA:g} on ±1, BER {ber:.4f}): bits equal to the numpy "
+              f"trellis and the plain version; {call_us:.1f} us a call host to host "
+              f"(median of {PROTO_M17_REPS}), kernel {kernel_ms * 1e3:.1f} us on the card, "
+              f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), plain version "
+              f"{plain_ms:.1f} ms on the card, numpy trellis {numpy_ms:.1f} ms on the host "
+              f"[{card_line}]")
+    V.reset_launches()
+    return out
+
+
+def _m17_stream_rate(card_line) -> dict:
+    """33 (b)'s rate: ``PROTO_M17_STREAM`` transmissions (an LSF and their
+    stream frames each, 40 symbols apart, noise 0.05) from a ``VectorSource``
+    through ``M17Receiver`` in a flowgraph, every transmission decoded, over
+    ``PROTO_M17_STREAM_RUNS`` runs. The flowgraph's start and stop are taken
+    out: each run also times the same flowgraph over 64 symbols of silence,
+    and the rate is the frames over the difference."""
+    from futuresdr_tpu_torch.blocks import VectorSource
+    from futuresdr_tpu_torch.models.m17 import M17Receiver
+    from futuresdr_tpu_torch.models.m17.phy import (SPS, Lsf, build_stream_frames,
+                                                    modulate)
+    from futuresdr_tpu_torch.runtime import Flowgraph, Runtime
+    n_tx, n_stream = PROTO_M17_STREAM
+    rng = np.random.default_rng(SEED + 331)
+    parts, sent = [], []
+    for _ in range(n_tx):
+        payload = rng.integers(0, 256, 16 * n_stream, dtype=np.uint8).tobytes()
+        parts += [modulate(build_stream_frames(Lsf(dst="SP5WWP", src="N0CALL"), payload)),
+                  np.zeros(40 * SPS, np.float32)]
+        sent.append(payload)
+    x = np.concatenate(parts)
+    x = (x + 0.05 * rng.standard_normal(len(x))).astype(np.float32)
+    n_frames = n_tx * (1 + n_stream)
+
+    def run(items):
+        fg, rx = Flowgraph(), M17Receiver()
+        fg.connect(VectorSource(items), rx)
+        t0 = time.perf_counter()
+        Runtime().run(fg)
+        return time.perf_counter() - t0, rx
+
+    rates, idle = [], []
+    for _ in range(PROTO_M17_STREAM_RUNS):
+        t_idle, _ = run(np.zeros(64 * SPS, np.float32))
+        t_run, rx = run(x)
+        check([p for _, p in rx.transmissions] == sent and len(rx.frames) == n_tx,
+              f"m17 stream: {len(rx.transmissions)} of {n_tx} transmissions, "
+              f"{len(rx.frames)} LSFs")
+        idle.append(t_idle)
+        rates.append(n_frames / (t_run - t_idle))
+    print(f"phase 33 (b) m17 receiver on a stream of {n_tx} transmissions x (1 LSF + "
+          f"{n_stream} stream frames) = {n_frames} frames, {len(x)} samples, every one "
+          f"decoded: {', '.join(f'{r:.2f}' for r in rates)} frames/s on the host over "
+          f"{PROTO_M17_STREAM_RUNS} runs (the flowgraph's start and stop, "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in idle)} ms, taken out) [{card_line}]")
+    return {"frames": n_frames, "frames_per_s": rates, "start_stop_s": idle}
+
+
+def phase_protocol_apps(dev, card_line) -> dict:
+    """33 (b)-(f): the apps of the remaining models on the card machine,
+    each decoding every frame it sent, and M17's receiver timed on a long
+    stream."""
+    from futuresdr_tpu_torch.apps import (adsb_rx, cw_beacon, m17_loopback, modem_ota,
+                                          rattlegram_loopback, zigbee_loopback)
+    from futuresdr_tpu_torch.models.adsb import decode_frame, detect_and_demodulate
+    from futuresdr_tpu_torch.ops import _build
+    # (b) M17: the app's three beacons, then a 4-frame stream transmission
+    metas, lsfs, transmissions, _ = m17_loopback.run(
+        frames=PROTO_M17_BEACONS, payload=PROTO_M17_PAYLOAD)
+    check([f.meta for f in lsfs] == metas + [bytes(14)],
+          f"m17 loopback: LSFs {[f.meta for f in lsfs]}, sent {metas} and the "
+          f"transmission's own")
+    check([p for _, p in transmissions] == [PROTO_M17_PAYLOAD],
+          f"m17 loopback: transmissions {transmissions}")
+    n_stream = len(PROTO_M17_PAYLOAD) // 16
+    n_frames = PROTO_M17_BEACONS + 1 + n_stream
+    print(f"phase 33 (b) m17 loopback app: {PROTO_M17_BEACONS} LSF beacons and a "
+          f"{n_stream}-frame stream transmission ({n_frames} frames at 4,800 symbols/s, 10 "
+          f"samples a symbol), every one decoded [{card_line}]")
+    m17 = _m17_stream_rate(card_line)
+    # (c) ZigBee: the app's four frames, every FCS good
+    sent, got, _ = zigbee_loopback.run()
+    check(got == sent, f"zigbee loopback: decoded {got} of {sent}")
+    print(f"phase 33 (c) zigbee loopback app: {len(got)}/{len(sent)} frames decoded with a "
+          f"good FCS, in order (O-QPSK, 4 samples a chip) [{card_line}]")
+    # (d) ADS-B on its synthesized stream
+    rx, _ = adsb_rx.run()
+    msgs = [decode_frame(b) for _, b in detect_and_demodulate(adsb_rx.synth_stream())]
+    checked = [m for m in msgs if m is not None and not m.icao_derived]
+    check(len(msgs) == len(adsb_rx.SYNTH_FRAMES) and checked
+          and all(m.crc_ok for m in checked),
+          f"adsb: {len(msgs)} of {len(adsb_rx.SYNTH_FRAMES)} frames detected, CRC24 "
+          f"{[m.crc_ok for m in checked]}")
+    check(rx.n_frames == len(adsb_rx.SYNTH_FRAMES) - 1,
+          f"adsb receiver: {rx.n_frames} frames, not the {len(adsb_rx.SYNTH_FRAMES) - 1} "
+          f"the tracker's gate passes")
+    ac = rx.tracker.aircraft.get(0x40621D)
+    check(ac is not None and ac.lat is not None
+          and abs(ac.lat - PROTO_ADSB_ODD[0]) < 1e-6 and abs(ac.lon - PROTO_ADSB_ODD[1]) < 1e-6
+          and abs(ac.lat - PROTO_ADSB_PUBLISHED_LAT) < 0.01,
+          f"adsb: 40621D at {None if ac is None else (ac.lat, ac.lon)}")
+    check(rx.tracker.aircraft[0x4840D6].callsign == "KLM1023", "adsb: no KLM1023")
+    print(f"phase 33 (d) adsb_rx on its synthesized stream (2 Msps): {rx.n_frames} frames "
+          f"tracked, {len(checked)} with a good CRC24, 40621D at ({ac.lat:.7f}, "
+          f"{ac.lon:.7f}) [{card_line}]")
+    # (e) Rattlegram: the loopback app, and modem_ota with and without metadata
+    sent, got, _ = rattlegram_loopback.run()
+    check(got == sent, f"rattlegram loopback: decoded {got} of {sent}")
+    message = "hello through the speaker"
+    _, cs, plain = modem_ota.run(message)
+    _, cs_meta, meta = modem_ota.run(message, callsign="N0CALL")
+    check(plain == message.encode() and cs is None,
+          f"modem_ota: decoded {plain!r}, not {message!r}")
+    check(meta == message.encode() and cs_meta == "N0CALL",
+          f"modem_ota --callsign N0CALL: decoded {meta!r} from {cs_meta!r}")
+    print(f"phase 33 (e) rattlegram loopback app: {len(got)}/{len(sent)} payloads; "
+          f"modem_ota without and with the callsign metadata (N0CALL): decoded "
+          f"[{card_line}]")
+    # (f) the CW beacon, decoded from its WAV file
+    wav = _build.BUILD_DIR.parent / "cw_smoke.wav"
+    _, decoded = cw_beacon.run(PROTO_CW_TEXT, str(wav))
+    wav.unlink()
+    check(decoded == PROTO_CW_TEXT, f"cw beacon: {decoded!r} from its WAV file, not "
+                                    f"{PROTO_CW_TEXT!r}")
+    print(f"phase 33 (f) cw beacon: {decoded!r} recovered from its WAV file [{card_line}]")
+    return {"m17": m17}
+
+
+def phase_protocols(dev, card_line) -> dict:
+    """Phase 33: (a) M17's long frames on the Viterbi kernel, (b)-(f) the
+    apps of M17, ZigBee, ADS-B, Rattlegram and the CW beacon. The kernel's
+    launches: (a)'s decode calls."""
+    t0 = time.perf_counter()
+    viterbi = phase_m17_viterbi(dev, card_line)
+    apps = phase_protocol_apps(dev, card_line)
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s, launches viterbi "
+          f"{viterbi['launches']}")
+    return {"launches": viterbi["launches"], "viterbi": viterbi, "apps": apps}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -6551,6 +6799,10 @@ def main(argv=None) -> int:
     parser.add_argument("--multihost", action="store_true",
                         help="only run phase 32, the mesh across processes, the entry "
                              "points and LoRa, after the build")
+    parser.add_argument("--protocols", action="store_true",
+                        help="only run phase 33, the remaining models (M17's long frames "
+                             "on the Viterbi kernel, the M17, ZigBee, ADS-B, Rattlegram and "
+                             "CW apps), after the build")
     parser.add_argument("--rank", type=int, default=None,
                         help=argparse.SUPPRESS)   # one rank process of phase 32
     parser.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
@@ -6615,6 +6867,9 @@ def main(argv=None) -> int:
         return 0
     if args.multihost:
         phase_multihost(dev, card_line)
+        return 0
+    if args.protocols:
+        phase_protocols(dev, card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -6734,6 +6989,10 @@ def main(argv=None) -> int:
     by_phase["multihost"] = dict(multihost["launches"])
     for k, v in multihost["launches"].items():
         launches[k] += v
+    # 33. the remaining models: M17's long frames on the Viterbi kernel (its
+    #     launches counted over the decode calls alone), the protocol apps
+    protocols = phase_protocols(dev, card_line)
+    by_phase["protocols"] = {"viterbi": protocols["launches"]}
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -6786,12 +7045,20 @@ def main(argv=None) -> int:
     t = models["viterbi"]
     line["kernels"].append({
         "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,
-        "replaces": REPLACES_VITERBI, "launches": models["stream"]["launches"],
-        "launches_by_phase": {"models": models["stream"]["launches"]},
+        "replaces": REPLACES_VITERBI,
+        "launches": models["stream"]["launches"] + protocols["launches"],
+        "launches_by_phase": {"models": models["stream"]["launches"],
+                              "protocols": protocols["launches"]},
         "batch": VIT_LINE[0], "steps": VIT_LINE[1], "states": 64,
         **{y: t[y] for y in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "seq_floor_ms", "one_frame_ms", "acs_ms",
-                             "generic_ms", "states16_ms")}})
+                             "generic_ms", "states16_ms")},
+        "m17_frame_us": {str(n): r["call_us"]
+                         for n, r in protocols["viterbi"]["frames"].items()},
+        "m17_frame_kernel_ms": {str(n): r["kernel_ms"]
+                                for n, r in protocols["viterbi"]["frames"].items()},
+        "m17_frame_plain_ms": {str(n): r["plain_ms"]
+                               for n, r in protocols["viterbi"]["frames"].items()}})
     print(json.dumps(line))
 
     # 8. rates beside the card

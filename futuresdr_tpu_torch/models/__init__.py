@@ -1,15 +1,20 @@
 """Models: the counterpart of ``futuresdr_tpu/models``.
 
 The WLAN 802.11a/g transceiver (:mod:`.wlan`), the MCLDNN modulation
-classifier (:mod:`.mcldnn`, :mod:`.modrec`), M17's trellis
-(:mod:`.m17`) and the LoRa transceiver (:mod:`.lora`). Names resolve lazily, so that importing one model does not
-import the others.
+classifier (:mod:`.mcldnn`, :mod:`.modrec`), the LoRa transceiver
+(:mod:`.lora`), M17 (:mod:`.m17`, whose long frames decode on the device's
+Viterbi kernel), ZigBee (:mod:`.zigbee`), ADS-B (:mod:`.adsb`), the
+Rattlegram audio modem (:mod:`.rattlegram`) and the CW, SSB and OOK
+transceivers (:mod:`.misc`). Names resolve lazily, so that importing one
+model does not import the others.
 """
 
-__all__ = ["MCLDNN", "loss_fn", "wlan", "mcldnn", "modrec", "m17", "lora"]
+__all__ = ["MCLDNN", "loss_fn", "wlan", "lora", "zigbee", "m17", "adsb", "mcldnn",
+           "modrec", "misc", "rattlegram"]
 
 _ML_NAMES = {"MCLDNN", "loss_fn"}
-_SUBMODULES = {"wlan", "mcldnn", "modrec", "m17", "lora"}
+_SUBMODULES = {"wlan", "lora", "zigbee", "m17", "adsb", "mcldnn", "modrec", "misc",
+               "rattlegram"}
 
 
 def __getattr__(name):

@@ -1988,3 +1988,43 @@ def test_served_steps_record_spans_and_gauges_on_card(cuda_device, monkeypatch):
         assert eng.e2e_hist.count == 20
     finally:
         eng.shutdown()
+
+
+def _m17_frame_llrs(rng, n_steps, sigma):
+    """Soft bits of a random terminated M17 frame of ``n_steps`` trellis steps
+    at its P2 puncturing: BPSK ±1, white noise ``sigma``, zeros where
+    punctured. Returns ``(llrs, bits)``."""
+    from futuresdr_tpu_torch.models.m17 import codec
+    bits = np.concatenate([rng.integers(0, 2, n_steps - 4), np.zeros(4)]).astype(np.uint8)
+    coded = codec.conv_encode_m17(bits)
+    sent = codec.puncture_p2(coded).astype(np.float64) * 2 - 1
+    sent += sigma * rng.standard_normal(len(sent))
+    return codec.depuncture_p2(sent, len(coded)), bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [512, 4096])
+def test_m17_long_frames_decode_on_card(cuda_device, n_steps):
+    """``viterbi_decode_m17`` at 512 and 4,096 steps with ``device=None`` (the
+    broker's card) launches ``csrc/viterbi.cu`` once and gives the float64
+    numpy trellis's bits, bit for bit."""
+    from futuresdr_tpu_torch.models.m17 import codec, viterbi_decode_m17
+    from futuresdr_tpu_torch.ops import viterbi as V
+    rng = np.random.default_rng(33 + n_steps)
+    llrs, bits = _m17_frame_llrs(rng, n_steps, 0.5)
+    before = V.launches["viterbi"]
+    got = viterbi_decode_m17(llrs, n_steps)
+    assert V.launches["viterbi"] == before + 1
+    assert np.array_equal(got, codec._viterbi_numpy(llrs, n_steps))
+    assert (got != bits).mean() < 0.01
+
+
+@pytest.mark.gpu
+def test_m17_loopback_decodes_on_the_card_machine(cuda_device):
+    """The M17 loopback app on the card's machine: the three beacons, the
+    transmission's own LSF and a four-frame payload, every one."""
+    from futuresdr_tpu_torch.apps.m17_loopback import run
+    payload = bytes(range(64))
+    metas, lsfs, transmissions, _ = run(payload=payload)
+    assert [f.meta for f in lsfs] == metas + [bytes(14)]
+    assert [p for _, p in transmissions] == [payload]

@@ -454,3 +454,36 @@ def test_the_mesh_across_processes_the_entry_and_lora_load_alone(tmp_path):
                                120, env=env, cwd=str(REPO))
     for rc, out in results:
         assert rc == 0 and "bad []" in out, out[-3000:]
+
+
+def test_the_remaining_models_and_their_apps_load_alone():
+    """M17, ZigBee, ADS-B, Rattlegram and ``models/misc.py``, and their six
+    apps, are walked; loading them all and decoding an M17 frame of 512 steps
+    on the CPU, a ZigBee frame and an ADS-B one loads neither JAX nor the JAX
+    package."""
+    new = {f"futuresdr_tpu_torch.models.{m}" for m in (
+        "m17.phy", "m17.blocks", "zigbee", "zigbee.phy", "zigbee.blocks", "adsb",
+        "adsb.phy", "adsb.decoder", "adsb.blocks", "rattlegram", "rattlegram.fec",
+        "rattlegram.polar", "rattlegram.modem", "misc")}
+    apps = {f"futuresdr_tpu_torch.apps.{a}" for a in (
+        "m17_loopback", "zigbee_loopback", "adsb_rx", "rattlegram_loopback", "modem_ota",
+        "cw_beacon")}
+    assert new | apps <= set(_submodules())
+    code = ("import importlib, sys\n"
+            "import numpy as np\n"
+            f"for m in {sorted(new | apps)!r}: importlib.import_module(m)\n"
+            "from futuresdr_tpu_torch.models import m17, zigbee, adsb\n"
+            "llrs = np.zeros(1024); llrs[::2] = 1.0\n"
+            "assert len(m17.viterbi_decode_m17(llrs, 512, device='cpu')) == 512\n"
+            "psdu = zigbee.mac_frame(b'alone')\n"
+            "assert zigbee.demodulate_stream(np.concatenate([np.zeros(100, np.complex64), "
+            "zigbee.modulate_frame(psdu), np.zeros(100, np.complex64)])) == [psdu]\n"
+            "f = adsb.build_df17_frame(0xABCDEF, np.zeros(56, np.uint8))\n"
+            "assert adsb.decode_frame(f).icao == 0xABCDEF\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'futuresdr_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
