@@ -345,11 +345,36 @@ numpy as in the reference, and their apps):
     Rattlegram loopback app and ``modem_ota`` without and with the callsign
     metadata; (f) the CW beacon's text recovered from its WAV file.
 
+The host plane (``runtime/fastchain.py`` over ``csrc/host/fastchain.cpp``, the
+schedulers, the stream, functional, DSP, file and audio blocks, and the apps
+that wait for them):
+
+34. (a) the north-star grid of ``perf/fir.py``, 5 pipes of 6 stages of
+    ``CopyRand(max_copy 4096) -> Fir(firdes.lowpass(0.2, 64))``, 15,000,000
+    float32 samples a pipe, natively fused (3 runs) and on the actor path
+    (``FSDR_NO_FASTCHAIN=1``) under ``AsyncScheduler``, ``ThreadedScheduler``
+    and ``TpbScheduler`` (one run each, three under ``--hostplane``),
+    Msamples/s in total, every sink's count checked as ``perf/fir.py`` does;
+    a ``VectorSource``-fed 1 x 6 pipe natively within 1e-5 of peak of the
+    actor path; whether the AVX-512 FIR path was built; (b) the grid's
+    ``--tpu`` form, each pipe's 6 stages one ``TpuKernel`` of
+    ``fir_stage(impl="pallas")`` at frame 2^18 on the f32 wire, under
+    ``ThreadedScheduler`` and ``AsyncScheduler``: Msamples/s, the output on
+    a seeded input within 1e-5 of peak of the host ``Fir`` cascade (the
+    ``fir`` kernel's limit), ``fir`` launched; (c) the apps' ``main()`` as
+    subprocesses: ``keyfob_rx`` (loopback, and ``tx --out``), ``ssb_rx
+    --wav``, ``file_trx rx``, ``custom_routes`` and ``adsb_rx --file`` on a
+    capture ``FileSink`` wrote, each exiting 0 past its own check; (d)
+    ``FileSource -> TpuKernel(the fused spectrum chain, fir_fft) -> FileSink``
+    on a 2^22-sample complex64 file: the output file bit-equal to the same
+    run's from a ``VectorSource``.
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
 ``python3 chip_smoke.py --models`` only phase 29, ``python3
 chip_smoke.py --sharded`` only phase 30, ``python3 chip_smoke.py
 --telemetry`` only phase 31, ``python3 chip_smoke.py --multihost`` only
-phase 32, and ``python3 chip_smoke.py --protocols`` only phase 33.
+phase 32, ``python3 chip_smoke.py --protocols`` only phase 33, and ``python3
+chip_smoke.py --hostplane`` only phase 34.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -6783,6 +6808,283 @@ def phase_protocols(dev, card_line) -> dict:
     return {"launches": viterbi["launches"], "viterbi": viterbi, "apps": apps}
 
 
+# ---- phase 34: the host plane ----------------------------------------------------
+
+HP_PIPES = 5                    # perf/fir.py's grid
+HP_STAGES = 6
+HP_SAMPLES = 15_000_000
+HP_MAX_COPY = 4096
+HP_NATIVE_RUNS = 3
+HP_SCHEDULERS = ("async", "threaded", "tpb")
+HP_CHECK_SAMPLES = 1 << 20      # the VectorSource-fed 1 x 6 pipe of (a)'s check
+HP_TOL = 1e-5                   # of peak: native against actor, kernel against host
+HP_TPU_FRAME = 1 << 18
+HP_TPU_SCHEDULERS = ("threaded", "async")
+HP_TPU_CHECK = 4 * HP_TPU_FRAME # (b)'s seeded input a pipe
+HP_FILE_SAMPLES = 1 << 22       # (d)'s complex64 file
+HP_APPS = {
+    "keyfob_rx": ([], "# loopback OK: code round-tripped"),
+    "keyfob_rx tx": (["tx", "--out", "{d}/burst.cf32"], "0xA53C96"),
+    "ssb_rx": (["--wav", "{d}/ssb.wav"], "# loopback OK: both test tones recovered"),
+    "file_trx": (["rx", "--out", "{d}/cap.cs8", "--samples", "50000"], "wrote 50000 items"),
+    "custom_routes": (["--port", "0"], "GET /api/fg/   -> [0, 1]"),
+    "adsb_rx": (["--file", "{d}/adsb.f32"], "decoded 6 frames"),
+}
+
+
+def _scheduler(name):
+    from futuresdr_tpu_torch import AsyncScheduler, ThreadedScheduler, TpbScheduler
+    return {"async": AsyncScheduler, "threaded": ThreadedScheduler,
+            "tpb": TpbScheduler}[name]()
+
+
+def _hp_grid(taps, tpu_dev=None, data=None):
+    """``perf/fir.py``'s grid: NullSource -> Head -> stages -> NullSink a pipe
+    (``data``: one pipe of VectorSource -> stages -> VectorSink instead), the
+    stages ``CopyRand -> Fir`` or, with ``tpu_dev``, one ``TpuKernel`` of
+    ``fir_stage(impl="pallas")``; returns ``(flowgraph, sinks)``."""
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.blocks import (CopyRand, Fir, Head, NullSink, NullSource,
+                                            VectorSink, VectorSource)
+    fg = Flowgraph()
+    sinks = []
+    for p in range(HP_PIPES if data is None else len(data)):
+        if data is None:
+            last = Head(np.float32, HP_SAMPLES)
+            fg.connect(NullSource(np.float32), last)
+        else:
+            last = VectorSource(data[p])
+            fg.add(last)
+        if tpu_dev is not None:
+            from futuresdr_tpu_torch.ops.stages import fir_stage
+            from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+            blk = TpuKernel([fir_stage(taps, name=f"fir{i}", impl="pallas")
+                             for i in range(HP_STAGES)], np.float32,
+                            frame_size=HP_TPU_FRAME, inst=TpuInstance(tpu_dev), wire="f32")
+            fg.connect(last, blk)
+            last = blk
+        else:
+            for s in range(HP_STAGES):
+                cr, fir = CopyRand(np.float32, HP_MAX_COPY, seed=s + 1), Fir(taps, np.float32)
+                fg.connect(last, cr, fir)
+                last = fir
+        snk = NullSink(np.float32) if data is None else VectorSink(np.float32)
+        fg.connect(last, snk)
+        sinks.append(snk)
+    return fg, sinks
+
+
+def _hp_run(fg, sched: str) -> float:
+    from futuresdr_tpu_torch import Runtime
+    rt = Runtime(_scheduler(sched))
+    t0 = time.perf_counter()
+    rt.run(fg)
+    dt = time.perf_counter() - t0
+    rt.shutdown()
+    return dt
+
+
+class _actor_path:
+    """``FSDR_NO_FASTCHAIN=1`` for the block, as perf probes A/B the paths."""
+
+    def __enter__(self):
+        import os
+        os.environ["FSDR_NO_FASTCHAIN"] = "1"
+
+    def __exit__(self, *exc):
+        import os
+        os.environ.pop("FSDR_NO_FASTCHAIN", None)
+
+
+def _hp_counts(sinks, slack: int, what: str) -> None:
+    """Every sink's count as ``perf/fir.py:63-65`` checks it."""
+    for s in sinks:
+        check(HP_SAMPLES - slack <= s.n_received <= HP_SAMPLES + slack,
+              f"{what}: a sink received {s.n_received} of {HP_SAMPLES}")
+
+
+def _host_cascade(x, taps):
+    y = x
+    for _ in range(HP_STAGES):
+        y = np.convolve(y, taps)[:len(y)].astype(np.float32)
+    return y
+
+
+def phase_hostplane_grid(card_line, actor_runs: int) -> dict:
+    """34 (a): the grid natively fused and on the actor path under each
+    scheduler, Msamples/s in total; the native pipe against the actor's."""
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.runtime import fastchain
+    taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    total = HP_PIPES * HP_SAMPLES
+    out = {"native": [], "avx512": fastchain.avx512_built()}
+    print(f"phase 34 (a) fast chain: library built, AVX-512 FIR path "
+          f"{'built' if out['avx512'] else 'not built (the CPU has no AVX-512F)'}")
+    for r in range(HP_NATIVE_RUNS):
+        fg, sinks = _hp_grid(taps)
+        check(len(fastchain.find_native_chains(fg)) == HP_PIPES,
+              "34 (a): the grid's pipes did not fuse")
+        dt = _hp_run(fg, "async")
+        _hp_counts(sinks, 0, "native grid")
+        out["native"].append(total / dt / 1e6)
+        print(f"phase 34 (a) grid {HP_PIPES} x {HP_STAGES} native run {r}: {dt:.3f} s, "
+              f"{out['native'][-1]:.1f} Msamples/s in total")
+    for sched in HP_SCHEDULERS:
+        out[sched] = []
+        for r in range(actor_runs):
+            with _actor_path():
+                fg, sinks = _hp_grid(taps)
+                dt = _hp_run(fg, sched)
+            _hp_counts(sinks, 64 * HP_STAGES + 1, f"actor grid ({sched})")
+            out[sched].append(total / dt / 1e6)
+            print(f"phase 34 (a) grid {HP_PIPES} x {HP_STAGES} actor {sched} run {r}: "
+                  f"{dt:.3f} s, {out[sched][-1]:.1f} Msamples/s in total")
+    # the VectorSource-fed pipe: natively fused against the actor path
+    x = np.random.default_rng(SEED).standard_normal((1, HP_CHECK_SAMPLES)).astype(np.float32)
+    fg, (nat,) = _hp_grid(taps, data=x)
+    check(len(fastchain.find_native_chains(fg)) == 1, "34 (a): the check pipe did not fuse")
+    _hp_run(fg, "async")
+    with _actor_path():
+        fg, (act,) = _hp_grid(taps, data=x)
+        _hp_run(fg, "async")
+    got, want = nat.items(), act.items()
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    check(len(got) == len(want) == HP_CHECK_SAMPLES and err <= HP_TOL,
+          f"34 (a): native pipe {len(got)} items at {err:.3g} of peak from the actor's")
+    out["native_err"] = err
+    print(f"phase 34 (a) 1 x {HP_STAGES} VectorSource pipe of {HP_CHECK_SAMPLES} samples: "
+          f"native within {err:.3g} of peak of the actor path [{card_line}]")
+    return out
+
+
+def phase_hostplane_tpu(dev, card_line) -> dict:
+    """34 (b): the grid's ``--tpu`` form under ThreadedScheduler and
+    AsyncScheduler, Msamples/s; a seeded pipe against the host cascade."""
+    from futuresdr_tpu_torch.dsp import firdes
+    taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    out = {}
+    x = np.random.default_rng(SEED + 1).standard_normal((2, HP_TPU_CHECK)).astype(np.float32)
+    want = [_host_cascade(x[p], taps) for p in range(2)]
+    for sched in HP_TPU_SCHEDULERS:
+        fg, sinks = _hp_grid(taps, tpu_dev=dev)
+        dt = _hp_run(fg, sched)
+        _hp_counts(sinks, 1 << 13, f"tpu grid ({sched})")
+        out[sched] = HP_PIPES * HP_SAMPLES / dt / 1e6
+        fg, sinks = _hp_grid(taps, tpu_dev=dev, data=x)
+        _hp_run(fg, sched)
+        for s, w in zip(sinks, want):
+            got = s.items()
+            err = float(np.abs(got - w).max()) / float(np.abs(w).max())
+            check(len(got) == len(w) and err <= HP_TOL,
+                  f"34 (b) {sched}: {len(got)} items at {err:.3g} of peak from the host")
+            out[f"{sched}_err"] = max(out.get(f"{sched}_err", 0.0), err)
+        print(f"phase 34 (b) grid {HP_PIPES} x {HP_STAGES} --tpu ({sched}, frame "
+              f"{HP_TPU_FRAME}, f32 wire): {dt:.3f} s, {out[sched]:.1f} Msamples/s in "
+              f"total; seeded pipes within {out[f'{sched}_err']:.3g} of peak of the host "
+              f"cascade [{card_line}]")
+    return out
+
+
+def phase_hostplane_apps(card_line) -> None:
+    """34 (c): the apps' ``main()`` as subprocesses, all started together."""
+    import os
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.apps.adsb_rx import synth_stream
+    from futuresdr_tpu_torch.blocks import FileSink, VectorSource
+    from futuresdr_tpu_torch.ops import _build
+    d = _build.BUILD_DIR.parent / "phase34"
+    d.mkdir(parents=True, exist_ok=True)
+    fg = Flowgraph()
+    fg.connect(VectorSource(synth_stream()), FileSink(str(d / "adsb.f32"), np.float32))
+    Runtime().run(fg)
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (args, _) in HP_APPS.items():
+        mod = "futuresdr_tpu_torch.apps." + name.split()[0]
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", mod, *[a.format(d=d) for a in args]], cwd=str(d),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        try:
+            so, _ = p.communicate(timeout=MAIN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, _ = p.communicate()
+        check(p.returncode == 0 and HP_APPS[name][1] in so,
+              f"34 (c) {name}: exit {p.returncode}:\n{so[-3000:]}")
+        print(f"phase 34 (c) {name.split()[0]} {' '.join(HP_APPS[name][0]).format(d='.')}: exit 0, "
+              f"{HP_APPS[name][1]!r} [{card_line}]")
+    print(f"phase 34 (c) six app runs: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_hostplane_file(dev, card_line) -> dict:
+    """34 (d): a complex64 file through the fused spectrum chain on the card
+    and back to a file, bit-equal to the same run from a VectorSource."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import FileSink, FileSource, VectorSource
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import _build
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    d = _build.BUILD_DIR.parent / "phase34"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 2)
+    x = (rng.standard_normal(HP_FILE_SAMPLES)
+         + 1j * rng.standard_normal(HP_FILE_SAMPLES)).astype(np.complex64)
+    x.tofile(d / "in.cf32")
+    times = {}
+    for src_kind in ("file", "vector"):
+        fg = Flowgraph()
+        src = (FileSource(str(d / "in.cf32"), np.complex64) if src_kind == "file"
+               else VectorSource(x))
+        blk = TpuKernel(chain_stages("fused", taps), np.complex64, frame_size=HP_TPU_FRAME,
+                        inst=TpuInstance(dev), frames_in_flight=IN_FLIGHT, wire="f32")
+        fg.connect(src, blk, FileSink(str(d / f"out_{src_kind}.f32"), np.float32))
+        t0 = time.perf_counter()
+        Runtime().run(fg)
+        times[src_kind] = time.perf_counter() - t0
+    a = (d / "out_file.f32").read_bytes()
+    b = (d / "out_vector.f32").read_bytes()
+    check(len(a) == 4 * HP_FILE_SAMPLES and a == b,
+          f"34 (d): the file run wrote {len(a)} bytes, the vector run {len(b)}, "
+          f"{'equal' if a == b else 'different'}")
+    print(f"phase 34 (d) FileSource -> TpuKernel(fir_fft, mag2) -> FileSink, "
+          f"{HP_FILE_SAMPLES} complex64 samples: output files bit-equal to the "
+          f"VectorSource run's ({len(a)} bytes; {times['file']:.2f} s from the file, "
+          f"{times['vector']:.2f} s from the vector) [{card_line}]")
+    for f in ("in.cf32", "out_file.f32", "out_vector.f32"):
+        (d / f).unlink()
+    return times
+
+
+def phase_hostplane(dev, card_line, actor_runs: int = 1) -> dict:
+    """Phase 34: (a) the north-star grid on the host, (b) its ``--tpu`` form
+    on the card, (c) the apps, (d) a file through the card. The kernels'
+    launches: ``fir`` over (b), ``fir_fft`` over (d)."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    grid = phase_hostplane_grid(card_line, actor_runs)
+    ck.reset_launches()
+    tpu = phase_hostplane_tpu(dev, card_line)
+    torch.cuda.synchronize()
+    launches = {"fir": ck.launches["fir"]}
+    check(launches["fir"] > 0, "kernel fir was launched no time in phase 34 (b)")
+    phase_hostplane_apps(card_line)
+    ck.reset_launches()
+    phase_hostplane_file(dev, card_line)
+    torch.cuda.synchronize()
+    launches["fir_fft"] = ck.launches["fir_fft"]
+    check(launches["fir_fft"] > 0, "kernel fir_fft was launched no time in phase 34 (d)")
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s, launches fir {launches['fir']}, "
+          f"fir_fft {launches['fir_fft']}")
+    return {"launches": launches, "grid": grid, "tpu": tpu}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -6803,6 +7105,10 @@ def main(argv=None) -> int:
                         help="only run phase 33, the remaining models (M17's long frames "
                              "on the Viterbi kernel, the M17, ZigBee, ADS-B, Rattlegram and "
                              "CW apps), after the build")
+    parser.add_argument("--hostplane", action="store_true",
+                        help="only run phase 34, the host plane (the grid natively and "
+                             "on each scheduler, its --tpu form, the apps, a file "
+                             "through the card), after the build")
     parser.add_argument("--rank", type=int, default=None,
                         help=argparse.SUPPRESS)   # one rank process of phase 32
     parser.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
@@ -6870,6 +7176,9 @@ def main(argv=None) -> int:
         return 0
     if args.protocols:
         phase_protocols(dev, card_line)
+        return 0
+    if args.hostplane:
+        phase_hostplane(dev, card_line, actor_runs=3)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -6993,6 +7302,13 @@ def main(argv=None) -> int:
     #     launches counted over the decode calls alone), the protocol apps
     protocols = phase_protocols(dev, card_line)
     by_phase["protocols"] = {"viterbi": protocols["launches"]}
+    # 34. the host plane: the grid natively and on each scheduler, its --tpu
+    #     form on the fir kernel, the apps, a file through the fir_fft chain;
+    #     the kernels' launches counted over (b) and (d)
+    hostplane = phase_hostplane(dev, card_line)
+    by_phase["hostplane"] = dict(hostplane["launches"])
+    for k, v in hostplane["launches"].items():
+        launches[k] += v
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record

@@ -5,22 +5,24 @@ With no input file it synthesizes a stream carrying the published Mode S test
 frames (the 1090 MHz riddle's): an identification, an even and an odd
 airborne position, a velocity, a DF11 all-call that acquires 4CA7E8, a DF4
 altitude reply for it and a DF5 identity reply for an aircraft never
-acquired, which the tracker's gate drops. Reading a recorded stream
-(``--file``) waits for the port's ``FileSource``. Host numpy, as in the
+acquired, which the tracker's gate drops. ``--file`` reads a recorded
+float32 magnitude stream through ``FileSource`` instead. Host numpy, as in the
 reference.
 
-Run: ``python -m futuresdr_tpu_torch.apps.adsb_rx [--ref-pos 52.25,3.92]``.
+Run: ``python -m futuresdr_tpu_torch.apps.adsb_rx [--file capture.f32]
+[--ref-pos 52.25,3.92]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import numpy as np
 
-from ..blocks import VectorSource
+from ..blocks import FileSource, VectorSource
 from ..models.adsb import AdsbReceiver, modulate_frame
 from ..models.adsb.decoder import crc24
 from ..runtime import Flowgraph, Runtime
@@ -65,14 +67,10 @@ def run(file: Optional[str] = None, ref_pos: Optional[tuple] = (52.25, 3.92)) ->
     """Receive the synthesized stream (or ``file``); returns ``(receiver,
     seconds)``: the ``AdsbReceiver`` with its frame count and tracker, and the
     seconds from the flowgraph's start to its end."""
-    if file is not None:
-        raise NotImplementedError(
-            "adsb_rx --file reads a recorded stream through blocks/io.FileSource, "
-            "which the port does not have yet; run without --file to receive the "
-            "synthesized stream")
     fg = Flowgraph()
     rx = AdsbReceiver(ref_pos=ref_pos)
-    fg.connect_stream(VectorSource(synth_stream()), "out", rx, "in")
+    src = FileSource(file, np.float32) if file is not None else VectorSource(synth_stream())
+    fg.connect_stream(src, "out", rx, "in")
     t0 = time.perf_counter()
     Runtime().run(fg)
     return rx, time.perf_counter() - t0
@@ -80,17 +78,15 @@ def run(file: Optional[str] = None, ref_pos: Optional[tuple] = (52.25, 3.92)) ->
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--file", default=None, help="float32 magnitude stream @2 Msps "
-                                                "(not yet in the port)")
+    p.add_argument("--file", default=None, help="float32 magnitude stream @2 Msps")
     p.add_argument("--ref-pos", default="52.25,3.92",
                    help="receiver site lat,lon for single-message CPR "
                         "(empty string disables)")
     a = p.parse_args(argv)
     ref = tuple(float(v) for v in a.ref_pos.split(",")) if a.ref_pos else None
-    try:
-        rx, _seconds = run(a.file, ref)
-    except NotImplementedError as e:
-        p.error(str(e))
+    if a.file is not None and not os.path.isfile(a.file):
+        p.error(f"--file {a.file}: no such file")
+    rx, _seconds = run(a.file, ref)
     print(f"decoded {rx.n_frames} frames; aircraft:")
     for ac in rx.tracker.aircraft.values():
         print(f"  {ac.icao:06X} callsign={ac.callsign} squawk={ac.squawk} "

@@ -1,9 +1,10 @@
 """The PFB channelizer as a host block, and its default prototype.
 
 A copy of ``futuresdr_tpu/blocks/pfb.py`` (``pfb_default_taps``,
-``PfbChannelizer``, ``PfbArbResampler``; the synthesizer is not ported). The channelizer is the critically sampled polyphase analysis bank:
-commutated branch filters (``scipy.signal.lfilter``, batched over branches),
-then the IFFT across branches. Channel ``c`` carries the band centred at
+``PfbChannelizer``, ``PfbSynthesizer``, ``PfbArbResampler``). The channelizer
+is the critically sampled polyphase analysis bank: commutated branch filters
+(``scipy.signal.lfilter``, batched over branches), then the IFFT across
+branches; the synthesizer is its inverse, N channels into one stream. Channel ``c`` carries the band centred at
 ``c/N`` of the input rate, each output at ``fs/N``. The device form is
 ``ops/stages.channelizer_stage``.
 """
@@ -19,7 +20,7 @@ from ..dsp import firdes
 from ..dsp.windows import kaiser
 from ..runtime.kernel import Kernel
 
-__all__ = ["PfbChannelizer", "PfbArbResampler", "pfb_default_taps"]
+__all__ = ["PfbChannelizer", "PfbSynthesizer", "PfbArbResampler", "pfb_default_taps"]
 
 
 def pfb_default_taps(n_channels: int, taps_per_branch: int = 12,
@@ -79,6 +80,49 @@ class PfbChannelizer(Kernel):
             self.input.consume(t * self.n)
         if self.input.finished() and self.input.available() < self.n:
             io.finished = True
+
+
+class PfbSynthesizer(Kernel):
+    """N → 1 synthesis bank (`pfb/synthesizer.rs`): FFT across channels + commutated
+    branch filters, critically sampled."""
+
+    def __init__(self, n_channels: int, taps=None):
+        super().__init__()
+        self.n = int(n_channels)
+        taps = np.asarray(taps if taps is not None else pfb_default_taps(self.n),
+                          dtype=np.float32)
+        k = -(-len(taps) // self.n)
+        padded = np.zeros(k * self.n, dtype=np.float64)
+        padded[:len(taps)] = taps
+        self.branch_taps = padded.reshape(k, self.n).T
+        self._zi = np.zeros((self.n, k - 1), dtype=np.complex128) if k > 1 else None
+        self.inputs = [self.add_stream_input(f"in{i}", np.complex64)
+                       for i in range(self.n)]
+        self.output = self.add_stream_output("out", np.complex64, min_items=self.n)
+
+    async def work(self, io, mio, meta):
+        # slice lengths, not available(): the ring's slices stop at its wrap
+        t = min(min(len(p.slice()) for p in self.inputs),
+                len(self.output.slice()) // self.n)
+        if t > 0:
+            x = np.stack([p.slice()[:t] for p in self.inputs])   # [N, t]
+            v = np.fft.fft(x, axis=0)                            # [N, t]
+            if self._zi is not None:
+                w = np.empty((self.n, t), dtype=np.complex128)
+                for p in range(self.n):
+                    w[p], self._zi[p] = lfilter(self.branch_taps[p], 1.0, v[p],
+                                                zi=self._zi[p])
+            else:
+                w = self.branch_taps[:, :1] * v
+            out = self.output.slice()
+            out[:t * self.n] = w.T.reshape(-1).astype(np.complex64)
+            for p in self.inputs:
+                p.consume(t)
+            self.output.produce(t * self.n)
+        if any(p.finished() and p.available() == 0 for p in self.inputs):
+            io.finished = True
+        elif t > 0 and all(p.available() for p in self.inputs):
+            io.call_again = True
 
 
 class PfbArbResampler(Kernel):

@@ -1,6 +1,8 @@
 """Vector / null sources and sinks — the test and bench workhorses.
 
-A copy of ``futuresdr_tpu/blocks/vector.py`` (``CopyRand`` left out).
+A copy of ``futuresdr_tpu/blocks/vector.py``: ``VectorSource``/``VectorSink``,
+``NullSource``/``NullSink`` and ``CopyRand`` (the ``perf/`` harness blocks,
+``perf/fir/fir.rs:49-72``).
 """
 
 from __future__ import annotations
@@ -10,8 +12,9 @@ from typing import List, Optional
 import numpy as np
 
 from ..runtime.kernel import Kernel
+from ..runtime.tag import filter_tags
 
-__all__ = ["VectorSource", "VectorSink", "NullSource", "NullSink"]
+__all__ = ["VectorSource", "VectorSink", "NullSource", "NullSink", "CopyRand"]
 
 
 class VectorSource(Kernel):
@@ -113,3 +116,35 @@ class NullSink(Kernel):
             self.n_received += n
         if finished or (self.count is not None and self.n_received >= self.count):
             io.finished = True
+
+
+class CopyRand(Kernel):
+    """Copy with randomized chunk sizes (`perf/perf/src/copy_rand.rs`): stresses the
+    wake/backpressure protocol with irregular work windows. The block seeds its
+    own generator; the native fast chain seeds its own from ``seed``, so the
+    chunk sizes differ between the two paths while the data is the same."""
+
+    def __init__(self, dtype, max_copy: int = 512, seed: int = 1):
+        super().__init__()
+        self.input = self.add_stream_input("in", dtype)
+        self.output = self.add_stream_output("out", dtype)
+        self.max_copy = max_copy
+        self._seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    async def work(self, io, mio, meta):
+        inp = self.input.slice()
+        out = self.output.slice()
+        n = min(len(inp), len(out))
+        if n > 0:
+            n = min(n, 1 + int(self._rng.integers(self.max_copy)))
+            out[:n] = inp[:n]
+            for t in filter_tags(self.input.tags(), n):
+                self.output.add_tag(t.index, t.tag)
+            self.input.consume(n)
+            self.output.produce(n)
+        rest = self.input.available()
+        if self.input.finished() and rest == 0:
+            io.finished = True
+        elif n > 0 and rest > 0:
+            io.call_again = True

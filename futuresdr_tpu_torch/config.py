@@ -49,6 +49,7 @@ class Config:
     queue_size: int = 8192                 # message inbox capacity (try_send
     #   drops past it, send_async waits for room)
     buffer_size: int = 262144              # stream buffer size in bytes
+    default_scheduler: str = "async"       # Runtime()'s scheduler: "async" | "threaded"
     ctrlport_enable: bool = False          # Runtime() starts the REST control port
     ctrlport_bind: str = "127.0.0.1:1337"  # its address; port 0 takes a free port
     tpu_frame_size: int = 1 << 18          # samples per device frame

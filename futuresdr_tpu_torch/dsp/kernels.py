@@ -1,6 +1,6 @@
 """Streaming filter cores: stateful, vectorized, frame-in/frame-out.
 
-A copy of ``futuresdr_tpu/dsp/kernels.py`` (``IirFilter`` not ported), a
+A copy of ``futuresdr_tpu/dsp/kernels.py``, a
 re-design of ``crates/futuredsp/src/`` (reference ``Filter``/``StatefulFilter`` traits,
 ``fir.rs:31``, ``iir.rs``, ``polyphase_resampling_fir.rs:41``, ``rotator.rs``): each core
 carries its history/phase state internally and exposes ``process(x) -> y``, so a block's
@@ -14,9 +14,10 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+from scipy.signal import lfilter
 
-__all__ = ["FirFilter", "DecimatingFirFilter", "PolyphaseResamplingFir", "Rotator",
-           "poly_resample_m_hi"]
+__all__ = ["FirFilter", "DecimatingFirFilter", "PolyphaseResamplingFir", "IirFilter",
+           "Rotator", "poly_resample_m_hi"]
 
 
 def poly_resample_m_hi(total: int, interp: int, decim: int) -> int:
@@ -25,7 +26,7 @@ def poly_resample_m_hi(total: int, interp: int, decim: int) -> int:
 
     THE single Python source of the resampler's producible-output contract
     (used by :class:`PolyphaseResamplingFir` and the native fast-chain's sink
-    bound; mirrored once in C, ``native/fastchain.cpp resample_m_hi``). The
+    bound; mirrored once in C, ``csrc/host/fastchain.cpp resample_m_hi``). The
     closed form also guarantees ``n_{m_hi} ≥ total``, so K−1 kept history
     always covers the next chunk's windows — the former decrement-loop could
     undershoot the boundary (e.g. I=12, D=5, total=37), deferring a producible
@@ -160,6 +161,27 @@ class PolyphaseResamplingFir:
         self._hist = None
         self._m = 0
         self._consumed = 0
+
+
+class IirFilter:
+    """Direct-form IIR with carried state (`futuredsp` IirFilter)."""
+
+    def __init__(self, b, a=(1.0,)):
+        self.b = np.asarray(b, dtype=np.float64)
+        self.a = np.asarray(a, dtype=np.float64)
+        self._zi: Optional[np.ndarray] = None
+
+    def process(self, x: np.ndarray) -> np.ndarray:
+        if len(x) == 0:
+            return x
+        if self._zi is None:
+            n = max(len(self.b), len(self.a)) - 1
+            self._zi = np.zeros(n, dtype=np.result_type(x.dtype, np.float64))
+        y, self._zi = lfilter(self.b, self.a, x, zi=self._zi)
+        return y.astype(x.dtype, copy=False) if np.iscomplexobj(x) else y
+
+    def reset(self):
+        self._zi = None
 
 
 class Rotator:

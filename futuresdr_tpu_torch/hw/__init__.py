@@ -1,8 +1,8 @@
 """Hardware abstraction layer — the `seify` crate equivalent.
 
 A copy of ``futuresdr_tpu/hw/__init__.py`` with the ``dummy`` and ``file``
-drivers (``rtl_tcp`` is not ported: ROADMAP Queue 1 item 4b part 2, the
-rest of the host plane; part 1, the telemetry plane, is ported). The
+drivers (``rtl_tcp`` is not ported yet: ROADMAP Queue 1 item 4b part 2,
+whose last slice holds the network radios and the remote clients). The
 reference's hardware blocks are generic over the external seify HAL
 (RTL-SDR, HackRF, SoapySDR, Aaronia, dummy — ``src/blocks/seify/``). Here the HAL is a small driver registry;
 the :class:`DummyDriver` plays the role of seify's ``driver=dummy`` (`tests/seify.rs:16-60`,

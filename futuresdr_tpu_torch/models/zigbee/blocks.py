@@ -6,13 +6,14 @@ The port's copy of ``futuresdr_tpu/models/zigbee/blocks.py`` on the port's runti
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Optional
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 
 from ...runtime.kernel import Kernel, message_handler
 from ...types import Pmt
-from .phy import SAMPLES_PER_CHIP, demodulate_stream, mac_deframe, mac_frame, modulate_frame
+from .phy import (SAMPLES_PER_CHIP, demodulate_stream_at, mac_deframe, mac_frame,
+                  modulate_frame, same_frame_span)
 
 __all__ = ["IqDelay", "ZigbeeTransmitter", "ZigbeeReceiver"]
 
@@ -119,7 +120,13 @@ class ZigbeeReceiver(Kernel):
         # 256k chunks run ~7.9 Msps vs 4.2 at 32k (real-time at 2 Mchip/s x 4 sps)
         self.chunk = chunk or ((1 << 18) if timing == "coherent" else 1024)
         self._tail = np.zeros(0, np.complex64)
-        self._seen_payloads: Deque[bytes] = deque(maxlen=16)
+        self._tail_abs = 0                  # the stream index of the tail's first sample
+        # the frames posted, by stream position: a window that sees a frame
+        # again finds it at the same place, while a frame sent again (a MAC
+        # retransmission carries the same bytes) lies a burst or more later.
+        # Where the port departs from the reference, which drops any PSDU
+        # equal to one of the last 16 it posted (ROADMAP Queue 3).
+        self._posted: List[Tuple[float, bytes]] = []
         self.input = self.add_stream_input("in", np.complex64,
                                            min_items=self.chunk)
         self.add_message_output("rx")
@@ -132,15 +139,23 @@ class ZigbeeReceiver(Kernel):
                 io.finished = True
             return
         buf = np.concatenate([self._tail, inp[:n]])
-        for psdu in demodulate_stream(buf, timing=self.timing):
+        base = self._tail_abs
+        for at, psdu in demodulate_stream_at(buf, timing=self.timing):
             payload = mac_deframe(psdu)
-            if payload is None or psdu in self._seen_payloads:
+            at += base
+            if payload is None or any(
+                    f == psdu and abs(at - p) < same_frame_span(psdu)
+                    for p, f in self._posted):
                 continue
-            self._seen_payloads.append(psdu)
+            self._posted.append((at, psdu))
             self.frames.append(payload)
             mio.post("rx", Pmt.blob(payload))
         keep = min(len(buf), self.OVERLAP)
         self._tail = buf[len(buf) - keep:].copy()
+        self._tail_abs = base + len(buf) - keep
+        # a finding in a later window lies at the tail's start at the earliest
+        self._posted = [(p, f) for p, f in self._posted
+                        if p >= self._tail_abs - same_frame_span(f)]
         self.input.consume(n)
         if self.input.finished() and self.input.available() == 0:
             io.finished = True

@@ -4,8 +4,12 @@ Re-design of the reference ZigBee example (``examples/zigbee/src/``: O-QPSK ``mo
 ``ClockRecoveryMm``, ``Demodulator``, ``Mac``): 4-bit symbols spread to 32-chip PN
 sequences, O-QPSK with half-sine shaping (MSK-equivalent), demodulated by quadrature
 discriminator → clock recovery → chip correlation. Frame-level and vectorized.
-The port's copy of ``futuresdr_tpu/models/zigbee/phy.py``, its arithmetic unchanged;
-the demodulators return the PSDUs in time order (:func:`_in_time_order`).
+The port's copy of ``futuresdr_tpu/models/zigbee/phy.py``, its arithmetic unchanged.
+Where it departs: the demodulators return the PSDUs in time order, where the
+reference returns its search's order (the sample phases, or the two
+Mueller-Müller starts, one after the other); and a PSDU equal to another is
+another frame where it lies apart from it (:func:`same_frame_span`), where the
+reference keeps one of equal PSDUs (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -14,8 +18,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["CHIP_SEQUENCES", "modulate_frame", "demodulate_stream", "mac_frame",
-           "mac_deframe", "crc16_802154", "SAMPLES_PER_CHIP"]
+__all__ = ["CHIP_SEQUENCES", "modulate_frame", "demodulate_stream", "demodulate_stream_at",
+           "same_frame_span", "mac_frame", "mac_deframe", "crc16_802154",
+           "SAMPLES_PER_CHIP"]
 
 SAMPLES_PER_CHIP = 4
 
@@ -207,8 +212,29 @@ def _freq_templates(sps_chip: int = SAMPLES_PER_CHIP) -> np.ndarray:
 _FREQ_TEMPLATES = _freq_templates()
 
 
+def same_frame_span(psdu: bytes, sps_chip: int = SAMPLES_PER_CHIP) -> int:
+    """Samples within which two findings of ``psdu`` are one frame: half its
+    burst (SHR, PHR and PSDU). Two transmissions of the same PSDU lie a whole
+    burst apart at least, while the sample phases and Mueller-Müller starts
+    of one search find a frame within a few chips of each other."""
+    return (10 + 2 + 2 * len(psdu)) * 32 * sps_chip // 2
+
+
+def _is_new(frames: List[Tuple[float, bytes]], at: float, psdu: bytes,
+            sps_chip: int = SAMPLES_PER_CHIP) -> bool:
+    """Whether ``psdu`` found at sample ``at`` is not a frame ``frames`` has.
+
+    Where the port departs from the reference: the reference drops a PSDU
+    equal to one found anywhere in the window, so a frame sent again (a MAC
+    retransmission carries the same bytes) that lands in the same window is
+    lost; here an equal PSDU counts as the same frame only near the same
+    place (ROADMAP Queue 3)."""
+    span = same_frame_span(psdu, sps_chip)
+    return all(psdu != f or abs(at - p) >= span for p, f in frames)
+
+
 def _scan_soft_chips(soft: np.ndarray, frames: List[Tuple[float, bytes]],
-                     at: np.ndarray) -> None:
+                     at: np.ndarray, sps_chip: int = SAMPLES_PER_CHIP) -> None:
     """Sliding SFD correlation + despread over one chip-rate soft stream;
     appends each new PSDU with the sample position of its SFD (``at``: each
     soft chip's sample position)."""
@@ -225,7 +251,7 @@ def _scan_soft_chips(soft: np.ndarray, frames: List[Tuple[float, bytes]],
             continue
         start = i + len(sfd_t)
         psdu = _despread_from(soft, start)
-        if psdu is not None and all(psdu != f for _, f in frames):
+        if psdu is not None and _is_new(frames, float(at[i]), psdu, sps_chip):
             frames.append((float(at[i]), psdu))
             next_free = start + 64
     return
@@ -243,6 +269,13 @@ def _shr_template(sps_chip: int = SAMPLES_PER_CHIP) -> np.ndarray:
 
 def demodulate_coherent(samples: np.ndarray,
                         sps_chip: int = SAMPLES_PER_CHIP) -> List[bytes]:
+    """The PSDUs of :func:`demodulate_coherent_at`, in the order of their
+    place in ``samples``."""
+    return [psdu for _, psdu in demodulate_coherent_at(samples, sps_chip)]
+
+
+def demodulate_coherent_at(samples: np.ndarray,
+                           sps_chip: int = SAMPLES_PER_CHIP) -> List[Tuple[float, bytes]]:
     """Coherent O-QPSK RX — beyond the reference's discriminator architecture.
 
     Burst-synchronized matched reception: complex cross-correlation against the
@@ -362,23 +395,20 @@ def demodulate_coherent(samples: np.ndarray,
             # advance past the burst even for a duplicate payload — otherwise
             # every above-threshold lag inside it re-refines and re-despreads
             next_free = (i + (10 + 2 + 2 * len(psdu)) * 32 * sps_chip) // 2
-            if all(psdu != f for _, f in frames):
+            if _is_new(frames, float(i), psdu, sps_chip):
                 frames.append((float(i), psdu))
-    return _in_time_order(frames)
-
-
-def _in_time_order(frames: List[Tuple[float, bytes]]) -> List[bytes]:
-    """The PSDUs found, ordered by the sample position of their finding.
-
-    Where the port departs from the reference: the reference returns them in
-    its search's order, the sample phases (or the two Mueller-Müller starts)
-    one after the other, so a frame that only a later phase or start finds
-    comes after later frames (ROADMAP Queue 3)."""
-    return [psdu for _, psdu in sorted(frames, key=lambda f: f[0])]
+    return sorted(frames, key=lambda f: f[0])
 
 
 def demodulate_stream(samples: np.ndarray, sps_chip: int = SAMPLES_PER_CHIP,
                       timing: str = "phase") -> List[bytes]:
+    """The PSDUs of :func:`demodulate_stream_at`, in the order of their place
+    in ``samples``."""
+    return [psdu for _, psdu in demodulate_stream_at(samples, sps_chip, timing)]
+
+
+def demodulate_stream_at(samples: np.ndarray, sps_chip: int = SAMPLES_PER_CHIP,
+                         timing: str = "phase") -> List[Tuple[float, bytes]]:
     """Full RX (`demodulator.rs` role): quadrature discriminator → chip timing →
     sliding frequency-template correlation for the SFD → despread PSDUs.
 
@@ -386,11 +416,14 @@ def demodulate_stream(samples: np.ndarray, sps_chip: int = SAMPLES_PER_CHIP,
     every integer sample phase at chip rate (sps small) and dedup; "mm" — the adaptive
     Mueller-Müller loop (`clock_recovery_mm.rs`), for drifting clocks; "coherent" —
     burst-synchronized coherent matched reception (:func:`demodulate_coherent`),
-    ~2-3 dB more sensitive than the discriminator paths. The PSDUs come in the
-    order of their place in ``samples``, whatever the mode.
+    ~2-3 dB more sensitive than the discriminator paths. Returns ``(sample
+    position, psdu)`` pairs in the order of their place in ``samples``,
+    whatever the mode: the SFD's position, or the burst's start in the
+    coherent mode. A PSDU equal to another counts as another frame where it
+    lies at least :func:`same_frame_span` samples away.
     """
     if timing == "coherent":
-        return demodulate_coherent(samples, sps_chip)
+        return demodulate_coherent_at(samples, sps_chip)
     if len(samples) < 64 * sps_chip:
         return []
     d = samples[1:] * np.conj(samples[:-1])
@@ -410,15 +443,15 @@ def demodulate_stream(samples: np.ndarray, sps_chip: int = SAMPLES_PER_CHIP,
         for mu0 in (0.5, 0.5 + sps_chip / 2.0):
             soft, at = _mm_clock_recovery(freq, sps_chip, mu0=mu0, energy=en,
                                           e_gate=gate)
-            _scan_soft_chips(np.sign(soft), frames, at)
-        return _in_time_order(frames)
+            _scan_soft_chips(np.sign(soft), frames, at, sps_chip)
+        return sorted(frames, key=lambda f: f[0])
     # phase search: chip-rate matched filter (boxcar over one chip) at each phase
     kernel = np.ones(sps_chip, dtype=np.float32) / sps_chip
     mf = np.convolve(freq, kernel, mode="valid")
     for phase in range(sps_chip):
         soft = np.sign(mf[phase::sps_chip])
-        _scan_soft_chips(soft, frames, np.arange(phase, len(mf), sps_chip))
-    return _in_time_order(frames)
+        _scan_soft_chips(soft, frames, np.arange(phase, len(mf), sps_chip), sps_chip)
+    return sorted(frames, key=lambda f: f[0])
 
 
 def _despread_from(soft: np.ndarray, start: int, tables: Optional[np.ndarray] = None,

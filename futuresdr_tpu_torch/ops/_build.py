@@ -8,10 +8,19 @@ or header never loads a stale library. Nothing
 builds at import: :func:`load` builds on first use, and :func:`build_all`
 starts one ``nvcc`` per source at once.
 
-The host flavour builds ``csrc/host/<name>.cpp`` (the double-mapped ring of
-``runtime/buffer/circular.py``) with ``g++`` into
-``build/host/lib<name>-<hash>.so`` and loads it with :class:`ctypes.PyDLL`,
-whose calls keep the interpreter lock: :func:`load_host`.
+The host flavour builds ``csrc/host/<name>.cpp`` with ``g++`` into
+``build/host/lib<name>-<hash>.so``: :func:`load_host`. Its flags are the
+source's own (:func:`host_flags`): the double-mapped ring and the Viterbi
+loop take ``-O2``; ``mm`` adds ``-ffp-contract=off``, since its contract is
+bit-equality with a Python loop that an FMA would break by an ulp; the
+native fast chain takes ``-O3 -march=native``, whose FIR tiles rely on
+auto-vectorization and on AVX-512 where the CPU has it, and keeps FMA
+contraction (its contract is float32 rounding). The hash covers the source,
+the headers ``csrc/host/*.h`` and the flags, and for ``-march=native`` the
+CPU's feature flags, so a library built on another CPU never loads. A
+library loads with :class:`ctypes.PyDLL`, whose calls keep the interpreter
+lock, or with :class:`ctypes.CDLL` (``gil=False``), whose calls release it
+(the fast chain runs a whole pipe in one call).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from pathlib import Path
 from typing import Dict, List
 
 __all__ = ["SOURCES", "build_all", "load", "load_host", "library_path",
-           "host_library_path"]
+           "host_library_path", "host_flags"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,10 +46,15 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_CSRC = CSRC / "host"
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+# the sources whose flags differ from HOST_FLAGS
+HOST_SOURCE_FLAGS = {
+    "mm": HOST_FLAGS + ("-ffp-contract=off",),
+    "fastchain": ("-std=c++17", "-O3", "-march=native", "-fPIC", "-shared"),
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_host_libs: Dict[str, ctypes.PyDLL] = {}
+_host_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -66,11 +80,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def host_flags(name: str) -> tuple:
+    """The ``g++`` flags of ``csrc/host/<name>.cpp``."""
+    return tuple(HOST_SOURCE_FLAGS.get(name, HOST_FLAGS))
+
+
+def _cpu_flags() -> bytes:
+    """This CPU's feature flags (the first ``flags`` line of
+    ``/proc/cpuinfo``; empty where there is none)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
 def host_library_path(name: str) -> Path:
-    """The library of ``csrc/host/<name>.cpp``, named by a hash of the source
-    and the flags."""
+    """The library of ``csrc/host/<name>.cpp``, named by a hash of the
+    source, the headers ``csrc/host/*.h``, the flags and, under
+    ``-march=native``, the CPU's feature flags."""
+    flags = host_flags(name)
     h = hashlib.sha1((HOST_CSRC / f"{name}.cpp").read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
+    for header in sorted(HOST_CSRC.glob("*.h")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    if "-march=native" in flags:
+        h.update(_cpu_flags())
     return HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -119,18 +157,20 @@ def build_all() -> List[Path]:
         return paths
 
 
-def load_host(name: str) -> ctypes.PyDLL:
+def load_host(name: str, gil: bool = True) -> ctypes.CDLL:
     """The loaded host library for ``csrc/host/<name>.cpp``, built with
-    ``g++`` (``CXX``) on first use. Raises with the compiler's output if the
-    build fails."""
+    ``g++`` (``CXX``) on first use with :func:`host_flags`. ``gil=False``
+    loads it with :class:`ctypes.CDLL`, whose calls release the interpreter
+    lock. Raises with the compiler's output if the build fails."""
+    key = (name, gil)
     with _lock:
-        lib = _host_libs.get(name)
+        lib = _host_libs.get(key)
         if lib is None:
             cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
             path = _finish(*_spawn(HOST_CSRC / f"{name}.cpp", host_library_path(name),
-                                   [cxx, *HOST_FLAGS]))
-            lib = ctypes.PyDLL(str(path))
-            _host_libs[name] = lib
+                                   [cxx, *host_flags(name)]))
+            lib = (ctypes.PyDLL if gil else ctypes.CDLL)(str(path))
+            _host_libs[key] = lib
         return lib
 
 

@@ -78,15 +78,20 @@ class BufferWriter(ABC):
 
 
 def negotiate_capacity(itemsize: int, min_items_constraints: Sequence[int],
-                       min_buffer_sizes: Sequence[int]) -> int:
-    """Capacity in items = max(the ``buffer_size`` byte budget, explicit byte
+                       min_buffer_sizes: Sequence[int],
+                       override_bytes: Optional[int] = None) -> int:
+    """Capacity in items = max(the byte budget (``override_bytes`` where
+    given, a port's preference, else config ``buffer_size``), explicit byte
     minimums, 2× the largest ``min_items`` so a full work window always
     fits), rounded up to a power of two and then to a multiple of the
     largest ``min_items``. The ring's slices stop at its wrap, so a reader
     that consumes whole windows of ``min_items`` always sees whole windows
     only when they tile the ring (the reference's default double-mapped
     buffer has no wrap to respect)."""
-    items = max(1, config().buffer_size // itemsize)
+    if override_bytes is not None and override_bytes <= 0:
+        raise ValueError(f"buffer size override must be positive, got {override_bytes}")
+    budget = override_bytes if override_bytes is not None else config().buffer_size
+    items = max(1, budget // itemsize)
     for b in min_buffer_sizes:
         if b:
             items = max(items, math.ceil(b / itemsize))
@@ -136,10 +141,12 @@ class StreamOutput:
 class StreamInput:
     """Input port facade declared by a block."""
 
-    def __init__(self, name: str, dtype, min_items: int = 1):
+    def __init__(self, name: str, dtype, min_items: int = 1,
+                 preferred_buffer_size: Optional[int] = None):
         self.name = name
         self.dtype = np.dtype(dtype) if dtype is not None else None
         self.min_items = min_items
+        self.preferred_buffer_size = preferred_buffer_size
         self.reader: Optional[BufferReader] = None
         self._finished = False        # StreamInputDone received (upstream writer done)
         self.items_consumed = 0       # metrics: items in

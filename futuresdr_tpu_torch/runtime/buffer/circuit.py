@@ -1,27 +1,30 @@
-"""In-place (circuit) ports: queues of device frames between frame-plane blocks.
+"""In-place (circuit) ports: queues of whole frames between blocks.
 
-A reduced copy of ``futuresdr_tpu/runtime/buffer/circuit.py``: what the
-device-frame plane (``tpu/frames.py``) needs, an output that pushes whole
-device frames (with their valid item count and frame-relative tags) into the
-queue of every connected input, and the inbox wake-ups both ways (a pushed
-frame wakes the consumer, a taken frame wakes the producer, whose in-flight
-gate reads :meth:`InplaceOutput.queue_depth`). The reference's host-frame
-``Circuit`` pool (mutating CPU blocks that return frames to their source) is
-ROADMAP Queue 1 item 4b part 2, the rest of the host plane (part 1, the
-telemetry plane, is ported).
+A copy of ``futuresdr_tpu/runtime/buffer/circuit.py`` (reference:
+``src/runtime/buffer/circuit.rs``). An output pushes whole frames (with their
+valid item count and frame-relative tags) into the queue of every connected
+input, and the inbox wake-ups go both ways (a pushed frame wakes the
+consumer, a taken frame wakes the producer, whose in-flight gate reads
+:meth:`InplaceOutput.queue_depth`). Two kinds of frame travel this way:
 
-A device frame crosses threads here: every frame-plane block is blocking and
-runs on a thread of its own, each thread issuing work on its current CUDA
-stream. :meth:`InplaceOutput.put_full` records a CUDA event on the
-producer's stream after the work that wrote the frame, and
-:meth:`InplaceInput.get_full` makes the reader's stream wait on it and
-records the frame on the reader's stream (``Tensor.record_stream``), so the
-caching allocator does not hand the frame's memory out again while the
-reader's work on it is still queued. CPU frames carry no event.
+* **Host frames**, numpy arrays out of a :class:`Circuit` pool: the source
+  pops an empty frame, fills it and pushes it; the blocks after it mutate it
+  in place and forward it; the last one returns it to the pool, which wakes
+  the source (``Flowgraph.close_circuit``), so no item is copied end to end.
+  A mutable frame has one reader: an output that would broadcast a writable
+  host frame raises.
+* **Device frames**, tensors of the device-frame plane (``tpu/frames.py``).
+  Every frame-plane block is blocking and runs on a thread of its own, each
+  thread issuing work on its current CUDA stream. :meth:`InplaceOutput.put_full`
+  records a CUDA event on the producer's stream after the work that wrote the
+  frame, and :meth:`InplaceInput.get_full` makes the reader's stream wait on
+  it and records the frame on the reader's stream (``Tensor.record_stream``),
+  so the caching allocator does not hand the frame's memory out again while
+  the reader's work on it is still queued. CPU frames carry no event. No
+  stage writes its input in place (``ops/stages.py``), so an output wired to
+  several inputs broadcasts the same device frame to every queue.
 
-An output wired to several inputs broadcasts: every queue receives the same
-frame object. No stage writes its input in place (``ops/stages.py``), so the
-branches may share it. Backpressure is the slowest consumer's.
+Backpressure is the slowest consumer's.
 """
 
 from __future__ import annotations
@@ -35,11 +38,40 @@ import torch
 
 from ..inbox import BlockInbox, StreamInputDone
 
-__all__ = ["InplaceOutput", "InplaceInput"]
+__all__ = ["Circuit", "InplaceOutput", "InplaceInput"]
+
+
+class Circuit:
+    """The pool of host frames of one circuit (``n_buffers`` frames of
+    ``items_per_buffer`` items): a source takes an empty frame with
+    :meth:`get_empty` and the last block returns it with :meth:`put_empty`,
+    which wakes the source."""
+
+    def __init__(self, n_buffers: int, items_per_buffer: int, dtype):
+        self.dtype = np.dtype(dtype)
+        self.items = items_per_buffer
+        self._lock = threading.Lock()
+        self._empty: Deque[np.ndarray] = deque(
+            np.zeros(items_per_buffer, self.dtype) for _ in range(n_buffers))
+        self._source_inbox: Optional[BlockInbox] = None
+
+    def attach_source(self, inbox: BlockInbox) -> None:
+        self._source_inbox = inbox
+
+    def get_empty(self) -> Optional[np.ndarray]:
+        with self._lock:
+            return self._empty.popleft() if self._empty else None
+
+    def put_empty(self, buf: np.ndarray) -> None:
+        """Return a frame to the pool (the closing edge of the circuit)."""
+        with self._lock:
+            self._empty.append(buf)
+        if self._source_inbox is not None:
+            self._source_inbox.notify()
 
 
 class InplaceOutput:
-    """Output port pushing full device frames to the connected input(s).
+    """Output port pushing full frames to the connected input(s).
     Duck-types enough of :class:`StreamOutput` to live in a kernel's port
     list (its metrics counters, ``connected``, ``notify_finished``)."""
 
@@ -61,10 +93,21 @@ class InplaceOutput:
         if not any(p is peer for p in self._peers):
             self._peers.append(peer)
 
-    def put_full(self, frame: torch.Tensor, n_items: int, tags: Sequence = ()) -> None:
+    def put_full(self, frame, n_items: int, tags: Sequence = ()) -> None:
         """Push ``frame`` (``n_items`` of it valid, ``tags`` indexed within
         it) to every connected input, with an event recorded after the
-        producer's work on it."""
+        producer's work on a device frame. A writable host frame has one
+        reader: broadcasting it raises."""
+        if isinstance(frame, np.ndarray):
+            if len(self._peers) > 1 and frame.flags.writeable:
+                raise RuntimeError(
+                    f"inplace output {self.name!r} broadcasts to {len(self._peers)} "
+                    f"consumers, but the frame is a writable host array: mutable "
+                    f"circuit frames must stay single-reader")
+            self.items_produced += int(n_items)
+            for p in self._peers:
+                p.push(frame, None, n_items, tags)
+            return
         ready = None
         if frame.is_cuda:
             ready = torch.cuda.Event()
@@ -85,7 +128,7 @@ class InplaceOutput:
 
 
 class InplaceInput:
-    """Input port receiving full device frames. Duck-types
+    """Input port receiving full frames. Duck-types
     :class:`StreamInput`'s event-loop surface (``reader``, ``finished``,
     ``set_finished``, ``notify_finished``)."""
 
@@ -127,16 +170,16 @@ class InplaceInput:
         """Wake the producing block when frames are taken."""
         self._producer_inbox = inbox
 
-    def push(self, frame: torch.Tensor, ready, n_items: int, tags: Sequence = ()) -> None:
+    def push(self, frame, ready, n_items: int, tags: Sequence = ()) -> None:
         with self._lock:
             self._q.append((frame, ready, int(n_items), tuple(tags)))
         if self._inbox is not None:
             self._inbox.notify()
 
-    def get_full(self) -> Optional[Tuple[torch.Tensor, int, tuple]]:
-        """The oldest frame as ``(frame, valid, tags)``, ordered after its
-        producer's work on the calling thread's current stream; None when
-        the queue is empty."""
+    def get_full(self) -> Optional[Tuple[object, int, tuple]]:
+        """The oldest frame as ``(frame, valid, tags)`` (a device frame
+        ordered after its producer's work on the calling thread's current
+        stream); None when the queue is empty."""
         with self._lock:
             item = self._q.popleft() if self._q else None
         if item is None:

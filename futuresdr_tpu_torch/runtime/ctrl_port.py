@@ -43,15 +43,27 @@ flowgraph id answers them (an unknown one is a 404, as in the reference);
 the fleet view starts with the first control port when config
 ``fleet_peers`` is set.
 
+Own routes (``Runtime(extra_routes=…)``, the reference's
+``Runtime::with_custom_routes``): ``(method, path, handler)`` tuples mounted
+after the routes above. A path segment ``{name}`` matches one segment and
+lands in ``request.match_info``. The handler, plain or ``async``, gets a
+:class:`Request` (``method``, ``path``, ``query``, ``body``,
+``match_info``, ``json()``) and returns a ``(status, body, content_type)``
+tuple, a ``dict`` or ``list`` (JSON, 200), a ``str`` (``text/html``, 200) or
+``bytes`` (200). It runs on the control port's event loop, from which
+``Runtime.start_async`` may launch another flowgraph.
+
 Not ported: the reference's GUI page.
 """
 
 from __future__ import annotations
 
 import asyncio
+import inspect
 import json
 import re
 import threading
+from dataclasses import dataclass, field
 from http import HTTPStatus
 from typing import Optional, Tuple
 from urllib.parse import parse_qsl
@@ -60,7 +72,7 @@ from ..config import config
 from ..log import logger
 from ..types import Pmt
 
-__all__ = ["ControlPort"]
+__all__ = ["ControlPort", "Request"]
 
 log = logger("ctrl_port")
 
@@ -116,12 +128,52 @@ def _text(status: int) -> Tuple[int, bytes, str]:
         "text/plain; charset=utf-8"
 
 
+@dataclass
+class Request:
+    """What an own route's handler gets: the request and the path's
+    ``{name}`` segments (``match_info``)."""
+
+    method: str
+    path: str
+    query: dict
+    body: bytes
+    match_info: dict = field(default_factory=dict)
+
+    def json(self):
+        return json.loads(self.body) if self.body else None
+
+
+def _route_pattern(path: str):
+    """``path``'s regex: ``{name}`` matches one segment, the rest literally."""
+    out, pos = "^", 0
+    for m in re.finditer(r"\{(\w+)\}", path):
+        out += re.escape(path[pos:m.start()]) + f"(?P<{m.group(1)}>[^/]+)"
+        pos = m.end()
+    return re.compile(out + re.escape(path[pos:]) + "$")
+
+
+def _own_response(got):
+    """An own route's return value as ``(status, body, content_type)``."""
+    if isinstance(got, tuple):
+        return got
+    if isinstance(got, (dict, list)):
+        return _json(got)
+    if isinstance(got, str):
+        return 200, got.encode(), "text/html; charset=utf-8"
+    if isinstance(got, (bytes, bytearray)):
+        return 200, bytes(got), "application/octet-stream"
+    raise TypeError(f"route handler returned {type(got).__name__}")
+
+
 class ControlPort:
     """The REST server over a :class:`~.runtime.RuntimeHandle`; ``bind`` is
-    ``host:port`` (default config ``ctrlport_bind``)."""
+    ``host:port`` (default config ``ctrlport_bind``); ``extra_routes`` are
+    ``(method, path, handler)`` tuples (see the module docstring)."""
 
-    def __init__(self, runtime_handle, bind: Optional[str] = None):
+    def __init__(self, runtime_handle, bind: Optional[str] = None, extra_routes=None):
         self.handle = runtime_handle
+        self.extra_routes = [(method.upper(), _route_pattern(path), handler)
+                             for method, path, handler in (extra_routes or ())]
         host, _, port = (bind or config().ctrlport_bind).rpartition(":")
         self.host = host or "127.0.0.1"
         self.port = int(port or 1337)
@@ -224,17 +276,23 @@ class ControlPort:
     async def _route(self, method: str, path: str, body: bytes, query: dict):
         from ..serve import api as serve_api
         allowed = False
-        table = [(ms, pat, getattr(self, name), True) for ms, pat, name in _ROUTES]
-        table += [(ms, pat, h, False) for ms, pat, h in serve_api.routes()]
-        for methods, pattern, handler, own in table:
+        table = [(ms, pat, getattr(self, name), "port") for ms, pat, name in _ROUTES]
+        table += [(ms, pat, h, "serve") for ms, pat, h in serve_api.routes()]
+        table += [((ms,), pat, h, "extra") for ms, pat, h in self.extra_routes]
+        for methods, pattern, handler, kind in table:
             m = pattern.match(path)
             if m is None:
                 continue
             if method not in methods:
                 allowed = True
                 continue
-            if own:                        # this port's routes read the query
+            if kind == "port":             # this port's routes read the query
                 return await handler(method, body, query, **m.groupdict())
+            if kind == "extra":
+                got = handler(Request(method, path, query, body, m.groupdict()))
+                if inspect.isawaitable(got):
+                    got = await got
+                return _own_response(got)
             return await handler(method, body, **m.groupdict())
         return _text(405 if allowed else 404)
 

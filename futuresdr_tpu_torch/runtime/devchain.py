@@ -68,8 +68,8 @@ kernel checkpoints its composed carry (``_dc_restartable``), and on a work
 error the drive loop recovers it from the checkpoint and replays its groups
 bit for bit, or, where no checkpoint serves, re-inits it, out of that
 member's restart budget; each attempt is reported under the member's name.
-The reference's native CPU ``fastchain`` pass is ROADMAP Queue 1 item 4b part
-2.
+The native CPU pass, ``fastchain.py``, runs before this one, as in the
+reference: a host stream block it fuses is not seen here.
 
 A ``ctrl`` retune addressed to a fused member (``handle.call(member,
 "ctrl", …)``) becomes carry surgery on the fused pipeline between

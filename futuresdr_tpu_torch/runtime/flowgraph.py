@@ -94,6 +94,7 @@ class Flowgraph:
         self.stream_edges: List[StreamEdge] = []
         self.message_edges: List[MessageEdge] = []
         self.inplace_edges: List[InplaceEdge] = []
+        self._circuits: List[tuple] = []      # (Circuit, source kernel)
         self._launched = False
 
     def add(self, kernel: Kernel) -> Kernel:
@@ -179,6 +180,12 @@ class Flowgraph:
             raise ConnectError(f"dtype mismatch on inplace edge {src_port}->{dst_port}")
         self.inplace_edges.append(InplaceEdge(src, src_port, dst, dst_port))
 
+    def close_circuit(self, circuit, source: Kernel) -> None:
+        """Close a host-frame circuit (``buffer/circuit.py`` :class:`Circuit`):
+        a frame returned to its pool wakes ``source``."""
+        self.add(source)
+        self._circuits.append((circuit, source))
+
     def connect_message(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str) -> None:
         """Wire message output ``src_port`` of ``src`` to handler ``dst_port``
         of ``dst``."""
@@ -202,9 +209,14 @@ class Flowgraph:
             dst_ports = [e.dst.stream_input(e.dst_port) for e in edges]
             dtype = op.dtype or next((p.dtype for p in dst_ports if p.dtype is not None),
                                      np.dtype(np.uint8))
+            # a port may prefer a byte budget (a real-time sink wants a short
+            # queue): the smallest preference wins
+            prefs = [p.preferred_buffer_size for p in dst_ports
+                     if getattr(p, "preferred_buffer_size", None)]
             cap = negotiate_capacity(dtype.itemsize,
                                      [op.min_items] + [p.min_items for p in dst_ports],
-                                     [op.min_buffer_size])
+                                     [op.min_buffer_size],
+                                     override_bytes=min(prefs) if prefs else None)
             overrides = {e.buffer for e in edges if e.buffer is not None}
             if len(overrides) > 1:
                 raise ConnectError(f"conflicting buffer overrides on broadcast output "
@@ -223,6 +235,8 @@ class Flowgraph:
             op.connect(ip)
             ip.bind(self.wrapped(e.dst).inbox, e.dst.stream_inputs.index(ip))
             ip.bind_producer(self.wrapped(e.src).inbox)
+        for circuit, source in self._circuits:
+            circuit.attach_source(self.wrapped(source).inbox)
         # message edges (the wrapped destination enables direct dispatch)
         for e in self.message_edges:
             dw = self.wrapped(e.dst)
@@ -239,9 +253,11 @@ class Flowgraph:
         return blocks
 
     def restore_blocks(self, blocks: List[WrappedKernel]) -> None:
-        """Put finished blocks back so final state is readable."""
+        """Put finished blocks back so final state is readable, and the
+        flowgraph may run again."""
         for b in blocks:
             self._blocks[b.id] = b
+        self._launched = False
 
     def describe(self, fg_id: int = 0) -> FlowgraphDescription:
         return FlowgraphDescription(

@@ -88,8 +88,12 @@ class Kernel:
         return None
 
     # -- port declaration ------------------------------------------------------
-    def add_stream_input(self, name: str, dtype, min_items: int = 1) -> StreamInput:
-        port = StreamInput(name, dtype, min_items)
+    def add_stream_input(self, name: str, dtype, min_items: int = 1,
+                         preferred_buffer_size: Optional[int] = None) -> StreamInput:
+        """``preferred_buffer_size``: the byte budget this port would like
+        for its buffer (a real-time sink wants a short queue); the smallest
+        preference of a buffer's ports replaces config ``buffer_size``."""
+        port = StreamInput(name, dtype, min_items, preferred_buffer_size)
         self._stream_inputs.append(port)
         return port
 

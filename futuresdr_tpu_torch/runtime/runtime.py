@@ -50,7 +50,7 @@ from .block import WrappedKernel
 from .flowgraph import Flowgraph
 from .inbox import BlockInbox, Call, Callback, Initialize, ReplySlot, Terminate
 from .kernel import Kernel
-from .scheduler import AsyncScheduler
+from .scheduler import AsyncScheduler, Scheduler
 
 __all__ = ["Runtime", "RuntimeHandle", "FlowgraphHandle", "RunningFlowgraph",
            "FlowgraphError", "FlowgraphCancelled", "InitializedMsg", "BlockDoneMsg",
@@ -198,21 +198,37 @@ def _topo_ranks(fg: Flowgraph, wk: Dict[int, WrappedKernel]) -> Dict[int, int]:
     return ranks
 
 
-async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
+async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: Scheduler,
                                    fg_inbox: BlockInbox,
                                    initialized: ReplySlot) -> Flowgraph:
-    """The per-flowgraph supervisor. Device-graph fusion runs first, on
-    every launch (``devchain.py``): each fusable device region is driven by
-    one fused block whose task answers the protocol for every member; the
-    other blocks run as actors."""
+    """The per-flowgraph supervisor. Two fusion passes run first, on every
+    launch, as in the reference: the native fast chain (``fastchain.py``),
+    whose C++ loop runs each fusable tree of host stream blocks, then
+    device-graph fusion (``devchain.py``), one fused block a device region.
+    Each fused task answers the protocol for every member; the other blocks
+    run as actors."""
     from ..telemetry.doctor import doctor as _doctor
     from .devchain import find_device_chains, run_devchain_task, shed_devchain_bridge
+    from .fastchain import find_native_chains, run_chain_task, shed_metrics_bridge
     t_sup = _trace.now()
-    dev_chains = find_device_chains(fg)
-    blocks = fg.take_blocks()
+    try:
+        native_chains = find_native_chains(fg)
+        dev_chains = find_device_chains(fg)
+        blocks = fg.take_blocks()
+    except Exception as e:
+        # a fast chain whose library does not build, or a flowgraph already
+        # running: the launch fails with it instead of waiting on a barrier
+        # no block will reach
+        initialized.set(e)
+        raise
     by_id = {b.id: b for b in blocks}
     wk = {id(b.kernel): b for b in blocks}
     fused: set = set()
+    chain_tasks = []
+    for ch in native_chains:
+        members = [wk[id(k)] for k in ch]
+        fused.update(id(b) for b in members)
+        chain_tasks.append((members, ch.in_ring))
     dev_tasks = []
     for ch in dev_chains:
         members = [wk[id(k)] for k in ch]
@@ -221,8 +237,12 @@ async def run_flowgraph_supervisor(fg: Flowgraph, scheduler: AsyncScheduler,
     actor_blocks = [b for b in blocks if id(b) not in fused]
     for b in actor_blocks:
         # a kernel fused in an earlier run reports its own metrics again
+        shed_metrics_bridge(b.kernel)
         shed_devchain_bridge(b.kernel)
     handles = scheduler.run_flowgraph_blocks(actor_blocks, fg_inbox)
+    for members, inr in chain_tasks:
+        handles.append(scheduler.spawn(run_chain_task(members, fg_inbox, scheduler,
+                                                      in_ring=inr)))
     for members, ch in dev_tasks:
         handles.append(scheduler.spawn(run_devchain_task(members, ch, fg_inbox,
                                                          scheduler)))
@@ -456,7 +476,7 @@ class FlowgraphHandle:
     """Control handle of a running flowgraph. The async methods run on any
     event loop; the ``*_sync`` variants bridge from plain threads."""
 
-    def __init__(self, fg: Flowgraph, fg_inbox: BlockInbox, scheduler: AsyncScheduler):
+    def __init__(self, fg: Flowgraph, fg_inbox: BlockInbox, scheduler: Scheduler):
         self._fg = fg
         self._inbox = fg_inbox
         self._scheduler = scheduler
@@ -529,7 +549,7 @@ class FlowgraphHandle:
 class RunningFlowgraph:
     """A launched flowgraph: its ``handle`` and its completion."""
 
-    def __init__(self, handle: FlowgraphHandle, task, scheduler: AsyncScheduler):
+    def __init__(self, handle: FlowgraphHandle, task, scheduler: Scheduler):
         self.handle = handle
         self._task = task
         self._scheduler = scheduler
@@ -600,7 +620,7 @@ class RunningFlowgraph:
 class RuntimeHandle:
     """The registry of running flowgraphs that the control port serves."""
 
-    def __init__(self, scheduler: AsyncScheduler):
+    def __init__(self, scheduler: Scheduler):
         self.scheduler = scheduler
         self._flowgraphs: Dict[int, FlowgraphHandle] = {}
         self._next_id = 0
@@ -637,8 +657,19 @@ class Runtime:
     """Owns the scheduler, the registry of running flowgraphs and, with
     config ``ctrlport_enable``, the REST control port (``ctrl_port``)."""
 
-    def __init__(self, scheduler: Optional[AsyncScheduler] = None):
-        self.scheduler = scheduler or AsyncScheduler()
+    def __init__(self, scheduler: Optional[Scheduler] = None, extra_routes=None):
+        """``scheduler``: any :class:`~.scheduler.Scheduler` (default: config
+        ``default_scheduler``, ``"async"`` or ``"threaded"``).
+        ``extra_routes``: ``[(method, path, async handler), …]`` mounted on the
+        control port beside its own routes (``ctrl_port.py``), the reference's
+        ``Runtime::with_custom_routes``; ignored when the control port is off."""
+        if scheduler is None:
+            if config().default_scheduler == "threaded":
+                from .scheduler import ThreadedScheduler
+                scheduler = ThreadedScheduler()
+            else:
+                scheduler = AsyncScheduler()
+        self.scheduler = scheduler
         self.handle = RuntimeHandle(self.scheduler)
         if config().doctor:
             # FUTURESDR_TPU_DOCTOR=1: the stall watchdog runs for the life of
@@ -648,7 +679,7 @@ class Runtime:
         self.ctrl_port = None
         if config().ctrlport_enable:
             from .ctrl_port import ControlPort
-            self.ctrl_port = ControlPort(self.handle)
+            self.ctrl_port = ControlPort(self.handle, extra_routes=extra_routes)
             self.ctrl_port.start()
 
     async def _start_on_scheduler(self, fg: Flowgraph) -> RunningFlowgraph:

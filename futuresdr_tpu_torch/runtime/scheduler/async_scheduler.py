@@ -22,13 +22,15 @@ from typing import Awaitable, List, Optional
 
 import torch
 
+from .base import Scheduler
+
 __all__ = ["AsyncScheduler"]
 
 
 def _finalize_loop_on_drop(owner, loop, pool) -> None:
-    """Stop ``loop`` and shut ``pool`` when ``owner`` is garbage-collected,
-    so a dropped ``Runtime().run(fg)`` releases its loop thread at once;
-    ``shutdown()`` stays the graceful path."""
+    """Stop ``loop`` and shut ``pool`` (None: no pool) when ``owner`` is
+    garbage-collected, so a dropped ``Runtime().run(fg)`` releases its loop
+    thread at once; ``shutdown()`` stays the graceful path."""
 
     def stop(l=loop, p=pool):
         try:
@@ -36,12 +38,13 @@ def _finalize_loop_on_drop(owner, loop, pool) -> None:
                 l.call_soon_threadsafe(l.stop)
         except RuntimeError:
             pass                       # already stopping/closed
-        p.shutdown(wait=False, cancel_futures=True)
+        if p is not None:
+            p.shutdown(wait=False, cancel_futures=True)
 
     weakref.finalize(owner, stop)
 
 
-class AsyncScheduler:
+class AsyncScheduler(Scheduler):
     def __init__(self, blocking_workers: int = 32):
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._loop_thread: Optional[threading.Thread] = None

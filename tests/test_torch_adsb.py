@@ -451,16 +451,17 @@ def test_receiver_decodes_each_frame_once_however_the_stream_is_cut(seed):
 def test_adsb_rx_app_main():
     """``apps/adsb_rx.py``'s ``main()`` with no arguments, as
     ``tests/test_examples.py`` runs the reference's: six frames decoded (the
-    foreign DF5 gated), KLM1023 named, exit 0; ``--file`` refuses with a
-    clear error until ``blocks/io.FileSource`` is ported."""
+    foreign DF5 gated), KLM1023 named, exit 0; ``--file`` on a missing file
+    refuses with a usage error naming it (``--file`` on a capture is
+    ``tests/test_torch_hostplane_apps.py``'s)."""
     res = subprocess.run([sys.executable, "-m", "futuresdr_tpu_torch.apps.adsb_rx"],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "decoded 6 frames" in res.stdout and "callsign=KLM1023" in res.stdout
     res = subprocess.run([sys.executable, "-m", "futuresdr_tpu_torch.apps.adsb_rx",
-                          "--file", "capture.f32"], cwd=REPO, capture_output=True,
+                          "--file", "no_such_capture.f32"], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
-    assert res.returncode == 2 and "FileSource" in res.stderr
+    assert res.returncode == 2 and "no_such_capture.f32: no such file" in res.stderr
 
 
 def test_adsb_rx_app_run_tracks_the_published_aircraft():

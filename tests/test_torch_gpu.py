@@ -2028,3 +2028,73 @@ def test_m17_loopback_decodes_on_the_card_machine(cuda_device):
     metas, lsfs, transmissions, _ = run(payload=payload)
     assert [f.meta for f in lsfs] == metas + [bytes(14)]
     assert [p for _, p in transmissions] == [payload]
+
+
+def _host_fir_cascade(x, taps, stages):
+    for _ in range(stages):
+        x = np.convolve(x, taps)[:len(x)].astype(np.float32)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["threaded", "async"])
+def test_grid_tpu_form_on_card_equals_the_host_cascade(cuda_device, sched):
+    """``perf/fir.py``'s ``--tpu`` form: two pipes, each six ``fir_stage(impl=
+    "pallas")`` stages in one ``TpuKernel`` at frame 2^18 on the f32 wire,
+    under the scheduler: the ``fir`` kernel launches, and each pipe's output
+    is within 1e-5 of peak of the host ``Fir`` cascade."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime, ThreadedScheduler, AsyncScheduler
+    from futuresdr_tpu_torch.blocks import VectorSink, VectorSource
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import fir_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    x = np.random.default_rng(34).standard_normal((2, 3 << 18)).astype(np.float32)
+    fg = Flowgraph()
+    sinks = []
+    for p in range(2):
+        blk = TpuKernel([fir_stage(taps, name=f"fir{i}", impl="pallas") for i in range(6)],
+                        np.float32, frame_size=1 << 18, inst=TpuInstance(cuda_device),
+                        wire="f32")
+        snk = VectorSink(np.float32)
+        fg.connect(VectorSource(x[p]), blk, snk)
+        sinks.append(snk)
+    before = ck.launches["fir"]
+    rt = Runtime(ThreadedScheduler() if sched == "threaded" else AsyncScheduler())
+    rt.run(fg)
+    rt.shutdown()
+    torch.cuda.synchronize()
+    assert ck.launches["fir"] > before
+    for p, snk in enumerate(sinks):
+        want = _host_fir_cascade(x[p], taps, 6)
+        got = snk.items()
+        assert len(got) == len(want)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.gpu
+def test_file_through_the_card_equals_the_vector_run(cuda_device, tmp_path):
+    """``FileSource -> TpuKernel(fir_fft_stage, mag2_stage) -> FileSink`` on a
+    2^20-sample complex64 file writes the same bytes as the run from a
+    ``VectorSource``, with ``fir_fft`` launched."""
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.blocks import FileSink, FileSource, VectorSource
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops.stages import fir_fft_stage, mag2_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    taps = firdes.lowpass(0.2, 64).astype(np.float32)
+    x = _c64(np.random.default_rng(35), 1 << 20)
+    x.tofile(tmp_path / "in.cf32")
+    before = ck.launches["fir_fft"]
+    for kind in ("file", "vector"):
+        fg = Flowgraph()
+        src = FileSource(str(tmp_path / "in.cf32"), np.complex64) if kind == "file" \
+            else VectorSource(x)
+        blk = TpuKernel([fir_fft_stage(taps, 2048), mag2_stage()], np.complex64,
+                        frame_size=1 << 18, inst=TpuInstance(cuda_device), wire="f32")
+        fg.connect(src, blk, FileSink(str(tmp_path / f"{kind}.f32"), np.float32))
+        Runtime().run(fg)
+    torch.cuda.synchronize()
+    assert ck.launches["fir_fft"] > before
+    a, b = (tmp_path / "file.f32").read_bytes(), (tmp_path / "vector.f32").read_bytes()
+    assert len(a) == 4 << 20 and a == b

@@ -487,3 +487,35 @@ def test_the_remaining_models_and_their_apps_load_alone():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_host_plane_loads_alone():
+    """The host plane this slice ports is walked; loading it all, running a
+    fused grid pipe natively and a flowgraph under the threaded scheduler,
+    loads neither JAX nor the JAX package, nor ``sounddevice`` (imported only
+    when a soundcard stream opens)."""
+    new = {f"futuresdr_tpu_torch.{m}" for m in (
+        "dsp.fxpt", "dsp.remez", "blocks.io", "blocks.audio", "runtime.dev",
+        "runtime.fastchain", "runtime.scheduler.base", "runtime.scheduler.threaded",
+        "apps.keyfob_rx", "apps.ssb_rx", "apps.file_trx", "apps.custom_routes")}
+    assert new <= set(_submodules())
+    code = ("import importlib, sys\n"
+            "import numpy as np\n"
+            f"for m in {sorted(new)!r}: importlib.import_module(m)\n"
+            "from futuresdr_tpu_torch import Flowgraph, Runtime, ThreadedScheduler\n"
+            "from futuresdr_tpu_torch.blocks import CopyRand, Fir, Head, NullSink, NullSource\n"
+            "from futuresdr_tpu_torch.runtime.fastchain import find_native_chains\n"
+            "taps = np.ones(64, np.float32) / 64\n"
+            "for sched in (None, ThreadedScheduler(2)):\n"
+            "    fg = Flowgraph(); snk = NullSink(np.float32)\n"
+            "    fg.connect(NullSource(np.float32), Head(np.float32, 50_000),\n"
+            "               CopyRand(np.float32, 4096), Fir(taps), snk)\n"
+            "    assert len(find_native_chains(fg)) == 1\n"
+            "    Runtime(sched).run(fg); assert snk.n_received == 50_000\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'futuresdr_tpu', 'sounddevice')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
