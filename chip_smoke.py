@@ -369,12 +369,41 @@ that wait for them):
     on a 2^22-sample complex64 file: the output file bit-equal to the same
     run's from a ``VectorSource``.
 
+The network edges (``hw/rtl_tcp.py``, ``ctrl/remote.py``, the GUI routes of
+``runtime/ctrl_port.py``, ``blocks/zeromq.py``), each feeding or steering a
+path on the card:
+
+35. (a) an rtl_tcp server in this process (the 12-byte greeting, the
+    commands recorded, then u8 I/Q of an FM station at 100.1 MHz, a 1 kHz
+    tone at 75 kHz deviation, as the commanded frequency and rate see it,
+    in 4 frames of 512,000 samples, then the close) feeding
+    ``SeifySource(driver=rtl_tcp, freq=100 MHz) -> TpuKernel(the FM kernel
+    chain: rotator, poly_fir twice, quad_demod) -> VectorSink``: the
+    flowgraph finishes at the close, the commands are the reference
+    driver's bytes for rate, frequency and gain, the audio is within
+    phase 10's tolerance of the plain-op chain over the same bytes, and its
+    tone is at 1 kHz; then ``fm_receiver --args driver=rtl_tcp,... --freq
+    100.1e6 --wav`` as a subprocess exits 0 with the tone in its WAV;
+    (b) ``Gated source -> TpuKernel(the fused spectrum chain, fir_fft) ->
+    VectorSink`` streaming behind a control port bound to port 0: ``GET /``
+    and ``GET /static/widgets.js`` byte-equal to ``futuresdr_tpu_torch/gui``,
+    the port's ``Remote`` lists the flowgraph, reads its blocks and
+    ``connections()`` and swaps the taps with ``callback("ctrl", ...)``,
+    answered ``Ok``; the output equals the resident chain with the swap at
+    the frame the kernel reports, and the client's round trip is printed;
+    (c) ``tests/test_distributed_wlan.py``'s flowgraph on the port:
+    ``WlanEncoder -> Throttle -> PubSink`` in one runtime, ``SubSource ->
+    noise -> WlanDecoder`` on the card in another, every payload decoded
+    with its FCS checked and the ``viterbi`` kernel's launches counted (a
+    machine without pyzmq prints one line that (c) did not run).
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
 ``python3 chip_smoke.py --models`` only phase 29, ``python3
 chip_smoke.py --sharded`` only phase 30, ``python3 chip_smoke.py
 --telemetry`` only phase 31, ``python3 chip_smoke.py --multihost`` only
-phase 32, ``python3 chip_smoke.py --protocols`` only phase 33, and ``python3
-chip_smoke.py --hostplane`` only phase 34.
+phase 32, ``python3 chip_smoke.py --protocols`` only phase 33, ``python3
+chip_smoke.py --hostplane`` only phase 34, and ``python3 chip_smoke.py
+--edges`` only phase 35.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -7085,6 +7114,373 @@ def phase_hostplane(dev, card_line, actor_runs: int = 1) -> dict:
     return {"launches": launches, "grid": grid, "tpu": tpu}
 
 
+# ---- phase 35: the network edges -------------------------------------------------
+
+EDGE_STATION = 100.1e6           # the fake radio's FM station
+EDGE_TUNE = EDGE_STATION - FM_OFFSET   # (a)'s tuning: the station FM_OFFSET above it
+EDGE_GAIN = 28.0
+EDGE_FRAMES = 4                  # FM_FRAMES[0]-sample frames the fake radio sends
+EDGE_AMP = 0.9                   # the station's amplitude in the u8 full scale
+#: the reference driver's commands for rate, frequency and manual gain
+#: (``futuresdr_tpu/hw/rtl_tcp.py`` ``activate_rx``)
+EDGE_COMMANDS = [(0x02, int(FM_RATE)), (0x01, int(EDGE_TUNE)), (0x03, 1),
+                 (0x04, int(round(EDGE_GAIN * 10)))]
+EDGE_TONE_TOL = 20.0             # Hz, the tone's spectral peak (phase 10's WAV check)
+EDGE_SPEC_FRAMES = 16            # (b)'s frames of the fused spectrum chain
+EDGE_GATE = 6                    # (b)'s frames streamed before the retune
+EDGE_WLAN_PAYLOADS = 6
+EDGE_WLAN_S = 30.0               # tests/test_distributed_wlan.py's deadline
+
+
+class FakeRtlTcp:
+    """An rtl_tcp server on a free port of this host: the 12-byte greeting,
+    the client's 5-byte commands recorded until the rate, the frequency and
+    a gain (or AGC) arrived, then u8 I/Q of an FM station at
+    ``EDGE_STATION`` as the commanded frequency and rate see it (``fm_iq``
+    at the difference), ``n_frames`` frames of ``FM_FRAMES[0]`` samples, then
+    the close. ``sent`` holds the I/Q bytes."""
+
+    def __init__(self, n_frames: int):
+        import socket
+        import threading
+        self.n_frames = n_frames
+        self.commands = []
+        self.sent = b""
+        self.error = None
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="fake-rtl_tcp", daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import struct
+
+        import torch
+        try:
+            self.sock.settimeout(120)
+            conn, _ = self.sock.accept()
+            with conn:
+                conn.settimeout(30)
+                conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+                while not ({0x01, 0x02} <= {c for c, _ in self.commands}
+                           and {0x04, 0x08} & {c for c, _ in self.commands}):
+                    pkt = b""
+                    while len(pkt) < 5:
+                        chunk = conn.recv(5 - len(pkt))
+                        if not chunk:
+                            raise ConnectionError("client closed before it tuned")
+                        pkt += chunk
+                    self.commands.append(struct.unpack(">BI", pkt))
+                cmd = dict(self.commands)
+                check(cmd[0x02] == FM_RATE, f"fake rtl_tcp: rate {cmd[0x02]}, not {FM_RATE}")
+                x = fm_iq(self.n_frames * FM_FRAMES[0], torch.device("cpu"),
+                          offset=EDGE_STATION - cmd[0x01]).numpy()
+                iq = np.empty(2 * len(x), np.float64)
+                iq[0::2], iq[1::2] = x.real, x.imag
+                self.sent = np.clip(np.rint(iq * (EDGE_AMP * 127.5) + 127.5), 0, 255) \
+                    .astype(np.uint8).tobytes()
+                step = 2 * FM_FRAMES[0]
+                for i in range(0, len(self.sent), step):
+                    conn.sendall(self.sent[i:i + step])
+        except Exception as e:                 # noqa: BLE001 — reported by the phase
+            self.error = e
+        finally:
+            self.sock.close()
+            self.done.set()
+
+
+def _u8_to_c64(raw: bytes) -> np.ndarray:
+    u = (np.frombuffer(raw, np.uint8).astype(np.float32) - 127.5) / 127.5
+    return (u[0::2] + 1j * u[1::2]).astype(np.complex64)
+
+
+def _tone_hz(pcm: np.ndarray, rate: float) -> float:
+    pcm = pcm[len(pcm) // 4:]                    # skip the transient
+    spec = np.abs(np.fft.rfft(pcm * np.hanning(len(pcm))))
+    return float(np.fft.rfftfreq(len(pcm), 1.0 / rate)[np.argmax(spec[5:]) + 5])
+
+
+def phase_edges_rtl_tcp(dev, card_line) -> dict:
+    """35 (a): the rtl_tcp radio into the FM kernel chain on the card, then
+    the FM app's ``main()`` on it as a subprocess."""
+    import os
+    import wave
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Runtime
+    from futuresdr_tpu_torch.apps.fm_receiver import AUDIO_RATE
+    from futuresdr_tpu_torch.blocks import SeifySource, VectorSink
+    from futuresdr_tpu_torch.hw.rtl_tcp import RtlTcpDriver
+    from futuresdr_tpu_torch.ops import _build
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    frame = FM_FRAMES[0]
+    server = FakeRtlTcp(EDGE_FRAMES)
+    src = SeifySource(f"driver=rtl_tcp,host=127.0.0.1,port={server.port},"
+                      f"rate={FM_RATE:g},freq={EDGE_TUNE:.0f},gain={EDGE_GAIN:g}")
+    check(isinstance(src.device.driver, RtlTcpDriver), "rtl_tcp: not the rtl_tcp driver")
+    vsnk = VectorSink(np.float32)
+    fg = Flowgraph()
+    fg.connect(src, _fm_kernel_block("kernel", frame, dev), vsnk)
+    t0 = time.perf_counter()
+    Runtime().run(fg, timeout=120)           # returns once the close reached the sink
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: ck.launches[k] for k in FM_KERNELS}    # the drive's, not the checks'
+    server.thread.join(timeout=30)
+    check(server.error is None, f"rtl_tcp: the fake server failed: {server.error!r}")
+    check(server.commands == EDGE_COMMANDS, f"rtl_tcp: the server received "
+          f"{server.commands}, want the reference driver's {EDGE_COMMANDS}")
+    n = EDGE_FRAMES * frame
+    check(len(server.sent) == 2 * n, f"rtl_tcp: {len(server.sent)} bytes sent")
+    x = torch.from_numpy(_u8_to_c64(server.sent)).to(dev)
+    ref = run_fm("plain", list(x.split(frame)), dev).cpu()
+    got = torch.from_numpy(vsnk.items())
+    check(got.shape == ref.shape, f"rtl_tcp: {tuple(got.shape)} audio samples, want "
+                                  f"{tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), "rtl_tcp: non-finite audio")
+    err = max_abs(got, ref)
+    tone = _tone_hz(got.numpy().astype(np.float64), AUDIO_RATE)
+    print(f"phase 35 (a) rtl_tcp -> SeifySource -> TpuKernel(rotator, poly_fir x2, "
+          f"quad_demod) -> VectorSink: {n} samples in {EDGE_FRAMES} frames of {frame}, "
+          f"finished at the server's close in {run_s:.3f} s; commands {server.commands}; "
+          f"vs plain-op chain over the same bytes {err:.3e} (tol {FM_PLAIN_TOL:g}); tone "
+          f"{tone:.1f} Hz [{card_line}]")
+    check(err <= FM_PLAIN_TOL, f"rtl_tcp: the kernel chain differs from the plain-op "
+                               f"chain by {err:.3e}")
+    check(abs(tone - 1000.0) < EDGE_TONE_TOL, f"rtl_tcp: tone at {tone:.1f} Hz")
+
+    # the app as a user starts it, tuned to the station itself
+    wav = _build.BUILD_DIR.parent / "fm_rtl_tcp.wav"
+    server = FakeRtlTcp(EDGE_FRAMES)
+    cmd = [sys.executable, "-m", "futuresdr_tpu_torch.apps.fm_receiver", "--args",
+           f"driver=rtl_tcp,host=127.0.0.1,port={server.port}", "--freq",
+           f"{EDGE_STATION:.0f}", "--rate", f"{FM_RATE:g}", "--wav", str(wav)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    try:
+        check(server.done.wait(MAIN_TIMEOUT_S), "rtl_tcp app: the server was not read")
+        # the close ends the stream: wait for the WAV to stop growing, then quit
+        size, still = -1, 0
+        deadline = time.monotonic() + MAIN_TIMEOUT_S
+        while still < 10:
+            check(proc.poll() is None, f"rtl_tcp app exited early ({proc.returncode})")
+            check(time.monotonic() < deadline, "rtl_tcp app: the WAV kept growing")
+            now = wav.stat().st_size if wav.exists() else 0
+            still = still + 1 if now == size and now > 44 else 0
+            size = now
+            time.sleep(0.1)
+        out, _ = proc.communicate("q\n", timeout=MAIN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    app_s = time.perf_counter() - t0
+    check(server.error is None, f"rtl_tcp app: the fake server failed: {server.error!r}")
+    check(proc.returncode == 0, f"rtl_tcp app: exit {proc.returncode}:\n{out[-4000:]}")
+    with wave.open(str(wav), "rb") as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.float64)
+    wav.unlink()
+    app_tone = _tone_hz(pcm, AUDIO_RATE)
+    print(f"phase 35 (a) fm_receiver --args driver=rtl_tcp,... --freq {EDGE_STATION:.0f}: "
+          f"exit 0 after {app_s:.1f} s, commands {server.commands}, WAV {len(pcm)} "
+          f"samples, tone {app_tone:.1f} Hz [{card_line}]")
+    check(abs(app_tone - 1000.0) < EDGE_TONE_TOL, f"rtl_tcp app: tone at {app_tone:.1f} Hz")
+    return {"run_s": run_s, "app_s": app_s, "err": err, "launches": launches}
+
+
+def phase_edges_remote(dev, card_line) -> dict:
+    """35 (b): the GUI and the port's ``Remote`` on a streamed ``TpuKernel``
+    of the fused spectrum chain; the taps swapped by ``callback("ctrl")``."""
+    import asyncio
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Pmt, Runtime
+    from futuresdr_tpu_torch.blocks import VectorSink
+    from futuresdr_tpu_torch.ctrl import Remote
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort
+    taps = firdes.lowpass(0.2, N_TAPS).astype(np.float32)
+    taps2 = firdes.lowpass(0.05, N_TAPS).astype(np.float32)
+    frame = FRAMES[0]
+    rng = np.random.default_rng(SEED + 35)
+    host = (rng.standard_normal(EDGE_SPEC_FRAMES * frame)
+            + 1j * rng.standard_normal(EDGE_SPEC_FRAMES * frame)).astype(np.complex64)
+    gate = threading.Event()
+    kern = _stream_kernel("fused", taps, frame, dev)
+    landed = []
+    apply_retune = kern.apply_retune
+
+    def recording(stage, **params):
+        landed.append(apply_retune(stage, **params))
+        return landed[-1]
+
+    kern.apply_retune = recording            # the ctrl handler's entry
+    vsnk = VectorSink(np.float32)
+    fg = Flowgraph()
+    fg.connect(_gated_source(host, [(EDGE_GATE * frame, gate)]), kern, vsnk)
+    rt = Runtime()
+    cp = ControlPort(rt.handle, bind="127.0.0.1:0")
+    cp.start()
+    running = rt.start(fg)
+    gui = Path(__file__).resolve().parent / "futuresdr_tpu_torch" / "gui"
+    finished = False
+    try:
+        deadline = time.monotonic() + 60
+        while kern.frames_dispatched < EDGE_GATE:
+            check(time.monotonic() < deadline, "remote: the stream did not start")
+            time.sleep(0.001)
+        for path, name in (("/", "index.html"), ("/static/widgets.js", "widgets.js")):
+            with urllib.request.urlopen(cp.url + path, timeout=30) as r:
+                body = r.read()
+            check(body == (gui / name).read_bytes(), f"remote: GET {path} is not {name}")
+
+        async def client():
+            remote = Remote(cp.url)
+            fgs = await remote.flowgraphs()
+            check([f.id for f in fgs] == [0], f"remote: flowgraphs {fgs}")
+            blocks = await fgs[0].blocks()
+            conns = await fgs[0].connections()
+            blk = await fgs[0].block(1)
+            check("ctrl" in blk.handlers(), f"remote: handlers {blk.handlers()}")
+            t0 = time.perf_counter()
+            reply = await blk.callback("ctrl", Pmt.map({"stage": 0, "taps": taps2}))
+            return blocks, conns, reply, time.perf_counter() - t0
+
+        blocks, conns, reply, rtt = asyncio.run(client())
+        gate.set()
+        running.wait_sync()
+        finished = True
+        torch.cuda.synchronize()
+        launches = {"fir_fft": ck.launches["fir_fft"]}     # the drive's, not the check's
+    finally:
+        gate.set()
+        if not finished:
+            running.stop_sync()
+        cp.stop()
+        rt.shutdown()
+    names = [b.type_name for b in blocks]
+    edges = [(c.kind, c.src.id, c.dst.id) for c in conns]
+    check(names == ["Gated", "TpuKernel", "VectorSink"], f"remote: blocks {names}")
+    check(edges == [("stream", 0, 1), ("stream", 1, 2)], f"remote: connections {edges}")
+    check(reply == Pmt.ok(), f"remote: the ctrl callback answered {reply!r}")
+    check(landed == [EDGE_GATE], f"remote: the swap landed at frame {landed}, not at "
+                                 f"the gate's {EDGE_GATE}")
+    pipe = Pipeline(chain_stages("fused", taps), np.complex64)
+    fn, carry = pipe.fn(), pipe.init_carry(dev)
+    outs = []
+    for i in range(EDGE_SPEC_FRAMES):
+        if i == landed[0]:
+            carry = pipe.update_stage(carry, 0, taps=taps2)
+        carry, y = fn(carry, torch.from_numpy(host[i * frame:(i + 1) * frame]).to(dev))
+        outs.append(y)
+    _, rel = rel_err(torch.from_numpy(vsnk.items()), torch.cat(outs))
+    print(f"phase 35 (b) GET / and /static/widgets.js byte-equal to the port's GUI files; "
+          f"Remote: blocks {names}, connections {edges}, ctrl callback {reply!r}, round "
+          f"trip {rtt * 1e3:.3f} ms; taps swapped at frame {landed[0]} of "
+          f"{EDGE_SPEC_FRAMES}, vs resident chain with the same swap {rel:.3e} of peak "
+          f"(tol {CHAIN_TOL:g}) [{card_line}]")
+    check(rel <= CHAIN_TOL, f"remote: differs from the resident chain by {rel:.3e}")
+    return {"rtt_ms": rtt * 1e3, "launches": launches}
+
+
+def phase_edges_zmq(dev, card_line) -> dict:
+    """35 (c): WLAN across two runtimes over ZeroMQ, decoded on the card;
+    returns the ``viterbi`` kernel's launches (None where pyzmq is missing)."""
+    import socket
+
+    import torch
+
+    from futuresdr_tpu_torch import Flowgraph, Pmt, Runtime
+    from futuresdr_tpu_torch.blocks import Apply, PubSink, SubSource, Throttle
+    from futuresdr_tpu_torch.models.wlan import WlanDecoder, WlanEncoder
+    from futuresdr_tpu_torch.ops import viterbi as V
+    try:
+        import zmq
+    except ImportError as e:
+        print(f"phase 35 (c) did not run: pyzmq is not installed ({e})")
+        return {"launches": None}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    rng = np.random.default_rng(SEED + 36)
+    fg_rx = Flowgraph()
+    chan = Apply(lambda x: (x + 0.01 * (rng.standard_normal(len(x))
+                                        + 1j * rng.standard_normal(len(x)))
+                            ).astype(np.complex64), np.complex64)
+    dec = WlanDecoder(chunk=1 << 14, device=dev)
+    fg_rx.connect(SubSource(addr, np.complex64), chan, dec)
+    fg_tx = Flowgraph()
+    enc = WlanEncoder("qpsk_1_2", gap_samples=2000)
+    fg_tx.connect(enc, Throttle(np.complex64, rate=3e5), PubSink(addr, np.complex64))
+    payloads = [f"distributed frame {i}".encode() * 3 for i in range(EDGE_WLAN_PAYLOADS)]
+    V.reset_launches()
+    rt_rx, rt_tx = Runtime(), Runtime()
+    t0 = time.perf_counter()
+    running_rx = rt_rx.start(fg_rx)
+    running_tx = rt_tx.start(fg_tx)
+    rounds = 0
+    try:
+        # PUB/SUB drops what is sent before the subscriber joined: resend
+        # every payload each second until all came through
+        while (time.perf_counter() - t0 < EDGE_WLAN_S
+               and len(set(dec.frames)) < len(payloads)):
+            for p in payloads:
+                check(running_tx.handle.call_sync(enc, "tx", Pmt.blob(p)) == Pmt.ok(),
+                      "zmq: the encoder refused a payload")
+            rounds += 1
+            time.sleep(1.0)
+        dt = time.perf_counter() - t0
+    finally:
+        running_tx.stop_sync()
+        running_rx.stop_sync()
+        rt_tx.shutdown()
+        rt_rx.shutdown()
+    torch.cuda.synchronize()
+    launches = V.launches["viterbi"]
+    got = set(dec.frames)
+    print(f"phase 35 (c) WlanEncoder -> Throttle(3e5) -> PubSink | SubSource -> noise -> "
+          f"WlanDecoder on the card (pyzmq {zmq.__version__}): {len(got & set(payloads))} "
+          f"of {len(payloads)} payloads with a good FCS after {rounds} rounds, {dt:.2f} s, "
+          f"{len(dec.frames)} frames decoded, viterbi launches {launches} [{card_line}]")
+    check(set(payloads) <= got, f"zmq: missing {set(payloads) - got}")
+    check(got <= set(payloads), f"zmq: decoded frames that were not sent: "
+                                f"{got - set(payloads)}")
+    check(launches > 0, "the viterbi kernel was launched no time in phase 35 (c)")
+    return {"launches": launches, "s": dt}
+
+
+def phase_edges(dev, card_line) -> dict:
+    """Phase 35: (a) rtl_tcp into the FM kernel chain, (b) the remote client
+    and the GUI on the fused spectrum chain, (c) WLAN over ZeroMQ on the
+    Viterbi kernel; each part's kernel launches counted over its own drive."""
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    t0 = time.perf_counter()
+    launches = {}
+    for part, fn in (("a", phase_edges_rtl_tcp), ("b", phase_edges_remote)):
+        ck.reset_launches()
+        for k, v in fn(dev, card_line)["launches"].items():
+            check(v > 0, f"kernel {k} was launched no time in phase 35 ({part})")
+            launches[k] = v
+    zmq_part = phase_edges_zmq(dev, card_line)
+    if zmq_part["launches"] is not None:
+        launches["viterbi"] = zmq_part["launches"]
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s, launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -7109,6 +7505,11 @@ def main(argv=None) -> int:
                         help="only run phase 34, the host plane (the grid natively and "
                              "on each scheduler, its --tpu form, the apps, a file "
                              "through the card), after the build")
+    parser.add_argument("--edges", action="store_true",
+                        help="only run phase 35, the network edges (rtl_tcp into the FM "
+                             "kernel chain, the remote client and the GUI on the fused "
+                             "spectrum chain, WLAN over ZeroMQ on the Viterbi kernel), "
+                             "after the build")
     parser.add_argument("--rank", type=int, default=None,
                         help=argparse.SUPPRESS)   # one rank process of phase 32
     parser.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
@@ -7179,6 +7580,9 @@ def main(argv=None) -> int:
         return 0
     if args.hostplane:
         phase_hostplane(dev, card_line, actor_runs=3)
+        return 0
+    if args.edges:
+        phase_edges(dev, card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -7309,6 +7713,14 @@ def main(argv=None) -> int:
     by_phase["hostplane"] = dict(hostplane["launches"])
     for k, v in hostplane["launches"].items():
         launches[k] += v
+    # 35. the network edges: rtl_tcp into the FM kernel chain, the remote
+    #     client and the GUI on the fused spectrum chain, WLAN over ZeroMQ on
+    #     the Viterbi kernel; each part's kernels counted over its own drive
+    edges = phase_edges(dev, card_line)
+    by_phase["edges"] = dict(edges["launches"])
+    for k, v in edges["launches"].items():
+        if k in launches:
+            launches[k] += v
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record
@@ -7362,9 +7774,12 @@ def main(argv=None) -> int:
     line["kernels"].append({
         "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,
         "replaces": REPLACES_VITERBI,
-        "launches": models["stream"]["launches"] + protocols["launches"],
+        "launches": (models["stream"]["launches"] + protocols["launches"]
+                     + edges["launches"].get("viterbi", 0)),
         "launches_by_phase": {"models": models["stream"]["launches"],
-                              "protocols": protocols["launches"]},
+                              "protocols": protocols["launches"],
+                              **({"edges": edges["launches"]["viterbi"]}
+                                 if "viterbi" in edges["launches"] else {})},
         "batch": VIT_LINE[0], "steps": VIT_LINE[1], "states": 64,
         **{y: t[y] for y in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "seq_floor_ms", "one_frame_ms", "acs_ms",

@@ -28,5 +28,5 @@ __version__ = "0.1.0"
 __all__ = ["config", "logger", "AsyncScheduler", "BlockPolicy", "ConnectError",
            "Flowgraph", "FlowgraphCancelled", "FlowgraphError", "ItemTag", "Kernel",
            "Mocker", "Tag", "ThreadedScheduler", "TpbScheduler", "WorkIo",
-           "Pmt", "Runtime", "message_handler", "blocks", "convert", "dsp", "hw", "ops",
-           "runtime", "tpu", "types"]
+           "Pmt", "Runtime", "message_handler", "blocks", "convert", "ctrl", "dsp", "hw",
+           "ops", "runtime", "tpu", "types"]

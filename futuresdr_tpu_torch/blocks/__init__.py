@@ -1,5 +1,4 @@
-"""Blocks of the port's host runtime (the reference's ``futuresdr_tpu/blocks``
-but for ``zeromq.py``)."""
+"""Blocks of the port's host runtime (the reference's ``futuresdr_tpu/blocks``)."""
 
 from .audio import AudioSink, AudioSource, FakeAudioBackend, WavSink, WavSource, \
     set_audio_backend
@@ -17,16 +16,18 @@ from .stream import (Copy, Delay, Head, MovingAvg, Selector, StreamDeinterleaver
                      StreamDuplicator, TagDebug, Throttle)
 from .vector import CopyRand, NullSink, NullSource, VectorSink, VectorSource
 from .websocket import WebsocketPmtSink, WebsocketSink
+from .zeromq import PubSink, SubSource
 
 __all__ = ["Agc", "Apply", "ApplyIntoIter", "ApplyNM", "AudioSink", "AudioSource",
            "BlobToUdp", "ChannelSink", "ChannelSource", "ClockRecoveryMm", "Combine",
-           "Copy", "CopyRand", "Delay", "FakeAudioBackend", "Fft", "FileSink", "FileSource",
-           "Filter", "FiniteSource", "Fir", "FirBuilder", "Head", "Iir", "MessageAnnotator",
-           "MessageApply", "MessageBurst", "MessageCopy", "MessagePipe", "MessageSink",
-           "MessageSource", "MovingAvg", "NullSink", "NullSource", "PfbArbResampler",
-           "PfbChannelizer", "PfbSynthesizer", "QuadratureDemod", "SeifyBuilder",
-           "SeifySink", "SeifySource", "Selector", "SignalSource", "Sink", "Source",
-           "Split", "StreamDeinterleaver", "StreamDuplicator", "TagDebug", "TcpSink",
-           "TcpSource", "Throttle", "UdpSource", "VectorSink", "VectorSource",
-           "WavSink", "WavSource", "WebsocketPmtSink", "WebsocketSink", "XlatingFir",
-           "pfb_default_taps", "set_audio_backend"]
+           "Copy", "CopyRand", "Delay", "FakeAudioBackend", "Fft", "FileSink",
+           "FileSource", "Filter", "FiniteSource", "Fir", "FirBuilder", "Head", "Iir",
+           "MessageAnnotator", "MessageApply", "MessageBurst", "MessageCopy",
+           "MessagePipe", "MessageSink", "MessageSource", "MovingAvg", "NullSink",
+           "NullSource", "PfbArbResampler", "PfbChannelizer", "PfbSynthesizer",
+           "PubSink", "QuadratureDemod", "SeifyBuilder", "SeifySink", "SeifySource",
+           "Selector", "SignalSource", "Sink", "Source", "Split", "StreamDeinterleaver",
+           "StreamDuplicator", "SubSource", "TagDebug", "TcpSink", "TcpSource",
+           "Throttle", "UdpSource", "VectorSink", "VectorSource", "WavSink", "WavSource",
+           "WebsocketPmtSink", "WebsocketSink", "XlatingFir", "pfb_default_taps",
+           "set_audio_backend"]

@@ -7,6 +7,7 @@ type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
 ``FUTURESDR_TPU_TPU_WIRE_FORMAT=sc8``, ``FUTURESDR_TPU_XFER_BACKOFF=0.001``,
 ``FUTURESDR_TPU_CTRLPORT_ENABLE=true``,
 ``FUTURESDR_TPU_CTRLPORT_BIND=127.0.0.1:0``,
+``FUTURESDR_TPU_FRONTEND_PATH=/path/to/gui``,
 ``FUTURESDR_TPU_BLOCK_POLICY=restart``, ``FUTURESDR_TPU_INTERIOR_PRECISION=auto``,
 ``FUTURESDR_TPU_SERVE_BUCKETS=1,4,16``
 or ``FUTURESDR_TPU_AUTOTUNE_CACHE_DIR=/path``. A ``tpu_`` field also reads the
@@ -52,6 +53,8 @@ class Config:
     default_scheduler: str = "async"       # Runtime()'s scheduler: "async" | "threaded"
     ctrlport_enable: bool = False          # Runtime() starts the REST control port
     ctrlport_bind: str = "127.0.0.1:1337"  # its address; port 0 takes a free port
+    frontend_path: str = ""                # the GUI directory the control port
+    #   serves at / and /static/ ("" = the package's own gui/)
     tpu_frame_size: int = 1 << 18          # samples per device frame
     tpu_frames_in_flight: int = 4          # dispatch groups staged or computing at once
     tpu_frames_per_dispatch: int = 0       # megabatch K: frames run through one

@@ -1,8 +1,7 @@
 """Hardware abstraction layer — the `seify` crate equivalent.
 
-A copy of ``futuresdr_tpu/hw/__init__.py`` with the ``dummy`` and ``file``
-drivers (``rtl_tcp`` is not ported yet: ROADMAP Queue 1 item 4b part 2,
-whose last slice holds the network radios and the remote clients). The
+A copy of ``futuresdr_tpu/hw/__init__.py``: the ``dummy`` and ``file``
+drivers here, ``rtl_tcp`` in ``hw/rtl_tcp.py`` (imported on first use). The
 reference's hardware blocks are generic over the external seify HAL
 (RTL-SDR, HackRF, SoapySDR, Aaronia, dummy — ``src/blocks/seify/``). Here the HAL is a small driver registry;
 the :class:`DummyDriver` plays the role of seify's ``driver=dummy`` (`tests/seify.rs:16-60`,
@@ -185,6 +184,17 @@ class Device:
     def __init__(self, args: str = "driver=dummy"):
         parsed = parse_args(args)
         name = parsed.get("driver", "dummy")
+        if name not in _DRIVERS:
+            # optional drivers live in sibling modules that register
+            # themselves on import (hw/rtl_tcp.py)
+            import importlib
+            try:
+                importlib.import_module(f".{name}", __package__)
+            except ModuleNotFoundError as e:
+                # only "no such driver module" is an unknown driver; a driver
+                # module that fails to import raises its own error
+                if e.name != f"{__package__}.{name}":
+                    raise
         try:
             cls = _DRIVERS[name]
         except KeyError:

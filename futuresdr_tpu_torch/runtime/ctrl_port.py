@@ -25,6 +25,8 @@ thread and event loop answers:
                                                     fleet_peers)
   GET  /api/fleet/metrics                         → the fleet's merged /metrics
   POST /api/fleet/serve/{app}/session/            → a pressure-routed admission
+  GET  /                                          → the GUI page (index.html)
+  GET  /static/{path}                             → a file of the GUI directory
 
 with the reference's JSON bodies (``json.dumps`` of the same objects) and
 status codes: 404 ``{"error": "flowgraph not found"}`` or ``{"error":
@@ -53,7 +55,13 @@ tuple, a ``dict`` or ``list`` (JSON, 200), a ``str`` (``text/html``, 200) or
 ``bytes`` (200). It runs on the control port's event loop, from which
 ``Runtime.start_async`` may launch another flowgraph.
 
-Not ported: the reference's GUI page.
+The GUI routes are matched after the own routes, as the reference mounts
+them after its ``extra_routes``. They serve config ``frontend_path`` (the
+package's ``gui/`` when empty) as the reference's aiohttp ``add_static``
+does: a content type from the file's extension, 404 with an empty body for
+a file that is not there, 403 for the directory itself, and 404 for any
+path that resolves outside the directory (``..``, percent-encoded dots or
+slashes, a symbolic link that leads out).
 """
 
 from __future__ import annotations
@@ -61,12 +69,14 @@ from __future__ import annotations
 import asyncio
 import inspect
 import json
+import mimetypes
+import os
 import re
 import threading
 from dataclasses import dataclass, field
 from http import HTTPStatus
 from typing import Optional, Tuple
-from urllib.parse import parse_qsl
+from urllib.parse import parse_qsl, unquote
 
 from ..config import config
 from ..log import logger
@@ -102,6 +112,11 @@ _ROUTES = (
     (("GET", "POST"),
      re.compile(_FG + r"block/(?P<blk>[^/]+)/call/(?P<handler>[^/]+)/$"), "_call"),
     (("GET",), re.compile(r"^/metrics/?$"), "_prom_metrics"),
+)
+#: the GUI's routes, matched after the own routes
+_GUI_ROUTES = (
+    (("GET",), re.compile(r"^/$"), "_gui_index"),
+    (("GET",), re.compile(r"^/static(?:/(?P<rel>.*))?$"), "_gui_static"),
 )
 
 
@@ -141,6 +156,20 @@ class Request:
 
     def json(self):
         return json.loads(self.body) if self.body else None
+
+
+def _frontend_dir() -> Optional[str]:
+    """The GUI directory: config ``frontend_path``, else the package's own
+    ``gui/`` (None where the package has none); a configured path that is
+    not a directory raises."""
+    path = config().frontend_path
+    if not path:
+        builtin = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                               "gui")
+        return os.path.realpath(builtin) if os.path.isdir(builtin) else None
+    if not os.path.isdir(path):
+        raise ValueError(f"frontend_path {path!r} is not a directory")
+    return os.path.realpath(path)
 
 
 def _route_pattern(path: str):
@@ -183,6 +212,7 @@ class ControlPort:
         self._started = threading.Event()
         self._error: Optional[BaseException] = None
         self._fleet_router = None          # built at the first routed admission
+        self.frontend = _frontend_dir()
 
     # -- lifecycle (own thread and loop) -----------------------------------------
     def start(self) -> None:
@@ -279,6 +309,8 @@ class ControlPort:
         table = [(ms, pat, getattr(self, name), "port") for ms, pat, name in _ROUTES]
         table += [(ms, pat, h, "serve") for ms, pat, h in serve_api.routes()]
         table += [((ms,), pat, h, "extra") for ms, pat, h in self.extra_routes]
+        if self.frontend is not None:
+            table += [(ms, pat, getattr(self, name), "port") for ms, pat, name in _GUI_ROUTES]
         for methods, pattern, handler, kind in table:
             m = pattern.match(path)
             if m is None:
@@ -295,6 +327,30 @@ class ControlPort:
                 return _own_response(got)
             return await handler(method, body, **m.groupdict())
         return _text(405 if allowed else 404)
+
+    def _gui_file(self, path: str):
+        """A file of the GUI directory as the reference's ``FileResponse``
+        gives it: 404 with an empty body where there is none."""
+        try:
+            with open(path, "rb") as f:
+                body = f.read()
+        except OSError:
+            return 404, b"", "application/octet-stream"
+        return 200, body, mimetypes.guess_type(path)[0] or "application/octet-stream"
+
+    async def _gui_index(self, method, body, query):
+        return self._gui_file(os.path.join(self.frontend, "index.html"))
+
+    async def _gui_static(self, method, body, query, rel=None):
+        try:
+            path = os.path.realpath(os.path.join(self.frontend, unquote(rel or "")))
+        except ValueError:                 # a NUL byte in the path
+            return _text(404)
+        if os.path.commonpath([path, self.frontend]) != self.frontend:
+            return _text(404)
+        if os.path.isdir(path):
+            return _text(403)
+        return self._gui_file(path)
 
     async def _fg_metrics(self) -> dict:
         """Every live flowgraph's per-block metrics, by id."""

@@ -142,7 +142,9 @@ def test_device_args_and_unknown_driver():
         jhw.parse_args("driver=dummy, rate=1e6,,x=y") == \
         {"driver": "dummy", "rate": "1e6", "x": "y"}
     with pytest.raises(ValueError, match="unknown driver"):
-        hw.Device("driver=rtl_tcp")
+        hw.Device("driver=nosuch")
+    with pytest.raises(ValueError, match="unknown driver"):
+        jhw.Device("driver=nosuch")
     with pytest.raises(ValueError, match="path"):
         hw.Device("driver=file")
 

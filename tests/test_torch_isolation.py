@@ -519,3 +519,44 @@ def test_the_host_plane_loads_alone():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+NETWORK_EDGES = ("ctrl", "ctrl.remote", "hw.rtl_tcp", "blocks.zeromq", "gui.jsmini")
+#: what the card's machine may lack: the network edges run without them
+_BANNED = "('jax', 'jaxlib', 'futuresdr_tpu', 'aiohttp', 'zmq')"
+
+
+@pytest.mark.parametrize("mod", NETWORK_EDGES)
+def test_the_network_edges_load_alone(mod):
+    """Each module of the network edges (the remote client, the rtl_tcp
+    driver, the ZeroMQ blocks, the GUI's JavaScript interpreter) loads
+    neither JAX nor the JAX package, nor aiohttp or pyzmq (the ZeroMQ blocks
+    import pyzmq when they start)."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module('futuresdr_tpu_torch.{mod}')\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {_BANNED}]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_whole_port_loads_no_aiohttp_and_no_zmq():
+    """Every module of the port, the GUI's interpreter and the GUI served
+    from the control port leave aiohttp and pyzmq out of ``sys.modules``."""
+    mods = _submodules() + ["futuresdr_tpu_torch.gui.jsmini"]
+    assert {f"futuresdr_tpu_torch.{m}" for m in NETWORK_EDGES} <= set(mods)
+    code = ("import importlib, sys, urllib.request\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from futuresdr_tpu_torch import Runtime\n"
+            "from futuresdr_tpu_torch.runtime.ctrl_port import ControlPort\n"
+            "rt = Runtime(); cp = ControlPort(rt.handle, bind='127.0.0.1:0'); cp.start()\n"
+            "page = urllib.request.urlopen(cp.url + '/', timeout=10).read()\n"
+            "cp.stop()\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {_BANNED}]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or b'widgets.js' not in page else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
