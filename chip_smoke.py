@@ -200,10 +200,11 @@ fused restarts):
     SNRs, the lowered program against f32 on fresh frames at the floor
     ``budget - 10·log10(n_lowered)``, ``off`` the same object and bits;
     (b) the int8 rungs on the card bit-equal to the CPU; (c) the plan sweep
-    (``tpu/kernel_tune.py``) over all six kernels, every candidate matching
-    its plain version, the winners cached, installed by a fresh
-    ``TpuKernel`` and taken by the next launch; (d) the credit seed, the
-    adaptive wire's start and a fused region's K from the cache; (e) the
+    (``tpu/kernel_tune.py``) over the six kernels and the two FIR lane
+    forms, every candidate matching its plain version, the winners cached,
+    installed by a fresh ``TpuKernel`` and taken by the next launch; (d)
+    the credit seed, the adaptive wire's start and a fused region's K from
+    the cache; (e) the
     spectrum chain streamed with ``interior_precision="auto"`` at K = 1 and
     4 against f32, and ``ctrl`` retunes off and back mid-stream, one capture
     a program; (f) after phase 7, each kernel's analytic bound
@@ -215,7 +216,8 @@ The serving plane (``serve/engine.py`` ``ServeEngine``: the paged,
 lane-batched slot program, one CUDA graph a bucket):
 
 28. (a) the lane forms ``fir_lanes``, ``fir_fft_lanes`` and ``rotator_lanes``
-    at L = 1, 4 and 64 with distinct taps, histories and phases: each lane
+    at L = 1, 3, 4, 16 and 64 with distinct taps, histories and phases, and
+    the FIR forms with shared taps (stride 0) at L = 3 and 16: each lane
     bit-equal to the one-stream launch, and within the kernel's tolerance
     of the lane plain version; (b) the main chain (``fir_fft_stage(64 taps,
     2048)`` + ``mag2_stage``) served at 2^18 to 16 sessions in buckets (1, 4,
@@ -702,8 +704,9 @@ def device_ms(fn, args_list, reps: int = 0) -> float:
         for a in args_list[:2]:
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
+    from futuresdr_tpu_torch.tpu.kernel_tune import capture
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):                # local to this thread, no collection inside
         outs = [fn(*a) for a in args_list]
     times = []
     for _ in range(reps or REPS):
@@ -3959,9 +3962,9 @@ def phase_precision_int8(dev) -> None:
 
 
 def phase_plan_sweep(dev) -> dict:
-    """27 (c): the kernel-plan sweep over all six kernels at the main paths'
-    shapes (``tpu/kernel_tune.SHAPES``): every candidate held against its
-    plain version at phase 7's limits (a failure or a skip fails the
+    """27 (c): the kernel-plan sweep over the six kernels and two lane forms
+    at the main paths' shapes (``tpu/kernel_tune.SHAPES``): every candidate
+    held against its plain version at phase 7's limits (a failure or a skip fails the
     phase), the winners recorded in a cache under a temporary
     ``autotune_cache_dir``, installed by a fresh ``TpuKernel``'s init, and
     each kernel's next launch taking the recorded plan."""
@@ -4267,7 +4270,8 @@ AB_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 AB_STEPS = 150                 # frame times of the churned run
 AB_CHURN_EVENTS = 100          # joins and leaves (a close and an admit each)
 AB_AB_STEPS = 40               # frame times of each A/B run
-LANES = (1, 4, 64)
+LANES = (1, 3, 4, 16, 64)
+SHARED_TAP_LANES = (3, 16)     # lane counts of 28 (a)'s shared-taps cases
 LANE_REPS = 8                  # distinct inputs a lane timing's graph
 LANE_KERNELS = ("fir_lanes", "fir_fft_lanes", "rotator_lanes")
 LANE_OF = {"fir_lanes": "fir", "fir_fft_lanes": "fir_fft", "rotator_lanes": "rotator"}
@@ -4292,10 +4296,11 @@ def serve_ab_pipe():
 
 def phase_serve_lanes(dev) -> dict:
     """28 (a): the lane forms of ``fir``, ``fir_fft`` and ``rotator`` at L = 1,
-    4 and 64 with distinct taps, histories and phases a lane: each lane equal
-    to the one-stream launch on its row bit for bit, and the lane plain
-    version (on the card) within the kernel's tolerance. Returns the worst
-    relative error a lane kernel."""
+    3, 4, 16 and 64 with distinct taps, histories and phases a lane, and the
+    FIR forms with shared taps (one row expanded, stride 0) at L = 3 and 16:
+    each lane equal to the one-stream launch on its row bit for bit, and the
+    lane plain version (on the card) within the kernel's tolerance. Returns
+    the worst relative error a lane kernel."""
     import torch
 
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -4305,28 +4310,34 @@ def phase_serve_lanes(dev) -> dict:
     def rc(*shape):
         return torch.randn(*shape, dtype=torch.complex64, generator=gen, device=dev)
 
-    for L in LANES:
+    def lane_taps(L, nt, shared):
+        taps = torch.randn(1 if shared else L, nt, generator=gen, device=dev)
+        return taps.expand(L, nt)
+
+    fir_cases = [(L, False) for L in LANES] + [(L, True) for L in SHARED_TAP_LANES]
+    for L, shared in fir_cases:
+        what = f"L={L}{' shared taps' if shared else ''}"
         for n, nt in ((AB_FRAME, 17), (SERVE_FRAME, N_TAPS)):
-            x, hist = rc(L, n), rc(L, nt - 1)
-            taps = torch.randn(L, nt, generator=gen, device=dev)
+            x, hist, taps = rc(L, n), rc(L, nt - 1), lane_taps(L, nt, shared)
             y = ck.fir_lanes(hist, x, taps)
             per = torch.stack([ck.fir_continue(hist[i], x[i], taps[i]) for i in range(L)])
-            check(torch.equal(y, per), f"fir_lanes L={L} n={n}: a lane differs from the "
+            check(torch.equal(y, per), f"fir_lanes {what} n={n}: a lane differs from the "
                                        f"one-stream launch")
             _, rel = rel_err(y, ck.fir_lanes_plain(hist, x, taps))
-            check(rel <= TOL["fir"], f"fir_lanes L={L} n={n}: {rel:.2e} from its plain version")
+            check(rel <= TOL["fir"], f"fir_lanes {what} n={n}: {rel:.2e} from its plain "
+                                     f"version")
             worst["fir_lanes"] = max(worst["fir_lanes"], rel)
         n = SERVE_FRAME
-        x, hist = rc(L, n), rc(L, N_TAPS - 1)
-        taps = torch.randn(L, N_TAPS, generator=gen, device=dev)
+        x, hist, taps = rc(L, n), rc(L, N_TAPS - 1), lane_taps(L, N_TAPS, shared)
         y = ck.fir_fft_lanes(hist, x, taps, N_FFT)
         per = torch.stack([ck.fir_fft(hist[i], x[i], taps[i], N_FFT) for i in range(L)])
-        check(torch.equal(y, per), f"fir_fft_lanes L={L}: a lane differs from the "
+        check(torch.equal(y, per), f"fir_fft_lanes {what}: a lane differs from the "
                                    f"one-stream launch")
         _, rel = rel_err(y, ck.fir_fft_lanes_plain(hist, x, taps, N_FFT))
-        check(rel <= TOL["fir_fft"], f"fir_fft_lanes L={L}: {rel:.2e} from its plain version")
+        check(rel <= TOL["fir_fft"], f"fir_fft_lanes {what}: {rel:.2e} from its plain version")
         worst["fir_fft_lanes"] = max(worst["fir_fft_lanes"], rel)
         del x, hist, y, per
+    for L in LANES:
         for n in (AB_FRAME, AB_FRAME + 1):          # an odd row: the heads alternate
             x = rc(L, n)
             ph0 = torch.rand(L, generator=gen, device=dev) * 6.0
@@ -4342,7 +4353,8 @@ def phase_serve_lanes(dev) -> dict:
                   f"rotator_lanes L={L} n={n}: {rel:.2e} from its plain version")
             worst["rotator_lanes"] = max(worst["rotator_lanes"], rel)
     torch.cuda.synchronize()
-    print(f"phase 28 (a): lane forms at L = {LANES} bit-equal to the one-stream launches; "
+    print(f"phase 28 (a): lane forms at L = {LANES} (shared taps at L = "
+          f"{SHARED_TAP_LANES}) bit-equal to the one-stream launches; "
           f"worst against plain " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     return worst
 
@@ -7662,8 +7674,8 @@ def main(argv=None) -> int:
     recovery = path_phase("recovery", SPECTRUM_KERNELS + FM_KERNELS, phase_recovery,
                           dev, taps)
     # 27. precision and tuning: the A/B matrix, the int8 rungs, the plan
-    #     sweep (all six kernels), the cache in the runtime, streamed retunes,
-    #     the app's flags
+    #     sweep (six kernels, two lane forms), the cache in the runtime,
+    #     streamed retunes, the app's flags
     t27 = time.perf_counter()
     precision = path_phase("precision", SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS,
                            phase_precision, dev, taps)

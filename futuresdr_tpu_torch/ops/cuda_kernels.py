@@ -40,8 +40,10 @@ plain version and launch, and whose ``register_vmap`` rule runs the batch:
 ``fir``, ``fir_fft`` and ``rotator`` as one launch of their **lane forms**
 (:func:`fir_lanes`, :func:`fir_fft_lanes`, :func:`rotator_lanes`: the lane a
 grid dimension, each lane the one-stream kernel's arithmetic on its own row,
-its own taps, history and phase; ``*_lanes_plain`` their plain versions),
-``poly_fir``, ``quad_demod`` and ``pfb`` as one one-stream launch a lane.
+its own taps, history and phase, the FIR forms' plans chosen for the batch by
+:func:`fir_lanes_plan` and :func:`fir_fft_lanes_plan`; ``*_lanes_plain`` their
+plain versions), ``poly_fir``, ``quad_demod`` and ``pfb`` as one one-stream
+launch a lane.
 
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
@@ -55,7 +57,8 @@ cos/sin matrix, while the kernel keeps float32 twiddles.
 
 The TPU block-shape table (``DEFAULT_BLOCKS``, ``set_tuned_blocks``) becomes
 a table of plans: each kernel's plan function (:func:`fir_plan`,
-:func:`fir_fft_plan`, :func:`poly_fir_plan`, :func:`pfb_plan`) returns the
+:func:`fir_fft_plan`, :func:`poly_fir_plan`, :func:`pfb_plan`,
+:func:`fir_lanes_plan`, :func:`fir_fft_lanes_plan`) returns the
 plan a sweep measured best at that shape (:func:`set_tuned_plans`,
 ``tpu/kernel_tune.py``), else its rule's pick; a plan passed to a wrapper
 (``plan=``) beats both. ``rotator`` and ``quad_demod`` have one layout each.
@@ -79,7 +82,8 @@ __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod"
            "rotator_lanes_plain", "LANE_KERNELS", "launches",
            "reset_launches", "capturing", "PLAN_KERNELS", "plan_candidates",
            "set_tuned_plans", "tuned_plans", "normalize_plans", "fir_plan",
-           "fir_fft_plan", "poly_fir_plan", "pfb_plan"]
+           "fir_fft_plan", "poly_fir_plan", "pfb_plan", "fir_lanes_plan",
+           "fir_fft_lanes_plan"]
 
 #: launches per kernel since the last :func:`reset_launches`: the six kernels,
 #: then the lane forms of three (:data:`LANE_KERNELS`)
@@ -680,6 +684,27 @@ def _fir_rule(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
     return FirPlan(32 * w, -(-warps // w), span_shift, bufs, smem)
 
 
+_FIR_FFT_L1_ROWS = 2         # rows an SM above which the lane form reads its table via L1
+
+
+@functools.lru_cache(maxsize=256)
+def _fir_fft_lanes_rule(L: int, n: int, n_fft: int, n_taps: int,
+                        n_sm: int = 132) -> FirFftPlan:
+    """The lane form's plan for ``L`` streams of ``n`` samples (a block a
+    row, the lane the grid's y): the one-stream row plan
+    (:func:`_fir_fft_rule`: its radices, threads and layout, so each lane's
+    arithmetic is a one-stream launch's), except that where the batch puts
+    more than two rows on an SM the twiddle table is read through L1 instead
+    of staged by every block: the blocks on an SM share the cached table,
+    where staging copies 16 KB a row (``port_plans.py``, PERF.md: faster
+    from 512 rows of 2048, slower at 256)."""
+    row = _fir_fft_rule(n_fft, n_taps)
+    if L * (n // n_fft) > n_sm * _FIR_FFT_L1_ROWS and row.tw_staged:
+        row = row._replace(tw_staged=False, smem=_fir_fft_smem(
+            n_fft, n_taps, row.span_shift, row.pad_shift, 0))
+    return row
+
+
 class PfbPlan(NamedTuple):
     """How ``csrc/pfb.cu`` runs a bank of ``N`` channels with ``K`` taps a
     branch over ``t`` rows."""
@@ -782,13 +807,17 @@ _QUAD_DEMOD_PLAN = FixedPlan(256, QUAD_DEMOD_TILE)
 # ---------------------------------------------------------------------------
 
 #: the kernels whose plans a sweep measures
-PLAN_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb", "rotator", "quad_demod")
+PLAN_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb", "rotator", "quad_demod", "fir_lanes",
+                "fir_fft_lanes")
 _PLAN_TYPES = {"fir": FirPlan, "fir_fft": FirFftPlan, "poly_fir": PolyFirPlan,
-               "pfb": PfbPlan, "rotator": FixedPlan, "quad_demod": FixedPlan}
+               "pfb": PfbPlan, "rotator": FixedPlan, "quad_demod": FixedPlan,
+               "fir_lanes": FirPlan, "fir_fft_lanes": FirFftPlan}
 #: each kernel's shape: the arguments of its plan function
 PLAN_SHAPES = {"fir": ("n", "nt", "is_complex", "n_sm"), "fir_fft": ("n_fft", "n_taps"),
                "poly_fir": ("m", "D", "I", "nq", "is_complex", "n_sm"),
-               "pfb": ("n", "k", "t", "n_sm"), "rotator": ("n",), "quad_demod": ("n",)}
+               "pfb": ("n", "k", "t", "n_sm"), "rotator": ("n",), "quad_demod": ("n",),
+               "fir_lanes": ("L", "n", "nt", "is_complex", "n_sm"),
+               "fir_fft_lanes": ("L", "n", "n_fft", "n_taps", "n_sm")}
 _tuned_lock = threading.Lock()
 _tuned: Dict[str, Dict[tuple, tuple]] = {}     # kernel -> {shape: plan}
 #: the plan of each kernel's latest launch (a recorded plan reaches the kernel)
@@ -863,6 +892,14 @@ def plan_candidates(kernel: str, *shape) -> list:
                                            pitch, rule.tw_len if staged else 0, k_regs)))
         out.append(PfbPlan(False, 256, n, 1, 1, 1, 0, (), (), (), n, n, _NO_PAD, False,
                            8 * n))
+    elif kernel == "fir_lanes":
+        # the one-stream layouts for a lane's n samples, the lane the grid's y
+        L, n, nt, cplx, n_sm = shape
+        out = plan_candidates("fir", n, nt, cplx, n_sm)
+    elif kernel == "fir_fft_lanes":
+        L, n, n_fft, nt, n_sm = shape
+        out = [_fir_fft_lanes_rule(L, n, n_fft, nt, n_sm)] + plan_candidates("fir_fft", n_fft,
+                                                                              nt)
     elif kernel == "rotator":
         out = [_ROTATOR_PLAN]
     elif kernel == "quad_demod":
@@ -947,6 +984,23 @@ def fir_plan(n: int, nt: int, is_complex: bool, n_sm: int = 132) -> FirPlan:
 def fir_fft_plan(n_fft: int, n_taps: int) -> FirFftPlan:
     """The ``fir_fft`` plan: the tuned table's, else :func:`_fir_fft_rule`."""
     return _tuned_plan("fir_fft", (n_fft, n_taps)) or _fir_fft_rule(n_fft, n_taps)
+
+
+def fir_lanes_plan(L: int, n: int, nt: int, is_complex: bool,
+                   n_sm: int = 132) -> FirPlan:
+    """The ``fir_lanes`` plan of a batch: the tuned table's, else
+    :func:`_fir_rule`'s plan for one lane's ``n`` samples, run on every lane
+    (its ``blocks`` a lane, the lane the grid's y)."""
+    return _tuned_plan("fir_lanes", (L, n, nt, int(is_complex), n_sm)) or \
+        _fir_rule(n, nt, is_complex, n_sm)
+
+
+def fir_fft_lanes_plan(L: int, n: int, n_fft: int, n_taps: int,
+                       n_sm: int = 132) -> FirFftPlan:
+    """The ``fir_fft_lanes`` plan of a batch: the tuned table's, else
+    :func:`_fir_fft_lanes_rule`."""
+    return _tuned_plan("fir_fft_lanes", (L, n, n_fft, n_taps, n_sm)) or \
+        _fir_fft_lanes_rule(L, n, n_fft, n_taps, n_sm)
 
 
 def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
@@ -1413,27 +1467,44 @@ def rotator_lanes_plain(x: torch.Tensor, ph0: torch.Tensor,
             torch.remainder(ph0 + inc * n, 2 * np.pi))
 
 
+def _check_rows(*tensors: Optional[torch.Tensor]) -> None:
+    """A lane kernel's tensors: on the card, each row contiguous (rows at any
+    stride, so a ``[1, nt]`` tensor expanded to ``[L, nt]``, stride 0, is
+    shared taps)."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {t.device}")
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError("the lane kernels need each row contiguous")
+
+
 def fir_lanes(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
-              precision: Optional[str] = None) -> torch.Tensor:
+              precision: Optional[str] = None,
+              plan: Optional[FirPlan] = None) -> torch.Tensor:
     """The ``fir`` kernel over ``L`` streams in one launch: ``x [L, n]``,
-    ``taps [L, nt]``, ``hist [L, nt − 1]`` (None: zero states), each lane
-    exactly :func:`fir_continue` on its row. Each lane's output row must
-    start 16-byte aligned (``n`` even on a complex stream, a multiple of 4
-    on a real one). Raises where the kernel does not build or launch."""
+    ``taps [L, nt]`` (stride 0 across lanes: shared taps), ``hist [L,
+    nt − 1]`` (None: zero states), each lane exactly :func:`fir_continue` on
+    its row. Each lane's output row must start 16-byte aligned (``n`` even
+    on a complex stream, a multiple of 4 on a real one). ``plan`` (one of
+    :func:`plan_candidates`) beats the tuned table and the rule. Raises
+    where the kernel does not build or launch."""
     if x.device.type == "cpu":
         return fir_lanes_plain(hist, x, taps, precision)
     bf16 = _check_precision(precision)
     L, nt = _check_lanes(hist, x, taps)
-    _check_cuda(*(t for t in (hist, x, taps) if t is not None))
+    _check_rows(hist, x, taps)
     n = int(x.shape[1])
     elt = 8 if x.is_complex() else 4
     if (n * elt) % 16:
         raise ValueError(f"fir_lanes: rows of {n} samples do not keep each lane's output "
                          f"16-byte aligned")
-    y = torch.empty_like(x)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
     if n == 0 or L == 0:
         return y
-    plan = fir_plan(n, nt, x.is_complex(), _sm_count(x.device))
+    plan = plan or fir_lanes_plan(L, n, nt, x.is_complex(), _sm_count(x.device))
+    last_plans["fir_lanes"] = plan
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"fir: {nt} taps need {plan.smem} B of shared memory per block")
     lib = _lib("fir")
@@ -1449,11 +1520,14 @@ def fir_lanes(hist: Optional[torch.Tensor], x: torch.Tensor, taps: torch.Tensor,
 
 
 def fir_fft_lanes(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft: int,
-                  precision: Optional[str] = None) -> torch.Tensor:
+                  precision: Optional[str] = None,
+                  plan: Optional[FirFftPlan] = None) -> torch.Tensor:
     """The ``fir_fft`` kernel over ``L`` streams in one launch: ``x [L, n]``
-    (``n`` a multiple of ``n_fft``), ``taps [L, nt]``, ``hist [L, nt − 1]``;
-    each lane exactly :func:`fir_fft` on its row. Returns ``[L, n]``
-    complex64; raises where the kernel does not build or launch."""
+    (``n`` a multiple of ``n_fft``), ``taps [L, nt]`` (stride 0 across
+    lanes: shared taps), ``hist [L, nt − 1]``; each lane exactly
+    :func:`fir_fft` on its row. ``plan`` (one of :func:`plan_candidates`)
+    beats the tuned table and the rule. Returns ``[L, n]`` complex64; raises
+    where the kernel does not build or launch."""
     if x.device.type == "cpu":
         return fir_fft_lanes_plain(hist, x, taps, n_fft, precision)
     bf16 = _check_precision(precision)
@@ -1461,23 +1535,24 @@ def fir_fft_lanes(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, n_fft
     if hist is None or not 2 <= nt <= n_fft or x.shape[1] % n_fft:
         raise ValueError(f"fir_fft_lanes needs hist, 2 <= n_taps <= n_fft and rows of "
                          f"n_fft; got {nt} taps, n_fft={n_fft}, rows of {x.shape[1]}")
-    _check_cuda(hist, x, taps)
-    plan = fir_fft_plan(n_fft, nt)
+    _check_rows(hist, x, taps)
+    n = int(x.shape[1])
+    plan = plan or fir_fft_lanes_plan(L, n, n_fft, nt, _sm_count(x.device))
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"fir_fft: n_fft={n_fft} with {nt} taps needs {plan.smem} B of "
                          f"shared memory per block")
-    y = torch.empty((L, x.shape[1]), dtype=torch.complex64, device=x.device)
-    if x.shape[1] == 0 or L == 0:
+    y = torch.empty((L, n), dtype=torch.complex64, device=x.device)
+    if n == 0 or L == 0:
         return y
+    last_plans["fir_fft_lanes"] = plan
     tw = _fft_table(n_fft, plan.radices, x.device)
     lib = _lib("fir_fft")
     with _card(x):
         err = lib.fsdr_fir_fft_lanes(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
-                                     tw.data_ptr(), tw.shape[0], y.data_ptr(),
-                                     x.shape[1] // n_fft, n_fft, nt, int(x.is_complex()),
-                                     int(bf16), plan.threads, plan.outs,
-                                     len(plan.radices), _c_ints(plan.radices),
-                                     plan.span_shift, plan.pad_shift,
+                                     tw.data_ptr(), tw.shape[0], y.data_ptr(), n // n_fft,
+                                     n_fft, nt, int(x.is_complex()), int(bf16),
+                                     plan.threads, plan.outs, len(plan.radices),
+                                     _c_ints(plan.radices), plan.span_shift, plan.pad_shift,
                                      int(plan.tw_staged), plan.smem, L, hist.stride(0),
                                      x.stride(0), taps.stride(0), y.stride(0), _stream(x))
     _raise_on(err, "fir_fft_lanes")

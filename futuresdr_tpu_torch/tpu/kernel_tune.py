@@ -3,10 +3,11 @@
 The counterpart of ``futuresdr_tpu/tpu/pallas_tune.py`` (whose sweep picks a
 Pallas block shape per kernel and chip generation). Here a kernel's plan
 (``ops/cuda_kernels.py``: ``fir_plan``, ``fir_fft_plan``, ``poly_fir_plan``,
-``pfb_plan``) is chosen per call shape by a rule; :func:`sweep_plans` times
-every layout the rule chooses between (:func:`cuda_kernels.plan_candidates`,
-the rule's own pick among them) at the main paths' shapes, holds each against
-the kernel's plain version, and returns the winners, which
+``pfb_plan``, ``fir_lanes_plan``, ``fir_fft_lanes_plan``) is chosen per call
+shape by a rule; :func:`sweep_plans` times every layout the rule chooses
+between (:func:`cuda_kernels.plan_candidates`, the rule's own pick among
+them) at the main paths' shapes, holds each against the kernel's plain
+version, and returns the winners, which
 ``tpu/autotune.autotune_pallas_blocks`` records in the streamed-pick cache
 (the ``pallas_blocks`` axis, keyed by :func:`device_key`) and installs
 (:func:`cuda_kernels.set_tuned_plans`). ``rotator`` and ``quad_demod`` have
@@ -32,6 +33,8 @@ of ``autotune`` with reason ``autotune``, which never counts toward a storm.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import statistics
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -43,7 +46,7 @@ from ..log import logger
 from ..ops import cuda_kernels as ck
 from ..telemetry import profile as _profile
 
-__all__ = ["TIE_MARGIN", "TOL", "SHAPES", "device_key", "sweep_plans"]
+__all__ = ["TIE_MARGIN", "TOL", "SHAPES", "capture", "device_key", "sweep_plans"]
 
 log = logger("tpu.kernel_tune")
 
@@ -52,10 +55,12 @@ TIE_MARGIN = 0.98
 #: max |kernel − plain| over max |plain| a candidate may read (chip_smoke's
 #: phase 7 limits; quad_demod's is absolute, in radians·gain)
 TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
-       "quad_demod": 1e-5, "pfb": 1e-5}
+       "quad_demod": 1e-5, "pfb": 1e-5, "fir_lanes": 1e-5, "fir_fft_lanes": 1e-4}
 #: the main paths' calls: (kernel, label, shape spec) — spectrum chain 2^18,
 #: the A/B decimator, the FM front end at 512,000 (128,000 after the channel
-#: filter), PFB-64 and PFB-2048 at 2^18
+#: filter), PFB-64 and PFB-2048 at 2^18, and the serving plane's lane forms:
+#: serve_ab's 64 sessions of 512 (``fir``) and the main chain's 16 of 2^18
+#: (``fir_fft``)
 SHAPES = (
     ("fir", "spectrum c64 2^18, 64 taps", {"n": 1 << 18, "nt": 64}),
     ("fir_fft", "spectrum c64 2^18, 64 taps, n_fft 2048", {"n": 1 << 18, "nt": 64,
@@ -68,6 +73,9 @@ SHAPES = (
     ("pfb", "PFB-2048 c64 2^18", {"n": 1 << 18, "N": 2048, "K": 12}),
     ("rotator", "FM tuner c64 512,000", {"n": 512_000}),
     ("quad_demod", "FM demod c64 128,000", {"n": 128_000}),
+    ("fir_lanes", "serve_ab c64 64 x 512, 17 taps", {"L": 64, "n": 512, "nt": 17}),
+    ("fir_fft_lanes", "served main c64 16 x 2^18, 64 taps, n_fft 2048",
+     {"L": 16, "n": 1 << 18, "nt": 64, "n_fft": 2048}),
 )
 
 
@@ -125,6 +133,20 @@ def _workload(kernel: str, spec: dict, dev: torch.device, reps: int,
         return ((N, K, n // N, n_sm), args,
                 lambda p, h, x: ck.pfb(h, x, taps, plan=p),
                 lambda h, x: ck.pfb_plain(h, x, taps))
+    if kernel in ("fir_lanes", "fir_fft_lanes"):
+        L, nt = spec["L"], spec["nt"]
+        taps = r(L, nt)
+        args = [(torch.randn(L, nt - 1, dtype=torch.complex64, generator=gen, device=dev),
+                 torch.randn(L, n, dtype=torch.complex64, generator=gen, device=dev))
+                for _ in range(reps)]
+        if kernel == "fir_lanes":
+            return ((L, n, nt, 1, n_sm), args,
+                    lambda p, h, x: ck.fir_lanes(h, x, taps, plan=p),
+                    lambda h, x: ck.fir_lanes_plain(h, x, taps))
+        nf = spec["n_fft"]
+        return ((L, n, nf, nt, n_sm), args,
+                lambda p, h, x: ck.fir_fft_lanes(h, x, taps, nf, plan=p),
+                lambda h, x: ck.fir_fft_lanes_plain(h, x, taps, nf))
     if kernel == "rotator":
         ph0 = torch.tensor(1.25, device=dev)
         inc = torch.tensor(-0.6283185, device=dev)
@@ -153,6 +175,24 @@ def _err(kernel: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(np.max(d)) / max(float(np.max(np.abs(f))), 1e-30)
 
 
+@contextlib.contextmanager
+def capture(graph: torch.cuda.CUDAGraph):
+    """``torch.cuda.graph(graph)`` for a timing: an earlier program's CUDA
+    graphs may be freed while this one captures, by another thread or by the
+    collector, and a graph's reset during a capture that is global to the
+    process invalidates the capture (seen once in chip_smoke phase 27 (c)).
+    So the capture is local to this thread, and no collection runs inside
+    it."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def _time(call: Callable, args_list: list, dev: torch.device, rounds: int = 5) -> float:
     """Seconds of one call: on a card the device time of one replay of a
     CUDA graph of every call over ``args_list``, median of ``rounds``; on
@@ -169,7 +209,7 @@ def _time(call: Callable, args_list: list, dev: torch.device, rounds: int = 5) -
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with ck.capturing():                      # a sweep's launches are not a path's
-        with torch.cuda.graph(graph):
+        with capture(graph):
             outs = [call(*a) for a in args_list]
     times = []
     for _ in range(rounds):

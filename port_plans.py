@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the ``fir`` and ``pfb`` kernels under the layouts their
-plans can take, and of ``rotator`` beside its first design, at the main
-paths' shapes, on one CUDA card.
+"""Device time of the ``fir`` and ``pfb`` kernels and the ``fir_lanes`` and
+``fir_fft_lanes`` lane forms under the layouts their plans can take, and of
+``rotator`` beside its first design, at the main paths' shapes, on one CUDA
+card.
 
 ``cuda_kernels.fir_plan`` and ``pfb_plan`` pick one layout per call; this
 times the same call under the others the kernels take, so that PERF.md can
@@ -11,14 +12,21 @@ unpadded fallback; for ``pfb`` (PFB-64 at 2^18 and 2^21, PFB-2048 at 2^18,
 K = 12) the rows a thread (R), the taps in shared memory instead of
 registers, the unpadded layout with the twiddles read from device memory,
 and the "v" layout (the first design's unstaged mode); ``rotator`` at
-512,000 and 4,096,000 takes one fixed layout.
+512,000 and 4,096,000 takes one fixed layout; the lane forms at the served
+shapes and beside them (``fir_lanes`` at 64 and 256 × 512 with 17 taps,
+16, 4 and 1 × 2^18 with 64; ``fir_fft_lanes`` at 16, 4, 2 and 1 × 2^18
+and 64 × 2^14 with 64 taps and N = 2048) under every layout of
+``cuda_kernels.plan_candidates``, the rule's first: the one-stream kernel's
+layouts run on every lane, the lane the grid's y (for ``fir_fft_lanes`` the
+twiddle table staged or read through L1).
 Each time is the device time of one call in a CUDA graph over 20 distinct
 inputs (``chip_smoke.device_ms``), with the error against the plain
 version; with ``--rounds N`` every layout is timed N times, each round in
 the reverse order of the last, and the median printed beside every round's
 time.
 
-    python3 port_plans.py [--first DIR] [--kernels fir,pfb,rotator] [--rounds N]
+    python3 port_plans.py [--first DIR] [--kernels fir,pfb,rotator,fir_lanes,fir_fft_lanes]
+                          [--rounds N]
 
 ``--first DIR`` also times the first design of ``rotator``, built from
 ``DIR/futuresdr_tpu_torch/csrc/rotator.cu`` of a checkout before its
@@ -37,7 +45,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ("fir", "pfb", "rotator")
+KERNELS = ("fir", "pfb", "rotator", "fir_lanes", "fir_fft_lanes")
+# the lane forms at their served shapes and beside them: (kernel, lanes, samples a
+# lane, taps)
+LANE_SHAPES = (("fir_lanes", 64, 512, 17), ("fir_lanes", 16, 1 << 18, 64),
+               ("fir_lanes", 256, 512, 17), ("fir_lanes", 4, 1 << 18, 64),
+               ("fir_lanes", 1, 1 << 18, 64),
+               ("fir_fft_lanes", 16, 1 << 18, 64), ("fir_fft_lanes", 4, 1 << 18, 64),
+               ("fir_fft_lanes", 2, 1 << 18, 64), ("fir_fft_lanes", 1, 1 << 18, 64),
+               ("fir_fft_lanes", 64, 1 << 14, 64))
 
 
 def first_rotator(root: Path, out: Path):
@@ -164,6 +180,37 @@ def main() -> int:
                rotator_plain, args)
         if first:
             report(f"rotator n={n} first design", rotator_first, rotator_plain, args)
+    for kernel, L, n, nt in LANE_SHAPES:
+        if kernel not in kernels:
+            continue
+        t = torch.randn(L, nt, generator=gen, device=dev)
+        args = [(cs.randc(L * (nt - 1), gen, dev).view(L, nt - 1),
+                 cs.randc(L * n, gen, dev).view(L, n)) for _ in range(cs.REPS)]
+        if kernel == "fir_lanes":
+            shape = (L, n, nt, 1, ck._sm_count(dev))
+
+            def kern(h, x, p, t=t):
+                return ck.fir_lanes(h, x, t, plan=p)
+
+            def plain(h, x, t=t):
+                return ck.fir_lanes_plain(h, x, t)
+        else:
+            shape = (L, n, cs.N_FFT, nt, ck._sm_count(dev))
+
+            def kern(h, x, p, t=t):
+                return ck.fir_fft_lanes(h, x, t, cs.N_FFT, plan=p)
+
+            def plain(h, x, t=t):
+                return ck.fir_fft_lanes_plain(h, x, t, cs.N_FFT)
+        for i, p in enumerate(ck.plan_candidates(kernel, *shape)):
+            if kernel == "fir_lanes":
+                fields = (f"threads={p.threads}, blocks={p.blocks} a lane, bufs={p.bufs}, "
+                          f"span_shift={p.span_shift}")
+            else:
+                fields = (f"threads={p.threads}, span_shift={p.span_shift}, "
+                          f"pad_shift={p.pad_shift}, tw_staged={p.tw_staged}")
+            report(f"{kernel} {L}x{n} {'rule' if i == 0 else 'layout'} {i} ({fields}, "
+                   f"smem={p.smem})", lambda h, x, p=p, kern=kern: kern(h, x, p), plain, args)
     # every layout once a round, the order reversed each round, so that a
     # drift of the card over the run reaches every layout alike
     for r in range(rounds):

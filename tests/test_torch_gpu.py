@@ -1323,7 +1323,7 @@ def test_int8_rungs_equal_the_cpu_on_card(cuda_device, decim):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["fir", "fir_fft", "poly_fir", "pfb", "rotator",
-                                    "quad_demod"])
+                                    "quad_demod", "fir_lanes", "fir_fft_lanes"])
 def test_sweep_candidates_launch_and_match_plain_on_card(cuda_device, kernel):
     """Every layout the plan sweep may pick launches at the main paths'
     shapes and matches the plain version at phase 7's limits."""
@@ -1397,30 +1397,57 @@ def test_interior_precision_kernel_streams_on_card(cuda_device):
 # the serving plane: the lane kernels and the served slot program
 # ---------------------------------------------------------------------------
 
+def _lane_cases():
+    """(kernel, L, case): every lane form at L = 1, 3, 4, 16, 64 with each
+    lane's own taps, history and phase; the FIR lane forms at L = 3 and 16
+    with shared taps (one row expanded, stride 0), in bf16, and on a layout
+    other than the rule's (``fir``: one warp a lane walking three tiles, the
+    last ragged, with two buffers; ``fir_fft``: the table read through L1);
+    ``fir`` on a real stream."""
+    cases = [(k, L, "own") for k in ("fir", "fir_fft", "rotator") for L in (1, 3, 4, 16, 64)]
+    cases += [(k, L, c) for k in ("fir", "fir_fft") for L in (3, 16)
+              for c in ("shared", "bf16", "layout")]
+    return cases + [("fir", L, "real") for L in (3, 16)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [1, 4, 64])
-@pytest.mark.parametrize("kernel", ["fir", "fir_fft", "rotator"])
-def test_lane_kernel_equals_one_stream_launches_on_card(cuda_device, kernel, L):
+@pytest.mark.parametrize("kernel,L,case", _lane_cases())
+def test_lane_kernel_equals_one_stream_launches_on_card(cuda_device, kernel, L, case):
     """Each lane of a lane launch equals the one-stream launch on its row bit
-    for bit (distinct taps, histories and phases a lane), one launch in all."""
+    for bit (distinct taps, histories and phases a lane, or shared taps), one
+    launch in all, and lies within its kernel's tolerance of the lane plain
+    version (fir 1e-5, fir_fft 1e-4)."""
     g = torch.Generator(device=cuda_device).manual_seed(L)
     n = 1 << 14 if kernel == "fir_fft" else 513 if kernel == "rotator" else 512
+    if kernel == "fir" and case == "layout":
+        n += 8                                        # three tiles, the last ragged
     nt = 64 if kernel == "fir_fft" else 17
-    x = torch.randn(L, n, dtype=torch.complex64, generator=g, device=cuda_device)
-    hist = torch.randn(L, nt - 1, dtype=torch.complex64, generator=g, device=cuda_device)
+    dtype = torch.float32 if case == "real" else torch.complex64
+    x = torch.randn(L, n, dtype=dtype, generator=g, device=cuda_device)
+    hist = torch.randn(L, nt - 1, dtype=dtype, generator=g, device=cuda_device)
     taps = torch.randn(L, nt, generator=g, device=cuda_device)
+    if case == "shared":
+        taps = taps[:1].expand(L, nt)
+    prec = "bf16" if case == "bf16" else None
+    plan = None
+    if case == "layout" and kernel == "fir":
+        plan = ck.FirPlan(32, 1, 3, 2, ck._fir_smem(1, 2, nt, 3, 8))
+    elif case == "layout":
+        shape = (L, n, 2048, nt, ck._sm_count(cuda_device))
+        plan = next(p for p in ck.plan_candidates("fir_fft_lanes", *shape)
+                    if not p.tw_staged and p.pad_shift == 4)
     ph0 = torch.rand(L, generator=g, device=cuda_device) * 6
     inc = torch.rand(L, generator=g, device=cuda_device) * 0.2 - 0.1
     name = ck.LANE_KERNELS[kernel]
     before = ck.launches[name]
     if kernel == "fir":
-        got = ck.fir_lanes(hist, x, taps)
-        per = [ck.fir_continue(hist[i], x[i], taps[i]) for i in range(L)]
-        plain = ck.fir_lanes_plain(hist, x, taps)
+        got = ck.fir_lanes(hist, x, taps, prec, plan=plan)
+        per = [ck.fir_continue(hist[i], x[i], taps[i].contiguous(), prec) for i in range(L)]
+        plain = ck.fir_lanes_plain(hist, x, taps, prec)
     elif kernel == "fir_fft":
-        got = ck.fir_fft_lanes(hist, x, taps, 2048)
-        per = [ck.fir_fft(hist[i], x[i], taps[i], 2048) for i in range(L)]
-        plain = ck.fir_fft_lanes_plain(hist, x, taps, 2048)
+        got = ck.fir_fft_lanes(hist, x, taps, 2048, prec, plan=plan)
+        per = [ck.fir_fft(hist[i], x[i], taps[i].contiguous(), 2048, prec) for i in range(L)]
+        plain = ck.fir_fft_lanes_plain(hist, x, taps, 2048, prec)
     else:
         got, nxt = ck.rotator_lanes(x, ph0, inc)
         pairs = [ck.rotator(x[i], ph0[i], inc[i]) for i in range(L)]

@@ -1081,9 +1081,11 @@ def _sweep_cases():
 def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
     """Each layout the sweep may pick, walked by its kernel's twin at the
     main path's shape (the poly_fir rows cut to 2,048 outputs where the
-    layout does not depend on them), against the plain version: the
-    tolerances of the twins' own tests (rel. 1e-6 ``fir``, ``poly_fir``;
-    1e-5 ``fir_fft``, ``pfb``; the sums' orders differ)."""
+    layout does not depend on them; the lane forms' batches cut to 3 lanes
+    of 2,048 samples and 2 lanes of 2 rows), against
+    the plain version: the tolerances of the twins' own tests (rel. 1e-6
+    ``fir``, ``poly_fir``, ``fir_lanes``; 1e-5 ``fir_fft``, ``pfb``,
+    ``fir_fft_lanes``; the sums' orders differ)."""
     plan = ck.plan_candidates(kernel, *shape)[i]
     seed = (sum(shape) + 31 * i) % 10_000
     if kernel == "fir":
@@ -1100,8 +1102,158 @@ def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
         hist, x, W = _poly_case(D, m, I, min(nq, 2048), bool(cplx), seed)
         tol = 1e-6 * max(1.0, D * (m + 1) / 1000)
         assert _rel(_poly_twin(hist, x, W, plan), ck.poly_fir_plain(hist, x, W)) <= tol
+    elif kernel == "fir_lanes":
+        L, n, nt, cplx, _n_sm = shape
+        hist, x, taps = _lanes_case(min(L, 3), min(n, 2048), nt, bool(cplx), seed)
+        got = _fir_lanes_twin(hist, x, taps, plan)
+        assert _rel(got, ck.fir_lanes_plain(hist, x, taps)) <= 1e-6
+    elif kernel == "fir_fft_lanes":
+        L, n, n_fft, nt, _n_sm = shape
+        hist, x, taps = _lanes_case(min(L, 2), 2 * n_fft, nt, True, seed)
+        got = _fir_fft_lanes_twin(hist, x, taps, n_fft, plan)
+        assert _rel(got, ck.fir_fft_lanes_plain(hist, x, taps, n_fft)) <= 1e-5
     else:
         N, K, t, _n_sm = shape
         hist, x, taps = _pfb_case(N, K, t, seed)
         twin = _pfb_twin if plan.window else _pfb_v_twin
         assert _rel(twin(hist, x, taps, plan), ck.pfb_plain(hist, x, taps)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the lane forms: fir_lanes and fir_fft_lanes
+# ---------------------------------------------------------------------------
+
+def _rows_of(t):
+    """``t [L, k]`` as the kernel sees it: the flat storage its rows lie in
+    (one row where the lanes share it, stride 0) and the row stride."""
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        return t[0].contiguous(), 0
+    return t.contiguous().reshape(-1), t.shape[1]
+
+
+def _lanes_twin(hist, x, taps, one_stream, out_dtype):
+    """A lane form's grid walk (``csrc/fir.cu``, ``fir_fft.cu``): grid y is
+    the lane, whose blocks offset hist, x, taps and y by its row strides and
+    run the one-stream walk ``one_stream(hist_row, x_row, taps_row)`` on its
+    row. The rows are cut from flat buffers of the tensors' own sizes (an
+    index past one raises), and every output of the ``[L, n]`` result is
+    written exactly once, into its own lane's row."""
+    L, n = x.shape
+    nt = taps.shape[1]
+    fx, xs = _rows_of(x)
+    ft, ts = _rows_of(taps)
+    fh, hs = (None, 0) if hist is None else _rows_of(hist)
+    y = torch.zeros(L * n, dtype=out_dtype)
+    writes = torch.zeros(L * n, dtype=torch.int64)
+    for lane in range(L):
+        row = lane * n + torch.arange(n)
+        y[row] = one_stream(None if fh is None else fh[lane * hs + torch.arange(nt - 1)],
+                            fx[lane * xs + torch.arange(n)], ft[lane * ts + torch.arange(nt)])
+        writes[row] += 1
+    assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
+    return y.view(L, n)
+
+
+def _fir_lanes_twin(hist, x, taps, plan, bf16=False):
+    return _lanes_twin(hist, x, taps, lambda h, xr, t: _fir_twin(h, xr, t, plan, bf16),
+                       x.dtype)
+
+
+def _fir_fft_lanes_twin(hist, x, taps, n, plan, bf16=False):
+    assert plan.radices == ck._fir_fft_rule(n, taps.shape[1]).radices   # one arithmetic
+    return _lanes_twin(hist, x, taps, lambda h, xr, t: _fir_fft_twin(h, xr, t, n, plan, bf16),
+                       torch.complex64)
+
+
+def _lanes_case(L, n, nt, complex_stream, seed, shared=False, zero_state=False):
+    rng = np.random.default_rng(seed)
+    if complex_stream:
+        hist = torch.from_numpy(np.stack([_c64(rng, nt - 1) for _ in range(L)]))
+        x = torch.from_numpy(np.stack([_c64(rng, n) for _ in range(L)]))
+    else:
+        hist = torch.from_numpy(rng.standard_normal((L, nt - 1)).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal((L, n)).astype(np.float32))
+    taps = torch.from_numpy(rng.standard_normal((L, nt)).astype(np.float32))
+    if shared:
+        taps = taps[:1].expand(L, nt)
+    return (None if zero_state else hist), x, taps
+
+
+_LANE_COUNTS = [1, 3, 16]
+_FIR_LANES_N = 2 * ck._FIR_WARP_OUTS - 37         # two tiles a lane, the last ragged
+
+
+@pytest.mark.parametrize("case", ["own", "shared", "zero state", "bf16", "real"])
+@pytest.mark.parametrize("L", _LANE_COUNTS)
+def test_fir_lanes_plans_match_plain(L, case):
+    """Every ``fir_lanes`` candidate (the one-stream layouts for a lane's
+    samples, the rule's first) at L lanes of two tiles, the last ragged, with
+    17 taps and ``n_sm`` cut to 3, against the lane plain version: every
+    output once, into its own lane's row."""
+    nt, cplx = 17, case != "real"
+    hist, x, taps = _lanes_case(L, _FIR_LANES_N, nt, cplx, 40 + L, shared=case == "shared",
+                                zero_state=case == "zero state")
+    prec = "bf16" if case == "bf16" else None
+    want = ck.fir_lanes_plain(hist, x, taps, prec)
+    cands = ck.plan_candidates("fir_lanes", L, _FIR_LANES_N, nt, int(cplx), 3)
+    assert cands[0] == ck.fir_lanes_plan(L, _FIR_LANES_N, nt, cplx, 3)
+    assert cands == ck.plan_candidates("fir", _FIR_LANES_N, nt, int(cplx), 3)
+    for plan in cands:
+        assert plan.smem <= ck._MAX_SMEM
+        got = _fir_lanes_twin(hist, x, taps, plan, bf16=prec == "bf16")
+        assert _rel(got, want) <= 1e-6, plan
+
+
+@pytest.mark.parametrize("case", ["own", "shared", "bf16", "real"])
+@pytest.mark.parametrize("L", _LANE_COUNTS)
+def test_fir_fft_lanes_plans_match_plain(L, case):
+    """Every ``fir_fft_lanes`` candidate (the rule, then the one-stream row
+    layouts) at L lanes of 3 rows of 128 with 17 taps and ``n_sm`` cut to 3,
+    against the lane plain version: every output once, into its own lane's
+    row; the rule reads the table through L1 once the batch puts more than
+    two rows on an SM."""
+    n, nt, rows, cplx = 128, 17, 3, case != "real"
+    hist, x, taps = _lanes_case(L, n * rows, nt, cplx, 50 + L, shared=case == "shared")
+    prec = "bf16" if case == "bf16" else None
+    want = ck.fir_fft_lanes_plain(hist, x, taps, n, prec)
+    cands = ck.plan_candidates("fir_fft_lanes", L, n * rows, n, nt, 3)
+    assert cands[0] == ck.fir_fft_lanes_plan(L, n * rows, n, nt, 3)
+    assert cands[0].tw_staged == (L * rows <= 2 * 3)
+    for plan in cands:
+        assert plan.smem <= ck._MAX_SMEM
+        got = _fir_fft_lanes_twin(hist, x, taps, n, plan, bf16=prec == "bf16")
+        assert _rel(got, want) <= 1e-5, plan
+
+
+@pytest.mark.parametrize("L,n,nt", [(64, 512, 17), (16, 1 << 18, 64), (1, 1 << 18, 64),
+                                    (2, 1 << 18, 64), (4, 1 << 18, 64)])
+def test_lane_plans_at_the_served_shapes(L, n, nt):
+    """The rules at the served shapes (serve_ab's 64 × 512, the main chain's
+    16 × 2^18) and beside them: ``fir_lanes`` runs the one-stream rule's plan
+    for a lane's samples on every lane; ``fir_fft_lanes`` the one-stream row
+    plan, the table read through L1 where the batch puts more than two rows
+    on an SM (here from 4 × 2^18). Every candidate fits the card's shared
+    memory."""
+    for cplx in (1, 0):
+        rule = ck.fir_lanes_plan(L, n, nt, bool(cplx))
+        assert rule == ck._fir_rule(n, nt, bool(cplx))
+        cands = ck.plan_candidates("fir_lanes", L, n, nt, cplx, 132)
+        assert cands[0] == rule and all(p.smem <= ck._MAX_SMEM for p in cands)
+    if (L, n) == (64, 512):
+        assert rule[:4] == (32, 2, 3, 1)              # one-warp blocks, two a lane
+    if (L, n) == (16, 1 << 18):
+        assert rule[:4] == (128, 256, 3, 1)           # a tile a warp, one buffer
+    n_fft = 2048
+    if n < n_fft:
+        return                                        # no fir_fft row at this frame
+    items = L * (n // n_fft)
+    rule = ck.fir_fft_lanes_plan(L, n, n_fft, nt)
+    row = ck.fir_fft_plan(n_fft, nt)
+    assert rule[:6] == row[:6] and rule.tw_staged == (items <= 2 * 132)
+    assert rule.tw_staged == (L <= 2)
+    assert rule.smem == ck._fir_fft_smem(n_fft, nt, row.span_shift, row.pad_shift,
+                                         row.tw_len if rule.tw_staged else 0)
+    cands = ck.plan_candidates("fir_fft_lanes", L, n, n_fft, nt, 132)
+    assert cands[0] == rule
+    for p in cands:
+        assert p.smem <= ck._MAX_SMEM and p.radices == row.radices
