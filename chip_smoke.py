@@ -217,9 +217,11 @@ lane-batched slot program, one CUDA graph a bucket):
 
 28. (a) the lane forms ``fir_lanes``, ``fir_fft_lanes`` and ``rotator_lanes``
     at L = 1, 3, 4, 16 and 64 with distinct taps, histories and phases, and
-    the FIR forms with shared taps (stride 0) at L = 3 and 16: each lane
-    bit-equal to the one-stream launch, and within the kernel's tolerance
-    of the lane plain version; (b) the main chain (``fir_fft_stage(64 taps,
+    the FIR forms with shared taps (stride 0) at L = 3 and 16, and
+    ``poly_fir_lanes`` (the FM channel filter's and the resampler's W, each
+    lane's own and one shared) and ``quad_demod_lanes`` at the served FM
+    frame at the same L: each lane bit-equal to the one-stream launch, and
+    within the kernel's tolerance of the lane plain version; (b) the main chain (``fir_fft_stage(64 taps,
     2048)`` + ``mag2_stage``) served at 2^18 to 16 sessions in buckets (1, 4,
     16), four of them retuned to their own taps: each session bit-equal to
     the bare compiled ``Pipeline`` on its frames, and N = 1 in the
@@ -229,11 +231,17 @@ lane-batched slot program, one CUDA graph a bucket):
     build after the first dispatch, one dispatch a busy frame time, every
     stream, an evict/readmit round trip and a session persisted at
     in-flight depth 3 and resumed by a new engine bit-equal to the bare
-    ``Pipeline``; (d) printed, beside the card: ``autotune_serve``'s ladder
-    and rates, one dispatch's card time, submit→result p99 under churn, and
-    the served sessions against as many independent compiled loops
-    (``perf/serve_ab.py``'s A/B); the lane kernels' timings join the
-    ``kernels`` line.
+    ``Pipeline``; (d) the FM front end (``fm_stages("kernel")``) served to 16
+    and 64 sessions of 32,000 input samples, each tuned to its own offset by
+    its own rotator increment, out of one wideband feed, with joins and
+    leaves: each session's audio bit-equal to its bare ``Pipeline``, and the
+    lane kernels' launches counted over these runs alone; (e) printed,
+    beside the card: ``autotune_serve``'s ladder and rates, one dispatch's
+    card time (the FM chain's at 16 and 64 sessions too, with its
+    session-frames/s), submit→result p99 under churn, and the served sessions
+    against as many independent compiled loops (``perf/serve_ab.py``'s A/B);
+    (f) the lane kernels' timings, the FM forms at 64 × 32,000 against the
+    one-stream launch a lane, which join the ``kernels`` line.
 
 The models' device plane (``models/wlan``, ``models/m17``, ``ops/viterbi.py``,
 ``models/{mcldnn,modrec}.py``):
@@ -4273,13 +4281,31 @@ AB_AB_STEPS = 40               # frame times of each A/B run
 LANES = (1, 3, 4, 16, 64)
 SHARED_TAP_LANES = (3, 16)     # lane counts of 28 (a)'s shared-taps cases
 LANE_REPS = 8                  # distinct inputs a lane timing's graph
-LANE_KERNELS = ("fir_lanes", "fir_fft_lanes", "rotator_lanes")
-LANE_OF = {"fir_lanes": "fir", "fir_fft_lanes": "fir_fft", "rotator_lanes": "rotator"}
+LANE_KERNELS = ("fir_lanes", "fir_fft_lanes", "rotator_lanes", "poly_fir_lanes",
+                "quad_demod_lanes")
+LANE_OF = {"fir_lanes": "fir", "fir_fft_lanes": "fir_fft", "rotator_lanes": "rotator",
+           "poly_fir_lanes": "poly_fir", "quad_demod_lanes": "quad_demod"}
+# the FM front end served (28 (d)): a session's input frame (a multiple of
+# 4 x 125: 1,536 audio samples), the session counts, the frame times of a run
+# and the sessions that leave at its middle frame time, as many joining
+FM_SERVE_FRAME = 32_000
+FM_SERVE_LANES = (16, 64)
+FM_SERVE_STEPS = 6
+FM_SERVE_CHURN = 4
+FM_SERVE_SPAN = 900e3          # the sessions' offsets spread over +-450 kHz
+FM_SERVE_RATE_STEPS = 20       # frame times of each session-frames/s run
+# the FM chain's two polyphase calls: (m, D, I) of the channel filter and of
+# the audio resampler
+FM_POLY = {"channel": (32, 4, 1), "resampler": (2, 125, 24)}
 # the shapes of the kernels line: the main chain's (16 lanes of 2^18) for
-# fir_fft_lanes, serve_ab's (64 lanes of 512) for fir_lanes and rotator_lanes
+# fir_fft_lanes, serve_ab's (64 lanes of 512) for fir_lanes and rotator_lanes,
+# the FM front end's (64 sessions of 32,000; the demod's 8,000) for the FM
+# forms (poly_fir_lanes: its two calls a frame summed)
 LANE_LINE_SHAPE = {"fir_fft_lanes": (SERVE_SESSIONS, SERVE_FRAME),
                    "fir_lanes": (AB_SESSIONS, AB_FRAME),
-                   "rotator_lanes": (AB_SESSIONS, AB_FRAME)}
+                   "rotator_lanes": (AB_SESSIONS, AB_FRAME),
+                   "poly_fir_lanes": (FM_SERVE_LANES[-1], FM_SERVE_FRAME),
+                   "quad_demod_lanes": (FM_SERVE_LANES[-1], FM_SERVE_FRAME // 4)}
 
 
 def serve_main_pipe(taps):
@@ -4297,10 +4323,14 @@ def serve_ab_pipe():
 def phase_serve_lanes(dev) -> dict:
     """28 (a): the lane forms of ``fir``, ``fir_fft`` and ``rotator`` at L = 1,
     3, 4, 16 and 64 with distinct taps, histories and phases a lane, and the
-    FIR forms with shared taps (one row expanded, stride 0) at L = 3 and 16:
-    each lane equal to the one-stream launch on its row bit for bit, and the
-    lane plain version (on the card) within the kernel's tolerance. Returns
-    the worst relative error a lane kernel."""
+    FIR forms with shared taps (one row expanded, stride 0) at L = 3 and 16;
+    ``poly_fir`` at the same L with the FM channel filter's W on ``[L,
+    32,000]`` complex64 and the resampler's on ``[L, 8,000]`` float32, each
+    with each lane's own W and with one W shared (stride 0), and
+    ``quad_demod`` on ``[L, 8,000]`` from each lane's own carry sample: each
+    lane equal to the one-stream launch on its row bit for bit, and the lane
+    plain version (on the card) within the kernel's tolerance. Returns the
+    worst error a lane kernel (relative; the demod's absolute, wrapped)."""
     import torch
 
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -4352,10 +4382,41 @@ def phase_serve_lanes(dev) -> dict:
             check(rel <= TOL["rotator"] and torch.equal(nxt, pn),
                   f"rotator_lanes L={L} n={n}: {rel:.2e} from its plain version")
             worst["rotator_lanes"] = max(worst["rotator_lanes"], rel)
+    n4 = FM_SERVE_FRAME // 4
+    for L in LANES:
+        for kind, (m, D, I) in FM_POLY.items():
+            n, dtype = (FM_SERVE_FRAME, torch.complex64) if kind == "channel" else \
+                (n4, torch.float32)
+            w_shape = (m + 1, D) if I == 1 else (m + 1, D, I)
+            for shared in (False, True):
+                what = f"poly_fir_lanes {kind} L={L}{' shared W' if shared else ''}"
+                W = torch.randn((1 if shared else L,) + w_shape, generator=gen,
+                                device=dev).expand((L,) + w_shape)
+                hist = torch.randn(L, m * D, dtype=dtype, generator=gen, device=dev)
+                x = torch.randn(L, n, dtype=dtype, generator=gen, device=dev)
+                y = ck.poly_fir_lanes(hist, x, W)
+                per = torch.stack([ck.poly_fir(hist[i], x[i], W[i].contiguous())
+                                   for i in range(L)])
+                check(torch.equal(y, per), f"{what}: a lane differs from the one-stream "
+                                           f"launch")
+                _, rel = rel_err(y, ck.poly_fir_lanes_plain(hist, x, W))
+                check(rel <= TOL["poly_fir"], f"{what}: {rel:.2e} from its plain version")
+                worst["poly_fir_lanes"] = max(worst["poly_fir_lanes"], rel)
+        x, prev = rc(L, n4), rc(L)
+        y, last = ck.quad_demod_lanes(prev, x, FM_GAIN)
+        per = [ck.quad_demod(prev[i], x[i], FM_GAIN) for i in range(L)]
+        check(torch.equal(y, torch.stack([p[0] for p in per])) and
+              torch.equal(last, torch.stack([p[1] for p in per])),
+              f"quad_demod_lanes L={L}: a lane differs from the one-stream launch")
+        err = demod_err(y, ck.quad_demod_lanes_plain(prev, x, FM_GAIN)[0])
+        check(err <= TOL["quad_demod"], f"quad_demod_lanes L={L}: {err:.2e} from its "
+                                        f"plain version")
+        worst["quad_demod_lanes"] = max(worst["quad_demod_lanes"], err)
     torch.cuda.synchronize()
     print(f"phase 28 (a): lane forms at L = {LANES} (shared taps at L = "
-          f"{SHARED_TAP_LANES}) bit-equal to the one-stream launches; "
-          f"worst against plain " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+          f"{SHARED_TAP_LANES}; the FM forms each lane's own W and one shared) "
+          f"bit-equal to the one-stream launches; worst against plain "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     return worst
 
 
@@ -4545,6 +4606,95 @@ def phase_serve_paths(dev, taps) -> dict:
     return {"launches": launches, "lat": lat, "engines": (eng, ab)}
 
 
+def fm_serve_pipe():
+    from futuresdr_tpu_torch.ops.stages import Pipeline
+    return Pipeline(fm_stages("kernel"), np.complex64)
+
+
+def fm_feed(n_frames: int, seed: int) -> list:
+    """The wideband feed the FM sessions share: three FM stations (1 kHz,
+    700 Hz and 1.3 kHz tones at 75 kHz deviation, at -300, 0 and +250 kHz)
+    in complex noise 20 dB down, ``n_frames`` frames of ``FM_SERVE_FRAME``
+    complex64 samples at ``FM_RATE``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_frames * FM_SERVE_FRAME) / FM_RATE
+    x = 0.1 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
+    for off, tone in ((-300e3, 1000.0), (0.0, 700.0), (250e3, 1300.0)):
+        msg = np.sin(2 * np.pi * tone * t)
+        x += np.exp(1j * (2 * np.pi * 75e3 * np.cumsum(msg) / FM_RATE + 2 * np.pi * off * t))
+    x = x.astype(np.complex64)
+    return [x[j * FM_SERVE_FRAME:(j + 1) * FM_SERVE_FRAME] for j in range(n_frames)]
+
+
+def _fm_theta(k: int, L: int) -> float:
+    """Session k's rotator increment: its offset spread over
+    ``FM_SERVE_SPAN`` (the joiners, k >= L, between the first L)."""
+    off = -FM_SERVE_SPAN / 2 + FM_SERVE_SPAN * (k % L + 0.5 * (k >= L)) / L
+    return float(-2 * np.pi * off / FM_RATE)
+
+
+def phase_serve_fm(dev) -> dict:
+    """28 (d): the FM front end served to each of ``FM_SERVE_LANES`` sessions
+    (bucket = L) for ``FM_SERVE_STEPS`` frame times, every session tuned to
+    its own offset by a lane retune of the rotator's increment at admission,
+    all fed the same wideband frames; at the middle frame time
+    ``FM_SERVE_CHURN`` sessions leave and as many join at new offsets. The
+    lane kernels' launches are counted from 0 over the engines' runs alone;
+    then each session's audio is held bit for bit against one bare compiled
+    ``Pipeline`` run on its frames from a fresh carry with its increment.
+    Returns ``{"launches", "engines"}``."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.serve import ServeEngine
+    feed = fm_feed(FM_SERVE_STEPS, SEED + 282)
+    ck.reset_launches()
+    runs = []
+    for L in FM_SERVE_LANES:
+        eng = ServeEngine(fm_serve_pipe(), frame_size=FM_SERVE_FRAME, app=f"serve_fm{L}",
+                          buckets=(L,), queue_frames=4, device=dev)
+        live, span, out = {}, {}, {}
+        for j in range(FM_SERVE_STEPS):
+            if j == FM_SERVE_STEPS // 2:
+                for k in range(FM_SERVE_CHURN):          # leaves, then joins
+                    gone = k * (L // FM_SERVE_CHURN)
+                    out[gone] += eng.results(live[gone].sid)
+                    eng.close(live.pop(gone).sid)
+                    span[gone] = (span[gone][0], j)
+            for k in ((range(L)) if j == 0 else
+                      range(L, L + FM_SERVE_CHURN) if j == FM_SERVE_STEPS // 2 else ()):
+                live[k] = eng.admit(tenant=f"t{k % 4}")
+                eng.retune(live[k].sid, "tuner", phase_inc=_fm_theta(k, L))
+                span[k], out[k] = (j, FM_SERVE_STEPS), []
+            for s in live.values():
+                check(eng.submit(s.sid, feed[j]), "an FM submit was refused")
+            check(eng.step() == L, "an FM step did not dispatch every lane")
+            for k, s in live.items():
+                out[k] += eng.results(s.sid)
+        check(eng.compiles == 1 and eng.dispatches == FM_SERVE_STEPS,
+              f"FM L={L}: {eng.compiles} builds, {eng.dispatches} dispatches")
+        runs.append((L, eng, span, out))
+    torch.cuda.synchronize()
+    launches = {k: ck.launches[k] for k in ck.launches}
+
+    # the comparisons, after the count
+    for L, eng, span, out in runs:
+        keys = sorted(out)
+        retunes = {i: (0, "tuner", {"phase_inc": _fm_theta(k, L)}) for i, k in enumerate(keys)}
+        ref = _bare_outputs(fm_serve_pipe(), FM_SERVE_FRAME,
+                            [feed[span[k][0]:span[k][1]] for k in keys], dev, retunes)
+        for i, k in enumerate(keys):
+            check(all(a.shape == (FM_SERVE_FRAME * 24 // 500,) and a.dtype == np.float32
+                      for a in out[k]), f"FM L={L} session {k}: audio of another shape")
+            _equal_streams(out[k], ref[i], f"FM L={L} session {k}")
+    print(f"phase 28 (d): the FM front end at {FM_SERVE_FRAME} input samples a session "
+          f"served to {FM_SERVE_LANES} sessions at their own offsets, {FM_SERVE_CHURN} "
+          f"leaving and {FM_SERVE_CHURN} joining mid-run: every session's audio bit-equal "
+          f"to the bare Pipeline; 1 build, {FM_SERVE_STEPS} dispatches a run; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in LANE_KERNELS if launches[k]))
+    return {"launches": launches, "engines": {L: eng for L, eng, _, _ in runs}}
+
+
 def _graph_card_ms(prog) -> float:
     """One replay of a slot program's CUDA graph, card time (queued behind a
     device sleep), median of REPS."""
@@ -4611,10 +4761,11 @@ def _run_served(pipe, data, frame, dev, steps: int, app: str, k: int = 1,
     return len(data) * k / float(np.median(durs)), (eng.dispatches - d0) / steps
 
 
-def phase_serve_measure(dev, taps, paths, card_line) -> dict:
-    """28 (d), printed figures, no claim: autotune_serve's ladder and rates,
-    one dispatch's card time, submit→result p99 under churn, and the served
-    sessions against as many independent compiled loops."""
+def phase_serve_measure(dev, taps, paths, fm, card_line) -> dict:
+    """28 (e), printed figures, no claim: autotune_serve's ladder and rates,
+    one dispatch's card time (the FM chain's at each of its session counts
+    too, with its session-frames/s), submit→result p99 under churn, and the
+    served sessions against as many independent compiled loops."""
     from futuresdr_tpu_torch.tpu import TpuInstance
     from futuresdr_tpu_torch.tpu.autotune import autotune_serve
     inst = TpuInstance(dev)
@@ -4628,13 +4779,23 @@ def phase_serve_measure(dev, taps, paths, card_line) -> dict:
             + f" [{card_line}]")
     eng_main, eng_ab = paths["engines"]
     out = {}
-    for label, eng in (("main chain", eng_main), ("serve_ab chain", eng_ab)):
+    engines = [("main chain", eng_main), ("serve_ab chain", eng_ab)]
+    engines += [(f"fm chain L={L}", eng) for L, eng in fm["engines"].items()]
+    for label, eng in engines:
         (cap, k, _tag), prog = next(iter(eng._programs.items()))
         ms = _graph_card_ms(prog)
         out[label] = ms
         print(f"serve dispatch {label} capacity {cap} frame={eng.frame_size}: card "
               f"{ms:.4f} ms a dispatch ({ms * 1e3 / cap:.2f} us a session-frame), "
               f"{prog.launches} [{card_line}]")
+    feed = fm_feed(4, SEED + 283)
+    for L in fm["engines"]:
+        got, disp = _run_served(fm_serve_pipe(), [feed] * L, FM_SERVE_FRAME, dev,
+                                FM_SERVE_RATE_STEPS, f"fm_rate{L}")
+        out[f"served fm chain L={L}"] = got
+        print(f"serve fm chain frame={FM_SERVE_FRAME} sessions={L}: {got:.1f} "
+              f"session-frames/s ({got * FM_SERVE_FRAME / 1e6:.1f} input Msamples/s), "
+              f"{disp:g} dispatches a frame time [{card_line}]")
     lat = np.asarray(paths["lat"]) * 1e3
     print(f"serve p99 submit->result serve_ab chain under churn ({AB_SESSIONS} sessions, "
           f"{AB_CHURN_EVENTS} join/leave events): {np.percentile(lat, 99):.3f} ms "
@@ -4720,18 +4881,128 @@ def lane_timings(dev, name: str, L: int, n: int) -> dict:
     return out
 
 
-def phase_serving(dev, taps, card_line) -> dict:
+def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
+    """28 (f): the FM front end's lane forms at the served shape, ``L``
+    sessions of ``FM_SERVE_FRAME``: the channel ``poly_fir`` on ``[L,
+    32,000]`` complex64 with each lane's W (the carry's), the resampler on
+    ``[L, 8,000]`` float32 with one W for every lane (stride 0), the demod on
+    ``[L, 8,000]``. Each: the lane kernel, its plain version, the per-lane
+    route (L one-stream launches and the stack, as the vmap rule ran them
+    before the lane forms), the library call (a strided grouped ``conv1d``
+    for the channel filter, one batched ``matmul`` over the Hankel rows for
+    the resampler; none for the demod, which gets a copy of its bytes and an
+    empty launch on its grid instead), all as device time in CUDA graphs
+    over ``LANE_REPS`` distinct inputs, and the bound from
+    ``utils/roofline.kernel_cost`` (a shared W read once). ``poly_fir_lanes``
+    is its two calls a frame summed, ``calls`` keeps each."""
+    import torch
+    import torch.nn.functional as F
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    n, n4 = FM_SERVE_FRAME, FM_SERVE_FRAME // 4
+
+    def rc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, generator=gen, device=dev)
+
+    def rr(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    w2 = rr(L, 33, 4)                                    # each lane's channel W
+    w3 = rr(1, 3, 125, 24).expand(L, 3, 125, 24)         # the resampler's, shared
+    chan = [(rc(L, 128), rc(L, n)) for _ in range(LANE_REPS)]
+    res = [(rr(L, 250), rr(L, n4)) for _ in range(LANE_REPS)]
+    dem = [(rc(L), rc(L, n4)) for _ in range(LANE_REPS)]
+    # library yardsticks, timed here only and never called by the port: the
+    # channel filter as conv1d at stride D, a group a lane's plane, each
+    # lane's full-rate taps W[m - j // D, j % D]; the resampler as the
+    # Hankel rows of each lane (a strided view) times W' [375, 24]
+    cw2 = w2.flip(1).reshape(L, -1).repeat_interleave(2, 0).unsqueeze(1).contiguous()
+    chan_lib = [(torch.view_as_real(torch.cat([h, x], 1)).permute(0, 2, 1)
+                 .reshape(1, 2 * L, -1).contiguous(),) for h, x in chan]
+    wp = w3[0].flip(0).reshape(375, 24).contiguous()
+    res_lib = [(torch.cat([h, x], 1),) for h, x in res]
+    w3_one = w3[0].contiguous()
+
+    def per_dem(p, x):
+        outs = [ck.quad_demod(p[i], x[i], FM_GAIN) for i in range(L)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    cb, co = kernel_cost("poly_fir", n=n, m=32, D=4)
+    rb, ro = kernel_cost("poly_fir", n=n4, m=2, D=125, I=24, complex=False)
+    db, do = kernel_cost("quad_demod", n=n4)
+    plan = {
+        "channel": (lambda h, x: ck.poly_fir_lanes(h, x, w2),
+                    lambda h, x: ck.poly_fir_lanes_plain(h, x, w2),
+                    lambda h, x: torch.stack([ck.poly_fir(h[i], x[i], w2[i])
+                                              for i in range(L)]),
+                    lambda p: F.conv1d(p, cw2, stride=4, groups=2 * L), chan, chan_lib,
+                    bound(L * cb, L * co)),
+        "resampler": (lambda h, x: ck.poly_fir_lanes(h, x, w3),
+                      lambda h, x: ck.poly_fir_lanes_plain(h, x, w3),
+                      lambda h, x: torch.stack([ck.poly_fir(h[i], x[i], w3_one)
+                                                for i in range(L)]),
+                      lambda e: torch.matmul(e.unfold(1, 375, 125), wp), res, res_lib,
+                      bound(L * rb - (L - 1) * 4 * w3_one.numel(), L * ro)),
+        "quad_demod_lanes": (lambda p, x: ck.quad_demod_lanes(p, x, FM_GAIN),
+                             lambda p, x: ck.quad_demod_lanes_plain(p, x, FM_GAIN),
+                             per_dem, None, dem, None, bound(L * db, L * do)),
+    }
+    out = {}
+    for name, (kern, plain, per_lane, lib, args, lib_args, (b_ms, b_by)) in plan.items():
+        got, ref = kern(*args[0]), plain(*args[0])
+        if name == "quad_demod_lanes":
+            err = demod_err(got[0], ref[0])
+        else:
+            err, _ = rel_err(got, ref)
+            check(torch.equal(got, per_lane(*args[0])), f"poly_fir_lanes {name}: a lane "
+                                                        f"differs from the one-stream launch")
+        out[name] = {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args[:2]),
+                     "per_lane_ms": device_ms(per_lane, args),
+                     "library_ms": device_ms(lib, lib_args) if lib else None,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    grid = -(-n4 // ck.QUAD_DEMOD_TILE) * L
+
+    def empty(p, x):
+        ck._raise_on(empty_lib.fsdr_empty(grid, 256, ck._stream(x)), "empty")
+
+    out["quad_demod_lanes"].update(
+        empty_ms=device_ms(empty, dem),
+        copy_ms=device_ms(lambda x, y: y.copy_(x.real),
+                          [(x, torch.empty(L, n4, device=dev)) for _, x in dem]))
+    ch, rs = out.pop("channel"), out.pop("resampler")
+    out["poly_fir_lanes"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "per_lane_ms",
+                                                         "library_ms", "bound_ms")}
+    out["poly_fir_lanes"].update(
+        max_abs_err=max(ch["max_abs_err"], rs["max_abs_err"]),
+        bound_by=max(ch, rs, key=lambda c: c["bound_ms"])["bound_by"],
+        calls={"channel": ch, "resampler": rs})
+    return out
+
+
+def phase_serving(dev, taps, card_line, empty_lib) -> dict:
     """Phase 28, the serving plane: (a) the lane kernels, (b) the main chain
     served at full width, (c) serve_ab's chain under churn, evict/readmit and
-    the persisted resume, (d) printed figures; lane timings for the kernels
-    line."""
+    the persisted resume, (d) the FM front end served to 16 and 64 sessions,
+    (e) printed figures, (f) lane timings for the kernels line. The lane
+    kernels' launches are those of (b)-(c) and of (d), each path's counted
+    from 0 over its own engines."""
     t0 = time.perf_counter()
     worst = phase_serve_lanes(dev)
     paths = phase_serve_paths(dev, taps)
-    measured = phase_serve_measure(dev, taps, paths, card_line)
+    fm = phase_serve_fm(dev)
+    launches = {k: paths["launches"][k] + fm["launches"][k] for k in paths["launches"]}
+    measured = phase_serve_measure(dev, taps, paths, fm, card_line)
     timings = {}
-    for name in LANE_KERNELS:
+    for name in ("fir_lanes", "fir_fft_lanes", "rotator_lanes"):
         shapes = {LANE_LINE_SHAPE[name], (SERVE_SESSIONS, SERVE_FRAME)}
+        if name == "rotator_lanes":
+            shapes.add((FM_SERVE_LANES[-1], FM_SERVE_FRAME))    # the FM tuner's
         for L, n in sorted(shapes):
             t = lane_timings(dev, name, L, n)
             timings[(name, L, n)] = t
@@ -4740,8 +5011,25 @@ def phase_serving(dev, taps, card_line) -> dict:
             print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}){yard} [{card_line}]")
+    L = FM_SERVE_LANES[-1]
+    fm_t = fm_lane_timings(dev, empty_lib, L)
+    rows = [(f"poly_fir_lanes/{c}", n, t)
+            for (c, t), n in zip(fm_t["poly_fir_lanes"]["calls"].items(),
+                                 (FM_SERVE_FRAME, FM_SERVE_FRAME // 4))]
+    rows += [("poly_fir_lanes", FM_SERVE_FRAME, fm_t["poly_fir_lanes"]),
+             ("quad_demod_lanes", FM_SERVE_FRAME // 4, fm_t["quad_demod_lanes"])]
+    for name, n, t in rows:
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        yard = "" if "copy_ms" not in t else (
+            f", empty launch {t['empty_ms']:.4f} ms, copy of its bytes {t['copy_ms']:.4f} ms")
+        print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
+              f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){yard} [{card_line}]")
+    timings[("poly_fir_lanes", *LANE_LINE_SHAPE["poly_fir_lanes"])] = fm_t["poly_fir_lanes"]
+    timings[("quad_demod_lanes", *LANE_LINE_SHAPE["quad_demod_lanes"])] = \
+        fm_t["quad_demod_lanes"]
     print(f"phase 28: {time.perf_counter() - t0:.1f} s")
-    return {"worst": worst, "launches": paths["launches"], "timings": timings,
+    return {"worst": worst, "launches": launches, "timings": timings,
             "measured": measured}
 
 
@@ -7568,7 +7856,13 @@ def main(argv=None) -> int:
         stress(dev, stress_runs)
         return 0
     if args.serving:
-        phase_serving(dev, firdes.lowpass(0.2, N_TAPS).astype(np.float32), card_line)
+        serving = phase_serving(dev, firdes.lowpass(0.2, N_TAPS).astype(np.float32),
+                                card_line, empty_lib)
+        for k in LANE_KERNELS:
+            check(serving["launches"][k] > 0, f"lane kernel {k} was launched no time on "
+                                              f"the served paths")
+        print("phase 28 launches: " + ", ".join(f"{k} {serving['launches'][k]}"
+                                               for k in LANE_KERNELS))
         return 0
     if args.models:
         phase_models(dev, card_line, empty_lib)
@@ -7681,9 +7975,10 @@ def main(argv=None) -> int:
                            phase_precision, dev, taps)
     print(f"phase 27: {time.perf_counter() - t27:.1f} s")
     # 28. the serving plane: the lane kernels, the main chain served at full
-    #     width, serve_ab's chain under churn, the printed figures; the lane
-    #     kernels' launches counted over the engines' runs alone
-    serving = phase_serving(dev, taps, card_line)
+    #     width, serve_ab's chain under churn, the FM front end served to 16
+    #     and 64 sessions, the printed figures; the lane kernels' launches
+    #     counted over the engines' runs alone
+    serving = phase_serving(dev, taps, card_line, empty_lib)
     by_phase["serving"] = {k: serving["launches"][k] for k in LANE_KERNELS}
     for k in LANE_KERNELS:
         check(serving["launches"][k] > 0, f"lane kernel {k} was launched no time on the "
@@ -7781,7 +8076,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(serving["worst"][k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{y: t[y] for y in ("copy_ms",) if y in t}})
+            **{y: t[y] for y in ("per_lane_ms", "copy_ms", "empty_ms", "calls") if y in t}})
     t = models["viterbi"]
     line["kernels"].append({
         "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,

@@ -59,6 +59,22 @@
 // bf16 mode (precision="bf16"): samples and weights are rounded to bf16 when they
 // are staged; their products are exact in FP32 and accumulate in FP32. W may
 // arrive as bf16 (the stage's carried weights): it is widened exactly.
+//
+// Lanes (fsdr_poly_fir_lanes, the serving plane's [L, nq * D] batch, the
+// counterpart of jax.vmap over pallas_poly_fir): the lane is the grid's y
+// dimension. Each block first moves its hist, x, W and y pointers to its lane's
+// rows (strides in elements; W's stride 0 is one W shared by every lane, read
+// from the same addresses, so L2 serves it once), then runs the one-stream
+// kernel's code. A lane's order of summation is set by the tiling and its K
+// split alone (the rows a block takes only cut the outputs among blocks), and
+// the lane plan (cuda_kernels.poly_fir_lanes_plan) keeps both from the
+// one-stream plan of a lane's shape, so each lane is bit-equal to a one-stream
+// launch; what it chooses over the whole batch is the rows a block. Served FM
+// at 64 sessions of 32,000 input samples: the channel filter moves 20.5 MB
+// (6.1 us at 3.35 TB/s), the resampler does 74 MFLOP (1.1 us at 67 TFLOP/s),
+// where one launch a lane paid 64 launch latencies and the resampler's
+// one-stream plan for 64 rows (4 rows a block, so that one stream fills the
+// card) staged its 36 KB W 1,024 times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,8 +240,13 @@ template <typename T, bool BF16, typename WT, int R, int C>
 __global__ void __launch_bounds__(kMaxThreads)
 poly_fir_rows(const T* __restrict__ hist, const T* __restrict__ x,
               const WT* __restrict__ W, T* __restrict__ y, long long nq, int m, int D,
-              int pad) {
+              int pad, long long hs, long long xs, long long ws, long long ys) {
   static_assert(R % 4 == 0, "weights load 4 at a time");
+  const long long batch_lane = blockIdx.y;       // the lane form's stream
+  hist += batch_lane * hs;
+  x += batch_lane * xs;
+  W += batch_lane * ws;
+  y += batch_lane * ys;
   extern __shared__ float4 smem4[];
   const int pw = w_pitch(m);
   float* s_w = reinterpret_cast<float*>(smem4);                 // [D][pw]
@@ -312,7 +333,13 @@ template <typename T, bool BF16, typename WT, int RM, int RN>
 __global__ void __launch_bounds__(kMaxThreads)
 poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
               const WT* __restrict__ W, T* __restrict__ y, long long nq, int m, int D,
-              int I, int tm, int ks) {
+              int I, int tm, int ks, long long hs, long long xs, long long ws,
+              long long ys) {
+  const long long batch_lane = blockIdx.y;       // the lane form's stream
+  hist += batch_lane * hs;
+  x += batch_lane * xs;
+  W += batch_lane * ws;
+  y += batch_lane * ys;
   extern __shared__ float2 smem[];
   const int J = (m + 1) * D;
   float* s_w = reinterpret_cast<float*>(smem);                  // W as given, [J][I]
@@ -399,17 +426,26 @@ poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
   }
 }
 
+// The lanes and their strides in elements (one stream: 1 lane, strides 0).
+struct Lanes {
+  int lanes;
+  long long hs, xs, ws, ys;
+};
+
 template <typename T, bool BF16, typename WT>
 cudaError_t launch(const void* hist, const void* x, const void* W, void* y, long long nq,
                    int m, int D, int I, int gemm, int threads, int rows, int tile_rows,
-                   int tile_phases, int ks, int pad, size_t smem, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((nq + rows - 1) / rows);
+                   int tile_phases, int ks, int pad, size_t smem, const Lanes& ln,
+                   cudaStream_t stream) {
+  const dim3 blocks(static_cast<unsigned>((nq + rows - 1) / rows),
+                    static_cast<unsigned>(ln.lanes));
   auto h = static_cast<const T*>(hist);
   auto xx = static_cast<const T*>(x);
   auto w = static_cast<const WT*>(W);
   auto yy = static_cast<T*>(y);
   if (gemm) {
-    void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int, int, int) =
+    void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int, int, int,
+                 long long, long long, long long, long long) =
         tile_rows != 4        ? nullptr
         : tile_phases == 3    ? poly_fir_gemm<T, BF16, WT, 4, 3>
         : tile_phases == 4    ? poly_fir_gemm<T, BF16, WT, 4, 4>
@@ -421,11 +457,13 @@ cudaError_t launch(const void* hist, const void* x, const void* W, void* y, long
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, I, rows, ks);
+    kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, I, rows, ks, ln.hs,
+                                            ln.xs, ln.ws, ln.ys);
     return cudaGetLastError();
   }
   // "rows": R = 8 rows a group; C = ks lanes a group (a power of two, <= 4)
-  void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int) =
+  void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int, long long,
+               long long, long long, long long) =
       tile_rows != 8 ? nullptr
       : ks == 1      ? poly_fir_rows<T, BF16, WT, 8, 1>
       : ks == 2      ? poly_fir_rows<T, BF16, WT, 8, 2>
@@ -439,24 +477,46 @@ cudaError_t launch(const void* hist, const void* x, const void* W, void* y, long
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, pad);
+  kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, pad, ln.hs, ln.xs, ln.ws,
+                                          ln.ys);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* hist, const void* x, const void* W, void* y, long long nq,
                      int m, int D, int I, int bf16, int w_bf16, int gemm, int threads,
-                     int rows, int tr, int tp, int ks, int pad, size_t smem, cudaStream_t s) {
+                     int rows, int tr, int tp, int ks, int pad, size_t smem, const Lanes& ln,
+                     cudaStream_t s) {
   if (w_bf16) {
     return bf16 ? launch<T, true, __nv_bfloat16>(hist, x, W, y, nq, m, D, I, gemm, threads,
-                                                 rows, tr, tp, ks, pad, smem, s)
+                                                 rows, tr, tp, ks, pad, smem, ln, s)
                 : launch<T, false, __nv_bfloat16>(hist, x, W, y, nq, m, D, I, gemm, threads,
-                                                  rows, tr, tp, ks, pad, smem, s);
+                                                  rows, tr, tp, ks, pad, smem, ln, s);
   }
   return bf16 ? launch<T, true, float>(hist, x, W, y, nq, m, D, I, gemm, threads, rows, tr,
-                                       tp, ks, pad, smem, s)
+                                       tp, ks, pad, smem, ln, s)
               : launch<T, false, float>(hist, x, W, y, nq, m, D, I, gemm, threads, rows, tr,
-                                        tp, ks, pad, smem, s);
+                                        tp, ks, pad, smem, ln, s);
+}
+
+int run(const void* hist, const void* x, const void* W, void* y, long long nq, int m, int D,
+        int I, int is_complex, int bf16, int w_bf16, int gemm, int threads, int rows,
+        int tile_rows, int tile_phases, int ksplit, int pad, long long smem, const Lanes& ln,
+        void* stream) {
+  if (nq <= 0 || ln.lanes == 0) return 0;
+  const size_t want =
+      smem_bytes(gemm, m, D, I, rows, tile_rows, ksplit, pad, is_complex ? 8 : 4);
+  if (static_cast<size_t>(smem) != want || threads < 1 || threads > kMaxThreads ||
+      rows < 1 || ln.lanes < 0 || ln.lanes > 65535 || (ln.lanes > 1 && ln.ys < nq * I)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_complex) {
+    return dispatch<float2>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
+                            tile_rows, tile_phases, ksplit, pad, want, ln, s);
+  }
+  return dispatch<float>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
+                         tile_rows, tile_phases, ksplit, pad, want, ln, s);
 }
 
 }  // namespace
@@ -474,18 +534,22 @@ extern "C" int fsdr_poly_fir(const void* hist, const void* x, const void* W, voi
                              int w_bf16, int gemm, int threads, int rows, int tile_rows,
                              int tile_phases, int ksplit, int pad, long long smem,
                              void* stream) {
-  if (nq <= 0) return 0;
-  const size_t want =
-      smem_bytes(gemm, m, D, I, rows, tile_rows, ksplit, pad, is_complex ? 8 : 4);
-  if (static_cast<size_t>(smem) != want || threads < 1 || threads > kMaxThreads ||
-      rows < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_complex) {
-    return dispatch<float2>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
-                            tile_rows, tile_phases, ksplit, pad, want, s);
-  }
-  return dispatch<float>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
-                         tile_rows, tile_phases, ksplit, pad, want, s);
+  return run(hist, x, W, y, nq, m, D, I, is_complex, bf16, w_bf16, gemm, threads, rows,
+             tile_rows, tile_phases, ksplit, pad, smem, Lanes{1, 0, 0, 0, 0}, stream);
+}
+
+// The lane form: `lanes` streams, lane l's history at hist + l * hs, its frame
+// at x + l * xs, its W at W + l * ws (ws = 0: one W for every lane) and its
+// nq * I outputs at y + l * ys (strides in elements; the output rows must not
+// overlap). The plan is the one-stream plan's layout with rows a block chosen
+// for the batch (cuda_kernels.poly_fir_lanes_plan). Returns as fsdr_poly_fir.
+extern "C" int fsdr_poly_fir_lanes(const void* hist, const void* x, const void* W, void* y,
+                                   long long nq, int m, int D, int I, int is_complex,
+                                   int bf16, int w_bf16, int gemm, int threads, int rows,
+                                   int tile_rows, int tile_phases, int ksplit, int pad,
+                                   long long smem, int lanes, long long hs, long long xs,
+                                   long long ws, long long ys, void* stream) {
+  return run(hist, x, W, y, nq, m, D, I, is_complex, bf16, w_bf16, gemm, threads, rows,
+             tile_rows, tile_phases, ksplit, pad, smem, Lanes{lanes, hs, xs, ws, ys},
+             stream);
 }

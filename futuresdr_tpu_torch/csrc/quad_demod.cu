@@ -15,6 +15,16 @@
 // shift of one lane across 128-lane tiles has no counterpart: a thread reads
 // its neighbour directly.
 //
+// Lanes (fsdr_quad_demod_lanes, the serving plane's [L, n] batch, the
+// counterpart of jax.vmap over pallas_quad_demod): the lane is the grid's y
+// dimension, as in rotator.cu. Lane l reads its row of x and writes its row of
+// y (rows xs and ys elements apart), its own prev[l], and its last thread
+// writes last[l]; gain is shared. A lane runs exactly the one-stream kernel's
+// arithmetic on its row, so each lane is bit-equal to a one-stream launch.
+// 64 lanes of 8,000 samples (the FM front end served at 32,000 input samples
+// a session) move 6.1 MB, about 1.8 us at 3.35 TB/s: one launch where one a
+// lane paid 64 launch latencies.
+//
 // Numerics: Re z = xr*pr + xi*pi and Im z = xi*pr - xr*pi as the TPU kernel
 // forms them, each product and sum rounded on its own (__fmul_rn / __fadd_rn,
 // no contraction into FMAs), then the full-precision atan2f and one rounded
@@ -29,9 +39,14 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 quad_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ prev,
                   float* __restrict__ y, float2* __restrict__ last, long long n,
-                  float gain) {
+                  float gain, long long xs, long long ys) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= n) return;
+  const unsigned lane = blockIdx.y;
+  x += lane * xs;
+  y += lane * ys;
+  prev += lane;
+  last += lane;
   const float2 v = x[t];
   const float2 p = t == 0 ? *prev : x[t - 1];
   const float zr = __fadd_rn(__fmul_rn(v.x, p.x), __fmul_rn(v.y, p.y));
@@ -40,16 +55,35 @@ quad_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ prev,
   if (t == n - 1) *last = v;
 }
 
+int run(const void* x, const void* prev, void* y, void* last, long long n, float gain,
+        int lanes, long long xs, long long ys, void* stream) {
+  if (n <= 0 || lanes == 0) return 0;
+  if (lanes < 0 || lanes > 65535 || (lanes > 1 && (xs < n || ys < n))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(lanes));
+  quad_demod_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<const float2*>(prev),
+      static_cast<float*>(y), static_cast<float2*>(last), n, gain, xs, ys);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: n complex64 samples; prev: the sample before x; y: n float32 outputs;
 // last: receives x[n - 1]. Returns cudaGetLastError() after the launch.
 extern "C" int fsdr_quad_demod(const void* x, const void* prev, void* y, void* last,
                                long long n, float gain, void* stream) {
-  if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  quad_demod_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(prev),
-      static_cast<float*>(y), static_cast<float2*>(last), n, gain);
-  return cudaGetLastError();
+  return run(x, prev, y, last, n, gain, 1, 0, 0, stream);
+}
+
+// The lane form: `lanes` rows of n samples, lane l's at x + l * xs and
+// y + l * ys (elements), its carry sample prev[l] and its next carry last[l]
+// (`lanes` complex64 each, contiguous). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for rows that overlap.
+extern "C" int fsdr_quad_demod_lanes(const void* x, const void* prev, void* y, void* last,
+                                     long long n, float gain, int lanes, long long xs,
+                                     long long ys, void* stream) {
+  return run(x, prev, y, last, n, gain, lanes, xs, ys, stream);
 }

@@ -37,13 +37,14 @@ Under ``torch.func.vmap`` (the serving plane's slot program, ``serve/engine.py``
 each wrapper hands its batched call to a ``torch.library.custom_op`` of its
 own (``fsdr::fir`` …), whose CPU and CUDA implementations are the wrapper's
 plain version and launch, and whose ``register_vmap`` rule runs the batch:
-``fir``, ``fir_fft`` and ``rotator`` as one launch of their **lane forms**
-(:func:`fir_lanes`, :func:`fir_fft_lanes`, :func:`rotator_lanes`: the lane a
-grid dimension, each lane the one-stream kernel's arithmetic on its own row,
-its own taps, history and phase, the FIR forms' plans chosen for the batch by
-:func:`fir_lanes_plan` and :func:`fir_fft_lanes_plan`; ``*_lanes_plain`` their
-plain versions), ``poly_fir``, ``quad_demod`` and ``pfb`` as one one-stream
-launch a lane.
+``fir``, ``fir_fft``, ``rotator``, ``poly_fir`` and ``quad_demod`` as one
+launch of their **lane forms** (:func:`fir_lanes`, :func:`fir_fft_lanes`,
+:func:`rotator_lanes`, :func:`poly_fir_lanes`, :func:`quad_demod_lanes`: the
+lane a grid dimension, each lane the one-stream kernel's arithmetic on its own
+row, its own taps or weights, history, phase or carry sample, the plans of
+the FIR and polyphase forms chosen for the batch by :func:`fir_lanes_plan`,
+:func:`fir_fft_lanes_plan` and :func:`poly_fir_lanes_plan`; ``*_lanes_plain``
+their plain versions), ``pfb`` as one one-stream launch a lane.
 
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
@@ -58,7 +59,8 @@ cos/sin matrix, while the kernel keeps float32 twiddles.
 The TPU block-shape table (``DEFAULT_BLOCKS``, ``set_tuned_blocks``) becomes
 a table of plans: each kernel's plan function (:func:`fir_plan`,
 :func:`fir_fft_plan`, :func:`poly_fir_plan`, :func:`pfb_plan`,
-:func:`fir_lanes_plan`, :func:`fir_fft_lanes_plan`) returns the
+:func:`fir_lanes_plan`, :func:`fir_fft_lanes_plan`,
+:func:`poly_fir_lanes_plan`) returns the
 plan a sweep measured best at that shape (:func:`set_tuned_plans`,
 ``tpu/kernel_tune.py``), else its rule's pick; a plan passed to a wrapper
 (``plan=``) beats both. ``rotator`` and ``quad_demod`` have one layout each.
@@ -78,18 +80,20 @@ import torch
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
            "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
            "poly_fir_plain", "quad_demod_plain", "pfb_plain", "fir_lanes", "fir_fft_lanes",
-           "rotator_lanes", "fir_lanes_plain", "fir_fft_lanes_plain",
-           "rotator_lanes_plain", "LANE_KERNELS", "launches",
+           "rotator_lanes", "poly_fir_lanes", "quad_demod_lanes", "fir_lanes_plain",
+           "fir_fft_lanes_plain", "rotator_lanes_plain", "poly_fir_lanes_plain",
+           "quad_demod_lanes_plain", "LANE_KERNELS", "launches",
            "reset_launches", "capturing", "PLAN_KERNELS", "plan_candidates",
            "set_tuned_plans", "tuned_plans", "normalize_plans", "fir_plan",
            "fir_fft_plan", "poly_fir_plan", "pfb_plan", "fir_lanes_plan",
-           "fir_fft_lanes_plan"]
+           "fir_fft_lanes_plan", "poly_fir_lanes_plan"]
 
 #: launches per kernel since the last :func:`reset_launches`: the six kernels,
-#: then the lane forms of three (:data:`LANE_KERNELS`)
+#: then the lane forms of five (:data:`LANE_KERNELS`)
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
                             "quad_demod": 0, "pfb": 0, "fir_lanes": 0,
-                            "fir_fft_lanes": 0, "rotator_lanes": 0}
+                            "fir_fft_lanes": 0, "rotator_lanes": 0, "poly_fir_lanes": 0,
+                            "quad_demod_lanes": 0}
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -625,6 +629,39 @@ def _poly_fir_rule(m: int, D: int, I: int, nq: int, is_complex: bool,
         tm = max(1, tm // 2)
 
 
+_POLY_LANES_THREADS = (64, 128, 256)     # "rows" lane layouts: threads a block
+
+
+def _same_order(plan: PolyFirPlan, row: PolyFirPlan) -> bool:
+    """Does ``plan`` sum every output in the order of ``row``? The tiling,
+    its K split and the "rows" R fix the order; the rows a block and the
+    threads only cut the outputs among blocks."""
+    return (plan.tiling, plan.ksplit, plan.tile_rows) == (row.tiling, row.ksplit, row.tile_rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def _poly_fir_lanes_rule(L: int, row: PolyFirPlan, m: int, D: int, I: int, nq: int,
+                         is_complex: bool, n_sm: int = 132) -> PolyFirPlan:
+    """The lane form's plan for ``L`` streams whose one-stream plan is
+    ``row``: ``row``'s tiling and K split, so each lane sums in a one-stream
+    launch's order, and the rows a block chosen over the batch. "gemm" takes
+    the most rows (64 … 4) that still give ``L·⌈nq/rows⌉`` blocks 7/8 of a
+    block per SM, where one stream's rule cuts them to fill the card alone
+    (the FM resampler's 64 rows a session: 4 rows a block, so 1,024 blocks
+    at 64 sessions, each staging the 36 KB W); where that layout does not fit
+    in shared memory the rows halve. "rows" keeps the one-stream layout,
+    whose blocks do not depend on ``nq``."""
+    if row.tiling == "rows":
+        return row
+    elt = 8 if is_complex else 4
+    tm = next((t for t in _GEMM_TM if L * -(-nq // t) * 8 >= n_sm * 7), _GEMM_TM[-1])
+    while True:
+        smem = _poly_fir_smem("gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, elt)
+        if smem <= _MAX_SMEM or tm == 1:
+            return row._replace(rows=tm, smem=smem)
+        tm = max(1, tm // 2)
+
+
 class FirPlan(NamedTuple):
     """How ``csrc/fir.cu`` tiles a stream: tiles of 256 outputs, one a warp at
     a time, each warp staging and filtering its tiles on its own (8 outputs a
@@ -808,16 +845,18 @@ _QUAD_DEMOD_PLAN = FixedPlan(256, QUAD_DEMOD_TILE)
 
 #: the kernels whose plans a sweep measures
 PLAN_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb", "rotator", "quad_demod", "fir_lanes",
-                "fir_fft_lanes")
+                "fir_fft_lanes", "poly_fir_lanes")
 _PLAN_TYPES = {"fir": FirPlan, "fir_fft": FirFftPlan, "poly_fir": PolyFirPlan,
                "pfb": PfbPlan, "rotator": FixedPlan, "quad_demod": FixedPlan,
-               "fir_lanes": FirPlan, "fir_fft_lanes": FirFftPlan}
+               "fir_lanes": FirPlan, "fir_fft_lanes": FirFftPlan,
+               "poly_fir_lanes": PolyFirPlan}
 #: each kernel's shape: the arguments of its plan function
 PLAN_SHAPES = {"fir": ("n", "nt", "is_complex", "n_sm"), "fir_fft": ("n_fft", "n_taps"),
                "poly_fir": ("m", "D", "I", "nq", "is_complex", "n_sm"),
                "pfb": ("n", "k", "t", "n_sm"), "rotator": ("n",), "quad_demod": ("n",),
                "fir_lanes": ("L", "n", "nt", "is_complex", "n_sm"),
-               "fir_fft_lanes": ("L", "n", "n_fft", "n_taps", "n_sm")}
+               "fir_fft_lanes": ("L", "n", "n_fft", "n_taps", "n_sm"),
+               "poly_fir_lanes": ("L", "m", "D", "I", "nq", "is_complex", "n_sm")}
 _tuned_lock = threading.Lock()
 _tuned: Dict[str, Dict[tuple, tuple]] = {}     # kernel -> {shape: plan}
 #: the plan of each kernel's latest launch (a recorded plan reaches the kernel)
@@ -900,6 +939,21 @@ def plan_candidates(kernel: str, *shape) -> list:
         L, n, n_fft, nt, n_sm = shape
         out = [_fir_fft_lanes_rule(L, n, n_fft, nt, n_sm)] + plan_candidates("fir_fft", n_fft,
                                                                               nt)
+    elif kernel == "poly_fir_lanes":
+        # the one-stream rule's layout with other rows a block: the same order
+        L, m, D, I, nq, cplx, n_sm = shape
+        elt = 8 if cplx else 4
+        row = _poly_fir_rule(m, D, I, nq, bool(cplx), n_sm)
+        out = [_poly_fir_lanes_rule(L, row, m, D, I, nq, bool(cplx), n_sm), row]
+        if row.tiling == "rows":
+            for th in _POLY_LANES_THREADS:
+                rows = th // row.ksplit * row.tile_rows
+                out.append(row._replace(threads=th, rows=rows, smem=_poly_fir_smem(
+                    "rows", m, D, I, rows, row.tile_rows, row.ksplit, row.pad, elt)))
+        else:
+            for tm in _GEMM_TM:
+                out.append(row._replace(rows=tm, smem=_poly_fir_smem(
+                    "gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, elt)))
     elif kernel == "rotator":
         out = [_ROTATOR_PLAN]
     elif kernel == "quad_demod":
@@ -1010,6 +1064,20 @@ def poly_fir_plan(m: int, D: int, I: int, nq: int, is_complex: bool,
         _poly_fir_rule(m, D, I, nq, is_complex, n_sm)
 
 
+def poly_fir_lanes_plan(L: int, m: int, D: int, I: int, nq: int, is_complex: bool,
+                        n_sm: int = 132) -> PolyFirPlan:
+    """The ``poly_fir_lanes`` plan of a batch: the tuned table's where it
+    sums in the order of a lane's one-stream plan (:func:`poly_fir_plan`,
+    which the bare chain launches), else :func:`_poly_fir_lanes_rule` on that
+    plan, so a served lane stays bit-equal to the bare chain whatever either
+    table holds."""
+    row = poly_fir_plan(m, D, I, nq, is_complex, n_sm)
+    tuned = _tuned_plan("poly_fir_lanes", (L, m, D, I, nq, int(is_complex), n_sm))
+    if tuned is not None and _same_order(tuned, row):
+        return tuned
+    return _poly_fir_lanes_rule(L, row, m, D, I, nq, is_complex, n_sm)
+
+
 def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     """The ``pfb`` plan: the tuned table's, else :func:`_pfb_rule`."""
     return _tuned_plan("pfb", (n, k, t, n_sm)) or _pfb_rule(n, k, t, n_sm)
@@ -1055,6 +1123,9 @@ def _lib(name: str):
             lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
                                           i, i, i, i, ll, vp]
             lib.fsdr_poly_fir.restype = i
+            lib.fsdr_poly_fir_lanes.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
+                                                i, i, i, i, ll, i, ll, ll, ll, ll, vp]
+            lib.fsdr_poly_fir_lanes.restype = i
         elif name == "pfb":
             lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, vp, vp, ll, i, i, i,
                                      ctypes.POINTER(i), ll, vp]
@@ -1062,6 +1133,9 @@ def _lib(name: str):
         else:
             lib.fsdr_quad_demod.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, vp]
             lib.fsdr_quad_demod.restype = i
+            lib.fsdr_quad_demod_lanes.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, i, ll,
+                                                  ll, vp]
+            lib.fsdr_quad_demod_lanes.restype = i
         lib._fsdr_typed = True
     return lib
 
@@ -1362,7 +1436,8 @@ def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torc
 # ---------------------------------------------------------------------------
 
 #: the kernels with a lane form, and its launch counter's name
-LANE_KERNELS = {"fir": "fir_lanes", "fir_fft": "fir_fft_lanes", "rotator": "rotator_lanes"}
+LANE_KERNELS = {"fir": "fir_lanes", "fir_fft": "fir_fft_lanes", "rotator": "rotator_lanes",
+                "poly_fir": "poly_fir_lanes", "quad_demod": "quad_demod_lanes"}
 
 
 def _batched(*tensors) -> bool:
@@ -1465,6 +1540,71 @@ def rotator_lanes_plain(x: torch.Tensor, ph0: torch.Tensor,
     xr, xi = x.real, x.imag
     return (torch.complex(xr * c - xi * s, xr * s + xi * c),
             torch.remainder(ph0 + inc * n, 2 * np.pi))
+
+
+def _check_poly_fir_lanes(hist: torch.Tensor, x: torch.Tensor,
+                          W: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """Validate a lane polyphase call (``x [L, nq·D]``, ``hist [L, m·D]``,
+    ``W [L, m+1, D]`` or ``[L, m+1, D, I]``); returns ``(L, m, D, I, nq)``."""
+    if x.dtype not in _STREAM_DTYPES or x.dim() != 2:
+        raise TypeError(f"x must be a [L, nq*D] float32 or complex64 tensor, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    L = int(x.shape[0])
+    if W.dtype not in (torch.float32, torch.bfloat16) or W.dim() not in (3, 4) \
+            or W.shape[0] != L:
+        raise TypeError(f"W must be a real [{L}, m+1, D] or [{L}, m+1, D, I] float32 or "
+                        f"bfloat16 tensor, got {W.dtype} of shape {tuple(W.shape)}")
+    m, D = int(W.shape[1]) - 1, int(W.shape[2])
+    I = int(W.shape[3]) if W.dim() == 4 else 1
+    if m < 1 or D < 1 or I < 1:
+        raise ValueError(f"W needs m >= 1, D >= 1 and I >= 1, got {tuple(W.shape)}")
+    if x.shape[1] % D:
+        raise ValueError(f"rows of {x.shape[1]} samples must be a multiple of D ({D})")
+    if hist.dtype != x.dtype or tuple(hist.shape) != (L, m * D):
+        raise ValueError(f"hist must be [{L}, {m * D}] of {x.dtype}, got {hist.dtype} "
+                         f"of shape {tuple(hist.shape)}")
+    if any(t.device != x.device for t in (hist, W)):
+        raise ValueError("hist, x and W must lie on one device")
+    return L, m, D, I, int(x.shape[1]) // D
+
+
+def poly_fir_lanes_plain(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
+                         precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`poly_fir_lanes`: :func:`poly_fir_plain` on
+    each lane's row with its own weights (each lane equals that function's
+    output bit for bit)."""
+    _check_precision(precision)
+    L, m, D, I, nq = _check_poly_fir_lanes(hist, x, W)
+    if L == 0:
+        return torch.empty((0, nq, I) if W.dim() == 4 else (0, nq), dtype=x.dtype,
+                           device=x.device)
+    return torch.stack([poly_fir_plain(hist[i], x[i], W[i], precision) for i in range(L)])
+
+
+def _check_quad_demod_lanes(prev: torch.Tensor, x: torch.Tensor) -> int:
+    if x.dtype != torch.complex64 or x.dim() != 2:
+        raise TypeError(f"x must be a [L, n] complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    L = int(x.shape[0])
+    if prev.dtype != torch.complex64 or tuple(prev.shape) != (L,):
+        raise TypeError(f"prev must be [{L}] complex64, got {prev.dtype} of shape "
+                        f"{tuple(prev.shape)}")
+    if prev.device != x.device:
+        raise ValueError("x and prev must lie on one device")
+    return L
+
+
+def quad_demod_lanes_plain(prev: torch.Tensor, x: torch.Tensor,
+                           gain: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`quad_demod_lanes`: :func:`quad_demod_plain`
+    on each lane's row from its own carry sample (each lane equals that
+    function's outputs bit for bit)."""
+    L = _check_quad_demod_lanes(prev, x)
+    if L == 0:
+        return (torch.empty(x.shape, dtype=torch.float32, device=x.device),
+                prev.clone())
+    outs = [quad_demod_plain(prev[i], x[i], gain) for i in range(L)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 def _check_rows(*tensors: Optional[torch.Tensor]) -> None:
@@ -1590,6 +1730,77 @@ def rotator_lanes(x: torch.Tensor, ph0: torch.Tensor,
     return y, ph_next
 
 
+def poly_fir_lanes(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
+                   precision: Optional[str] = None,
+                   plan: Optional[PolyFirPlan] = None) -> torch.Tensor:
+    """The ``poly_fir`` kernel over ``L`` streams in one launch: ``hist [L,
+    m·D]`` and ``x [L, nq·D]`` float32 or complex64 (rows contiguous), ``W
+    [L, m+1, D]`` or ``[L, m+1, D, I]`` float32 or bfloat16 (each lane's W
+    contiguous; stride 0 across lanes is one W shared by every lane, read
+    once); each lane exactly :func:`poly_fir` on its row. ``plan`` (one of
+    :func:`plan_candidates`) beats the tuned table and the rule; it must keep
+    the tiling and K split of a lane's one-stream plan, as
+    :func:`poly_fir_lanes_plan` does. Returns ``[L, nq]`` or ``[L, nq, I]``
+    of the stream's dtype; raises where the kernel does not build or
+    launch."""
+    if x.device.type == "cpu":
+        return poly_fir_lanes_plain(hist, x, W, precision)
+    bf16 = _check_precision(precision)
+    L, m, D, I, nq = _check_poly_fir_lanes(hist, x, W)
+    _check_rows(hist, x)
+    if L and (not W[0].is_contiguous() or L > 1 and 0 < W.stride(0) < W[0].numel()):
+        raise ValueError("poly_fir_lanes needs each lane's W contiguous, the lanes' W "
+                         "apart or one W shared (stride 0)")
+    y = torch.empty((L, nq, I) if W.dim() == 4 else (L, nq), dtype=x.dtype, device=x.device)
+    if nq == 0 or L == 0:
+        return y
+    plan = plan or poly_fir_lanes_plan(L, m, D, I, nq, x.is_complex(), _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"poly_fir_lanes: W {tuple(W.shape[1:])} needs {plan.smem} B of "
+                         f"shared memory per block, over the card's {_MAX_SMEM} B")
+    last_plans["poly_fir_lanes"] = plan
+    lib = _lib("poly_fir")
+    with _card(x):
+        err = lib.fsdr_poly_fir_lanes(hist.data_ptr(), x.data_ptr(), W.data_ptr(),
+                                      y.data_ptr(), nq, m, D, I, int(x.is_complex()),
+                                      int(bf16), int(W.dtype == torch.bfloat16),
+                                      int(plan.tiling == "gemm"), plan.threads, plan.rows,
+                                      plan.tile_rows, plan.tile_phases, plan.ksplit,
+                                      plan.pad, plan.smem, L, hist.stride(0), x.stride(0),
+                                      W.stride(0), y.stride(0), _stream(x))
+    _raise_on(err, "poly_fir_lanes")
+    _count("poly_fir_lanes")
+    return y
+
+
+def quad_demod_lanes(prev: torch.Tensor, x: torch.Tensor,
+                     gain: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``quad_demod`` kernel over ``L`` streams in one launch: ``x [L,
+    n]`` complex64 (rows contiguous), ``prev [L]`` each lane's carry sample,
+    ``gain`` shared; each lane exactly :func:`quad_demod` on its row. Returns
+    ``(y [L, n] float32, last [L])``, ``last`` each lane's ``x[n−1]`` (its
+    ``prev`` for ``n = 0``), a tensor of its own. Raises where the kernel does
+    not build or launch."""
+    if x.device.type == "cpu":
+        return quad_demod_lanes_plain(prev, x, gain)
+    L = _check_quad_demod_lanes(prev, x)
+    _check_rows(x)
+    _check_cuda(prev)
+    n = int(x.shape[1])
+    y = torch.empty((L, n), dtype=torch.float32, device=x.device)
+    if n == 0 or L == 0:
+        return y, prev.clone()                # nothing to launch
+    last = torch.empty(L, dtype=torch.complex64, device=x.device)
+    lib = _lib("quad_demod")
+    with _card(x):
+        err = lib.fsdr_quad_demod_lanes(x.data_ptr(), prev.data_ptr(), y.data_ptr(),
+                                        last.data_ptr(), n, float(gain), L, x.stride(0),
+                                        y.stride(0), _stream(x))
+    _raise_on(err, "quad_demod_lanes")
+    _count("quad_demod_lanes")
+    return y, last
+
+
 # ---------------------------------------------------------------------------
 # the custom ops and their vmap rules
 # ---------------------------------------------------------------------------
@@ -1678,9 +1889,28 @@ def _rotator_vmap(info, in_dims, x, ph0, inc):
     return (y, nxt), (0, 0)
 
 
+@torch.library.register_vmap("fsdr::quad_demod")
+def _quad_demod_vmap(info, in_dims, prev, x, gain):
+    L = info.batch_size
+    y, last = quad_demod_lanes(_lanes_of(prev, in_dims[0], L, scalar=True),
+                               _lanes_of(x, in_dims[1], L), gain)
+    return (y, last), (0, 0)
+
+
+@torch.library.register_vmap("fsdr::poly_fir")
+def _poly_fir_vmap(info, in_dims, hist, x, W, precision):
+    L = info.batch_size
+    # an unbatched W (the resampler's, a stage constant) is one W for every
+    # lane: expanded with stride 0, never copied L times
+    w = _lanes_of(W, in_dims[2], L) if in_dims[2] is not None else \
+        W.contiguous().unsqueeze(0).expand(L, *W.shape)
+    return poly_fir_lanes(_lanes_of(hist, in_dims[0], L), _lanes_of(x, in_dims[1], L), w,
+                          precision), 0
+
+
 def _per_lane(fn, info, in_dims, args, n_tensors: int):
-    """A vmap rule without a lane form: the one-stream wrapper once a lane
-    (each a launch of its own on a card), outputs stacked."""
+    """A vmap rule without a lane form (``pfb``): the one-stream wrapper
+    once a lane (each a launch of its own on a card), outputs stacked."""
     L = info.batch_size
     cols = [_lanes_of(a, d, L) if i < n_tensors else a
             for i, (a, d) in enumerate(zip(args, in_dims))]
@@ -1689,16 +1919,6 @@ def _per_lane(fn, info, in_dims, args, n_tensors: int):
     if isinstance(outs[0], tuple):
         return tuple(torch.stack(o) for o in zip(*outs)), tuple(0 for _ in outs[0])
     return torch.stack(outs), 0
-
-
-@torch.library.register_vmap("fsdr::quad_demod")
-def _quad_demod_vmap(info, in_dims, prev, x, gain):
-    return _per_lane(quad_demod, info, in_dims, (prev, x, gain), 2)
-
-
-@torch.library.register_vmap("fsdr::poly_fir")
-def _poly_fir_vmap(info, in_dims, hist, x, W, precision):
-    return _per_lane(poly_fir, info, in_dims, (hist, x, W, precision), 3)
 
 
 @torch.library.register_vmap("fsdr::pfb")

@@ -3,7 +3,8 @@
 The counterpart of ``futuresdr_tpu/tpu/pallas_tune.py`` (whose sweep picks a
 Pallas block shape per kernel and chip generation). Here a kernel's plan
 (``ops/cuda_kernels.py``: ``fir_plan``, ``fir_fft_plan``, ``poly_fir_plan``,
-``pfb_plan``, ``fir_lanes_plan``, ``fir_fft_lanes_plan``) is chosen per call
+``pfb_plan``, ``fir_lanes_plan``, ``fir_fft_lanes_plan``,
+``poly_fir_lanes_plan``) is chosen per call
 shape by a rule; :func:`sweep_plans` times every layout the rule chooses
 between (:func:`cuda_kernels.plan_candidates`, the rule's own pick among
 them) at the main paths' shapes, holds each against the kernel's plain
@@ -55,12 +56,14 @@ TIE_MARGIN = 0.98
 #: max |kernel − plain| over max |plain| a candidate may read (chip_smoke's
 #: phase 7 limits; quad_demod's is absolute, in radians·gain)
 TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
-       "quad_demod": 1e-5, "pfb": 1e-5, "fir_lanes": 1e-5, "fir_fft_lanes": 1e-4}
+       "quad_demod": 1e-5, "pfb": 1e-5, "fir_lanes": 1e-5, "fir_fft_lanes": 1e-4,
+       "poly_fir_lanes": 1e-5}
 #: the main paths' calls: (kernel, label, shape spec) — spectrum chain 2^18,
 #: the A/B decimator, the FM front end at 512,000 (128,000 after the channel
 #: filter), PFB-64 and PFB-2048 at 2^18, and the serving plane's lane forms:
-#: serve_ab's 64 sessions of 512 (``fir``) and the main chain's 16 of 2^18
-#: (``fir_fft``)
+#: serve_ab's 64 sessions of 512 (``fir``), the main chain's 16 of 2^18
+#: (``fir_fft``) and the FM front end's 64 of 32,000 (``poly_fir``: the
+#: channel filter with each lane's W, the resampler with one shared W)
 SHAPES = (
     ("fir", "spectrum c64 2^18, 64 taps", {"n": 1 << 18, "nt": 64}),
     ("fir_fft", "spectrum c64 2^18, 64 taps, n_fft 2048", {"n": 1 << 18, "nt": 64,
@@ -76,6 +79,10 @@ SHAPES = (
     ("fir_lanes", "serve_ab c64 64 x 512, 17 taps", {"L": 64, "n": 512, "nt": 17}),
     ("fir_fft_lanes", "served main c64 16 x 2^18, 64 taps, n_fft 2048",
      {"L": 16, "n": 1 << 18, "nt": 64, "n_fft": 2048}),
+    ("poly_fir_lanes", "served FM channel c64 64 x 32,000, D 4",
+     {"L": 64, "n": 32_000, "D": 4, "m": 32}),
+    ("poly_fir_lanes", "served FM resampler f32 64 x 8,000, 24/125",
+     {"L": 64, "n": 8_000, "D": 125, "m": 2, "I": 24, "real": True, "shared": True}),
 )
 
 
@@ -126,6 +133,18 @@ def _workload(kernel: str, spec: dict, dev: torch.device, reps: int,
         return ((m, D, I, n // D, int(not real), n_sm), args,
                 lambda p, h, x: ck.poly_fir(h, x, W, plan=p),
                 lambda h, x: ck.poly_fir_plain(h, x, W))
+    if kernel == "poly_fir_lanes":
+        L, D, m, I = spec["L"], spec["D"], spec["m"], spec.get("I", 1)
+        real = spec.get("real", False)
+        w_shape = (m + 1, D, I) if I > 1 else (m + 1, D)
+        W = r(1, *w_shape).expand(L, *w_shape) if spec.get("shared") else r(L, *w_shape)
+        dt = torch.float32 if real else torch.complex64
+        args = [(torch.randn(L, m * D, dtype=dt, generator=gen, device=dev),
+                 torch.randn(L, n, dtype=dt, generator=gen, device=dev))
+                for _ in range(reps)]
+        return ((L, m, D, I, n // D, int(not real), n_sm), args,
+                lambda p, h, x: ck.poly_fir_lanes(h, x, W, plan=p),
+                lambda h, x: ck.poly_fir_lanes_plain(h, x, W))
     if kernel == "pfb":
         N, K = spec["N"], spec["K"]
         taps = r(K, N)

@@ -345,7 +345,9 @@ def test_sweep_smoke_on_the_cpu():
               ("pfb", "s", {"n": 8192, "N": 64, "K": 12}),
               ("rotator", "s", {"n": 4096}), ("quad_demod", "s", {"n": 4096}),
               ("fir_lanes", "s", {"L": 3, "n": 512, "nt": 17}),
-              ("fir_fft_lanes", "s", {"L": 2, "n": 4096, "nt": 64, "n_fft": 2048}))
+              ("fir_fft_lanes", "s", {"L": 2, "n": 4096, "nt": 64, "n_fft": 2048}),
+              ("poly_fir_lanes", "s", {"L": 3, "n": 1000, "D": 125, "m": 2, "I": 24,
+                                       "real": True, "shared": True}))
     res = kernel_tune.sweep_plans(device="cpu", reps=1, shapes=shapes)
     assert res["failures"] == [] and res["device"] == "cpu"
     assert set(res["winners"]) == set(ck.PLAN_KERNELS)

@@ -1323,7 +1323,8 @@ def test_int8_rungs_equal_the_cpu_on_card(cuda_device, decim):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["fir", "fir_fft", "poly_fir", "pfb", "rotator",
-                                    "quad_demod", "fir_lanes", "fir_fft_lanes"])
+                                    "quad_demod", "fir_lanes", "fir_fft_lanes",
+                                    "poly_fir_lanes"])
 def test_sweep_candidates_launch_and_match_plain_on_card(cuda_device, kernel):
     """Every layout the plan sweep may pick launches at the main paths'
     shapes and matches the plain version at phase 7's limits."""
@@ -1458,6 +1459,171 @@ def test_lane_kernel_equals_one_stream_launches_on_card(cuda_device, kernel, L, 
     assert ck.launches[name] == before + 1
     assert torch.equal(got, torch.stack(per))
     assert _rel_err(got, plain) <= (1e-4 if kernel == "fir_fft" else 1e-5)
+
+
+# the FM chain's two polyphase calls at the served FM frame (32,000 input
+# samples a session): the channel filter (D 4, m 32, complex) and the
+# resampler (24/125, m 2, real)
+_POLY_LANES = {"channel": (4, 32, 1, 8000, torch.complex64),
+               "resampler": (125, 2, 24, 64, torch.float32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("L", [1, 3, 64])
+@pytest.mark.parametrize("kind", list(_POLY_LANES))
+def test_poly_fir_lanes_equals_one_stream_launches_on_card(cuda_device, kind, L, precision,
+                                                           shared):
+    """Each lane of a ``poly_fir_lanes`` launch equals the one-stream launch
+    on its row bit for bit, with each lane's own W or one W shared by every
+    lane (stride 0, not copied), one launch in all, and lies within 1e-5 of
+    the lane plain version."""
+    D, m, I, nq, dtype = _POLY_LANES[kind]
+    g = torch.Generator(device=cuda_device).manual_seed(L + 10 * shared)
+    w_shape = (m + 1, D) if I == 1 else (m + 1, D, I)
+    W = torch.randn((1 if shared else L,) + w_shape, generator=g, device=cuda_device)
+    if precision == "bf16":
+        W = W.to(torch.bfloat16)
+    if shared:
+        W = W.expand((L,) + w_shape)
+        assert W.stride(0) == 0 or L == 1
+    hist = torch.randn(L, m * D, dtype=dtype, generator=g, device=cuda_device)
+    x = torch.randn(L, nq * D, dtype=dtype, generator=g, device=cuda_device)
+    before = dict(ck.launches)
+    got = ck.poly_fir_lanes(hist, x, W, precision)
+    torch.cuda.synchronize()
+    assert ck.launches["poly_fir_lanes"] == before["poly_fir_lanes"] + 1
+    assert ck.launches["poly_fir"] == before["poly_fir"]
+    per = torch.stack([ck.poly_fir(hist[i], x[i], W[i].contiguous(), precision)
+                       for i in range(L)])
+    torch.cuda.synchronize()
+    assert got.shape == per.shape and torch.equal(got, per)
+    assert _rel_err(got, ck.poly_fir_lanes_plain(hist, x, W, precision)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 64])
+def test_quad_demod_lanes_equals_one_stream_launches_on_card(cuda_device, L):
+    """Each lane of a ``quad_demod_lanes`` launch equals the one-stream
+    launch on its row from its own carry sample bit for bit, outputs and next
+    carries, one launch in all, and lies within 1e-5 (radians times gain,
+    wrapped) of the lane plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(L)
+    x = torch.randn(L, 8000, dtype=torch.complex64, generator=g, device=cuda_device)
+    prev = torch.randn(L, dtype=torch.complex64, generator=g, device=cuda_device)
+    gain = 0.53
+    before = ck.launches["quad_demod_lanes"]
+    got, last = ck.quad_demod_lanes(prev, x, gain)
+    torch.cuda.synchronize()
+    assert ck.launches["quad_demod_lanes"] == before + 1
+    pairs = [ck.quad_demod(prev[i], x[i], gain) for i in range(L)]
+    assert torch.equal(got, torch.stack([p[0] for p in pairs]))
+    assert torch.equal(last, torch.stack([p[1] for p in pairs])) and torch.equal(last, x[:, -1])
+    ref = ck.quad_demod_lanes_plain(prev, x, gain)[0]
+    d = (got - ref).double()
+    period = 2 * np.pi * gain
+    assert float((d - period * torch.round(d / period)).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_lane_forms_of_the_fm_kernels_take_empty_batches_on_card(cuda_device):
+    """No lane or no sample: an empty result of the right shape, the carry
+    passed on, and no launch."""
+    before = dict(ck.launches)
+    c64 = dict(dtype=torch.complex64, device=cuda_device)
+    y, last = ck.quad_demod_lanes(torch.zeros(0, **c64), torch.zeros(0, 500, **c64), 1.0)
+    assert y.shape == (0, 500) and last.shape == (0,)
+    prev = torch.ones(3, **c64)
+    y, last = ck.quad_demod_lanes(prev, torch.zeros(3, 0, **c64), 1.0)
+    assert y.shape == (3, 0) and torch.equal(last, prev)
+    W = torch.ones(0, 3, 125, 24, device=cuda_device)
+    y = ck.poly_fir_lanes(torch.zeros(0, 250, device=cuda_device),
+                          torch.zeros(0, 500, device=cuda_device), W)
+    assert y.shape == (0, 4, 24)
+    y = ck.poly_fir_lanes(torch.zeros(2, 128, **c64), torch.zeros(2, 0, **c64),
+                          torch.ones(2, 33, 4, device=cuda_device))
+    assert y.shape == (2, 0)
+    torch.cuda.synchronize()
+    assert ck.launches == before
+
+
+@pytest.mark.gpu
+def test_vmap_of_the_fm_kernels_takes_one_lane_launch_on_card(cuda_device):
+    """``torch.func.vmap`` over ``poly_fir`` (each lane's W, and one W for
+    every lane) and ``quad_demod`` launches the lane form once, not the
+    one-stream kernel once a lane, and equals the one-stream launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    L = 16
+    x = torch.randn(L, 500, dtype=torch.float32, generator=g, device=cuda_device)
+    hist = torch.randn(L, 250, dtype=torch.float32, generator=g, device=cuda_device)
+    W = torch.randn(3, 125, 24, generator=g, device=cuda_device)
+    Ws = torch.randn(L, 3, 125, 24, generator=g, device=cuda_device)
+    z = torch.randn(L, 500, dtype=torch.complex64, generator=g, device=cuda_device)
+    prev = torch.randn(L, dtype=torch.complex64, generator=g, device=cuda_device)
+    vm = torch.func.vmap
+    before = dict(ck.launches)
+    shared = vm(ck.poly_fir, in_dims=(0, 0, None))(hist, x, W)
+    own = vm(ck.poly_fir)(hist, x, Ws)
+    q, last = vm(lambda p, a: ck.quad_demod(p, a, 0.7))(prev, z)
+    torch.cuda.synchronize()
+    assert ck.launches["poly_fir_lanes"] == before["poly_fir_lanes"] + 2
+    assert ck.launches["quad_demod_lanes"] == before["quad_demod_lanes"] + 1
+    assert ck.launches["poly_fir"] == before["poly_fir"]
+    assert ck.launches["quad_demod"] == before["quad_demod"]
+    for i in range(L):
+        assert torch.equal(shared[i], ck.poly_fir(hist[i], x[i], W))
+        assert torch.equal(own[i], ck.poly_fir(hist[i], x[i], Ws[i]))
+        qi, li = ck.quad_demod(prev[i], z[i], 0.7)
+        assert torch.equal(q[i], qi) and torch.equal(last[i], li)
+
+
+@pytest.mark.gpu
+def test_served_fm_chain_bit_equals_bare_pipeline_on_card(cuda_device):
+    """The FM kernel chain served to three sessions at their own offsets (a
+    lane retune of the rotator's increment), one joining late: each equals
+    the bare compiled Pipeline built at its offset bit for bit; one capture
+    whose replay launches the rotator, demod and two polyphase lane forms."""
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.serve import ServeEngine
+
+    def chain(theta):
+        return T.Pipeline([T.rotator_stage(theta, name="tuner", impl="pallas"),
+                           T.fir_stage(firdes.lowpass(0.1, 128), decim=4, impl="pallas",
+                                       name="chan"),
+                           T.quad_demod_stage(0.53, impl="pallas"),
+                           T.resample_stage(24, 125, impl="pallas")], np.complex64)
+
+    frame = 32_000
+    rng = np.random.default_rng(11)
+    feed = [_c64(rng, frame) for _ in range(4)]
+    thetas = (-0.6, 0.3, 1.1)
+    eng = ServeEngine(chain(0.0), frame_size=frame, app="gpu_fm", buckets=(4,),
+                      queue_frames=8, device=cuda_device)
+    sess, out = {}, {0: [], 1: [], 2: []}
+    for j in range(4):
+        for i, th in enumerate(thetas):
+            if j == (2 if i == 2 else 0):
+                sess[i] = eng.admit(tenant=f"t{i}")
+                eng.retune(sess[i].sid, "tuner", phase_inc=th)
+        for s in sess.values():
+            eng.submit(s.sid, feed[j])
+        eng.step()
+        for i, s in sess.items():
+            out[i] += eng.results(s.sid)
+    assert eng.compiles == 1
+    prog = next(iter(eng._programs.values()))
+    assert prog.launches == {"rotator_lanes": 1, "poly_fir_lanes": 2, "quad_demod_lanes": 1}
+    for i, th in enumerate(thetas):
+        pipe = chain(th)
+        fn, _ = pipe.compile(frame, cuda_device, donate=False)
+        carry = pipe.init_carry(cuda_device)
+        frames = feed[2:] if i == 2 else feed
+        assert len(out[i]) == len(frames)
+        for got, f in zip(out[i], frames):
+            carry, y = fn(carry, torch.from_numpy(f).to(cuda_device))
+            np.testing.assert_array_equal(got, y.cpu().numpy())
 
 
 @pytest.mark.gpu

@@ -243,8 +243,12 @@ def test_cpu_tensors_never_count_a_launch():
     ck.fir_fft_lanes(torch.stack([hist, hist]), torch.stack([x, x]),
                      torch.stack([taps, taps]), 256)
     ck.rotator_lanes(torch.stack([x, x]), torch.zeros(2), torch.ones(2))
+    ck.poly_fir_lanes(torch.zeros(2, 12, dtype=torch.complex64), torch.stack([x, x]),
+                      torch.ones(1, 4, 4).expand(2, 4, 4))
+    ck.quad_demod_lanes(x[:2], torch.stack([x, x]), 0.5)
     assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod",
-                                "pfb", "fir_lanes", "fir_fft_lanes", "rotator_lanes"}
+                                "pfb", "fir_lanes", "fir_fft_lanes", "rotator_lanes",
+                                "poly_fir_lanes", "quad_demod_lanes"}
     assert all(v == 0 for v in ck.launches.values()), ck.launches
 
 

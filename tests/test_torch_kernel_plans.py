@@ -1082,7 +1082,8 @@ def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
     """Each layout the sweep may pick, walked by its kernel's twin at the
     main path's shape (the poly_fir rows cut to 2,048 outputs where the
     layout does not depend on them; the lane forms' batches cut to 3 lanes
-    of 2,048 samples and 2 lanes of 2 rows), against
+    of 2,048 samples and 2 lanes of 2 rows, ``poly_fir_lanes`` to 3 lanes of
+    at most 2,048 rows), against
     the plain version: the tolerances of the twins' own tests (rel. 1e-6
     ``fir``, ``poly_fir``, ``fir_lanes``; 1e-5 ``fir_fft``, ``pfb``,
     ``fir_fft_lanes``; the sums' orders differ)."""
@@ -1112,6 +1113,13 @@ def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
         hist, x, taps = _lanes_case(min(L, 2), 2 * n_fft, nt, True, seed)
         got = _fir_fft_lanes_twin(hist, x, taps, n_fft, plan)
         assert _rel(got, ck.fir_fft_lanes_plain(hist, x, taps, n_fft)) <= 1e-5
+    elif kernel == "poly_fir_lanes":
+        L, m, D, I, nq, cplx, _n_sm = shape
+        hist, x, W = _poly_lanes_case(min(L, 3), D, m, I, min(nq, 2048), bool(cplx), seed,
+                                      shared=I > 1)
+        got = _poly_fir_lanes_twin(hist, x, W, plan)
+        assert _rel(got, ck.poly_fir_lanes_plain(hist, x, W)) <= 1e-6 * max(
+            1.0, D * (m + 1) / 1000)
     else:
         N, K, t, _n_sm = shape
         hist, x, taps = _pfb_case(N, K, t, seed)
@@ -1257,3 +1265,137 @@ def test_lane_plans_at_the_served_shapes(L, n, nt):
     assert cands[0] == rule
     for p in cands:
         assert p.smem <= ck._MAX_SMEM and p.radices == row.radices
+
+
+# ---------------------------------------------------------------------------
+# the lane forms of poly_fir and quad_demod
+# ---------------------------------------------------------------------------
+
+def _poly_fir_lanes_twin(hist, x, W, plan, bf16=False):
+    """``csrc/poly_fir.cu``'s lane form: grid y is the lane, whose blocks move
+    hist, x, W and y to its rows by their strides (W's 0 where the lanes
+    share one) and run the one-stream tiling on its row. Each lane's W is cut
+    from the flat storage of the tensor's own size; every output of the
+    batch is written exactly once, into its own lane's rows."""
+    L = x.shape[0]
+    fw, ws = (W[0].contiguous().reshape(-1), 0) if L > 1 and W.stride(0) == 0 else \
+        (W.contiguous().reshape(-1), W[0].numel())
+    D = W.shape[2]
+    nq = x.shape[1] // D
+    per = nq * (W.shape[3] if W.dim() == 4 else 1)
+    y = torch.zeros(L * per, dtype=x.dtype)
+    writes = torch.zeros(L * per, dtype=torch.int64)
+    for lane in range(L):
+        w = fw[lane * ws + torch.arange(W[0].numel())].view(W.shape[1:])
+        row = lane * per + torch.arange(per)
+        y[row] = _poly_twin(hist[lane], x[lane], w, plan, bf16).reshape(-1)
+        writes[row] += 1
+    assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
+    return y.view((L,) + tuple(ck.poly_fir_plain(hist[0], x[0], W[0]).shape))
+
+
+def _poly_lanes_case(L, D, m, I, nq, complex_stream, seed, shared=False, w_bf16=False):
+    rng = np.random.default_rng(seed)
+    w_shape = (m + 1, D) if I == 1 else (m + 1, D, I)
+    W = torch.from_numpy(rng.standard_normal((1 if shared else L,) + w_shape)
+                         .astype(np.float32))
+    if w_bf16:
+        W = W.to(torch.bfloat16)
+    W = W.expand((L,) + w_shape) if shared else W
+    if complex_stream:
+        return (torch.from_numpy(np.stack([_c64(rng, m * D) for _ in range(L)])),
+                torch.from_numpy(np.stack([_c64(rng, nq * D) for _ in range(L)])), W)
+    return (torch.from_numpy(rng.standard_normal((L, m * D)).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal((L, nq * D)).astype(np.float32)), W)
+
+
+# the FM chain's two polyphase calls (n_sm cut to 3, so that few rows fill
+# the batch): the channel filter (each lane's W, as the carry holds it) and
+# the resampler (one W shared by every lane, a stage constant)
+_POLY_LANE_CASES = {"channel": (4, 32, 1, 300, True, False),
+                    "channel bf16": (4, 32, 1, 130, True, False),
+                    "channel real": (4, 32, 1, 77, False, False),
+                    "resampler": (125, 2, 24, 20, False, True),
+                    "resampler own W": (125, 2, 24, 9, False, False),
+                    "resampler c64": (125, 2, 24, 13, True, True)}
+
+
+@pytest.mark.parametrize("case", list(_POLY_LANE_CASES))
+@pytest.mark.parametrize("L", _LANE_COUNTS)
+def test_poly_fir_lanes_plans_match_plain(L, case):
+    """Every ``poly_fir_lanes`` candidate (the batch rule, the one-stream
+    rule, then its layout at other rows a block) at L lanes against the lane
+    plain version, every output once into its own lane's rows; each keeps
+    the tiling and K split of a lane's one-stream plan."""
+    D, m, I, nq, cplx, shared = _POLY_LANE_CASES[case]
+    bf16 = case.endswith("bf16")
+    hist, x, W = _poly_lanes_case(L, D, m, I, nq, cplx, 60 + L + nq, shared, bf16)
+    prec = "bf16" if bf16 else None
+    want = ck.poly_fir_lanes_plain(hist, x, W, prec)
+    row = ck.poly_fir_plan(m, D, I, nq, cplx, 3)
+    cands = ck.plan_candidates("poly_fir_lanes", L, m, D, I, nq, int(cplx), 3)
+    assert cands[0] == ck.poly_fir_lanes_plan(L, m, D, I, nq, cplx, 3)
+    assert len(cands) > 1
+    tol = 1e-6 * max(1.0, D * (m + 1) / 1000)
+    for plan in cands:
+        assert plan.smem <= ck._MAX_SMEM and ck._same_order(plan, row), plan
+        got = _poly_fir_lanes_twin(hist, x, W, plan, bf16)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert _rel(got, want) <= tol, plan
+
+
+@pytest.mark.parametrize("L", [1, 3, 4, 16, 64])
+def test_poly_fir_lanes_plan_at_the_served_fm_shape(L):
+    """At the served FM frame (32,000 input samples a session): the channel
+    filter keeps the one-stream "rows" layout; the resampler keeps the
+    one-stream plan's K split over its 375 taps (16 parts) and takes more
+    rows a block as the batch grows (4 at one lane, 32 at 64 lanes: 128
+    blocks, where the one-stream plan's 4 rows would make 1,024). One lane
+    is the one-stream plan."""
+    chan = ck.poly_fir_lanes_plan(L, 32, 4, 1, 8000, True)
+    assert chan == ck.poly_fir_plan(32, 4, 1, 8000, True) and chan.tiling == "rows"
+    row = ck.poly_fir_plan(2, 125, 24, 64, False)
+    res = ck.poly_fir_lanes_plan(L, 2, 125, 24, 64, False)
+    assert res.tiling == "gemm" and ck._same_order(res, row) and res.ksplit == 16
+    assert res.rows == {1: 4, 3: 4, 4: 4, 16: 8, 64: 32}[L]
+    assert L * -(-64 // res.rows) * 8 >= 132 * 7 or res.rows == 4
+    if L == 1:
+        assert res == row
+
+
+def test_poly_fir_lanes_plan_keeps_the_bare_chains_order():
+    """A tuned lane plan that sums in another order than the one-stream plan
+    (which the bare chain launches) is passed over for the rule; a tuned
+    one-stream plan moves the lane plan's K split with it."""
+    shape = (64, 2, 125, 24, 64, 0, 132)
+    cands = ck.plan_candidates("poly_fir_lanes", *shape)
+    pick = cands[-1]
+    try:
+        ck.set_tuned_plans({"poly_fir_lanes": {shape: pick}})
+        assert ck.poly_fir_lanes_plan(*shape[:5], False, 132) == pick
+        other = next(p for p in ck.plan_candidates("poly_fir", 2, 125, 24, 64, 0, 132)
+                     if p.ksplit != cands[0].ksplit)
+        ck.set_tuned_plans({"poly_fir_lanes": {shape: pick},
+                            "poly_fir": {(2, 125, 24, 64, 0, 132): other}})
+        got = ck.poly_fir_lanes_plan(*shape[:5], False, 132)
+        assert got != pick and got.ksplit == other.ksplit and ck._same_order(got, other)
+    finally:
+        ck.set_tuned_plans(None)
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 2000])
+def test_quad_demod_lanes_walk_matches_plain(n):
+    """``csrc/quad_demod.cu``'s lane form: grid y is the lane, whose blocks
+    move x and y by their row strides and read the lane's own ``prev``; its
+    last thread writes the lane's ``last``. Each lane the one-stream walk,
+    every output of the batch once."""
+    L = 3
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(np.stack([_c64(rng, n) for _ in range(L)]))
+    prev = torch.from_numpy(_c64(rng, L))
+    gain = 250e3 / (2 * np.pi * 75e3)
+    ys, lasts = zip(*[_quad_demod_twin(prev[i], x[i], gain) for i in range(L)])
+    y, last = torch.stack(ys), torch.stack(lasts)
+    ref, ref_last = ck.quad_demod_lanes_plain(prev, x, gain)
+    assert y.shape == ref.shape == (L, n) and torch.equal(last, ref_last)
+    assert _wrapped_err(y, ref, gain) <= 1e-5
