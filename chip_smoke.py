@@ -200,8 +200,8 @@ fused restarts):
     SNRs, the lowered program against f32 on fresh frames at the floor
     ``budget - 10·log10(n_lowered)``, ``off`` the same object and bits;
     (b) the int8 rungs on the card bit-equal to the CPU; (c) the plan sweep
-    (``tpu/kernel_tune.py``) over the six kernels and the two FIR lane
-    forms, every candidate matching its plain version, the winners cached,
+    (``tpu/kernel_tune.py``) over the six kernels and the lane forms of
+    ``fir``, ``fir_fft``, ``poly_fir`` and ``pfb``, every candidate matching its plain version, the winners cached,
     installed by a fresh ``TpuKernel`` and taken by the next launch; (d)
     the credit seed, the adaptive wire's start and a fused region's K from
     the cache; (e) the
@@ -220,8 +220,11 @@ lane-batched slot program, one CUDA graph a bucket):
     the FIR forms with shared taps (stride 0) at L = 3 and 16, and
     ``poly_fir_lanes`` (the FM channel filter's and the resampler's W, each
     lane's own and one shared) and ``quad_demod_lanes`` at the served FM
-    frame at the same L: each lane bit-equal to the one-stream launch, and
-    within the kernel's tolerance of the lane plain version; (b) the main chain (``fir_fft_stage(64 taps,
+    frame at the same L, and ``pfb_lanes`` (PFB-64 at 2^15 a lane, each
+    lane's taps in f32 and bf16 and one prototype shared; PFB-2048 at 2^18 a
+    lane at L = 1, 3, 16; the v layout at L = 3): each lane bit-equal to the
+    one-stream launch, and within the kernel's tolerance of the lane plain
+    version (bf16 ``pfb`` by SNR, as phase 12); (b) the main chain (``fir_fft_stage(64 taps,
     2048)`` + ``mag2_stage``) served at 2^18 to 16 sessions in buckets (1, 4,
     16), four of them retuned to their own taps: each session bit-equal to
     the bare compiled ``Pipeline`` on its frames, and N = 1 in the
@@ -240,8 +243,16 @@ lane-batched slot program, one CUDA graph a bucket):
     card time (the FM chain's at 16 and 64 sessions too, with its
     session-frames/s), submit→result p99 under churn, and the served sessions
     against as many independent compiled loops (``perf/serve_ab.py``'s A/B);
-    (f) the lane kernels' timings, the FM forms at 64 × 32,000 against the
-    one-stream launch a lane, which join the ``kernels`` line.
+    (f) the lane kernels' timings, the FM forms at 64 × 32,000 and
+    ``pfb_lanes`` at 16 × 2^18 and 64 × 2^15 against the one-stream launch a
+    lane, which join the ``kernels`` line; (g) the PFB-64 channelizer
+    (``channelizer_stage(64, impl="pallas")``, 768 taps) served to 16
+    sessions of 2^18 and 64 of 2^15, each its own capture with a tone at a
+    channel of its own, four retuned at admission to the 60 and 80 dB
+    prototypes, 4 leaving and 4 joining mid-run: each session bit-equal to
+    its bare ``Pipeline``, its tone in its own channel, one ``pfb_lanes``
+    launch a dispatch and no ``pfb``; a dispatch's card time and the
+    session-frames/s at both shapes printed.
 
 The models' device plane (``models/wlan``, ``models/m17``, ``ops/viterbi.py``,
 ``models/{mcldnn,modrec}.py``):
@@ -3970,7 +3981,7 @@ def phase_precision_int8(dev) -> None:
 
 
 def phase_plan_sweep(dev) -> dict:
-    """27 (c): the kernel-plan sweep over the six kernels and two lane forms
+    """27 (c): the kernel-plan sweep over the six kernels and four lane forms
     at the main paths' shapes (``tpu/kernel_tune.SHAPES``): every candidate
     held against its plain version at phase 7's limits (a failure or a skip fails the
     phase), the winners recorded in a cache under a temporary
@@ -4282,9 +4293,10 @@ LANES = (1, 3, 4, 16, 64)
 SHARED_TAP_LANES = (3, 16)     # lane counts of 28 (a)'s shared-taps cases
 LANE_REPS = 8                  # distinct inputs a lane timing's graph
 LANE_KERNELS = ("fir_lanes", "fir_fft_lanes", "rotator_lanes", "poly_fir_lanes",
-                "quad_demod_lanes")
+                "quad_demod_lanes", "pfb_lanes")
 LANE_OF = {"fir_lanes": "fir", "fir_fft_lanes": "fir_fft", "rotator_lanes": "rotator",
-           "poly_fir_lanes": "poly_fir", "quad_demod_lanes": "quad_demod"}
+           "poly_fir_lanes": "poly_fir", "quad_demod_lanes": "quad_demod",
+           "pfb_lanes": "pfb"}
 # the FM front end served (28 (d)): a session's input frame (a multiple of
 # 4 x 125: 1,536 audio samples), the session counts, the frame times of a run
 # and the sessions that leave at its middle frame time, as many joining
@@ -4297,15 +4309,32 @@ FM_SERVE_RATE_STEPS = 20       # frame times of each session-frames/s run
 # the FM chain's two polyphase calls: (m, D, I) of the channel filter and of
 # the audio resampler
 FM_POLY = {"channel": (32, 4, 1), "resampler": (2, 125, 24)}
+# the PFB-64 channelizer served (28 (g)): (sessions, a session's frame) of each
+# run, the frame times of a run, the sessions that leave at its middle frame
+# time (as many joining), the prototypes the retuned sessions take at
+# admission (one each, in turn), each capture's tone amplitude and noise level
+PFB_SERVE = ((16, 1 << 18), (64, 1 << 15))
+PFB_SERVE_STEPS = 6
+PFB_SERVE_CHURN = 4
+PFB_SERVE_ATTEN = (60.0, 80.0)
+PFB_SERVE_TONE, PFB_SERVE_NOISE = 1.0, 0.1
+PFB_SERVE_RATE_STEPS = 20      # frame times of each session-frames/s run
+# 28 (a)'s pfb_lanes cases besides PFB-64: PFB-2048's lane counts and frame,
+# and the v layout forced at L = 3 on t = 5 rows of N = 2048 (radix 2) and
+# N = 1000 (direct DFT), as phase 12 forces it
+PFB_WIDE_LANES = (1, 3, 16)
+PFB_V_CASES = ((2048, 5), (1000, 5))
 # the shapes of the kernels line: the main chain's (16 lanes of 2^18) for
 # fir_fft_lanes, serve_ab's (64 lanes of 512) for fir_lanes and rotator_lanes,
 # the FM front end's (64 sessions of 32,000; the demod's 8,000) for the FM
-# forms (poly_fir_lanes: its two calls a frame summed)
+# forms (poly_fir_lanes: its two calls a frame summed), the served PFB-64's
+# 64 sessions of 2^15 for pfb_lanes
 LANE_LINE_SHAPE = {"fir_fft_lanes": (SERVE_SESSIONS, SERVE_FRAME),
                    "fir_lanes": (AB_SESSIONS, AB_FRAME),
                    "rotator_lanes": (AB_SESSIONS, AB_FRAME),
                    "poly_fir_lanes": (FM_SERVE_LANES[-1], FM_SERVE_FRAME),
-                   "quad_demod_lanes": (FM_SERVE_LANES[-1], FM_SERVE_FRAME // 4)}
+                   "quad_demod_lanes": (FM_SERVE_LANES[-1], FM_SERVE_FRAME // 4),
+                   "pfb_lanes": PFB_SERVE[-1]}
 
 
 def serve_main_pipe(taps):
@@ -4412,11 +4441,71 @@ def phase_serve_lanes(dev) -> dict:
         check(err <= TOL["quad_demod"], f"quad_demod_lanes L={L}: {err:.2e} from its "
                                         f"plain version")
         worst["quad_demod_lanes"] = max(worst["quad_demod_lanes"], err)
+    worst["pfb_lanes"] = pfb_lane_cases(dev, gen)
     torch.cuda.synchronize()
     print(f"phase 28 (a): lane forms at L = {LANES} (shared taps at L = "
-          f"{SHARED_TAP_LANES}; the FM forms each lane's own W and one shared) "
-          f"bit-equal to the one-stream launches; worst against plain "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+          f"{SHARED_TAP_LANES}; the FM forms each lane's own W and one shared; "
+          f"pfb_lanes at PFB-64, PFB-2048 and the v layout) bit-equal to the one-stream "
+          f"launches; worst against plain " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def pfb_lane_cases(dev, gen) -> float:
+    """28 (a)'s ``pfb_lanes`` cases: PFB-64 (K = 12) on ``[L, 2^15]`` at each
+    L of ``LANES`` with each lane's own taps in f32 and bf16 (bf16 taps, as the
+    stage carries them), one prototype shared (stride 0) at
+    ``SHARED_TAP_LANES``, PFB-2048 on ``[L, 2^18]`` at ``PFB_WIDE_LANES``, and
+    the v layout forced on both sides at L = 3 (``PFB_V_CASES``); the taps go
+    in as the stage passes them, the ``[L, N, K]`` carry transposed. Each lane
+    bit-equal to the one-stream ``pfb`` launch on its row; the lane plain
+    version within the ``pfb`` limit of its peak (bf16: at ``PFB_BF16_SNR``, as
+    phase 12 holds it). Returns the worst relative error in f32."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    worst = 0.0
+
+    def lanes(L, n, N, prec=None, shared=False, plan=None):
+        hc = pfb_branch(dev, n=N)                       # [N, K] of the prototype
+        K = hc.shape[1]
+        scale = 1 + 0.1 * torch.randn(1 if shared else L, N, K, generator=gen, device=dev)
+        hcs = hc * scale
+        if prec == "bf16":
+            hcs = hcs.to(torch.bfloat16)                # the stage's carried taps
+        taps = hcs.expand(L, N, K).transpose(1, 2)
+        hist = torch.randn(L, (K - 1) * N, dtype=torch.complex64, generator=gen, device=dev)
+        x = torch.randn(L, n, dtype=torch.complex64, generator=gen, device=dev)
+        what = (f"pfb_lanes PFB-{N} L={L} n={n} {prec or 'f32'}"
+                f"{' shared taps' if shared else ''}{' (v layout)' if plan else ''}")
+        y = ck.pfb_lanes(hist, x, taps, prec, plan=plan)
+        if plan is None:
+            per = torch.stack([ck.pfb(hist[i], x[i], taps[i], prec) for i in range(L)])
+        else:
+            per = torch.stack([ck._launch_pfb(hist[i], x[i], taps[i], torch.empty(
+                (n // N, N), dtype=torch.complex64, device=dev), prec == "bf16", plan)
+                for i in range(L)])
+        check(torch.equal(y, per), f"{what}: a lane differs from the one-stream launch")
+        ref = ck.pfb_lanes_plain(hist, x, taps, prec)
+        if prec == "bf16":
+            snr = snr_db(y, ref)
+            check(snr >= PFB_BF16_SNR, f"{what}: {snr:.1f} dB from its plain version")
+            return 0.0
+        _, rel = rel_err(y, ref)
+        check(rel <= TOL["pfb"], f"{what}: {rel:.2e} from its plain version")
+        return rel
+
+    n64 = PFB_SERVE[-1][1]
+    for L in LANES:
+        for prec in (None, "bf16"):
+            worst = max(worst, lanes(L, n64, PFB_N, prec))
+    for L in SHARED_TAP_LANES:
+        worst = max(worst, lanes(L, n64, PFB_N, shared=True))
+    for L in PFB_WIDE_LANES:
+        worst = max(worst, lanes(L, PFB_FRAMES[0], PFB_WIDE_N))
+    for N, t in PFB_V_CASES:
+        plan = ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False,
+                          8 * N)
+        worst = max(worst, lanes(3, t * N, N, plan=plan))
     return worst
 
 
@@ -4693,6 +4782,140 @@ def phase_serve_fm(dev) -> dict:
           f"to the bare Pipeline; 1 build, {FM_SERVE_STEPS} dispatches a run; launches "
           + ", ".join(f"{k} {launches[k]}" for k in LANE_KERNELS if launches[k]))
     return {"launches": launches, "engines": {L: eng for L, eng, _, _ in runs}}
+
+
+def pfb_serve_pipe():
+    """The resident and streamed PFB-64 configuration (768 taps, K = 12) on
+    the hand kernel."""
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    from futuresdr_tpu_torch.ops.stages import Pipeline, channelizer_stage
+    return Pipeline([channelizer_stage(PFB_N, pfb_default_taps(PFB_N), impl="pallas")],
+                    np.complex64)
+
+
+def _pfb_channel(k: int) -> int:
+    """Session k's channel: its capture's tone sits at that channel's centre
+    (the first PFB_N sessions each on a channel of its own)."""
+    return (5 + 37 * k) % PFB_N
+
+
+def pfb_capture(k: int, n_frames: int, frame: int, seed: int) -> list:
+    """Session k's own wideband capture, ``n_frames`` frames of ``frame``
+    complex64 samples: seeded complex noise of ``PFB_SERVE_NOISE`` a plane
+    and a tone of ``PFB_SERVE_TONE`` at the centre of channel
+    :func:`_pfb_channel` (``c / PFB_N`` of the input rate)."""
+    rng = np.random.default_rng(seed + k)
+    n = np.arange(n_frames * frame)
+    x = PFB_SERVE_TONE * np.exp(2j * np.pi * _pfb_channel(k) * (n % PFB_N) / PFB_N)
+    x = (x + PFB_SERVE_NOISE * (rng.standard_normal(n.size, dtype=np.float32)
+                                + 1j * rng.standard_normal(n.size, dtype=np.float32)))
+    x = x.astype(np.complex64)
+    return [x[j * frame:(j + 1) * frame] for j in range(n_frames)]
+
+
+def _pfb_retuned(L: int) -> dict:
+    """The sessions retuned at admission and their prototypes' attenuation:
+    four, the 60 and 80 dB prototypes in turn, the last among the leavers."""
+    return {k: PFB_SERVE_ATTEN[i % 2] for i, k in enumerate((1, L // 4 + 1, L // 2 + 1, L - 1))}
+
+
+def _pfb_leavers(L: int) -> list:
+    return [0, L // 4, L // 2, L - 1]
+
+
+def phase_serve_pfb(dev, card_line) -> dict:
+    """28 (g): the PFB-64 channelizer served to each of ``PFB_SERVE``'s session
+    counts (bucket = L) for ``PFB_SERVE_STEPS`` frame times, each session its
+    own capture with a tone in a channel of its own, four sessions retuned at
+    admission to the 60 and 80 dB prototypes (768 taps each); at the middle
+    frame time ``PFB_SERVE_CHURN`` sessions leave (a retuned one among them)
+    and as many join. The lane kernels' launches are counted from 0 over the
+    engines' runs alone: ``pfb_lanes`` once a dispatch and once a build's
+    warm-up, ``pfb`` none. Then each session's channels are held bit for bit
+    against one bare compiled ``Pipeline`` run on its frames from a fresh
+    carry with its prototype, and its tone against its channel; a dispatch's
+    card time and the session-frames/s are printed. Returns ``{"launches",
+    "measured"}``."""
+    import torch
+
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.serve import ServeEngine
+    ck.reset_launches()
+    runs = []
+    for L, frame in PFB_SERVE:
+        retuned, leavers = _pfb_retuned(L), _pfb_leavers(L)
+        mid = PFB_SERVE_STEPS // 2
+        eng = ServeEngine(pfb_serve_pipe(), frame_size=frame, app=f"serve_pfb{L}",
+                          buckets=(L,), queue_frames=4, device=dev)
+        live, span, out, feeds = {}, {}, {}, {}
+        for j in range(PFB_SERVE_STEPS):
+            if j == mid:
+                for gone in leavers:                    # leaves, then joins
+                    out[gone] += eng.results(live[gone].sid)
+                    eng.close(live.pop(gone).sid)
+                    span[gone] = (span[gone][0], j)
+            for k in (range(L) if j == 0 else
+                      range(L, L + PFB_SERVE_CHURN) if j == mid else ()):
+                live[k] = eng.admit(tenant=f"t{k % 4}")
+                if k in retuned:
+                    eng.retune(live[k].sid, "channelizer",
+                               taps=pfb_default_taps(PFB_N, atten_db=retuned[k]))
+                span[k], out[k] = (j, PFB_SERVE_STEPS), []
+                feeds[k] = pfb_capture(k, PFB_SERVE_STEPS - j, frame, SEED + 284)
+            for k, s in live.items():
+                check(eng.submit(s.sid, feeds[k][j - span[k][0]]), "a PFB submit was refused")
+            check(eng.step() == L, "a PFB step did not dispatch every lane")
+            for k, s in live.items():
+                out[k] += eng.results(s.sid)
+        check(eng.compiles == 1 and eng.dispatches == PFB_SERVE_STEPS,
+              f"PFB L={L}: {eng.compiles} builds, {eng.dispatches} dispatches")
+        prog = next(iter(eng._programs.values()))
+        check(prog.launches == {"pfb_lanes": 1}, f"PFB L={L}: a dispatch launches "
+                                                 f"{prog.launches}, not one pfb_lanes")
+        runs.append((L, frame, eng, prog, span, out, feeds, retuned))
+    torch.cuda.synchronize()
+    launches = {k: ck.launches[k] for k in ck.launches}
+    builds = sum(r[2].compiles for r in runs)
+    dispatches = sum(r[2].dispatches for r in runs)
+    check(launches["pfb_lanes"] == dispatches + builds and launches["pfb"] == 0,
+          f"PFB served: pfb_lanes {launches['pfb_lanes']} launches for {dispatches} "
+          f"dispatches and {builds} warm-ups, pfb {launches['pfb']}")
+
+    # the comparisons, after the count
+    measured = {}
+    for L, frame, _eng, prog, span, out, feeds, retuned in runs:
+        keys = sorted(out)
+        ups = {i: (0, "channelizer", {"taps": pfb_default_taps(PFB_N, atten_db=retuned[k])})
+               for i, k in enumerate(keys) if k in retuned}
+        ref = _bare_outputs(pfb_serve_pipe(), frame, [feeds[k][:span[k][1] - span[k][0]]
+                                                     for k in keys], dev, ups)
+        for i, k in enumerate(keys):
+            check(all(a.shape == (frame,) and a.dtype == np.complex64 for a in out[k]),
+                  f"PFB L={L} session {k}: channels of another shape")
+            _equal_streams(out[k], ref[i], f"PFB L={L} session {k}")
+            power = np.mean(np.abs(np.concatenate(out[k]).reshape(-1, PFB_N)) ** 2, axis=0)
+            top = np.argsort(power)[::-1]
+            check(top[0] == _pfb_channel(k) and power[top[0]] >= PFB_TONE_RATIO * power[top[1]],
+                  f"PFB L={L} session {k}: its tone in channel {top[0]}, not "
+                  f"{_pfb_channel(k)} (power ratio {power[top[0]] / power[top[1]]:.1f})")
+        ms = _graph_card_ms(prog)
+        data = [pfb_capture(k, 4, frame, SEED + 285) for k in range(L)]
+        got, disp = _run_served(pfb_serve_pipe(), data, frame, dev, PFB_SERVE_RATE_STEPS,
+                                f"pfb_rate{L}")
+        measured[(L, frame)] = {"dispatch_ms": ms, "session_frames_s": got}
+        print(f"serve dispatch pfb chain capacity {L} frame={frame}: card {ms:.4f} ms a "
+              f"dispatch ({ms * 1e3 / L:.2f} us a session-frame) [{card_line}]")
+        print(f"serve pfb chain frame={frame} sessions={L}: {got:.1f} session-frames/s "
+              f"({got * frame / 1e6:.1f} input Msamples/s), {disp:g} dispatches a frame "
+              f"time [{card_line}]")
+    print(f"phase 28 (g): PFB-64 served to {[L for L, _ in PFB_SERVE]} sessions of "
+          f"{[f for _, f in PFB_SERVE]} samples, four on the {PFB_SERVE_ATTEN} dB "
+          f"prototypes, {PFB_SERVE_CHURN} leaving and {PFB_SERVE_CHURN} joining mid-run: "
+          f"every session's channels bit-equal to the bare Pipeline, its tone in its own "
+          f"channel; 1 build, {PFB_SERVE_STEPS} dispatches a run; launches pfb_lanes "
+          f"{launches['pfb_lanes']} ({dispatches} dispatches, {builds} warm-ups), pfb 0")
+    return {"launches": launches, "measured": measured}
 
 
 def _graph_card_ms(prog) -> float:
@@ -4985,19 +5208,69 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
     return out
 
 
+def pfb_lane_timings(dev, L: int, n: int) -> dict:
+    """28 (f): ``pfb_lanes`` at a served shape, ``L`` sessions of ``n``
+    samples of PFB-64 (K = 12), each lane's taps as the carry holds them
+    (``[L, N, K]``, passed transposed): the lane kernel, its plain version,
+    the per-lane route (L one-stream launches and the stack, as the vmap rule
+    ran them before the lane form), the library route (``torch.func.vmap`` of
+    the stage's ``matmul`` route, ``ops/stages._pfb_matmul``: einsum, then
+    ``torch.fft.ifft``), all as device time in CUDA graphs over ``LANE_REPS``
+    distinct inputs, and the bound from ``utils/roofline.kernel_cost``."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.ops.stages import _pfb_matmul
+    from futuresdr_tpu_torch.utils.roofline import kernel_cost
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    hc = pfb_branch(dev)
+    K = hc.shape[1]
+    hcs = (hc * (1 + 0.1 * torch.randn(L, PFB_N, K, generator=gen, device=dev))).contiguous()
+    taps = hcs.transpose(1, 2)
+    args = [(torch.randn(L, (K - 1) * PFB_N, dtype=torch.complex64, generator=gen, device=dev),
+             torch.randn(L, n, dtype=torch.complex64, generator=gen, device=dev))
+            for _ in range(LANE_REPS)]
+    lib = torch.func.vmap(_pfb_matmul)
+
+    def kern(h, x):
+        return ck.pfb_lanes(h, x, taps)
+
+    def plain(h, x):
+        return ck.pfb_lanes_plain(h, x, taps)
+
+    def per_lane(h, x):
+        return torch.stack([ck.pfb(h[i], x[i], taps[i]) for i in range(L)])
+
+    got = kern(*args[0])
+    err, _ = rel_err(got, plain(*args[0]))
+    check(torch.equal(got, per_lane(*args[0])), f"pfb_lanes L={L} n={n}: a lane differs "
+                                                f"from the one-stream launch")
+    nbytes, ops = kernel_cost("pfb_lanes", L=L, n=n, N=PFB_N, K=K)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args[:2]),
+            "per_lane_ms": device_ms(per_lane, args),
+            "library_ms": device_ms(lambda h, x: lib(h, x, hcs), args),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err}
+
+
 def phase_serving(dev, taps, card_line, empty_lib) -> dict:
     """Phase 28, the serving plane: (a) the lane kernels, (b) the main chain
     served at full width, (c) serve_ab's chain under churn, evict/readmit and
     the persisted resume, (d) the FM front end served to 16 and 64 sessions,
-    (e) printed figures, (f) lane timings for the kernels line. The lane
-    kernels' launches are those of (b)-(c) and of (d), each path's counted
-    from 0 over its own engines."""
+    (e) printed figures, (f) lane timings for the kernels line, (g) the PFB-64
+    channelizer served to 16 and 64 sessions. The lane kernels' launches are
+    those of (b)-(c), of (d) and of (g), each path's counted from 0 over its
+    own engines."""
     t0 = time.perf_counter()
     worst = phase_serve_lanes(dev)
     paths = phase_serve_paths(dev, taps)
     fm = phase_serve_fm(dev)
-    launches = {k: paths["launches"][k] + fm["launches"][k] for k in paths["launches"]}
+    pfb = phase_serve_pfb(dev, card_line)
+    launches = {k: paths["launches"][k] + fm["launches"][k] + pfb["launches"][k]
+                for k in paths["launches"]}
     measured = phase_serve_measure(dev, taps, paths, fm, card_line)
+    measured["pfb"] = pfb["measured"]
     timings = {}
     for name in ("fir_lanes", "fir_fft_lanes", "rotator_lanes"):
         shapes = {LANE_LINE_SHAPE[name], (SERVE_SESSIONS, SERVE_FRAME)}
@@ -5028,6 +5301,12 @@ def phase_serving(dev, taps, card_line, empty_lib) -> dict:
     timings[("poly_fir_lanes", *LANE_LINE_SHAPE["poly_fir_lanes"])] = fm_t["poly_fir_lanes"]
     timings[("quad_demod_lanes", *LANE_LINE_SHAPE["quad_demod_lanes"])] = \
         fm_t["quad_demod_lanes"]
+    for L, n in PFB_SERVE:
+        t = timings[("pfb_lanes", L, n)] = pfb_lane_timings(dev, L, n)
+        print(f"timing pfb_lanes L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
+              f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms (vmap of the matmul route), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card_line}]")
     print(f"phase 28: {time.perf_counter() - t0:.1f} s")
     return {"worst": worst, "launches": launches, "timings": timings,
             "measured": measured}
@@ -7968,7 +8247,7 @@ def main(argv=None) -> int:
     recovery = path_phase("recovery", SPECTRUM_KERNELS + FM_KERNELS, phase_recovery,
                           dev, taps)
     # 27. precision and tuning: the A/B matrix, the int8 rungs, the plan
-    #     sweep (six kernels, two lane forms), the cache in the runtime,
+    #     sweep (six kernels, four lane forms), the cache in the runtime,
     #     streamed retunes, the app's flags
     t27 = time.perf_counter()
     precision = path_phase("precision", SPECTRUM_KERNELS + FM_KERNELS + PFB_KERNELS,

@@ -57,6 +57,21 @@
 // rounded to bf16 before the transform, which keeps FP32 twiddles (the TPU
 // kernel also rounds its cos/sin matrices to bf16). Taps may arrive as bf16
 // (the stage's carried taps): they are widened exactly.
+//
+// Lanes (fsdr_pfb_lanes, the serving plane's [L, t * N] batch, the counterpart
+// of jax.vmap over pallas_pfb): the lane is the grid's y dimension in both
+// layouts. Each block first moves its hist, x, taps and y pointers to its
+// lane's rows (strides in elements; the taps' lane stride 0 is one prototype
+// shared by every lane, read from the same addresses, so L2 serves it once),
+// then runs the one-stream kernel's code; the twiddle table is one for every
+// lane, staged once a block as in one stream. A lane's values are set by the
+// layout (window or v) and the radices alone: each output sums its taps in
+// ascending kk whatever R, and the pad, the tile and the staging of the
+// twiddles move no value. The lane plan (cuda_kernels.pfb_lanes_plan) keeps
+// the one-stream plan's layout and radices, so each lane is bit-equal to a
+// one-stream launch, and chooses R and the tile over the whole batch (PFB-64
+// at 64 sessions of 2^15: R = 8, 32 rows a block, 1,024 blocks, where one
+// stream's plan at 512 rows takes R = 1 so that one stream fills the card).
 
 #include "common.cuh"
 
@@ -151,7 +166,12 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
                   int taps_bf16, const float2* __restrict__ tw_g, float2* __restrict__ y,
                   long long t, int n, int k, int chunk, int groups, int n_pass,
                   unsigned radix_codes, int pitch, int psh, int w_len, int tw_staged_len,
-                  int bf16) {
+                  int bf16, long long hs, long long xs, long long tls, long long ys) {
+  const long long batch_lane = blockIdx.y;       // the lane form's stream
+  hist += batch_lane * hs;
+  x += batch_lane * xs;
+  y += batch_lane * ys;
+  taps = static_cast<const char*>(taps) + batch_lane * tls * (taps_bf16 ? 2 : 4);
   extern __shared__ float2 smem[];
   const int tr = groups * R;
   const int span = tr + k - 1;                     // staged rows of a chunk
@@ -322,7 +342,13 @@ __global__ void __launch_bounds__(256)
 pfb_v_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
              const void* __restrict__ taps, long long tap_sk, long long tap_sn,
              int taps_bf16, const float2* __restrict__ tw, float2* __restrict__ y, int n,
-             int log2n, int k, int bf16) {
+             int log2n, int k, int bf16, long long hs, long long xs, long long tls,
+             long long ys) {
+  const long long batch_lane = blockIdx.y;       // the lane form's stream
+  hist += batch_lane * hs;
+  x += batch_lane * xs;
+  y += batch_lane * ys;
+  taps = static_cast<const char*>(taps) + batch_lane * tls * (taps_bf16 ? 2 : 4);
   extern __shared__ float2 s_v[];
   const long long hist_len = static_cast<long long>(k - 1) * n;
   const long long e0 = static_cast<long long>(blockIdx.x) * n;   // row s's first ext index
@@ -379,12 +405,20 @@ pfb_v_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
   }
 }
 
+// The lanes and their strides in elements (one stream: 1 lane, strides 0):
+// hist, x, the taps (0: one prototype for every lane) and y.
+struct Lanes {
+  int lanes;
+  long long hs, xs, tls, ys;
+};
+
 template <int KT, int R>
 cudaError_t launch_window(const void* hist, const void* x, const void* taps, long long tap_sk,
                           long long tap_sn, int taps_bf16, const void* tw, void* y,
                           long long t, int n, int k, int threads, int chunk, int groups,
                           int n_pass, unsigned codes, int pitch, int psh, int w_len,
-                          int tw_staged_len, int bf16, size_t smem, cudaStream_t stream) {
+                          int tw_staged_len, int bf16, size_t smem, const Lanes& ln,
+                          cudaStream_t stream) {
   auto kern = pfb_window_kernel<KT, R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -392,10 +426,12 @@ cudaError_t launch_window(const void* hist, const void* x, const void* taps, lon
     if (e != cudaSuccess) return e;
   }
   const long long tr = static_cast<long long>(groups) * R;
-  kern<<<static_cast<unsigned>((t + tr - 1) / tr), threads, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>((t + tr - 1) / tr), static_cast<unsigned>(ln.lanes));
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const float2*>(hist), static_cast<const float2*>(x), taps, tap_sk, tap_sn,
       taps_bf16, static_cast<const float2*>(tw), static_cast<float2*>(y), t, n, k, chunk,
-      groups, n_pass, codes, pitch, psh, w_len, tw_staged_len, bf16);
+      groups, n_pass, codes, pitch, psh, w_len, tw_staged_len, bf16, ln.hs, ln.xs, ln.tls,
+      ln.ys);
   return cudaGetLastError();
 }
 
@@ -405,62 +441,54 @@ cudaError_t dispatch_outs(int outs, const void* hist, const void* x, const void*
                           void* y, long long t, int n, int k, int threads, int chunk,
                           int groups, int n_pass, unsigned codes, int pitch, int psh,
                           int w_len, int tw_staged_len, int bf16, size_t smem,
-                          cudaStream_t s) {
+                          const Lanes& ln, cudaStream_t s) {
   switch (outs) {
     case 8:
       return launch_window<KT, 8>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
                                   threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
-                                  tw_staged_len, bf16, smem, s);
+                                  tw_staged_len, bf16, smem, ln, s);
     case 4:
       return launch_window<KT, 4>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
                                   threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
-                                  tw_staged_len, bf16, smem, s);
+                                  tw_staged_len, bf16, smem, ln, s);
     default:
       return launch_window<KT, 1>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
                                   threads, chunk, groups, n_pass, codes, pitch, psh, w_len,
-                                  tw_staged_len, bf16, smem, s);
+                                  tw_staged_len, bf16, smem, ln, s);
   }
 }
 
-}  // namespace
-
-// hist: the (k - 1) * n samples before x (unread when k == 1); x: t * n
-// complex64 samples; taps: [k, n] float32 or bfloat16 (modes & 1), element
-// (kk, c) at taps + kk * tap_sk + c * tap_sn; bf16 mode: modes & 2; tw: the
-// plan's twiddle table of (cos, sin) pairs; y: [t, n] complex64. The plan
-// (cuda_kernels.pfb_plan) as ints: window (1) or the v layout (0); the
-// threads per block, the channels staged a step (chunk), the row groups, the
-// rows a thread (outs: 1, 4 or 8), the taps in registers (k_regs = k = 12) or
-// in shared memory (0), the float2 pitch of a v row and its pad shift,
-// whether the table is staged, the table's length, n_pass Stockham passes and
-// their radices (2, 4, 8 or 16; 0 passes: the direct DFT); and its shared
-// memory, which must equal the layout's. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a plan the kernel does not take.
-extern "C" int fsdr_pfb(const void* hist, const void* x, const void* taps,
-                        long long tap_sk, long long tap_sn, const void* tw, void* y,
-                        long long t, int n, int k, int modes, const int* plan,
-                        long long smem, void* stream) {
-  if (t <= 0) return 0;
+// The plan's checks and the launch, for one stream or for the lanes.
+int run(const void* hist, const void* x, const void* taps, long long tap_sk, long long tap_sn,
+        const void* tw, void* y, long long t, int n, int k, int modes, const int* plan,
+        long long smem, const Lanes& ln, void* stream) {
+  if (t <= 0 || ln.lanes == 0) return 0;
   const int window = plan[0], threads = plan[1], chunk = plan[2], groups = plan[3],
             outs = plan[4], k_regs = plan[5], pitch = plan[6], psh = plan[7],
             tw_staged = plan[8], tw_len = plan[9], n_pass = plan[10];
   const int* radices = plan + 11;
   const int taps_bf16 = modes & 1, bf16 = (modes >> 1) & 1;
-  if (n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || k < 1 || ln.lanes < 0 || ln.lanes > 65535 ||
+      (ln.lanes > 1 && ln.ys < t * n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pow2 = (n & (n - 1)) == 0;
   if (!window) {
-    if (tw_len != n || smem != 8LL * n) return static_cast<int>(cudaErrorInvalidValue);
+    if (tw_len != n || smem != 8LL * n || t > 2147483647LL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     const int log2n = pow2 ? fsdr::log2c(n) : -1;
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
           pfb_v_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    pfb_v_kernel<<<static_cast<unsigned>(t), 256, static_cast<size_t>(smem), s>>>(
+    const dim3 grid(static_cast<unsigned>(t), static_cast<unsigned>(ln.lanes));
+    pfb_v_kernel<<<grid, 256, static_cast<size_t>(smem), s>>>(
         static_cast<const float2*>(hist), static_cast<const float2*>(x), taps, tap_sk,
         tap_sn, taps_bf16, static_cast<const float2*>(tw), static_cast<float2*>(y), n, log2n,
-        k, bf16);
+        k, bf16, ln.hs, ln.xs, ln.tls, ln.ys);
     return cudaGetLastError();
   }
   if (threads < 1 || threads > kMaxThreads || chunk < 1 || groups < 1 ||
@@ -491,9 +519,47 @@ extern "C" int fsdr_pfb(const void* hist, const void* x, const void* taps,
   if (k_regs) {
     return dispatch_outs<kRegTaps>(outs, hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t,
                                    n, k, threads, chunk, groups, n_pass, codes, pitch, psh,
-                                   w_len, staged, bf16, static_cast<size_t>(want), s);
+                                   w_len, staged, bf16, static_cast<size_t>(want), ln, s);
   }
   return dispatch_outs<0>(outs, hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, k,
                           threads, chunk, groups, n_pass, codes, pitch, psh, w_len, staged,
-                          bf16, static_cast<size_t>(want), s);
+                          bf16, static_cast<size_t>(want), ln, s);
+}
+
+}  // namespace
+
+// hist: the (k - 1) * n samples before x (unread when k == 1); x: t * n
+// complex64 samples; taps: [k, n] float32 or bfloat16 (modes & 1), element
+// (kk, c) at taps + kk * tap_sk + c * tap_sn; bf16 mode: modes & 2; tw: the
+// plan's twiddle table of (cos, sin) pairs; y: [t, n] complex64. The plan
+// (cuda_kernels.pfb_plan) as ints: window (1) or the v layout (0); the
+// threads per block, the channels staged a step (chunk), the row groups, the
+// rows a thread (outs: 1, 4 or 8), the taps in registers (k_regs = k = 12) or
+// in shared memory (0), the float2 pitch of a v row and its pad shift,
+// whether the table is staged, the table's length, n_pass Stockham passes and
+// their radices (2, 4, 8 or 16; 0 passes: the direct DFT); and its shared
+// memory, which must equal the layout's. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a plan the kernel does not take.
+extern "C" int fsdr_pfb(const void* hist, const void* x, const void* taps,
+                        long long tap_sk, long long tap_sn, const void* tw, void* y,
+                        long long t, int n, int k, int modes, const int* plan,
+                        long long smem, void* stream) {
+  return run(hist, x, taps, tap_sk, tap_sn, tw, y, t, n, k, modes, plan, smem,
+             Lanes{1, 0, 0, 0, 0}, stream);
+}
+
+// The lane form: `lanes` (at most 65,535) streams, lane l's history at hist +
+// l * hs, its frame at x + l * xs, its taps at taps + l * tls (tls = 0: one
+// prototype for every lane; within a lane the strides tap_sk and tap_sn, as
+// fsdr_pfb) and its [t, n] outputs at y + l * ys (strides in elements; the
+// output rows must not overlap). The plan is the one-stream plan's layout and
+// radices with R and the tile chosen for the batch (cuda_kernels.
+// pfb_lanes_plan), held to the same checks. Returns as fsdr_pfb.
+extern "C" int fsdr_pfb_lanes(const void* hist, const void* x, const void* taps,
+                              long long tap_sk, long long tap_sn, const void* tw, void* y,
+                              long long t, int n, int k, int modes, const int* plan,
+                              long long smem, int lanes, long long hs, long long xs,
+                              long long tls, long long ys, void* stream) {
+  return run(hist, x, taps, tap_sk, tap_sn, tw, y, t, n, k, modes, plan, smem,
+             Lanes{lanes, hs, xs, tls, ys}, stream);
 }

@@ -36,15 +36,15 @@ Kernels (sources under ``csrc/``, built by :mod:`._build`):
 Under ``torch.func.vmap`` (the serving plane's slot program, ``serve/engine.py``)
 each wrapper hands its batched call to a ``torch.library.custom_op`` of its
 own (``fsdr::fir`` …), whose CPU and CUDA implementations are the wrapper's
-plain version and launch, and whose ``register_vmap`` rule runs the batch:
-``fir``, ``fir_fft``, ``rotator``, ``poly_fir`` and ``quad_demod`` as one
-launch of their **lane forms** (:func:`fir_lanes`, :func:`fir_fft_lanes`,
-:func:`rotator_lanes`, :func:`poly_fir_lanes`, :func:`quad_demod_lanes`: the
-lane a grid dimension, each lane the one-stream kernel's arithmetic on its own
-row, its own taps or weights, history, phase or carry sample, the plans of
-the FIR and polyphase forms chosen for the batch by :func:`fir_lanes_plan`,
-:func:`fir_fft_lanes_plan` and :func:`poly_fir_lanes_plan`; ``*_lanes_plain``
-their plain versions), ``pfb`` as one one-stream launch a lane.
+plain version and launch, and whose ``register_vmap`` rule runs the batch as
+one launch of the kernel's **lane form** (:func:`fir_lanes`,
+:func:`fir_fft_lanes`, :func:`rotator_lanes`, :func:`poly_fir_lanes`,
+:func:`quad_demod_lanes`, :func:`pfb_lanes`: the lane a grid dimension, each
+lane the one-stream kernel's arithmetic on its own row, its own taps,
+weights or prototype, history, phase or carry sample, the plans of the FIR,
+polyphase and PFB forms chosen for the batch by :func:`fir_lanes_plan`,
+:func:`fir_fft_lanes_plan`, :func:`poly_fir_lanes_plan` and
+:func:`pfb_lanes_plan`; ``*_lanes_plain`` their plain versions).
 
 ``precision="bf16"`` rounds the MAC's operands (samples and taps) to bfloat16;
 their products are exact in float32 and accumulate in float32, in the kernel
@@ -60,7 +60,7 @@ The TPU block-shape table (``DEFAULT_BLOCKS``, ``set_tuned_blocks``) becomes
 a table of plans: each kernel's plan function (:func:`fir_plan`,
 :func:`fir_fft_plan`, :func:`poly_fir_plan`, :func:`pfb_plan`,
 :func:`fir_lanes_plan`, :func:`fir_fft_lanes_plan`,
-:func:`poly_fir_lanes_plan`) returns the
+:func:`poly_fir_lanes_plan`, :func:`pfb_lanes_plan`) returns the
 plan a sweep measured best at that shape (:func:`set_tuned_plans`,
 ``tpu/kernel_tune.py``), else its rule's pick; a plan passed to a wrapper
 (``plan=``) beats both. ``rotator`` and ``quad_demod`` have one layout each.
@@ -80,20 +80,21 @@ import torch
 __all__ = ["fir", "fir_continue", "fir_fft", "rotator", "poly_fir", "quad_demod",
            "pfb", "fir_plain", "fir_continue_plain", "fir_fft_plain", "rotator_plain",
            "poly_fir_plain", "quad_demod_plain", "pfb_plain", "fir_lanes", "fir_fft_lanes",
-           "rotator_lanes", "poly_fir_lanes", "quad_demod_lanes", "fir_lanes_plain",
-           "fir_fft_lanes_plain", "rotator_lanes_plain", "poly_fir_lanes_plain",
-           "quad_demod_lanes_plain", "LANE_KERNELS", "launches",
+           "rotator_lanes", "poly_fir_lanes", "quad_demod_lanes", "pfb_lanes",
+           "fir_lanes_plain", "fir_fft_lanes_plain", "rotator_lanes_plain",
+           "poly_fir_lanes_plain", "quad_demod_lanes_plain", "pfb_lanes_plain",
+           "LANE_KERNELS", "launches",
            "reset_launches", "capturing", "PLAN_KERNELS", "plan_candidates",
            "set_tuned_plans", "tuned_plans", "normalize_plans", "fir_plan",
            "fir_fft_plan", "poly_fir_plan", "pfb_plan", "fir_lanes_plan",
-           "fir_fft_lanes_plan", "poly_fir_lanes_plan"]
+           "fir_fft_lanes_plan", "poly_fir_lanes_plan", "pfb_lanes_plan"]
 
 #: launches per kernel since the last :func:`reset_launches`: the six kernels,
-#: then the lane forms of five (:data:`LANE_KERNELS`)
+#: then their lane forms (:data:`LANE_KERNELS`)
 launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
                             "quad_demod": 0, "pfb": 0, "fir_lanes": 0,
                             "fir_fft_lanes": 0, "rotator_lanes": 0, "poly_fir_lanes": 0,
-                            "quad_demod_lanes": 0}
+                            "quad_demod_lanes": 0, "pfb_lanes": 0}
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -823,6 +824,26 @@ def _pfb_rule(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     return PfbPlan(False, 256, n, 1, 1, 1, 0, (), (), (), n, n, _NO_PAD, False, 8 * n)
 
 
+def _pfb_same_values(plan: PfbPlan, row: PfbPlan) -> bool:
+    """Does ``plan`` compute every output's bits as ``row`` does? The layout
+    (window or v) and the radices fix them; R, the tile, the pad, the taps'
+    place and the staging of the twiddles only cut the work among threads."""
+    return (plan.window, plan.radices) == (row.window, row.radices)
+
+
+@functools.lru_cache(maxsize=1024)
+def _pfb_lanes_rule(L: int, row: PfbPlan, n: int, k: int, t: int,
+                    n_sm: int = 132) -> PfbPlan:
+    """The lane form's plan for ``L`` streams of ``t`` rows whose one-stream
+    plan is ``row``: :func:`_pfb_rule` at the batch's ``L·t`` rows, which picks
+    R and the tile so that the batch, not one stream, fills the card (PFB-64 at
+    64 × 512 rows: R = 8, 1,024 blocks, where one stream's 512 rows take R = 1),
+    where it keeps ``row``'s layout and radices; else ``row`` (the v layout,
+    one row a block, has nothing to choose)."""
+    rule = _pfb_rule(n, k, L * t, n_sm)
+    return rule if _pfb_same_values(rule, row) else row
+
+
 ROTATOR_TILE = 512   # samples a block of csrc/rotator.cu takes: 256 threads, one
                      # 16-byte word (two samples) each
 QUAD_DEMOD_TILE = 256    # samples a block of csrc/quad_demod.cu takes, one a thread
@@ -845,18 +866,19 @@ _QUAD_DEMOD_PLAN = FixedPlan(256, QUAD_DEMOD_TILE)
 
 #: the kernels whose plans a sweep measures
 PLAN_KERNELS = ("fir", "fir_fft", "poly_fir", "pfb", "rotator", "quad_demod", "fir_lanes",
-                "fir_fft_lanes", "poly_fir_lanes")
+                "fir_fft_lanes", "poly_fir_lanes", "pfb_lanes")
 _PLAN_TYPES = {"fir": FirPlan, "fir_fft": FirFftPlan, "poly_fir": PolyFirPlan,
                "pfb": PfbPlan, "rotator": FixedPlan, "quad_demod": FixedPlan,
                "fir_lanes": FirPlan, "fir_fft_lanes": FirFftPlan,
-               "poly_fir_lanes": PolyFirPlan}
+               "poly_fir_lanes": PolyFirPlan, "pfb_lanes": PfbPlan}
 #: each kernel's shape: the arguments of its plan function
 PLAN_SHAPES = {"fir": ("n", "nt", "is_complex", "n_sm"), "fir_fft": ("n_fft", "n_taps"),
                "poly_fir": ("m", "D", "I", "nq", "is_complex", "n_sm"),
                "pfb": ("n", "k", "t", "n_sm"), "rotator": ("n",), "quad_demod": ("n",),
                "fir_lanes": ("L", "n", "nt", "is_complex", "n_sm"),
                "fir_fft_lanes": ("L", "n", "n_fft", "n_taps", "n_sm"),
-               "poly_fir_lanes": ("L", "m", "D", "I", "nq", "is_complex", "n_sm")}
+               "poly_fir_lanes": ("L", "m", "D", "I", "nq", "is_complex", "n_sm"),
+               "pfb_lanes": ("L", "n", "k", "t", "n_sm")}
 _tuned_lock = threading.Lock()
 _tuned: Dict[str, Dict[tuple, tuple]] = {}     # kernel -> {shape: plan}
 #: the plan of each kernel's latest launch (a recorded plan reaches the kernel)
@@ -954,6 +976,12 @@ def plan_candidates(kernel: str, *shape) -> list:
             for tm in _GEMM_TM:
                 out.append(row._replace(rows=tm, smem=_poly_fir_smem(
                     "gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, elt)))
+    elif kernel == "pfb_lanes":
+        # the one-stream layouts that compute a lane's bits as the rule's plan
+        L, n, k, t, n_sm = shape
+        row = _pfb_rule(n, k, t, n_sm)
+        out = [_pfb_lanes_rule(L, row, n, k, t, n_sm)] + [
+            p for p in plan_candidates("pfb", n, k, t, n_sm) if _pfb_same_values(p, row)]
     elif kernel == "rotator":
         out = [_ROTATOR_PLAN]
     elif kernel == "quad_demod":
@@ -1083,6 +1111,19 @@ def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     return _tuned_plan("pfb", (n, k, t, n_sm)) or _pfb_rule(n, k, t, n_sm)
 
 
+def pfb_lanes_plan(L: int, n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
+    """The ``pfb_lanes`` plan of ``L`` streams of ``t`` rows: the tuned
+    table's where it computes a lane's bits as the one-stream plan at ``t``
+    does (:func:`pfb_plan`, which the bare chain launches: the same layout and
+    radices), else :func:`_pfb_lanes_rule` on that plan, so a served lane stays
+    bit-equal to the bare chain whatever either table holds."""
+    row = pfb_plan(n, k, t, n_sm)
+    tuned = _tuned_plan("pfb_lanes", (L, n, k, t, n_sm))
+    if tuned is not None and _pfb_same_values(tuned, row):
+        return tuned
+    return _pfb_lanes_rule(L, row, n, k, t, n_sm)
+
+
 def _stream_head(x: torch.Tensor) -> int:
     """Scalar samples of a complex64 frame before its first 16-byte boundary."""
     ptr = x.data_ptr()
@@ -1130,6 +1171,9 @@ def _lib(name: str):
             lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, vp, vp, ll, i, i, i,
                                      ctypes.POINTER(i), ll, vp]
             lib.fsdr_pfb.restype = i
+            lib.fsdr_pfb_lanes.argtypes = [vp, vp, vp, ll, ll, vp, vp, ll, i, i, i,
+                                           ctypes.POINTER(i), ll, i, ll, ll, ll, ll, vp]
+            lib.fsdr_pfb_lanes.restype = i
         else:
             lib.fsdr_quad_demod.argtypes = [vp, vp, vp, vp, ll, ctypes.c_float, vp]
             lib.fsdr_quad_demod.restype = i
@@ -1437,7 +1481,8 @@ def _launch_pfb(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torc
 
 #: the kernels with a lane form, and its launch counter's name
 LANE_KERNELS = {"fir": "fir_lanes", "fir_fft": "fir_fft_lanes", "rotator": "rotator_lanes",
-                "poly_fir": "poly_fir_lanes", "quad_demod": "quad_demod_lanes"}
+                "poly_fir": "poly_fir_lanes", "quad_demod": "quad_demod_lanes",
+                "pfb": "pfb_lanes"}
 
 
 def _batched(*tensors) -> bool:
@@ -1605,6 +1650,41 @@ def quad_demod_lanes_plain(prev: torch.Tensor, x: torch.Tensor,
                 prev.clone())
     outs = [quad_demod_plain(prev[i], x[i], gain) for i in range(L)]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _check_pfb_lanes(hist: torch.Tensor, x: torch.Tensor,
+                     taps: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Validate a lane PFB call (``x [L, t·N]``, ``hist [L, (K−1)·N]``,
+    ``taps [L, K, N]``); returns ``(L, K, N, t)``."""
+    if x.dtype != torch.complex64 or x.dim() != 2:
+        raise TypeError(f"x must be a [L, t*N] complex64 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    L = int(x.shape[0])
+    if taps.dtype not in (torch.float32, torch.bfloat16) or taps.dim() != 3 \
+            or taps.shape[0] != L or min(taps.shape[1:]) < 1:
+        raise TypeError(f"taps must be a real [{L}, K, N] float32 or bfloat16 tensor, got "
+                        f"{taps.dtype} of shape {tuple(taps.shape)}")
+    K, N = int(taps.shape[1]), int(taps.shape[2])
+    if x.shape[1] % N:
+        raise ValueError(f"rows of {x.shape[1]} samples must be a multiple of N ({N})")
+    if hist.dtype != torch.complex64 or tuple(hist.shape) != (L, (K - 1) * N):
+        raise ValueError(f"hist must be [{L}, {(K - 1) * N}] complex64, got {hist.dtype} "
+                         f"of shape {tuple(hist.shape)}")
+    if any(t.device != x.device for t in (hist, taps)):
+        raise ValueError("hist, x and taps must lie on one device")
+    return L, K, N, int(x.shape[1]) // N
+
+
+def pfb_lanes_plain(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                    precision: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`pfb_lanes`: :func:`pfb_plain` on each lane's
+    row with its own taps (each lane equals that function's output bit for
+    bit; a batched IDFT product rounds apart on the CPU)."""
+    _check_precision(precision)
+    L, K, N, t = _check_pfb_lanes(hist, x, taps)
+    if L == 0:
+        return torch.empty((0, t, N), dtype=torch.complex64, device=x.device)
+    return torch.stack([pfb_plain(hist[i], x[i], taps[i], precision) for i in range(L)])
 
 
 def _check_rows(*tensors: Optional[torch.Tensor]) -> None:
@@ -1801,6 +1881,45 @@ def quad_demod_lanes(prev: torch.Tensor, x: torch.Tensor,
     return y, last
 
 
+def pfb_lanes(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+              precision: Optional[str] = None, plan: Optional[PfbPlan] = None) -> torch.Tensor:
+    """The ``pfb`` kernel over ``L`` streams in one launch: ``hist [L,
+    (K−1)·N]`` and ``x [L, t·N]`` complex64 (rows contiguous), ``taps [L, K,
+    N]`` real float32 or bfloat16 at any strides (the stage's ``[L, N, K]``
+    carry transposed; stride 0 across lanes is one prototype shared by every
+    lane, read once); each lane exactly :func:`pfb` on its row. ``plan`` (one
+    of :func:`plan_candidates`) beats the tuned table and the rule; it must
+    keep the layout and radices of a lane's one-stream plan, as
+    :func:`pfb_lanes_plan` does. Returns ``[L, t, N]`` complex64; raises
+    where the kernel does not build or launch."""
+    if x.device.type == "cpu":
+        return pfb_lanes_plain(hist, x, taps, precision)
+    bf16 = _check_precision(precision)
+    L, K, N, t = _check_pfb_lanes(hist, x, taps)
+    _check_rows(hist, x)
+    if taps.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {taps.device}")
+    plan = plan or pfb_lanes_plan(L, N, K, t, _sm_count(x.device))
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"pfb_lanes: N={N} needs {plan.smem} B of shared memory per "
+                         f"block for its v row, over the card's {_MAX_SMEM} B")
+    y = torch.empty((L, t, N), dtype=torch.complex64, device=x.device)
+    if t == 0 or L == 0:
+        return y                            # nothing to launch
+    last_plans["pfb_lanes"] = plan
+    tw, ints = _pfb_consts(plan, N, x.device)
+    lib = _lib("pfb")
+    with _card(x):
+        err = lib.fsdr_pfb_lanes(hist.data_ptr(), x.data_ptr(), taps.data_ptr(),
+                                 taps.stride(1), taps.stride(2), tw.data_ptr(), y.data_ptr(),
+                                 t, N, K, (taps.dtype == torch.bfloat16) | bf16 << 1, ints,
+                                 plan.smem, L, hist.stride(0), x.stride(0), taps.stride(0),
+                                 y.stride(0), _stream(x))
+    _raise_on(err, "pfb_lanes")
+    _count("pfb_lanes")
+    return y
+
+
 # ---------------------------------------------------------------------------
 # the custom ops and their vmap rules
 # ---------------------------------------------------------------------------
@@ -1908,19 +2027,13 @@ def _poly_fir_vmap(info, in_dims, hist, x, W, precision):
                           precision), 0
 
 
-def _per_lane(fn, info, in_dims, args, n_tensors: int):
-    """A vmap rule without a lane form (``pfb``): the one-stream wrapper
-    once a lane (each a launch of its own on a card), outputs stacked."""
-    L = info.batch_size
-    cols = [_lanes_of(a, d, L) if i < n_tensors else a
-            for i, (a, d) in enumerate(zip(args, in_dims))]
-    outs = [fn(*[c[lane] if i < n_tensors else c for i, c in enumerate(cols)])
-            for lane in range(L)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(o) for o in zip(*outs)), tuple(0 for _ in outs[0])
-    return torch.stack(outs), 0
-
-
 @torch.library.register_vmap("fsdr::pfb")
 def _pfb_vmap(info, in_dims, hist, x, taps, precision):
-    return _per_lane(pfb, info, in_dims, (hist, x, taps, precision), 3)
+    L = info.batch_size
+    # an unbatched prototype is one for every lane: expanded with stride 0,
+    # never copied L times; batched taps keep their strides (the stage's
+    # carry transposed)
+    t = taps.movedim(in_dims[2], 0) if in_dims[2] is not None else \
+        taps.unsqueeze(0).expand(L, *taps.shape)
+    return pfb_lanes(_lanes_of(hist, in_dims[0], L), _lanes_of(x, in_dims[1], L), t,
+                     precision), 0

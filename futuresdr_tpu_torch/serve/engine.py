@@ -11,8 +11,7 @@ leading session axis:
   lane keeps the linear layout, so ``update_stage`` addressing and the
   snapshot surface (``snapshot_carry``/``carry_matches``/``restore_carry``)
   work per slot; the hand kernels run under vmap through their custom ops,
-  ``fir``, ``fir_fft``, ``rotator``, ``poly_fir`` and ``quad_demod`` as one
-  launch of their lane forms, ``pfb`` one launch a lane
+  each as one launch of its lane form over the batch
   (``ops/cuda_kernels.py``);
 * ragged admission: a fixed-capacity slot axis, inactive lanes masked by an
   ``active`` vector, so sessions join, leave and stall with no new capture

@@ -4,7 +4,7 @@ The counterpart of ``futuresdr_tpu/tpu/pallas_tune.py`` (whose sweep picks a
 Pallas block shape per kernel and chip generation). Here a kernel's plan
 (``ops/cuda_kernels.py``: ``fir_plan``, ``fir_fft_plan``, ``poly_fir_plan``,
 ``pfb_plan``, ``fir_lanes_plan``, ``fir_fft_lanes_plan``,
-``poly_fir_lanes_plan``) is chosen per call
+``poly_fir_lanes_plan``, ``pfb_lanes_plan``) is chosen per call
 shape by a rule; :func:`sweep_plans` times every layout the rule chooses
 between (:func:`cuda_kernels.plan_candidates`, the rule's own pick among
 them) at the main paths' shapes, holds each against the kernel's plain
@@ -57,13 +57,15 @@ TIE_MARGIN = 0.98
 #: phase 7 limits; quad_demod's is absolute, in radians·gain)
 TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
        "quad_demod": 1e-5, "pfb": 1e-5, "fir_lanes": 1e-5, "fir_fft_lanes": 1e-4,
-       "poly_fir_lanes": 1e-5}
+       "poly_fir_lanes": 1e-5, "pfb_lanes": 1e-5}
 #: the main paths' calls: (kernel, label, shape spec) — spectrum chain 2^18,
 #: the A/B decimator, the FM front end at 512,000 (128,000 after the channel
 #: filter), PFB-64 and PFB-2048 at 2^18, and the serving plane's lane forms:
 #: serve_ab's 64 sessions of 512 (``fir``), the main chain's 16 of 2^18
-#: (``fir_fft``) and the FM front end's 64 of 32,000 (``poly_fir``: the
-#: channel filter with each lane's W, the resampler with one shared W)
+#: (``fir_fft``), the FM front end's 64 of 32,000 (``poly_fir``: the
+#: channel filter with each lane's W, the resampler with one shared W) and
+#: the PFB-64 channelizer's 64 of 2^15 (``pfb``, each lane's prototype as the
+#: stage carries it: ``[N, K]`` transposed)
 SHAPES = (
     ("fir", "spectrum c64 2^18, 64 taps", {"n": 1 << 18, "nt": 64}),
     ("fir_fft", "spectrum c64 2^18, 64 taps, n_fft 2048", {"n": 1 << 18, "nt": 64,
@@ -83,6 +85,7 @@ SHAPES = (
      {"L": 64, "n": 32_000, "D": 4, "m": 32}),
     ("poly_fir_lanes", "served FM resampler f32 64 x 8,000, 24/125",
      {"L": 64, "n": 8_000, "D": 125, "m": 2, "I": 24, "real": True, "shared": True}),
+    ("pfb_lanes", "served PFB-64 c64 64 x 2^15", {"L": 64, "n": 1 << 15, "N": 64, "K": 12}),
 )
 
 
@@ -152,6 +155,15 @@ def _workload(kernel: str, spec: dict, dev: torch.device, reps: int,
         return ((N, K, n // N, n_sm), args,
                 lambda p, h, x: ck.pfb(h, x, taps, plan=p),
                 lambda h, x: ck.pfb_plain(h, x, taps))
+    if kernel == "pfb_lanes":
+        L, N, K = spec["L"], spec["N"], spec["K"]
+        taps = r(L, N, K).transpose(1, 2)
+        args = [(torch.randn(L, (K - 1) * N, dtype=torch.complex64, generator=gen, device=dev),
+                 torch.randn(L, n, dtype=torch.complex64, generator=gen, device=dev))
+                for _ in range(reps)]
+        return ((L, N, K, n // N, n_sm), args,
+                lambda p, h, x: ck.pfb_lanes(h, x, taps, plan=p),
+                lambda h, x: ck.pfb_lanes_plain(h, x, taps))
     if kernel in ("fir_lanes", "fir_fft_lanes"):
         L, nt = spec["L"], spec["nt"]
         taps = r(L, nt)

@@ -112,6 +112,9 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
       ``m·D`` history, ``W``, ``n/D·I`` outputs, a MAC a weight an output;
     * ``pfb(n, N, K, tap_bytes=4)``: history, frame in and out, taps,
       twiddles; ``4K + 5·log2 N`` a sample;
+    * ``pfb_lanes(L, n, N, K, tap_bytes=4, shared=False)``: ``L`` times
+      ``pfb``'s on each lane's ``n`` samples, with the twiddle table, one for
+      every lane, read once, and a ``shared`` prototype's taps read once;
     * ``viterbi(B, T, S=64, steps=B·T)``: the LLRs of the ``steps`` real
       steps (8 bytes a frame a step) and the frame lengths in, the four
       trellis tables in, the decoded bits (one byte a step of the ``[B, T]``
@@ -145,6 +148,11 @@ def kernel_cost(kernel: str, **s) -> Tuple[float, float]:
         n, N, K = s["n"], s["N"], s["K"]
         return (float(8 * (K - 1) * N + 16 * n + s.get("tap_bytes", 4) * K * N + 8 * N),
                 float(n * (4 * K + 5 * int(_log2(N)))))
+    if kernel == "pfb_lanes":
+        L, N, K = s["L"], s["N"], s["K"]
+        nbytes, ops = kernel_cost("pfb", n=s["n"], N=N, K=K, tap_bytes=s.get("tap_bytes", 4))
+        once = 8 * N + (s.get("tap_bytes", 4) * K * N if s.get("shared") else 0)
+        return float(L * nbytes - (L - 1) * once), float(L * ops)
     if kernel == "viterbi":
         B, T, S = s["B"], s["T"], s.get("S", 64)
         n = s.get("steps", B * T)

@@ -347,7 +347,8 @@ def test_sweep_smoke_on_the_cpu():
               ("fir_lanes", "s", {"L": 3, "n": 512, "nt": 17}),
               ("fir_fft_lanes", "s", {"L": 2, "n": 4096, "nt": 64, "n_fft": 2048}),
               ("poly_fir_lanes", "s", {"L": 3, "n": 1000, "D": 125, "m": 2, "I": 24,
-                                       "real": True, "shared": True}))
+                                       "real": True, "shared": True}),
+              ("pfb_lanes", "s", {"L": 3, "n": 2048, "N": 64, "K": 12}))
     res = kernel_tune.sweep_plans(device="cpu", reps=1, shapes=shapes)
     assert res["failures"] == [] and res["device"] == "cpu"
     assert set(res["winners"]) == set(ck.PLAN_KERNELS)

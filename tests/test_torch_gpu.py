@@ -1324,7 +1324,7 @@ def test_int8_rungs_equal_the_cpu_on_card(cuda_device, decim):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["fir", "fir_fft", "poly_fir", "pfb", "rotator",
                                     "quad_demod", "fir_lanes", "fir_fft_lanes",
-                                    "poly_fir_lanes"])
+                                    "poly_fir_lanes", "pfb_lanes"])
 def test_sweep_candidates_launch_and_match_plain_on_card(cuda_device, kernel):
     """Every layout the plan sweep may pick launches at the main paths'
     shapes and matches the plain version at phase 7's limits."""
@@ -1620,6 +1620,151 @@ def test_served_fm_chain_bit_equals_bare_pipeline_on_card(cuda_device):
         fn, _ = pipe.compile(frame, cuda_device, donate=False)
         carry = pipe.init_carry(cuda_device)
         frames = feed[2:] if i == 2 else feed
+        assert len(out[i]) == len(frames)
+        for got, f in zip(out[i], frames):
+            carry, y = fn(carry, torch.from_numpy(f).to(cuda_device))
+            np.testing.assert_array_equal(got, y.cpu().numpy())
+
+
+def _pfb_lanes_args(dev, L, N, K, t, seed, shared=False, bf16=False):
+    """L lanes of history and frame, and taps as the stage passes them: its
+    ``[L, N, K]`` carry transposed, bf16 as the bf16 stage carries them, one
+    expanded with stride 0 where ``shared``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hc = torch.randn(1 if shared else L, N, K, generator=g, device=dev)
+    if bf16:
+        hc = hc.to(torch.bfloat16)
+    taps = hc.expand(L, N, K).transpose(1, 2)
+    hist = torch.randn(L, (K - 1) * N, dtype=torch.complex64, generator=g, device=dev)
+    x = torch.randn(L, t * N, dtype=torch.complex64, generator=g, device=dev)
+    return hist, x, taps
+
+
+def _v_plan(N):
+    return ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False, 8 * N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 16])
+@pytest.mark.parametrize("case", ["PFB-64", "PFB-64 bf16", "PFB-64 shared", "PFB-2048",
+                                  "v pow2", "v direct"])
+def test_pfb_lanes_equals_one_stream_launches_on_card(cuda_device, case, L):
+    """Each lane of a ``pfb_lanes`` launch equals the one-stream ``pfb``
+    launch on its row bit for bit, one launch in all: PFB-64 at 512 rows a
+    lane in f32 and bf16 and with one prototype shared (stride 0, not
+    copied), PFB-2048, and the v layout forced on both sides (N = 2048,
+    radix 2; N = 1000, the direct DFT). f32 lies within 1e-5 of the lane
+    plain version; bf16 at the one-stream kernel's SNR."""
+    N, t = {"v pow2": (2048, 5), "v direct": (1000, 5), "PFB-2048": (2048, 128)}.get(
+        case, (64, 512))
+    bf16 = case.endswith("bf16")
+    prec = "bf16" if bf16 else None
+    hist, x, taps = _pfb_lanes_args(cuda_device, L, N, 12, t, L + len(case),
+                                    shared=case.endswith("shared"), bf16=bf16)
+    if case.endswith("shared") and L > 1:
+        assert taps.stride(0) == 0
+    plan = _v_plan(N) if case.startswith("v ") else None
+    before = dict(ck.launches)
+    got = ck.pfb_lanes(hist, x, taps, prec, plan=plan)
+    torch.cuda.synchronize()
+    assert ck.launches["pfb_lanes"] == before["pfb_lanes"] + 1
+    assert ck.launches["pfb"] == before["pfb"]
+    if plan is None:
+        per = [ck.pfb(hist[i], x[i], taps[i], prec) for i in range(L)]
+    else:
+        per = [ck._launch_pfb(hist[i], x[i], taps[i], torch.empty(
+            (t, N), dtype=torch.complex64, device=cuda_device), bf16, plan) for i in range(L)]
+    per = torch.stack(per)
+    torch.cuda.synchronize()
+    assert got.shape == per.shape == (L, t, N) and torch.equal(got, per)
+    ref = ck.pfb_lanes_plain(hist, x, taps, prec)
+    if bf16:
+        assert _snr_db(got, ref) >= PFB_BF16_SNR
+    else:
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_pfb_lanes_refuses_a_plan_of_another_layout_size_on_card(cuda_device):
+    """The lane entry keeps the one-stream plan's checks: a plan whose shared
+    memory is not its layout's is refused with cudaErrorInvalidValue, and
+    nothing is counted; no lane or no row launches nothing."""
+    hist, x, taps = _pfb_lanes_args(cuda_device, 3, 64, 12, 64, 1)
+    plan = ck.pfb_lanes_plan(3, 64, 12, 64)
+    before = dict(ck.launches)
+    with pytest.raises(RuntimeError, match="pfb_lanes"):
+        ck.pfb_lanes(hist, x, taps, plan=plan._replace(smem=plan.smem + 8))
+    y = ck.pfb_lanes(hist[:0], x[:0], taps[:0])
+    assert y.shape == (0, 64, 64)
+    y = ck.pfb_lanes(hist, x[:, :0], taps)
+    assert y.shape == (3, 0, 64)
+    torch.cuda.synchronize()
+    assert ck.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+def test_vmap_of_pfb_takes_one_lane_launch_on_card(cuda_device, shared):
+    """``torch.func.vmap`` over ``pfb`` with each lane's taps (the carry's
+    transposed view, batched) or one prototype for every lane (unbatched)
+    launches the lane form once, not the one-stream kernel once a lane, and
+    equals the one-stream launches."""
+    L, N, K, t = 16, 64, 12, 512
+    hist, x, taps = _pfb_lanes_args(cuda_device, L, N, K, t, 9)
+    hc = taps.transpose(1, 2).contiguous()          # [L, N, K], the carry
+    vm = torch.func.vmap
+    before = dict(ck.launches)
+    if shared:
+        got = vm(ck.pfb, in_dims=(0, 0, None))(hist, x, hc[0].t())
+    else:
+        got = vm(lambda h, a, c: ck.pfb(h, a, c.t()))(hist, x, hc)
+    torch.cuda.synchronize()
+    assert ck.launches["pfb_lanes"] == before["pfb_lanes"] + 1
+    assert ck.launches["pfb"] == before["pfb"]
+    for i in range(L):
+        assert torch.equal(got[i], ck.pfb(hist[i], x[i], hc[0 if shared else i].t()))
+
+
+@pytest.mark.gpu
+def test_served_channelizer_bit_equals_bare_pipeline_on_card(cuda_device):
+    """PFB-64 served to three sessions, one on its own prototype (a lane
+    retune at admission), one joining late: each equals the bare compiled
+    Pipeline built with its prototype bit for bit; one capture whose replay
+    launches ``pfb_lanes`` once."""
+    from futuresdr_tpu_torch.blocks import pfb_default_taps
+    from futuresdr_tpu_torch.ops import stages as T
+    from futuresdr_tpu_torch.serve import ServeEngine
+
+    def chain(taps=None):
+        return T.Pipeline([T.channelizer_stage(64, pfb_default_taps(64) if taps is None
+                                               else taps, impl="pallas")], np.complex64)
+
+    frame = 1 << 15
+    rng = np.random.default_rng(12)
+    feeds = [[_c64(rng, frame) for _ in range(4)] for _ in range(3)]
+    own = pfb_default_taps(64, atten_db=80.0)
+    eng = ServeEngine(chain(), frame_size=frame, app="gpu_pfb", buckets=(4,),
+                      queue_frames=8, device=cuda_device)
+    sess, out = {}, {0: [], 1: [], 2: []}
+    for j in range(4):
+        for i in range(3):
+            if j == (2 if i == 2 else 0):
+                sess[i] = eng.admit(tenant=f"t{i}")
+                if i == 1:
+                    eng.retune(sess[i].sid, "channelizer", taps=own)
+        for i, s in sess.items():
+            eng.submit(s.sid, feeds[i][j])
+        eng.step()
+        for i, s in sess.items():
+            out[i] += eng.results(s.sid)
+    assert eng.compiles == 1
+    prog = next(iter(eng._programs.values()))
+    assert prog.launches == {"pfb_lanes": 1}
+    for i in range(3):
+        pipe = chain(own if i == 1 else None)
+        fn, _ = pipe.compile(frame, cuda_device, donate=False)
+        carry = pipe.init_carry(cuda_device)
+        frames = feeds[i][2:] if i == 2 else feeds[i]
         assert len(out[i]) == len(frames)
         for got, f in zip(out[i], frames):
             carry, y = fn(carry, torch.from_numpy(f).to(cuda_device))

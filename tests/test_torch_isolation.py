@@ -246,9 +246,11 @@ def test_cpu_tensors_never_count_a_launch():
     ck.poly_fir_lanes(torch.zeros(2, 12, dtype=torch.complex64), torch.stack([x, x]),
                       torch.ones(1, 4, 4).expand(2, 4, 4))
     ck.quad_demod_lanes(x[:2], torch.stack([x, x]), 0.5)
+    ck.pfb_lanes(torch.zeros(2, 48, dtype=torch.complex64), torch.stack([x, x]),
+                 torch.ones(1, 16, 4).expand(2, 16, 4).transpose(1, 2))
     assert set(ck.launches) == {"fir", "fir_fft", "rotator", "poly_fir", "quad_demod",
                                 "pfb", "fir_lanes", "fir_fft_lanes", "rotator_lanes",
-                                "poly_fir_lanes", "quad_demod_lanes"}
+                                "poly_fir_lanes", "quad_demod_lanes", "pfb_lanes"}
     assert all(v == 0 for v in ck.launches.values()), ck.launches
 
 
@@ -280,6 +282,9 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
         ck.fir_fft_lanes(h2, x2, t2, 256)
     with pytest.raises(ValueError, match="CUDA"):
         ck.rotator_lanes(x2, torch.empty(2, device="meta"), torch.empty(2, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.pfb_lanes(torch.empty(2, 48, dtype=torch.complex64, device="meta"), x2,
+                     torch.empty(2, 4, 16, device="meta"))
     assert ck.launches == before
 
 

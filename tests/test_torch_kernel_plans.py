@@ -1086,7 +1086,8 @@ def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
     at most 2,048 rows), against
     the plain version: the tolerances of the twins' own tests (rel. 1e-6
     ``fir``, ``poly_fir``, ``fir_lanes``; 1e-5 ``fir_fft``, ``pfb``,
-    ``fir_fft_lanes``; the sums' orders differ)."""
+    ``fir_fft_lanes``, ``pfb_lanes``, cut to 3 lanes of 256 rows; the sums'
+    orders differ)."""
     plan = ck.plan_candidates(kernel, *shape)[i]
     seed = (sum(shape) + 31 * i) % 10_000
     if kernel == "fir":
@@ -1120,6 +1121,11 @@ def test_sweep_candidate_layouts_match_plain(kernel, shape, i):
         got = _poly_fir_lanes_twin(hist, x, W, plan)
         assert _rel(got, ck.poly_fir_lanes_plain(hist, x, W)) <= 1e-6 * max(
             1.0, D * (m + 1) / 1000)
+    elif kernel == "pfb_lanes":
+        L, N, K, t, _n_sm = shape
+        hist, x, taps = _pfb_lanes_case(min(L, 3), N, K, min(t, 256), seed)
+        got = _pfb_lanes_twin(hist, x, taps, plan)
+        assert _rel(got, ck.pfb_lanes_plain(hist, x, taps)) <= 1e-5
     else:
         N, K, t, _n_sm = shape
         hist, x, taps = _pfb_case(N, K, t, seed)
@@ -1399,3 +1405,95 @@ def test_quad_demod_lanes_walk_matches_plain(n):
     ref, ref_last = ck.quad_demod_lanes_plain(prev, x, gain)
     assert y.shape == ref.shape == (L, n) and torch.equal(last, ref_last)
     assert _wrapped_err(y, ref, gain) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the lane form of pfb
+# ---------------------------------------------------------------------------
+
+def _pfb_lanes_twin(hist, x, taps, plan, bf16=False):
+    """``csrc/pfb.cu``'s lane form: grid y is the lane, whose blocks move
+    hist, x, the taps and y to its rows by their strides (the taps' 0 where
+    the lanes share one prototype; within a lane the taps' own two strides,
+    the carry's transposed view) and run the one-stream layout on its row.
+    Each lane's taps are read from the storage of the tensor's own size (an
+    index past it raises); every output of the batch is written exactly
+    once, into its own lane's rows."""
+    L, K, N = taps.shape
+    t = x.shape[1] // N
+    store = torch.empty(0, dtype=taps.dtype).set_(taps.untyped_storage())
+    sl, sk, sn = taps.stride()
+    kk, c = torch.arange(K)[:, None], torch.arange(N)[None, :]
+    y = torch.zeros(L * t * N, dtype=torch.complex64)
+    writes = torch.zeros(L * t * N, dtype=torch.int64)
+    for lane in range(L):
+        w = store[taps.storage_offset() + lane * sl + kk * sk + c * sn]
+        one = _pfb_twin(hist[lane], x[lane], w, plan, bf16) if plan.window else \
+            _pfb_v_twin(hist[lane], x[lane], w, plan)
+        row = lane * t * N + torch.arange(t * N)
+        y[row] = one.reshape(-1)
+        writes[row] += 1
+    assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
+    return y.view(L, t, N)
+
+
+def _pfb_lanes_case(L, N, K, t, seed, shared=False, taps_bf16=False):
+    """L lanes of history and frame, and taps as the stage passes them: its
+    ``[L, N, K]`` carry transposed (one expanded with stride 0 where
+    ``shared``)."""
+    rng = np.random.default_rng(seed)
+    hc = torch.from_numpy(rng.standard_normal((1 if shared else L, N, K)).astype(np.float32))
+    if taps_bf16:
+        hc = hc.to(torch.bfloat16)
+    hc = hc.expand(L, N, K)
+    hist = torch.from_numpy(np.stack([_c64(rng, (K - 1) * N) for _ in range(L)]))
+    x = torch.from_numpy(np.stack([_c64(rng, t * N) for _ in range(L)]))
+    return hist, x, hc.transpose(1, 2)
+
+
+# (N, K, t, shared): PFB-64 with its 12 taps in registers, ragged against the
+# tile; a prototype shared (stride 0); 4 taps a branch from shared memory;
+# PFB-2048 in 512-channel chunks; the direct DFT
+_PFB_LANE_CASES = {"PFB-64": (64, 12, 37, False), "PFB-64 shared": (64, 12, 37, True),
+                   "N=16 K=4": (16, 4, 29, False), "PFB-2048": (2048, 12, 3, False),
+                   "N=24 direct": (24, 12, 11, False)}
+
+
+@pytest.mark.parametrize("case", list(_PFB_LANE_CASES))
+@pytest.mark.parametrize("L", _LANE_COUNTS)
+def test_pfb_lanes_plans_match_plain(L, case):
+    """Every ``pfb_lanes`` candidate (the batch rule, then the one-stream
+    layouts that keep the rule's layout and radices) at L lanes with
+    ``n_sm`` cut to 3 against the lane plain version, every output once into
+    its own lane's rows."""
+    N, K, t, shared = _PFB_LANE_CASES[case]
+    hist, x, taps = _pfb_lanes_case(L, N, K, t, 70 + L + N, shared)
+    want = ck.pfb_lanes_plain(hist, x, taps)
+    row = ck.pfb_plan(N, K, t, 3)
+    cands = ck.plan_candidates("pfb_lanes", L, N, K, t, 3)
+    assert cands[0] == ck.pfb_lanes_plan(L, N, K, t, 3)
+    for plan in cands:
+        assert plan.smem <= ck._MAX_SMEM and ck._pfb_same_values(plan, row), plan
+        got = _pfb_lanes_twin(hist, x, taps, plan)
+        assert got.shape == want.shape and _rel(got, want) <= 1e-5, plan
+
+
+def test_pfb_lanes_twin_takes_the_v_layout_and_bf16_taps():
+    """The v layout (forced, as the card's checks force it) over 3 lanes,
+    and the window layout with bf16 taps in bf16 mode against the lane plain
+    version's arithmetic with the kernel's float32 twiddles."""
+    N, K, t = 1000, 12, 3
+    hist, x, taps = _pfb_lanes_case(3, N, K, t, 5)
+    v = ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False, 8 * N)
+    assert _rel(_pfb_lanes_twin(hist, x, taps, v), ck.pfb_lanes_plain(hist, x, taps)) <= 1e-5
+    N, t = 64, 37
+    hist, x, taps = _pfb_lanes_case(3, N, K, t, 6, taps_bf16=True)
+    got = _pfb_lanes_twin(hist, x, taps, ck.pfb_lanes_plan(3, N, K, t, 3), bf16=True)
+    for lane in range(3):
+        rows = ck._planes(torch.cat([hist[lane], x[lane]])).reshape(t + K - 1, N, 2).flip(1)
+        rows, w = ck._bf16(rows), ck._bf16(taps[lane].to(torch.float32))
+        acc = torch.zeros((t, N, 2))
+        for k in range(K):
+            acc = acc + w[k, :, None] * rows[K - 1 - k:K - 1 - k + t]
+        ref = torch.fft.ifft(torch.view_as_complex(ck._bf16(acc).contiguous()), dim=1) * N
+        assert _rel(got[lane], ref) <= 1e-5

@@ -150,6 +150,8 @@ ROWS = [
     ("quad_demod", dict(n=128_000), 0.459), ("quad_demod", dict(n=1_024_000), 3.67),
     ("pfb", dict(n=1 << 18, N=64, K=12), 1.25), ("pfb", dict(n=1 << 21, N=64, K=12), 10.0),
     ("pfb", dict(n=1 << 18, N=2048, K=12), 1.34),
+    ("pfb_lanes", dict(L=16, n=1 << 18, N=64, K=12), 20.1),
+    ("pfb_lanes", dict(L=64, n=1 << 15, N=64, K=12), 10.2),
     ("poly_fir", dict(n=1 << 18, m=8, D=16), 0.666),
     ("viterbi", dict(B=256, T=4096), 9.01), ("viterbi", dict(B=256, T=4096, S=16), 2.82),
 ]
@@ -158,6 +160,17 @@ ROWS = [
 @pytest.mark.parametrize("kernel,shape,table_us", ROWS)
 def test_kernel_bound_equals_the_perf_table(kernel, shape, table_us):
     assert _bound_us(*R.kernel_cost(kernel, **shape)) == pytest.approx(table_us, rel=0.02)
+
+
+@pytest.mark.parametrize("L", [1, 3, 64])
+def test_pfb_lanes_cost_reads_shared_tables_once(L):
+    """The lane form's count is L one-stream counts, with the twiddle table
+    (one for every lane) read once, and a shared prototype's taps once."""
+    one = R.kernel_cost("pfb", n=4096, N=64, K=12, tap_bytes=2)
+    own = R.kernel_cost("pfb_lanes", L=L, n=4096, N=64, K=12, tap_bytes=2)
+    shared = R.kernel_cost("pfb_lanes", L=L, n=4096, N=64, K=12, tap_bytes=2, shared=True)
+    assert own == (L * one[0] - (L - 1) * 8 * 64, L * one[1])
+    assert shared == (own[0] - (L - 1) * 2 * 12 * 64, own[1])
 
 
 @pytest.mark.parametrize("make,kernel,shape,n,dt", [

@@ -464,10 +464,10 @@ def test_lane_plain_versions_equal_the_one_stream_plain_versions(L, precision):
 
 
 def test_vmap_rules_equal_per_lane_calls():
-    """``torch.func.vmap`` over each wrapper reaches its custom op's rule
-    (the lane form, or one call a lane), lane for lane equal to the
-    one-stream call; an unbatched argument is shared by every lane. No
-    launch is counted for a CPU tensor."""
+    """``torch.func.vmap`` over each wrapper reaches its custom op's rule,
+    the kernel's lane form (``pfb``'s too, with each lane's taps), lane for
+    lane equal to the one-stream call; an unbatched argument is shared by
+    every lane. No launch is counted for a CPU tensor."""
     rng = np.random.default_rng(9)
     L, n, nt = 3, 256, 9
     x, hist = _c64(rng, L, n), _c64(rng, L, nt - 1)
