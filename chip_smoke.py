@@ -584,12 +584,33 @@ PFB_KERNELS = ("pfb",)
 # warp, with the same two shuffles, products, sums, maxima, pick compares,
 # ballots and keeps a step but no load or store inside the loop (each step's
 # LLRs are made in registers, only the last metrics and ballots are written):
-# the sequential floor of that design's recursion, measured.
+# the sequential floor of that design's recursion, measured. And a copy of a
+# call's bytes: every input byte read once and every output byte written once,
+# in 16-byte words (what the written value is depends on what was read, so
+# neither loop is dropped): the floor of a kernel's memory traffic.
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
 extern "C" int fsdr_empty(unsigned blocks, int threads, void* stream) {
   empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+__global__ void rw_kernel(const int4* __restrict__ in, long long n_in, int4* __restrict__ out,
+                          long long n_out) {
+  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long nt = static_cast<long long>(gridDim.x) * blockDim.x;
+  int acc = 0;
+  for (long long i = tid; i < n_in; i += nt) {
+    const int4 v = in[i];
+    acc ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  for (long long i = tid; i < n_out; i += nt) out[i] = make_int4(acc, acc, acc, acc);
+}
+extern "C" int fsdr_rw(const void* in, long long n_in, void* out, long long n_out,
+                       unsigned blocks, void* stream) {
+  rw_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(in), n_in, static_cast<int4*>(out), n_out);
   return cudaGetLastError();
 }
 
@@ -1476,9 +1497,10 @@ def phase_fm_wav(dev, wav_path) -> float:
 
 
 def start_empty_kernel(build_dir):
-    """Start ``nvcc`` on ``EMPTY_CU`` (the empty kernel and the ACS step
-    chain) into ``build_dir``, with the port's flags; returns a function that
-    waits for it and gives the loaded library."""
+    """Start ``nvcc`` on ``EMPTY_CU`` (the empty kernel, the ACS step chain
+    and the copy of a call's bytes) into ``build_dir``, with the port's
+    flags; returns a function that waits for it and gives the loaded
+    library."""
     from futuresdr_tpu_torch.ops import _build
     build_dir.mkdir(parents=True, exist_ok=True)
     src = build_dir / "empty_launch.cu"
@@ -1496,8 +1518,30 @@ def start_empty_kernel(build_dir):
         vp = ctypes.c_void_p
         lib.fsdr_acs_chain.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
         lib.fsdr_acs_chain.restype = ctypes.c_int
+        lib.fsdr_rw.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_longlong, ctypes.c_uint,
+                                vp]
+        lib.fsdr_rw.restype = ctypes.c_int
         return lib
     return finish
+
+
+def copy_ms(empty_lib, dev, in_bytes: int, out_bytes: int) -> float:
+    """Device time of ``EMPTY_CU``'s copy of a call's bytes: ``in_bytes``
+    read once and ``out_bytes`` written once, in 16-byte words, over
+    ``LANE_REPS`` distinct buffers."""
+    import torch
+
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    n_in, n_out = -(-in_bytes // 16), -(-out_bytes // 16)
+    blocks = min(-(-max(n_in, n_out) // 256), 8 * ck._sm_count(dev))
+    args = [(torch.zeros(16 * n_in, dtype=torch.uint8, device=dev),
+             torch.empty(16 * n_out, dtype=torch.uint8, device=dev)) for _ in range(LANE_REPS)]
+
+    def fn(a, b):
+        ck._raise_on(empty_lib.fsdr_rw(a.data_ptr(), n_in, b.data_ptr(), n_out, blocks,
+                                       ck._stream(a)), "rw")
+        return b
+    return device_ms(fn, args)
 
 
 def fm_kernel_timings(dev, f: int, empty_lib) -> dict:
@@ -5116,8 +5160,10 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
     the resampler; none for the demod, which gets a copy of its bytes and an
     empty launch on its grid instead), all as device time in CUDA graphs
     over ``LANE_REPS`` distinct inputs, and the bound from
-    ``utils/roofline.kernel_cost`` (a shared W read once). ``poly_fir_lanes``
-    is its two calls a frame summed, ``calls`` keeps each."""
+    ``utils/roofline.kernel_cost`` (a shared W read once); each polyphase
+    call also a copy of its bytes (``copy_ms``, its floor) and its plan.
+    ``poly_fir_lanes`` is its two calls a frame summed, ``calls`` keeps
+    each."""
     import torch
     import torch.nn.functional as F
 
@@ -5176,6 +5222,9 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
                              lambda p, x: ck.quad_demod_lanes_plain(p, x, FM_GAIN),
                              per_dem, None, dem, None, bound(L * db, L * do)),
     }
+    # each polyphase call's bytes: its inputs (a shared W once) and its outputs
+    io = {"channel": (L * ((n + 128) * 8 + w2[0].numel() * 4), L * n // 4 * 8),
+          "resampler": (L * (n4 + 250) * 4 + w3_one.numel() * 4, L * n4 // 125 * 24 * 4)}
     out = {}
     for name, (kern, plain, per_lane, lib, args, lib_args, (b_ms, b_by)) in plan.items():
         got, ref = kern(*args[0]), plain(*args[0])
@@ -5189,6 +5238,9 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
                      "per_lane_ms": device_ms(per_lane, args),
                      "library_ms": device_ms(lib, lib_args) if lib else None,
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if name in io:
+            out[name].update(copy_ms=copy_ms(empty_lib, dev, *io[name]),
+                             plan=ck.last_plans["poly_fir_lanes"])
     grid = -(-n4 // ck.QUAD_DEMOD_TILE) * L
 
     def empty(p, x):
@@ -5200,7 +5252,7 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
                           [(x, torch.empty(L, n4, device=dev)) for _, x in dem]))
     ch, rs = out.pop("channel"), out.pop("resampler")
     out["poly_fir_lanes"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "per_lane_ms",
-                                                         "library_ms", "bound_ms")}
+                                                         "library_ms", "bound_ms", "copy_ms")}
     out["poly_fir_lanes"].update(
         max_abs_err=max(ch["max_abs_err"], rs["max_abs_err"]),
         bound_by=max(ch, rs, key=lambda c: c["bound_ms"])["bound_by"],
@@ -5293,8 +5345,9 @@ def phase_serving(dev, taps, card_line, empty_lib) -> dict:
              ("quad_demod_lanes", FM_SERVE_FRAME // 4, fm_t["quad_demod_lanes"])]
     for name, n, t in rows:
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        yard = "" if "copy_ms" not in t else (
-            f", empty launch {t['empty_ms']:.4f} ms, copy of its bytes {t['copy_ms']:.4f} ms")
+        yard = "".join(f", {what} {t[k]:.4f} ms" for k, what in (
+            ("empty_ms", "empty launch"), ("copy_ms", "copy of its bytes")) if k in t)
+        yard += f", plan {tuple(t['plan'])}" if "plan" in t else ""
         print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
               f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){yard} [{card_line}]")

@@ -17,64 +17,73 @@
 // against 66 MFLOP (about 1.0 us at 67 TFLOP/s FP32). The audio resampler
 // (D = 125, I = 24, m = 2, float32) does 2 * 375 * 24 FLOP per 125 inputs:
 // 18.4 MFLOP per 128,000 inputs, about 0.27 us, against 0.6 MB (0.18 us).
+// Served FM at 64 sessions of 32,000 input samples: the channel filter moves
+// 20.5 MB (6.1 us) beside 270 MFLOP (4.0 us), the resampler does 74 MFLOP
+// (1.1 us).
 //
-// What the first design (one output a thread, a tile of 256 outputs a block)
-// lost time to, and what this design does about each:
-//  * a channel output was a chain of 132 MAC steps, each with a shared-memory
-//    load of the sample and one of W: the "rows" tiling (I = 1) gives a group
-//    of C = 4 lanes R = 8 consecutive outputs, each lane the part of their
-//    sums over its columns s (a K split, summed with shuffles). The outputs
-//    read one span of (R - 1) * D + J samples, so for its column a lane
-//    slides a window of R stride-D rows along the tap rows: a step loads one
-//    new sample for R independent MACs, and the weights of R steps come in
-//    two 16-byte loads from W transposed in shared memory;
-//  * the odd row stride ruled out vector loads and still left conflicts: the
-//    span is staged in order with pad slots after every R rows, as many as
-//    put the 32 lanes' window loads on distinct banks (cuda_kernels.
-//    _rows_pad: 4 at D = 4);
-//  * the resampler's block took 10 rows (256 / 24) and staged the whole 36 KB
-//    W for 240 outputs, each a serial chain of 375 FMAs: the "gemm" tiling
-//    gives each thread a register tile of RM = 4 rows x RN phases (RN = 3 at
-//    I = 24), an outer-product accumulation over its part of J from shared
-//    memory (RM + RN loads for RM * RN independent MACs). A block takes the
-//    most rows (4 to 64) that still give 7/8 of a block per SM (8 at the
-//    512,000 frame), and splits J over the threads its tiles leave idle; the
-//    parts are summed in shared memory in a fixed order and stored coalesced;
-//  * staging waited on one device-memory load at a time per thread: samples
-//    and W are now copied with cp.async (W in 16-byte copies where aligned),
-//    every copy of a thread in flight at once.
-// The plan (tiling, threads, rows per block, tile, K split, pad, shared
-// memory) comes from the wrapper, cuda_kernels.poly_fir_plan; where a layout
-// does not fit, the K split and then the rows shrink, to one row a block:
-// every W that ran on the first design still runs.
+// Each output's order of summation is fixed by the tiling and its K split
+// alone, so that a served lane equals a bare one-stream launch bit for bit
+// (cuda_kernels._same_order): "rows" sums column chain c (the columns s = c,
+// c + C, ... in turn, each over the taps b = 0 .. m, one FMA chain from zero)
+// and adds the C chains as (c0 + c1) + (c2 + c3); "gemm" sums part p (t in
+// [p * jc, (p + 1) * jc), t = a * D + s, W's own order, from zero) and folds
+// the parts left to right. How outputs map to threads, blocks and tiles is
+// free, and is what the plan (cuda_kernels.poly_fir_plan) chooses; the order
+// is the first design's at every shape (cuda_kernels._first_order).
 //
-// Both tilings stage each input sample once from device memory; rows before
-// the frame come from the separate `hist` pointer, so the stage needs no
-// concatenation in device memory; rows past the frame are zero and outputs
-// past nq (a ragged last tile) are not stored. A complex stream is read as
-// float2 and filtered in ONE pass with the real W; the TPU kernel's two real
-// passes were only its lane layout. f32 mode stays on the CUDA cores (FP32
-// FMAs, no TF32), as the JAX kernel's dots run at Precision.HIGHEST.
+// "rows" (I = 1; the channel filter). What the first design lost time to,
+// measured at 64 sessions (PERF.md): its staging alone took 8.5 us and its
+// MAC alone 12.2 us of its 19.0, so they did not overlap (a block staged its
+// span, waited, then ran its MAC, and the blocks of a wave did so in step),
+// and the MAC spent, beside its 264 FMAs an output, a shared-memory load for
+// each sample of each column, 32 shuffles a lane to add the chains and a
+// scattered 8-byte store per output. This design:
+//  * gives each thread R consecutive outputs and all C chains: a step of the
+//    sliding window loads one span row's C samples (two 16-byte loads at
+//    D = 4 on complex64) and C weights (one 16-byte load) for R * C MACs,
+//    the chains are added in registers in their fixed order, and the R
+//    outputs are stored as 16-byte words;
+//  * walks (lane, tile) pairs with a grid of resident blocks (the plan's
+//    `blocks`, a static stride: no counter to reset between CUDA graph
+//    replays) and two buffers, staging the next tile's span and W with
+//    cp.async (16-byte copies where aligned) while the MAC runs on this one;
+//  * pads the span after every R rows so that the rows a warp loads at one
+//    step, R rows apart, fall on distinct banks (cuda_kernels._rows_pad).
 //
-// bf16 mode (precision="bf16"): samples and weights are rounded to bf16 when they
-// are staged; their products are exact in FP32 and accumulate in FP32. W may
-// arrive as bf16 (the stage's carried weights): it is widened exactly.
+// "gemm" (any I; the resampler): each thread a register tile of RM = 4 rows x
+// RN phases (RN = 3 at I = 24), an outer-product accumulation over its part
+// of J from shared memory (RM + RN loads for RM * RN independent MACs); a
+// block takes the most rows (4 to 64) that still give 7/8 of a block per SM
+// (a lane batch: 4 blocks a SM where it has them), splits J over the threads
+// its tiles leave idle, sums the parts in shared memory in a fixed order and
+// stores them coalesced. Its MAC alone took 11.7 of its 11.9 us at 64
+// sessions (PERF.md), with 3.25 instructions an FMA in its loop: the sample's
+// index was worked out anew at every step. The span is now staged with its
+// rows reversed, so a step of t moves each row's sample pointer by one and
+// W's by one row. Four other designs were built and measured slower at 16
+// sessions, so none is kept (PERF.md): every part of a unit in one thread,
+// folded in registers, one part at a time with W staged, four at a time with
+// W read through L1 or staged; and the parts over threads with W read through
+// L1.
+//
+// Rows before the frame come from the separate `hist` pointer, so the stage
+// needs no concatenation in device memory; rows past the frame are zero and
+// outputs past nq are not stored. A complex stream is read as float2 and
+// filtered in ONE pass with the real W; the TPU kernel's two real passes were
+// only its lane layout. f32 mode stays on the CUDA cores (FP32 FMAs, no
+// TF32), as the JAX kernel's dots run at Precision.HIGHEST.
+//
+// bf16 mode (precision="bf16"): samples and weights are rounded to bf16 ("rows":
+// where the MAC loads them; "gemm": when they are staged); their products are
+// exact in FP32 and accumulate in FP32. W may arrive as bf16 (the stage's
+// carried weights): it is widened exactly.
 //
 // Lanes (fsdr_poly_fir_lanes, the serving plane's [L, nq * D] batch, the
-// counterpart of jax.vmap over pallas_poly_fir): the lane is the grid's y
-// dimension. Each block first moves its hist, x, W and y pointers to its lane's
-// rows (strides in elements; W's stride 0 is one W shared by every lane, read
-// from the same addresses, so L2 serves it once), then runs the one-stream
-// kernel's code. A lane's order of summation is set by the tiling and its K
-// split alone (the rows a block takes only cut the outputs among blocks), and
-// the lane plan (cuda_kernels.poly_fir_lanes_plan) keeps both from the
-// one-stream plan of a lane's shape, so each lane is bit-equal to a one-stream
-// launch; what it chooses over the whole batch is the rows a block. Served FM
-// at 64 sessions of 32,000 input samples: the channel filter moves 20.5 MB
-// (6.1 us at 3.35 TB/s), the resampler does 74 MFLOP (1.1 us at 67 TFLOP/s),
-// where one launch a lane paid 64 launch latencies and the resampler's
-// one-stream plan for 64 rows (4 rows a block, so that one stream fills the
-// card) staged its 36 KB W 1,024 times.
+// counterpart of jax.vmap over pallas_poly_fir): each lane's hist, x, W and y
+// sit at its strides (in elements; W's stride 0 is one W shared by every
+// lane). "rows" walks the lanes' tiles as one sequence; "gemm" takes the lane
+// as the grid's y dimension. The lane plan (cuda_kernels.poly_fir_lanes_plan)
+// keeps the one-stream plan's order and picks the layout for the batch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,9 +95,6 @@ constexpr int kMaxThreads = 256;
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <bool BF16>
 __device__ __forceinline__ float prep(float v) {
@@ -129,189 +135,66 @@ __device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Stage samples k < count of hist ++ x from sample e0 on into s[slot(k)] with
-// cp.async, every copy of a thread in flight at once; zero past the frame.
-// Waits for all of the thread's copies (those it started before too), then
-// bf16 mode rounds the samples it copied. The caller synchronises.
-template <typename T, bool BF16, typename Slot>
-__device__ __forceinline__ void stage_span(T* s, const T* __restrict__ hist,
-                                           const T* __restrict__ x, long long e0,
-                                           int count, long long H, long long n, Slot slot) {
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    const long long e = e0 + k;
-    T* d = s + slot(k);
-    if (e < H) {
-      cp_async(d, hist + e);
-    } else if (e - H < n) {
-      cp_async(d, x + (e - H));
-    } else {
-      *d = zero<T>();
-    }
-  }
-  cp_async_wait_all();
-  if (BF16) {
-    for (int k = threadIdx.x; k < count; k += blockDim.x) {
-      T* d = s + slot(k);
-      *d = prep<BF16>(*d);
-    }
-  }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float shfl_xor(float v, int m) {
-  return __shfl_xor_sync(0xffffffffu, v, m);
-}
-__device__ __forceinline__ float2 shfl_xor(float2 v, int m) {
-  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m),
-                     __shfl_xor_sync(0xffffffffu, v.y, m));
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
-// Floats of W in shared memory, rounded up so the sample tile after it stays
-// 8-byte aligned for float2.
-__host__ __device__ inline int w_slots(int n) { return (n + 1) & ~1; }
-
-// "rows": W transposed, row s = W[m - b, s] for b < pitch (zero past m); the
-// pitch is a multiple of 8, so R = 8 weights are two 16-byte loads, and not a
-// multiple of 32, so the C rows a warp reads fall in different banks
-__host__ __device__ inline int w_pitch(int m) {
-  const int p = (m + 8) / 8 * 8;
-  return p % 32 == 0 ? p + 8 : p;
+// k / d for k * d < 2^32 (and d < 2^31): the high word of k * magic, magic =
+// ceil(2^32 / d); d = 1 has no 32-bit magic and is k itself
+__host__ inline unsigned div_magic(unsigned d) {
+  return d > 1 ? static_cast<unsigned>((0x100000000ull + d - 1) / d) : 0u;
+}
+__device__ __forceinline__ int udiv(int k, unsigned magic) {
+  return magic ? static_cast<int>(__umulhi(static_cast<unsigned>(k), magic)) : k;
 }
 
-// "rows": sample s of span row `row` in slot row * D + s + pad * (row / R):
-// pad slots after every R rows of D samples
-template <int R>
-__host__ __device__ inline int rows_slot(int row, int s, int D, int pad) {
-  return row * D + s + pad * (row / R);
+// Floats of a W staged ahead of samples: "rows", a multiple of 4, so the
+// samples after it start 16-byte aligned; "gemm", even, for float2 samples
+__host__ __device__ inline int w_slots(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int w_even(int n) { return (n + 1) & ~1; }
+
+// "rows": the slots of a tile's span, tq + m rows of D samples, `pad` slots
+// after every R rows (row j at slot j * D + pad * (j / R))
+__host__ __device__ inline int rows_span(int tq, int m, int D, int R, int pad) {
+  const int last = tq + m - 1;
+  return last * D + D + pad * (last / R);
+}
+
+// "rows": floats of one tile's buffer, W then its span, a multiple of 4
+__host__ __device__ inline int rows_buf_floats(int tq, int m, int D, int R, int pad, int elt) {
+  return w_slots((m + 1) * D) + w_slots(rows_span(tq, m, D, R, pad) * elt / 4);
 }
 
 __host__ inline size_t smem_bytes(int gemm, int m, int D, int I, int rows, int tile_rows,
-                                  int ksplit, int pad, int elt) {
-  if (!gemm) {
-    const int last = rows + m - 1;                         // the span's last row
-    return 4 * static_cast<size_t>(D) * w_pitch(m) +
-           static_cast<size_t>(elt) * (last * D + D + pad * (last / tile_rows));
-  }
-  const size_t red = ksplit > 1 ? static_cast<size_t>(ksplit) * rows * I : 0;
-  return 4 * static_cast<size_t>(w_slots(static_cast<int>(m + 1) * D * I)) +
+                                  int ks, int pad, int bufs, int elt) {
+  if (!gemm) return 4 * static_cast<size_t>(bufs) *
+                    rows_buf_floats(rows, m, D, tile_rows, pad, elt);
+  const size_t red = ks > 1 ? static_cast<size_t>(ks) * rows * I : 0;
+  return 4 * static_cast<size_t>(w_even((m + 1) * D * I)) +
          static_cast<size_t>(elt) * (static_cast<size_t>(rows + m) * D + red);
 }
 
-// "rows": the R weights W[m - b, s], b = b0 .. b0 + R - 1, in R / 4 16-byte loads
-template <int R>
-__device__ __forceinline__ void load_w(float (&w)[R], const float* wrow) {
-#pragma unroll
-  for (int u = 0; u < R / 4; ++u) {
-    const float4 v = reinterpret_cast<const float4*>(wrow)[u];
-    w[4 * u] = v.x;
-    w[4 * u + 1] = v.y;
-    w[4 * u + 2] = v.z;
-    w[4 * u + 3] = v.w;
-  }
-}
-
-// "rows": step b = b0 + bb of column s: load row rb + bb + R - 1 (rb = the
-// group's first row + b0) into slot (bb + R - 1) mod R, then the R MACs
-template <int R, typename T>
-__device__ __forceinline__ void rows_step(T (&win)[R], T (&acc)[R], const T* s_x,
-                                          const float (&w)[R], int rb, int bb, int s, int D,
-                                          int pad) {
-  win[(bb + R - 1) % R] = s_x[rows_slot<R>(rb + bb + R - 1, s, D, pad)];
-#pragma unroll
-  for (int r = 0; r < R; ++r) mac(acc[r], win[(bb + r) % R], w[bb]);
-}
-
-// I = 1: a group of C neighbouring lanes computes R consecutive rows, group g
-// of the block rows q0 + g * R + r (r < R), lane c of the group the part of
-// their sums over the columns s = c, c + C, ... (a K split, summed across the
-// group with shuffles). For each column s, the window holds the samples of
-// rows g * R + b + r (r < R) at column s, row g * R + b + r in slot (b + r)
-// mod R: step b loads row g * R + b + R - 1 into slot (b + R - 1) mod R; the
-// weights W[m - b, s] of R steps come in R / 4 16-byte loads.
-template <typename T, bool BF16, typename WT, int R, int C>
-__global__ void __launch_bounds__(kMaxThreads)
-poly_fir_rows(const T* __restrict__ hist, const T* __restrict__ x,
-              const WT* __restrict__ W, T* __restrict__ y, long long nq, int m, int D,
-              int pad, long long hs, long long xs, long long ws, long long ys) {
-  static_assert(R % 4 == 0, "weights load 4 at a time");
-  const long long batch_lane = blockIdx.y;       // the lane form's stream
-  hist += batch_lane * hs;
-  x += batch_lane * xs;
-  W += batch_lane * ws;
-  y += batch_lane * ys;
-  extern __shared__ float4 smem4[];
-  const int pw = w_pitch(m);
-  float* s_w = reinterpret_cast<float*>(smem4);                 // [D][pw]
-  T* s_x = reinterpret_cast<T*>(s_w + D * pw);                  // the padded span
-  const int tq = blockDim.x / C * R;
-  const long long q0 = static_cast<long long>(blockIdx.x) * tq;
-  const long long H = static_cast<long long>(m) * D, n = nq * D;
-  const int RD = R * D;
-
-  stage_span<T, BF16>(s_x, hist, x, q0 * D, (tq + m) * D, H, n,
-                      [&](int k) { return k + pad * (k / RD); });
-  for (int k = threadIdx.x; k < D * pw; k += blockDim.x) {
-    const int s = k / pw, b = k - s * pw;
-    s_w[k] = b <= m ? prep<BF16>(widen(W[(m - b) * D + s])) : 0.f;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x % C;
-  const int r0 = threadIdx.x / C * R;
-  T acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = zero<T>();
-  for (int s = lane; s < D; s += C) {
-    const float* wrow = s_w + s * pw;
-    T win[R];
-#pragma unroll
-    for (int r = 0; r < R - 1; ++r) win[r] = s_x[rows_slot<R>(r0 + r, s, D, pad)];
-    // whole chunks of R steps without a guard, so that their loads can be
-    // issued ahead of the MACs, then the last steps
-    int b0 = 0;
-    for (; b0 + R - 1 <= m; b0 += R) {
-      float w[R];
-      load_w<R>(w, wrow + b0);
-#pragma unroll
-      for (int bb = 0; bb < R; ++bb) rows_step<R>(win, acc, s_x, w, r0 + b0, bb, s, D, pad);
-    }
-    if (b0 <= m) {
-      float w[R];
-      load_w<R>(w, wrow + b0);
-#pragma unroll
-      for (int bb = 0; bb < R; ++bb) {
-        if (b0 + bb <= m) rows_step<R>(win, acc, s_x, w, r0 + b0, bb, s, D, pad);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < C; off <<= 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = add(acc[r], shfl_xor(acc[r], off));
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long q = q0 + r0 + r;
-    if (r % C == lane && q < nq) y[q] = acc[r];
-  }
-}
-
 // Start staging the n weights of W into s_w as float32: a float32 W with
-// cp.async (16-byte copies where aligned), in flight with the span's copies
-// that follow; a bf16 W widened exactly. bf16 mode rounds s_w once every
-// copy has landed (the caller, after a barrier).
+// cp.async (16-byte copies where aligned); a bf16 W widened exactly, with
+// plain loads.
 __device__ __forceinline__ void stage_w(float* s_w, const float* __restrict__ W, int n) {
   int k0 = 0;
-  if ((reinterpret_cast<unsigned long long>(W) & 15) == 0 &&
-      (reinterpret_cast<unsigned long long>(s_w) & 15) == 0) {
+  if (aligned16(W) && aligned16(s_w)) {
     k0 = n & ~3;                                   // 16-byte copies, then the tail
     for (int k = 4 * threadIdx.x; k < k0; k += 4 * blockDim.x) cp_async16(s_w + k, W + k);
   }
@@ -322,34 +205,276 @@ __device__ __forceinline__ void stage_w(float* s_w, const __nv_bfloat16* __restr
   for (int k = threadIdx.x; k < n; k += blockDim.x) s_w[k] = __bfloat162float(W[k]);
 }
 
-// Any I: a block computes rows q0 .. q0 + tm - 1, all I phases. Unit u =
-// (row group gm, phase group gn) is an RM x RN register tile; thread tid takes
-// K part p = tid / U (U = blockDim.x / ks) and units u = tid % U, u + U, ...
-// Part p walks t = a * D + s over its range of [0, J) in W's own order: the
-// sample of output row r is s_x[r * D + (m - a) * D + s], the weights are
-// W[t, i], staged as given. Loads past the tile's last row or phase are
-// clamped, their outputs dropped.
+// The sample e of hist ++ x (H = m * D history samples, n frame samples; zero
+// past the frame) into *d with cp.async.
+template <typename T>
+__device__ __forceinline__ void stage_one(T* d, const T* __restrict__ hist,
+                                          const T* __restrict__ x, long long e, long long H,
+                                          long long n) {
+  if (e < H) {
+    cp_async(d, hist + e);
+  } else if (e - H < n) {
+    cp_async(d, x + (e - H));
+  } else {
+    *d = zero<T>();
+  }
+}
+
+// "rows": start staging a tile's span, samples k < count of hist ++ x from
+// sample e0 on, sample k at slot k + pad * (k / RD) (RD = R * D). `wide`:
+// 16-byte copies, none of which straddles a pad, the end of hist or the end
+// of the frame (the caller checks the alignments).
+template <typename T>
+__device__ __forceinline__ void stage_rows_span(T* s, const T* __restrict__ hist,
+                                                const T* __restrict__ x, long long e0,
+                                                int count, long long H, long long n, int pad,
+                                                unsigned rd_magic, bool wide) {
+  if (wide) {
+    constexpr int E = 16 / sizeof(T);
+    for (int u = threadIdx.x; u < count / E; u += blockDim.x) {
+      const int k = u * E;
+      T* d = s + k + pad * udiv(k, rd_magic);
+      const long long e = e0 + k;
+      if (e < H) {
+        cp_async16(d, hist + e);
+      } else if (e - H < n) {
+        cp_async16(d, x + (e - H));
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < count; k += blockDim.x) {
+      stage_one(s + k + pad * udiv(k, rd_magic), hist, x, e0 + k, H, n);
+    }
+  }
+}
+
+// N consecutive values from p: 16-byte loads where VEC (the caller keeps p
+// aligned to the load), else the first nc of them one by one and zeros after
+template <int N, bool VEC, typename T>
+__device__ __forceinline__ void load_run(T (&v)[N], const T* p, int nc) {
+  constexpr int bytes = N * static_cast<int>(sizeof(T));
+  if (VEC && bytes % 16 == 0) {
+#pragma unroll
+    for (int u = 0; u < bytes / 16; ++u) {
+      const float4 f = reinterpret_cast<const float4*>(p)[u];
+      float* o = reinterpret_cast<float*>(v) + 4 * u;
+      o[0] = f.x;
+      o[1] = f.y;
+      o[2] = f.z;
+      o[3] = f.w;
+    }
+  } else if (VEC && bytes == 8) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    float* o = reinterpret_cast<float*>(v);
+    o[0] = f.x;
+    o[1] = f.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = (VEC || c < nc) ? p[c] : zero<T>();
+  }
+}
+
+// "rows", step bb of a chunk: row r of the R outputs takes window slot
+// (bb + r) mod R, column chain c its column's weight (columns past nc skipped)
+template <bool BF16, int R, int C, bool VEC, typename T>
+__device__ __forceinline__ void rows_macs(T (&acc)[R][C], const T (&win)[R][C],
+                                          const float (&w)[C], int bb, int nc) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (VEC || c < nc) mac(acc[r][c], prep<BF16>(win[(bb + r) % R][c]), prep<BF16>(w[c]));
+    }
+  }
+}
+
+// "rows", one column group of C columns: adds to acc[r][c] the taps b = 0 ..
+// m of column c of the group for the thread's R rows, b ascending. xg: the
+// group's first column in the thread's first span row; wg: W[m, the group's
+// first column] (W[m - b] lies b * D floats before it). At step b the window
+// holds span rows b .. b + R - 1 (relative to the thread's first), row i in
+// slot i mod R: step b loads row b + R - 1, row r of the R outputs MACs slot
+// (b + r) mod R. nc: the group's columns (C unless the last of a D that C
+// does not divide).
+template <typename T, bool BF16, int R, int C, bool VEC>
+__device__ __forceinline__ void rows_group(T (&acc)[R][C], const T* xg, const float* wg,
+                                           int m, int D, int pad, int nc) {
+  T win[R][C];
+#pragma unroll
+  for (int r = 0; r < R - 1; ++r) load_run<C, VEC>(win[r], xg + r * D, nc);
+  const int step = R * D + pad;                 // slots from one chunk of R rows to the next
+  int b0 = 0;
+  const T* pc = xg;
+  // whole chunks of R steps without a guard, so that their loads can be issued
+  // ahead of the MACs, then the last steps
+  for (; b0 + R - 1 <= m; b0 += R, pc += step) {
+#pragma unroll
+    for (int bb = 0; bb < R; ++bb) {
+      const int i = bb + R - 1;
+      load_run<C, VEC>(win[i % R], pc + i * D + (i >= R ? pad : 0), nc);
+      float w[C];
+      load_run<C, VEC>(w, wg - (b0 + bb) * D, nc);
+      rows_macs<BF16, R, C, VEC>(acc, win, w, bb, nc);
+    }
+  }
+#pragma unroll
+  for (int bb = 0; bb < R; ++bb) {
+    if (b0 + bb <= m) {
+      const int i = bb + R - 1;
+      load_run<C, VEC>(win[i % R], pc + i * D + (i >= R ? pad : 0), nc);
+      float w[C];
+      load_run<C, VEC>(w, wg - (b0 + bb) * D, nc);
+      rows_macs<BF16, R, C, VEC>(acc, win, w, bb, nc);
+    }
+  }
+}
+
+// the C chains of an output added in their fixed order: (c0 + c1) + (c2 + c3)
+template <int C, typename T>
+__device__ __forceinline__ T chains(const T (&a)[C]) {
+  if (C == 4) return add(add(a[0], a[1]), add(a[2], a[3]));
+  if (C == 2) return add(a[0], a[1]);
+  return a[0];
+}
+
+// N outputs from p on, the first `valid` of them: 16-byte stores where all are
+// valid and p is aligned
+template <int N, typename T>
+__device__ __forceinline__ void store_run(T* p, const T (&v)[N], long long valid) {
+  constexpr int bytes = N * static_cast<int>(sizeof(T));
+  if (bytes % 16 == 0 && valid >= N && aligned16(p)) {
+#pragma unroll
+    for (int u = 0; u < bytes / 16; ++u) {
+      const float* o = reinterpret_cast<const float*>(v) + 4 * u;
+      reinterpret_cast<float4*>(p)[u] = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      if (r < valid) p[r] = v[r];
+    }
+  }
+}
+
+// "rows" (I = 1). The block walks tiles blockIdx.x, + gridDim.x, ... of the
+// lanes' tiles (tile t: lane t / tiles, rows (t mod tiles) * tq on, tq =
+// blockDim.x * R), staging each into one of `bufs` buffers ([W as given, a
+// multiple of 4 floats][the padded span]); with two, the next tile's copies
+// fly while the MAC runs on this one. Thread t computes the tile's rows
+// t * R .. t * R + R - 1, all C chains of each (rows_group over the column
+// groups), then adds the chains and stores its R outputs.
+template <typename T, bool BF16, typename WT, int R, int C, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+poly_fir_rows(const T* __restrict__ hist, const T* __restrict__ x,
+              const WT* __restrict__ W, T* __restrict__ y, long long nq, int m, int D,
+              int pad, int lanes, int bufs, unsigned rd_magic, long long hs, long long xs,
+              long long ws, long long ys) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tq = blockDim.x * R;
+  const int wn = (m + 1) * D;
+  const int buf_floats = rows_buf_floats(tq, m, D, R, pad, sizeof(T));
+  const long long tiles = (nq + tq - 1) / tq;
+  const long long total = tiles * lanes;
+  const long long H = static_cast<long long>(m) * D, n = nq * D;
+  const int count = (tq + m) * D;
+  constexpr int E = 16 / sizeof(T);
+
+  auto stage = [&](long long t, float* buf) {
+    const long long lane = t / tiles;
+    const long long q0 = (t - lane * tiles) * tq;
+    const T* h = hist + lane * hs;
+    const T* xx = x + lane * xs;
+    stage_w(buf, W + lane * ws, wn);
+    const bool wide = aligned16(h) && aligned16(xx) && (R * D) % E == 0 && pad % E == 0 &&
+                      H % E == 0 && n % E == 0;
+    stage_rows_span(reinterpret_cast<T*>(buf + w_slots(wn)), h, xx, q0 * D, count, H, n, pad,
+                    rd_magic, wide);
+  };
+
+  long long t = blockIdx.x;
+  stage(t, smem);
+  cp_async_commit();
+  for (int it = 0;; ++it) {
+    float* buf = smem + (it & 1) * (bufs - 1) * buf_floats;
+    const long long next = t + gridDim.x;
+    if (next < total) stage(next, smem + ((it + 1) & 1) * buf_floats);
+    cp_async_commit();
+    cp_async_wait<1>();                              // this tile's copies
+    __syncthreads();
+
+    const long long lane = t / tiles;
+    const long long q = (t - lane * tiles) * tq + threadIdx.x * R;
+    if (q < nq) {
+      const T* xt = reinterpret_cast<const T*>(buf + w_slots(wn)) + threadIdx.x * (R * D + pad);
+      const float* wt = buf + m * D;
+      T acc[R][C];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = zero<T>();
+      }
+      for (int g = 0; g * C < D; ++g) {
+        rows_group<T, BF16, R, C, VEC>(acc, xt + g * C, wt + g * C, m, D, pad,
+                                       VEC ? C : min(C, D - g * C));
+      }
+      T out[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) out[r] = chains<C>(acc[r]);
+      store_run<R>(y + lane * ys + q, out, nq - q);
+    }
+    if (next >= total) break;
+    __syncthreads();                                 // this buffer is free to restage
+    t = next;
+  }
+}
+
+// Any I: a block computes rows q0 .. q0 + tm - 1 of its lane (the grid's y),
+// all I phases. Unit u = (row group gm, phase group gn) is an RM x RN
+// register tile; thread tid takes K part p = tid / U (U = blockDim.x / ks) and
+// units u = tid % U, u + U, ... Part p walks t over its range of [0, J) in W's
+// own order (t = a * D + s). The span is staged with its rows reversed (span
+// row j at slot (tm + m - 1 - j) * D), so the sample of output row r for step
+// t sits at (tm - 1 - r) * D + t and a step moves every row's pointer by one
+// sample and W's by one row. Loads past the tile's last row or phase are
+// clamped, their outputs dropped. The parts are summed through shared memory
+// in a fixed order and stored coalesced.
 template <typename T, bool BF16, typename WT, int RM, int RN>
 __global__ void __launch_bounds__(kMaxThreads)
 poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
               const WT* __restrict__ W, T* __restrict__ y, long long nq, int m, int D,
-              int I, int tm, int ks, long long hs, long long xs, long long ws,
-              long long ys) {
+              int I, int tm, int ks, unsigned d_magic, long long hs, long long xs,
+              long long ws, long long ys) {
   const long long batch_lane = blockIdx.y;       // the lane form's stream
   hist += batch_lane * hs;
   x += batch_lane * xs;
   W += batch_lane * ws;
   y += batch_lane * ys;
-  extern __shared__ float2 smem[];
+  extern __shared__ float4 smem4[];
   const int J = (m + 1) * D;
-  float* s_w = reinterpret_cast<float*>(smem);                  // W as given, [J][I]
-  T* s_x = reinterpret_cast<T*>(s_w + w_slots(J * I));          // (tm + m) * D samples
+  float* s_w = reinterpret_cast<float*>(smem4);                 // W as given, [J][I]
+  T* s_x = reinterpret_cast<T*>(s_w + w_even(J * I));           // (tm + m) * D samples
   T* s_red = s_x + (tm + m) * D;                                // ks x tm x I partials
   const long long q0 = static_cast<long long>(blockIdx.x) * tm;
   const long long H = static_cast<long long>(m) * D, n = nq * D;
+  const int rows = tm + m;
 
   stage_w(s_w, W, J * I);
-  stage_span<T, BF16>(s_x, hist, x, q0 * D, (tm + m) * D, H, n, [](int k) { return k; });
+  for (int k = threadIdx.x; k < rows * D; k += blockDim.x) {
+    const int j = udiv(k, d_magic);
+    stage_one(s_x + (rows - 1 - j) * D + (k - j * D), hist, x, q0 * D + k, H, n);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (BF16) {                                    // what this thread staged
+    for (int k = threadIdx.x; k < rows * D; k += blockDim.x) {
+      const int j = udiv(k, d_magic);
+      T* d = s_x + (rows - 1 - j) * D + (k - j * D);
+      *d = prep<BF16>(*d);
+    }
+  }
   __syncthreads();
   if (BF16) {
     for (int k = threadIdx.x; k < J * I; k += blockDim.x) s_w[k] = bf16_round(s_w[k]);
@@ -365,9 +490,10 @@ poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
   if (p < ks) {
     for (int u = threadIdx.x - p * U; u < units; u += U) {
       const int gm = u / gn_count, gn = u - gm * gn_count;
-      int rl[RM], il[RN];
+      const T* xr[RM];
+      int il[RN];
 #pragma unroll
-      for (int r = 0; r < RM; ++r) rl[r] = min(gm * RM + r, tm - 1) * D;
+      for (int r = 0; r < RM; ++r) xr[r] = s_x + (tm - 1 - min(gm * RM + r, tm - 1)) * D;
 #pragma unroll
       for (int c = 0; c < RN; ++c) il[c] = min(gn * RN + c, I - 1);
       T acc[RM][RN];
@@ -376,25 +502,19 @@ poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
 #pragma unroll
         for (int c = 0; c < RN; ++c) acc[r][c] = zero<T>();
       }
-      int a = j0 / D, s = j0 - a * D;
-      for (int t = j0; t < j1; ++t) {
-        const int off = (m - a) * D + s;
+      const float* wr = s_w + j0 * I;
+#pragma unroll 4
+      for (int t = j0; t < j1; ++t, wr += I) {
         T v[RM];
         float w[RN];
 #pragma unroll
-        for (int r = 0; r < RM; ++r) v[r] = s_x[rl[r] + off];
+        for (int r = 0; r < RM; ++r) v[r] = xr[r][t];
 #pragma unroll
-        for (int c = 0; c < RN; ++c) {
-          w[c] = s_w[t * I + il[c]];
-        }
+        for (int c = 0; c < RN; ++c) w[c] = wr[il[c]];
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
 #pragma unroll
           for (int c = 0; c < RN; ++c) mac(acc[r][c], v[r], w[c]);
-        }
-        if (++s == D) {
-          s = 0;
-          ++a;
         }
       }
 #pragma unroll
@@ -432,91 +552,118 @@ struct Lanes {
   long long hs, xs, ws, ys;
 };
 
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T, bool BF16, typename WT, int R, int C, bool VEC>
+cudaError_t launch_rows(const T* h, const T* x, const WT* w, T* y, long long nq, int m, int D,
+                        int threads, int pad, int blocks, size_t smem, const Lanes& ln,
+                        cudaStream_t stream) {
+  const int tq = threads * R;
+  const long long total = (nq + tq - 1) / tq * ln.lanes;
+  const long long grid = blocks > 0 && blocks < total ? blocks : total;
+  auto kern = poly_fir_rows<T, BF16, WT, R, C, VEC>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
+      h, x, w, y, nq, m, D, pad, ln.lanes, blocks > 0 ? 2 : 1, div_magic(R * D), ln.hs,
+      ln.xs, ln.ws, ln.ys);
+  return cudaGetLastError();
+}
+
 template <typename T, bool BF16, typename WT>
 cudaError_t launch(const void* hist, const void* x, const void* W, void* y, long long nq,
                    int m, int D, int I, int gemm, int threads, int rows, int tile_rows,
-                   int tile_phases, int ks, int pad, size_t smem, const Lanes& ln,
+                   int tile_phases, int ks, int pad, int blocks, size_t smem, const Lanes& ln,
                    cudaStream_t stream) {
-  const dim3 blocks(static_cast<unsigned>((nq + rows - 1) / rows),
-                    static_cast<unsigned>(ln.lanes));
   auto h = static_cast<const T*>(hist);
   auto xx = static_cast<const T*>(x);
   auto w = static_cast<const WT*>(W);
   auto yy = static_cast<T*>(y);
   if (gemm) {
     void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int, int, int,
-                 long long, long long, long long, long long) =
+                 unsigned, long long, long long, long long, long long) =
         tile_rows != 4        ? nullptr
         : tile_phases == 3    ? poly_fir_gemm<T, BF16, WT, 4, 3>
         : tile_phases == 4    ? poly_fir_gemm<T, BF16, WT, 4, 4>
         : tile_phases == 1    ? poly_fir_gemm<T, BF16, WT, 4, 1>
                               : nullptr;
     if (kern == nullptr || ks < 1 || threads % ks != 0) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, I, rows, ks, ln.hs,
-                                            ln.xs, ln.ws, ln.ys);
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(static_cast<unsigned>((nq + rows - 1) / rows),
+                    static_cast<unsigned>(ln.lanes));
+    kern<<<grid, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, I, rows, ks, div_magic(D),
+                                          ln.hs, ln.xs, ln.ws, ln.ys);
     return cudaGetLastError();
   }
-  // "rows": R = 8 rows a group; C = ks lanes a group (a power of two, <= 4)
-  void (*kern)(const T*, const T*, const WT*, T*, long long, int, int, int, long long,
-               long long, long long, long long) =
-      tile_rows != 8 ? nullptr
-      : ks == 1      ? poly_fir_rows<T, BF16, WT, 8, 1>
-      : ks == 2      ? poly_fir_rows<T, BF16, WT, 8, 2>
-      : ks == 4      ? poly_fir_rows<T, BF16, WT, 8, 4>
-                     : nullptr;
-  if (kern == nullptr || I != 1 || threads % 32 != 0 || rows != threads / ks * tile_rows) {
+  // "rows": R = 4 rows a thread; C = ks chains (1, 2 or 4); 16-byte window
+  // loads where C divides D and the pad keeps the rows aligned
+  if (I != 1 || tile_rows != 4 || threads % 32 != 0 || rows != threads * tile_rows ||
+      blocks < 0 || pad < 0 || (ks != 1 && ks != 2 && ks != 4)) {
     return cudaErrorInvalidValue;
   }
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  const bool vec = D % ks == 0 && pad % (E < ks ? E : ks) == 0;
+  switch (ks * 2 + vec) {
+    case 3: return launch_rows<T, BF16, WT, 4, 1, true>(h, xx, w, yy, nq, m, D, threads, pad,
+                                                        blocks, smem, ln, stream);
+    case 4: return launch_rows<T, BF16, WT, 4, 2, false>(h, xx, w, yy, nq, m, D, threads, pad,
+                                                         blocks, smem, ln, stream);
+    case 5: return launch_rows<T, BF16, WT, 4, 2, true>(h, xx, w, yy, nq, m, D, threads, pad,
+                                                        blocks, smem, ln, stream);
+    case 8: return launch_rows<T, BF16, WT, 4, 4, false>(h, xx, w, yy, nq, m, D, threads, pad,
+                                                         blocks, smem, ln, stream);
+    case 9: return launch_rows<T, BF16, WT, 4, 4, true>(h, xx, w, yy, nq, m, D, threads, pad,
+                                                        blocks, smem, ln, stream);
+    default: return cudaErrorInvalidValue;
   }
-  kern<<<blocks, threads, smem, stream>>>(h, xx, w, yy, nq, m, D, pad, ln.hs, ln.xs, ln.ws,
-                                          ln.ys);
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* hist, const void* x, const void* W, void* y, long long nq,
                      int m, int D, int I, int bf16, int w_bf16, int gemm, int threads,
-                     int rows, int tr, int tp, int ks, int pad, size_t smem, const Lanes& ln,
-                     cudaStream_t s) {
+                     int rows, int tr, int tp, int ks, int pad, int blocks, size_t smem,
+                     const Lanes& ln, cudaStream_t s) {
   if (w_bf16) {
     return bf16 ? launch<T, true, __nv_bfloat16>(hist, x, W, y, nq, m, D, I, gemm, threads,
-                                                 rows, tr, tp, ks, pad, smem, ln, s)
+                                                 rows, tr, tp, ks, pad, blocks, smem, ln, s)
                 : launch<T, false, __nv_bfloat16>(hist, x, W, y, nq, m, D, I, gemm, threads,
-                                                  rows, tr, tp, ks, pad, smem, ln, s);
+                                                  rows, tr, tp, ks, pad, blocks, smem, ln, s);
   }
   return bf16 ? launch<T, true, float>(hist, x, W, y, nq, m, D, I, gemm, threads, rows, tr,
-                                       tp, ks, pad, smem, ln, s)
+                                       tp, ks, pad, blocks, smem, ln, s)
               : launch<T, false, float>(hist, x, W, y, nq, m, D, I, gemm, threads, rows, tr,
-                                        tp, ks, pad, smem, ln, s);
+                                        tp, ks, pad, blocks, smem, ln, s);
 }
 
 int run(const void* hist, const void* x, const void* W, void* y, long long nq, int m, int D,
         int I, int is_complex, int bf16, int w_bf16, int gemm, int threads, int rows,
-        int tile_rows, int tile_phases, int ksplit, int pad, long long smem, const Lanes& ln,
-        void* stream) {
+        int tile_rows, int tile_phases, int ksplit, int pad, int blocks, long long smem,
+        const Lanes& ln, void* stream) {
   if (nq <= 0 || ln.lanes == 0) return 0;
-  const size_t want =
-      smem_bytes(gemm, m, D, I, rows, tile_rows, ksplit, pad, is_complex ? 8 : 4);
+  const int elt = is_complex ? 8 : 4;
+  const int bufs = !gemm && blocks > 0 ? 2 : 1;
+  const size_t want = smem_bytes(gemm, m, D, I, rows, tile_rows, ksplit, pad, bufs, elt);
+  // the stage's index division holds for k * d < 2^32 (k < the span's samples)
+  const unsigned long long span = static_cast<unsigned long long>(rows + m) * D;
+  const unsigned long long d = gemm ? D : static_cast<unsigned long long>(tile_rows) * D;
   if (static_cast<size_t>(smem) != want || threads < 1 || threads > kMaxThreads ||
-      rows < 1 || ln.lanes < 0 || ln.lanes > 65535 || (ln.lanes > 1 && ln.ys < nq * I)) {
+      rows < 1 || ln.lanes < 0 || ln.lanes > 65535 || (ln.lanes > 1 && ln.ys < nq * I) ||
+      span * d >= (1ull << 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_complex) {
     return dispatch<float2>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
-                            tile_rows, tile_phases, ksplit, pad, want, ln, s);
+                            tile_rows, tile_phases, ksplit, pad, blocks, want, ln, s);
   }
   return dispatch<float>(hist, x, W, y, nq, m, D, I, bf16, w_bf16, gemm, threads, rows,
-                         tile_rows, tile_phases, ksplit, pad, want, ln, s);
+                         tile_rows, tile_phases, ksplit, pad, blocks, want, ln, s);
 }
 
 }  // namespace
@@ -524,32 +671,33 @@ int run(const void* hist, const void* x, const void* W, void* y, long long nq, i
 // hist: m * D samples before x; x: nq * D samples; W: (m + 1) * D * I weights,
 // float32 or (w_bf16) bfloat16; y: nq * I outputs of the stream's type. The
 // plan (cuda_kernels.poly_fir_plan): gemm (0: "rows", 1: "gemm"), threads,
-// rows per block, rows and phases per thread, K split (the lanes of a group
-// for "rows"), the pad slots of the "rows" span, and its shared memory, which
-// must equal this layout's (smem_bytes). Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for a plan the
-// kernel does not take.
+// rows per block (a tile), rows and phases per thread, K split (the column
+// chains of "rows", the parts of J of "gemm"), the pad slots of the "rows"
+// span, the resident blocks of the "rows" walk, and its shared memory, which
+// must equal this layout's (smem_bytes). Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a plan the kernel does
+// not take.
 extern "C" int fsdr_poly_fir(const void* hist, const void* x, const void* W, void* y,
                              long long nq, int m, int D, int I, int is_complex, int bf16,
                              int w_bf16, int gemm, int threads, int rows, int tile_rows,
-                             int tile_phases, int ksplit, int pad, long long smem,
+                             int tile_phases, int ksplit, int pad, int blocks, long long smem,
                              void* stream) {
   return run(hist, x, W, y, nq, m, D, I, is_complex, bf16, w_bf16, gemm, threads, rows,
-             tile_rows, tile_phases, ksplit, pad, smem, Lanes{1, 0, 0, 0, 0}, stream);
+             tile_rows, tile_phases, ksplit, pad, blocks, smem, Lanes{1, 0, 0, 0, 0}, stream);
 }
 
 // The lane form: `lanes` streams, lane l's history at hist + l * hs, its frame
 // at x + l * xs, its W at W + l * ws (ws = 0: one W for every lane) and its
 // nq * I outputs at y + l * ys (strides in elements; the output rows must not
-// overlap). The plan is the one-stream plan's layout with rows a block chosen
-// for the batch (cuda_kernels.poly_fir_lanes_plan). Returns as fsdr_poly_fir.
+// overlap). The plan is the one-stream plan's order with a layout chosen for
+// the batch (cuda_kernels.poly_fir_lanes_plan). Returns as fsdr_poly_fir.
 extern "C" int fsdr_poly_fir_lanes(const void* hist, const void* x, const void* W, void* y,
                                    long long nq, int m, int D, int I, int is_complex,
                                    int bf16, int w_bf16, int gemm, int threads, int rows,
                                    int tile_rows, int tile_phases, int ksplit, int pad,
-                                   long long smem, int lanes, long long hs, long long xs,
-                                   long long ws, long long ys, void* stream) {
+                                   int blocks, long long smem, int lanes, long long hs,
+                                   long long xs, long long ws, long long ys, void* stream) {
   return run(hist, x, W, y, nq, m, D, I, is_complex, bf16, w_bf16, gemm, threads, rows,
-             tile_rows, tile_phases, ksplit, pad, smem, Lanes{lanes, hs, xs, ws, ys},
+             tile_rows, tile_phases, ksplit, pad, blocks, smem, Lanes{lanes, hs, xs, ws, ys},
              stream);
 }

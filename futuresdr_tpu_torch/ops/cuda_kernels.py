@@ -537,107 +537,192 @@ def _fir_fft_rule(n_fft: int, n_taps: int) -> FirFftPlan:
 
 
 class PolyFirPlan(NamedTuple):
-    """How ``csrc/poly_fir.cu`` tiles ``y[q, i] = Σ_j ext[q·D + j]·W'[j, i]``
-    (``J = (m+1)·D`` taps, ``W'[j, i] = W[m − j//D, j mod D, i]``)."""
+    """How ``csrc/poly_fir.cu`` computes ``y[q, i] = Σ_j ext[q·D + j]·W'[j, i]``
+    (``J = (m+1)·D`` taps, ``W'[j, i] = W[m − j//D, j mod D, i]``). The
+    tiling and its K split fix every output's order of summation
+    (:func:`_same_order`); the other fields are the layout."""
     tiling: str      # "rows": I = 1, sliding window; "gemm": register tile, K split
     threads: int
-    rows: int        # output rows per block
-    tile_rows: int   # output rows per thread (R), or per register tile (RM)
-    tile_phases: int  # phases per register tile (RN; 1 for "rows")
-    ksplit: int      # "rows": lanes sharing R rows (columns split); "gemm": parts of J
-    pad: int         # "rows": pad slots after every R rows of the staged span
+    rows: int        # output rows a block ("rows": a tile, threads·R)
+    tile_rows: int   # "rows": consecutive outputs a thread (R); "gemm": a tile's rows (RM)
+    tile_phases: int  # "gemm": a register tile's phases (RN); "rows": 1
+    ksplit: int      # "rows": the column chains (C); "gemm": the parts of J, folded in order
+    pad: int         # "rows": pad slots after every R rows of a staged span
+    blocks: int      # "rows": resident blocks walking the tiles, two buffers each; 0: a
+                     # block a tile, one buffer ("gemm": always)
     smem: int        # dynamic shared memory per block, bytes
 
 
-_ROWS_THREADS, _ROWS_R = 128, 8            # "rows": 128 / C groups of 8 rows a block
-_GEMM_THREADS, _GEMM_RM = 256, 4
-_GEMM_TM = (64, 32, 16, 8, 4)              # rows per block: the largest that gives 7/8 of
-                                           # a block per SM (1,024 rows: 8 a block)
-_GEMM_MIN_K = 16                           # taps per K part at least
+_ROWS_R = 4                         # "rows": consecutive outputs a thread
+_ROWS_THREADS = (128, 64, 32)       # "rows": threads a block, the first that fits
+_ROWS_BLOCKS_PER_SM = 2             # "rows": resident blocks a SM walking the tiles
+_GEMM_THREADS, _GEMM_RM = 256, 4    # "gemm": threads a block, rows a register tile
+_GEMM_TM = (64, 32, 16, 8, 4)       # "gemm": rows a block, the largest that gives 7/8 of
+                                    # a block per SM
+_GEMM_MIN_K = 16                    # "gemm": taps a K part at least
+_GEMM_DEEP = 4                      # "gemm" lanes: blocks a SM where the batch has them
 
 
-def _w_pitch(m: int) -> int:
-    """Floats per transposed W row of the "rows" tiling (the kernel's
-    ``w_pitch``): a multiple of 8 that is not one of 32."""
-    p = (m + 8) // 8 * 8
-    return p + 8 if p % 32 == 0 else p
+def _first_gemm(m: int, D: int, I: int, nq: int, is_complex: bool,
+                n_sm: int) -> PolyFirPlan:
+    """The "gemm" plan of one stream: each thread a register tile of 4 rows
+    × RN phases (3 where 3 divides I, else 4, else 1) over its part of J; a
+    block takes the most rows (64 … 4) that still give 7/8 of ``n_sm``
+    blocks, and splits J into the most parts (a power of two of at least 16
+    taps each) its 256 threads have room for; where the partials' buffer
+    does not fit in shared memory the K split and then the rows shrink, down
+    to one row a block (every W that ran on the kernel's first design still
+    runs)."""
+    elt = 8 if is_complex else 4
+    rn = 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
+    tm = next((t for t in _GEMM_TM if -(-nq // t) * 8 >= n_sm * 7), _GEMM_TM[-1])
+    J = (m + 1) * D
+    while True:
+        units = -(-tm // _GEMM_RM) * -(-I // rn)
+        ks = 1
+        while ks * 2 * units <= _GEMM_THREADS and J // (ks * 2) >= _GEMM_MIN_K:
+            ks *= 2
+        while True:
+            smem = _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, ks, 0, 1, elt)
+            if smem <= _MAX_SMEM or ks == 1:
+                break
+            ks //= 2
+        if smem <= _MAX_SMEM or tm == 1:
+            return PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, ks, 0, 0, smem)
+        tm = max(1, tm // 2)
 
 
-def _rows_slot(k, rd: int, pad: int):
-    return k + pad * (k // rd)
+def _first_order(m: int, D: int, I: int, nq: int, is_complex: bool,
+                 n_sm: int) -> Tuple[str, int]:
+    """``(tiling, ksplit)``: the order of summation the first design's plan
+    gave a one-stream call, kept at every shape (so a served lane, planned
+    from the bare chain's plan, and every launch of an earlier version sum
+    alike): "rows" (C column chains: 4 at D ≥ 4) where I = 1, m + 1 ≥ 8 and
+    that design's 256-row span fit in shared memory, else "gemm" with
+    :func:`_first_gemm`'s K split."""
+    elt = 8 if is_complex else 4
+    if I == 1 and m + 1 >= 8:
+        c = 4 if D >= 4 else 2 if D >= 2 else 1
+        lanes, banks = (16, 16) if elt == 8 else (32, 32)
+
+        def slot(k, pad):
+            return k + pad * (k // (8 * D))
+        pad = next((p for p in range(32) if len({
+            slot((ln // c * 8 + 7) * D + ln % c, p) % banks for ln in range(lanes)}) == lanes),
+            1)
+        pitch = (m + 8) // 8 * 8
+        pitch += 8 if pitch % 32 == 0 else 0
+        span = (128 // c * 8 + m) * D
+        if 4 * D * pitch + elt * (slot(span - 1, pad) + 1) <= _MAX_SMEM:
+            return "rows", c
+    return "gemm", _first_gemm(m, D, I, nq, is_complex, n_sm).ksplit
 
 
-def _rows_pad(D: int, C: int, elt: int) -> int:
-    """The fewest pad slots per R rows that put the window loads of one
-    warp's lanes (lane = group·C + column) on distinct banks: 32 lanes for a
-    real stream, each half-warp for a complex one (8-byte loads)."""
-    lanes, banks = (16, 16) if elt == 8 else (32, 32)
-    rd = _ROWS_R * D
-    for pad in range(32):
-        slots = {_rows_slot((ln // C * _ROWS_R + _ROWS_R - 1) * D + ln % C, rd, pad) % banks
-                 for ln in range(lanes)}
-        if len(slots) == lanes:
+def _w4(n: int) -> int:
+    """Floats of a block staged ahead of samples (the kernel's ``w_slots``)."""
+    return (n + 3) & ~3
+
+
+def _rows_span(tq: int, m: int, D: int, R: int, pad: int) -> int:
+    """Slots of a "rows" tile's span: ``tq + m`` rows of D samples, row j at
+    slot ``j·D + pad·(j // R)`` (the kernel's ``rows_span``)."""
+    last = tq + m - 1
+    return last * D + D + pad * (last // R)
+
+
+def _rows_vec(D: int, C: int, elt: int) -> int:
+    """Samples of the 16-byte (or narrower) word a "rows" thread loads the C
+    samples of a span row in, where C divides D; 0 where it loads them one by
+    one."""
+    return min(C, 16 // elt) if D % C == 0 else 0
+
+
+def _rows_pad(D: int, C: int, R: int, elt: int) -> int:
+    """The fewest pad slots after every R span rows that put the window loads
+    of a warp on distinct banks: thread t's row t·R + b lies ``t·(R·D + pad)``
+    slots after thread 0's, loaded in words of ``_rows_vec`` samples (the pad
+    a multiple of them) or one sample at a time; the threads a word width
+    serves together (8 for 16 bytes, 16 for 8, 32 for 4) must fall on
+    distinct banks."""
+    vec = _rows_vec(D, C, elt)
+    width = vec * elt if vec else elt
+    banks, per = width // 4, 128 // width
+    for pad in range(0, 64, vec or 1):
+        stride = (R * D + pad) * elt // 4
+        if all(len({(t * stride + w) % 32 for t in range(t0, t0 + per)
+                    for w in range(banks)}) == per * banks for t0 in range(0, 32, per)):
             return pad
-    return 1
+    return 0
 
 
-def _poly_fir_smem(plan_tiling: str, m: int, D: int, I: int, rows: int, tile_rows: int,
-                   ksplit: int, pad: int, elt: int) -> int:
-    if plan_tiling == "rows":
-        span = (rows + m) * D
-        return 4 * D * _w_pitch(m) + elt * (_rows_slot(span - 1, tile_rows * D, pad) + 1)
+def _poly_fir_smem(tiling: str, m: int, D: int, I: int, rows: int, tile_rows: int,
+                   ksplit: int, pad: int, bufs: int, elt: int) -> int:
+    """Bytes of the kernel's layout: "rows", ``bufs`` tile buffers, each W
+    then its padded span; "gemm", W, the span of ``rows + m`` rows and, where
+    J is split, the ``ksplit`` partials of each output."""
+    if tiling == "rows":
+        return 4 * bufs * (_w4((m + 1) * D) +
+                           _w4(_rows_span(rows, m, D, tile_rows, pad) * elt // 4))
     red = ksplit * rows * I if ksplit > 1 else 0
     return 4 * (((m + 1) * D * I + 1) & ~1) + elt * ((rows + m) * D + red)
+
+
+def _rows_layout(L: int, m: int, D: int, C: int, nq: int, is_complex: bool, n_sm: int,
+                 threads: Optional[int] = None, blocks: Optional[int] = None) -> PolyFirPlan:
+    """The "rows" layout of C column chains over ``L`` streams of ``nq``
+    rows: R = 4 rows a thread, the most threads a block (128 … 32) whose
+    tiles fit in shared memory, and ``blocks`` (2 a SM) resident blocks
+    walking the ``L·⌈nq / tq⌉`` tiles with two buffers where there are more
+    tiles than that, else a block a tile with one buffer (``blocks`` 0);
+    ``threads`` and ``blocks`` fix either instead."""
+    elt, R = (8 if is_complex else 4), _ROWS_R
+    pad = _rows_pad(D, C, R, elt)
+    want = n_sm * _ROWS_BLOCKS_PER_SM if blocks is None else blocks
+    for th in ((threads,) if threads else _ROWS_THREADS):
+        tq = th * R
+        for nb in (want if 0 < want < L * -(-nq // tq) else 0, 0):
+            smem = _poly_fir_smem("rows", m, D, 1, tq, R, C, pad, 2 if nb else 1, elt)
+            if smem <= _MAX_SMEM:
+                return PolyFirPlan("rows", th, tq, R, 1, C, pad, nb, smem)
+    return PolyFirPlan("rows", th, tq, R, 1, C, pad, 0, smem)
+
+
+def _gemm_layout(L: int, row: PolyFirPlan, m: int, D: int, I: int, nq: int,
+                 is_complex: bool, n_sm: int, tm: Optional[int] = None) -> PolyFirPlan:
+    """``row``'s "gemm" layout over ``L`` streams: the most rows a block (64
+    … 4) that still give ``L·⌈nq/rows⌉`` blocks ``_GEMM_DEEP`` blocks a SM
+    (7/8 of them), else 7/8 of one, halved while the layout does not fit in
+    shared memory; ``tm`` fixes the rows instead."""
+    elt = 8 if is_complex else 4
+    tm = tm or next((t for d in (_GEMM_DEEP, 1) for t in _GEMM_TM
+                     if L * -(-nq // t) * 8 >= n_sm * 7 * d), _GEMM_TM[-1])
+    while True:
+        smem = _poly_fir_smem("gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, 1, elt)
+        if smem <= _MAX_SMEM or tm == 1:
+            return row._replace(rows=tm, smem=smem)
+        tm = max(1, tm // 2)
 
 
 @functools.lru_cache(maxsize=1024)
 def _poly_fir_rule(m: int, D: int, I: int, nq: int, is_complex: bool,
                    n_sm: int = 132) -> PolyFirPlan:
-    """The ``poly_fir`` kernel's plan for one call.
-
-    ``rows`` (I = 1 with at least 8 tap rows): a group of C lanes (C = 4 at
-    D ≥ 4) computes 8 consecutive outputs, each lane over its columns, sliding
-    a window of 8 stride-D rows along the tap rows. ``gemm`` (the resampler,
-    and any W the ``rows`` layout cannot hold): each thread a tile of RM rows
-    × RN phases over its part of J; a block takes the most rows that still
-    give 7/8 of ``n_sm`` blocks, and splits J over the threads left over. Where the
-    layout does not fit, the K split and then the rows shrink, down to one
-    row a block: then it is the old kernel's size or less, so every W that
-    ran before still runs."""
-    elt = 8 if is_complex else 4
-    if I == 1 and m + 1 >= _ROWS_R:
-        c = 4 if D >= 4 else 2 if D >= 2 else 1
-        rows = _ROWS_THREADS // c * _ROWS_R
-        pad = _rows_pad(D, c, elt)
-        smem = _poly_fir_smem("rows", m, D, I, rows, _ROWS_R, c, pad, elt)
-        if smem <= _MAX_SMEM:
-            return PolyFirPlan("rows", _ROWS_THREADS, rows, _ROWS_R, 1, c, pad, smem)
-    rn = 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
-    gn = -(-I // rn)
-    tm = next((t for t in _GEMM_TM if -(-nq // t) * 8 >= n_sm * 7), _GEMM_TM[-1])
-    J = (m + 1) * D
-    while True:
-        units = -(-tm // _GEMM_RM) * gn
-        ks = 1
-        while ks * 2 * units <= _GEMM_THREADS and J // (ks * 2) >= _GEMM_MIN_K:
-            ks *= 2
-        smem = _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, ks, 0, elt)
-        while smem > _MAX_SMEM and ks > 1:
-            ks //= 2
-            smem = _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, ks, 0, elt)
-        if smem <= _MAX_SMEM or tm == 1:
-            return PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, ks, 0, smem)
-        tm = max(1, tm // 2)
-
-
-_POLY_LANES_THREADS = (64, 128, 256)     # "rows" lane layouts: threads a block
+    """The ``poly_fir`` kernel's plan for one call: the first design's order
+    (:func:`_first_order`). "rows" (the channel filter): C = 4 column chains
+    at D ≥ 4, 4 rows a thread, 128 threads a block where the tiles fit, 2
+    resident blocks a SM walking them. "gemm" (the resampler, and any W the
+    first "rows" span could not hold): :func:`_first_gemm`."""
+    tiling, ks = _first_order(m, D, I, nq, is_complex, n_sm)
+    if tiling == "rows":
+        return _rows_layout(1, m, D, ks, nq, is_complex, n_sm)
+    return _first_gemm(m, D, I, nq, is_complex, n_sm)
 
 
 def _same_order(plan: PolyFirPlan, row: PolyFirPlan) -> bool:
-    """Does ``plan`` sum every output in the order of ``row``? The tiling,
-    its K split and the "rows" R fix the order; the rows a block and the
-    threads only cut the outputs among blocks."""
-    return (plan.tiling, plan.ksplit, plan.tile_rows) == (row.tiling, row.ksplit, row.tile_rows)
+    """Does ``plan`` sum every output in the order of ``row``? The tiling and
+    its K split fix the order (the column chains of "rows", the parts of
+    "gemm"); the rows a thread or a block, the threads, the pad and the
+    resident blocks only map the outputs to threads."""
+    return (plan.tiling, plan.ksplit) == (row.tiling, row.ksplit)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -645,22 +730,27 @@ def _poly_fir_lanes_rule(L: int, row: PolyFirPlan, m: int, D: int, I: int, nq: i
                          is_complex: bool, n_sm: int = 132) -> PolyFirPlan:
     """The lane form's plan for ``L`` streams whose one-stream plan is
     ``row``: ``row``'s tiling and K split, so each lane sums in a one-stream
-    launch's order, and the rows a block chosen over the batch. "gemm" takes
-    the most rows (64 … 4) that still give ``L·⌈nq/rows⌉`` blocks 7/8 of a
-    block per SM, where one stream's rule cuts them to fill the card alone
-    (the FM resampler's 64 rows a session: 4 rows a block, so 1,024 blocks
-    at 64 sessions, each staging the 36 KB W); where that layout does not fit
-    in shared memory the rows halve. "rows" keeps the one-stream layout,
-    whose blocks do not depend on ``nq``."""
+    launch's order, in the layout chosen over the batch: "rows" walks the
+    lanes' tiles with 2 resident blocks a SM (the served channel filter's
+    1,024 tiles at 64 sessions on 264 blocks); "gemm" takes the most rows a
+    block that still give the batch 4 blocks a SM, else 7/8 of one (the FM
+    resampler's 64 rows a session: 8 rows a block at 16 and 64 sessions,
+    where the one-stream plan for 64 rows takes 4)."""
     if row.tiling == "rows":
-        return row
-    elt = 8 if is_complex else 4
-    tm = next((t for t in _GEMM_TM if L * -(-nq // t) * 8 >= n_sm * 7), _GEMM_TM[-1])
-    while True:
-        smem = _poly_fir_smem("gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, elt)
-        if smem <= _MAX_SMEM or tm == 1:
-            return row._replace(rows=tm, smem=smem)
-        tm = max(1, tm // 2)
+        return _rows_layout(L, m, D, row.ksplit, nq, is_complex, n_sm)
+    return _gemm_layout(L, row, m, D, I, nq, is_complex, n_sm)
+
+
+def _poly_fir_layouts(L: int, row: PolyFirPlan, m: int, D: int, I: int, nq: int,
+                      is_complex: bool, n_sm: int) -> list:
+    """The layouts of ``row``'s order over ``L`` streams that the sweep
+    measures: "rows" at 128 and 64 threads a block, each with 2 and 4
+    resident blocks a SM and with a block a tile; "gemm" at each rows a
+    block of ``_GEMM_TM``."""
+    if row.tiling == "rows":
+        return [_rows_layout(L, m, D, row.ksplit, nq, is_complex, n_sm, th, nb)
+                for th in _ROWS_THREADS[:2] for nb in (2 * n_sm, 4 * n_sm, 0)]
+    return [_gemm_layout(L, row, m, D, I, nq, is_complex, n_sm, tm) for tm in _GEMM_TM]
 
 
 class FirPlan(NamedTuple):
@@ -917,15 +1007,13 @@ def plan_candidates(kernel: str, *shape) -> list:
                                    rule.tw_len if staged else 0)))
     elif kernel == "poly_fir":
         m, D, I, nq, cplx, n_sm = shape
-        elt = 8 if cplx else 4
-        out = [_poly_fir_rule(m, D, I, nq, bool(cplx), n_sm)]
-        if I == 1 and m + 1 >= _ROWS_R:
-            c = 4 if D >= 4 else 2 if D >= 2 else 1
-            rows, pad = _ROWS_THREADS // c * _ROWS_R, _rows_pad(D, c, elt)
-            out.append(PolyFirPlan("rows", _ROWS_THREADS, rows, _ROWS_R, 1, c, pad,
-                                   _poly_fir_smem("rows", m, D, I, rows, _ROWS_R, c, pad,
-                                                  elt)))
-        rn = 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
+        rule = _poly_fir_rule(m, D, I, nq, bool(cplx), n_sm)
+        out = [rule]
+        if rule.tiling == "rows":
+            out += _poly_fir_layouts(1, rule, m, D, I, nq, bool(cplx), n_sm)
+        # the gemm tiling at each rows a block, with that rule's K split and
+        # unsplit (other orders, but for the rule's own)
+        elt, rn = (8 if cplx else 4), 3 if I % 3 == 0 else 4 if I % 4 == 0 else 1
         J = (m + 1) * D
         for tm in _GEMM_TM:
             units = -(-tm // _GEMM_RM) * -(-I // rn)
@@ -933,9 +1021,9 @@ def plan_candidates(kernel: str, *shape) -> list:
             while ks * 2 * units <= _GEMM_THREADS and J // (ks * 2) >= _GEMM_MIN_K:
                 ks *= 2
             for k in sorted({ks, 1}):
-                out.append(PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, k, 0,
-                                       _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, k,
-                                                      0, elt)))
+                out.append(PolyFirPlan("gemm", _GEMM_THREADS, tm, _GEMM_RM, rn, k, 0, 0,
+                                       _poly_fir_smem("gemm", m, D, I, tm, _GEMM_RM, k, 0, 1,
+                                                      elt)))
     elif kernel == "pfb":
         n, k, t, n_sm = shape
         rule = _pfb_rule(n, k, t, n_sm)
@@ -962,20 +1050,11 @@ def plan_candidates(kernel: str, *shape) -> list:
         out = [_fir_fft_lanes_rule(L, n, n_fft, nt, n_sm)] + plan_candidates("fir_fft", n_fft,
                                                                               nt)
     elif kernel == "poly_fir_lanes":
-        # the one-stream rule's layout with other rows a block: the same order
+        # the one-stream plan's order in every layout, the batch rule's first
         L, m, D, I, nq, cplx, n_sm = shape
-        elt = 8 if cplx else 4
         row = _poly_fir_rule(m, D, I, nq, bool(cplx), n_sm)
-        out = [_poly_fir_lanes_rule(L, row, m, D, I, nq, bool(cplx), n_sm), row]
-        if row.tiling == "rows":
-            for th in _POLY_LANES_THREADS:
-                rows = th // row.ksplit * row.tile_rows
-                out.append(row._replace(threads=th, rows=rows, smem=_poly_fir_smem(
-                    "rows", m, D, I, rows, row.tile_rows, row.ksplit, row.pad, elt)))
-        else:
-            for tm in _GEMM_TM:
-                out.append(row._replace(rows=tm, smem=_poly_fir_smem(
-                    "gemm", m, D, I, tm, row.tile_rows, row.ksplit, 0, elt)))
+        out = [_poly_fir_lanes_rule(L, row, m, D, I, nq, bool(cplx), n_sm), row] + \
+            _poly_fir_layouts(L, row, m, D, I, nq, bool(cplx), n_sm)
     elif kernel == "pfb_lanes":
         # the one-stream layouts that compute a lane's bits as the rule's plan
         L, n, k, t, n_sm = shape
@@ -1162,10 +1241,10 @@ def _lib(name: str):
             lib.fsdr_rotator_lanes.restype = i
         elif name == "poly_fir":
             lib.fsdr_poly_fir.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
-                                          i, i, i, i, ll, vp]
+                                          i, i, i, i, i, ll, vp]
             lib.fsdr_poly_fir.restype = i
             lib.fsdr_poly_fir_lanes.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, i, i, i,
-                                                i, i, i, i, ll, i, ll, ll, ll, ll, vp]
+                                                i, i, i, i, i, ll, i, ll, ll, ll, ll, vp]
             lib.fsdr_poly_fir_lanes.restype = i
         elif name == "pfb":
             lib.fsdr_pfb.argtypes = [vp, vp, vp, ll, ll, vp, vp, ll, i, i, i,
@@ -1414,7 +1493,7 @@ def _launch_poly_fir(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor, y: to
                                 int(x.is_complex()), int(bf16),
                                 int(W.dtype == torch.bfloat16), int(plan.tiling == "gemm"),
                                 plan.threads, plan.rows, plan.tile_rows, plan.tile_phases,
-                                plan.ksplit, plan.pad, plan.smem, _stream(x))
+                                plan.ksplit, plan.pad, plan.blocks, plan.smem, _stream(x))
     _raise_on(err, "poly_fir")
     _count("poly_fir")
     return y
@@ -1846,8 +1925,8 @@ def poly_fir_lanes(hist: torch.Tensor, x: torch.Tensor, W: torch.Tensor,
                                       int(bf16), int(W.dtype == torch.bfloat16),
                                       int(plan.tiling == "gemm"), plan.threads, plan.rows,
                                       plan.tile_rows, plan.tile_phases, plan.ksplit,
-                                      plan.pad, plan.smem, L, hist.stride(0), x.stride(0),
-                                      W.stride(0), y.stride(0), _stream(x))
+                                      plan.pad, plan.blocks, plan.smem, L, hist.stride(0),
+                                      x.stride(0), W.stride(0), y.stride(0), _stream(x))
     _raise_on(err, "poly_fir_lanes")
     _count("poly_fir_lanes")
     return y

@@ -62,7 +62,7 @@ TOL = {"fir": 1e-5, "fir_fft": 1e-4, "rotator": 1e-5, "poly_fir": 1e-5,
 #: the A/B decimator, the FM front end at 512,000 (128,000 after the channel
 #: filter), PFB-64 and PFB-2048 at 2^18, and the serving plane's lane forms:
 #: serve_ab's 64 sessions of 512 (``fir``), the main chain's 16 of 2^18
-#: (``fir_fft``), the FM front end's 64 of 32,000 (``poly_fir``: the
+#: (``fir_fft``), the FM front end's 64 and 16 of 32,000 (``poly_fir``: the
 #: channel filter with each lane's W, the resampler with one shared W) and
 #: the PFB-64 channelizer's 64 of 2^15 (``pfb``, each lane's prototype as the
 #: stage carries it: ``[N, K]`` transposed)
@@ -83,8 +83,12 @@ SHAPES = (
      {"L": 16, "n": 1 << 18, "nt": 64, "n_fft": 2048}),
     ("poly_fir_lanes", "served FM channel c64 64 x 32,000, D 4",
      {"L": 64, "n": 32_000, "D": 4, "m": 32}),
+    ("poly_fir_lanes", "served FM channel c64 16 x 32,000, D 4",
+     {"L": 16, "n": 32_000, "D": 4, "m": 32}),
     ("poly_fir_lanes", "served FM resampler f32 64 x 8,000, 24/125",
      {"L": 64, "n": 8_000, "D": 125, "m": 2, "I": 24, "real": True, "shared": True}),
+    ("poly_fir_lanes", "served FM resampler f32 16 x 8,000, 24/125",
+     {"L": 16, "n": 8_000, "D": 125, "m": 2, "I": 24, "real": True, "shared": True}),
     ("pfb_lanes", "served PFB-64 c64 64 x 2^15", {"L": 64, "n": 1 << 15, "N": 64, "K": 12}),
 )
 

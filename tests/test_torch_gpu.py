@@ -1471,7 +1471,7 @@ _POLY_LANES = {"channel": (4, 32, 1, 8000, torch.complex64),
 @pytest.mark.gpu
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("precision", [None, "bf16"])
-@pytest.mark.parametrize("L", [1, 3, 64])
+@pytest.mark.parametrize("L", [1, 3, 16, 64])
 @pytest.mark.parametrize("kind", list(_POLY_LANES))
 def test_poly_fir_lanes_equals_one_stream_launches_on_card(cuda_device, kind, L, precision,
                                                            shared):
@@ -1500,6 +1500,34 @@ def test_poly_fir_lanes_equals_one_stream_launches_on_card(cuda_device, kind, L,
     torch.cuda.synchronize()
     assert got.shape == per.shape and torch.equal(got, per)
     assert _rel_err(got, ck.poly_fir_lanes_plain(hist, x, W, precision)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [16, 64])
+@pytest.mark.parametrize("kind", list(_POLY_LANES))
+def test_poly_fir_lane_walks_equal_one_stream_launches_on_card(cuda_device, kind, L):
+    """At the served FM shapes (16 and 64 sessions), every layout of the lane
+    walk that the plan sweep may pick (the channel filter's resident blocks
+    over every lane's tiles or a block a tile, at 128, 64 and 32 threads; the
+    resampler's rows a block) gives each lane the bits of the one-stream
+    launch on its row, with each lane's W (channel) or one W shared
+    (resampler)."""
+    D, m, I, nq, dtype = _POLY_LANES[kind]
+    g = torch.Generator(device=cuda_device).manual_seed(L + 7)
+    w_shape = (m + 1, D) if I == 1 else (m + 1, D, I)
+    W = torch.randn((L if kind == "channel" else 1,) + w_shape, generator=g,
+                    device=cuda_device).expand((L,) + w_shape)
+    hist = torch.randn(L, m * D, dtype=dtype, generator=g, device=cuda_device)
+    x = torch.randn(L, nq * D, dtype=dtype, generator=g, device=cuda_device)
+    per = torch.stack([ck.poly_fir(hist[i], x[i], W[i].contiguous()) for i in range(L)])
+    plans = ck.plan_candidates("poly_fir_lanes", L, m, D, I, nq, int(dtype == torch.complex64),
+                               ck._sm_count(x.device))
+    assert plans[0] == ck.poly_fir_lanes_plan(L, m, D, I, nq, dtype == torch.complex64,
+                                              ck._sm_count(x.device))
+    for plan in plans:
+        got = ck.poly_fir_lanes(hist, x, W, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, per), plan
 
 
 @pytest.mark.gpu

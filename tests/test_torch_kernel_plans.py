@@ -305,50 +305,80 @@ def _staged_ext(hist, x, W, q0s, length, bf16):
     return _prep(pad[q0s[:, None] * D + torch.arange(length)], bf16)
 
 
+def _planes(t):
+    """A float32 tensor ``[..., 2]`` (complex) or ``[..., 1]`` (real)."""
+    return torch.view_as_real(t) if t.is_complex() else t[..., None]
+
+
+def _lane_w(W):
+    """``(flat, stride)``: the lanes' W as flat storage of the tensor's own
+    size and a lane's offset in it (0 where every lane shares one W)."""
+    if W.shape[0] > 1 and W.stride(0) == 0:
+        return W[0].contiguous().reshape(-1), 0
+    return W.contiguous().reshape(-1), W[0].numel()
+
+
+def _chains(acc, C):
+    """The C column chains of each output added in the kernel's order:
+    ``(c0 + c1) + (c2 + c3)``."""
+    if C == 4:
+        return (acc[..., 0, :] + acc[..., 1, :]) + (acc[..., 2, :] + acc[..., 3, :])
+    if C == 2:
+        return acc[..., 0, :] + acc[..., 1, :]
+    return acc[..., 0, :]
+
+
 def _poly_rows_twin(hist, x, W, plan, bf16=False):
-    m, D = W.shape[0] - 1, W.shape[1]
-    nq, R, C, tq, pad = x.shape[0] // D, plan.tile_rows, plan.ksplit, plan.rows, plan.pad
-    groups = plan.threads // C
-    assert tq == groups * R and plan.threads % 32 == 0 and 32 % C == 0
-    q0s = torch.arange(-(-nq // tq)) * tq
-    span, rd = (tq + m) * D, R * D
-    elt = 8 if x.is_complex() else 4
-    assert ck._poly_fir_smem("rows", m, D, 1, tq, R, C, pad, elt) == plan.smem
-    s_x = torch.zeros(q0s.shape[0], ck._rows_slot(span - 1, rd, pad) + 1, dtype=x.dtype)
-    s_x[:, ck._rows_slot(torch.arange(span), rd, pad)] = _staged_ext(hist, x, W, q0s, span,
-                                                                     bf16)
-    pw = ck._w_pitch(m)
-    assert pw % 8 == 0 and pw % 32 != 0 and pw >= m + 1
-    kw = torch.arange(D * pw)
-    s, b = kw // pw, kw % pw
-    keep = b <= m
-    s_w = torch.zeros(D * pw)
-    s_w[kw[keep]] = _prep(W.to(torch.float32).reshape(-1), bf16)[((m - b) * D + s)[keep]]
-    r0 = torch.arange(groups) * R
-
-    def at(row, s):
-        return s_x[:, ck._rows_slot(row * D + s, rd, pad)]
-
-    part = []                                   # part[lane][r]: [blocks, groups]
-    for lane in range(C):
-        acc = [torch.zeros(q0s.shape[0], groups, dtype=x.dtype) for _ in range(R)]
-        for s in range(lane, D, C):
-            win = [at(r0 + r, s) for r in range(R - 1)] + [None]
-            for b0 in range(0, m + 1, R):
-                w = s_w[s * pw + b0:s * pw + b0 + R]          # R / 4 16-byte loads
-                assert w.shape[0] == R
-                for bb in range(R):
-                    if b0 + bb <= m:
-                        win[(bb + R - 1) % R] = at(r0 + b0 + bb + R - 1, s)
-                        for r in range(R):
-                            acc[r] = acc[r] + win[(bb + r) % R] * w[bb]
-        part.append(acc)
-    off = 1
-    while off < C:                              # the shuffle tree: lane ^ off
-        part = [[part[ln][r] + part[ln ^ off][r] for r in range(R)] for ln in range(C)]
-        off *= 2
-    out = torch.stack([part[r % C][r] for r in range(R)], dim=-1)   # lane r mod C stores r
-    return out.reshape(-1)[:nq]
+    """``csrc/poly_fir.cu``'s "rows" walk over the lanes of ``hist [L, m·D]``,
+    ``x [L, nq·D]`` and ``W [L, m+1, D]``: the grid's blocks walk the
+    ``L·⌈nq/tq⌉`` tiles at the grid's stride (every tile once); a tile stages
+    its lane's W as given and its span, ``tq + m`` rows of hist ++ x from
+    ``q0·D`` on (zero past the frame), with ``pad`` slots after every R rows,
+    in a buffer of the kernel's size; thread t takes rows ``t·R .. t·R + R −
+    1`` and, column group by column group, C chains over the columns ``g·C +
+    c``, each over the taps b = 0 … m ascending (row r's sample at step b is
+    span row ``t·R + b + r``, its weight ``W[(m − b)·D + g·C + c]``; summed
+    in float64, rounded once a chain), then adds the chains ``(c0 + c1) +
+    (c2 + c3)`` in float32 and stores its R outputs, each output once."""
+    L, m, D = x.shape[0], W.shape[1] - 1, W.shape[2]
+    nq, cplx = x.shape[1] // D, x.is_complex()
+    R, C, th, tq, pad = plan.tile_rows, plan.ksplit, plan.threads, plan.rows, plan.pad
+    assert plan.tiling == "rows" and tq == th * R and th % 32 == 0 and C in (1, 2, 4)
+    tiles = -(-nq // tq)
+    total, span = L * tiles, ck._rows_span(tq, m, D, R, pad)
+    grid = min(plan.blocks, total) if plan.blocks else total
+    assert ck._poly_fir_smem("rows", m, D, 1, tq, R, C, pad, 2 if plan.blocks else 1,
+                             8 if cplx else 4) == plan.smem
+    walk = [b + k * grid for b in range(grid) for k in range(-(-(total - b) // grid))]
+    assert sorted(walk) == list(range(total))
+    fw, ws = _lane_w(W)
+    y = torch.zeros(L, nq, 2 if cplx else 1)
+    writes = torch.zeros(L, nq, dtype=torch.int64)
+    thread = torch.arange(th)
+    k = torch.arange((tq + m) * D)
+    for t in walk:
+        lane, q0 = t // tiles, t % tiles * tq
+        ext = torch.cat([hist[lane], x[lane]])
+        e = q0 * D + k
+        s_x = torch.zeros(span, dtype=x.dtype)
+        s_x[k + pad * (k // (R * D))] = torch.where(e < ext.shape[0],
+                                                   ext[e.clamp(max=ext.shape[0] - 1)], 0)
+        s_x = _planes(_prep(s_x, bf16))
+        s_w = _prep(fw[lane * ws + torch.arange((m + 1) * D)].to(torch.float32), bf16)
+        acc = torch.zeros(th, R, C, s_x.shape[-1], dtype=torch.float64)
+        first = thread * (R * D + pad)                 # each thread's first row
+        for g in range(-(-D // C)):
+            for c in range(min(C, D - g * C)):
+                for b in range(m + 1):
+                    i = b + torch.arange(R)
+                    v = s_x[first[:, None] + i * D + pad * (i // R) + g * C + c]
+                    acc[:, :, c] += v.double() * float(s_w[(m - b) * D + g * C + c])
+        q = q0 + thread[:, None] * R + torch.arange(R)
+        keep = q < nq
+        y[lane, q[keep]] = _chains(acc.float(), C)[keep]
+        writes[lane, q[keep]] += 1
+    assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
+    return torch.view_as_complex(y) if cplx else y[..., 0]
 
 
 def _poly_gemm_twin(hist, x, W, plan, bf16=False):
@@ -358,23 +388,25 @@ def _poly_gemm_twin(hist, x, W, plan, bf16=False):
     RM, RN, ks = plan.tile_rows, plan.tile_phases, plan.ksplit
     assert plan.threads % ks == 0
     elt = 8 if x.is_complex() else 4
-    assert ck._poly_fir_smem("gemm", m, D, I, tm, RM, ks, 0, elt) == plan.smem
+    assert ck._poly_fir_smem("gemm", m, D, I, tm, RM, ks, 0, 1, elt) == plan.smem
     q0s = torch.arange(-(-nq // tm)) * tm
     w_flat = _prep(W.to(torch.float32).reshape(-1), bf16)     # read in W's own order
-    s_x = _staged_ext(hist, x, W, q0s, (tm + m) * D, bf16)
+    rows = tm + m                          # the span, its rows reversed: row j at
+    k = torch.arange(rows * D)             # slot (rows - 1 - j)·D
+    s_x = torch.zeros(q0s.shape[0], rows * D, dtype=x.dtype)
+    s_x[:, (rows - 1 - k // D) * D + k % D] = _staged_ext(hist, x, W, q0s, rows * D, bf16)
     gn_count = -(-I // RN)
     units = -(-tm // RM) * gn_count
     U, jc = plan.threads // ks, -(-J // ks)
     red = torch.zeros(q0s.shape[0], ks, tm, I, dtype=x.dtype)
     for p in range(ks):
         t = torch.arange(min(J, p * jc), min(J, p * jc + jc))     # t = a·D + s
-        off = (m - t // D) * D + t % D
         for u in range(units):          # thread p·U + (u mod U), in its pass u // U
             gm, gn = divmod(u, gn_count)
             rows_, ph = gm * RM + torch.arange(RM), gn * RN + torch.arange(RN)
-            rl = torch.clamp(rows_, max=tm - 1) * D
+            rl = (tm - 1 - torch.clamp(rows_, max=tm - 1)) * D    # row r's step 0
             il = torch.clamp(ph, max=I - 1)
-            a = s_x[:, rl[:, None] + off[None, :]]                 # [blocks, RM, nt]
+            a = s_x[:, rl[:, None] + t[None, :]]                   # [blocks, RM, nt]
             w = w_flat[t[:, None] * I + il[None, :]].to(x.dtype)   # [nt, RN]
             acc = a @ w
             keep_r, keep_c = rows_ < tm, ph < I
@@ -400,8 +432,9 @@ def _poly_case(D, m, I, nq, complex_stream, seed, w_bf16=False):
 
 
 def _poly_twin(hist, x, W, plan, bf16=False):
-    twin = _poly_rows_twin if plan.tiling == "rows" else _poly_gemm_twin
-    return twin(hist, x, W, plan, bf16)
+    if plan.tiling == "rows":
+        return _poly_rows_twin(hist[None], x[None], W[None], plan, bf16)[0]
+    return _poly_gemm_twin(hist, x, W, plan, bf16)
 
 
 @pytest.mark.parametrize("complex_stream", [True, False])
@@ -450,20 +483,32 @@ def test_poly_fir_main_path_plans_match_plain(case):
     assert _rel(got, ref) <= 1e-6
 
 
-@pytest.mark.parametrize("D,complex_stream", [(4, True), (4, False), (1, True), (5, True)])
+@pytest.mark.parametrize("D,complex_stream", [(4, True), (4, False), (16, True), (1, True),
+                                              (5, True), (2, False)])
 def test_poly_fir_rows_layout_is_conflict_free(D, complex_stream):
-    """The "rows" window loads at every step: the 32 lanes of a warp (16 of
-    a half-warp for float2) on distinct banks; the C lanes of a group read
-    their W rows from distinct 16-byte bank groups."""
+    """The "rows" window loads at every step of a chunk: thread t's span row
+    ``t·R + i`` (i < 2R, the priming rows and a chunk's) at slot ``t·(R·D +
+    pad) + i·D + pad·(i // R)`` plus its column group, in words of
+    ``_rows_vec`` samples (16 bytes at D = 4; one sample where C does not
+    divide D): the threads one word width serves together (8 for 16 bytes,
+    16 for 8, 32 for 4) on distinct banks, and each word aligned to its
+    width. The weights of a step are one address for the whole warp."""
     plan = ck.poly_fir_plan(32, D, 1, 128_000, complex_stream)
-    R, C, pad = plan.tile_rows, plan.ksplit, plan.pad
-    lanes, banks = (16, 16) if complex_stream else (32, 32)
-    for b in range(2 * R):
-        slots = {ck._rows_slot((ln // C * R + b + R - 1) * D + ln % C, R * D, pad) % banks
-                 for ln in range(lanes)}
-        assert len(slots) == lanes, (b, sorted(slots))
-    pw = ck._w_pitch(32)
-    assert len({(c * pw * 4 // 16) % 8 for c in range(C)}) == C
+    R, C, pad, elt = plan.tile_rows, plan.ksplit, plan.pad, 8 if complex_stream else 4
+    vec = ck._rows_vec(D, C, elt)
+    width = vec * elt if vec else elt
+    words = -(-C * elt // width) if vec else 1
+    per = 128 // width
+    for g in range(-(-D // C)):
+        for i in range(2 * R):
+            for word in range(words):
+                byte = [(t * (R * D + pad) + i * D + pad * (i // R) + g * C) * elt + word * width
+                        for t in range(32)]
+                assert all(b % width == 0 for b in byte)
+                for t0 in range(0, 32, per):
+                    banks = [(b // 4 + w) % 32 for b in byte[t0:t0 + per]
+                             for w in range(width // 4)]
+                    assert len(set(banks)) == len(banks), (g, i, word, t0, sorted(banks))
 
 
 def _old_poly_fir_smem(m, D, I, elt):
@@ -1278,14 +1323,17 @@ def test_lane_plans_at_the_served_shapes(L, n, nt):
 # ---------------------------------------------------------------------------
 
 def _poly_fir_lanes_twin(hist, x, W, plan, bf16=False):
-    """``csrc/poly_fir.cu``'s lane form: grid y is the lane, whose blocks move
-    hist, x, W and y to its rows by their strides (W's 0 where the lanes
-    share one) and run the one-stream tiling on its row. Each lane's W is cut
-    from the flat storage of the tensor's own size; every output of the
-    batch is written exactly once, into its own lane's rows."""
+    """``csrc/poly_fir.cu``'s lane form: "rows" walks every lane's tiles as
+    one sequence (:func:`_poly_rows_twin`); "gemm" takes the lane as the
+    grid's y, whose blocks move hist, x, W and y to its rows by their strides
+    (W's 0 where the lanes share one) and run the one-stream walk on its row.
+    Each lane's W is cut from the flat storage of the tensor's own size;
+    every output of the batch is written exactly once, into its own lane's
+    rows."""
+    if plan.tiling == "rows":
+        return _poly_rows_twin(hist, x, W, plan, bf16)
     L = x.shape[0]
-    fw, ws = (W[0].contiguous().reshape(-1), 0) if L > 1 and W.stride(0) == 0 else \
-        (W.contiguous().reshape(-1), W[0].numel())
+    fw, ws = _lane_w(W)
     D = W.shape[2]
     nq = x.shape[1] // D
     per = nq * (W.shape[3] if W.dim() == 4 else 1)
@@ -1294,7 +1342,7 @@ def _poly_fir_lanes_twin(hist, x, W, plan, bf16=False):
     for lane in range(L):
         w = fw[lane * ws + torch.arange(W[0].numel())].view(W.shape[1:])
         row = lane * per + torch.arange(per)
-        y[row] = _poly_twin(hist[lane], x[lane], w, plan, bf16).reshape(-1)
+        y[row] = _poly_gemm_twin(hist[lane], x[lane], w, plan, bf16).reshape(-1)
         writes[row] += 1
     assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
     return y.view((L,) + tuple(ck.poly_fir_plain(hist[0], x[0], W[0]).shape))
@@ -1353,20 +1401,102 @@ def test_poly_fir_lanes_plans_match_plain(L, case):
 @pytest.mark.parametrize("L", [1, 3, 4, 16, 64])
 def test_poly_fir_lanes_plan_at_the_served_fm_shape(L):
     """At the served FM frame (32,000 input samples a session): the channel
-    filter keeps the one-stream "rows" layout; the resampler keeps the
-    one-stream plan's K split over its 375 taps (16 parts) and takes more
-    rows a block as the batch grows (4 at one lane, 32 at 64 lanes: 128
-    blocks, where the one-stream plan's 4 rows would make 1,024). One lane
-    is the one-stream plan."""
+    filter keeps the one-stream plan's "rows" order (4 column chains) in 128
+    threads of 4 rows; its 16 tiles a lane go to 2 resident blocks a SM
+    walking them with two buffers once there are more tiles than that (from
+    17 sessions), else a block a tile. The resampler keeps the one-stream
+    plan's K split over its 375 taps (16 parts) and takes more rows a block
+    as the batch grows, as many as still give 4 blocks a SM, else 7/8 of one
+    (4 at one lane, 8 at 16 and 64 lanes: 512 blocks at 64, where the
+    one-stream plan's 4 rows would make 1,024). One lane is the one-stream
+    plan."""
+    chan_row = ck.poly_fir_plan(32, 4, 1, 8000, True)
     chan = ck.poly_fir_lanes_plan(L, 32, 4, 1, 8000, True)
-    assert chan == ck.poly_fir_plan(32, 4, 1, 8000, True) and chan.tiling == "rows"
+    assert chan.tiling == "rows" and ck._same_order(chan, chan_row) and chan.ksplit == 4
+    assert (chan.threads, chan.rows, chan.tile_rows, chan.pad) == (128, 512, 4, 2)
+    assert chan.blocks == (264 if L * 16 > 264 else 0)
     row = ck.poly_fir_plan(2, 125, 24, 64, False)
     res = ck.poly_fir_lanes_plan(L, 2, 125, 24, 64, False)
     assert res.tiling == "gemm" and ck._same_order(res, row) and res.ksplit == 16
-    assert res.rows == {1: 4, 3: 4, 4: 4, 16: 8, 64: 32}[L]
+    assert res.rows == {1: 4, 3: 4, 4: 4, 16: 8, 64: 8}[L]
     assert L * -(-64 // res.rows) * 8 >= 132 * 7 or res.rows == 4
     if L == 1:
-        assert res == row
+        assert res == row and chan == chan_row
+
+
+# (D, m, I, nq, complex, shared W) at the served widths, few rows: the
+# channel filter (each lane's W, and one shared) and the resampler (one W
+# shared, and each lane's)
+_LANE_WALKS = {"channel": (4, 32, 1, 1100, True, False),
+               "channel shared": (4, 32, 1, 1100, True, True),
+               "resampler": (125, 2, 24, 70, False, True),
+               "resampler own W": (125, 2, 24, 70, False, False)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", list(_LANE_WALKS))
+def test_poly_fir_lane_walk_equals_one_stream_walk(case, bf16):
+    """A served lane equals the bare one-stream launch bit for bit: the lane
+    walk (the batch rule's layout: "rows" on 2 resident blocks a SM over
+    every lane's tiles, "gemm" with the batch's rows a block) holds each lane
+    against the one-stream walk's twin on its row with ``torch.equal``, at
+    the served widths on 3 lanes, with the lanes' own W and one W shared
+    (stride 0), float32 and bf16 (bf16 W in bf16 mode). ``n_sm`` is cut to
+    1, so that 3 lanes of 3 tiles already take the resident "rows" walk,
+    held against a block a tile; the "gemm" lanes' rows a block are held
+    against 8."""
+    D, m, I, nq, cplx, shared = _LANE_WALKS[case]
+    L, n_sm = 3, 1
+    hist, x, W = _poly_lanes_case(L, D, m, I, nq, cplx, 90 + nq, shared, bf16)
+    row = ck.poly_fir_plan(m, D, I, nq, cplx, n_sm)
+    plan = ck.poly_fir_lanes_plan(L, m, D, I, nq, cplx, n_sm)
+    one = ck._gemm_layout(1, row, m, D, I, nq, cplx, n_sm, 8) \
+        if row.tiling == "gemm" else ck._rows_layout(1, m, D, row.ksplit, nq, cplx, n_sm,
+                                                     blocks=0)
+    assert ck._same_order(plan, row) and ck._same_order(one, row) and plan != one
+    if plan.tiling == "rows":
+        assert 0 < plan.blocks < L * -(-nq // plan.rows) and one.blocks == 0
+    got = _poly_fir_lanes_twin(hist, x, W, plan, bf16)
+    for lane in range(L):
+        lone = _poly_twin(hist[lane], x[lane], W[lane].contiguous(), one, bf16)
+        assert torch.equal(got[lane], lone), lane
+    ref = ck.poly_fir_lanes_plain(hist, x, W, "bf16" if bf16 else None)
+    assert _rel(got, ref) <= 1e-6
+
+
+def test_poly_fir_same_order_is_the_tiling_and_its_k_split():
+    """What fixes an output's bits: the tiling and its K split (the column
+    chains of "rows", the parts of "gemm"). The rows a thread or a block, the
+    threads, the pad and the resident blocks do not; a plan that differs
+    from the one-stream plan in its K split or tiling is another order, and
+    its walk gives other bits on the same inputs."""
+    row = ck.poly_fir_plan(32, 4, 1, 1100, True, 1)
+    same = [row._replace(tile_rows=8), row._replace(threads=64, rows=256),
+            row._replace(pad=0), row._replace(blocks=7)]
+    assert all(ck._same_order(p, row) for p in same)
+    assert not ck._same_order(row._replace(ksplit=2), row)
+    assert not ck._same_order(row._replace(tiling="gemm"), row)
+    res = ck.poly_fir_plan(2, 125, 24, 70, False, 1)
+    assert ck._same_order(res._replace(rows=16), res)
+    assert ck._same_order(res._replace(tile_phases=4), res)
+    assert not ck._same_order(res._replace(ksplit=1), res)
+    # the walks: another layout of one order gives the same bits, another
+    # K split other bits
+    hist, x, W = _poly_case(125, 2, 24, 70, False, 5)
+    base = _poly_twin(hist, x, W, res)
+    other = ck._gemm_layout(1, res, 2, 125, 24, 70, False, 1, 4)
+    assert ck._same_order(other, res) and other.rows != res.rows
+    assert torch.equal(_poly_twin(hist, x, W, other), base)
+    unsplit = ck._gemm_layout(1, res._replace(ksplit=1), 2, 125, 24, 70, False, 1)
+    assert not ck._same_order(unsplit, res)
+    assert not torch.equal(_poly_twin(hist, x, W, unsplit), base)
+    hist, x, W = _poly_case(4, 32, 1, 1100, True, 6)
+    base = _poly_twin(hist, x, W, row)
+    assert torch.equal(_poly_twin(hist, x, W, ck._rows_layout(1, 32, 4, 4, 1100, True, 1, 32,
+                                                                  2)), base)
+    two = ck._rows_layout(1, 32, 4, 2, 1100, True, 1)
+    assert not ck._same_order(two, row)
+    assert not torch.equal(_poly_twin(hist, x, W, two), base)
 
 
 def test_poly_fir_lanes_plan_keeps_the_bare_chains_order():
