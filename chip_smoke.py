@@ -4368,6 +4368,12 @@ PFB_SERVE_RATE_STEPS = 20      # frame times of each session-frames/s run
 # N = 1000 (direct DFT), as phase 12 forces it
 PFB_WIDE_LANES = (1, 3, 16)
 PFB_V_CASES = ((2048, 5), (1000, 5))
+# 28 (a)'s pfb_lanes walks forced where the rule keeps a block a tile, on a
+# few SMs' worth of blocks: (L, n, n_sm, precision): long runs across lanes,
+# runs starting inside a lane with a part-filled last tile, bf16
+PFB_K = 12
+PFB_WALK_CASES = ((7, 1 << 15, 3, None), (5, 37 * PFB_N, 3, None),
+                  (5, 100 * PFB_N, 2, "bf16"), (9, 70 * PFB_N, 3, None))
 # the shapes of the kernels line: the main chain's (16 lanes of 2^18) for
 # fir_fft_lanes, serve_ab's (64 lanes of 512) for fir_lanes and rotator_lanes,
 # the FM front end's (64 sessions of 32,000; the demod's 8,000) for the FM
@@ -4455,6 +4461,8 @@ def phase_serve_lanes(dev) -> dict:
             check(rel <= TOL["rotator"] and torch.equal(nxt, pn),
                   f"rotator_lanes L={L} n={n}: {rel:.2e} from its plain version")
             worst["rotator_lanes"] = max(worst["rotator_lanes"], rel)
+    print(f"phase 28 (a): rotator_lanes plan {ck.last_plans['rotator_lanes']} (its one "
+          f"layout, the lane the grid's y)")
     n4 = FM_SERVE_FRAME // 4
     for L in LANES:
         for kind, (m, D, I) in FM_POLY.items():
@@ -4507,7 +4515,7 @@ def pfb_lane_cases(dev, gen) -> float:
     import torch
 
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
-    worst = 0.0
+    worst, pfb_plans = 0.0, []
 
     def lanes(L, n, N, prec=None, shared=False, plan=None):
         hc = pfb_branch(dev, n=N)                       # [N, K] of the prototype
@@ -4519,10 +4527,14 @@ def pfb_lane_cases(dev, gen) -> float:
         taps = hcs.expand(L, N, K).transpose(1, 2)
         hist = torch.randn(L, (K - 1) * N, dtype=torch.complex64, generator=gen, device=dev)
         x = torch.randn(L, n, dtype=torch.complex64, generator=gen, device=dev)
-        what = (f"pfb_lanes PFB-{N} L={L} n={n} {prec or 'f32'}"
-                f"{' shared taps' if shared else ''}{' (v layout)' if plan else ''}")
         y = ck.pfb_lanes(hist, x, taps, prec, plan=plan)
-        if plan is None:
+        ran = ck.last_plans["pfb_lanes"]
+        layout = "walk" if ran.blocks else "window" if ran.window else "v layout"
+        what = (f"pfb_lanes PFB-{N} L={L} n={n} {prec or 'f32'}"
+                f"{' shared taps' if shared else ''} ({layout}, R = {ran.outs}"
+                f"{f', {ran.blocks} blocks' if ran.blocks else ''})")
+        pfb_plans.append(what)
+        if plan is None or plan.blocks:
             per = torch.stack([ck.pfb(hist[i], x[i], taps[i], prec) for i in range(L)])
         else:
             per = torch.stack([ck._launch_pfb(hist[i], x[i], taps[i], torch.empty(
@@ -4542,6 +4554,13 @@ def pfb_lane_cases(dev, gen) -> float:
     for L in LANES:
         for prec in (None, "bf16"):
             worst = max(worst, lanes(L, n64, PFB_N, prec))
+    # the walk where the rule does not take it: runs of many tiles across
+    # lanes, runs starting inside a lane with a part-filled last tile and
+    # last block
+    for L, n, n_sm, prec in PFB_WALK_CASES:
+        rule = ck._pfb_rule(PFB_N, PFB_K, L * n // PFB_N, n_sm)
+        walk = ck._pfb_walk(rule, PFB_N, PFB_K, n_sm)
+        worst = max(worst, lanes(L, n, PFB_N, prec, plan=walk))
     for L in SHARED_TAP_LANES:
         worst = max(worst, lanes(L, n64, PFB_N, shared=True))
     for L in PFB_WIDE_LANES:
@@ -4550,6 +4569,7 @@ def pfb_lane_cases(dev, gen) -> float:
         plan = ck.PfbPlan(False, 256, N, 1, 1, 1, 0, (), (), (), N, N, ck._NO_PAD, False,
                           8 * N)
         worst = max(worst, lanes(3, t * N, N, plan=plan))
+    print("phase 28 (a): pfb_lanes plans: " + "; ".join(pfb_plans))
     return worst
 
 
@@ -4636,6 +4656,7 @@ def phase_serve_paths(dev, taps) -> dict:
         pass
     n1_out = one.results(s1.sid)
 
+    ab_before = ck.launches["rotator_lanes"]
     ab = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="serve_ab",
                      buckets=AB_BUCKETS, queue_frames=4, device=dev)
     owner = {}                       # sid -> stream index
@@ -4687,6 +4708,7 @@ def phase_serve_paths(dev, taps) -> dict:
           f"churn built programs: {compiles_after_first} after the first step, "
           f"{ab.compiles} at the end")
     check(ab.dispatches == busy, f"{ab.dispatches} dispatches for {busy} busy frame times")
+    ab_launches = ck.launches["rotator_lanes"] - ab_before     # its one bucket, 64 lanes
     with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
         pa = ServeEngine(serve_ab_pipe(), frame_size=AB_FRAME, app="serve_persist",
                          buckets=(4,), queue_frames=8, device=dev, inflight=3,
@@ -4736,7 +4758,9 @@ def phase_serve_paths(dev, taps) -> dict:
           f"events, {ab.dispatches} dispatches in {busy} busy frame times, builds "
           f"{ab.compiles} (resident bucket: 0 after the first); every stream, the "
           f"evict/readmit and the depth-3 persisted resume bit-equal")
-    return {"launches": launches, "lat": lat, "engines": (eng, ab)}
+    by_shape = {"rotator_lanes": {f"{AB_SESSIONS} x {AB_FRAME}": ab_launches,
+                                  f"4 x {AB_FRAME}": launches["rotator_lanes"] - ab_launches}}
+    return {"launches": launches, "lat": lat, "engines": (eng, ab), "by_shape": by_shape}
 
 
 def fm_serve_pipe():
@@ -4782,8 +4806,9 @@ def phase_serve_fm(dev) -> dict:
     from futuresdr_tpu_torch.serve import ServeEngine
     feed = fm_feed(FM_SERVE_STEPS, SEED + 282)
     ck.reset_launches()
-    runs = []
+    runs, by_shape = [], {}
     for L in FM_SERVE_LANES:
+        before = ck.launches["rotator_lanes"]
         eng = ServeEngine(fm_serve_pipe(), frame_size=FM_SERVE_FRAME, app=f"serve_fm{L}",
                           buckets=(L,), queue_frames=4, device=dev)
         live, span, out = {}, {}, {}
@@ -4806,6 +4831,7 @@ def phase_serve_fm(dev) -> dict:
                 out[k] += eng.results(s.sid)
         check(eng.compiles == 1 and eng.dispatches == FM_SERVE_STEPS,
               f"FM L={L}: {eng.compiles} builds, {eng.dispatches} dispatches")
+        by_shape[f"{L} x {FM_SERVE_FRAME}"] = ck.launches["rotator_lanes"] - before
         runs.append((L, eng, span, out))
     torch.cuda.synchronize()
     launches = {k: ck.launches[k] for k in ck.launches}
@@ -4825,7 +4851,8 @@ def phase_serve_fm(dev) -> dict:
           f"leaving and {FM_SERVE_CHURN} joining mid-run: every session's audio bit-equal "
           f"to the bare Pipeline; 1 build, {FM_SERVE_STEPS} dispatches a run; launches "
           + ", ".join(f"{k} {launches[k]}" for k in LANE_KERNELS if launches[k]))
-    return {"launches": launches, "engines": {L: eng for L, eng, _, _ in runs}}
+    return {"launches": launches, "engines": {L: eng for L, eng, _, _ in runs},
+            "by_shape": {"rotator_lanes": by_shape}}
 
 
 def pfb_serve_pipe():
@@ -4886,8 +4913,9 @@ def phase_serve_pfb(dev, card_line) -> dict:
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
     from futuresdr_tpu_torch.serve import ServeEngine
     ck.reset_launches()
-    runs = []
+    runs, by_shape = [], {}
     for L, frame in PFB_SERVE:
+        before = ck.launches["pfb_lanes"]
         retuned, leavers = _pfb_retuned(L), _pfb_leavers(L)
         mid = PFB_SERVE_STEPS // 2
         eng = ServeEngine(pfb_serve_pipe(), frame_size=frame, app=f"serve_pfb{L}",
@@ -4917,6 +4945,9 @@ def phase_serve_pfb(dev, card_line) -> dict:
         prog = next(iter(eng._programs.values()))
         check(prog.launches == {"pfb_lanes": 1}, f"PFB L={L}: a dispatch launches "
                                                  f"{prog.launches}, not one pfb_lanes")
+        by_shape[f"{L} x {frame}"] = ck.launches["pfb_lanes"] - before
+        print(f"phase 28 (g): PFB L={L} frame={frame}: pfb_lanes plan "
+              f"{ck.last_plans['pfb_lanes']}")
         runs.append((L, frame, eng, prog, span, out, feeds, retuned))
     torch.cuda.synchronize()
     launches = {k: ck.launches[k] for k in ck.launches}
@@ -4959,7 +4990,7 @@ def phase_serve_pfb(dev, card_line) -> dict:
           f"every session's channels bit-equal to the bare Pipeline, its tone in its own "
           f"channel; 1 build, {PFB_SERVE_STEPS} dispatches a run; launches pfb_lanes "
           f"{launches['pfb_lanes']} ({dispatches} dispatches, {builds} warm-ups), pfb 0")
-    return {"launches": launches, "measured": measured}
+    return {"launches": launches, "measured": measured, "by_shape": {"pfb_lanes": by_shape}}
 
 
 def _graph_card_ms(prog) -> float:
@@ -5088,10 +5119,12 @@ def phase_serve_measure(dev, taps, paths, fm, card_line) -> dict:
     return out
 
 
-def lane_timings(dev, name: str, L: int, n: int) -> dict:
+def lane_timings(dev, name: str, L: int, n: int, empty_lib=None) -> dict:
     """Kernel, plain and library device time and the bound of a lane form on
     ``L`` lanes of ``n`` complex64 samples (``fir``: 64 taps at 2^18, 17 at
-    512; ``fir_fft``: 64 taps, N = 2048)."""
+    512; ``fir_fft``: 64 taps, N = 2048); ``rotator_lanes``, which no library
+    call computes, a copy of its bytes (``copy_ms``) and an empty launch on
+    its plan's grid instead, and the plan."""
     import torch
     import torch.nn.functional as F
 
@@ -5144,7 +5177,13 @@ def lane_timings(dev, name: str, L: int, n: int) -> dict:
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err}
     if lib is None:
-        out["copy_ms"] = device_ms(lambda x, *_: x.clone(), args)
+        plan = ck.last_plans["rotator_lanes"]         # a block a tile, the lane the grid's y
+        blocks, threads = max(1, -(-n // plan.tile)) * L, plan.threads
+
+        def empty(x, *_):
+            ck._raise_on(empty_lib.fsdr_empty(blocks, threads, ck._stream(x)), "empty")
+        out.update(copy_ms=copy_ms(empty_lib, dev, L * (8 * n + 8), L * (8 * n + 4)),
+                   empty_ms=device_ms(empty, args), plan=plan)
     return out
 
 
@@ -5260,15 +5299,17 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
     return out
 
 
-def pfb_lane_timings(dev, L: int, n: int) -> dict:
+def pfb_lane_timings(dev, L: int, n: int, empty_lib) -> dict:
     """28 (f): ``pfb_lanes`` at a served shape, ``L`` sessions of ``n``
     samples of PFB-64 (K = 12), each lane's taps as the carry holds them
     (``[L, N, K]``, passed transposed): the lane kernel, its plain version,
     the per-lane route (L one-stream launches and the stack, as the vmap rule
     ran them before the lane form), the library route (``torch.func.vmap`` of
     the stage's ``matmul`` route, ``ops/stages._pfb_matmul``: einsum, then
-    ``torch.fft.ifft``), all as device time in CUDA graphs over ``LANE_REPS``
-    distinct inputs, and the bound from ``utils/roofline.kernel_cost``."""
+    ``torch.fft.ifft``), a copy of its bytes (``copy_ms``) and an empty launch
+    on its plan's grid, all as device time in CUDA graphs over ``LANE_REPS``
+    distinct inputs, the bound from ``utils/roofline.kernel_cost``, and the
+    plan."""
     import torch
 
     from futuresdr_tpu_torch.ops import cuda_kernels as ck
@@ -5294,16 +5335,25 @@ def pfb_lane_timings(dev, L: int, n: int) -> dict:
         return torch.stack([ck.pfb(h[i], x[i], taps[i]) for i in range(L)])
 
     got = kern(*args[0])
+    plan = ck.last_plans["pfb_lanes"]
     err, _ = rel_err(got, plain(*args[0]))
     check(torch.equal(got, per_lane(*args[0])), f"pfb_lanes L={L} n={n}: a lane differs "
                                                 f"from the one-stream launch")
     nbytes, ops = kernel_cost("pfb_lanes", L=L, n=n, N=PFB_N, K=K)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    tiles = L * -(-(n // PFB_N) // plan.rows)
+    blocks = min(plan.blocks, tiles) if plan.blocks else tiles
+
+    def empty(h, x):
+        ck._raise_on(empty_lib.fsdr_empty(blocks, plan.threads, ck._stream(x)), "empty")
     return {"ms": device_ms(kern, args), "plain_ms": device_ms(plain, args[:2]),
             "per_lane_ms": device_ms(per_lane, args),
             "library_ms": device_ms(lambda h, x: lib(h, x, hcs), args),
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err,
+            "copy_ms": copy_ms(empty_lib, dev, L * 8 * (n + (K - 1) * PFB_N) + L * 4 * PFB_N * K,
+                               L * 8 * n),
+            "empty_ms": device_ms(empty, args), "plan": plan}
 
 
 def phase_serving(dev, taps, card_line, empty_lib) -> dict:
@@ -5329,40 +5379,50 @@ def phase_serving(dev, taps, card_line, empty_lib) -> dict:
         if name == "rotator_lanes":
             shapes.add((FM_SERVE_LANES[-1], FM_SERVE_FRAME))    # the FM tuner's
         for L, n in sorted(shapes):
-            t = lane_timings(dev, name, L, n)
+            t = lane_timings(dev, name, L, n, empty_lib)
             timings[(name, L, n)] = t
             lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-            yard = f", copy of its bytes {t['copy_ms']:.4f} ms" if "copy_ms" in t else ""
+            yard = (f", copy of its bytes {t['copy_ms']:.4f} ms, empty launch "
+                    f"{t['empty_ms']:.4f} ms, plan {t['plan']}" if "copy_ms" in t else "")
             print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}){yard} [{card_line}]")
-    L = FM_SERVE_LANES[-1]
-    fm_t = fm_lane_timings(dev, empty_lib, L)
-    rows = [(f"poly_fir_lanes/{c}", n, t)
-            for (c, t), n in zip(fm_t["poly_fir_lanes"]["calls"].items(),
-                                 (FM_SERVE_FRAME, FM_SERVE_FRAME // 4))]
-    rows += [("poly_fir_lanes", FM_SERVE_FRAME, fm_t["poly_fir_lanes"]),
-             ("quad_demod_lanes", FM_SERVE_FRAME // 4, fm_t["quad_demod_lanes"])]
-    for name, n, t in rows:
-        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        yard = "".join(f", {what} {t[k]:.4f} ms" for k, what in (
-            ("empty_ms", "empty launch"), ("copy_ms", "copy of its bytes")) if k in t)
-        yard += f", plan {tuple(t['plan'])}" if "plan" in t else ""
-        print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
-              f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){yard} [{card_line}]")
+    for L in FM_SERVE_LANES[::-1]:                      # the kernels line's first
+        fm_t = fm_lane_timings(dev, empty_lib, L)
+        rows = [(f"poly_fir_lanes/{c}", n, t)
+                for (c, t), n in zip(fm_t["poly_fir_lanes"]["calls"].items(),
+                                     (FM_SERVE_FRAME, FM_SERVE_FRAME // 4))]
+        rows += [("poly_fir_lanes", FM_SERVE_FRAME, fm_t["poly_fir_lanes"]),
+                 ("quad_demod_lanes", FM_SERVE_FRAME // 4, fm_t["quad_demod_lanes"])]
+        for name, n, t in rows:
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            yard = "".join(f", {what} {t[k]:.4f} ms" for k, what in (
+                ("empty_ms", "empty launch"), ("copy_ms", "copy of its bytes")) if k in t)
+            yard += f", plan {tuple(t['plan'])}" if "plan" in t else ""
+            print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
+                  f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){yard} [{card_line}]")
+        if L == LANE_LINE_SHAPE["poly_fir_lanes"][0]:
+            line_fm = fm_t
+    fm_t = line_fm
     timings[("poly_fir_lanes", *LANE_LINE_SHAPE["poly_fir_lanes"])] = fm_t["poly_fir_lanes"]
     timings[("quad_demod_lanes", *LANE_LINE_SHAPE["quad_demod_lanes"])] = \
         fm_t["quad_demod_lanes"]
     for L, n in PFB_SERVE:
-        t = timings[("pfb_lanes", L, n)] = pfb_lane_timings(dev, L, n)
+        t = timings[("pfb_lanes", L, n)] = pfb_lane_timings(dev, L, n, empty_lib)
         print(f"timing pfb_lanes L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
               f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               f"{t['library_ms']:.4f} ms (vmap of the matmul route), bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card_line}]")
-    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), copy of its bytes "
+              f"{t['copy_ms']:.4f} ms, empty launch {t['empty_ms']:.4f} ms, plan "
+              f"{t['plan']} [{card_line}]")
+    by_shape = {}
+    for part in (paths, fm, pfb):
+        for k, shapes in part["by_shape"].items():
+            by_shape.setdefault(k, {}).update(shapes)
+    print(f"phase 28: launches by shape {by_shape}; {time.perf_counter() - t0:.1f} s")
     return {"worst": worst, "launches": launches, "timings": timings,
-            "measured": measured}
+            "measured": measured, "by_shape": by_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -8408,7 +8468,10 @@ def main(argv=None) -> int:
             "max_abs_err": max(serving["worst"][k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{y: t[y] for y in ("per_lane_ms", "copy_ms", "empty_ms", "calls") if y in t}})
+            **{y: t[y] for y in ("per_lane_ms", "copy_ms", "empty_ms", "calls") if y in t},
+            **({"plan": repr(t["plan"])} if "plan" in t else {}),
+            **({"launches_by_shape": serving["by_shape"][k]} if k in serving["by_shape"]
+               else {})})
     t = models["viterbi"]
     line["kernels"].append({
         "name": "viterbi", "route": "cuda", "source": SOURCE_VITERBI,

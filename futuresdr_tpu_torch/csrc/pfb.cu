@@ -70,8 +70,15 @@
 // twiddles move no value. The lane plan (cuda_kernels.pfb_lanes_plan) keeps
 // the one-stream plan's layout and radices, so each lane is bit-equal to a
 // one-stream launch, and chooses R and the tile over the whole batch (PFB-64
-// at 64 sessions of 2^15: R = 8, 32 rows a block, 1,024 blocks, where one
-// stream's plan at 512 rows takes R = 1 so that one stream fills the card).
+// at 64 sessions of 2^15: R = 8, 32 rows a tile, where one stream's plan at
+// 512 rows takes R = 1 so that one stream fills the card). Where that window
+// plan has PFB-64's shape (one chunk, K = 12, R = 8, two passes) and every
+// lane's rows are 16-byte aligned, the plan takes the "walk" instead of a
+// block a tile: resident blocks walking runs of tiles over a ring of bulk
+// copies that stages each row once, the last pass beside the next tile's MAC
+// (pfb_walk_kernel below; PERF.md has the breakdown that chose it).
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -82,6 +89,8 @@ using fsdr::skew;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxPasses = 16;
 constexpr int kRegTaps = 12;             // K with its taps in registers
+constexpr int kWalkR = 8;                // the walk's rows a thread
+constexpr int kWalkStages = 3;           // its ring: the tile read, the one before, one ahead
 
 __device__ __forceinline__ float tap_at(const void* taps, int taps_bf16, long long i) {
   return taps_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(taps)[i])
@@ -94,6 +103,54 @@ __device__ __forceinline__ float round_if(float v, int bf16) {
 
 __device__ __forceinline__ float2 round_if(float2 v, int bf16) {
   return bf16 ? fsdr::bf16_round(v) : v;
+}
+
+// Hopper's 1-D bulk copy (TMA without a tensor map) into shared memory,
+// completing on an mbarrier that counts the bytes, and the barrier's calls
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// the barrier's inits visible to the async proxy (the bulk copies) too
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the barrier's phase `parity` to complete; a copy that never lands
+// (about 10 s of the SM's clock) traps, failing the launch, never hangs it.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  const long long start = clock64();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  }
 }
 
 // staging buffers: two (double-buffered) where the channels take several
@@ -116,6 +173,16 @@ __host__ inline long long window_smem(int n, int k, int tr, int chunk, int pitch
   return 8 * (static_cast<long long>(tr) * pitch +
               w_slots(n, k, tr, chunk, pitch, n_pass) + tw_staged_len) +
          (k_regs ? 0 : 4LL * stage_bufs(n, chunk) * k * chunk);
+}
+
+// The "walk" layout's bytes: the ring's mbarriers (16-byte aligned),
+// kWalkStages slots of k - 1 + tr rows of n samples, the v rows, the Stockham
+// buffer and the staged twiddle table
+constexpr int kWalkBarBytes = 16 * ((kWalkStages + 1) / 2);
+__host__ inline long long walk_smem(int n, int k, int tr, int pitch, int tw_staged_len) {
+  return kWalkBarBytes +
+         8 * (static_cast<long long>(kWalkStages) * (k - 1 + tr) * n + 2LL * tr * pitch +
+              tw_staged_len);
 }
 
 // One Stockham pass of radix RX (inverse) over the tile's rows: butterfly b
@@ -334,6 +401,176 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
   }
 }
 
+// The "walk" layout, for PFB-64's shape of plan (one chunk of an even N, K =
+// 12 taps in registers, R = 8, two Stockham passes, the last one's
+// butterflies within half the block, K - 1 <= tr): the grid's blocks stay
+// resident (the plan's `blocks`, 2 an SM) and block b walks the run of
+// (lane, tile) pairs from total * b / blocks to total * (b + 1) / blocks in
+// order, where total is the lanes times a lane's tiles, so a lane's tiles
+// follow one another inside a block. A tile's tr rows of x are one contiguous
+// span, brought by one 1-D bulk copy into a ring of kWalkStages = 3 slots,
+// two tiles ahead, completing on the slot's mbarrier (one arrive.expect_tx a
+// tile for all its bytes); thread 0 issues the copies. A slot is k - 1 halo rows and tr tile rows, in the stream's order (the
+// commutator's reversal moves to the read: channel c is column n - 1 - c of
+// the staged row). A tile's halo is the previous tile's last k - 1 rows, read
+// from the previous slot, so every row of x is staged once; a lane's first
+// tile takes hist into its own halo rows, and a run's first tile starting
+// inside a lane stages its halo rows with its span in one copy. The
+// twiddles are staged once a block.
+//
+// The schedule: the block's first half runs a tile's last pass (PFB-64: 128
+// radix-16 butterflies, where the window layout leaves the other half idle)
+// while its second half runs the next tile's MAC, 2R rows of one channel a
+// thread, its taps in registers, loaded once a lane; then every thread runs
+// the following first pass; two barriers a tile. The slot of tile j - 1 is
+// refilled (tile j + 2) once tile j's MAC, the last read of it, is done.
+//
+// The bits are the window layout's: each output sums its taps in ascending
+// kk, bf16 rounds each sample as it is read (the window layout as it is
+// staged: the same value), v is rounded where it is, the passes are the same
+// code on the same table; only the threads that run them differ.
+template <int RM, bool BF16>
+__device__ __forceinline__ void walk_mac(const float2* cur, const float2* prev, int top, int w0,
+                                         int n, const float (&tp)[kRegTaps], float2* s_v,
+                                         int pitch, int psh, int c) {
+  float2 acc[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) acc[r] = make_float2(0.f, 0.f);
+  // window row w of the tile (ext row s0 + w): the slot's own row w, or below
+  // `top` (a halo row) the previous slot's row tr + w (prev points there)
+#pragma unroll
+  for (int jj = RM + kRegTaps - 2; jj >= 0; --jj) {
+    const int w = w0 + jj;
+    float2 v = w < top ? prev[w * n] : cur[w * n];
+    if constexpr (BF16) v = fsdr::bf16_round(v);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int kk = r + kRegTaps - 1 - jj;
+      if (kk >= 0 && kk < kRegTaps) fsdr::mac(acc[r], tp[kk], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    s_v[(w0 + r) * pitch + skew(c, psh)] = BF16 ? fsdr::bf16_round(acc[r]) : acc[r];
+  }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(256, 2)
+pfb_walk_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
+                const void* __restrict__ taps, long long tap_sk, long long tap_sn,
+                int taps_bf16, const float2* __restrict__ tw_g, float2* __restrict__ y,
+                long long t, int n, int groups, unsigned radix_codes, int pitch, int psh,
+                int tw_staged_len, int lanes, long long hs, long long xs, long long tls,
+                long long ys) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int k = kRegTaps;
+  const int tr = groups * kWalkR;
+  const int span = tr + k - 1;                     // rows of a slot
+  const long long tiles = (t + tr - 1) / tr;       // a lane's
+  const long long total = tiles * lanes;
+  const long long q0 = total * blockIdx.x / gridDim.x;
+  const long long q1 = total * (blockIdx.x + 1) / gridDim.x;
+  auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);
+  float2* ring = reinterpret_cast<float2*>(smem_raw + kWalkBarBytes);
+  float2* s_v = ring + kWalkStages * span * n;
+  float2* s_w = s_v + tr * pitch;
+  float2* s_tw = s_w + tr * pitch;
+  const float2* tw = tw_staged_len ? s_tw : tw_g;
+  // the MAC's threads: the block's second half, 2R rows of channel c each
+  const int half = blockDim.x / 2;
+  const int mt = static_cast<int>(threadIdx.x) - half;
+  const int g = mt / n;
+  const int c = mt - g * n;
+  const bool mac_thread = mt >= 0 && g < groups / 2;
+  const int tb = taps_bf16 ? 2 : 4;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWalkStages; ++i) mbar_init(bars + i, 1);
+    mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < tw_staged_len; i += blockDim.x) {
+    fsdr::cp_async(s_tw + i, tw_g + i);
+  }
+  fsdr::cp_async_commit();
+  fsdr::cp_async_wait<0>();
+  __syncthreads();
+
+  // tile q of the run into its slot (thread 0): its rows of x, and its halo
+  // rows where the ring does not hold them (hist at a lane's first tile, x's
+  // rows before it at the run's first tile), the bytes counted on the slot's
+  // barrier before the copies go out
+  auto issue = [&](long long q) {
+    const long long j = q - q0;
+    const long long lane = q / tiles;
+    const long long s0 = (q - lane * tiles) * tr;
+    const long long rows = t - s0 < tr ? t - s0 : tr;
+    float2* slot = ring + (j % kWalkStages) * span * n;
+    unsigned long long* bar = bars + j % kWalkStages;
+    const float2* xl = x + lane * xs;
+    const unsigned row_bytes = 8u * static_cast<unsigned>(n);
+    const unsigned halo = static_cast<unsigned>(k - 1) * row_bytes;
+    const unsigned body = static_cast<unsigned>(rows) * row_bytes;
+    if (s0 == 0) {
+      mbar_expect_tx(bar, halo + body);
+      bulk_load(slot, hist + lane * hs, halo, bar);
+      bulk_load(slot + (k - 1) * n, xl, body, bar);
+    } else if (q == q0) {
+      mbar_expect_tx(bar, halo + body);
+      bulk_load(slot, xl + (s0 - (k - 1)) * n, halo + body, bar);
+    } else {
+      mbar_expect_tx(bar, body);
+      bulk_load(slot + (k - 1) * n, xl + s0 * n, body, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (long long q = q0; q < q1 && q < q0 + kWalkStages - 1; ++q) issue(q);
+  }
+
+  // tile q's MAC by this thread (its lane's taps loaded once), after the
+  // tile's copy lands
+  float tp[kRegTaps];
+  long long taps_lane = -1;
+  auto mac = [&](long long q) {
+    const long long j = q - q0;
+    const long long lane = q / tiles;
+    const long long s0 = (q - lane * tiles) * tr;
+    if (lane != taps_lane) {
+      taps_lane = lane;
+      const void* tl = static_cast<const char*>(taps) + lane * tls * tb;
+#pragma unroll
+      for (int kk = 0; kk < kRegTaps; ++kk) {
+        tp[kk] = round_if(tap_at(tl, taps_bf16, kk * tap_sk + c * tap_sn), BF16);
+      }
+    }
+    mbar_wait(bars + j % kWalkStages, static_cast<unsigned>((j / kWalkStages) & 1));
+    const float2* cur = ring + (j % kWalkStages) * span * n + (n - 1 - c);
+    const float2* prev =
+        ring + ((j + kWalkStages - 1) % kWalkStages) * span * n + tr * n + (n - 1 - c);
+    const int top = s0 == 0 || q == q0 ? 0 : k - 1;    // rows below `top` from prev
+    walk_mac<2 * kWalkR, BF16>(cur, prev, top, g * 2 * kWalkR, n, tp, s_v, pitch, psh, c);
+  };
+
+  const int code0 = radix_codes & 3, code1 = (radix_codes >> 2) & 3;
+  const int r0 = 2 << code0;
+  if (mac_thread && q0 < q1) mac(q0);
+  __syncthreads();
+  for (long long q = q0; q < q1; ++q) {
+    const long long lane = q / tiles;
+    const long long s0 = (q - lane * tiles) * tr;
+    if (threadIdx.x == 0 && q + kWalkStages - 1 < q1) issue(q + kWalkStages - 1);
+    idft_pass_radix<false>(code0, s_v, s_w, y, s0, t, tr, n, pitch, psh, tw, 1);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < half) {
+      idft_pass_radix<true>(code1, s_w, s_v, y + lane * ys, s0, t, tr, n, pitch, psh,
+                            tw + (r0 - 1), r0);
+    } else if (mac_thread && q + 1 < q1) {
+      mac(q + 1);
+    }
+    __syncthreads();
+  }
+}
+
 // The "v" layout, for rows of v too wide to stage beside their rows: one row
 // a block, the MAC reading rows and taps from device memory through the
 // reversed index, v alone in shared memory, bit-reversed for an in-place
@@ -458,6 +695,28 @@ cudaError_t dispatch_outs(int outs, const void* hist, const void* x, const void*
   }
 }
 
+template <bool BF16>
+cudaError_t launch_walk(const void* hist, const void* x, const void* taps, long long tap_sk,
+                        long long tap_sn, int taps_bf16, const void* tw, void* y, long long t,
+                        int n, int groups, unsigned codes, int pitch, int psh,
+                        int tw_staged_len, int blocks, size_t smem, const Lanes& ln,
+                        cudaStream_t stream) {
+  auto kern = pfb_walk_kernel<BF16>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long tr = static_cast<long long>(groups) * kWalkR;
+  const long long total = (t + tr - 1) / tr * ln.lanes;
+  const unsigned grid = static_cast<unsigned>(total < blocks ? total : blocks);
+  kern<<<grid, 256, smem, stream>>>(
+      static_cast<const float2*>(hist), static_cast<const float2*>(x), taps, tap_sk, tap_sn,
+      taps_bf16, static_cast<const float2*>(tw), static_cast<float2*>(y), t, n, groups, codes,
+      pitch, psh, tw_staged_len, ln.lanes, ln.hs, ln.xs, ln.tls, ln.ys);
+  return cudaGetLastError();
+}
+
 // The plan's checks and the launch, for one stream or for the lanes.
 int run(const void* hist, const void* x, const void* taps, long long tap_sk, long long tap_sn,
         const void* tw, void* y, long long t, int n, int k, int modes, const int* plan,
@@ -465,8 +724,8 @@ int run(const void* hist, const void* x, const void* taps, long long tap_sk, lon
   if (t <= 0 || ln.lanes == 0) return 0;
   const int window = plan[0], threads = plan[1], chunk = plan[2], groups = plan[3],
             outs = plan[4], k_regs = plan[5], pitch = plan[6], psh = plan[7],
-            tw_staged = plan[8], tw_len = plan[9], n_pass = plan[10];
-  const int* radices = plan + 11;
+            tw_staged = plan[8], tw_len = plan[9], n_pass = plan[10], blocks = plan[11];
+  const int* radices = plan + 12;
   const int taps_bf16 = modes & 1, bf16 = (modes >> 1) & 1;
   if (n < 1 || k < 1 || ln.lanes < 0 || ln.lanes > 65535 ||
       (ln.lanes > 1 && ln.ys < t * n)) {
@@ -513,6 +772,30 @@ int run(const void* hist, const void* x, const void* taps, long long tap_sk, lon
   }
   const int tr = groups * outs;
   const int staged = tw_staged ? tw_len : 0;
+  if (blocks) {
+    // the walk: one chunk of an even n, 256 threads, R = 8, K = 12 taps in
+    // registers, its halo inside one tile, two passes whose last one's
+    // butterflies fit half the block, every lane's rows of hist and x 16-byte
+    // aligned
+    const auto* h8 = static_cast<const char*>(hist);
+    const auto* x8 = static_cast<const char*>(x);
+    if (blocks < 0 || chunk != n || threads != 256 || n % 2 || outs != kWalkR || !k_regs ||
+        k - 1 > tr || n_pass != 2 || groups % 2 || tr * (n / radices[1]) > threads / 2 ||
+        reinterpret_cast<uintptr_t>(x8) % 16 || reinterpret_cast<uintptr_t>(h8) % 16 ||
+        (ln.lanes > 1 && (ln.xs % 2 || ln.hs % 2))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long want = walk_smem(n, k, tr, pitch, staged);
+    if (smem != want) return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16) {
+      return launch_walk<true>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, groups,
+                               codes, pitch, psh, staged, blocks,
+                               static_cast<size_t>(want), ln, s);
+    }
+    return launch_walk<false>(hist, x, taps, tap_sk, tap_sn, taps_bf16, tw, y, t, n, groups,
+                              codes, pitch, psh, staged, blocks,
+                              static_cast<size_t>(want), ln, s);
+  }
   const long long want = window_smem(n, k, tr, chunk, pitch, n_pass, staged, k_regs);
   if (smem != want) return static_cast<int>(cudaErrorInvalidValue);
   const int w_len = static_cast<int>(w_slots(n, k, tr, chunk, pitch, n_pass));
@@ -536,9 +819,10 @@ int run(const void* hist, const void* x, const void* taps, long long tap_sk, lon
 // threads per block, the channels staged a step (chunk), the row groups, the
 // rows a thread (outs: 1, 4 or 8), the taps in registers (k_regs = k = 12) or
 // in shared memory (0), the float2 pitch of a v row and its pad shift,
-// whether the table is staged, the table's length, n_pass Stockham passes and
-// their radices (2, 4, 8 or 16; 0 passes: the direct DFT); and its shared
-// memory, which must equal the layout's. Returns cudaGetLastError() after
+// whether the table is staged, the table's length, n_pass Stockham passes,
+// the walk's resident blocks (0: a block a tile), then the passes'
+// radices (2, 4, 8 or 16; 0 passes: the direct DFT); and its shared memory,
+// which must equal the layout's. Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int fsdr_pfb(const void* hist, const void* x, const void* taps,
                         long long tap_sk, long long tap_sn, const void* tw, void* y,

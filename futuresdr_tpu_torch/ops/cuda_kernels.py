@@ -98,6 +98,7 @@ launches: Dict[str, int] = {"fir": 0, "fir_fft": 0, "rotator": 0, "poly_fir": 0,
 
 # Largest dynamic shared memory one block may request on Hopper (227 KB).
 _MAX_SMEM = 232448
+_SM_SMEM = 233472            # an SM's shared memory, its blocks' and 1 KB each
 
 _PRECISIONS = (None, "f32", "bf16")
 _STREAM_DTYPES = (torch.float32, torch.complex64)
@@ -851,6 +852,8 @@ class PfbPlan(NamedTuple):
     pad_shift: int       # v rows: one pad slot every 2^pad_shift points
     tw_staged: bool      # twiddle table in shared memory, else read through L2
     smem: int            # dynamic shared memory per block, bytes
+    blocks: int = 0      # the "walk" (a window layout): its resident blocks, 2 an SM, each
+                         # walking a run of (lane, tile) pairs; 0: a block a tile
 
 
 _PFB_K_REGS = 12             # the K whose taps the kernel keeps in registers
@@ -879,6 +882,41 @@ def _pfb_smem(n: int, k: int, rows: int, chunk: int, n_pass: int, pitch: int,
     bufs = 2 if n > chunk else 1
     w = max(bufs * (rows + k - 1) * chunk, rows * pitch if n_pass >= 2 else 0)
     return 8 * (rows * pitch + w + tw_staged_len) + (0 if k_regs else 4 * bufs * k * chunk)
+
+
+_PFB_WALK_PER_SM = 2         # the walk's resident blocks an SM (its __launch_bounds__)
+_PFB_WALK_STAGES = 3         # its ring (kWalkStages): the tile read, the one before, one ahead
+_PFB_WALK_R = 8              # its rows a thread (kWalkR)
+
+
+def _pfb_walk_smem(n: int, k: int, rows: int, pitch: int, tw_staged_len: int) -> int:
+    """Bytes of the "walk" layout: the ring's mbarriers (16-byte aligned),
+    its slots of ``k − 1 + rows`` rows of ``n`` samples, the v rows, the
+    Stockham buffer and the staged twiddles."""
+    S = _PFB_WALK_STAGES
+    return 16 * -(-S // 2) + 8 * (S * (k - 1 + rows) * n + 2 * rows * pitch + tw_staged_len)
+
+
+def _pfb_walks(plan: PfbPlan, n: int, k: int) -> bool:
+    """Can a window plan take the walk? One chunk of an even ``n`` (a row
+    is whole 16-byte words), 256 threads, R = 8, the taps in registers, the
+    halo (``k − 1`` rows) inside one tile, and two Stockham passes whose
+    last one's butterflies fit half the block, which runs them beside the
+    next tile's MAC on the other half (PFB-64: 32 rows × 4; N = 32 too; N =
+    128 too, but two of its blocks do not fit an SM: :func:`_pfb_walk`)."""
+    return (plan.window and plan.chunk == n and n % 2 == 0 and plan.threads == 256
+            and plan.outs == _PFB_WALK_R and bool(plan.k_regs) and k - 1 <= plan.rows
+            and len(plan.radices) == 2 and plan.groups % 2 == 0
+            and plan.rows * (n // plan.radices[-1]) <= plan.threads // 2)
+
+
+def _pfb_walk(plan: PfbPlan, n: int, k: int, n_sm: int) -> Optional[PfbPlan]:
+    """``plan`` as the walk, 2 resident blocks an SM, or None where two of
+    its blocks do not fit an SM's shared memory (228 KB, 1 KB of it kept a
+    block)."""
+    walk = plan._replace(blocks=_PFB_WALK_PER_SM * n_sm, smem=_pfb_walk_smem(
+        n, k, plan.rows, plan.pitch, plan.tw_len if plan.tw_staged else 0))
+    return walk if _PFB_WALK_PER_SM * (walk.smem + 1024) <= _SM_SMEM else None
 
 
 @functools.lru_cache(maxsize=1024)
@@ -917,21 +955,31 @@ def _pfb_rule(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
 def _pfb_same_values(plan: PfbPlan, row: PfbPlan) -> bool:
     """Does ``plan`` compute every output's bits as ``row`` does? The layout
     (window or v) and the radices fix them; R, the tile, the pad, the taps'
-    place and the staging of the twiddles only cut the work among threads."""
+    place, the staging of the twiddles and the walk (a window layout whose
+    blocks walk the tiles, staging each row once) only cut the work among
+    threads."""
     return (plan.window, plan.radices) == (row.window, row.radices)
 
 
 @functools.lru_cache(maxsize=1024)
 def _pfb_lanes_rule(L: int, row: PfbPlan, n: int, k: int, t: int,
-                    n_sm: int = 132) -> PfbPlan:
+                    n_sm: int = 132, aligned: bool = True) -> PfbPlan:
     """The lane form's plan for ``L`` streams of ``t`` rows whose one-stream
     plan is ``row``: :func:`_pfb_rule` at the batch's ``L·t`` rows, which picks
     R and the tile so that the batch, not one stream, fills the card (PFB-64 at
-    64 × 512 rows: R = 8, 1,024 blocks, where one stream's 512 rows take R = 1),
-    where it keeps ``row``'s layout and radices; else ``row`` (the v layout,
-    one row a block, has nothing to choose)."""
+    64 × 512 rows: R = 8, 32 rows a tile, where one stream's 512 rows take R =
+    1), where it keeps ``row``'s layout and radices; else ``row`` (the v
+    layout, one row a block, has nothing to choose). Where that window plan
+    walks (:func:`_pfb_walks`) and every lane's rows of hist and x start
+    16-byte aligned (``aligned``), the walk: 2 resident blocks an SM over a
+    ring of 3 slots (PFB-64 at both served shapes); else a block a tile (N
+    above 256, other taps than 12, one pass, a misaligned lane stride, a
+    batch whose rule keeps R below 8)."""
     rule = _pfb_rule(n, k, L * t, n_sm)
-    return rule if _pfb_same_values(rule, row) else row
+    if not _pfb_same_values(rule, row):
+        return row
+    walk = _pfb_walk(rule, n, k, n_sm) if aligned and _pfb_walks(rule, n, k) else None
+    return walk or rule
 
 
 ROTATOR_TILE = 512   # samples a block of csrc/rotator.cu takes: 256 threads, one
@@ -1056,11 +1104,17 @@ def plan_candidates(kernel: str, *shape) -> list:
         out = [_poly_fir_lanes_rule(L, row, m, D, I, nq, bool(cplx), n_sm), row] + \
             _poly_fir_layouts(L, row, m, D, I, nq, bool(cplx), n_sm)
     elif kernel == "pfb_lanes":
-        # the one-stream layouts that compute a lane's bits as the rule's plan
+        # the one-stream layouts that compute a lane's bits as the rule's
+        # plan, then the walk of each padded, staged one of them that takes
+        # it and fits
         L, n, k, t, n_sm = shape
         row = _pfb_rule(n, k, t, n_sm)
-        out = [_pfb_lanes_rule(L, row, n, k, t, n_sm)] + [
-            p for p in plan_candidates("pfb", n, k, t, n_sm) if _pfb_same_values(p, row)]
+        rule = _pfb_lanes_rule(L, row, n, k, t, n_sm)
+        same = [p for p in plan_candidates("pfb", n, k, t, n_sm) if _pfb_same_values(p, row)]
+        out = [rule] + same
+        for p in same:
+            if p.tw_staged and p.pad_shift != _NO_PAD and _pfb_walks(p, n, k):
+                out += [w] if (w := _pfb_walk(p, n, k, n_sm)) else []
     elif kernel == "rotator":
         out = [_ROTATOR_PLAN]
     elif kernel == "quad_demod":
@@ -1190,17 +1244,19 @@ def pfb_plan(n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
     return _tuned_plan("pfb", (n, k, t, n_sm)) or _pfb_rule(n, k, t, n_sm)
 
 
-def pfb_lanes_plan(L: int, n: int, k: int, t: int, n_sm: int = 132) -> PfbPlan:
+def pfb_lanes_plan(L: int, n: int, k: int, t: int, n_sm: int = 132,
+                   aligned: bool = True) -> PfbPlan:
     """The ``pfb_lanes`` plan of ``L`` streams of ``t`` rows: the tuned
     table's where it computes a lane's bits as the one-stream plan at ``t``
     does (:func:`pfb_plan`, which the bare chain launches: the same layout and
     radices), else :func:`_pfb_lanes_rule` on that plan, so a served lane stays
-    bit-equal to the bare chain whatever either table holds."""
+    bit-equal to the bare chain whatever either table holds. ``aligned``:
+    every lane's rows of hist and x start 16-byte aligned (else no walk)."""
     row = pfb_plan(n, k, t, n_sm)
     tuned = _tuned_plan("pfb_lanes", (L, n, k, t, n_sm))
-    if tuned is not None and _pfb_same_values(tuned, row):
+    if tuned is not None and _pfb_same_values(tuned, row) and (aligned or not tuned.blocks):
         return tuned
-    return _pfb_lanes_rule(L, row, n, k, t, n_sm)
+    return _pfb_lanes_rule(L, row, n, k, t, n_sm, aligned)
 
 
 def _stream_head(x: torch.Tensor) -> int:
@@ -1534,7 +1590,7 @@ def _pfb_consts(plan: PfbPlan, n: int, device: torch.device) -> tuple:
     tw = _fft_table(n, plan.radices, device)
     ints = (int(plan.window), plan.threads, plan.chunk, plan.groups, plan.outs, plan.k_regs,
             plan.pitch, plan.pad_shift, int(plan.tw_staged), plan.tw_len, len(plan.radices),
-            *plan.radices)
+            plan.blocks, *plan.radices)
     return tw, _c_ints(ints)
 
 
@@ -1885,6 +1941,7 @@ def rotator_lanes(x: torch.Tensor, ph0: torch.Tensor,
                                      y.data_ptr(), ph_next.data_ptr(), n, head, L,
                                      x.stride(0), _stream(x))
     _raise_on(err, "rotator_lanes")
+    last_plans["rotator_lanes"] = _ROTATOR_PLAN
     _count("rotator_lanes")
     return y, ph_next
 
@@ -1978,7 +2035,10 @@ def pfb_lanes(hist: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     _check_rows(hist, x)
     if taps.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {taps.device}")
-    plan = plan or pfb_lanes_plan(L, N, K, t, _sm_count(x.device))
+    # the walk's bulk copies need every lane's rows of hist and x 16-byte aligned
+    aligned = x.data_ptr() % 16 == 0 and hist.data_ptr() % 16 == 0 and \
+        (L < 2 or x.stride(0) % 2 == 0 and hist.stride(0) % 2 == 0)
+    plan = plan or pfb_lanes_plan(L, N, K, t, _sm_count(x.device), aligned)
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"pfb_lanes: N={N} needs {plan.smem} B of shared memory per "
                          f"block for its v row, over the card's {_MAX_SMEM} B")

@@ -1799,6 +1799,72 @@ def test_served_channelizer_bit_equals_bare_pipeline_on_card(cuda_device):
             np.testing.assert_array_equal(got, y.cpu().numpy())
 
 
+# (L, t, n_sm, mode) of the pfb walk on the card: the served shapes under
+# the rule's plan (n_sm 0: the card's), runs of many tiles crossing lanes (a
+# few resident blocks), ragged batches whose runs start inside a lane and
+# whose last block holds fewer tiles, bf16 with bf16 taps, one prototype
+# shared
+_PFB_WALKS = {"64 x 2^15": (64, 512, 0, "f32"), "16 x 2^18": (16, 4096, 0, "f32"),
+              "64 x 2^15 bf16": (64, 512, 0, "bf16"), "64 x 2^15 shared": (64, 512, 0, "shared"),
+              "long runs": (7, 512, 3, "f32"), "ragged": (5, 37, 3, "f32"),
+              "part-filled tiles end runs": (5, 100, 2, "f32"), "ragged bf16": (9, 70, 3, "bf16")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_PFB_WALKS))
+def test_pfb_lanes_walk_equals_one_stream_launches_on_card(cuda_device, case):
+    """Every lane of the walk (PFB-64) equals the one-stream ``pfb`` launch
+    on its row bit for bit, one ``pfb_lanes`` launch and no ``pfb`` in all,
+    the plan that ran recorded; f32 within 1e-5 of the lane plain version,
+    bf16 at the one-stream kernel's SNR."""
+    L, t, n_sm, mode = _PFB_WALKS[case]
+    N, K = 64, 12
+    prec = "bf16" if mode == "bf16" else None
+    hist, x, taps = _pfb_lanes_args(cuda_device, L, N, K, t, L + t, shared=mode == "shared",
+                                    bf16=mode == "bf16")
+    if n_sm:
+        plan = ck._pfb_walk(ck._pfb_rule(N, K, L * t, n_sm), N, K, n_sm)
+    else:
+        plan = ck.pfb_lanes_plan(L, N, K, t, ck._sm_count(cuda_device))
+    assert plan.blocks
+    before = dict(ck.launches)
+    got = ck.pfb_lanes(hist, x, taps, prec, plan=None if not n_sm else plan)
+    torch.cuda.synchronize()
+    assert ck.last_plans["pfb_lanes"] == plan
+    assert ck.launches["pfb_lanes"] == before["pfb_lanes"] + 1
+    assert ck.launches["pfb"] == before["pfb"]
+    per = torch.stack([ck.pfb(hist[i], x[i], taps[i], prec) for i in range(L)])
+    torch.cuda.synchronize()
+    assert got.shape == per.shape == (L, t, N) and torch.equal(got, per)
+    ref = ck.pfb_lanes_plain(hist, x, taps, prec)
+    if prec:
+        assert _snr_db(got, ref) >= PFB_BF16_SNR
+    else:
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_pfb_lanes_walk_refuses_a_misaligned_lane_on_card(cuda_device):
+    """A walk plan on rows that do not start 16-byte aligned is refused with
+    cudaErrorInvalidValue and counts nothing; the rule takes the window
+    layout for them, bit-equal to the one-stream launches."""
+    L, N, K, t = 4, 64, 12, 64
+    hist, x, taps = _pfb_lanes_args(cuda_device, L, N, K, t, 3)
+    buf = torch.empty(L * t * N + 1, dtype=torch.complex64, device=cuda_device)
+    xm = buf[1:].view(L, t * N)
+    xm.copy_(x)
+    walk = ck._pfb_walk(ck._pfb_rule(N, K, L * t, 2), N, K, 2)
+    before = dict(ck.launches)
+    with pytest.raises(RuntimeError, match="pfb_lanes"):
+        ck.pfb_lanes(hist, xm, taps, plan=walk)
+    assert ck.launches == before
+    got = ck.pfb_lanes(hist, xm, taps)
+    assert not ck.last_plans["pfb_lanes"].blocks
+    per = torch.stack([ck.pfb(hist[i], x[i], taps[i]) for i in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, per)
+
+
 @pytest.mark.gpu
 def test_lane_fir_refuses_unaligned_rows_on_card(cuda_device):
     x = torch.zeros(2, 511, dtype=torch.complex64, device=cuda_device)

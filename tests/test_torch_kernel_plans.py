@@ -709,6 +709,29 @@ def _pfb_idft_twin(s_v, w_len, plan, n):
     return y
 
 
+def _pfb_window_mac(stage, w, plan, bf16):
+    """The window layout's MAC on one chunk of all ``N`` channels: ``stage``
+    [blocks, span, N] the staged rows (channel c in column c), ``w`` [K, N]
+    the taps; thread (g, c) walks its R rows' window down (row g·R + jj feeds
+    output r through tap r + K − 1 − jj, jj descending); returns the padded
+    v rows [blocks, rows·pitch]."""
+    K, N = w.shape
+    R, pitch, psh = plan.outs, plan.pitch, plan.pad_shift
+    c = torch.arange(N)
+    s_v = torch.zeros(stage.shape[0], plan.rows * pitch, dtype=torch.complex64)
+    for g in range(plan.groups):
+        acc = [torch.zeros(stage.shape[0], N, dtype=torch.complex64) for _ in range(R)]
+        for jj in range(R + K - 2, -1, -1):
+            v = stage[:, g * R + jj]
+            for rr in range(R):
+                kk = rr + K - 1 - jj
+                if 0 <= kk < K:
+                    acc[rr] = acc[rr] + w[kk] * v
+        for rr in range(R):
+            s_v[:, (g * R + rr) * pitch + _skew(c, psh)] = _prep(acc[rr], bf16)
+    return s_v
+
+
 def _pfb_twin(hist, x, taps, plan, bf16=False):
     """``csrc/pfb.cu``'s "window" layout: per block and chunk of channels
     the staged rows (reversed columns, zero past the frame) in a staging
@@ -1066,7 +1089,6 @@ def test_quad_demod_walk_matches_plain(n):
     ref, ref_last = ck.quad_demod_plain(prev, x, gain)
     assert _wrapped_err(y, ref, gain) <= 1e-5, n
     assert last.item() == ref_last.item() == x[-1].item()
-
 
 
 def _pfb_v_twin(hist, x, taps, plan):
@@ -1541,6 +1563,81 @@ def test_quad_demod_lanes_walk_matches_plain(n):
 # the lane form of pfb
 # ---------------------------------------------------------------------------
 
+def _pfb_walk_twin(hist, x, taps, plan, bf16=False):
+    """``csrc/pfb.cu``'s "walk": ``min(blocks, L·tiles)`` blocks, block b
+    walking the (lane, tile) pairs from ``total·b // B`` to ``total·(b+1) //
+    B`` in order; a ring of 3 slots of ``K − 1`` halo rows and ``rows``
+    tile rows (stale slots hold NaN), filled 2 tiles ahead and refilled after the MAC of the tile after the slot's: a lane's
+    first tile takes hist into its halo rows, a run's first tile inside a lane
+    its halo rows of x with its span, every other tile its span alone, its
+    halo read from the previous slot's last rows; channel c read at column
+    ``N − 1 − c``. Asserts each tile finds its own rows in its slot and the
+    previous tile's in the previous one. Each tile's window then goes through
+    the window layout's MAC (on half the block: half the row groups, 2R rows
+    a thread) and IDFT, a lane's tiles as one batch (as :func:`_pfb_twin`
+    batches them); every output written once."""
+    L, K, N = taps.shape
+    t = x.shape[1] // N
+    tr, S = plan.rows, ck._PFB_WALK_STAGES
+    assert plan.blocks > 0 and ck._pfb_walks(plan, N, K)
+    tw_staged = plan.tw_len if plan.tw_staged else 0
+    assert ck._pfb_walk_smem(N, K, tr, plan.pitch, tw_staged) == plan.smem
+    # the MAC on the block's second half: half the row groups, 2R rows a thread
+    mac_plan = plan._replace(groups=plan.groups // 2, outs=2 * plan.outs)
+    tiles = -(-t // tr)
+    total = L * tiles
+    blocks = min(plan.blocks, total)
+    span = tr + K - 1
+    stale = torch.full((span, N), complex("nan"), dtype=torch.complex64)
+    windows = torch.zeros(L, tiles, span, N, dtype=torch.complex64)
+    seen = torch.zeros(L, tiles, dtype=torch.int64)
+    for b in range(blocks):
+        q0, q1 = total * b // blocks, total * (b + 1) // blocks
+        ring = [stale.clone() for _ in range(S)]
+        held = [None] * S
+
+        def issue(q):
+            lane, s0 = q // tiles, (q % tiles) * tr
+            rows, slot = min(tr, t - s0), (q - q0) % S
+            ring[slot] = stale.clone()
+            xl = x[lane]
+            if s0 == 0:
+                ring[slot][:K - 1] = hist[lane].view(K - 1, N)
+                ring[slot][K - 1:K - 1 + rows] = xl[:rows * N].view(rows, N)
+            elif q == q0:
+                ring[slot][:K - 1 + rows] = xl[(s0 - K + 1) * N:(s0 + rows) * N].view(-1, N)
+            else:
+                ring[slot][K - 1:K - 1 + rows] = xl[s0 * N:(s0 + rows) * N].view(rows, N)
+            held[slot] = q
+
+        for q in range(q0, min(q1, q0 + S - 1)):
+            issue(q)
+        for q in range(q0, q1):
+            j, lane, tau = q - q0, q // tiles, q % tiles
+            assert held[j % S] == q, "a tile's slot does not hold its rows"
+            own = tau == 0 or q == q0
+            if not own:
+                assert held[(j - 1) % S] == q - 1, "the halo's slot was refilled"
+            cur, prev = ring[j % S], ring[(j - 1) % S]
+            win = torch.stack([prev[tr + w] if (w < K - 1 and not own) else cur[w]
+                               for w in range(span)])
+            windows[lane, tau] = win.flip(1)           # channel c: column N - 1 - c
+            seen[lane, tau] += 1
+            if q + S - 1 < q1:
+                issue(q + S - 1)                       # after the MAC's last read
+    assert torch.equal(seen, torch.ones_like(seen)), "a tile walked twice or never"
+    store = torch.empty(0, dtype=taps.dtype).set_(taps.untyped_storage())
+    sl, sk, sn = taps.stride()
+    kk, c = torch.arange(K)[:, None], torch.arange(N)[None, :]
+    y = torch.zeros(L, tiles * tr, N, dtype=torch.complex64)
+    for lane in range(L):
+        w = _prep(store[taps.storage_offset() + lane * sl + kk * sk + c * sn].to(torch.float32),
+                  bf16)
+        s_v = _pfb_window_mac(_prep(windows[lane], bf16), w, mac_plan, bf16)
+        y[lane] = _pfb_idft_twin(s_v, tr * plan.pitch, plan, N).reshape(-1, N)
+    return y[:, :t]
+
+
 def _pfb_lanes_twin(hist, x, taps, plan, bf16=False):
     """``csrc/pfb.cu``'s lane form: grid y is the lane, whose blocks move
     hist, x, the taps and y to its rows by their strides (the taps' 0 where
@@ -1551,6 +1648,8 @@ def _pfb_lanes_twin(hist, x, taps, plan, bf16=False):
     once, into its own lane's rows."""
     L, K, N = taps.shape
     t = x.shape[1] // N
+    if plan.blocks:
+        return _pfb_walk_twin(hist, x, taps, plan, bf16)
     store = torch.empty(0, dtype=taps.dtype).set_(taps.untyped_storage())
     sl, sk, sn = taps.stride()
     kk, c = torch.arange(K)[:, None], torch.arange(N)[None, :]
@@ -1627,3 +1726,86 @@ def test_pfb_lanes_twin_takes_the_v_layout_and_bf16_taps():
             acc = acc + w[k, :, None] * rows[K - 1 - k:K - 1 - k + t]
         ref = torch.fft.ifft(torch.view_as_complex(ck._bf16(acc).contiguous()), dim=1) * N
         assert _rel(got[lane], ref) <= 1e-5
+
+
+# (L, N, K, t, n_sm): the served shapes cut to a few lanes (runs of many
+# tiles: n_sm 3 gives 6 resident blocks), ragged rows (runs starting inside a
+# lane, a part-filled last tile; long runs of 5 on 2 blocks; a run's last
+# tile part-filled, the next run starting on a lane's first), and the other
+# channel count the walk takes (N = 32: radices 2 x 16, 64 rows a tile), in
+# one tile a lane and ragged
+_PFB_WALK_CASES = {"64 x 2^15 cut": (3, 64, 12, 512, 3),
+                   "16 x 2^18 cut": (2, 64, 12, 4096, 3),
+                   "ragged": (5, 64, 12, 37, 3), "ragged on 2 blocks": (5, 64, 12, 37, 1),
+                   "part-filled tile ends a run": (3, 64, 12, 100, 2),
+                   "N=32": (3, 32, 12, 300, 3), "N=32 ragged": (5, 32, 12, 150, 2)}
+
+
+def _pfb_walk_plan(L, N, K, t, n_sm):
+    rule = ck._pfb_rule(N, K, L * t, n_sm)
+    assert ck._pfb_walks(rule, N, K), rule
+    return ck._pfb_walk(rule, N, K, n_sm)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "shared"])
+@pytest.mark.parametrize("case", list(_PFB_WALK_CASES))
+def test_pfb_walk_equals_window_layout(case, mode):
+    """The walk's tiling (each block's run of (lane, tile) pairs, the ring's
+    slots and halo rows, the reversed read, the MAC on half the block at 2R
+    rows a thread) gives each lane the window layout's values at the same
+    rows a tile bit for bit, in f32, in bf16 mode with bf16 taps and with one
+    prototype shared (stride 0); f32 within 1e-5 of the lane plain version's
+    peak."""
+    L, N, K, t, n_sm = _PFB_WALK_CASES[case]
+    hist, x, taps = _pfb_lanes_case(L, N, K, t, L + N + t, shared=mode == "shared",
+                                    taps_bf16=mode == "bf16")
+    plan = _pfb_walk_plan(L, N, K, t, n_sm)
+    window = plan._replace(blocks=0, smem=ck._pfb_smem(
+        N, K, plan.rows, plan.chunk, len(plan.radices), plan.pitch,
+        plan.tw_len if plan.tw_staged else 0, plan.k_regs))
+    bf16 = mode == "bf16"
+    got = _pfb_walk_twin(hist, x, taps, plan, bf16)
+    assert torch.equal(got, _pfb_lanes_twin(hist, x, taps, window, bf16))
+    if not bf16:
+        assert _rel(got, ck.pfb_lanes_plain(hist, x, taps)) <= 1e-5
+
+
+@pytest.mark.parametrize("case,walks", [
+    ("64 x 2^15", True), ("16 x 2^18", True), ("one lane of 2^21", True),
+    ("misaligned", False), ("N=2048", False), ("v layout", False), ("K=40", False),
+    ("N=25", False), ("3 x 37", False), ("N=16", False), ("K=4", False), ("N=128", False)])
+def test_pfb_lanes_plan_walks_where_it_applies(case, walks):
+    """The walk for the served PFB-64 batches (2 blocks an SM, R = 8)
+    and one long lane; today's window layout for a misaligned lane stride,
+    N above one chunk, the v layout, a halo longer than the tile, an odd N,
+    a batch whose rule keeps R = 1, one Stockham pass (N = 16), taps out of
+    registers (K = 4) and a walk two of whose blocks would not fit an SM's
+    shared memory (N = 128: 118,808 B a block); a tuned walk is passed over for a misaligned
+    batch."""
+    L, N, K, t, aligned = {"64 x 2^15": (64, 64, 12, 512, True),
+                           "16 x 2^18": (16, 64, 12, 4096, True),
+                           "one lane of 2^21": (1, 64, 12, 1 << 15, True),
+                           "misaligned": (64, 64, 12, 512, False),
+                           "N=2048": (16, 2048, 12, 128, True),
+                           "v layout": (3, 16384, 12, 4, True),
+                           "K=40": (64, 64, 40, 512, True), "N=25": (64, 25, 12, 512, True),
+                           "3 x 37": (3, 64, 12, 37, True), "N=16": (64, 16, 12, 2048, True),
+                           "K=4": (64, 64, 4, 512, True),
+                           "N=128": (64, 128, 12, 512, True)}[case]
+    plan = ck.pfb_lanes_plan(L, N, K, t, 132, aligned)
+    assert bool(plan.blocks) == walks, plan
+    assert ck._pfb_same_values(plan, ck.pfb_plan(N, K, t, 132))
+    if walks:
+        assert (plan.blocks, plan.outs) == (264, 8)
+        assert plan == ck._pfb_walk(plan, N, K, 132) and plan in ck.plan_candidates(
+            "pfb_lanes", L, N, K, t, 132)
+    elif case == "misaligned":
+        walk = ck.pfb_lanes_plan(L, N, K, t, 132, True)
+        ck.set_tuned_plans({"pfb_lanes": {(L, N, K, t, 132): walk}})
+        try:
+            assert ck.pfb_lanes_plan(L, N, K, t, 132, True) == walk
+            assert not ck.pfb_lanes_plan(L, N, K, t, 132, False).blocks
+        finally:
+            ck.set_tuned_plans(None)
+    if case == "v layout":
+        assert not plan.window
