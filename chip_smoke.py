@@ -1579,8 +1579,10 @@ def fm_kernel_timings(dev, f: int, empty_lib) -> dict:
                for h, x in res_args]
     # yardsticks, timed here only and never called by the port: a kernel with
     # no body on the kernel's grid (256 threads a block, one block a tile),
-    # and a PyTorch copy of the kernel's bytes (the complex frame; the demod's
-    # real plane into float32)
+    # and a copy of the kernel's bytes: for the rotator PyTorch's copy of the
+    # complex frame, for the demod copy_ms of its bytes (8 n + 8 in, 4 n + 8
+    # out), beside PyTorch's strided copy of the real plane into float32
+    # (the demod's yardstick before, kept to bridge the two)
     def empty(tile, n):
         def launch(*args):
             ck._raise_on(empty_lib.fsdr_empty(-(-n // tile), 256, ck._stream(args[-1])),
@@ -1631,6 +1633,9 @@ def fm_kernel_timings(dev, f: int, empty_lib) -> dict:
             empty, copy, copy_args = yard[name]
             out[name].update(empty_ms=device_ms(empty, args),
                              copy_ms=device_ms(copy, copy_args))
+        if name == "quad_demod":
+            out[name].update(strided_copy_ms=out[name]["copy_ms"],
+                             copy_ms=copy_ms(empty_lib, dev, 8 * n4 + 8, 4 * n4 + 8))
     ch, rs = out.pop("poly_fir/channel"), out.pop("poly_fir/resampler")
     out["poly_fir"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "library_ms",
                                                    "bound_ms")}
@@ -4483,16 +4488,18 @@ def phase_serve_lanes(dev) -> dict:
                 _, rel = rel_err(y, ck.poly_fir_lanes_plain(hist, x, W))
                 check(rel <= TOL["poly_fir"], f"{what}: {rel:.2e} from its plain version")
                 worst["poly_fir_lanes"] = max(worst["poly_fir_lanes"], rel)
-        x, prev = rc(L, n4), rc(L)
-        y, last = ck.quad_demod_lanes(prev, x, FM_GAIN)
-        per = [ck.quad_demod(prev[i], x[i], FM_GAIN) for i in range(L)]
-        check(torch.equal(y, torch.stack([p[0] for p in per])) and
-              torch.equal(last, torch.stack([p[1] for p in per])),
-              f"quad_demod_lanes L={L}: a lane differs from the one-stream launch")
-        err = demod_err(y, ck.quad_demod_lanes_plain(prev, x, FM_GAIN)[0])
-        check(err <= TOL["quad_demod"], f"quad_demod_lanes L={L}: {err:.2e} from its "
-                                        f"plain version")
-        worst["quad_demod_lanes"] = max(worst["quad_demod_lanes"], err)
+        # the served layout (contiguous rows) and rows a stride apart
+        prev = rc(L)
+        for x in (rc(L, n4), rc(L, n4 + 2)[:, :n4]):
+            y, last = ck.quad_demod_lanes(prev, x, FM_GAIN)
+            what = f"quad_demod_lanes L={L} rows {x.stride(0)} apart"
+            per = [ck.quad_demod(prev[i], x[i], FM_GAIN) for i in range(L)]
+            check(torch.equal(y, torch.stack([p[0] for p in per])) and
+                  torch.equal(last, torch.stack([p[1] for p in per])),
+                  f"{what}: a lane differs from the one-stream launch")
+            err = demod_err(y, ck.quad_demod_lanes_plain(prev, x, FM_GAIN)[0])
+            check(err <= TOL["quad_demod"], f"{what}: {err:.2e} from its plain version")
+            worst["quad_demod_lanes"] = max(worst["quad_demod_lanes"], err)
     worst["pfb_lanes"] = pfb_lane_cases(dev, gen)
     torch.cuda.synchronize()
     print(f"phase 28 (a): lane forms at L = {LANES} (shared taps at L = "
@@ -5285,10 +5292,13 @@ def fm_lane_timings(dev, empty_lib, L: int = FM_SERVE_LANES[-1]) -> dict:
     def empty(p, x):
         ck._raise_on(empty_lib.fsdr_empty(grid, 256, ck._stream(x)), "empty")
 
+    # a copy of its bytes (8 n + 8 in, 4 n + 8 out a lane), and PyTorch's
+    # strided copy of the real plane, the yardstick before, to bridge the two
     out["quad_demod_lanes"].update(
         empty_ms=device_ms(empty, dem),
-        copy_ms=device_ms(lambda x, y: y.copy_(x.real),
-                          [(x, torch.empty(L, n4, device=dev)) for _, x in dem]))
+        copy_ms=copy_ms(empty_lib, dev, L * (8 * n4 + 8), L * (4 * n4 + 8)),
+        strided_copy_ms=device_ms(lambda x, y: y.copy_(x.real),
+                                  [(x, torch.empty(L, n4, device=dev)) for _, x in dem]))
     ch, rs = out.pop("channel"), out.pop("resampler")
     out["poly_fir_lanes"] = {k: ch[k] + rs[k] for k in ("ms", "plain_ms", "per_lane_ms",
                                                          "library_ms", "bound_ms", "copy_ms")}
@@ -5397,7 +5407,8 @@ def phase_serving(dev, taps, card_line, empty_lib) -> dict:
         for name, n, t in rows:
             lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
             yard = "".join(f", {what} {t[k]:.4f} ms" for k, what in (
-                ("empty_ms", "empty launch"), ("copy_ms", "copy of its bytes")) if k in t)
+                ("empty_ms", "empty launch"), ("copy_ms", "copy of its bytes"),
+                ("strided_copy_ms", "strided copy")) if k in t)
             yard += f", plan {tuple(t['plan'])}" if "plan" in t else ""
             print(f"timing {name} L={L} n={n}: kernel {t['ms']:.4f} ms, per-lane route "
                   f"{t['per_lane_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
@@ -8441,6 +8452,7 @@ def main(argv=None) -> int:
         before = "" if before is None else f" (PERF.md before: {before:.4f} ms)"
         yard = "" if "copy_ms" not in v else (
             f", empty launch {v['empty_ms']:.4f} ms, copy of its bytes {v['copy_ms']:.4f} ms")
+        yard += f", strided copy {v['strided_copy_ms']:.4f} ms" if "strided_copy_ms" in v else ""
         print(f"timing {k} n={f}: kernel {v['ms']:.4f} ms{before}, plain "
               f"{v['plain_ms']:.4f} ms, library {lib}, bound {v['bound_ms']:.4f} ms "
               f"({v['bound_by']}){yard} [{card_line}]")
@@ -8457,7 +8469,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(worst[k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{y: t[y] for y in ("empty_ms", "copy_ms") if y in t}})
+            **{y: t[y] for y in ("empty_ms", "copy_ms", "strided_copy_ms") if y in t}})
     for k in LANE_KERNELS:
         t = serving["timings"][(k, *LANE_LINE_SHAPE[k])]
         line["kernels"].append({
@@ -8468,7 +8480,8 @@ def main(argv=None) -> int:
             "max_abs_err": max(serving["worst"][k], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{y: t[y] for y in ("per_lane_ms", "copy_ms", "empty_ms", "calls") if y in t},
+            **{y: t[y] for y in ("per_lane_ms", "copy_ms", "strided_copy_ms", "empty_ms",
+                                 "calls") if y in t},
             **({"plan": repr(t["plan"])} if "plan" in t else {}),
             **({"launches_by_shape": serving["by_shape"][k]} if k in serving["by_shape"]
                else {})})

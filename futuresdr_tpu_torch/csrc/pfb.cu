@@ -82,6 +82,22 @@
 
 #include "common.cuh"
 
+// The breakdown's cuts (port_lanes.py --breakdown): a build with
+// -DFSDR_CUT_<PHASE> runs one phase of a tile alone. STAGE: the copies and
+// their wait, then the block moves on; MAC: no copy is made, the taps' loads
+// and the MAC run on whatever shared memory holds, no IDFT; IDFT: no copy, no
+// MAC, the passes run with the last one writing shared memory; STORE: no copy,
+// no MAC, no arithmetic pass, the last pass's stores of shared memory to y. A
+// part left out hangs on a test that never holds at run time (k < 0, n < 0)
+// but that the compiler cannot fold, so the phase kept runs as it does whole.
+// With none defined the kernels compile as they would without these lines.
+#if defined(FSDR_CUT_MAC) || defined(FSDR_CUT_IDFT) || defined(FSDR_CUT_STORE)
+#define PFB_CUT_COPY 1
+#endif
+#if defined(FSDR_CUT_IDFT) || defined(FSDR_CUT_STORE)
+#define PFB_CUT_MAC 1
+#endif
+
 namespace {
 
 using fsdr::skew;
@@ -199,8 +215,17 @@ __device__ __forceinline__ void idft_pass(const float2* src, float2* dst, float2
     const int j = b & (nb - 1);
     if (LAST) {
       if (s0 + row < t) {
+#ifdef FSDR_CUT_STORE
+        const int kq = j & (ns - 1);
+#pragma unroll
+        for (int q = 0; q < RX; ++q) {
+          y[(s0 + row) * n + (j - kq) * RX + kq + q * ns] =
+              src[row * pitch + skew(j + q * nb, psh)];
+        }
+#else
         fsdr::stockham_bfly<RX, true, false>(src + row * pitch, y + (s0 + row) * n, psh,
                                              tw, j, nb, ns);
+#endif
       }
     } else {
       fsdr::stockham_bfly<RX, true, true>(src + row * pitch, dst + row * pitch, psh, tw,
@@ -261,7 +286,11 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
   auto stage = [&](int ch) {
     float2* buf = s_w + (ch & 1) * span * chunk;
     const int c = ch * chunk + cc;
+#ifdef PFB_CUT_COPY
+    if (active && k < 0) {
+#else
     if (active) {
+#endif
       for (int r = g; r < span; r += groups) {
         float2* d = buf + r * chunk + cc;
         const long long e = (s0 + r) * n + (n - 1 - c);
@@ -315,7 +344,14 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
       }
     }
     __syncthreads();
+#if defined(FSDR_CUT_STAGE)
+    if (k > 0) return;
+#endif
+#ifdef PFB_CUT_MAC
+    if (active && c < n && k < 0) {
+#else
     if (active && c < n) {
+#endif
       // v[g R + r, c] = sum_kk taps[kk, c] * rows[g R + r + K - 1 - kk, c]: row
       // g R + jj of the window feeds output r through tap kk = r + K - 1 - jj;
       // jj descends, so each output sums its taps in ascending kk (the plain
@@ -356,6 +392,9 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
     }
     __syncthreads();                               // before buffer ch & 1 is staged again
   }
+#if defined(FSDR_CUT_MAC)
+  if (k > 0) return;
+#endif
 
   const float2* tw = tw_staged_len ? s_tw : tw_g;
   if (n_pass > 0) {
@@ -367,9 +406,15 @@ pfb_window_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
     for (int p = 0; p < n_pass; ++p) {
       const int code = (radix_codes >> (2 * p)) & 3;
       if (p == n_pass - 1) {
-        idft_pass_radix<true>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
-      } else {
+#if defined(FSDR_CUT_IDFT)
         idft_pass_radix<false>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
+#else
+        idft_pass_radix<true>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
+#endif
+      } else {
+#if !defined(FSDR_CUT_STORE)
+        idft_pass_radix<false>(code, src, dst, y, s0, t, tr, n, pitch, psh, tw + tw_off, ns);
+#endif
         __syncthreads();
         float2* tmp = src;
         src = dst;
@@ -501,6 +546,9 @@ pfb_walk_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
   // rows before it at the run's first tile), the bytes counted on the slot's
   // barrier before the copies go out
   auto issue = [&](long long q) {
+#ifdef PFB_CUT_COPY
+    if (n > 0) return;
+#endif
     const long long j = q - q0;
     const long long lane = q / tiles;
     const long long s0 = (q - lane * tiles) * tr;
@@ -543,11 +591,20 @@ pfb_walk_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
         tp[kk] = round_if(tap_at(tl, taps_bf16, kk * tap_sk + c * tap_sn), BF16);
       }
     }
+#ifdef PFB_CUT_COPY
+    if (n < 0)
+#endif
     mbar_wait(bars + j % kWalkStages, static_cast<unsigned>((j / kWalkStages) & 1));
+#if defined(FSDR_CUT_STAGE)
+    if (n > 0) return;
+#endif
     const float2* cur = ring + (j % kWalkStages) * span * n + (n - 1 - c);
     const float2* prev =
         ring + ((j + kWalkStages - 1) % kWalkStages) * span * n + tr * n + (n - 1 - c);
     const int top = s0 == 0 || q == q0 ? 0 : k - 1;    // rows below `top` from prev
+#ifdef PFB_CUT_MAC
+    if (n > 0) return;
+#endif
     walk_mac<2 * kWalkR, BF16>(cur, prev, top, g * 2 * kWalkR, n, tp, s_v, pitch, psh, c);
   };
 
@@ -559,11 +616,23 @@ pfb_walk_kernel(const float2* __restrict__ hist, const float2* __restrict__ x,
     const long long lane = q / tiles;
     const long long s0 = (q - lane * tiles) * tr;
     if (threadIdx.x == 0 && q + kWalkStages - 1 < q1) issue(q + kWalkStages - 1);
+#if defined(FSDR_CUT_STAGE) || defined(FSDR_CUT_MAC) || defined(FSDR_CUT_STORE)
+    if (n < 0)
+#endif
     idft_pass_radix<false>(code0, s_v, s_w, y, s0, t, tr, n, pitch, psh, tw, 1);
     __syncthreads();
+#if defined(FSDR_CUT_STAGE) || defined(FSDR_CUT_MAC)
+    if (static_cast<int>(threadIdx.x) < half && n < 0) {
+#else
     if (static_cast<int>(threadIdx.x) < half) {
+#endif
+#if defined(FSDR_CUT_IDFT)
+      idft_pass_radix<false>(code1, s_w, s_v, y + lane * ys, s0, t, tr, n, pitch, psh,
+                             tw + (r0 - 1), r0);
+#else
       idft_pass_radix<true>(code1, s_w, s_v, y + lane * ys, s0, t, tr, n, pitch, psh,
                             tw + (r0 - 1), r0);
+#endif
     } else if (mac_thread && q + 1 < q1) {
       mac(q + 1);
     }

@@ -88,6 +88,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// The breakdown's cuts (port_lanes.py --breakdown): a build with
+// -DFSDR_CUT_STAGE runs the staging alone (the copies and barriers stay, the
+// MAC never runs), one with -DFSDR_CUT_MAC the MAC alone (no copy is made,
+// the MAC runs on whatever shared memory holds). A part left out hangs on
+// m < 0 or m >= 0, which the compiler cannot fold (the gemm's staging alone
+// keeps one store of what it staged). With neither defined the kernels
+// compile as they would without these lines.
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -383,6 +391,9 @@ poly_fir_rows(const T* __restrict__ hist, const T* __restrict__ x,
   constexpr int E = 16 / sizeof(T);
 
   auto stage = [&](long long t, float* buf) {
+#if defined(FSDR_CUT_MAC)
+    if (m >= 0) return;
+#endif
     const long long lane = t / tiles;
     const long long q0 = (t - lane * tiles) * tq;
     const T* h = hist + lane * hs;
@@ -407,7 +418,11 @@ poly_fir_rows(const T* __restrict__ hist, const T* __restrict__ x,
 
     const long long lane = t / tiles;
     const long long q = (t - lane * tiles) * tq + threadIdx.x * R;
+#if defined(FSDR_CUT_STAGE)
+    if (q < nq && m < 0) {
+#else
     if (q < nq) {
+#endif
       const T* xt = reinterpret_cast<const T*>(buf + w_slots(wn)) + threadIdx.x * (R * D + pad);
       const float* wt = buf + m * D;
       T acc[R][C];
@@ -461,11 +476,13 @@ poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
   const long long H = static_cast<long long>(m) * D, n = nq * D;
   const int rows = tm + m;
 
+#if !defined(FSDR_CUT_MAC)
   stage_w(s_w, W, J * I);
   for (int k = threadIdx.x; k < rows * D; k += blockDim.x) {
     const int j = udiv(k, d_magic);
     stage_one(s_x + (rows - 1 - j) * D + (k - j * D), hist, x, q0 * D + k, H, n);
   }
+#endif
   cp_async_commit();
   cp_async_wait<0>();
   if (BF16) {                                    // what this thread staged
@@ -481,6 +498,16 @@ poly_fir_gemm(const T* __restrict__ hist, const T* __restrict__ x,
     __syncthreads();
   }
 
+#if defined(FSDR_CUT_STAGE)
+  if (m >= 0) {
+    if (threadIdx.x == 0) {
+      T v = s_x[1];
+      mac(v, v, s_w[1]);
+      y[q0 * I] = v;
+    }
+    return;
+  }
+#endif
   const int gn_count = (I + RN - 1) / RN;
   const int units = ((tm + RM - 1) / RM) * gn_count;
   const int U = blockDim.x / ks;

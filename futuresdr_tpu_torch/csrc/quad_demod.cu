@@ -23,7 +23,13 @@
 // arithmetic on its row, so each lane is bit-equal to a one-stream launch.
 // 64 lanes of 8,000 samples (the FM front end served at 32,000 input samples
 // a session) move 6.1 MB, about 1.8 us at 3.35 TB/s: one launch where one a
-// lane paid 64 launch latencies.
+// lane paid 64 launch latencies. The grid is 2,048 blocks there, about two
+// waves, and runs in a copy's time of its bytes in 16-byte words; its loads
+// alone read at 0.87 of the card's rate beyond an empty launch on that grid
+// (port_lanes.py --breakdown, PERF.md). Walks of the batch as one run of
+// samples, 2 or 4 a thread in 16-byte words (one wave), and this grid in
+// blocks of 512 or 1,024 threads all launched faster and ran slower: fewer
+// threads hid less of each sample's load and atan2f latency.
 //
 // Numerics: Re z = xr*pr + xi*pi and Im z = xi*pr - xr*pi as the TPU kernel
 // forms them, each product and sum rounded on its own (__fmul_rn / __fadd_rn,
@@ -32,9 +38,39 @@
 
 #include <cuda_runtime.h>
 
+// The breakdown's cuts (port_lanes.py --breakdown): a build with
+// -DFSDR_CUT_LOAD runs each sample's loads alone (x[t] and its neighbour, kept
+// alive by a store that fires only where their bits hash to n), one with
+// -DFSDR_CUT_MATH the arithmetic alone (its operands made in registers from
+// t, the result kept alive the same way) and one with -DFSDR_CUT_STORE the
+// stores alone (gain to y, the operands to last). With none defined a sample
+// is loaded, demodulated and stored as below, and the kernel compiles as it
+// would without these lines.
+#if defined(FSDR_CUT_MATH) || defined(FSDR_CUT_STORE)
+#define QD_LOADS 0
+#else
+#define QD_LOADS 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
+
+// operands in registers, for the cuts without loads: distinct a sample,
+// unknown to the compiler
+__device__ __forceinline__ float2 cut_operand(long long t, float gain) {
+  return make_float2(__ll2float_rn(t), gain);
+}
+
+// a store the compiler cannot prove dead: `v` written where `bits` equals n
+__device__ __forceinline__ void cut_keep(float* y, unsigned bits, long long n, float v) {
+  if (bits == static_cast<unsigned>(n)) *y = v;
+}
+
+__device__ __forceinline__ unsigned cut_bits(float2 a, float2 b) {
+  return __float_as_uint(a.x) ^ __float_as_uint(a.y) ^ __float_as_uint(b.x) ^
+         __float_as_uint(b.y);
+}
 
 __global__ void __launch_bounds__(kThreads)
 quad_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ prev,
@@ -47,11 +83,26 @@ quad_demod_kernel(const float2* __restrict__ x, const float2* __restrict__ prev,
   y += lane * ys;
   prev += lane;
   last += lane;
+#if QD_LOADS
   const float2 v = x[t];
   const float2 p = t == 0 ? *prev : x[t - 1];
+#else
+  const float2 v = cut_operand(t, gain), p = cut_operand(t + 1, gain);
+#endif
+#if defined(FSDR_CUT_LOAD)
+  cut_keep(y + t, cut_bits(v, p), n, gain);
+#elif defined(FSDR_CUT_STORE)
+  y[t] = gain;
+#else
   const float zr = __fadd_rn(__fmul_rn(v.x, p.x), __fmul_rn(v.y, p.y));
   const float zi = __fsub_rn(__fmul_rn(v.y, p.x), __fmul_rn(v.x, p.y));
+#if defined(FSDR_CUT_MATH)
+  const float out = __fmul_rn(gain, atan2f(zi, zr));
+  cut_keep(y + t, __float_as_uint(out), n, out);
+#else
   y[t] = __fmul_rn(gain, atan2f(zi, zr));
+#endif
+#endif
   if (t == n - 1) *last = v;
 }
 

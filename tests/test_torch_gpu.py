@@ -1554,6 +1554,55 @@ def test_quad_demod_lanes_equals_one_stream_launches_on_card(cuda_device, L):
     assert float((d - period * torch.round(d / period)).abs().max()) <= 1e-5
 
 
+def _qd_wrapped_err(got, ref, gain):
+    d = (got - ref).double()
+    period = 2 * np.pi * gain
+    return float((d - period * torch.round(d / period)).abs().max()) if d.numel() else 0.0
+
+
+def _qd_equals_one_stream(prev, x, gain):
+    """One ``quad_demod_lanes`` launch on ``x``, each lane held bit for bit to
+    the one-stream launch on its row (outputs and next carries) and within
+    1e-5 (wrapped) of the lane plain version."""
+    before = ck.launches["quad_demod_lanes"]
+    got, last = ck.quad_demod_lanes(prev, x, gain)
+    torch.cuda.synchronize()
+    assert ck.launches["quad_demod_lanes"] == before + 1
+    pairs = [ck.quad_demod(prev[i], x[i], gain) for i in range(x.shape[0])]
+    assert torch.equal(got, torch.stack([p[0] for p in pairs]))
+    assert torch.equal(last, torch.stack([p[1] for p in pairs])) and torch.equal(last, x[:, -1])
+    assert _qd_wrapped_err(got, ck.quad_demod_lanes_plain(prev, x, gain)[0], gain) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, n", [(16, 8000), (64, 8000), (64, 8002), (7, 8001), (3, 1022),
+                                  (5, 2), (3, 1), (1, 128_000)])
+def test_quad_demod_lanes_served_and_ragged_batches_equal_one_stream_launches_on_card(
+        cuda_device, L, n):
+    """The served 16 and 64 × 8,000 and ragged batches (an even n past the
+    served one, odd n, rows of one and two samples, one long lane): each lane
+    bit-equal to its one-stream launch, one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(100_003 * L + n)
+    x = torch.randn(L, n, dtype=torch.complex64, generator=g, device=cuda_device)
+    prev = torch.randn(L, dtype=torch.complex64, generator=g, device=cuda_device)
+    _qd_equals_one_stream(prev, x, 0.53)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride, offset", [(8008, 0), (8000, 1)])
+def test_quad_demod_lanes_strided_rows_equal_one_stream_launches_on_card(cuda_device, stride,
+                                                                        offset):
+    """Rows a stride wider than n apart, and a batch 8 bytes off a 16-byte
+    boundary: the lane grid reads each row through its stride, each lane
+    bit-equal to its one-stream launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(stride + offset)
+    buf = torch.randn(offset + 16 * stride, dtype=torch.complex64, generator=g,
+                      device=cuda_device)
+    x = buf[offset:].view(16, stride)[:, :8000]
+    prev = torch.randn(16, dtype=torch.complex64, generator=g, device=cuda_device)
+    _qd_equals_one_stream(prev, x, 0.53)
+
+
 @pytest.mark.gpu
 def test_lane_forms_of_the_fm_kernels_take_empty_batches_on_card(cuda_device):
     """No lane or no sample: an empty result of the right shape, the carry

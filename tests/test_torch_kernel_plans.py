@@ -1559,6 +1559,79 @@ def test_quad_demod_lanes_walk_matches_plain(n):
     assert _wrapped_err(y, ref, gain) <= 1e-5
 
 
+def _quad_demod_lanes_twin(prev, x, gain):
+    """``csrc/quad_demod.cu``'s lane form as it walks ``x [L, n]`` through its
+    pointer and row stride: a grid of ``⌈n / QUAD_DEMOD_TILE⌉`` blocks by L
+    lanes, thread t of lane l reading the sample at ``l·xs + t`` of the
+    batch's memory (x moved by the lane's row), its neighbour ``prev[l]`` at
+    t = 0 and the sample before it otherwise, and thread n − 1 writing
+    ``last[l]``. Asserts every output is written once and each lane's ``last``
+    once. Each row's arithmetic is the plain version's on the operands the
+    walk gathered, so the result is ``torch.equal`` to it exactly where the
+    walk gathers the right samples. Returns ``(y, last)``."""
+    L, n = x.shape
+    xs = x.stride(0)
+    mem = x.as_strided(((L - 1) * xs + n,), (1,))      # the memory from x's start
+    blocks = -(-n // ck.QUAD_DEMOD_TILE)
+    t = torch.arange(blocks * ck.QUAD_DEMOD_TILE)
+    lane = torch.arange(L).repeat_interleave(t.numel())
+    t = t.repeat(L)
+    live = t < n
+    lane, t = lane[live], t[live]
+    v = mem[lane * xs + t]
+    p = torch.where(t == 0, prev[lane], mem[(lane * xs + t - 1).clamp(min=0)])
+    count = torch.zeros(L * n, dtype=torch.int64)
+    _count(count, lane * n + t)
+    ends = t == n - 1
+    last = torch.zeros(L, dtype=torch.complex64)
+    last[lane[ends]] = v[ends]
+    last_count = torch.zeros(L, dtype=torch.int64)
+    _count(last_count, lane[ends])
+    assert bool((count == 1).all()) and bool((last_count == 1).all())
+    rows_v = torch.zeros(L * n, dtype=torch.complex64)
+    rows_p = torch.zeros(L * n, dtype=torch.complex64)
+    rows_v[lane * n + t], rows_p[lane * n + t] = v, p
+    rows_v, rows_p = rows_v.reshape(L, n), rows_p.reshape(L, n)
+    y = torch.stack([_demod(rows_v[i], rows_p[i], gain) for i in range(L)])
+    return y, last
+
+
+def _qd_batch(L, n, seed, stride=None, offset=0):
+    """``(prev [L], x [L, n])`` from a seed; rows ``stride`` samples apart
+    (a view of a wider batch), the batch ``offset`` samples into its buffer."""
+    rng = np.random.default_rng(seed)
+    stride = n if stride is None else stride
+    buf = torch.from_numpy(_c64(rng, offset + L * stride)).clone()
+    x = buf[offset:].reshape(L, stride)[:, :n]
+    return torch.from_numpy(_c64(rng, L)), x
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 1023, 8000, 8002])
+@pytest.mark.parametrize("L", [1, 2, 16, 64])
+def test_quad_demod_lanes_walk_equals_plain(L, n):
+    """The lane grid over ``[L, n]``, walked thread by thread: every output
+    and each lane's ``last`` written once, each neighbour from the right
+    sample, and ``torch.equal`` to the plain version, outputs and carries."""
+    prev, x = _qd_batch(L, n, 1000 * L + n)
+    gain = 250e3 / (2 * np.pi * 75e3)
+    y, last = _quad_demod_lanes_twin(prev, x, gain)
+    ref, ref_last = ck.quad_demod_lanes_plain(prev, x, gain)
+    assert torch.equal(y, ref) and torch.equal(last, ref_last), (L, n)
+
+
+@pytest.mark.parametrize("L, n, stride, offset", [(16, 8000, 8008, 0), (3, 256, 300, 0),
+                                                  (64, 8000, 8000, 1), (5, 2, 2, 1)])
+def test_quad_demod_lanes_walk_takes_strided_and_unaligned_rows(L, n, stride, offset):
+    """Rows a stride wider than n apart, and a batch 8 bytes off a 16-byte
+    boundary: the walk reads each lane's row through the stride and equals
+    the plain version."""
+    prev, x = _qd_batch(L, n, n + L, stride, offset)
+    gain = 0.53
+    y, last = _quad_demod_lanes_twin(prev, x, gain)
+    ref, ref_last = ck.quad_demod_lanes_plain(prev, x, gain)
+    assert torch.equal(y, ref) and torch.equal(last, ref_last)
+
+
 # ---------------------------------------------------------------------------
 # the lane form of pfb
 # ---------------------------------------------------------------------------
