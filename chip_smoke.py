@@ -418,13 +418,31 @@ path on the card:
     with its FCS checked and the ``viterbi`` kernel's launches counted (a
     machine without pyzmq prints one line that (c) did not run).
 
+The latency profile (``docs/performance.md``, "Latency profile"):
+
+36. ``source -> LatencyProbeSource -> TpuKernel(fir_stage(bandpass
+    0.05-0.2, 64 taps, impl="pallas"), frames of 4,096 samples, 2 in
+    flight, f32 wire) -> LatencyProbeSink`` (and a ``VectorSink`` on the
+    same output) on the ``fir`` kernel, run (a) at the default sizing and
+    (b) with ``connect_stream(..., buffer_size=16384)`` on the edges around
+    the kernel and a source whose output declares
+    ``preferred_buffer_size=16384``: each buffer's capacity in
+    items equal to the rule recomputed from the ports (the edge's override,
+    else the smallest preference, else config ``buffer_size``; floored by
+    twice the largest ``min_items`` and by ``min_buffer_size``; a power of
+    two, which the circular buffer rounds up to whole pages) and, for (b),
+    on the ring too; p50, p99 and max latency of the probes and the input
+    rate beside the card; (a) and (b) bit-equal, and the output against
+    the ``fir`` kernel's plain version within phase 7's tolerance; the
+    ``fir`` launches counted over the two runs.
+
 ``python3 chip_smoke.py --serving`` runs only phase 28 after the build,
 ``python3 chip_smoke.py --models`` only phase 29, ``python3
 chip_smoke.py --sharded`` only phase 30, ``python3 chip_smoke.py
 --telemetry`` only phase 31, ``python3 chip_smoke.py --multihost`` only
 phase 32, ``python3 chip_smoke.py --protocols`` only phase 33, ``python3
-chip_smoke.py --hostplane`` only phase 34, and ``python3 chip_smoke.py
---edges`` only phase 35.
+chip_smoke.py --hostplane`` only phase 34, ``python3 chip_smoke.py
+--edges`` only phase 35, and ``python3 chip_smoke.py --latency`` only phase 36.
 ``python3 chip_smoke.py --stress N`` runs only phases 4 and 10 once, then the
 streamed phases 5 and 11 N times each, each run under a stall watchdog that
 prints every thread's stack, the pending asyncio tasks and the block inboxes
@@ -8184,6 +8202,163 @@ def phase_edges(dev, card_line) -> dict:
     return {"launches": launches}
 
 
+LAT_FRAME = 4096                 # samples a device frame: the kernel's floors
+#                                  (2 frames in, 3 out) stay under 16 KiB's reach
+LAT_FRAMES = 512                 # frames a run
+LAT_DEPTH = 2                    # frames in flight
+LAT_BUFFER = 16384               # bytes: (b)'s edge overrides and the source's
+#                                  output preference (docs/performance.md)
+LAT_TAPS = (0.05, 0.2, 64)       # the kernel's band-pass design
+
+
+def _lat_rule(itemsize: int, budget: int, min_items, min_buffer_sizes) -> int:
+    """The sizing rule in items: the byte budget, floored by the byte
+    minimums and twice the largest ``min_items``, up to a power of two."""
+    items = max([budget // itemsize, 2 * max(min_items)]
+                + [-(-b // itemsize) for b in min_buffer_sizes])
+    return 1 << (items - 1).bit_length()
+
+
+def _lat_source(x, preferred):
+    """A source of ``x`` whose output declares ``preferred_buffer_size``."""
+    from futuresdr_tpu_torch.runtime.kernel import Kernel
+
+    class _Source(Kernel):
+        def __init__(self):
+            super().__init__()
+            self.output = self.add_stream_output("out", np.complex64,
+                                                 preferred_buffer_size=preferred)
+            self._pos = 0
+
+        async def work(self, io, mio, meta):
+            out = self.output.slice()
+            n = min(len(out), len(x) - self._pos)
+            out[:n] = x[self._pos:self._pos + n]
+            self._pos += n
+            self.output.produce(n)
+            if self._pos == len(x):
+                io.finished = True
+            elif n:
+                io.call_again = True
+
+    return _Source()
+
+
+def _lat_graph(dev, x, taps, sized: bool, buffer=None):
+    """Phase 36's flowgraph, the kernel's output broadcast to the probe sink
+    and a vector sink; returns it, its three buffers as (writer owner,
+    readers) pairs, the probe sink and the vector sink."""
+    from futuresdr_tpu_torch import Flowgraph
+    from futuresdr_tpu_torch.blocks import VectorSink
+    from futuresdr_tpu_torch.ops.stages import fir_stage
+    from futuresdr_tpu_torch.tpu import TpuInstance, TpuKernel
+    from futuresdr_tpu_torch.utils.trace import LatencyProbeSink, LatencyProbeSource
+
+    src = _lat_source(x, LAT_BUFFER if sized else None)
+    probe = LatencyProbeSource(np.complex64, granularity=LAT_FRAME)
+    tk = TpuKernel([fir_stage(taps, impl="pallas")], np.complex64, frame_size=LAT_FRAME,
+                   inst=TpuInstance(dev), frames_in_flight=LAT_DEPTH,
+                   frames_per_dispatch=1, wire="f32")
+    lat, vec = LatencyProbeSink(np.complex64), VectorSink(np.complex64)
+    edge = dict(buffer_size=LAT_BUFFER) if sized else {}
+    fg = Flowgraph()
+    fg.connect_stream(src, "out", probe, "in", buffer=buffer)
+    fg.connect_stream(probe, "out", tk, "in", buffer=buffer, **edge)
+    fg.connect_stream(tk, "out", lat, "in", buffer=buffer, **edge)
+    fg.connect_stream(tk, "out", vec, "in", buffer=buffer, **edge)
+    return fg, [(src, [probe]), (probe, [tk]), (tk, [lat, vec])], lat, vec
+
+
+def _lat_capacities(fg, buffers, sized: bool) -> list:
+    """Each buffer's capacity in items, checked against the rule recomputed
+    from its ports (the circular buffer rounds the rule's bytes up to whole
+    pages, the ring takes it as it is)."""
+    import math
+    import mmap
+
+    from futuresdr_tpu_torch.config import config
+    from futuresdr_tpu_torch.runtime.buffer.circular import CircularWriter
+    caps = []
+    for a, readers in buffers:
+        op, ips = a.stream_outputs[0], [r.stream_inputs[0] for r in readers]
+        override = next(e.buffer_size for e in fg.stream_edges if e.src is a)
+        prefs = [p.preferred_buffer_size for p in [op] + ips if p.preferred_buffer_size]
+        budget = override or (min(prefs) if prefs else config().buffer_size)
+        isz = op.dtype.itemsize
+        want = _lat_rule(isz, budget, [op.min_items] + [p.min_items for p in ips],
+                         [op.min_buffer_size])
+        if type(op.writer) is CircularWriter:
+            unit = math.lcm(mmap.PAGESIZE, isz)
+            want = -(-want * isz // unit) * unit // isz
+        check(op.writer.capacity == want,
+              f"36: the buffer after {type(a).__name__} "
+              f"({'16 KiB' if sized else 'default'}, {type(op.writer).__name__}) holds "
+              f"{op.writer.capacity} items, the rule gives {want}")
+        caps.append(op.writer.capacity)
+    return caps
+
+
+def phase_latency(dev, card_line) -> dict:
+    """Phase 36: the latency profile on the ``fir`` kernel at the default
+    sizing and at 16 KiB queues, each edge's capacity held to the rule."""
+    import torch
+
+    from futuresdr_tpu_torch import Runtime
+    from futuresdr_tpu_torch.dsp import firdes
+    from futuresdr_tpu_torch.ops import cuda_kernels as ck
+    from futuresdr_tpu_torch.runtime.buffer.ring import RingWriter
+    from futuresdr_tpu_torch.utils.trace import latency_stats
+    t0 = time.perf_counter()
+    taps = firdes.bandpass(*LAT_TAPS).astype(np.float32)
+    n = LAT_FRAME * LAT_FRAMES
+    rng = np.random.default_rng(SEED + 36)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    runs, outs, launches = {}, {}, 0
+    for label, sized in (("a", False), ("b", True)):
+        fg, buffers, lat, vec = _lat_graph(dev, x, taps, sized)
+        ck.reset_launches()
+        t1 = time.perf_counter()
+        Runtime().run(fg)
+        dt = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches += ck.launches["fir"]
+        caps = _lat_capacities(fg, buffers, sized)
+        outs[label] = np.asarray(vec.items())
+        stats = latency_stats(lat.records)
+        check(stats["count"] == LAT_FRAMES,
+              f"36 ({label}): {stats['count']} probes of {LAT_FRAMES} arrived")
+        runs[label] = dict(caps=caps, stats=stats, msps=n / dt / 1e6)
+    check(launches > 0, "the fir kernel was launched no time in phase 36")
+    # (b) on the ring: only materialized, its capacities the rule's exactly
+    fg, buffers, _, _ = _lat_graph(dev, x, taps, True, buffer=RingWriter)
+    fg._materialize()
+    ring_caps = _lat_capacities(fg, buffers, True)
+    want = ck.fir_plain(torch.from_numpy(x).to(dev), torch.from_numpy(taps).to(dev))
+    rels = {}
+    for label, out in outs.items():
+        check(len(out) == n, f"36 ({label}): {len(out)} of {n} items came out")
+        rels[label] = rel_err(torch.from_numpy(out), want)[1]
+    if not np.array_equal(outs["a"], outs["b"]):
+        frames = np.flatnonzero((outs["a"] != outs["b"]).reshape(LAT_FRAMES, -1).any(axis=1))
+        check(False, f"36: the two sizings' outputs differ in {len(frames)} frames (first "
+                     f"{frames[:8].tolist()}); of peak from the plain fir: (a) "
+                     f"{rels['a']:.3g}, (b) {rels['b']:.3g}")
+    rel = rels["a"]
+    check(rel <= TOL["fir"], f"36: {rel:.3g} of peak from the plain fir")
+    for label, name in (("a", "default sizing"), ("b", f"{LAT_BUFFER} B queues")):
+        r, st = runs[label], runs[label]["stats"]
+        print(f"phase 36 ({label}) latency profile, {name}: capacities src->probe "
+              f"{r['caps'][0]}, probe->fir {r['caps'][1]}, fir->sink {r['caps'][2]} "
+              f"items; latency p50 {st['p50_us']:.1f} us, p99 {st['p99_us']:.1f} us, "
+              f"max {st['max_us']:.1f} us over {st['count']} probes; "
+              f"{r['msps']:.2f} input Msamples/s (frame {LAT_FRAME}, {LAT_DEPTH} in "
+              f"flight) [{card_line}]")
+    print(f"phase 36: (b) on the ring {ring_caps} items; (a) and (b) bit-equal, "
+          f"{rel:.3g} of peak from the plain fir; fir {launches} launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": {"fir": launches}, "runs": runs}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the port.")
     parser.add_argument("--stress", type=int, default=0, metavar="N",
@@ -8213,6 +8388,10 @@ def main(argv=None) -> int:
                              "kernel chain, the remote client and the GUI on the fused "
                              "spectrum chain, WLAN over ZeroMQ on the Viterbi kernel), "
                              "after the build")
+    parser.add_argument("--latency", action="store_true",
+                        help="only run phase 36, the latency profile on the fir kernel "
+                             "at the default sizing and at 16 KiB queues, after the "
+                             "build")
     parser.add_argument("--rank", type=int, default=None,
                         help=argparse.SUPPRESS)   # one rank process of phase 32
     parser.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
@@ -8292,6 +8471,9 @@ def main(argv=None) -> int:
         return 0
     if args.edges:
         phase_edges(dev, card_line)
+        return 0
+    if args.latency:
+        phase_latency(dev, card_line)
         return 0
 
     # 3, 9, 12. kernels against their plain versions
@@ -8431,6 +8613,11 @@ def main(argv=None) -> int:
     for k, v in edges["launches"].items():
         if k in launches:
             launches[k] += v
+    # 36. the latency profile: the fir kernel behind probes at the default
+    #     sizing and at 16 KiB queues, its launches counted over both runs
+    latency = phase_latency(dev, card_line)
+    by_phase["latency"] = dict(latency["launches"])
+    launches["fir"] += latency["launches"]["fir"]
 
     # 7. kernel timings at the streamed default frames, and the larger
     #    frames for the record

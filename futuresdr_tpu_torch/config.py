@@ -13,14 +13,16 @@ type, e.g. ``FUTURESDR_TPU_TPU_FRAMES_PER_DISPATCH=4``,
 or ``FUTURESDR_TPU_AUTOTUNE_CACHE_DIR=/path``. A ``tpu_`` field also reads the
 reference's short form without the field's ``tpu_`` head, e.g.
 ``FUTURESDR_TPU_WIRE_FORMAT=sc16`` (the full name wins where both are set).
+A ``FUTURESDR_TPU_<NAME>`` variable that names no field lands in the
+free-form ``misc`` map under ``<name>``, which :meth:`Config.get` reads.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from dataclasses import dataclass, fields
-from typing import Optional
+from dataclasses import dataclass, field, fields
+from typing import Any, Optional
 
 __all__ = ["Config", "config", "reload_config"]
 
@@ -50,6 +52,13 @@ class Config:
     queue_size: int = 8192                 # message inbox capacity (try_send
     #   drops past it, send_async waits for room)
     buffer_size: int = 262144              # stream buffer size in bytes
+    slab_reserved: int = 128               # reserved history items for slab
+    #   buffers (informational: no buffer of the port reads it, nor of the
+    #   reference)
+    stack_size: int = 16 * 1024 * 1024     # (informational; Python threads
+    #   use the default)
+    log_level: str = "info"                # the package loggers' level
+    #   (log.py init); FUTURESDR_TPU_LOG wins over it
     default_scheduler: str = "async"       # Runtime()'s scheduler: "async" | "threaded"
     ctrlport_enable: bool = False          # Runtime() starts the REST control port
     ctrlport_bind: str = "127.0.0.1:1337"  # its address; port 0 takes a free port
@@ -197,23 +206,34 @@ class Config:
     #   logical devices on the first physical one (the CPU, or card 0), the
     #   counterpart of the reference's --xla_force_host_platform_device_count;
     #   0 (off) lists the cards there are
+    misc: dict = field(default_factory=dict)   # free-form keys: the
+    #   FUTURESDR_TPU_* variables that name no field
 
-    def get(self, key: str, default=None):
-        """A field by name, ``default`` for a name that is not a field (the
+    def get(self, key: str, default: Any = None) -> Any:
+        """A field by name, else the ``misc`` entry, else ``default`` (the
         reference's free-form lookup)."""
-        return getattr(self, key, default)
+        if key != "misc" and hasattr(self, key):
+            return getattr(self, key)
+        return self.misc.get(key, default)
 
     @classmethod
     def from_env(cls) -> "Config":
         c = cls()
+        known = set()
         for f in fields(cls):
-            raw = os.environ.get(_ENV_PREFIX + f.name.upper())
-            if raw is None and f.name.startswith("tpu_"):
-                # the reference's short form: FUTURESDR_TPU_WIRE_FORMAT for
-                # tpu_wire_format (the prefix already spells the plane)
-                raw = os.environ.get(_ENV_PREFIX + f.name[4:].upper())
+            if f.name == "misc":
+                continue
+            # a tpu_ field also reads the reference's short form:
+            # FUTURESDR_TPU_WIRE_FORMAT for tpu_wire_format (the prefix
+            # already spells the plane); the full name wins
+            names = [f.name] + ([f.name[4:]] if f.name.startswith("tpu_") else [])
+            known.update(names)
+            raw = next((os.environ[_ENV_PREFIX + n.upper()] for n in names
+                        if _ENV_PREFIX + n.upper() in os.environ), None)
             if raw is not None:
                 setattr(c, f.name, _parse(f.name, f.default, raw))
+        c.misc = {k[len(_ENV_PREFIX):].lower(): v for k, v in os.environ.items()
+                  if k.startswith(_ENV_PREFIX) and k[len(_ENV_PREFIX):].lower() not in known}
         return c
 
 

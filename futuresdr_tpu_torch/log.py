@@ -1,12 +1,15 @@
 """Logging: stdlib loggers under ``futuresdr_tpu_torch``, level from
-``FUTURESDR_TPU_LOG`` (default ``info``) — the reference's ``log.py``."""
+``FUTURESDR_TPU_LOG``, else config ``log_level`` (default ``info``) — the
+reference's ``log.py``."""
 
 from __future__ import annotations
 
 import logging
 import os
 
-__all__ = ["logger"]
+from .config import config
+
+__all__ = ["init", "logger"]
 
 _LEVELS = {
     "trace": logging.DEBUG,
@@ -19,19 +22,26 @@ _LEVELS = {
 }
 
 _ROOT = "futuresdr_tpu_torch"
+_initialized = False
 
 
-def _init() -> None:
+def init() -> None:
+    """Give the package's root logger a stream handler (where it has none)
+    and its level, once a process; :func:`logger` calls it."""
+    global _initialized
+    if _initialized:
+        return
     root = logging.getLogger(_ROOT)
     if not root.handlers:
         h = logging.StreamHandler()
         h.setFormatter(logging.Formatter(
             "%(asctime)s %(levelname)-5s %(name)s: %(message)s", datefmt="%H:%M:%S"))
         root.addHandler(h)
-        level = os.environ.get("FUTURESDR_TPU_LOG", "info").lower()
-        root.setLevel(_LEVELS.get(level, logging.INFO))
+    level = os.environ.get("FUTURESDR_TPU_LOG", config().log_level).lower()
+    root.setLevel(_LEVELS.get(level, logging.INFO))
+    _initialized = True
 
 
 def logger(name: str = "") -> logging.Logger:
-    _init()
+    init()
     return logging.getLogger(f"{_ROOT}.{name}" if name else _ROOT)

@@ -40,12 +40,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..log import logger
 from ..telemetry import prom as _prom
 
 from ..config import config
 
 __all__ = ["ArenaBuffer", "StagingArena", "arena", "reset_arena", "arena_stats",
            "GroupAlloc", "PackedAlloc"]
+
+log = logger("ops.arena")
 
 _MIN_CLASS = 12                       # 4 KiB floor: below it pooling is noise
 

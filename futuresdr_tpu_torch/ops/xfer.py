@@ -586,13 +586,13 @@ def start_host_transfer_parts(parts: Sequence[torch.Tensor]
     return finish
 
 
-def start_host_transfer(t: torch.Tensor) -> Callable[[], np.ndarray]:
+def start_host_transfer(arr: torch.Tensor) -> Callable[[], np.ndarray]:
     """Begin a D2H of one tensor (after the work queued so far on the
     current stream), a ``[K, n]`` group in one copy; returns ``finish() ->
     np.ndarray``, which blocks until the copy lands. The array lives in a
     host buffer the caller hands back with ``finish.release()`` once it has
     copied the data out."""
-    fin = start_host_transfer_parts((t,))
+    fin = start_host_transfer_parts((arr,))
 
     def finish() -> np.ndarray:
         return fin()[0]
@@ -607,9 +607,9 @@ def to_device(arr: np.ndarray, device: Device) -> torch.Tensor:
     return start_device_transfer(arr, device)()
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(arr: torch.Tensor) -> np.ndarray:
     """D2H into a numpy array of its own."""
-    finish = start_host_transfer(t)
+    finish = start_host_transfer(arr)
     a = finish().copy()
     finish.release()
     return a
@@ -666,6 +666,13 @@ class PackedLayout:
     def key(self):
         """Hashable identity (the program cache key)."""
         return self.slots
+
+    def matches(self, parts) -> bool:
+        """Do ``parts`` fit this layout slot for slot (shape and dtype)?"""
+        if len(parts) != len(self.slots):
+            return False
+        return all(tuple(np.shape(p)) == sh and np.dtype(getattr(p, "dtype", type(p))) == dt
+                   for p, (sh, dt, _o, _n) in zip(parts, self.slots))
 
     def pack(self, parts, out: np.ndarray) -> np.ndarray:
         """Copy every part not already in its slot into ``out`` (a

@@ -410,7 +410,7 @@ class WrappedKernel:
                     except Exception as e2:                     # noqa: BLE001
                         log.debug("deinit after failed init raised: %r", e2)
                     await self._note_restart(e, fg_inbox, phase="init")
-            fg_inbox.send(InitializedMsg(self.id))
+            fg_inbox.send(InitializedMsg(self.id, ok=True))
         except Exception as e:
             log.error("block %s failed in init: %r", self.instance_name, e)
             try:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from abc import ABC, abstractmethod
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Type
 
 import numpy as np
 
@@ -102,13 +102,20 @@ def negotiate_capacity(itemsize: int, min_items_constraints: Sequence[int],
 
 
 class StreamOutput:
-    """Output port facade declared by a block."""
+    """Output port facade declared by a block. ``buffer`` is the writer
+    class this port wants (an edge's own ``buffer`` wins over it, and it over
+    :func:`~..flowgraph.default_buffer`); ``preferred_buffer_size`` is the
+    byte budget it would like, weighed with its readers' preferences."""
 
-    def __init__(self, name: str, dtype, min_items: int = 1, min_buffer_size: int = 0):
+    def __init__(self, name: str, dtype, min_items: int = 1, min_buffer_size: int = 0,
+                 buffer: Optional[Type] = None,
+                 preferred_buffer_size: Optional[int] = None):
         self.name = name
         self.dtype = np.dtype(dtype) if dtype is not None else None
         self.min_items = min_items
         self.min_buffer_size = min_buffer_size
+        self.buffer = buffer
+        self.preferred_buffer_size = preferred_buffer_size
         self.writer: Optional[BufferWriter] = None
         self._pending_tags: List[ItemTag] = []
         self.items_produced = 0       # metrics: items out

@@ -998,7 +998,7 @@ async def run_devchain_task(members: Sequence, chain: DevChain, fg_inbox,
         _error_out(e)
         return
     for b in members:
-        fg_inbox.send(InitializedMsg(b.id))
+        fg_inbox.send(InitializedMsg(b.id, ok=True))
 
     # The drive loop merges the inboxes whose ports the fused kernel works:
     # the region input's (member 0) and each sink's; produce/consume wake-ups

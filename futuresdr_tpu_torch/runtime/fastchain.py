@@ -41,6 +41,10 @@ answers the init barrier for each member, watches for Terminate (the native
 loop honors a stop flag), and reports per-member BlockDone with item counters
 filled in, so describe/metrics/REST see the same flowgraph. Opt out with
 ``FSDR_NO_NATIVE=1`` (everything native) or ``FSDR_NO_FASTCHAIN=1`` (just this).
+The native loop's inter-stage rings hold ``run_chain_task(..., ring_items=)``
+items (2^16), or ``FSDR_FASTCHAIN_RING`` where it is set; the edges'
+``connect_stream(..., buffer_size=)`` and the ports' preferred sizes do not
+reach them.
 
 Known divergences from the actor path (the reference's list, which holds here
 as well):
@@ -98,8 +102,12 @@ def _resample_m_hi(total: int, interp: int, decim: int) -> int:
     return poly_resample_m_hi(total, interp, decim)
 
 
-# the native chain's inter-stage ring, in items
-RING_ITEMS = 1 << 16
+def _ring_items() -> int:
+    """The native chain's inter-stage ring size in items: 2^16, or
+    ``FSDR_FASTCHAIN_RING`` (at least 1) where it is set."""
+    ring_env = os.environ.get("FSDR_FASTCHAIN_RING")
+    return max(1, int(ring_env)) if ring_env else 1 << 16
+
 
 _FIR_KINDS = (FC_FIR_FF, FC_FIR_CF, FC_FIR_CC, FC_XLATING)
 
@@ -292,7 +300,7 @@ def _native_stage(kernel) -> Optional[tuple]:
             # or the C driver's space-limited consume gets stuck at k=0
             # forever
             if _resample_m_hi(1, int(core.interp), int(core.decim)) \
-                    > RING_ITEMS // 2:
+                    > _ring_items() // 2:
                 return None
             return (FC_RESAMPLE, int(core.K),
                     int(core.interp) | (int(core.decim) << 32), 0.0,
@@ -610,14 +618,19 @@ def _tree_dtypes(members, in_ring, spec_of=_native_stage) -> Optional[list]:
 
 
 async def run_chain_task(members: Sequence, fg_inbox, scheduler,
+                         ring_items: int = 1 << 16,
                          in_ring: Optional[Sequence[int]] = None) -> None:
     """Impersonate ``members`` (WrappedKernels) at the supervisor protocol level
     while the native driver runs the chain: answer the init barrier per member,
     watch for Terminate, then report per-member BlockDone with counters.
 
-    ``in_ring`` is the tree topology from ``NativeTree`` (None = linear chain)."""
+    ``ring_items`` sizes the inter-stage rings, in items;
+    ``FSDR_FASTCHAIN_RING`` overrides it where it is set. ``in_ring`` is the
+    tree topology from ``NativeTree`` (None = linear chain)."""
     inr = (list(in_ring) if in_ring is not None
            else [-1] + list(range(len(members) - 1)))
+    ring_items = _ring_items() if os.environ.get("FSDR_FASTCHAIN_RING") \
+        else ring_items
     from .runtime import BlockDoneMsg, BlockErrorMsg, InitializedMsg
     from ..types import Pmt
 
@@ -647,7 +660,7 @@ async def run_chain_task(members: Sequence, fg_inbox, scheduler,
                 return
             if isinstance(msg, Callback):
                 msg.reply.set(Pmt.invalid_value())
-        fg_inbox.send(InitializedMsg(b.id))
+        fg_inbox.send(InitializedMsg(b.id, ok=True))
 
     # ---- start signal ---------------------------------------------------------
     # Do NOT run (or send BlockDone) before the supervisor releases the barrier:
@@ -807,7 +820,7 @@ async def run_chain_task(members: Sequence, fg_inbox, scheduler,
         inr_arr = (ctypes.c_int32 * n)(*inr)
         t_chain = _trace.now()
         rc = await scheduler.spawn_blocking(
-            lambda: lib.fsdr_fastchain_run_v3(stages, n, inr_arr, RING_ITEMS,
+            lambda: lib.fsdr_fastchain_run_v3(stages, n, inr_arr, ring_items,
                                               ctypes.byref(stop), per_in,
                                               per_out, per_calls, per_ns))
     except Exception as e:                              # noqa: BLE001

@@ -7,8 +7,11 @@ negotiation. ``fg.connect(a >> b >> c)`` chains default ports, an in-place
 edge where both ports are in-place (device-frame) ports;
 ``fg.connect_stream(a, "out", b, "in")`` and ``fg.connect_inplace(a, "out",
 b, "in")`` name them, and ``fg.connect_message(a, "out", b, "in")`` wires a message output to a
-handler. Each stream edge gets :func:`default_buffer` unless
-``connect_stream(..., buffer=cls)`` overrides it.
+handler. A stream edge's writer class is ``connect_stream(..., buffer=cls)``,
+else its output port's ``buffer``, else :func:`default_buffer`; its byte
+budget is ``connect_stream(..., buffer_size=)``, else the smallest
+``preferred_buffer_size`` of its output and input ports, else config
+``buffer_size`` (:func:`~.buffer.negotiate_capacity` floors it).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from ..log import logger
 from ..types import FlowgraphDescription
 from .block import WrappedKernel
 from .buffer import negotiate_capacity
@@ -25,6 +29,8 @@ from .buffer.ring import RingWriter
 from .kernel import Kernel
 
 __all__ = ["Flowgraph", "Chain", "ConnectError", "default_buffer"]
+
+log = logger("runtime.flowgraph")
 
 
 #: process-default stream buffer; None: the double-mapped circular buffer,
@@ -69,6 +75,8 @@ class StreamEdge:
     dst: Kernel
     dst_port: str
     buffer: Optional[type] = None       # BufferWriter subclass override
+    buffer_size: Optional[int] = None   # this edge's byte budget (min_items
+    #                                     and min_buffer_size still floor it)
 
 
 @dataclass
@@ -147,9 +155,16 @@ class Flowgraph:
                 self.connect_stream(a, out.name, b, inp.name)
 
     def connect_stream(self, src: Kernel, src_port: str, dst: Kernel, dst_port: str,
-                       buffer: Optional[type] = None) -> None:
+                       buffer: Optional[type] = None,
+                       buffer_size: Optional[int] = None) -> None:
         """Typed stream connect; ``buffer`` is the edge's writer class
-        (default: :func:`default_buffer`)."""
+        (default: the output port's, else :func:`default_buffer`).
+        ``buffer_size`` overrides the edge's byte budget, the finest latency
+        lever (a short buffer is a short queue); ``min_items`` and
+        ``min_buffer_size`` still floor the capacity. The edges of one
+        broadcast output share one buffer, so their overrides must agree. A
+        fused native chain (``runtime/fastchain.py``) runs on its own rings
+        and ignores it, as the reference's does."""
         self.add(src)
         self.add(dst)
         op = src.stream_output(src_port)   # raises on bad name
@@ -166,7 +181,8 @@ class Flowgraph:
         if ip.reader is not None or any(
                 e.dst is dst and e.dst_port == dst_port for e in self.stream_edges):
             raise ConnectError(f"input {dst!r}.{dst_port} already connected")
-        self.stream_edges.append(StreamEdge(src, src_port, dst, dst_port, buffer))
+        self.stream_edges.append(
+            StreamEdge(src, src_port, dst, dst_port, buffer, buffer_size))
 
     def connect_inplace(self, src: Kernel, src_port: str, dst: Kernel,
                         dst_port: str) -> None:
@@ -209,19 +225,24 @@ class Flowgraph:
             dst_ports = [e.dst.stream_input(e.dst_port) for e in edges]
             dtype = op.dtype or next((p.dtype for p in dst_ports if p.dtype is not None),
                                      np.dtype(np.uint8))
-            # a port may prefer a byte budget (a real-time sink wants a short
-            # queue): the smallest preference wins
-            prefs = [p.preferred_buffer_size for p in dst_ports
+            sizes = {e.buffer_size for e in edges if e.buffer_size is not None}
+            if len(sizes) > 1:
+                raise ConnectError(f"conflicting buffer_size overrides on broadcast "
+                                   f"output {src!r}.{edges[0].src_port}: {sizes}")
+            # the edge's override wins, else the smallest preference of the
+            # ports (a real-time sink wants a short queue), else config
+            prefs = [p.preferred_buffer_size for p in [op] + dst_ports
                      if getattr(p, "preferred_buffer_size", None)]
+            budget = sizes.pop() if sizes else (min(prefs) if prefs else None)
             cap = negotiate_capacity(dtype.itemsize,
                                      [op.min_items] + [p.min_items for p in dst_ports],
-                                     [op.min_buffer_size],
-                                     override_bytes=min(prefs) if prefs else None)
+                                     [op.min_buffer_size], override_bytes=budget)
             overrides = {e.buffer for e in edges if e.buffer is not None}
             if len(overrides) > 1:
                 raise ConnectError(f"conflicting buffer overrides on broadcast output "
                                    f"{src!r}.{edges[0].src_port}: {overrides}")
-            buffer_cls = overrides.pop() if overrides else default_buffer()
+            buffer_cls = (overrides.pop() if overrides else None) or op.buffer \
+                or default_buffer()
             writer = buffer_cls(dtype, cap, self.wrapped(src).inbox,
                                 src.stream_outputs.index(op))
             op.writer = writer

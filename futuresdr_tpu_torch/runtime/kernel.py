@@ -98,8 +98,13 @@ class Kernel:
         return port
 
     def add_stream_output(self, name: str, dtype, min_items: int = 1,
-                          min_buffer_size: int = 0) -> StreamOutput:
-        port = StreamOutput(name, dtype, min_items, min_buffer_size)
+                          min_buffer_size: int = 0, buffer=None,
+                          preferred_buffer_size: Optional[int] = None) -> StreamOutput:
+        """``buffer``: the writer class of this output's buffer (an edge's
+        ``connect_stream(..., buffer=)`` wins); ``preferred_buffer_size``:
+        its byte budget, weighed with the readers' preferences."""
+        port = StreamOutput(name, dtype, min_items, min_buffer_size, buffer,
+                            preferred_buffer_size)
         self._stream_outputs.append(port)
         return port
 

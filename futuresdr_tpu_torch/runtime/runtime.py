@@ -53,34 +53,41 @@ from .kernel import Kernel
 from .scheduler import AsyncScheduler, Scheduler
 
 __all__ = ["Runtime", "RuntimeHandle", "FlowgraphHandle", "RunningFlowgraph",
-           "FlowgraphError", "FlowgraphCancelled", "InitializedMsg", "BlockDoneMsg",
-           "BlockErrorMsg", "BlockRestartMsg", "BlockCallMsg", "BlockCallbackMsg", "DescribeMsg",
-           "MetricsMsg", "TerminateMsg", "CancelMsg"]
+           "FlowgraphError", "FlowgraphCancelled", "FlowgraphMessage", "InitializedMsg",
+           "BlockDoneMsg", "BlockErrorMsg", "BlockRestartMsg", "BlockCallMsg",
+           "BlockCallbackMsg", "DescribeMsg", "MetricsMsg", "TerminateMsg", "CancelMsg"]
 
 log = logger("runtime")
 _trace = _trace_recorder()
 
 
 # ---- messages to the supervisor ------------------------------------------------
+class FlowgraphMessage:
+    """The base of every message a block or a handle sends the supervisor."""
+
+    __slots__ = ()
+
+
 @dataclass(frozen=True)
-class InitializedMsg:
+class InitializedMsg(FlowgraphMessage):
     block_id: int
+    ok: bool
 
 
 @dataclass(frozen=True)
-class BlockDoneMsg:
+class BlockDoneMsg(FlowgraphMessage):
     block_id: int
     block: WrappedKernel
 
 
 @dataclass(frozen=True)
-class BlockErrorMsg:
+class BlockErrorMsg(FlowgraphMessage):
     block_id: int
     error: Exception
 
 
 @dataclass(frozen=True)
-class BlockRestartMsg:
+class BlockRestartMsg(FlowgraphMessage):
     """A block restarted itself under its ``restart`` policy (the supervisor
     records the decision; the block does the re-init)."""
     block_id: int
@@ -90,14 +97,14 @@ class BlockRestartMsg:
 
 
 @dataclass(frozen=True)
-class BlockCallMsg:
+class BlockCallMsg(FlowgraphMessage):
     block_id: int
     port: Any
     data: Pmt
 
 
 @dataclass(frozen=True)
-class BlockCallbackMsg:
+class BlockCallbackMsg(FlowgraphMessage):
     block_id: int
     port: Any
     data: Pmt
@@ -105,22 +112,22 @@ class BlockCallbackMsg:
 
 
 @dataclass(frozen=True)
-class DescribeMsg:
+class DescribeMsg(FlowgraphMessage):
     reply: ReplySlot
 
 
 @dataclass(frozen=True)
-class MetricsMsg:
+class MetricsMsg(FlowgraphMessage):
     reply: ReplySlot
 
 
 @dataclass(frozen=True)
-class TerminateMsg:
+class TerminateMsg(FlowgraphMessage):
     """Stop the flowgraph: a terminate cascade, and a clean end."""
 
 
 @dataclass(frozen=True)
-class CancelMsg:
+class CancelMsg(FlowgraphMessage):
     """Stop the flowgraph with an error: a terminate cascade, and the run
     raises a :class:`FlowgraphError` carrying a :class:`FlowgraphCancelled`.
     ``flight_record`` is the doctor's dump path when one was written (the

@@ -22,9 +22,12 @@ from typing import Awaitable, List, Optional
 
 import torch
 
+from ...log import logger
 from .base import Scheduler
 
 __all__ = ["AsyncScheduler"]
+
+log = logger("scheduler.async")
 
 
 def _finalize_loop_on_drop(owner, loop, pool) -> None:
